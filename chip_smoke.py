@@ -1,0 +1,318 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (yoda_scheduler_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line; any failure exits non-zero:
+
+1. build: the card's name and power limit, and the CUDA kernels compiled
+   from the sources in this checkout (nvcc, sm_90a).
+2. kernel: the flash forward kernel against its plain version on the card
+   at the main path's shape and at GQA, cross-length, window, non-causal,
+   fp32 and ragged shapes, with the kernel's, the plain version's and one
+   library call's times and the card's bound for the same work.
+3. forward: Llama-2-7B width, all 32 layers, bf16, random weights from a
+   seed, B=1, S=2048: one `llama_forward` must launch the kernel once per
+   layer, and its logits must agree with the forward through the plain
+   attention.
+4. serving: the same weights answer 4 requests (512-token prompts, 64 new
+   tokens, greedy) twice with equal tokens, prefill agrees with the
+   forward, and one sampled request is deterministic per seed.
+
+Then a line listing every kernel of the path, and last the device line.
+Full results also go to chiprun_out/chip_smoke.json.
+"""
+
+from __future__ import annotations
+
+import importlib
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+H100_BF16_FLOPS = 989e12   # dense tensor-core peak, NVIDIA data sheet (SXM)
+H100_FP32_FLOPS = 67e12    # fp32 outside the tensor cores
+H100_HBM_BYTES = 3.35e12   # bytes/s
+PEAK_FLOPS = {torch.bfloat16: H100_BF16_FLOPS, torch.float32: H100_FP32_FLOPS}
+
+# phase 2 tolerances, |kernel - plain| <= atol + rtol * |plain|:
+# bf16 O: the plain version rounds the probabilities to bf16 before P.V and
+#   the kernel rounds only its output, about one bf16 ulp at |O| < 4;
+# fp32 O: summation order only (the plain products run in full fp32);
+# LSE is fp32 on both sides; the kernel scales q before Q.K^T and the plain
+#   version scales the scores after it.
+TOL = {torch.bfloat16: dict(o=2e-2, lse=1e-3), torch.float32: dict(o=1e-4, lse=1e-4)}
+# phases 3-4: relative L2 error of the logits against the plain path. Each
+# of 32 bf16 layers rounds its attention differently in the two paths and
+# the residual stream carries the differences on; two plain bf16 paths of 32
+# layers at width 128 already differ by 2.4e-2 on the CPU. A wrong mask or
+# index gives an error of order 1.
+LOGITS_REL_L2 = 1e-1
+
+RESULTS: dict = {}
+
+
+def emit(phase: str, **fields) -> None:
+    RESULTS[phase] = fields
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def cuda_time_ms(fn, iters: int) -> float:
+    """Mean device time of one call over `iters` calls after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def visible_pairs(sq: int, sk: int, causal: bool, window: int | None) -> int:
+    """(query, key) pairs the mask lets through: the work these inputs need."""
+    if not causal:
+        return sq * sk
+    total = 0
+    for i in range(sq):
+        qp = sk - sq + i
+        lo = 0 if window is None else max(0, qp - window + 1)
+        total += qp - lo + 1
+    return total
+
+
+def attention_bound(b, h, kvh, sq, sk, d, causal, window, dtype):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    (q, k, v read once, O and LSE written once) and the two products' flops
+    over the peak rate of the dtype."""
+    esize = torch.tensor([], dtype=dtype).element_size()
+    nbytes = esize * d * (2 * b * h * sq + 2 * b * kvh * sk) + 4 * b * h * sq
+    flops = 4 * b * h * d * visible_pairs(sq, sk, causal, window)
+    t_bytes = nbytes / H100_HBM_BYTES * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def rel_l2(a, b) -> float:
+    return float(torch.linalg.vector_norm((a - b).float())
+                 / torch.linalg.vector_norm(b.float()))
+
+
+def phase_build(build):
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(smi, flush=True)
+    t0 = time.perf_counter()
+    build.load("flash_fwd")
+    info = build.build_info.get("flash_fwd", {})
+    ptxas = [ln.strip() for ln in info.get("log", "").splitlines()
+             if "registers" in ln or "spill" in ln]
+    emit("build", nvidia_smi=smi, device=torch.cuda.get_device_name(0),
+         torch=torch.__version__, cuda=torch.version.cuda,
+         build_s=time.perf_counter() - t0,
+         nvcc_s=info.get("seconds"), ptxas=ptxas)
+    return smi
+
+
+# (name, b, h, kvh, sq, sk, d, causal, window, dtype, offset): offset 1
+# shifts the tensors off 16-byte alignment, which routes bf16 to the SIMT
+# kernel instead of the tensor-core one
+SHAPES = [
+    ("main", 1, 32, 32, 2048, 2048, 128, True, None, torch.bfloat16, 0),
+    ("gqa", 1, 32, 8, 2048, 2048, 128, True, None, torch.bfloat16, 0),
+    ("cross_length", 1, 32, 32, 256, 1024, 128, True, None, torch.bfloat16, 0),
+    ("window_512", 1, 32, 32, 2048, 2048, 128, True, 512, torch.bfloat16, 0),
+    ("non_causal", 1, 32, 32, 1024, 1024, 128, False, None, torch.bfloat16, 0),
+    ("fp32_d64", 1, 16, 16, 1024, 1024, 64, True, None, torch.float32, 0),
+    ("ragged_300", 2, 8, 4, 300, 300, 128, True, None, torch.bfloat16, 0),
+    ("main_unaligned", 1, 32, 32, 2048, 2048, 128, True, None, torch.bfloat16, 1),
+]
+
+
+def kernel_route(dtype, offset) -> str:
+    """Which of flash_fwd.cu's two kernels these inputs take."""
+    return "mma" if dtype == torch.bfloat16 and offset == 0 else "simt"
+
+
+def phase_kernel(attn):
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows, max_err = [], 0.0
+    for name, b, h, kvh, sq, sk, d, causal, window, dtype, offset in SHAPES:
+        def rand(*shape):
+            n = math.prod(shape)
+            x = torch.randn(n + offset, generator=gen, device="cuda").to(dtype)
+            return x[offset:].view(shape)
+        q, k, v = rand(b, h, sq, d), rand(b, kvh, sk, d), rand(b, kvh, sk, d)
+        o, lse = attn.flash_fwd(q, k, v, causal, window)
+        torch.cuda.synchronize()
+        ro, rlse = attn.reference_attention_with_lse(q, k, v, causal, window)
+        tol = TOL[dtype]
+        err_o = float((o.float() - ro.float()).abs().max())
+        err_lse = float((lse - rlse).abs().max())
+        ok = (bool(torch.isfinite(o).all())
+              and torch.allclose(o.float(), ro.float(), atol=tol["o"], rtol=tol["o"])
+              and torch.allclose(lse, rlse, atol=tol["lse"], rtol=tol["lse"]))
+        ms = cuda_time_ms(lambda: attn.flash_fwd(q, k, v, causal, window), 20)
+        plain_ms = cuda_time_ms(
+            lambda: attn.reference_attention_with_lse(q, k, v, causal, window), 5)
+        library_ms = None
+        if name == "main":  # the yardstick, timed here and used nowhere in the port
+            library_ms = cuda_time_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, is_causal=True), 20)
+        bound_ms, bound_by = attention_bound(b, h, kvh, sq, sk, d, causal,
+                                             window, dtype)
+        row = dict(shape=name, kernel=kernel_route(dtype, offset), b=b, h=h,
+                   kvh=kvh, sq=sq, sk=sk, d=d, causal=causal, window=window,
+                   dtype=str(dtype).split(".")[1],
+                   max_abs_err_o=err_o, max_abs_err_lse=err_lse, atol=tol,
+                   ok=ok, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=bound_ms, bound_by=bound_by)
+        print(json.dumps({"phase": "kernel", **row}), flush=True)
+        rows.append(row)
+        max_err = max(max_err, err_o)
+        if not ok:
+            raise SystemExit(f"flash_fwd disagrees with its plain version at {name}")
+    RESULTS["kernel"] = rows
+    return rows, max_err
+
+
+def phase_forward(attn, llama):
+    cfg = llama.LlamaConfig.llama2_7b()
+    t0 = time.perf_counter()
+    params = llama.init_llama(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen,
+                           device="cuda")
+    with torch.no_grad():
+        attn.flash_fwd.launches = 0
+        logits = llama.llama_forward(params, tokens, cfg)
+        torch.cuda.synchronize()
+        launches = attn.flash_fwd.launches
+        if launches != cfg.n_layers:
+            raise SystemExit(f"llama_forward launched flash_fwd {launches} "
+                             f"times, expected {cfg.n_layers}")
+        ref = llama.llama_forward(params, tokens, cfg,
+                                  attn_impl=attn.reference_attention)
+        err = rel_l2(logits, ref)
+        if (tuple(logits.shape) != (1, 2048, cfg.vocab_size)
+                or not bool(torch.isfinite(logits).all()) or err > LOGITS_REL_L2):
+            raise SystemExit(f"forward logits wrong: shape {tuple(logits.shape)}, "
+                             f"rel L2 {err}")
+        del ref
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            llama.llama_forward(params, tokens, cfg)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    emit("forward", config="llama2_7b", layers=cfg.n_layers, batch=1, seq=2048,
+         dtype=cfg.dtype, init_s=init_s, flash_fwd_launches=launches,
+         logits_rel_l2_vs_plain=err, bound=LOGITS_REL_L2, forward_ms=times,
+         forward_ms_median=statistics.median(times),
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return cfg, params, launches
+
+
+def phase_serving(cfg, params, llama, gen_mod):
+    b, plen, new = 4, 512, 64
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    prompts = torch.randint(0, cfg.vocab_size, (b, plen), generator=gen,
+                            device="cuda")
+    with torch.no_grad():
+        cache = gen_mod.KVCache.zeros(cfg, b, plen + new, device="cuda")
+        gen_mod.prefill(params, prompts, cache, cfg)  # warm-up
+        prefill_ms = []
+        for _ in range(3):
+            cache = gen_mod.KVCache.zeros(cfg, b, plen + new, device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            last, cache = gen_mod.prefill(params, prompts, cache, cfg)
+            torch.cuda.synchronize()
+            prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        del cache
+        fwd_last = llama.llama_forward(params, prompts, cfg)[:, -1]
+        err = rel_l2(last, fwd_last)
+        first_agree = int((last.argmax(-1) == fwd_last.argmax(-1)).sum())
+    if err > LOGITS_REL_L2:
+        raise SystemExit(f"prefill logits disagree with llama_forward: rel L2 {err}")
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = gen_mod.generate(params, prompts, cfg, new)
+        torch.cuda.synchronize()
+        runs.append((toks, (time.perf_counter() - t0) * 1e3))
+    (toks, gen_ms), (toks2, gen_ms2) = runs
+    if tuple(toks.shape) != (b, new) or not torch.equal(toks, toks2):
+        raise SystemExit("greedy generation is not repeatable")
+    if int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+        raise SystemExit("generated token out of the vocabulary")
+    sampled = [gen_mod.generate(params, prompts[:1], cfg, new, temperature=0.8,
+                                generator=torch.Generator(device="cuda").manual_seed(7))
+               for _ in range(2)]
+    if not torch.equal(*sampled):
+        raise SystemExit("sampling is not deterministic per seed")
+    p_ms = statistics.median(prefill_ms)
+    steps = new - 1  # the last token needs no forward
+    decode_ms = statistics.median([gen_ms, gen_ms2]) - p_ms
+    emit("serving", requests=b, prompt_tokens=plen, new_tokens=new,
+         prefill_ms=prefill_ms, prefill_ms_median=p_ms,
+         prefill_logits_rel_l2_vs_forward=err, bound=LOGITS_REL_L2,
+         first_token_argmax_agree=f"{first_agree}/{b}",
+         generate_ms=[gen_ms, gen_ms2], decode_steps=steps,
+         decode_ms_per_step=decode_ms / steps,
+         decode_tokens_per_s=b * steps / (decode_ms / 1e3),
+         greedy_repeatable=True, sampled_deterministic=True,
+         sampled_tokens=sampled[0].shape[1])
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    from yoda_scheduler_tpu_torch.models import llama
+    from yoda_scheduler_tpu_torch.ops import _build, attention as attn
+
+    gen_mod = importlib.import_module("yoda_scheduler_tpu_torch.models.generate")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    phase_build(_build)
+    rows, max_err = phase_kernel(attn)
+    cfg, params, launches = phase_forward(attn, llama)
+    phase_serving(cfg, params, llama, gen_mod)
+
+    main_row = rows[0]
+    kernels = {"kernels": [{
+        "name": "flash_fwd", "route": "cuda",
+        "source": "yoda_scheduler_tpu_torch/ops/csrc/flash_fwd.cu",
+        "replaces": "yoda_scheduler_tpu/ops/attention.py:68",
+        "launches": launches, "max_abs_err": max_err,
+        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+        "library_ms": main_row["library_ms"]}]}
+    RESULTS["kernels"] = kernels
+    out = Path(__file__).resolve().parent / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "chip_smoke.json").write_text(json.dumps(RESULTS, indent=1))
+    print(json.dumps(kernels), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -24,3 +24,7 @@ def pytest_configure(config):
         "markers",
         "slow: full chaos-fuzz matrix seeds (CI chaos job); tier-1 runs "
         "-m 'not slow' and keeps only the smoke subset")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (the PyTorch port's CUDA kernels); "
+        "skips where torch.cuda.is_available() is false")

@@ -1,0 +1,157 @@
+"""The PyTorch port's Llama (yoda_scheduler_tpu_torch/models/llama.py)
+against the JAX package's on the same weights and inputs: the JAX params
+go through `params_from_jax`, the inputs are made with numpy from a seed."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from yoda_scheduler_tpu.models import llama as jllama
+from yoda_scheduler_tpu_torch.models import llama as tllama
+from yoda_scheduler_tpu_torch.models import params_from_jax
+
+# tiny shapes: one intra-op thread, so that the other test workers keep
+# their cores
+torch.set_num_threads(1)
+
+TINY = {
+    "float32": dataclasses.replace(jllama.LlamaConfig.tiny(), dtype="float32"),
+    "bfloat16": jllama.LlamaConfig.tiny(),
+    "window": dataclasses.replace(jllama.LlamaConfig.tiny(), dtype="float32",
+                                  sliding_window=16),
+}
+
+
+def _twin(jcfg):
+    """The port's config with the same fields."""
+    return tllama.LlamaConfig(**dataclasses.asdict(jcfg))
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+@pytest.fixture(scope="module", params=list(TINY))
+def model(request):
+    """(name, jax config, jax params, port config, port params, tokens)."""
+    jcfg = TINY[request.param]
+    jparams = jllama.init_llama(jcfg, jax.random.PRNGKey(0))
+    tcfg = _twin(jcfg)
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg,
+                              device="cpu")
+    tokens = np.random.default_rng(1).integers(0, jcfg.vocab_size, (2, 48))
+    return request.param, jcfg, jparams, tcfg, tparams, tokens
+
+
+# fp32 (and the fp32 window model): the two frameworks differ only in the
+# order of their fp32 sums, so logits agree to ~1e-6 relative; 1e-4 leaves
+# room for two layers of it. bf16: every matmul output is rounded to bf16
+# in both, at places that differ by an ulp, so the logits are held by their
+# relative L2 error instead (7.1e-3 on this CPU at tiny(), seed 0; bound
+# 2e-2).
+def _close(name, got, want):
+    if name == "bfloat16":
+        rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+        assert rel < 2e-2, rel
+    else:
+        np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_forward_logits_match_jax(model):
+    name, jcfg, jparams, tcfg, tparams, tokens = model
+    want = jllama.llama_forward(jparams, jnp.asarray(tokens), jcfg)
+    got = tllama.llama_forward(tparams, torch.from_numpy(tokens), tcfg)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    _close(name, _np(got), _np(want))
+
+
+def test_loss_matches_jax(model):
+    name, jcfg, jparams, tcfg, tparams, tokens = model
+    want = float(jllama.llama_loss(jparams, jnp.asarray(tokens), jcfg))
+    got = float(tllama.llama_loss(tparams, torch.from_numpy(tokens), tcfg))
+    assert got == pytest.approx(want, rel=1e-4 if name != "bfloat16" else 2e-2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rms_norm_matches_jax(dtype):
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((2, 5, 64), dtype=np.float32)
+    w = rng.standard_normal((64,), dtype=np.float32)
+    want = jllama.rms_norm(jnp.asarray(x).astype(dtype), jnp.asarray(w), 1e-5)
+    got = tllama.rms_norm(torch.from_numpy(x).to(getattr(torch, dtype)),
+                          torch.from_numpy(w), 1e-5)
+    assert got.dtype == getattr(torch, dtype)
+    # fp32: summation order; bf16: one output rounding at most
+    tol = 1e-6 if dtype == "float32" else 1e-2
+    np.testing.assert_allclose(_np(got), _np(want), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("with_positions", [False, True])
+def test_rotary_matches_jax(with_positions):
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 7, 3, 32), dtype=np.float32)
+    pos = rng.integers(0, 400, (2, 7)) if with_positions else None
+    want = jllama.rotary(jnp.asarray(x), 10000.0,
+                         None if pos is None else jnp.asarray(pos))
+    got = tllama.rotary(torch.from_numpy(x), 10000.0,
+                        None if pos is None else torch.from_numpy(pos))
+    # cos/sin of angles up to ~400 rad differ by a few fp32 ulps of the
+    # angle between the two libraries
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-4, rtol=1e-4)
+
+
+def test_params_from_jax_splits_layers_and_keeps_dtypes():
+    jcfg = jllama.LlamaConfig.tiny()
+    jparams = jax.tree.map(np.asarray,
+                           jllama.init_llama(jcfg, jax.random.PRNGKey(0)))
+    tparams = params_from_jax(jparams, _twin(jcfg), device="cpu")
+    assert len(tparams["layers"]) == jcfg.n_layers
+    for i, layer in enumerate(tparams["layers"]):
+        for name, t in layer.items():
+            want = jparams["layers"][name][i]
+            assert t.dtype == (torch.bfloat16 if want.dtype.name == "bfloat16"
+                               else torch.float32)
+            np.testing.assert_array_equal(_np(t), want.astype(np.float32))
+    assert tparams["layers"][0]["attn_norm"].dtype == torch.float32
+
+
+def test_init_matches_jax_shapes_and_is_seeded():
+    jcfg = jllama.LlamaConfig.tiny()
+    jparams = jllama.init_llama(jcfg, jax.random.PRNGKey(0))
+    a = tllama.init_llama(_twin(jcfg), seed=3, device="cpu")
+    b = tllama.init_llama(_twin(jcfg), seed=3, device="cpu")
+    for name in ("embed", "final_norm", "lm_head"):
+        assert tuple(a[name].shape) == jparams[name].shape
+        assert str(a[name].dtype).split(".")[1] == str(jparams[name].dtype)
+        assert torch.equal(a[name], b[name])
+    for name, t in a["layers"][1].items():
+        assert tuple(t.shape) == jparams["layers"][name].shape[1:]
+        assert str(t.dtype).split(".")[1] == str(jparams["layers"][name].dtype)
+    # N(0, 1/fan_in): wq's std is 1/sqrt(dim)
+    std = a["layers"][0]["wq"].float().std().item()
+    assert std == pytest.approx(jcfg.dim ** -0.5, rel=0.05)
+
+
+def test_moe_is_not_ported_yet():
+    cfg = tllama.LlamaConfig.tiny_moe()
+    with pytest.raises(NotImplementedError, match="MoE"):
+        tllama.init_llama(cfg, device="cpu")
+
+
+def test_custom_attention_with_window_raises():
+    cfg = dataclasses.replace(tllama.LlamaConfig.tiny(), sliding_window=8)
+    with pytest.raises(ValueError, match="sliding_window"):
+        tllama.llama_forward({}, torch.zeros(1, 4, dtype=torch.int64), cfg,
+                             attn_impl=lambda q, k, v: q)
+
+
+def test_presets_mirror_jax():
+    for preset in ("llama2_7b", "tiny", "tiny_moe"):
+        assert (dataclasses.asdict(getattr(tllama.LlamaConfig, preset)())
+                == dataclasses.asdict(getattr(jllama.LlamaConfig, preset)()))

@@ -1,0 +1,13 @@
+from .attention import (
+    flash_attention,
+    flash_attention_with_lse,
+    reference_attention,
+    reference_attention_with_lse,
+)
+
+__all__ = [
+    "flash_attention",
+    "flash_attention_with_lse",
+    "reference_attention",
+    "reference_attention_with_lse",
+]

@@ -1,0 +1,120 @@
+"""Where the time goes on the port's path, at Llama-2-7B width on one GPU.
+
+    python3 -m yoda_scheduler_tpu_torch.profile_path
+
+Traces with torch.profiler, after a warm-up, one `llama_forward` (B=1,
+S=2048), one `prefill` (4 requests x 512 tokens) and 16 `decode_step`s of
+those requests (their prefill outside the trace). For each window it
+prints one JSON line: the host wall time, the device's busy time (the union
+of kernel intervals) and idle share, the kernel launches, and the kernels
+with the most device time, grouped into attention kernel / matmul / other.
+The full report goes to chiprun_out/profile_path.json.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+import torch
+
+from .models import (KVCache, LlamaConfig, decode_step, init_llama,
+                     llama_forward, prefill)
+
+
+def _group(name: str) -> str:
+    low = name.lower()
+    if "flash_fwd" in low:
+        return "attention_kernel"
+    if any(s in low for s in ("gemm", "xmma", "cutlass", "nvjet", "matmul")):
+        return "matmul"
+    return "other"
+
+
+def trace(label: str, fn, setup=lambda: None) -> dict:
+    """Profile `fn(setup())` after one warm-up call on its own setup."""
+    fn(setup())
+    state = setup()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn(state)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise SystemExit(f"{label}: the profiler recorded no device kernels")
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy_us, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy_us += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy_us += cur_e - cur_s
+    by_name, by_group = defaultdict(lambda: [0.0, 0]), defaultdict(float)
+    for e in kernels:
+        dur = e.time_range.end - e.time_range.start
+        by_name[e.name][0] += dur
+        by_name[e.name][1] += 1
+        by_group[_group(e.name)] += dur
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    report = {
+        "window": label, "wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
+        "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms,
+        "kernel_launches": len(kernels),
+        "device_ms_by_group": {k: v / 1e3 for k, v in by_group.items()},
+        "top_kernels": [{"name": n[:90], "ms": t / 1e3, "count": c}
+                        for n, (t, c) in top],
+    }
+    print(json.dumps(report), flush=True)
+    return report
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_path: CUDA is not available", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(smi, flush=True)
+    cfg = LlamaConfig.llama2_7b()
+    params = init_llama(cfg, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen, device="cuda")
+    prompts = torch.randint(0, cfg.vocab_size, (4, 512), generator=gen, device="cuda")
+    steps = 16
+
+    def prefilled():
+        return prefill(params, prompts, KVCache.zeros(cfg, 4, 512 + steps), cfg)
+
+    def decode(state):
+        logits, cache = state
+        for _ in range(steps):
+            logits, cache = decode_step(params, logits.argmax(-1), cache, cfg)
+
+    with torch.no_grad():
+        reports = [
+            trace("forward_b1_s2048", lambda _: llama_forward(params, tokens, cfg)),
+            trace("prefill_4x512", lambda _: prefilled()),
+            trace(f"decode_4x{steps}_steps", decode, setup=prefilled),
+        ]
+    out = Path(__file__).resolve().parents[1] / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "profile_path.json").write_text(json.dumps(
+        {"nvidia_smi": smi, "reports": reports}, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
