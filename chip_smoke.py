@@ -6,18 +6,27 @@
 Phases, each printing one JSON line; any failure exits non-zero:
 
 1. build: the card's name and power limit, and the CUDA kernels compiled
-   from the sources in this checkout (nvcc, sm_90a).
+   from the sources in this checkout (nvcc, sm_90a, one process per source).
 2. kernel: the flash forward kernel against its plain version on the card
    at the main path's shape and at GQA, cross-length, window, non-causal,
    fp32 and ragged shapes, with the kernel's, the plain version's and one
    library call's times and the card's bound for the same work.
-3. forward: Llama-2-7B width, all 32 layers, bf16, random weights from a
+3. backward: the dQ and dK/dV kernels against the plain backward at the
+   same shapes (a non-zero LSE cotangent at some), twice with equal bits,
+   with their times, the plain backward's, the bound of each, and at the
+   main shape the library's backward.
+4. forward: Llama-2-7B width, all 32 layers, bf16, random weights from a
    seed, B=1, S=2048: one `llama_forward` must launch the kernel once per
    layer, and its logits must agree with the forward through the plain
    attention.
-4. serving: the same weights answer 4 requests (512-token prompts, 64 new
+5. serving: the same weights answer 4 requests (512-token prompts, 64 new
    tokens, greedy) twice with equal tokens, prefill agrees with the
    forward, and one sampled request is deterministic per seed.
+6. gradient: at 7B width with 4 layers, the loss's gradient through the
+   kernels against the gradient through the plain attention, every leaf.
+7. train: the 7B-width, 32-layer, bf16 train step (remat, AdamW), B=1,
+   S=2048, 4 steps on one batch: launches per step, a falling loss, step
+   time, tokens/s, MFU and peak memory.
 
 Then a line listing every kernel of the path, and last the device line.
 Full results also go to chiprun_out/chip_smoke.json.
@@ -25,6 +34,8 @@ Full results also go to chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import importlib
 import json
 import math
@@ -54,6 +65,21 @@ TOL = {torch.bfloat16: dict(o=2e-2, lse=1e-3), torch.float32: dict(o=1e-4, lse=1
 # layers at width 128 already differ by 2.4e-2 on the CPU. A wrong mask or
 # index gives an error of order 1.
 LOGITS_REL_L2 = 1e-1
+# phase 3 tolerance, as phase 2's: the plain backward rounds P and dS to the
+# input dtype where the kernels round them, so bf16 results differ by the
+# order of fp32 sums, which moves a rounding by one bf16 ulp now and then;
+# fp32 results differ by summation order only.
+BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+BWD_G_LSE = {"gqa", "cross_length", "ragged_300"}  # shapes with a non-zero LSE cotangent
+# phase 6: relative L2 error of each leaf's gradient against the gradient
+# through the plain attention. The two round at different places in bf16:
+# autograd of the plain attention rounds the probabilities and their
+# gradient dP to bf16 and keeps dS in fp32, the kernels keep dP in fp32 and
+# round P and dS; every matmul of the backward then rounds its bf16 output,
+# and 4 layers carry the differences on. A wrong mask or index moves the
+# attention gradients by tens of percent.
+GRAD_REL_L2 = 5e-2
+TRAIN_STEPS = 4   # one warm-up step, then three timed
 
 RESULTS: dict = {}
 
@@ -89,6 +115,12 @@ def visible_pairs(sq: int, sk: int, causal: bool, window: int | None) -> int:
     return total
 
 
+def _bound(nbytes, flops, dtype):
+    t_bytes = nbytes / H100_HBM_BYTES * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
 def attention_bound(b, h, kvh, sq, sk, d, causal, window, dtype):
     """(bound_ms, bound_by): the larger of the bytes over the memory rate
     (q, k, v read once, O and LSE written once) and the two products' flops
@@ -96,14 +128,36 @@ def attention_bound(b, h, kvh, sq, sk, d, causal, window, dtype):
     esize = torch.tensor([], dtype=dtype).element_size()
     nbytes = esize * d * (2 * b * h * sq + 2 * b * kvh * sk) + 4 * b * h * sq
     flops = 4 * b * h * d * visible_pairs(sq, sk, causal, window)
-    t_bytes = nbytes / H100_HBM_BYTES * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return _bound(nbytes, flops, dtype)
+
+
+def backward_bounds(b, h, kvh, sq, sk, d, causal, window, dtype):
+    """{"dq": (bound_ms, bound_by), "dkv": ...}. dQ: q, dO and k, v read,
+    dQ written, LSE and delta read (8 bytes a row); 6 D flops a visible pair
+    (S, dP, dS K). dK/dV: the same reads, dK and dV written (one per q
+    head, as the kernel writes them); 8 D flops a visible pair (S, dP,
+    P^T dO, dS^T Q)."""
+    esize = torch.tensor([], dtype=dtype).element_size()
+    pairs = visible_pairs(sq, sk, causal, window)
+    reads = esize * d * (2 * b * h * sq + 2 * b * kvh * sk) + 8 * b * h * sq
+    return {"dq": _bound(reads + esize * d * b * h * sq, 6 * b * h * d * pairs, dtype),
+            "dkv": _bound(reads + 2 * esize * d * b * h * sk, 8 * b * h * d * pairs,
+                          dtype)}
 
 
 def rel_l2(a, b) -> float:
     return float(torch.linalg.vector_norm((a - b).float())
                  / torch.linalg.vector_norm(b.float()))
+
+
+def reset_launches(attn) -> None:
+    for fn in (attn.flash_fwd, attn.flash_bwd_dq, attn.flash_bwd_dkv):
+        fn.launches = 0
+
+
+def read_launches(attn) -> dict:
+    return {fn.__name__: fn.launches
+            for fn in (attn.flash_fwd, attn.flash_bwd_dq, attn.flash_bwd_dkv)}
 
 
 def phase_build(build):
@@ -112,14 +166,16 @@ def phase_build(build):
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(smi, flush=True)
     t0 = time.perf_counter()
-    build.load("flash_fwd")
-    info = build.build_info.get("flash_fwd", {})
-    ptxas = [ln.strip() for ln in info.get("log", "").splitlines()
-             if "registers" in ln or "spill" in ln]
+    names = ("flash_fwd", "flash_bwd")
+    build.load(*names)
+    info = {n: build.build_info.get(n, {}) for n in names}
+    ptxas = {n: [ln.strip() for ln in i.get("log", "").splitlines()
+                 if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+             for n, i in info.items()}
     emit("build", nvidia_smi=smi, device=torch.cuda.get_device_name(0),
          torch=torch.__version__, cuda=torch.version.cuda,
          build_s=time.perf_counter() - t0,
-         nvcc_s=info.get("seconds"), ptxas=ptxas)
+         nvcc_s={n: i.get("seconds") for n, i in info.items()}, ptxas=ptxas)
     return smi
 
 
@@ -138,6 +194,17 @@ SHAPES = [
 ]
 
 
+def rand_inputs(gen, dtype, offset, *shapes):
+    """Normal tensors of `shapes` on the card, each starting `offset`
+    elements into its storage (offset 1 breaks 16-byte alignment)."""
+    out = []
+    for shape in shapes:
+        n = math.prod(shape)
+        x = torch.randn(n + offset, generator=gen, device="cuda").to(dtype)
+        out.append(x[offset:].view(shape))
+    return out
+
+
 def kernel_route(dtype, offset) -> str:
     """Which of flash_fwd.cu's two kernels these inputs take."""
     return "mma" if dtype == torch.bfloat16 and offset == 0 else "simt"
@@ -147,11 +214,8 @@ def phase_kernel(attn):
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows, max_err = [], 0.0
     for name, b, h, kvh, sq, sk, d, causal, window, dtype, offset in SHAPES:
-        def rand(*shape):
-            n = math.prod(shape)
-            x = torch.randn(n + offset, generator=gen, device="cuda").to(dtype)
-            return x[offset:].view(shape)
-        q, k, v = rand(b, h, sq, d), rand(b, kvh, sk, d), rand(b, kvh, sk, d)
+        q, k, v = rand_inputs(gen, dtype, offset, (b, h, sq, d), (b, kvh, sk, d),
+                              (b, kvh, sk, d))
         o, lse = attn.flash_fwd(q, k, v, causal, window)
         torch.cuda.synchronize()
         ro, rlse = attn.reference_attention_with_lse(q, k, v, causal, window)
@@ -186,6 +250,72 @@ def phase_kernel(attn):
     return rows, max_err
 
 
+def sdpa_backward_ms(q, k, v, do) -> float:
+    """The library yardstick: SDPA forward+backward minus its forward, both
+    with inputs that require grad. Timed here only; the port never calls it."""
+    qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+
+    def fwd():
+        return torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (qs, ks, vs), do)
+
+    return cuda_time_ms(fwd_bwd, 20) - cuda_time_ms(fwd, 20)
+
+
+def phase_backward(attn):
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows, max_err = [], {"dq": 0.0, "dkv": 0.0}
+    for name, b, h, kvh, sq, sk, d, causal, window, dtype, offset in SHAPES:
+        q, k, v, do = rand_inputs(gen, dtype, offset, (b, h, sq, d), (b, kvh, sk, d),
+                                  (b, kvh, sk, d), (b, h, sq, d))
+        o, lse = attn.flash_fwd(q, k, v, causal, window)
+        g_lse = (torch.randn((b, h, sq), generator=gen, device="cuda")
+                 if name in BWD_G_LSE else None)
+        delta = attn.backward_delta(o, do, g_lse).contiguous()
+        args = (q, k, v, do, lse, delta, causal, window)
+        runs = []
+        for _ in range(2):
+            dq = attn.flash_bwd_dq(*args)
+            dk, dv = attn.flash_bwd_dkv(*args)
+            runs.append((dq, attn.group_sum(dk, kvh), attn.group_sum(dv, kvh)))
+        torch.cuda.synchronize()
+        repeatable = all(torch.equal(a, b_) for a, b_ in zip(*runs))
+        ref = attn.flash_backward_reference(q, k, v, o, lse, do, causal, window, g_lse)
+        tol = BWD_TOL[dtype]
+        errs, ok = {}, repeatable
+        for nm, got, want in zip(("dq", "dk", "dv"), runs[0], ref):
+            errs[nm] = float((got.float() - want.float()).abs().max())
+            errs[nm + "_rel_l2"] = rel_l2(got, want)
+            ok = (ok and bool(torch.isfinite(got).all())
+                  and torch.allclose(got.float(), want.float(), atol=tol, rtol=tol))
+        del runs, ref
+        ms_dq = cuda_time_ms(lambda: attn.flash_bwd_dq(*args), 20)
+        ms_dkv = cuda_time_ms(lambda: attn.flash_bwd_dkv(*args), 20)
+        plain_ms = cuda_time_ms(lambda: attn.flash_backward_reference(
+            q, k, v, o, lse, do, causal, window, g_lse), 3)
+        library_ms = sdpa_backward_ms(q, k, v, do) if name == "main" else None
+        bounds = backward_bounds(b, h, kvh, sq, sk, d, causal, window, dtype)
+        row = dict(shape=name, kernel=kernel_route(dtype, offset), b=b, h=h,
+                   kvh=kvh, sq=sq, sk=sk, d=d, causal=causal, window=window,
+                   dtype=str(dtype).split(".")[1], g_lse=g_lse is not None,
+                   max_abs_err=errs, atol=tol, bit_repeatable=repeatable, ok=ok,
+                   dq_ms=ms_dq, dkv_ms=ms_dkv, plain_ms=plain_ms,
+                   library_ms=library_ms,
+                   dq_bound_ms=bounds["dq"][0], dq_bound_by=bounds["dq"][1],
+                   dkv_bound_ms=bounds["dkv"][0], dkv_bound_by=bounds["dkv"][1])
+        print(json.dumps({"phase": "backward", **row}), flush=True)
+        rows.append(row)
+        max_err["dq"] = max(max_err["dq"], errs["dq"])
+        max_err["dkv"] = max(max_err["dkv"], errs["dk"], errs["dv"])
+        if not ok:
+            raise SystemExit(f"flash_bwd_dq/dkv disagree with the plain backward "
+                             f"or are not repeatable at {name}")
+    RESULTS["backward"] = rows
+    return rows, max_err
+
+
 def phase_forward(attn, llama):
     cfg = llama.LlamaConfig.llama2_7b()
     t0 = time.perf_counter()
@@ -196,7 +326,7 @@ def phase_forward(attn, llama):
     tokens = torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen,
                            device="cuda")
     with torch.no_grad():
-        attn.flash_fwd.launches = 0
+        reset_launches(attn)
         logits = llama.llama_forward(params, tokens, cfg)
         torch.cuda.synchronize()
         launches = attn.flash_fwd.launches
@@ -278,12 +408,105 @@ def phase_serving(cfg, params, llama, gen_mod):
          sampled_tokens=sampled[0].shape[1])
 
 
+def phase_gradient(attn, llama, train):
+    cfg = dataclasses.replace(llama.LlamaConfig.llama2_7b(), n_layers=4)
+    params = llama.init_llama(cfg, seed=0, device="cuda")
+    leaves = train.param_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen, device="cuda")
+    grads, losses = {}, {}
+    for name, impl in (("kernels", None), ("plain", attn.reference_attention)):
+        reset_launches(attn)
+        loss = llama.llama_loss(params, tokens, cfg, attn_impl=impl, remat=True)
+        loss.backward()
+        torch.cuda.synchronize()
+        if name == "kernels":
+            launches = read_launches(attn)
+        losses[name] = float(loss.detach())
+        grads[name] = [t.grad for t in leaves]
+        for t in leaves:
+            t.grad = None
+    want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
+            "flash_bwd_dkv": cfg.n_layers}
+    if launches != want:
+        raise SystemExit(f"the 4-layer gradient launched {launches}, expected {want}")
+    errs = [rel_l2(a, b) for a, b in zip(grads["kernels"], grads["plain"])]
+    finite = all(bool(torch.isfinite(g).all()) for g in grads["kernels"])
+    names = (["embed"] + [f"layers.{i}.{n}" for i, layer in enumerate(params["layers"])
+                          for n in layer] + ["final_norm", "lm_head"])
+    worst = max(range(len(errs)), key=errs.__getitem__)
+    emit("gradient", config="llama2_7b width, 4 layers", batch=1, seq=2048,
+         dtype=cfg.dtype, launches=launches, loss_kernels=losses["kernels"],
+         loss_plain=losses["plain"], grad_rel_l2_max=errs[worst],
+         grad_rel_l2_worst_leaf=names[worst],
+         grad_rel_l2={n: e for n, e in zip(names, errs)}, bound=GRAD_REL_L2)
+    if not finite or errs[worst] > GRAD_REL_L2:
+        raise SystemExit(f"gradient through the kernels disagrees with the plain "
+                         f"attention: rel L2 {errs[worst]} at {names[worst]}")
+    del params, leaves, grads
+
+
+def phase_train(attn, llama, train):
+    cfg = llama.LlamaConfig.llama2_7b()
+    b, s = 1, 2048
+    torch.cuda.reset_peak_memory_stats()
+    init_fn, step_fn, dev = train.build_llama_train_step(cfg, device="cuda")
+    t0 = time.perf_counter()
+    params, opt_state = init_fn(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda")
+    want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
+            "flash_bwd_dkv": cfg.n_layers}
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        reset_launches(attn)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, loss = step_fn(params, opt_state, tokens)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        launches = read_launches(attn)
+        if launches != want:
+            raise SystemExit(f"a train step launched {launches}, expected {want}")
+        losses.append(loss)
+    losses = [float(x) for x in losses]
+    tensors = (train.param_leaves(params) + [loss]
+               + [t for st in opt_state.state.values() for t in st.values()
+                  if isinstance(t, torch.Tensor)])
+    on_card = all(t.is_cuda for t in tensors)
+    n_params = sum(t.numel() for t in train.param_leaves(params))
+    step_ms = statistics.median(times[1:])
+    tokens_per_s = b * s / (step_ms / 1e3)
+    # bench_mfu.py's convention: 6N + 6 L d S flops a token, remat not counted
+    flops_per_token = 6 * n_params + 6 * cfg.n_layers * cfg.dim * s
+    mfu = flops_per_token * tokens_per_s / H100_BF16_FLOPS
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    emit("train", config="llama2_7b", layers=cfg.n_layers, batch=b, seq=s,
+         dtype=cfg.dtype, remat=True, optimizer="AdamW lr 3e-4 wd 1e-4 (fused)",
+         params=n_params, init_s=init_s, launches_per_step=launches,
+         losses=losses, step_ms=times, step_ms_median=step_ms,
+         tokens_per_s=tokens_per_s, model_tflops_per_s=flops_per_token * tokens_per_s / 1e12,
+         mfu=mfu, peak_mem_gb=peak_gb, all_on_card=on_card)
+    # every later step's loss below the first: AdamW at 3e-4 with no
+    # warm-up overshoots after its first large drop on one batch
+    if not all(math.isfinite(x) and x < losses[0] for x in losses[1:]):
+        raise SystemExit(f"training loss not finite and falling: {losses}")
+    if not on_card:
+        raise SystemExit("a parameter, optimizer state or the loss left the card")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     from yoda_scheduler_tpu_torch.models import llama
     from yoda_scheduler_tpu_torch.ops import _build, attention as attn
+    from yoda_scheduler_tpu_torch.parallel import train
 
     gen_mod = importlib.import_module("yoda_scheduler_tpu_torch.models.generate")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -291,18 +514,39 @@ def main() -> int:
 
     phase_build(_build)
     rows, max_err = phase_kernel(attn)
-    cfg, params, launches = phase_forward(attn, llama)
+    bwd_rows, bwd_err = phase_backward(attn)
+    cfg, params, fwd_launches = phase_forward(attn, llama)
     phase_serving(cfg, params, llama, gen_mod)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_gradient(attn, llama, train)
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_launches = phase_train(attn, llama, train)
 
-    main_row = rows[0]
+    main_row, bwd_main = rows[0], bwd_rows[0]
+    src = "yoda_scheduler_tpu_torch/ops/csrc/"
     kernels = {"kernels": [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "yoda_scheduler_tpu_torch/ops/csrc/flash_fwd.cu",
+        "name": "flash_fwd", "route": "cuda", "source": src + "flash_fwd.cu",
         "replaces": "yoda_scheduler_tpu/ops/attention.py:68",
-        "launches": launches, "max_abs_err": max_err,
+        "launches": step_launches["flash_fwd"],
+        "launches_by_path": {"forward": fwd_launches,
+                             "train_step": step_launches["flash_fwd"]},
+        "max_abs_err": max_err,
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"]}]}
+        "library_ms": main_row["library_ms"]}] + [{
+        "name": name, "route": "cuda", "source": src + "flash_bwd.cu",
+        "replaces": f"yoda_scheduler_tpu/ops/attention.py:{line}",
+        "launches": step_launches[name],
+        "launches_by_path": {"train_step": step_launches[name]},
+        "max_abs_err": bwd_err[key], "ms": bwd_main[f"{key}_ms"],
+        "plain_ms": bwd_main["plain_ms"], "bound_ms": bwd_main[f"{key}_bound_ms"],
+        "bound_by": bwd_main[f"{key}_bound_by"],
+        "library_ms": bwd_main["library_ms"]}
+        for name, key, line in (("flash_bwd_dq", "dq", 219),
+                                ("flash_bwd_dkv", "dkv", 270))]}
     RESULTS["kernels"] = kernels
     out = Path(__file__).resolve().parent / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -1,11 +1,15 @@
 """The PyTorch port's attention (yoda_scheduler_tpu_torch/ops/attention.py)
-against the JAX package's flash attention on the same inputs.
+against the JAX package's flash attention on the same inputs, forward and
+backward.
 
-On the CPU the port's wrappers take the plain version and the JAX side runs
-its Pallas kernel in interpret mode (or its own plain path for shapes it
-cannot tile). The CUDA kernel itself is held against the plain version on
-the card by chip_smoke.py."""
+On the CPU the port's wrappers take the plain versions and the JAX side runs
+its Pallas kernels in interpret mode (or its own plain path for shapes it
+cannot tile). The CUDA kernels themselves are held against the plain
+versions on the card by chip_smoke.py and tests/test_torch_cuda.py."""
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -134,3 +138,83 @@ def test_kernel_launcher_refuses_cpu_tensors():
     q = torch.zeros(1, 2, 8, 32)
     with pytest.raises(ValueError, match="CUDA"):
         tattn.flash_fwd(q, q, q)
+
+
+# backward: a loss of both outputs, sum(O * dO) + sum(LSE * g), as
+# tests/test_ops.py's gradient test does. fp32: the JAX suite's own 5e-5.
+# bf16: 0.08 abs, the JAX suite's bf16 backward bound (tests/test_ops.py):
+# the JAX kernels compute in fp32 and round their outputs, the port's plain
+# versions round P and dS (and autograd its probabilities) to bf16 as well.
+BWD_TOL = {"float32": dict(atol=5e-5, rtol=5e-5), "bfloat16": dict(atol=0.08, rtol=0)}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_backward(case, dtype):
+    """(inputs as numpy, cotangents as numpy, JAX's dq, dk, dv as numpy)."""
+    *_, causal, window = CASES[case]
+    (jq, jk, jv), _ = _inputs(case, dtype)
+    rng = np.random.default_rng(7)
+    do = rng.standard_normal(jq.shape, dtype=np.float32)
+    g = rng.standard_normal(jq.shape[:3], dtype=np.float32)
+    _, vjp = jax.vjp(lambda q, k, v: jattn.flash_attention_with_lse(
+        q, k, v, causal=causal, window=window), jq, jk, jv)
+    grads = vjp((jnp.asarray(do).astype(dtype), jnp.asarray(g)))
+    return do, g, tuple(_np(x) for x in grads)
+
+
+@pytest.mark.parametrize("path", ["plain_backward", "autograd"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_backward_matches_jax(case, dtype, path):
+    """`flash_backward_reference` (the kernels' plain twin) and CPU autograd
+    through `flash_attention_with_lse`, against jax.vjp of the JAX
+    package's flash_attention_with_lse (its Pallas dQ and dK/dV kernels)."""
+    *_, causal, window = CASES[case]
+    do_np, g_np, want = _jax_backward(case, dtype)
+    _, (tq, tk, tv) = _inputs(case, dtype)
+    do = torch.from_numpy(do_np).to(getattr(torch, dtype))
+    g_lse = torch.from_numpy(g_np)
+    if path == "plain_backward":
+        o, lse = tattn.reference_attention_with_lse(tq, tk, tv, causal, window)
+        got = tattn.flash_backward_reference(tq, tk, tv, o, lse, do, causal,
+                                             window, g_lse)
+    else:
+        for t in (tq, tk, tv):
+            t.requires_grad_(True)
+        o, lse = tattn.flash_attention_with_lse(tq, tk, tv, causal=causal,
+                                                window=window)
+        torch.autograd.backward([o, lse], [do, g_lse])
+        got = (tq.grad, tk.grad, tv.grad)
+    for g_t, g_j, t in zip(got, want, (tq, tk, tv)):
+        assert g_t.dtype == t.dtype and tuple(g_t.shape) == g_j.shape
+        np.testing.assert_allclose(_np(g_t), g_j, **BWD_TOL[dtype])
+
+
+def test_plain_backward_without_lse_cotangent_is_autograd_of_o():
+    """g_lse=None is a zero LSE cotangent: the classic backward of O."""
+    (_, _, _), (tq, tk, tv) = _inputs("gqa", "float32")
+    q, k, v = (t.clone().requires_grad_(True) for t in (tq, tk, tv))
+    o, lse = tattn.reference_attention_with_lse(q, k, v)
+    do = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        o.shape, dtype=np.float32))
+    o.backward(do)
+    got = tattn.flash_backward_reference(tq, tk, tv, o.detach(), lse.detach(), do)
+    for g_t, g_a in zip(got, (q.grad, k.grad, v.grad)):
+        torch.testing.assert_close(g_t, g_a, atol=1e-5, rtol=1e-5)
+
+
+def test_group_sum_sums_each_group_of_heads():
+    x = torch.arange(2 * 4 * 3 * 2, dtype=torch.float32).view(2, 4, 3, 2)
+    got = tattn.group_sum(x, 2)
+    # q heads 0, 1 share kv head 0 and heads 2, 3 kv head 1 (repeat_interleave)
+    assert torch.equal(got[:, 0], x[:, 0] + x[:, 1])
+    assert torch.equal(got[:, 1], x[:, 2] + x[:, 3])
+    assert tattn.group_sum(x, 4) is x
+
+
+def test_backward_launchers_refuse_cpu_tensors():
+    q = torch.zeros(1, 2, 8, 32)
+    lse = torch.zeros(1, 2, 8)
+    for fn in (tattn.flash_bwd_dq, tattn.flash_bwd_dkv):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(q, q, q, q, lse, lse)

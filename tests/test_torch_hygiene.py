@@ -13,6 +13,7 @@ import yoda_scheduler_tpu_torch as port
 from yoda_scheduler_tpu_torch.entry import entry
 from yoda_scheduler_tpu_torch.models import (KVCache, LlamaConfig, init_llama,
                                              params_from_jax)
+from yoda_scheduler_tpu_torch.parallel import build_llama_train_step
 
 # tiny shapes: one intra-op thread, so that the other test workers keep
 # their cores
@@ -43,7 +44,7 @@ def test_package_source_never_mentions(needle):
 
 
 @pytest.mark.parametrize("call", ["init_llama", "entry", "kv_cache",
-                                  "params_from_jax"])
+                                  "params_from_jax", "build_llama_train_step"])
 def test_entry_points_need_cuda_unless_asked_for_cpu(call):
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA: the default device is valid here")
@@ -54,6 +55,7 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(call):
         "kv_cache": lambda **kw: KVCache.zeros(cfg, 1, 8, **kw),
         "params_from_jax": lambda **kw: params_from_jax(
             _numpy_params(cfg), cfg, **kw),
+        "build_llama_train_step": lambda **kw: build_llama_train_step(cfg, **kw),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[call]()

@@ -117,6 +117,7 @@ def test_params_from_jax_splits_layers_and_keeps_dtypes():
             want = jparams["layers"][name][i]
             assert t.dtype == (torch.bfloat16 if want.dtype.name == "bfloat16"
                                else torch.float32)
+            assert t._base is None  # its own storage, not a view of the stack
             np.testing.assert_array_equal(_np(t), want.astype(np.float32))
     assert tparams["layers"][0]["attn_norm"].dtype == torch.float32
 

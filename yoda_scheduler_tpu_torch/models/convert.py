@@ -22,11 +22,12 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
 def params_from_jax(np_params: dict, config: LlamaConfig, device="cuda") -> dict:
     """The JAX params pytree (numpy leaves, layers stacked on a leading axis)
     as the port's parameter dict (a list of per-layer dicts), on `device`,
-    each leaf keeping its dtype."""
+    each leaf keeping its dtype and owning its storage (not a view of the
+    stacked array), so that an optimizer can update each leaf alone."""
     _no_moe(config)
     dev = resolve_device(device)
     stacked = {name: _tensor(a, dev) for name, a in np_params["layers"].items()}
-    layers = [{name: t[i] for name, t in stacked.items()}
+    layers = [{name: t[i].clone() for name, t in stacked.items()}
               for i in range(config.n_layers)]
     return {"embed": _tensor(np_params["embed"], dev), "layers": layers,
             "final_norm": _tensor(np_params["final_norm"], dev),

@@ -6,7 +6,9 @@ per-layer dicts instead of arrays stacked on a leading layer axis (the
 forward is a Python loop over layers, not a scan). Weights are [in, out], so
 `x @ w` reads as in the JAX package. Matmuls run in the config's dtype;
 RMSNorm, rotary, the SiLU gate and the logits run in fp32. Attention goes
-through the flash kernel (ops/attention.py) by default.
+through the flash kernels (ops/attention.py) by default, forward and
+gradient; `remat=True` recomputes each layer in the backward
+(torch.utils.checkpoint), as the JAX package's jax.checkpoint does.
 
 Dense FFN only: a config with experts raises NotImplementedError.
 """
@@ -18,6 +20,7 @@ from dataclasses import dataclass
 from functools import partial
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..ops.attention import flash_attention
@@ -181,8 +184,17 @@ def transformer_layer(x, layer, config: LlamaConfig, attn_impl):
 
 
 # ------------------------------------------------------------------ forward
-def llama_forward(params: dict, tokens, config: LlamaConfig, attn_impl=None):
-    """tokens [B, S] (integer) -> logits [B, S, vocab] (fp32)."""
+def llama_forward(params: dict, tokens, config: LlamaConfig, attn_impl=None,
+                  remat: bool = False, return_aux: bool = False, moe_part=None):
+    """tokens [B, S] (integer) -> logits [B, S, vocab] (fp32); with
+    return_aux, -> (logits, aux), where aux is the MoE load-balance loss and
+    so 0.0 for the dense model. `remat` recomputes each layer's activations
+    in the backward instead of keeping them (the attention forward kernel
+    runs a second time per layer). `moe_part` must be None (no MoE yet)."""
+    if moe_part is not None:
+        raise NotImplementedError(
+            "moe_part (the MoE sharding hook) is not ported to PyTorch yet: "
+            "MoE is ROADMAP.md queue 1 item 12")
     if attn_impl is None:
         attn_impl = partial(flash_attention, causal=True,
                             window=config.sliding_window)
@@ -194,20 +206,30 @@ def llama_forward(params: dict, tokens, config: LlamaConfig, attn_impl=None):
             "custom attn_impl callers must apply the window themselves")
     x = params["embed"][tokens]
     for layer in params["layers"]:
-        x = transformer_layer(x, layer, config, attn_impl)
+        if remat:
+            # the layer draws no random numbers, so no RNG state is kept
+            x = checkpoint(transformer_layer, x, layer, config, attn_impl,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = transformer_layer(x, layer, config, attn_impl)
     x = rms_norm(x, params["final_norm"], config.norm_eps)
-    return (x @ params["lm_head"]).float()
+    logits = (x @ params["lm_head"]).float()
+    if return_aux:
+        return logits, 0.0
+    return logits
 
 
-def llama_loss(params: dict, tokens, config: LlamaConfig, attn_impl=None):
-    """Next-token cross-entropy over tokens [B, S] (a forward value; its
-    gradient on CUDA is the training slice). The final position is masked
-    rather than sliced off, as in the JAX package. Dense only, so there is
-    no MoE load-balance term to add."""
+def llama_loss(params: dict, tokens, config: LlamaConfig, attn_impl=None,
+               remat: bool = False, moe_part=None):
+    """Next-token cross-entropy over tokens [B, S], differentiable through
+    the attention kernels on CUDA and the plain attention on the CPU. The
+    final position is masked rather than sliced off, as in the JAX package.
+    The MoE load-balance term is 0.0 for the dense model."""
     b, s = tokens.shape
-    logits = llama_forward(params, tokens, config, attn_impl)
+    logits, aux = llama_forward(params, tokens, config, attn_impl, remat,
+                                return_aux=True, moe_part=moe_part)
     targets = torch.roll(tokens, -1, dims=1).long()
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
     mask = (torch.arange(s, device=nll.device) < s - 1).to(nll.dtype)[None, :]
-    return torch.sum(nll * mask) / (b * (s - 1))
+    return torch.sum(nll * mask) / (b * (s - 1)) + config.moe_aux_weight * aux

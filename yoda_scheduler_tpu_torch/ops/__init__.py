@@ -1,6 +1,7 @@
 from .attention import (
     flash_attention,
     flash_attention_with_lse,
+    flash_backward_reference,
     reference_attention,
     reference_attention_with_lse,
 )
@@ -8,6 +9,7 @@ from .attention import (
 __all__ = [
     "flash_attention",
     "flash_attention_with_lse",
+    "flash_backward_reference",
     "reference_attention",
     "reference_attention_with_lse",
 ]

@@ -1,9 +1,10 @@
 """Builds the package's CUDA kernels at first use and loads them with ctypes.
 
-Each kernel is one source under `csrc/` with a plain C entry point. It is
-compiled by `nvcc` for sm_90a into a shared library under `build/kernels/`
-at the repository root (listed in .gitignore), named by a hash of the source
-and flags, so an unchanged kernel is compiled once per checkout. All missing
+Each kernel is one source under `csrc/` with a plain C entry point; the
+sources share headers (`csrc/*.cuh`). It is compiled by `nvcc` for sm_90a
+into a shared library under `build/kernels/` at the repository root (listed
+in .gitignore), named by a hash of the source, the headers and the flags, so
+an unchanged kernel is compiled once per checkout. All missing
 kernels of one `load` call compile in parallel, one `nvcc` each.
 """
 
@@ -41,8 +42,12 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library's path, named by a hash of its source, every shared header
+    under csrc/ (a kernel includes them) and the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -1,14 +1,14 @@
-"""Flash attention: a hand-written CUDA kernel for Hopper and its plain version.
+"""Flash attention: hand-written CUDA kernels for Hopper and their plain versions.
 
 Layout: q, k, v are [batch, heads, seq, head_dim]; k/v may carry fewer heads
 than q (GQA). `flash_attention` and `flash_attention_with_lse` launch the
-kernel in `csrc/flash_fwd.cu` for CUDA tensors and use the plain version,
-`reference_attention_with_lse`, for CPU tensors. The kernel masks ragged
-sequence tails itself, so no shape falls back to the plain version on the
-card; it takes bf16 or fp32 and head_dim 32, 64 or 128, and raises otherwise.
-
-The backward kernels are not ported yet: on CUDA, the gradient of the
-kernel's outputs raises NotImplementedError.
+forward kernel in `csrc/flash_fwd.cu` for CUDA tensors, and their gradient
+launches the two backward kernels in `csrc/flash_bwd.cu` (dQ, and dK with
+dV). CPU tensors take the plain versions: `reference_attention_with_lse`,
+with autograd through it, and `flash_backward_reference`, the plain twin of
+the backward kernels. The kernels mask ragged sequence tails themselves, so
+no shape falls back to a plain version on the card; they take bf16 or fp32
+and head_dim 32, 64 or 128, and raise otherwise.
 """
 
 from __future__ import annotations
@@ -61,11 +61,70 @@ def reference_attention_with_lse(q, k, v, causal: bool = True,
     return torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype), v), lse
 
 
-# ------------------------------------------------------------------ kernel
+def flash_backward_reference(q, k, v, o, lse, do, causal: bool = True,
+                             window: int | None = None, g_lse=None):
+    """The plain backward of flash attention, the twin of the JAX package's
+    `_flash_backward`: -> (dq, dk, dv) in the inputs' dtypes, dk/dv with
+    k's head count. It computes the backward kernels' formula explicitly
+    (not autograd of the forward): delta = rowsum(dO * O) - g_lse in fp32,
+    P = exp(S scale - LSE) under the forward's mask, dS = P (dP - delta)
+    scale, dQ = dS K, dK = dS^T Q, dV = P^T dO. P and dS are rounded to the
+    input dtype before their products, where the kernels round them (as
+    `reference_attention_with_lse` rounds its probabilities). GQA: K/V are
+    repeated to q's heads and dK/dV group-summed back."""
+    _, h, sq, d = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    if window is not None and not causal:
+        raise ValueError("sliding window requires causal attention")
+    kf = k.float().repeat_interleave(h // kvh, dim=1)
+    vf = v.float().repeat_interleave(h // kvh, dim=1)
+    qf, dof = q.float(), do.float()
+    scale = 1.0 / d ** 0.5
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    if causal:
+        qi = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+        ki = torch.arange(sk, device=q.device)[None, :]
+        mask = ki <= qi
+        if window is not None:
+            mask = mask & (ki > qi - window)
+        s = s.masked_fill(~mask, _NEG_INF)
+    p = torch.exp(s - lse[..., None])
+    delta = backward_delta(o, do, g_lse)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    ds = (p * (dp - delta[..., None]) * scale).to(q.dtype).float()
+    p = p.to(q.dtype).float()
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
+    dk = group_sum(torch.einsum("bhqk,bhqd->bhkd", ds, qf), kvh)
+    dv = group_sum(torch.einsum("bhqk,bhqd->bhkd", p, dof), kvh)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def backward_delta(o, do, g_lse=None):
+    """delta = rowsum(dO * O) in fp32, less the LSE cotangent: [B, H, Sq]."""
+    delta = (do.float() * o.float()).sum(-1)
+    if g_lse is not None:
+        delta = delta - g_lse.float()
+    return delta
+
+
+def group_sum(x, kvh: int):
+    """[B, H, S, D] per-q-head gradients summed over each group of H / kvh
+    heads: [B, kvh, S, D]."""
+    b, h, s, d = x.shape
+    if h == kvh:
+        return x
+    return x.view(b, kvh, h // kvh, s, d).sum(2)
+
+
+# ----------------------------------------------------------------- kernels
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_HEAD_DIMS = (32, 64, 128)
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_int64] * 9
              + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+_BWD_TAIL = ([ctypes.c_int] * 8 + [ctypes.c_int64] * 12
+             + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+_BWD_ARGTYPES = {"flash_bwd_dq": [ctypes.c_void_p] * 7 + _BWD_TAIL,
+                 "flash_bwd_dkv": [ctypes.c_void_p] * 8 + _BWD_TAIL}
 
 
 def _flash_lib():
@@ -76,39 +135,61 @@ def _flash_lib():
     return lib
 
 
+def _bwd_lib():
+    (lib,) = _build.load("flash_bwd")
+    for name, argtypes in _BWD_ARGTYPES.items():
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _require_cuda(name: str, *tensors) -> None:
+    if not all(t.is_cuda for t in tensors):
+        raise ValueError(f"{name} takes CUDA tensors")
+
+
+def _stream(t) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check_qkv(name: str, q, k, v, causal: bool):
+    """The checks shared by the three launchers: -> (b, h, kvh, sq, sk, d)."""
+    if q.dtype not in _KERNEL_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"{name} takes bf16 or fp32 q/k/v of one dtype, "
+                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    b, h, sq, d = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    if d not in _KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name} takes head_dim in {_KERNEL_HEAD_DIMS}, got {d}")
+    if k.shape != (b, kvh, sk, d) or v.shape != k.shape or h % kvh:
+        raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)}")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError(f"{name} needs a contiguous head_dim")
+    if causal and sq > sk:
+        raise ValueError(f"causal attention needs seq_q <= seq_kv, got {sq} > {sk}")
+    return b, h, kvh, sq, sk, d
+
+
 def flash_fwd(q, k, v, causal: bool = True, window: int | None = None):
     """Launch the flash forward kernel on CUDA tensors: returns (O [B, H, Sq,
     D] in q's dtype, LSE [B, H, Sq] fp32). Inputs may be strided views with
     a contiguous last dim. Raises on anything the kernel does not take.
     `flash_fwd.launches` counts the launches."""
-    tensors = (q, k, v)
-    if not all(t.is_cuda for t in tensors):
-        raise ValueError("flash_fwd takes CUDA tensors")
-    if q.dtype not in _KERNEL_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"flash_fwd takes bf16 or fp32 q/k/v of one dtype, "
-                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    b, h, sq, d = q.shape
-    kvh, sk = k.shape[1], k.shape[2]
-    if d not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_fwd takes head_dim in {_KERNEL_HEAD_DIMS}, got {d}")
-    if k.shape != (b, kvh, sk, d) or v.shape != k.shape or h % kvh:
-        raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
-                         f"v {tuple(v.shape)}")
-    if any(t.stride(-1) != 1 for t in tensors):
-        raise ValueError("flash_fwd needs a contiguous head_dim")
-    if causal and sq > sk:
-        raise ValueError(f"causal attention needs seq_q <= seq_kv, got {sq} > {sk}")
+    _require_cuda("flash_fwd", q, k, v)
+    b, h, kvh, sq, sk, d = _check_qkv("flash_fwd", q, k, v, causal)
     o = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o, lse
     lib = _flash_lib()
-    strides = [s for t in tensors for s in t.stride()[:3]]
+    strides = [s for t in (q, k, v) for s in t.stride()[:3]]
     err = lib.flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        _KERNEL_DTYPES[q.dtype], q.device.index, b, h, kvh, sq, sk, d,
-        *strides, int(causal), window or 0, 1.0 / (d ** 0.5),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        _KERNEL_DTYPES[q.dtype], q.get_device(), b, h, kvh, sq, sk, d,
+        *strides, int(causal), window or 0, 1.0 / (d ** 0.5), _stream(q))
     if err:
         raise RuntimeError(f"flash_fwd launch failed with CUDA error {err}")
     flash_fwd.launches += 1
@@ -118,19 +199,91 @@ def flash_fwd(q, k, v, causal: bool = True, window: int | None = None):
 flash_fwd.launches = 0
 
 
+def _launch_bwd(name: str, q, k, v, do, lse, delta, outs, causal, window):
+    """Checks the backward kernels' inputs and launches kernel `name` into
+    the preallocated `outs`; -> whether it launched (not for empty inputs)."""
+    _require_cuda(name, q, k, v, do, lse, delta)
+    b, h, kvh, sq, sk, d = _check_qkv(name, q, k, v, causal)
+    if do.shape != q.shape or do.dtype != q.dtype or do.stride(-1) != 1:
+        raise ValueError(f"{name} needs dO shaped and typed as q with a "
+                         f"contiguous head_dim, got {tuple(do.shape)} {do.dtype}")
+    for t in (lse, delta):
+        if t.shape != (b, h, sq) or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} needs contiguous fp32 LSE and delta of "
+                             f"shape {(b, h, sq)}, got {tuple(t.shape)} {t.dtype}")
+    if q.numel() == 0 or k.numel() == 0:
+        for t in outs:
+            t.zero_()
+        return False
+    lib = _bwd_lib()
+    strides = [s for t in (q, k, v, do) for s in t.stride()[:3]]
+    err = getattr(lib, name)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), *(t.data_ptr() for t in outs),
+        _KERNEL_DTYPES[q.dtype], q.get_device(), b, h, kvh, sq, sk, d,
+        *strides, int(causal), window or 0, 1.0 / (d ** 0.5), _stream(q))
+    if err:
+        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
+    return True
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
+                 window: int | None = None):
+    """Launch the dQ kernel on CUDA tensors: -> dQ [B, H, Sq, D] in q's
+    dtype. q/k/v/dO may be strided views with a contiguous last dim; lse and
+    delta ([B, H, Sq] fp32, contiguous) are the forward's LSE and
+    `rowsum(dO * O) - g_lse`. `flash_bwd_dq.launches` counts the launches."""
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if _launch_bwd("flash_bwd_dq", q, k, v, do, lse, delta, (dq,), causal, window):
+        flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True,
+                  window: int | None = None):
+    """Launch the dK/dV kernel on CUDA tensors: -> (dK, dV), each [B, H, Sk,
+    D] in k's dtype, one per q head (group-sum them for GQA, `group_sum`).
+    Inputs as for `flash_bwd_dq`. `flash_bwd_dkv.launches` counts the
+    launches."""
+    b, h, _, d = q.shape
+    shape = (b, h, k.shape[2], d)
+    dk = torch.empty(shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(shape, dtype=k.dtype, device=k.device)
+    if _launch_bwd("flash_bwd_dkv", q, k, v, do, lse, delta, (dk, dv), causal,
+                   window):
+        flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv.launches = 0
+
+
 class _FlashFwd(torch.autograd.Function):
-    """The kernel as an autograd node. Its backward kernels belong to the
-    training slice and are not ported yet."""
+    """The forward kernel as an autograd node whose backward launches the
+    dQ and dK/dV kernels. The LSE output is differentiable: its cotangent
+    folds into delta (d LSE / d S = P per row)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        return flash_fwd(q, k, v, causal, window)
+        o, lse = flash_fwd(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window = causal, window
+        return o, lse
 
     @staticmethod
     def backward(ctx, g_out, g_lse):
-        raise NotImplementedError(
-            "flash attention backward on CUDA is not ported yet: it is the "
-            "training slice in ROADMAP.md (dQ and dK/dV kernels)")
+        q, k, v, o, lse = ctx.saved_tensors
+        if g_out.stride(-1) != 1:
+            g_out = g_out.contiguous()
+        delta = backward_delta(o, g_out, g_lse).contiguous()
+        args = (q, k, v, g_out, lse, delta, ctx.causal, ctx.window)
+        dq = flash_bwd_dq(*args)
+        dk, dv = flash_bwd_dkv(*args)
+        kvh = k.shape[1]
+        return dq, group_sum(dk, kvh), group_sum(dv, kvh), None, None
 
 
 def _attention(q, k, v, causal, window):

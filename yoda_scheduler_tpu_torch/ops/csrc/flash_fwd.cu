@@ -33,9 +33,7 @@
 //   kernel; 256 threads as a 16 x 16 grid, each owning 4 q rows.
 // Neither uses wgmma, TMA or a pipeline of K/V tiles yet.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
@@ -43,13 +41,6 @@ constexpr int BQ = 64;        // q rows per block
 constexpr int BK = 64;        // keys per streamed tile
 constexpr int BKP = BK + 4;   // padded P row: the two half-warps hit other banks
 constexpr int NT = 256;       // threads per block of the SIMT kernel (16 x 16)
-constexpr int NT_MMA = 128;   // threads per block of the mma kernel (4 warps)
-constexpr float NEG = -1e30f; // the reference's mask value
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 template <typename T, int D>
 __global__ void __launch_bounds__(NT) flash_fwd_simt_kernel(
@@ -209,48 +200,6 @@ __global__ void __launch_bounds__(NT) flash_fwd_simt_kernel(
   }
 }
 
-// Tensor-core helpers. mma.sync m16n8k16 fragments, with g = lane / 4 and
-// t = lane % 4: A (16x16, row-major) reg0 = (row g, cols 2t, 2t+1), reg1 =
-// row g+8, reg2 = row g cols +8, reg3 = row g+8 cols +8; B (16x8) reg0 =
-// (rows 2t, 2t+1, col g), reg1 = rows +8; C (16x8 fp32) c0, c1 = (row g,
-// cols 2t, 2t+1), c2, c3 = row g+8. The lower column sits in the low half.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return (uint32_t)(*reinterpret_cast<const uint16_t*>(&lo)) |
-         ((uint32_t)(*reinterpret_cast<const uint16_t*>(&hi)) << 16);
-}
-
-// rows [r0, r0 + 64) of a [S, D] bf16 matrix (row stride `ss`) into shared
-// memory with row stride D + 8, zero past row S; 16-byte copies
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          int64_t ss, int r0, int S) {
-  constexpr int CH = D / 8;
-  for (int i = threadIdx.x; i < 64 * CH; i += NT_MMA) {
-    const int r = i / CH, c = (i % CH) * 8;
-    uint4 x = {0u, 0u, 0u, 0u};
-    if (r0 + r < S) x = *reinterpret_cast<const uint4*>(src + (int64_t)(r0 + r) * ss + c);
-    *reinterpret_cast<uint4*>(dst + r * (D + 8) + c) = x;
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(NT_MMA) flash_fwd_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
@@ -284,14 +233,8 @@ __global__ void __launch_bounds__(NT_MMA) flash_fwd_mma_kernel(
   __syncthreads();
   // this warp's 16 rows of Q as A fragments, for the whole loop
   uint32_t qf[KS][4];
-  const __nv_bfloat16* qw = sQ + (16 * warp) * DS;
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    qf[kk][0] = ld_pair(qw + g * DS + 16 * kk + 2 * t4);
-    qf[kk][1] = ld_pair(qw + (g + 8) * DS + 16 * kk + 2 * t4);
-    qf[kk][2] = ld_pair(qw + g * DS + 16 * kk + 8 + 2 * t4);
-    qf[kk][3] = ld_pair(qw + (g + 8) * DS + 16 * kk + 8 + 2 * t4);
-  }
+  for (int kk = 0; kk < KS; ++kk) load_a<DS>(qf[kk], sQ + 16 * warp * DS, kk, g, t4);
 
   int n_tiles = (Sk + BK - 1) / BK;
   int first_tile = 0;
@@ -453,24 +396,14 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-// the mma kernel copies rows in 16-byte pieces: bases and row strides of
-// q, k and v must allow that (the head dim is a multiple of 8 here)
-bool rows_aligned(const void* q, const void* k, const void* v, const int64_t* st) {
-  const void* ptrs[3] = {q, k, v};
-  for (int i = 0; i < 3; ++i)
-    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16) return false;
-  for (int i = 0; i < 9; ++i)
-    if (st[i] % 8) return false;
-  return true;
-}
-
 template <typename T>
 cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
                      void* o, void* lse, int B, int H, int KvH, int Sq, int Sk,
                      const int64_t* st, int causal, int window, float scale,
                      cudaStream_t stream) {
 #define FLASH_ARGS q, k, v, o, lse, B, H, KvH, Sq, Sk, st, causal, window, scale, stream
-  if (sizeof(T) == 2 && rows_aligned(q, k, v, st)) {
+  const void* ptrs[3] = {q, k, v};
+  if (sizeof(T) == 2 && rows_aligned(ptrs, 3, st, 9)) {
     switch (D) {
       case 32: return launch_mma<32>(FLASH_ARGS);
       case 64: return launch_mma<64>(FLASH_ARGS);

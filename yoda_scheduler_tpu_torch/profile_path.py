@@ -3,16 +3,19 @@
     python3 -m yoda_scheduler_tpu_torch.profile_path
 
 Traces with torch.profiler, after a warm-up, one `llama_forward` (B=1,
-S=2048), one `prefill` (4 requests x 512 tokens) and 16 `decode_step`s of
-those requests (their prefill outside the trace). For each window it
-prints one JSON line: the host wall time, the device's busy time (the union
-of kernel intervals) and idle share, the kernel launches, and the kernels
-with the most device time, grouped into attention kernel / matmul / other.
+S=2048), one `prefill` (4 requests x 512 tokens), 16 `decode_step`s of
+those requests (their prefill outside the trace), and one training step
+(B=1, S=2048, remat, AdamW; all 32 layers). For each window it prints one
+JSON line: the host wall time, the device's busy time (the union of kernel
+intervals) and idle share, the kernel launches, the device time grouped
+into matmul / flash_fwd / flash_bwd_dq / flash_bwd_dkv / optimizer / other,
+and the kernels with the most device time.
 The full report goes to chiprun_out/profile_path.json.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -24,12 +27,16 @@ import torch
 
 from .models import (KVCache, LlamaConfig, decode_step, init_llama,
                      llama_forward, prefill)
+from .parallel import build_llama_train_step
 
 
 def _group(name: str) -> str:
     low = name.lower()
-    if "flash_fwd" in low:
-        return "attention_kernel"
+    for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        if kernel in low:
+            return kernel
+    if "adam" in low:
+        return "optimizer"
     if any(s in low for s in ("gemm", "xmma", "cutlass", "nvjet", "matmul")):
         return "matmul"
     return "other"
@@ -46,8 +53,11 @@ def trace(label: str, fn, setup=lambda: None) -> dict:
         fn(state)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    # device events, less the ranges that record_function (the optimizer's
+    # step) draws on the device's timeline over the kernels it launches
     kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     if not kernels:
         raise SystemExit(f"{label}: the profiler recorded no device kernels")
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
@@ -80,15 +90,7 @@ def trace(label: str, fn, setup=lambda: None) -> dict:
     return report
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("profile_path: CUDA is not available", file=sys.stderr)
-        return 1
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    print(smi, flush=True)
-    cfg = LlamaConfig.llama2_7b()
+def inference_windows(cfg) -> list[dict]:
     params = init_llama(cfg, seed=0, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(1)
     tokens = torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen, device="cuda")
@@ -104,11 +106,34 @@ def main() -> int:
             logits, cache = decode_step(params, logits.argmax(-1), cache, cfg)
 
     with torch.no_grad():
-        reports = [
+        return [
             trace("forward_b1_s2048", lambda _: llama_forward(params, tokens, cfg)),
             trace("prefill_4x512", lambda _: prefilled()),
             trace(f"decode_4x{steps}_steps", decode, setup=prefilled),
         ]
+
+
+def train_window(cfg) -> dict:
+    init_fn, step_fn, _ = build_llama_train_step(cfg, device="cuda")
+    params, opt_state = init_fn(0)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen, device="cuda")
+    return trace("train_step_b1_s2048", lambda _: step_fn(params, opt_state, tokens))
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_path: CUDA is not available", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(smi, flush=True)
+    cfg = LlamaConfig.llama2_7b()
+    reports = inference_windows(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()  # the train step's 54 GB of state needs the room
+    reports.append(train_window(cfg))
     out = Path(__file__).resolve().parents[1] / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "profile_path.json").write_text(json.dumps(
