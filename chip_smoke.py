@@ -8,9 +8,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
 1. build: the card's name and power limit, and the CUDA kernels compiled
    from the sources in this checkout (nvcc, sm_90a, one process per source).
 2. kernel: the flash forward kernel against its plain version on the card
-   at the main path's shape and at GQA, cross-length, window, non-causal,
-   fp32 and ragged shapes, with the kernel's, the plain version's and one
-   library call's times and the card's bound for the same work.
+   at the main path's shape (also as the model's transposed [B, S, H, D]
+   views) and at GQA, cross-length, window, non-causal, fp32, ragged and
+   unaligned shapes, each on the route `_fwd_route` picks, with the
+   kernel's, the plain version's and one library call's times, TF/s and the
+   card's bound for the same work; at the main shape the wgmma and mma
+   routes are timed in turns (mma, wgmma, wgmma, mma).
 3. backward: the dQ and dK/dV kernels against the plain backward at the
    same shapes (a non-zero LSE cotangent at some), twice with equal bits,
    with their times, the plain backward's, the bound of each, and at the
@@ -39,6 +42,7 @@ import gc
 import importlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -160,6 +164,27 @@ def read_launches(attn) -> dict:
             for fn in (attn.flash_fwd, attn.flash_bwd_dq, attn.flash_bwd_dkv)}
 
 
+def ptxas_summary(log: str) -> dict:
+    """{kernel (with its mangled template arguments): "N registers, S bytes
+    spill stores, L bytes spill loads"} from nvcc's -Xptxas -v output;
+    ptxas's performance notes (wgmma serialization, setmaxnreg) are kept
+    under "notes"."""
+    out, notes, kernel = {}, [], None
+    for ln in log.splitlines():
+        name = re.search(r"\d(flash_\w+?_kernel)(I\w*?EE)?", ln)
+        if "Compiling entry" in ln and name:
+            kernel = name.group(1) + (name.group(2) or "")
+            out[kernel] = ""
+        elif kernel and "spill stores" in ln:
+            out[kernel] = ln.strip()
+        elif kernel and "Used" in ln and "registers" in ln:
+            used = re.search(r"Used (\d+) registers", ln).group(1)
+            out[kernel] = f"{used} registers, {out[kernel]}"
+        elif "Performance" in ln or "setmaxnreg" in ln:
+            notes.append(ln.strip())
+    return {**out, "notes": notes}
+
+
 def phase_build(build):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -169,9 +194,7 @@ def phase_build(build):
     names = ("flash_fwd", "flash_bwd")
     build.load(*names)
     info = {n: build.build_info.get(n, {}) for n in names}
-    ptxas = {n: [ln.strip() for ln in i.get("log", "").splitlines()
-                 if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
-             for n, i in info.items()}
+    ptxas = {n: ptxas_summary(i.get("log", "")) for n, i in info.items()}
     emit("build", nvidia_smi=smi, device=torch.cuda.get_device_name(0),
          torch=torch.__version__, cuda=torch.version.cuda,
          build_s=time.perf_counter() - t0,
@@ -179,67 +202,92 @@ def phase_build(build):
     return smi
 
 
-# (name, b, h, kvh, sq, sk, d, causal, window, dtype, offset): offset 1
-# shifts the tensors off 16-byte alignment, which routes bf16 to the SIMT
-# kernel instead of the tensor-core one
+# (name, b, h, kvh, sq, sk, d, causal, window, dtype, layout, route):
+# layout "bhsd" is contiguous [B, H, S, D]; "bshd" the model's transposed
+# views of a contiguous [B, S, H, D]; "offset1" starts every tensor one
+# element into its storage, off 16-byte alignment. route is the forward
+# kernel `_fwd_route` must pick for these inputs.
 SHAPES = [
-    ("main", 1, 32, 32, 2048, 2048, 128, True, None, torch.bfloat16, 0),
-    ("gqa", 1, 32, 8, 2048, 2048, 128, True, None, torch.bfloat16, 0),
-    ("cross_length", 1, 32, 32, 256, 1024, 128, True, None, torch.bfloat16, 0),
-    ("window_512", 1, 32, 32, 2048, 2048, 128, True, 512, torch.bfloat16, 0),
-    ("non_causal", 1, 32, 32, 1024, 1024, 128, False, None, torch.bfloat16, 0),
-    ("fp32_d64", 1, 16, 16, 1024, 1024, 64, True, None, torch.float32, 0),
-    ("ragged_300", 2, 8, 4, 300, 300, 128, True, None, torch.bfloat16, 0),
-    ("main_unaligned", 1, 32, 32, 2048, 2048, 128, True, None, torch.bfloat16, 1),
+    ("main", 1, 32, 32, 2048, 2048, 128, True, None, torch.bfloat16, "bhsd", "wgmma"),
+    ("main_bshd", 1, 32, 32, 2048, 2048, 128, True, None, torch.bfloat16, "bshd",
+     "wgmma"),
+    ("gqa", 1, 32, 8, 2048, 2048, 128, True, None, torch.bfloat16, "bhsd", "wgmma"),
+    ("cross_length", 1, 32, 32, 256, 1024, 128, True, None, torch.bfloat16, "bhsd",
+     "wgmma"),
+    ("window_512", 1, 32, 32, 2048, 2048, 128, True, 512, torch.bfloat16, "bhsd",
+     "wgmma"),
+    ("non_causal", 1, 32, 32, 1024, 1024, 128, False, None, torch.bfloat16, "bhsd",
+     "wgmma"),
+    ("fp32_d64", 1, 16, 16, 1024, 1024, 64, True, None, torch.float32, "bhsd", "simt"),
+    ("ragged_300", 2, 8, 4, 300, 300, 128, True, None, torch.bfloat16, "bhsd", "wgmma"),
+    ("main_unaligned", 1, 32, 32, 2048, 2048, 128, True, None, torch.bfloat16,
+     "offset1", "simt"),
 ]
+ROUTE_TURNS = ("mma", "wgmma", "wgmma", "mma")  # timed in turns at the main shape
 
 
-def rand_inputs(gen, dtype, offset, *shapes):
-    """Normal tensors of `shapes` on the card, each starting `offset`
-    elements into its storage (offset 1 breaks 16-byte alignment)."""
+def rand_inputs(gen, dtype, layout, *shapes):
+    """Normal tensors of `shapes` ([B, H, S, D]) on the card in `layout`."""
     out = []
+    offset = 1 if layout == "offset1" else 0
     for shape in shapes:
         n = math.prod(shape)
-        x = torch.randn(n + offset, generator=gen, device="cuda").to(dtype)
-        out.append(x[offset:].view(shape))
+        x = torch.randn(n + offset, generator=gen, device="cuda").to(dtype)[offset:]
+        if layout == "bshd":
+            b, h, s, d = shape
+            out.append(x.view(b, s, h, d).transpose(1, 2))
+        else:
+            out.append(x.view(shape))
     return out
-
-
-def kernel_route(dtype, offset) -> str:
-    """Which of flash_fwd.cu's two kernels these inputs take."""
-    return "mma" if dtype == torch.bfloat16 and offset == 0 else "simt"
 
 
 def phase_kernel(attn):
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows, max_err = [], 0.0
-    for name, b, h, kvh, sq, sk, d, causal, window, dtype, offset in SHAPES:
-        q, k, v = rand_inputs(gen, dtype, offset, (b, h, sq, d), (b, kvh, sk, d),
+    for name, b, h, kvh, sq, sk, d, causal, window, dtype, layout, want in SHAPES:
+        q, k, v = rand_inputs(gen, dtype, layout, (b, h, sq, d), (b, kvh, sk, d),
                               (b, kvh, sk, d))
+        route = attn._fwd_route(q, k, v)
+        if route != want:
+            raise SystemExit(f"{name} takes the {route} route, expected {want}")
         o, lse = attn.flash_fwd(q, k, v, causal, window)
         torch.cuda.synchronize()
         ro, rlse = attn.reference_attention_with_lse(q, k, v, causal, window)
         tol = TOL[dtype]
+
+        def agrees(o, lse):
+            return (bool(torch.isfinite(o).all())
+                    and torch.allclose(o.float(), ro.float(), atol=tol["o"], rtol=tol["o"])
+                    and torch.allclose(lse, rlse, atol=tol["lse"], rtol=tol["lse"]))
+
         err_o = float((o.float() - ro.float()).abs().max())
         err_lse = float((lse - rlse).abs().max())
-        ok = (bool(torch.isfinite(o).all())
-              and torch.allclose(o.float(), ro.float(), atol=tol["o"], rtol=tol["o"])
-              and torch.allclose(lse, rlse, atol=tol["lse"], rtol=tol["lse"]))
+        ok = agrees(o, lse)
         ms = cuda_time_ms(lambda: attn.flash_fwd(q, k, v, causal, window), 20)
         plain_ms = cuda_time_ms(
             lambda: attn.reference_attention_with_lse(q, k, v, causal, window), 5)
-        library_ms = None
-        if name == "main":  # the yardstick, timed here and used nowhere in the port
+        library_ms, turns = None, None
+        if name in ("main", "main_bshd"):
+            # the yardstick, timed here and used nowhere in the port
             library_ms = cuda_time_ms(
                 lambda: torch.nn.functional.scaled_dot_product_attention(
                     q, k, v, is_causal=True), 20)
+        if name == "main":
+            turns = {r: [] for r in ROUTE_TURNS}
+            for r in ROUTE_TURNS:
+                turns[r].append(cuda_time_ms(
+                    lambda: attn.flash_fwd(q, k, v, causal, window, route=r), 20))
+            ok = ok and agrees(*attn.flash_fwd(q, k, v, causal, window, route="mma"))
         bound_ms, bound_by = attention_bound(b, h, kvh, sq, sk, d, causal,
                                              window, dtype)
-        row = dict(shape=name, kernel=kernel_route(dtype, offset), b=b, h=h,
-                   kvh=kvh, sq=sq, sk=sk, d=d, causal=causal, window=window,
+        flops = 4 * b * h * d * visible_pairs(sq, sk, causal, window)
+        row = dict(shape=name, route=route, layout=layout, b=b, h=h, kvh=kvh,
+                   sq=sq, sk=sk, d=d, causal=causal, window=window,
                    dtype=str(dtype).split(".")[1],
                    max_abs_err_o=err_o, max_abs_err_lse=err_lse, atol=tol,
-                   ok=ok, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   ok=ok, ms=ms, tflops=flops / ms / 1e9,
+                   share_of_bound=bound_ms / ms, plain_ms=plain_ms,
+                   library_ms=library_ms, route_turns_ms=turns,
                    bound_ms=bound_ms, bound_by=bound_by)
         print(json.dumps({"phase": "kernel", **row}), flush=True)
         rows.append(row)
@@ -267,9 +315,12 @@ def sdpa_backward_ms(q, k, v, do) -> float:
 def phase_backward(attn):
     gen = torch.Generator(device="cuda").manual_seed(3)
     rows, max_err = [], {"dq": 0.0, "dkv": 0.0}
-    for name, b, h, kvh, sq, sk, d, causal, window, dtype, offset in SHAPES:
-        q, k, v, do = rand_inputs(gen, dtype, offset, (b, h, sq, d), (b, kvh, sk, d),
+    for name, b, h, kvh, sq, sk, d, causal, window, dtype, layout, _ in SHAPES:
+        q, k, v, do = rand_inputs(gen, dtype, layout, (b, h, sq, d), (b, kvh, sk, d),
                                   (b, kvh, sk, d), (b, h, sq, d))
+        # the backward kernels take mma.sync where the forward's mma route
+        # could (bf16, aligned rows), else their SIMT kernels
+        route = "mma" if "mma" in attn._fwd_routes(q, k, v) else "simt"
         o, lse = attn.flash_fwd(q, k, v, causal, window)
         g_lse = (torch.randn((b, h, sq), generator=gen, device="cuda")
                  if name in BWD_G_LSE else None)
@@ -297,7 +348,7 @@ def phase_backward(attn):
             q, k, v, o, lse, do, causal, window, g_lse), 3)
         library_ms = sdpa_backward_ms(q, k, v, do) if name == "main" else None
         bounds = backward_bounds(b, h, kvh, sq, sk, d, causal, window, dtype)
-        row = dict(shape=name, kernel=kernel_route(dtype, offset), b=b, h=h,
+        row = dict(shape=name, route=route, layout=layout, b=b, h=h,
                    kvh=kvh, sq=sq, sk=sk, d=d, causal=causal, window=window,
                    dtype=str(dtype).split(".")[1], g_lse=g_lse is not None,
                    max_abs_err=errs, atol=tol, bit_repeatable=repeatable, ok=ok,
@@ -530,6 +581,9 @@ def main() -> int:
     kernels = {"kernels": [{
         "name": "flash_fwd", "route": "cuda", "source": src + "flash_fwd.cu",
         "replaces": "yoda_scheduler_tpu/ops/attention.py:68",
+        "kernel_route": main_row["route"], "tflops": main_row["tflops"],
+        "share_of_bound": main_row["share_of_bound"],
+        "route_turns_ms": main_row["route_turns_ms"],
         "launches": step_launches["flash_fwd"],
         "launches_by_path": {"forward": fwd_launches,
                              "train_step": step_launches["flash_fwd"]},

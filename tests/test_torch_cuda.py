@@ -8,6 +8,7 @@ This file imports no JAX, so that it runs where JAX is not installed:
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 """
 
+import ctypes
 import dataclasses
 import importlib
 
@@ -17,6 +18,7 @@ import torch
 
 from yoda_scheduler_tpu_torch.models import (LlamaConfig, init_llama, llama_forward,
                                              llama_loss)
+from yoda_scheduler_tpu_torch.ops import _build
 from yoda_scheduler_tpu_torch.ops import attention as attn
 from yoda_scheduler_tpu_torch.parallel import (build_llama_train_step, init_opt_state,
                                                param_leaves)
@@ -101,6 +103,118 @@ def test_backward_kernels_are_bit_repeatable(gpu):
     runs = [(attn.flash_bwd_dq(q, k, v, do, lse, delta),
              *attn.flash_bwd_dkv(q, k, v, do, lse, delta)) for _ in range(2)]
     assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+# the Hopper primitives (csrc/hopper.cuh), one tile each, through
+# csrc/hopper_check.cu: run these first after a change to them
+def _hopper_lib():
+    (lib,) = _build.load("hopper_check")
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.hopper_tma_tile.argtypes = [p] + [i64] * 7 + [i32] * 5 + [p, p]
+    lib.hopper_wgmma_ss.argtypes = [p, p, i32, p, p]
+    lib.hopper_wgmma_rs.argtypes = [p, p, p, p]
+    return lib
+
+
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _swizzled(tile):
+    """A [rows, 64] bf16 tile as TMA's 128-byte swizzle lays it out: the
+    16-byte chunk c of row r at chunk c ^ (r % 8)."""
+    rows = tile.shape[0]
+    chunks = tile.view(rows, 8, 8)
+    out = torch.empty_like(chunks)
+    for r in range(rows):
+        out[r, torch.arange(8) ^ (r % 8)] = chunks[r]
+    return out.view(rows, 64)
+
+
+@pytest.mark.parametrize("layout,c0,row0,rows", [
+    ("bhsd", 0, 0, 128), ("bhsd", 64, 64, 128), ("bhsd", 0, 240, 64),
+    ("bshd", 64, 200, 128)])
+def test_tma_tile_is_the_swizzled_slice(gpu, layout, c0, row0, rows):
+    """One box of a 4-D map, rows past the sequence (300) zero-filled, from a
+    contiguous [B, H, S, D] tensor or the model's transposed [B, S, H, D]
+    view."""
+    b, h, s, d = 2, 3, 300, 128
+    x = torch.randn(b, s, h, d, generator=torch.Generator(gpu).manual_seed(0),
+                    device=gpu).to(torch.bfloat16)
+    x = x.transpose(1, 2) if layout == "bshd" else x.transpose(1, 2).contiguous()
+    out = torch.empty(rows, 64, dtype=torch.bfloat16, device=gpu)
+    bi, hi = 1, 2
+    st = x.stride()
+    err = _hopper_lib().hopper_tma_tile(
+        x.data_ptr(), d, s, h, b, st[2], st[1], st[0], c0, row0, hi, bi, rows,
+        out.data_ptr(), _stream())
+    assert err == 0
+    torch.cuda.synchronize()
+    want = torch.zeros(rows, 64, dtype=torch.bfloat16, device=gpu)
+    part = x[bi, hi, row0:row0 + rows, c0:c0 + 64]
+    want[:part.shape[0]] = part
+    assert torch.equal(out.view(torch.int16), _swizzled(want).view(torch.int16))
+
+
+@pytest.mark.parametrize("a_row0", [0, 64])
+def test_wgmma_ss_tile_is_a_matmul(gpu, a_row0):
+    gen = torch.Generator(gpu).manual_seed(1)
+    a, bm = (torch.randn(128, 128, generator=gen, device=gpu).to(torch.bfloat16)
+             for _ in range(2))
+    out = torch.empty(64, 128, device=gpu)
+    assert _hopper_lib().hopper_wgmma_ss(a.data_ptr(), bm.data_ptr(), a_row0,
+                                         out.data_ptr(), _stream()) == 0
+    torch.cuda.synchronize()
+    want = a[a_row0:a_row0 + 64].float() @ bm.float().T
+    torch.testing.assert_close(out, want, atol=1e-3, rtol=1e-4)
+
+
+def test_wgmma_rs_tile_is_a_matmul(gpu):
+    gen = torch.Generator(gpu).manual_seed(2)
+    p = torch.rand(64, 128, generator=gen, device=gpu).to(torch.bfloat16)
+    v = torch.randn(128, 128, generator=gen, device=gpu).to(torch.bfloat16)
+    out = torch.empty(64, 128, device=gpu)
+    assert _hopper_lib().hopper_wgmma_rs(p.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                         _stream()) == 0
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, p.float() @ v.float(), atol=1e-3, rtol=1e-4)
+
+
+# (b, h, kvh, sq, sk), causal, window: shapes that reach each path of the
+# wgmma kernel (diagonal, ragged tails, cross length, window start, GQA)
+WGMMA_SHAPES = {
+    "s128": ((1, 2, 2, 128, 128), True, None),
+    "s2048": ((1, 4, 4, 2048, 2048), True, None),
+    "ragged_300": ((2, 4, 4, 300, 300), True, None),
+    "cross_256x1024": ((1, 4, 4, 256, 1024), True, None),
+    "window_512": ((1, 2, 2, 2048, 2048), True, 512),
+    "gqa_32_8": ((1, 32, 8, 512, 512), True, None),
+    "non_causal": ((1, 4, 2, 320, 448), False, None),
+}
+
+
+@pytest.mark.parametrize("case", list(WGMMA_SHAPES))
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+def test_wgmma_route_matches_the_plain_version(gpu, case, layout):
+    (b, h, kvh, sq, sk), causal, window = WGMMA_SHAPES[case]
+    q, k, v = _qkv(gpu, torch.bfloat16, b, h, kvh, sq, sk, 128)
+    if layout == "bshd":  # the model's transposed views of [B, S, H, D]
+        q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
+    assert attn._fwd_route(q, k, v) == "wgmma"
+    o, lse = attn.flash_fwd(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    ro, rl = attn.reference_attention_with_lse(q, k, v, causal, window)
+    torch.testing.assert_close(o.float(), ro.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, rl, atol=1e-3, rtol=1e-3)
+
+
+def test_wgmma_route_matches_the_mma_route(gpu):
+    q, k, v = _qkv(gpu, torch.bfloat16, 1, 8, 4, 1024, 1024, 128, seed=2)
+    o1, l1 = attn.flash_fwd(q, k, v, route="mma")
+    o2, l2 = attn.flash_fwd(q, k, v, route="wgmma")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o2.float(), o1.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(l2, l1, atol=1e-3, rtol=1e-3)
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.float16, 64), (torch.bfloat16, 96)])

@@ -8,7 +8,10 @@ dV). CPU tensors take the plain versions: `reference_attention_with_lse`,
 with autograd through it, and `flash_backward_reference`, the plain twin of
 the backward kernels. The kernels mask ragged sequence tails themselves, so
 no shape falls back to a plain version on the card; they take bf16 or fp32
-and head_dim 32, 64 or 128, and raise otherwise.
+and head_dim 32, 64 or 128, and raise otherwise. The forward has three
+routes, which `_fwd_route` picks from the inputs alone: "wgmma" (TMA and
+wgmma, bf16 with head_dim 128 and 16-byte aligned rows: the model's path),
+"mma" (mma.sync, other aligned bf16) and "simt" (fp32, unaligned bf16).
 """
 
 from __future__ import annotations
@@ -119,7 +122,8 @@ def group_sum(x, kvh: int):
 # ----------------------------------------------------------------- kernels
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_HEAD_DIMS = (32, 64, 128)
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_int64] * 9
+_FWD_ROUTES = {"simt": 0, "mma": 1, "wgmma": 2}  # csrc/flash_fwd.cu's route codes
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_int64] * 9
              + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
 _BWD_TAIL = ([ctypes.c_int] * 8 + [ctypes.c_int64] * 12
              + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
@@ -173,13 +177,42 @@ def _check_qkv(name: str, q, k, v, causal: bool):
     return b, h, kvh, sq, sk, d
 
 
-def flash_fwd(q, k, v, causal: bool = True, window: int | None = None):
+def _fwd_routes(q, k, v) -> tuple[str, ...]:
+    """The forward kernels that can take these inputs, slowest first: simt
+    takes any; mma needs bf16 with 16-byte aligned bases and (batch, head,
+    seq) strides that are multiples of 8 elements; wgmma needs that, head_dim
+    128 and a non-empty kv (the conditions of csrc/flash_fwd.cu's entry)."""
+    routes = ("simt",)
+    if q.dtype == torch.bfloat16 and all(
+            t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
+            for t in (q, k, v)):
+        routes += ("mma",)
+        if q.shape[-1] == 128 and k.shape[2] > 0:
+            routes += ("wgmma",)
+    return routes
+
+
+def _fwd_route(q, k, v) -> str:
+    """The forward kernel these inputs take: "wgmma", "mma" or "simt"."""
+    return _fwd_routes(q, k, v)[-1]
+
+
+def flash_fwd(q, k, v, causal: bool = True, window: int | None = None,
+              route: str | None = None):
     """Launch the flash forward kernel on CUDA tensors: returns (O [B, H, Sq,
     D] in q's dtype, LSE [B, H, Sq] fp32). Inputs may be strided views with
-    a contiguous last dim. Raises on anything the kernel does not take.
+    a contiguous last dim. `route` None takes `_fwd_route`'s kernel; a named
+    route (to hold one kernel against another) must be able to take the
+    inputs. Raises on anything the kernel does not take.
     `flash_fwd.launches` counts the launches."""
-    _require_cuda("flash_fwd", q, k, v)
     b, h, kvh, sq, sk, d = _check_qkv("flash_fwd", q, k, v, causal)
+    routes = _fwd_routes(q, k, v)
+    if route is None:
+        route = routes[-1]
+    elif route not in routes:
+        raise ValueError(f"flash_fwd route {route!r} cannot take these inputs "
+                         f"(it can take {routes})")
+    _require_cuda("flash_fwd", q, k, v)
     o = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
@@ -188,10 +221,10 @@ def flash_fwd(q, k, v, causal: bool = True, window: int | None = None):
     strides = [s for t in (q, k, v) for s in t.stride()[:3]]
     err = lib.flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        _KERNEL_DTYPES[q.dtype], q.get_device(), b, h, kvh, sq, sk, d,
-        *strides, int(causal), window or 0, 1.0 / (d ** 0.5), _stream(q))
+        _KERNEL_DTYPES[q.dtype], _FWD_ROUTES[route], q.get_device(), b, h, kvh,
+        sq, sk, d, *strides, int(causal), window or 0, 1.0 / (d ** 0.5), _stream(q))
     if err:
-        raise RuntimeError(f"flash_fwd launch failed with CUDA error {err}")
+        raise RuntimeError(f"flash_fwd ({route}) launch failed with CUDA error {err}")
     flash_fwd.launches += 1
     return o, lse
 

@@ -13,27 +13,46 @@
 // so it is bound by operations (~35 us at the 989 TF/s bf16 tensor-core peak;
 // the bytes alone would take ~20 us at 3.35 TB/s).
 //
-// Design. The Pallas kernel keeps a whole K/V sequence in VMEM per program;
-// that does not fit in 227 KB of shared memory, so here one thread block
-// owns a 64-row q tile of one (batch, head) and streams 64-key K/V tiles
-// through shared memory. Causal tiles stop at the diagonal and windowed
-// tiles start at the window's first tile, as in the Pallas loop bounds;
-// ragged q and k tails are masked in the kernel, so every shape runs here.
-// Two kernels share that plan:
-// - flash_fwd_mma_kernel (bf16, the main path): 4 warps, each owning 16 q
-//   rows, run both products on the tensor cores with mma.sync m16n8k16
-//   (bf16 operands, fp32 sums). Scores, probabilities and the output sum
-//   stay in registers; P is rounded to bf16 for P.V as the plain version
-//   rounds its probabilities. The tensor cores take bf16 operands, so the
-//   1/sqrt(d) scale is applied to the fp32 scores rather than to Q (which
-//   would round Q a second time). A warp skips the tiles that are masked
-//   for all of its rows.
-// - flash_fwd_simt_kernel (fp32, and bf16 rows not 16-byte aligned): scalar
-//   fp32 FMAs from shared memory with Q pre-scaled in fp32 as in the Pallas
-//   kernel; 256 threads as a 16 x 16 grid, each owning 4 q rows.
-// Neither uses wgmma, TMA or a pipeline of K/V tiles yet.
-
+// The Pallas kernel keeps a whole K/V sequence in VMEM per program; that does
+// not fit in 227 KB of shared memory, so here a block owns a tile of q rows of
+// one (batch, head) and streams K/V tiles through shared memory. Causal tiles
+// stop at the diagonal and windowed tiles start at the window's first tile, as
+// in the Pallas loop bounds; ragged q and k tails are masked in the kernel, so
+// every shape runs here. Three kernels share that plan; the caller names one
+// (ops/attention.py:_fwd_route picks it from dtype, head_dim and alignment):
+// - flash_fwd_wgmma_kernel (route 2; bf16, D = 128, 16-byte aligned rows: the
+//   main path): TMA-fed and warp-specialised, on wgmma. Below.
+// - flash_fwd_mma_kernel (route 1; aligned bf16, the route of D = 32 and 64;
+//   it takes D = 128 too, to be held against the wgmma kernel): 4 warps, each
+//   owning 16 of 64 q rows, mma.sync m16n8k16 for both products; K/V
+//   tiles of 64 keys copied through registers. Scores, probabilities and the
+//   output sum stay in registers; P is rounded to bf16 for P.V as the plain
+//   version rounds its probabilities. The fp32 scores are scaled (rather than
+//   Q, which would round Q a second time). A warp skips the tiles that are
+//   masked for all of its rows.
+// - flash_fwd_simt_kernel (route 0; fp32, and bf16 rows not 16-byte aligned):
+//   scalar fp32 FMAs from shared memory with Q pre-scaled in fp32 as in the
+//   Pallas kernel; 256 threads as a 16 x 16 grid, each owning 4 q rows.
+//
+// The wgmma kernel. Three warpgroups: warpgroup 0 is the producer, which gives
+// up registers (setmaxnreg) and has one thread issue every TMA load; warpgroups
+// 1 and 2 are consumers of 64 q rows each (a block owns 128 q rows) and take
+// the registers. Q arrives once, then K and V tiles of 128 keys stream through
+// a ring of W_STAGES (2) stages with their own "full" barriers (so Q.K^T starts
+// before V lands) and one "empty" barrier per stage that all 256 consumer
+// threads arrive on when done. TMA reads the strided views through a 4-D map
+// (head_dim, seq, heads, batch), so the model's transposed [B, S, H, D] views
+// need no copy, and rows past the sequence come back as zeros (keys past Sk are
+// still masked: a zero key scores 0, not -inf). Per tile, each consumer
+// warpgroup computes S = Q K^T with 8 SS wgmma m64n128k16 (both operands
+// K-major), masks only on diagonal, window-edge and ragged tiles, runs the
+// online softmax on the raw scores with exp2 (ex2.approx.ftz) and the scale
+// folded into one FMA (m is kept in raw-score units; LSE = m scale + ln l),
+// rounds P to bf16 in registers (the m64n128 accumulator is laid out as the A
+// operand of the RS form) and adds P V with 8 RS wgmma (V as an MN-major B
+// operand). The row sums l stay per thread until the epilogue.
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -358,89 +377,358 @@ __global__ void __launch_bounds__(NT_MMA) flash_fwd_mma_kernel(
   }
 }
 
+
+// ---- the wgmma kernel (bf16, D = 128)
+constexpr int WG_THREADS = 128;
+constexpr int W_ROWS = 64;                  // q rows per consumer warpgroup
+constexpr int W_BQ = 2 * W_ROWS;            // q rows per block
+constexpr int W_BK = 128;                   // keys per stage
+constexpr int W_STAGES = 2;
+constexpr int W_HALF = 128 * 128;           // bytes of one 64-column half of a 128-row tile
+constexpr int W_TILE = 2 * W_HALF;          // bytes of a 128 x 128 bf16 tile
+constexpr int W_BARS = W_TILE * (1 + 2 * W_STAGES);  // barriers after Q, K[], V[]
+constexpr int W_SMEM = W_BARS + 8 * (1 + 3 * W_STAGES) + 1024;  // + alignment slack
+constexpr float LOG2E = 1.4426950408889634f;
+
+// 2^x as one MUFU op (ex2.approx.ftz): exp2f adds a fix-up for subnormal
+// results around it, which cost 3-4% of the kernel at the main shape on an
+// H100; here probabilities below 2^-126 become 0
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_fwd_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
+    float* __restrict__ lse, int H, int KvH, int Sq, int Sk, int causal,
+    int window, float scale) {
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  // the 128-byte swizzle needs 1024-byte aligned tiles
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* sQ = smem;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + W_BARS);
+  uint64_t* full_q = bars;
+  uint64_t* full_k = bars + 1;
+  uint64_t* full_v = full_k + W_STAGES;
+  uint64_t* empty = full_v + W_STAGES;
+
+  const int qt = gridDim.y - 1 - blockIdx.y;  // longest causal tiles first
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int kvh = h / (H / KvH);
+  const int q0 = qt * W_BQ;
+  const int kv_offset = Sk - Sq;
+  int n_tiles = (Sk + W_BK - 1) / W_BK;
+  int first_tile = 0;
+  if (causal) {
+    const int last_key = kv_offset + min(q0 + W_BQ, Sq) - 1;
+    n_tiles = min(n_tiles, last_key / W_BK + 1);
+    if (window > 0) first_tile = max(kv_offset + q0 - (window - 1), 0) / W_BK;
+  }
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < W_STAGES; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty[s], 2 * WG_THREADS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < WG_THREADS) {
+    // ---- producer: one thread issues every load
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(full_q, W_TILE);
+      tma_load_4d(sQ, &tm_q, full_q, 0, q0, h, b);
+      tma_load_4d(sQ + W_HALF, &tm_q, full_q, 64, q0, h, b);
+      for (int t = first_tile, i = 0; t < n_tiles; ++t, ++i) {
+        const int s = i % W_STAGES;
+        mbar_wait(&empty[s], ((i / W_STAGES) & 1) ^ 1);
+        unsigned char* sK = smem + W_TILE * (1 + s);
+        unsigned char* sV = smem + W_TILE * (1 + W_STAGES + s);
+        mbar_arrive_expect_tx(&full_k[s], W_TILE);
+        tma_load_4d(sK, &tm_k, &full_k[s], 0, t * W_BK, kvh, b);
+        tma_load_4d(sK + W_HALF, &tm_k, &full_k[s], 64, t * W_BK, kvh, b);
+        mbar_arrive_expect_tx(&full_v[s], W_TILE);
+        tma_load_4d(sV, &tm_v, &full_v[s], 0, t * W_BK, kvh, b);
+        tma_load_4d(sV + W_HALF, &tm_v, &full_v[s], 64, t * W_BK, kvh, b);
+      }
+    }
+  } else {
+    // ---- consumers
+    setmaxnreg_inc<240>();
+    const int cw = threadIdx.x / WG_THREADS - 1;  // this consumer's 64 rows
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int w_row0 = q0 + W_ROWS * cw;
+    const bool w_live = w_row0 < Sq;
+    const int w_first = kv_offset + w_row0;
+    const int w_last = kv_offset + min(w_row0 + W_ROWS - 1, Sq - 1);
+    const float c = scale * LOG2E;  // raw score -> log2 units
+    // rows 16 warp + g (r = 0) and + 8 (r = 1) of this warpgroup's 64
+    float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    const uint64_t dq = desc_kmajor(sQ + W_ROWS * 128 * cw);
+
+    mbar_wait(full_q, 0);
+    for (int t = first_tile, i = 0; t < n_tiles; ++t, ++i) {
+      const int s = i % W_STAGES;
+      const uint32_t ph = (i / W_STAGES) & 1;
+      const int k0 = t * W_BK;
+      unsigned char* sK = smem + W_TILE * (1 + s);
+      unsigned char* sV = smem + W_TILE * (1 + W_STAGES + s);
+      mbar_wait(&full_k[s], ph);
+      // a tile masked for every row of this warpgroup is only released
+      if (!w_live || (causal && (k0 > w_last ||
+                                 (window > 0 && k0 + W_BK - 1 <= w_first - window)))) {
+        mbar_wait(&full_v[s], ph);
+        mbar_arrive(&empty[s]);
+        continue;
+      }
+
+      // S = Q K^T: 8 k-steps of 16 over head_dim, 4 in each 64-column half
+      float sc[64];
+      const uint64_t dk = desc_kmajor(sK);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const uint64_t off = ((kk / 4) * W_HALF + (kk % 4) * 32) >> 4;
+        wgmma_m64n128k16_ss<0, 0>(sc, dq + off, dk + off, kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+
+      // sc[4 j + e]: row 16 warp + g + 8 (e / 2), key k0 + 8 j + 2 t4 + (e % 2)
+      const bool need_mask =
+          k0 + W_BK > Sk ||
+          (causal && (k0 + W_BK - 1 > w_first || (window > 0 && k0 <= w_last - window)));
+      if (need_mask) {
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = k0 + 8 * j + 2 * t4 + (e & 1);
+            const int qpos = w_first + 16 * warp + g + 8 * (e >> 1);
+            bool ok = key < Sk;
+            if (causal) {
+              ok = ok && key <= qpos;
+              if (window > 0) ok = ok && key > qpos - window;
+            }
+            if (!ok) sc[4 * j + e] = NEG;
+          }
+        }
+      }
+
+      // online softmax in log2 units; a row's 128 scores lie in the 4 lanes
+      // of a quad. While a row has seen only masked keys (m = NEG) its
+      // probabilities are 0 here, where the Pallas kernel sums exp(0) = 1
+      // per masked key: the first visible key's alpha = 0 clears either.
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = m[r];
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * r], sc[4 * j + 2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float alpha = exp2_ftz((m[r] - mx) * c);
+        const float mc = mx == NEG ? 0.f : mx * c;
+        float rs = 0.f;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const float p0 = exp2_ftz(fmaf(sc[4 * j + 2 * r], c, -mc));
+          const float p1 = exp2_ftz(fmaf(sc[4 * j + 2 * r + 1], c, -mc));
+          sc[4 * j + 2 * r] = p0;
+          sc[4 * j + 2 * r + 1] = p1;
+          rs += p0 + p1;
+        }
+        l[r] = l[r] * alpha + rs;  // this thread's part of the row sum
+        m[r] = mx;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          acc[4 * j + 2 * r] *= alpha;
+          acc[4 * j + 2 * r + 1] *= alpha;
+        }
+      }
+
+      // P in bf16 as the A operand: k-step jj is keys 16 jj .. 16 jj + 15
+      uint32_t pa[8][4];
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        pa[jj][0] = pack_bf16(sc[8 * jj + 0], sc[8 * jj + 1]);
+        pa[jj][1] = pack_bf16(sc[8 * jj + 2], sc[8 * jj + 3]);
+        pa[jj][2] = pack_bf16(sc[8 * jj + 4], sc[8 * jj + 5]);
+        pa[jj][3] = pack_bf16(sc[8 * jj + 6], sc[8 * jj + 7]);
+      }
+
+      // O += P V: V [keys][head_dim] is B, MN-major; its two 64-column
+      // halves are LBO apart and each k-step of 16 keys is 2048 bytes
+      mbar_wait(&full_v[s], ph);
+      const uint64_t dv = desc_mnmajor(sV, W_HALF);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+        wgmma_m64n128k16_rs<1>(acc, pa[jj], dv + ((jj * 16 * 128) >> 4), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(&empty[s]);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+    if (w_live) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = w_row0 + 16 * warp + g + 8 * r;
+        if (row >= Sq) continue;
+        const float lc = fmaxf(l[r], 1e-30f);
+        __nv_bfloat16* orow = o + ((int64_t)bh * Sq + row) * 128 + 2 * t4;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+              pack_bf16(acc[4 * j + 2 * r] / lc, acc[4 * j + 2 * r + 1] / lc);
+        if (t4 == 0) lse[(int64_t)bh * Sq + row] = m[r] * scale + logf(lc);
+      }
+    }
+  }
+}
+
 // ---- host entry
+// cudaFuncSetAttribute once per kernel instantiation (C++ statics initialise
+// once, thread-safe), not on every launch
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int smem) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+struct Args {
+  const void *q, *k, *v;
+  void *o, *lse;
+  int B, H, KvH, Sq, Sk;
+  const int64_t* st;  // (batch, head, seq) strides of q, k, v in elements
+  int causal, window;
+  float scale;
+  cudaStream_t stream;
+};
+
 template <typename T, int D>
-cudaError_t launch_simt(const void* q, const void* k, const void* v, void* o,
-                        void* lse, int B, int H, int KvH, int Sq, int Sk,
-                        const int64_t* st, int causal, int window, float scale,
-                        cudaStream_t stream) {
-  const int smem = (int)sizeof(float) * (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * BKP);
-  auto kernel = flash_fwd_simt_kernel<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  kernel<<<grid, NT, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse, H, KvH, Sq, Sk,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      causal, window, scale);
+cudaError_t launch_simt(const Args& a) {
+  constexpr int smem = (int)sizeof(float) * (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * BKP);
+  static const cudaError_t attr = allow_smem(flash_fwd_simt_kernel<T, D>, smem);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((a.Sq + BQ - 1) / BQ, a.B * a.H);
+  const int64_t* st = a.st;
+  flash_fwd_simt_kernel<T, D><<<grid, NT, smem, a.stream>>>(
+      (const T*)a.q, (const T*)a.k, (const T*)a.v, (T*)a.o, (float*)a.lse, a.H,
+      a.KvH, a.Sq, a.Sk, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
+      st[8], a.causal, a.window, a.scale);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
-                       void* lse, int B, int H, int KvH, int Sq, int Sk,
-                       const int64_t* st, int causal, int window, float scale,
-                       cudaStream_t stream) {
-  const int smem = (int)sizeof(__nv_bfloat16) * (BQ + 2 * BK) * (D + 8);
-  auto kernel = flash_fwd_mma_kernel<D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  kernel<<<grid, NT_MMA, smem, stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (__nv_bfloat16*)o, (float*)lse, H, KvH, Sq, Sk,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      causal, window, scale);
+cudaError_t launch_mma(const Args& a) {
+  constexpr int smem = (int)sizeof(__nv_bfloat16) * (BQ + 2 * BK) * (D + 8);
+  static const cudaError_t attr = allow_smem(flash_fwd_mma_kernel<D>, smem);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((a.Sq + BQ - 1) / BQ, a.B * a.H);
+  const int64_t* st = a.st;
+  flash_fwd_mma_kernel<D><<<grid, NT_MMA, smem, a.stream>>>(
+      (const __nv_bfloat16*)a.q, (const __nv_bfloat16*)a.k,
+      (const __nv_bfloat16*)a.v, (__nv_bfloat16*)a.o, (float*)a.lse, a.H, a.KvH,
+      a.Sq, a.Sk, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+      a.causal, a.window, a.scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_wgmma(const Args& a) {
+  static const cudaError_t attr = allow_smem(flash_fwd_wgmma_kernel, W_SMEM);
+  if (attr != cudaSuccess) return attr;
+  const int64_t* st = a.st;
+  CUtensorMap maps[3];
+  const int64_t q_dims[4] = {128, a.Sq, a.H, a.B};
+  const int64_t kv_dims[4] = {128, a.Sk, a.KvH, a.B};
+  const void* bases[3] = {a.q, a.k, a.v};
+  for (int i = 0; i < 3; ++i) {
+    // strides (seq, head, batch), innermost first after head_dim
+    const int64_t strides[3] = {st[3 * i + 2], st[3 * i + 1], st[3 * i]};
+    const uint32_t rows = i == 0 ? W_BQ : W_BK;
+    if (!hopper::make_map_bf16_4d(&maps[i], bases[i], i == 0 ? q_dims : kv_dims,
+                                  strides, rows))
+      return cudaErrorInvalidValue;
+  }
+  const dim3 grid(a.B * a.H, (a.Sq + W_BQ - 1) / W_BQ);
+  flash_fwd_wgmma_kernel<<<grid, 3 * WG_THREADS, W_SMEM, a.stream>>>(
+      maps[0], maps[1], maps[2], (__nv_bfloat16*)a.o, (float*)a.lse, a.H, a.KvH,
+      a.Sq, a.Sk, a.causal, a.window, a.scale);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
-                     void* o, void* lse, int B, int H, int KvH, int Sq, int Sk,
-                     const int64_t* st, int causal, int window, float scale,
-                     cudaStream_t stream) {
-#define FLASH_ARGS q, k, v, o, lse, B, H, KvH, Sq, Sk, st, causal, window, scale, stream
-  const void* ptrs[3] = {q, k, v};
-  if (sizeof(T) == 2 && rows_aligned(ptrs, 3, st, 9)) {
-    switch (D) {
-      case 32: return launch_mma<32>(FLASH_ARGS);
-      case 64: return launch_mma<64>(FLASH_ARGS);
-      case 128: return launch_mma<128>(FLASH_ARGS);
-      default: return cudaErrorInvalidValue;
-    }
-  }
+cudaError_t launch_simt_d(int D, const Args& a) {
   switch (D) {
-    case 32: return launch_simt<T, 32>(FLASH_ARGS);
-    case 64: return launch_simt<T, 64>(FLASH_ARGS);
-    case 128: return launch_simt<T, 128>(FLASH_ARGS);
+    case 32: return launch_simt<T, 32>(a);
+    case 64: return launch_simt<T, 64>(a);
+    case 128: return launch_simt<T, 128>(a);
     default: return cudaErrorInvalidValue;
   }
-#undef FLASH_ARGS
 }
 
 }  // namespace
 
 // q, k, v: [B, H|KvH, S, D] with the given (batch, head, seq) strides and a
 // contiguous last dim; o: contiguous [B, H, Sq, D]; lse: contiguous fp32
-// [B, H, Sq]. dtype 0 = fp32, 1 = bf16. window <= 0 means no window.
+// [B, H, Sq]. dtype 0 = fp32, 1 = bf16. window <= 0 means no window. route:
+// 0 = simt (any input), 1 = mma (bf16, 16-byte aligned bases, strides that
+// are multiples of 8), 2 = wgmma (as mma, and D = 128, Sk > 0). A route that
+// cannot take the inputs returns cudaErrorInvalidValue and launches nothing.
 // Returns the launch's cudaError_t (0 on success).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
-                         void* lse, int dtype, int device, int B, int H,
-                         int KvH, int Sq, int Sk, int D,
+                         void* lse, int dtype, int route, int device, int B,
+                         int H, int KvH, int Sq, int Sk, int D,
                          int64_t q_sb, int64_t q_sh, int64_t q_ss,
                          int64_t k_sb, int64_t k_sh, int64_t k_ss,
                          int64_t v_sb, int64_t v_sh, int64_t v_ss,
                          int causal, int window, float scale, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int64_t st[9] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss};
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch (dtype) {
-    case 0: err = dispatch<float>(D, q, k, v, o, lse, B, H, KvH, Sq, Sk, st, causal, window, scale, s); break;
-    case 1: err = dispatch<__nv_bfloat16>(D, q, k, v, o, lse, B, H, KvH, Sq, Sk, st, causal, window, scale, s); break;
-    default: err = cudaErrorInvalidValue;
+  const Args a{q, k, v, o, lse, B, H, KvH, Sq, Sk, st, causal, window, scale,
+               (cudaStream_t)stream};
+  const void* ptrs[3] = {q, k, v};
+  const bool tensor_core = dtype == 1 && rows_aligned(ptrs, 3, st, 9);
+  switch (route) {
+    case 0:
+      if (dtype == 0) return (int)launch_simt_d<float>(D, a);
+      if (dtype == 1) return (int)launch_simt_d<__nv_bfloat16>(D, a);
+      return (int)cudaErrorInvalidValue;
+    case 1:
+      if (!tensor_core) return (int)cudaErrorInvalidValue;
+      switch (D) {
+        case 32: return (int)launch_mma<32>(a);
+        case 64: return (int)launch_mma<64>(a);
+        case 128: return (int)launch_mma<128>(a);
+        default: return (int)cudaErrorInvalidValue;
+      }
+    case 2:
+      if (!tensor_core || D != 128 || Sk <= 0) return (int)cudaErrorInvalidValue;
+      return (int)launch_wgmma(a);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  return (int)err;
 }
