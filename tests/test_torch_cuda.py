@@ -20,6 +20,7 @@ from yoda_scheduler_tpu_torch.models import (LlamaConfig, init_llama, llama_forw
                                              llama_loss)
 from yoda_scheduler_tpu_torch.ops import _build
 from yoda_scheduler_tpu_torch.ops import attention as attn
+from yoda_scheduler_tpu_torch.ops.variants import BWD_TILE_REL_L2, tile_rel_l2
 from yoda_scheduler_tpu_torch.parallel import (build_llama_train_step, init_opt_state,
                                                param_leaves)
 
@@ -113,6 +114,8 @@ def _hopper_lib():
     lib.hopper_tma_tile.argtypes = [p] + [i64] * 7 + [i32] * 5 + [p, p]
     lib.hopper_wgmma_ss.argtypes = [p, p, i32, p, p]
     lib.hopper_wgmma_rs.argtypes = [p, p, p, p]
+    lib.hopper_wgmma_ss64.argtypes = [p, p, i32, p, p]
+    lib.hopper_wgmma_rs64.argtypes = [p, p, p, p]
     return lib
 
 
@@ -180,8 +183,36 @@ def test_wgmma_rs_tile_is_a_matmul(gpu):
     torch.testing.assert_close(out, p.float() @ v.float(), atol=1e-3, rtol=1e-4)
 
 
+@pytest.mark.parametrize("a_row0", [0, 64])
+def test_wgmma_ss64_tile_is_a_matmul(gpu, a_row0):
+    """m64n64k16 with A from a 128-row tile and B a 64-row tile, both
+    K-major: flash_bwd.cu's S^T = K Q^T and S = Q K^T."""
+    gen = torch.Generator(gpu).manual_seed(3)
+    a = torch.randn(128, 128, generator=gen, device=gpu).to(torch.bfloat16)
+    bm = torch.randn(64, 128, generator=gen, device=gpu).to(torch.bfloat16)
+    out = torch.empty(64, 64, device=gpu)
+    assert _hopper_lib().hopper_wgmma_ss64(a.data_ptr(), bm.data_ptr(), a_row0,
+                                           out.data_ptr(), _stream()) == 0
+    torch.cuda.synchronize()
+    want = a[a_row0:a_row0 + 64].float() @ bm.float().T
+    torch.testing.assert_close(out, want, atol=1e-3, rtol=1e-4)
+
+
+def test_wgmma_rs64_tile_is_a_matmul(gpu):
+    """m64n128k16 with A from registers and B a 64-row MN-major tile
+    (halves 8 KB apart): flash_bwd.cu's P^T dO, dS^T Q and dS K."""
+    gen = torch.Generator(gpu).manual_seed(4)
+    p = torch.rand(64, 64, generator=gen, device=gpu).to(torch.bfloat16)
+    v = torch.randn(64, 128, generator=gen, device=gpu).to(torch.bfloat16)
+    out = torch.empty(64, 128, device=gpu)
+    assert _hopper_lib().hopper_wgmma_rs64(p.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                           _stream()) == 0
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, p.float() @ v.float(), atol=1e-3, rtol=1e-4)
+
+
 # (b, h, kvh, sq, sk), causal, window: shapes that reach each path of the
-# wgmma kernel (diagonal, ragged tails, cross length, window start, GQA)
+# wgmma kernels (diagonal, ragged tails, cross length, window start, GQA)
 WGMMA_SHAPES = {
     "s128": ((1, 2, 2, 128, 128), True, None),
     "s2048": ((1, 4, 4, 2048, 2048), True, None),
@@ -200,7 +231,7 @@ def test_wgmma_route_matches_the_plain_version(gpu, case, layout):
     q, k, v = _qkv(gpu, torch.bfloat16, b, h, kvh, sq, sk, 128)
     if layout == "bshd":  # the model's transposed views of [B, S, H, D]
         q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
-    assert attn._fwd_route(q, k, v) == "wgmma"
+    assert attn._route(q, k, v) == "wgmma"
     o, lse = attn.flash_fwd(q, k, v, causal, window)
     torch.cuda.synchronize()
     ro, rl = attn.reference_attention_with_lse(q, k, v, causal, window)
@@ -215,6 +246,64 @@ def test_wgmma_route_matches_the_mma_route(gpu):
     torch.cuda.synchronize()
     torch.testing.assert_close(o2.float(), o1.float(), atol=2e-2, rtol=2e-2)
     torch.testing.assert_close(l2, l1, atol=1e-3, rtol=1e-3)
+
+
+def _bwd_inputs(gpu, case, layout, seed=0):
+    """q, k, v, dO of a WGMMA_SHAPES case in `layout`, with the forward's O
+    and LSE, a random LSE cotangent and delta."""
+    (b, h, kvh, sq, sk), causal, window = WGMMA_SHAPES[case]
+    q, k, v = _qkv(gpu, torch.bfloat16, b, h, kvh, sq, sk, 128, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    do = torch.from_numpy(rng.standard_normal(q.shape, dtype=np.float32)).to(gpu, q.dtype)
+    g_lse = torch.from_numpy(rng.standard_normal(q.shape[:3], dtype=np.float32)).to(gpu)
+    if layout == "bshd":  # the model's transposed views of [B, S, H, D]
+        q, k, v, do = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                       for t in (q, k, v, do))
+    o, lse = attn.flash_fwd(q, k, v, causal, window)
+    delta = attn.backward_delta(o, do, g_lse).contiguous()
+    return (q, k, v, do, lse, delta, causal, window), (o, g_lse)
+
+
+def _bwd_kernels(args, route):
+    kvh = args[1].shape[1]
+    dk, dv = attn.flash_bwd_dkv(*args, route=route)
+    return attn.flash_bwd_dq(*args, route=route), attn.group_sum(dk, kvh), attn.group_sum(dv, kvh)
+
+
+@pytest.mark.parametrize("case", list(WGMMA_SHAPES))
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+def test_wgmma_backward_routes_match_the_plain_backward(gpu, case, layout):
+    """Elementwise as the forward, and each output by its worst 64-row tile
+    (`tile_rel_l2`), which holds the small dK and dV of late keys to their
+    own size."""
+    args, (o, g_lse) = _bwd_inputs(gpu, case, layout)
+    q, k, v, do, lse, _, causal, window = args
+    assert attn._route(q, k, v, do) == "wgmma"
+    before = [fn.launches_by_route["wgmma"] for fn in (attn.flash_bwd_dq, attn.flash_bwd_dkv)]
+    got = _bwd_kernels(args, None)
+    torch.cuda.synchronize()
+    assert [fn.launches_by_route["wgmma"] for fn in (attn.flash_bwd_dq, attn.flash_bwd_dkv)] == [
+        n + 1 for n in before]
+    want = attn.flash_backward_reference(q, k, v, o, lse, do, causal, window, g_lse)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        torch.testing.assert_close(g.float(), w.float(), atol=2e-2, rtol=2e-2)
+        assert tile_rel_l2(g, w) <= BWD_TILE_REL_L2
+
+
+def test_wgmma_backward_routes_match_the_mma_route(gpu):
+    args, _ = _bwd_inputs(gpu, "gqa_32_8", "bhsd", seed=2)
+    for g, w in zip(_bwd_kernels(args, "wgmma"), _bwd_kernels(args, "mma")):
+        torch.testing.assert_close(g.float(), w.float(), atol=2e-2, rtol=2e-2)
+        assert tile_rel_l2(g, w) <= BWD_TILE_REL_L2
+
+
+@pytest.mark.parametrize("case", ["ragged_300", "window_512"])
+def test_wgmma_backward_routes_are_bit_repeatable(gpu, case):
+    args, _ = _bwd_inputs(gpu, case, "bshd")
+    runs = [_bwd_kernels(args, "wgmma") for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.float16, 64), (torch.bfloat16, 96)])

@@ -4,7 +4,8 @@ Each kernel is one source under `csrc/` with a plain C entry point; the
 sources share headers (`csrc/*.cuh`). It is compiled by `nvcc` for sm_90a
 into a shared library under `build/kernels/` at the repository root (listed
 in .gitignore), named by a hash of the source, the headers and the flags, so
-an unchanged kernel is compiled once per checkout. All missing
+an unchanged kernel is compiled once per checkout; nvcc's output (ptxas's
+registers and spills) is kept beside it and read back with it. All missing
 kernels of one `load` call compile in parallel, one `nvcc` each.
 """
 
@@ -26,7 +27,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-# name -> {"seconds": wall time of its nvcc, "log": nvcc's output (ptxas -v)}
+# name -> {"seconds": wall time of its nvcc (None if built before this
+# process), "log": nvcc's output (ptxas -v)}
 build_info: dict[str, dict] = {}
 
 
@@ -56,7 +58,8 @@ def load(*names: str) -> list[ctypes.CDLL]:
     in parallel. Raises RuntimeError with nvcc's output if a build fails."""
     with _lock:
         todo = {n: _target(n) for n in names if n not in _libs}
-        missing = {n: t for n, t in todo.items() if not t.exists()}
+        missing = {n: t for n, t in todo.items()
+                   if not (t.exists() and t.with_suffix(".log").exists())}
         if missing:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             nvcc = _nvcc()
@@ -74,9 +77,12 @@ def load(*names: str) -> list[ctypes.CDLL]:
                 if proc.returncode:
                     failed.append(f"nvcc failed for {n}.cu (exit {proc.returncode}):\n{log}")
                 else:
+                    missing[n].with_suffix(".log").write_text(log)
                     os.replace(tmp, missing[n])
             if failed:
                 raise RuntimeError("\n".join(failed))
         for n, target in todo.items():
+            build_info.setdefault(n, {"seconds": None,
+                                      "log": target.with_suffix(".log").read_text()})
             _libs[n] = ctypes.CDLL(str(target))
         return [_libs[n] for n in names]

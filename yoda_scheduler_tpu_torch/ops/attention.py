@@ -8,10 +8,11 @@ dV). CPU tensors take the plain versions: `reference_attention_with_lse`,
 with autograd through it, and `flash_backward_reference`, the plain twin of
 the backward kernels. The kernels mask ragged sequence tails themselves, so
 no shape falls back to a plain version on the card; they take bf16 or fp32
-and head_dim 32, 64 or 128, and raise otherwise. The forward has three
-routes, which `_fwd_route` picks from the inputs alone: "wgmma" (TMA and
-wgmma, bf16 with head_dim 128 and 16-byte aligned rows: the model's path),
-"mma" (mma.sync, other aligned bf16) and "simt" (fp32, unaligned bf16).
+and head_dim 32, 64 or 128, and raise otherwise. Each kernel has three
+routes, which `_route` picks from the inputs alone:
+"wgmma" (TMA and wgmma, bf16 with head_dim 128 and 16-byte aligned rows:
+the model's path), "mma" (mma.sync, other aligned bf16) and "simt" (fp32,
+unaligned bf16).
 """
 
 from __future__ import annotations
@@ -122,10 +123,10 @@ def group_sum(x, kvh: int):
 # ----------------------------------------------------------------- kernels
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_HEAD_DIMS = (32, 64, 128)
-_FWD_ROUTES = {"simt": 0, "mma": 1, "wgmma": 2}  # csrc/flash_fwd.cu's route codes
+_ROUTES = {"simt": 0, "mma": 1, "wgmma": 2}  # route codes of csrc/flash_{fwd,bwd}.cu
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_int64] * 9
              + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
-_BWD_TAIL = ([ctypes.c_int] * 8 + [ctypes.c_int64] * 12
+_BWD_TAIL = ([ctypes.c_int] * 9 + [ctypes.c_int64] * 12
              + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
 _BWD_ARGTYPES = {"flash_bwd_dq": [ctypes.c_void_p] * 7 + _BWD_TAIL,
                  "flash_bwd_dkv": [ctypes.c_void_p] * 8 + _BWD_TAIL}
@@ -177,41 +178,54 @@ def _check_qkv(name: str, q, k, v, causal: bool):
     return b, h, kvh, sq, sk, d
 
 
-def _fwd_routes(q, k, v) -> tuple[str, ...]:
-    """The forward kernels that can take these inputs, slowest first: simt
-    takes any; mma needs bf16 with 16-byte aligned bases and (batch, head,
-    seq) strides that are multiples of 8 elements; wgmma needs that, head_dim
-    128 and a non-empty kv (the conditions of csrc/flash_fwd.cu's entry)."""
+def _routes(q, k, *rest) -> tuple[str, ...]:
+    """The kernels that can take these inputs (q, k, v for the forward, q,
+    k, v and dO for the backward), slowest first: simt takes any; mma needs
+    bf16 with 16-byte aligned bases and (batch, head, seq) strides that are
+    multiples of 8 elements; wgmma needs that, head_dim 128 and a non-empty
+    kv (the conditions of the csrc/ entries)."""
     routes = ("simt",)
     if q.dtype == torch.bfloat16 and all(
             t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
-            for t in (q, k, v)):
+            for t in (q, k, *rest)):
         routes += ("mma",)
         if q.shape[-1] == 128 and k.shape[2] > 0:
             routes += ("wgmma",)
     return routes
 
 
-def _fwd_route(q, k, v) -> str:
-    """The forward kernel these inputs take: "wgmma", "mma" or "simt"."""
-    return _fwd_routes(q, k, v)[-1]
+def _route(q, k, *rest) -> str:
+    """The kernel these inputs take: "wgmma", "mma" or "simt"."""
+    return _routes(q, k, *rest)[-1]
+
+
+def _pick_route(name: str, routes, route):
+    """`route`, or the fastest of `routes` when it is None; a named route
+    that cannot take the inputs raises."""
+    if route is None:
+        return routes[-1]
+    if route not in routes:
+        raise ValueError(f"{name} route {route!r} cannot take these inputs "
+                         f"(it can take {routes})")
+    return route
+
+
+def _count(fn, route: str) -> None:
+    fn.launches += 1
+    fn.launches_by_route[route] += 1
 
 
 def flash_fwd(q, k, v, causal: bool = True, window: int | None = None,
               route: str | None = None):
     """Launch the flash forward kernel on CUDA tensors: returns (O [B, H, Sq,
     D] in q's dtype, LSE [B, H, Sq] fp32). Inputs may be strided views with
-    a contiguous last dim. `route` None takes `_fwd_route`'s kernel; a named
+    a contiguous last dim. `route` None takes `_route`'s kernel; a named
     route (to hold one kernel against another) must be able to take the
     inputs. Raises on anything the kernel does not take.
-    `flash_fwd.launches` counts the launches."""
+    `flash_fwd.launches` counts the launches, `.launches_by_route` each
+    route's."""
     b, h, kvh, sq, sk, d = _check_qkv("flash_fwd", q, k, v, causal)
-    routes = _fwd_routes(q, k, v)
-    if route is None:
-        route = routes[-1]
-    elif route not in routes:
-        raise ValueError(f"flash_fwd route {route!r} cannot take these inputs "
-                         f"(it can take {routes})")
+    route = _pick_route("flash_fwd", _routes(q, k, v), route)
     _require_cuda("flash_fwd", q, k, v)
     o = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
@@ -221,21 +235,27 @@ def flash_fwd(q, k, v, causal: bool = True, window: int | None = None,
     strides = [s for t in (q, k, v) for s in t.stride()[:3]]
     err = lib.flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        _KERNEL_DTYPES[q.dtype], _FWD_ROUTES[route], q.get_device(), b, h, kvh,
+        _KERNEL_DTYPES[q.dtype], _ROUTES[route], q.get_device(), b, h, kvh,
         sq, sk, d, *strides, int(causal), window or 0, 1.0 / (d ** 0.5), _stream(q))
     if err:
         raise RuntimeError(f"flash_fwd ({route}) launch failed with CUDA error {err}")
-    flash_fwd.launches += 1
+    _count(flash_fwd, route)
     return o, lse
 
 
-flash_fwd.launches = 0
+def _reset_counts(fn) -> None:
+    fn.launches = 0
+    fn.launches_by_route = dict.fromkeys(_ROUTES, 0)
 
 
-def _launch_bwd(name: str, q, k, v, do, lse, delta, outs, causal, window):
-    """Checks the backward kernels' inputs and launches kernel `name` into
-    the preallocated `outs`; -> whether it launched (not for empty inputs)."""
-    _require_cuda(name, q, k, v, do, lse, delta)
+_reset_counts(flash_fwd)
+
+
+def _launch_bwd(fn, q, k, v, do, lse, delta, outs, causal, window, route):
+    """Checks the backward kernels' inputs and launches the kernel of
+    wrapper `fn` on `route` (or `_route`'s) into the preallocated
+    `outs`, counting the launch (none for empty inputs)."""
+    name = fn.__name__
     b, h, kvh, sq, sk, d = _check_qkv(name, q, k, v, causal)
     if do.shape != q.shape or do.dtype != q.dtype or do.stride(-1) != 1:
         raise ValueError(f"{name} needs dO shaped and typed as q with a "
@@ -244,54 +264,53 @@ def _launch_bwd(name: str, q, k, v, do, lse, delta, outs, causal, window):
         if t.shape != (b, h, sq) or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} needs contiguous fp32 LSE and delta of "
                              f"shape {(b, h, sq)}, got {tuple(t.shape)} {t.dtype}")
+    route = _pick_route(name, _routes(q, k, v, do), route)
+    _require_cuda(name, q, k, v, do, lse, delta)
     if q.numel() == 0 or k.numel() == 0:
         for t in outs:
             t.zero_()
-        return False
+        return
     lib = _bwd_lib()
     strides = [s for t in (q, k, v, do) for s in t.stride()[:3]]
     err = getattr(lib, name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), *(t.data_ptr() for t in outs),
-        _KERNEL_DTYPES[q.dtype], q.get_device(), b, h, kvh, sq, sk, d,
-        *strides, int(causal), window or 0, 1.0 / (d ** 0.5), _stream(q))
+        _KERNEL_DTYPES[q.dtype], _ROUTES[route], q.get_device(), b, h, kvh, sq, sk,
+        d, *strides, int(causal), window or 0, 1.0 / (d ** 0.5), _stream(q))
     if err:
-        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
-    return True
+        raise RuntimeError(f"{name} ({route}) launch failed with CUDA error {err}")
+    _count(fn, route)
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
-                 window: int | None = None):
+                 window: int | None = None, route: str | None = None):
     """Launch the dQ kernel on CUDA tensors: -> dQ [B, H, Sq, D] in q's
     dtype. q/k/v/dO may be strided views with a contiguous last dim; lse and
     delta ([B, H, Sq] fp32, contiguous) are the forward's LSE and
-    `rowsum(dO * O) - g_lse`. `flash_bwd_dq.launches` counts the launches."""
+    `rowsum(dO * O) - g_lse`. `route` None takes `_route`'s kernel; a
+    named route must be able to take the inputs. `flash_bwd_dq.launches`
+    counts the launches, `.launches_by_route` each route's."""
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    if _launch_bwd("flash_bwd_dq", q, k, v, do, lse, delta, (dq,), causal, window):
-        flash_bwd_dq.launches += 1
+    _launch_bwd(flash_bwd_dq, q, k, v, do, lse, delta, (dq,), causal, window, route)
     return dq
 
 
-flash_bwd_dq.launches = 0
-
-
 def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True,
-                  window: int | None = None):
+                  window: int | None = None, route: str | None = None):
     """Launch the dK/dV kernel on CUDA tensors: -> (dK, dV), each [B, H, Sk,
     D] in k's dtype, one per q head (group-sum them for GQA, `group_sum`).
-    Inputs as for `flash_bwd_dq`. `flash_bwd_dkv.launches` counts the
-    launches."""
+    Inputs, `route` and the counts as for `flash_bwd_dq`."""
     b, h, _, d = q.shape
     shape = (b, h, k.shape[2], d)
     dk = torch.empty(shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(shape, dtype=k.dtype, device=k.device)
-    if _launch_bwd("flash_bwd_dkv", q, k, v, do, lse, delta, (dk, dv), causal,
-                   window):
-        flash_bwd_dkv.launches += 1
+    _launch_bwd(flash_bwd_dkv, q, k, v, do, lse, delta, (dk, dv), causal, window,
+                route)
     return dk, dv
 
 
-flash_bwd_dkv.launches = 0
+_reset_counts(flash_bwd_dq)
+_reset_counts(flash_bwd_dkv)
 
 
 class _FlashFwd(torch.autograd.Function):

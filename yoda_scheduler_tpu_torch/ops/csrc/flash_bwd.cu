@@ -20,24 +20,62 @@
 // both are bound by operations (~52 and ~70 us at the 989 TF/s bf16 peak).
 //
 // Design. The Pallas programs hold a whole K/V (or Q/dO/LSE/delta) sequence
-// in VMEM; here a block owns one 64-row tile and streams 64-row tiles of
-// the other side through shared memory, with the Pallas loop bounds (dQ:
-// stop at the diagonal, start at the window's first tile; dK/dV: start at
-// the first q tile crossing the diagonal, stop at the window's last).
-// Ragged q and k tails are masked in the kernel.
-// - *_mma kernels (bf16, the main path): 4 warps each own 16 rows of the
-//   block's tile and run all products on the tensor cores with mma.sync
-//   m16n8k16 (bf16 operands, fp32 sums), 16 streamed rows at a time, and
-//   skip 16-row steps masked for all of their rows. P and dS are rounded to
-//   bf16 as operands of the following products, where the plain version
-//   rounds them too. The dK/dV kernel computes S^T = K Q^T directly, so its
-//   accumulator tiles are already the A operands of P^T dO and dS^T Q.
-// - *_simt kernels (fp32, and bf16 rows not 16-byte aligned): scalar fp32
-//   FMAs from shared memory, 256 threads as a 16 x 16 grid, each owning 4
-//   rows of the block's tile.
-// None uses wgmma, TMA or a pipeline of streamed tiles yet.
+// in VMEM; here a block owns a tile of one side and streams tiles of the
+// other side through shared memory, with the Pallas loop bounds (dQ: stop at
+// the diagonal, start at the window's first tile; dK/dV: start at the first
+// q tile crossing the diagonal, stop at the window's last). Ragged q and k
+// tails are masked in the kernel. Three routes; the caller names one
+// (ops/attention.py:_route picks it from dtype, head_dim and alignment):
+// - *_wgmma kernels (route 2; bf16, D = 128, 16-byte aligned rows: the main
+//   path): TMA-fed and warp-specialised on wgmma, as flash_fwd.cu's wgmma
+//   kernel. Below.
+// - *_mma kernels (route 1; aligned bf16, the route of D = 32 and 64; they
+//   take D = 128 too, to be held against the wgmma kernels): 4 warps each
+//   own 16 rows of a 64-row tile and run all products on the tensor cores
+//   with mma.sync m16n8k16, 16 streamed rows at a time, skipping 16-row
+//   steps masked for all of their rows; the streamed tiles are copied
+//   through registers with no pipeline. The dK/dV kernel computes S^T = K
+//   Q^T directly, so its accumulator tiles are already the A operands of
+//   P^T dO and dS^T Q.
+// - *_simt kernels (route 0; fp32, and bf16 rows not 16-byte aligned):
+//   scalar fp32 FMAs from shared memory, 256 threads as a 16 x 16 grid, each
+//   owning 4 rows of the block's tile.
+// P and dS are rounded to bf16 as operands of the following products, where
+// the plain version rounds them too.
+//
+// The wgmma kernels. Three warpgroups: warpgroup 0 is the producer (it gives
+// up registers with setmaxnreg) and warpgroups 1 and 2 are consumers of 64
+// rows each, so a block owns 128 rows of its side. The block's own tiles
+// arrive once by TMA; the streamed tiles of 64 rows pass through a ring of
+// W_STAGES (2) stages with a "full" and an "empty" mbarrier each. TMA reads
+// the strided views through 4-D maps (head_dim, seq, heads, batch), so the
+// model's transposed [B, S, H, D] views need no copy, and rows past the
+// sequence arrive as zeros. Per streamed tile each consumer issues its two
+// score products together (SS wgmma m64n64k16, both operands K-major), waits,
+// forms P and dS in registers (exp2 of log2e-scaled scores with
+// ex2.approx.ftz, as the forward; the mask only on diagonal, window-edge and
+// ragged tiles), rounds them to bf16 as the A operands of the RS form (the
+// accumulator's columns 16 s .. 16 s + 15 are A's k-step s), and adds the
+// products into its fp32 sums with RS wgmma m64n128k16, the streamed tile an
+// MN-major B operand (head_dim contiguous; halves 8 KB apart). The two steps
+// are kept apart in time, as the forward's basic order, so the sums, the
+// scores and the operands fit the consumers' 240 registers without spills.
+// - flash_bwd_dkv_wgmma_kernel: a block is one (b, q head) and 128 keys;
+//   K and V once, then Q and dO tiles of 64 rows with their LSE and delta.
+//   S^T = K Q^T and dP^T = V dO^T; dV += P^T dO and dK += dS^T Q, both sums
+//   (64 + 64 fp32 a thread) held across the q loop; dK scale and dV stored
+//   once. LSE and delta (64 fp32 a tile each) are staged into the ring by
+//   the producer's first warp with plain loads: (b H + h) Sq 4 bytes need
+//   not be 16-byte aligned for a bulk copy. Rows past Sq read as zeros from
+//   TMA, and are masked so that no LSE or delta beyond Sq reaches P or dS.
+// - flash_bwd_dq_wgmma_kernel: a block is one (b, q head) and 128 q rows;
+//   Q and dO once, LSE and delta of each thread's two rows in registers,
+//   then K and V tiles of 64 keys. S = Q K^T and dP = dO V^T; dQ += dS K
+//   with K as an MN-major B (the same tile that is S's K-major B); dQ scale
+//   stored once.
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -63,30 +101,31 @@ __device__ __forceinline__ bool visible(int key, int qpos, int Sk, int causal, i
   return ok;
 }
 
-// the tiles of keys [first, last) that q rows [q0, q0 + rows) reach: the
-// Pallas dQ kernel's bounds (attention.py:256-266)
-__device__ __forceinline__ void key_tiles(int q0, int rows, int Sq, int Sk, int causal,
-                                          int window, int& first, int& last) {
+// the tiles of `bk` keys [first, last) that q rows [q0, q0 + rows) reach:
+// the Pallas dQ kernel's bounds (attention.py:256-266)
+__device__ __forceinline__ void key_tiles(int q0, int rows, int bk, int Sq, int Sk,
+                                          int causal, int window, int& first, int& last) {
   const int kv_offset = Sk - Sq;
-  last = (Sk + BK - 1) / BK;
+  last = (Sk + bk - 1) / bk;
   first = 0;
   if (causal) {
-    last = min(last, (kv_offset + min(q0 + rows, Sq) - 1) / BK + 1);
-    if (window > 0) first = max(kv_offset + q0 - (window - 1), 0) / BK;
+    last = min(last, (kv_offset + min(q0 + rows, Sq) - 1) / bk + 1);
+    if (window > 0) first = max(kv_offset + q0 - (window - 1), 0) / bk;
   }
 }
 
-// the tiles of q rows [first, last) that keys [k0, k0 + BK) reach: the
-// Pallas dK/dV kernel's bounds (attention.py:315-327)
-__device__ __forceinline__ void q_tiles(int k0, int Sq, int Sk, int causal, int window,
-                                        int& first, int& last) {
+// the tiles of `bq` q rows [first, last) that keys [k0, k0 + keys) reach:
+// the Pallas dK/dV kernel's bounds (attention.py:315-327)
+__device__ __forceinline__ void q_tiles(int k0, int keys, int bq, int Sq, int Sk,
+                                        int causal, int window, int& first, int& last) {
   const int kv_offset = Sk - Sq;
-  last = (Sq + BQ - 1) / BQ;
+  last = (Sq + bq - 1) / bq;
   first = 0;
   if (causal) {
-    first = max(floor_div(k0 - kv_offset, BQ), 0);
+    first = max(floor_div(k0 - kv_offset, bq), 0);
     if (window > 0)
-      last = min(max(floor_div(k0 + BK - 1 + (window - 1) - kv_offset, BQ) + 1, first), last);
+      last = min(max(floor_div(k0 + keys - 1 + (window - 1) - kv_offset, bq) + 1, first),
+                 last);
   }
 }
 
@@ -138,7 +177,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_simt_kernel(
     dlt_r[i] = row < Sq ? delta[(int64_t)bh * Sq + row] : 0.f;
   }
   int first_tile, n_tiles;
-  key_tiles(q0, BQ, Sq, Sk, causal, window, first_tile, n_tiles);
+  key_tiles(q0, BQ, BK, Sq, Sk, causal, window, first_tile, n_tiles);
 
   float acc[4][CPT];
 #pragma unroll
@@ -268,7 +307,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_simt_kernel(
     sV[r * DP + c] = vx;
   }
   int first_tile, n_tiles;
-  q_tiles(k0, Sq, Sk, causal, window, first_tile, n_tiles);
+  q_tiles(k0, BK, BQ, Sq, Sk, causal, window, first_tile, n_tiles);
 
   float gk[4][CPT], gv[4][CPT];
 #pragma unroll
@@ -425,7 +464,7 @@ __global__ void __launch_bounds__(NT_MMA) flash_bwd_dq_mma_kernel(
     dlt_r[r] = row < Sq ? delta[(int64_t)bh * Sq + row] : 0.f;
   }
   int first_tile, n_tiles;
-  key_tiles(q0, BQ, Sq, Sk, causal, window, first_tile, n_tiles);
+  key_tiles(q0, BQ, BK, Sq, Sk, causal, window, first_tile, n_tiles);
 
   float acc[NO][4];
 #pragma unroll
@@ -535,7 +574,7 @@ __global__ void __launch_bounds__(NT_MMA) flash_bwd_dkv_mma_kernel(
   const __nv_bfloat16* kw = sK + 16 * warp * DS;
   const __nv_bfloat16* vw = sV + 16 * warp * DS;
   int first_tile, n_tiles;
-  q_tiles(k0, Sq, Sk, causal, window, first_tile, n_tiles);
+  q_tiles(k0, BK, BQ, Sq, Sk, causal, window, first_tile, n_tiles);
 
   // dK and dV of this warp's keys: row g in elements 0-1, row g+8 in 2-3
   float gk[NO][4], gv[NO][4];
@@ -634,6 +673,392 @@ __global__ void __launch_bounds__(NT_MMA) flash_bwd_dkv_mma_kernel(
   }
 }
 
+// ------------------------------------------------- the wgmma kernels (D = 128)
+constexpr int WG_THREADS = 128;
+constexpr int W_STAGES = 2;
+constexpr int W_HALF64 = 64 * 128;     // bytes of one 64-column half of a 64-row tile
+constexpr int W_HALF128 = 128 * 128;   // ... of a 128-row tile
+constexpr int W_T64 = 2 * W_HALF64;    // a 64 x 128 bf16 tile
+constexpr int W_T128 = 2 * W_HALF128;  // a 128 x 128 bf16 tile
+
+// dK/dV: K, V (128 keys), then per stage Q and dO (64 rows), then per stage
+// LSE (in log2 units) and delta (64 fp32 each), then the barriers
+constexpr int DKV_Q = 2 * W_T128;
+constexpr int DKV_STAGE = 2 * W_T64;
+constexpr int DKV_STATS = DKV_Q + W_STAGES * DKV_STAGE;
+constexpr int DKV_BARS = DKV_STATS + W_STAGES * 128 * 4;
+constexpr int DKV_SMEM = DKV_BARS + 8 * (1 + 2 * W_STAGES) + 1024;  // + alignment slack
+// dQ: Q, dO (128 rows), then per stage K and V (64 keys), then the barriers
+constexpr int DQ_K = 2 * W_T128;
+constexpr int DQ_STAGE = 2 * W_T64;
+constexpr int DQ_BARS = DQ_K + W_STAGES * DQ_STAGE;
+constexpr int DQ_SMEM = DQ_BARS + 8 * (1 + 2 * W_STAGES) + 1024;
+
+// the start-address step of k-step kk (of 8, 16 head dims each) in a
+// K-major operand whose two 64-column halves lie `half` bytes apart
+__device__ __forceinline__ uint64_t kstep(int kk, int half) {
+  return (uint64_t)(((kk / 4) * half + (kk % 4) * 32) >> 4);
+}
+
+// an m64n64 accumulator rounded to bf16 as the RS form's A operand: k-step s
+// is columns 16 s .. 16 s + 15
+__device__ __forceinline__ void to_a_operand(const float (&d)[32], uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[s][i] = pack_bf16(d[8 * s + 2 * i], d[8 * s + 2 * i + 1]);
+}
+
+__global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+    int H, int KvH, int Sq, int Sk, int causal, int window, float scale) {
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  unsigned char* sK = smem;
+  unsigned char* sV = smem + W_T128;
+  float* stats = reinterpret_cast<float*>(smem + DKV_STATS);
+  uint64_t* full_kv = reinterpret_cast<uint64_t*>(smem + DKV_BARS);
+  uint64_t* full = full_kv + 1;
+  uint64_t* empty = full + W_STAGES;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int kvh = h / (H / KvH);
+  const int k0 = blockIdx.y * 128;  // low key blocks have the most q tiles: first
+  int first, last;
+  q_tiles(k0, 128, 64, Sq, Sk, causal, window, first, last);
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_kv, 1);
+    for (int s = 0; s < W_STAGES; ++s) {
+      mbar_init(&full[s], 1 + 32);  // the TMA's expect_tx, and the 32 lanes staging LSE/delta
+      mbar_init(&empty[s], 2 * WG_THREADS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < WG_THREADS) {
+    // ---- producer: lane 0 issues every TMA load, the first warp stages
+    // LSE and delta with plain loads
+    setmaxnreg_dec<24>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(full_kv, 2 * W_T128);
+        tma_load_4d(sK, &tm_k, full_kv, 0, k0, kvh, b);
+        tma_load_4d(sK + W_HALF128, &tm_k, full_kv, 64, k0, kvh, b);
+        tma_load_4d(sV, &tm_v, full_kv, 0, k0, kvh, b);
+        tma_load_4d(sV + W_HALF128, &tm_v, full_kv, 64, k0, kvh, b);
+      }
+      const float* lse_bh = lse + (int64_t)bh * Sq;
+      const float* delta_bh = delta + (int64_t)bh * Sq;
+      for (int t = first, i = 0; t < last; ++t, ++i) {
+        const int s = i % W_STAGES;
+        const int q0 = t * 64;
+        mbar_wait(&empty[s], ((i / W_STAGES) & 1) ^ 1);
+        if (lane == 0) {
+          unsigned char* sQ = smem + DKV_Q + DKV_STAGE * s;
+          mbar_arrive_expect_tx(&full[s], 2 * W_T64);
+          tma_load_4d(sQ, &tm_q, &full[s], 0, q0, h, b);
+          tma_load_4d(sQ + W_HALF64, &tm_q, &full[s], 64, q0, h, b);
+          tma_load_4d(sQ + W_T64, &tm_do, &full[s], 0, q0, h, b);
+          tma_load_4d(sQ + W_T64 + W_HALF64, &tm_do, &full[s], 64, q0, h, b);
+        }
+        // rows past Sq get 0 here and are masked by the consumers
+        float* st = stats + 128 * s;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = lane + 32 * half;
+          const bool in = q0 + r < Sq;
+          st[r] = in ? lse_bh[q0 + r] * LOG2E : 0.f;
+          st[64 + r] = in ? delta_bh[q0 + r] : 0.f;
+        }
+        mbar_arrive(&full[s]);
+      }
+    }
+  } else {
+    // ---- consumers: 64 keys each
+    setmaxnreg_inc<240>();
+    const int cw = threadIdx.x / WG_THREADS - 1;
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int kv_offset = Sk - Sq;
+    const int w_key0 = k0 + 64 * cw;
+    const bool w_live = w_key0 < Sk;
+    const int key0 = w_key0 + 16 * warp + g;  // this thread's keys: key0, key0 + 8
+    const float c = scale * LOG2E;  // raw score -> log2 units
+    float gk[64], gv[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) gk[i] = gv[i] = 0.f;
+    const uint64_t da_k = desc_kmajor(sK + 64 * 128 * cw);
+    const uint64_t da_v = desc_kmajor(sV + 64 * 128 * cw);
+
+    mbar_wait(full_kv, 0);
+    for (int t = first, i = 0; t < last; ++t, ++i) {
+      const int s = i % W_STAGES;
+      const int q0 = t * 64;
+      const int p_first = kv_offset + q0;
+      const int p_last = kv_offset + min(q0 + 63, Sq - 1);
+      mbar_wait(&full[s], (i / W_STAGES) & 1);
+      // a tile masked for every key of this warpgroup is only released
+      if (!w_live || (causal && (w_key0 > p_last ||
+                                 (window > 0 && w_key0 + 63 <= p_first - window)))) {
+        mbar_arrive(&empty[s]);
+        continue;
+      }
+      unsigned char* sQ = smem + DKV_Q + DKV_STAGE * s;
+      unsigned char* sDO = sQ + W_T64;
+
+      // S^T = K Q^T and dP^T = V dO^T, 8 k-steps of 16 head dims each
+      float sc[32], dp[32];
+      const uint64_t db_q = desc_kmajor(sQ), db_o = desc_kmajor(sDO);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        wgmma_m64n64k16_ss<0, 0>(sc, da_k + kstep(kk, W_HALF128), db_q + kstep(kk, W_HALF64),
+                                 kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        wgmma_m64n64k16_ss<0, 0>(dp, da_v + kstep(kk, W_HALF128), db_o + kstep(kk, W_HALF64),
+                                 kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      // P^T and dS^T / scale, rounded to bf16 as the A operands k-step by
+      // k-step (16 q rows), so that each step's fp32 values die at once;
+      // element 4 j + e is key key0 + 8 (e / 2), q row q0 + 8 j + 2 t4 +
+      // (e % 2)
+      const bool need_mask =
+          q0 + 64 > Sq ||
+          (causal && (w_key0 + 63 > p_first || (window > 0 && w_key0 <= p_last - window)));
+      const float* st = stats + 128 * s;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(st + 8 * j + 2 * t4);
+        const float2 dl = *reinterpret_cast<const float2*>(st + 64 + 8 * j + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[4 * j + e];
+          if (need_mask) {
+            const int r = q0 + 8 * j + 2 * t4 + (e & 1);
+            if (!(r < Sq && visible(key0 + 8 * (e >> 1), kv_offset + r, Sk, causal, window)))
+              x = NEG;
+          }
+          const float p = exp2_ftz(fmaf(x, c, -((e & 1) ? l2.y : l2.x)));
+          sc[4 * j + e] = p;
+          dp[4 * j + e] = p * (dp[4 * j + e] - ((e & 1) ? dl.y : dl.x));
+        }
+      }
+      uint32_t pa[4][4], sa[4][4];
+      to_a_operand(sc, pa);
+      to_a_operand(dp, sa);
+
+      // dV += P^T dO and dK += dS^T Q: dO and Q are MN-major B operands
+      // (head_dim contiguous), halves 8 KB apart, a k-step of 16 q rows
+      // 2048 bytes
+      const uint64_t db_o_mn = desc_mnmajor(sDO, W_HALF64);
+      const uint64_t db_q_mn = desc_mnmajor(sQ, W_HALF64);
+      fence_regs(gv);
+      fence_regs(gk);
+      wgmma_fence();
+#pragma unroll
+      for (int k4 = 0; k4 < 4; ++k4)
+        wgmma_m64n128k16_rs<1>(gv, pa[k4], db_o_mn + ((k4 * 2048) >> 4), 1);
+#pragma unroll
+      for (int k4 = 0; k4 < 4; ++k4)
+        wgmma_m64n128k16_rs<1>(gk, sa[k4], db_q_mn + ((k4 * 2048) >> 4), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(gv);
+      fence_regs(gk);
+      mbar_arrive(&empty[s]);
+    }
+
+    // dK scale and dV in bf16, one copy per q head; gk[4 j + e] is key key0
+    // + 8 (e / 2), head dim 8 j + 2 t4 + (e % 2)
+    if (w_live) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int key = key0 + 8 * r;
+        if (key >= Sk) continue;
+        const int64_t base = ((int64_t)bh * Sk + key) * 128 + 2 * t4;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          *reinterpret_cast<uint32_t*>(dk + base + 8 * j) =
+              pack_bf16(gk[4 * j + 2 * r] * scale, gk[4 * j + 2 * r + 1] * scale);
+          *reinterpret_cast<uint32_t*>(dv + base + 8 * j) =
+              pack_bf16(gv[4 * j + 2 * r], gv[4 * j + 2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dq_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    __nv_bfloat16* __restrict__ dq, int H, int KvH, int Sq, int Sk, int causal,
+    int window, float scale) {
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  unsigned char* sQ = smem;
+  unsigned char* sDO = smem + W_T128;
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(smem + DQ_BARS);
+  uint64_t* full = full_q + 1;
+  uint64_t* empty = full + W_STAGES;
+
+  const int qt = gridDim.y - 1 - blockIdx.y;  // longest causal tiles first
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int kvh = h / (H / KvH);
+  const int q0 = qt * 128;
+  int first, last;
+  key_tiles(q0, 128, 64, Sq, Sk, causal, window, first, last);
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < W_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * WG_THREADS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < WG_THREADS) {
+    // ---- producer: one thread issues every load
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(full_q, 2 * W_T128);
+      tma_load_4d(sQ, &tm_q, full_q, 0, q0, h, b);
+      tma_load_4d(sQ + W_HALF128, &tm_q, full_q, 64, q0, h, b);
+      tma_load_4d(sDO, &tm_do, full_q, 0, q0, h, b);
+      tma_load_4d(sDO + W_HALF128, &tm_do, full_q, 64, q0, h, b);
+      for (int t = first, i = 0; t < last; ++t, ++i) {
+        const int s = i % W_STAGES;
+        mbar_wait(&empty[s], ((i / W_STAGES) & 1) ^ 1);
+        unsigned char* sK = smem + DQ_K + DQ_STAGE * s;
+        mbar_arrive_expect_tx(&full[s], 2 * W_T64);
+        tma_load_4d(sK, &tm_k, &full[s], 0, t * 64, kvh, b);
+        tma_load_4d(sK + W_HALF64, &tm_k, &full[s], 64, t * 64, kvh, b);
+        tma_load_4d(sK + W_T64, &tm_v, &full[s], 0, t * 64, kvh, b);
+        tma_load_4d(sK + W_T64 + W_HALF64, &tm_v, &full[s], 64, t * 64, kvh, b);
+      }
+    }
+  } else {
+    // ---- consumers: 64 q rows each
+    setmaxnreg_inc<240>();
+    const int cw = threadIdx.x / WG_THREADS - 1;
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int kv_offset = Sk - Sq;
+    const int w_row0 = q0 + 64 * cw;
+    const bool w_live = w_row0 < Sq;
+    const int w_first = kv_offset + w_row0;
+    const int w_last = kv_offset + min(w_row0 + 63, Sq - 1);
+    const int row0 = w_row0 + 16 * warp + g;  // this thread's rows: row0, row0 + 8
+    const float c = scale * LOG2E;
+    float l2[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      l2[r] = row < Sq ? lse[(int64_t)bh * Sq + row] * LOG2E : 0.f;
+      dl[r] = row < Sq ? delta[(int64_t)bh * Sq + row] : 0.f;
+    }
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    const uint64_t da_q = desc_kmajor(sQ + 64 * 128 * cw);
+    const uint64_t da_o = desc_kmajor(sDO + 64 * 128 * cw);
+
+    mbar_wait(full_q, 0);
+    for (int t = first, i = 0; t < last; ++t, ++i) {
+      const int s = i % W_STAGES;
+      const int k0 = t * 64;
+      mbar_wait(&full[s], (i / W_STAGES) & 1);
+      // a tile masked for every row of this warpgroup is only released
+      if (!w_live || (causal && (k0 > w_last ||
+                                 (window > 0 && k0 + 63 <= w_first - window)))) {
+        mbar_arrive(&empty[s]);
+        continue;
+      }
+      unsigned char* sK = smem + DQ_K + DQ_STAGE * s;
+      unsigned char* sV = sK + W_T64;
+
+      // S = Q K^T and dP = dO V^T
+      float sc[32], dp[32];
+      const uint64_t db_k = desc_kmajor(sK), db_v = desc_kmajor(sV);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        wgmma_m64n64k16_ss<0, 0>(sc, da_q + kstep(kk, W_HALF128), db_k + kstep(kk, W_HALF64),
+                                 kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        wgmma_m64n64k16_ss<0, 0>(dp, da_o + kstep(kk, W_HALF128), db_v + kstep(kk, W_HALF64),
+                                 kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      // dS / scale; element 4 j + e is row row0 + 8 (e / 2), key k0 + 8 j +
+      // 2 t4 + (e % 2)
+      const bool need_mask =
+          k0 + 64 > Sk ||
+          (causal && (k0 + 63 > w_first || (window > 0 && k0 <= w_last - window)));
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[4 * j + e];
+          if (need_mask && !visible(k0 + 8 * j + 2 * t4 + (e & 1),
+                                    kv_offset + row0 + 8 * (e >> 1), Sk, causal, window))
+            x = NEG;
+          const float p = exp2_ftz(fmaf(x, c, -l2[e >> 1]));
+          dp[4 * j + e] = p * (dp[4 * j + e] - dl[e >> 1]);
+        }
+      }
+      uint32_t sa[4][4];
+      to_a_operand(dp, sa);
+
+      // dQ += dS K: K [keys][head_dim] as an MN-major B operand
+      const uint64_t db_k_mn = desc_mnmajor(sK, W_HALF64);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int k4 = 0; k4 < 4; ++k4)
+        wgmma_m64n128k16_rs<1>(acc, sa[k4], db_k_mn + ((k4 * 2048) >> 4), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(&empty[s]);
+    }
+
+    if (w_live) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 8 * r;
+        if (row >= Sq) continue;
+        __nv_bfloat16* out = dq + ((int64_t)bh * Sq + row) * 128 + 2 * t4;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          *reinterpret_cast<uint32_t*>(out + 8 * j) =
+              pack_bf16(acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale);
+      }
+    }
+  }
+}
+
 // ---- host side
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta;
@@ -709,19 +1134,52 @@ cudaError_t launch_dkv_mma(const Args& a) {
   return cudaGetLastError();
 }
 
+// the four 4-D maps (q, k, v, dO) of a wgmma launch, boxes of `q_rows` rows
+// of q and dO and `kv_rows` of k and v; false if cuTensorMapEncodeTiled refuses one
+bool bwd_maps(const Args& a, uint32_t q_rows, uint32_t kv_rows, CUtensorMap (&maps)[4]) {
+  const int64_t q_dims[4] = {128, a.Sq, a.H, a.B};
+  const int64_t kv_dims[4] = {128, a.Sk, a.KvH, a.B};
+  const void* bases[4] = {a.q, a.k, a.v, a.dout};
+  const int64_t* st = &a.st.q_sb;
+  for (int i = 0; i < 4; ++i) {
+    const bool is_q = i == 0 || i == 3;
+    // strides (seq, head, batch), innermost first after head_dim
+    const int64_t strides[3] = {st[3 * i + 2], st[3 * i + 1], st[3 * i]};
+    if (!hopper::make_map_bf16_4d(&maps[i], bases[i], is_q ? q_dims : kv_dims, strides,
+                                  is_q ? q_rows : kv_rows))
+      return false;
+  }
+  return true;
+}
+
+cudaError_t launch_dkv_wgmma(const Args& a) {
+  static const cudaError_t attr = set_smem(flash_bwd_dkv_wgmma_kernel, DKV_SMEM);
+  if (attr != cudaSuccess) return attr;
+  CUtensorMap m[4];
+  if (!bwd_maps(a, 64, 128, m)) return cudaErrorInvalidValue;
+  const dim3 grid(a.B * a.H, (a.Sk + 127) / 128);
+  flash_bwd_dkv_wgmma_kernel<<<grid, 3 * WG_THREADS, DKV_SMEM, a.stream>>>(
+      m[0], m[1], m[2], m[3], (const float*)a.lse, (const float*)a.delta,
+      (__nv_bfloat16*)a.dk, (__nv_bfloat16*)a.dv, a.H, a.KvH, a.Sq, a.Sk, a.causal,
+      a.window, a.scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dq_wgmma(const Args& a) {
+  static const cudaError_t attr = set_smem(flash_bwd_dq_wgmma_kernel, DQ_SMEM);
+  if (attr != cudaSuccess) return attr;
+  CUtensorMap m[4];
+  if (!bwd_maps(a, 128, 64, m)) return cudaErrorInvalidValue;
+  const dim3 grid(a.B * a.H, (a.Sq + 127) / 128);
+  flash_bwd_dq_wgmma_kernel<<<grid, 3 * WG_THREADS, DQ_SMEM, a.stream>>>(
+      m[0], m[1], m[2], m[3], (const float*)a.lse, (const float*)a.delta,
+      (__nv_bfloat16*)a.dq, a.H, a.KvH, a.Sq, a.Sk, a.causal, a.window, a.scale);
+  return cudaGetLastError();
+}
+
 // which: 0 = dQ, 1 = dK/dV
 template <typename T>
-cudaError_t dispatch(int which, int D, const Args& a) {
-  const void* ptrs[4] = {a.q, a.k, a.v, a.dout};
-  const int64_t* st = &a.st.q_sb;
-  if (sizeof(T) == 2 && rows_aligned(ptrs, 4, st, 12)) {
-    switch (D) {
-      case 32: return which ? launch_dkv_mma<32>(a) : launch_dq_mma<32>(a);
-      case 64: return which ? launch_dkv_mma<64>(a) : launch_dq_mma<64>(a);
-      case 128: return which ? launch_dkv_mma<128>(a) : launch_dq_mma<128>(a);
-      default: return cudaErrorInvalidValue;
-    }
-  }
+cudaError_t launch_simt(int which, int D, const Args& a) {
   switch (D) {
     case 32: return which ? launch_dkv_simt<T, 32>(a) : launch_dq_simt<T, 32>(a);
     case 64: return which ? launch_dkv_simt<T, 64>(a) : launch_dq_simt<T, 64>(a);
@@ -730,14 +1188,39 @@ cudaError_t dispatch(int which, int D, const Args& a) {
   }
 }
 
-int run(int which, int dtype, int device, const Args& a, int D) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  switch (dtype) {
-    case 0: return (int)dispatch<float>(which, D, a);
-    case 1: return (int)dispatch<__nv_bfloat16>(which, D, a);
-    default: return (int)cudaErrorInvalidValue;
+// route 0 = simt (any input), 1 = mma (bf16, 16-byte aligned bases, strides
+// that are multiples of 8), 2 = wgmma (as mma, and D = 128, Sk > 0); a route
+// that cannot take the inputs launches nothing
+cudaError_t dispatch(int which, int dtype, int route, int D, const Args& a) {
+  const void* ptrs[4] = {a.q, a.k, a.v, a.dout};
+  const bool tensor_core = dtype == 1 && rows_aligned(ptrs, 4, &a.st.q_sb, 12);
+  switch (route) {
+    case 0:
+      if (dtype == 0) return launch_simt<float>(which, D, a);
+      if (dtype == 1) return launch_simt<__nv_bfloat16>(which, D, a);
+      return cudaErrorInvalidValue;
+    case 1:
+      if (!tensor_core) return cudaErrorInvalidValue;
+      switch (D) {
+        case 32: return which ? launch_dkv_mma<32>(a) : launch_dq_mma<32>(a);
+        case 64: return which ? launch_dkv_mma<64>(a) : launch_dq_mma<64>(a);
+        case 128: return which ? launch_dkv_mma<128>(a) : launch_dq_mma<128>(a);
+        default: return cudaErrorInvalidValue;
+      }
+    case 2:
+      if (!tensor_core || D != 128 || a.Sk <= 0) return cudaErrorInvalidValue;
+      return which ? launch_dkv_wgmma(a) : launch_dq_wgmma(a);
+    default:
+      return cudaErrorInvalidValue;
   }
+}
+
+int run(int which, int dtype, int route, int device, const Args& a, int D) {
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return (int)dispatch(which, dtype, route, D, a);
 }
 
 }  // namespace
@@ -745,12 +1228,14 @@ int run(int which, int dtype, int device, const Args& a, int D) {
 // q, dout: [B, H, Sq, D] and k, v: [B, KvH, Sk, D] with the given (batch,
 // head, seq) strides and a contiguous last dim; lse, delta: contiguous fp32
 // [B, H, Sq]; dq: contiguous [B, H, Sq, D]; dk, dv: contiguous [B, H, Sk,
-// D], one per q head. dtype 0 = fp32, 1 = bf16. window <= 0 means no
-// window. Each returns the launch's cudaError_t (0 on success).
+// D], one per q head. dtype 0 = fp32, 1 = bf16. route: 0 = simt, 1 = mma,
+// 2 = wgmma (the conditions at `dispatch`); a route that cannot take the
+// inputs returns cudaErrorInvalidValue and launches nothing. window <= 0
+// means no window. Each returns the launch's cudaError_t (0 on success).
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* delta, void* dq,
-                            int dtype, int device, int B, int H, int KvH, int Sq, int Sk,
-                            int D, int64_t q_sb, int64_t q_sh, int64_t q_ss,
+                            int dtype, int route, int device, int B, int H, int KvH,
+                            int Sq, int Sk, int D, int64_t q_sb, int64_t q_sh, int64_t q_ss,
                             int64_t k_sb, int64_t k_sh, int64_t k_ss,
                             int64_t v_sb, int64_t v_sh, int64_t v_ss,
                             int64_t o_sb, int64_t o_sh, int64_t o_ss,
@@ -758,13 +1243,13 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const v
   const Args a = {q, k, v, dout, lse, delta, dq, nullptr, nullptr, B, H, KvH, Sq, Sk,
                   {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss},
                   causal, window, scale, (cudaStream_t)stream};
-  return run(0, dtype, device, a, D);
+  return run(0, dtype, route, device, a, D);
 }
 
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                              const void* lse, const void* delta, void* dk, void* dv,
-                             int dtype, int device, int B, int H, int KvH, int Sq, int Sk,
-                             int D, int64_t q_sb, int64_t q_sh, int64_t q_ss,
+                             int dtype, int route, int device, int B, int H, int KvH,
+                             int Sq, int Sk, int D, int64_t q_sb, int64_t q_sh, int64_t q_ss,
                              int64_t k_sb, int64_t k_sh, int64_t k_ss,
                              int64_t v_sb, int64_t v_sh, int64_t v_ss,
                              int64_t o_sb, int64_t o_sh, int64_t o_ss,
@@ -772,5 +1257,5 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
   const Args a = {q, k, v, dout, lse, delta, nullptr, dk, dv, B, H, KvH, Sq, Sk,
                   {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss},
                   causal, window, scale, (cudaStream_t)stream};
-  return run(1, dtype, device, a, D);
+  return run(1, dtype, route, device, a, D);
 }

@@ -1,6 +1,6 @@
 // Pieces shared by the flash attention kernels (flash_fwd.cu, flash_bwd.cu):
-// dtype conversions, the bf16 tensor-core product and its fragment helpers,
-// and the 16-byte tile copy into shared memory.
+// dtype conversions, the fast exponential, the bf16 tensor-core product and
+// its fragment helpers, and the 16-byte tile copy into shared memory.
 //
 // ops/_build.py hashes every .cuh in csrc/ into each kernel's library name,
 // so an edit here rebuilds both kernels.
@@ -15,6 +15,16 @@ namespace {
 
 constexpr int NT_MMA = 128;   // threads per block of the tensor-core kernels (4 warps)
 constexpr float NEG = -1e30f; // the reference's mask value
+constexpr float LOG2E = 1.4426950408889634f;
+
+// 2^x as one MUFU op (ex2.approx.ftz): exp2f adds a fix-up for subnormal
+// results around it, which cost 3-4% of the forward's wgmma kernel at the
+// main shape on an H100; here probabilities below 2^-126 become 0
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }

@@ -19,7 +19,7 @@
 // stop at the diagonal and windowed tiles start at the window's first tile, as
 // in the Pallas loop bounds; ragged q and k tails are masked in the kernel, so
 // every shape runs here. Three kernels share that plan; the caller names one
-// (ops/attention.py:_fwd_route picks it from dtype, head_dim and alignment):
+// (ops/attention.py:_route picks it from dtype, head_dim and alignment):
 // - flash_fwd_wgmma_kernel (route 2; bf16, D = 128, 16-byte aligned rows: the
 //   main path): TMA-fed and warp-specialised, on wgmma. Below.
 // - flash_fwd_mma_kernel (route 1; aligned bf16, the route of D = 32 and 64;
@@ -388,16 +388,6 @@ constexpr int W_HALF = 128 * 128;           // bytes of one 64-column half of a 
 constexpr int W_TILE = 2 * W_HALF;          // bytes of a 128 x 128 bf16 tile
 constexpr int W_BARS = W_TILE * (1 + 2 * W_STAGES);  // barriers after Q, K[], V[]
 constexpr int W_SMEM = W_BARS + 8 * (1 + 3 * W_STAGES) + 1024;  // + alignment slack
-constexpr float LOG2E = 1.4426950408889634f;
-
-// 2^x as one MUFU op (ex2.approx.ftz): exp2f adds a fix-up for subnormal
-// results around it, which cost 3-4% of the kernel at the main shape on an
-// H100; here probabilities below 2^-126 become 0
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_fwd_wgmma_kernel(
     const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
@@ -406,8 +396,7 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_fwd_wgmma_kernel(
     int window, float scale) {
   using namespace hopper;
   extern __shared__ unsigned char smem_raw[];
-  // the 128-byte swizzle needs 1024-byte aligned tiles
-  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* smem = aligned_smem(smem_raw);
   unsigned char* sQ = smem;
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + W_BARS);
   uint64_t* full_q = bars;

@@ -1,20 +1,20 @@
 // Hopper (sm_90a) primitives shared by the flash attention kernels: mbarriers,
 // TMA tiled loads and their tensor maps, wgmma shared-memory descriptors for
-// the 128-byte swizzle, the wgmma fences and groups, setmaxnreg, and the
-// m64n128k16 bf16 wgmma in its SS (both operands in shared memory) and RS (A
-// in registers) forms.
+// the 128-byte swizzle, the wgmma fences and groups, setmaxnreg, and the bf16
+// wgmma m64n128k16 in its SS (both operands in shared memory) and RS (A in
+// registers) forms and m64n64k16 in its SS form.
 //
 // The layout they assume. A tile row of 64 bf16 (128 bytes) is one line of
 // the 128-byte swizzle: TMA with CU_TENSOR_MAP_SWIZZLE_128B stores the 16-byte
 // chunk c of row r at chunk c ^ (r % 8), in atoms of 8 rows (1024 bytes) that
 // start on a 1024-byte boundary. A 128-wide row (head_dim 128) therefore
 // arrives as two boxes of 64 columns, each a "half" of its own; the halves of
-// one tile of R rows lie R * 128 bytes apart.
+// one tile of R rows lie R * 128 bytes apart (16 KB for 128 rows, 8 KB for 64).
 //
 // tests/test_torch_cuda.py holds these pieces against torch on the card
-// (csrc/hopper_check.cu: one TMA tile against a slice copy, one SS and one
-// RS product against torch.matmul). ops/_build.py hashes every .cuh in csrc/
-// into each kernel's library name.
+// (csrc/hopper_check.cu: one TMA tile against a slice copy, SS and RS
+// products of 128- and 64-row tiles against torch.matmul). ops/_build.py
+// hashes every .cuh in csrc/ into each kernel's library name.
 
 #pragma once
 
@@ -62,15 +62,21 @@ __device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
 }
 
 // Wait until the phase of parity `parity` has completed. A barrier starts in
-// phase 0, so waiting on parity 1 passes at once. A wait that lasts 2^34
-// cycles (several seconds) traps: a wrong parity becomes a launch error
-// instead of a hung card.
+// phase 0, so waiting on parity 1 passes at once. There is no time limit: a
+// trap on the wait's path makes ptxas ignore setmaxnreg and give the
+// consumers no more registers than the launch gives every thread (168 at
+// 384 threads), which spilled the dK/dV kernel's sums on an H100
+// (PERF.md). Run a kernel under a new layout under `timeout`.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t a = smem_u32(bar);
-  if (mbar_try_wait(a, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(a, parity))
-    if (clock64() - t0 > (1ll << 34)) __trap();
+  while (!mbar_try_wait(a, parity)) {
+  }
+}
+
+// the block's dynamic shared memory from its first 1024-byte boundary (the
+// 128-byte swizzle's atoms); launches add 1024 bytes of slack for it
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
 }
 
 // --------------------------------------------------------------------- TMA
@@ -111,8 +117,9 @@ __device__ __forceinline__ uint64_t desc_kmajor(const void* tile) {
 
 // MN-major operand (its M or N dim contiguous): each 128-byte line holds 64
 // M/N values of one k; 8-line groups of k are 1024 bytes apart (SBO) and the
-// next 64 M/N values lie `mn_half_bytes` further on (LBO). A k-step of 16
-// adds 2048 bytes (desc + 128).
+// next 64 M/N values lie `mn_half_bytes` further on (LBO: the half stride of
+// the tile, 16 KB for 128 k rows, 8 KB for 64). A k-step of 16 adds 2048
+// bytes (desc + 128).
 __device__ __forceinline__ uint64_t desc_mnmajor(const void* tile,
                                                  uint32_t mn_half_bytes) {
   return desc_sw128(tile, mn_half_bytes, 1024);
@@ -196,8 +203,35 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
         "n"(TB));
 }
 
+#define HOPPER_D32 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define HOPPER_D32_OPS(d) \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], both from shared memory: the
+// m64n128 form's layout with columns 0-63, so d[4 j + e] is row 16 w + g + 8
+// (e / 2), column 8 j + 2 t + (e % 2) for j < 8, and columns 16 s .. 16 s + 15,
+// rounded to bf16, are the RS form's A for k-step s (a[0..3] = d[8 s ..
+// 8 s + 7] in pairs).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da,
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_D32
+      ", %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : HOPPER_D32_OPS(d)
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
 #undef HOPPER_D64
 #undef HOPPER_D64_OPS
+#undef HOPPER_D32
+#undef HOPPER_D32_OPS
 
 // --------------------------------------------------------- host: tensor maps
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
