@@ -9,8 +9,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    from the sources in this checkout (nvcc, sm_90a, one process per source).
 2. kernel: the flash forward kernel against its plain version on the card
    at the main path's shape (also as the model's transposed [B, S, H, D]
-   views) and at GQA, cross-length, window, non-causal, fp32, ragged and
-   unaligned shapes, each on the route `_route` picks, with the
+   views), at Mixtral's GQA 32/8 (contiguous and as the model's views) and
+   at cross-length, window, non-causal, fp32, ragged and unaligned shapes, each on the route `_route` picks, with the
    kernel's, the plain version's and one library call's times, TF/s and the
    card's bound for the same work; at the main shape the wgmma and mma
    routes are timed in turns (mma, wgmma, wgmma, mma).
@@ -26,13 +26,30 @@ Phases, each printing one JSON line; any failure exits non-zero:
    layer, and its logits must agree with the forward through the plain
    attention.
 5. serving: the same weights answer 4 requests (512-token prompts, 64 new
-   tokens, greedy) twice with equal tokens, prefill agrees with the
-   forward, and one sampled request is deterministic per seed.
+   tokens, greedy) twice with equal tokens, prefill's logits agree with the
+   forward's at every prompt position, and one sampled request is
+   deterministic per seed.
 6. gradient: at 7B width with 4 layers, the loss's gradient through the
    kernels against the gradient through the plain attention, every leaf.
 7. train: the 7B-width, 32-layer, bf16 train step (remat, AdamW), B=1,
    S=2048, 4 steps on one batch: launches per step, every one on the wgmma
    route, a falling loss, step time, tokens/s, MFU and peak memory.
+
+The MoE phases run Mixtral-8x7B's published widths (8 experts, top-2, GQA
+32/8) with random bf16 weights from a seed, depth cut to fit the card:
+moe_forward and moe_serving (16 layers) after serving, moe_train (4 layers)
+after train.
+
+- moe_forward: B=1, S=2048: 16 flash_fwd launches, all on the wgmma route;
+  logits and routing against the forward through the plain attention, end
+  to end and layer by layer from the same input; each of these four
+  bounds must reject each planted wrong attention (`planted_faults`);
+  dropped share, forward ms, peak memory, parameters.
+- moe_serving: as serving, with its own bound, which each planted wrong
+  attention in the forward must exceed; beside the decode step's memory
+  bound (every expert weight read once a step).
+- moe_train: as train, with aux weight 0.02; MFU by active parameters
+  beside the capacity-padded expert work.
 
 Then a line listing every kernel of the path, and last the device line.
 Full results also go to chiprun_out/chip_smoke.json.
@@ -40,7 +57,9 @@ Full results also go to chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import gc
 import importlib
 import json
@@ -83,7 +102,7 @@ BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # this one holds every tile to its own size (bf16: the variant tool's bound,
 # `variants.BWD_TILE_REL_L2`; fp32: summation order).
 BWD_TILE_REL_L2_FP32 = 1e-4
-BWD_G_LSE = {"gqa", "cross_length", "ragged_300"}  # shapes with a non-zero LSE cotangent
+BWD_G_LSE = {"gqa", "gqa_bshd", "cross_length", "ragged_300"}  # shapes with a non-zero LSE cotangent
 # phase 6: relative L2 error of each leaf's gradient against the gradient
 # through the plain attention. The two round at different places in bf16:
 # autograd of the plain attention rounds the probabilities and their
@@ -93,6 +112,33 @@ BWD_G_LSE = {"gqa", "cross_length", "ragged_300"}  # shapes with a non-zero LSE 
 # attention gradients by tens of percent.
 GRAD_REL_L2 = 5e-2
 TRAIN_STEPS = 4   # one warm-up step, then three timed
+# MoE phases, against the same model through the plain attention. Set before
+# the first card run from a CPU emulation (a kernel-like bf16 attention
+# against the plain one, 16 MoE layers of 8 experts, top-2, widths 512 and
+# 1024), not from a card run:
+# - end to end, routing flips near ties reroute tokens, which reroutes
+#   others through attention and capacity, so the two paths drift apart
+#   layer by layer: logits rel. L2 0.12-0.16 and routing agreement
+#   0.94-0.96 (layer 0 0.998, layer 15 0.87-0.91) for sound kernels; 1.04
+#   and 0.44 for a non-causal kernel. Bounds 0.5 and 0.75.
+# - layer by layer, both paths given the same input (the kernel path's):
+#   a sound kernel moves a choice only near a tie, agreement >= 0.9956 and
+#   layer output rel. L2 <= 0.013 in the emulation; a non-causal kernel
+#   0.91 and 0.157. Bounds 0.98 and 0.05 for every layer.
+# Each of the four bounds must also reject every planted wrong attention
+# (`planted_faults`), read on the card in every run.
+# moe_serving: prefill's logits at every prompt position (4 x 512, the plain
+# cached attention) against llama_forward's (the kernel), as moe_forward's
+# end-to-end comparison at a quarter of the tokens a row. With sound kernels
+# the card read 0.130 (moe_forward, every position) and 0.1487 (prefill's
+# last position). Bound 0.3, about twice those, chosen before any planted
+# fault was read; the planted faults must exceed it.
+MOE_SERVING_REL_L2 = 0.3
+MOE_LOGITS_REL_L2 = 0.5
+MOE_ROUTING_AGREE = 0.75
+MOE_LAYER_ROUTING_AGREE = 0.98
+MOE_LAYER_REL_L2 = 5e-2
+MOE_FORWARD_LAYERS, MOE_TRAIN_LAYERS = 16, 4
 
 RESULTS: dict = {}
 
@@ -161,6 +207,48 @@ def backward_bounds(b, h, kvh, sq, sk, d, causal, window, dtype):
 def rel_l2(a, b) -> float:
     return float(torch.linalg.vector_norm((a - b).float())
                  / torch.linalg.vector_norm(b.float()))
+
+
+def free_memory() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def recording_routes(moe):
+    """Collects (expert [B, S, k], dispatched [B, S, k]) of each MoE layer
+    that runs inside the block, in order."""
+    calls, orig = [], moe._top_k_dispatch
+
+    def record(*args):
+        out = orig(*args)
+        calls.append((out[0], out[2] > 0))
+        return out
+
+    moe._top_k_dispatch = record
+    try:
+        yield calls
+    finally:
+        moe._top_k_dispatch = orig
+
+
+def routing_agreement(a, b) -> float:
+    """Share of (token, choice) decisions, expert and dispatched, that are
+    equal in two runs of one layer."""
+    (ea, da), (eb, db) = a, b
+    return float(((ea == eb) & (da == db)).float().mean())
+
+
+def planted_faults(attn) -> dict:
+    """Wrong attentions, each a fault a kernel could have, for the MoE
+    phases' comparisons to reject: the causal mask dropped, and every query
+    head reading the next KV group's keys and values (a group-index fault)."""
+    def kv_group_shift(q, k, v):
+        return attn.flash_attention(q, k.roll(1, dims=1), v.roll(1, dims=1))
+
+    kv_group_shift.handles_gqa = True
+    return {"non_causal": functools.partial(attn.flash_attention, causal=False),
+            "kv_group_shift": kv_group_shift}
 
 
 def reset_launches(attn) -> None:
@@ -240,6 +328,8 @@ SHAPES = [
     ("main_bshd", 1, 32, 32, 2048, 2048, 128, True, None, torch.bfloat16, "bshd",
      "wgmma"),
     ("gqa", 1, 32, 8, 2048, 2048, 128, True, None, torch.bfloat16, "bhsd", "wgmma"),
+    ("gqa_bshd", 1, 32, 8, 2048, 2048, 128, True, None, torch.bfloat16, "bshd",
+     "wgmma"),  # Mixtral-8x7B's attention as its model gives it to the kernels
     ("cross_length", 1, 32, 32, 256, 1024, 128, True, None, torch.bfloat16, "bhsd",
      "wgmma"),
     ("window_512", 1, 32, 32, 2048, 2048, 128, True, 512, torch.bfloat16, "bhsd",
@@ -472,7 +562,117 @@ def phase_forward(attn, llama):
     return cfg, params, launches
 
 
-def phase_serving(cfg, params, llama, gen_mod):
+def phase_moe_forward(attn, llama, train, moe, cfg):
+    """Mixtral-8x7B width, 16 layers, B=1, S=2048: the kernel path against
+    the plain attention path, end to end and layer by layer."""
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = llama.init_llama(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in train.param_leaves(params))
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen, device="cuda")
+    plain = attn.reference_attention
+    with torch.no_grad():
+        reset_launches(attn)
+        with recording_routes(moe) as routes:
+            logits = llama.llama_forward(params, tokens, cfg)
+        torch.cuda.synchronize()
+        launches, by_route = read_launches(attn), read_routes(attn)
+        want = {"flash_fwd": cfg.n_layers, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+        if launches != want or by_route["flash_fwd"] != {"wgmma": cfg.n_layers}:
+            raise SystemExit(f"moe_forward launched {by_route}, expected {want} "
+                             f"with every flash_fwd on the wgmma route")
+        with recording_routes(moe) as plain_routes:
+            ref = llama.llama_forward(params, tokens, cfg, attn_impl=plain)
+        err = rel_l2(logits, ref)
+        agree = [routing_agreement(a, b) for a, b in zip(routes, plain_routes)]
+        dropped = statistics.mean(float((~d).float().mean()) for _, d in routes)
+        faults = planted_faults(attn)
+        planted = {}
+        for name, impl in faults.items():
+            with recording_routes(moe) as fr:
+                bad = llama.llama_forward(params, tokens, cfg, attn_impl=impl)
+            planted[name] = dict(
+                logits_rel_l2=rel_l2(bad, ref),
+                routing_agree=statistics.mean(
+                    routing_agreement(a, b) for a, b in zip(fr, plain_routes)),
+                layer_routing_agree=[], layer_rel_l2=[])
+        del ref, bad
+        # layer by layer: every path from the kernel path's input
+        x = params["embed"][tokens]
+        layer_agree, layer_err = [], []
+        for layer in params["layers"]:
+            with recording_routes(moe) as rk:
+                y, _ = llama.transformer_layer(x, layer, cfg, attn.flash_attention)
+            with recording_routes(moe) as rp:
+                y_plain, _ = llama.transformer_layer(x, layer, cfg, plain)
+            layer_agree.append(routing_agreement(rk[0], rp[0]))
+            layer_err.append(rel_l2(y, y_plain))
+            for name, impl in faults.items():
+                with recording_routes(moe) as rf:
+                    y_bad, _ = llama.transformer_layer(x, layer, cfg, impl)
+                planted[name]["layer_routing_agree"].append(routing_agreement(rf[0], rp[0]))
+                planted[name]["layer_rel_l2"].append(rel_l2(y_bad, y_plain))
+            x = y
+        del x, y, y_plain, y_bad
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            llama.llama_forward(params, tokens, cfg)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    agree_all = statistics.mean(agree)
+
+    def rejected_by(logits_err, routing, layer_routing, layer_rel):
+        """The bounds that these readings break."""
+        return [n for n, broken in (
+            ("logits_rel_l2", logits_err > MOE_LOGITS_REL_L2),
+            ("routing_agree", routing < MOE_ROUTING_AGREE),
+            ("layer_routing_agree", min(layer_routing) < MOE_LAYER_ROUTING_AGREE),
+            ("layer_rel_l2", max(layer_rel) > MOE_LAYER_REL_L2)) if broken]
+
+    for r in planted.values():
+        r["rejected_by"] = rejected_by(r["logits_rel_l2"], r["routing_agree"],
+                                       r["layer_routing_agree"], r["layer_rel_l2"])
+    emit("moe_forward", config="mixtral_8x7b widths", layers=cfg.n_layers, batch=1,
+         seq=2048, dtype=cfg.dtype, experts=cfg.num_experts, top_k=cfg.experts_per_token,
+         capacity=moe.expert_capacity(2048, cfg.num_experts, cfg.experts_per_token,
+                                      cfg.expert_capacity_factor),
+         params=n_params, init_s=init_s, launches=launches, launches_by_route=by_route,
+         logits_rel_l2_vs_plain=err, bound=MOE_LOGITS_REL_L2,
+         routing_agree=agree_all, routing_agree_bound=MOE_ROUTING_AGREE,
+         routing_agree_by_layer=agree, dropped_share=dropped,
+         layer_routing_agree_min=min(layer_agree),
+         layer_routing_agree_bound=MOE_LAYER_ROUTING_AGREE,
+         layer_rel_l2_max=max(layer_err), layer_rel_l2_bound=MOE_LAYER_REL_L2,
+         layer_routing_agree=layer_agree, layer_rel_l2=layer_err, planted=planted,
+         forward_ms=times, forward_ms_median=statistics.median(times),
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if (tuple(logits.shape) != (1, 2048, cfg.vocab_size)
+            or not bool(torch.isfinite(logits).all())
+            or rejected_by(err, agree_all, layer_agree, layer_err)):
+        raise SystemExit(f"moe_forward disagrees with the plain attention path: logits "
+                         f"rel L2 {err}, routing agreement {agree_all}, by layer "
+                         f"{min(layer_agree)}, layer rel L2 {max(layer_err)}")
+    # each bound on its own must reject each planted fault
+    passed = {n: r["rejected_by"] for n, r in planted.items() if len(r["rejected_by"]) < 4}
+    if passed:
+        raise SystemExit(f"moe_forward: a bound lets a planted fault pass (the bounds "
+                         f"that reject it): {passed}")
+    return cfg, params, launches["flash_fwd"]
+
+
+def phase_serving(cfg, params, llama, gen_mod, phase="serving",
+                  bound=LOGITS_REL_L2, planted=None, **extra):
+    """4 requests, 512-token prompts, 64 greedy tokens, twice; `extra` goes
+    into the phase's line. Prefill's logits at every prompt position (the
+    cache walk prefill runs, whose last row prefill returns) must agree with
+    llama_forward's within `bound`; each of `planted` ({name: attn_impl}),
+    put in the forward in place of the kernel, must break it."""
     b, plen, new = 4, 512, 64
     gen = torch.Generator(device="cuda").manual_seed(2)
     prompts = torch.randint(0, cfg.vocab_size, (b, plen), generator=gen,
@@ -488,12 +688,27 @@ def phase_serving(cfg, params, llama, gen_mod):
             last, cache = gen_mod.prefill(params, prompts, cache, cfg)
             torch.cuda.synchronize()
             prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        cache = gen_mod.KVCache.zeros(cfg, b, plen + new, device="cuda")
+        walk, cache = gen_mod._forward_with_cache(
+            params, prompts, gen_mod._positions(0, b, plen, prompts.device), cache, cfg)
         del cache
-        fwd_last = llama.llama_forward(params, prompts, cfg)[:, -1]
-        err = rel_l2(last, fwd_last)
-        first_agree = int((last.argmax(-1) == fwd_last.argmax(-1)).sum())
-    if err > LOGITS_REL_L2:
-        raise SystemExit(f"prefill logits disagree with llama_forward: rel L2 {err}")
+        fwd = llama.llama_forward(params, prompts, cfg)
+        err, err_last = rel_l2(walk, fwd), rel_l2(last, fwd[:, -1])
+        first_agree = int((last.argmax(-1) == fwd[:, -1].argmax(-1)).sum())
+        del fwd
+        planted_err = {
+            name: rel_l2(walk, llama.llama_forward(params, prompts, cfg, attn_impl=impl))
+            for name, impl in (planted or {}).items()}
+    if planted:
+        extra["planted_rel_l2_vs_prefill"] = planted_err
+    if not torch.equal(walk[:, -1], last):
+        raise SystemExit(f"{phase}: prefill's last logits differ from its cache walk's")
+    if err > bound:
+        raise SystemExit(f"{phase}: prefill logits disagree with llama_forward: "
+                         f"rel L2 {err}")
+    if any(e <= bound for e in planted_err.values()):
+        raise SystemExit(f"{phase}: a planted fault passes the bound {bound}: "
+                         f"{planted_err}")
     runs = []
     for _ in range(2):
         torch.cuda.synchronize()
@@ -503,26 +718,27 @@ def phase_serving(cfg, params, llama, gen_mod):
         runs.append((toks, (time.perf_counter() - t0) * 1e3))
     (toks, gen_ms), (toks2, gen_ms2) = runs
     if tuple(toks.shape) != (b, new) or not torch.equal(toks, toks2):
-        raise SystemExit("greedy generation is not repeatable")
+        raise SystemExit(f"{phase}: greedy generation is not repeatable")
     if int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
-        raise SystemExit("generated token out of the vocabulary")
+        raise SystemExit(f"{phase}: generated token out of the vocabulary")
     sampled = [gen_mod.generate(params, prompts[:1], cfg, new, temperature=0.8,
                                 generator=torch.Generator(device="cuda").manual_seed(7))
                for _ in range(2)]
     if not torch.equal(*sampled):
-        raise SystemExit("sampling is not deterministic per seed")
+        raise SystemExit(f"{phase}: sampling is not deterministic per seed")
     p_ms = statistics.median(prefill_ms)
     steps = new - 1  # the last token needs no forward
     decode_ms = statistics.median([gen_ms, gen_ms2]) - p_ms
-    emit("serving", requests=b, prompt_tokens=plen, new_tokens=new,
+    emit(phase, requests=b, prompt_tokens=plen, new_tokens=new,
          prefill_ms=prefill_ms, prefill_ms_median=p_ms,
-         prefill_logits_rel_l2_vs_forward=err, bound=LOGITS_REL_L2,
+         prefill_logits_rel_l2_vs_forward=err, bound=bound,
+         prefill_last_logits_rel_l2_vs_forward=err_last,
          first_token_argmax_agree=f"{first_agree}/{b}",
          generate_ms=[gen_ms, gen_ms2], decode_steps=steps,
          decode_ms_per_step=decode_ms / steps,
          decode_tokens_per_s=b * steps / (decode_ms / 1e3),
          greedy_repeatable=True, sampled_deterministic=True,
-         sampled_tokens=sampled[0].shape[1])
+         sampled_tokens=sampled[0].shape[1], **extra)
 
 
 def phase_gradient(attn, llama, train):
@@ -566,8 +782,11 @@ def phase_gradient(attn, llama, train):
     del params, leaves, grads
 
 
-def phase_train(attn, llama, train):
-    cfg = llama.LlamaConfig.llama2_7b()
+def phase_train(attn, train, moe, cfg, phase="train"):
+    """4 train steps at B=1, S=2048 on one batch (remat, AdamW lr 3e-4).
+    MFU counts each token's active parameters: all but the experts, and k/E
+    of the experts (bench_mfu.py's 6N + 6 L d S convention)."""
+    free_memory()
     b, s = 1, 2048
     torch.cuda.reset_peak_memory_stats()
     init_fn, step_fn, dev = train.build_llama_train_step(cfg, device="cuda")
@@ -589,9 +808,9 @@ def phase_train(attn, llama, train):
         times.append((time.perf_counter() - t0) * 1e3)
         launches, routes = read_launches(attn), read_routes(attn)
         if launches != want:
-            raise SystemExit(f"a train step launched {launches}, expected {want}")
+            raise SystemExit(f"{phase}: a train step launched {launches}, expected {want}")
         if routes != {n: {"wgmma": c} for n, c in want.items()}:
-            raise SystemExit(f"a train step launched {routes}, expected every "
+            raise SystemExit(f"{phase}: a train step launched {routes}, expected every "
                              f"launch on the wgmma route")
         losses.append(loss)
     losses = [float(x) for x in losses]
@@ -602,23 +821,38 @@ def phase_train(attn, llama, train):
     n_params = sum(t.numel() for t in train.param_leaves(params))
     step_ms = statistics.median(times[1:])
     tokens_per_s = b * s / (step_ms / 1e3)
+    n_active, moe_fields = n_params, {}
+    if cfg.is_moe:
+        n_expert = sum(t.numel() for layer in params["layers"]
+                       for n, t in layer.items() if n.startswith("we_"))
+        n_active = n_params - n_expert + n_expert * cfg.experts_per_token // cfg.num_experts
+        cap = moe.expert_capacity(s, cfg.num_experts, cfg.experts_per_token,
+                                  cfg.expert_capacity_factor)
+        # gate, up and down over every capacity slot: forward, recompute and
+        # the backward's two products
+        padded = 4 * cfg.n_layers * 3 * 2 * cfg.num_experts * b * cap * cfg.dim * cfg.ffn_dim
+        moe_fields = dict(moe_aux_weight=cfg.moe_aux_weight, capacity=cap,
+                          expert_params=n_expert, active_params=n_active,
+                          expert_tflop_per_step_capacity_padded=padded / 1e12,
+                          expert_tflops_per_s_capacity_padded=padded / 1e9 / step_ms)
     # bench_mfu.py's convention: 6N + 6 L d S flops a token, remat not counted
-    flops_per_token = 6 * n_params + 6 * cfg.n_layers * cfg.dim * s
+    flops_per_token = 6 * n_active + 6 * cfg.n_layers * cfg.dim * s
     mfu = flops_per_token * tokens_per_s / H100_BF16_FLOPS
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    emit("train", config="llama2_7b", layers=cfg.n_layers, batch=b, seq=s,
+    emit(phase, config="mixtral_8x7b widths" if cfg.is_moe else "llama2_7b",
+         layers=cfg.n_layers, batch=b, seq=s,
          dtype=cfg.dtype, remat=True, optimizer="AdamW lr 3e-4 wd 1e-4 (fused)",
          params=n_params, init_s=init_s, launches_per_step=launches,
          launches_by_route=routes,
          losses=losses, step_ms=times, step_ms_median=step_ms,
          tokens_per_s=tokens_per_s, model_tflops_per_s=flops_per_token * tokens_per_s / 1e12,
-         mfu=mfu, peak_mem_gb=peak_gb, all_on_card=on_card)
+         mfu=mfu, peak_mem_gb=peak_gb, all_on_card=on_card, **moe_fields)
     # every later step's loss below the first: AdamW at 3e-4 with no
     # warm-up overshoots after its first large drop on one batch
     if not all(math.isfinite(x) and x < losses[0] for x in losses[1:]):
-        raise SystemExit(f"training loss not finite and falling: {losses}")
+        raise SystemExit(f"{phase}: training loss not finite and falling: {losses}")
     if not on_card:
-        raise SystemExit("a parameter, optimizer state or the loss left the card")
+        raise SystemExit(f"{phase}: a parameter, optimizer state or the loss left the card")
     return launches
 
 
@@ -626,9 +860,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    from yoda_scheduler_tpu_torch.models import llama
+    from yoda_scheduler_tpu_torch.models import llama, moe
     from yoda_scheduler_tpu_torch.ops import _build, attention as attn, variants
     from yoda_scheduler_tpu_torch.parallel import train
+    # Mixtral-8x7B's widths from its config.json, in the port's config fields
+    from yoda_scheduler_tpu_torch.profile_path import mixtral_8x7b
 
     gen_mod = importlib.import_module("yoda_scheduler_tpu_torch.models.generate")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -640,12 +876,21 @@ def main() -> int:
     cfg, params, fwd_launches = phase_forward(attn, llama)
     phase_serving(cfg, params, llama, gen_mod)
     del params
-    gc.collect()
-    torch.cuda.empty_cache()
+    mcfg, mparams, moe_fwd_launches = phase_moe_forward(
+        attn, llama, train, moe, mixtral_8x7b(MOE_FORWARD_LAYERS))
+    # every expert weight is read once a decode step: the step's memory bound
+    expert_bytes = sum(t.numel() * t.element_size() for layer in mparams["layers"]
+                       for n, t in layer.items() if n.startswith("we_"))
+    phase_serving(mcfg, mparams, llama, gen_mod, phase="moe_serving",
+                  bound=MOE_SERVING_REL_L2, planted=planted_faults(attn),
+                  expert_weight_gb=expert_bytes / 1e9,
+                  decode_step_bound_ms_expert_reads=expert_bytes / H100_HBM_BYTES * 1e3)
+    del mparams
+    free_memory()
     phase_gradient(attn, llama, train)
-    gc.collect()
-    torch.cuda.empty_cache()
-    step_launches = phase_train(attn, llama, train)
+    step_launches = phase_train(attn, train, moe, llama.LlamaConfig.llama2_7b())
+    moe_step_launches = phase_train(attn, train, moe, mixtral_8x7b(MOE_TRAIN_LAYERS),
+                                    phase="moe_train")
 
     main_row, bwd_main = rows[0], bwd_rows[0]
     src = "yoda_scheduler_tpu_torch/ops/csrc/"
@@ -657,7 +902,9 @@ def main() -> int:
         "route_turns_ms": main_row["route_turns_ms"],
         "launches": step_launches["flash_fwd"],
         "launches_by_path": {"forward": fwd_launches,
-                             "train_step": step_launches["flash_fwd"]},
+                             "train_step": step_launches["flash_fwd"],
+                             "moe_forward": moe_fwd_launches,
+                             "moe_train_step": moe_step_launches["flash_fwd"]},
         "max_abs_err": max_err,
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -668,7 +915,8 @@ def main() -> int:
         "share_of_bound": bwd_main[f"{key}_share_of_bound"],
         "route_turns_ms": bwd_main["route_turns_ms"][key],
         "launches": step_launches[name],
-        "launches_by_path": {"train_step": step_launches[name]},
+        "launches_by_path": {"train_step": step_launches[name],
+                             "moe_train_step": moe_step_launches[name]},
         "max_abs_err": bwd_err[key], "ms": bwd_main[f"{key}_ms"],
         "plain_ms": bwd_main["plain_ms"], "bound_ms": bwd_main[f"{key}_bound_ms"],
         "bound_by": bwd_main[f"{key}_bound_by"],

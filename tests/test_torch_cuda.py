@@ -1,6 +1,6 @@
 """The PyTorch port on the card: the CUDA kernels behind `flash_attention`
-and its gradient, their refusals, and the tiny model and train step on CUDA
-against the same on the CPU. Every test needs an NVIDIA GPU and skips
+and its gradient, their refusals, the tiny model and train step on CUDA
+against the same on the CPU, and the MoE FFN at Mixtral-8x7B width. Every test needs an NVIDIA GPU and skips
 without one.
 
 This file imports no JAX, so that it runs where JAX is not installed:
@@ -16,8 +16,10 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from yoda_scheduler_tpu_torch.models import (LlamaConfig, init_llama, llama_forward,
                                              llama_loss)
+from yoda_scheduler_tpu_torch.models import moe
 from yoda_scheduler_tpu_torch.ops import _build
 from yoda_scheduler_tpu_torch.ops import attention as attn
 from yoda_scheduler_tpu_torch.ops.variants import BWD_TILE_REL_L2, tile_rel_l2
@@ -220,6 +222,7 @@ WGMMA_SHAPES = {
     "cross_256x1024": ((1, 4, 4, 256, 1024), True, None),
     "window_512": ((1, 2, 2, 2048, 2048), True, 512),
     "gqa_32_8": ((1, 32, 8, 512, 512), True, None),
+    "gqa_32_8_s2048": ((1, 32, 8, 2048, 2048), True, None),  # Mixtral-8x7B attention
     "non_causal": ((1, 4, 2, 320, 448), False, None),
 }
 
@@ -385,3 +388,51 @@ def test_greedy_tokens_on_cuda_equal_cpu(gpu, tiny_f32):
     got = generate_mod.generate(params, prompt.to(gpu), cfg, 8)
     want = generate_mod.generate(cpu, prompt, cfg, 8)
     assert torch.equal(got.cpu(), want)
+
+
+# ----------------------------------------------------------------- MoE FFN
+@pytest.fixture
+def mixtral_ffn(gpu):
+    """One MoE FFN layer at Mixtral-8x7B's widths (d 4096, f 14336, 8
+    experts, top-2), bf16 weights from a seed, and bf16 x [1, 2048, d]: on
+    the card, and as fp32 copies of the same values on the CPU."""
+    gen = torch.Generator(device=gpu).manual_seed(0)
+    layer = moe.init_moe_layer(4096, 14336, 8, torch.bfloat16, gen, gpu)
+    x = torch.randn((1, 2048, 4096), generator=gen, device=gpu).to(torch.bfloat16)
+    cpu = {n: t.cpu().float() for n, t in layer.items()}
+    return layer, x, cpu, x.cpu().float()
+
+
+def test_mixtral_moe_ffn_on_cuda_matches_cpu_fp32(gpu, mixtral_ffn):
+    """The card's bf16 MoE FFN against the same function in fp32 on the CPU
+    from the same values. The router's product is true fp32 on both (TF32
+    off), so the routing is equal; gate and up are fp32 sums of exact
+    products on both. The card rounds the SwiGLU product, the down product
+    and y to bf16, three roundings of 2^-9 relative: rel. L2 within 1e-2."""
+    layer, x, cpu, x_cpu = mixtral_ffn
+    with chip_smoke.recording_routes(moe) as routes, torch.no_grad():
+        y, aux = moe.moe_ffn(x, layer, 8, 2, 1.25)
+        y_cpu, aux_cpu = moe.moe_ffn(x_cpu, cpu, 8, 2, 1.25)
+    (e_gpu, d_gpu), (e_cpu, d_cpu) = routes
+    assert torch.equal(e_gpu.cpu(), e_cpu) and torch.equal(d_gpu.cpu(), d_cpu)
+    assert y.dtype == torch.bfloat16 and bool(torch.isfinite(y).all())
+    rel = float((y.cpu().float() - y_cpu).norm() / y_cpu.norm())
+    assert rel < 1e-2, rel
+    assert float(aux) == pytest.approx(float(aux_cpu), rel=1e-5)
+
+
+def test_mixtral_moe_ffn_gradient_is_bit_repeatable(gpu, mixtral_ffn):
+    """Dispatch and combine differentiate by gathers, so two backward
+    passes give equal bits."""
+    layer, x, _, _ = mixtral_ffn
+    w = torch.randn(x.shape, generator=torch.Generator(device=gpu).manual_seed(1),
+                    device=gpu).to(torch.bfloat16)
+    runs = []
+    for _ in range(2):
+        leaves = [x.detach().requires_grad_(True)] + [
+            t.detach().requires_grad_(True) for t in layer.values()]
+        y, aux = moe.moe_ffn(leaves[0], dict(zip(layer, leaves[1:])), 8, 2, 1.25)
+        ((y.float() * w.float()).sum() + aux).backward()
+        runs.append([t.grad for t in leaves])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)

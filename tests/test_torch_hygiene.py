@@ -24,6 +24,7 @@ PKG = Path(port.__file__).parent
 
 def test_import_loads_no_jax():
     code = ("import sys, yoda_scheduler_tpu_torch, yoda_scheduler_tpu_torch.entry\n"
+            "import yoda_scheduler_tpu_torch.models.moe\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'yoda_scheduler_tpu' or m.startswith('yoda_scheduler_tpu.')]\n"
             "print(bad)\n"
@@ -43,7 +44,7 @@ def test_package_source_never_mentions(needle):
     assert hits == []
 
 
-@pytest.mark.parametrize("call", ["init_llama", "entry", "kv_cache",
+@pytest.mark.parametrize("call", ["init_llama", "init_llama_moe", "entry", "kv_cache",
                                   "params_from_jax", "build_llama_train_step"])
 def test_entry_points_need_cuda_unless_asked_for_cpu(call):
     if torch.cuda.is_available():
@@ -51,6 +52,7 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(call):
     cfg = LlamaConfig.tiny()
     calls = {
         "init_llama": lambda **kw: init_llama(cfg, **kw),
+        "init_llama_moe": lambda **kw: init_llama(LlamaConfig.tiny_moe(), **kw),
         "entry": lambda **kw: entry(**kw),
         "kv_cache": lambda **kw: KVCache.zeros(cfg, 1, 8, **kw),
         "params_from_jax": lambda **kw: params_from_jax(

@@ -140,9 +140,28 @@ def test_init_matches_jax_shapes_and_is_seeded():
 
 
 def test_moe_is_not_ported_yet():
-    cfg = tllama.LlamaConfig.tiny_moe()
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tllama.init_llama(cfg, device="cpu")
+    """Named when the port refused MoE configs. Now tiny_moe runs: its
+    logits and aux equal the JAX package's in fp32 (summation order;
+    tests/test_torch_moe.py holds the rest of its parity). Beside it the
+    dense tiny model keeps its FFN leaves and its logits, and an aux of
+    exactly 0.0 in both packages."""
+    tokens = np.random.default_rng(1).integers(0, 256, (2, 48))
+    for preset in ("tiny_moe", "tiny"):
+        jcfg = dataclasses.replace(getattr(jllama.LlamaConfig, preset)(), dtype="float32")
+        jparams = jllama.init_llama(jcfg, jax.random.PRNGKey(0))
+        tparams = params_from_jax(jax.tree.map(np.asarray, jparams), _twin(jcfg),
+                                  device="cpu")
+        want, jaux = jllama.llama_forward(jparams, jnp.asarray(tokens), jcfg,
+                                          return_aux=True)
+        got, aux = tllama.llama_forward(tparams, torch.from_numpy(tokens),
+                                        _twin(jcfg), return_aux=True)
+        np.testing.assert_allclose(_np(got), _np(want), atol=1e-4, rtol=1e-4)
+        assert ("router" in tparams["layers"][0]) == jcfg.is_moe
+        assert ("w_gate" in tparams["layers"][0]) != jcfg.is_moe
+        if jcfg.is_moe:
+            assert float(aux) == pytest.approx(float(jaux), rel=1e-5) and float(aux) > 0
+        else:
+            assert float(aux) == 0.0 and float(jaux) == 0.0
 
 
 def test_custom_attention_with_window_raises():

@@ -6,7 +6,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from .llama import LlamaConfig, _no_moe
+from .llama import LlamaConfig
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -23,8 +23,9 @@ def params_from_jax(np_params: dict, config: LlamaConfig, device="cuda") -> dict
     """The JAX params pytree (numpy leaves, layers stacked on a leading axis)
     as the port's parameter dict (a list of per-layer dicts), on `device`,
     each leaf keeping its dtype and owning its storage (not a view of the
-    stacked array), so that an optimizer can update each leaf alone."""
-    _no_moe(config)
+    stacked array), so that an optimizer can update each leaf alone. MoE
+    leaves split the same way: the stacked [L, E, ...] expert weights become
+    one [E, ...] tensor per layer, and the router stays fp32."""
     dev = resolve_device(device)
     stacked = {name: _tensor(a, dev) for name, a in np_params["layers"].items()}
     layers = [{name: t[i].clone() for name, t in stacked.items()}

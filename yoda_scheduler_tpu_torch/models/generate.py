@@ -97,7 +97,9 @@ def _run_layers(params, tokens, positions, k_all, v_all, write_at: int,
                               window=config.sliding_window,
                               k_positions=k_positions)
         x = x + o.reshape(b, s, h * hd) @ layer["wo"]
-        x = _mlp_block(x, layer, config)  # same FFN as the forward
+        # same FFN as the forward; an MoE layer takes its capacity from this
+        # call's own S (the prompt at prefill, 1 at decode)
+        x, _ = _mlp_block(x, layer, config)
     x = rms_norm(x, params["final_norm"], config.norm_eps)
     logits = (x @ params["lm_head"]).float()
     return logits, k_all, v_all

@@ -8,14 +8,13 @@ forward is a Python loop over layers, not a scan). Weights are [in, out], so
 RMSNorm, rotary, the SiLU gate and the logits run in fp32. Attention goes
 through the flash kernels (ops/attention.py) by default, forward and
 gradient; `remat=True` recomputes each layer in the backward
-(torch.utils.checkpoint), as the JAX package's jax.checkpoint does.
-
-Dense FFN only: a config with experts raises NotImplementedError.
+(torch.utils.checkpoint), as the JAX package's jax.checkpoint does. A
+config with experts runs the MoE FFN (models/moe.py) in place of the dense
+one on every layer, on one device.
 """
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
 from functools import partial
 
@@ -24,6 +23,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..ops.attention import flash_attention
+from .moe import init_moe_layer, moe_ffn, normal_init
 
 
 @dataclass(frozen=True)
@@ -38,7 +38,7 @@ class LlamaConfig:
     norm_eps: float = 1e-5
     max_seq_len: int = 4096
     dtype: str = "bfloat16"
-    # MoE (0 experts = dense FFN); the port runs the dense FFN only
+    # MoE (0 experts = dense FFN)
     num_experts: int = 0
     experts_per_token: int = 2
     expert_capacity_factor: float = 1.25
@@ -71,23 +71,17 @@ class LlamaConfig:
 
     @classmethod
     def tiny_moe(cls, vocab: int = 256) -> "LlamaConfig":
-        """tiny() with a 4-expert top-2 MoE FFN (not runnable in the port yet)."""
+        """tiny() with a 4-expert top-2 MoE FFN."""
         return cls(vocab_size=vocab, dim=128, n_layers=2, n_heads=4,
                    n_kv_heads=2, ffn_dim=256, max_seq_len=512, num_experts=4)
-
-
-def _no_moe(config: LlamaConfig) -> None:
-    if config.is_moe:
-        raise NotImplementedError(
-            "MoE FFN is not ported to PyTorch yet (ROADMAP.md)")
 
 
 # ---------------------------------------------------------------------- init
 def init_llama(config: LlamaConfig, seed: int = 0, device="cuda") -> dict:
     """Random parameters from `seed`, made on `device` in the config's dtype
     (norm weights fp32), with the JAX package's distributions: N(0, 1) /
-    sqrt(fan_in) drawn in fp32 and cast."""
-    _no_moe(config)
+    sqrt(fan_in) drawn in fp32 and cast. A config with experts gets the
+    MoE leaves (`init_moe_layer`) in place of w_gate, w_up and w_down."""
     dev = resolve_device(device)
     dt = config.torch_dtype
     d, f, hd = config.dim, config.ffn_dim, config.head_dim
@@ -95,11 +89,16 @@ def init_llama(config: LlamaConfig, seed: int = 0, device="cuda") -> dict:
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def norm_init(fan_in, shape):
-        w = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
-        return w.div_(math.sqrt(fan_in)).to(dt)
+        return normal_init(shape, fan_in, dt, gen, dev)
 
     def ones():
         return torch.ones((d,), device=dev, dtype=torch.float32)
+
+    def ffn():
+        if config.is_moe:
+            return init_moe_layer(d, f, config.num_experts, dt, gen, dev)
+        return {"w_gate": norm_init(d, (d, f)), "w_up": norm_init(d, (d, f)),
+                "w_down": norm_init(f, (f, d))}
 
     embed = norm_init(1.0, (config.vocab_size, d))
     layers = [{
@@ -109,9 +108,7 @@ def init_llama(config: LlamaConfig, seed: int = 0, device="cuda") -> dict:
         "wv": norm_init(d, (d, kvh * hd)),
         "wo": norm_init(h * hd, (h * hd, d)),
         "mlp_norm": ones(),
-        "w_gate": norm_init(d, (d, f)),
-        "w_up": norm_init(d, (d, f)),
-        "w_down": norm_init(f, (f, d)),
+        **ffn(),
     } for _ in range(config.n_layers)]
     return {"embed": embed, "layers": layers, "final_norm": ones(),
             "lm_head": norm_init(d, (d, config.vocab_size))}
@@ -170,15 +167,20 @@ def _attention_block(x, layer, config: LlamaConfig, attn_impl):
 
 
 def _mlp_block(x, layer, config: LlamaConfig):
-    """Dense FFN with residual."""
-    _no_moe(config)
+    """Dense or MoE FFN with residual; returns (y, aux), aux the MoE
+    load-balance loss (a 0-d tensor), 0.0 for the dense FFN."""
     xn = rms_norm(x, layer["mlp_norm"], config.norm_eps)
+    if config.is_moe:
+        y, aux = moe_ffn(xn, layer, config.num_experts,
+                         config.experts_per_token,
+                         config.expert_capacity_factor)
+        return x + y, aux
     gate = torch.nn.functional.silu((xn @ layer["w_gate"]).float()).to(x.dtype)
-    return x + (gate * (xn @ layer["w_up"])) @ layer["w_down"]
+    return x + (gate * (xn @ layer["w_up"])) @ layer["w_down"], 0.0
 
 
 def transformer_layer(x, layer, config: LlamaConfig, attn_impl):
-    """One decoder layer: attention + dense FFN."""
+    """One decoder layer: attention + (dense|MoE) FFN. Returns (y, aux)."""
     y = _attention_block(x, layer, config, attn_impl)
     return _mlp_block(y, layer, config)
 
@@ -187,14 +189,15 @@ def transformer_layer(x, layer, config: LlamaConfig, attn_impl):
 def llama_forward(params: dict, tokens, config: LlamaConfig, attn_impl=None,
                   remat: bool = False, return_aux: bool = False, moe_part=None):
     """tokens [B, S] (integer) -> logits [B, S, vocab] (fp32); with
-    return_aux, -> (logits, aux), where aux is the MoE load-balance loss and
-    so 0.0 for the dense model. `remat` recomputes each layer's activations
-    in the backward instead of keeping them (the attention forward kernel
-    runs a second time per layer). `moe_part` must be None (no MoE yet)."""
+    return_aux, -> (logits, aux), where aux is the mean per-layer MoE
+    load-balance loss (0.0 for the dense model). `remat` recomputes each
+    layer's activations in the backward instead of keeping them (the
+    attention forward kernel runs a second time per layer). `moe_part`, the
+    JAX package's expert-parallel sharding hook, must be None: one device."""
     if moe_part is not None:
         raise NotImplementedError(
-            "moe_part (the MoE sharding hook) is not ported to PyTorch yet: "
-            "MoE is ROADMAP.md queue 1 item 12")
+            "moe_part (the expert-parallel sharding hook) is not ported to "
+            "PyTorch yet: it comes with the mesh, ROADMAP.md queue 1 items 7-8")
     if attn_impl is None:
         attn_impl = partial(flash_attention, causal=True,
                             window=config.sliding_window)
@@ -205,17 +208,19 @@ def llama_forward(params: dict, tokens, config: LlamaConfig, attn_impl=None,
             "sliding_window requires the default flash attention impl; "
             "custom attn_impl callers must apply the window themselves")
     x = params["embed"][tokens]
+    aux = 0.0
     for layer in params["layers"]:
         if remat:
             # the layer draws no random numbers, so no RNG state is kept
-            x = checkpoint(transformer_layer, x, layer, config, attn_impl,
-                           use_reentrant=False, preserve_rng_state=False)
+            x, a = checkpoint(transformer_layer, x, layer, config, attn_impl,
+                              use_reentrant=False, preserve_rng_state=False)
         else:
-            x = transformer_layer(x, layer, config, attn_impl)
+            x, a = transformer_layer(x, layer, config, attn_impl)
+        aux = aux + a
     x = rms_norm(x, params["final_norm"], config.norm_eps)
     logits = (x @ params["lm_head"]).float()
     if return_aux:
-        return logits, 0.0
+        return logits, aux / config.n_layers
     return logits
 
 
@@ -224,7 +229,8 @@ def llama_loss(params: dict, tokens, config: LlamaConfig, attn_impl=None,
     """Next-token cross-entropy over tokens [B, S], differentiable through
     the attention kernels on CUDA and the plain attention on the CPU. The
     final position is masked rather than sliced off, as in the JAX package.
-    The MoE load-balance term is 0.0 for the dense model."""
+    The MoE load-balance term, weighted by `moe_aux_weight`, is 0.0 for the
+    dense model."""
     b, s = tokens.shape
     logits, aux = llama_forward(params, tokens, config, attn_impl, remat,
                                 return_aux=True, moe_part=moe_part)

@@ -1,20 +1,28 @@
-"""Where the time goes on the port's path, at Llama-2-7B width on one GPU.
+"""Where the time goes on the port's path, at Llama-2-7B and Mixtral-8x7B
+widths on one GPU.
 
     python3 -m yoda_scheduler_tpu_torch.profile_path
 
-Traces with torch.profiler, after a warm-up, one `llama_forward` (B=1,
-S=2048), one `prefill` (4 requests x 512 tokens), 16 `decode_step`s of
-those requests (their prefill outside the trace), and one training step
-(B=1, S=2048, remat, AdamW; all 32 layers). For each window it prints one
-JSON line: the host wall time, the device's busy time (the union of kernel
-intervals) and idle share, the kernel launches, the device time grouped
-into matmul / flash_fwd / flash_bwd_dq / flash_bwd_dkv / optimizer / other,
-and the kernels with the most device time.
-The full report goes to chiprun_out/profile_path.json.
+Traces with torch.profiler, after a warm-up, at Llama-2-7B width one
+`llama_forward` (B=1, S=2048), one `prefill` (4 requests x 512 tokens), 16
+`decode_step`s of those requests (their prefill outside the trace) and one
+training step (B=1, S=2048, remat, AdamW; all 32 layers); then at
+Mixtral-8x7B width one `llama_forward` (16 layers) and one training step
+(4 layers), both B=1, S=2048. For each window it prints one JSON line: the
+host wall time, the device's busy time (the union of kernel intervals) and
+idle share, the kernel launches, the device time grouped into matmul /
+flash_fwd / flash_bwd_dq / flash_bwd_dkv / optimizer / moe_route / other,
+and the kernels with the most device time. moe_route is every kernel that
+starts inside a `moe_route` span on the device's timeline (models/moe.py:
+the router's product, top-k, queue positions, dispatch and combine, and the
+backward of dispatch and combine); the router softmax's and top-k's
+backward count as other. The full report goes to
+chiprun_out/profile_path.json.
 """
 
 from __future__ import annotations
 
+import bisect
 import gc
 import json
 import subprocess
@@ -27,7 +35,22 @@ import torch
 
 from .models import (KVCache, LlamaConfig, decode_step, init_llama,
                      llama_forward, prefill)
+from .models.moe import ROUTE_SPAN
 from .parallel import build_llama_train_step
+
+
+def mixtral_8x7b(n_layers: int) -> LlamaConfig:
+    """Mixtral-8x7B's published widths in the JAX package's LlamaConfig
+    fields, from mistralai/Mixtral-8x7B-v0.1's config.json: hidden_size
+    4096, 32 layers, 32 heads, 8 key-value heads, intermediate_size 14336,
+    8 local experts, 2 per token, vocab 32000, rope_theta 1e6, rms_norm_eps
+    1e-5, max_position_embeddings 32768, no sliding window,
+    router_aux_loss_coef 0.02. Depth cut to `n_layers`; the capacity factor
+    is the JAX package's 1.25 (Mixtral drops no token)."""
+    return LlamaConfig(vocab_size=32000, dim=4096, n_layers=n_layers, n_heads=32,
+                       n_kv_heads=8, ffn_dim=14336, rope_theta=1e6, norm_eps=1e-5,
+                       max_seq_len=32768, num_experts=8, experts_per_token=2,
+                       moe_aux_weight=0.02)
 
 
 def _group(name: str) -> str:
@@ -54,12 +77,23 @@ def trace(label: str, fn, setup=lambda: None) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device events, less the ranges that record_function (the optimizer's
-    # step) draws on the device's timeline over the kernels it launches
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
+    # step, moe_route) draws on the device's timeline over the kernels it
+    # launches
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in device if not getattr(e, "is_user_annotation", False)]
     if not kernels:
         raise SystemExit(f"{label}: the profiler recorded no device kernels")
+    route = sorted((e.time_range.start, e.time_range.end) for e in device
+                   if getattr(e, "is_user_annotation", False) and e.name == ROUTE_SPAN)
+    starts = [r[0] for r in route]
+
+    def group(e) -> str:
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        if i >= 0 and e.time_range.start < route[i][1]:
+            return "moe_route"
+        return _group(e.name)
+
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy_us, cur_s, cur_e = 0.0, None, None
     for s, e in spans:
@@ -76,12 +110,12 @@ def trace(label: str, fn, setup=lambda: None) -> dict:
         dur = e.time_range.end - e.time_range.start
         by_name[e.name][0] += dur
         by_name[e.name][1] += 1
-        by_group[_group(e.name)] += dur
+        by_group[group(e)] += dur
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     report = {
         "window": label, "wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
         "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms,
-        "kernel_launches": len(kernels),
+        "kernel_launches": len(kernels), "moe_route_spans": len(route),
         "device_ms_by_group": {k: v / 1e3 for k, v in by_group.items()},
         "top_kernels": [{"name": n[:90], "ms": t / 1e3, "count": c}
                         for n, (t, c) in top],
@@ -113,12 +147,26 @@ def inference_windows(cfg) -> list[dict]:
         ]
 
 
-def train_window(cfg) -> dict:
+def train_window(cfg, label: str) -> dict:
     init_fn, step_fn, _ = build_llama_train_step(cfg, device="cuda")
     params, opt_state = init_fn(0)
     gen = torch.Generator(device="cuda").manual_seed(1)
     tokens = torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen, device="cuda")
-    return trace("train_step_b1_s2048", lambda _: step_fn(params, opt_state, tokens))
+    return trace(label, lambda _: step_fn(params, opt_state, tokens))
+
+
+def moe_forward_window(cfg) -> dict:
+    params = init_llama(cfg, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen, device="cuda")
+    with torch.no_grad():
+        return trace(f"moe_forward_{cfg.n_layers}_layers_b1_s2048",
+                     lambda _: llama_forward(params, tokens, cfg))
+
+
+def _free() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()  # each window's weights need the room
 
 
 def main() -> int:
@@ -131,9 +179,12 @@ def main() -> int:
     print(smi, flush=True)
     cfg = LlamaConfig.llama2_7b()
     reports = inference_windows(cfg)
-    gc.collect()
-    torch.cuda.empty_cache()  # the train step's 54 GB of state needs the room
-    reports.append(train_window(cfg))
+    _free()
+    reports.append(train_window(cfg, "train_step_b1_s2048"))
+    _free()
+    reports.append(moe_forward_window(mixtral_8x7b(16)))
+    _free()
+    reports.append(train_window(mixtral_8x7b(4), "moe_train_step_4_layers_b1_s2048"))
     out = Path(__file__).resolve().parents[1] / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "profile_path.json").write_text(json.dumps(
