@@ -51,6 +51,20 @@ after train.
 - moe_train: as train, with aux weight 0.02; MFU by active parameters
   beside the capacity-padded expert work.
 
+The sharded training step (parallel/), after train:
+
+- sharded_train: a world-1 NCCL process group on an in-process store, the
+  mesh with every axis 1, and `build_llama_train_step(llama2_7b, mesh)` for
+  train's steps, seed and tokens: the losses against train's, launches per
+  step by route, step time and peak memory (within train's + 2 GB: the
+  fsdp gather is per layer at use).
+- ring: ring attention over sp=4 through the one-process rotation at
+  S=8192 in chunks of 2048, MHA 32/32 and GQA 32/8: output and dQ/dK/dV
+  against the plain attention over the whole sequence (rel. L2 and worst
+  64-row tile), a bit-repeatable backward, 10/10/10 launches on the wgmma
+  route (6 future chunks skipped), the ring's forward and forward+backward
+  times beside one 8192-token causal flash_fwd and its bound.
+
 Then a line listing every kernel of the path, and last the device line.
 Full results also go to chiprun_out/chip_smoke.json.
 """
@@ -139,6 +153,22 @@ MOE_ROUTING_AGREE = 0.75
 MOE_LAYER_ROUTING_AGREE = 0.98
 MOE_LAYER_REL_L2 = 5e-2
 MOE_FORWARD_LAYERS, MOE_TRAIN_LAYERS = 16, 4
+# sharded_train: at world 1 every collective is skipped and each rank's
+# hooks are the one-device ones, so the sharded step runs the one-device
+# step's operations on the same inputs: its losses are expected equal to
+# train's to the bit. The bound is relative and allows a sum's order to
+# differ (a bf16 step's loss moves by ~1e-3 for a one-ulp change of its
+# weights); the reading is reported as it is.
+SHARDED_LOSS_REL = 1e-3
+SHARDED_PEAK_SLACK_GB = 2.0
+# ring: S=8192 over sp=4 (the whole sequence's causal attention as 4
+# diagonal and 6 full 2048-token chunks); output and gradients against the
+# plain attention, by relative L2 over the whole tensor and by the worst
+# 64-row tile (phase 3's bound, variants.BWD_TILE_REL_L2): the ring merges
+# fp32 partials and rounds once, the plain version rounds its
+# probabilities to bf16 before P.V.
+RING_SEQ, RING_SP = 8192, 4
+RING_SHAPES = {"mha": (1, 32, 32, 128), "gqa": (1, 32, 8, 128)}  # b, h, kvh, d
 
 RESULTS: dict = {}
 
@@ -856,13 +886,160 @@ def phase_train(attn, train, moe, cfg, phase="train"):
     return launches
 
 
+def phase_sharded_train(attn, train, mesh_mod, cfg, phase="sharded_train"):
+    """The 7B step through a world-1 NCCL mesh: train's steps, seed and
+    tokens; losses against train's, launches, step time, peak memory."""
+    import torch.distributed as dist
+
+    free_memory()
+    b, s = 1, 2048
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        mesh = mesh_mod.make_mesh({a: 1 for a in mesh_mod.AXIS_ORDER}, device="cuda")
+        init_fn, step_fn, batch_fn = train.build_llama_train_step(cfg, mesh)
+        params, opt_state = init_fn(0)
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda")
+        want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
+                "flash_bwd_dkv": cfg.n_layers}
+        losses, times = [], []
+        for _ in range(TRAIN_STEPS):
+            reset_launches(attn)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt_state, loss = step_fn(params, opt_state, batch_fn(tokens))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            launches, routes = read_launches(attn), read_routes(attn)
+            if routes != {n: {"wgmma": c} for n, c in want.items()}:
+                raise SystemExit(f"{phase}: a step launched {routes}, expected {want} "
+                                 f"on the wgmma route")
+            losses.append(loss)
+        losses = [float(x) for x in losses]
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        del params, opt_state
+    finally:
+        dist.destroy_process_group()
+    ref = RESULTS["train"]
+    rel = [abs(a - r) / abs(r) for a, r in zip(losses, ref["losses"])]
+    step_ms = statistics.median(times[1:])
+    emit(phase, config="llama2_7b", mesh={a: 1 for a in mesh_mod.AXIS_ORDER},
+         backend="nccl", world=1, layers=cfg.n_layers, batch=b, seq=s,
+         launches_per_step=launches, launches_by_route=routes, losses=losses,
+         train_losses=ref["losses"], loss_rel_vs_train=rel,
+         loss_equal_to_the_bit=losses == ref["losses"], bound=SHARDED_LOSS_REL,
+         step_ms=times, step_ms_median=step_ms, train_step_ms_median=ref["step_ms_median"],
+         tokens_per_s=b * s / (step_ms / 1e3), peak_mem_gb=peak_gb,
+         train_peak_mem_gb=ref["peak_mem_gb"], peak_bound_gb=ref["peak_mem_gb"]
+         + SHARDED_PEAK_SLACK_GB)
+    if max(rel) > SHARDED_LOSS_REL:
+        raise SystemExit(f"{phase}: losses {losses} differ from train's {ref['losses']}")
+    if peak_gb > ref["peak_mem_gb"] + SHARDED_PEAK_SLACK_GB:
+        raise SystemExit(f"{phase}: peak memory {peak_gb} GB over train's "
+                         f"{ref['peak_mem_gb']} + {SHARDED_PEAK_SLACK_GB}")
+    return launches
+
+
+def plain_by_heads(attn, q, k, v, do, heads: int = 8):
+    """The plain causal attention over the whole sequence and its plain
+    backward, a block of query heads (and their kv heads) at a time: (o,
+    dq, dk, dv)."""
+    h, kvh = q.shape[1], k.shape[1]
+    outs = []
+    for i in range(0, h, heads):
+        j, m = i * kvh // h, (i + heads) * kvh // h
+        qb, kb, vb, dob = q[:, i:i + heads], k[:, j:m], v[:, j:m], do[:, i:i + heads]
+        o, lse = attn.reference_attention_with_lse(qb, kb, vb)
+        outs.append((o, *attn.flash_backward_reference(qb, kb, vb, o, lse, dob)))
+        del lse
+    return [torch.cat(parts, 1) for parts in zip(*outs)]
+
+
+def phase_ring(attn, ring, variants):
+    """Ring attention over sp=4 through the one-process rotation at S=8192:
+    the kernels inside the ring against the plain attention, launches and
+    times."""
+    free_memory()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rows, launches_out = [], None
+    for name, (b, h, kvh, d) in RING_SHAPES.items():
+        q, k, v, do = rand_inputs(gen, torch.bfloat16, "bhsd", (b, h, RING_SEQ, d),
+                                  (b, kvh, RING_SEQ, d), (b, kvh, RING_SEQ, d),
+                                  (b, h, RING_SEQ, d))
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+
+        def fwd_bwd():
+            out = ring.ring_attention_emulated(*leaves, sp=RING_SP)
+            grads = torch.autograd.grad(out, leaves, do)
+            return out.detach(), grads
+
+        reset_launches(attn)
+        out, grads = fwd_bwd()
+        torch.cuda.synchronize()
+        launches, routes = read_launches(attn), read_routes(attn)
+        chunks = RING_SP * (RING_SP + 1) // 2
+        want = {n: {"wgmma": chunks} for n in launches}
+        if routes != want:
+            raise SystemExit(f"ring {name}: launched {routes}, expected {want}")
+        _, grads2 = fwd_bwd()
+        repeatable = all(torch.equal(a, b_) for a, b_ in zip(grads, grads2))
+        del grads2
+        plain = plain_by_heads(attn, q, k, v, do)
+        errs = {}
+        for nm, got, ref in zip(("out", "dq", "dk", "dv"), (out, *grads), plain):
+            errs[nm] = dict(rel_l2=rel_l2(got, ref), tile_rel_l2=variants.tile_rel_l2(got, ref),
+                            max_abs=float((got.float() - ref.float()).abs().max()),
+                            finite=bool(torch.isfinite(got).all()))
+        # one causal flash_fwd over the whole sequence, beside the ring
+        o1, _ = attn.flash_fwd(q, k, v, True, None)
+        one_err = dict(rel_l2=rel_l2(o1, plain[0]),
+                       tile_rel_l2=variants.tile_rel_l2(o1, plain[0]))
+        del plain, o1, out, grads
+        with torch.no_grad():
+            ring_fwd_ms = cuda_time_ms(
+                lambda: ring.ring_attention_emulated(q, k, v, sp=RING_SP), 5)
+        ring_fwd_bwd_ms = cuda_time_ms(fwd_bwd, 5)
+        one_fwd_ms = cuda_time_ms(lambda: attn.flash_fwd(q, k, v, True, None), 10)
+        bound_ms, bound_by = attention_bound(b, h, kvh, RING_SEQ, RING_SEQ, d, True,
+                                             None, torch.bfloat16)
+        bwd_bounds = backward_bounds(b, h, kvh, RING_SEQ, RING_SEQ, d, True, None,
+                                     torch.bfloat16)
+        ok = (repeatable and all(e["finite"] and e["rel_l2"] <= variants.BWD_TILE_REL_L2
+                                 and e["tile_rel_l2"] <= variants.BWD_TILE_REL_L2
+                                 for e in errs.values())
+              and one_err["tile_rel_l2"] <= variants.BWD_TILE_REL_L2)
+        row = dict(shape=name, b=b, h=h, kvh=kvh, seq=RING_SEQ, d=d, sp=RING_SP,
+                   chunk=RING_SEQ // RING_SP, chunks_computed=chunks,
+                   chunks_skipped=RING_SP * RING_SP - chunks, launches=launches,
+                   launches_by_route=routes, errors_vs_plain=errs,
+                   bound=variants.BWD_TILE_REL_L2, bit_repeatable=repeatable,
+                   one_flash_fwd_8192_vs_plain=one_err, ok=ok,
+                   ring_fwd_ms=ring_fwd_ms, ring_fwd_bwd_ms=ring_fwd_bwd_ms,
+                   one_flash_fwd_8192_ms=one_fwd_ms, one_flash_fwd_8192_bound_ms=bound_ms,
+                   one_flash_fwd_8192_bound_by=bound_by,
+                   backward_bound_ms=bwd_bounds["dq"][0] + bwd_bounds["dkv"][0])
+        print(json.dumps({"phase": "ring", **row}), flush=True)
+        rows.append(row)
+        if launches_out is None:
+            launches_out = launches
+        if not ok:
+            raise SystemExit(f"ring {name}: disagrees with the plain attention or is "
+                             f"not repeatable: {errs}, {one_err}")
+        del q, k, v, do, leaves
+        free_memory()
+    RESULTS["ring"] = rows
+    return launches_out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     from yoda_scheduler_tpu_torch.models import llama, moe
     from yoda_scheduler_tpu_torch.ops import _build, attention as attn, variants
-    from yoda_scheduler_tpu_torch.parallel import train
+    from yoda_scheduler_tpu_torch.parallel import mesh as mesh_mod, ring, train
     # Mixtral-8x7B's widths from its config.json, in the port's config fields
     from yoda_scheduler_tpu_torch.profile_path import mixtral_8x7b
 
@@ -889,8 +1066,11 @@ def main() -> int:
     free_memory()
     phase_gradient(attn, llama, train)
     step_launches = phase_train(attn, train, moe, llama.LlamaConfig.llama2_7b())
+    sharded_launches = phase_sharded_train(attn, train, mesh_mod,
+                                           llama.LlamaConfig.llama2_7b())
     moe_step_launches = phase_train(attn, train, moe, mixtral_8x7b(MOE_TRAIN_LAYERS),
                                     phase="moe_train")
+    ring_launches = phase_ring(attn, ring, variants)
 
     main_row, bwd_main = rows[0], bwd_rows[0]
     src = "yoda_scheduler_tpu_torch/ops/csrc/"
@@ -903,8 +1083,10 @@ def main() -> int:
         "launches": step_launches["flash_fwd"],
         "launches_by_path": {"forward": fwd_launches,
                              "train_step": step_launches["flash_fwd"],
+                             "sharded_train_step": sharded_launches["flash_fwd"],
                              "moe_forward": moe_fwd_launches,
-                             "moe_train_step": moe_step_launches["flash_fwd"]},
+                             "moe_train_step": moe_step_launches["flash_fwd"],
+                             "ring_fwd_bwd": ring_launches["flash_fwd"]},
         "max_abs_err": max_err,
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -916,7 +1098,9 @@ def main() -> int:
         "route_turns_ms": bwd_main["route_turns_ms"][key],
         "launches": step_launches[name],
         "launches_by_path": {"train_step": step_launches[name],
-                             "moe_train_step": moe_step_launches[name]},
+                             "sharded_train_step": sharded_launches[name],
+                             "moe_train_step": moe_step_launches[name],
+                             "ring_fwd_bwd": ring_launches[name]},
         "max_abs_err": bwd_err[key], "ms": bwd_main[f"{key}_ms"],
         "plain_ms": bwd_main["plain_ms"], "bound_ms": bwd_main[f"{key}_bound_ms"],
         "bound_by": bwd_main[f"{key}_bound_by"],

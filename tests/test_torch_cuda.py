@@ -436,3 +436,87 @@ def test_mixtral_moe_ffn_gradient_is_bit_repeatable(gpu, mixtral_ffn):
         runs.append([t.grad for t in leaves])
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("side", [0, 1])
+def test_bmm_fp32_cotangent_is_the_fp32_product(gpu, side):
+    """The MoE expert backward's products of the fp32 cotangent g [E, C, f]
+    and bf16 operands at Mixtral's widths (8 experts, 648 slots, d 4096, f
+    14336), on the tensor cores from a bf16 high part and the bf16 rounding
+    of the rest (`moe.cotangent_products`: g @ we^T and x^T @ g), against the
+    same products in fp64: the split leaves g to about 2^-16 relative, so
+    rel. L2 within 1e-4 (the fp32 sums add ~1e-6). Rounding g to bf16 first,
+    as the port did before, reads ~2^-9: the bound tells the two apart."""
+    gen = torch.Generator(device=gpu).manual_seed(3)
+    g = torch.randn((8, 648, 14336), generator=gen, device=gpu)
+    x = torch.randn((8, 648, 4096), generator=gen, device=gpu).to(torch.bfloat16)
+    we = torch.randn((8, 4096, 14336), generator=gen, device=gpu).to(torch.bfloat16)
+    got = moe.cotangent_products(g, x, we)[side]
+    pair = [(g, we.transpose(1, 2)), (x.transpose(1, 2), g)][side]
+    want = torch.bmm(*(t.double() for t in pair))
+    rounded = torch.bmm(*(t.to(torch.bfloat16) for t in pair), out_dtype=torch.float32)
+    assert got.dtype == torch.float32 and got.is_contiguous()
+
+    def rel(y):
+        return float((y.double() - want).norm() / want.norm())
+
+    assert rel(got) < 1e-4, rel(got)
+    assert rel(rounded) > 1e-3
+
+
+# -------------------------------------------------- sharded step and ring
+def test_ring_on_cuda_matches_the_plain_attention(gpu):
+    """Ring attention over sp=4 through the one-process rotation, bf16, S=512
+    in chunks of 128, GQA 8/2: 10 launches of each kernel on the wgmma route
+    (4 diagonal and 6 full chunks; the 6 future ones launch nothing);
+    output and gradients against the plain attention over the whole
+    sequence by the worst 64-row tile (phase 3's bound)."""
+    from yoda_scheduler_tpu_torch.parallel import ring
+
+    q, k, v = _qkv(gpu, torch.bfloat16, 1, 8, 2, 512, 512, 128, seed=5)
+    do = _qkv(gpu, torch.bfloat16, 1, 8, 2, 512, 512, 128, seed=6)[0]
+    leaves = [t.requires_grad_(True) for t in (q, k, v)]
+    for fn in (attn.flash_fwd, attn.flash_bwd_dq, attn.flash_bwd_dkv):
+        attn._reset_counts(fn)
+    out = ring.ring_attention_emulated(*leaves, sp=4)
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    for fn in (attn.flash_fwd, attn.flash_bwd_dq, attn.flash_bwd_dkv):
+        assert fn.launches_by_route == {"simt": 0, "mma": 0, "wgmma": 10}, fn.__name__
+    o, lse = attn.reference_attention_with_lse(q.detach(), k.detach(), v.detach())
+    want = (o, *attn.flash_backward_reference(q.detach(), k.detach(), v.detach(), o,
+                                              lse, do))
+    for name, got, ref in zip(("out", "dq", "dk", "dv"), (out, *grads), want):
+        assert tile_rel_l2(got.detach(), ref) <= BWD_TILE_REL_L2, name
+
+
+def test_world1_nccl_sharded_step_is_the_one_device_step(gpu, tiny_f32):
+    """The tiny fp32 step through a world-1 NCCL mesh (every axis 1, an
+    in-process store) against the one-device step from the same weights:
+    every collective is skipped, so the losses and weights are equal."""
+    import torch.distributed as dist
+
+    from yoda_scheduler_tpu_torch.parallel import make_mesh, shard_params
+
+    cfg, params, _ = tiny_f32
+    tokens = torch.from_numpy(np.random.default_rng(7).integers(0, 256, (2, 64))).to(gpu)
+    one = {"embed": params["embed"].clone(), "final_norm": params["final_norm"].clone(),
+           "lm_head": params["lm_head"].clone(),
+           "layers": [{n: t.clone() for n, t in layer.items()}
+                      for layer in params["layers"]]}
+    _, step_one, _ = build_llama_train_step(cfg, device=gpu)
+    opt_one = init_opt_state(one)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_mesh({"dp": 1, "fsdp": 1, "tp": 1, "sp": 1}, device="cuda")
+        _, step_mesh, batch_fn = build_llama_train_step(cfg, mesh)
+        sharded = shard_params(params, mesh, cfg)
+        opt_mesh = init_opt_state(sharded)
+        for _ in range(2):
+            sharded, opt_mesh, loss_mesh = step_mesh(sharded, opt_mesh, batch_fn(tokens))
+            one, opt_one, loss_one = step_one(one, opt_one, tokens)
+            assert torch.equal(loss_mesh, loss_one)
+    finally:
+        dist.destroy_process_group()
+    for a, b in zip(param_leaves(sharded), param_leaves(one)):
+        assert torch.equal(a, b)

@@ -13,7 +13,8 @@ import yoda_scheduler_tpu_torch as port
 from yoda_scheduler_tpu_torch.entry import entry
 from yoda_scheduler_tpu_torch.models import (KVCache, LlamaConfig, init_llama,
                                              params_from_jax)
-from yoda_scheduler_tpu_torch.parallel import build_llama_train_step
+from yoda_scheduler_tpu_torch.parallel import (build_llama_train_step, make_mesh,
+                                               quick_mesh_and_step)
 
 # tiny shapes: one intra-op thread, so that the other test workers keep
 # their cores
@@ -25,6 +26,11 @@ PKG = Path(port.__file__).parent
 def test_import_loads_no_jax():
     code = ("import sys, yoda_scheduler_tpu_torch, yoda_scheduler_tpu_torch.entry\n"
             "import yoda_scheduler_tpu_torch.models.moe\n"
+            "import yoda_scheduler_tpu_torch.parallel.mesh, "
+            "yoda_scheduler_tpu_torch.parallel.sharding, "
+            "yoda_scheduler_tpu_torch.parallel.collectives, "
+            "yoda_scheduler_tpu_torch.parallel.ring, "
+            "yoda_scheduler_tpu_torch.parallel.launch\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'yoda_scheduler_tpu' or m.startswith('yoda_scheduler_tpu.')]\n"
             "print(bad)\n"
@@ -45,7 +51,8 @@ def test_package_source_never_mentions(needle):
 
 
 @pytest.mark.parametrize("call", ["init_llama", "init_llama_moe", "entry", "kv_cache",
-                                  "params_from_jax", "build_llama_train_step"])
+                                  "params_from_jax", "build_llama_train_step",
+                                  "make_mesh", "quick_mesh_and_step"])
 def test_entry_points_need_cuda_unless_asked_for_cpu(call):
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA: the default device is valid here")
@@ -58,6 +65,8 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(call):
         "params_from_jax": lambda **kw: params_from_jax(
             _numpy_params(cfg), cfg, **kw),
         "build_llama_train_step": lambda **kw: build_llama_train_step(cfg, **kw),
+        "make_mesh": lambda **kw: make_mesh({}, **kw),
+        "quick_mesh_and_step": lambda **kw: quick_mesh_and_step(1, **kw),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[call]()

@@ -198,12 +198,14 @@ def test_moe_ffn_gradient_matches_jax():
 
 
 def test_moe_ffn_gradient_bf16_departure_from_jax():
-    """bf16: the port rounds the fp32 cotangent of gate and up to bf16
-    before their backward products (`_BmmF32`, bf16 tensor-core products on
-    the card); JAX on the CPU multiplies the fp32 cotangent and rounds the
-    result. That departure reaches we_gate, we_up and x (measured rel. L2
-    2.6e-3 and 3.7e-3 over four seeds): bound 1e-2. we_down and the router
-    do not go through it (measured <= 9e-5): bound 1e-3."""
+    """bf16: gate and up's backward products take the fp32 cotangent and
+    round each product once, as JAX does (`_BmmF32`, `bmm_fp32_cotangent`).
+    Before that repair the port rounded the cotangent to bf16 first, and the
+    gradients of we_gate, we_up and x read rel. L2 2.6e-3 to 3.7e-3; now
+    every leaf reads <= 1.7e-4 over four seeds (this seed: x 1.6e-4, we_gate
+    8.5e-5, we_up 2.9e-5, we_down 5.8e-5, router 8.3e-5), what bf16
+    roundings at other places in the two frameworks leave: bound 1e-3 on
+    every leaf."""
     jlayer, layer = _layer("bfloat16")
     x = np.random.default_rng(1).standard_normal((2, 48, 128)).astype(np.float32)
     w = np.random.default_rng(2).standard_normal((2, 48, 128)).astype(np.float32)
@@ -218,7 +220,7 @@ def test_moe_ffn_gradient_bf16_departure_from_jax():
         t.requires_grad_(True)
     y, aux = tmoe.moe_ffn(xt, layer, 4, 2, 1.25)
     (torch.sum(y.float() * torch.from_numpy(w)) + aux).backward()
-    bounds = {"x": 1e-2, "we_gate": 1e-2, "we_up": 1e-2, "we_down": 1e-3, "router": 1e-3}
+    bounds = {"x": 1e-3, "we_gate": 1e-3, "we_up": 1e-3, "we_down": 1e-3, "router": 1e-3}
     for name, got, want in [("x", xt.grad, jgx)] + [
             (n, t.grad, jglayer[n]) for n, t in layer.items()]:
         assert got.dtype == (torch.float32 if name == "router" else torch.bfloat16)
@@ -235,7 +237,9 @@ def test_identity_part_changes_nothing():
                           part=lambda t, role: roles.append(role) or t)
     y0, aux0 = tmoe.moe_ffn(x, layer, 4, 2, 1.25)
     assert torch.equal(y, y0) and torch.equal(aux, aux0)
-    assert roles == ["dispatch", "hidden", "dispatch", "combine"]
+    # JAX's hook sees the expert output as "dispatch" again; the port's
+    # moves data, so the way out of the experts is its own role
+    assert roles == ["dispatch", "hidden", "expert_out", "combine"]
 
 
 # ------------------------------------------------------------------ model

@@ -20,7 +20,8 @@ from yoda_scheduler_tpu.parallel import make_mesh
 from yoda_scheduler_tpu_torch.models import llama as tllama
 from yoda_scheduler_tpu_torch.models import params_from_jax
 from yoda_scheduler_tpu_torch.parallel import (build_llama_train_step,
-                                               init_opt_state, param_leaves)
+                                               init_opt_state, one_device_mesh,
+                                               param_leaves)
 
 # tiny shapes: one intra-op thread, so that the other test workers keep
 # their cores
@@ -124,8 +125,9 @@ def test_decay_applies_to_norms_and_embedding():
 
 def test_step_returns_a_0d_loss_and_updates_in_place():
     cfg = tllama.LlamaConfig.tiny()
-    init_fn, step_fn, dev = build_llama_train_step(cfg, device="cpu")
-    assert dev == torch.device("cpu")
+    init_fn, step_fn, batch_fn = build_llama_train_step(cfg, device="cpu")
+    tokens = torch.ones(2, 16, dtype=torch.int64)
+    assert torch.equal(batch_fn(tokens), tokens)  # one device: the whole batch
     params, opt = init_fn(3)
     wq = params["layers"][0]["wq"]
     before = wq.detach().clone()
@@ -137,16 +139,12 @@ def test_step_returns_a_0d_loss_and_updates_in_place():
 
 
 # (kwargs, exception, message): each raised as the JAX package raises it,
-# or NotImplementedError where the port has no mesh yet
+# or NotImplementedError where the port has no Ulysses attention yet
 BAD_ARGS = {
     "sp_attention_unknown": (dict(sp_attention="bogus"), ValueError, None),
     "both_spellings": (dict(sp_attention="none", use_ring_attention=True),
                        ValueError, None),
-    "mesh": (dict(mesh=object()), NotImplementedError, "items 7-10"),
-    "ring": (dict(sp_attention="ring"), NotImplementedError, "items 7-10"),
-    "ulysses": (dict(sp_attention="ulysses"), NotImplementedError, "items 7-10"),
-    "use_ring_attention": (dict(use_ring_attention=True), NotImplementedError,
-                           "items 7-10"),
+    "ulysses": (dict(sp_attention="ulysses"), NotImplementedError, "item 10"),
 }
 
 
@@ -160,6 +158,27 @@ def test_train_step_refusals(bad):
         with pytest.raises(ValueError) as jerr:
             jax_build(jllama.LlamaConfig.tiny(), mesh, **kwargs)
         assert str(terr.value) == str(jerr.value)
+
+
+# what the one-device step refused before the mesh was ported: a one-device
+# mesh and ring attention over sp=1 are the one-device step, to the bit
+ONE_DEVICE_SPELLINGS = {"mesh": dict(mesh="one_device"), "ring": dict(sp_attention="ring"),
+                        "use_ring_attention": dict(use_ring_attention=True)}
+
+
+@pytest.mark.parametrize("spelling", list(ONE_DEVICE_SPELLINGS))
+def test_one_device_mesh_and_ring_are_the_one_device_step(spelling):
+    kwargs = dict(ONE_DEVICE_SPELLINGS[spelling])
+    if kwargs.get("mesh") == "one_device":
+        kwargs["mesh"] = one_device_mesh("cpu")
+    cfg = tllama.LlamaConfig.tiny()
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(0, 256, (2, 32)))
+    losses = []
+    for kw in ({}, kwargs):
+        init_fn, step_fn, _ = build_llama_train_step(cfg, device="cpu", **kw)
+        params, opt = init_fn(0)
+        losses.append([float(step_fn(params, opt, tokens)[2]) for _ in range(2)])
+    assert losses[0] == losses[1]
 
 
 def test_sp_attention_none_is_the_single_device_step():
@@ -233,7 +252,12 @@ def test_forward_aux_and_moe_part_mirror_jax(tiny_f32):
     _, jaux = jllama.llama_forward(jparams, jnp.asarray(tokens), jcfg, return_aux=True)
     assert aux == float(jaux) == 0.0
     assert torch.equal(logits, tllama.llama_forward(tparams, toks, _twin(jcfg)))
-    with pytest.raises(NotImplementedError, match="expert-parallel"):
-        tllama.llama_forward(tparams, toks, _twin(jcfg), moe_part=lambda t, role: t)
-    with pytest.raises(NotImplementedError, match="expert-parallel"):
-        tllama.llama_loss(tparams, toks, _twin(jcfg), moe_part=lambda t, role: t)
+    # the hook is given the table and its lookup, as the JAX package's is;
+    # the identity hook changes nothing
+    roles = []
+    part = lambda t, role: roles.append(role) or t  # noqa: E731
+    assert torch.equal(logits, tllama.llama_forward(tparams, toks, _twin(jcfg),
+                                                    moe_part=part))
+    assert roles == ["table", "combine"]
+    assert torch.equal(tllama.llama_loss(tparams, toks, _twin(jcfg), moe_part=part),
+                       tllama.llama_loss(tparams, toks, _twin(jcfg)))

@@ -10,7 +10,12 @@ through the flash kernels (ops/attention.py) by default, forward and
 gradient; `remat=True` recomputes each layer in the backward
 (torch.utils.checkpoint), as the JAX package's jax.checkpoint does. A
 config with experts runs the MoE FFN (models/moe.py) in place of the dense
-one on every layer, on one device.
+one on every layer.
+
+`plan` says how the layers see their weights and their neighbours: None is
+one device (`OneDevice`); parallel/sharding.py's `ShardPlan` runs the same
+layers on one rank of a mesh, where GSPMD partitions the same program for
+the JAX package.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ from dataclasses import dataclass
 from functools import partial
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from .._device import resolve_device
 from ..ops.attention import flash_attention
@@ -139,6 +144,65 @@ def rotary(x, theta: float, positions=None):
     return out.reshape(b, s, h, hd).to(x.dtype)
 
 
+class OneDevice:
+    """The model's hooks on one device: every weight whole, every collective
+    the identity, positions 0..S-1. A sharded plan (parallel/sharding.py)
+    overrides them for one rank's shards: it gathers weights at use, sums
+    tensor-parallel partial products, offsets positions by the rank's
+    sequence chunk and reduces the loss over the vocabulary's shards."""
+
+    moe_part = None  # the expert-parallel hook of models/moe.py:moe_ffn
+
+    def attention(self, config: LlamaConfig):
+        """The model's own attention: causal flash attention, with the
+        config's window."""
+        return partial(flash_attention, causal=True, window=config.sliding_window)
+
+    def heads(self, config: LlamaConfig) -> int:
+        """The query heads of this rank."""
+        return config.n_heads
+
+    def leaf(self, name: str, t):
+        """A top-level leaf (embed, final_norm, lm_head) at use."""
+        return t
+
+    def layer(self, layer: dict) -> dict:
+        """One layer's leaves at use."""
+        return layer
+
+    def tp_in(self, x):
+        """The input of a column-parallel product."""
+        return x
+
+    def tp_out(self, x):
+        """The output of a row-parallel product."""
+        return x
+
+    def positions(self, s: int, device):
+        """Absolute positions of this rank's s tokens [1, s] (None: 0..s-1)."""
+        return None
+
+    def kv_heads(self, t):
+        """k or v [B, S, kvh', hd] as this rank's query heads read them."""
+        return t
+
+    def targets(self, tokens):
+        """Each position's next token (the last wraps, and is masked)."""
+        return torch.roll(tokens, -1, dims=1).long()
+
+    def nll(self, logits, targets):
+        """-log softmax(logits)[target] in fp32."""
+        logp = torch.log_softmax(logits, dim=-1)
+        return -torch.gather(logp, -1, targets[..., None])[..., 0]
+
+    def global_shape(self, b: int, s: int) -> tuple[int, int]:
+        """The batch and sequence of the whole step from this rank's."""
+        return b, s
+
+
+ONE_DEVICE = OneDevice()
+
+
 def _handles_gqa(impl) -> bool:
     """Does this attention impl accept k/v with fewer heads than q?
     (functools.partial wrappers are looked through)."""
@@ -147,15 +211,18 @@ def _handles_gqa(impl) -> bool:
                                 "handles_gqa", False)))
 
 
-def _attention_block(x, layer, config: LlamaConfig, attn_impl):
+def _attention_block(x, layer, config: LlamaConfig, attn_impl, plan=ONE_DEVICE):
     b, s, _ = x.shape
-    h, kvh, hd = config.n_heads, config.n_kv_heads, config.head_dim
-    xn = rms_norm(x, layer["attn_norm"], config.norm_eps)
+    h, hd = plan.heads(config), config.head_dim
+    xn = plan.tp_in(rms_norm(x, layer["attn_norm"], config.norm_eps))
     q = (xn @ layer["wq"]).view(b, s, h, hd)
-    k = (xn @ layer["wk"]).view(b, s, kvh, hd)
-    v = (xn @ layer["wv"]).view(b, s, kvh, hd)
-    q = rotary(q, config.rope_theta)
-    k = rotary(k, config.rope_theta)
+    k = (xn @ layer["wk"]).view(b, s, -1, hd)
+    v = (xn @ layer["wv"]).view(b, s, -1, hd)
+    positions = plan.positions(s, x.device)
+    q = rotary(q, config.rope_theta, positions)
+    k = plan.kv_heads(rotary(k, config.rope_theta, positions))
+    v = plan.kv_heads(v)
+    kvh = k.shape[2]
     if kvh != h and not _handles_gqa(attn_impl):
         # GQA broadcast for attention impls that need equal head counts
         k = k.repeat_interleave(h // kvh, dim=2)
@@ -163,79 +230,113 @@ def _attention_block(x, layer, config: LlamaConfig, attn_impl):
     # [B, S, H, hd] -> [B, H, S, hd] views; the kernel reads the strides
     o = attn_impl(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
     o = o.transpose(1, 2).reshape(b, s, h * hd)
-    return x + o @ layer["wo"]
+    return x + plan.tp_out(o @ layer["wo"])
 
 
-def _mlp_block(x, layer, config: LlamaConfig):
+def _mlp_block(x, layer, config: LlamaConfig, moe_part=None, plan=ONE_DEVICE):
     """Dense or MoE FFN with residual; returns (y, aux), aux the MoE
     load-balance loss (a 0-d tensor), 0.0 for the dense FFN."""
     xn = rms_norm(x, layer["mlp_norm"], config.norm_eps)
     if config.is_moe:
         y, aux = moe_ffn(xn, layer, config.num_experts,
                          config.experts_per_token,
-                         config.expert_capacity_factor)
+                         config.expert_capacity_factor, part=moe_part)
         return x + y, aux
+    xn = plan.tp_in(xn)
     gate = torch.nn.functional.silu((xn @ layer["w_gate"]).float()).to(x.dtype)
-    return x + (gate * (xn @ layer["w_up"])) @ layer["w_down"], 0.0
+    return x + plan.tp_out((gate * (xn @ layer["w_up"])) @ layer["w_down"]), 0.0
 
 
-def transformer_layer(x, layer, config: LlamaConfig, attn_impl):
-    """One decoder layer: attention + (dense|MoE) FFN. Returns (y, aux)."""
-    y = _attention_block(x, layer, config, attn_impl)
-    return _mlp_block(y, layer, config)
+def transformer_layer(x, layer, config: LlamaConfig, attn_impl, moe_part=None,
+                      plan=ONE_DEVICE):
+    """One decoder layer: attention + (dense|MoE) FFN. Returns (y, aux).
+    `layer` holds the leaves as the plan gives them at use."""
+    y = _attention_block(x, layer, config, attn_impl, plan)
+    return _mlp_block(y, layer, config, moe_part, plan)
+
+
+def _plan_layer(x, layer, config, attn_impl, moe_part, plan):
+    """transformer_layer on the plan's view of the layer's leaves, so that
+    under remat the gathered weights are freed after the layer and gathered
+    again in its recomputation."""
+    return transformer_layer(x, plan.layer(layer), config, attn_impl, moe_part, plan)
 
 
 # ------------------------------------------------------------------ forward
 def llama_forward(params: dict, tokens, config: LlamaConfig, attn_impl=None,
-                  remat: bool = False, return_aux: bool = False, moe_part=None):
+                  remat: bool = False, return_aux: bool = False, moe_part=None,
+                  plan=None):
     """tokens [B, S] (integer) -> logits [B, S, vocab] (fp32); with
     return_aux, -> (logits, aux), where aux is the mean per-layer MoE
     load-balance loss (0.0 for the dense model). `remat` recomputes each
     layer's activations in the backward instead of keeping them (the
-    attention forward kernel runs a second time per layer). `moe_part`, the
-    JAX package's expert-parallel sharding hook, must be None: one device."""
-    if moe_part is not None:
-        raise NotImplementedError(
-            "moe_part (the expert-parallel sharding hook) is not ported to "
-            "PyTorch yet: it comes with the mesh, ROADMAP.md queue 1 items 7-8")
+    attention forward kernel runs a second time per layer). `moe_part` is
+    the expert-parallel hook (models/moe.py:moe_ffn's `part`; also given the
+    embedding table, "table", and its lookup, "combine", as in the JAX
+    package); None takes the plan's. `plan` None is one device; a sharded
+    plan (parallel/sharding.py:ShardPlan) gives this rank's tokens [B', S']
+    and params, and the logits are this rank's [B', S', vocab'] shard."""
+    plan = plan or ONE_DEVICE
+    moe_part = moe_part or plan.moe_part
     if attn_impl is None:
-        attn_impl = partial(flash_attention, causal=True,
-                            window=config.sliding_window)
+        attn_impl = plan.attention(config)
     elif config.sliding_window is not None:
         # a custom impl would silently ignore the window and attend
         # globally: refuse rather than diverge from the config
         raise ValueError(
             "sliding_window requires the default flash attention impl; "
             "custom attn_impl callers must apply the window themselves")
-    x = params["embed"][tokens]
+    table = plan.leaf("embed", params["embed"])
+    if moe_part is not None:
+        x = moe_part(moe_part(table, "table")[tokens], "combine")
+    else:
+        x = table[tokens]
     aux = 0.0
     for layer in params["layers"]:
         if remat:
-            # the layer draws no random numbers, so no RNG state is kept
-            x, a = checkpoint(transformer_layer, x, layer, config, attn_impl,
-                              use_reentrant=False, preserve_rng_state=False)
+            # the layer draws no random numbers, so no RNG state is kept;
+            # the whole layer is recomputed (no early stop), so that every
+            # rank runs each of its collectives again
+            with set_checkpoint_early_stop(False):
+                x, a = checkpoint(_plan_layer, x, layer, config, attn_impl, moe_part,
+                                  plan, use_reentrant=False, preserve_rng_state=False)
         else:
-            x, a = transformer_layer(x, layer, config, attn_impl)
+            x, a = _plan_layer(x, layer, config, attn_impl, moe_part, plan)
         aux = aux + a
-    x = rms_norm(x, params["final_norm"], config.norm_eps)
-    logits = (x @ params["lm_head"]).float()
+    x = rms_norm(x, plan.leaf("final_norm", params["final_norm"]), config.norm_eps)
+    logits = (plan.tp_in(x) @ plan.leaf("lm_head", params["lm_head"])).float()
     if return_aux:
         return logits, aux / config.n_layers
     return logits
 
 
-def llama_loss(params: dict, tokens, config: LlamaConfig, attn_impl=None,
-               remat: bool = False, moe_part=None):
-    """Next-token cross-entropy over tokens [B, S], differentiable through
-    the attention kernels on CUDA and the plain attention on the CPU. The
-    final position is masked rather than sliced off, as in the JAX package.
-    The MoE load-balance term, weighted by `moe_aux_weight`, is 0.0 for the
-    dense model."""
+def loss_terms(params: dict, tokens, config: LlamaConfig, attn_impl=None,
+               remat: bool = False, moe_part=None, plan=None):
+    """-> (ce, aux): this rank's share of the next-token cross-entropy (its
+    tokens' sum over the whole step's B (S - 1); on one device the mean)
+    and the MoE load-balance loss over the whole step (0.0 for the dense
+    model). The final position of each row is masked rather than sliced
+    off, as in the JAX package."""
+    plan = plan or ONE_DEVICE
     b, s = tokens.shape
     logits, aux = llama_forward(params, tokens, config, attn_impl, remat,
-                                return_aux=True, moe_part=moe_part)
-    targets = torch.roll(tokens, -1, dims=1).long()
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
-    mask = (torch.arange(s, device=nll.device) < s - 1).to(nll.dtype)[None, :]
-    return torch.sum(nll * mask) / (b * (s - 1)) + config.moe_aux_weight * aux
+                                return_aux=True, moe_part=moe_part, plan=plan)
+    nll = plan.nll(logits, plan.targets(tokens))
+    b_all, s_all = plan.global_shape(b, s)
+    positions = plan.positions(s, nll.device)
+    if positions is None:
+        positions = torch.arange(s, device=nll.device)
+    mask = (positions < s_all - 1).to(nll.dtype).view(1, s)
+    return torch.sum(nll * mask) / (b_all * (s_all - 1)), aux
+
+
+def llama_loss(params: dict, tokens, config: LlamaConfig, attn_impl=None,
+               remat: bool = False, moe_part=None, plan=None):
+    """Next-token cross-entropy over tokens [B, S] plus the MoE load-balance
+    term weighted by `moe_aux_weight` (0.0 for the dense model),
+    differentiable through the attention kernels on CUDA and the plain
+    attention on the CPU. With a sharded `plan`, this rank's share: the
+    step's loss is the sum of the cross-entropy shares over the ranks that
+    split the tokens, plus the weighted aux once (`loss_terms`)."""
+    ce, aux = loss_terms(params, tokens, config, attn_impl, remat, moe_part, plan)
+    return ce + config.moe_aux_weight * aux

@@ -66,7 +66,42 @@ def init_moe_layer(dim: int, ffn_dim: int, num_experts: int, dtype,
             "we_down": init((e, f, d), f)}
 
 
-def _top_k_dispatch(router_logits, num_experts: int, k: int, capacity: int):
+class ExpertHooks:
+    """`moe_ffn`'s view of the rest of the step. On one device: `part` (the
+    JAX package's role hook, a callable or None) or the identity, each row's
+    whole sequence, every token of the step. A sharded plan
+    (parallel/sharding.py) overrides these for one rank's tokens."""
+
+    def __init__(self, part=None):
+        self.part = part
+
+    def __call__(self, t, role: str):
+        """The expert batch between roles: "dispatch" [E, B, C, d] into the
+        experts, "hidden" [E, B, C, f], "expert_out" [E, B, C, d] out of
+        them, "combine" [B, S, d]; on a mesh the shapes between
+        "dispatch" and "expert_out" are this rank's experts' [E', B', C, .]."""
+        return t if self.part is None else self.part(t, role)
+
+    def seq_len(self, s: int) -> int:
+        """The length of each row, whose capacity the experts share."""
+        return s
+
+    def queue_offsets(self, counts):
+        """counts [B, E, k]: this rank's choices of slot j for expert e in
+        row b -> the choices queued before them: every earlier slot's, and
+        on a sequence-parallel mesh the earlier chunks' of the same slot."""
+        return counts.cumsum(-1) - counts
+
+    def token_sum(self, t):
+        """A sum over this rank's tokens -> the sum over the step's."""
+        return t
+
+    def token_count(self, n: int) -> int:
+        return n
+
+
+def _top_k_dispatch(router_logits, num_experts: int, k: int, capacity: int,
+                    hooks: ExpertHooks | None = None):
     """router_logits [B, S, E] fp32 -> (expert [B, S, k] int64, position
     [B, S, k] int64, weight [B, S, k] fp32, aux scalar).
 
@@ -74,7 +109,9 @@ def _top_k_dispatch(router_logits, num_experts: int, k: int, capacity: int):
     position[b, s, j]; weight is its renormalised gate value, 0 where the
     position is past `capacity` (dropped). A choice is dispatched where its
     weight is > 0, as the JAX package's `dispatch = combine > 0`. Its dense
-    combine tensor is combine[b, s, expert, position] = weight."""
+    combine tensor is combine[b, s, expert, position] = weight. `hooks`
+    place this rank's tokens in the step's queues and batch."""
+    hooks = hooks or ExpertHooks()
     b, s, e = router_logits.shape
     probs = torch.softmax(router_logits, dim=-1)                 # [B,S,E] fp32
     # top-k through a stable descending sort: equal probabilities keep the
@@ -88,18 +125,22 @@ def _top_k_dispatch(router_logits, num_experts: int, k: int, capacity: int):
     onehot = F.one_hot(expert, e)                                # [B,S,k,E]
     # queue positions slot-major within each batch row: all first choices
     # of row b, then all its second choices. The scan runs along the last
-    # axis: along an outer axis of E columns CUDA's scan is one serial
-    # thread per column
-    slot_major = onehot.permute(0, 3, 2, 1).reshape(b, e, k * s)
-    pos = slot_major.cumsum(-1) - slot_major                     # [B,E,k*S]
+    # axis (S within each slot, the slots' counts added after): along an
+    # outer axis of E columns CUDA's scan is one serial thread per column
+    per_slot = onehot.permute(0, 3, 2, 1)                        # [B,E,k,S]
+    offsets = hooks.queue_offsets(per_slot.sum(-1))              # [B,E,k]
+    pos = (per_slot.cumsum(-1) - per_slot + offsets[..., None]).reshape(b, e, k * s)
     position = pos.gather(1, expert.transpose(1, 2).reshape(b, 1, k * s))
     position = position.view(b, k, s).transpose(1, 2)            # [B,S,k]
     weight = torch.where(position < capacity, gate, 0.0)
 
-    # Switch load-balance loss: E * sum_e (first-choice token fraction) *
-    # (mean router probability); the fraction carries no gradient
-    frac = onehot[:, :, 0].float().mean(dim=(0, 1))
-    aux = num_experts * torch.sum(frac * probs.mean(dim=(0, 1)))
+    # Switch load-balance loss over the step's tokens: E * sum_e
+    # (first-choice token fraction) * (mean router probability); the
+    # fraction carries no gradient
+    n = hooks.token_count(b * s)
+    frac = hooks.token_sum(onehot[:, :, 0].sum(dim=(0, 1)).float()) / n
+    mean_prob = hooks.token_sum(probs.sum(dim=(0, 1))) / n
+    aux = num_experts * torch.sum(frac * mean_prob)
     return expert, position, weight, aux
 
 
@@ -127,13 +168,34 @@ class _GatherRows(torch.autograd.Function):
             return g.view(inverse.shape + grad.shape[1:]).sum(1), None, None
 
 
+def cotangent_products(g, a, b):
+    """The two backward products of a @ b (a [E, M, K], b [E, K, N] bf16)
+    with the fp32 cotangent g [E, M, N]: (g @ b^T, a^T @ g) in fp32, to be
+    rounded once by the caller, as JAX differentiates an einsum with
+    preferred_element_type=float32. On the CPU, exact products in fp32. On
+    the card, on the tensor cores: g as a bf16 high part and the bf16
+    rounding of the rest (g = hi + lo to about 2^-16 relative), stacked as
+    [hi; lo] along M (the expert batch's slots, the small side); g @ b^T is
+    one product whose two halves are summed in fp32, a^T @ g one product
+    against [a, a] along the shared axis, so the tensor cores sum both
+    parts in fp32 and the large [E, K, N] result is written once."""
+    bt, at = b.transpose(1, 2), a.transpose(1, 2)
+    if not g.is_cuda:
+        return torch.bmm(g, bt.float()), torch.bmm(at.float(), g)
+    hi = g.to(b.dtype)
+    hl = torch.cat([hi, (g - hi.float()).to(b.dtype)], 1)
+    m = g.shape[1]
+    ga = torch.bmm(hl, bt, out_dtype=torch.float32)
+    gb = torch.bmm(torch.cat([at, at], 2), hl, out_dtype=torch.float32)
+    return ga[:, :m] + ga[:, m:], gb
+
+
 class _BmmF32(torch.autograd.Function):
     """Batched a @ b with an fp32 result, the JAX package's einsum with
     preferred_element_type=float32: bf16 inputs are multiplied with fp32
-    accumulation and not rounded after. The gradients are products in the
-    inputs' dtype: the fp32 cotangent is rounded to it first, where JAX on
-    the CPU multiplies the fp32 cotangent and rounds the result (tensor-core
-    products on the card; tests/test_torch_moe.py measures the departure)."""
+    accumulation and not rounded after. The gradients multiply the fp32
+    cotangent (`cotangent_products`) and round each product once to its
+    input's dtype, as JAX does."""
 
     @staticmethod
     def forward(ctx, a, b):
@@ -145,8 +207,10 @@ class _BmmF32(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         a, b = ctx.saved_tensors
-        g = g.to(a.dtype)
-        return torch.bmm(g, b.transpose(1, 2)), torch.bmm(a.transpose(1, 2), g)
+        if a.dtype == torch.float32:
+            return torch.bmm(g, b.transpose(1, 2)), torch.bmm(a.transpose(1, 2), g)
+        ga, gb = cotangent_products(g, a, b)
+        return ga.to(a.dtype), gb.to(b.dtype)
 
 
 @contextmanager
@@ -183,19 +247,22 @@ def moe_ffn(x, layer: dict, num_experts: int, k: int,
     router and we_* leaves. SwiGLU experts on the static [E, B, C, ·] expert
     batch.
 
-    `part(tensor, role)` is the JAX package's sharding-constraint hook
-    ("dispatch" [E, B, C, ·], "hidden" [E, B, C, f], "combine" [B, S, d]);
-    on one device it is the identity, and None means the identity."""
-    if part is None:
-        part = lambda t, role: t  # noqa: E731
+    `part` is the JAX package's sharding hook: a callable `part(tensor,
+    role)` (roles as `ExpertHooks.__call__`), an `ExpertHooks` (a sharded
+    plan's, which also places this rank's tokens in the step's queues), or
+    None, the identity on one device. JAX's hook constrains a layout and is
+    given the expert output as "dispatch" again; the port's moves data, so
+    the way out is its own role, "expert_out"."""
+    hooks = part if isinstance(part, ExpertHooks) else ExpertHooks(part)
     b, s, d = x.shape
-    e, f = num_experts, layer["we_gate"].shape[-1]
-    cap = expert_capacity(s, e, k, capacity_factor)
+    e = num_experts
+    cap = expert_capacity(hooks.seq_len(s), e, k, capacity_factor)
 
     with record_function(ROUTE_SPAN):
         with _no_tf32():
             router_logits = x.float() @ layer["router"]
-        expert, position, weight, aux = _top_k_dispatch(router_logits, e, k, cap)
+        expert, position, weight, aux = _top_k_dispatch(router_logits, e, k, cap,
+                                                        hooks)
         slot_of_choice, choice_of_slot = _slot_maps(expert, position, weight > 0,
                                                     e, cap)
         # dispatch: each slot reads its token; a token's gradient sums its k
@@ -203,17 +270,19 @@ def moe_ffn(x, layer: dict, num_experts: int, k: int,
         token_of_slot = torch.div(choice_of_slot, k, rounding_mode="floor")
         expert_in = _GatherRows.apply(x.reshape(b * s, d), token_of_slot,
                                       slot_of_choice.view(b * s, k))
-    expert_in = part(expert_in.view(e, b, cap, d), "dispatch")
-    xe = expert_in.view(e, b * cap, d)
+    expert_in = hooks(expert_in.view(e, b, cap, d), "dispatch")
+    e_here, b_here = expert_in.shape[:2]  # this rank's experts and rows
+    xe = expert_in.reshape(e_here, b_here * cap, d)
     gate = _BmmF32.apply(xe, layer["we_gate"])
     up = _BmmF32.apply(xe, layer["we_up"])
-    h = part((F.silu(gate) * up).to(x.dtype).view(e, b, cap, f), "hidden")
-    expert_out = torch.bmm(h.view(e, b * cap, f), layer["we_down"])
-    expert_out = part(expert_out.view(e, b, cap, d), "dispatch")
+    f = gate.shape[-1]
+    h = hooks((F.silu(gate) * up).to(x.dtype).view(e_here, b_here, cap, f), "hidden")
+    expert_out = torch.bmm(h.reshape(e_here, b_here * cap, f), layer["we_down"])
+    expert_out = hooks(expert_out.view(e_here, b_here, cap, d), "expert_out")
 
     # combine: each choice reads its slot; fp32 weighted sum over choices
     with record_function(ROUTE_SPAN):
         picked = _GatherRows.apply(expert_out.view(e * b * cap, d), slot_of_choice,
                                    choice_of_slot[:, None])
         y = (weight.reshape(b * s, k, 1) * picked.float().view(b * s, k, d)).sum(1)
-    return part(y.to(x.dtype).view(b, s, d), "combine"), aux
+    return hooks(y.to(x.dtype).view(b, s, d), "combine"), aux
