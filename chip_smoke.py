@@ -64,6 +64,21 @@ The sharded training step (parallel/), after train:
   64-row tile), a bit-repeatable backward, 10/10/10 launches on the wgmma
   route (6 future chunks skipped), the ring's forward and forward+backward
   times beside one 8192-token causal flash_fwd and its bound.
+- ulysses: Ulysses over sp=4 through the one-process exchange on the
+  ring's shapes (GQA 32/8 on the grouped-KV branch): each rank's 8 query
+  heads over the whole 8192 tokens, 4/4/4 launches on the wgmma route, the
+  same comparisons, its times beside the ring's of the same call.
+
+The pipelined step (parallel/pipeline.py), 4 stages in one process (no
+bubble and no point-to-point transfer is measured there), 4 microbatches:
+
+- pipeline_gradient: 7B width, 4 layers, B=4, S=2048, remat: the loss and
+  every leaf's gradient against the one-device llama_loss's; planted wrong
+  pipelines (stage blocks reversed, microbatches retired to wrong slots)
+  must each break the gradient bound and one of them the loss bound too.
+- pipeline_train: all 32 layers, B=4: the first loss against the
+  one-device loss, a falling loss, 256/128/128 wgmma launches a step, step
+  time, tokens/s, MFU and peak memory beside the peak reckoned before it.
 
 Then a line listing every kernel of the path, and last the device line.
 Full results also go to chiprun_out/chip_smoke.json.
@@ -169,6 +184,16 @@ SHARDED_PEAK_SLACK_GB = 2.0
 # probabilities to bf16 before P.V.
 RING_SEQ, RING_SP = 8192, 4
 RING_SHAPES = {"mha": (1, 32, 32, 128), "gqa": (1, 32, 8, 128)}  # b, h, kvh, d
+# pipeline phases: 4 stages in one process, 4 microbatches of one row each.
+# The loss against the one-device loss within 5e-3 absolute (the JAX
+# package's test_loss_matches_plain_model bound); every gradient within
+# GRAD_REL_L2 (phase 6's). With random weights the loss barely sees how the
+# stages are wired (a wrong pairing of rows and targets moves it by the
+# noise of 8188 random predictions, ~1e-2), the gradients do (order 1):
+# each planted fault must break the gradient bound, and one the loss bound.
+PIPE_PP, PIPE_MICROBATCHES, PIPE_BATCH, PIPE_SEQ = 4, 4, 4, 2048
+PIPE_LOSS_ABS = 5e-3
+PIPE_FAULTS = ("stage_order", "retire_shift", "retire_reversed")
 
 RESULTS: dict = {}
 
@@ -957,12 +982,17 @@ def plain_by_heads(attn, q, k, v, do, heads: int = 8):
     return [torch.cat(parts, 1) for parts in zip(*outs)]
 
 
-def phase_ring(attn, ring, variants):
-    """Ring attention over sp=4 through the one-process rotation at S=8192:
-    the kernels inside the ring against the plain attention, launches and
-    times."""
+def sp_attention_rows(attn, variants, phase, attend, per_rank, seed, extra):
+    """The body of the `ring` and `ulysses` phases: for each of RING_SHAPES
+    at S=8192, `attend(q, k, v)` (a sequence-parallel scheme over sp=4 in
+    one process) and its gradient through the kernels against the plain
+    attention over the whole sequence (rel. L2 and worst 64-row tile),
+    `per_rank` launches of each kernel on the wgmma route, a bit-repeatable
+    backward, the scheme's forward and forward+backward times beside one
+    causal flash_fwd over the whole sequence and the bounds; `extra(shape)`
+    adds the scheme's own fields. -> (rows, launches of the first shape)."""
     free_memory()
-    gen = torch.Generator(device="cuda").manual_seed(8)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     rows, launches_out = [], None
     for name, (b, h, kvh, d) in RING_SHAPES.items():
         q, k, v, do = rand_inputs(gen, torch.bfloat16, "bhsd", (b, h, RING_SEQ, d),
@@ -971,7 +1001,7 @@ def phase_ring(attn, ring, variants):
         leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
 
         def fwd_bwd():
-            out = ring.ring_attention_emulated(*leaves, sp=RING_SP)
+            out = attend(*leaves)
             grads = torch.autograd.grad(out, leaves, do)
             return out.detach(), grads
 
@@ -979,10 +1009,9 @@ def phase_ring(attn, ring, variants):
         out, grads = fwd_bwd()
         torch.cuda.synchronize()
         launches, routes = read_launches(attn), read_routes(attn)
-        chunks = RING_SP * (RING_SP + 1) // 2
-        want = {n: {"wgmma": chunks} for n in launches}
+        want = {n: {"wgmma": per_rank} for n in launches}
         if routes != want:
-            raise SystemExit(f"ring {name}: launched {routes}, expected {want}")
+            raise SystemExit(f"{phase} {name}: launched {routes}, expected {want}")
         _, grads2 = fwd_bwd()
         repeatable = all(torch.equal(a, b_) for a, b_ in zip(grads, grads2))
         del grads2
@@ -992,15 +1021,14 @@ def phase_ring(attn, ring, variants):
             errs[nm] = dict(rel_l2=rel_l2(got, ref), tile_rel_l2=variants.tile_rel_l2(got, ref),
                             max_abs=float((got.float() - ref.float()).abs().max()),
                             finite=bool(torch.isfinite(got).all()))
-        # one causal flash_fwd over the whole sequence, beside the ring
+        # one causal flash_fwd over the whole sequence, beside the scheme
         o1, _ = attn.flash_fwd(q, k, v, True, None)
         one_err = dict(rel_l2=rel_l2(o1, plain[0]),
                        tile_rel_l2=variants.tile_rel_l2(o1, plain[0]))
         del plain, o1, out, grads
         with torch.no_grad():
-            ring_fwd_ms = cuda_time_ms(
-                lambda: ring.ring_attention_emulated(q, k, v, sp=RING_SP), 5)
-        ring_fwd_bwd_ms = cuda_time_ms(fwd_bwd, 5)
+            fwd_ms = cuda_time_ms(lambda: attend(q, k, v), 5)
+        fwd_bwd_ms = cuda_time_ms(fwd_bwd, 5)
         one_fwd_ms = cuda_time_ms(lambda: attn.flash_fwd(q, k, v, True, None), 10)
         bound_ms, bound_by = attention_bound(b, h, kvh, RING_SEQ, RING_SEQ, d, True,
                                              None, torch.bfloat16)
@@ -1011,26 +1039,227 @@ def phase_ring(attn, ring, variants):
                                  for e in errs.values())
               and one_err["tile_rel_l2"] <= variants.BWD_TILE_REL_L2)
         row = dict(shape=name, b=b, h=h, kvh=kvh, seq=RING_SEQ, d=d, sp=RING_SP,
-                   chunk=RING_SEQ // RING_SP, chunks_computed=chunks,
-                   chunks_skipped=RING_SP * RING_SP - chunks, launches=launches,
+                   **extra(name), launches=launches,
                    launches_by_route=routes, errors_vs_plain=errs,
                    bound=variants.BWD_TILE_REL_L2, bit_repeatable=repeatable,
                    one_flash_fwd_8192_vs_plain=one_err, ok=ok,
-                   ring_fwd_ms=ring_fwd_ms, ring_fwd_bwd_ms=ring_fwd_bwd_ms,
+                   **{f"{phase}_fwd_ms": fwd_ms, f"{phase}_fwd_bwd_ms": fwd_bwd_ms},
                    one_flash_fwd_8192_ms=one_fwd_ms, one_flash_fwd_8192_bound_ms=bound_ms,
                    one_flash_fwd_8192_bound_by=bound_by,
                    backward_bound_ms=bwd_bounds["dq"][0] + bwd_bounds["dkv"][0])
-        print(json.dumps({"phase": "ring", **row}), flush=True)
+        print(json.dumps({"phase": phase, **row}), flush=True)
         rows.append(row)
         if launches_out is None:
             launches_out = launches
         if not ok:
-            raise SystemExit(f"ring {name}: disagrees with the plain attention or is "
+            raise SystemExit(f"{phase} {name}: disagrees with the plain attention or is "
                              f"not repeatable: {errs}, {one_err}")
         del q, k, v, do, leaves
         free_memory()
-    RESULTS["ring"] = rows
-    return launches_out
+    RESULTS[phase] = rows
+    return rows, launches_out
+
+
+def phase_ring(attn, ring, variants):
+    """Ring attention over sp=4 through the one-process rotation at S=8192:
+    the kernels inside the ring against the plain attention, launches and
+    times."""
+    chunks = RING_SP * (RING_SP + 1) // 2
+    _, launches = sp_attention_rows(
+        attn, variants, "ring", lambda q, k, v: ring.ring_attention_emulated(q, k, v,
+                                                                             sp=RING_SP),
+        chunks, 8, lambda name: dict(chunk=RING_SEQ // RING_SP, chunks_computed=chunks,
+                                     chunks_skipped=RING_SP * RING_SP - chunks))
+    return launches
+
+
+def phase_ulysses(attn, ulysses, variants):
+    """Ulysses over sp=4 through the one-process exchange at S=8192, on the
+    ring's shapes: each rank attends H/4 query heads over the whole
+    sequence (GQA 32/8: its 2 kv heads, the grouped-KV exchange), one
+    launch of each kernel a rank; beside the ring's times of this call."""
+    ring_rows = {r["shape"]: r for r in RESULTS["ring"]}
+
+    def extra(name):
+        b, h, kvh, d = RING_SHAPES[name]
+        return dict(heads_per_rank=h // RING_SP, kv_heads_per_rank=kvh // RING_SP,
+                    ring_fwd_ms=ring_rows[name]["ring_fwd_ms"],
+                    ring_fwd_bwd_ms=ring_rows[name]["ring_fwd_bwd_ms"])
+
+    _, launches = sp_attention_rows(
+        attn, variants, "ulysses",
+        lambda q, k, v: ulysses.ulysses_attention_emulated(q, k, v, sp=RING_SP),
+        RING_SP, 11, extra)
+    return launches
+
+
+@contextlib.contextmanager
+def planted_pipeline_fault(pipeline, name: str):
+    """A wrong pipeline for the pipeline phases' bounds to reject:
+    "stage_order" runs the stage blocks in the reverse order (stage s runs
+    block P - 1 - s); "retire_shift" and "retire_reversed" retire the
+    microbatches to the wrong slots (slot m + 1, slot M - 1 - m)."""
+    blocks, run = pipeline._stage_blocks, pipeline._pipeline
+
+    def reversed_blocks(layers, pp):
+        return dict(zip(range(pp), reversed(list(blocks(layers, pp).values()))))
+
+    def misretired(sched, x_mb):
+        y_mb, aux = run(sched, x_mb)
+        return (y_mb.roll(1, 0) if name == "retire_shift" else y_mb.flip(0)), aux
+
+    if name == "stage_order":
+        pipeline._stage_blocks = reversed_blocks
+    else:
+        pipeline._pipeline = misretired
+    try:
+        yield
+    finally:
+        pipeline._stage_blocks, pipeline._pipeline = blocks, run
+
+
+def pipeline_launches(layers: int, microbatches: int) -> dict:
+    """Kernel launches of one remat step: each layer's forward on every
+    microbatch, again in the backward, and one of each backward kernel."""
+    n = layers * microbatches
+    return {"flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+
+
+def phase_pipeline_gradient(attn, llama, train, pipeline):
+    """7B width, 4 layers, pp=4 stages in one process, M=4, B=4, S=2048,
+    remat: the pipelined loss and every leaf's gradient against the
+    one-device llama_loss's at the same weights and tokens; each planted
+    fault must break the gradient bound, and one of them the loss bound too."""
+    free_memory()
+    cfg = dataclasses.replace(llama.LlamaConfig.llama2_7b(), n_layers=4)
+    params = llama.init_llama(cfg, seed=0, device="cuda")
+    leaves = train.param_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    tokens = torch.randint(0, cfg.vocab_size, (PIPE_BATCH, PIPE_SEQ), generator=gen,
+                           device="cuda")
+
+    def loss_and_grads(fn):
+        loss = fn()
+        loss.backward()
+        torch.cuda.synchronize()
+        grads = [t.grad for t in leaves]
+        for t in leaves:
+            t.grad = None
+        return float(loss.detach()), grads
+
+    def pipelined():
+        return pipeline.pipelined_llama_loss(params, tokens, cfg, pp=PIPE_PP,
+                                             num_microbatches=PIPE_MICROBATCHES, remat=True)
+
+    loss_one, grads_one = loss_and_grads(
+        lambda: llama.llama_loss(params, tokens, cfg, remat=True))
+    reset_launches(attn)
+    loss_pp, grads_pp = loss_and_grads(pipelined)
+    launches, routes = read_launches(attn), read_routes(attn)
+    want = pipeline_launches(cfg.n_layers, PIPE_MICROBATCHES)
+    if routes != {n: {"wgmma": c} for n, c in want.items()}:
+        raise SystemExit(f"pipeline_gradient launched {routes}, expected {want} on wgmma")
+    names = (["embed"] + [f"layers.{i}.{n}" for i, layer in enumerate(params["layers"])
+                          for n in layer] + ["final_norm", "lm_head"])
+
+    def readings(loss, grads):
+        errs = [rel_l2(a, b) for a, b in zip(grads, grads_one)]
+        worst = max(range(len(errs)), key=errs.__getitem__)
+        return dict(loss=loss, loss_abs_err=abs(loss - loss_one),
+                    grad_rel_l2_max=errs[worst], grad_rel_l2_worst_leaf=names[worst],
+                    finite=all(bool(torch.isfinite(g).all()) for g in grads),
+                    rejected_by=[n for n, broken in (
+                        ("loss", abs(loss - loss_one) > PIPE_LOSS_ABS),
+                        ("gradient", errs[worst] > GRAD_REL_L2)) if broken]), errs
+
+    sound, errs = readings(loss_pp, grads_pp)
+    del grads_pp
+    planted = {}
+    for name in PIPE_FAULTS:
+        with planted_pipeline_fault(pipeline, name):
+            planted[name] = readings(*loss_and_grads(pipelined))[0]
+    emit("pipeline_gradient", config="llama2_7b width, 4 layers", pp=PIPE_PP,
+         microbatches=PIPE_MICROBATCHES, batch=PIPE_BATCH, seq=PIPE_SEQ, dtype=cfg.dtype,
+         remat=True, one_process=True, launches=launches, launches_by_route=routes,
+         loss_one_device=loss_one, **sound, loss_bound=PIPE_LOSS_ABS,
+         grad_bound=GRAD_REL_L2, grad_rel_l2={n: e for n, e in zip(names, errs)},
+         planted=planted)
+    if sound["rejected_by"] or not sound["finite"]:
+        raise SystemExit(f"pipeline_gradient: the pipelined loss or gradient disagrees "
+                         f"with the one-device step: {sound}")
+    if any("gradient" not in r["rejected_by"] for r in planted.values()) or not any(
+            len(r["rejected_by"]) == 2 for r in planted.values()):
+        raise SystemExit(f"pipeline_gradient: a planted fault passes the gradient bound, "
+                         f"or none breaks both bounds: {planted}")
+    del params, leaves, grads_one
+
+
+def phase_pipeline_train(attn, llama, train, pipeline):
+    """All 32 layers at 7B width, pp=4 stages in one process, M=4, B=4,
+    S=2048, remat, AdamW: the first loss against the one-device loss at the
+    same weights and tokens, a falling loss, launches, step time, tokens/s,
+    MFU and peak memory beside its reckoning."""
+    free_memory()
+    cfg = llama.LlamaConfig.llama2_7b()
+    b, s = PIPE_BATCH, PIPE_SEQ
+    torch.cuda.reset_peak_memory_stats()
+    init_fn, step_fn, batch_fn = pipeline.build_pipelined_llama_train_step(
+        cfg, pp=PIPE_PP, num_microbatches=PIPE_MICROBATCHES, device="cuda")
+    params, opt_state = init_fn(0)
+    n_params = sum(t.numel() for t in train.param_leaves(params))
+    # the peak, reckoned before the first step: parameters, gradients and
+    # AdamW's two moments in bf16 (8 bytes a parameter); each layer's input
+    # on every microbatch (remat's checkpoints); the logits of the whole
+    # batch in fp32, their log-softmax and their gradient
+    reckoned = dict(state_gb=8 * n_params / 1e9,
+                    checkpoints_gb=cfg.n_layers * b * s * cfg.dim * 2 / 1e9,
+                    logits_gb=3 * b * s * cfg.vocab_size * 4 / 1e9)
+    reckoned["total_gb"] = sum(reckoned.values())
+    print(json.dumps({"phase": "pipeline_train", "reckoned_peak": reckoned}), flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    tokens = batch_fn(torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                                    device="cuda"))
+    with torch.no_grad():
+        loss_one = float(llama.llama_loss(params, tokens, cfg))
+    want = pipeline_launches(cfg.n_layers, PIPE_MICROBATCHES)
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        reset_launches(attn)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, loss = step_fn(params, opt_state, tokens)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        launches, routes = read_launches(attn), read_routes(attn)
+        if routes != {n: {"wgmma": c} for n, c in want.items()}:
+            raise SystemExit(f"pipeline_train: a step launched {routes}, expected {want} "
+                             f"on the wgmma route")
+        losses.append(loss)
+    losses = [float(x) for x in losses]
+    step_ms = statistics.median(times[1:])
+    tokens_per_s = b * s / (step_ms / 1e3)
+    flops_per_token = 6 * n_params + 6 * cfg.n_layers * cfg.dim * s
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    emit("pipeline_train", config="llama2_7b", layers=cfg.n_layers, pp=PIPE_PP,
+         microbatches=PIPE_MICROBATCHES, batch=b, seq=s, dtype=cfg.dtype, remat=True,
+         optimizer="AdamW lr 3e-4 wd 1e-4 (fused)", params=n_params,
+         one_process=("every stage in one process: no bubble and no point-to-point "
+                      "transfer is measured"),
+         launches_per_step=launches, launches_by_route=routes, losses=losses,
+         loss_one_device=loss_one, first_loss_abs_err=abs(losses[0] - loss_one),
+         loss_bound=PIPE_LOSS_ABS, step_ms=times, step_ms_median=step_ms,
+         tokens_per_s=tokens_per_s, model_tflops_per_s=flops_per_token * tokens_per_s / 1e12,
+         mfu=flops_per_token * tokens_per_s / H100_BF16_FLOPS, peak_mem_gb=peak_gb,
+         reckoned_peak_gb=reckoned["total_gb"])
+    if abs(losses[0] - loss_one) > PIPE_LOSS_ABS:
+        raise SystemExit(f"pipeline_train: first loss {losses[0]} against the one-device "
+                         f"{loss_one}")
+    if not all(math.isfinite(x) and x < losses[0] for x in losses[1:]):
+        raise SystemExit(f"pipeline_train: training loss not finite and falling: {losses}")
+    del params, opt_state
+    return launches
 
 
 def main() -> int:
@@ -1039,7 +1268,8 @@ def main() -> int:
         return 1
     from yoda_scheduler_tpu_torch.models import llama, moe
     from yoda_scheduler_tpu_torch.ops import _build, attention as attn, variants
-    from yoda_scheduler_tpu_torch.parallel import mesh as mesh_mod, ring, train
+    from yoda_scheduler_tpu_torch.parallel import mesh as mesh_mod, pipeline, ring, train
+    from yoda_scheduler_tpu_torch.parallel import ulysses
     # Mixtral-8x7B's widths from its config.json, in the port's config fields
     from yoda_scheduler_tpu_torch.profile_path import mixtral_8x7b
 
@@ -1071,6 +1301,9 @@ def main() -> int:
     moe_step_launches = phase_train(attn, train, moe, mixtral_8x7b(MOE_TRAIN_LAYERS),
                                     phase="moe_train")
     ring_launches = phase_ring(attn, ring, variants)
+    ulysses_launches = phase_ulysses(attn, ulysses, variants)
+    phase_pipeline_gradient(attn, llama, train, pipeline)
+    pipe_launches = phase_pipeline_train(attn, llama, train, pipeline)
 
     main_row, bwd_main = rows[0], bwd_rows[0]
     src = "yoda_scheduler_tpu_torch/ops/csrc/"
@@ -1086,7 +1319,9 @@ def main() -> int:
                              "sharded_train_step": sharded_launches["flash_fwd"],
                              "moe_forward": moe_fwd_launches,
                              "moe_train_step": moe_step_launches["flash_fwd"],
-                             "ring_fwd_bwd": ring_launches["flash_fwd"]},
+                             "ring_fwd_bwd": ring_launches["flash_fwd"],
+                             "ulysses_fwd_bwd": ulysses_launches["flash_fwd"],
+                             "pipeline_train_step": pipe_launches["flash_fwd"]},
         "max_abs_err": max_err,
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -1100,7 +1335,9 @@ def main() -> int:
         "launches_by_path": {"train_step": step_launches[name],
                              "sharded_train_step": sharded_launches[name],
                              "moe_train_step": moe_step_launches[name],
-                             "ring_fwd_bwd": ring_launches[name]},
+                             "ring_fwd_bwd": ring_launches[name],
+                             "ulysses_fwd_bwd": ulysses_launches[name],
+                             "pipeline_train_step": pipe_launches[name]},
         "max_abs_err": bwd_err[key], "ms": bwd_main[f"{key}_ms"],
         "plain_ms": bwd_main["plain_ms"], "bound_ms": bwd_main[f"{key}_bound_ms"],
         "bound_by": bwd_main[f"{key}_bound_by"],

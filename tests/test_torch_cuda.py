@@ -520,3 +520,66 @@ def test_world1_nccl_sharded_step_is_the_one_device_step(gpu, tiny_f32):
         dist.destroy_process_group()
     for a, b in zip(param_leaves(sharded), param_leaves(one)):
         assert torch.equal(a, b)
+
+
+# ------------------------------------------------- Ulysses and the pipeline
+@pytest.mark.parametrize("kvh", [8, 4, 2])
+def test_ulysses_on_cuda_matches_the_plain_attention(gpu, kvh):
+    """Ulysses over sp=4 through the one-process exchange, bf16, S=512,
+    8 query heads: MHA, GQA 8/4 (the kv heads split over sp) and GQA 8/2
+    (repeated to full heads first). One launch of each kernel a rank, on
+    the wgmma route, over the whole sequence; output and gradients against
+    the plain attention by the worst 64-row tile (phase 3's bound)."""
+    from yoda_scheduler_tpu_torch.parallel import ulysses
+
+    q, k, v = _qkv(gpu, torch.bfloat16, 1, 8, kvh, 512, 512, 128, seed=8)
+    do = _qkv(gpu, torch.bfloat16, 1, 8, kvh, 512, 512, 128, seed=9)[0]
+    leaves = [t.requires_grad_(True) for t in (q, k, v)]
+    for fn in (attn.flash_fwd, attn.flash_bwd_dq, attn.flash_bwd_dkv):
+        attn._reset_counts(fn)
+    out = ulysses.ulysses_attention_emulated(*leaves, sp=4)
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    for fn in (attn.flash_fwd, attn.flash_bwd_dq, attn.flash_bwd_dkv):
+        assert fn.launches_by_route == {"simt": 0, "mma": 0, "wgmma": 4}, fn.__name__
+    o, lse = attn.reference_attention_with_lse(q.detach(), k.detach(), v.detach())
+    want = (o, *attn.flash_backward_reference(q.detach(), k.detach(), v.detach(), o,
+                                              lse, do))
+    for name, got, ref in zip(("out", "dq", "dk", "dv"), (out, *grads), want):
+        assert tile_rel_l2(got.detach(), ref) <= BWD_TILE_REL_L2, name
+
+
+def test_pipelined_loss_on_cuda_matches_the_one_device_loss(gpu):
+    """Two layers at head_dim 128 (the wgmma route), bf16, pp=2 stages in
+    one process, 4 microbatches of one row, remat: the loss within 5e-3 of
+    the one-device llama_loss (the JAX package's pipeline bound) and every
+    gradient within chip_smoke's GRAD_REL_L2; 2 layers x 4 microbatches
+    forward twice, and once each backward kernel."""
+    from yoda_scheduler_tpu_torch.parallel import pipeline
+
+    cfg = dataclasses.replace(LlamaConfig.tiny(), dim=512, n_heads=4, n_kv_heads=2,
+                              ffn_dim=1024)
+    params = init_llama(cfg, seed=0, device=gpu)
+    leaves = param_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    tokens = torch.from_numpy(np.random.default_rng(11).integers(0, 256, (4, 256))).to(gpu)
+    results = []
+    for fn in (lambda: llama_loss(params, tokens, cfg, remat=True),
+               lambda: pipeline.pipelined_llama_loss(params, tokens, cfg, pp=2,
+                                                     num_microbatches=4, remat=True)):
+        for f in (attn.flash_fwd, attn.flash_bwd_dq, attn.flash_bwd_dkv):
+            attn._reset_counts(f)
+        loss = fn()
+        loss.backward()
+        torch.cuda.synchronize()
+        results.append((float(loss.detach()), [t.grad for t in leaves]))
+        for t in leaves:
+            t.grad = None
+    assert attn.flash_fwd.launches_by_route["wgmma"] == 16
+    assert attn.flash_bwd_dq.launches_by_route["wgmma"] == 8
+    assert attn.flash_bwd_dkv.launches_by_route["wgmma"] == 8
+    (loss_one, grads_one), (loss_pp, grads_pp) = results
+    assert abs(loss_pp - loss_one) < 5e-3, (loss_pp, loss_one)
+    for a, b in zip(grads_pp, grads_one):
+        assert chip_smoke.rel_l2(a, b) <= chip_smoke.GRAD_REL_L2

@@ -13,7 +13,8 @@ import yoda_scheduler_tpu_torch as port
 from yoda_scheduler_tpu_torch.entry import entry
 from yoda_scheduler_tpu_torch.models import (KVCache, LlamaConfig, init_llama,
                                              params_from_jax)
-from yoda_scheduler_tpu_torch.parallel import (build_llama_train_step, make_mesh,
+from yoda_scheduler_tpu_torch.parallel import (build_llama_train_step,
+                                               build_pipelined_llama_train_step, make_mesh,
                                                quick_mesh_and_step)
 
 # tiny shapes: one intra-op thread, so that the other test workers keep
@@ -52,6 +53,8 @@ def test_package_source_never_mentions(needle):
 
 @pytest.mark.parametrize("call", ["init_llama", "init_llama_moe", "entry", "kv_cache",
                                   "params_from_jax", "build_llama_train_step",
+                                  "build_llama_train_step_ulysses",
+                                  "build_pipelined_llama_train_step",
                                   "make_mesh", "quick_mesh_and_step"])
 def test_entry_points_need_cuda_unless_asked_for_cpu(call):
     if torch.cuda.is_available():
@@ -65,6 +68,10 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(call):
         "params_from_jax": lambda **kw: params_from_jax(
             _numpy_params(cfg), cfg, **kw),
         "build_llama_train_step": lambda **kw: build_llama_train_step(cfg, **kw),
+        "build_llama_train_step_ulysses": lambda **kw: build_llama_train_step(
+            cfg, sp_attention="ulysses", **kw),
+        "build_pipelined_llama_train_step": lambda **kw: build_pipelined_llama_train_step(
+            cfg, pp=2, **kw),
         "make_mesh": lambda **kw: make_mesh({}, **kw),
         "quick_mesh_and_step": lambda **kw: quick_mesh_and_step(1, **kw),
     }

@@ -18,21 +18,32 @@ import pytest
 import torch_ranks
 from yoda_scheduler_tpu.models import llama as jllama
 from yoda_scheduler_tpu.parallel import build_llama_train_step as jax_build
-from yoda_scheduler_tpu.parallel import make_mesh, mesh_shape_for
+from yoda_scheduler_tpu.parallel import (build_pipelined_llama_train_step, make_mesh,
+                                         mesh_shape_for)
 from yoda_scheduler_tpu_torch.parallel.launch import run_ranks
 
 DENSE = dataclasses.replace(jllama.LlamaConfig.tiny(), dtype="float32")
 MOE = dataclasses.replace(jllama.LlamaConfig.tiny_moe(), dtype="float32")
 LR = 3e-4
-# (mesh shape, None for quick_mesh_and_step(8); config)
+PIPELINED = {"num_microbatches": 4}  # the pipelined step, 4 microbatches
+# (mesh shape, None for quick_mesh_and_step(8); config; builder options)
 LEGS = {
-    "quick_8": (None, DENSE),                                   # tp2 sp2 dp2, ring
-    "dp2_fsdp2_tp2": ({"dp": 2, "fsdp": 2, "tp": 2}, DENSE),
-    "moe_ep2_tp2_dp2": (mesh_shape_for(8, ep=2, tp=2, dp=2), MOE),
+    "quick_8": (None, DENSE, {}),                                   # tp2 sp2 dp2, ring
+    "dp2_fsdp2_tp2": ({"dp": 2, "fsdp": 2, "tp": 2}, DENSE, {}),
+    "moe_ep2_tp2_dp2": (mesh_shape_for(8, ep=2, tp=2, dp=2), MOE, {}),
+    # the dryrun's Ulysses mesh: tiny's 2 kv heads split over sp=2
+    # (the grouped-KV exchange)
+    "ulysses_dp2_fsdp2_sp2": (mesh_shape_for(8, sp=2, tp=1, dp=2), DENSE,
+                              {"sp_attention": "ulysses"}),
+    # the JAX package's test_pipeline.py mesh: which rows each rank puts in
+    # a microbatch decides the MoE aux
+    "moe_pp2_dp2_tp2": ({"pp": 2, "dp": 2, "tp": 2}, MOE, PIPELINED),
 }
 SLOW_LEGS = {
-    "fsdp2_sp2_tp2": ({"dp": 1, "fsdp": 2, "sp": 2, "tp": 2}, DENSE),  # test_sp_ring_step's
-    "moe_fsdp2_ep2_sp2": ({"fsdp": 2, "ep": 2, "sp": 2}, MOE),         # the sp-wide queues
+    "fsdp2_sp2_tp2": ({"dp": 1, "fsdp": 2, "sp": 2, "tp": 2}, DENSE, {}),  # test_sp_ring_step's
+    "moe_fsdp2_ep2_sp2": ({"fsdp": 2, "ep": 2, "sp": 2}, MOE, {}),         # the sp-wide queues
+    "pp2_fsdp2_tp2": (mesh_shape_for(8, pp=2, tp=2), DENSE, PIPELINED),   # the dryrun's
+    "moe_pp2_ep2_tp2": ({"pp": 2, "ep": 2, "tp": 2}, MOE, PIPELINED),
 }
 
 
@@ -47,9 +58,10 @@ def _run(tmp_path, legs):
     tokens = np.random.default_rng(1).integers(0, DENSE.vocab_size, (8, 64))
     np.save(tmp_path / "tokens.npy", tokens)
     want, rank_legs = {}, []
-    for name, (shape, cfg) in legs.items():
+    for name, (shape, cfg, opts) in legs.items():
         mesh = make_mesh(shape or _jax_quick_shape())
-        init_fn, step_fn, batch_sh = jax_build(cfg, mesh)
+        build = build_pipelined_llama_train_step if "num_microbatches" in opts else jax_build
+        init_fn, step_fn, batch_sh = build(cfg, mesh, **opts)
         params, opt = init_fn(jax.random.PRNGKey(0))
         np.savez(tmp_path / f"{name}_params.npz",
                  **torch_ranks.flatten(jax.tree.map(np.asarray, params)))
@@ -59,7 +71,7 @@ def _run(tmp_path, legs):
                 jnp.asarray(tokens, jnp.int32), batch_sh))
             losses.append(float(loss))
         want[name] = (losses, torch_ranks.flatten(jax.tree.map(np.asarray, params)))
-        rank_legs.append((name, shape, dataclasses.asdict(cfg)))
+        rank_legs.append((name, shape, dataclasses.asdict(cfg), opts))
     run_ranks(torch_ranks.sharded_rank, 8, device="cpu",
               args=(str(tmp_path), rank_legs), timeout_s=300)
     return {name: (*want[name], np.load(tmp_path / f"{name}_out.npz")) for name in legs}
@@ -84,8 +96,10 @@ def _check(name, jlosses, jparams, got, shape):
 
 
 def test_sharded_steps_match_jax(tmp_path):
-    """One spawn of 8 ranks, three legs: quick_mesh_and_step(8) (tp2 sp2
-    dp2, ring attention), dp2 fsdp2 tp2 dense, and ep2 tp2 dp2 tiny_moe."""
+    """One spawn of 8 ranks, five legs: quick_mesh_and_step(8) (tp2 sp2
+    dp2, ring attention), dp2 fsdp2 tp2 dense, ep2 tp2 dp2 tiny_moe, dp2
+    fsdp2 sp2 with Ulysses attention, and the pipelined tiny_moe step over
+    pp2 dp2 tp2."""
     results = _run(tmp_path, LEGS)
     assert list(results["quick_8"][2]["mesh"]) == [
         _jax_quick_shape()[a] for a in ("pp", "dp", "fsdp", "ep", "sp", "tp")]
@@ -98,8 +112,9 @@ def test_sharded_steps_match_jax(tmp_path):
 @pytest.mark.slow
 def test_sharded_steps_with_sp_match_jax(tmp_path):
     """The other spawn: fsdp2 sp2 tp2 dense (the JAX package's
-    test_sp_ring_step mesh) and MoE over sp2, whose queue positions scan
-    each row across the sequence's chunks."""
+    test_sp_ring_step mesh), MoE over sp2, whose queue positions scan each
+    row across the sequence's chunks, and the pipelined step over the
+    dryrun's pp2 fsdp2 tp2 (dense) and over pp2 ep2 tp2 (MoE)."""
     for name, (jlosses, jparams, got) in _run(tmp_path, SLOW_LEGS).items():
         _check(name, jlosses, jparams, got, SLOW_LEGS[name][0])
 
@@ -118,14 +133,24 @@ def test_dryrun_multichip_never_falls_back_to_the_cpu():
 
 @pytest.mark.slow
 def test_dryrun_multichip_on_the_cpu(capfd):
-    """dryrun_multichip(8, device="cpu"): the main leg (tp2 sp2 dp2, ring)
-    and the MoE leg (ep2 tp2 fsdp2), one step each, rank 0 printing the
-    JAX package's lines with finite losses."""
+    """dryrun_multichip(8, device="cpu"): the main leg (tp2 sp2 dp2, ring),
+    the pipeline leg (pp2 fsdp2 tp2, 4 microbatches), the MoE leg (ep2 tp2
+    fsdp2) and the Ulysses leg (dp2 fsdp2 sp2), one step each, rank 0
+    printing the JAX package's four lines, in its order, with finite
+    losses."""
     from yoda_scheduler_tpu_torch.entry import dryrun_multichip
     dryrun_multichip(8, device="cpu")
     out = capfd.readouterr().out
-    assert "dryrun_multichip ok: mesh={'pp': 1, 'dp': 2, 'fsdp': 1, 'ep': 1, 'sp': 2, " \
-           "'tp': 2}" in out
-    assert "dryrun moe ok: mesh={'pp': 1, 'dp': 1, 'fsdp': 2, 'ep': 2, 'sp': 1, " \
-           "'tp': 2}" in out
+    lines = [
+        "dryrun_multichip ok: mesh={'pp': 1, 'dp': 2, 'fsdp': 1, 'ep': 1, 'sp': 2, "
+        "'tp': 2}",
+        "dryrun pipeline ok: mesh={'pp': 2, 'dp': 1, 'fsdp': 2, 'ep': 1, 'sp': 1, "
+        "'tp': 2}",
+        "dryrun moe ok: mesh={'pp': 1, 'dp': 1, 'fsdp': 2, 'ep': 2, 'sp': 1, "
+        "'tp': 2}",
+        "dryrun ulysses ok: mesh={'pp': 1, 'dp': 2, 'fsdp': 2, 'ep': 1, 'sp': 2, "
+        "'tp': 1}",
+    ]
+    at = [out.find(line) for line in lines]
+    assert -1 not in at and at == sorted(at), out
     assert "nan" not in out

@@ -138,13 +138,12 @@ def test_step_returns_a_0d_loss_and_updates_in_place():
     assert all(t.grad is None for t in param_leaves(params))
 
 
-# (kwargs, exception, message): each raised as the JAX package raises it,
-# or NotImplementedError where the port has no Ulysses attention yet
+# (kwargs, exception, message): each raised as the JAX package raises it
 BAD_ARGS = {
     "sp_attention_unknown": (dict(sp_attention="bogus"), ValueError, None),
     "both_spellings": (dict(sp_attention="none", use_ring_attention=True),
                        ValueError, None),
-    "ulysses": (dict(sp_attention="ulysses"), NotImplementedError, "item 10"),
+    "ulysses": (dict(sp_attention="ulysses", use_ring_attention=False), ValueError, None),
 }
 
 
@@ -160,10 +159,12 @@ def test_train_step_refusals(bad):
         assert str(terr.value) == str(jerr.value)
 
 
-# what the one-device step refused before the mesh was ported: a one-device
-# mesh and ring attention over sp=1 are the one-device step, to the bit
+# what the one-device step refused before the mesh and Ulysses were ported:
+# a one-device mesh, and ring or Ulysses attention over sp=1 are the
+# one-device step, to the bit
 ONE_DEVICE_SPELLINGS = {"mesh": dict(mesh="one_device"), "ring": dict(sp_attention="ring"),
-                        "use_ring_attention": dict(use_ring_attention=True)}
+                        "use_ring_attention": dict(use_ring_attention=True),
+                        "ulysses": dict(sp_attention="ulysses")}
 
 
 @pytest.mark.parametrize("spelling", list(ONE_DEVICE_SPELLINGS))

@@ -14,11 +14,12 @@ import numpy as np
 import torch
 
 from yoda_scheduler_tpu_torch.models import LlamaConfig, params_from_jax
-from yoda_scheduler_tpu_torch.parallel import (build_llama_train_step, gather_params,
-                                               init_opt_state, make_mesh,
+from yoda_scheduler_tpu_torch.parallel import (build_llama_train_step,
+                                               build_pipelined_llama_train_step,
+                                               gather_params, init_opt_state,
+                                               llama_pipeline_param_specs, make_mesh,
                                                param_leaves, quick_mesh_and_step,
                                                ring_attention, shard_params)
-from yoda_scheduler_tpu_torch.parallel.sharding import ShardPlan
 
 
 def flatten(params: dict) -> dict:
@@ -60,22 +61,30 @@ def ring_rank(rank: int, world: int, path: str) -> None:
 
 def sharded_rank(rank: int, world: int, path: str, legs: list) -> None:
     """Each leg (name, mesh shape or None for `quick_mesh_and_step`, config
-    fields): the JAX weights from <name>_params.npz through
+    fields, builder options): the JAX weights from <name>_params.npz through
     `params_from_jax`, shard_params -> gather_params must give them back;
     then 2 steps on tokens.npy, the sharded step's losses and the
-    parameters gathered after, written by rank 0 as <name>_out.npz."""
+    parameters gathered after, written by rank 0 as <name>_out.npz. Options
+    with "num_microbatches" build the pipelined step (its specs stage the
+    layers over pp); the others go to `build_llama_train_step`
+    (`sp_attention`)."""
     tokens = torch.from_numpy(np.load(Path(path) / "tokens.npy"))
-    for name, shape, fields in legs:
+    for name, shape, fields, opts in legs:
         cfg = LlamaConfig(**fields)
+        specs = None
         if shape is None:
             mesh, _, _, step_fn, batch_fn = quick_mesh_and_step(world, cfg, device="cpu")
+        elif "num_microbatches" in opts:
+            mesh = make_mesh(shape, device="cpu")
+            _, step_fn, batch_fn = build_pipelined_llama_train_step(cfg, mesh, **opts)
+            specs = llama_pipeline_param_specs(cfg)
         else:
             mesh = make_mesh(shape, device="cpu")
-            _, step_fn, batch_fn = build_llama_train_step(cfg, mesh)
+            _, step_fn, batch_fn = build_llama_train_step(cfg, mesh, **opts)
         flat = dict(np.load(Path(path) / f"{name}_params.npz"))
         whole = params_from_jax(unflatten(flat), cfg, device="cpu")
-        params = shard_params(whole, mesh, cfg)
-        back = gather_params(params, mesh, cfg)
+        params = shard_params(whole, mesh, cfg, specs)
+        back = gather_params(params, mesh, cfg, specs)
         round_trip = all(torch.equal(a, b) for a, b in
                          zip(param_leaves(back), param_leaves(whole)))
         opt = init_opt_state(params, 3e-4)
@@ -83,10 +92,9 @@ def sharded_rank(rank: int, world: int, path: str, legs: list) -> None:
         for _ in range(2):
             params, opt, loss = step_fn(params, opt, batch_fn(tokens))
             losses.append(float(loss))
-        out = flatten(stacked(gather_params(params, mesh, cfg)))
-        plan = ShardPlan(cfg, mesh)
+        out = flatten(stacked(gather_params(params, mesh, cfg, specs)))
         if rank == 0:
             np.savez(Path(path) / f"{name}_out.npz", losses=np.array(losses),
                      round_trip=np.array(round_trip), mesh=np.array(
                          [mesh.shape[a] for a in mesh.shape]),
-                     local_tokens=np.array(plan.tokens(tokens).shape), **out)
+                     local_tokens=np.array(batch_fn(tokens).shape), **out)

@@ -26,13 +26,15 @@ def entry(device="cuda"):
 
 
 def _dryrun_rank(rank: int, world: int, device: str) -> None:
-    """One rank of `dryrun_multichip`: the main leg, then the MoE leg."""
-    from .parallel import build_llama_train_step, make_mesh, mesh_shape_for
+    """One rank of `dryrun_multichip`: the main leg, then the pipeline, MoE
+    and Ulysses legs, in the JAX package's order."""
+    from .parallel import (build_llama_train_step, build_pipelined_llama_train_step,
+                           make_mesh, mesh_shape_for)
     from .parallel.train import quick_mesh_and_step
 
     dev = torch.device(device, rank) if device == "cuda" else torch.device(device)
 
-    def step_once(mesh, config, init_fn, step_fn, batch_fn, batch):
+    def step_once(config, init_fn, step_fn, batch_fn, batch):
         params, opt_state = init_fn(0)
         gen = torch.Generator(device=dev).manual_seed(1)
         tokens = torch.randint(0, config.vocab_size, (batch, 128), generator=gen,
@@ -40,35 +42,44 @@ def _dryrun_rank(rank: int, world: int, device: str) -> None:
         _, _, loss = step_fn(params, opt_state, batch_fn(tokens))
         return float(loss)
 
+    def leg(label, shape, config, build, batch, **kwargs):
+        mesh = make_mesh(shape, device=dev)
+        loss = step_once(config, *build(config, mesh, **kwargs), batch)
+        if rank == 0:
+            print(f"{label}: mesh={mesh.shape} loss={loss:.4f}", flush=True)
+
     mesh, config, init_fn, step_fn, batch_fn = quick_mesh_and_step(world, device=dev)
     shape = mesh.shape
-    loss = step_once(mesh, config, init_fn, step_fn, batch_fn,
+    loss = step_once(config, init_fn, step_fn, batch_fn,
                      max(shape["dp"] * shape["fsdp"], 1) * 2)
     if rank == 0:
         print(f"dryrun_multichip ok: mesh={shape} loss={loss:.4f}", flush=True)
     if world % 2 == 0:
         tp = 2 if world % 4 == 0 else 1
+        # the batch splits into 4 microbatches, each over dp x fsdp
+        shape = mesh_shape_for(world, pp=2, tp=tp)
+        leg("dryrun pipeline ok", shape, LlamaConfig.tiny(),
+            build_pipelined_llama_train_step, 4 * shape["dp"] * shape["fsdp"],
+            num_microbatches=4)
         shape = mesh_shape_for(world, ep=2, tp=tp)
-        mesh = make_mesh(shape, device=dev)
-        config = LlamaConfig.tiny_moe()
-        init_fn, step_fn, batch_fn = build_llama_train_step(config, mesh)
-        loss = step_once(mesh, config, init_fn, step_fn, batch_fn,
-                         max(shape["dp"] * shape["fsdp"] * shape["ep"], 1) * 2)
-        if rank == 0:
-            print(f"dryrun moe ok: mesh={mesh.shape} loss={loss:.4f}", flush=True)
+        leg("dryrun moe ok", shape, LlamaConfig.tiny_moe(), build_llama_train_step,
+            max(shape["dp"] * shape["fsdp"] * shape["ep"], 1) * 2)
+    if world % 8 == 0:
+        # tp=1: tiny's 2 kv heads split over sp=2, the grouped-KV exchange
+        shape = mesh_shape_for(world, sp=2, tp=1, dp=2)
+        leg("dryrun ulysses ok", shape, LlamaConfig.tiny(), build_llama_train_step,
+            max(shape["dp"] * shape["fsdp"], 1) * 2, sp_attention="ulysses")
 
 
 def dryrun_multichip(n_devices: int, device: str = "cuda") -> None:
     """The sharded training step of `LlamaConfig.tiny()` over an n-rank mesh
     (`quick_mesh_and_step`: tp always, sp with ring attention when n
     allows, the rest dp x fsdp), one step on tokens [2 dp fsdp, 128]; then,
-    for even n, the MoE leg: `tiny_moe` with ep=2 (and tp=2 when 4 divides
-    n). Rank 0 prints the JAX package's lines. NCCL over n cards, one rank
-    a card (fewer cards raise); gloo with device="cpu".
-
-    The JAX package's dryrun also runs a pipelined leg (pp) and a Ulysses
-    leg: both wait for their modules' ports (ROADMAP.md queue 1 items 10
-    and 11) and are not run here."""
+    for even n, the pipeline leg (pp=2, tp=2 when 4 divides n, 4
+    microbatches of dp x fsdp rows) and the MoE leg (`tiny_moe` with ep=2,
+    tp as the pipeline's), and for n a multiple of 8 the Ulysses leg (sp=2,
+    dp=2, tp=1). Rank 0 prints the JAX package's lines. NCCL over n cards,
+    one rank a card (fewer cards raise); gloo with device="cpu"."""
     from .parallel.launch import run_ranks
 
     run_ranks(_dryrun_rank, n_devices, device=device, args=(device,))

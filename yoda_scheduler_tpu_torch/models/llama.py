@@ -263,6 +263,33 @@ def _plan_layer(x, layer, config, attn_impl, moe_part, plan):
 
 
 # ------------------------------------------------------------------ forward
+def run_layers(layers: list, x, config: LlamaConfig, attn_impl, remat: bool = False,
+               moe_part=None, plan=ONE_DEVICE):
+    """x [B, S, d] through `layers` in order -> (x, aux), aux the sum of the
+    layers' MoE load-balance losses (0.0 for the dense model). `remat`
+    recomputes each layer's activations in the backward instead of keeping
+    them."""
+    aux = 0.0
+    for layer in layers:
+        if remat:
+            # the layer draws no random numbers, so no RNG state is kept;
+            # the whole layer is recomputed (no early stop), so that every
+            # rank runs each of its collectives again
+            with set_checkpoint_early_stop(False):
+                x, a = checkpoint(_plan_layer, x, layer, config, attn_impl, moe_part,
+                                  plan, use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, a = _plan_layer(x, layer, config, attn_impl, moe_part, plan)
+        aux = aux + a
+    return x, aux
+
+
+def final_logits(params: dict, x, config: LlamaConfig, plan=ONE_DEVICE):
+    """The last hidden states [B, S, d] -> fp32 logits (final norm, lm head)."""
+    x = rms_norm(x, plan.leaf("final_norm", params["final_norm"]), config.norm_eps)
+    return (plan.tp_in(x) @ plan.leaf("lm_head", params["lm_head"])).float()
+
+
 def llama_forward(params: dict, tokens, config: LlamaConfig, attn_impl=None,
                   remat: bool = False, return_aux: bool = False, moe_part=None,
                   plan=None):
@@ -291,43 +318,37 @@ def llama_forward(params: dict, tokens, config: LlamaConfig, attn_impl=None,
         x = moe_part(moe_part(table, "table")[tokens], "combine")
     else:
         x = table[tokens]
-    aux = 0.0
-    for layer in params["layers"]:
-        if remat:
-            # the layer draws no random numbers, so no RNG state is kept;
-            # the whole layer is recomputed (no early stop), so that every
-            # rank runs each of its collectives again
-            with set_checkpoint_early_stop(False):
-                x, a = checkpoint(_plan_layer, x, layer, config, attn_impl, moe_part,
-                                  plan, use_reentrant=False, preserve_rng_state=False)
-        else:
-            x, a = _plan_layer(x, layer, config, attn_impl, moe_part, plan)
-        aux = aux + a
-    x = rms_norm(x, plan.leaf("final_norm", params["final_norm"]), config.norm_eps)
-    logits = (plan.tp_in(x) @ plan.leaf("lm_head", params["lm_head"])).float()
+    x, aux = run_layers(params["layers"], x, config, attn_impl, remat, moe_part, plan)
+    logits = final_logits(params, x, config, plan)
     if return_aux:
         return logits, aux / config.n_layers
     return logits
 
 
-def loss_terms(params: dict, tokens, config: LlamaConfig, attn_impl=None,
-               remat: bool = False, moe_part=None, plan=None):
-    """-> (ce, aux): this rank's share of the next-token cross-entropy (its
-    tokens' sum over the whole step's B (S - 1); on one device the mean)
-    and the MoE load-balance loss over the whole step (0.0 for the dense
-    model). The final position of each row is masked rather than sliced
-    off, as in the JAX package."""
-    plan = plan or ONE_DEVICE
+def ce_share(logits, tokens, plan=ONE_DEVICE):
+    """This rank's share of the next-token cross-entropy: its tokens' sum
+    over the whole step's B (S - 1) (on one device the mean). The final
+    position of each row is masked rather than sliced off, as in the JAX
+    package."""
     b, s = tokens.shape
-    logits, aux = llama_forward(params, tokens, config, attn_impl, remat,
-                                return_aux=True, moe_part=moe_part, plan=plan)
     nll = plan.nll(logits, plan.targets(tokens))
     b_all, s_all = plan.global_shape(b, s)
     positions = plan.positions(s, nll.device)
     if positions is None:
         positions = torch.arange(s, device=nll.device)
     mask = (positions < s_all - 1).to(nll.dtype).view(1, s)
-    return torch.sum(nll * mask) / (b_all * (s_all - 1)), aux
+    return torch.sum(nll * mask) / (b_all * (s_all - 1))
+
+
+def loss_terms(params: dict, tokens, config: LlamaConfig, attn_impl=None,
+               remat: bool = False, moe_part=None, plan=None):
+    """-> (ce, aux): this rank's share of the next-token cross-entropy
+    (`ce_share`) and the MoE load-balance loss over the whole step (0.0 for
+    the dense model)."""
+    plan = plan or ONE_DEVICE
+    logits, aux = llama_forward(params, tokens, config, attn_impl, remat,
+                                return_aux=True, moe_part=moe_part, plan=plan)
+    return ce_share(logits, tokens, plan), aux
 
 
 def llama_loss(params: dict, tokens, config: LlamaConfig, attn_impl=None,

@@ -6,8 +6,10 @@ Megatron-style column/row split on tp with FSDP-style weight sharding on
 fsdp and the experts on ep. A spec is a tuple with one entry per dimension:
 None, an axis name or a tuple of axis names (split major to minor). The
 port's layers are a list of per-layer dicts, so a layer leaf's spec has no
-leading (stacked-layer) None. Where the JAX package hands its specs to
-GSPMD, `ShardPlan` inserts the collectives itself (parallel/collectives.py).
+leading (stacked-layer) entry: the spec of the list itself is "layer_list"
+(None: every rank holds every layer; "pp" in the pipeline's specs). Where
+the JAX package hands its specs to GSPMD, `ShardPlan` inserts the
+collectives itself (parallel/collectives.py).
 """
 
 from __future__ import annotations
@@ -52,6 +54,7 @@ def llama_param_specs(config=None) -> dict:
         },
         "final_norm": (None,),
         "lm_head": ("fsdp", "tp"),     # [d, vocab]
+        "layer_list": None,            # the list of layers, whole on every rank
     }
 
 
@@ -100,17 +103,43 @@ def _map_params(fn, params: dict, specs: dict) -> dict:
                               for layer in params["layers"]]}
 
 
-def shard_params(params: dict, mesh, config=None) -> dict:
-    """Whole port parameters -> this rank's shards (`llama_param_specs`)."""
-    specs = llama_param_specs(config)
-    return _map_params(lambda t, spec: shard(t.detach(), spec, mesh), params, specs)
+def _layer_list_axis(specs: dict, mesh):
+    """The mesh axis that splits the list of layers (None: not split)."""
+    axes = _axes(specs["layer_list"])
+    return mesh.axis(axes) if axes and mesh.size(axes) > 1 else None
 
 
-def gather_params(local: dict, mesh, config=None) -> dict:
+def shard_params(params: dict, mesh, config=None, specs=None) -> dict:
+    """Whole port parameters -> this rank's shards (`specs`, by default
+    `llama_param_specs`); where "layer_list" names an axis, this rank's
+    contiguous block of the layers, rank i of n holding layers [i L/n,
+    (i + 1) L/n)."""
+    specs = specs or llama_param_specs(config)
+    layers = params["layers"]
+    axis = _layer_list_axis(specs, mesh)
+    if axis is not None:
+        if len(layers) % axis.size:
+            raise ValueError(f"{len(layers)} layers do not split over "
+                             f"{specs['layer_list']} of size {axis.size}")
+        n = len(layers) // axis.size
+        layers = layers[axis.index * n:(axis.index + 1) * n]
+    return _map_params(lambda t, spec: shard(t.detach(), spec, mesh),
+                       {**params, "layers": layers}, specs)
+
+
+def gather_params(local: dict, mesh, config=None, specs=None) -> dict:
     """The inverse of `shard_params`: every rank's shards -> the whole
     parameters, on every rank (for tests and checkpoint-free comparison)."""
-    specs = llama_param_specs(config)
-    return _map_params(lambda t, spec: gather(t.detach(), spec, mesh), local, specs)
+    specs = specs or llama_param_specs(config)
+    whole = _map_params(lambda t, spec: gather(t.detach(), spec, mesh), local, specs)
+    axis = _layer_list_axis(specs, mesh)
+    if axis is not None:
+        layers = whole["layers"]
+        stacked = {n: C.gather_values(torch.stack([layer[n] for layer in layers]), 0, axis)
+                   for n in layers[0]}
+        whole["layers"] = [{n: t[i] for n, t in stacked.items()}
+                           for i in range(len(layers) * axis.size)]
+    return whole
 
 
 def grad_axes(spec: tuple) -> tuple:

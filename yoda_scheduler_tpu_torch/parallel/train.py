@@ -1,5 +1,5 @@
-"""Training step for the Llama workload: dp/fsdp/tp/ep (+ sp with ring
-attention), remat and AdamW with optax's defaults, the loss and its
+"""Training step for the Llama workload: dp/fsdp/tp/ep (+ sp with ring or
+Ulysses attention), remat and AdamW with optax's defaults, the loss and its
 gradient through the flash attention kernels on CUDA. The port of
 yoda_scheduler_tpu/parallel/train.py: on one device without a mesh, or on
 one rank of a mesh (parallel/mesh.py), where each rank runs the same layers
@@ -15,6 +15,7 @@ from ..models.llama import LlamaConfig, init_llama, loss_terms
 from .mesh import make_mesh, mesh_shape_for, one_device_mesh
 from .ring import make_ring_attn
 from .sharding import ShardPlan, shard_params
+from .ulysses import make_ulysses_attn
 
 # optax.adamw(learning_rate)'s defaults; torch's AdamW decays by 1e-2
 ADAM_B1, ADAM_B2, ADAM_EPS, WEIGHT_DECAY = 0.9, 0.999, 1e-8, 1e-4
@@ -67,10 +68,12 @@ def build_llama_train_step(config: LlamaConfig, mesh=None,
       the device (the twin of the JAX package's batch sharding)
 
     Sequence-parallel attention is one knob: `sp_attention` is None (auto:
-    ring iff sp > 1), "ring" or "none" (the sequence gathered over sp);
-    `use_ring_attention` is the deprecated boolean spelling; passing both
-    raises. "ulysses" raises NotImplementedError (ROADMAP.md queue 1 item
-    10). With a mesh the device is the mesh's."""
+    ring iff sp > 1), "ring", "ulysses" (parallel/ulysses.py) or "none" (the
+    sequence gathered over sp); `use_ring_attention` is the deprecated
+    boolean spelling; passing both raises. With a mesh the device is the
+    mesh's. A mesh with pp > 1 does not pipeline here, as in the JAX
+    package: no spec splits over pp, so every pp index runs the same step
+    (parallel/pipeline.py pipelines)."""
     if sp_attention not in (None, "none", "ring", "ulysses"):
         raise ValueError(
             f"sp_attention={sp_attention!r} — expected None, 'none', "
@@ -79,16 +82,8 @@ def build_llama_train_step(config: LlamaConfig, mesh=None,
         raise ValueError(
             "pass either sp_attention or the deprecated use_ring_attention,"
             " not both")
-    if sp_attention == "ulysses":
-        raise NotImplementedError(
-            "Ulysses sequence parallelism is not ported to PyTorch yet: "
-            "ROADMAP.md queue 1 item 10")
     if mesh is None:
         mesh = one_device_mesh(device)
-    if mesh.shape["pp"] > 1:
-        raise NotImplementedError(
-            "the pipelined step (pp > 1) is not ported to PyTorch yet: "
-            "ROADMAP.md queue 1 item 11")
     dev = mesh.device
     sp = mesh.shape["sp"]
     if sp_attention is None:
@@ -96,7 +91,11 @@ def build_llama_train_step(config: LlamaConfig, mesh=None,
             sp_attention = "ring" if sp > 1 else "none"
         else:
             sp_attention = "ring" if use_ring_attention else "none"
-    attn_impl = make_ring_attn(mesh) if sp_attention == "ring" else None
+    attn_impl = None
+    if sp_attention == "ring":
+        attn_impl = make_ring_attn(mesh)
+    elif sp_attention == "ulysses":
+        attn_impl = make_ulysses_attn(mesh)
     plan = ShardPlan(config, mesh)
 
     def init_fn(seed: int = 0):

@@ -5,8 +5,9 @@ widths on one GPU.
 
 Traces with torch.profiler, after a warm-up, at Llama-2-7B width one
 `llama_forward` (B=1, S=2048), one `prefill` (4 requests x 512 tokens), 16
-`decode_step`s of those requests (their prefill outside the trace) and one
-training step (B=1, S=2048, remat, AdamW; all 32 layers); then at
+`decode_step`s of those requests (their prefill outside the trace), one
+training step (B=1, S=2048, remat, AdamW; all 32 layers) and one pipelined
+training step (pp=4 stages in one process, 4 microbatches, B=4); then at
 Mixtral-8x7B width one `llama_forward` (16 layers) and one training step
 (4 layers), both B=1, S=2048. For each window it prints one JSON line: the
 host wall time, the device's busy time (the union of kernel intervals) and
@@ -36,7 +37,7 @@ import torch
 from .models import (KVCache, LlamaConfig, decode_step, init_llama,
                      llama_forward, prefill)
 from .models.moe import ROUTE_SPAN
-from .parallel import build_llama_train_step
+from .parallel import build_llama_train_step, build_pipelined_llama_train_step
 
 
 def mixtral_8x7b(n_layers: int) -> LlamaConfig:
@@ -147,11 +148,13 @@ def inference_windows(cfg) -> list[dict]:
         ]
 
 
-def train_window(cfg, label: str) -> dict:
-    init_fn, step_fn, _ = build_llama_train_step(cfg, device="cuda")
+def train_window(cfg, label: str, build=build_llama_train_step, batch: int = 1,
+                 **kwargs) -> dict:
+    init_fn, step_fn, batch_fn = build(cfg, device="cuda", **kwargs)
     params, opt_state = init_fn(0)
     gen = torch.Generator(device="cuda").manual_seed(1)
-    tokens = torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen, device="cuda")
+    tokens = batch_fn(torch.randint(0, cfg.vocab_size, (batch, 2048), generator=gen,
+                                    device="cuda"))
     return trace(label, lambda _: step_fn(params, opt_state, tokens))
 
 
@@ -181,6 +184,10 @@ def main() -> int:
     reports = inference_windows(cfg)
     _free()
     reports.append(train_window(cfg, "train_step_b1_s2048"))
+    _free()
+    reports.append(train_window(cfg, "pipeline_train_step_pp4_m4_b4_s2048",
+                                build_pipelined_llama_train_step, batch=4, pp=4,
+                                num_microbatches=4))
     _free()
     reports.append(moe_forward_window(mixtral_8x7b(16)))
     _free()
