@@ -80,8 +80,31 @@ bubble and no point-to-point transfer is measured there), 4 microbatches:
   one-device loss, a falling loss, 256/128/128 wgmma launches a step, step
   time, tokens/s, MFU and peak memory beside the peak reckoned before it.
 
-Then a line listing every kernel of the path, and last the device line.
-Full results also go to chiprun_out/chip_smoke.json.
+The workload runtime's last modules, after pipeline_train:
+
+- checkpoint (parallel/checkpoint.py): 7B width cut to 4 layers (1.07 B
+  parameters, ~6.4 GB of bf16 state with AdamW's moments), B=1, S=2048,
+  the one-device step: 4 steps on one batch, saved after steps 1 and 2
+  with max_to_keep=1 into a temporary directory (free space checked
+  first); restored into a fresh init_fn(3) for 2 more steps, whose last
+  loss must equal the uninterrupted run's to the bit; restored again onto
+  the world-1 NCCL mesh's template for one step, equal to the bit too; GB
+  written, save and restore seconds and GB/s.
+- multihost (parallel/multihost.py): initialize_multihost over a TCP
+  rendezvous on 127.0.0.1 (world-1 NCCL), global_batch against batch_fn,
+  one 4-layer 7B-width step through it equal to the one-device step's loss
+  to the bit; then the YODA_* env path with no arguments.
+- resnet (models/resnet.py): ResNet-50, 1000 classes, B=256, 224 x 224 x
+  3, bf16, channels_last: train-mode and eval forwards and the
+  forward+backward of a softmax cross-entropy, images/s, TF/s and MFU
+  (from the conv and Dense shapes), peak memory; the bf16 logits and
+  running statistics against the fp32 model on the same weights and
+  batch, and the running statistics of two BatchNorms against the fp32
+  biased-variance formula (in fp64).
+
+Every flash launch of the checkpoint and multihost steps is on the wgmma
+route. Then a line listing every kernel of the path, and last the device
+line. Full results also go to chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -93,10 +116,14 @@ import gc
 import importlib
 import json
 import math
+import os
 import re
+import shutil
+import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -194,6 +221,24 @@ RING_SHAPES = {"mha": (1, 32, 32, 128), "gqa": (1, 32, 8, 128)}  # b, h, kvh, d
 PIPE_PP, PIPE_MICROBATCHES, PIPE_BATCH, PIPE_SEQ = 4, 4, 4, 2048
 PIPE_LOSS_ABS = 5e-3
 PIPE_FAULTS = ("stage_order", "retire_shift", "retire_reversed")
+
+# checkpoint and multihost: 7B width cut to 4 layers so that the state
+# (1.07 B parameters and AdamW's bf16 moments, ~6.4 GB) writes in seconds;
+# a resumed or rendezvoused step runs the same operations on the same
+# values as the uninterrupted one-device step, so the losses must be equal
+# to the bit (sharded_train already reads equal against train).
+CKPT_LAYERS, CKPT_STEPS, CKPT_SAVES = 4, 4, (1, 2)
+# resnet: B=256 at 224 x 224 (the JAX package's example pod trains at
+# ImageNet size). The bf16 model against the fp32 model on the same weights
+# and batch, both in this port on the card: each conv rounds its output to
+# bf16 and every BatchNorm carries the differences on. A CPU estimate
+# (B=8..64, 64-224 px, these weights), not a card reading: train-mode
+# logits 0.011-0.033, eval 0.0026-0.0035, running statistics 0.004-0.006.
+# Bounds about 3x those. The running statistics after one train forward
+# against the biased-variance formula in fp64: fp32 sums only.
+RESNET_BATCH, RESNET_IMAGE, RESNET_ITERS = 256, 224, 3
+RESNET_REL_L2 = {"train": 0.1, "eval": 0.02, "stats": 0.02}
+RESNET_STATS_FORMULA_REL = 1e-4
 
 RESULTS: dict = {}
 
@@ -1262,14 +1307,333 @@ def phase_pipeline_train(attn, llama, train, pipeline):
     return launches
 
 
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _state_bytes(params, opt_state, train) -> int:
+    leaves = train.param_leaves(params)
+    moments = [t for p in leaves for t in opt_state.state[p].values()
+               if isinstance(t, torch.Tensor) and t.dim()]
+    return sum(t.numel() * t.element_size() for t in leaves + moments)
+
+
+def _dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def _ckpt_step(attn, step_fn, params, opt_state, tokens, phase, want):
+    """One step, the launch counts set to 0 before it; every flash launch
+    must be on the wgmma route. -> (params, opt_state, loss as a float,
+    launches)."""
+    reset_launches(attn)
+    params, opt_state, loss = step_fn(params, opt_state, tokens)
+    torch.cuda.synchronize()
+    routes = read_routes(attn)
+    if routes != {n: {"wgmma": c} for n, c in want.items()}:
+        raise SystemExit(f"{phase}: a step launched {routes}, expected {want} on the "
+                         f"wgmma route")
+    return params, opt_state, float(loss), read_launches(attn)
+
+
+def phase_checkpoint(attn, llama, train, mesh_mod, checkpoint):
+    """Save, resume and restore onto a mesh at 7B width, 4 layers: the
+    resumed losses equal to the uninterrupted run's to the bit."""
+    import torch.distributed as dist
+
+    free_memory()
+    cfg = dataclasses.replace(llama.LlamaConfig.llama2_7b(), n_layers=CKPT_LAYERS)
+    want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
+            "flash_bwd_dkv": cfg.n_layers}
+    init_fn, step_fn, _ = train.build_llama_train_step(cfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen, device="cuda")
+    run = functools.partial(_ckpt_step, attn, step_fn, tokens=tokens, phase="checkpoint",
+                            want=want)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        ckpt = checkpoint.TrainCheckpointer(tmp, max_to_keep=1)
+        params, opt_state = init_fn(0)
+        losses, save_s = [], []
+        for i in range(CKPT_STEPS):
+            if i == CKPT_SAVES[0]:
+                state_gb = _state_bytes(params, opt_state, train) / 1e9
+                free_gb = shutil.disk_usage(tmp).free / 1e9
+                # two checkpoints exist for a moment: the new, then the old goes
+                if free_gb < 2.2 * state_gb:
+                    raise SystemExit(f"checkpoint: {free_gb:.1f} GB free under {tmp}; "
+                                     f"the phase needs {2.2 * state_gb:.1f} GB for two "
+                                     f"{state_gb:.2f} GB checkpoints")
+            if i in CKPT_SAVES:
+                t0 = time.perf_counter()
+                ckpt.save(i, params, opt_state)
+                save_s.append(time.perf_counter() - t0)
+                if i == CKPT_SAVES[-1]:
+                    written = _dir_bytes(Path(tmp) / str(i))
+            params, opt_state, loss, _ = run(params, opt_state)
+            losses.append(loss)
+        kept = ckpt.all_steps()
+        del params, opt_state
+        free_memory()
+        template = init_fn(3)
+        t0 = time.perf_counter()
+        step, params, opt_state = ckpt.restore(template)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        resumed = []
+        for _ in range(CKPT_STEPS - step):
+            params, opt_state, loss, launches = run(params, opt_state)
+            resumed.append(loss)
+        del params, opt_state, template
+        free_memory()
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                                device_id=torch.device("cuda", 0))
+        try:
+            mesh = mesh_mod.make_mesh({a: 1 for a in mesh_mod.AXIS_ORDER}, device="cuda")
+            init_m, step_m, batch_m = train.build_llama_train_step(cfg, mesh)
+            template = init_m(3)
+            t0 = time.perf_counter()
+            _, params, opt_state = checkpoint.TrainCheckpointer(tmp, mesh=mesh).restore(
+                template)
+            torch.cuda.synchronize()
+            mesh_restore_s = time.perf_counter() - t0
+            mesh_loss = _ckpt_step(attn, step_m, params, opt_state, batch_m(tokens),
+                                   "checkpoint", want)[2]
+            del params, opt_state, template
+        finally:
+            dist.destroy_process_group()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gb = written / 1e9
+    emit("checkpoint", config=f"llama2_7b width, {cfg.n_layers} layers", batch=1, seq=2048,
+         dtype=cfg.dtype, state_gb=state_gb, free_disk_gb=free_gb, max_to_keep=1,
+         saved_steps=list(CKPT_SAVES), kept_steps=kept,
+         older_step_removed=kept == [CKPT_SAVES[-1]], gb_written_per_save=gb,
+         save_s=save_s, save_gb_per_s=[gb / t for t in save_s], restore_s=restore_s,
+         restore_gb_per_s=gb / restore_s, mesh_restore_s=mesh_restore_s,
+         restored_step=step, launches_per_step=launches, losses=losses,
+         resumed_losses=resumed, resumed_equal_to_the_bit=resumed[-1] == losses[-1],
+         mesh_restored_loss=mesh_loss,
+         mesh_restored_equal_to_the_bit=mesh_loss == losses[step])
+    if kept != [CKPT_SAVES[-1]] or step != CKPT_SAVES[-1]:
+        raise SystemExit(f"checkpoint: kept steps {kept}, restored step {step}")
+    if not all(math.isfinite(x) for x in losses + resumed + [mesh_loss]):
+        raise SystemExit(f"checkpoint: losses not finite: {losses} {resumed} {mesh_loss}")
+    if resumed != losses[step:]:
+        raise SystemExit(f"checkpoint: the resumed losses {resumed} differ from the "
+                         f"uninterrupted run's {losses[step:]}")
+    if mesh_loss != losses[step]:
+        raise SystemExit(f"checkpoint: the mesh-restored step's loss {mesh_loss} differs "
+                         f"from {losses[step]}")
+    return losses, launches
+
+
+def phase_multihost(attn, llama, train, mesh_mod, multihost, one_device_loss):
+    """initialize_multihost over a TCP rendezvous (world-1 NCCL) and its env
+    path; global_batch against batch_fn; one 4-layer 7B-width step through
+    the group equal to the one-device step's loss."""
+    import torch.distributed as dist
+
+    free_memory()
+    cfg = dataclasses.replace(llama.LlamaConfig.llama2_7b(), n_layers=CKPT_LAYERS)
+    want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
+            "flash_bwd_dkv": cfg.n_layers}
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen, device="cuda")
+    coordinator = f"127.0.0.1:{_free_port()}"
+    t0 = time.perf_counter()
+    joined = multihost.initialize_multihost(coordinator=coordinator, num_processes=1,
+                                            process_id=0)
+    rendezvous_s = time.perf_counter() - t0
+    try:
+        group = dict(world=dist.get_world_size(), rank=dist.get_rank(),
+                     backend=str(dist.get_backend()))
+        second_call = multihost.initialize_multihost(coordinator=coordinator,
+                                                     num_processes=1, process_id=0)
+        mesh = mesh_mod.make_mesh({a: 1 for a in mesh_mod.AXIS_ORDER}, device="cuda")
+        init_fn, step_fn, batch_fn = train.build_llama_train_step(cfg, mesh)
+        piece = multihost.global_batch(tokens, batch_fn)
+        batch_equal = torch.equal(piece, batch_fn(tokens))
+        _, _, loss, launches = _ckpt_step(attn, step_fn, *init_fn(0), piece, "multihost",
+                                          want)
+    finally:
+        dist.destroy_process_group()
+    env = {"YODA_COORDINATOR": f"127.0.0.1:{_free_port()}", "YODA_NUM_PROCESSES": "1",
+           "YODA_PROCESS_ID": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        env_joined = multihost.initialize_multihost()
+        env_group = dict(world=dist.get_world_size(), rank=dist.get_rank(),
+                         backend=str(dist.get_backend()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    emit("multihost", coordinator=coordinator, joined=joined, rendezvous_s=rendezvous_s,
+         group=group, second_call_returns=second_call, global_batch_equals_batch_fn=batch_equal,
+         config=f"llama2_7b width, {cfg.n_layers} layers", launches_per_step=launches,
+         loss=loss, one_device_loss=one_device_loss,
+         loss_equal_to_the_bit=loss == one_device_loss, env_path_joined=env_joined,
+         env_path_group=env_group)
+    expected = dict(world=1, rank=0, backend="nccl")
+    if not (joined and env_joined and group == expected and env_group == expected):
+        raise SystemExit(f"multihost: the rendezvous gave {joined} {group}, the env path "
+                         f"{env_joined} {env_group}")
+    if second_call is not False or not batch_equal:
+        raise SystemExit(f"multihost: second call {second_call}, global_batch equal to "
+                         f"batch_fn {batch_equal}")
+    if loss != one_device_loss:
+        raise SystemExit(f"multihost: loss {loss} against the one-device {one_device_loss}")
+    if dist.is_initialized():
+        raise SystemExit("multihost: a process group outlived the phase")
+    return launches
+
+
+def resnet_macs(resnet, model, image: int) -> int:
+    """Multiply-adds of one image's forward, from each conv's and the Dense
+    layer's shapes (output positions x out channels x in channels x k x k;
+    in x out)."""
+    macs = []
+
+    def count(mod, _inp, out):
+        if isinstance(mod, resnet.Conv):
+            macs.append(out[0].numel() * mod.weight[0].numel())
+        else:
+            macs.append(mod.weight.numel())
+
+    hooks = [m.register_forward_hook(count) for m in model.modules()
+             if isinstance(m, (resnet.Conv, resnet.Dense))]
+    try:
+        with torch.no_grad():
+            model(torch.zeros(1, image, image, 3, device="cuda"), train=False)
+    finally:
+        for h in hooks:
+            h.remove()
+    return sum(macs)
+
+
+def phase_resnet(resnet):
+    """ResNet-50 at B=256, 224 x 224, bf16, channels_last: train-mode and
+    eval forwards and a softmax cross-entropy's forward+backward, timed;
+    checked against the fp32 model and the biased-variance formula."""
+    import torch.nn.functional as F
+
+    free_memory()
+    b, image = RESNET_BATCH, RESNET_IMAGE
+    torch.cuda.reset_peak_memory_stats()
+    model = resnet.ResNet50(1000, torch.bfloat16, device="cuda")
+    init_fn, apply_fn = resnet.resnet_forward_fn(model=model)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    x = torch.randn(b, image, image, 3, generator=gen, device="cuda").to(torch.bfloat16)
+    labels = torch.randint(0, 1000, (b,), generator=gen, device="cuda")
+    variables = init_fn(0, x)
+    # BatchNorm scales and biases drawn from the seed, the last of each
+    # block small (as a trained ResNet's are), so that every conv reaches
+    # the logits (Flax's init starts those scales at zero)
+    for name, t in variables["params"].items():
+        if name.endswith(".scale"):
+            u = torch.rand(t.shape, generator=gen, device="cuda")
+            t.copy_(u * 0.5 if ".bn3." in name else u + 0.5)
+        elif name.endswith(".bias") and not name.startswith("fc"):
+            t.copy_(torch.randn(t.shape, generator=gen, device="cuda") * 0.1)
+    params = variables["params"]
+    for t in params.values():
+        t.requires_grad_(True)
+
+    # one train forward: the stats of two BatchNorms against the formula
+    captured = {}
+    bns = {"bn": model.bn, "blocks.15.bn3": model.blocks[-1].bn3}
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, inp, name=name: captured.__setitem__(name, inp[0].detach()))
+        for name, m in bns.items()]
+    with torch.no_grad():
+        logits, mutated = apply_fn(variables, x, train=True)
+    for h in hooks:
+        h.remove()
+    formula = {}
+    for name, m in bns.items():
+        v = captured.pop(name).double()
+        mean, var = v.mean((0, 2, 3)), v.var((0, 2, 3), unbiased=False)
+        old_m, old_v = (variables["batch_stats"][f"{name}.{k}"].double() for k in ("mean", "var"))
+        for k, want in (("mean", m.momentum * old_m + (1 - m.momentum) * mean),
+                        ("var", m.momentum * old_v + (1 - m.momentum) * var)):
+            formula[f"{name}.{k}"] = rel_l2(mutated["batch_stats"][f"{name}.{k}"].double(),
+                                            want)
+    del captured
+
+    def train_step():
+        out, _ = apply_fn(variables, x, train=True)
+        F.cross_entropy(out, labels).backward()
+        for t in params.values():
+            t.grad = None
+
+    def eval_forward():
+        with torch.no_grad():
+            apply_fn(variables, x, train=False)
+
+    out, _ = apply_fn(variables, x, train=True)
+    F.cross_entropy(out, labels).backward()
+    grads_ok = all(t.grad is not None and t.grad.is_cuda and bool(torch.isfinite(t.grad).all())
+                   for t in params.values())
+    for t in params.values():
+        t.grad = None
+    del out
+    train_ms = cuda_time_ms(train_step, RESNET_ITERS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    eval_ms = cuda_time_ms(eval_forward, RESNET_ITERS)
+    with torch.no_grad():
+        eval_logits = apply_fn(variables, x, train=False)
+        # the fp32 model on the same weights and batch
+        _, apply32 = resnet.resnet_forward_fn(
+            model=resnet.ResNet50(1000, torch.float32, device="cuda"))
+        logits32, mutated32 = apply32(variables, x, train=True)
+        eval32 = apply32(variables, x, train=False)
+    stats_err = max(rel_l2(mutated["batch_stats"][n], mutated32["batch_stats"][n])
+                    for n in mutated32["batch_stats"])
+    errs = {"train": rel_l2(logits, logits32), "eval": rel_l2(eval_logits, eval32),
+            "stats": stats_err}
+    tensors = [logits, eval_logits, *mutated["batch_stats"].values(), *params.values()]
+    finite = all(bool(torch.isfinite(t).all()) for t in tensors)
+    on_card = all(t.is_cuda for t in tensors)
+    macs = resnet_macs(resnet, model, image)
+    train_flops = 3 * 2 * macs * b  # forward, and the backward's two products
+    emit("resnet", config="ResNet-50, 1000 classes", batch=b, image=[image, image, 3],
+         dtype="bfloat16", memory_format="channels_last", logits_dtype=str(logits.dtype),
+         gmacs_per_image_forward=macs / 1e9,
+         flops_reckoning="2 x (conv: output positions x out x in x k x k; Dense: in x "
+                         "out) a forward; 3x that a training pass",
+         train_ms=train_ms, train_images_per_s=b / (train_ms / 1e3),
+         train_tflops_per_s=train_flops / train_ms / 1e9,
+         mfu=train_flops / (train_ms / 1e3) / H100_BF16_FLOPS,
+         eval_ms=eval_ms, eval_images_per_s=b / (eval_ms / 1e3),
+         eval_tflops_per_s=2 * macs * b / eval_ms / 1e9, peak_mem_gb=peak_gb,
+         rel_l2_vs_fp32=errs, bounds=RESNET_REL_L2,
+         running_stats_vs_formula=formula, formula_bound=RESNET_STATS_FORMULA_REL,
+         finite=finite, grads_finite_on_card=grads_ok, all_on_card=on_card)
+    if not (finite and grads_ok and on_card and logits.dtype == torch.float32):
+        raise SystemExit(f"resnet: finite {finite}, gradients {grads_ok}, on the card "
+                         f"{on_card}, logits {logits.dtype}")
+    if any(errs[k] > RESNET_REL_L2[k] for k in errs):
+        raise SystemExit(f"resnet: bf16 against fp32 {errs}, bounds {RESNET_REL_L2}")
+    if max(formula.values()) > RESNET_STATS_FORMULA_REL:
+        raise SystemExit(f"resnet: running statistics against the formula {formula}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    from yoda_scheduler_tpu_torch.models import llama, moe
+    from yoda_scheduler_tpu_torch.models import llama, moe, resnet
     from yoda_scheduler_tpu_torch.ops import _build, attention as attn, variants
     from yoda_scheduler_tpu_torch.parallel import mesh as mesh_mod, pipeline, ring, train
-    from yoda_scheduler_tpu_torch.parallel import ulysses
+    from yoda_scheduler_tpu_torch.parallel import checkpoint, multihost, ulysses
     # Mixtral-8x7B's widths from its config.json, in the port's config fields
     from yoda_scheduler_tpu_torch.profile_path import mixtral_8x7b
 
@@ -1304,6 +1668,11 @@ def main() -> int:
     ulysses_launches = phase_ulysses(attn, ulysses, variants)
     phase_pipeline_gradient(attn, llama, train, pipeline)
     pipe_launches = phase_pipeline_train(attn, llama, train, pipeline)
+    ckpt_losses, resumed_launches = phase_checkpoint(attn, llama, train, mesh_mod,
+                                                     checkpoint)
+    multihost_launches = phase_multihost(attn, llama, train, mesh_mod, multihost,
+                                         ckpt_losses[0])
+    phase_resnet(resnet)
 
     main_row, bwd_main = rows[0], bwd_rows[0]
     src = "yoda_scheduler_tpu_torch/ops/csrc/"
@@ -1321,7 +1690,9 @@ def main() -> int:
                              "moe_train_step": moe_step_launches["flash_fwd"],
                              "ring_fwd_bwd": ring_launches["flash_fwd"],
                              "ulysses_fwd_bwd": ulysses_launches["flash_fwd"],
-                             "pipeline_train_step": pipe_launches["flash_fwd"]},
+                             "pipeline_train_step": pipe_launches["flash_fwd"],
+                             "checkpoint_resumed_step": resumed_launches["flash_fwd"],
+                             "multihost_step": multihost_launches["flash_fwd"]},
         "max_abs_err": max_err,
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -1337,7 +1708,9 @@ def main() -> int:
                              "moe_train_step": moe_step_launches[name],
                              "ring_fwd_bwd": ring_launches[name],
                              "ulysses_fwd_bwd": ulysses_launches[name],
-                             "pipeline_train_step": pipe_launches[name]},
+                             "pipeline_train_step": pipe_launches[name],
+                             "checkpoint_resumed_step": resumed_launches[name],
+                             "multihost_step": multihost_launches[name]},
         "max_abs_err": bwd_err[key], "ms": bwd_main[f"{key}_ms"],
         "plain_ms": bwd_main["plain_ms"], "bound_ms": bwd_main[f"{key}_bound_ms"],
         "bound_by": bwd_main[f"{key}_bound_by"],

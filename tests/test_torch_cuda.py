@@ -1,7 +1,8 @@
 """The PyTorch port on the card: the CUDA kernels behind `flash_attention`
 and its gradient, their refusals, the tiny model and train step on CUDA
-against the same on the CPU, and the MoE FFN at Mixtral-8x7B width. Every test needs an NVIDIA GPU and skips
-without one.
+against the same on the CPU, the MoE FFN at Mixtral-8x7B width, the
+checkpoint, the rendezvous and the ResNet on the card. Every test needs an
+NVIDIA GPU and skips without one.
 
 This file imports no JAX, so that it runs where JAX is not installed:
 
@@ -583,3 +584,94 @@ def test_pipelined_loss_on_cuda_matches_the_one_device_loss(gpu):
     assert abs(loss_pp - loss_one) < 5e-3, (loss_pp, loss_one)
     for a, b in zip(grads_pp, grads_one):
         assert chip_smoke.rel_l2(a, b) <= chip_smoke.GRAD_REL_L2
+
+
+# ------------------------------------- checkpoint, rendezvous and ResNet-50
+def test_checkpoint_resume_on_the_card_is_bit_exact(gpu, tmp_path):
+    """The tiny bf16 step with the fused AdamW (its step count a tensor on
+    the card): a round trip keeps every value and the step tensor's place,
+    and the resumed step's loss equals the uninterrupted one's."""
+    from yoda_scheduler_tpu_torch.parallel import TrainCheckpointer
+
+    cfg = LlamaConfig.tiny()
+    init_fn, step_fn, _ = build_llama_train_step(cfg, device=gpu)
+    tokens = torch.from_numpy(np.random.default_rng(6).integers(0, 256, (2, 64))).to(gpu)
+    params, opt = init_fn(0)
+    params, opt, _ = step_fn(params, opt, tokens)
+    ckpt = TrainCheckpointer(str(tmp_path / "ckpt"), device=gpu)
+    ckpt.save(1, params, opt)
+    _, rp, ro = ckpt.restore(init_fn(2))
+    for a, b in zip(param_leaves(params), param_leaves(rp)):
+        assert torch.equal(a, b)
+        for k, v in opt.state[a].items():
+            assert torch.equal(v, ro.state[b][k]) and ro.state[b][k].device == v.device
+    want = float(step_fn(params, opt, tokens)[2])
+    assert float(step_fn(rp, ro, tokens)[2]) == want
+
+
+def test_multihost_world1_nccl_rendezvous(gpu):
+    """initialize_multihost over a TCP rendezvous on 127.0.0.1: a world-1
+    NCCL group; global_batch is batch_fn there."""
+    import socket
+
+    import torch.distributed as dist
+
+    from yoda_scheduler_tpu_torch.parallel import (ShardPlan, global_batch,
+                                                   initialize_multihost, make_mesh)
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    assert initialize_multihost(f"127.0.0.1:{port}", 1, 0) is True
+    try:
+        assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        plan = ShardPlan(LlamaConfig.tiny(), make_mesh({"dp": 1}, device="cuda"))
+        tokens = torch.arange(64, device=gpu).view(4, 16)
+        assert torch.equal(global_batch(tokens, plan.tokens), plan.tokens(tokens))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_resnet_on_the_card_matches_the_cpu_fp32(gpu):
+    """The small ResNet in fp32 (TF32 off) on the same weights: train-mode
+    logits and running statistics on the card against the CPU's, by rel. L2
+    (1e-4 and 1e-5, summation order), with cuDNN's convolutions and with
+    PyTorch's own; every gradient (1e-4) with PyTorch's own. cuDNN's fp32
+    backward loses precision with TF32 off: on an H100 it read 2.1e-2 on the
+    stem's BatchNorm scale against the CPU, PyTorch's convolution 7.2e-6."""
+    import torch.nn.functional as F
+
+    from yoda_scheduler_tpu_torch.models import resnet
+
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.standard_normal((4, 64, 64, 3), dtype=np.float32))
+    labels = torch.from_numpy(rng.integers(0, 10, 4))
+    init_fn, _ = resnet.resnet_forward_fn(
+        model=resnet.ResNet((1, 1, 1, 1), 10, torch.float32, device="cpu"))
+    weights = init_fn(0, x)
+    for n, t in weights["params"].items():
+        if n.endswith(".scale"):
+            t.fill_(0.5)
+
+    def train_pass(dev):
+        _, apply_fn = resnet.resnet_forward_fn(
+            model=resnet.ResNet((1, 1, 1, 1), 10, torch.float32, device=dev))
+        variables = {k: {n: t.detach().to(dev).requires_grad_(k == "params")
+                         for n, t in v.items()}
+                     for k, v in weights.items()}
+        logits, mutated = apply_fn(variables, x.to(dev), train=True)
+        F.cross_entropy(logits, labels.to(dev)).backward()
+        return (logits.detach().cpu(), {n: t.cpu() for n, t in mutated["batch_stats"].items()},
+                {n: t.grad.cpu() for n, t in variables["params"].items()})
+
+    l_cpu, s_cpu, g_cpu = train_pass("cpu")
+    with_cudnn = train_pass(gpu)
+    with torch.backends.cudnn.flags(enabled=False):
+        native = train_pass(gpu)
+    for l_gpu, s_gpu, _ in (with_cudnn, native):
+        assert chip_smoke.rel_l2(l_gpu, l_cpu) < 1e-4
+        for n in s_cpu:
+            assert chip_smoke.rel_l2(s_gpu[n], s_cpu[n]) < 1e-5, n
+    for n in g_cpu:
+        assert chip_smoke.rel_l2(native[2][n], g_cpu[n]) < 1e-4, n

@@ -4,6 +4,7 @@ entry points run on CUDA unless the caller asks for the CPU."""
 
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import pytest
@@ -12,9 +13,10 @@ import torch
 import yoda_scheduler_tpu_torch as port
 from yoda_scheduler_tpu_torch.entry import entry
 from yoda_scheduler_tpu_torch.models import (KVCache, LlamaConfig, init_llama,
-                                             params_from_jax)
-from yoda_scheduler_tpu_torch.parallel import (build_llama_train_step,
-                                               build_pipelined_llama_train_step, make_mesh,
+                                             params_from_jax, resnet_forward_fn)
+from yoda_scheduler_tpu_torch.parallel import (TrainCheckpointer, build_llama_train_step,
+                                               build_pipelined_llama_train_step,
+                                               initialize_multihost, make_mesh,
                                                quick_mesh_and_step)
 
 # tiny shapes: one intra-op thread, so that the other test workers keep
@@ -31,7 +33,10 @@ def test_import_loads_no_jax():
             "yoda_scheduler_tpu_torch.parallel.sharding, "
             "yoda_scheduler_tpu_torch.parallel.collectives, "
             "yoda_scheduler_tpu_torch.parallel.ring, "
-            "yoda_scheduler_tpu_torch.parallel.launch\n"
+            "yoda_scheduler_tpu_torch.parallel.launch, "
+            "yoda_scheduler_tpu_torch.parallel.multihost, "
+            "yoda_scheduler_tpu_torch.parallel.checkpoint, "
+            "yoda_scheduler_tpu_torch.models.resnet\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'yoda_scheduler_tpu' or m.startswith('yoda_scheduler_tpu.')]\n"
             "print(bad)\n"
@@ -55,7 +60,9 @@ def test_package_source_never_mentions(needle):
                                   "params_from_jax", "build_llama_train_step",
                                   "build_llama_train_step_ulysses",
                                   "build_pipelined_llama_train_step",
-                                  "make_mesh", "quick_mesh_and_step"])
+                                  "make_mesh", "quick_mesh_and_step",
+                                  "initialize_multihost", "resnet_forward_fn",
+                                  "checkpoint_restore"])
 def test_entry_points_need_cuda_unless_asked_for_cpu(call):
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA: the default device is valid here")
@@ -74,10 +81,22 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(call):
             cfg, pp=2, **kw),
         "make_mesh": lambda **kw: make_mesh({}, **kw),
         "quick_mesh_and_step": lambda **kw: quick_mesh_and_step(1, **kw),
+        "initialize_multihost": lambda **kw: initialize_multihost(**kw),
+        "resnet_forward_fn": lambda **kw: resnet_forward_fn(10, **kw),
+        "checkpoint_restore": lambda **kw: _save_and_restore(cfg, **kw),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[call]()
     calls[call](device="cpu")
+
+
+def _save_and_restore(cfg, **kw):
+    """TrainCheckpointer.restore onto its device (the one-device layout)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = TrainCheckpointer(tmp, **kw)
+        init_fn = build_llama_train_step(cfg, device="cpu")[0]
+        ckpt.save(1, *init_fn(0))
+        return ckpt.restore(init_fn(1))
 
 
 def _numpy_params(cfg):

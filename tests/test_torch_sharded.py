@@ -52,9 +52,11 @@ def _jax_quick_shape():
     return mesh_shape_for(8, tp=2, sp=2, dp=2)
 
 
-def _run(tmp_path, legs):
+def _run(tmp_path, legs, checkpoint: bool = False):
     """The JAX step on each leg's mesh, then the port's 8 ranks on the same
-    weights and tokens: {leg: (JAX losses, JAX params, port's output)}."""
+    weights and tokens: {leg: (JAX losses, JAX params, port's output)}.
+    With `checkpoint` the ranks then save and restore a checkpoint
+    (torch_ranks.checkpoint_rank), which writes checkpoint_out.npz."""
     tokens = np.random.default_rng(1).integers(0, DENSE.vocab_size, (8, 64))
     np.save(tmp_path / "tokens.npy", tokens)
     want, rank_legs = {}, []
@@ -73,7 +75,8 @@ def _run(tmp_path, legs):
         want[name] = (losses, torch_ranks.flatten(jax.tree.map(np.asarray, params)))
         rank_legs.append((name, shape, dataclasses.asdict(cfg), opts))
     run_ranks(torch_ranks.sharded_rank, 8, device="cpu",
-              args=(str(tmp_path), rank_legs), timeout_s=300)
+              args=(str(tmp_path), rank_legs,
+                    dataclasses.asdict(DENSE) if checkpoint else None), timeout_s=300)
     return {name: (*want[name], np.load(tmp_path / f"{name}_out.npz")) for name in legs}
 
 
@@ -95,18 +98,40 @@ def _check(name, jlosses, jparams, got, shape):
         assert np.abs(err).max() <= 2 * LR, (name, leaf)
 
 
-def test_sharded_steps_match_jax(tmp_path):
+@pytest.fixture(scope="module")
+def spawned(tmp_path_factory):
+    """Tier-1's one spawn of 8 ranks: the legs, then the checkpoint."""
+    path = tmp_path_factory.mktemp("ranks")
+    return path, _run(path, LEGS, checkpoint=True)
+
+
+def test_sharded_steps_match_jax(spawned):
     """One spawn of 8 ranks, five legs: quick_mesh_and_step(8) (tp2 sp2
     dp2, ring attention), dp2 fsdp2 tp2 dense, ep2 tp2 dp2 tiny_moe, dp2
     fsdp2 sp2 with Ulysses attention, and the pipelined tiny_moe step over
     pp2 dp2 tp2."""
-    results = _run(tmp_path, LEGS)
+    results = spawned[1]
     assert list(results["quick_8"][2]["mesh"]) == [
         _jax_quick_shape()[a] for a in ("pp", "dp", "fsdp", "ep", "sp", "tp")]
     # quick_8's tokens [8, 64] over dp2 x sp2: [4, 32] a rank
     assert list(results["quick_8"][2]["local_tokens"]) == [4, 32]
     for name, (jlosses, jparams, got) in results.items():
         _check(name, jlosses, jparams, got, LEGS[name][0])
+
+
+def test_checkpoint_restores_onto_another_mesh(spawned):
+    """parallel/checkpoint.py on 8 ranks: the dp2 fsdp2 tp2 state after one
+    step, saved by every rank (each piece once) and restored onto pp2 fsdp2
+    tp2 under the pipeline's specs, gathers to the same parameters and
+    AdamW moments bit for bit (a dropped shard breaks this), the template's
+    optimizer holds the template's tensors with the step count restored,
+    and the next step's loss agrees across the two meshes (fp32, the order
+    of sums)."""
+    got = np.load(spawned[0] / "checkpoint_out.npz")
+    assert int(got["step"]) == 1
+    assert got["equal"].tolist() == [True, True, True]  # params, exp_avg, exp_avg_sq
+    assert got["opt_steps"].tolist() == [1.0, 1.0] and bool(got["holds_template"])
+    np.testing.assert_allclose(got["losses"][1], got["losses"][0], rtol=1e-5, atol=0)
 
 
 @pytest.mark.slow

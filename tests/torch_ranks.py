@@ -1,5 +1,6 @@
 """Rank bodies of the port's multi-process tests (tests/test_torch_ring.py,
-tests/test_torch_sharded.py), run by
+tests/test_torch_sharded.py; the checkpoint's 8-rank save and restore),
+run by
 `yoda_scheduler_tpu_torch.parallel.launch.run_ranks` with gloo on the CPU.
 
 This module imports no JAX: each rank is a fresh interpreter that imports
@@ -14,7 +15,7 @@ import numpy as np
 import torch
 
 from yoda_scheduler_tpu_torch.models import LlamaConfig, params_from_jax
-from yoda_scheduler_tpu_torch.parallel import (build_llama_train_step,
+from yoda_scheduler_tpu_torch.parallel import (TrainCheckpointer, build_llama_train_step,
                                                build_pipelined_llama_train_step,
                                                gather_params, init_opt_state,
                                                llama_pipeline_param_specs, make_mesh,
@@ -59,7 +60,8 @@ def ring_rank(rank: int, world: int, path: str) -> None:
              dq=q.grad.numpy(), dk=k.grad.numpy(), dv=v.grad.numpy())
 
 
-def sharded_rank(rank: int, world: int, path: str, legs: list) -> None:
+def sharded_rank(rank: int, world: int, path: str, legs: list,
+                 checkpoint: dict | None = None) -> None:
     """Each leg (name, mesh shape or None for `quick_mesh_and_step`, config
     fields, builder options): the JAX weights from <name>_params.npz through
     `params_from_jax`, shard_params -> gather_params must give them back;
@@ -67,7 +69,8 @@ def sharded_rank(rank: int, world: int, path: str, legs: list) -> None:
     parameters gathered after, written by rank 0 as <name>_out.npz. Options
     with "num_microbatches" build the pipelined step (its specs stage the
     layers over pp); the others go to `build_llama_train_step`
-    (`sp_attention`)."""
+    (`sp_attention`). With `checkpoint` (config fields), then
+    `checkpoint_rank`."""
     tokens = torch.from_numpy(np.load(Path(path) / "tokens.npy"))
     for name, shape, fields, opts in legs:
         cfg = LlamaConfig(**fields)
@@ -98,3 +101,51 @@ def sharded_rank(rank: int, world: int, path: str, legs: list) -> None:
                      round_trip=np.array(round_trip), mesh=np.array(
                          [mesh.shape[a] for a in mesh.shape]),
                      local_tokens=np.array(batch_fn(tokens).shape), **out)
+    if checkpoint is not None:
+        checkpoint_rank(rank, world, path, tokens, checkpoint)
+
+
+def _moments(params: dict, opt, key: str) -> dict:
+    """The optimizer's `key` state of each leaf, laid out as `params`."""
+    return {**{n: opt.state[params[n]][key] for n in ("embed", "final_norm", "lm_head")},
+            "layers": [{n: opt.state[t][key] for n, t in layer.items()}
+                       for layer in params["layers"]]}
+
+
+def checkpoint_rank(rank: int, world: int, path: str, tokens, fields: dict) -> None:
+    """One step of the dp2 fsdp2 tp2 step, saved by every rank; then
+    restored onto pp2 fsdp2 tp2 under the pipeline's specs (another layout
+    of every leaf, the layers staged over pp). Rank 0 writes
+    checkpoint_out.npz: whether the restored parameters and both AdamW
+    moments, gathered, equal the saved ones gathered, the optimizer step
+    counts, and the next step's loss on each mesh."""
+    cfg = LlamaConfig(**fields)
+    mesh = make_mesh({"dp": 2, "fsdp": 2, "tp": 2}, device="cpu")
+    init_fn, step_fn, batch_fn = build_llama_train_step(cfg, mesh)
+    params, opt = init_fn(0)
+    params, opt, _ = step_fn(params, opt, batch_fn(tokens))
+    TrainCheckpointer(Path(path) / "ckpt", mesh=mesh, device="cpu").save(1, params, opt)
+    want = [gather_params(params, mesh, cfg)] + [
+        gather_params(_moments(params, opt, k), mesh, cfg) for k in ("exp_avg", "exp_avg_sq")]
+
+    mesh2 = make_mesh({"pp": 2, "fsdp": 2, "tp": 2}, device="cpu")
+    specs2 = llama_pipeline_param_specs(cfg)
+    init2, step2, batch2 = build_pipelined_llama_train_step(cfg, mesh2, num_microbatches=2)
+    params2, opt2 = init2(5)
+    step, params2, opt2 = TrainCheckpointer(Path(path) / "ckpt", mesh=mesh2, specs=specs2,
+                                            device="cpu").restore((params2, opt2))
+    got = [gather_params(params2, mesh2, cfg, specs2)] + [
+        gather_params(_moments(params2, opt2, k), mesh2, cfg, specs2)
+        for k in ("exp_avg", "exp_avg_sq")]
+    equal = [all(torch.equal(a, b) for a, b in zip(param_leaves(g), param_leaves(w)))
+             for g, w in zip(got, want)]
+    steps = [float(opt.state[params["embed"]]["step"]),
+             float(opt2.state[params2["embed"]]["step"])]
+    holds_template = all(a is b for a, b in zip(opt2.param_groups[0]["params"],
+                                                param_leaves(params2)))
+    loss = float(step_fn(params, opt, batch_fn(tokens))[2])
+    loss2 = float(step2(params2, opt2, batch2(tokens))[2])
+    if rank == 0:
+        np.savez(Path(path) / "checkpoint_out.npz", step=step, equal=np.array(equal),
+                 opt_steps=np.array(steps), holds_template=holds_template,
+                 losses=np.array([loss, loss2]))

@@ -7,7 +7,8 @@ from .generate import (
     make_generate_fn,
     prefill,
 )
-from .convert import params_from_jax
+from .convert import params_from_jax, resnet_params_from_jax
+from .resnet import ResNet, ResNet50, resnet_forward_fn
 
 __all__ = [
     "LlamaConfig",
@@ -21,4 +22,8 @@ __all__ = [
     "make_generate_fn",
     "prefill",
     "params_from_jax",
+    "resnet_params_from_jax",
+    "ResNet",
+    "ResNet50",
+    "resnet_forward_fn",
 ]

@@ -1,4 +1,5 @@
-"""Parameters of the JAX package's Llama, as numpy arrays, into the port's."""
+"""Parameters of the JAX package's Llama and ResNet, as numpy arrays, into the
+port's."""
 
 from __future__ import annotations
 
@@ -33,3 +34,43 @@ def params_from_jax(np_params: dict, config: LlamaConfig, device="cuda") -> dict
     return {"embed": _tensor(np_params["embed"], dev), "layers": layers,
             "final_norm": _tensor(np_params["final_norm"], dev),
             "lm_head": _tensor(np_params["lm_head"], dev)}
+
+
+# Flax's automatic names inside a Bottleneck, in creation order: the three
+# convs and their BatchNorms, then the residual's projection
+_BLOCK_NAMES = {"Conv_0": "conv1", "BatchNorm_0": "bn1", "Conv_1": "conv2",
+                "BatchNorm_1": "bn2", "Conv_2": "conv3", "BatchNorm_2": "bn3",
+                "Conv_3": "proj_conv", "BatchNorm_3": "proj_bn"}
+_TOP_NAMES = {"Conv_0": "conv", "BatchNorm_0": "bn", "Dense_0": "fc"}
+_LEAF_NAMES = {"kernel": "weight", "scale": "scale", "bias": "bias", "mean": "mean",
+               "var": "var"}
+
+
+def _resnet_leaves(tree: dict, device: torch.device) -> dict:
+    """{port name: tensor} of a Flax ResNet collection (params or
+    batch_stats): conv kernels HWIO -> OIHW, the Dense kernel [in, out] ->
+    [out, in]."""
+    out = {}
+    for top, sub in tree.items():
+        if top.startswith("Bottleneck_"):
+            mods = {f"blocks.{top.split('_')[1]}.{_BLOCK_NAMES[n]}": leaves
+                    for n, leaves in sub.items()}
+        else:
+            mods = {_TOP_NAMES[top]: sub}
+        for mod, leaves in mods.items():
+            for leaf, a in leaves.items():
+                t = _tensor(a, device)
+                if leaf == "kernel":
+                    t = (t.permute(3, 2, 0, 1) if t.dim() == 4 else t.T).contiguous()
+                out[f"{mod}.{_LEAF_NAMES[leaf]}"] = t
+    return out
+
+
+def resnet_params_from_jax(np_params: dict, np_batch_stats: dict, device="cuda") -> dict:
+    """The Flax ResNet's `params` and `batch_stats` (numpy leaves) as the
+    port's variables {"params": ..., "batch_stats": ...} for
+    `models.resnet.resnet_forward_fn`'s apply_fn (the module's parameter
+    and buffer names), on `device`, fp32 as Flax stores them."""
+    dev = resolve_device(device)
+    return {"params": _resnet_leaves(np_params, dev),
+            "batch_stats": _resnet_leaves(np_batch_stats, dev)}

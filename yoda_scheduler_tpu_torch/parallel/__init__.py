@@ -8,6 +8,8 @@ from .train import (build_llama_train_step, init_opt_state, param_leaves,
                     quick_mesh_and_step)
 from .pipeline import (build_pipelined_llama_train_step, llama_pipeline_param_specs,
                        pipelined_llama_loss)
+from .multihost import gang_process_env, global_batch, initialize_multihost
+from .checkpoint import TrainCheckpointer
 
 __all__ = [
     "AXIS_ORDER",
@@ -34,4 +36,8 @@ __all__ = [
     "build_pipelined_llama_train_step",
     "llama_pipeline_param_specs",
     "pipelined_llama_loss",
+    "gang_process_env",
+    "global_batch",
+    "initialize_multihost",
+    "TrainCheckpointer",
 ]

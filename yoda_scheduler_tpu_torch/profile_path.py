@@ -9,16 +9,20 @@ Traces with torch.profiler, after a warm-up, at Llama-2-7B width one
 training step (B=1, S=2048, remat, AdamW; all 32 layers) and one pipelined
 training step (pp=4 stages in one process, 4 microbatches, B=4); then at
 Mixtral-8x7B width one `llama_forward` (16 layers) and one training step
-(4 layers), both B=1, S=2048. For each window it prints one JSON line: the
-host wall time, the device's busy time (the union of kernel intervals) and
-idle share, the kernel launches, the device time grouped into matmul /
-flash_fwd / flash_bwd_dq / flash_bwd_dkv / optimizer / moe_route / other,
-and the kernels with the most device time. moe_route is every kernel that
-starts inside a `moe_route` span on the device's timeline (models/moe.py:
-the router's product, top-k, queue positions, dispatch and combine, and the
-backward of dispatch and combine); the router softmax's and top-k's
-backward count as other. The full report goes to
-chiprun_out/profile_path.json.
+(4 layers), both B=1, S=2048; last one ResNet-50 training pass (bf16,
+B=256, 224 x 224, the forward and backward of a softmax cross-entropy). For
+each window it prints one JSON line: the host wall time, the device's busy
+time (the union of kernel intervals) and idle share, the kernel launches,
+the device time grouped into conv / matmul / flash_fwd / flash_bwd_dq /
+flash_bwd_dkv / optimizer / moe_route / batch_norm / other, and the kernels
+with the most device time. moe_route is every kernel that starts inside a
+`moe_route` span on the device's timeline (models/moe.py: the router's
+product, top-k, queue positions, dispatch and combine, and the backward of
+dispatch and combine); the router softmax's and top-k's backward count as
+other. batch_norm is every kernel inside a `batch_norm` span
+(models/resnet.py: each BatchNorm and its ReLU, forward and the backward's
+recomputation and gradient); conv is cuDNN's convolution kernels by name.
+The full report goes to chiprun_out/profile_path.json.
 """
 
 from __future__ import annotations
@@ -33,10 +37,12 @@ from collections import defaultdict
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
-from .models import (KVCache, LlamaConfig, decode_step, init_llama,
-                     llama_forward, prefill)
+from .models import (KVCache, LlamaConfig, decode_step, init_llama, llama_forward,
+                     prefill, resnet_forward_fn)
 from .models.moe import ROUTE_SPAN
+from .models.resnet import BN_SPAN
 from .parallel import build_llama_train_step, build_pipelined_llama_train_step
 
 
@@ -61,6 +67,8 @@ def _group(name: str) -> str:
             return kernel
     if "adam" in low:
         return "optimizer"
+    if any(s in low for s in ("fprop", "dgrad", "wgrad", "conv", "implicit")):
+        return "conv"
     if any(s in low for s in ("gemm", "xmma", "cutlass", "nvjet", "matmul")):
         return "matmul"
     return "other"
@@ -85,19 +93,20 @@ def trace(label: str, fn, setup=lambda: None) -> dict:
     kernels = [e for e in device if not getattr(e, "is_user_annotation", False)]
     if not kernels:
         raise SystemExit(f"{label}: the profiler recorded no device kernels")
-    route = sorted((e.time_range.start, e.time_range.end) for e in device
-                   if getattr(e, "is_user_annotation", False) and e.name == ROUTE_SPAN)
-    starts = [r[0] for r in route]
+    spans = {name: sorted((e.time_range.start, e.time_range.end) for e in device
+                          if getattr(e, "is_user_annotation", False) and e.name == name)
+             for name in (ROUTE_SPAN, BN_SPAN)}
 
     def group(e) -> str:
-        i = bisect.bisect_right(starts, e.time_range.start) - 1
-        if i >= 0 and e.time_range.start < route[i][1]:
-            return "moe_route"
+        for name, ranges in spans.items():
+            i = bisect.bisect_right(ranges, (e.time_range.start, float("inf"))) - 1
+            if i >= 0 and e.time_range.start < ranges[i][1]:
+                return name
         return _group(e.name)
 
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    intervals = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy_us, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
+    for s, e in intervals:
         if cur_e is None or s > cur_e:
             if cur_e is not None:
                 busy_us += cur_e - cur_s
@@ -116,7 +125,8 @@ def trace(label: str, fn, setup=lambda: None) -> dict:
     report = {
         "window": label, "wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
         "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms,
-        "kernel_launches": len(kernels), "moe_route_spans": len(route),
+        "kernel_launches": len(kernels), "moe_route_spans": len(spans[ROUTE_SPAN]),
+        "batch_norm_spans": len(spans[BN_SPAN]),
         "device_ms_by_group": {k: v / 1e3 for k, v in by_group.items()},
         "top_kernels": [{"name": n[:90], "ms": t / 1e3, "count": c}
                         for n, (t, c) in top],
@@ -167,6 +177,27 @@ def moe_forward_window(cfg) -> dict:
                      lambda _: llama_forward(params, tokens, cfg))
 
 
+def resnet_window(batch: int = 256, image: int = 224) -> dict:
+    """One ResNet-50 training pass: the train-mode forward (batch_stats
+    updated), a softmax cross-entropy on random labels, its backward."""
+    init_fn, apply_fn = resnet_forward_fn(device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(batch, image, image, 3, generator=gen, device="cuda").to(torch.bfloat16)
+    labels = torch.randint(0, 1000, (batch,), generator=gen, device="cuda")
+    variables = init_fn(0, x)
+    params = list(variables["params"].values())
+    for t in params:
+        t.requires_grad_(True)
+
+    def step(_):
+        logits, _ = apply_fn(variables, x, train=True)
+        F.cross_entropy(logits, labels).backward()
+        for t in params:
+            t.grad = None
+
+    return trace(f"resnet50_train_b{batch}_{image}px", step)
+
+
 def _free() -> None:
     gc.collect()
     torch.cuda.empty_cache()  # each window's weights need the room
@@ -192,6 +223,8 @@ def main() -> int:
     reports.append(moe_forward_window(mixtral_8x7b(16)))
     _free()
     reports.append(train_window(mixtral_8x7b(4), "moe_train_step_4_layers_b1_s2048"))
+    _free()
+    reports.append(resnet_window())
     out = Path(__file__).resolve().parents[1] / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "profile_path.json").write_text(json.dumps(
