@@ -103,13 +103,35 @@ The workload runtime's last modules, after pipeline_train:
   biased-variance formula (in fp64).
 
 Every flash launch of the checkpoint and multihost steps is on the wgmma
-route. Then a line listing every kernel of the path, and last the device
+route.
+
+The scheduling system, on the host, fed by the card's telemetry:
+
+- telemetry (telemetry/sniffer.py, duty.py, nvml.py): the NVML sniffer's
+  node against nvidia-smi (memory total equal, free within a slack, max SM
+  clock, power limit, one chip a card) and CUDA's memory view; free memory
+  again while 16 GiB are held; NVML's utilization through DutySamplerPool
+  (>= 80 under ~2 s of the ring phase's causal 8192-token flash_fwd, <= 20
+  two seconds after) and the probe sampler above its idle reading; `python
+  -m yoda_scheduler_tpu_torch.cli sniff`'s CR (accelerator gpu, a chip for
+  each card `nvidia-smi -L` lists); the snapshot's ms.
+- scheduler (the engine copy): bench.py's huge_5000 cluster (5,000 fake
+  nodes through the port's telemetry.fake) plus the live card as sniffed;
+  a 60,000 MB one-card GPU pod binds on the live card and nowhere else,
+  and with 40 GiB of the card held (re-sniffed, re-put) the same pod is
+  refused; then bench.py's burst of 25,000 pods (5 a node, its four
+  kinds, in an order from a seed): no chip held twice, no chip's memory
+  overcommitted, two runs of the whole trace placing alike; bound pods,
+  cycle p50 and p99, wall seconds and the data planes that ran.
+
+Then a line listing every kernel of the path, and last the device
 line. Full results also go to chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import functools
 import gc
@@ -117,6 +139,7 @@ import importlib
 import json
 import math
 import os
+import random
 import re
 import shutil
 import socket
@@ -239,6 +262,29 @@ CKPT_LAYERS, CKPT_STEPS, CKPT_SAVES = 4, 4, (1, 2)
 RESNET_BATCH, RESNET_IMAGE, RESNET_ITERS = 256, 224, 3
 RESNET_REL_L2 = {"train": 0.1, "eval": 0.02, "stats": 0.02}
 RESNET_STATS_FORMULA_REL = 1e-4
+# telemetry: NVML's memory.total and free are what nvidia-smi reads (the
+# same library, MiB floored), so totals must be equal and free memory, read
+# a moment apart with nothing allocated between, within TELEMETRY_FREE_SLACK_MB.
+# CUDA's own view (torch.cuda.mem_get_info) leaves out the GPU driver's
+# reservation: its total may be lower than NVML's by up to
+# TELEMETRY_CUDA_SLACK_MB, and its free memory differs by as much.
+# A 16 GiB allocation must lower the sniffed free memory by at least
+# 16 GiB less the free slack. The load is the ring phase's causal
+# 8192-token flash_fwd (B=1, H=32, D=128, bf16: ~1 ms a launch), enqueued
+# for TELEMETRY_LOAD_S: the host keeps the launch queue full, so NVML's
+# utilization reads >= TELEMETRY_BUSY_PCT during it and <= TELEMETRY_IDLE_PCT
+# TELEMETRY_SETTLE_S after it.
+TELEMETRY_FREE_SLACK_MB, TELEMETRY_CUDA_SLACK_MB = 256, 1024
+TELEMETRY_ALLOC_GIB, TELEMETRY_LOAD_S, TELEMETRY_SETTLE_S = 16, 2.0, 2.0
+TELEMETRY_BUSY_PCT, TELEMETRY_IDLE_PCT = 80, 20
+# scheduler: bench.py's huge_5000 cell (BENCH_SCALE5K.json): 625 x (one
+# v4-32 slice of 4 hosts, 2 v4-8 hosts, 2 GPU nodes of 8 cards at 40,000
+# MB) = 5,000 nodes, 5 pods a node in bench.py's mix, plus this host's
+# card as sniffed. A pod asking for LIVE_POD_MB of free memory a card fits
+# only the live card (a fake GPU card has 40,000 MB); with LIVE_HOLD_GIB
+# of the card held it fits nowhere.
+SCHED_UNITS, SCHED_PODS_PER_NODE, SCHED_SEED = 625, 5, 13
+LIVE_NODE, LIVE_POD_MB, LIVE_HOLD_GIB = "h100-live", 60_000, 40
 
 RESULTS: dict = {}
 
@@ -1626,6 +1672,312 @@ def phase_resnet(resnet):
         raise SystemExit(f"resnet: running statistics against the formula {formula}")
 
 
+def nvidia_smi(*fields: str) -> list[list[str]]:
+    """One row a card of `nvidia-smi --query-gpu=...`, without units."""
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={','.join(fields)}",
+                          "--format=csv,noheader,nounits"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout
+    return [[f.strip() for f in ln.split(",")] for ln in out.strip().splitlines()]
+
+
+def phase_telemetry(attn, smi: str):
+    """The port's NVML sniffer against nvidia-smi and CUDA, its free memory
+    under a 16 GiB allocation, NVML's duty and the probe sampler's under
+    the flash kernel's load and after it, and `cli sniff`'s CR."""
+    from yoda_scheduler_tpu_torch.telemetry import duty, nvml, sniffer
+
+    free_memory()
+    # this process's CUDA context exists before any reading is compared
+    cuda_free, cuda_total = torch.cuda.mem_get_info(0)
+    cards = nvidia_smi("name", "memory.total", "memory.free", "clocks.max.sm", "power.limit")
+    listed = sum(ln.startswith("GPU ") for ln in subprocess.run(
+        ["nvidia-smi", "-L"], capture_output=True, text=True, timeout=60,
+        check=True).stdout.splitlines())
+    t0 = time.perf_counter()
+    node = sniffer.local_node_metrics()
+    snapshot_ms = (time.perf_counter() - t0) * 1e3
+    # one card visible: NVML's index 0 is CUDA's device 0
+    chip = node.chips[0]
+    name, smi_total, smi_free, smi_clock, smi_power = cards[0]
+    read = dict(
+        chips=node.chip_count, smi_cards=len(cards), smi_listed=listed,
+        hbm_total_mb=chip.hbm_total_mb, smi_total_mb=int(smi_total),
+        hbm_free_mb=chip.hbm_free_mb, smi_free_mb=int(smi_free),
+        cuda_total_mb=cuda_total // 2**20, cuda_free_mb=cuda_free // 2**20,
+        clock_mhz=chip.clock_mhz, smi_max_sm_clock_mhz=int(smi_clock),
+        power_w=chip.power_w, smi_power_limit_w=float(smi_power),
+        core_count=chip.core_count, ici_bandwidth_gbps=chip.ici_bandwidth_gbps,
+        accelerator=node.accelerator)
+    checks = {
+        "one_chip_a_card": node.chip_count == len(cards) == listed,
+        "gpu_node": node.accelerator == "gpu" and node.tpu_generation == "",
+        "total_equals_nvidia_smi": chip.hbm_total_mb == int(smi_total),
+        "free_near_nvidia_smi": abs(chip.hbm_free_mb - int(smi_free)) <= TELEMETRY_FREE_SLACK_MB,
+        "cuda_total_within_reservation":
+            0 <= chip.hbm_total_mb - cuda_total // 2**20 <= TELEMETRY_CUDA_SLACK_MB,
+        "cuda_free_near": abs(chip.hbm_free_mb - cuda_free // 2**20) <= TELEMETRY_CUDA_SLACK_MB,
+        "max_sm_clock_equals_nvidia_smi": chip.clock_mhz == int(smi_clock),
+        "power_limit_equals_nvidia_smi": chip.power_w == int(float(smi_power)),
+        "cores_and_link": chip.core_count > 0 and chip.ici_bandwidth_gbps > 0,
+    }
+
+    # free memory under a 16 GiB allocation
+    hold = torch.empty(TELEMETRY_ALLOC_GIB << 30, dtype=torch.uint8, device="cuda")
+    torch.cuda.synchronize()
+    held_free = sniffer.local_node_metrics().chips[0].hbm_free_mb
+    del hold
+    free_memory()
+    drop_mb = chip.hbm_free_mb - held_free
+    checks["free_drops_by_the_allocation"] = (
+        drop_mb >= (TELEMETRY_ALLOC_GIB << 10) - TELEMETRY_FREE_SLACK_MB)
+
+    # duty: NVML through the pool, and the probe sampler, under the load
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    b, h, _, d = RING_SHAPES["mha"]
+    q, k, v = (torch.randn(b, h, RING_SEQ, d, generator=gen, device="cuda",
+                           dtype=torch.bfloat16) for _ in range(3))
+    (card,) = [c for c in nvml.devices() if c.index == 0]
+    pool = duty.DutySamplerPool()
+    sampler = duty.DutyCycleSampler(0, period_s=0.1).start()
+    try:
+        # the probe's estimate is an EWMA of samples: its highest reading
+        # over an idle second against its highest over the load
+        idle_probe = []
+        for _ in range(20):
+            time.sleep(0.05)
+            idle_probe.append(sampler.duty_pct)
+        idle_nvml = pool.duty_of(card)
+        reset_launches(attn)
+        busy_nvml, busy_probe, launches = [], [], 0
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            while (elapsed := time.perf_counter() - t0) < TELEMETRY_LOAD_S:
+                out = attn.flash_attention(q, k, v)
+                launches += 1
+                if launches % 50 == 0:
+                    busy_probe.append(sampler.duty_pct)
+                    if elapsed > TELEMETRY_LOAD_S / 2:
+                        busy_nvml.append(pool.duty_of(card))
+        busy_nvml.append(pool.duty_of(card))
+        torch.cuda.synchronize()
+        drained_s = time.perf_counter() - t0
+        load_launches, load_routes = read_launches(attn), read_routes(attn)
+        time.sleep(2 * sampler.period_s)  # the probe that waited on the load lands
+        busy_probe.append(sampler.duty_pct)
+        time.sleep(TELEMETRY_SETTLE_S)
+        after_nvml = pool.duty_of(card)
+    finally:
+        stopped = sampler.stop() and pool.stop()
+    with torch.no_grad():
+        repeat_equal = torch.equal(out, attn.flash_attention(q, k, v))
+    finite = bool(torch.isfinite(out.float()).all())
+    del q, k, v, out
+    checks.update({
+        "load_on_the_wgmma_route": load_routes == {"flash_fwd": {"wgmma": launches},
+                                                   "flash_bwd_dq": {}, "flash_bwd_dkv": {}},
+        "nvml_busy_under_load": min(busy_nvml) >= TELEMETRY_BUSY_PCT,
+        "probe_above_its_idle": max(busy_probe) > max(idle_probe),
+        "nvml_idle_after": after_nvml <= TELEMETRY_IDLE_PCT,
+        "sampler_joined": stopped,
+        "load_output_finite_and_repeatable": finite and repeat_equal,
+    })
+
+    # the CLI's one-shot CR, as the sniffer DaemonSet's container runs it
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "yoda_scheduler_tpu_torch.cli", "sniff",
+                          "--node-name", LIVE_NODE], capture_output=True, text=True,
+                         timeout=120, cwd=str(Path(__file__).resolve().parent))
+    cli_s = time.perf_counter() - t0
+    cr = json.loads(res.stdout) if res.returncode == 0 else {}
+    status = cr.get("status", {})
+    checks["cli_sniff_cr"] = (
+        res.returncode == 0 and cr.get("kind") == "TpuNodeMetrics"
+        and cr.get("metadata", {}).get("name") == LIVE_NODE
+        and status.get("accelerator") == "gpu" and len(status.get("chips", [])) == listed
+        and status["chips"][0]["hbm_total_mb"] == int(smi_total))
+    emit("telemetry", nvidia_smi=smi, card=name, snapshot_ms=snapshot_ms, read=read,
+         free_mb_holding_16gib=held_free, free_drop_mb=drop_mb,
+         load=dict(shape=dict(b=b, h=h, seq=RING_SEQ, d=d, causal=True, dtype="bfloat16"),
+                   host_s=TELEMETRY_LOAD_S, drained_s=drained_s, launches=load_launches,
+                   launches_by_route=load_routes),
+         duty_nvml=dict(idle=idle_nvml, busy=busy_nvml, after=after_nvml),
+         duty_probe=dict(idle=idle_probe, busy=busy_probe),
+         cli_sniff=dict(rc=res.returncode, s=cli_s, stderr=res.stderr[-2000:],
+                        chips=len(status.get("chips", [])),
+                        accelerator=status.get("accelerator")),
+         checks=checks)
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"telemetry: failed {failed}")
+    return load_launches
+
+
+def scale_nodes(telemetry, units: int):
+    """bench.py's build_scale_nodes through the port's telemetry.fake:
+    `units` x (one 4-host v4-32 slice, 2 v4-8 hosts, 2 GPU nodes of 8 cards
+    at 40,000 MB)."""
+    nodes = []
+    for i in range(units):
+        nodes += telemetry.make_v4_slice(f"s{i}", "2x2x4")
+        for j in range(2):
+            nodes.append(telemetry.make_tpu_node(f"t{i}-{j}", chips=4))
+            nodes.append(telemetry.make_gpu_node(f"g{i}-{j}", cards=8))
+    return nodes
+
+
+def burst_specs(n: int, seed: int) -> list[tuple[str, dict]]:
+    """bench.py's scale burst (`_run_scale_nogc`): an equal mix of one-chip
+    TPU pods, two-chip TPU pods at 4,000 MB, one-card GPU pods at 10,000 MB
+    and plain pods at 1,000 MB, in an order shuffled from `seed`."""
+    kinds = {"tpu-1c": {"scv/number": "1", "tpu/accelerator": "tpu"},
+             "tpu-2c": {"scv/number": "2", "tpu/accelerator": "tpu", "scv/memory": "4000"},
+             "gpu": {"scv/number": "1", "tpu/accelerator": "gpu", "scv/memory": "10000"},
+             "plain": {"scv/memory": "1000"}}
+    names = list(kinds)
+    specs = [(f"p{i}", dict(kinds[names[i % 4]])) for i in range(n)]
+    random.Random(seed).shuffle(specs)
+    return specs
+
+
+def placement_faults(pods, cluster) -> list[str]:
+    """The engine's invariants over the cluster's book (tests/test_chaos.py's):
+    each bound pod once, where it believes it is, on chips its node has,
+    the count it asked for, no chip held twice, and each chip's free
+    memory at least what its pod asked for."""
+    faults, seen, owners = [], {}, {}
+    for node in cluster.node_names():
+        for p in cluster.pods_on(node):
+            if p.key in seen:
+                faults.append(f"{p.key} bound on {seen[p.key]} and {node}")
+            seen[p.key] = node
+    for p in pods:
+        if p.phase.value != "Bound":
+            continue
+        if seen.get(p.key) != p.node:
+            faults.append(f"{p.name} on {p.node}, the cluster says {seen.get(p.key)}")
+        chips = {c.coords: c for c in cluster.telemetry.get(p.node).chips}
+        held = p.assigned_chips()
+        if len(held) != int(p.labels.get("scv/number", "1")):
+            faults.append(f"{p.name} holds {len(held)} chips")
+        for c in held:
+            if c not in chips:
+                faults.append(f"{p.name} holds {p.node}/{c}, which does not exist")
+                continue
+            if (p.node, c) in owners:
+                faults.append(f"{p.node}/{c} held by {owners[(p.node, c)]} and {p.name}")
+            owners[(p.node, c)] = p.name
+            if int(p.labels.get("scv/memory", "0")) > chips[c].hbm_free_mb:
+                faults.append(f"{p.name} overcommits {p.node}/{c}")
+    return faults
+
+
+def schedule_trace(live_at, units: int, seed: int) -> dict:
+    """One run of the scheduler phase's trace on the port's engine (a
+    HybridClock, as bench.py): the 5,000-node cluster and the live node
+    `live_at(0)`; a LIVE_POD_MB pod, which must bind on the live node; it
+    leaves, the live node is re-put as `live_at(1)` and the same pod must
+    stay unschedulable; the node is re-put as `live_at(2)` and the burst
+    runs. -> the outcomes, placements and the engine's readings."""
+    import copy
+
+    from yoda_scheduler_tpu_torch import scheduler, telemetry
+    from yoda_scheduler_tpu_torch.scheduler.core import HybridClock
+    from yoda_scheduler_tpu_torch.utils import Pod
+
+    store = telemetry.TelemetryStore()
+    far = time.time() + 1e8
+    for m in scale_nodes(telemetry, units):
+        m.heartbeat = far
+        store.put(m)
+    store.put(copy.deepcopy(live_at(0)))
+    cluster = scheduler.FakeCluster(store)
+    cluster.add_nodes_from_telemetry()
+    # bench.py's scale configuration
+    config = scheduler.SchedulerConfig(max_attempts=8, telemetry_max_age_s=1e9,
+                                       pod_hinted_backoff_s=30.0)
+    sched = scheduler.Scheduler(cluster, config, clock=HybridClock())
+    want = {"tpu/accelerator": "gpu", "scv/number": "1", "scv/memory": str(LIVE_POD_MB)}
+    live_pod = Pod("live-card", labels=dict(want))
+    sched.submit(live_pod)
+    sched.run_until_idle(max_cycles=100)
+    first = (live_pod.phase.value, live_pod.node, sorted(live_pod.assigned_chips()))
+    cluster.evict(live_pod)
+    sched.forget(live_pod.key)
+    store.put(copy.deepcopy(live_at(1)))
+    held_pod = Pod("live-card-held", labels=dict(want))
+    sched.submit(held_pod)
+    sched.run_until_idle(max_cycles=100)
+    held = (held_pod.phase.value, held_pod.node)
+    store.put(copy.deepcopy(live_at(2)))
+    n_nodes = len(cluster.node_names())
+    pods = [Pod(name, labels=labels)
+            for name, labels in burst_specs(SCHED_PODS_PER_NODE * (n_nodes - 1), seed)]
+    sched.metrics.histograms.pop("cycle_latency_ms", None)
+    t0 = time.perf_counter()
+    for p in pods:
+        sched.submit(p)
+    cycles = sched.run_until_idle(max_cycles=4 * len(pods))
+    wall_s = time.perf_counter() - t0
+    cyc = sched.metrics.histogram("cycle_latency_ms")
+    planes = {dict(k).get("plane"): n for k, n in
+              sched.metrics.labeled_counters.get("cycle_plane_total", {}).items()}
+    bound = [p for p in pods if p.phase.value == "Bound"]
+    return dict(
+        nodes=n_nodes, pods=len(pods), live_first=first, live_held=held,
+        bound=len(bound), on_live_node=sum(p.node == LIVE_NODE for p in bound),
+        cycles=cycles, wall_s=wall_s, cycle_p50_ms=cyc.quantile(0.5),
+        cycle_p99_ms=cyc.quantile(0.99), planes=planes,
+        native_plane_active=sched.metrics.gauges.get("native_plane_active", 0.0) == 1.0,
+        faults=placement_faults(pods, cluster),
+        placements={p.name: (p.phase.value, p.node, sorted(p.assigned_chips())) for p in pods})
+
+
+def phase_scheduler(smi: str):
+    """The port's engine on this card's host at bench.py's 5,000-node scale
+    with the live card as sniffed: the card decides where a 60,000 MB pod
+    goes, and refuses it while 40 GiB of it is held; the burst's
+    invariants, two runs of the same trace placing alike."""
+    from yoda_scheduler_tpu_torch.telemetry import sniffer
+
+    free_memory()
+    live = [sniffer.local_node_metrics(LIVE_NODE)]
+
+    def live_at(step):
+        """Run 1 sniffs the card at each step (holding LIVE_HOLD_GIB for
+        step 1); run 2 replays the same snapshots."""
+        if step < len(live):
+            return live[step]
+        hold = (torch.empty(LIVE_HOLD_GIB << 30, dtype=torch.uint8, device="cuda")
+                if step == 1 else None)
+        torch.cuda.synchronize()
+        live.append(sniffer.local_node_metrics(LIVE_NODE))
+        del hold
+        free_memory()
+        return live[step]
+
+    runs = [schedule_trace(live_at, SCHED_UNITS, SCHED_SEED) for _ in range(2)]
+    first, second = runs
+    free_mb = [m.chips[0].hbm_free_mb for m in live]
+    same = first["placements"] == second["placements"]
+    checks = {
+        "live_pod_binds_on_the_live_card": first["live_first"][:2] == ("Bound", LIVE_NODE),
+        "live_pod_refused_while_held": first["live_held"][0] != "Bound",
+        "live_card_has_room_then_none": free_mb[0] >= LIVE_POD_MB > free_mb[1],
+        "no_placement_fault": not first["faults"] and not second["faults"],
+        "runs_place_alike": same and all(first[k] == second[k] for k in
+                                         ("live_first", "live_held", "bound")),
+        "burst_binds": first["bound"] > 0,
+    }
+    emit("scheduler", nvidia_smi=smi, config="bench.py huge_5000 (BENCH_SCALE5K.json) + "
+         "the live card", seed=SCHED_SEED, live_free_mb=free_mb,
+         live_pod_mb=LIVE_POD_MB, hold_gib=LIVE_HOLD_GIB,
+         runs=[{k: v for k, v in r.items() if k != "placements"} for r in runs],
+         placements_equal=same, checks=checks)
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"scheduler: failed {failed}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1641,7 +1993,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    phase_build(_build)
+    smi = phase_build(_build)
     rows, max_err = phase_kernel(attn)
     bwd_rows, bwd_err = phase_backward(attn, variants)
     cfg, params, fwd_launches = phase_forward(attn, llama)
@@ -1673,6 +2025,8 @@ def main() -> int:
     multihost_launches = phase_multihost(attn, llama, train, mesh_mod, multihost,
                                          ckpt_losses[0])
     phase_resnet(resnet)
+    telemetry_launches = phase_telemetry(attn, smi)
+    phase_scheduler(smi)
 
     main_row, bwd_main = rows[0], bwd_rows[0]
     src = "yoda_scheduler_tpu_torch/ops/csrc/"
@@ -1692,7 +2046,8 @@ def main() -> int:
                              "ulysses_fwd_bwd": ulysses_launches["flash_fwd"],
                              "pipeline_train_step": pipe_launches["flash_fwd"],
                              "checkpoint_resumed_step": resumed_launches["flash_fwd"],
-                             "multihost_step": multihost_launches["flash_fwd"]},
+                             "multihost_step": multihost_launches["flash_fwd"],
+                             "telemetry_load": telemetry_launches["flash_fwd"]},
         "max_abs_err": max_err,
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],

@@ -47,6 +47,37 @@ def test_import_loads_no_jax():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+def test_engine_imports_load_neither_torch_nor_jax():
+    """The scheduling system runs on hosts: importing the engine, the k8s
+    layer, the CLI, the chaos harness, the telemetry and the topology
+    loads no torch, no jax and nothing of the JAX package."""
+    code = ("import sys\n"
+            "import yoda_scheduler_tpu_torch.scheduler.core, "
+            "yoda_scheduler_tpu_torch.k8s.client, yoda_scheduler_tpu_torch.k8s.webhook, "
+            "yoda_scheduler_tpu_torch.cli, yoda_scheduler_tpu_torch.chaos, "
+            "yoda_scheduler_tpu_torch.telemetry, yoda_scheduler_tpu_torch.topology, "
+            "yoda_scheduler_tpu_torch.telemetry.duty, "
+            "yoda_scheduler_tpu_torch.telemetry.publisher\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'torch', 'yoda_scheduler_tpu'))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=str(PKG.parent))
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_sniffer_raises_without_libnvidia_ml(monkeypatch):
+    """A host whose NVML cannot be loaded is never reported as a host
+    without cards: the snapshot raises."""
+    from yoda_scheduler_tpu_torch.telemetry import nvml, sniffer
+
+    monkeypatch.setattr(nvml, "LIBRARY", "libnvidia-ml-absent.so.1")
+    monkeypatch.setattr(nvml, "_default", nvml.Nvml())
+    with pytest.raises(nvml.NvmlError, match="libnvidia-ml-absent.so.1"):
+        sniffer.local_node_metrics("node")
+
+
 @pytest.mark.parametrize("needle", ["import jax", "from jax",
                                     "scaled_dot_product_attention",
                                     "torch.compile", "yoda_scheduler_tpu."])
