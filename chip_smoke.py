@@ -121,8 +121,30 @@ The scheduling system, on the host, fed by the card's telemetry:
   and with 40 GiB of the card held (re-sniffed, re-put) the same pod is
   refused; then bench.py's burst of 25,000 pods (5 a node, its four
   kinds, in an order from a seed): no chip held twice, no chip's memory
-  overcommitted, two runs of the whole trace placing alike; bound pods,
-  cycle p50 and p99, wall seconds and the data planes that ran.
+  overcommitted, two runs of the whole trace on the native planes (built
+  here from the checkout's native/*.cc with g++; the phase fails if they
+  do not build) placing alike, deciding cycles natively and binding what
+  the numpy plane bound before, and a third run on the numpy plane placing
+  as they do; bound pods, cycle p50 and p99, wall seconds and the data
+  planes that ran.
+- gpu_fleet (topology/gpus.py, plugins/gpulocality.py): NVML's product
+  name of the card maps to its catalog model (h100-sxm5), and each field of
+  that row equals NVML's reading (total memory, maximum SM clock, CUDA
+  cores, active NVLink links, power limit; a difference names the field);
+  the sniffed node carries the model. Then a fleet after the NVIDIA DGX
+  SuperPOD (DGX H100) reference architecture, 32-node scalable units as
+  InfiniBand leaves: 16 leaves x 32 HGX H100 SXM5 nodes, 64 A100 SXM4 80GB
+  nodes on 2 leaves, 32 H100 PCIe nodes on 1 leaf, each model its own
+  fabric, plus the live node, takes a burst from a seed (gangs of 2, 4, 8
+  and 16 nodes x 8 cards pinned to h100-sxm5, whole-node pods, 1-4-card
+  pods pinned to each model or to none, ~80% of the cards; first a pod
+  pinned to h100-sxm5 asking memory only the live card has free), twice
+  under deploy/gpu-profile.yaml (gpu-locality on) and once under the
+  default profile: every pinned pod on its model, the live-card pod on
+  the live node, with the plugin no gang across two leaves while one leaf
+  had free nodes for all its members at its first reservation, no card
+  held twice, no memory overcommitted, the two plugin runs alike; the
+  gangs across leaves on and off, decisions by plane, each run's time.
 
 Then a line listing every kernel of the path, and last the device
 line. Full results also go to chiprun_out/chip_smoke.json.
@@ -285,6 +307,24 @@ TELEMETRY_BUSY_PCT, TELEMETRY_IDLE_PCT = 80, 20
 # of the card held it fits nowhere.
 SCHED_UNITS, SCHED_PODS_PER_NODE, SCHED_SEED = 625, 5, 13
 LIVE_NODE, LIVE_POD_MB, LIVE_HOLD_GIB = "h100-live", 60_000, 40
+
+# native planes: the scheduler phase's burst must bind what PR 9's numpy
+# plane bound (the native plane places as the numpy plane does)
+SCHED_BOUND = 20_161
+
+# gpu_fleet: the NVIDIA DGX SuperPOD (DGX H100) reference architecture's
+# 32-node scalable units as InfiniBand leaves: 16 leaves x 32 HGX H100
+# SXM5 nodes (4,096 cards), 64 A100 SXM4 80GB nodes on 2 leaves, 32 H100
+# PCIe nodes on 1 leaf (model, leaves, nodes a leaf), each model its own
+# fabric, and the live node. The fleet's cards report GPU_FLEET_FREE_MB
+# free (16 GiB resident); a pod pinned to h100-sxm5 asking GPU_LIVE_POD_MB
+# a card fits only the live card.
+GPU_FLEET = (("h100-sxm5", 16, 32), ("a100-sxm4-80gb", 2, 32), ("h100-pcie", 1, 32))
+GPU_FLEET_FREE_MB, GPU_LIVE_POD_MB, GPU_FLEET_SEED = 65_536, 70_000, 21
+# gangs of h100-sxm5 nodes x 8 cards: size -> count (1,664 cards)
+GPU_GANGS = {16: 4, 8: 8, 4: 12, 2: 16}
+GPU_WHOLE_NODE_PODS, GPU_SMALL_PODS = 100, 570
+GPU_PROFILE = "yoda_scheduler_tpu_torch/deploy/gpu-profile.yaml"
 
 RESULTS: dict = {}
 
@@ -1685,6 +1725,7 @@ def phase_telemetry(attn, smi: str):
     under a 16 GiB allocation, NVML's duty and the probe sampler's under
     the flash kernel's load and after it, and `cli sniff`'s CR."""
     from yoda_scheduler_tpu_torch.telemetry import duty, nvml, sniffer
+    from yoda_scheduler_tpu_torch.topology.gpus import model_of_nvml_name
 
     free_memory()
     # this process's CUDA context exists before any reading is compared
@@ -1707,10 +1748,11 @@ def phase_telemetry(attn, smi: str):
         clock_mhz=chip.clock_mhz, smi_max_sm_clock_mhz=int(smi_clock),
         power_w=chip.power_w, smi_power_limit_w=float(smi_power),
         core_count=chip.core_count, ici_bandwidth_gbps=chip.ici_bandwidth_gbps,
-        accelerator=node.accelerator)
+        accelerator=node.accelerator, model=node.tpu_generation)
     checks = {
         "one_chip_a_card": node.chip_count == len(cards) == listed,
-        "gpu_node": node.accelerator == "gpu" and node.tpu_generation == "",
+        "gpu_node": node.accelerator == "gpu" and node.tpu_generation == (
+            model_of_nvml_name(name) or ""),
         "total_equals_nvidia_smi": chip.hbm_total_mb == int(smi_total),
         "free_near_nvidia_smi": abs(chip.hbm_free_mb - int(smi_free)) <= TELEMETRY_FREE_SLACK_MB,
         "cuda_total_within_reservation":
@@ -1871,7 +1913,24 @@ def placement_faults(pods, cluster) -> list[str]:
     return faults
 
 
-def schedule_trace(live_at, units: int, seed: int) -> dict:
+def build_native_planes() -> float:
+    """Build the engine's native planes from this checkout (g++); raises,
+    failing the phase, if they do not build or load. -> seconds."""
+    from yoda_scheduler_tpu_torch.utils import nativeloader
+
+    t0 = time.perf_counter()
+    path = nativeloader.build()
+    if nativeloader.load_library() is None:
+        raise SystemExit(f"native planes built ({path}) but not loaded")
+    return time.perf_counter() - t0
+
+
+def plane_counts(sched) -> dict:
+    return {dict(k).get("plane"): n for k, n in
+            sched.metrics.labeled_counters.get("cycle_plane_total", {}).items()}
+
+
+def schedule_trace(live_at, units: int, seed: int, native: bool = True) -> dict:
     """One run of the scheduler phase's trace on the port's engine (a
     HybridClock, as bench.py): the 5,000-node cluster and the live node
     `live_at(0)`; a LIVE_POD_MB pod, which must bind on the live node; it
@@ -1894,7 +1953,7 @@ def schedule_trace(live_at, units: int, seed: int) -> dict:
     cluster.add_nodes_from_telemetry()
     # bench.py's scale configuration
     config = scheduler.SchedulerConfig(max_attempts=8, telemetry_max_age_s=1e9,
-                                       pod_hinted_backoff_s=30.0)
+                                       pod_hinted_backoff_s=30.0, native_plane=native)
     sched = scheduler.Scheduler(cluster, config, clock=HybridClock())
     want = {"tpu/accelerator": "gpu", "scv/number": "1", "scv/memory": str(LIVE_POD_MB)}
     live_pod = Pod("live-card", labels=dict(want))
@@ -1919,8 +1978,7 @@ def schedule_trace(live_at, units: int, seed: int) -> dict:
     cycles = sched.run_until_idle(max_cycles=4 * len(pods))
     wall_s = time.perf_counter() - t0
     cyc = sched.metrics.histogram("cycle_latency_ms")
-    planes = {dict(k).get("plane"): n for k, n in
-              sched.metrics.labeled_counters.get("cycle_plane_total", {}).items()}
+    planes = plane_counts(sched)
     bound = [p for p in pods if p.phase.value == "Bound"]
     return dict(
         nodes=n_nodes, pods=len(pods), live_first=first, live_held=held,
@@ -1955,27 +2013,218 @@ def phase_scheduler(smi: str):
         free_memory()
         return live[step]
 
-    runs = [schedule_trace(live_at, SCHED_UNITS, SCHED_SEED) for _ in range(2)]
-    first, second = runs
+    native_build_s = build_native_planes()
+    runs = [schedule_trace(live_at, SCHED_UNITS, SCHED_SEED, native=native)
+            for native in (True, True, False)]
+    first, second, numpy_run = runs
     free_mb = [m.chips[0].hbm_free_mb for m in live]
     same = first["placements"] == second["placements"]
     checks = {
+        "native_plane_decides": all(r["native_plane_active"] and r["planes"].get("native", 0) > 0
+                                    for r in (first, second)),
+        "native_places_as_numpy": (first["placements"] == numpy_run["placements"]
+                                   and not numpy_run["native_plane_active"]),
+        "binds_as_before": first["bound"] == SCHED_BOUND,
         "live_pod_binds_on_the_live_card": first["live_first"][:2] == ("Bound", LIVE_NODE),
         "live_pod_refused_while_held": first["live_held"][0] != "Bound",
         "live_card_has_room_then_none": free_mb[0] >= LIVE_POD_MB > free_mb[1],
-        "no_placement_fault": not first["faults"] and not second["faults"],
+        "no_placement_fault": not any(r["faults"] for r in runs),
         "runs_place_alike": same and all(first[k] == second[k] for k in
                                          ("live_first", "live_held", "bound")),
         "burst_binds": first["bound"] > 0,
     }
     emit("scheduler", nvidia_smi=smi, config="bench.py huge_5000 (BENCH_SCALE5K.json) + "
-         "the live card", seed=SCHED_SEED, live_free_mb=free_mb,
+         "the live card", seed=SCHED_SEED, native_build_s=native_build_s,
+         run_planes=["native", "native", "numpy"], live_free_mb=free_mb,
          live_pod_mb=LIVE_POD_MB, hold_gib=LIVE_HOLD_GIB,
          runs=[{k: v for k, v in r.items() if k != "placements"} for r in runs],
          placements_equal=same, checks=checks)
     failed = [c for c, ok in checks.items() if not ok]
     if failed:
         raise SystemExit(f"scheduler: failed {failed}")
+
+
+def gpu_fleet_nodes(telemetry):
+    """GPU_FLEET's pools through the port's telemetry.fake. -> (nodes, each
+    pool node's IB leaf)."""
+    nodes, leaf_of = [], {}
+    for model, leaves, per_leaf in GPU_FLEET:
+        pool, leaves_of = telemetry.make_gpu_pool(model, leaves, per_leaf,
+                                                  mem_free_mb=GPU_FLEET_FREE_MB)
+        nodes += pool
+        leaf_of.update(leaves_of)
+    return nodes, leaf_of
+
+
+def gpu_fleet_specs(seed: int) -> list[tuple[str, dict]]:
+    """The burst, in an order from `seed`, after the live-card pod: gangs
+    of GPU_GANGS pinned to h100-sxm5 (8 cards a member), whole-node 8-card
+    pods, 1-4-card pods pinned to each model (by its share of the fleet's
+    cards) or to none; ~80% of the fleet's cards."""
+    rng = random.Random(seed)
+    specs = []
+    for size, count in GPU_GANGS.items():
+        for g in range(count):
+            specs += [(f"gang{size}-{g}-w{i}", {
+                "tpu/gang-name": f"gang{size}-{g}", "tpu/gang-size": str(size),
+                "scv/number": "8", "scv/memory": "40000", "tpu/accelerator": "gpu",
+                "tpu/generation": "h100-sxm5"}) for i in range(size)]
+    specs += [(f"node{i}", {"scv/number": "8", "tpu/accelerator": "gpu",
+                            "scv/memory": str(rng.choice((10_000, 30_000, 60_000)))})
+              for i in range(GPU_WHOLE_NODE_PODS)]
+    models = ["h100-sxm5", "a100-sxm4-80gb", "h100-pcie", None]
+    for i in range(GPU_SMALL_PODS):
+        labels = {"scv/number": str(rng.choice((1, 2, 3, 4))), "tpu/accelerator": "gpu",
+                  "scv/memory": str(rng.choice((10_000, 30_000, 60_000)))}
+        model = rng.choices(models, weights=(70, 10, 5, 15))[0]
+        if model:
+            labels["tpu/generation"] = model
+        specs.append((f"small{i}", labels))
+    rng.shuffle(specs)
+    live = ("live-card", {"scv/number": "1", "tpu/accelerator": "gpu", "scv/priority": "10",
+                          "tpu/generation": "h100-sxm5", "scv/memory": str(GPU_LIVE_POD_MB)})
+    return [live] + specs
+
+
+def gpu_fleet_trace(live, locality: bool, seed: int) -> dict:
+    """One run of the gpu_fleet trace on the port's engine (a HybridClock)
+    with the GPU profile (deploy/gpu-profile.yaml), gpu-locality on or the
+    default enablement. Records, at each gang's first reservation, whether
+    one leaf then had free nodes for all its members."""
+    from yoda_scheduler_tpu_torch import cli, scheduler, telemetry
+    from yoda_scheduler_tpu_torch.scheduler.core import HybridClock
+    from yoda_scheduler_tpu_torch.utils import Pod
+    from yoda_scheduler_tpu_torch.utils.labels import IB_LEAF_LABEL
+
+    store = telemetry.TelemetryStore()
+    far = time.time() + 1e8
+    nodes, leaf_of = gpu_fleet_nodes(telemetry)
+    for m in nodes + [copy.deepcopy(live)]:
+        m.heartbeat = far
+        store.put(m)
+    cluster = scheduler.FakeCluster(store)
+    cluster.add_nodes_from_telemetry()
+    for name, leaf in leaf_of.items():
+        cluster.set_node_meta(name, labels={IB_LEAF_LABEL: leaf})
+    leaf_of[live.node] = "node/" + live.node
+    ((config, enabled),) = cli.load_profiles(str(Path(__file__).resolve().parent
+                                                 / GPU_PROFILE))
+    sched = scheduler.Scheduler(cluster, config, clock=HybridClock(),
+                                **({"profile": scheduler.registry.build_profile(
+                                    config, enabled)} if locality else {}))
+    model_of = {m.node: m.tpu_generation for m in nodes + [live]}
+    room: dict[str, bool] = {}
+    alloc = sched.allocator
+    real_reserve = alloc.reserve
+
+    def reserve(state, pod, node):
+        g = pod.labels.get("tpu/gang-name")
+        if g is not None and g not in room:
+            # free nodes for a member on each leaf, as the cluster and the
+            # allocator's reservations stand before this member's
+            want, mb = int(pod.labels["scv/number"]), int(pod.labels["scv/memory"])
+            free = {}
+            for name in cluster.node_names():
+                if model_of.get(name) != pod.labels["tpu/generation"]:
+                    continue
+                taken = {c for p in cluster.pods_on(name) for c in p.assigned_chips()}
+                taken |= alloc.pending_on(name)
+                ok = sum(c.coords not in taken and c.hbm_free_mb >= mb
+                         for c in store.get(name).chips)
+                if ok >= want:
+                    free[leaf_of[name]] = free.get(leaf_of[name], 0) + 1
+            room[g] = max(free.values(), default=0) >= int(pod.labels["tpu/gang-size"])
+        return real_reserve(state, pod, node)
+
+    alloc.reserve = reserve
+    pods = [Pod(name, labels=labels) for name, labels in gpu_fleet_specs(seed)]
+    t0 = time.perf_counter()
+    for p in pods:
+        sched.submit(p)
+    cycles = sched.run_until_idle(max_cycles=20 * len(pods))
+    wall_s = time.perf_counter() - t0
+    cyc = sched.metrics.histogram("cycle_latency_ms")
+    gangs: dict[str, set] = {}
+    for p in pods:
+        g = p.labels.get("tpu/gang-name")
+        if g is not None and p.phase.value == "Bound":
+            gangs.setdefault(g, set()).add(leaf_of[p.node])
+    spanning = sorted(g for g, leaves in gangs.items() if len(leaves) > 1)
+    bound = [p for p in pods if p.phase.value == "Bound"]
+    cards = sum(len(m.chips) for m in nodes) + len(live.chips)
+    return dict(
+        locality=locality, nodes=len(cluster.node_names()), cards=cards, pods=len(pods),
+        cards_asked=sum(int(p.labels["scv/number"]) for p in pods),
+        bound=len(bound), cards_bound=sum(int(p.labels["scv/number"]) for p in bound),
+        gangs_bound=len(gangs), gangs=sum(GPU_GANGS.values()),
+        gangs_spanning_leaves=spanning,
+        spanning_with_room=[g for g in spanning if room.get(g)],
+        off_model=[p.name for p in bound if p.labels.get("tpu/generation")
+                   and model_of[p.node] != p.labels["tpu/generation"]],
+        live=(pods[0].phase.value, pods[0].node),
+        on_live_node=sum(p.node == live.node for p in bound),
+        cycles=cycles, wall_s=wall_s, cycle_p50_ms=cyc.quantile(0.5),
+        cycle_p99_ms=cyc.quantile(0.99), planes=plane_counts(sched),
+        native_plane_active=sched.metrics.gauges.get("native_plane_active", 0.0) == 1.0,
+        faults=placement_faults(pods, cluster),
+        placements={p.name: (p.phase.value, p.node, sorted(p.assigned_chips())) for p in pods})
+
+
+# each field of the live card against its catalog row: (field, NVML reading
+# of the card, the row's value)
+def live_card_fields(card, chip, model) -> dict:
+    return {
+        "hbm_mb": (chip.hbm_total_mb, model.hbm_mb),
+        "max_sm_clock_mhz": (chip.clock_mhz, model.max_sm_clock_mhz),
+        "cuda_cores": (chip.core_count, model.cuda_cores),
+        "links": (card.nvlink_active_links(), model.links),
+        "power_w": (chip.power_w, model.power_w),
+    }
+
+
+def phase_gpu_fleet(smi: str):
+    """The GPU catalog against the live card, and the engine on a DGX
+    SuperPOD-sized GPU fleet with the live node: model-pinned pods, gangs
+    and gpu-locality (two runs on, one with the default profile)."""
+    from yoda_scheduler_tpu_torch.telemetry import nvml, sniffer
+    from yoda_scheduler_tpu_torch.topology import gpus
+
+    free_memory()
+    native_build_s = build_native_planes()
+    (card,) = [c for c in nvml.devices() if c.index == 0]
+    product = card.name()
+    live = sniffer.local_node_metrics(LIVE_NODE)
+    model_name = gpus.model_of_nvml_name(product)
+    fields = (live_card_fields(card, live.chips[0], gpus.gpu_model(model_name))
+              if model_name else {})
+    differ = [f for f, (read, row) in fields.items() if read != row]
+    runs = [gpu_fleet_trace(live, locality, GPU_FLEET_SEED) for locality in (True, True, False)]
+    on, on2, off = runs
+    checks = {
+        "nvml_name_maps_to_h100_sxm5": model_name == "h100-sxm5",
+        "catalog_row_equals_nvml": bool(fields) and not differ,
+        "sniffed_node_is_h100_sxm5": live.tpu_generation == "h100-sxm5",
+        "live_pod_on_the_live_node": all(r["live"] == ("Bound", LIVE_NODE) for r in runs),
+        "pinned_pods_on_their_model": not any(r["off_model"] for r in runs),
+        "no_gang_spans_leaves_with_room": not on["spanning_with_room"]
+                                          and not on2["spanning_with_room"],
+        "no_placement_fault": not any(r["faults"] for r in runs),
+        "locality_runs_place_alike": on["placements"] == on2["placements"],
+        "native_plane_decides": all(r["native_plane_active"] and r["planes"].get("native", 0)
+                                    for r in runs),
+        "burst_binds": all(r["bound"] > 0 and r["gangs_bound"] > 0 for r in runs),
+    }
+    emit("gpu_fleet", nvidia_smi=smi, card=product, model=model_name,
+         live_card=dict(fields), fields_differing=differ, native_build_s=native_build_s,
+         config=f"{GPU_PROFILE}; DGX SuperPOD (DGX H100) scalable units as IB leaves",
+         fleet=[dict(model=m, leaves=lv, nodes_a_leaf=n) for m, lv, n in GPU_FLEET],
+         seed=GPU_FLEET_SEED, live_free_mb=live.chips[0].hbm_free_mb,
+         runs=[{k: v for k, v in r.items() if k != "placements"} for r in runs],
+         checks=checks)
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"gpu_fleet: failed {failed}"
+                         + (f"; fields differing from NVML: {differ}" if differ else ""))
 
 
 def main() -> int:
@@ -2027,6 +2276,7 @@ def main() -> int:
     phase_resnet(resnet)
     telemetry_launches = phase_telemetry(attn, smi)
     phase_scheduler(smi)
+    phase_gpu_fleet(smi)
 
     main_row, bwd_main = rows[0], bwd_rows[0]
     src = "yoda_scheduler_tpu_torch/ops/csrc/"

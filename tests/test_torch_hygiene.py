@@ -2,6 +2,7 @@
 calls no library attention or compiler in place of its kernels, and its
 entry points run on CUDA unless the caller asks for the CPU."""
 
+import re
 import subprocess
 import sys
 import tempfile
@@ -57,7 +58,10 @@ def test_engine_imports_load_neither_torch_nor_jax():
             "yoda_scheduler_tpu_torch.cli, yoda_scheduler_tpu_torch.chaos, "
             "yoda_scheduler_tpu_torch.telemetry, yoda_scheduler_tpu_torch.topology, "
             "yoda_scheduler_tpu_torch.telemetry.duty, "
-            "yoda_scheduler_tpu_torch.telemetry.publisher\n"
+            "yoda_scheduler_tpu_torch.telemetry.publisher, "
+            "yoda_scheduler_tpu_torch.topology.gpus, "
+            "yoda_scheduler_tpu_torch.scheduler.plugins.gpulocality, "
+            "yoda_scheduler_tpu_torch.utils.nativeloader\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'torch', 'yoda_scheduler_tpu'))\n"
             "print(bad)\n"
@@ -76,6 +80,33 @@ def test_sniffer_raises_without_libnvidia_ml(monkeypatch):
     monkeypatch.setattr(nvml, "_default", nvml.Nvml())
     with pytest.raises(nvml.NvmlError, match="libnvidia-ml-absent.so.1"):
         sniffer.local_node_metrics("node")
+
+
+@pytest.mark.parametrize("suffix", [".yaml", ".cc"])
+def test_manifests_and_native_copy_never_name_the_jax_package(suffix):
+    """The GPU manifests (deploy/, example/) and the native planes' copy
+    (native/*.cc) name the port alone."""
+    files = sorted(PKG.rglob(f"*{suffix}"))
+    assert len(files) >= (6 if suffix == ".yaml" else 5)
+    hits = [str(p.relative_to(PKG)) for p in files
+            if re.search(r"yoda_scheduler_tpu(?!_torch)|\bjax\b", p.read_text())]
+    assert hits == []
+
+
+def test_engine_import_builds_nothing():
+    """Importing the engine compiles no native plane: the build runs when a
+    scheduler first asks for the library."""
+    code = ("import sys\n"
+            "from yoda_scheduler_tpu_torch.utils import nativeloader\n"
+            "calls = []\n"
+            "nativeloader.build = lambda: calls.append(1)\n"
+            "import yoda_scheduler_tpu_torch.scheduler.core, yoda_scheduler_tpu_torch.cli\n"
+            "import yoda_scheduler_tpu_torch.scheduler.nativeplane\n"
+            "import yoda_scheduler_tpu_torch.topology.native\n"
+            "sys.exit(1 if calls or nativeloader._cached else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=str(PKG.parent))
+    assert res.returncode == 0, res.stdout + res.stderr
 
 
 @pytest.mark.parametrize("needle", ["import jax", "from jax",

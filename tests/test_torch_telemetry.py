@@ -21,6 +21,7 @@ H100_TOTAL = 81_559 * MIB  # nvidia-smi's memory.total of an H100 80GB HBM3
 
 @dataclasses.dataclass
 class FakeCard:
+    name: str = "NVIDIA H100 80GB HBM3"  # NVML's product name of an H100 SXM5
     total: int = H100_TOTAL
     free: int = H100_TOTAL - 535 * MIB - 123
     max_sm_mhz: int = 1980
@@ -62,6 +63,12 @@ class FakeNvml:
     def nvmlDeviceGetHandleByIndex_v2(self, index, handle):
         handle.contents.value = index + 1
         return self._ret("nvmlDeviceGetHandleByIndex_v2")
+
+    def nvmlDeviceGetName(self, handle, buf, length):
+        name = self._card(handle).name.encode()
+        assert len(name) < length == len(buf)
+        buf.value = name
+        return self._ret("nvmlDeviceGetName")
 
     def nvmlDeviceGetMemoryInfo(self, handle, mem):
         c = self._card(handle)
@@ -126,7 +133,7 @@ def test_each_field_maps_from_nvml():
     pool = duty.DutySamplerPool()
     m, lib = sniff(two_cards(), duty_of=pool.duty_of)
     assert (m.node, m.accelerator, m.tpu_generation, m.host_index, m.num_hosts) == (
-        "h100-node", schema.GPU, "", 0, 1)
+        "h100-node", schema.GPU, "h100-sxm5", 0, 1)
     c0, c1 = m.chips
     assert (c0.index, c0.coords, c1.index, c1.coords) == (0, (0, 0, 0), 1, (1, 0, 0))
     # MiB, floored, as nvidia-smi reports them

@@ -24,10 +24,15 @@ import sys
 import time
 
 from .scheduler import FakeCluster, SchedulerConfig
-from .telemetry import FakePublisher, TelemetryStore, make_gpu_node, make_tpu_node, make_v4_slice
+from .telemetry import (FakePublisher, TelemetryStore, make_gpu_node, make_gpu_pool,
+                        make_tpu_node, make_v4_slice)
 from .utils.pod import Pod, PodPhase
 
 log = logging.getLogger("yoda-tpu")
+
+# `simulate --gpu-models`: each model's pool is one InfiniBand fabric of
+# this many leaves of this many 8-card nodes
+GPU_POOL_LEAVES, GPU_POOL_LEAF_NODES = 2, 8
 
 
 def load_profiles(path: str | None) -> list[tuple[SchedulerConfig, dict | None]]:
@@ -75,6 +80,11 @@ def cmd_simulate(args) -> int:
         nodes.append(make_tpu_node(f"v4-8-{i}", chips=4))
     for i in range(args.gpu_nodes):
         nodes.append(make_gpu_node(f"gpu-{i}", cards=8))
+    leaf_of: dict[str, str] = {}
+    for model in filter(None, (args.gpu_models or "").split(",")):
+        pool, leaves = make_gpu_pool(model, GPU_POOL_LEAVES, GPU_POOL_LEAF_NODES)
+        nodes += pool
+        leaf_of.update(leaves)
     pub.publish(*nodes)
     # the one-shot publish stands in for a continuously-publishing sniffer;
     # re-pin heartbeats far in the future (publish stamps them `now`, and
@@ -87,6 +97,10 @@ def cmd_simulate(args) -> int:
 
     cluster = FakeCluster(store)
     cluster.add_nodes_from_telemetry()
+    from .utils.labels import IB_LEAF_LABEL
+
+    for name, leaf in leaf_of.items():
+        cluster.set_node_meta(name, labels={IB_LEAF_LABEL: leaf})
     from .scheduler.core import HybridClock
     from .scheduler.multi import MultiProfileScheduler
 
@@ -158,7 +172,9 @@ def cmd_sniff(args) -> int:
     from .telemetry.sniffer import local_node_metrics
 
     if not args.publish:
-        print(json.dumps(local_node_metrics(args.node_name).to_cr(), indent=2))
+        print(json.dumps(local_node_metrics(
+            args.node_name, fabric=args.fabric,
+            fabric_hosts=args.fabric_hosts).to_cr(), indent=2))
         return 0
     # daemon mode: publish this node's CR to the API server on an interval
     # (what deploy/sniffer-daemonset.yaml runs)
@@ -172,7 +188,8 @@ def cmd_sniff(args) -> int:
         log.error("no reachable Kubernetes API server to publish to")
         return 2
     return run_publisher(client, node_name=args.node_name,
-                         interval_s=args.interval, once=args.once)
+                         interval_s=args.interval, once=args.once,
+                         fabric=args.fabric, fabric_hosts=args.fabric_hosts)
 
 
 def cmd_validate(args) -> int:
@@ -697,6 +714,12 @@ def main(argv=None) -> int:
                      help="multi-host 8x8 v5e slices (2-D torus)")
     sim.add_argument("--tpu-nodes", type=int, default=2)
     sim.add_argument("--gpu-nodes", type=int, default=2)
+    sim.add_argument("--gpu-models", default="",
+                     help="comma-separated GPU models of the catalog (topology/gpus.py), "
+                          "e.g. h100-sxm5,a100-sxm4-80gb: each adds one InfiniBand "
+                          f"fabric of {GPU_POOL_LEAVES} leaves x {GPU_POOL_LEAF_NODES} "
+                          "catalogued 8-card nodes, the leaf as the node label "
+                          "tpu/ib-leaf")
     sim.add_argument("--metrics-port", type=int, default=None)
     sim.add_argument("--max-cycles", type=int, default=10_000)
     sim.add_argument("--serve-forever", action="store_true")
@@ -712,6 +735,11 @@ def main(argv=None) -> int:
                     help="publish interval seconds (with --publish)")
     sn.add_argument("--once", action="store_true",
                     help="publish a single snapshot and exit (with --publish)")
+    sn.add_argument("--fabric", default="",
+                    help="the InfiniBand fabric this GPU host is on: published as "
+                         "the node's slice, which gang pods are placed within")
+    sn.add_argument("--fabric-hosts", type=int, default=1,
+                    help="hosts on that fabric (with --fabric)")
     sn.add_argument("--kubeconfig", default=None)
     sn.add_argument("--apiserver", default=None)
     sn.add_argument("--insecure-skip-tls-verify", action="store_true",

@@ -17,6 +17,13 @@ with three sources, in precedence order: per-class operator overrides
 unknown (no data never steers a ranking — the same rule the duty-cycle
 scorer follows).
 
+GPU models of the catalog (`topology/gpus.py`) are a family of their own:
+their catalog ratio is the bf16 dense peak normalised to h100-sxm5 = 1.0,
+a class row's "gpu" entry applies to every GPU model the row does not
+name, and a catalogued GPU node's score is normalised by the best ratio
+within the GPU family. TPU generations and uncatalogued GPU nodes (key
+"gpu") keep the best over the TPU catalog and the row, as before.
+
 The OBJECTIVE (config `policyObjective`) shapes how ratios become score
 weights, Gavel/Tesserae's pluggable-policy idea at single-placement
 granularity:
@@ -38,6 +45,7 @@ from __future__ import annotations
 from ..framework import CycleState, NodeInfo, NO_BATCH, ScorePlugin, Status
 from ..columnar import HAVE_NUMPY, np
 from ...topology.generations import GENERATIONS
+from ...topology.gpus import GPUS
 from ...utils.labels import WorkloadSpec, tenant_of
 
 OBJECTIVES = ("makespan", "avg-jct", "finish-time-fairness")
@@ -65,8 +73,8 @@ def throughput_class(spec: WorkloadSpec) -> str:
 
 def generation_key(metrics) -> str:
     """The generation axis of the throughput matrix for one node:
-    tpu_generation when reported, else the accelerator kind ("gpu"),
-    else unknown (neutral)."""
+    tpu_generation when reported (a TPU generation, or a catalogued GPU
+    model), else the accelerator kind ("gpu"), else unknown (neutral)."""
     if metrics is None:
         return _UNKNOWN
     return metrics.tpu_generation or metrics.accelerator or _UNKNOWN
@@ -82,6 +90,13 @@ def _catalog_ratios() -> dict[str, float]:
             for name, g in GENERATIONS.items()}
 
 
+def _gpu_catalog_ratios() -> dict[str, float]:
+    """Default ratios of the GPU models: bf16 dense peak, normalised to
+    h100-sxm5 = 1.0. A peak, not a measurement, as the TPU proxy is."""
+    base = GPUS["h100-sxm5"].bf16_dense_tflops
+    return {name: g.bf16_dense_tflops / base for name, g in GPUS.items()}
+
+
 class ThroughputModel:
     """ratio(class, generation) with operator overrides over catalog
     defaults. `classes` maps workload class -> {generation: ratio}
@@ -89,6 +104,7 @@ class ThroughputModel:
 
     def __init__(self, classes: dict[str, dict[str, float]] | None = None):
         self._defaults = _catalog_ratios()
+        self._gpu_defaults = _gpu_catalog_ratios()
         self._classes: dict[str, dict[str, float]] = {
             str(c): {str(g): float(r) for g, r in (gens or {}).items()}
             for c, gens in (classes or {}).items()}
@@ -99,28 +115,43 @@ class ThroughputModel:
         the class row nor the catalog knows the generation (no data
         never steers)."""
         row = self._classes.get(wclass)
+        gpu = gen in self._gpu_defaults
         if row is not None:
             r = row.get(gen)
             if r is not None:
                 return r
+            if gpu:
+                # a row's "gpu" entry covers the GPU models it omits
+                r = row.get(GPU_KEY)
+                if r is not None:
+                    return r
             # a class row that names ANY generation is authoritative for
             # its workload: generations it omits score the catalog proxy
+        if gpu:
+            return self._gpu_defaults[gen]
         return self._defaults.get(gen, 1.0)
 
-    def best(self, wclass: str) -> float:
-        """The class's best ratio over every KNOWN generation (override
-        row keys + catalog) — the r_best that normalises scores to
-        "fraction of this job's peak throughput". Memoised per class;
-        the model is immutable after construction."""
-        hit = self._best.get(wclass)
+    def best(self, wclass: str, gen: str | None = None) -> float:
+        """The class's best ratio over every KNOWN generation of `gen`'s
+        family — the r_best that normalises scores to "fraction of this
+        job's peak throughput". The GPU models' family is the GPU
+        catalog plus the row's GPU keys; every other key (TPU
+        generations, "gpu", unknown) takes the TPU catalog plus the
+        row's other keys. Memoised per (class, family); the model is
+        immutable after construction."""
+        family = gen is not None and gen in self._gpu_defaults
+        hit = self._best.get((wclass, family))
         if hit is None:
-            known = set(self._defaults)
-            row = self._classes.get(wclass)
-            if row:
-                known |= set(row)
+            row = self._classes.get(wclass) or {}
+            if family:
+                known = set(self._gpu_defaults) | {g for g in row
+                                                   if g in self._gpu_defaults}
+            else:
+                known = set(self._defaults) | {g for g in row
+                                               if g not in self._gpu_defaults}
             hit = max((self.ratio(wclass, g) for g in known), default=1.0)
             hit = max(hit, 1e-9)
-            self._best[wclass] = hit
+            self._best[(wclass, family)] = hit
         return hit
 
 
@@ -199,11 +230,12 @@ class HeterogeneityScore(ScorePlugin):
     def score(self, state: CycleState, pod, node: NodeInfo) -> tuple[float, Status]:
         spec: WorkloadSpec = state.read("workload_spec")
         wclass = throughput_class(spec)
-        r = self.model.ratio(wclass, generation_key(node.metrics))
+        gen = generation_key(node.metrics)
+        r = self.model.ratio(wclass, gen)
         f = self._cycle_factor(state, spec, pod)
         # EDIT IN LOCKSTEP with score_batch: same expression, same
         # operation order, so the vectorized form agrees bit-for-bit
-        return 100.0 * r / self.model.best(wclass) * f, Status.success()
+        return 100.0 * r / self.model.best(wclass, gen) * f, Status.success()
 
     def score_batch(self, state: CycleState, pod, table, rows):
         """Columnar form: one ratio lookup per interned generation id,
@@ -218,8 +250,13 @@ class HeterogeneityScore(ScorePlugin):
         # per-intern-id ratio vector (a handful of strings cluster-wide);
         # ids are dense [0, len) by construction of the intern table
         vec = np.ones(len(interned) + 1, dtype=np.float64)
+        # the family's best per id; the pad slot (no telemetry) takes the
+        # TPU family's, as generation_key(None) = "unknown" does
+        best = np.full(len(interned) + 1, self.model.best(wclass),
+                       dtype=np.float64)
         for s, i in interned.items():
             vec[i] = self.model.ratio(wclass, s)
+            best[i] = self.model.best(wclass, s)
         empty = table.intern_of("")
         gen = table.gen[rows]
         accel = table.accel[rows]
@@ -234,7 +271,7 @@ class HeterogeneityScore(ScorePlugin):
         ids = np.where(ids >= 0, ids, len(interned))
         r = vec[ids]
         f = self._cycle_factor(state, spec, pod)
-        return 100.0 * r / self.model.best(wclass) * f
+        return 100.0 * r / best[ids] * f
 
     def native_score_args(self, state: CycleState, pod, table):
         """Fused-kernel capability hook: the kernel knows the telemetry

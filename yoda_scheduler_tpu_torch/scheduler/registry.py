@@ -124,6 +124,19 @@ register("tenant-quota-gate",
 register("serving-headroom-gate",
          lambda cfg, alloc, gangs, pol, el: _headroom_gate(pol))
 
+
+def _gpu_locality(cfg, alloc, gangs):
+    from .plugins.gpulocality import GpuLocalityScore
+
+    return GpuLocalityScore(alloc, gangs, max_age_s=cfg.telemetry_max_age_s)
+
+
+# GPU fleets (plugins/gpulocality.py): IB-leaf and NVLink-domain locality.
+# Not in DEFAULT_ENABLED — a GPU profile enables it under `score:`
+register("gpu-locality",
+         lambda cfg, alloc, gangs, pol, el: _gpu_locality(cfg, alloc, gangs))
+
+
 _POLICY_PLUGINS = frozenset({
     "heterogeneity-score", "tenant-fairness-sort", "tenant-quota-gate",
     "serving-headroom-gate"})

@@ -18,6 +18,7 @@ import time
 from .schema import Chip, TpuNodeMetrics, GPU, TPU, HEALTHY
 from .store import TelemetryStore
 from ..topology.generations import generation as tpu_generation
+from ..topology.gpus import gpu_model
 from ..topology.torus import host_blocks
 
 # v4 chip defaults, kept as module constants for existing callers
@@ -66,27 +67,74 @@ def make_tpu_node(
 def make_gpu_node(
     name: str,
     cards: int = 8,
-    mem_free_mb: int = 40_000,
-    mem_total_mb: int = 40_000,
-    clock_mhz: int = 1410,
+    mem_free_mb: int | None = None,
+    mem_total_mb: int | None = None,
+    clock_mhz: int | None = None,
+    model: str | None = None,
     **kw,
 ) -> TpuNodeMetrics:
     """A GPU node for the mixed-cluster scenario (BASELINE config #5); the
-    schema is accelerator-agnostic, only `accelerator` differs."""
+    schema is accelerator-agnostic, only `accelerator` differs.
+
+    With `model` (a key of topology/gpus.py's catalog) the cards carry the
+    model's totals as the NVML sniffer reads them (memory, maximum SM
+    clock, CUDA cores, NVLink bandwidth, power limit) and the node's
+    `tpu_generation` is the model; explicit keyword values override
+    per-field. Without it the node is the catalog-less one of 40,000 MB
+    cards the mixed-cluster scenarios have always used."""
+    if model is None:
+        total = 40_000 if mem_total_mb is None else mem_total_mb
+        clock = 1410 if clock_mhz is None else clock_mhz
+        bw, cores, power = 64, 108, 400  # NVLink-ish
+    else:
+        g = gpu_model(model)
+        total = g.hbm_mb if mem_total_mb is None else mem_total_mb
+        clock = g.max_sm_clock_mhz if clock_mhz is None else clock_mhz
+        bw, cores, power = g.nvlink_gbps, g.cuda_cores, g.power_w
+        kw.setdefault("tpu_generation", g.name)
+    free = (40_000 if model is None else total) if mem_free_mb is None else mem_free_mb
     chip_list = [
         Chip(
             index=i,
-            hbm_free_mb=mem_free_mb,
-            hbm_total_mb=mem_total_mb,
-            clock_mhz=clock_mhz,
-            ici_bandwidth_gbps=64,  # NVLink-ish
-            core_count=108,
-            power_w=400,
+            hbm_free_mb=free,
+            hbm_total_mb=total,
+            clock_mhz=clock,
+            ici_bandwidth_gbps=bw,
+            core_count=cores,
+            power_w=power,
             coords=(i, 0, 0),
         )
         for i in range(cards)
     ]
     return TpuNodeMetrics(node=name, chips=chip_list, accelerator=GPU, **kw)
+
+
+def make_gpu_pool(
+    model: str,
+    leaves: int,
+    nodes_per_leaf: int,
+    mem_free_mb: int | None = None,
+) -> tuple[list[TpuNodeMetrics], dict[str, str]]:
+    """One InfiniBand fabric of catalogued 8-card GPU nodes of `model`:
+    `leaves` leaf switches of `nodes_per_leaf` nodes. The fabric is the
+    nodes' slice (`<model>-fabric`, every node a host of it), so a gang may
+    span its nodes and no other fabric's. -> the nodes and each node's
+    leaf, the value of the Node label utils.labels.IB_LEAF_LABEL that the
+    caller puts on the Node object. `mem_free_mb`: each card's free memory
+    (default: all of it)."""
+    hosts = leaves * nodes_per_leaf
+    nodes: list[TpuNodeMetrics] = []
+    leaf_of: dict[str, str] = {}
+    for leaf in range(leaves):
+        for j in range(nodes_per_leaf):
+            name = f"{model}-l{leaf}-n{j}"
+            nodes.append(make_gpu_node(name, cards=8, model=model,
+                                       mem_free_mb=mem_free_mb,
+                                       slice_id=f"{model}-fabric",
+                                       host_index=leaf * nodes_per_leaf + j,
+                                       num_hosts=hosts))
+            leaf_of[name] = f"{model}-leaf-{leaf}"
+    return nodes, leaf_of
 
 
 def make_slice(

@@ -7,8 +7,9 @@ that needs it, never at import. A library that cannot be loaded raises
 `NvmlError`: the caller must not read a host whose GPU driver it cannot see
 as a host without cards.
 
-Every output argument is passed as a `ctypes.pointer` (never `byref`), so
-that a fake library written in Python (the tests') can fill it.
+Every output argument is passed as a `ctypes.pointer` (never `byref`), or,
+for a string, as a `ctypes.create_string_buffer`, so that a fake library
+written in Python (the tests') can fill it.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ NVML_ERROR_NOT_SUPPORTED = 3
 NVML_CLOCK_SM = 1                # nvmlClockType_t
 NVML_NVLINK_MAX_LINKS = 18       # nvml.h; an H100 SXM5 has all 18
 NVML_FEATURE_ENABLED = 1         # nvmlEnableState_t
+NVML_DEVICE_NAME_V2_BUFFER_SIZE = 96  # nvml.h: the longest product name + NUL
 
 
 class NvmlError(RuntimeError):
@@ -59,6 +61,7 @@ _SIGNATURES = {
     "nvmlDeviceGetCount_v2": (ctypes.c_int, [_UINT_P]),
     "nvmlDeviceGetHandleByIndex_v2": (ctypes.c_int, [ctypes.c_uint,
                                                      ctypes.POINTER(_HANDLE)]),
+    "nvmlDeviceGetName": (ctypes.c_int, [_HANDLE, ctypes.c_char_p, ctypes.c_uint]),
     "nvmlDeviceGetMemoryInfo": (ctypes.c_int, [_HANDLE, ctypes.POINTER(Memory)]),
     "nvmlDeviceGetMaxClockInfo": (ctypes.c_int, [_HANDLE, ctypes.c_int, _UINT_P]),
     "nvmlDeviceGetNumGpuCores": (ctypes.c_int, [_HANDLE, _UINT_P]),
@@ -136,6 +139,13 @@ class NvmlDevice:
         out = ctypes.c_uint(0)
         self.nvml.call(name, self.handle, *args, ctypes.pointer(out))
         return out.value
+
+    def name(self) -> str:
+        """The product name, e.g. "NVIDIA H100 80GB HBM3"."""
+        buf = ctypes.create_string_buffer(NVML_DEVICE_NAME_V2_BUFFER_SIZE)
+        self.nvml.call("nvmlDeviceGetName", self.handle, buf,
+                       NVML_DEVICE_NAME_V2_BUFFER_SIZE)
+        return buf.value.decode()
 
     def memory(self) -> Memory:
         mem = Memory()

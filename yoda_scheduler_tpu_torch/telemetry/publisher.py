@@ -75,11 +75,13 @@ class CrPublisher:
 def run_publisher(client: KubeClient, node_name: str | None = None,
                   interval_s: float = 5.0,
                   stop_event: threading.Event | None = None,
-                  once: bool = False) -> int:
+                  once: bool = False, fabric: str = "",
+                  fabric_hosts: int = 1) -> int:
     """The sniffer daemon's main loop: snapshot local telemetry, publish,
     sleep. Publish errors are logged and retried next tick — a transient
     API outage must not kill the DaemonSet pod (the staleness gate already
-    protects the scheduler from frozen data)."""
+    protects the scheduler from frozen data). `fabric`/`fabric_hosts`:
+    the InfiniBand fabric the host is on (sniffer.local_node_metrics)."""
     from .duty import DutySamplerPool
     from .sniffer import local_node_metrics
 
@@ -94,7 +96,8 @@ def run_publisher(client: KubeClient, node_name: str | None = None,
     try:
         while True:
             try:
-                pub.publish(local_node_metrics(node_name, duty_of=duty_of))
+                pub.publish(local_node_metrics(node_name, duty_of=duty_of, fabric=fabric,
+                                               fabric_hosts=fabric_hosts))
                 published += 1
             except Exception as e:
                 log.warning("publish failed (next tick retries): %s", e)

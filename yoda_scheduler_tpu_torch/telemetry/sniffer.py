@@ -8,6 +8,13 @@ one reads the cards through NVML (`nvml.py`, ctypes over the NVIDIA driver's
 from the workloads on the cards it watches. A host whose NVML cannot be
 loaded raises `nvml.NvmlError`: it is never reported as a host without
 cards. A host whose NVML reports no card is a zero-chip node.
+
+The node's `tpu_generation` names its GPU model from the catalog
+(`topology/gpus.py`) when every card's NVML product name is one the
+catalog lists under the same model; a host of an unlisted product, or of
+mixed models, keeps `""`. The model rides that field so that the CR keeps
+its wire form (the JAX package's schema reads it unchanged), and the
+filter's generation predicate pins a pod to a model on every plane.
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ import time
 
 from . import nvml
 from .schema import Chip, TpuNodeMetrics, GPU, HEALTHY
+from ..topology.gpus import model_of_nvml_name
 
 # NVLink rate a link, GB/s both directions: NVIDIA's data sheets give 900
 # GB/s over 18 NVLink4 links (H100 SXM5), 600 over 12 NVLink3 links (A100
@@ -45,8 +53,18 @@ def link_bandwidth_gbps(device) -> int:
     return int(round(PCIE_GBPS_PER_LANE.get(gen, 0.0) * lanes))
 
 
+def host_model(devices) -> str:
+    """The catalog model of every card on the host, or "" when there is no
+    card, a card's product is not in the catalog, or the cards differ."""
+    models = {model_of_nvml_name(d.name()) for d in devices}
+    if len(models) != 1 or None in models:
+        return ""
+    return models.pop()
+
+
 def local_node_metrics(node_name: str | None = None, duty_of=None,
-                       devices=None) -> TpuNodeMetrics:
+                       devices=None, fabric: str = "",
+                       fabric_hosts: int = 1) -> TpuNodeMetrics:
     """Snapshot this host's accelerator telemetry as a TpuNodeMetrics.
 
     `duty_of(device) -> float` supplies the duty cycle (0..100) per card
@@ -56,6 +74,12 @@ def local_node_metrics(node_name: str | None = None, duty_of=None,
     neutral). `devices` overrides the card inventory (dependency
     injection: `nvml.NvmlDevice`s over a fake library in the tests);
     default is every card NVML enumerates on this host.
+
+    `fabric` names the InfiniBand fabric the host is on and `fabric_hosts`
+    its size; they ride the CR's `slice_id` and `num_hosts`, the unit a
+    gang is placed within (a gang pod needs a node of a multi-host slice).
+    NVML cannot see the fabric: the operator passes it (`cli sniff
+    --fabric`). "" keeps the host standalone.
     """
     name = node_name or socket.gethostname()
     if devices is None:
@@ -82,9 +106,10 @@ def local_node_metrics(node_name: str | None = None, duty_of=None,
         node=name,
         chips=chips,
         accelerator=GPU,
-        tpu_generation="",
+        tpu_generation=host_model(devices),
+        slice_id=fabric,
         host_index=0,
-        num_hosts=1,
+        num_hosts=fabric_hosts if fabric else 1,
         heartbeat=time.time(),
     )
 

@@ -8,6 +8,7 @@ from .torus import (
     fragmentation_after,
 )
 from .generations import GENERATIONS, TpuGeneration, generation
+from .gpus import GPUS, GpuModel, gpu_model, model_of_nvml_name
 
 __all__ = [
     "parse_topology",
@@ -20,4 +21,8 @@ __all__ = [
     "GENERATIONS",
     "TpuGeneration",
     "generation",
+    "GPUS",
+    "GpuModel",
+    "gpu_model",
+    "model_of_nvml_name",
 ]

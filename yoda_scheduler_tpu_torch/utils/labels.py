@@ -31,10 +31,17 @@ CLOCK_LABEL = "scv/clock"         # min chip clock, MHz (>= semantics, see below
 PRIORITY_LABEL = "scv/priority"   # queue priority, higher first
 
 ACCELERATOR_LABEL = "tpu/accelerator"
-GENERATION_LABEL = "tpu/generation"  # pin a TPU generation ("v4", "v5e", ...)
+# pin a TPU generation ("v4", "v5e", ...) or a GPU model of the catalog
+# (topology/gpus.py: "h100-sxm5", ...); a GPU model is the generation the
+# sniffer publishes for a host whose every card is that model
+GENERATION_LABEL = "tpu/generation"
 TOPOLOGY_LABEL = "tpu/topology"
 GANG_NAME_LABEL = "tpu/gang-name"
 GANG_SIZE_LABEL = "tpu/gang-size"
+# NODE label (on the Node object, not a pod): the InfiniBand leaf switch a
+# GPU node hangs off. Read by the gpu-locality score
+# (scheduler/plugins/gpulocality.py); a node without it is a leaf of its own.
+IB_LEAF_LABEL = "tpu/ib-leaf"
 # elastic gangs (scheduler/elastic/): minimum viable replica count — a
 # gang labeled with it may ADMIT at min members when the full size does
 # not fit, then grow toward tpu/gang-size as chips free. 0/absent keeps
@@ -187,10 +194,21 @@ class WorkloadSpec:
         gen = labels.get(GENERATION_LABEL)
         if gen is not None:
             from ..topology.generations import GENERATIONS  # validate eagerly
+            from ..topology.gpus import GPUS
 
-            if gen not in GENERATIONS:
+            if gen not in GENERATIONS and gen not in GPUS:
                 raise LabelError(GENERATION_LABEL, gen,
-                                 f"must be one of {sorted(GENERATIONS)}")
+                                 f"must be one of {sorted(GENERATIONS)} or a GPU "
+                                 f"model {sorted(GPUS)}")
+            if gen in GPUS:
+                # a GPU has no torus: the carve path and `cli validate`
+                # would look the model up in the TPU catalog mid-cycle
+                if TOPOLOGY_LABEL in labels:
+                    raise LabelError(TOPOLOGY_LABEL, labels[TOPOLOGY_LABEL],
+                                     f"a GPU model ({gen}) has no ICI topology")
+                if accel == "tpu":
+                    raise LabelError(GENERATION_LABEL, gen,
+                                     "a GPU model on a pod asking for tpu/accelerator: tpu")
         topo = labels.get(TOPOLOGY_LABEL)
         if topo is not None:
             from ..topology.torus import parse_topology  # validate eagerly

@@ -9,35 +9,93 @@ search. So the dlopen/candidate-path logic is shared here, while symbol
 resolution is per kernel: ``bind_symbols`` returns None for exactly the
 kernel whose symbols are missing, never process-wide.
 
-No build-time dependency: ``make native`` produces the library; a
-pure-Python install (no g++) simply gets None everywhere and loses
-nothing but speed.
+The library is built from the package's own sources (`native/*.cc`) by
+`g++` at first use, into the gitignored `build/native/` at the repository
+root, named by a hash of the sources and the flags: importing the engine
+builds nothing, and an unchanged source is compiled once per checkout.
+`YODA_PLACEMENT_LIB` names a library to load instead. A pure-Python install
+(no g++, or a failed build) gets None everywhere and loses nothing but
+speed; `build()` raises instead, for callers that must have the planes.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
+import logging
 import os
+import shutil
+import subprocess
 import threading
+from pathlib import Path
 
 _LIB_NAME = "libyodaplace.so"
 _ENV_PATH = "YODA_PLACEMENT_LIB"
+SRC_DIR = Path(__file__).resolve().parents[1] / "native"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
+CXX_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC"]
 
 _lock = threading.Lock()
 _cached: dict[str, "ctypes.CDLL | None"] = {}
+log = logging.getLogger("yoda-tpu")
 
 
-def _candidates() -> list[str]:
-    here = os.path.dirname(__file__)
-    return [
-        os.environ.get(_ENV_PATH, ""),
-        os.path.abspath(os.path.join(here, "..", "..", "native", _LIB_NAME)),
-        os.path.join(here, "..", "topology", _LIB_NAME),
-    ]
+def _sources() -> list[Path]:
+    return sorted(SRC_DIR.glob("*.cc"))
+
+
+def _target() -> Path:
+    """The library's path, named by a hash of every source and the flags."""
+    digest = hashlib.sha256()
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    digest.update(" ".join(CXX_FLAGS).encode())
+    return BUILD_DIR / f"libyodaplace-{digest.hexdigest()[:16]}.so"
+
+
+def build() -> str:
+    """The path of the library built from this package's sources, compiling
+    it when it is missing. Raises RuntimeError when there is no C++
+    compiler or the build fails, with the compiler's output."""
+    target = _target()
+    if target.exists():
+        return str(target)
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("no g++ to build the native planes")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_name(f"{target.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    res = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), *map(str, _sources())],
+                         capture_output=True, text=True, timeout=300)
+    if res.returncode:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{cxx} failed to build the native planes "
+                           f"(exit {res.returncode}):\n{res.stdout}{res.stderr}")
+    os.replace(tmp, target)  # atomic: a concurrent builder loads either copy
+    return str(target)
+
+
+def _built() -> str:
+    """`build()`'s path, or "" after logging why there is none."""
+    try:
+        return build()
+    except (RuntimeError, OSError, subprocess.SubprocessError) as e:
+        log.warning("native planes unavailable, the numpy plane places instead: %s", e)
+        return ""
+
+
+def _candidates():
+    """Library paths in the order to try them; the build runs only when the
+    override is absent or cannot be loaded."""
+    yield os.environ.get(_ENV_PATH, "")
+    yield _built()
+    yield os.path.join(os.path.dirname(__file__), "..", "topology", _LIB_NAME)
 
 
 def load_library() -> "ctypes.CDLL | None":
-    """dlopen the shared native library, trying the env override first.
+    """dlopen the shared native library, trying the env override first,
+    then the package's own build (compiled here on the first call).
     An unloadable candidate (wrong arch, truncated file) is skipped, not
     fatal — the next candidate may still work. Cached per process."""
     with _lock:
