@@ -40,5 +40,11 @@ build:
 push: build
 	docker push $(IMAGE):$(TAG)
 
+# the PyTorch/CUDA port's image (yoda_scheduler_tpu_torch/deploy/Dockerfile),
+# the one every manifest of the port names
+.PHONY: build-gpu
+build-gpu:
+	docker build -f yoda_scheduler_tpu_torch/deploy/Dockerfile -t yoda-gpu-scheduler:$(TAG) .
+
 clean:
 	find . -name __pycache__ -type d -exec rm -rf {} + 2>/dev/null || true

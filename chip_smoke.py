@@ -144,7 +144,27 @@ The scheduling system, on the host, fed by the card's telemetry:
   the live node, with the plugin no gang across two leaves while one leaf
   had free nodes for all its members at its first reservation, no card
   held twice, no memory overcommitted, the two plugin runs alike; the
-  gangs across leaves on and off, decisions by plane, each run's time.
+  gangs across leaves on and off, decisions by plane, each run's time,
+  and (reported, not gated) the pods on H100 PCIe nodes whose cards sit in
+  more than one bridged pair.
+
+The port's tools, and the workload's side of the scheduler's assignment:
+
+- tune_attention (tools/tune_attention.py), right after phase 3: the
+  route sweep in this process, forward and forward+backward at S = 2048,
+  4096 and 8192 (H=16, D=128, B=8192/S, causal, bf16), every route
+  `_routes` admits (wgmma, mma, simt) beside SDPA under its flash backend
+  and the plain version, each candidate checked against the plain version
+  at every S before any is timed, then timed in turns (A, ..., A, three
+  rounds, as the tool's default); each row's median, spread, bound and
+  share of it; the launches of each kernel in the sweep, by route (the
+  kernels line counts the wgmma route's under tune_attention, as on every
+  other path, and gives all three routes' beside it).
+- visible (parallel/multihost.py), last: a child process given
+  YODA_ASSIGNED_CHIPS="0,0,0" sees exactly one card, whose UUID is NVML's
+  card 0's; "1,0,0" (past this host's one card) is refused by the helper;
+  the helper refuses once CUDA has started, in this process and in a
+  child that only asked torch.cuda.is_available().
 
 Then a line listing every kernel of the path, and last the device
 line. Full results also go to chiprun_out/chip_smoke.json.
@@ -174,10 +194,11 @@ from pathlib import Path
 
 import torch
 
-H100_BF16_FLOPS = 989e12   # dense tensor-core peak, NVIDIA data sheet (SXM)
-H100_FP32_FLOPS = 67e12    # fp32 outside the tensor cores
-H100_HBM_BYTES = 3.35e12   # bytes/s
-PEAK_FLOPS = {torch.bfloat16: H100_BF16_FLOPS, torch.float32: H100_FP32_FLOPS}
+# the card's rates and the kernels' bounds, one copy with the route sweep
+# (yoda_scheduler_tpu_torch/tools/tune_attention.py)
+from yoda_scheduler_tpu_torch.ops.bounds import (H100_BF16_FLOPS, H100_HBM_BYTES,
+                                                 attention_bound, backward_bounds,
+                                                 visible_pairs)
 
 # phase 2 tolerances, |kernel - plain| <= atol + rtol * |plain|:
 # bf16 O: the plain version rounds the probabilities to bf16 before P.V and
@@ -326,6 +347,32 @@ GPU_GANGS = {16: 4, 8: 8, 4: 12, 2: 16}
 GPU_WHOLE_NODE_PODS, GPU_SMALL_PODS = 100, 570
 GPU_PROFILE = "yoda_scheduler_tpu_torch/deploy/gpu-profile.yaml"
 
+# tune_attention: the route sweep (tools/tune_attention.py) at the
+# reference's sequence lengths, each candidate A, B, ..., B, A this many
+# rounds (the tool's default); every route at every S fits the phase's
+# share of the run (13.445723 s with one round on an H100, simt at S=8192
+# included: 75 ms a forward+backward)
+TUNE_SEQS, TUNE_REPEATS = (2048, 4096, 8192), 3
+
+# visible: a child process given the annotation of card 0 must see that
+# card alone, by its NVML UUID; card 1, which this one-card host lacks,
+# must be refused by the helper, not by CUDA
+VISIBLE_CHILD = """
+import json, sys, torch
+from yoda_scheduler_tpu_torch.parallel import multihost
+if sys.argv[1] == "cuda_first":
+    torch.cuda.is_available()  # runs cuInit, not torch's CUDA state
+out = {}
+try:
+    out["set"] = multihost.bind_assigned_cards()
+except (ValueError, RuntimeError) as e:
+    out["error"] = f"{type(e).__name__}: {e}"
+else:
+    out["count"] = torch.cuda.device_count()
+    out["uuid0"] = str(torch.cuda.get_device_properties(0).uuid)
+print(json.dumps(out))
+"""
+
 RESULTS: dict = {}
 
 
@@ -346,48 +393,6 @@ def cuda_time_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def visible_pairs(sq: int, sk: int, causal: bool, window: int | None) -> int:
-    """(query, key) pairs the mask lets through: the work these inputs need."""
-    if not causal:
-        return sq * sk
-    total = 0
-    for i in range(sq):
-        qp = sk - sq + i
-        lo = 0 if window is None else max(0, qp - window + 1)
-        total += qp - lo + 1
-    return total
-
-
-def _bound(nbytes, flops, dtype):
-    t_bytes = nbytes / H100_HBM_BYTES * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
-def attention_bound(b, h, kvh, sq, sk, d, causal, window, dtype):
-    """(bound_ms, bound_by): the larger of the bytes over the memory rate
-    (q, k, v read once, O and LSE written once) and the two products' flops
-    over the peak rate of the dtype."""
-    esize = torch.tensor([], dtype=dtype).element_size()
-    nbytes = esize * d * (2 * b * h * sq + 2 * b * kvh * sk) + 4 * b * h * sq
-    flops = 4 * b * h * d * visible_pairs(sq, sk, causal, window)
-    return _bound(nbytes, flops, dtype)
-
-
-def backward_bounds(b, h, kvh, sq, sk, d, causal, window, dtype):
-    """{"dq": (bound_ms, bound_by), "dkv": ...}. dQ: q, dO and k, v read,
-    dQ written, LSE and delta read (8 bytes a row); 6 D flops a visible pair
-    (S, dP, dS K). dK/dV: the same reads, dK and dV written (one per q
-    head, as the kernel writes them); 8 D flops a visible pair (S, dP,
-    P^T dO, dS^T Q)."""
-    esize = torch.tensor([], dtype=dtype).element_size()
-    pairs = visible_pairs(sq, sk, causal, window)
-    reads = esize * d * (2 * b * h * sq + 2 * b * kvh * sk) + 8 * b * h * sq
-    return {"dq": _bound(reads + esize * d * b * h * sq, 6 * b * h * d * pairs, dtype),
-            "dkv": _bound(reads + 2 * esize * d * b * h * sk, 8 * b * h * d * pairs,
-                          dtype)}
 
 
 def rel_l2(a, b) -> float:
@@ -2044,6 +2049,87 @@ def phase_scheduler(smi: str):
         raise SystemExit(f"scheduler: failed {failed}")
 
 
+def phase_tune_attention(attn, tune, smi: str):
+    """The route sweep of tools/tune_attention.py in this process: forward
+    and forward+backward at TUNE_SEQS, on every route `_routes` admits,
+    beside SDPA (flash backend) and the plain version; every candidate
+    checked before any is timed. One line a row, then the phase."""
+    free_memory()
+    reset_launches(attn)
+    t0 = time.perf_counter()
+    keys = ("s", "direction", "candidate", "ms", "spread_ms", "bound_ms",
+            "share_of_bound", "tflops", "dq_ms", "dkv_ms", "backward_ms",
+            "tile_rel_l2_o", "worst_tile", "ok")
+
+    def show(row):
+        print(json.dumps({"phase": "tune_attention",
+                          **{k: row[k] for k in keys if k in row}}), flush=True)
+
+    try:
+        rows = [row for bwd in (False, True) for row in
+                tune.sweep(TUNE_SEQS, tune.ROUTES, bwd, TUNE_REPEATS, emit=show)]
+    except tune.CheckFailed as e:
+        raise SystemExit(f"tune_attention: {e}") from None
+    torch.cuda.synchronize()
+    launches, routes = read_launches(attn), read_routes(attn)
+    emit("tune_attention", nvidia_smi=smi, seqs=list(TUNE_SEQS), repeats=TUNE_REPEATS,
+         shape="H=16, D=128, B=8192/S, causal, bf16", seconds=time.perf_counter() - t0,
+         launches=launches, launches_by_route=routes, rows=rows)
+    idle = [n for n, c in launches.items() if not c]
+    if idle or not all(r["ok"] for r in rows):
+        raise SystemExit(f"tune_attention: kernels never launched {idle}, or a row "
+                         f"not ok")
+    return routes
+
+
+def phase_visible(smi: str):
+    """The scheduler's assignment reaches a workload: a child process with
+    YODA_ASSIGNED_CHIPS="0,0,0" sees one card, NVML's card 0 by UUID;
+    "1,0,0" is refused by the helper as past NVML's count; the helper
+    refuses to run once CUDA has started, in this process (torch's CUDA
+    state) and in a child that only asked torch.cuda.is_available()."""
+    from yoda_scheduler_tpu_torch.parallel import multihost
+    from yoda_scheduler_tpu_torch.telemetry import nvml
+
+    root = str(Path(__file__).resolve().parent)
+    uuid0 = [c for c in nvml.devices() if c.index == 0][0].uuid()
+
+    def child(chips, mode="plain"):
+        env = {**os.environ, multihost.ASSIGNED_ENV: chips,
+               "PYTHONPATH": os.pathsep.join(filter(None, (root, os.environ.get(
+                   "PYTHONPATH"))))}
+        env.pop("CUDA_VISIBLE_DEVICES", None)
+        res = subprocess.run([sys.executable, "-c", VISIBLE_CHILD, mode], env=env,
+                             cwd=root, capture_output=True, text=True, timeout=300)
+        if res.returncode:
+            raise SystemExit(f"visible: the child failed: {res.stderr[-2000:]}")
+        return json.loads(res.stdout.strip().splitlines()[-1])
+
+    def bare(u):
+        return u.lower().removeprefix("gpu-")
+
+    one, past, late = child("0,0,0"), child("1,0,0"), child("0,0,0", "cuda_first")
+    try:
+        multihost.bind_assigned_cards({multihost.ASSIGNED_ENV: "0,0,0"})
+        here = None
+    except RuntimeError as e:
+        here = str(e)
+    checks = {
+        "one_card_visible": one.get("count") == 1,
+        "visible_set_is_the_uuid": one.get("set") == uuid0,
+        "cuda0_is_nvml_card0": bare(one.get("uuid0", "")) == bare(uuid0),
+        "card_past_the_count_refused_by_the_helper": past.get("error", "").startswith(
+            "ValueError") and "NVML counts 1" in past.get("error", ""),
+        "refused_after_is_available": late.get("error", "").startswith("RuntimeError"),
+        "refused_in_this_process": here is not None,
+    }
+    emit("visible", nvidia_smi=smi, nvml_uuid0=uuid0, assigned_0=one, assigned_1=past,
+         after_is_available=late, this_process=here, checks=checks)
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"visible: failed {failed}")
+
+
 def gpu_fleet_nodes(telemetry):
     """GPU_FLEET's pools through the port's telemetry.fake. -> (nodes, each
     pool node's IB leaf)."""
@@ -2093,6 +2179,7 @@ def gpu_fleet_trace(live, locality: bool, seed: int) -> dict:
     one leaf then had free nodes for all its members."""
     from yoda_scheduler_tpu_torch import cli, scheduler, telemetry
     from yoda_scheduler_tpu_torch.scheduler.core import HybridClock
+    from yoda_scheduler_tpu_torch.topology import gpus
     from yoda_scheduler_tpu_torch.utils import Pod
     from yoda_scheduler_tpu_torch.utils.labels import IB_LEAF_LABEL
 
@@ -2151,6 +2238,11 @@ def gpu_fleet_trace(live, locality: bool, seed: int) -> dict:
             gangs.setdefault(g, set()).add(leaf_of[p.node])
     spanning = sorted(g for g, leaves in gangs.items() if len(leaves) > 1)
     bound = [p for p in pods if p.phase.value == "Bound"]
+    pcie = gpus.gpu_model("h100-pcie")
+    # pods on H100 PCIe nodes whose cards sit in more than one bridged pair
+    # (a pod of 3 or 4 cards must; one of 2 only when no pair had room)
+    pcie_across = [p for p in bound if model_of[p.node] == pcie.name and len(
+        {gpus.card_domain(pcie, c) for c in p.assigned_chips()}) > 1]
     cards = sum(len(m.chips) for m in nodes) + len(live.chips)
     return dict(
         locality=locality, nodes=len(cluster.node_names()), cards=cards, pods=len(pods),
@@ -2163,6 +2255,10 @@ def gpu_fleet_trace(live, locality: bool, seed: int) -> dict:
                    and model_of[p.node] != p.labels["tpu/generation"]],
         live=(pods[0].phase.value, pods[0].node),
         on_live_node=sum(p.node == live.node for p in bound),
+        pcie_pods=sum(model_of[p.node] == pcie.name for p in bound),
+        pcie_pods_across_pairs=len(pcie_across),
+        pcie_two_card_pods_across_pairs=sum(len(p.assigned_chips()) == 2
+                                            for p in pcie_across),
         cycles=cycles, wall_s=wall_s, cycle_p50_ms=cyc.quantile(0.5),
         cycle_p99_ms=cyc.quantile(0.99), planes=plane_counts(sched),
         native_plane_active=sched.metrics.gauges.get("native_plane_active", 0.0) == 1.0,
@@ -2235,6 +2331,7 @@ def main() -> int:
     from yoda_scheduler_tpu_torch.ops import _build, attention as attn, variants
     from yoda_scheduler_tpu_torch.parallel import mesh as mesh_mod, pipeline, ring, train
     from yoda_scheduler_tpu_torch.parallel import checkpoint, multihost, ulysses
+    from yoda_scheduler_tpu_torch.tools import tune_attention as tune
     # Mixtral-8x7B's widths from its config.json, in the port's config fields
     from yoda_scheduler_tpu_torch.profile_path import mixtral_8x7b
 
@@ -2245,6 +2342,7 @@ def main() -> int:
     smi = phase_build(_build)
     rows, max_err = phase_kernel(attn)
     bwd_rows, bwd_err = phase_backward(attn, variants)
+    tune_routes = phase_tune_attention(attn, tune, smi)
     cfg, params, fwd_launches = phase_forward(attn, llama)
     phase_serving(cfg, params, llama, gen_mod)
     del params
@@ -2277,6 +2375,7 @@ def main() -> int:
     telemetry_launches = phase_telemetry(attn, smi)
     phase_scheduler(smi)
     phase_gpu_fleet(smi)
+    phase_visible(smi)
 
     main_row, bwd_main = rows[0], bwd_rows[0]
     src = "yoda_scheduler_tpu_torch/ops/csrc/"
@@ -2297,7 +2396,9 @@ def main() -> int:
                              "pipeline_train_step": pipe_launches["flash_fwd"],
                              "checkpoint_resumed_step": resumed_launches["flash_fwd"],
                              "multihost_step": multihost_launches["flash_fwd"],
-                             "telemetry_load": telemetry_launches["flash_fwd"]},
+                             "telemetry_load": telemetry_launches["flash_fwd"],
+                             "tune_attention": tune_routes["flash_fwd"].get("wgmma", 0)},
+        "tune_attention_launches_by_route": tune_routes["flash_fwd"],
         "max_abs_err": max_err,
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -2315,7 +2416,9 @@ def main() -> int:
                              "ulysses_fwd_bwd": ulysses_launches[name],
                              "pipeline_train_step": pipe_launches[name],
                              "checkpoint_resumed_step": resumed_launches[name],
-                             "multihost_step": multihost_launches[name]},
+                             "multihost_step": multihost_launches[name],
+                             "tune_attention": tune_routes[name].get("wgmma", 0)},
+        "tune_attention_launches_by_route": tune_routes[name],
         "max_abs_err": bwd_err[key], "ms": bwd_main[f"{key}_ms"],
         "plain_ms": bwd_main["plain_ms"], "bound_ms": bwd_main[f"{key}_bound_ms"],
         "bound_by": bwd_main[f"{key}_bound_by"],

@@ -14,6 +14,7 @@ import json
 import random
 from pathlib import Path
 
+import numpy as np
 import pytest
 import yaml
 
@@ -22,8 +23,11 @@ from test_torch_telemetry import FakeCard, FakeNvml
 
 from yoda_scheduler_tpu.scheduler.policy import heterogeneity as jax_het
 from yoda_scheduler_tpu.telemetry import schema as jax_schema
+from yoda_scheduler_tpu.utils.labels import WorkloadSpec as JaxWorkloadSpec
 from yoda_scheduler_tpu_torch import cli, scheduler, telemetry
 from yoda_scheduler_tpu_torch.scheduler.core import FakeClock
+from yoda_scheduler_tpu_torch.scheduler.framework import NodeInfo
+from yoda_scheduler_tpu_torch.scheduler.plugins.allocator import ChipAllocator
 from yoda_scheduler_tpu_torch.scheduler.plugins import gpulocality
 from yoda_scheduler_tpu_torch.scheduler.policy import heterogeneity as het
 from yoda_scheduler_tpu_torch.scheduler.registry import build_profile, merge_enablement
@@ -348,7 +352,8 @@ def case_pcie_pair_inside_one_domain(enabled):
                      [(c, 0, 0) for c in taken])
     p = Pod("pair", labels={"scv/number": "2", "tpu/generation": "h100-pcie"})
     run(cluster, [p], enabled)
-    return p.node == "h100-pcie-l0-n0"
+    return p.node == "h100-pcie-l0-n0" and sorted(p.assigned_chips()) == [(2, 0, 0),
+                                                                        (3, 0, 0)]
 
 
 LOCALITY_CASES = {"one_leaf_per_gang": case_one_leaf_per_gang,
@@ -450,6 +455,98 @@ def test_gpu_locality_is_not_in_the_default_profile():
 
     assert "gpu-locality" in scheduler.registry.registered()
     assert all("gpu-locality" not in names for names in DEFAULT_ENABLED.values())
+
+
+# ------------------------------------------- the cards of a pick (F1)
+def node_with_taken(model, taken, cards=8, pkg="port"):
+    """(NodeInfo, ChipAllocator) of `pkg` for a GPU node (`model` None: the
+    catalog-less one) or, for model "tpu", a 4-chip TPU host, whose
+    `taken` cards are unhealthy (neither pick nor score takes them)."""
+    m = (telemetry.make_tpu_node("n", chips=4) if model == "tpu"
+         else telemetry.make_gpu_node("n", cards=cards, model=model))
+    for c in m.chips:
+        if c.coords[0] in taken:
+            c.health = "Unhealthy"
+    if pkg == "jax":
+        from yoda_scheduler_tpu.scheduler.framework import NodeInfo as JNodeInfo
+        from yoda_scheduler_tpu.scheduler.plugins.allocator import ChipAllocator as JAlloc
+
+        return JNodeInfo("n", jax_schema.TpuNodeMetrics.from_cr(m.to_cr())), JAlloc()
+    return NodeInfo("n", m), ChipAllocator()
+
+
+def pick(model, taken, chips, pkg="port"):
+    ni, alloc = node_with_taken(model, taken, pkg=pkg)
+    spec = (JaxWorkloadSpec if pkg == "jax" else WorkloadSpec)(chips=chips)
+    got = alloc.pick_chips(spec, ni)
+    return None if got is None else sorted(got)
+
+
+@pytest.mark.parametrize("taken,want", [
+    ((0,), [(2, 0, 0), (3, 0, 0)]),            # the reproduced picks: (1, 2)
+    ((0, 2, 4), [(6, 0, 0), (7, 0, 0)]),       # and (5, 6)
+    ((0, 1, 3), [(4, 0, 0), (5, 0, 0)]),       # best fit: pair 1 holds one card
+    ((), [(0, 0, 0), (1, 0, 0)]),
+])
+def test_pcie_pod_takes_a_whole_free_pair(taken, want):
+    """Departure 3: on an H100 PCIe node (bridged pairs) a 2-card pod takes
+    both cards of one pair whenever a whole pair is free, the pair with
+    the fewest free cards first, the lowest on ties."""
+    assert pick("h100-pcie", taken, 2) == want
+
+
+def test_pcie_one_card_pod_fills_a_broken_pair_first():
+    assert pick("h100-pcie", (0, 2), 1) == [(1, 0, 0)]
+    assert pick("h100-pcie", (5,), 1) == [(4, 0, 0)]
+
+
+@pytest.mark.parametrize("taken", [(0, 2, 4, 6), (1, 2, 5, 6), (0, 3, 4, 7, 1)])
+def test_pcie_node_without_a_whole_pair_picks_as_before(taken):
+    """No pair has room: the pick is the JAX package's, the line's."""
+    assert pick("h100-pcie", taken, 2) == pick("h100-pcie", taken, 2, pkg="jax")
+    assert pick("h100-pcie", taken, 2) is not None
+
+
+@pytest.mark.parametrize("model", ["h100-sxm5", "a100-sxm4-80gb", None, "tpu"])
+def test_pick_equals_the_jax_package_off_the_pcie_domains(model):
+    """HGX (one domain of 8), A100, catalog-less GPU and TPU nodes: the
+    port picks the JAX package's cards on every free set, for 1-4 cards."""
+    n = 4 if model == "tpu" else 8
+    for mask in range(1 << n):
+        taken = tuple(i for i in range(n) if mask >> i & 1)
+        for chips in (1, 2, 3, 4):
+            assert pick(model, taken, chips) == pick(model, taken, chips, pkg="jax"), \
+                (model, taken, chips)
+
+
+@pytest.mark.parametrize("chips", [1, 2, 3])
+def test_domain_score_agrees_with_the_pick_on_every_free_set(chips):
+    """gpu-locality's NVLink term, in its per-node and its columnar form,
+    and the allocator read a card's domain from one helper
+    (`gpus.card_domain`): on all 256 free sets of an 8-card H100 PCIe node,
+    both forms find the pod's cards a domain exactly when the pick takes
+    them inside one."""
+    from yoda_scheduler_tpu_torch.scheduler.columnar import ColumnarTable
+    from yoda_scheduler_tpu_torch.scheduler.framework import CycleState, Snapshot
+
+    spec = WorkloadSpec(chips=chips)
+    model = gpus.gpu_model("h100-pcie")
+    for mask in range(256):
+        taken = tuple(i for i in range(8) if mask >> i & 1)
+        ni, alloc = node_with_taken("h100-pcie", taken)
+        plugin = gpulocality.GpuLocalityScore(alloc, None)
+        fits = plugin._domain_fits(spec, ni)
+        got = alloc.pick_chips(spec, ni)
+        inside = got is not None and len({gpus.card_domain(model, c) for c in got}) == 1
+        assert fits == (inside or chips == 1), (taken, got)
+        table = ColumnarTable(alloc)
+        assert table.sync(Snapshot({"n": ni}), (0, 0, 0), None)
+        state = CycleState()
+        state.write(gpulocality.LEAF_VIEW_KEY, gpulocality._LeafView({"n": 0.0}, set()))
+        state.write("workload_spec", spec)
+        (batch,) = plugin.score_batch(state, None, table, np.array([0])).tolist()
+        assert batch == (0.0 if fits else gpulocality.SPLIT_DOMAIN), (taken, batch)
+        assert batch == plugin.score(state, None, ni)[0]
 
 
 # ------------------------------------------------------ manifests, CLI

@@ -37,7 +37,9 @@ def test_import_loads_no_jax():
             "yoda_scheduler_tpu_torch.parallel.launch, "
             "yoda_scheduler_tpu_torch.parallel.multihost, "
             "yoda_scheduler_tpu_torch.parallel.checkpoint, "
-            "yoda_scheduler_tpu_torch.models.resnet\n"
+            "yoda_scheduler_tpu_torch.models.resnet, "
+            "yoda_scheduler_tpu_torch.ops.bounds, "
+            "yoda_scheduler_tpu_torch.tools.tune_attention\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'yoda_scheduler_tpu' or m.startswith('yoda_scheduler_tpu.')]\n"
             "print(bad)\n"
@@ -109,12 +111,27 @@ def test_engine_import_builds_nothing():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+# the route sweep times the library's attention beside the kernels, as
+# the yardstick, and nothing else of the package may name it
+# (test_no_module_imports_the_tools: no path of the port runs the sweep)
+YARDSTICKS = {"scaled_dot_product_attention": ["tools/tune_attention.py"]}
+
+
 @pytest.mark.parametrize("needle", ["import jax", "from jax",
                                     "scaled_dot_product_attention",
                                     "torch.compile", "yoda_scheduler_tpu."])
 def test_package_source_never_mentions(needle):
-    hits = [str(p.relative_to(PKG)) for p in PKG.rglob("*")
-            if p.suffix in (".py", ".cu", ".cuh") and needle in p.read_text()]
+    hits = sorted(str(p.relative_to(PKG)) for p in PKG.rglob("*")
+                  if p.suffix in (".py", ".cu", ".cuh") and needle in p.read_text())
+    assert hits == YARDSTICKS.get(needle, [])
+
+
+def test_no_module_imports_the_tools():
+    """tools/ holds entry points a user runs; no module of the port's
+    models, steps or engine imports them."""
+    hits = [str(p.relative_to(PKG)) for p in PKG.rglob("*.py")
+            if p.parent.name != "tools"
+            and re.search(r"from \.+tools\b|yoda_scheduler_tpu_torch\.tools", p.read_text())]
     assert hits == []
 
 

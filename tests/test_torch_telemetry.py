@@ -31,6 +31,7 @@ class FakeCard:
     nvlink: tuple = (1,) * 18       # link states; () = no NVLink at all
     pcie: tuple = (5, 16)
     util_gpu: int = 0
+    uuid: str = "GPU-5c1e0a8e-3f2b-4d6a-9e7c-1b2a3c4d5e6f"
 
 
 class FakeNvml:
@@ -69,6 +70,12 @@ class FakeNvml:
         assert len(name) < length == len(buf)
         buf.value = name
         return self._ret("nvmlDeviceGetName")
+
+    def nvmlDeviceGetUUID(self, handle, buf, length):
+        uuid = self._card(handle).uuid.encode()
+        assert len(uuid) < length == len(buf)
+        buf.value = uuid
+        return self._ret("nvmlDeviceGetUUID")
 
     def nvmlDeviceGetMemoryInfo(self, handle, mem):
         c = self._card(handle)

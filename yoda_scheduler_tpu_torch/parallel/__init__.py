@@ -8,7 +8,8 @@ from .train import (build_llama_train_step, init_opt_state, param_leaves,
                     quick_mesh_and_step)
 from .pipeline import (build_pipelined_llama_train_step, llama_pipeline_param_specs,
                        pipelined_llama_loss)
-from .multihost import gang_process_env, global_batch, initialize_multihost
+from .multihost import (bind_assigned_cards, gang_process_env, global_batch,
+                        initialize_multihost)
 from .checkpoint import TrainCheckpointer
 
 __all__ = [
@@ -36,6 +37,7 @@ __all__ = [
     "build_pipelined_llama_train_step",
     "llama_pipeline_param_specs",
     "pipelined_llama_loss",
+    "bind_assigned_cards",
     "gang_process_env",
     "global_batch",
     "initialize_multihost",

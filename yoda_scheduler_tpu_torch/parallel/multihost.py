@@ -24,10 +24,20 @@ Data feeding: each process holds only the rows of the step's batch that
 its ranks need; `global_batch` cuts this rank's piece of the step's tokens
 from them, the piece the train step's `batch_fn` would cut from the whole
 batch.
+
+The cards: the scheduler publishes the cards it assigned a pod on its
+``tpu/assigned-chips`` annotation ("x,y,z;x,y,z", a card's x its NVML
+index), and the pod passes it in as ``YODA_ASSIGNED_CHIPS`` through the
+downward API. `bind_assigned_cards` (which `initialize_multihost` calls
+before CUDA starts) makes exactly those cards visible, by UUID, in the
+annotation's order: ``cuda:i`` is the i-th assigned card. A departure from
+the JAX package, which leaves the annotation unread (a TPU process owns
+every chip of its host).
 """
 
 from __future__ import annotations
 
+import ctypes
 import os
 import re
 import socket
@@ -36,8 +46,75 @@ import torch
 import torch.distributed as dist
 
 from .._device import resolve_device
+from ..telemetry import nvml
 
 TORCHRUN_ENV = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")
+ASSIGNED_ENV = "YODA_ASSIGNED_CHIPS"
+CUDA_ERROR_NOT_INITIALIZED = 3  # cuda.h: a libcuda call before cuInit
+
+
+def parse_assigned_cards(raw: str) -> list[int]:
+    """The NVML indices of a ``tpu/assigned-chips`` value ("x,y,z;x,y,z"),
+    in its order. Raises ValueError for a malformed value, a repeated card
+    or a coordinate with a non-zero y or z (a TPU chip's, not a card's)."""
+    cards = []
+    for part in raw.split(";"):
+        try:
+            x, y, z = (int(f) for f in part.split(","))
+        except ValueError:
+            raise ValueError(f"{ASSIGNED_ENV}={raw!r} is malformed: each card is "
+                             f"'x,y,z' and cards are joined by ';'") from None
+        if y or z:
+            raise ValueError(f"{ASSIGNED_ENV}={raw!r} holds the TPU coordinate "
+                             f"({x}, {y}, {z}): a GPU card's is (NVML index, 0, 0)")
+        if x < 0 or x in cards:
+            raise ValueError(f"{ASSIGNED_ENV}={raw!r} is malformed: card {x} "
+                             f"is negative or named twice")
+        cards.append(x)
+    return cards
+
+
+def _cuda_started() -> bool:
+    """Whether this process has started CUDA, after which CUDA has read
+    CUDA_VISIBLE_DEVICES for good: torch's own initialisation, or libcuda's
+    cuInit alone (`torch.cuda.is_available()` runs it), which
+    cuDeviceGetCount reveals by answering CUDA_ERROR_NOT_INITIALIZED until
+    then. A host without libcuda has started nothing."""
+    if torch.cuda.is_initialized():
+        return True
+    try:
+        lib = ctypes.CDLL("libcuda.so.1")
+    except OSError:
+        return False
+    count = ctypes.c_int(0)
+    return lib.cuDeviceGetCount(ctypes.byref(count)) != CUDA_ERROR_NOT_INITIALIZED
+
+
+def bind_assigned_cards(env=os.environ) -> str | None:
+    """Make the cards the scheduler assigned this pod the process's CUDA
+    devices: `env`'s YODA_ASSIGNED_CHIPS (the pod's ``tpu/assigned-chips``
+    annotation) becomes CUDA_VISIBLE_DEVICES, the assigned cards' NVML
+    UUIDs in the annotation's order, so that neither CUDA's index order nor
+    CUDA_DEVICE_ORDER can put another card in their place. Returns the
+    value set; None, changing nothing, when the variable is unset or empty.
+    Raises RuntimeError once CUDA has started in this process (CUDA
+    reads the variable once, at cuInit), ValueError for a value `parse_assigned_cards`
+    refuses or an index past NVML's count."""
+    raw = env.get(ASSIGNED_ENV, "").strip()
+    if not raw:
+        return None
+    cards = parse_assigned_cards(raw)
+    if _cuda_started():
+        raise RuntimeError(f"{ASSIGNED_ENV} must be applied before CUDA starts in "
+                           f"this process: call bind_assigned_cards (or "
+                           f"initialize_multihost) before any torch.cuda call")
+    devices = nvml.devices()
+    past = [i for i in cards if i >= len(devices)]
+    if past:
+        raise ValueError(f"{ASSIGNED_ENV}={raw!r} names card {past[0]}, but NVML "
+                         f"counts {len(devices)} card(s) on this host")
+    env["CUDA_VISIBLE_DEVICES"] = ",".join(devices[i].uuid() for i in cards)
+    return env["CUDA_VISIBLE_DEVICES"]
 
 
 def gang_process_env() -> tuple[str | None, int, int]:
@@ -85,7 +162,11 @@ def initialize_multihost(coordinator: str | None = None,
     ranks_per_process + local_rank of num_processes * ranks_per_process
     (one rank a process by default). NCCL with each rank on its own card
     (`local_rank`) on "cuda"; gloo on "cpu". Under torchrun's env the
-    rendezvous is ``env://`` and a failure raises when WORLD_SIZE > 1."""
+    rendezvous is ``env://`` and a failure raises when WORLD_SIZE > 1.
+    On "cuda" the process first takes the cards the scheduler assigned
+    (`bind_assigned_cards`), and `local_rank` indexes them."""
+    if torch.device(device).type == "cuda" and not dist.is_initialized():
+        bind_assigned_cards()
     dev = resolve_device(device)
     env_coord, env_n, env_pid = gang_process_env()
     coordinator = coordinator if coordinator is not None else env_coord

@@ -26,6 +26,7 @@ from ..framework import (
 )
 from ...telemetry.schema import TpuNodeMetrics
 from ...utils.changelog import ChangeLog
+from ...topology.gpus import GPUS, GpuModel, cards_by_domain
 from ...topology.torus import Coord, best_fit_block, fits_shape, parse_topology
 from ...utils.labels import WorkloadSpec
 from ...utils.pod import Pod
@@ -445,7 +446,13 @@ class ChipAllocator(ReservePlugin, EnqueueExtensions):
         """Choose concrete chips for the spec on this node, best-fit
         contiguous. Falls back to any qualifying chips when the node's free
         space has no contiguous block (still schedulable, just lower quality —
-        the topology scorer will have steered away from such nodes)."""
+        the topology scorer will have steered away from such nodes).
+
+        On a GPU node whose catalogued model has NVLink domains smaller
+        than the node (H100 PCIe: bridged pairs), a pod that fits one
+        domain takes its cards inside one (`_pick_in_domain`) when any
+        domain has room; a departure from the JAX package, whose line of
+        coordinates knows no domain."""
         m = node_info.metrics
         if m is None:
             return None
@@ -461,6 +468,11 @@ class ChipAllocator(ReservePlugin, EnqueueExtensions):
             if fit is None:
                 return None
             return sorted(fit[2])
+        model = GPUS.get(m.tpu_generation)
+        if model is not None and spec.chips <= model.nvlink_domain < len(m.chips):
+            picked = _pick_in_domain(model, qualifying, spec.chips)
+            if picked is not None:
+                return picked
         fit = best_fit_block(shape, qualifying, spec.chips)
         if fit is not None:
             return sorted(fit[2])
@@ -510,6 +522,18 @@ class ChipAllocator(ReservePlugin, EnqueueExtensions):
             nom = self._nominated.pop(key, None)
             if nom is not None:
                 self._changes.record(nom[0])
+
+
+def _pick_in_domain(model: GpuModel, qualifying, n: int) -> list[Coord] | None:
+    """n qualifying cards inside one NVLink domain: the domain with the
+    fewest qualifying cards that still holds n (best fit, so whole domains
+    stay free for larger pods), the lowest domain on ties, its lowest
+    cards; None when no domain holds n."""
+    groups = cards_by_domain(model, qualifying)
+    fits = [(len(g), k) for k, g in groups.items() if len(g) >= n]
+    if not fits:
+        return None
+    return groups[min(fits)[1]][:n]
 
 
 def _node_shape(m: TpuNodeMetrics) -> tuple[int, int, int]:

@@ -55,7 +55,7 @@ except Exception:  # pragma: no cover - numpy-less install
 
 from ..framework import CycleState, NodeInfo, PreScorePlugin, ScorePlugin, Status
 from ...telemetry.schema import GPU, HEALTHY
-from ...topology.gpus import GPUS
+from ...topology.gpus import GPUS, card_domain, cards_by_domain
 from ...utils.labels import GANG_NAME_LABEL, IB_LEAF_LABEL, WorkloadSpec
 from .allocator import ChipAllocator
 from .gang import GangCoordinator
@@ -252,8 +252,8 @@ class GpuLocalityScore(ScorePlugin, PreScorePlugin):
 
     def _domain_fits(self, spec: WorkloadSpec, node: NodeInfo) -> bool:
         """Whether the pod's cards fit inside one NVLink domain of the
-        node's free cards (a card's domain from its position, NVML's index
-        order). A node of no catalogued model is not judged."""
+        node's free cards (`gpus.card_domain`, as the allocator's pick). A
+        node of no catalogued model is not judged."""
         m = node.metrics
         model = GPUS.get(m.tpu_generation)
         if model is None or spec.chips <= 1:
@@ -261,12 +261,9 @@ class GpuLocalityScore(ScorePlugin, PreScorePlugin):
         if spec.chips > model.nvlink_domain:
             return False
         free = self.allocator.free_coords(node)
-        per_domain: dict[int, int] = {}
-        for pos, c in enumerate(m.chips):
-            if c.health == HEALTHY and c.coords in free:
-                k = model.nvlink_group(pos)
-                per_domain[k] = per_domain.get(k, 0) + 1
-        return max(per_domain.values(), default=0) >= spec.chips
+        groups = cards_by_domain(model, (c.coords for c in m.chips
+                                         if c.health == HEALTHY and c.coords in free))
+        return max(map(len, groups.values()), default=0) >= spec.chips
 
     def score(self, state: CycleState, pod, node: NodeInfo) -> tuple[float, Status]:
         view: _LeafView | None = state.read_or(LEAF_VIEW_KEY)
@@ -283,7 +280,9 @@ class GpuLocalityScore(ScorePlugin, PreScorePlugin):
     def score_batch(self, state: CycleState, pod, table, rows):
         """Columnar form: the leaf terms gathered by row, the NVLink term
         from the free-card columns (`chip_free`, healthy and unclaimed, one
-        column a card in NVML's order) grouped by each model's domain."""
+        column a card in NVML's order, so column i is the card at (i, 0, 0))
+        summed by `gpus.card_domain`, the helper `_domain_fits` and the
+        allocator's pick read."""
         if np is None:
             return None
         view: _LeafView | None = state.read_or(LEAF_VIEW_KEY)
@@ -306,11 +305,10 @@ class GpuLocalityScore(ScorePlugin, PreScorePlugin):
                     fits = np.zeros(int(sel.sum()), dtype=bool)
                 else:
                     free = table.chip_free[rows[sel]]
-                    d = model.nvlink_domain
-                    pad = (-free.shape[1]) % d
-                    if pad:
-                        free = np.pad(free, ((0, 0), (0, pad)))
-                    per_domain = free.reshape(len(free), -1, d).sum(axis=2)
+                    domain = np.array([card_domain(model, (i, 0, 0))
+                                       for i in range(free.shape[1])])
+                    one_hot = domain[:, None] == np.arange(domain.max() + 1)
+                    per_domain = free.astype(np.int64) @ one_hot
                     fits = per_domain.max(axis=1) >= spec.chips
                 split[np.flatnonzero(sel)[~fits]] = SPLIT_DOMAIN
         # non-GPU rows carry no value and no catalogued model: 0.0 + 0.0

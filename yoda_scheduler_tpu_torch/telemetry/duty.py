@@ -41,8 +41,12 @@ import time
 
 
 class DutyCycleSampler:
-    """Background probe loop for ONE card, by its CUDA index. `duty_pct`
-    is always readable (0.0 until the first samples land)."""
+    """Background probe loop for ONE card, by its CUDA index: its place
+    among the cards CUDA_VISIBLE_DEVICES lets the process see (in a pod of
+    the port, `parallel.multihost.bind_assigned_cards` lists the assigned
+    cards there in the annotation's order), which need not be its NVML
+    index. `duty_pct` is always readable (0.0 until the first samples
+    land)."""
 
     def __init__(self, device, period_s: float = 0.25,
                  alpha: float = 0.2,

@@ -26,6 +26,7 @@ NVML_CLOCK_SM = 1                # nvmlClockType_t
 NVML_NVLINK_MAX_LINKS = 18       # nvml.h; an H100 SXM5 has all 18
 NVML_FEATURE_ENABLED = 1         # nvmlEnableState_t
 NVML_DEVICE_NAME_V2_BUFFER_SIZE = 96  # nvml.h: the longest product name + NUL
+NVML_DEVICE_UUID_V2_BUFFER_SIZE = 96  # nvml.h: the longest UUID string + NUL
 
 
 class NvmlError(RuntimeError):
@@ -62,6 +63,7 @@ _SIGNATURES = {
     "nvmlDeviceGetHandleByIndex_v2": (ctypes.c_int, [ctypes.c_uint,
                                                      ctypes.POINTER(_HANDLE)]),
     "nvmlDeviceGetName": (ctypes.c_int, [_HANDLE, ctypes.c_char_p, ctypes.c_uint]),
+    "nvmlDeviceGetUUID": (ctypes.c_int, [_HANDLE, ctypes.c_char_p, ctypes.c_uint]),
     "nvmlDeviceGetMemoryInfo": (ctypes.c_int, [_HANDLE, ctypes.POINTER(Memory)]),
     "nvmlDeviceGetMaxClockInfo": (ctypes.c_int, [_HANDLE, ctypes.c_int, _UINT_P]),
     "nvmlDeviceGetNumGpuCores": (ctypes.c_int, [_HANDLE, _UINT_P]),
@@ -145,6 +147,15 @@ class NvmlDevice:
         buf = ctypes.create_string_buffer(NVML_DEVICE_NAME_V2_BUFFER_SIZE)
         self.nvml.call("nvmlDeviceGetName", self.handle, buf,
                        NVML_DEVICE_NAME_V2_BUFFER_SIZE)
+        return buf.value.decode()
+
+    def uuid(self) -> str:
+        """The card's UUID, "GPU-" and 32 hex digits in five groups: the
+        name CUDA_VISIBLE_DEVICES takes for the card, whatever CUDA's own
+        index order."""
+        buf = ctypes.create_string_buffer(NVML_DEVICE_UUID_V2_BUFFER_SIZE)
+        self.nvml.call("nvmlDeviceGetUUID", self.handle, buf,
+                       NVML_DEVICE_UUID_V2_BUFFER_SIZE)
         return buf.value.decode()
 
     def memory(self) -> Memory:

@@ -46,11 +46,6 @@ class GpuModel:
     bf16_dense_tflops: float     # tensor-core peak, dense
     datasheet_only: bool = True  # False once a live card's NVML equals the row
 
-    def nvlink_group(self, card_index: int) -> int:
-        """The NVLink domain a card belongs to on its host: cards
-        [k * nvlink_domain, (k + 1) * nvlink_domain) form domain k."""
-        return card_index // self.nvlink_domain
-
 
 GPUS: dict[str, GpuModel] = {
     g.name: g
@@ -87,3 +82,19 @@ def model_of_nvml_name(product: str) -> str | None:
     """The catalog model NVML's product name belongs to, matched exactly;
     None for a product the catalog does not list (never a guess)."""
     return _BY_NVML_NAME.get(product)
+
+
+def card_domain(model: GpuModel, coords) -> int:
+    """The NVLink domain of the card at `coords` on its host. A card's
+    coordinate is (NVML index, 0, 0), as the sniffer and telemetry.fake
+    set it, and cards [k * nvlink_domain, (k + 1) * nvlink_domain) form
+    domain k."""
+    return coords[0] // model.nvlink_domain
+
+
+def cards_by_domain(model: GpuModel, coords) -> dict[int, list]:
+    """`coords` grouped by `card_domain`, each group sorted."""
+    groups: dict[int, list] = {}
+    for c in sorted(coords):
+        groups.setdefault(card_domain(model, c), []).append(c)
+    return groups
