@@ -160,6 +160,28 @@ The port's tools, and the workload's side of the scheduler's assignment:
   share of it; the launches of each kernel in the sweep, by route (the
   kernels line counts the wgmma route's under tune_attention, as on every
   other path, and gives all three routes' beside it).
+- bench_mfu (bench_mfu.py), right after tune_attention: the twin of the
+  JAX package's bench_mfu.py through its own functions. The train step's
+  MFU for four candidates in ascending size (d1024 L8 B8, d1024 L16 B8,
+  d2048 L16 B4, Llama-2-7B B1, all S=2048: one warm step, 10 timed, MFU
+  against the card's catalog peak); then every attention row (causal,
+  H=16, D=128, B=8192/S at S = 2048, 4096, 8192, forward and the gradient
+  with respect to q; GQA 16q/4kv and window=1024 at S=8192) checked
+  against the plain version (tools/tune_attention's checks; GQA grouped
+  against repeated) before any is timed, then timed as q-chained slopes
+  beside the plain version and SDPA (default and flash backends, the
+  default's choice named). Every candidate and row must give its
+  numbers; every attention launch be on the wgmma route, and each train
+  candidate's on its head dim's (wgmma at 128; mma at the d1024 widths'
+  64, which the wgmma kernels do not take).
+- bench_generate (bench_generate.py): the twin of bench_generate.py at
+  width 2048, 16 layers: prefill ms and decode tokens/s at B = 1 and 8,
+  window None and 1024 (the ring cache, its decode first held against the
+  linear cache's over 8 steps, a check that must reject two planted
+  wrong rings), prompt 2048, 512 new tokens, one slope a cell, beside
+  the weights' roofline; then the no-cache baseline at B=8 (16 flash_fwd
+  a token, all on the wgmma route). Each prints its rows and then the
+  twin's JSON line.
 - visible (parallel/multihost.py), last: a child process given
   YODA_ASSIGNED_CHIPS="0,0,0" sees exactly one card, whose UUID is NVML's
   card 0's; "1,0,0" (past this host's one card) is refused by the helper;
@@ -354,6 +376,13 @@ GPU_PROFILE = "yoda_scheduler_tpu_torch/deploy/gpu-profile.yaml"
 # included: 75 ms a forward+backward)
 TUNE_SEQS, TUNE_REPEATS = (2048, 4096, 8192), 3
 
+# bench_mfu and bench_generate: the twins' own shapes and plans. A decode
+# slope spans ~400 steps, so the smoke takes one a cell where the twin takes
+# the median of three (the attention rows keep the twin's readings)
+BENCH_DECODE_REPEATS = 1
+BENCH_MFU_ROWS = ("S2048", "S4096", "S8192", "gqa_16q_4kv", "window_1024")
+BENCH_MFU_CANDIDATES = 4
+
 # visible: a child process given the annotation of card 0 must see that
 # card alone, by its NVML UUID; card 1, which this one-card host lacks,
 # must be refused by the helper, not by CUDA
@@ -528,6 +557,8 @@ SHAPES = [
     ("non_causal", 1, 32, 32, 1024, 1024, 128, False, None, torch.bfloat16, "bhsd",
      "wgmma"),
     ("fp32_d64", 1, 16, 16, 1024, 1024, 64, True, None, torch.float32, "bhsd", "simt"),
+    ("d1024_bshd", 8, 16, 16, 2048, 2048, 64, True, None, torch.bfloat16, "bshd",
+     "mma"),  # bench_mfu's d1024 train candidates as their model gives them
     ("ragged_300", 2, 8, 4, 300, 300, 128, True, None, torch.bfloat16, "bhsd", "wgmma"),
     ("main_unaligned", 1, 32, 32, 2048, 2048, 128, True, None, torch.bfloat16,
      "offset1", "simt"),
@@ -2082,6 +2113,201 @@ def phase_tune_attention(attn, tune, smi: str):
     return routes
 
 
+def _bench_checkpoint(bench_util):
+    """The twins' checkpoint, kept in memory: a smoke reuses no section."""
+    return bench_util.make_checkpoint("CHIP_SMOKE_BENCH_CKPT", "off", lambda msg: None)
+
+
+def _only_wgmma(routes: dict) -> bool:
+    return all(set(by_route) <= {"wgmma"} for by_route in routes.values())
+
+
+def bench_train_routes(bench_mfu) -> dict:
+    """Each kernel's launches by route over bench_mfu's train candidates:
+    per layer a step, the forward twice (remat) and each backward kernel
+    once, for the warm step and the timed ones; on the wgmma route at head
+    dim 128, on mma at the reference's d1024 widths' 64 (the wgmma kernels
+    take 128 alone)."""
+    want = {n: {} for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    for cfg, _, _ in bench_mfu.train_candidates(True):
+        route = "wgmma" if cfg.head_dim == 128 else "mma"
+        for name, per_layer in (("flash_fwd", 2), ("flash_bwd_dq", 1), ("flash_bwd_dkv", 1)):
+            want[name][route] = (want[name].get(route, 0)
+                                 + per_layer * cfg.n_layers * (1 + bench_mfu.CARD_TRAIN_STEPS))
+    return want
+
+
+def planted_rings(gen_mod) -> dict:
+    """Wrong folds of a prefilled cache into the ring, for the rolling
+    check to reject: the prompt's keys and values lost; the oldest window
+    of the prompt kept in place of the newest; every prompt key one slot
+    late, so that the first decode step overwrites the newest prompt key
+    where it should overwrite the oldest (one key short at every step);
+    every prompt slot labelled one position too old, so that the window
+    mask drops the oldest key it should keep (1,023 keys where 1,024 are
+    due, at every step). A ring of `window` slots cannot hold a key too
+    many: a label one too new is overwritten by the first step."""
+    fold = gen_mod.RollingKVCache.from_prefill
+
+    def prompt_lost(cache, window):
+        ring = fold(cache, window)
+        ring.k.zero_()
+        ring.v.zero_()
+        return ring
+
+    def oldest_window(cache, window):
+        oldest = gen_mod.KVCache(k=cache.k, v=cache.v, length=window)
+        return dataclasses.replace(fold(oldest, window), next_pos=cache.length)
+
+    def slot_shifted(cache, window):
+        ring = fold(cache, window)
+        return dataclasses.replace(ring, k=ring.k.roll(1, dims=2), v=ring.v.roll(1, dims=2),
+                                   slot_pos=ring.slot_pos.roll(1))
+
+    def window_one_short(cache, window):
+        ring = fold(cache, window)
+        return dataclasses.replace(ring, slot_pos=torch.where(
+            ring.slot_pos >= 0, ring.slot_pos - 1, ring.slot_pos))
+
+    return {"prompt_lost": prompt_lost, "oldest_window": oldest_window,
+            "slot_shifted": slot_shifted, "window_one_short": window_one_short}
+
+
+def phase_bench_mfu(attn, bench_util, bench_mfu, tune, smi: str):
+    """The twin of bench_mfu.py: the train candidates (d1024 L8 B8, d1024 L16
+    B8, d2048 L16 B4, 7B B1, all S=2048), then every attention row checked
+    against the plain version and then timed; one line a candidate and a
+    row, then the twin's JSON line. Every candidate and row must give its
+    numbers; every attention launch be on the wgmma route, and the train
+    launches on the route each candidate's head dim takes
+    (`bench_train_routes`)."""
+    free_memory()
+    t0 = time.perf_counter()
+    card = bench_util.detect_card()
+    peak = bench_mfu.peak_flops(card.name)
+    ckpt = _bench_checkpoint(bench_util)
+    reset_launches(attn)
+    train = bench_mfu.llama_train_bench(True, ckpt, "cuda", peak)
+    torch.cuda.synchronize()
+    train_launches, train_routes = read_launches(attn), read_routes(attn)
+    free_memory()
+    try:
+        checks = bench_mfu.check_attention()
+    except tune.CheckFailed as e:
+        raise SystemExit(f"bench_mfu: {e}") from None
+    reset_launches(attn)
+    attention = bench_mfu.time_attention(True, ckpt, peak, "cuda")
+    torch.cuda.synchronize()
+    attn_launches, attn_routes = read_launches(attn), read_routes(attn)
+    free_memory()
+    for attempt in train["attempts"]:
+        print(json.dumps({"phase": "bench_mfu", "train": attempt}), flush=True)
+    for name, row in attention.items():
+        print(json.dumps({"phase": "bench_mfu", "row": name, **row}), flush=True)
+    print(json.dumps(bench_mfu.result(train, attention, card, smi, "cuda")), flush=True)
+    # a row's every time is a number, but the window row's flash library
+    # call, which SDPA's flash backend cannot make (it takes no mask)
+    unmeasured = [f"{name}.{key}" for name, row in attention.items()
+                  for key, value in row.items()
+                  if key.endswith("_ms") and (name, key) != ("window_1024", "sdpa_flash_fwd_ms")
+                  and not isinstance(value, float)]
+    no_mfu = [a for a in train["attempts"] if not isinstance(a.get("mfu_pct"), float)]
+    emit("bench_mfu", nvidia_smi=smi, card=card.name,
+         catalog_model=card.model.name if card.model else None,
+         peak_tflops=peak / 1e12 if peak else None, readings=bench_mfu.READINGS,
+         seconds=time.perf_counter() - t0, checks=checks,
+         launches={"train": train_launches, "attention": attn_launches},
+         launches_by_route={"train": train_routes, "attention": attn_routes},
+         attempts=train["attempts"], rows=sorted(attention))
+    idle = [f"{path}.{n}" for path, counts in (("train", train_launches),
+                                               ("attention", attn_launches))
+            for n, c in counts.items() if not c]
+    skipped = [name for name, row in attention.items() if "skipped" in row]
+    if (len(train["attempts"]) != BENCH_MFU_CANDIDATES or no_mfu or unmeasured or skipped
+            or sorted(attention) != sorted(BENCH_MFU_ROWS)):
+        raise SystemExit(f"bench_mfu: a candidate or row without its numbers: "
+                         f"{no_mfu or train['attempts']}, {unmeasured}, {skipped}, "
+                         f"{sorted(attention)}")
+    want_train = bench_train_routes(bench_mfu)
+    if idle or train_routes != want_train or not _only_wgmma(attn_routes):
+        raise SystemExit(f"bench_mfu: kernels never launched {idle}, or launches off their "
+                         f"routes: train {train_routes} (expected {want_train}), attention "
+                         f"{attn_routes} (expected wgmma alone)")
+    return {"bench_mfu_train": train_routes, "bench_mfu_attention": attn_routes}
+
+
+def phase_bench_generate(attn, bench_util, bench_generate, llama, gen_mod, smi: str):
+    """The twin of bench_generate.py at width 2048: prefill and decode of
+    the four cells (B 1 and 8, window None and 1024 through the ring
+    cache, each windowed cell's rolling decode first held against the
+    linear one), then the no-cache baseline at B=8 (one flash_fwd a layer
+    a token); one line a cell, then the twin's JSON line. Every cell and
+    the baseline must give tokens/s, every flash launch be on the wgmma
+    route, and the rolling check reject each planted wrong ring
+    (`planted_rings`)."""
+    free_memory()
+    t0 = time.perf_counter()
+    card = bench_util.detect_card()
+    bw = bench_generate.hbm_gbps(card.name)
+    config = bench_generate.serving_config(True)
+    prompt_len = bench_generate.run_shape(True)[0]
+    params = llama.init_llama(config, seed=0, device="cuda")
+    param_bytes, n_params = bench_generate.weight_bytes(params)
+    ckpt = _bench_checkpoint(bench_util)
+    reset_launches(attn)
+    try:
+        cells = bench_generate.run_cells(params, config, True, ckpt, bw, param_bytes,
+                                         repeats=BENCH_DECODE_REPEATS)
+    except bench_generate.RollingMismatch as e:
+        raise SystemExit(f"bench_generate: {e}") from None
+    torch.cuda.synchronize()
+    cell_launches = read_launches(attn)
+    windowed = dataclasses.replace(config, sliding_window=bench_generate.run_shape(True)[2])
+    prompt = bench_generate.make_prompt(1, 1, prompt_len, config.vocab_size,
+                                        params["embed"].device)
+    planted = {name: bench_generate.rolling_check(params, windowed, prompt, fold=fold)
+               ["max_rel_l2"] for name, fold in planted_rings(gen_mod).items()}
+    # the same in the cells' bf16, for the record: why the check runs in fp32
+    planted_bf16 = {name: bench_generate.rolling_check(params, windowed, prompt, fold=fold,
+                                                       dtype=config.dtype)["max_rel_l2"]
+                    for name, fold in {"sound": None, **planted_rings(gen_mod)}.items()}
+    reset_launches(attn)
+    baseline = bench_generate.no_cache_baseline(params, config, 8, prompt_len,
+                                                repeats=BENCH_DECODE_REPEATS)
+    torch.cuda.synchronize()
+    nc_launches, nc_routes = read_launches(attn), read_routes(attn)
+    del params
+    free_memory()
+    for cell in cells:
+        print(json.dumps({"phase": "bench_generate", **cell}), flush=True)
+    print(json.dumps(bench_generate.result(cells, baseline, n_params, card, smi, "cuda")),
+          flush=True)
+    # the no-cache generation's forwards: one warm token, then 2 and 4
+    # tokens `repeats` times each, a launch a layer a token
+    want = config.n_layers * (1 + 6 * BENCH_DECODE_REPEATS)
+    emit("bench_generate", nvidia_smi=smi, card=card.name, memory_gbps=bw,
+         params=n_params, weight_gb=param_bytes / 1e9, repeats=BENCH_DECODE_REPEATS,
+         seconds=time.perf_counter() - t0, cells=cells, no_cache_baseline=baseline,
+         rolling_bound=bench_generate.ROLLING_REL_L2, planted_rings_rel_l2=planted,
+         rings_rel_l2_bf16=planted_bf16,
+         launches={"cells": cell_launches, "no_cache": nc_launches},
+         launches_by_route={"no_cache": nc_routes})
+    no_number = [c for c in cells if not isinstance(c.get("decode_tokens_per_sec"), float)]
+    unchecked = [c for c in cells if c["window"] and not (c.get("rolling_check") or {}).get("ok")]
+    if no_number or unchecked or not isinstance(baseline.get("tokens_per_sec"), float):
+        raise SystemExit(f"bench_generate: a cell or the baseline without its numbers, or "
+                         f"an unchecked ring: {no_number}, {unchecked}, {baseline}")
+    if not all(err > bench_generate.ROLLING_REL_L2 for err in planted.values()):
+        raise SystemExit(f"bench_generate: the rolling check's bound "
+                         f"{bench_generate.ROLLING_REL_L2} let a planted wrong ring "
+                         f"through: {planted}")
+    if nc_launches != {"flash_fwd": want, "flash_bwd_dq": 0, "flash_bwd_dkv": 0} \
+            or not _only_wgmma(nc_routes):
+        raise SystemExit(f"bench_generate: the no-cache baseline launched {nc_routes}, "
+                         f"expected {want} flash_fwd on the wgmma route")
+    return {"bench_generate_no_cache": nc_routes}
+
+
 def phase_visible(smi: str):
     """The scheduler's assignment reaches a workload: a child process with
     YODA_ASSIGNED_CHIPS="0,0,0" sees one card, NVML's card 0 by UUID;
@@ -2332,6 +2558,7 @@ def main() -> int:
     from yoda_scheduler_tpu_torch.parallel import mesh as mesh_mod, pipeline, ring, train
     from yoda_scheduler_tpu_torch.parallel import checkpoint, multihost, ulysses
     from yoda_scheduler_tpu_torch.tools import tune_attention as tune
+    from yoda_scheduler_tpu_torch import bench_generate, bench_mfu, bench_util
     # Mixtral-8x7B's widths from its config.json, in the port's config fields
     from yoda_scheduler_tpu_torch.profile_path import mixtral_8x7b
 
@@ -2343,6 +2570,9 @@ def main() -> int:
     rows, max_err = phase_kernel(attn)
     bwd_rows, bwd_err = phase_backward(attn, variants)
     tune_routes = phase_tune_attention(attn, tune, smi)
+    bench_routes = phase_bench_mfu(attn, bench_util, bench_mfu, tune, smi)
+    bench_routes.update(phase_bench_generate(attn, bench_util, bench_generate, llama,
+                                               gen_mod, smi))
     cfg, params, fwd_launches = phase_forward(attn, llama)
     phase_serving(cfg, params, llama, gen_mod)
     del params
@@ -2397,8 +2627,11 @@ def main() -> int:
                              "checkpoint_resumed_step": resumed_launches["flash_fwd"],
                              "multihost_step": multihost_launches["flash_fwd"],
                              "telemetry_load": telemetry_launches["flash_fwd"],
-                             "tune_attention": tune_routes["flash_fwd"].get("wgmma", 0)},
+                             "tune_attention": tune_routes["flash_fwd"].get("wgmma", 0),
+                             **{path: routes["flash_fwd"].get("wgmma", 0)
+                                for path, routes in bench_routes.items()}},
         "tune_attention_launches_by_route": tune_routes["flash_fwd"],
+        "bench_mfu_train_launches_by_route": bench_routes["bench_mfu_train"]["flash_fwd"],
         "max_abs_err": max_err,
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -2417,8 +2650,12 @@ def main() -> int:
                              "pipeline_train_step": pipe_launches[name],
                              "checkpoint_resumed_step": resumed_launches[name],
                              "multihost_step": multihost_launches[name],
-                             "tune_attention": tune_routes[name].get("wgmma", 0)},
+                             "tune_attention": tune_routes[name].get("wgmma", 0),
+                             **{path: routes[name].get("wgmma", 0)
+                                for path, routes in bench_routes.items()
+                                if path != "bench_generate_no_cache"}},
         "tune_attention_launches_by_route": tune_routes[name],
+        "bench_mfu_train_launches_by_route": bench_routes["bench_mfu_train"][name],
         "max_abs_err": bwd_err[key], "ms": bwd_main[f"{key}_ms"],
         "plain_ms": bwd_main["plain_ms"], "bound_ms": bwd_main[f"{key}_bound_ms"],
         "bound_by": bwd_main[f"{key}_bound_by"],

@@ -675,3 +675,37 @@ def test_resnet_on_the_card_matches_the_cpu_fp32(gpu):
             assert chip_smoke.rel_l2(s_gpu[n], s_cpu[n]) < 1e-5, n
     for n in g_cpu:
         assert chip_smoke.rel_l2(native[2][n], g_cpu[n]) < 1e-4, n
+
+
+# -------------------------------------------------------------- bench twins
+def test_bench_detect_card_names_its_catalog_row(gpu):
+    """bench_util.detect_card finds CUDA's card in NVML by UUID; a catalogued
+    product maps to its row, whose bf16 peak is bench_mfu's."""
+    from yoda_scheduler_tpu_torch import bench_mfu, bench_util
+    from yoda_scheduler_tpu_torch.topology.gpus import GPUS, model_of_nvml_name
+
+    card = bench_util.detect_card()
+    model = model_of_nvml_name(card.name)
+    assert card.model == (GPUS[model] if model else None)
+    assert bench_mfu.peak_flops(card.name) == (
+        card.model.bf16_dense_tflops * 1e12 if card.model else None)
+
+
+def test_bench_fwdbwd_row_launches_both_backward_kernels(gpu):
+    """bench_mfu's "fwd+bwd" is the gradient of sum(O) with respect to q
+    alone, yet the port's backward launches the dK/dV kernel beside the dQ
+    kernel; dQ agrees with the plain backward's for the ones cotangent."""
+    from yoda_scheduler_tpu_torch import bench_mfu
+
+    q, k, v = bench_mfu.make_inputs(0, 1, 16, 16, 256, gpu)
+    fn = bench_mfu.grad_q(bench_mfu.flash_fwd_fn)
+    chip_smoke.reset_launches(attn)
+    got = fn(q, k, v)
+    torch.cuda.synchronize()
+    assert chip_smoke.read_launches(attn) == {"flash_fwd": 1, "flash_bwd_dq": 1,
+                                              "flash_bwd_dkv": 1}
+    assert chip_smoke.read_routes(attn) == {n: {"wgmma": 1} for n in
+                                            ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    o, lse = attn.flash_fwd(q, k, v)
+    want = attn.flash_backward_reference(q, k, v, o, lse, torch.ones_like(q))[0]
+    assert tile_rel_l2(got, want) <= BWD_TILE_REL_L2

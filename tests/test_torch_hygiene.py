@@ -50,6 +50,23 @@ def test_import_loads_no_jax():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+def test_bench_twins_import_neither_jax_nor_the_reference():
+    """The bench twins load no JAX, nothing of the JAX package and none of
+    its top-level benches (bench_util, bench_mfu, bench_generate, bench)."""
+    code = ("import sys\n"
+            "import yoda_scheduler_tpu_torch.bench_util, "
+            "yoda_scheduler_tpu_torch.bench_mfu, "
+            "yoda_scheduler_tpu_torch.bench_generate\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'yoda_scheduler_tpu', 'bench_util', 'bench_mfu', "
+            "'bench_generate', 'bench'))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=str(PKG.parent))
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
 def test_engine_imports_load_neither_torch_nor_jax():
     """The scheduling system runs on hosts: importing the engine, the k8s
     layer, the CLI, the chaos harness, the telemetry and the topology
@@ -111,10 +128,12 @@ def test_engine_import_builds_nothing():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
-# the route sweep times the library's attention beside the kernels, as
-# the yardstick, and nothing else of the package may name it
-# (test_no_module_imports_the_tools: no path of the port runs the sweep)
-YARDSTICKS = {"scaled_dot_product_attention": ["tools/tune_attention.py"]}
+# the route sweep and the attention bench time the library's attention
+# beside the kernels, as the yardstick, and nothing else of the package may
+# name it (test_no_module_imports_the_tools: no path of the port runs them)
+YARDSTICKS = {"scaled_dot_product_attention": ["bench_mfu.py", "tools/tune_attention.py"]}
+# the workload benches, entry points a user runs as the tools are
+BENCHES = ("bench_mfu.py", "bench_generate.py")
 
 
 @pytest.mark.parametrize("needle", ["import jax", "from jax",
@@ -128,9 +147,10 @@ def test_package_source_never_mentions(needle):
 
 def test_no_module_imports_the_tools():
     """tools/ holds entry points a user runs; no module of the port's
-    models, steps or engine imports them."""
+    models, steps or engine imports them (the benches, entry points
+    themselves, share the sweep's checks)."""
     hits = [str(p.relative_to(PKG)) for p in PKG.rglob("*.py")
-            if p.parent.name != "tools"
+            if p.parent.name != "tools" and str(p.relative_to(PKG)) not in BENCHES
             and re.search(r"from \.+tools\b|yoda_scheduler_tpu_torch\.tools", p.read_text())]
     assert hits == []
 

@@ -120,12 +120,14 @@ def make_inputs(s: int, bwd: bool):
             for _ in range(4 if bwd else 3)]
 
 
-def _sdpa(q, k, v):
-    """The library's attention under its flash backend alone."""
+def _sdpa(q, k, v, **kw):
+    """The library's causal attention under its flash backend alone; `kw`
+    goes on to the call (bench_mfu's GQA row passes enable_gqa)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-        return torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True)
+        return torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                                **kw)
 
 
 def _grads(fn, q, k, v, do):
