@@ -146,7 +146,16 @@ The scheduling system, on the host, fed by the card's telemetry:
   held twice, no memory overcommitted, the two plugin runs alike; the
   gangs across leaves on and off, decisions by plane, each run's time,
   and (reported, not gated) the pods on H100 PCIe nodes whose cards sit in
-  more than one bridged pair.
+  more than one bridged pair. The tier is the engine bench twin's
+  `run_gpu_fleet` (bench.py).
+- bench_engine (bench.py, tools/scale50k.py): the engine bench twins with
+  the live card in their clusters: bench.py's burst headline (both
+  profiles warmed, then five paired runs), `run_scale(125)` once and
+  scale50k's smoke tier (the 5,000-node tier, then 12,504 nodes, one pod a
+  node): no placement fault in any run, the native planes deciding every
+  run of the yoda-tpu profile, and at least one pod of each such burst on
+  the live card; the headline's latency, ratios, bound and bin-pack, the
+  scale run's and the tier's wall time, binds/s and peak RSS.
 
 The port's tools, and the workload's side of the scheduler's assignment:
 
@@ -216,6 +225,9 @@ from pathlib import Path
 
 import torch
 
+# the engine bench twin: its clusters, tiers and the engine's invariants
+# (placement_faults) serve the scheduler, gpu_fleet and bench_engine phases
+from yoda_scheduler_tpu_torch import bench as engine_bench
 # the card's rates and the kernels' bounds, one copy with the route sweep
 # (yoda_scheduler_tpu_torch/tools/tune_attention.py)
 from yoda_scheduler_tpu_torch.ops.bounds import (H100_BF16_FLOPS, H100_HBM_BYTES,
@@ -344,8 +356,8 @@ TELEMETRY_ALLOC_GIB, TELEMETRY_LOAD_S, TELEMETRY_SETTLE_S = 16, 2.0, 2.0
 TELEMETRY_BUSY_PCT, TELEMETRY_IDLE_PCT = 80, 20
 # scheduler: bench.py's huge_5000 cell (BENCH_SCALE5K.json): 625 x (one
 # v4-32 slice of 4 hosts, 2 v4-8 hosts, 2 GPU nodes of 8 cards at 40,000
-# MB) = 5,000 nodes, 5 pods a node in bench.py's mix, plus this host's
-# card as sniffed. A pod asking for LIVE_POD_MB of free memory a card fits
+# MB) = 5,000 nodes (the twin's build_scale_nodes), 5 pods a node in
+# bench.py's mix, plus this host's card as sniffed. A pod asking for LIVE_POD_MB of free memory a card fits
 # only the live card (a fake GPU card has 40,000 MB); with LIVE_HOLD_GIB
 # of the card held it fits nowhere.
 SCHED_UNITS, SCHED_PODS_PER_NODE, SCHED_SEED = 625, 5, 13
@@ -355,19 +367,21 @@ LIVE_NODE, LIVE_POD_MB, LIVE_HOLD_GIB = "h100-live", 60_000, 40
 # plane bound (the native plane places as the numpy plane does)
 SCHED_BOUND = 20_161
 
-# gpu_fleet: the NVIDIA DGX SuperPOD (DGX H100) reference architecture's
-# 32-node scalable units as InfiniBand leaves: 16 leaves x 32 HGX H100
-# SXM5 nodes (4,096 cards), 64 A100 SXM4 80GB nodes on 2 leaves, 32 H100
-# PCIe nodes on 1 leaf (model, leaves, nodes a leaf), each model its own
-# fabric, and the live node. The fleet's cards report GPU_FLEET_FREE_MB
-# free (16 GiB resident); a pod pinned to h100-sxm5 asking GPU_LIVE_POD_MB
-# a card fits only the live card.
-GPU_FLEET = (("h100-sxm5", 16, 32), ("a100-sxm4-80gb", 2, 32), ("h100-pcie", 1, 32))
-GPU_FLEET_FREE_MB, GPU_LIVE_POD_MB, GPU_FLEET_SEED = 65_536, 70_000, 21
-# gangs of h100-sxm5 nodes x 8 cards: size -> count (1,664 cards)
-GPU_GANGS = {16: 4, 8: 8, 4: 12, 2: 16}
-GPU_WHOLE_NODE_PODS, GPU_SMALL_PODS = 100, 570
-GPU_PROFILE = "yoda_scheduler_tpu_torch/deploy/gpu-profile.yaml"
+# gpu_fleet: the engine bench twin's GPU fleet (bench.GPU_FLEET: a DGX
+# SuperPOD's scalable units as IB leaves, and the live node) and its burst
+# from bench.GPU_FLEET_SEED, through bench.run_gpu_fleet
+
+# bench_engine: the burst headline's paired runs, the scale run's units
+# (1,000 nodes) and scale50k's smoke tier (12,504 nodes)
+ENGINE_BURST_RUNS, ENGINE_SCALE_UNITS = 5, 125
+# and the outcomes each run must reach: the JAX bench's on the CPU
+# (tests/test_torch_bench_engine.py), plus one pod on the live card where
+# the yoda-tpu profile places it. The burst binds all 200 pods with its 5
+# gangs whole on yoda-tpu, the reference emulation 195; run_scale(125) the
+# JAX engine's 4,040 plus one; scale50k's 5,000-node leg its 20,232 plus
+# one, and its 12,504-node tier every pod
+ENGINE_BURST_BOUND, ENGINE_BURST_GANGS, ENGINE_BASELINE_BOUND = 200, 5, 195
+ENGINE_SCALE_BOUND, ENGINE_5K_BOUND = 4_041, 20_233
 
 # tune_attention: the route sweep (tools/tune_attention.py) at the
 # reference's sequence lengths, each candidate A, B, ..., B, A this many
@@ -1890,19 +1904,6 @@ def phase_telemetry(attn, smi: str):
     return load_launches
 
 
-def scale_nodes(telemetry, units: int):
-    """bench.py's build_scale_nodes through the port's telemetry.fake:
-    `units` x (one 4-host v4-32 slice, 2 v4-8 hosts, 2 GPU nodes of 8 cards
-    at 40,000 MB)."""
-    nodes = []
-    for i in range(units):
-        nodes += telemetry.make_v4_slice(f"s{i}", "2x2x4")
-        for j in range(2):
-            nodes.append(telemetry.make_tpu_node(f"t{i}-{j}", chips=4))
-            nodes.append(telemetry.make_gpu_node(f"g{i}-{j}", cards=8))
-    return nodes
-
-
 def burst_specs(n: int, seed: int) -> list[tuple[str, dict]]:
     """bench.py's scale burst (`_run_scale_nogc`): an equal mix of one-chip
     TPU pods, two-chip TPU pods at 4,000 MB, one-card GPU pods at 10,000 MB
@@ -1917,53 +1918,15 @@ def burst_specs(n: int, seed: int) -> list[tuple[str, dict]]:
     return specs
 
 
-def placement_faults(pods, cluster) -> list[str]:
-    """The engine's invariants over the cluster's book (tests/test_chaos.py's):
-    each bound pod once, where it believes it is, on chips its node has,
-    the count it asked for, no chip held twice, and each chip's free
-    memory at least what its pod asked for."""
-    faults, seen, owners = [], {}, {}
-    for node in cluster.node_names():
-        for p in cluster.pods_on(node):
-            if p.key in seen:
-                faults.append(f"{p.key} bound on {seen[p.key]} and {node}")
-            seen[p.key] = node
-    for p in pods:
-        if p.phase.value != "Bound":
-            continue
-        if seen.get(p.key) != p.node:
-            faults.append(f"{p.name} on {p.node}, the cluster says {seen.get(p.key)}")
-        chips = {c.coords: c for c in cluster.telemetry.get(p.node).chips}
-        held = p.assigned_chips()
-        if len(held) != int(p.labels.get("scv/number", "1")):
-            faults.append(f"{p.name} holds {len(held)} chips")
-        for c in held:
-            if c not in chips:
-                faults.append(f"{p.name} holds {p.node}/{c}, which does not exist")
-                continue
-            if (p.node, c) in owners:
-                faults.append(f"{p.node}/{c} held by {owners[(p.node, c)]} and {p.name}")
-            owners[(p.node, c)] = p.name
-            if int(p.labels.get("scv/memory", "0")) > chips[c].hbm_free_mb:
-                faults.append(f"{p.name} overcommits {p.node}/{c}")
-    return faults
+placement_faults, plane_counts = engine_bench.placement_faults, engine_bench.plane_counts
 
 
 def build_native_planes() -> float:
     """Build the engine's native planes from this checkout (g++); raises,
     failing the phase, if they do not build or load. -> seconds."""
-    from yoda_scheduler_tpu_torch.utils import nativeloader
-
     t0 = time.perf_counter()
-    path = nativeloader.build()
-    if nativeloader.load_library() is None:
-        raise SystemExit(f"native planes built ({path}) but not loaded")
+    engine_bench.build_native_planes()
     return time.perf_counter() - t0
-
-
-def plane_counts(sched) -> dict:
-    return {dict(k).get("plane"): n for k, n in
-            sched.metrics.labeled_counters.get("cycle_plane_total", {}).items()}
 
 
 def schedule_trace(live_at, units: int, seed: int, native: bool = True) -> dict:
@@ -1975,15 +1938,11 @@ def schedule_trace(live_at, units: int, seed: int, native: bool = True) -> dict:
     runs. -> the outcomes, placements and the engine's readings."""
     import copy
 
-    from yoda_scheduler_tpu_torch import scheduler, telemetry
+    from yoda_scheduler_tpu_torch import scheduler
     from yoda_scheduler_tpu_torch.scheduler.core import HybridClock
     from yoda_scheduler_tpu_torch.utils import Pod
 
-    store = telemetry.TelemetryStore()
-    far = time.time() + 1e8
-    for m in scale_nodes(telemetry, units):
-        m.heartbeat = far
-        store.put(m)
+    store = engine_bench.build_scale_nodes(units)
     store.put(copy.deepcopy(live_at(0)))
     cluster = scheduler.FakeCluster(store)
     cluster.add_nodes_from_telemetry()
@@ -2356,142 +2315,6 @@ def phase_visible(smi: str):
         raise SystemExit(f"visible: failed {failed}")
 
 
-def gpu_fleet_nodes(telemetry):
-    """GPU_FLEET's pools through the port's telemetry.fake. -> (nodes, each
-    pool node's IB leaf)."""
-    nodes, leaf_of = [], {}
-    for model, leaves, per_leaf in GPU_FLEET:
-        pool, leaves_of = telemetry.make_gpu_pool(model, leaves, per_leaf,
-                                                  mem_free_mb=GPU_FLEET_FREE_MB)
-        nodes += pool
-        leaf_of.update(leaves_of)
-    return nodes, leaf_of
-
-
-def gpu_fleet_specs(seed: int) -> list[tuple[str, dict]]:
-    """The burst, in an order from `seed`, after the live-card pod: gangs
-    of GPU_GANGS pinned to h100-sxm5 (8 cards a member), whole-node 8-card
-    pods, 1-4-card pods pinned to each model (by its share of the fleet's
-    cards) or to none; ~80% of the fleet's cards."""
-    rng = random.Random(seed)
-    specs = []
-    for size, count in GPU_GANGS.items():
-        for g in range(count):
-            specs += [(f"gang{size}-{g}-w{i}", {
-                "tpu/gang-name": f"gang{size}-{g}", "tpu/gang-size": str(size),
-                "scv/number": "8", "scv/memory": "40000", "tpu/accelerator": "gpu",
-                "tpu/generation": "h100-sxm5"}) for i in range(size)]
-    specs += [(f"node{i}", {"scv/number": "8", "tpu/accelerator": "gpu",
-                            "scv/memory": str(rng.choice((10_000, 30_000, 60_000)))})
-              for i in range(GPU_WHOLE_NODE_PODS)]
-    models = ["h100-sxm5", "a100-sxm4-80gb", "h100-pcie", None]
-    for i in range(GPU_SMALL_PODS):
-        labels = {"scv/number": str(rng.choice((1, 2, 3, 4))), "tpu/accelerator": "gpu",
-                  "scv/memory": str(rng.choice((10_000, 30_000, 60_000)))}
-        model = rng.choices(models, weights=(70, 10, 5, 15))[0]
-        if model:
-            labels["tpu/generation"] = model
-        specs.append((f"small{i}", labels))
-    rng.shuffle(specs)
-    live = ("live-card", {"scv/number": "1", "tpu/accelerator": "gpu", "scv/priority": "10",
-                          "tpu/generation": "h100-sxm5", "scv/memory": str(GPU_LIVE_POD_MB)})
-    return [live] + specs
-
-
-def gpu_fleet_trace(live, locality: bool, seed: int) -> dict:
-    """One run of the gpu_fleet trace on the port's engine (a HybridClock)
-    with the GPU profile (deploy/gpu-profile.yaml), gpu-locality on or the
-    default enablement. Records, at each gang's first reservation, whether
-    one leaf then had free nodes for all its members."""
-    from yoda_scheduler_tpu_torch import cli, scheduler, telemetry
-    from yoda_scheduler_tpu_torch.scheduler.core import HybridClock
-    from yoda_scheduler_tpu_torch.topology import gpus
-    from yoda_scheduler_tpu_torch.utils import Pod
-    from yoda_scheduler_tpu_torch.utils.labels import IB_LEAF_LABEL
-
-    store = telemetry.TelemetryStore()
-    far = time.time() + 1e8
-    nodes, leaf_of = gpu_fleet_nodes(telemetry)
-    for m in nodes + [copy.deepcopy(live)]:
-        m.heartbeat = far
-        store.put(m)
-    cluster = scheduler.FakeCluster(store)
-    cluster.add_nodes_from_telemetry()
-    for name, leaf in leaf_of.items():
-        cluster.set_node_meta(name, labels={IB_LEAF_LABEL: leaf})
-    leaf_of[live.node] = "node/" + live.node
-    ((config, enabled),) = cli.load_profiles(str(Path(__file__).resolve().parent
-                                                 / GPU_PROFILE))
-    sched = scheduler.Scheduler(cluster, config, clock=HybridClock(),
-                                **({"profile": scheduler.registry.build_profile(
-                                    config, enabled)} if locality else {}))
-    model_of = {m.node: m.tpu_generation for m in nodes + [live]}
-    room: dict[str, bool] = {}
-    alloc = sched.allocator
-    real_reserve = alloc.reserve
-
-    def reserve(state, pod, node):
-        g = pod.labels.get("tpu/gang-name")
-        if g is not None and g not in room:
-            # free nodes for a member on each leaf, as the cluster and the
-            # allocator's reservations stand before this member's
-            want, mb = int(pod.labels["scv/number"]), int(pod.labels["scv/memory"])
-            free = {}
-            for name in cluster.node_names():
-                if model_of.get(name) != pod.labels["tpu/generation"]:
-                    continue
-                taken = {c for p in cluster.pods_on(name) for c in p.assigned_chips()}
-                taken |= alloc.pending_on(name)
-                ok = sum(c.coords not in taken and c.hbm_free_mb >= mb
-                         for c in store.get(name).chips)
-                if ok >= want:
-                    free[leaf_of[name]] = free.get(leaf_of[name], 0) + 1
-            room[g] = max(free.values(), default=0) >= int(pod.labels["tpu/gang-size"])
-        return real_reserve(state, pod, node)
-
-    alloc.reserve = reserve
-    pods = [Pod(name, labels=labels) for name, labels in gpu_fleet_specs(seed)]
-    t0 = time.perf_counter()
-    for p in pods:
-        sched.submit(p)
-    cycles = sched.run_until_idle(max_cycles=20 * len(pods))
-    wall_s = time.perf_counter() - t0
-    cyc = sched.metrics.histogram("cycle_latency_ms")
-    gangs: dict[str, set] = {}
-    for p in pods:
-        g = p.labels.get("tpu/gang-name")
-        if g is not None and p.phase.value == "Bound":
-            gangs.setdefault(g, set()).add(leaf_of[p.node])
-    spanning = sorted(g for g, leaves in gangs.items() if len(leaves) > 1)
-    bound = [p for p in pods if p.phase.value == "Bound"]
-    pcie = gpus.gpu_model("h100-pcie")
-    # pods on H100 PCIe nodes whose cards sit in more than one bridged pair
-    # (a pod of 3 or 4 cards must; one of 2 only when no pair had room)
-    pcie_across = [p for p in bound if model_of[p.node] == pcie.name and len(
-        {gpus.card_domain(pcie, c) for c in p.assigned_chips()}) > 1]
-    cards = sum(len(m.chips) for m in nodes) + len(live.chips)
-    return dict(
-        locality=locality, nodes=len(cluster.node_names()), cards=cards, pods=len(pods),
-        cards_asked=sum(int(p.labels["scv/number"]) for p in pods),
-        bound=len(bound), cards_bound=sum(int(p.labels["scv/number"]) for p in bound),
-        gangs_bound=len(gangs), gangs=sum(GPU_GANGS.values()),
-        gangs_spanning_leaves=spanning,
-        spanning_with_room=[g for g in spanning if room.get(g)],
-        off_model=[p.name for p in bound if p.labels.get("tpu/generation")
-                   and model_of[p.node] != p.labels["tpu/generation"]],
-        live=(pods[0].phase.value, pods[0].node),
-        on_live_node=sum(p.node == live.node for p in bound),
-        pcie_pods=sum(model_of[p.node] == pcie.name for p in bound),
-        pcie_pods_across_pairs=len(pcie_across),
-        pcie_two_card_pods_across_pairs=sum(len(p.assigned_chips()) == 2
-                                            for p in pcie_across),
-        cycles=cycles, wall_s=wall_s, cycle_p50_ms=cyc.quantile(0.5),
-        cycle_p99_ms=cyc.quantile(0.99), planes=plane_counts(sched),
-        native_plane_active=sched.metrics.gauges.get("native_plane_active", 0.0) == 1.0,
-        faults=placement_faults(pods, cluster),
-        placements={p.name: (p.phase.value, p.node, sorted(p.assigned_chips())) for p in pods})
-
-
 # each field of the live card against its catalog row: (field, NVML reading
 # of the card, the row's value)
 def live_card_fields(card, chip, model) -> dict:
@@ -2520,7 +2343,8 @@ def phase_gpu_fleet(smi: str):
     fields = (live_card_fields(card, live.chips[0], gpus.gpu_model(model_name))
               if model_name else {})
     differ = [f for f, (read, row) in fields.items() if read != row]
-    runs = [gpu_fleet_trace(live, locality, GPU_FLEET_SEED) for locality in (True, True, False)]
+    fleet = engine_bench.run_gpu_fleet(live)
+    runs = fleet["runs"]
     on, on2, off = runs
     checks = {
         "nvml_name_maps_to_h100_sxm5": model_name == "h100-sxm5",
@@ -2531,22 +2355,85 @@ def phase_gpu_fleet(smi: str):
         "no_gang_spans_leaves_with_room": not on["spanning_with_room"]
                                           and not on2["spanning_with_room"],
         "no_placement_fault": not any(r["faults"] for r in runs),
-        "locality_runs_place_alike": on["placements"] == on2["placements"],
+        "locality_runs_place_alike": fleet["locality_runs_place_alike"],
         "native_plane_decides": all(r["native_plane_active"] and r["planes"].get("native", 0)
                                     for r in runs),
         "burst_binds": all(r["bound"] > 0 and r["gangs_bound"] > 0 for r in runs),
     }
     emit("gpu_fleet", nvidia_smi=smi, card=product, model=model_name,
          live_card=dict(fields), fields_differing=differ, native_build_s=native_build_s,
-         config=f"{GPU_PROFILE}; DGX SuperPOD (DGX H100) scalable units as IB leaves",
-         fleet=[dict(model=m, leaves=lv, nodes_a_leaf=n) for m, lv, n in GPU_FLEET],
-         seed=GPU_FLEET_SEED, live_free_mb=live.chips[0].hbm_free_mb,
-         runs=[{k: v for k, v in r.items() if k != "placements"} for r in runs],
-         checks=checks)
+         **fleet, checks=checks)
     failed = [c for c, ok in checks.items() if not ok]
     if failed:
         raise SystemExit(f"gpu_fleet: failed {failed}"
                          + (f"; fields differing from NVML: {differ}" if differ else ""))
+
+
+def phase_bench_engine(smi: str):
+    """The engine bench twins on this card's host with the live card in
+    their clusters: bench.py's burst headline, run_scale(125) once and
+    scale50k's smoke tier, each run free of placement faults, binding the
+    pods it must (ENGINE_*) and, on the yoda-tpu profile, decided on the
+    native planes."""
+    from yoda_scheduler_tpu_torch.tools import scale50k
+
+    free_memory()
+    native_build_s = build_native_planes()
+    live = engine_bench.live_node()
+    t0 = time.perf_counter()
+    burst = engine_bench.burst_headline(live, runs=ENGINE_BURST_RUNS)
+    burst_s = time.perf_counter() - t0
+    scale = engine_bench.run_scale(ENGINE_SCALE_UNITS, live=live)
+    t0 = time.perf_counter()
+    tier = scale50k.run(smoke=True, live=live)
+    tier_s = time.perf_counter() - t0
+    ours_all, ref_all = burst["ours_all"], burst["reference_all"]
+    native_runs = ours_all + [scale, tier["tier"]]
+    checks = {
+        "no_placement_fault": not any(r["placement_faults"]
+                                      for r in native_runs + ref_all),
+        "native_plane_active": all(r["native_plane_active"] for r in native_runs),
+        "burst_binds_on_the_live_card": all(r["on_live_node"] >= 1 for r in ours_all),
+        "burst_outcomes": (all(r["bound"] == ENGINE_BURST_BOUND
+                               and r["gangs_complete"] == ENGINE_BURST_GANGS
+                               for r in ours_all)
+                           and all(r["bound"] == ENGINE_BASELINE_BOUND for r in ref_all)),
+        "scale_binds_its_count": (scale["bound"] == ENGINE_SCALE_BOUND
+                                  and scale["on_live_node"] == 1),
+        "tier_binds_every_pod": (tier["tier"]["bound"] == tier["pods"]
+                                 and tier["ref_5k"]["bound"] == ENGINE_5K_BOUND),
+    }
+    ours, ref = burst["ours"], burst["reference"]
+    headline = {k: ours[k] for k in ("p50_ms", "p99_ms", "cycle_compute_p50_ms", "bound",
+                                     "bin_pack_util_pct", "gangs_complete", "on_live_node")}
+    keys = ("nodes", "pods", "bound", "wall_s", "cycle_compute_p50_ms",
+            "cycle_compute_p99_ms", "p50_ms", "native_scans", "on_live_node")
+    emit("bench_engine", nvidia_smi=smi, native_build_s=native_build_s,
+         live_node=engine_bench.live_summary(live, pods_on_it=ours["on_live_node"]),
+         burst=dict(headline, vs_baseline=burst["vs_baseline"],
+                    vs_baseline_range=burst["vs_baseline_range"],
+                    vs_baseline_cycle_compute=burst["vs_baseline_cycle_compute"],
+                    baseline_p50_ms=ref["p50_ms"], baseline_bound=ref["bound"],
+                    baseline_bin_pack_util_pct=ref["bin_pack_util_pct"],
+                    p50_ms_runs=[r["p50_ms"] for r in ours_all],
+                    baseline_p50_ms_runs=[r["p50_ms"] for r in ref_all],
+                    # the compute ratio is the median-p50 runs' quotient:
+                    # every run's compute p50, to read its spread
+                    cycle_compute_p50_ms_runs=[r["cycle_compute_p50_ms"] for r in ours_all],
+                    baseline_cycle_compute_p50_ms_runs=[r["cycle_compute_p50_ms"]
+                                                        for r in ref_all],
+                    wall_s=burst_s),
+         scale={k: scale[k] for k in keys},
+         # (the tier's peak_rss_mb is this whole process's here, not the tier's)
+         scale50k_smoke=dict({k: tier[k] for k in (
+             "nodes", "pods", "wall_s", "binds_per_s", "cycle_compute_per_pod_p50_ms",
+             "cycle_compute_flat_vs_5k", "ref_5k")},
+             bound=tier["tier"]["bound"], tier_s=tier_s),
+         faults=[f for r in native_runs + ref_all for f in r["placement_faults"]][:20],
+         checks=checks)
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"bench_engine: failed {failed}")
 
 
 def main() -> int:
@@ -2605,6 +2492,7 @@ def main() -> int:
     telemetry_launches = phase_telemetry(attn, smi)
     phase_scheduler(smi)
     phase_gpu_fleet(smi)
+    phase_bench_engine(smi)
     phase_visible(smi)
 
     main_row, bwd_main = rows[0], bwd_rows[0]

@@ -69,8 +69,11 @@ def test_bench_twins_import_neither_jax_nor_the_reference():
 
 def test_engine_imports_load_neither_torch_nor_jax():
     """The scheduling system runs on hosts: importing the engine, the k8s
-    layer, the CLI, the chaos harness, the telemetry and the topology
-    loads no torch, no jax and nothing of the JAX package."""
+    layer, the CLI, the chaos harness, the telemetry, the topology and the
+    engine bench twins (bench.py, tools/scale5k.py, scale50k.py,
+    serve50k.py and the package's own fake API server) loads no torch, no
+    jax, nothing of the JAX package and nothing of the repository's tests/
+    or top-level benches."""
     code = ("import sys\n"
             "import yoda_scheduler_tpu_torch.scheduler.core, "
             "yoda_scheduler_tpu_torch.k8s.client, yoda_scheduler_tpu_torch.k8s.webhook, "
@@ -80,9 +83,15 @@ def test_engine_imports_load_neither_torch_nor_jax():
             "yoda_scheduler_tpu_torch.telemetry.publisher, "
             "yoda_scheduler_tpu_torch.topology.gpus, "
             "yoda_scheduler_tpu_torch.scheduler.plugins.gpulocality, "
-            "yoda_scheduler_tpu_torch.utils.nativeloader\n"
+            "yoda_scheduler_tpu_torch.utils.nativeloader, "
+            "yoda_scheduler_tpu_torch.bench, "
+            "yoda_scheduler_tpu_torch.k8s.fake_apiserver, "
+            "yoda_scheduler_tpu_torch.tools.scale5k, "
+            "yoda_scheduler_tpu_torch.tools.scale50k, "
+            "yoda_scheduler_tpu_torch.tools.serve50k\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'torch', 'yoda_scheduler_tpu'))\n"
+            "('jax', 'torch', 'yoda_scheduler_tpu', 'fake_apiserver', 'bench', "
+            "'bench_util', 'tests'))\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -134,6 +143,13 @@ def test_engine_import_builds_nothing():
 YARDSTICKS = {"scaled_dot_product_attention": ["bench_mfu.py", "tools/tune_attention.py"]}
 # the workload benches, entry points a user runs as the tools are
 BENCHES = ("bench_mfu.py", "bench_generate.py")
+# the top-level benches and tools/ are the JAX package's: a module that
+# imports one, names one in a child's code (`python -c "import bench"`) or
+# hands one's path to a child process runs the reference, not the port
+REFERENCE_RUNS = re.compile(
+    r"\bimport (bench|bench_util|bench_mfu|bench_generate|tools)\b"
+    r"|^\s*from (bench|bench_util|bench_mfu|bench_generate|tools)\b"
+    r"|[\"'](tools/)?\w+\.py[\"']|[\"']make[\"']", re.M)
 
 
 @pytest.mark.parametrize("needle", ["import jax", "from jax",
@@ -143,6 +159,12 @@ def test_package_source_never_mentions(needle):
     hits = sorted(str(p.relative_to(PKG)) for p in PKG.rglob("*")
                   if p.suffix in (".py", ".cu", ".cuh") and needle in p.read_text())
     assert hits == YARDSTICKS.get(needle, [])
+
+
+def test_package_never_runs_the_reference_benches():
+    hits = sorted(str(p.relative_to(PKG)) for p in PKG.rglob("*.py")
+                  if REFERENCE_RUNS.search(p.read_text()))
+    assert hits == []
 
 
 def test_no_module_imports_the_tools():
