@@ -7,20 +7,27 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 1. build: the card's name and power limit, and the CUDA kernels compiled
    from the sources in this checkout (nvcc, sm_90a, one process per source).
-2. kernel: the flash forward kernel against its plain version on the card
-   at the main path's shape (also as the model's transposed [B, S, H, D]
-   views), at Mixtral's GQA 32/8 (contiguous and as the model's views) and
-   at cross-length, window, non-causal, fp32, ragged and unaligned shapes, each on the route `_route` picks, with the
-   kernel's, the plain version's and one library call's times, TF/s and the
-   card's bound for the same work; at the main shape the wgmma and mma
-   routes are timed in turns (mma, wgmma, wgmma, mma).
+2. kernel: the flash forward kernel against its plain version on the card,
+   elementwise and by O's worst 64-row tile, at the main path's shape (also
+   as the model's transposed [B, S, H, D] views), at Mixtral's GQA 32/8
+   (contiguous and as the model's views) and at cross-length, window,
+   non-causal, fp32, ragged and unaligned shapes, and at head dim 64
+   (bench_mfu's d1024 train widths as their model gives them, GQA, window,
+   cross-length, non-causal and ragged), each on the
+   route `_route` picks, with the kernel's, the plain version's and one
+   library call's times, TF/s and the card's bound for the same work; at
+   the main shape and at d1024_bshd the wgmma and mma routes are timed in
+   turns (mma, wgmma, wgmma, mma), and at d1024_bshd SDPA under its
+   default backend (named) and under its flash backend.
 3. backward: the dQ and dK/dV kernels against the plain backward at the
    same shapes (a non-zero LSE cotangent at some), elementwise and by each
-   output's worst tile, each on the route `_route` picks, twice with equal
-   bits, with their times, TF/s, the
-   plain backward's time, the bound of each, and at the main shape the
-   library's backward (timed alone) and the wgmma and mma routes of each
-   kernel timed in turns (mma, wgmma, wgmma, mma).
+   output's worst tile, each kernel on the route `_route` picks for it (dQ
+   stays on mma at head dim 64), twice with equal bits, with their times,
+   TF/s, the plain backward's time, the bound of each, and at the main
+   shape the library's backward (timed alone) and the wgmma and mma routes
+   of each kernel timed in turns (mma, wgmma, wgmma, mma); at d1024_bshd
+   the dK/dV kernel's two routes in turns and SDPA's backward under its
+   default and its flash backends.
 4. forward: Llama-2-7B width, all 32 layers, bf16, random weights from a
    seed, B=1, S=2048: one `llama_forward` must launch the kernel once per
    layer, and its logits must agree with the forward through the plain
@@ -181,8 +188,8 @@ The port's tools, and the workload's side of the scheduler's assignment:
   beside the plain version and SDPA (default and flash backends, the
   default's choice named). Every candidate and row must give its
   numbers; every attention launch be on the wgmma route, and each train
-  candidate's on its head dim's (wgmma at 128; mma at the d1024 widths'
-  64, which the wgmma kernels do not take).
+  candidate's on its head dim's (wgmma at 128; at the d1024 widths' 64
+  the forward and dK/dV on wgmma, dQ on mma).
 - bench_generate (bench_generate.py): the twin of bench_generate.py at
   width 2048, 16 layers: prefill ms and decode tokens/s at B = 1 and 8,
   window None and 1024 (the ring cache, its decode first held against the
@@ -228,6 +235,10 @@ import torch
 # the engine bench twin: its clusters, tiers and the engine's invariants
 # (placement_faults) serve the scheduler, gpu_fleet and bench_engine phases
 from yoda_scheduler_tpu_torch import bench as engine_bench
+# the backend SDPA's default dispatch picks, named beside its time
+# and the library's call (bench_mfu's, the flash backend forced as the
+# route sweep forces it)
+from yoda_scheduler_tpu_torch.bench_mfu import sdpa_default_backend, sdpa_fn
 # the card's rates and the kernels' bounds, one copy with the route sweep
 # (yoda_scheduler_tpu_torch/tools/tune_attention.py)
 from yoda_scheduler_tpu_torch.ops.bounds import (H100_BF16_FLOPS, H100_HBM_BYTES,
@@ -252,13 +263,16 @@ LOGITS_REL_L2 = 1e-1
 # order of fp32 sums, which moves a rounding by one bf16 ulp now and then;
 # fp32 results differ by summation order only.
 BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
-# phase 3 also bounds each of dQ, dK and dV by its worst 64-row tile of one
-# (batch, head), `tile_rel_l2`: dK and dV of late keys are about as small as
-# BWD_TOL's atol, so a tile that is a fifth wrong can pass the bound above;
-# this one holds every tile to its own size (bf16: the variant tool's bound,
+# phases 2 and 3 also bound O, dQ, dK and dV each by its worst 64-row tile
+# of one (batch, head), `tile_rel_l2`: O of a late row (|O| near
+# sqrt(e/n) for n keys seen) and dK and dV of late keys are about as small
+# as the atol above, so a tile that is a fifth wrong, such as one V tile
+# missed or read twice, can pass it; this bound holds every tile to its own
+# size (bf16: the route sweep's `FWD_TILE_REL_L2` and the variant tool's
 # `variants.BWD_TILE_REL_L2`; fp32: summation order).
-BWD_TILE_REL_L2_FP32 = 1e-4
-BWD_G_LSE = {"gqa", "gqa_bshd", "cross_length", "ragged_300"}  # shapes with a non-zero LSE cotangent
+TILE_REL_L2_FP32 = 1e-4
+BWD_G_LSE = {"gqa", "gqa_bshd", "cross_length", "ragged_300",  # shapes with a non-zero
+             "gqa_d64", "ragged_d64"}                          # LSE cotangent
 # phase 6: relative L2 error of each leaf's gradient against the gradient
 # through the plain attention. The two round at different places in bf16:
 # autograd of the plain attention rounds the probabilities and their
@@ -522,6 +536,12 @@ def ptxas_summary(log: str) -> dict:
     return {**out, "notes": notes}
 
 
+# the wgmma kernels of csrc/, as ptxas names them: each must build
+WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_wgmma64_kernel",
+                 "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel",
+                 "flash_bwd_dkv_wgmma64_kernel")
+
+
 def phase_build(build):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -538,7 +558,7 @@ def phase_build(build):
     wgmma = {k: v for p in ptxas.values() for k, v in p.items() if "wgmma" in k}
     notes = [n for p in ptxas.values() for n in p["notes"]]
     spill_free = (
-        len(wgmma) == 3
+        sorted(wgmma) == sorted(WGMMA_KERNELS)
         and all("0 bytes spill stores, 0 bytes spill loads" in v for v in wgmma.values())
         and not any("C7512" in n or "serialized" in n for n in notes))
     emit("build", nvidia_smi=smi, device=torch.cuda.get_device_name(0),
@@ -547,16 +567,17 @@ def phase_build(build):
          nvcc_s={n: i.get("seconds") for n, i in info.items()}, ptxas=ptxas,
          wgmma_kernels_spill_free=spill_free)
     if not spill_free:
-        raise SystemExit(f"the three wgmma kernels must build with no spills and no "
-                         f"serialised wgmma: {wgmma}, notes {notes}")
+        raise SystemExit(f"the wgmma kernels {WGMMA_KERNELS} must build with no spills "
+                         f"and no serialised wgmma: {wgmma}, notes {notes}")
     return smi
 
 
 # (name, b, h, kvh, sq, sk, d, causal, window, dtype, layout, route):
 # layout "bhsd" is contiguous [B, H, S, D]; "bshd" the model's transposed
 # views of a contiguous [B, S, H, D]; "offset1" starts every tensor one
-# element into its storage, off 16-byte alignment. route is the forward
-# kernel `_route` must pick for these inputs.
+# element into its storage, off 16-byte alignment. route is the one
+# `_route` must pick for these inputs for the forward and dK/dV, and for dQ
+# but at head dim 64 (`shape_routes`).
 SHAPES = [
     ("main", 1, 32, 32, 2048, 2048, 128, True, None, torch.bfloat16, "bhsd", "wgmma"),
     ("main_bshd", 1, 32, 32, 2048, 2048, 128, True, None, torch.bfloat16, "bshd",
@@ -572,12 +593,30 @@ SHAPES = [
      "wgmma"),
     ("fp32_d64", 1, 16, 16, 1024, 1024, 64, True, None, torch.float32, "bhsd", "simt"),
     ("d1024_bshd", 8, 16, 16, 2048, 2048, 64, True, None, torch.bfloat16, "bshd",
-     "mma"),  # bench_mfu's d1024 train candidates as their model gives them
+     "wgmma"),  # bench_mfu's d1024 train candidates as their model gives them
+    ("gqa_d64", 1, 16, 4, 2048, 2048, 64, True, None, torch.bfloat16, "bshd", "wgmma"),
+    ("window_d64", 1, 16, 16, 2048, 2048, 64, True, 512, torch.bfloat16, "bhsd",
+     "wgmma"),
+    ("cross_length_d64", 1, 16, 16, 256, 1024, 64, True, None, torch.bfloat16, "bhsd",
+     "wgmma"),
+    ("non_causal_d64", 1, 16, 16, 1000, 1000, 64, False, None, torch.bfloat16, "bhsd",
+     "wgmma"),
+    ("ragged_d64", 2, 8, 4, 300, 300, 64, True, None, torch.bfloat16, "bshd", "wgmma"),
     ("ragged_300", 2, 8, 4, 300, 300, 128, True, None, torch.bfloat16, "bhsd", "wgmma"),
     ("main_unaligned", 1, 32, 32, 2048, 2048, 128, True, None, torch.bfloat16,
      "offset1", "simt"),
 ]
-ROUTE_TURNS = ("mma", "wgmma", "wgmma", "mma")  # timed in turns at the main shape
+ROUTE_TURNS = ("mma", "wgmma", "wgmma", "mma")  # timed in turns at TURN_SHAPES
+TURN_SHAPES = ("main", "d1024_bshd")
+D64_SHAPE = "d1024_bshd"  # the head-dim-64 row of the kernels line
+
+
+def shape_routes(route: str, d: int) -> dict:
+    """Each kernel's route at a SHAPES row whose forward takes `route`:
+    dK/dV the forward's, and dQ too but at head dim 64, where it has no
+    wgmma kernel and stays on mma."""
+    dq = "mma" if route == "wgmma" and d == 64 else route
+    return {"flash_fwd": route, "flash_bwd_dq": dq, "flash_bwd_dkv": route}
 
 
 def rand_inputs(gen, dtype, layout, *shapes):
@@ -595,13 +634,14 @@ def rand_inputs(gen, dtype, layout, *shapes):
     return out
 
 
-def phase_kernel(attn):
+def phase_kernel(attn, variants, tune):
+    tile_bound = {torch.bfloat16: tune.FWD_TILE_REL_L2, torch.float32: TILE_REL_L2_FP32}
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows, max_err = [], 0.0
     for name, b, h, kvh, sq, sk, d, causal, window, dtype, layout, want in SHAPES:
         q, k, v = rand_inputs(gen, dtype, layout, (b, h, sq, d), (b, kvh, sk, d),
                               (b, kvh, sk, d))
-        route = attn._route(q, k, v)
+        route = attn._route("flash_fwd", q, k, v)
         if route != want:
             raise SystemExit(f"{name} takes the {route} route, expected {want}")
         o, lse = attn.flash_fwd(q, k, v, causal, window)
@@ -610,28 +650,37 @@ def phase_kernel(attn):
         tol = TOL[dtype]
 
         def agrees(o, lse):
-            return (bool(torch.isfinite(o).all())
-                    and torch.allclose(o.float(), ro.float(), atol=tol["o"], rtol=tol["o"])
-                    and torch.allclose(lse, rlse, atol=tol["lse"], rtol=tol["lse"]))
+            """(tile_rel_l2 of O, ok): within TOL elementwise and within the
+            tile bound."""
+            tile = variants.tile_rel_l2(o, ro)
+            return tile, (bool(torch.isfinite(o).all()) and tile <= tile_bound[dtype]
+                          and torch.allclose(o.float(), ro.float(), atol=tol["o"],
+                                             rtol=tol["o"])
+                          and torch.allclose(lse, rlse, atol=tol["lse"], rtol=tol["lse"]))
 
         err_o = float((o.float() - ro.float()).abs().max())
         err_lse = float((lse - rlse).abs().max())
-        ok = agrees(o, lse)
+        tile_o, ok = agrees(o, lse)
         ms = cuda_time_ms(lambda: attn.flash_fwd(q, k, v, causal, window), 20)
         plain_ms = cuda_time_ms(
             lambda: attn.reference_attention_with_lse(q, k, v, causal, window), 5)
-        library_ms, turns = None, None
-        if name in ("main", "main_bshd"):
+        library_ms, turns, sdpa, route_tile = None, None, None, None
+        if name in ("main", "main_bshd", D64_SHAPE):
             # the yardstick, timed here and used nowhere in the port
-            library_ms = cuda_time_ms(
-                lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q, k, v, is_causal=True), 20)
-        if name == "main":
+            library_ms = cuda_time_ms(lambda: sdpa_fn(q, k, v), 20)
+        if name == D64_SHAPE:
+            sdpa = {"default_backend": sdpa_default_backend(q, k, v),
+                    "default_ms": library_ms,
+                    "flash_ms": cuda_time_ms(lambda: sdpa_fn(q, k, v, flash=True), 20)}
+        if name in TURN_SHAPES:
+            # the other route against the plain version too, then in turns
+            route_tile, agree = agrees(*attn.flash_fwd(q, k, v, causal, window, route="mma"))
+            route_tile = {"mma_o": route_tile}
+            ok = ok and agree
             turns = {r: [] for r in ROUTE_TURNS}
             for r in ROUTE_TURNS:
                 turns[r].append(cuda_time_ms(
                     lambda: attn.flash_fwd(q, k, v, causal, window, route=r), 20))
-            ok = ok and agrees(*attn.flash_fwd(q, k, v, causal, window, route="mma"))
         bound_ms, bound_by = attention_bound(b, h, kvh, sq, sk, d, causal,
                                              window, dtype)
         flops = 4 * b * h * d * visible_pairs(sq, sk, causal, window)
@@ -639,9 +688,10 @@ def phase_kernel(attn):
                    sq=sq, sk=sk, d=d, causal=causal, window=window,
                    dtype=str(dtype).split(".")[1],
                    max_abs_err_o=err_o, max_abs_err_lse=err_lse, atol=tol,
-                   ok=ok, ms=ms, tflops=flops / ms / 1e9,
+                   tile_rel_l2_o=tile_o, tile_rel_l2_bound=tile_bound[dtype],
+                   route_tile_rel_l2=route_tile, ok=ok, ms=ms, tflops=flops / ms / 1e9,
                    share_of_bound=bound_ms / ms, plain_ms=plain_ms,
-                   library_ms=library_ms, route_turns_ms=turns,
+                   library_ms=library_ms, sdpa=sdpa, route_turns_ms=turns,
                    bound_ms=bound_ms, bound_by=bound_by)
         print(json.dumps({"phase": "kernel", **row}), flush=True)
         rows.append(row)
@@ -652,21 +702,18 @@ def phase_kernel(attn):
     return rows, max_err
 
 
-def sdpa_backward_ms(q, k, v, do) -> float:
-    """The library yardstick: SDPA's backward alone, from one graph built
-    once (inputs that require grad) and differentiated again and again.
-    Timed here only; the port never calls it."""
-    qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
-    out = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
-    ms = cuda_time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), do,
-                                                  retain_graph=True), 20)
-    del out
-    return ms
+def sdpa_backward_ms(tune, q, k, v, do, flash: bool = False) -> float:
+    """The library yardstick: the backward alone of bench_mfu's SDPA call
+    (its default dispatch, or its flash backend), from one graph built once
+    and differentiated again and again. Timed here only; the port never
+    calls it."""
+    return cuda_time_ms(tune._backward_alone(functools.partial(sdpa_fn, flash=flash),
+                                             q, k, v, do), 20)
 
 
-def phase_backward(attn, variants):
+def phase_backward(attn, variants, tune):
     tile_bound = {torch.bfloat16: variants.BWD_TILE_REL_L2,
-                  torch.float32: BWD_TILE_REL_L2_FP32}
+                  torch.float32: TILE_REL_L2_FP32}
 
     def agrees(got, ref_t, dtype):
         """(tile_rel_l2, ok): within BWD_TOL elementwise and within the tile
@@ -681,10 +728,11 @@ def phase_backward(attn, variants):
     for name, b, h, kvh, sq, sk, d, causal, window, dtype, layout, want in SHAPES:
         q, k, v, do = rand_inputs(gen, dtype, layout, (b, h, sq, d), (b, kvh, sk, d),
                                   (b, kvh, sk, d), (b, h, sq, d))
-        # dO in the layout of q: the backward takes the forward's route
-        route = attn._route(q, k, v, do)
-        if route != want:
-            raise SystemExit(f"{name}: the backward takes the {route} route, "
+        # dO in the layout of q: each backward kernel takes its own route
+        want = shape_routes(want, d)
+        routes = {n: attn._route(n, q, k, v, do) for n in ("flash_bwd_dq", "flash_bwd_dkv")}
+        if any(routes[n] != want[n] for n in routes):
+            raise SystemExit(f"{name}: the backward takes the routes {routes}, "
                              f"expected {want}")
         o, lse = attn.flash_fwd(q, k, v, causal, window)
         g_lse = (torch.randn((b, h, sq), generator=gen, device="cuda")
@@ -698,10 +746,10 @@ def phase_backward(attn, variants):
             dk, dv = attn.flash_bwd_dkv(*args)
             runs.append((dq, attn.group_sum(dk, kvh), attn.group_sum(dv, kvh)))
         torch.cuda.synchronize()
-        routes = read_routes(attn)
-        if any(routes[n] != {want: 2} for n in ("flash_bwd_dq", "flash_bwd_dkv")):
-            raise SystemExit(f"{name}: the backward launched {routes}, expected "
-                             f"2 {want} launches of each kernel")
+        launched = read_routes(attn)
+        if any(launched[n] != {want[n]: 2} for n in ("flash_bwd_dq", "flash_bwd_dkv")):
+            raise SystemExit(f"{name}: the backward launched {launched}, expected "
+                             f"2 launches of each kernel on {want}")
         repeatable = all(torch.equal(a, b_) for a, b_ in zip(*runs))
         ref = attn.flash_backward_reference(q, k, v, o, lse, do, causal, window, g_lse)
         errs, ok = {}, repeatable
@@ -711,30 +759,41 @@ def phase_backward(attn, variants):
             errs[nm + "_tile_rel_l2"], agree = agrees(got, ref_t, dtype)
             ok = ok and agree
         turns, route_tile = None, None
-        if name == "main":
-            # each route against the plain backward too, then in turns
+        if name in TURN_SHAPES:
+            # each route against the plain backward too, then in turns; at
+            # head dim 64 dQ has the mma route alone
+            kernels = {"dq": attn.flash_bwd_dq, "dkv": attn.flash_bwd_dkv}
+            if want["flash_bwd_dq"] != "wgmma":
+                del kernels["dq"]
             route_tile = {}
             for r in ROUTE_TURNS[:2]:
-                dq = attn.flash_bwd_dq(*args, route=r)
-                dk, dv = attn.flash_bwd_dkv(*args, route=r)
-                for nm, got, ref_t in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
-                    route_tile[f"{r}_{nm}"], agree = agrees(got, ref_t, dtype)
-                    ok = ok and agree
-            turns = {fn: {r: [] for r in ROUTE_TURNS} for fn in ("dq", "dkv")}
+                got = {}
+                if "dq" in kernels:
+                    got["dq"] = attn.flash_bwd_dq(*args, route=r)
+                got["dk"], got["dv"] = (attn.group_sum(t, kvh)
+                                        for t in attn.flash_bwd_dkv(*args, route=r))
+                for nm, ref_t in zip(("dq", "dk", "dv"), ref):
+                    if nm in got:
+                        route_tile[f"{r}_{nm}"], agree = agrees(got[nm], ref_t, dtype)
+                        ok = ok and agree
+            turns = {key: {r: [] for r in ROUTE_TURNS} for key in kernels}
             for r in ROUTE_TURNS:
-                turns["dq"][r].append(cuda_time_ms(
-                    lambda: attn.flash_bwd_dq(*args, route=r), 20))
-                turns["dkv"][r].append(cuda_time_ms(
-                    lambda: attn.flash_bwd_dkv(*args, route=r), 20))
+                for key, fn in kernels.items():
+                    turns[key][r].append(cuda_time_ms(lambda: fn(*args, route=r), 20))
         del runs, ref
         ms_dq = cuda_time_ms(lambda: attn.flash_bwd_dq(*args), 20)
         ms_dkv = cuda_time_ms(lambda: attn.flash_bwd_dkv(*args), 20)
         plain_ms = cuda_time_ms(lambda: attn.flash_backward_reference(
             q, k, v, o, lse, do, causal, window, g_lse), 3)
-        library_ms = sdpa_backward_ms(q, k, v, do) if name == "main" else None
+        library_ms = sdpa_backward_ms(tune, q, k, v, do) if name in TURN_SHAPES else None
+        sdpa = None
+        if name == D64_SHAPE:
+            sdpa = {"default_backend": sdpa_default_backend(q, k, v),
+                    "default_backward_ms": library_ms,
+                    "flash_backward_ms": sdpa_backward_ms(tune, q, k, v, do, flash=True)}
         bounds = backward_bounds(b, h, kvh, sq, sk, d, causal, window, dtype)
         pairs = visible_pairs(sq, sk, causal, window)
-        row = dict(shape=name, route=route, layout=layout, b=b, h=h,
+        row = dict(shape=name, routes=want, layout=layout, b=b, h=h,
                    kvh=kvh, sq=sq, sk=sk, d=d, causal=causal, window=window,
                    dtype=str(dtype).split(".")[1], g_lse=g_lse is not None,
                    max_abs_err=errs, atol=BWD_TOL[dtype],
@@ -746,7 +805,7 @@ def phase_backward(attn, variants):
                    dq_share_of_bound=bounds["dq"][0] / ms_dq,
                    dkv_share_of_bound=bounds["dkv"][0] / ms_dkv,
                    route_turns_ms=turns, plain_ms=plain_ms, library_ms=library_ms,
-                   dq_bound_ms=bounds["dq"][0], dq_bound_by=bounds["dq"][1],
+                   sdpa=sdpa, dq_bound_ms=bounds["dq"][0], dq_bound_by=bounds["dq"][1],
                    dkv_bound_ms=bounds["dkv"][0], dkv_bound_by=bounds["dkv"][1])
         print(json.dumps({"phase": "backward", **row}), flush=True)
         rows.append(row)
@@ -2084,13 +2143,14 @@ def _only_wgmma(routes: dict) -> bool:
 def bench_train_routes(bench_mfu) -> dict:
     """Each kernel's launches by route over bench_mfu's train candidates:
     per layer a step, the forward twice (remat) and each backward kernel
-    once, for the warm step and the timed ones; on the wgmma route at head
-    dim 128, on mma at the reference's d1024 widths' 64 (the wgmma kernels
-    take 128 alone)."""
+    once, for the warm step and the timed ones; every kernel on the wgmma
+    route at head dim 128, and at the reference's d1024 widths' 64 the
+    forward and dK/dV on wgmma, dQ on mma (`shape_routes`)."""
     want = {n: {} for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
     for cfg, _, _ in bench_mfu.train_candidates(True):
-        route = "wgmma" if cfg.head_dim == 128 else "mma"
+        routes = shape_routes("wgmma", cfg.head_dim)
         for name, per_layer in (("flash_fwd", 2), ("flash_bwd_dq", 1), ("flash_bwd_dkv", 1)):
+            route = routes[name]
             want[name][route] = (want[name].get(route, 0)
                                  + per_layer * cfg.n_layers * (1 + bench_mfu.CARD_TRAIN_STEPS))
     return want
@@ -2454,8 +2514,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     smi = phase_build(_build)
-    rows, max_err = phase_kernel(attn)
-    bwd_rows, bwd_err = phase_backward(attn, variants)
+    rows, max_err = phase_kernel(attn, variants, tune)
+    bwd_rows, bwd_err = phase_backward(attn, variants, tune)
     tune_routes = phase_tune_attention(attn, tune, smi)
     bench_routes = phase_bench_mfu(attn, bench_util, bench_mfu, tune, smi)
     bench_routes.update(phase_bench_generate(attn, bench_util, bench_generate, llama,
@@ -2496,6 +2556,24 @@ def main() -> int:
     phase_visible(smi)
 
     main_row, bwd_main = rows[0], bwd_rows[0]
+    d64_row = next(r for r in rows if r["shape"] == D64_SHAPE)
+    d64_bwd = next(r for r in bwd_rows if r["shape"] == D64_SHAPE)
+    # each kernel at head dim 64 (bench_mfu's d1024 widths): its route,
+    # time, bound, share of it and the library's time there
+    d64 = {"flash_fwd": {
+        "kernel_route": d64_row["route"], "ms": d64_row["ms"],
+        "bound_ms": d64_row["bound_ms"], "bound_by": d64_row["bound_by"],
+        "share_of_bound": d64_row["share_of_bound"], "plain_ms": d64_row["plain_ms"],
+        "route_turns_ms": d64_row["route_turns_ms"], "library_ms": d64_row["library_ms"],
+        "sdpa": d64_row["sdpa"]}}
+    for name, key in (("flash_bwd_dq", "dq"), ("flash_bwd_dkv", "dkv")):
+        d64[name] = {
+            "kernel_route": d64_bwd["routes"][name], "ms": d64_bwd[f"{key}_ms"],
+            "bound_ms": d64_bwd[f"{key}_bound_ms"], "bound_by": d64_bwd[f"{key}_bound_by"],
+            "share_of_bound": d64_bwd[f"{key}_share_of_bound"],
+            "plain_ms": d64_bwd["plain_ms"],
+            "route_turns_ms": (d64_bwd["route_turns_ms"] or {}).get(key),
+            "library_ms": d64_bwd["library_ms"], "sdpa": d64_bwd["sdpa"]}
     src = "yoda_scheduler_tpu_torch/ops/csrc/"
     kernels = {"kernels": [{
         "name": "flash_fwd", "route": "cuda", "source": src + "flash_fwd.cu",
@@ -2523,10 +2601,10 @@ def main() -> int:
         "max_abs_err": max_err,
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"]}] + [{
+        "library_ms": main_row["library_ms"], "head_dim_64": d64["flash_fwd"]}] + [{
         "name": name, "route": "cuda", "source": src + "flash_bwd.cu",
         "replaces": f"yoda_scheduler_tpu/ops/attention.py:{line}",
-        "kernel_route": bwd_main["route"], "tflops": bwd_main[f"{key}_tflops"],
+        "kernel_route": bwd_main["routes"][name], "tflops": bwd_main[f"{key}_tflops"],
         "share_of_bound": bwd_main[f"{key}_share_of_bound"],
         "route_turns_ms": bwd_main["route_turns_ms"][key],
         "launches": step_launches[name],
@@ -2547,7 +2625,7 @@ def main() -> int:
         "max_abs_err": bwd_err[key], "ms": bwd_main[f"{key}_ms"],
         "plain_ms": bwd_main["plain_ms"], "bound_ms": bwd_main[f"{key}_bound_ms"],
         "bound_by": bwd_main[f"{key}_bound_by"],
-        "library_ms": bwd_main["library_ms"]}
+        "library_ms": bwd_main["library_ms"], "head_dim_64": d64[name]}
         for name, key, line in (("flash_bwd_dq", "dq", 219),
                                 ("flash_bwd_dkv", "dkv", 270))]}
     RESULTS["kernels"] = kernels

@@ -235,7 +235,7 @@ def test_wgmma_route_matches_the_plain_version(gpu, case, layout):
     q, k, v = _qkv(gpu, torch.bfloat16, b, h, kvh, sq, sk, 128)
     if layout == "bshd":  # the model's transposed views of [B, S, H, D]
         q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
-    assert attn._route(q, k, v) == "wgmma"
+    assert attn._route("flash_fwd", q, k, v) == "wgmma"
     o, lse = attn.flash_fwd(q, k, v, causal, window)
     torch.cuda.synchronize()
     ro, rl = attn.reference_attention_with_lse(q, k, v, causal, window)
@@ -252,11 +252,12 @@ def test_wgmma_route_matches_the_mma_route(gpu):
     torch.testing.assert_close(l2, l1, atol=1e-3, rtol=1e-3)
 
 
-def _bwd_inputs(gpu, case, layout, seed=0):
-    """q, k, v, dO of a WGMMA_SHAPES case in `layout`, with the forward's O
-    and LSE, a random LSE cotangent and delta."""
-    (b, h, kvh, sq, sk), causal, window = WGMMA_SHAPES[case]
-    q, k, v = _qkv(gpu, torch.bfloat16, b, h, kvh, sq, sk, 128, seed=seed)
+def _bwd_inputs(gpu, case, layout, seed=0, d=128):
+    """q, k, v, dO of a WGMMA_SHAPES case (at head dim 128; WGMMA64_SHAPES
+    at 64) in `layout`, with the forward's O and LSE, a random LSE
+    cotangent and delta."""
+    (b, h, kvh, sq, sk), causal, window = (WGMMA_SHAPES if d == 128 else WGMMA64_SHAPES)[case]
+    q, k, v = _qkv(gpu, torch.bfloat16, b, h, kvh, sq, sk, d, seed=seed)
     rng = np.random.default_rng(seed + 1)
     do = torch.from_numpy(rng.standard_normal(q.shape, dtype=np.float32)).to(gpu, q.dtype)
     g_lse = torch.from_numpy(rng.standard_normal(q.shape[:3], dtype=np.float32)).to(gpu)
@@ -268,10 +269,12 @@ def _bwd_inputs(gpu, case, layout, seed=0):
     return (q, k, v, do, lse, delta, causal, window), (o, g_lse)
 
 
-def _bwd_kernels(args, route):
+def _bwd_kernels(args, route, dq_route="same"):
+    """(dQ, dK, dV), dK/dV on `route` and dQ on `dq_route` ("same": route)."""
     kvh = args[1].shape[1]
     dk, dv = attn.flash_bwd_dkv(*args, route=route)
-    return attn.flash_bwd_dq(*args, route=route), attn.group_sum(dk, kvh), attn.group_sum(dv, kvh)
+    dq = attn.flash_bwd_dq(*args, route=route if dq_route == "same" else dq_route)
+    return dq, attn.group_sum(dk, kvh), attn.group_sum(dv, kvh)
 
 
 @pytest.mark.parametrize("case", list(WGMMA_SHAPES))
@@ -282,7 +285,8 @@ def test_wgmma_backward_routes_match_the_plain_backward(gpu, case, layout):
     own size."""
     args, (o, g_lse) = _bwd_inputs(gpu, case, layout)
     q, k, v, do, lse, _, causal, window = args
-    assert attn._route(q, k, v, do) == "wgmma"
+    assert [attn._route(n, q, k, v, do) for n in ("flash_bwd_dq", "flash_bwd_dkv")] == [
+        "wgmma", "wgmma"]
     before = [fn.launches_by_route["wgmma"] for fn in (attn.flash_bwd_dq, attn.flash_bwd_dkv)]
     got = _bwd_kernels(args, None)
     torch.cuda.synchronize()
@@ -308,6 +312,91 @@ def test_wgmma_backward_routes_are_bit_repeatable(gpu, case):
     runs = [_bwd_kernels(args, "wgmma") for _ in range(2)]
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+# the head-dim-64 wgmma kernels (flash_fwd_wgmma64_kernel,
+# flash_bwd_dkv_wgmma64_kernel): bench_mfu's d1024 widths (16 heads of 64)
+# and every path of their loops; dQ stays on mma at 64
+WGMMA64_SHAPES = {
+    "d1024_s2048": ((1, 16, 16, 2048, 2048), True, None),
+    "ragged_300": ((2, 4, 4, 300, 300), True, None),
+    "cross_256x1024": ((1, 4, 4, 256, 1024), True, None),
+    "window_512": ((1, 2, 2, 2048, 2048), True, 512),
+    "gqa_16_4": ((1, 16, 4, 1024, 1024), True, None),
+    "non_causal": ((1, 4, 2, 320, 448), False, None),
+}
+
+
+@pytest.mark.parametrize("case", list(WGMMA64_SHAPES))
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+def test_wgmma64_route_matches_the_plain_version(gpu, case, layout):
+    (b, h, kvh, sq, sk), causal, window = WGMMA64_SHAPES[case]
+    q, k, v = _qkv(gpu, torch.bfloat16, b, h, kvh, sq, sk, 64)
+    if layout == "bshd":  # the model's transposed views of [B, S, H, D]
+        q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
+    assert attn._route("flash_fwd", q, k, v) == "wgmma"
+    before = attn.flash_fwd.launches_by_route["wgmma"]
+    o, lse = attn.flash_fwd(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert attn.flash_fwd.launches_by_route["wgmma"] == before + 1
+    ro, rl = attn.reference_attention_with_lse(q, k, v, causal, window)
+    torch.testing.assert_close(o.float(), ro.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, rl, atol=1e-3, rtol=1e-3)
+    assert tile_rel_l2(o, ro) <= 1e-2
+
+
+def test_wgmma64_route_matches_the_mma_route(gpu):
+    q, k, v = _qkv(gpu, torch.bfloat16, 2, 16, 4, 1024, 1024, 64, seed=2)
+    o1, l1 = attn.flash_fwd(q, k, v, route="mma")
+    o2, l2 = attn.flash_fwd(q, k, v, route="wgmma")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o2.float(), o1.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(l2, l1, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("case", list(WGMMA64_SHAPES))
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+def test_wgmma64_backward_matches_the_plain_backward(gpu, case, layout):
+    """dK/dV on wgmma and dQ on mma, as `_route` picks them at head dim 64,
+    elementwise and by each output's worst 64-row tile."""
+    args, (o, g_lse) = _bwd_inputs(gpu, case, layout, d=64)
+    q, k, v, do, lse, _, causal, window = args
+    assert [attn._route(n, q, k, v, do) for n in ("flash_bwd_dq", "flash_bwd_dkv")] == [
+        "mma", "wgmma"]
+    before = attn.flash_bwd_dkv.launches_by_route["wgmma"]
+    got = _bwd_kernels(args, None)
+    torch.cuda.synchronize()
+    assert attn.flash_bwd_dkv.launches_by_route["wgmma"] == before + 1
+    want = attn.flash_backward_reference(q, k, v, o, lse, do, causal, window, g_lse)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        torch.testing.assert_close(g.float(), w.float(), atol=2e-2, rtol=2e-2)
+        assert tile_rel_l2(g, w) <= BWD_TILE_REL_L2
+
+
+def test_wgmma64_backward_matches_the_mma_route(gpu):
+    args, _ = _bwd_inputs(gpu, "gqa_16_4", "bshd", seed=2, d=64)
+    for g, w in zip(_bwd_kernels(args, "wgmma", "mma")[1:], _bwd_kernels(args, "mma")[1:]):
+        torch.testing.assert_close(g.float(), w.float(), atol=2e-2, rtol=2e-2)
+        assert tile_rel_l2(g, w) <= BWD_TILE_REL_L2
+
+
+@pytest.mark.parametrize("case", ["ragged_300", "window_512", "d1024_s2048"])
+def test_wgmma64_backward_is_bit_repeatable(gpu, case):
+    args, _ = _bwd_inputs(gpu, case, "bshd", d=64)
+    runs = [_bwd_kernels(args, "wgmma", "mma") for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_wgmma64_refuses_dq(gpu):
+    """dQ has no wgmma kernel at head dim 64: named, the route raises and
+    launches nothing."""
+    args, _ = _bwd_inputs(gpu, "ragged_300", "bhsd", d=64)
+    before = attn.flash_bwd_dq.launches
+    with pytest.raises(ValueError, match="flash_bwd_dq route 'wgmma' cannot take"):
+        attn.flash_bwd_dq(*args, route="wgmma")
+    assert attn.flash_bwd_dq.launches == before
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.float16, 64), (torch.bfloat16, 96)])

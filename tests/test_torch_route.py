@@ -1,5 +1,5 @@
 """Which kernels of csrc/flash_fwd.cu and csrc/flash_bwd.cu the port's
-inputs take (`attention._route`), decided from
+inputs take (`attention._route`, per kernel), decided from
 dtype, head_dim, base alignment and strides alone, on CPU tensors; the
 refusal of a named route that cannot take the inputs; and the route the
 model's own backward reaches. The kernels themselves run in
@@ -29,7 +29,7 @@ CASES = {
     "bf16_d128_gqa": (lambda: [_bhsd(1, 4, 64, 128)] + [_bhsd(1, 2, 64, 128)] * 2,
                       "wgmma"),
     "model_bshd_view": (lambda: [_model_view(2, 64, 4, 128)] * 3, "wgmma"),
-    "bf16_d64": (lambda: [_bhsd(1, 4, 64, 64)] * 3, "mma"),
+    "bf16_d64": (lambda: [_bhsd(1, 4, 64, 64)] * 3, "wgmma"),
     "bf16_d32": (lambda: [_bhsd(1, 4, 64, 32)] * 3, "mma"),
     "bf16_offset_by_one": (lambda: [_bhsd(1, 4, 64, 128, offset=1)] * 3, "simt"),
     "bf16_odd_seq_stride": (lambda: [_bhsd(1, 4, 64, 132)[..., :128]] * 3, "simt"),
@@ -43,13 +43,26 @@ CASES = {
 def test_route_follows_the_inputs(case):
     make, want = CASES[case]
     q, k, v = make()
-    assert attn._route(q, k, v) == want
-    assert attn._routes(q, k, v)[-1] == want
-    assert "simt" in attn._routes(q, k, v)
+    assert attn._route("flash_fwd", q, k, v) == want
+    assert attn._routes("flash_fwd", q, k, v)[-1] == want
+    assert "simt" in attn._routes("flash_fwd", q, k, v)
+
+
+@pytest.mark.parametrize("kernel,d,wgmma", [
+    ("flash_fwd", 32, False), ("flash_fwd", 64, True), ("flash_fwd", 128, True),
+    ("flash_bwd_dq", 32, False), ("flash_bwd_dq", 64, False), ("flash_bwd_dq", 128, True),
+    ("flash_bwd_dkv", 32, False), ("flash_bwd_dkv", 64, True), ("flash_bwd_dkv", 128, True)])
+def test_wgmma_admits_each_kernels_head_dims(kernel, d, wgmma):
+    """wgmma takes head dim 64 and 128 for the forward and dK/dV, 128
+    alone for dQ; every aligned bf16 head dim keeps mma."""
+    tensors = [_model_view(2, 64, 4, d)] * (3 if kernel == "flash_fwd" else 4)
+    routes = attn._routes(kernel, *tensors)
+    assert routes == (("simt", "mma", "wgmma") if wgmma else ("simt", "mma"))
+    assert attn._route(kernel, *tensors) == routes[-1]
 
 
 @pytest.mark.parametrize("case,route", [
-    ("fp32_d128", "wgmma"), ("fp32_d128", "mma"), ("bf16_d64", "wgmma"),
+    ("fp32_d128", "wgmma"), ("fp32_d128", "mma"), ("bf16_d32", "wgmma"),
     ("bf16_offset_by_one", "mma"), ("bf16_d128", "tma")])
 def test_a_route_that_cannot_take_the_inputs_raises(case, route):
     q, k, v = CASES[case][0]()
@@ -65,7 +78,8 @@ def test_a_route_that_can_take_them_still_needs_cuda():
         attn.flash_fwd(q, k, v, route="mma")
 
 
-# the backward's inputs (q, k, v, dO) -> the route `_route` must pick
+# the backward's inputs (q, k, v, dO) -> the route `_route` must pick for
+# both kernels, or for each kernel by name
 BWD_CASES = {
     "bf16_d128": (lambda: [_bhsd(1, 4, 64, 128)] * 4, "wgmma"),
     "bf16_d128_gqa": (lambda: [_bhsd(1, 4, 64, 128)] + [_bhsd(1, 2, 64, 128)] * 2
@@ -73,7 +87,8 @@ BWD_CASES = {
     "model_views_contiguous_do": (lambda: [_model_view(2, 64, 4, 128)] * 3
                                   + [_bhsd(2, 4, 64, 128)], "wgmma"),
     "model_views_transposed_do": (lambda: [_model_view(2, 64, 4, 128)] * 4, "wgmma"),
-    "bf16_d64": (lambda: [_bhsd(1, 4, 64, 64)] * 4, "mma"),
+    "bf16_d64": (lambda: [_bhsd(1, 4, 64, 64)] * 4,
+                 {"flash_bwd_dq": "mma", "flash_bwd_dkv": "wgmma"}),
     "bf16_d32": (lambda: [_bhsd(1, 4, 64, 32)] * 4, "mma"),
     "do_offset_by_one": (lambda: [_bhsd(1, 4, 64, 128)] * 3
                          + [_bhsd(1, 4, 64, 128, offset=1)], "simt"),
@@ -90,21 +105,32 @@ def _bwd_args(q, k, v, do):
     return q, k, v, do, lse, lse
 
 
+BWD_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
+
+
 @pytest.mark.parametrize("case", list(BWD_CASES))
 def test_backward_route_follows_the_inputs(case):
     make, want = BWD_CASES[case]
     q, k, v, do = make()
-    assert attn._route(q, k, v, do) == want
-    assert attn._routes(q, k, v, do)[-1] == want
-    assert "simt" in attn._routes(q, k, v, do)
+    for kernel in BWD_KERNELS:
+        want_k = want[kernel] if isinstance(want, dict) else want
+        assert attn._route(kernel, q, k, v, do) == want_k, kernel
+        assert attn._routes(kernel, q, k, v, do)[-1] == want_k, kernel
+        assert "simt" in attn._routes(kernel, q, k, v, do)
 
 
-@pytest.mark.parametrize("fn", [attn.flash_bwd_dq, attn.flash_bwd_dkv],
-                         ids=lambda f: f.__name__)
-@pytest.mark.parametrize("case,route", [
-    ("fp32_d128", "wgmma"), ("fp32_d128", "mma"), ("bf16_d64", "wgmma"),
-    ("do_offset_by_one", "mma"), ("do_odd_seq_stride", "wgmma"),
-    ("empty_kv", "wgmma"), ("bf16_d128", "tma")])
+# (case, route) a backward kernel must refuse; dQ also refuses wgmma at
+# head dim 64, which dK/dV takes
+BWD_REFUSALS = [("fp32_d128", "wgmma"), ("fp32_d128", "mma"), ("bf16_d32", "wgmma"),
+                ("do_offset_by_one", "mma"), ("do_odd_seq_stride", "wgmma"),
+                ("empty_kv", "wgmma"), ("bf16_d128", "tma")]
+
+
+@pytest.mark.parametrize("fn,case,route", [
+    pytest.param(fn, case, route, id=f"{case}-{route}-{fn.__name__}")
+    for case, route in BWD_REFUSALS[:3] + [("bf16_d64", "wgmma")] + BWD_REFUSALS[3:]
+    for fn in (attn.flash_bwd_dq, attn.flash_bwd_dkv)
+    if (case, fn) != ("bf16_d64", attn.flash_bwd_dkv)])
 def test_a_backward_route_that_cannot_take_the_inputs_raises(fn, case, route):
     args = _bwd_args(*BWD_CASES[case][0]())
     before = (fn.launches, dict(fn.launches_by_route))
@@ -135,11 +161,11 @@ def test_the_models_backward_lands_on_wgmma(monkeypatch):
     seen = []
 
     def fwd(q, k, v, causal=True, window=None):
-        seen.append(("flash_fwd", attn._route(q, k, v)))
+        seen.append(("flash_fwd", attn._route("flash_fwd", q, k, v)))
         return attn.reference_attention_with_lse(q, k, v, causal, window)
 
     def bwd(name, q, k, v, do, lse, delta, causal=True, window=None):
-        seen.append((name, attn._route(q, k, v, do)))
+        seen.append((name, attn._route(f"flash_bwd_{name}", q, k, v, do)))
         return attn.flash_backward_reference(q, k, v, q, lse, do, causal, window)
 
     monkeypatch.setattr(attn, "flash_fwd", fwd)
@@ -155,3 +181,34 @@ def test_the_models_backward_lands_on_wgmma(monkeypatch):
     llama_loss(params, tokens, cfg, remat=True).backward()
     assert seen == [("flash_fwd", "wgmma"), ("flash_fwd", "wgmma"),
                     ("dq", "wgmma"), ("dkv", "wgmma")]
+
+
+def test_the_models_backward_at_head_dim_64(monkeypatch):
+    """As above at head_dim 64 (bench_mfu's d1024 widths): the forward and
+    the dK/dV launcher take wgmma, the dQ launcher mma."""
+    cfg = dataclasses.replace(LlamaConfig.tiny(), dim=128, n_heads=2, n_kv_heads=1,
+                              n_layers=1, dtype="bfloat16")
+    assert cfg.head_dim == 64
+    seen = []
+
+    def fwd(q, k, v, causal=True, window=None):
+        seen.append(("flash_fwd", attn._route("flash_fwd", q, k, v)))
+        return attn.reference_attention_with_lse(q, k, v, causal, window)
+
+    def bwd(name, q, k, v, do, lse, delta, causal=True, window=None):
+        seen.append((name, attn._route(name, q, k, v, do)))
+        return attn.flash_backward_reference(q, k, v, q, lse, do, causal, window)
+
+    monkeypatch.setattr(attn, "flash_fwd", fwd)
+    monkeypatch.setattr(attn, "flash_bwd_dq", lambda *a, **kw: bwd("flash_bwd_dq", *a, **kw)[0])
+    monkeypatch.setattr(attn, "flash_bwd_dkv", lambda *a, **kw: (
+        [t.repeat_interleave(2, dim=1) for t in bwd("flash_bwd_dkv", *a, **kw)[1:]]))
+    monkeypatch.setattr(attn, "_attention", lambda q, k, v, causal, window: (
+        attn._FlashFwd.apply(q, k, v, causal, window)))
+    params = init_llama(cfg, seed=0, device="cpu")
+    for t in params["layers"][0].values():
+        t.requires_grad_(True)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 64), generator=torch.Generator().manual_seed(0))
+    llama_loss(params, tokens, cfg, remat=True).backward()
+    assert seen == [("flash_fwd", "wgmma"), ("flash_fwd", "wgmma"),
+                    ("flash_bwd_dq", "mma"), ("flash_bwd_dkv", "wgmma")]

@@ -153,17 +153,18 @@ def plain_kernels(monkeypatch):
     ref = attn.reference_attention_with_lse
 
     def fwd(q, k, v, causal=True, window=None, route=None):
-        attn._pick_route("flash_fwd", attn._routes(q, k, v), route)
+        attn._pick_route("flash_fwd", attn._routes("flash_fwd", q, k, v), route)
         return ref(q, k, v, causal, window)
 
-    def bwd(q, k, v, do, lse, delta, causal=True, window=None, route=None):
-        attn._pick_route("bwd", attn._routes(q, k, v, do), route)
+    def bwd(name, q, k, v, do, lse, delta, causal=True, window=None, route=None):
+        attn._pick_route(name, attn._routes(name, q, k, v, do), route)
         return attn.flash_backward_reference(q, k, v, ref(q, k, v, causal, window)[0], lse,
                                              do, causal, window)
 
     monkeypatch.setattr(attn, "flash_fwd", fwd)
-    monkeypatch.setattr(attn, "flash_bwd_dq", lambda *a, **kw: bwd(*a, **kw)[0])
-    monkeypatch.setattr(attn, "flash_bwd_dkv", lambda *a, **kw: bwd(*a, **kw)[1:])
+    monkeypatch.setattr(attn, "flash_bwd_dq", lambda *a, **kw: bwd("flash_bwd_dq", *a, **kw)[0])
+    monkeypatch.setattr(attn, "flash_bwd_dkv",
+                        lambda *a, **kw: bwd("flash_bwd_dkv", *a, **kw)[1:])
     monkeypatch.setattr(attn, "flash_attention", lambda q, k, v, causal=True: ref(q, k, v)[0])
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)

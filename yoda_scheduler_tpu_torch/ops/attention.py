@@ -8,11 +8,14 @@ dV). CPU tensors take the plain versions: `reference_attention_with_lse`,
 with autograd through it, and `flash_backward_reference`, the plain twin of
 the backward kernels. The kernels mask ragged sequence tails themselves, so
 no shape falls back to a plain version on the card; they take bf16 or fp32
-and head_dim 32, 64 or 128, and raise otherwise. Each kernel has three
-routes, which `_route` picks from the inputs alone:
-"wgmma" (TMA and wgmma, bf16 with head_dim 128 and 16-byte aligned rows:
-the model's path), "mma" (mma.sync, other aligned bf16) and "simt" (fp32,
-unaligned bf16).
+and head_dim 32, 64 or 128, and raise otherwise.
+Each kernel has three routes, which `_route` picks per kernel from the
+inputs alone: "wgmma" (TMA and wgmma, bf16 with 16-byte aligned rows: the
+model's path; head_dim 64 or 128 for the forward and dK/dV, 128 for dQ),
+"mma" (mma.sync, other aligned bf16, among them dQ at head_dim 64) and
+"simt" (fp32, unaligned bf16). A named route that cannot take the inputs
+raises; nothing falls back to another route or to the plain versions. The
+CPU tests hold the routing; only the card runs the kernels.
 """
 
 from __future__ import annotations
@@ -178,25 +181,33 @@ def _check_qkv(name: str, q, k, v, causal: bool):
     return b, h, kvh, sq, sk, d
 
 
-def _routes(q, k, *rest) -> tuple[str, ...]:
-    """The kernels that can take these inputs (q, k, v for the forward, q,
-    k, v and dO for the backward), slowest first: simt takes any; mma needs
-    bf16 with 16-byte aligned bases and (batch, head, seq) strides that are
-    multiples of 8 elements; wgmma needs that, head_dim 128 and a non-empty
-    kv (the conditions of the csrc/ entries)."""
+# the head dims each kernel's wgmma route takes (csrc/flash_fwd.cu,
+# csrc/flash_bwd.cu); dQ at 64 stays on mma
+_WGMMA_HEAD_DIMS = {"flash_fwd": (64, 128), "flash_bwd_dq": (128,),
+                    "flash_bwd_dkv": (64, 128)}
+
+
+def _routes(kernel: str, q, k, *rest) -> tuple[str, ...]:
+    """The routes of `kernel` ("flash_fwd", "flash_bwd_dq" or
+    "flash_bwd_dkv") that can take these inputs (q, k, v for the forward,
+    q, k, v and dO for the backward), slowest first: simt takes any; mma
+    needs bf16 with 16-byte aligned bases and (batch, head, seq) strides
+    that are multiples of 8 elements; wgmma needs that, a non-empty kv and
+    a head dim of `_WGMMA_HEAD_DIMS[kernel]` (the conditions of the csrc/
+    entries)."""
     routes = ("simt",)
     if q.dtype == torch.bfloat16 and all(
             t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
             for t in (q, k, *rest)):
         routes += ("mma",)
-        if q.shape[-1] == 128 and k.shape[2] > 0:
+        if q.shape[-1] in _WGMMA_HEAD_DIMS[kernel] and k.shape[2] > 0:
             routes += ("wgmma",)
     return routes
 
 
-def _route(q, k, *rest) -> str:
-    """The kernel these inputs take: "wgmma", "mma" or "simt"."""
-    return _routes(q, k, *rest)[-1]
+def _route(kernel: str, q, k, *rest) -> str:
+    """The route `kernel` takes for these inputs: "wgmma", "mma" or "simt"."""
+    return _routes(kernel, q, k, *rest)[-1]
 
 
 def _pick_route(name: str, routes, route):
@@ -225,7 +236,7 @@ def flash_fwd(q, k, v, causal: bool = True, window: int | None = None,
     `flash_fwd.launches` counts the launches, `.launches_by_route` each
     route's."""
     b, h, kvh, sq, sk, d = _check_qkv("flash_fwd", q, k, v, causal)
-    route = _pick_route("flash_fwd", _routes(q, k, v), route)
+    route = _pick_route("flash_fwd", _routes("flash_fwd", q, k, v), route)
     _require_cuda("flash_fwd", q, k, v)
     o = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
@@ -264,7 +275,7 @@ def _launch_bwd(fn, q, k, v, do, lse, delta, outs, causal, window, route):
         if t.shape != (b, h, sq) or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} needs contiguous fp32 LSE and delta of "
                              f"shape {(b, h, sq)}, got {tuple(t.shape)} {t.dtype}")
-    route = _pick_route(name, _routes(q, k, v, do), route)
+    route = _pick_route(name, _routes(name, q, k, v, do), route)
     _require_cuda(name, q, k, v, do, lse, delta)
     if q.numel() == 0 or k.numel() == 0:
         for t in outs:

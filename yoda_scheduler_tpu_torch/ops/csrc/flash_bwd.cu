@@ -28,9 +28,11 @@
 // (ops/attention.py:_route picks it from dtype, head_dim and alignment):
 // - *_wgmma kernels (route 2; bf16, D = 128, 16-byte aligned rows: the main
 //   path): TMA-fed and warp-specialised on wgmma, as flash_fwd.cu's wgmma
-//   kernel. Below.
-// - *_mma kernels (route 1; aligned bf16, the route of D = 32 and 64; they
-//   take D = 128 too, to be held against the wgmma kernels): 4 warps each
+//   kernel. Below; flash_bwd_dkv_wgmma64_kernel is route 2 of dK/dV at D = 64
+//   (bench_mfu's d1024 widths), with its own note. dQ has no wgmma kernel at
+//   D = 64 and refuses route 2 there.
+// - *_mma kernels (route 1; aligned bf16, the route of D = 32 and of dQ at
+//   64; they take D = 64 and 128 too, to be held against the wgmma kernels): 4 warps each
 //   own 16 rows of a 64-row tile and run all products on the tensor cores
 //   with mma.sync m16n8k16, 16 streamed rows at a time, skipping 16-row
 //   steps masked for all of their rows; the streamed tiles are copied
@@ -901,6 +903,225 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma_kernel(
   }
 }
 
+// ---- the dK/dV wgmma kernel at head dim 64
+// A 64-column bf16 row is one 128-byte swizzle box, so every tile is one TMA
+// box and each product has 4 k-steps of 16 head dims; the sums dK and dV are
+// m64n64 (32 floats a thread each). With the registers that frees, a block
+// keeps 192 keys in three consumer warpgroups (64 keys and 160 registers
+// each) against Q and dO tiles of 64 rows, so that the tensor cores have two
+// warpgroups' products to run while the third forms P and dS. Each
+// warpgroup takes its steps in order, as the D = 128 kernel does: issuing
+// the next tile's score products before this tile's sums needs more
+// registers than 160, and at two warpgroups it was slower than three
+// (PERF.md). A stage of Q and dO is 16 KB, so the ring holds four.
+// At bench_mfu's d1024 shape (B=8, H=16, S=2048, causal) the work is ~137
+// GFLOP against ~203 MB, bound by operations (~139 us at 989 TF/s).
+constexpr int K64_STAGES = 4;
+constexpr int K64_CONS = 3;                    // consumer warpgroups
+constexpr int K64_KEYS = 64 * K64_CONS;        // keys per block
+constexpr int K64_TILE = 64 * 128;             // bytes of a 64-row tile of 64 bf16 columns
+constexpr int K64_Q = 2 * K64_CONS * K64_TILE;  // K and V
+constexpr int K64_STAGE = 2 * K64_TILE;        // Q and dO
+constexpr int K64_STATS = K64_Q + K64_STAGES * K64_STAGE;
+constexpr int K64_BARS = K64_STATS + K64_STAGES * 128 * 4;
+constexpr int K64_SMEM = K64_BARS + 8 * (1 + 2 * K64_STAGES) + 1024;  // + alignment slack
+
+__global__ void __launch_bounds__((K64_CONS + 1) * WG_THREADS, 1) flash_bwd_dkv_wgmma64_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+    int H, int KvH, int Sq, int Sk, int causal, int window, float scale) {
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  unsigned char* sK = smem;
+  unsigned char* sV = smem + K64_CONS * K64_TILE;
+  float* stats = reinterpret_cast<float*>(smem + K64_STATS);
+  uint64_t* full_kv = reinterpret_cast<uint64_t*>(smem + K64_BARS);
+  uint64_t* full = full_kv + 1;
+  uint64_t* empty = full + K64_STAGES;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int kvh = h / (H / KvH);
+  const int k0 = blockIdx.y * K64_KEYS;  // low key blocks have the most q tiles: first
+  int first, last;
+  q_tiles(k0, K64_KEYS, 64, Sq, Sk, causal, window, first, last);
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_kv, 1);
+    for (int s = 0; s < K64_STAGES; ++s) {
+      mbar_init(&full[s], 1 + 32);  // the TMA's expect_tx, and the 32 lanes staging LSE/delta
+      mbar_init(&empty[s], K64_CONS * WG_THREADS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < WG_THREADS) {
+    // ---- producer: lane 0 issues every TMA load, the first warp stages
+    // LSE and delta with plain loads
+    setmaxnreg_dec<24>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(full_kv, K64_Q);
+        tma_load_4d(sK, &tm_k, full_kv, 0, k0, kvh, b);
+        tma_load_4d(sV, &tm_v, full_kv, 0, k0, kvh, b);
+      }
+      const float* lse_bh = lse + (int64_t)bh * Sq;
+      const float* delta_bh = delta + (int64_t)bh * Sq;
+      for (int t = first, i = 0; t < last; ++t, ++i) {
+        const int s = i % K64_STAGES;
+        const int q0 = t * 64;
+        mbar_wait(&empty[s], ((i / K64_STAGES) & 1) ^ 1);
+        if (lane == 0) {
+          unsigned char* sQ = smem + K64_Q + K64_STAGE * s;
+          mbar_arrive_expect_tx(&full[s], K64_STAGE);
+          tma_load_4d(sQ, &tm_q, &full[s], 0, q0, h, b);
+          tma_load_4d(sQ + K64_TILE, &tm_do, &full[s], 0, q0, h, b);
+        }
+        // rows past Sq get 0 here and are masked by the consumers
+        float* st = stats + 128 * s;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = lane + 32 * half;
+          const bool in = q0 + r < Sq;
+          st[r] = in ? lse_bh[q0 + r] * LOG2E : 0.f;
+          st[64 + r] = in ? delta_bh[q0 + r] : 0.f;
+        }
+        mbar_arrive(&full[s]);
+      }
+    }
+  } else {
+    // ---- consumers: 64 keys each
+    setmaxnreg_inc<160>();
+    const int cw = threadIdx.x / WG_THREADS - 1;
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int kv_offset = Sk - Sq;
+    const int w_key0 = k0 + 64 * cw;
+    const bool w_live = w_key0 < Sk;
+    const int key0 = w_key0 + 16 * warp + g;  // this thread's keys: key0, key0 + 8
+    const float c = scale * LOG2E;  // raw score -> log2 units
+    float gk[32], gv[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) gk[i] = gv[i] = 0.f;
+    const uint64_t da_k = desc_kmajor(sK + K64_TILE * cw);
+    const uint64_t da_v = desc_kmajor(sV + K64_TILE * cw);
+
+    // the q tiles this warpgroup sees are [lo, hi): the masked ones are a
+    // prefix (before the diagonal) and a suffix (past the window), which it
+    // only releases, in loops of their own, as the forward does
+    auto sees = [&](int t) {
+      const int p_first = kv_offset + t * 64;
+      const int p_last = kv_offset + min(t * 64 + 63, Sq - 1);
+      return w_live && !(causal && (w_key0 > p_last ||
+                                    (window > 0 && w_key0 + 63 <= p_first - window)));
+    };
+    int lo = first;
+    while (lo < last && !sees(lo)) ++lo;
+    int hi = lo;
+    while (hi < last && sees(hi)) ++hi;
+    auto release = [&](int t) {
+      const int i = t - first;
+      mbar_wait(&full[i % K64_STAGES], (i / K64_STAGES) & 1);
+      mbar_arrive(&empty[i % K64_STAGES]);
+    };
+    for (int t = first; t < lo; ++t) release(t);
+
+    mbar_wait(full_kv, 0);
+    for (int t = lo; t < hi; ++t) {
+      const int i = t - first, s = i % K64_STAGES;
+      const int q0 = t * 64;
+      const int p_first = kv_offset + q0;
+      const int p_last = kv_offset + min(q0 + 63, Sq - 1);
+      mbar_wait(&full[s], (i / K64_STAGES) & 1);
+      unsigned char* sQ = smem + K64_Q + K64_STAGE * s;
+      unsigned char* sDO = sQ + K64_TILE;
+
+      // S^T = K Q^T and dP^T = V dO^T, 4 k-steps of 16 head dims each
+      float sc[32], dp[32];
+      const uint64_t db_q = desc_kmajor(sQ), db_o = desc_kmajor(sDO);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_m64n64k16_ss<0, 0>(sc, da_k + 2 * kk, db_q + 2 * kk, kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_m64n64k16_ss<0, 0>(dp, da_v + 2 * kk, db_o + 2 * kk, kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      // P^T and dS^T / scale, as in flash_bwd_dkv_wgmma_kernel; element
+      // 4 j + e is key key0 + 8 (e / 2), q row q0 + 8 j + 2 t4 + (e % 2)
+      const bool need_mask =
+          q0 + 64 > Sq ||
+          (causal && (w_key0 + 63 > p_first || (window > 0 && w_key0 <= p_last - window)));
+      const float* st = stats + 128 * s;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(st + 8 * j + 2 * t4);
+        const float2 dl = *reinterpret_cast<const float2*>(st + 64 + 8 * j + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[4 * j + e];
+          if (need_mask) {
+            const int r = q0 + 8 * j + 2 * t4 + (e & 1);
+            if (!(r < Sq && visible(key0 + 8 * (e >> 1), kv_offset + r, Sk, causal, window)))
+              x = NEG;
+          }
+          const float p = exp2_ftz(fmaf(x, c, -((e & 1) ? l2.y : l2.x)));
+          sc[4 * j + e] = p;
+          dp[4 * j + e] = p * (dp[4 * j + e] - ((e & 1) ? dl.y : dl.x));
+        }
+      }
+      uint32_t pa[4][4], sa[4][4];
+      to_a_operand(sc, pa);
+      to_a_operand(dp, sa);
+
+      // dV += P^T dO and dK += dS^T Q: dO and Q are MN-major B operands
+      // (head_dim contiguous), a k-step of 16 q rows 2048 bytes
+      const uint64_t db_o_mn = desc_mnmajor(sDO, K64_TILE);
+      const uint64_t db_q_mn = desc_mnmajor(sQ, K64_TILE);
+      fence_regs(gv);
+      fence_regs(gk);
+      wgmma_fence();
+#pragma unroll
+      for (int k4 = 0; k4 < 4; ++k4) wgmma_m64n64k16_rs<1>(gv, pa[k4], db_o_mn + k4 * 128, 1);
+#pragma unroll
+      for (int k4 = 0; k4 < 4; ++k4) wgmma_m64n64k16_rs<1>(gk, sa[k4], db_q_mn + k4 * 128, 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(gv);
+      fence_regs(gk);
+      mbar_arrive(&empty[s]);
+    }
+    for (int t = hi; t < last; ++t) release(t);
+
+    // dK scale and dV in bf16, one copy per q head; gk[4 j + e] is key key0
+    // + 8 (e / 2), head dim 8 j + 2 t4 + (e % 2)
+    if (w_live) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int key = key0 + 8 * r;
+        if (key >= Sk) continue;
+        const int64_t base = ((int64_t)bh * Sk + key) * 64 + 2 * t4;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          *reinterpret_cast<uint32_t*>(dk + base + 8 * j) =
+              pack_bf16(gk[4 * j + 2 * r] * scale, gk[4 * j + 2 * r + 1] * scale);
+          *reinterpret_cast<uint32_t*>(dv + base + 8 * j) =
+              pack_bf16(gv[4 * j + 2 * r], gv[4 * j + 2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
 __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dq_wgmma_kernel(
     const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
@@ -1134,11 +1355,13 @@ cudaError_t launch_dkv_mma(const Args& a) {
   return cudaGetLastError();
 }
 
-// the four 4-D maps (q, k, v, dO) of a wgmma launch, boxes of `q_rows` rows
-// of q and dO and `kv_rows` of k and v; false if cuTensorMapEncodeTiled refuses one
-bool bwd_maps(const Args& a, uint32_t q_rows, uint32_t kv_rows, CUtensorMap (&maps)[4]) {
-  const int64_t q_dims[4] = {128, a.Sq, a.H, a.B};
-  const int64_t kv_dims[4] = {128, a.Sk, a.KvH, a.B};
+// the four 4-D maps (q, k, v, dO; head_dim D) of a wgmma launch, boxes of
+// `q_rows` rows of q and dO and `kv_rows` of k and v; false if
+// cuTensorMapEncodeTiled refuses one
+bool bwd_maps(const Args& a, int D, uint32_t q_rows, uint32_t kv_rows,
+              CUtensorMap (&maps)[4]) {
+  const int64_t q_dims[4] = {D, a.Sq, a.H, a.B};
+  const int64_t kv_dims[4] = {D, a.Sk, a.KvH, a.B};
   const void* bases[4] = {a.q, a.k, a.v, a.dout};
   const int64_t* st = &a.st.q_sb;
   for (int i = 0; i < 4; ++i) {
@@ -1152,16 +1375,28 @@ bool bwd_maps(const Args& a, uint32_t q_rows, uint32_t kv_rows, CUtensorMap (&ma
   return true;
 }
 
-cudaError_t launch_dkv_wgmma(const Args& a) {
-  static const cudaError_t attr = set_smem(flash_bwd_dkv_wgmma_kernel, DKV_SMEM);
+// D = 128: flash_bwd_dkv_wgmma_kernel; D = 64: flash_bwd_dkv_wgmma64_kernel
+cudaError_t launch_dkv_wgmma(const Args& a, int D) {
+  static const cudaError_t attr128 = set_smem(flash_bwd_dkv_wgmma_kernel, DKV_SMEM);
+  static const cudaError_t attr64 = set_smem(flash_bwd_dkv_wgmma64_kernel, K64_SMEM);
+  const cudaError_t attr = D == 64 ? attr64 : attr128;
   if (attr != cudaSuccess) return attr;
   CUtensorMap m[4];
-  if (!bwd_maps(a, 64, 128, m)) return cudaErrorInvalidValue;
-  const dim3 grid(a.B * a.H, (a.Sk + 127) / 128);
-  flash_bwd_dkv_wgmma_kernel<<<grid, 3 * WG_THREADS, DKV_SMEM, a.stream>>>(
-      m[0], m[1], m[2], m[3], (const float*)a.lse, (const float*)a.delta,
-      (__nv_bfloat16*)a.dk, (__nv_bfloat16*)a.dv, a.H, a.KvH, a.Sq, a.Sk, a.causal,
-      a.window, a.scale);
+  if (D == 64) {
+    if (!bwd_maps(a, D, 64, K64_KEYS, m)) return cudaErrorInvalidValue;
+    const dim3 grid(a.B * a.H, (a.Sk + K64_KEYS - 1) / K64_KEYS);
+    flash_bwd_dkv_wgmma64_kernel<<<grid, (K64_CONS + 1) * WG_THREADS, K64_SMEM, a.stream>>>(
+        m[0], m[1], m[2], m[3], (const float*)a.lse, (const float*)a.delta,
+        (__nv_bfloat16*)a.dk, (__nv_bfloat16*)a.dv, a.H, a.KvH, a.Sq, a.Sk, a.causal,
+        a.window, a.scale);
+  } else {
+    if (!bwd_maps(a, D, 64, 128, m)) return cudaErrorInvalidValue;
+    const dim3 grid(a.B * a.H, (a.Sk + 127) / 128);
+    flash_bwd_dkv_wgmma_kernel<<<grid, 3 * WG_THREADS, DKV_SMEM, a.stream>>>(
+        m[0], m[1], m[2], m[3], (const float*)a.lse, (const float*)a.delta,
+        (__nv_bfloat16*)a.dk, (__nv_bfloat16*)a.dv, a.H, a.KvH, a.Sq, a.Sk, a.causal,
+        a.window, a.scale);
+  }
   return cudaGetLastError();
 }
 
@@ -1169,7 +1404,7 @@ cudaError_t launch_dq_wgmma(const Args& a) {
   static const cudaError_t attr = set_smem(flash_bwd_dq_wgmma_kernel, DQ_SMEM);
   if (attr != cudaSuccess) return attr;
   CUtensorMap m[4];
-  if (!bwd_maps(a, 128, 64, m)) return cudaErrorInvalidValue;
+  if (!bwd_maps(a, 128, 128, 64, m)) return cudaErrorInvalidValue;
   const dim3 grid(a.B * a.H, (a.Sq + 127) / 128);
   flash_bwd_dq_wgmma_kernel<<<grid, 3 * WG_THREADS, DQ_SMEM, a.stream>>>(
       m[0], m[1], m[2], m[3], (const float*)a.lse, (const float*)a.delta,
@@ -1189,8 +1424,9 @@ cudaError_t launch_simt(int which, int D, const Args& a) {
 }
 
 // route 0 = simt (any input), 1 = mma (bf16, 16-byte aligned bases, strides
-// that are multiples of 8), 2 = wgmma (as mma, and D = 128, Sk > 0); a route
-// that cannot take the inputs launches nothing
+// that are multiples of 8), 2 = wgmma (as mma, and Sk > 0, with D = 128 for
+// dQ and D = 64 or 128 for dK/dV); a route that cannot take the inputs
+// launches nothing
 cudaError_t dispatch(int which, int dtype, int route, int D, const Args& a) {
   const void* ptrs[4] = {a.q, a.k, a.v, a.dout};
   const bool tensor_core = dtype == 1 && rows_aligned(ptrs, 4, &a.st.q_sb, 12);
@@ -1208,8 +1444,9 @@ cudaError_t dispatch(int which, int dtype, int route, int D, const Args& a) {
         default: return cudaErrorInvalidValue;
       }
     case 2:
-      if (!tensor_core || D != 128 || a.Sk <= 0) return cudaErrorInvalidValue;
-      return which ? launch_dkv_wgmma(a) : launch_dq_wgmma(a);
+      if (!tensor_core || a.Sk <= 0) return cudaErrorInvalidValue;
+      if (which) return D == 64 || D == 128 ? launch_dkv_wgmma(a, D) : cudaErrorInvalidValue;
+      return D == 128 ? launch_dq_wgmma(a) : cudaErrorInvalidValue;
     default:
       return cudaErrorInvalidValue;
   }

@@ -18,12 +18,14 @@
 // one (batch, head) and streams K/V tiles through shared memory. Causal tiles
 // stop at the diagonal and windowed tiles start at the window's first tile, as
 // in the Pallas loop bounds; ragged q and k tails are masked in the kernel, so
-// every shape runs here. Three kernels share that plan; the caller names one
-// (ops/attention.py:_route picks it from dtype, head_dim and alignment):
-// - flash_fwd_wgmma_kernel (route 2; bf16, D = 128, 16-byte aligned rows: the
-//   main path): TMA-fed and warp-specialised, on wgmma. Below.
-// - flash_fwd_mma_kernel (route 1; aligned bf16, the route of D = 32 and 64;
-//   it takes D = 128 too, to be held against the wgmma kernel): 4 warps, each
+// every shape runs here. Four kernels share that plan; the caller names a
+// route (ops/attention.py:_route picks it from dtype, head_dim and alignment):
+// - flash_fwd_wgmma_kernel (route 2 at D = 128; bf16, 16-byte aligned rows:
+//   the main path): TMA-fed and warp-specialised, on wgmma. Below.
+// - flash_fwd_wgmma64_kernel (route 2 at D = 64: bench_mfu's d1024 widths):
+//   the same plan with three consumer warpgroups; its note is below.
+// - flash_fwd_mma_kernel (route 1; aligned bf16, the route of D = 32; it
+//   takes D = 64 and 128 too, to be held against the wgmma kernels): 4 warps, each
 //   owning 16 of 64 q rows, mma.sync m16n8k16 for both products; K/V
 //   tiles of 64 keys copied through registers. Scores, probabilities and the
 //   output sum stay in registers; P is rounded to bf16 for P.V as the plain
@@ -596,6 +598,238 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_fwd_wgmma_kernel(
   }
 }
 
+// ---- the wgmma kernel at head dim 64 (bf16)
+// A 64-column bf16 row is 128 bytes, one box of the 128-byte swizzle: every
+// tile is one TMA box, Q.K^T has 4 k-steps, and a K or V stage of 128 keys
+// is 16 KB, so the ring holds three. A consumer's score tile stays 64 x 128
+// (m64n128); P.V is m64n64 with a 32-float sum. At this width one exp2 per
+// score weighs as much as the 4 D flops of its two products (the MUFU does
+// 16 a cycle on an SM, the tensor cores about 4,096 bf16 flops), so a
+// warpgroup's softmax takes as long as its products. Three consumer
+// warpgroups (192 q rows a block, 160 registers each) keep the tensor cores
+// fed while the other two run their softmax; each takes its steps in order,
+// as the D = 128 kernel does. Issuing S(j + 1) before the softmax of S(j)
+// inside a warpgroup was slower here on an H100 (PERF.md). At
+// bench_mfu's d1024 shape (B=8, H=16, S=2048, causal) the work is ~68.7
+// GFLOP against ~135 MB, bound by operations (~69 us at 989 TF/s).
+constexpr int F_BK = 128;                  // keys per stage
+constexpr int F_STAGES = 3;
+constexpr int F_CONS = 3;                  // consumer warpgroups
+constexpr int F_BQ = W_ROWS * F_CONS;      // q rows per block
+constexpr int F_QTILE = F_BQ * 128;        // bytes of the Q tile
+constexpr int F_TILE = F_BK * 128;         // bytes of a K or V stage
+constexpr int F_BARS = F_QTILE + 2 * F_STAGES * F_TILE;  // barriers after Q, K[], V[]
+constexpr int F_SMEM = F_BARS + 8 * (1 + 3 * F_STAGES) + 1024;  // + alignment slack
+
+__global__ void __launch_bounds__((F_CONS + 1) * WG_THREADS, 1) flash_fwd_wgmma64_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
+    float* __restrict__ lse, int H, int KvH, int Sq, int Sk, int causal,
+    int window, float scale) {
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  unsigned char* sQ = smem;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + F_BARS);
+  uint64_t* full_q = bars;
+  uint64_t* full_k = bars + 1;
+  uint64_t* full_v = full_k + F_STAGES;
+  uint64_t* empty = full_v + F_STAGES;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // longest causal tiles first
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int kvh = h / (H / KvH);
+  const int q0 = qt * F_BQ;
+  const int kv_offset = Sk - Sq;
+  int n_tiles = (Sk + F_BK - 1) / F_BK;
+  int first_tile = 0;
+  if (causal) {
+    const int last_key = kv_offset + min(q0 + F_BQ, Sq) - 1;
+    n_tiles = min(n_tiles, last_key / F_BK + 1);
+    if (window > 0) first_tile = max(kv_offset + q0 - (window - 1), 0) / F_BK;
+  }
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < F_STAGES; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty[s], F_CONS * WG_THREADS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < WG_THREADS) {
+    // ---- producer: one thread issues every load
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(full_q, F_QTILE);
+      tma_load_4d(sQ, &tm_q, full_q, 0, q0, h, b);
+      for (int t = first_tile, i = 0; t < n_tiles; ++t, ++i) {
+        const int s = i % F_STAGES;
+        mbar_wait(&empty[s], ((i / F_STAGES) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full_k[s], F_TILE);
+        tma_load_4d(smem + F_QTILE + F_TILE * s, &tm_k, &full_k[s], 0, t * F_BK, kvh, b);
+        mbar_arrive_expect_tx(&full_v[s], F_TILE);
+        tma_load_4d(smem + F_QTILE + F_TILE * (F_STAGES + s), &tm_v, &full_v[s], 0,
+                    t * F_BK, kvh, b);
+      }
+    }
+  } else {
+    // ---- consumers: 64 q rows each
+    setmaxnreg_inc<160>();
+    const int cw = threadIdx.x / WG_THREADS - 1;
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int w_row0 = q0 + W_ROWS * cw;
+    const bool w_live = w_row0 < Sq;
+    const int w_first = kv_offset + w_row0;
+    const int w_last = kv_offset + min(w_row0 + W_ROWS - 1, Sq - 1);
+    const float c = scale * LOG2E;  // raw score -> log2 units
+    // rows 16 warp + g (r = 0) and + 8 (r = 1) of this warpgroup's 64
+    float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    const uint64_t dq = desc_kmajor(sQ + W_ROWS * 128 * cw);
+
+    // the tiles this warpgroup sees are [lo, hi): the masked ones are a
+    // prefix (before the window) and a suffix (past the diagonal), which it
+    // only releases, in loops of their own (a skip inside the one loop cost
+    // 7% at the d1024 shape, PERF.md)
+    auto sees = [&](int t) {
+      const int k0 = t * F_BK;
+      return w_live && !(causal && (k0 > w_last ||
+                                    (window > 0 && k0 + F_BK - 1 <= w_first - window)));
+    };
+    int lo = first_tile;
+    while (lo < n_tiles && !sees(lo)) ++lo;
+    int hi = lo;
+    while (hi < n_tiles && sees(hi)) ++hi;
+    auto release = [&](int t) {
+      const int i = t - first_tile, s = i % F_STAGES;
+      const uint32_t ph = (i / F_STAGES) & 1;
+      mbar_wait(&full_k[s], ph);
+      mbar_wait(&full_v[s], ph);
+      mbar_arrive(&empty[s]);
+    };
+    for (int t = first_tile; t < lo; ++t) release(t);
+
+    mbar_wait(full_q, 0);
+    for (int t = lo; t < hi; ++t) {
+      const int i = t - first_tile, s = i % F_STAGES;
+      const uint32_t ph = (i / F_STAGES) & 1;
+      const int k0 = t * F_BK;
+      unsigned char* sK = smem + F_QTILE + F_TILE * s;
+      unsigned char* sV = smem + F_QTILE + F_TILE * (F_STAGES + s);
+      mbar_wait(&full_k[s], ph);
+
+      // S = Q K^T: 4 k-steps of 16 over head_dim, 32 bytes apart
+      float sc[64];
+      const uint64_t dk = desc_kmajor(sK);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_m64n128k16_ss<0, 0>(sc, dq + 2 * kk, dk + 2 * kk, kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+
+      // sc[4 j + e]: row 16 warp + g + 8 (e / 2), key k0 + 8 j + 2 t4 + (e % 2)
+      const bool need_mask =
+          k0 + F_BK > Sk ||
+          (causal && (k0 + F_BK - 1 > w_first || (window > 0 && k0 <= w_last - window)));
+      if (need_mask) {
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = k0 + 8 * j + 2 * t4 + (e & 1);
+            const int qpos = w_first + 16 * warp + g + 8 * (e >> 1);
+            bool ok = key < Sk;
+            if (causal) {
+              ok = ok && key <= qpos;
+              if (window > 0) ok = ok && key > qpos - window;
+            }
+            if (!ok) sc[4 * j + e] = NEG;
+          }
+        }
+      }
+
+      // online softmax in log2 units, as in flash_fwd_wgmma_kernel
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = m[r];
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * r], sc[4 * j + 2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float alpha = exp2_ftz((m[r] - mx) * c);
+        const float mc = mx == NEG ? 0.f : mx * c;
+        float rs = 0.f;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const float p0 = exp2_ftz(fmaf(sc[4 * j + 2 * r], c, -mc));
+          const float p1 = exp2_ftz(fmaf(sc[4 * j + 2 * r + 1], c, -mc));
+          sc[4 * j + 2 * r] = p0;
+          sc[4 * j + 2 * r + 1] = p1;
+          rs += p0 + p1;
+        }
+        l[r] = l[r] * alpha + rs;  // this thread's part of the row sum
+        m[r] = mx;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          acc[4 * j + 2 * r] *= alpha;
+          acc[4 * j + 2 * r + 1] *= alpha;
+        }
+      }
+
+      // P in bf16 as the A operand: k-step jj is keys 16 jj .. 16 jj + 15
+      uint32_t pa[8][4];
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) pa[jj][q] = pack_bf16(sc[8 * jj + 2 * q], sc[8 * jj + 2 * q + 1]);
+
+      // O += P V: V [keys][64] is an MN-major B operand (one 128-byte line a
+      // key); a k-step of 16 keys is 2048 bytes
+      mbar_wait(&full_v[s], ph);
+      const uint64_t dv = desc_mnmajor(sV, F_TILE);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) wgmma_m64n64k16_rs<1>(acc, pa[jj], dv + jj * 128, 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(&empty[s]);
+    }
+    for (int t = hi; t < n_tiles; ++t) release(t);
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+    if (w_live) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = w_row0 + 16 * warp + g + 8 * r;
+        if (row >= Sq) continue;
+        const float lc = fmaxf(l[r], 1e-30f);
+        __nv_bfloat16* orow = o + ((int64_t)bh * Sq + row) * 64 + 2 * t4;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+              pack_bf16(acc[4 * j + 2 * r] / lc, acc[4 * j + 2 * r + 1] / lc);
+        if (t4 == 0) lse[(int64_t)bh * Sq + row] = m[r] * scale + logf(lc);
+      }
+    }
+  }
+}
+
 // ---- host entry
 // cudaFuncSetAttribute once per kernel instantiation (C++ statics initialise
 // once, thread-safe), not on every launch
@@ -643,26 +877,45 @@ cudaError_t launch_mma(const Args& a) {
   return cudaGetLastError();
 }
 
-cudaError_t launch_wgmma(const Args& a) {
-  static const cudaError_t attr = allow_smem(flash_fwd_wgmma_kernel, W_SMEM);
-  if (attr != cudaSuccess) return attr;
+// the three 4-D maps (head_dim D, seq, heads, batch) of a wgmma launch,
+// boxes of `q_rows` rows of q and `kv_rows` of k and v; false if
+// cuTensorMapEncodeTiled refuses one
+bool fwd_maps(const Args& a, int D, uint32_t q_rows, uint32_t kv_rows, CUtensorMap (&maps)[3]) {
   const int64_t* st = a.st;
-  CUtensorMap maps[3];
-  const int64_t q_dims[4] = {128, a.Sq, a.H, a.B};
-  const int64_t kv_dims[4] = {128, a.Sk, a.KvH, a.B};
+  const int64_t q_dims[4] = {D, a.Sq, a.H, a.B};
+  const int64_t kv_dims[4] = {D, a.Sk, a.KvH, a.B};
   const void* bases[3] = {a.q, a.k, a.v};
   for (int i = 0; i < 3; ++i) {
     // strides (seq, head, batch), innermost first after head_dim
     const int64_t strides[3] = {st[3 * i + 2], st[3 * i + 1], st[3 * i]};
-    const uint32_t rows = i == 0 ? W_BQ : W_BK;
     if (!hopper::make_map_bf16_4d(&maps[i], bases[i], i == 0 ? q_dims : kv_dims,
-                                  strides, rows))
-      return cudaErrorInvalidValue;
+                                  strides, i == 0 ? q_rows : kv_rows))
+      return false;
   }
-  const dim3 grid(a.B * a.H, (a.Sq + W_BQ - 1) / W_BQ);
-  flash_fwd_wgmma_kernel<<<grid, 3 * WG_THREADS, W_SMEM, a.stream>>>(
-      maps[0], maps[1], maps[2], (__nv_bfloat16*)a.o, (float*)a.lse, a.H, a.KvH,
-      a.Sq, a.Sk, a.causal, a.window, a.scale);
+  return true;
+}
+
+// D = 128: flash_fwd_wgmma_kernel; D = 64: flash_fwd_wgmma64_kernel, its
+// grid with the q tiles of one (batch, head) side by side
+cudaError_t launch_wgmma(const Args& a, int D) {
+  static const cudaError_t attr128 = allow_smem(flash_fwd_wgmma_kernel, W_SMEM);
+  static const cudaError_t attr64 = allow_smem(flash_fwd_wgmma64_kernel, F_SMEM);
+  const cudaError_t attr = D == 64 ? attr64 : attr128;
+  if (attr != cudaSuccess) return attr;
+  CUtensorMap maps[3];
+  if (D == 64) {
+    if (!fwd_maps(a, D, F_BQ, F_BK, maps)) return cudaErrorInvalidValue;
+    const dim3 grid((a.Sq + F_BQ - 1) / F_BQ, a.B * a.H);
+    flash_fwd_wgmma64_kernel<<<grid, (F_CONS + 1) * WG_THREADS, F_SMEM, a.stream>>>(
+        maps[0], maps[1], maps[2], (__nv_bfloat16*)a.o, (float*)a.lse, a.H, a.KvH,
+        a.Sq, a.Sk, a.causal, a.window, a.scale);
+  } else {
+    if (!fwd_maps(a, D, W_BQ, W_BK, maps)) return cudaErrorInvalidValue;
+    const dim3 grid(a.B * a.H, (a.Sq + W_BQ - 1) / W_BQ);
+    flash_fwd_wgmma_kernel<<<grid, 3 * WG_THREADS, W_SMEM, a.stream>>>(
+        maps[0], maps[1], maps[2], (__nv_bfloat16*)a.o, (float*)a.lse, a.H, a.KvH,
+        a.Sq, a.Sk, a.causal, a.window, a.scale);
+  }
   return cudaGetLastError();
 }
 
@@ -682,7 +935,7 @@ cudaError_t launch_simt_d(int D, const Args& a) {
 // contiguous last dim; o: contiguous [B, H, Sq, D]; lse: contiguous fp32
 // [B, H, Sq]. dtype 0 = fp32, 1 = bf16. window <= 0 means no window. route:
 // 0 = simt (any input), 1 = mma (bf16, 16-byte aligned bases, strides that
-// are multiples of 8), 2 = wgmma (as mma, and D = 128, Sk > 0). A route that
+// are multiples of 8), 2 = wgmma (as mma, and D = 64 or 128, Sk > 0). A route that
 // cannot take the inputs returns cudaErrorInvalidValue and launches nothing.
 // Returns the launch's cudaError_t (0 on success).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
@@ -715,8 +968,8 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
         default: return (int)cudaErrorInvalidValue;
       }
     case 2:
-      if (!tensor_core || D != 128 || Sk <= 0) return (int)cudaErrorInvalidValue;
-      return (int)launch_wgmma(a);
+      if (!tensor_core || (D != 64 && D != 128) || Sk <= 0) return (int)cudaErrorInvalidValue;
+      return (int)launch_wgmma(a, D);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) primitives shared by the flash attention kernels: mbarriers,
 // TMA tiled loads and their tensor maps, wgmma shared-memory descriptors for
 // the 128-byte swizzle, the wgmma fences and groups, setmaxnreg, and the bf16
-// wgmma m64n128k16 in its SS (both operands in shared memory) and RS (A in
-// registers) forms and m64n64k16 in its SS form.
+// wgmma m64n128k16 and m64n64k16, each in its SS (both operands in shared
+// memory) and RS (A in registers) forms.
 //
 // The layout they assume. A tile row of 64 bf16 (128 bytes) is one line of
 // the 128-byte swizzle: TMA with CU_TENSOR_MAP_SWIZZLE_128B stores the 16-byte
@@ -226,6 +226,21 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da,
       ", %32, %33, p, 1, 1, %35, %36;\n}\n"
       : HOPPER_D32_OPS(d)
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// The same with A from registers, in the RS form's layout above (the
+// columns 16 s .. 16 s + 15 of an m64n64 or m64n128 accumulator, rounded to
+// bf16, are A's k-step s).
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : HOPPER_D32_OPS(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TB));
 }
 
 #undef HOPPER_D64

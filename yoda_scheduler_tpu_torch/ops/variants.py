@@ -1,7 +1,8 @@
 """Time variants of a flash kernel's source against each other on one card,
 in turns (A, B, ..., B, A), at the main path's shapes.
 
-    python3 -m yoda_scheduler_tpu_torch.ops.variants fwd|bwd [--probe] A.cu B.cu ...
+    python3 -m yoda_scheduler_tpu_torch.ops.variants fwd|bwd [--probe] [--head-dim 64] \\
+        A.cu B.cu ...
 
 Each argument is a copy of `csrc/flash_fwd.cu` (fwd) or `csrc/flash_bwd.cu`
 (bwd) with a change, or "cur" for the package's own, built with the
@@ -10,10 +11,13 @@ package's nvcc flags into `build/variants/`. fwd launches
 `attention.flash_bwd_dq` and `attention.flash_bwd_dkv` on the wgmma route
 and first prints ptxas's registers and spills of each variant's wgmma
 kernels with its performance notes. Every launch is checked against the
-plain version (the backward also by `tile_rel_l2`). With `--probe` each
-variant runs once at three shapes, so that a variant that hangs or faults
-can be run alone under a time limit before the timing. Prints the card's
-name and power limit, then one JSON line per shape.
+plain version, elementwise and by `tile_rel_l2`. With `--probe` each
+variant runs once at the `PROBE` shapes, so that a variant that hangs or faults
+can be run alone under a time limit before the timing. `--head-dim 64`
+takes the shapes of `SHAPES_64` (bench_mfu's d1024 train widths first, as
+the model's [B, S, H, D] views), where dQ runs on the mma route, which
+its wgmma kernel does not take. Prints the card's name and power limit,
+then one JSON line per shape.
 """
 
 from __future__ import annotations
@@ -39,12 +43,21 @@ SHAPES = [
     ("non_causal", 1, 32, 32, 1024, 1024, False, None),
     ("ragged_300", 2, 8, 4, 300, 300, True, None),
 ]
-PROBE = ("main", "window_512", "ragged_300")
+# head dim 64: (name, b, h, kvh, sq, sk, causal, window); all in the model's
+# layout, transposed views of a contiguous [B, S, H, D]
+SHAPES_64 = [
+    ("d1024_bshd", 8, 16, 16, 2048, 2048, True, None),
+    ("gqa_d64", 1, 16, 4, 2048, 2048, True, None),
+    ("window_d64", 1, 16, 16, 2048, 2048, True, 512),
+    ("ragged_d64", 2, 8, 4, 300, 300, True, None),
+]
+PROBE = ("main", "window_512", "ragged_300", "d1024_bshd", "window_d64", "ragged_d64")
 # the largest tile_rel_l2 of a bf16 backward output against the plain
 # backward: sound kernels read below 4e-3 on an H100 (they round P and dS
 # where the plain backward does, and differ in the order of fp32 sums); a
 # dropped k-step, a wrong mask or wrongly staged LSE/delta on one tile reads
-# several times more however small that tile's values are
+# several times more however small that tile's values are. The forward's O
+# is held to the same bound (a missed or repeated V tile of late rows).
 BWD_TILE_REL_L2 = 1e-2
 
 
@@ -108,35 +121,44 @@ def time_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _randn(gen, *shapes):
-    return [torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)
-            for s in shapes]
+def _randn(gen, d, *shapes):
+    """bf16 normals of `shapes` ([B, H, S, D]): contiguous at head dim 128,
+    at 64 the model's transposed views of a contiguous [B, S, H, D]."""
+    if d == 128:
+        return [torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)
+                for s in shapes]
+    return [torch.randn((b, s, h, d_), generator=gen, device="cuda").to(torch.bfloat16)
+            .transpose(1, 2) for b, h, s, d_ in shapes]
 
 
-def _fwd_case(gen, b, h, kvh, sq, sk, causal, window):
+def _fwd_case(gen, d, b, h, kvh, sq, sk, causal, window):
     """-> (check, timed): check() launches once and returns its readings
     against the plain version with "ok"; timed maps a name to a launch."""
-    q, k, v = _randn(gen, (b, h, sq, 128), (b, kvh, sk, 128), (b, kvh, sk, 128))
+    q, k, v = _randn(gen, d, (b, h, sq, d), (b, kvh, sk, d), (b, kvh, sk, d))
     ro, rl = attn.reference_attention_with_lse(q, k, v, causal, window)
 
     def check():
         o, lse = attn.flash_fwd(q, k, v, causal, window)
-        return {"ok": bool(torch.allclose(o.float(), ro.float(), atol=2e-2, rtol=2e-2)
-                           and torch.allclose(lse, rl, atol=1e-3, rtol=1e-3))}
+        tile = tile_rel_l2(o, ro)
+        return {"tile_rel_l2": tile,
+                "ok": bool(torch.allclose(o.float(), ro.float(), atol=2e-2, rtol=2e-2)
+                           and torch.allclose(lse, rl, atol=1e-3, rtol=1e-3))
+                and tile <= BWD_TILE_REL_L2}
 
     return check, {"ms": lambda: attn.flash_fwd(q, k, v, causal, window)}
 
 
-def _bwd_case(gen, b, h, kvh, sq, sk, causal, window):
-    q, k, v, do = _randn(gen, (b, h, sq, 128), (b, kvh, sk, 128), (b, kvh, sk, 128),
-                         (b, h, sq, 128))
+def _bwd_case(gen, d, b, h, kvh, sq, sk, causal, window):
+    q, k, v, do = _randn(gen, d, (b, h, sq, d), (b, kvh, sk, d), (b, kvh, sk, d),
+                         (b, h, sq, d))
     o, lse = attn.flash_fwd(q, k, v, causal, window)
     args = (q, k, v, do, lse, attn.backward_delta(o, do).contiguous(), causal, window)
     ref = attn.flash_backward_reference(q, k, v, o, lse, do, causal, window)
+    dq_route = attn._route("flash_bwd_dq", q, k, v, do)
 
     def check():
         dk, dv = attn.flash_bwd_dkv(*args, route="wgmma")
-        got = (attn.flash_bwd_dq(*args, route="wgmma"), attn.group_sum(dk, kvh),
+        got = (attn.flash_bwd_dq(*args, route=dq_route), attn.group_sum(dk, kvh),
                attn.group_sum(dv, kvh))
         tiles = {n: tile_rel_l2(g, r) for n, g, r in zip(("dq", "dk", "dv"), got, ref)}
         close = all(bool(torch.allclose(g.float(), r.float(), atol=2e-2, rtol=2e-2))
@@ -144,7 +166,7 @@ def _bwd_case(gen, b, h, kvh, sq, sk, causal, window):
         return {"tile_rel_l2": tiles, "allclose": close,
                 "ok": close and max(tiles.values()) <= BWD_TILE_REL_L2}
 
-    return check, {"dq_ms": lambda: attn.flash_bwd_dq(*args, route="wgmma"),
+    return check, {"dq_ms": lambda: attn.flash_bwd_dq(*args, route=dq_route),
                    "dkv_ms": lambda: attn.flash_bwd_dkv(*args, route="wgmma")}
 
 
@@ -170,8 +192,12 @@ def _load(kind: str, variant: str) -> tuple[ctypes.CDLL, str]:
 def main(argv: list[str]) -> int:
     kind, argv = (argv[0], argv[1:]) if argv else (None, [])
     probe = argv[:1] == ["--probe"]
-    variants = argv[1:] if probe else argv
-    if kind not in KINDS or not torch.cuda.is_available() or not variants:
+    argv = argv[1:] if probe else argv
+    d = 128
+    if argv[:1] == ["--head-dim"]:
+        d, argv = int(argv[1]), argv[2:]
+    variants = argv
+    if kind not in KINDS or d not in (64, 128) or not torch.cuda.is_available() or not variants:
         print(__doc__, file=sys.stderr)
         return 1
     _, _, loader, make_case = KINDS[kind]
@@ -188,10 +214,10 @@ def main(argv: list[str]) -> int:
     order = variants if probe else variants + variants[::-1]
     ok_all = True
     try:
-        for name, *shape in SHAPES:
+        for name, *shape in (SHAPES if d == 128 else SHAPES_64):
             if probe and name not in PROBE:
                 continue
-            check, timed = make_case(gen, *shape)
+            check, timed = make_case(gen, d, *shape)
             row = {"shape": name}
             for var in order:
                 setattr(attn, loader, lambda lib=libs[var]: lib)

@@ -17,7 +17,8 @@ Changed, and why:
 - Routes, not blocks. The CUDA kernels pick their own tiles (the port's
   `flash_attention` only validates `block_*`), so a block sweep would time
   one kernel five times. The sweep times each route `attention._routes`
-  admits of those asked for: the forward as `flash_fwd(route=...)`, the
+  admits of those asked for (for the backward, a route all three kernels
+  take): the forward as `flash_fwd(route=...)`, the
   backward as `flash_fwd`, `backward_delta`, `flash_bwd_dq`,
   `flash_bwd_dkv` and `group_sum` on that route, each backward kernel also
   alone. The backward also times "autograd", `flash_attention` forward and
@@ -67,6 +68,7 @@ from ..ops import bounds, variants
 
 H, D, TOKENS = 16, 128, 8192
 ROUTES = ("wgmma", "mma", "simt")
+BWD_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
 FWD_TOL = {"o": 2e-2, "lse": 1e-3}
 BWD_TOL = 2e-2
 # O is bf16 like the backward's outputs and its sound error is the same
@@ -173,7 +175,7 @@ def forward_candidates(q, k, v, routes):
         return (lambda ref: _fwd_check(*attn.flash_fwd(q, k, v, True, None, route=r), ref),
                 {"ms": lambda: attn.flash_fwd(q, k, v, True, None, route=r)})
 
-    cands = {r: route_case(r) for r in routes if r in attn._routes(q, k, v)}
+    cands = {r: route_case(r) for r in routes if r in attn._routes("flash_fwd", q, k, v)}
     cands["sdpa"] = (lambda ref: _fwd_check(_sdpa(q, k, v), None, ref),
                      {"ms": lambda: _sdpa(q, k, v)})
     cands["plain"] = (lambda ref: {"reference": True, "ok": True},
@@ -217,7 +219,10 @@ def backward_candidates(q, k, v, do, routes):
         ro, rl = attn.reference_attention_with_lse(q, k, v, True)
         return attn.flash_backward_reference(q, k, v, ro, rl, do, True)
 
-    cands = {r: route_case(r) for r in routes if r in attn._routes(q, k, v, do)}
+    # a route is a candidate where all three kernels take it
+    cands = {r: route_case(r) for r in routes
+             if r in attn._routes("flash_fwd", q, k, v)
+             and all(r in attn._routes(n, q, k, v, do) for n in BWD_KERNELS)}
     cands["autograd"] = library_case(attn.flash_attention)
     cands["sdpa"] = library_case(_sdpa)
     cands["plain"] = (lambda ref: {"reference": True, "ok": True}, {"ms": plain})
