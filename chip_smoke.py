@@ -21,13 +21,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
    default backend (named) and under its flash backend.
 3. backward: the dQ and dK/dV kernels against the plain backward at the
    same shapes (a non-zero LSE cotangent at some), elementwise and by each
-   output's worst tile, each kernel on the route `_route` picks for it (dQ
-   stays on mma at head dim 64), twice with equal bits, with their times,
-   TF/s, the plain backward's time, the bound of each, and at the main
-   shape the library's backward (timed alone) and the wgmma and mma routes
-   of each kernel timed in turns (mma, wgmma, wgmma, mma); at d1024_bshd
-   the dK/dV kernel's two routes in turns and SDPA's backward under its
-   default and its flash backends.
+   output's worst tile, each kernel on the route `_route` picks for it,
+   twice with equal bits, with their times, TF/s, the plain backward's
+   time, the bound of each, and at the main shape and at d1024_bshd the
+   library's backward (timed alone) and the wgmma and mma routes of each
+   kernel, each held against the plain backward and timed in turns (mma,
+   wgmma, wgmma, mma); at d1024_bshd SDPA's backward under its default and
+   its flash backends.
 4. forward: Llama-2-7B width, all 32 layers, bf16, random weights from a
    seed, B=1, S=2048: one `llama_forward` must launch the kernel once per
    layer, and its logits must agree with the forward through the plain
@@ -188,8 +188,7 @@ The port's tools, and the workload's side of the scheduler's assignment:
   beside the plain version and SDPA (default and flash backends, the
   default's choice named). Every candidate and row must give its
   numbers; every attention launch be on the wgmma route, and each train
-  candidate's on its head dim's (wgmma at 128; at the d1024 widths' 64
-  the forward and dK/dV on wgmma, dQ on mma).
+  candidate's too (at head dim 128 and at the d1024 widths' 64).
 - bench_generate (bench_generate.py): the twin of bench_generate.py at
   width 2048, 16 layers: prefill ms and decode tokens/s at B = 1 and 8,
   window None and 1024 (the ring cache, its decode first held against the
@@ -538,8 +537,8 @@ def ptxas_summary(log: str) -> dict:
 
 # the wgmma kernels of csrc/, as ptxas names them: each must build
 WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_wgmma64_kernel",
-                 "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel",
-                 "flash_bwd_dkv_wgmma64_kernel")
+                 "flash_bwd_dq_wgmma_kernel", "flash_bwd_dq_wgmma64_kernel",
+                 "flash_bwd_dkv_wgmma_kernel", "flash_bwd_dkv_wgmma64_kernel")
 
 
 def phase_build(build):
@@ -576,8 +575,7 @@ def phase_build(build):
 # layout "bhsd" is contiguous [B, H, S, D]; "bshd" the model's transposed
 # views of a contiguous [B, S, H, D]; "offset1" starts every tensor one
 # element into its storage, off 16-byte alignment. route is the one
-# `_route` must pick for these inputs for the forward and dK/dV, and for dQ
-# but at head dim 64 (`shape_routes`).
+# `_route` must pick for these inputs for each kernel (`shape_routes`).
 SHAPES = [
     ("main", 1, 32, 32, 2048, 2048, 128, True, None, torch.bfloat16, "bhsd", "wgmma"),
     ("main_bshd", 1, 32, 32, 2048, 2048, 128, True, None, torch.bfloat16, "bshd",
@@ -611,12 +609,11 @@ TURN_SHAPES = ("main", "d1024_bshd")
 D64_SHAPE = "d1024_bshd"  # the head-dim-64 row of the kernels line
 
 
-def shape_routes(route: str, d: int) -> dict:
-    """Each kernel's route at a SHAPES row whose forward takes `route`:
-    dK/dV the forward's, and dQ too but at head dim 64, where it has no
-    wgmma kernel and stays on mma."""
-    dq = "mma" if route == "wgmma" and d == 64 else route
-    return {"flash_fwd": route, "flash_bwd_dq": dq, "flash_bwd_dkv": route}
+def shape_routes(route: str) -> dict:
+    """Each kernel's route at a SHAPES row whose forward takes `route`: the
+    backward kernels take the forward's, at every head dim (each kernel's
+    wgmma route takes 64 and 128)."""
+    return dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), route)
 
 
 def rand_inputs(gen, dtype, layout, *shapes):
@@ -729,7 +726,7 @@ def phase_backward(attn, variants, tune):
         q, k, v, do = rand_inputs(gen, dtype, layout, (b, h, sq, d), (b, kvh, sk, d),
                                   (b, kvh, sk, d), (b, h, sq, d))
         # dO in the layout of q: each backward kernel takes its own route
-        want = shape_routes(want, d)
+        want = shape_routes(want)
         routes = {n: attn._route(n, q, k, v, do) for n in ("flash_bwd_dq", "flash_bwd_dkv")}
         if any(routes[n] != want[n] for n in routes):
             raise SystemExit(f"{name}: the backward takes the routes {routes}, "
@@ -760,22 +757,16 @@ def phase_backward(attn, variants, tune):
             ok = ok and agree
         turns, route_tile = None, None
         if name in TURN_SHAPES:
-            # each route against the plain backward too, then in turns; at
-            # head dim 64 dQ has the mma route alone
+            # each route against the plain backward too, then in turns
             kernels = {"dq": attn.flash_bwd_dq, "dkv": attn.flash_bwd_dkv}
-            if want["flash_bwd_dq"] != "wgmma":
-                del kernels["dq"]
             route_tile = {}
             for r in ROUTE_TURNS[:2]:
-                got = {}
-                if "dq" in kernels:
-                    got["dq"] = attn.flash_bwd_dq(*args, route=r)
+                got = {"dq": attn.flash_bwd_dq(*args, route=r)}
                 got["dk"], got["dv"] = (attn.group_sum(t, kvh)
                                         for t in attn.flash_bwd_dkv(*args, route=r))
                 for nm, ref_t in zip(("dq", "dk", "dv"), ref):
-                    if nm in got:
-                        route_tile[f"{r}_{nm}"], agree = agrees(got[nm], ref_t, dtype)
-                        ok = ok and agree
+                    route_tile[f"{r}_{nm}"], agree = agrees(got[nm], ref_t, dtype)
+                    ok = ok and agree
             turns = {key: {r: [] for r in ROUTE_TURNS} for key in kernels}
             for r in ROUTE_TURNS:
                 for key, fn in kernels.items():
@@ -2144,16 +2135,13 @@ def bench_train_routes(bench_mfu) -> dict:
     """Each kernel's launches by route over bench_mfu's train candidates:
     per layer a step, the forward twice (remat) and each backward kernel
     once, for the warm step and the timed ones; every kernel on the wgmma
-    route at head dim 128, and at the reference's d1024 widths' 64 the
-    forward and dK/dV on wgmma, dQ on mma (`shape_routes`)."""
-    want = {n: {} for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
-    for cfg, _, _ in bench_mfu.train_candidates(True):
-        routes = shape_routes("wgmma", cfg.head_dim)
-        for name, per_layer in (("flash_fwd", 2), ("flash_bwd_dq", 1), ("flash_bwd_dkv", 1)):
-            route = routes[name]
-            want[name][route] = (want[name].get(route, 0)
-                                 + per_layer * cfg.n_layers * (1 + bench_mfu.CARD_TRAIN_STEPS))
-    return want
+    route, at head dim 128 and at the reference's d1024 widths' 64
+    (`shape_routes`)."""
+    routes = shape_routes("wgmma")
+    layer_steps = (1 + bench_mfu.CARD_TRAIN_STEPS) * sum(
+        cfg.n_layers for cfg, _, _ in bench_mfu.train_candidates(True))
+    return {name: {routes[name]: per_layer * layer_steps}
+            for name, per_layer in (("flash_fwd", 2), ("flash_bwd_dq", 1), ("flash_bwd_dkv", 1))}
 
 
 def planted_rings(gen_mod) -> dict:

@@ -190,38 +190,50 @@ def test_backward_matches_jax(case, dtype, path):
         np.testing.assert_allclose(_np(g_t), g_j, **BWD_TOL[dtype])
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_d1024_heads_in_model_views_match_jax(dtype):
-    """bench_mfu's d1024 widths, 16 heads of 64 (the shape the wgmma
+# the d1024 heads' cases: (kv heads, window); the first keeps the ids of
+# the dtype alone
+D1024_CASES = {"mha": (16, None), "gqa_16_4": (4, None), "window_48": (16, 48)}
+
+
+@pytest.mark.parametrize("case,dtype", [
+    pytest.param(case, dtype, id=dtype if case == "mha" else f"{case}-{dtype}")
+    for case in D1024_CASES for dtype in ("float32", "bfloat16")])
+def test_d1024_heads_in_model_views_match_jax(case, dtype):
+    """bench_mfu's d1024 widths, 16 query heads of 64 (the shape the wgmma
     kernels at head dim 64 take on the card), as the model hands them over:
-    transposed views of a contiguous [B, S, H, D], at S=128. The port's
-    forward (O, LSE) and both backward paths against the JAX package's
-    flash_attention_with_lse on the same values in [B, H, S, D], with the
-    tolerances above."""
+    transposed views of a contiguous [B, S, H, D], at S=128; also with 4 kv
+    heads (GQA 16/4) and with a window of 48, the inputs of those kernels'
+    group-index and window paths. The port's forward (O, LSE) and both
+    backward paths against the JAX package's flash_attention_with_lse on
+    the same values in [B, H, S, D], with the tolerances above."""
     b, s, h, d = 1, 128, 16, 64
+    kvh, window = D1024_CASES[case]
     rng = np.random.default_rng(11)
-    bshd = [rng.standard_normal((b, s, h, d), dtype=np.float32) for _ in range(3)]
+    bshd = [rng.standard_normal((b, s, heads, d), dtype=np.float32)
+            for heads in (h, kvh, kvh)]
     do_np = rng.standard_normal((b, h, s, d), dtype=np.float32)
     g_np = rng.standard_normal((b, h, s), dtype=np.float32)
     jq, jk, jv = (jnp.asarray(a.transpose(0, 2, 1, 3)).astype(dtype) for a in bshd)
     (jo, jl), vjp = jax.vjp(lambda q, k, v: jattn.flash_attention_with_lse(
-        q, k, v, causal=True), jq, jk, jv)
+        q, k, v, causal=True, window=window), jq, jk, jv)
     want = vjp((jnp.asarray(do_np).astype(dtype), jnp.asarray(g_np)))
     tq, tk, tv = (torch.from_numpy(a).to(getattr(torch, dtype)).transpose(1, 2)
                   for a in bshd)
     assert tq.stride() == (s * h * d, d, h * d, 1)
+    assert tk.stride() == (s * kvh * d, d, kvh * d, 1)
     do = torch.from_numpy(do_np).to(getattr(torch, dtype))
     g_lse = torch.from_numpy(g_np)
     for t in (tq, tk, tv):
         t.requires_grad_(True)
-    to, tl = tattn.flash_attention_with_lse(tq, tk, tv, causal=True)
+    to, tl = tattn.flash_attention_with_lse(tq, tk, tv, causal=True, window=window)
     np.testing.assert_allclose(_np(to.detach()), _np(jo), atol=TOL[dtype]["o"],
                                rtol=TOL[dtype]["o"])
     np.testing.assert_allclose(_np(tl.detach()), _np(jl), atol=TOL[dtype]["lse"],
                                rtol=TOL[dtype]["lse"])
     torch.autograd.backward([to, tl], [do, g_lse])
     plain = tattn.flash_backward_reference(tq.detach(), tk.detach(), tv.detach(),
-                                           to.detach(), tl.detach(), do, True, None, g_lse)
+                                           to.detach(), tl.detach(), do, True, window,
+                                           g_lse)
     for got in ((tq.grad, tk.grad, tv.grad), plain):
         for g_t, g_j in zip(got, want):
             assert g_t.dtype == getattr(torch, dtype) and tuple(g_t.shape) == g_j.shape

@@ -64,3 +64,33 @@ def test_a_library_without_its_output_is_built_again(fake_build, monkeypatch):
     assert fake_build.read_text() == "xx"
     assert "Used 168 registers" in "".join(variants.wgmma_ptxas(
         _build.build_info["k"]["log"]))
+
+
+def _ptxas_log(kernels):
+    """nvcc's -Xptxas -v lines for `kernels` as it names them in the
+    anonymous namespace of csrc/*.cu."""
+    lines = []
+    for name in kernels:
+        lines += [f"ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__d1b3ab8b_12_"
+                  f"flash_bwd_cu_5c3f8a45{len(name)}{name}E14CUtensorMap_stS0_S0_S0_PKfS2_"
+                  "P13__nv_bfloat16iiiiiiif' for 'sm_90a'",
+                  "ptxas info    : Used 128 registers, used 1 barriers",
+                  "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"]
+    return "\n".join(lines)
+
+
+def test_every_wgmma_kernel_is_read_from_ptxas():
+    """The smoke's phase 1 and `ops.variants` both find each wgmma kernel
+    of chip_smoke.WGMMA_KERNELS in ptxas's output, the head-dim-64 ones
+    among them; variants leaves out the other kernels."""
+    import chip_smoke
+
+    log = _ptxas_log(chip_smoke.WGMMA_KERNELS + ("flash_bwd_dq_mma_kernel",))
+    summary = chip_smoke.ptxas_summary(log)
+    assert {k for k in summary if "wgmma" in k} == set(chip_smoke.WGMMA_KERNELS)
+    assert "flash_bwd_dq_wgmma64_kernel" in chip_smoke.WGMMA_KERNELS
+    kept = variants.wgmma_ptxas(log)
+    for name in chip_smoke.WGMMA_KERNELS:
+        assert any(name in ln for ln in kept), name
+    assert not any("mma_kernel" in ln and "wgmma" not in ln for ln in kept)
+    assert sum("spill" in ln for ln in kept) == len(chip_smoke.WGMMA_KERNELS)

@@ -269,11 +269,11 @@ def _bwd_inputs(gpu, case, layout, seed=0, d=128):
     return (q, k, v, do, lse, delta, causal, window), (o, g_lse)
 
 
-def _bwd_kernels(args, route, dq_route="same"):
-    """(dQ, dK, dV), dK/dV on `route` and dQ on `dq_route` ("same": route)."""
+def _bwd_kernels(args, route):
+    """(dQ, dK, dV), both kernels on `route` (None: `_route`'s)."""
     kvh = args[1].shape[1]
     dk, dv = attn.flash_bwd_dkv(*args, route=route)
-    dq = attn.flash_bwd_dq(*args, route=route if dq_route == "same" else dq_route)
+    dq = attn.flash_bwd_dq(*args, route=route)
     return dq, attn.group_sum(dk, kvh), attn.group_sum(dv, kvh)
 
 
@@ -315,8 +315,8 @@ def test_wgmma_backward_routes_are_bit_repeatable(gpu, case):
 
 
 # the head-dim-64 wgmma kernels (flash_fwd_wgmma64_kernel,
-# flash_bwd_dkv_wgmma64_kernel): bench_mfu's d1024 widths (16 heads of 64)
-# and every path of their loops; dQ stays on mma at 64
+# flash_bwd_dq_wgmma64_kernel, flash_bwd_dkv_wgmma64_kernel): bench_mfu's
+# d1024 widths (16 heads of 64) and every path of their loops
 WGMMA64_SHAPES = {
     "d1024_s2048": ((1, 16, 16, 2048, 2048), True, None),
     "ragged_300": ((2, 4, 4, 300, 300), True, None),
@@ -357,16 +357,17 @@ def test_wgmma64_route_matches_the_mma_route(gpu):
 @pytest.mark.parametrize("case", list(WGMMA64_SHAPES))
 @pytest.mark.parametrize("layout", ["bhsd", "bshd"])
 def test_wgmma64_backward_matches_the_plain_backward(gpu, case, layout):
-    """dK/dV on wgmma and dQ on mma, as `_route` picks them at head dim 64,
+    """dQ and dK/dV on wgmma, as `_route` picks them at head dim 64,
     elementwise and by each output's worst 64-row tile."""
     args, (o, g_lse) = _bwd_inputs(gpu, case, layout, d=64)
     q, k, v, do, lse, _, causal, window = args
     assert [attn._route(n, q, k, v, do) for n in ("flash_bwd_dq", "flash_bwd_dkv")] == [
-        "mma", "wgmma"]
-    before = attn.flash_bwd_dkv.launches_by_route["wgmma"]
+        "wgmma", "wgmma"]
+    before = [fn.launches_by_route["wgmma"] for fn in (attn.flash_bwd_dq, attn.flash_bwd_dkv)]
     got = _bwd_kernels(args, None)
     torch.cuda.synchronize()
-    assert attn.flash_bwd_dkv.launches_by_route["wgmma"] == before + 1
+    assert [fn.launches_by_route["wgmma"] for fn in (attn.flash_bwd_dq, attn.flash_bwd_dkv)] == [
+        n + 1 for n in before]
     want = attn.flash_backward_reference(q, k, v, o, lse, do, causal, window, g_lse)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape
@@ -376,7 +377,7 @@ def test_wgmma64_backward_matches_the_plain_backward(gpu, case, layout):
 
 def test_wgmma64_backward_matches_the_mma_route(gpu):
     args, _ = _bwd_inputs(gpu, "gqa_16_4", "bshd", seed=2, d=64)
-    for g, w in zip(_bwd_kernels(args, "wgmma", "mma")[1:], _bwd_kernels(args, "mma")[1:]):
+    for g, w in zip(_bwd_kernels(args, "wgmma"), _bwd_kernels(args, "mma")):
         torch.testing.assert_close(g.float(), w.float(), atol=2e-2, rtol=2e-2)
         assert tile_rel_l2(g, w) <= BWD_TILE_REL_L2
 
@@ -384,19 +385,20 @@ def test_wgmma64_backward_matches_the_mma_route(gpu):
 @pytest.mark.parametrize("case", ["ragged_300", "window_512", "d1024_s2048"])
 def test_wgmma64_backward_is_bit_repeatable(gpu, case):
     args, _ = _bwd_inputs(gpu, case, "bshd", d=64)
-    runs = [_bwd_kernels(args, "wgmma", "mma") for _ in range(2)]
+    runs = [_bwd_kernels(args, "wgmma") for _ in range(2)]
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
-def test_wgmma64_refuses_dq(gpu):
-    """dQ has no wgmma kernel at head dim 64: named, the route raises and
-    launches nothing."""
-    args, _ = _bwd_inputs(gpu, "ragged_300", "bhsd", d=64)
-    before = attn.flash_bwd_dq.launches
-    with pytest.raises(ValueError, match="flash_bwd_dq route 'wgmma' cannot take"):
-        attn.flash_bwd_dq(*args, route="wgmma")
-    assert attn.flash_bwd_dq.launches == before
+def test_wgmma_refuses_dq_at_head_dim_32(gpu):
+    """No wgmma kernel takes head dim 32: named, the route of dQ (and of
+    dK/dV) raises and launches nothing."""
+    args, _ = _bwd_inputs(gpu, "ragged_300", "bhsd", d=32)
+    for fn in (attn.flash_bwd_dq, attn.flash_bwd_dkv):
+        before = (fn.launches, dict(fn.launches_by_route))
+        with pytest.raises(ValueError, match=f"{fn.__name__} route 'wgmma' cannot take"):
+            fn(*args, route="wgmma")
+        assert (fn.launches, fn.launches_by_route) == before
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.float16, 64), (torch.bfloat16, 96)])

@@ -50,11 +50,11 @@ def test_route_follows_the_inputs(case):
 
 @pytest.mark.parametrize("kernel,d,wgmma", [
     ("flash_fwd", 32, False), ("flash_fwd", 64, True), ("flash_fwd", 128, True),
-    ("flash_bwd_dq", 32, False), ("flash_bwd_dq", 64, False), ("flash_bwd_dq", 128, True),
+    ("flash_bwd_dq", 32, False), ("flash_bwd_dq", 64, True), ("flash_bwd_dq", 128, True),
     ("flash_bwd_dkv", 32, False), ("flash_bwd_dkv", 64, True), ("flash_bwd_dkv", 128, True)])
 def test_wgmma_admits_each_kernels_head_dims(kernel, d, wgmma):
-    """wgmma takes head dim 64 and 128 for the forward and dK/dV, 128
-    alone for dQ; every aligned bf16 head dim keeps mma."""
+    """wgmma takes head dim 64 and 128 for each kernel; every aligned
+    bf16 head dim keeps mma."""
     tensors = [_model_view(2, 64, 4, d)] * (3 if kernel == "flash_fwd" else 4)
     routes = attn._routes(kernel, *tensors)
     assert routes == (("simt", "mma", "wgmma") if wgmma else ("simt", "mma"))
@@ -87,8 +87,7 @@ BWD_CASES = {
     "model_views_contiguous_do": (lambda: [_model_view(2, 64, 4, 128)] * 3
                                   + [_bhsd(2, 4, 64, 128)], "wgmma"),
     "model_views_transposed_do": (lambda: [_model_view(2, 64, 4, 128)] * 4, "wgmma"),
-    "bf16_d64": (lambda: [_bhsd(1, 4, 64, 64)] * 4,
-                 {"flash_bwd_dq": "mma", "flash_bwd_dkv": "wgmma"}),
+    "bf16_d64": (lambda: [_bhsd(1, 4, 64, 64)] * 4, "wgmma"),
     "bf16_d32": (lambda: [_bhsd(1, 4, 64, 32)] * 4, "mma"),
     "do_offset_by_one": (lambda: [_bhsd(1, 4, 64, 128)] * 3
                          + [_bhsd(1, 4, 64, 128, offset=1)], "simt"),
@@ -119,8 +118,7 @@ def test_backward_route_follows_the_inputs(case):
         assert "simt" in attn._routes(kernel, q, k, v, do)
 
 
-# (case, route) a backward kernel must refuse; dQ also refuses wgmma at
-# head dim 64, which dK/dV takes
+# (case, route) a backward kernel must refuse
 BWD_REFUSALS = [("fp32_d128", "wgmma"), ("fp32_d128", "mma"), ("bf16_d32", "wgmma"),
                 ("do_offset_by_one", "mma"), ("do_odd_seq_stride", "wgmma"),
                 ("empty_kv", "wgmma"), ("bf16_d128", "tma")]
@@ -128,9 +126,8 @@ BWD_REFUSALS = [("fp32_d128", "wgmma"), ("fp32_d128", "mma"), ("bf16_d32", "wgmm
 
 @pytest.mark.parametrize("fn,case,route", [
     pytest.param(fn, case, route, id=f"{case}-{route}-{fn.__name__}")
-    for case, route in BWD_REFUSALS[:3] + [("bf16_d64", "wgmma")] + BWD_REFUSALS[3:]
-    for fn in (attn.flash_bwd_dq, attn.flash_bwd_dkv)
-    if (case, fn) != ("bf16_d64", attn.flash_bwd_dkv)])
+    for case, route in BWD_REFUSALS
+    for fn in (attn.flash_bwd_dq, attn.flash_bwd_dkv)])
 def test_a_backward_route_that_cannot_take_the_inputs_raises(fn, case, route):
     args = _bwd_args(*BWD_CASES[case][0]())
     before = (fn.launches, dict(fn.launches_by_route))
@@ -185,7 +182,7 @@ def test_the_models_backward_lands_on_wgmma(monkeypatch):
 
 def test_the_models_backward_at_head_dim_64(monkeypatch):
     """As above at head_dim 64 (bench_mfu's d1024 widths): the forward and
-    the dK/dV launcher take wgmma, the dQ launcher mma."""
+    both backward launchers take wgmma."""
     cfg = dataclasses.replace(LlamaConfig.tiny(), dim=128, n_heads=2, n_kv_heads=1,
                               n_layers=1, dtype="bfloat16")
     assert cfg.head_dim == 64
@@ -211,4 +208,37 @@ def test_the_models_backward_at_head_dim_64(monkeypatch):
     tokens = torch.randint(0, cfg.vocab_size, (1, 64), generator=torch.Generator().manual_seed(0))
     llama_loss(params, tokens, cfg, remat=True).backward()
     assert seen == [("flash_fwd", "wgmma"), ("flash_fwd", "wgmma"),
-                    ("flash_bwd_dq", "mma"), ("flash_bwd_dkv", "wgmma")]
+                    ("flash_bwd_dq", "wgmma"), ("flash_bwd_dkv", "wgmma")]
+
+
+@pytest.mark.parametrize("d,route", [(64, "wgmma"), (128, "wgmma"), (32, "mma")])
+def test_the_smokes_routes_are_the_routes_picks(d, route):
+    """chip_smoke's one expectation of the routes at a SHAPES row
+    (`shape_routes`) against `_route` on the model's views at head dim `d`:
+    at 64 and 128 every kernel on wgmma, dQ's among them; at 32, which no
+    wgmma kernel takes, every kernel on mma."""
+    import chip_smoke
+
+    want = chip_smoke.shape_routes(route)
+    assert want == dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), route)
+    q, k, v, do = [_model_view(2, 64, 4, d)] * 4
+    assert attn._route("flash_fwd", q, k, v) == want["flash_fwd"]
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert attn._route(name, q, k, v, do) == want[name]
+
+
+def test_bench_mfu_train_expects_no_mma_launch():
+    """chip_smoke's expected launches over bench_mfu's train candidates
+    (the d1024 widths at head dim 64, d2048 and 7B at 128; a warm step and
+    the timed ones, per layer the forward twice under remat and each
+    backward kernel once): every one on the wgmma route, the 264 dQ
+    launches at head dim 64 among them."""
+    import chip_smoke
+    from yoda_scheduler_tpu_torch import bench_mfu
+
+    assert chip_smoke.bench_train_routes(bench_mfu) == {
+        "flash_fwd": {"wgmma": 1584}, "flash_bwd_dq": {"wgmma": 792},
+        "flash_bwd_dkv": {"wgmma": 792}}
+    d64 = sum(cfg.n_layers for cfg, _, _ in bench_mfu.train_candidates(True)
+              if cfg.head_dim == 64)
+    assert d64 * (1 + bench_mfu.CARD_TRAIN_STEPS) == 264

@@ -11,11 +11,10 @@ no shape falls back to a plain version on the card; they take bf16 or fp32
 and head_dim 32, 64 or 128, and raise otherwise.
 Each kernel has three routes, which `_route` picks per kernel from the
 inputs alone: "wgmma" (TMA and wgmma, bf16 with 16-byte aligned rows: the
-model's path; head_dim 64 or 128 for the forward and dK/dV, 128 for dQ),
-"mma" (mma.sync, other aligned bf16, among them dQ at head_dim 64) and
-"simt" (fp32, unaligned bf16). A named route that cannot take the inputs
-raises; nothing falls back to another route or to the plain versions. The
-CPU tests hold the routing; only the card runs the kernels.
+model's path; head_dim 64 or 128), "mma" (mma.sync, other aligned bf16:
+head_dim 32) and "simt" (fp32, unaligned bf16). A named route that cannot
+take the inputs raises; nothing falls back to another route or to the plain
+versions. The CPU tests hold the routing; only the card runs the kernels.
 """
 
 from __future__ import annotations
@@ -182,8 +181,8 @@ def _check_qkv(name: str, q, k, v, causal: bool):
 
 
 # the head dims each kernel's wgmma route takes (csrc/flash_fwd.cu,
-# csrc/flash_bwd.cu); dQ at 64 stays on mma
-_WGMMA_HEAD_DIMS = {"flash_fwd": (64, 128), "flash_bwd_dq": (128,),
+# csrc/flash_bwd.cu)
+_WGMMA_HEAD_DIMS = {"flash_fwd": (64, 128), "flash_bwd_dq": (64, 128),
                     "flash_bwd_dkv": (64, 128)}
 
 

@@ -28,11 +28,11 @@
 // (ops/attention.py:_route picks it from dtype, head_dim and alignment):
 // - *_wgmma kernels (route 2; bf16, D = 128, 16-byte aligned rows: the main
 //   path): TMA-fed and warp-specialised on wgmma, as flash_fwd.cu's wgmma
-//   kernel. Below; flash_bwd_dkv_wgmma64_kernel is route 2 of dK/dV at D = 64
-//   (bench_mfu's d1024 widths), with its own note. dQ has no wgmma kernel at
-//   D = 64 and refuses route 2 there.
-// - *_mma kernels (route 1; aligned bf16, the route of D = 32 and of dQ at
-//   64; they take D = 64 and 128 too, to be held against the wgmma kernels): 4 warps each
+//   kernel. Below; flash_bwd_dkv_wgmma64_kernel and
+//   flash_bwd_dq_wgmma64_kernel are route 2 at D = 64 (bench_mfu's d1024
+//   widths), each with its own note. Route 2 refuses every other D.
+// - *_mma kernels (route 1; aligned bf16, the route of D = 32; they take
+//   D = 64 and 128 too, to be held against the wgmma kernels): 4 warps each
 //   own 16 rows of a 64-row tile and run all products on the tensor cores
 //   with mma.sync m16n8k16, 16 streamed rows at a time, skipping 16-row
 //   steps masked for all of their rows; the streamed tiles are copied
@@ -1280,6 +1280,205 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dq_wgmma_kernel(
   }
 }
 
+// ---- the dQ wgmma kernel at head dim 64
+// The dK/dV kernel's plan with the sides swapped: a block is one (b, q head)
+// and 192 q rows in three consumer warpgroups of 64 rows at 160 registers;
+// their Q and dO (one 128-byte swizzle box a row) arrive once, and K and V
+// tiles of 64 keys (16 KB a stage) stream through a ring of four. Per tile
+// a warpgroup issues S = Q K^T and dP = dO V^T (SS m64n64k16, 4 k-steps
+// each) as two groups, forms P from S while dP is computed, then dS, and
+// adds dS K into its m64n64 sum (RS m64n64k16, K the MN-major B) before
+// the next tile: the sum, S and dP are 96 floats a thread, and leaving the
+// dS K product in flight over the next tile's barrier wait made ptxas
+// serialise the wgmma (PERF.md). The producer streams the union of the three
+// warpgroups' key ranges (their diagonals, and window starts, differ by
+// one tile); each warpgroup releases the tiles outside its own range in
+// loops of their own. The grid puts every head's last q blocks, which
+// reach the most keys, first. At bench_mfu's d1024 shape (B=8, H=16,
+// S=2048, causal) the work is ~103 GFLOP against ~170 MB, bound by
+// operations (~104 us at 989 TF/s).
+constexpr int Q64_STAGES = 4;
+constexpr int Q64_CONS = 3;                      // consumer warpgroups
+constexpr int Q64_ROWS = 64 * Q64_CONS;          // q rows per block
+constexpr int Q64_Q = 2 * Q64_CONS * K64_TILE;   // Q and dO
+constexpr int Q64_STAGE = 2 * K64_TILE;          // K and V
+constexpr int Q64_BARS = Q64_Q + Q64_STAGES * Q64_STAGE;
+constexpr int Q64_SMEM = Q64_BARS + 8 * (1 + 2 * Q64_STAGES) + 1024;  // + alignment slack
+
+__global__ void __launch_bounds__((Q64_CONS + 1) * WG_THREADS, 1) flash_bwd_dq_wgmma64_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    __nv_bfloat16* __restrict__ dq, int H, int KvH, int Sq, int Sk, int causal,
+    int window, float scale) {
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  unsigned char* sQ = smem;
+  unsigned char* sDO = smem + Q64_CONS * K64_TILE;
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(smem + Q64_BARS);
+  uint64_t* full = full_q + 1;
+  uint64_t* empty = full + Q64_STAGES;
+
+  const int qt = gridDim.y - 1 - blockIdx.y;  // longest causal tiles first
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int kvh = h / (H / KvH);
+  const int q0 = qt * Q64_ROWS;
+  int first, last;
+  key_tiles(q0, Q64_ROWS, 64, Sq, Sk, causal, window, first, last);
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < Q64_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], Q64_CONS * WG_THREADS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < WG_THREADS) {
+    // ---- producer: one thread issues every load
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(full_q, Q64_Q);
+      tma_load_4d(sQ, &tm_q, full_q, 0, q0, h, b);
+      tma_load_4d(sDO, &tm_do, full_q, 0, q0, h, b);
+      for (int t = first, i = 0; t < last; ++t, ++i) {
+        const int s = i % Q64_STAGES;
+        mbar_wait(&empty[s], ((i / Q64_STAGES) & 1) ^ 1);
+        unsigned char* sK = smem + Q64_Q + Q64_STAGE * s;
+        mbar_arrive_expect_tx(&full[s], Q64_STAGE);
+        tma_load_4d(sK, &tm_k, &full[s], 0, t * 64, kvh, b);
+        tma_load_4d(sK + K64_TILE, &tm_v, &full[s], 0, t * 64, kvh, b);
+      }
+    }
+  } else {
+    // ---- consumers: 64 q rows each
+    setmaxnreg_inc<160>();
+    const int cw = threadIdx.x / WG_THREADS - 1;
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int kv_offset = Sk - Sq;
+    const int w_row0 = q0 + 64 * cw;
+    const bool w_live = w_row0 < Sq;
+    const int w_first = kv_offset + w_row0;
+    const int w_last = kv_offset + min(w_row0 + 63, Sq - 1);
+    const int row0 = w_row0 + 16 * warp + g;  // this thread's rows: row0, row0 + 8
+    const float c = scale * LOG2E;            // raw score -> log2 units
+    float l2[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      l2[r] = row < Sq ? lse[(int64_t)bh * Sq + row] * LOG2E : 0.f;
+      dl[r] = row < Sq ? delta[(int64_t)bh * Sq + row] : 0.f;
+    }
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    const uint64_t da_q = desc_kmajor(sQ + K64_TILE * cw);
+    const uint64_t da_o = desc_kmajor(sDO + K64_TILE * cw);
+
+    // the key tiles this warpgroup sees are [lo, hi): the masked ones are a
+    // prefix (before the window) and a suffix (past the diagonal), which it
+    // only releases
+    auto sees = [&](int t) {
+      const int k0 = t * 64;
+      return w_live && !(causal && (k0 > w_last ||
+                                    (window > 0 && k0 + 63 <= w_first - window)));
+    };
+    int lo = first;
+    while (lo < last && !sees(lo)) ++lo;
+    int hi = lo;
+    while (hi < last && sees(hi)) ++hi;
+    auto release = [&](int t) {
+      const int i = t - first;
+      mbar_wait(&full[i % Q64_STAGES], (i / Q64_STAGES) & 1);
+      mbar_arrive(&empty[i % Q64_STAGES]);
+    };
+    for (int t = first; t < lo; ++t) release(t);
+
+    mbar_wait(full_q, 0);
+    for (int t = lo; t < hi; ++t) {
+      const int i = t - first, s = i % Q64_STAGES;
+      const int k0 = t * 64;
+      mbar_wait(&full[s], (i / Q64_STAGES) & 1);
+      unsigned char* sK = smem + Q64_Q + Q64_STAGE * s;
+      unsigned char* sV = sK + K64_TILE;
+
+      // S = Q K^T and dP = dO V^T, 4 k-steps of 16 head dims each, in two
+      // groups: P is formed while dP is computed
+      float sc[32], dp[32];
+      const uint64_t db_k = desc_kmajor(sK), db_v = desc_kmajor(sV);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_m64n64k16_ss<0, 0>(sc, da_q + 2 * kk, db_k + 2 * kk, kk > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_m64n64k16_ss<0, 0>(dp, da_o + 2 * kk, db_v + 2 * kk, kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(sc);
+
+      // P, then dS / scale; element 4 j + e is row row0 + 8 (e / 2), key
+      // k0 + 8 j + 2 t4 + (e % 2)
+      const bool need_mask =
+          k0 + 64 > Sk ||
+          (causal && (k0 + 63 > w_first || (window > 0 && k0 <= w_last - window)));
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[4 * j + e];
+          if (need_mask && !visible(k0 + 8 * j + 2 * t4 + (e & 1),
+                                    kv_offset + row0 + 8 * (e >> 1), Sk, causal, window))
+            x = NEG;
+          sc[4 * j + e] = exp2_ftz(fmaf(x, c, -l2[e >> 1]));
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(dp);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[4 * j + e] = sc[4 * j + e] * (dp[4 * j + e] - dl[e >> 1]);
+      uint32_t sa[4][4];
+      to_a_operand(dp, sa);
+
+      // dQ += dS K: K [keys][64] as an MN-major B operand, a k-step of 16
+      // keys 2048 bytes
+      const uint64_t db_k_mn = desc_mnmajor(sK, K64_TILE);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int k4 = 0; k4 < 4; ++k4) wgmma_m64n64k16_rs<1>(acc, sa[k4], db_k_mn + k4 * 128, 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(&empty[s]);
+    }
+    for (int t = hi; t < last; ++t) release(t);
+
+    // dQ scale in bf16; acc[4 j + e] is row row0 + 8 (e / 2), head dim 8 j
+    // + 2 t4 + (e % 2)
+    if (w_live) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 8 * r;
+        if (row >= Sq) continue;
+        __nv_bfloat16* out = dq + ((int64_t)bh * Sq + row) * 64 + 2 * t4;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<uint32_t*>(out + 8 * j) =
+              pack_bf16(acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale);
+      }
+    }
+  }
+}
+
 // ---- host side
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta;
@@ -1400,15 +1599,26 @@ cudaError_t launch_dkv_wgmma(const Args& a, int D) {
   return cudaGetLastError();
 }
 
-cudaError_t launch_dq_wgmma(const Args& a) {
-  static const cudaError_t attr = set_smem(flash_bwd_dq_wgmma_kernel, DQ_SMEM);
+// D = 128: flash_bwd_dq_wgmma_kernel; D = 64: flash_bwd_dq_wgmma64_kernel
+cudaError_t launch_dq_wgmma(const Args& a, int D) {
+  static const cudaError_t attr128 = set_smem(flash_bwd_dq_wgmma_kernel, DQ_SMEM);
+  static const cudaError_t attr64 = set_smem(flash_bwd_dq_wgmma64_kernel, Q64_SMEM);
+  const cudaError_t attr = D == 64 ? attr64 : attr128;
   if (attr != cudaSuccess) return attr;
   CUtensorMap m[4];
-  if (!bwd_maps(a, 128, 128, 64, m)) return cudaErrorInvalidValue;
-  const dim3 grid(a.B * a.H, (a.Sq + 127) / 128);
-  flash_bwd_dq_wgmma_kernel<<<grid, 3 * WG_THREADS, DQ_SMEM, a.stream>>>(
-      m[0], m[1], m[2], m[3], (const float*)a.lse, (const float*)a.delta,
-      (__nv_bfloat16*)a.dq, a.H, a.KvH, a.Sq, a.Sk, a.causal, a.window, a.scale);
+  if (D == 64) {
+    if (!bwd_maps(a, D, Q64_ROWS, 64, m)) return cudaErrorInvalidValue;
+    const dim3 grid(a.B * a.H, (a.Sq + Q64_ROWS - 1) / Q64_ROWS);
+    flash_bwd_dq_wgmma64_kernel<<<grid, (Q64_CONS + 1) * WG_THREADS, Q64_SMEM, a.stream>>>(
+        m[0], m[1], m[2], m[3], (const float*)a.lse, (const float*)a.delta,
+        (__nv_bfloat16*)a.dq, a.H, a.KvH, a.Sq, a.Sk, a.causal, a.window, a.scale);
+  } else {
+    if (!bwd_maps(a, D, 128, 64, m)) return cudaErrorInvalidValue;
+    const dim3 grid(a.B * a.H, (a.Sq + 127) / 128);
+    flash_bwd_dq_wgmma_kernel<<<grid, 3 * WG_THREADS, DQ_SMEM, a.stream>>>(
+        m[0], m[1], m[2], m[3], (const float*)a.lse, (const float*)a.delta,
+        (__nv_bfloat16*)a.dq, a.H, a.KvH, a.Sq, a.Sk, a.causal, a.window, a.scale);
+  }
   return cudaGetLastError();
 }
 
@@ -1424,9 +1634,8 @@ cudaError_t launch_simt(int which, int D, const Args& a) {
 }
 
 // route 0 = simt (any input), 1 = mma (bf16, 16-byte aligned bases, strides
-// that are multiples of 8), 2 = wgmma (as mma, and Sk > 0, with D = 128 for
-// dQ and D = 64 or 128 for dK/dV); a route that cannot take the inputs
-// launches nothing
+// that are multiples of 8), 2 = wgmma (as mma, and Sk > 0, with D = 64 or
+// 128); a route that cannot take the inputs launches nothing
 cudaError_t dispatch(int which, int dtype, int route, int D, const Args& a) {
   const void* ptrs[4] = {a.q, a.k, a.v, a.dout};
   const bool tensor_core = dtype == 1 && rows_aligned(ptrs, 4, &a.st.q_sb, 12);
@@ -1444,9 +1653,8 @@ cudaError_t dispatch(int which, int dtype, int route, int D, const Args& a) {
         default: return cudaErrorInvalidValue;
       }
     case 2:
-      if (!tensor_core || a.Sk <= 0) return cudaErrorInvalidValue;
-      if (which) return D == 64 || D == 128 ? launch_dkv_wgmma(a, D) : cudaErrorInvalidValue;
-      return D == 128 ? launch_dq_wgmma(a) : cudaErrorInvalidValue;
+      if (!tensor_core || a.Sk <= 0 || (D != 64 && D != 128)) return cudaErrorInvalidValue;
+      return which ? launch_dkv_wgmma(a, D) : launch_dq_wgmma(a, D);
     default:
       return cudaErrorInvalidValue;
   }

@@ -15,8 +15,9 @@ plain version, elementwise and by `tile_rel_l2`. With `--probe` each
 variant runs once at the `PROBE` shapes, so that a variant that hangs or faults
 can be run alone under a time limit before the timing. `--head-dim 64`
 takes the shapes of `SHAPES_64` (bench_mfu's d1024 train widths first, as
-the model's [B, S, H, D] views), where dQ runs on the mma route, which
-its wgmma kernel does not take. Prints the card's name and power limit,
+the model's [B, S, H, D] views), where both backward kernels run their
+head-dim-64 wgmma kernels (`flash_bwd_dq_wgmma64_kernel`,
+`flash_bwd_dkv_wgmma64_kernel`). Prints the card's name and power limit,
 then one JSON line per shape.
 """
 
@@ -25,6 +26,7 @@ from __future__ import annotations
 import ctypes
 import json
 import math
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -98,9 +100,10 @@ def wgmma_ptxas(log: str) -> list[str]:
     keep, kernel = [], False
     for ln in log.splitlines():
         if "Compiling entry" in ln:
-            kernel = "wgmma_kernel" in ln
+            name = re.search(r"\d(flash_\w+?_kernel)", ln)
+            kernel = bool(name) and "wgmma" in name.group(1)
             if kernel:
-                keep.append(ln.split("'")[1][-60:])
+                keep.append(name.group(1))
         elif kernel and ("spill" in ln or "Used" in ln):
             keep.append(ln.strip())
         elif "Performance" in ln or "C75" in ln:
@@ -154,11 +157,10 @@ def _bwd_case(gen, d, b, h, kvh, sq, sk, causal, window):
     o, lse = attn.flash_fwd(q, k, v, causal, window)
     args = (q, k, v, do, lse, attn.backward_delta(o, do).contiguous(), causal, window)
     ref = attn.flash_backward_reference(q, k, v, o, lse, do, causal, window)
-    dq_route = attn._route("flash_bwd_dq", q, k, v, do)
 
     def check():
         dk, dv = attn.flash_bwd_dkv(*args, route="wgmma")
-        got = (attn.flash_bwd_dq(*args, route=dq_route), attn.group_sum(dk, kvh),
+        got = (attn.flash_bwd_dq(*args, route="wgmma"), attn.group_sum(dk, kvh),
                attn.group_sum(dv, kvh))
         tiles = {n: tile_rel_l2(g, r) for n, g, r in zip(("dq", "dk", "dv"), got, ref)}
         close = all(bool(torch.allclose(g.float(), r.float(), atol=2e-2, rtol=2e-2))
@@ -166,7 +168,7 @@ def _bwd_case(gen, d, b, h, kvh, sq, sk, causal, window):
         return {"tile_rel_l2": tiles, "allclose": close,
                 "ok": close and max(tiles.values()) <= BWD_TILE_REL_L2}
 
-    return check, {"dq_ms": lambda: attn.flash_bwd_dq(*args, route=dq_route),
+    return check, {"dq_ms": lambda: attn.flash_bwd_dq(*args, route="wgmma"),
                    "dkv_ms": lambda: attn.flash_bwd_dkv(*args, route="wgmma")}
 
 
