@@ -163,6 +163,20 @@ The scheduling system, on the host, fed by the card's telemetry:
   run of the yoda-tpu profile, and at least one pod of each such burst on
   the live card; the headline's latency, ratios, bound and bin-pack, the
   scale run's and the tier's wall time, binds/s and peak RSS.
+- webhook (k8s/webhook.py, deploy/gpu-bind-authority-webhook.yaml,
+  deploy/crd-tpunodemetrics.yaml, k8s/crdcheck.py): the live node's CR
+  from NVML against the port's TpuNodeMetrics CRD (every value of its
+  declared type, the model in the enum, nothing undeclared), published
+  through the port's publisher into the port's fake API server, its status
+  stored as written; the bind-authority webhook started as a subprocess
+  from its manifest's command and args (plain HTTP: the two TLS flags
+  dropped, a free port, the fake's address), registered with the fake in
+  its vanilla posture; a bind of the live card allowed, a second bind of
+  the same card refused with 409 ("denied the request"), a pod asking one
+  MB more than the card has free refused on memory; 200 reviews over one
+  kept-alive connection, half allowed and half denied, timed on the host
+  clock (p50, p99); the webhook's own counts of reviews, allows and
+  denials by reason.
 
 The port's tools, and the workload's side of the scheduler's assignment:
 
@@ -227,6 +241,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.request
 from pathlib import Path
 
 import torch
@@ -395,6 +410,14 @@ ENGINE_BURST_RUNS, ENGINE_SCALE_UNITS = 5, 125
 # one, and its 12,504-node tier every pod
 ENGINE_BURST_BOUND, ENGINE_BURST_GANGS, ENGINE_BASELINE_BOUND = 200, 5, 195
 ENGINE_SCALE_BOUND, ENGINE_5K_BOUND = 4_041, 20_233
+
+# webhook: the port's bind-authority manifest and CRD (the smoke runs the
+# manifest's command, without its two TLS flags), the webhook's time to
+# answer /healthz once its feed has listed, and the reviews timed on the
+# host clock, half allowed (no card claimed) and half denied (the live
+# card, already claimed)
+WEBHOOK_MANIFEST = "yoda_scheduler_tpu_torch/deploy/gpu-bind-authority-webhook.yaml"
+WEBHOOK_START_LIMIT_S, WEBHOOK_REVIEWS = 60.0, 200
 
 # tune_attention: the route sweep (tools/tune_attention.py) at the
 # reference's sequence lengths, each candidate A, B, ..., B, A this many
@@ -2484,6 +2507,159 @@ def phase_bench_engine(smi: str):
         raise SystemExit(f"bench_engine: failed {failed}")
 
 
+def _prometheus(text: str, prefix: str = "yoda_tpu_") -> dict:
+    """{name or name{labels}: value} of a Prometheus text exposition, each
+    name without the engine's `prefix`."""
+    out = {}
+    for ln in text.splitlines():
+        if ln and not ln.startswith("#"):
+            key, _, value = ln.rpartition(" ")
+            out[key.removeprefix(prefix)] = float(value)
+    return out
+
+
+def phase_webhook(smi: str):
+    """The bind-authority webhook on this card's host: the live node's CR
+    (NVML through the port's sniffer) checked against the port's CRD and
+    published through the port's publisher into the port's fake API
+    server; the webhook started from its manifest's command and args as a
+    subprocess over plain HTTP and registered with the fake; then a bind
+    of the live card allowed, a second bind of the same card refused with
+    409, a pod asking more memory than the card has free refused, and
+    WEBHOOK_REVIEWS reviews timed on the host clock."""
+    import http.client
+
+    import yaml
+
+    from yoda_scheduler_tpu_torch.k8s import crdcheck
+    from yoda_scheduler_tpu_torch.k8s.client import ApiError, KubeClient
+    from yoda_scheduler_tpu_torch.k8s.fake_apiserver import FakeApiServer
+    from yoda_scheduler_tpu_torch.telemetry import sniffer
+    from yoda_scheduler_tpu_torch.telemetry.publisher import CrPublisher
+    from yoda_scheduler_tpu_torch.utils import Pod
+
+    root = Path(__file__).resolve().parent
+    live = sniffer.local_node_metrics(LIVE_NODE)
+    cr = json.loads(json.dumps(live.to_cr()))  # the wire form
+    crd = crdcheck.load_crd()
+    enum = crdcheck.schema_of(crd)["properties"]["status"]["properties"][
+        "tpu_generation"]["enum"]
+    faults = crdcheck.check_cr(cr, crd)
+    card0 = cr["status"]["chips"][0]
+    hungry_mb = card0["hbm_free_mb"] + 1
+
+    (dep,) = [d for d in yaml.safe_load_all((root / WEBHOOK_MANIFEST).read_text())
+              if d and d["kind"] == "Deployment"]
+    (c,) = dep["spec"]["template"]["spec"]["containers"]
+    port = _free_port()
+    # the manifest's command, with a free port, no TLS (this machine may
+    # lack openssl; the CPU tests run it over HTTPS) and the fake's address
+    args = [f"--port={port}" if a.startswith("--port=") else a for a in c["args"]
+            if not a.startswith(("--tls-cert=", "--tls-key="))]
+    base = f"http://127.0.0.1:{port}"
+    binds, timed, proc = {}, [], None
+    with FakeApiServer() as api, tempfile.TemporaryFile("w+") as out:
+        api.state.add_node(LIVE_NODE)
+        client = KubeClient(api.url, max_retries=0)
+        CrPublisher(client).publish(live)
+        stored = api.state.objects["metrics"].get(LIVE_NODE, {})
+        for name, labels in (("first", {}), ("second", {}),
+                             ("hungry", {"scv/memory": str(hungry_mb)})):
+            api.state.add_pod({"metadata": {"name": name, "namespace": "default",
+                                            "labels": labels}})
+        cmd = [sys.executable if c["command"][0] == "python3" else c["command"][0],
+               *c["command"][1:], *args, f"--apiserver={api.url}"]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=str(root), stdout=out, stderr=subprocess.STDOUT)
+        try:
+            health = None
+            while health is None and time.perf_counter() - t0 < WEBHOOK_START_LIMIT_S:
+                if proc.poll() is not None:
+                    break
+                with contextlib.suppress(OSError):  # refused, or 503 until the feed lists
+                    with urllib.request.urlopen(f"{base}/healthz", timeout=2.0) as r:
+                        health = json.loads(r.read())
+                if health is None:
+                    time.sleep(0.1)
+            start_s = time.perf_counter() - t0
+            if health is None:
+                out.seek(0)
+                raise SystemExit(f"webhook: no /healthz within {WEBHOOK_START_LIMIT_S} s "
+                                 f"(rc {proc.poll()}): {out.read()[-2000:]}")
+            api.state.set_webhook(f"{base}/validate")
+            for name in ("first", "second", "hungry"):
+                try:
+                    client.bind(Pod(name), LIVE_NODE, [(0, 0, 0)])
+                    binds[name] = dict(allowed=True)
+                except ApiError as e:
+                    binds[name] = dict(allowed=False, status=e.status, message=str(e)[-300:])
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
+            for i in range(WEBHOOK_REVIEWS):
+                ann = {"tpu/assigned-chips": "0,0,0"} if i % 2 else {}
+                doc = {"apiVersion": "admission.k8s.io/v1", "kind": "AdmissionReview",
+                       "request": {"uid": f"r-{i}", "object": {
+                           "kind": "Binding", "target": {"name": LIVE_NODE},
+                           "metadata": {"name": f"probe-{i}", "namespace": "default",
+                                        "annotations": ann}}}}
+                t1 = time.perf_counter()
+                conn.request("POST", "/validate", json.dumps(doc),
+                             {"Content-Type": "application/json"})
+                resp = json.loads(conn.getresponse().read())["response"]
+                timed.append(((time.perf_counter() - t1) * 1e3, resp["uid"] == f"r-{i}"
+                              and resp["allowed"] == (i % 2 == 0)))
+            conn.close()
+            with urllib.request.urlopen(f"{base}/metrics", timeout=5.0) as r:
+                counts = _prometheus(r.read().decode())
+            calls, denials = api.state.webhook_calls, api.state.webhook_denials
+            bound_first = (api.state.pod("first") or {}).get("spec", {}).get("nodeName")
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=10)
+
+    ms = [t for t, _ in timed]
+    q = statistics.quantiles(ms, n=100)
+    half = WEBHOOK_REVIEWS // 2
+    by_reason = {k.split('"')[1]: int(v) for k, v in counts.items()
+                 if k.startswith("webhook_denials_total{")}
+    checks = {
+        "live_cr_passes_the_crd": not faults,
+        "tpu_generation_in_the_enum": cr["status"]["tpu_generation"] in enum,
+        "crd_has_no_status_subresource": not crdcheck.has_status_subresource(crd),
+        "published_status_as_written": stored.get("status", {}).get("chips")
+                                       == cr["status"]["chips"],
+        "webhook_ready": bool(health and health.get("ok")
+                              and health.get("nodes_with_metrics") == 1),
+        "first_bind_allowed": binds["first"] == dict(allowed=True) and bound_first == LIVE_NODE,
+        "second_bind_409": not binds["second"]["allowed"] and binds["second"]["status"] == 409
+                           and "denied the request" in binds["second"]["message"],
+        "memory_bind_denied": not binds["hungry"]["allowed"]
+                              and "HBM oversubscription" in binds["hungry"]["message"],
+        "reviews_answered": len(timed) == WEBHOOK_REVIEWS and all(ok for _, ok in timed),
+        "counts": (int(counts.get("webhook_reviews_total", 0)) == 3 + WEBHOOK_REVIEWS
+                   and int(counts.get("webhook_allows_total", 0)) == 1 + half
+                   and by_reason == {"chip_claim": 1 + half, "hbm": 1}
+                   and (calls, denials) == (3, 2)),
+    }
+    emit("webhook", nvidia_smi=smi, manifest=WEBHOOK_MANIFEST, command=cmd[1:],
+         live_cr=dict(tpu_generation=cr["status"]["tpu_generation"],
+                      chips=len(cr["status"]["chips"]), card0=card0, faults=faults),
+         start_s=start_s, health=health, binds=binds, hungry_mb=hungry_mb,
+         reviews=dict(n=len(ms), p50_ms=q[49], p99_ms=q[98], max_ms=max(ms),
+                      mean_ms=statistics.fmean(ms)),
+         counts=dict(reviews=counts.get("webhook_reviews_total"),
+                     allows=counts.get("webhook_allows_total"),
+                     denials_by_reason=by_reason),
+         apiserver=dict(webhook_calls=calls, webhook_denials=denials), checks=checks)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"webhook: failed {failed}" + (f"; CRD faults {faults}" if faults
+                                                          else ""))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2541,6 +2717,7 @@ def main() -> int:
     phase_scheduler(smi)
     phase_gpu_fleet(smi)
     phase_bench_engine(smi)
+    phase_webhook(smi)
     phase_visible(smi)
 
     main_row, bwd_main = rows[0], bwd_rows[0]

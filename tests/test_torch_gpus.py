@@ -590,13 +590,23 @@ def test_cli_simulate_places_the_gpu_examples_on_their_models(profile):
     with contextlib.redirect_stdout(out):
         rc = cli.main(argv)
     res = json.loads(out.getvalue())
-    assert rc == 0 and res["bound"] == len(res["pods"]) == 13
+    # the serving example's two replicas ask for a pool=serving node, which
+    # `simulate` does not label: they stay pending (tests/test_torch_deploy.py
+    # places them on a labelled cluster) and the run exits 1; every other
+    # pod binds, its unpinned batch pod on any GPU node
+    pending = sorted(k for k, p in res["pods"].items() if p["phase"] != "Bound")
+    assert pending == ["default/serve-0", "default/serve-1"]
+    assert rc == 1 and res["bound"] == len(res["pods"]) - 2 == 14
+    assert res["pods"]["default/batch-leaner"]["phase"] == "Bound"
     model = {"llama2-7b-h100": "h100-sxm5", "mixtral-h100": "h100-sxm5",
              "resnet50-train-a100": "a100-sxm4-80gb"}
     leaves: dict[str, set] = {}
     for key, p in res["pods"].items():
         name = key.split("/", 1)[1]
-        job = next(j for j in model if name.startswith(j))
+        job = next((j for j in model if name.startswith(j)), None)
+        if job is None:
+            assert key in pending or name == "batch-leaner", key
+            continue
         assert p["node"].startswith(model[job] + "-"), (name, p["node"])
         leaves.setdefault(job, set()).add(p["node"].rsplit("-n", 1)[0])
     if profile == "gpu_profile":

@@ -71,7 +71,8 @@ def test_engine_imports_load_neither_torch_nor_jax():
     """The scheduling system runs on hosts: importing the engine, the k8s
     layer, the CLI, the chaos harness, the telemetry, the topology and the
     engine bench twins (bench.py, tools/scale5k.py, scale50k.py,
-    serve50k.py and the package's own fake API server) loads no torch, no
+    serve50k.py and the package's own fake API server) and the CRD checker
+    loads no torch, no
     jax, nothing of the JAX package and nothing of the repository's tests/
     or top-level benches."""
     code = ("import sys\n"
@@ -86,6 +87,7 @@ def test_engine_imports_load_neither_torch_nor_jax():
             "yoda_scheduler_tpu_torch.utils.nativeloader, "
             "yoda_scheduler_tpu_torch.bench, "
             "yoda_scheduler_tpu_torch.k8s.fake_apiserver, "
+            "yoda_scheduler_tpu_torch.k8s.crdcheck, "
             "yoda_scheduler_tpu_torch.tools.scale5k, "
             "yoda_scheduler_tpu_torch.tools.scale50k, "
             "yoda_scheduler_tpu_torch.tools.serve50k\n"

@@ -153,7 +153,9 @@ def test_every_example_container_takes_the_annotation():
             ref = env[multihost.ASSIGNED_ENV]["valueFrom"]["fieldRef"]["fieldPath"]
             assert ref == f"metadata.annotations['{ASSIGNED_CHIPS_LABEL}']", name
             seen += 1
-    assert seen == 6  # four llama members, the mixtral template, resnet
+    # four llama members, the mixtral template, resnet, the two serving
+    # containers (the Deployment's template and the batch pod)
+    assert seen == 8
 
 
 def build_gpu_tag() -> str:
@@ -170,7 +172,7 @@ def test_every_manifest_names_the_ports_image():
     assert want == "yoda-gpu-scheduler:0.1.0"
     images = [c["image"] for folder in ("deploy", "example")
               for _, doc in _docs(folder) for c in _containers(doc)]
-    assert len(images) == 8 and set(images) == {want}
+    assert len(images) == 11 and set(images) == {want}
 
 
 def test_ports_dockerfile_holds_the_port_and_no_jax():

@@ -666,7 +666,7 @@ def cmd_webhook(args) -> int:
     """Run the bind-authority admission webhook (k8s/webhook.py): the
     chip/fence half of the conflict battery as a pods/binding
     ValidatingAdmissionWebhook, deployed NEXT TO a vanilla apiserver
-    (deploy/bind-authority-webhook.yaml). Its own process, not the
+    (deploy/gpu-bind-authority-webhook.yaml). Its own process, not the
     scheduler's — the authority must survive scheduler restarts."""
     from .k8s.client import KubeClient
     from .k8s.webhook import serve_webhook

@@ -472,6 +472,11 @@ class WebhookServer:
 
         class Handler(BaseHTTPRequestHandler):
             protocol_version = "HTTP/1.1"
+            # NODELAY: a response goes out as two writes (headers, then the
+            # body); on a kept-alive connection, as an apiserver holds to
+            # its webhooks, Nagle holds the body until the caller's delayed
+            # ACK of the headers, ~40 ms a review on Linux
+            disable_nagle_algorithm = True
 
             def log_message(self, *a):  # quiet
                 return
@@ -626,7 +631,7 @@ def serve_webhook(client, port: int, certfile: str | None = None,
                   host: str = "0.0.0.0") -> WebhookServer:
     """Build + start the full webhook (server + feed) against an
     apiserver client — the `yoda-tpu webhook` CLI entry point and the
-    deploy/bind-authority-webhook.yaml container command."""
+    deploy/gpu-bind-authority-webhook.yaml container command."""
     auth = BindAuthority(fail_open=fail_open, stale_after_s=stale_after_s)
     server = WebhookServer(auth, host=host, port=port,
                            certfile=certfile, keyfile=keyfile)

@@ -601,7 +601,7 @@ class SchedulerConfig:
     # lease duration). 0 disables: sticky takeover.
     shard_rebalance_s: float = 5.0
     # bind-authority admission webhook (k8s/webhook.py): the port the
-    # `yoda-tpu webhook` server listens on (deploy/bind-authority-
+    # `yoda-tpu webhook` server listens on (deploy/gpu-bind-authority-
     # webhook.yaml wires the Service + ValidatingWebhookConfiguration to
     # it). 0 = not serving a webhook from this process.
     webhook_port: int = 0
