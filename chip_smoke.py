@@ -18,7 +18,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
    library call's times, TF/s and the card's bound for the same work; at
    the main shape and at d1024_bshd the wgmma and mma routes are timed in
    turns (mma, wgmma, wgmma, mma), and at d1024_bshd SDPA under its
-   default backend (named) and under its flash backend.
+   default backend (named) and under its flash backend. Then the head dims
+   and dtypes of the padded simt and mma kernels (`WIDE_SHAPES`): Phi-3-mini's
+   attention (32 heads of 96, S=2048; GQA 32/8 and window 512 at 96), 80,
+   Gemma-2B's 8 heads of 256 over one, 40 ragged, 100 (unaligned: simt),
+   fp16 at the main shape and at d1024_bshd, and simt in fp32 and fp16; each
+   on every route `_routes` admits, with SDPA's default backend timed where
+   its inputs are aligned bf16 or fp16; and head dim 264 refused by every
+   wrapper on every route with no launch.
 3. backward: the dQ and dK/dV kernels against the plain backward at the
    same shapes (a non-zero LSE cotangent at some), elementwise and by each
    output's worst tile, each kernel on the route `_route` picks for it,
@@ -46,6 +53,16 @@ The MoE phases run Mixtral-8x7B's published widths (8 experts, top-2, GQA
 32/8) with random bf16 weights from a seed, depth cut to fit the card:
 moe_forward and moe_serving (16 layers) after serving, moe_train (4 layers)
 after train.
+
+After moe_train, the head dims and dtype the padded mma kernels take, every
+flash launch on the mma route:
+
+- phi3_forward, phi3_gradient, phi3_train: Phi-3-mini's published widths
+  (`phi3_mini`: hidden 3072, 32 layers, 32 heads of 96, intermediate 8192,
+  vocab 32064), random bf16 weights from a seed: as forward (32 layers),
+  gradient (4 layers) and train (32 layers, B=1, S=2048).
+- fp16_forward, fp16_gradient: Llama-2-7B in fp16, the dtype of its
+  published weights: as forward and gradient.
 
 - moe_forward: B=1, S=2048: 16 flash_fwd launches, all on the wgmma route;
   logits and routing against the forward through the plain attention, end
@@ -265,7 +282,10 @@ from yoda_scheduler_tpu_torch.ops.bounds import (H100_BF16_FLOPS, H100_HBM_BYTES
 # fp32 O: summation order only (the plain products run in full fp32);
 # LSE is fp32 on both sides; the kernel scales q before Q.K^T and the plain
 #   version scales the scores after it.
-TOL = {torch.bfloat16: dict(o=2e-2, lse=1e-3), torch.float32: dict(o=1e-4, lse=1e-4)}
+# fp16 O: the same roundings one fp16 ulp deep, 8x finer than bf16's, so
+#   bf16's bound over 8 (each about 2.6 ulps relative of its type).
+TOL = {torch.bfloat16: dict(o=2e-2, lse=1e-3), torch.float16: dict(o=2.5e-3, lse=1e-3),
+       torch.float32: dict(o=1e-4, lse=1e-4)}
 # phases 3-4: relative L2 error of the logits against the plain path. Each
 # of 32 bf16 layers rounds its attention differently in the two paths and
 # the residual stream carries the differences on; two plain bf16 paths of 32
@@ -276,7 +296,7 @@ LOGITS_REL_L2 = 1e-1
 # input dtype where the kernels round them, so bf16 results differ by the
 # order of fp32 sums, which moves a rounding by one bf16 ulp now and then;
 # fp32 results differ by summation order only.
-BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+BWD_TOL = {torch.bfloat16: 2e-2, torch.float16: 2.5e-3, torch.float32: 1e-4}
 # phases 2 and 3 also bound O, dQ, dK and dV each by its worst 64-row tile
 # of one (batch, head), `tile_rel_l2`: O of a late row (|O| near
 # sqrt(e/n) for n keys seen) and dK and dV of late keys are about as small
@@ -285,8 +305,10 @@ BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # size (bf16: the route sweep's `FWD_TILE_REL_L2` and the variant tool's
 # `variants.BWD_TILE_REL_L2`; fp32: summation order).
 TILE_REL_L2_FP32 = 1e-4
+TILE_REL_L2_FP16 = 1.25e-3  # bf16's 1e-2 over 8, as TOL's fp16 bounds
 BWD_G_LSE = {"gqa", "gqa_bshd", "cross_length", "ragged_300",  # shapes with a non-zero
-             "gqa_d64", "ragged_d64"}                          # LSE cotangent
+             "gqa_d64", "ragged_d64", "gqa_d96", "gemma_d256",   # LSE cotangent
+             "ragged_d40"}
 # phase 6: relative L2 error of each leaf's gradient against the gradient
 # through the plain attention. The two round at different places in bf16:
 # autograd of the plain attention rounds the probabilities and their
@@ -583,11 +605,15 @@ def phase_build(build):
         sorted(wgmma) == sorted(WGMMA_KERNELS)
         and all("0 bytes spill stores, 0 bytes spill loads" in v for v in wgmma.values())
         and not any("C7512" in n or "serialized" in n for n in notes))
+    # reported, not gated: the simt and mma kernels at the widest padded
+    # width (256), whose sums are the largest
+    dp256 = {k: v for p in ptxas.values() for k, v in p.items()
+             if k != "notes" and "Li256E" in k}
     emit("build", nvidia_smi=smi, device=torch.cuda.get_device_name(0),
          torch=torch.__version__, cuda=torch.version.cuda,
          build_s=time.perf_counter() - t0,
          nvcc_s={n: i.get("seconds") for n, i in info.items()}, ptxas=ptxas,
-         wgmma_kernels_spill_free=spill_free)
+         wgmma_kernels_spill_free=spill_free, padded_256_kernels=dp256)
     if not spill_free:
         raise SystemExit(f"the wgmma kernels {WGMMA_KERNELS} must build with no spills "
                          f"and no serialised wgmma: {wgmma}, notes {notes}")
@@ -626,10 +652,48 @@ SHAPES = [
     ("ragged_300", 2, 8, 4, 300, 300, 128, True, None, torch.bfloat16, "bhsd", "wgmma"),
     ("main_unaligned", 1, 32, 32, 2048, 2048, 128, True, None, torch.bfloat16,
      "offset1", "simt"),
+    # head dims other than 32, 64 and 128, and fp16, on the simt and mma
+    # kernels at their padded widths: Phi-3-mini's attention (32 heads of
+    # 96, S=2048) as the model gives it and contiguous, with GQA 32/8 and a
+    # window; 80 (2560 / 32, Phi-2's width); Gemma-2B's 8 query heads of
+    # 256 over one KV head; 40 on a ragged sequence; 100, whose rows are not
+    # 16-byte aligned (simt); fp16 at the main shape and at d1024_bshd (the
+    # dtype of Llama-2's published weights); and simt at each padded width
+    # in fp32 and fp16
+    ("phi3_d96", 1, 32, 32, 2048, 2048, 96, True, None, torch.bfloat16, "bhsd", "mma"),
+    ("phi3_d96_bshd", 1, 32, 32, 2048, 2048, 96, True, None, torch.bfloat16, "bshd",
+     "mma"),
+    ("gqa_d96", 1, 32, 8, 2048, 2048, 96, True, None, torch.bfloat16, "bshd", "mma"),
+    ("window_d96", 1, 32, 32, 2048, 2048, 96, True, 512, torch.bfloat16, "bhsd", "mma"),
+    ("d80", 1, 32, 32, 2048, 2048, 80, True, None, torch.bfloat16, "bhsd", "mma"),
+    ("gemma_d256", 1, 8, 1, 2048, 2048, 256, True, None, torch.bfloat16, "bshd", "mma"),
+    ("ragged_d40", 2, 8, 4, 300, 300, 40, True, None, torch.bfloat16, "bhsd", "mma"),
+    ("unaligned_d100", 1, 32, 32, 1024, 1024, 100, True, None, torch.bfloat16, "bhsd",
+     "simt"),
+    ("fp16_main", 1, 32, 32, 2048, 2048, 128, True, None, torch.float16, "bhsd", "mma"),
+    ("fp16_d1024_bshd", 8, 16, 16, 2048, 2048, 64, True, None, torch.float16, "bshd",
+     "mma"),
+    ("fp32_d40", 1, 8, 8, 512, 512, 40, True, None, torch.float32, "bhsd", "simt"),
+    ("fp16_unaligned_d80", 1, 8, 4, 512, 512, 80, True, 128, torch.float16, "offset1",
+     "simt"),
+    ("fp32_d256", 1, 4, 2, 300, 300, 256, True, None, torch.float32, "bhsd", "simt"),
 ]
 ROUTE_TURNS = ("mma", "wgmma", "wgmma", "mma")  # timed in turns at TURN_SHAPES
 TURN_SHAPES = ("main", "d1024_bshd")
 D64_SHAPE = "d1024_bshd"  # the head-dim-64 row of the kernels line
+# the rows at the new head dims and fp16: every route `_routes` admits is
+# held against the plain version there, and SDPA's default backend is timed
+# where its inputs are bf16 or fp16 rows that are 16-byte aligned (cuDNN's
+# backward fails on the rows that start one element into their storage)
+WIDE_SHAPES = ("phi3_d96", "phi3_d96_bshd", "gqa_d96", "window_d96", "d80", "gemma_d256",
+               "ragged_d40", "unaligned_d100", "fp16_main", "fp16_d1024_bshd", "fp32_d40",
+               "fp16_unaligned_d80", "fp32_d256")
+# the kernels line's head_dims entry: the rows of each new width and dtype
+HEAD_DIM_ROWS = ("d80", "phi3_d96_bshd", "gemma_d256", "unaligned_d100", "fp16_main",
+                 "fp16_d1024_bshd")
+# a head dim past the kernels' widest padded width (256): every wrapper
+# refuses it on every route, with no launch
+REFUSED_HEAD_DIM = 264
 
 
 def shape_routes(route: str) -> dict:
@@ -654,8 +718,54 @@ def rand_inputs(gen, dtype, layout, *shapes):
     return out
 
 
+def timed_against_library(name: str, dtype, layout: str) -> bool:
+    """Whether a SHAPES row times SDPA's default backend beside the kernel."""
+    if name in ("main", "main_bshd", D64_SHAPE):
+        return True
+    return name in WIDE_SHAPES and dtype != torch.float32 and layout != "offset1"
+
+
+def window_mask(sq: int, sk: int, window: int | None):
+    """The causal (and windowed) mask as SDPA's boolean attn_mask, for the
+    library's call on a windowed row."""
+    if window is None:
+        return None
+    qi = torch.arange(sq, device="cuda")[:, None] + (sk - sq)
+    ki = torch.arange(sk, device="cuda")[None, :]
+    return (ki <= qi) & (ki > qi - window)
+
+
+def check_refusals(attn) -> dict:
+    """Every wrapper, on every route, refuses head dim REFUSED_HEAD_DIM (past
+    the widest padded width) with the limit in its message and launches
+    nothing: {kernel: the message}."""
+    d = REFUSED_HEAD_DIM
+    q = torch.zeros((1, 2, 64, d), dtype=torch.bfloat16, device="cuda")
+    lse = torch.zeros((1, 2, 64), device="cuda")
+    out = {}
+    for fn, args in ((attn.flash_fwd, (q, q, q)),
+                     (attn.flash_bwd_dq, (q, q, q, q, lse, lse)),
+                     (attn.flash_bwd_dkv, (q, q, q, q, lse, lse))):
+        before = (fn.launches, dict(fn.launches_by_route))
+        for route in (None, "simt", "mma", "wgmma"):
+            try:
+                fn(*args, route=route)
+            except ValueError as e:
+                out[fn.__name__] = str(e)
+                if f"1 to {attn.KERNEL_MAX_HEAD_DIM}" not in str(e):
+                    raise SystemExit(f"{fn.__name__} refused head dim {d} without "
+                                     f"naming the limit: {e}")
+            else:
+                raise SystemExit(f"{fn.__name__} took head dim {d} on route {route}")
+        if (fn.launches, fn.launches_by_route) != before:
+            raise SystemExit(f"{fn.__name__} launched while refusing head dim {d}")
+    torch.cuda.synchronize()
+    return out
+
+
 def phase_kernel(attn, variants, tune):
-    tile_bound = {torch.bfloat16: tune.FWD_TILE_REL_L2, torch.float32: TILE_REL_L2_FP32}
+    tile_bound = {torch.bfloat16: tune.FWD_TILE_REL_L2, torch.float16: TILE_REL_L2_FP16,
+                  torch.float32: TILE_REL_L2_FP32}
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows, max_err = [], 0.0
     for name, b, h, kvh, sq, sk, d, causal, window, dtype, layout, want in SHAPES:
@@ -685,13 +795,25 @@ def phase_kernel(attn, variants, tune):
         plain_ms = cuda_time_ms(
             lambda: attn.reference_attention_with_lse(q, k, v, causal, window), 5)
         library_ms, turns, sdpa, route_tile = None, None, None, None
-        if name in ("main", "main_bshd", D64_SHAPE):
+        mask = window_mask(sq, sk, window)
+        if timed_against_library(name, dtype, layout):
             # the yardstick, timed here and used nowhere in the port
-            library_ms = cuda_time_ms(lambda: sdpa_fn(q, k, v), 20)
+            library_ms = cuda_time_ms(lambda: sdpa_fn(q, k, v, mask=mask), 20)
         if name == D64_SHAPE:
             sdpa = {"default_backend": sdpa_default_backend(q, k, v),
                     "default_ms": library_ms,
                     "flash_ms": cuda_time_ms(lambda: sdpa_fn(q, k, v, flash=True), 20)}
+        if name in WIDE_SHAPES:
+            sdpa = {"default_backend": sdpa_default_backend(q, k, v, mask=mask),
+                    "default_ms": library_ms} if library_ms is not None else None
+            # every other route that takes these inputs against the plain
+            # version too
+            route_tile = {}
+            for r in attn._routes("flash_fwd", q, k, v):
+                if r != route:
+                    route_tile[f"{r}_o"], agree = agrees(
+                        *attn.flash_fwd(q, k, v, causal, window, route=r))
+                    ok = ok and agree
         if name in TURN_SHAPES:
             # the other route against the plain version too, then in turns
             route_tile, agree = agrees(*attn.flash_fwd(q, k, v, causal, window, route="mma"))
@@ -718,21 +840,25 @@ def phase_kernel(attn, variants, tune):
         max_err = max(max_err, err_o)
         if not ok:
             raise SystemExit(f"flash_fwd disagrees with its plain version at {name}")
+    refused = check_refusals(attn)
+    print(json.dumps({"phase": "kernel", "shape": f"refused_d{REFUSED_HEAD_DIM}",
+                      "refusals": refused, "ok": True}), flush=True)
     RESULTS["kernel"] = rows
+    RESULTS["kernel_refusals"] = refused
     return rows, max_err
 
 
-def sdpa_backward_ms(tune, q, k, v, do, flash: bool = False) -> float:
+def sdpa_backward_ms(tune, q, k, v, do, flash: bool = False, mask=None) -> float:
     """The library yardstick: the backward alone of bench_mfu's SDPA call
     (its default dispatch, or its flash backend), from one graph built once
     and differentiated again and again. Timed here only; the port never
     calls it."""
-    return cuda_time_ms(tune._backward_alone(functools.partial(sdpa_fn, flash=flash),
-                                             q, k, v, do), 20)
+    return cuda_time_ms(tune._backward_alone(
+        functools.partial(sdpa_fn, flash=flash, mask=mask), q, k, v, do), 20)
 
 
 def phase_backward(attn, variants, tune):
-    tile_bound = {torch.bfloat16: variants.BWD_TILE_REL_L2,
+    tile_bound = {torch.bfloat16: variants.BWD_TILE_REL_L2, torch.float16: TILE_REL_L2_FP16,
                   torch.float32: TILE_REL_L2_FP32}
 
     def agrees(got, ref_t, dtype):
@@ -779,6 +905,19 @@ def phase_backward(attn, variants, tune):
             errs[nm + "_tile_rel_l2"], agree = agrees(got, ref_t, dtype)
             ok = ok and agree
         turns, route_tile = None, None
+        if name in WIDE_SHAPES:
+            # every other route that takes these inputs against the plain
+            # backward too
+            route_tile = {}
+            for r in attn._routes("flash_bwd_dq", q, k, v, do):
+                if r == want["flash_bwd_dq"]:
+                    continue
+                got = {"dq": attn.flash_bwd_dq(*args, route=r)}
+                got["dk"], got["dv"] = (attn.group_sum(t, kvh)
+                                        for t in attn.flash_bwd_dkv(*args, route=r))
+                for nm, ref_t in zip(("dq", "dk", "dv"), ref):
+                    route_tile[f"{r}_{nm}"], agree = agrees(got[nm], ref_t, dtype)
+                    ok = ok and agree
         if name in TURN_SHAPES:
             # each route against the plain backward too, then in turns
             kernels = {"dq": attn.flash_bwd_dq, "dkv": attn.flash_bwd_dkv}
@@ -799,8 +938,13 @@ def phase_backward(attn, variants, tune):
         ms_dkv = cuda_time_ms(lambda: attn.flash_bwd_dkv(*args), 20)
         plain_ms = cuda_time_ms(lambda: attn.flash_backward_reference(
             q, k, v, o, lse, do, causal, window, g_lse), 3)
-        library_ms = sdpa_backward_ms(tune, q, k, v, do) if name in TURN_SHAPES else None
+        library_ms = (sdpa_backward_ms(tune, q, k, v, do, mask=window_mask(sq, sk, window))
+                      if name in TURN_SHAPES or (name in WIDE_SHAPES and timed_against_library(
+                          name, dtype, layout)) else None)
         sdpa = None
+        if name in WIDE_SHAPES and library_ms is not None:
+            sdpa = {"default_backend": sdpa_default_backend(
+                q, k, v, mask=window_mask(sq, sk, window)), "default_backward_ms": library_ms}
         if name == D64_SHAPE:
             sdpa = {"default_backend": sdpa_default_backend(q, k, v),
                     "default_backward_ms": library_ms,
@@ -832,8 +976,14 @@ def phase_backward(attn, variants, tune):
     return rows, max_err
 
 
-def phase_forward(attn, llama):
-    cfg = llama.LlamaConfig.llama2_7b()
+def phase_forward(attn, llama, cfg=None, phase="forward", config="llama2_7b",
+                  route="wgmma"):
+    """llama_forward at B=1, S=2048 over all of `cfg`'s layers (Llama-2-7B
+    by default): one flash_fwd launch a layer, every one on `route`, and the
+    logits against the forward through the plain attention."""
+    cfg = cfg or llama.LlamaConfig.llama2_7b()
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = llama.init_llama(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -845,16 +995,16 @@ def phase_forward(attn, llama):
         reset_launches(attn)
         logits = llama.llama_forward(params, tokens, cfg)
         torch.cuda.synchronize()
-        launches = attn.flash_fwd.launches
-        if launches != cfg.n_layers:
-            raise SystemExit(f"llama_forward launched flash_fwd {launches} "
-                             f"times, expected {cfg.n_layers}")
+        launches, routes = attn.flash_fwd.launches, read_routes(attn)["flash_fwd"]
+        if launches != cfg.n_layers or routes != {route: cfg.n_layers}:
+            raise SystemExit(f"{phase}: llama_forward launched flash_fwd {routes}, "
+                             f"expected {cfg.n_layers} on {route}")
         ref = llama.llama_forward(params, tokens, cfg,
                                   attn_impl=attn.reference_attention)
         err = rel_l2(logits, ref)
         if (tuple(logits.shape) != (1, 2048, cfg.vocab_size)
                 or not bool(torch.isfinite(logits).all()) or err > LOGITS_REL_L2):
-            raise SystemExit(f"forward logits wrong: shape {tuple(logits.shape)}, "
+            raise SystemExit(f"{phase}: logits wrong: shape {tuple(logits.shape)}, "
                              f"rel L2 {err}")
         del ref
         times = []
@@ -863,8 +1013,9 @@ def phase_forward(attn, llama):
             llama.llama_forward(params, tokens, cfg)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
-    emit("forward", config="llama2_7b", layers=cfg.n_layers, batch=1, seq=2048,
-         dtype=cfg.dtype, init_s=init_s, flash_fwd_launches=launches,
+    emit(phase, config=config, layers=cfg.n_layers, batch=1, seq=2048,
+         dtype=cfg.dtype, head_dim=cfg.head_dim, init_s=init_s,
+         flash_fwd_launches=launches, launches_by_route=routes,
          logits_rel_l2_vs_plain=err, bound=LOGITS_REL_L2, forward_ms=times,
          forward_ms_median=statistics.median(times),
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
@@ -1050,8 +1201,25 @@ def phase_serving(cfg, params, llama, gen_mod, phase="serving",
          sampled_tokens=sampled[0].shape[1], **extra)
 
 
-def phase_gradient(attn, llama, train):
-    cfg = dataclasses.replace(llama.LlamaConfig.llama2_7b(), n_layers=4)
+def phi3_mini(llama):
+    """Phi-3-mini's widths as the port's Llama config, from the published
+    microsoft/Phi-3-mini-4k-instruct config.json: hidden 3072, 32 layers, 32
+    query and 32 KV heads of 96, intermediate 8192, vocab 32064, rope_theta
+    10000, rms_norm_eps 1e-5, 4096 positions, bf16. Its fused qkv and
+    gate_up projections are the same products as the Llama's separate ones;
+    the weights are random, from a seed."""
+    return llama.LlamaConfig(vocab_size=32064, dim=3072, n_layers=32, n_heads=32,
+                             n_kv_heads=32, ffn_dim=8192, rope_theta=10000.0,
+                             norm_eps=1e-5, max_seq_len=4096, dtype="bfloat16")
+
+
+def phase_gradient(attn, llama, train, cfg=None, phase="gradient",
+                   config="llama2_7b width, 4 layers", route="wgmma"):
+    """The loss's gradient at `cfg`'s widths cut to 4 layers (Llama-2-7B by
+    default) through the kernels, every launch on `route`, against the
+    gradient through the plain attention, every leaf."""
+    cfg = dataclasses.replace(cfg or llama.LlamaConfig.llama2_7b(), n_layers=4)
+    free_memory()
     params = llama.init_llama(cfg, seed=0, device="cuda")
     leaves = train.param_leaves(params)
     for t in leaves:
@@ -1072,29 +1240,31 @@ def phase_gradient(attn, llama, train):
             t.grad = None
     want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
             "flash_bwd_dkv": cfg.n_layers}
-    if launches != want:
-        raise SystemExit(f"the 4-layer gradient launched {launches}, expected {want}")
+    if launches != want or routes != {n: {route: c} for n, c in want.items()}:
+        raise SystemExit(f"{phase}: the 4-layer gradient launched {routes}, expected "
+                         f"{want} on {route}")
     errs = [rel_l2(a, b) for a, b in zip(grads["kernels"], grads["plain"])]
     finite = all(bool(torch.isfinite(g).all()) for g in grads["kernels"])
     names = (["embed"] + [f"layers.{i}.{n}" for i, layer in enumerate(params["layers"])
                           for n in layer] + ["final_norm", "lm_head"])
     worst = max(range(len(errs)), key=errs.__getitem__)
-    emit("gradient", config="llama2_7b width, 4 layers", batch=1, seq=2048,
+    emit(phase, config=config, batch=1, seq=2048, head_dim=cfg.head_dim,
          dtype=cfg.dtype, launches=launches, launches_by_route=routes,
          loss_kernels=losses["kernels"],
          loss_plain=losses["plain"], grad_rel_l2_max=errs[worst],
          grad_rel_l2_worst_leaf=names[worst],
          grad_rel_l2={n: e for n, e in zip(names, errs)}, bound=GRAD_REL_L2)
     if not finite or errs[worst] > GRAD_REL_L2:
-        raise SystemExit(f"gradient through the kernels disagrees with the plain "
-                         f"attention: rel L2 {errs[worst]} at {names[worst]}")
+        raise SystemExit(f"{phase}: gradient through the kernels disagrees with the "
+                         f"plain attention: rel L2 {errs[worst]} at {names[worst]}")
     del params, leaves, grads
 
 
-def phase_train(attn, train, moe, cfg, phase="train"):
-    """4 train steps at B=1, S=2048 on one batch (remat, AdamW lr 3e-4).
-    MFU counts each token's active parameters: all but the experts, and k/E
-    of the experts (bench_mfu.py's 6N + 6 L d S convention)."""
+def phase_train(attn, train, moe, cfg, phase="train", config=None, route="wgmma"):
+    """4 train steps at B=1, S=2048 on one batch (remat, AdamW lr 3e-4),
+    every flash launch on `route`. MFU counts each token's active
+    parameters: all but the experts, and k/E of the experts (bench_mfu.py's
+    6N + 6 L d S convention)."""
     free_memory()
     b, s = 1, 2048
     torch.cuda.reset_peak_memory_stats()
@@ -1118,9 +1288,9 @@ def phase_train(attn, train, moe, cfg, phase="train"):
         launches, routes = read_launches(attn), read_routes(attn)
         if launches != want:
             raise SystemExit(f"{phase}: a train step launched {launches}, expected {want}")
-        if routes != {n: {"wgmma": c} for n, c in want.items()}:
+        if routes != {n: {route: c} for n, c in want.items()}:
             raise SystemExit(f"{phase}: a train step launched {routes}, expected every "
-                             f"launch on the wgmma route")
+                             f"launch on the {route} route")
         losses.append(loss)
     losses = [float(x) for x in losses]
     tensors = (train.param_leaves(params) + [loss]
@@ -1148,8 +1318,8 @@ def phase_train(attn, train, moe, cfg, phase="train"):
     flops_per_token = 6 * n_active + 6 * cfg.n_layers * cfg.dim * s
     mfu = flops_per_token * tokens_per_s / H100_BF16_FLOPS
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    emit(phase, config="mixtral_8x7b widths" if cfg.is_moe else "llama2_7b",
-         layers=cfg.n_layers, batch=b, seq=s,
+    emit(phase, config=config or ("mixtral_8x7b widths" if cfg.is_moe else "llama2_7b"),
+         layers=cfg.n_layers, batch=b, seq=s, head_dim=cfg.head_dim,
          dtype=cfg.dtype, remat=True, optimizer="AdamW lr 3e-4 wd 1e-4 (fused)",
          params=n_params, init_s=init_s, launches_per_step=launches,
          launches_by_route=routes,
@@ -2704,6 +2874,21 @@ def main() -> int:
                                            llama.LlamaConfig.llama2_7b())
     moe_step_launches = phase_train(attn, train, moe, mixtral_8x7b(MOE_TRAIN_LAYERS),
                                     phase="moe_train")
+    # head dim 96 (Phi-3-mini's widths) and fp16 (Llama-2-7B in the dtype of
+    # its published weights): every flash launch on the mma route
+    phi3, phi3_name = phi3_mini(llama), "phi3_mini_4k widths"
+    phi3_fwd_launches = phase_forward(attn, llama, phi3, phase="phi3_forward",
+                                      config=phi3_name, route="mma")[2]
+    phase_gradient(attn, llama, train, phi3, phase="phi3_gradient",
+                   config=f"{phi3_name}, 4 layers", route="mma")
+    phi3_step_launches = phase_train(attn, train, moe, phi3, phase="phi3_train",
+                                     config=phi3_name, route="mma")
+    fp16 = dataclasses.replace(llama.LlamaConfig.llama2_7b(), dtype="float16")
+    fp16_fwd_launches = phase_forward(attn, llama, fp16, phase="fp16_forward",
+                                      config="llama2_7b fp16", route="mma")[2]
+    phase_gradient(attn, llama, train, fp16, phase="fp16_gradient",
+                   config="llama2_7b fp16 width, 4 layers", route="mma")
+    free_memory()
     ring_launches = phase_ring(attn, ring, variants)
     ulysses_launches = phase_ulysses(attn, ulysses, variants)
     phase_pipeline_gradient(attn, llama, train, pipeline)
@@ -2739,6 +2924,24 @@ def main() -> int:
             "plain_ms": d64_bwd["plain_ms"],
             "route_turns_ms": (d64_bwd["route_turns_ms"] or {}).get(key),
             "library_ms": d64_bwd["library_ms"], "sdpa": d64_bwd["sdpa"]}
+    # each kernel at the head dims and dtype this slice added: its route,
+    # time, bound, share of it, the plain version's and the library's time
+    wide = {n: {} for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    for row in (r for r in rows if r["shape"] in HEAD_DIM_ROWS):
+        wide["flash_fwd"][row["shape"]] = {
+            "d": row["d"], "dtype": row["dtype"], "kernel_route": row["route"],
+            "ms": row["ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "share_of_bound": row["share_of_bound"], "plain_ms": row["plain_ms"],
+            "library_ms": row["library_ms"], "sdpa": row["sdpa"]}
+    for row in (r for r in bwd_rows if r["shape"] in HEAD_DIM_ROWS):
+        for name, key in (("flash_bwd_dq", "dq"), ("flash_bwd_dkv", "dkv")):
+            wide[name][row["shape"]] = {
+                "d": row["d"], "dtype": row["dtype"], "kernel_route": row["routes"][name],
+                "ms": row[f"{key}_ms"], "bound_ms": row[f"{key}_bound_ms"],
+                "bound_by": row[f"{key}_bound_by"],
+                "share_of_bound": row[f"{key}_share_of_bound"],
+                "plain_ms": row["plain_ms"], "library_ms": row["library_ms"],
+                "sdpa": row["sdpa"]}
     src = "yoda_scheduler_tpu_torch/ops/csrc/"
     kernels = {"kernels": [{
         "name": "flash_fwd", "route": "cuda", "source": src + "flash_fwd.cu",
@@ -2758,6 +2961,9 @@ def main() -> int:
                              "checkpoint_resumed_step": resumed_launches["flash_fwd"],
                              "multihost_step": multihost_launches["flash_fwd"],
                              "telemetry_load": telemetry_launches["flash_fwd"],
+                             "phi3_forward_mma": phi3_fwd_launches,
+                             "phi3_train_step_mma": phi3_step_launches["flash_fwd"],
+                             "fp16_forward_mma": fp16_fwd_launches,
                              "tune_attention": tune_routes["flash_fwd"].get("wgmma", 0),
                              **{path: routes["flash_fwd"].get("wgmma", 0)
                                 for path, routes in bench_routes.items()}},
@@ -2766,7 +2972,8 @@ def main() -> int:
         "max_abs_err": max_err,
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"], "head_dim_64": d64["flash_fwd"]}] + [{
+        "library_ms": main_row["library_ms"], "head_dim_64": d64["flash_fwd"],
+        "head_dims": wide["flash_fwd"]}] + [{
         "name": name, "route": "cuda", "source": src + "flash_bwd.cu",
         "replaces": f"yoda_scheduler_tpu/ops/attention.py:{line}",
         "kernel_route": bwd_main["routes"][name], "tflops": bwd_main[f"{key}_tflops"],
@@ -2781,6 +2988,7 @@ def main() -> int:
                              "pipeline_train_step": pipe_launches[name],
                              "checkpoint_resumed_step": resumed_launches[name],
                              "multihost_step": multihost_launches[name],
+                             "phi3_train_step_mma": phi3_step_launches[name],
                              "tune_attention": tune_routes[name].get("wgmma", 0),
                              **{path: routes[name].get("wgmma", 0)
                                 for path, routes in bench_routes.items()
@@ -2790,7 +2998,8 @@ def main() -> int:
         "max_abs_err": bwd_err[key], "ms": bwd_main[f"{key}_ms"],
         "plain_ms": bwd_main["plain_ms"], "bound_ms": bwd_main[f"{key}_bound_ms"],
         "bound_by": bwd_main[f"{key}_bound_by"],
-        "library_ms": bwd_main["library_ms"], "head_dim_64": d64[name]}
+        "library_ms": bwd_main["library_ms"], "head_dim_64": d64[name],
+        "head_dims": wide[name]}
         for name, key, line in (("flash_bwd_dq", "dq", 219),
                                 ("flash_bwd_dkv", "dkv", 270))]}
     RESULTS["kernels"] = kernels

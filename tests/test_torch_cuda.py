@@ -50,6 +50,8 @@ def _qkv(gpu, dtype, b, h, kvh, sq, sk, d, seed=0):
 # bf16: about one bf16 ulp of O at |O| < 4 (the plain version rounds its
 # probabilities, the kernel its output); fp32: summation order
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# fp16: the same roundings one fp16 ulp deep (chip_smoke.TOL's fp16 bound)
+TOL[torch.float16] = chip_smoke.TOL[torch.float16]["o"]
 
 
 SHAPES = [
@@ -401,15 +403,141 @@ def test_wgmma_refuses_dq_at_head_dim_32(gpu):
         assert (fn.launches, fn.launches_by_route) == before
 
 
-@pytest.mark.parametrize("dtype,d", [(torch.float16, 64), (torch.bfloat16, 96)])
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 264), (torch.float64, 64)])
 def test_kernel_refuses_what_it_does_not_take(gpu, dtype, d):
+    """A head dim past the widest padded width (256) and a dtype the
+    kernels lack are refused by every wrapper, with no launch."""
     q, k, v = _qkv(gpu, dtype, 1, 2, 2, 32, 32, d)
+    before = [(fn.launches, dict(fn.launches_by_route))
+              for fn in (attn.flash_fwd, attn.flash_bwd_dq, attn.flash_bwd_dkv)]
     with pytest.raises(ValueError, match="flash_fwd takes"):
         attn.flash_attention(q, k, v)
     lse = torch.zeros(q.shape[:3], device=gpu)
     for fn in (attn.flash_bwd_dq, attn.flash_bwd_dkv):
         with pytest.raises(ValueError, match=f"{fn.__name__} takes"):
             fn(q, k, v, q, lse, lse)
+    assert [(fn.launches, fn.launches_by_route)
+            for fn in (attn.flash_fwd, attn.flash_bwd_dq, attn.flash_bwd_dkv)] == before
+
+
+# head dims other than 32, 64 and 128, and fp16: the simt and mma kernels at
+# their padded widths. (dtype, d, (b, h, kvh, sq, sk), causal, window,
+# layout, the route `_route` picks); "offset1" starts each tensor one element
+# into its storage, off 16-byte alignment
+WIDE_CASES = {
+    "bf16_d96_bshd": (torch.bfloat16, 96, (1, 8, 8, 512, 512), True, None, "bshd", "mma"),
+    "bf16_d96_gqa_window": (torch.bfloat16, 96, (1, 8, 2, 300, 300), True, 64, "bhsd",
+                            "mma"),
+    "bf16_d80_cross": (torch.bfloat16, 80, (1, 4, 4, 128, 400), True, None, "bhsd", "mma"),
+    "bf16_d256_gqa_8_1": (torch.bfloat16, 256, (1, 8, 1, 384, 384), True, None, "bshd",
+                          "mma"),
+    "bf16_d40_ragged": (torch.bfloat16, 40, (2, 4, 2, 300, 300), True, None, "bhsd", "mma"),
+    "bf16_d8_non_causal": (torch.bfloat16, 8, (1, 2, 2, 70, 130), False, None, "bhsd",
+                           "mma"),
+    "bf16_d100": (torch.bfloat16, 100, (1, 4, 4, 256, 256), True, None, "bhsd", "simt"),
+    "bf16_d1": (torch.bfloat16, 1, (1, 2, 2, 100, 100), True, None, "bhsd", "simt"),
+    "fp16_d128": (torch.float16, 128, (1, 8, 8, 512, 512), True, None, "bhsd", "mma"),
+    "fp16_d64_bshd": (torch.float16, 64, (2, 8, 8, 256, 256), True, None, "bshd", "mma"),
+    "fp16_d200_window": (torch.float16, 200, (1, 4, 2, 300, 300), True, 50, "bhsd", "mma"),
+    "fp16_d72_offset": (torch.float16, 72, (1, 4, 4, 200, 200), True, None, "offset1",
+                        "simt"),
+    "fp32_d96": (torch.float32, 96, (1, 4, 4, 200, 200), True, None, "bhsd", "simt"),
+    "fp32_d256": (torch.float32, 256, (1, 2, 1, 130, 130), True, None, "bhsd", "simt"),
+}
+WIDE_TILE = {torch.bfloat16: BWD_TILE_REL_L2, torch.float16: chip_smoke.TILE_REL_L2_FP16,
+             torch.float32: chip_smoke.TILE_REL_L2_FP32}
+
+
+def _wide_inputs(gpu, case):
+    dtype, d, (b, h, kvh, sq, sk), causal, window, layout, _ = WIDE_CASES[case]
+    rng = np.random.default_rng(9)
+    out = []
+    for shape in ((b, h, sq, d), (b, kvh, sk, d), (b, kvh, sk, d), (b, h, sq, d)):
+        x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(gpu, dtype)
+        if layout == "bshd":  # the model's transposed views of [B, S, H, D]
+            x = x.transpose(1, 2).contiguous().transpose(1, 2)
+        elif layout == "offset1":
+            x = torch.cat([x.new_zeros(1), x.flatten()])[1:].view(shape)
+        out.append(x)
+    return out, causal, window
+
+
+@pytest.mark.parametrize("case", list(WIDE_CASES))
+def test_wide_head_dims_and_fp16_match_the_plain_versions(gpu, case):
+    """Each kernel on every route that takes the inputs (the route `_route`
+    picks among them) against its plain version: O and LSE, then dQ, dK and
+    dV from the forward's LSE with an LSE cotangent, elementwise and by each
+    output's worst 64-row tile."""
+    (q, k, v, do), causal, window = _wide_inputs(gpu, case)
+    dtype, want_route = q.dtype, WIDE_CASES[case][-1]
+    routes = attn._routes("flash_fwd", q, k, v)
+    assert routes[-1] == want_route and attn._route("flash_bwd_dq", q, k, v, do) == want_route
+    assert "wgmma" not in routes
+    ro, rl = attn.reference_attention_with_lse(q, k, v, causal, window)
+    g_lse = torch.randn(q.shape[:3], generator=torch.Generator(gpu).manual_seed(1),
+                        device=gpu)
+    want = attn.flash_backward_reference(q, k, v, ro, rl, do, causal, window, g_lse)
+    delta = attn.backward_delta(ro, do, g_lse).contiguous()
+    for route in routes:
+        before = [fn.launches_by_route[route]
+                  for fn in (attn.flash_fwd, attn.flash_bwd_dq, attn.flash_bwd_dkv)]
+        o, lse = attn.flash_fwd(q, k, v, causal, window, route=route)
+        args = (q, k, v, do, rl, delta, causal, window)
+        got = _bwd_kernels(args, route)
+        torch.cuda.synchronize()
+        assert [fn.launches_by_route[route]
+                for fn in (attn.flash_fwd, attn.flash_bwd_dq, attn.flash_bwd_dkv)] == [
+            n + 1 for n in before]
+        assert o.dtype == dtype and o.shape == ro.shape
+        torch.testing.assert_close(o.float(), ro.float(), atol=TOL[dtype], rtol=TOL[dtype])
+        torch.testing.assert_close(lse, rl, atol=1e-3, rtol=1e-3)
+        assert tile_rel_l2(o, ro) <= WIDE_TILE[dtype], route
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            torch.testing.assert_close(g.float(), w.float(), atol=TOL[dtype],
+                                       rtol=TOL[dtype])
+            assert tile_rel_l2(g, w) <= WIDE_TILE[dtype], route
+
+
+@pytest.mark.parametrize("case", ["bf16_d256_gqa_8_1", "fp16_d200_window", "fp32_d96"])
+def test_wide_backward_is_bit_repeatable(gpu, case):
+    (q, k, v, do), causal, window = _wide_inputs(gpu, case)
+    o, lse = attn.flash_fwd(q, k, v, causal, window)
+    args = (q, k, v, do, lse, attn.backward_delta(o, do).contiguous(), causal, window)
+    runs = [_bwd_kernels(args, None) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_dim_48_gradient_on_cuda_matches_cpu(gpu, dtype):
+    """A tiny Llama with head dim 48 (dim 96 over 2 heads, one KV head): the
+    loss gradient through the kernels (simt in fp32, mma in bf16; remat)
+    against the plain attention's on the CPU, every leaf: fp32 by summation
+    order, bf16 by each leaf's relative L2 error (chip_smoke's GRAD_REL_L2)."""
+    cfg = dataclasses.replace(LlamaConfig.tiny(), dim=96, n_heads=2, n_kv_heads=1,
+                              ffn_dim=192, dtype=str(dtype).split(".")[1])
+    assert cfg.head_dim == 48
+    params = init_llama(cfg, seed=0, device=gpu)
+    cpu = {"embed": params["embed"].cpu(), "final_norm": params["final_norm"].cpu(),
+           "lm_head": params["lm_head"].cpu(),
+           "layers": [{n: t.cpu() for n, t in layer.items()} for layer in params["layers"]]}
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(0, 256, (2, 64)))
+    route = "simt" if dtype == torch.float32 else "mma"
+    before = attn.flash_bwd_dq.launches_by_route[route]
+    grads = []
+    for p, toks in ((params, tokens.to(gpu)), (cpu, tokens)):
+        leaves = param_leaves(p)
+        for t in leaves:
+            t.requires_grad_(True)
+        llama_loss(p, toks, cfg, remat=True).backward()
+        grads.append([t.grad.cpu() for t in leaves])
+    assert attn.flash_bwd_dq.launches_by_route[route] == before + cfg.n_layers
+    for got, want in zip(*grads):
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
+        else:
+            assert chip_smoke.rel_l2(got, want) <= chip_smoke.GRAD_REL_L2
 
 
 @pytest.fixture

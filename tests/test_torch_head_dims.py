@@ -1,0 +1,246 @@
+"""The port's attention at the head dims and dtypes past the kernels' first
+widths (head dims 40, 80, 96, 100 and 256; fp16 beside fp32 and bf16), and a
+tiny Llama whose head dim is 48, against the JAX package on the same inputs.
+
+The JAX kernels take `d` from the array and compute in any float dtype, so
+every such model runs in the JAX package; the port's kernels run these head
+dims at a padded width on the card (`ops/csrc/flash_common.cuh`,
+`padded_dim`). Here on the CPU the port's wrappers take the plain versions
+and the JAX side runs its Pallas kernels in interpret mode, as the JAX
+package's own tests do. The kernels are held against the plain versions on
+the card by chip_smoke.py and tests/test_torch_cuda.py."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from yoda_scheduler_tpu.models import llama as jllama
+from yoda_scheduler_tpu.ops import attention as jattn
+from yoda_scheduler_tpu_torch.models import llama as tllama
+from yoda_scheduler_tpu_torch.models import params_from_jax
+from yoda_scheduler_tpu_torch.ops import attention as tattn
+from yoda_scheduler_tpu_torch.parallel import param_leaves
+
+# tiny shapes: one intra-op thread, so that the other test workers keep
+# their cores
+torch.set_num_threads(1)
+
+# (b, h, kvh, s, d, window), causal: each head dim alone, then GQA and a
+# window at Phi-3-mini's 96; 100 with a ragged sequence (no block of the
+# JAX kernel's but the whole sequence)
+CASES = {
+    "d40": (1, 2, 2, 64, 40, None),
+    "d80": (1, 2, 2, 64, 80, None),
+    "d96": (1, 2, 2, 64, 96, None),
+    "d100_ragged": (1, 2, 2, 100, 100, None),
+    "d256": (1, 2, 2, 64, 256, None),
+    "d96_gqa_window": (1, 4, 2, 64, 96, 24),
+}
+DTYPES = ("float32", "bfloat16", "float16")
+# |port - JAX| <= atol + rtol * |JAX|. fp32: summation order only (measured
+# <= 2.1e-6 on the CPU, seed 0). bf16: the JAX kernel rounds only its output, the
+# port's plain version rounds the probabilities (and the backward P and dS)
+# too, about one bf16 ulp at |O| < 4 (measured <= 1.56e-2 forward, 3.1e-2
+# backward at |dV| ~ 6): the bounds of tests/test_torch_attention.py. fp16:
+# the same rounding one fp16 ulp deep, 8x finer than bf16's, so the bf16
+# bounds over 8 (measured <= 1.95e-3 forward, 3.9e-3 backward). The LSE is
+# fp32 on both sides in every dtype.
+FWD_TOL = {"float32": dict(o=1e-5, lse=1e-5), "bfloat16": dict(o=2e-2, lse=1e-4),
+           "float16": dict(o=2.5e-3, lse=1e-4)}
+BWD_TOL = {"float32": dict(atol=5e-5, rtol=5e-5), "bfloat16": dict(atol=0.08, rtol=0),
+           "float16": dict(atol=1e-2, rtol=0)}
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def _inputs(case, dtype, seed=0):
+    """(numpy q, k, v, dO, g_lse) from a seed, in fp32."""
+    b, h, kvh, s, d, _ = CASES[case]
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape, dtype=np.float32)
+            for shape in ((b, h, s, d), (b, kvh, s, d), (b, kvh, s, d), (b, h, s, d),
+                          (b, h, s))]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", list(CASES))
+def test_forward_and_backward_match_jax(case, dtype):
+    """flash_attention_with_lse's O and LSE, and the gradients of a loss of
+    both outputs (dQ, dK, dV), against the JAX package's
+    flash_attention_with_lse and its jax.vjp on the same values; also the
+    plain twin of the backward kernels (`flash_backward_reference`)."""
+    window = CASES[case][-1]
+    q, k, v, do, g = _inputs(case, dtype)
+    jq, jk, jv = (jnp.asarray(a).astype(dtype) for a in (q, k, v))
+    (jo, jl), vjp = jax.vjp(lambda q, k, v: jattn.flash_attention_with_lse(
+        q, k, v, causal=True, window=window), jq, jk, jv)
+    want = vjp((jnp.asarray(do).astype(dtype), jnp.asarray(g)))
+    tdt = getattr(torch, dtype)
+    tq, tk, tv = (torch.from_numpy(a).to(tdt).requires_grad_(True) for a in (q, k, v))
+    tdo, tg = torch.from_numpy(do).to(tdt), torch.from_numpy(g)
+    to, tl = tattn.flash_attention_with_lse(tq, tk, tv, causal=True, window=window)
+    assert to.dtype == tdt and tl.dtype == torch.float32
+    assert to.shape == jo.shape and tl.shape == jl.shape
+    tol = FWD_TOL[dtype]
+    np.testing.assert_allclose(_np(to), _np(jo), atol=tol["o"], rtol=tol["o"])
+    np.testing.assert_allclose(_np(tl), _np(jl), atol=tol["lse"], rtol=tol["lse"])
+    torch.autograd.backward([to, tl], [tdo, tg])
+    plain = tattn.flash_backward_reference(tq.detach(), tk.detach(), tv.detach(),
+                                           to.detach(), tl.detach(), tdo, True, window, tg)
+    for name, got, ref, w in zip(("dq", "dk", "dv"), (tq.grad, tk.grad, tv.grad), plain,
+                                 want):
+        for path, g_t in (("autograd", got), ("plain_backward", ref)):
+            assert g_t.dtype == tdt and tuple(g_t.shape) == w.shape
+            np.testing.assert_allclose(_np(g_t), _np(w), **BWD_TOL[dtype],
+                                       err_msg=f"{name} ({path})")
+
+
+# a Llama whose head dim is none of the kernels' first widths: dim 96 over 2
+# query heads of 48 and one KV head
+def _head_dim_48(dtype):
+    return dataclasses.replace(jllama.LlamaConfig.tiny(), dim=96, n_heads=2,
+                               n_kv_heads=1, ffn_dim=192, dtype=dtype)
+
+
+def _twin(jcfg):
+    return tllama.LlamaConfig(**dataclasses.asdict(jcfg))
+
+
+@pytest.fixture(scope="module")
+def llama48():
+    jcfg = _head_dim_48("float32")
+    assert jcfg.head_dim == 48 and _twin(jcfg).head_dim == 48
+    jparams = jllama.init_llama(jcfg, jax.random.PRNGKey(5))
+    tokens = np.random.default_rng(6).integers(0, jcfg.vocab_size, (2, 40))
+    return jcfg, jparams, tokens
+
+
+def _port_params(jcfg, jparams):
+    return params_from_jax(jax.tree.map(np.asarray, jparams), _twin(jcfg), device="cpu")
+
+
+def test_head_dim_48_llama_logits_match_jax(llama48):
+    """fp32 logits: summation order only, two layers of it (the bound of
+    tests/test_torch_llama.py)."""
+    jcfg, jparams, tokens = llama48
+    want = jllama.llama_forward(jparams, jnp.asarray(tokens), jcfg)
+    got = tllama.llama_forward(_port_params(jcfg, jparams), torch.from_numpy(tokens),
+                               _twin(jcfg))
+    assert got.shape == want.shape
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-4, rtol=1e-4)
+
+
+def test_head_dim_48_llama_gradients_match_jax(llama48):
+    """jax.value_and_grad of llama_loss (remat) against the port's backward
+    through its checkpointed layers, every leaf, in fp32 (the bound of
+    tests/test_torch_train.py's gradient parity)."""
+    jcfg, jparams, tokens = llama48
+    want_loss, want = jax.value_and_grad(jllama.llama_loss)(
+        jparams, jnp.asarray(tokens), jcfg, remat=True)
+    tparams = _port_params(jcfg, jparams)
+    for t in param_leaves(tparams):
+        t.requires_grad_(True)
+    loss = tllama.llama_loss(tparams, torch.from_numpy(tokens), _twin(jcfg), remat=True)
+    loss.backward()
+    assert float(loss.detach()) == pytest.approx(float(want_loss), rel=1e-6)
+    want = jax.tree.map(np.asarray, want)
+    for name in ("embed", "final_norm", "lm_head"):
+        np.testing.assert_allclose(_np(tparams[name].grad), want[name], atol=1e-6,
+                                   err_msg=name)
+    for i, layer in enumerate(tparams["layers"]):
+        for name, t in layer.items():
+            np.testing.assert_allclose(_np(t.grad), want["layers"][name][i], atol=1e-6,
+                                       err_msg=f"layers.{i}.{name}")
+
+
+# fp16: every matmul output is rounded to fp16 in both, at places that
+# differ by an ulp, so the logits are held by their relative L2 error, as
+# tests/test_torch_llama.py holds bf16's at 2e-2, over 8 for fp16's finer
+# ulp (measured 8.7e-4 at head dim 32 and 8.2e-4 at 48 on the CPU, seed 7)
+FP16_LOGITS_REL_L2 = 2.5e-3
+
+
+@pytest.mark.parametrize("head_dim", [32, 48])
+def test_fp16_llama_logits_match_jax(head_dim):
+    """A tiny fp16 Llama (the dtype of Llama-2's published weights) at the
+    tiny preset's head dim 32 and at 48."""
+    jcfg = (dataclasses.replace(jllama.LlamaConfig.tiny(), dtype="float16")
+            if head_dim == 32 else _head_dim_48("float16"))
+    assert jcfg.head_dim == head_dim
+    jparams = jllama.init_llama(jcfg, jax.random.PRNGKey(7))
+    tokens = np.random.default_rng(8).integers(0, jcfg.vocab_size, (2, 40))
+    tparams = _port_params(jcfg, jparams)
+    assert tparams["layers"][0]["wq"].dtype == torch.float16
+    want = _np(jllama.llama_forward(jparams, jnp.asarray(tokens), jcfg))
+    got = _np(tllama.llama_forward(tparams, torch.from_numpy(tokens), _twin(jcfg)))
+    assert got.shape == want.shape and np.isfinite(got).all()
+    rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+    assert rel < FP16_LOGITS_REL_L2, rel
+
+
+# fp16 cotangents of a model's size: at Llama-2-7B width dO is ~1e-5, and
+# dS = P (dP - delta) / sqrt(d) ~1e-8 falls below fp16's smallest subnormal
+# where the kernels round dS to fp16 for their products; the kernels'
+# autograd node scales the cotangents by a power of two first
+# (`attention._fp16_cotangent_scale`). Relative L2 of each gradient against
+# the JAX kernels' (dS in fp32): the scaled path reads 2.4e-3-3.3e-3 on the
+# CPU (seed 12), the unscaled twin 0.105 for dQ and dK.
+SMALL_COTANGENT = 1e-5
+SMALL_COTANGENT_REL_L2 = 1e-2
+
+
+def _kernel_twins(monkeypatch):
+    """The backward kernels' plain twin (`flash_backward_reference`, which
+    rounds P and dS where the kernels do) behind the kernels' wrappers, and
+    the wrappers' autograd node on CPU tensors. MHA only: the kernels'
+    dK/dV per q head equal the group sums there."""
+    def dq(q, k, v, do, lse, delta, causal=True, window=None):
+        return tattn.flash_backward_reference(q, k, v, torch.zeros_like(q), lse, do, causal,
+                                              window, -delta)[0]
+
+    def dkv(q, k, v, do, lse, delta, causal=True, window=None):
+        return tattn.flash_backward_reference(q, k, v, torch.zeros_like(q), lse, do, causal,
+                                              window, -delta)[1:]
+
+    monkeypatch.setattr(tattn, "flash_fwd", lambda q, k, v, causal=True, window=None: (
+        tattn.reference_attention_with_lse(q, k, v, causal, window)))
+    monkeypatch.setattr(tattn, "flash_bwd_dq", dq)
+    monkeypatch.setattr(tattn, "flash_bwd_dkv", dkv)
+    monkeypatch.setattr(tattn, "_attention", lambda q, k, v, causal, window: (
+        tattn._FlashFwd.apply(q, k, v, causal, window)))
+
+
+def test_fp16_backward_keeps_small_cotangents(monkeypatch):
+    _kernel_twins(monkeypatch)
+    rng = np.random.default_rng(12)
+    b, h, s, d = 1, 2, 256, 96
+    q, k, v, do = (rng.standard_normal((b, h, s, d), dtype=np.float32) for _ in range(4))
+    do = do * SMALL_COTANGENT
+    g = rng.standard_normal((b, h, s), dtype=np.float32) * SMALL_COTANGENT
+    jx = [jnp.asarray(a).astype("float16") for a in (q, k, v)]
+    _, vjp = jax.vjp(lambda q, k, v: jattn.flash_attention_with_lse(q, k, v), *jx)
+    want = [_np(x) for x in vjp((jnp.asarray(do).astype("float16"), jnp.asarray(g)))]
+    tq, tk, tv = (torch.from_numpy(a).half().requires_grad_(True) for a in (q, k, v))
+    tdo, tg = torch.from_numpy(do).half(), torch.from_numpy(g)
+    o, lse = tattn.flash_attention_with_lse(tq, tk, tv)
+    torch.autograd.backward([o, lse], [tdo, tg])
+    unscaled = tattn.flash_backward_reference(tq.detach(), tk.detach(), tv.detach(),
+                                              o.detach(), lse.detach(), tdo, g_lse=tg)
+
+    def rel(got, w):
+        return float(np.linalg.norm(_np(got) - w) / np.linalg.norm(w))
+
+    for name, got, raw, w in zip(("dq", "dk", "dv"), (tq.grad, tk.grad, tv.grad),
+                                 unscaled, want):
+        assert got.dtype == torch.float16
+        assert rel(got, w) <= SMALL_COTANGENT_REL_L2, name
+        if name != "dv":  # dV = P^T dO rounds no dS
+            assert rel(raw, w) > SMALL_COTANGENT_REL_L2, name

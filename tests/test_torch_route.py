@@ -36,6 +36,18 @@ CASES = {
     "fp32_d128": (lambda: [_bhsd(1, 4, 64, 128, torch.float32)] * 3, "simt"),
     "empty_kv": (lambda: [_bhsd(1, 4, 64, 128), _bhsd(1, 4, 0, 128),
                           _bhsd(1, 4, 0, 128)], "mma"),
+    # head dims past wgmma's and fp16: mma takes aligned rows whose head dim
+    # is a multiple of 8, simt the rest; wgmma stays bf16 at 64 and 128
+    "bf16_d96": (lambda: [_bhsd(1, 4, 64, 96)] * 3, "mma"),
+    "bf16_d256_gqa": (lambda: [_bhsd(1, 8, 64, 256)] + [_bhsd(1, 1, 64, 256)] * 2,
+                      "mma"),
+    "fp16_d128": (lambda: [_bhsd(1, 4, 64, 128, torch.float16)] * 3, "mma"),
+    "fp16_d64": (lambda: [_bhsd(1, 4, 64, 64, torch.float16)] * 3, "mma"),
+    "bf16_d100": (lambda: [_bhsd(1, 4, 64, 100)] * 3, "simt"),
+    "bf16_d100_aligned_rows": (lambda: [_bhsd(1, 4, 64, 104)[..., :100]] * 3, "simt"),
+    "fp16_offset_by_one": (lambda: [_bhsd(1, 4, 64, 128, torch.float16, offset=1)] * 3,
+                           "simt"),
+    "fp16_d40": (lambda: [_bhsd(1, 4, 64, 40, torch.float16)] * 3, "mma"),
 }
 
 
@@ -49,12 +61,12 @@ def test_route_follows_the_inputs(case):
 
 
 @pytest.mark.parametrize("kernel,d,wgmma", [
-    ("flash_fwd", 32, False), ("flash_fwd", 64, True), ("flash_fwd", 128, True),
-    ("flash_bwd_dq", 32, False), ("flash_bwd_dq", 64, True), ("flash_bwd_dq", 128, True),
-    ("flash_bwd_dkv", 32, False), ("flash_bwd_dkv", 64, True), ("flash_bwd_dkv", 128, True)])
+    (kernel, d, d in (64, 128))
+    for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    for d in (32, 64, 128, 40, 80, 96, 256)])
 def test_wgmma_admits_each_kernels_head_dims(kernel, d, wgmma):
     """wgmma takes head dim 64 and 128 for each kernel; every aligned
-    bf16 head dim keeps mma."""
+    bf16 head dim keeps mma, up to 256."""
     tensors = [_model_view(2, 64, 4, d)] * (3 if kernel == "flash_fwd" else 4)
     routes = attn._routes(kernel, *tensors)
     assert routes == (("simt", "mma", "wgmma") if wgmma else ("simt", "mma"))
@@ -63,13 +75,39 @@ def test_wgmma_admits_each_kernels_head_dims(kernel, d, wgmma):
 
 @pytest.mark.parametrize("case,route", [
     ("fp32_d128", "wgmma"), ("fp32_d128", "mma"), ("bf16_d32", "wgmma"),
-    ("bf16_offset_by_one", "mma"), ("bf16_d128", "tma")])
+    ("bf16_offset_by_one", "mma"), ("bf16_d128", "tma"), ("bf16_d96", "wgmma"),
+    ("fp16_d128", "wgmma"), ("bf16_d100", "mma"), ("bf16_d100_aligned_rows", "mma"),
+    ("fp16_offset_by_one", "mma")])
 def test_a_route_that_cannot_take_the_inputs_raises(case, route):
     q, k, v = CASES[case][0]()
     before = attn.flash_fwd.launches
     with pytest.raises(ValueError, match=f"route '{route}' cannot take"):
         attn.flash_fwd(q, k, v, causal=False, route=route)
     assert attn.flash_fwd.launches == before
+
+
+@pytest.mark.parametrize("d", [0, 257, 264])
+@pytest.mark.parametrize("kernel", ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"])
+def test_a_head_dim_past_the_limit_is_refused(kernel, d):
+    """Every wrapper refuses a head dim past 256 (or none), on every route,
+    with the limit in its message, before it asks for CUDA and without a
+    launch."""
+    fn = getattr(attn, kernel)
+    q = _bhsd(1, 2, 32, d)
+    args = (q, q, q) if kernel == "flash_fwd" else _bwd_args(q, q, q, q)
+    before = (fn.launches, dict(fn.launches_by_route))
+    for route in (None, "simt", "mma"):
+        with pytest.raises(ValueError, match=f"{kernel} takes head_dim 1 to 256, got {d}"):
+            fn(*args, route=route)
+    assert attn.KERNEL_MAX_HEAD_DIM == 256
+    assert (fn.launches, fn.launches_by_route) == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.int32])
+def test_a_dtype_the_kernels_lack_is_refused(dtype):
+    q = _bhsd(1, 2, 32, 64, dtype)
+    with pytest.raises(ValueError, match="flash_fwd takes fp32, bf16 or fp16"):
+        attn.flash_fwd(q, q, q)
 
 
 def test_a_route_that_can_take_them_still_needs_cuda():
@@ -96,6 +134,11 @@ BWD_CASES = {
     "fp32_d128": (lambda: [_bhsd(1, 4, 64, 128, torch.float32)] * 4, "simt"),
     "empty_kv": (lambda: [_bhsd(1, 4, 64, 128), _bhsd(1, 4, 0, 128),
                           _bhsd(1, 4, 0, 128), _bhsd(1, 4, 64, 128)], "mma"),
+    "bf16_d96": (lambda: [_bhsd(1, 4, 64, 96)] * 4, "mma"),
+    "fp16_d128": (lambda: [_bhsd(1, 4, 64, 128, torch.float16)] * 4, "mma"),
+    "bf16_d100": (lambda: [_bhsd(1, 4, 64, 100)] * 4, "simt"),
+    "fp16_do_offset_by_one": (lambda: [_bhsd(1, 4, 64, 128, torch.float16)] * 3
+                              + [_bhsd(1, 4, 64, 128, torch.float16, offset=1)], "simt"),
 }
 
 
@@ -121,7 +164,9 @@ def test_backward_route_follows_the_inputs(case):
 # (case, route) a backward kernel must refuse
 BWD_REFUSALS = [("fp32_d128", "wgmma"), ("fp32_d128", "mma"), ("bf16_d32", "wgmma"),
                 ("do_offset_by_one", "mma"), ("do_odd_seq_stride", "wgmma"),
-                ("empty_kv", "wgmma"), ("bf16_d128", "tma")]
+                ("empty_kv", "wgmma"), ("bf16_d128", "tma"), ("bf16_d96", "wgmma"),
+                ("fp16_d128", "wgmma"), ("bf16_d100", "mma"),
+                ("fp16_do_offset_by_one", "mma")]
 
 
 @pytest.mark.parametrize("fn,case,route", [
@@ -242,3 +287,54 @@ def test_bench_mfu_train_expects_no_mma_launch():
     d64 = sum(cfg.n_layers for cfg, _, _ in bench_mfu.train_candidates(True)
               if cfg.head_dim == 64)
     assert d64 * (1 + bench_mfu.CARD_TRAIN_STEPS) == 264
+
+
+def _smoke_row_tensors(row, seq=64):
+    """A chip_smoke SHAPES row's q, k, v, dO as zeros on the CPU in its
+    layout (`rand_inputs`'s), at a short sequence: routes do not depend on
+    it."""
+    _, b, h, kvh, _, _, d, _, _, dtype, layout, _ = row
+    out = []
+    for heads in (h, kvh, kvh, h):
+        shape = (b, heads, seq, d)
+        x = torch.zeros(b * heads * seq * d + (layout == "offset1"), dtype=dtype)
+        x = x[int(layout == "offset1"):]
+        out.append(x.view(b, seq, heads, d).transpose(1, 2) if layout == "bshd"
+                   else x.view(shape))
+    return out
+
+
+def _wide_rows():
+    import chip_smoke
+
+    return [row for row in chip_smoke.SHAPES if row[0] in chip_smoke.WIDE_SHAPES]
+
+
+@pytest.mark.parametrize("row", _wide_rows(), ids=lambda row: row[0])
+def test_the_smokes_wide_rows_take_their_routes(row):
+    """Each row chip_smoke adds at the new head dims and in fp16 names the
+    route `_route` picks for all three kernels there, and never wgmma."""
+    import chip_smoke
+
+    q, k, v, do = _smoke_row_tensors(row)
+    want = chip_smoke.shape_routes(row[-1])
+    assert attn._route("flash_fwd", q, k, v) == want["flash_fwd"]
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert attn._route(name, q, k, v, do) == want[name]
+    assert "wgmma" not in attn._routes("flash_fwd", q, k, v)
+    assert row[6] <= attn.KERNEL_MAX_HEAD_DIM
+
+
+def test_the_smoke_covers_each_new_width_and_dtype():
+    """chip_smoke's new rows reach every padded width of the simt and mma
+    kernels that is not a width of its own, fp16 on both routes, and the
+    head dims the slice names (40, 80, 96, 100, 256)."""
+    import chip_smoke
+
+    rows = _wide_rows()
+    assert {row[6] for row in rows} >= {40, 80, 96, 100, 256}
+    assert {(row[9], row[-1]) for row in rows} >= {
+        (torch.float16, "mma"), (torch.float16, "simt"), (torch.bfloat16, "mma"),
+        (torch.bfloat16, "simt"), (torch.float32, "simt")}
+    assert chip_smoke.REFUSED_HEAD_DIM > attn.KERNEL_MAX_HEAD_DIM
+    assert set(chip_smoke.HEAD_DIM_ROWS) <= set(chip_smoke.WIDE_SHAPES)

@@ -7,13 +7,17 @@ launches the two backward kernels in `csrc/flash_bwd.cu` (dQ, and dK with
 dV). CPU tensors take the plain versions: `reference_attention_with_lse`,
 with autograd through it, and `flash_backward_reference`, the plain twin of
 the backward kernels. The kernels mask ragged sequence tails themselves, so
-no shape falls back to a plain version on the card; they take bf16 or fp32
-and head_dim 32, 64 or 128, and raise otherwise.
+no shape falls back to a plain version on the card; they take fp32, bf16 or
+fp16 and any head_dim from 1 to 256 (`KERNEL_MAX_HEAD_DIM`), as the JAX
+kernels do, and raise otherwise.
 Each kernel has three routes, which `_route` picks per kernel from the
-inputs alone: "wgmma" (TMA and wgmma, bf16 with 16-byte aligned rows: the
-model's path; head_dim 64 or 128), "mma" (mma.sync, other aligned bf16:
-head_dim 32) and "simt" (fp32, unaligned bf16). A named route that cannot
-take the inputs raises; nothing falls back to another route or to the plain
+inputs alone: "wgmma" (TMA and wgmma, bf16 with 16-byte aligned rows:
+the model's path; head_dim 64 or 128), "mma" (mma.sync, other aligned
+bf16 and aligned fp16: rows 16-byte aligned and head_dim a multiple of 8,
+up to 256) and "simt" (fp32, and every bf16 or fp16 input the others do
+not take). The simt and mma kernels run at a padded width (32, 64, 128 or
+256) with the true head_dim at run time. A named route that cannot take the
+inputs raises; nothing falls back to another route or to the plain
 versions. The CPU tests hold the routing; only the card runs the kernels.
 """
 
@@ -123,8 +127,8 @@ def group_sum(x, kvh: int):
 
 
 # ----------------------------------------------------------------- kernels
-_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_KERNEL_HEAD_DIMS = (32, 64, 128)
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+KERNEL_MAX_HEAD_DIM = 256  # the widest padded width of csrc/flash_common.cuh
 _ROUTES = {"simt": 0, "mma": 1, "wgmma": 2}  # route codes of csrc/flash_{fwd,bwd}.cu
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_int64] * 9
              + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
@@ -164,12 +168,12 @@ def _stream(t) -> int:
 def _check_qkv(name: str, q, k, v, causal: bool):
     """The checks shared by the three launchers: -> (b, h, kvh, sq, sk, d)."""
     if q.dtype not in _KERNEL_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"{name} takes bf16 or fp32 q/k/v of one dtype, "
+        raise ValueError(f"{name} takes fp32, bf16 or fp16 q/k/v of one dtype, "
                          f"got {q.dtype}, {k.dtype}, {v.dtype}")
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
-    if d not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"{name} takes head_dim in {_KERNEL_HEAD_DIMS}, got {d}")
+    if not 1 <= d <= KERNEL_MAX_HEAD_DIM:
+        raise ValueError(f"{name} takes head_dim 1 to {KERNEL_MAX_HEAD_DIM}, got {d}")
     if k.shape != (b, kvh, sk, d) or v.shape != k.shape or h % kvh:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
@@ -190,16 +194,17 @@ def _routes(kernel: str, q, k, *rest) -> tuple[str, ...]:
     """The routes of `kernel` ("flash_fwd", "flash_bwd_dq" or
     "flash_bwd_dkv") that can take these inputs (q, k, v for the forward,
     q, k, v and dO for the backward), slowest first: simt takes any; mma
-    needs bf16 with 16-byte aligned bases and (batch, head, seq) strides
-    that are multiples of 8 elements; wgmma needs that, a non-empty kv and
-    a head dim of `_WGMMA_HEAD_DIMS[kernel]` (the conditions of the csrc/
-    entries)."""
+    needs bf16 or fp16 with a head dim that is a multiple of 8, 16-byte
+    aligned bases and (batch, head, seq) strides that are multiples of 8
+    elements; wgmma needs that in bf16, a non-empty kv and a head dim of
+    `_WGMMA_HEAD_DIMS[kernel]` (the conditions of the csrc/ entries)."""
     routes = ("simt",)
-    if q.dtype == torch.bfloat16 and all(
+    if q.dtype in (torch.bfloat16, torch.float16) and q.shape[-1] % 8 == 0 and all(
             t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
             for t in (q, k, *rest)):
         routes += ("mma",)
-        if q.shape[-1] in _WGMMA_HEAD_DIMS[kernel] and k.shape[2] > 0:
+        if (q.dtype == torch.bfloat16 and q.shape[-1] in _WGMMA_HEAD_DIMS[kernel]
+                and k.shape[2] > 0):
             routes += ("wgmma",)
     return routes
 
@@ -323,10 +328,26 @@ _reset_counts(flash_bwd_dq)
 _reset_counts(flash_bwd_dkv)
 
 
+def _fp16_cotangent_scale(g_out):
+    """A power of two (a 0-d fp32 tensor on g_out's device, no host sync)
+    that brings the largest |dO| into [1, 2). The backward kernels round P
+    and dS to the input dtype for their tensor-core products, where the JAX
+    kernels keep them in fp32; in fp16 a model's cotangents (~1e-5 at
+    Llama-2-7B width) make dS ~1e-8, below fp16's smallest subnormal, and
+    dQ and dK would lose most of their value. The backward is linear in
+    (dO, the LSE cotangent), so it runs on both times this scale and divides
+    its outputs by it: exact in powers of two, and dS then lies in fp16's
+    normal range. bf16 has fp32's exponent range and needs none."""
+    amax = g_out.abs().amax().float()
+    return torch.where(amax > 0, torch.exp2(-torch.floor(torch.log2(amax))),
+                       torch.ones_like(amax))
+
+
 class _FlashFwd(torch.autograd.Function):
     """The forward kernel as an autograd node whose backward launches the
     dQ and dK/dV kernels. The LSE output is differentiable: its cotangent
-    folds into delta (d LSE / d S = P per row)."""
+    folds into delta (d LSE / d S = P per row). In fp16 the cotangents are
+    scaled first (`_fp16_cotangent_scale`)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
@@ -338,6 +359,11 @@ class _FlashFwd(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_out, g_lse):
         q, k, v, o, lse = ctx.saved_tensors
+        scale = None
+        if q.dtype == torch.float16:
+            scale = _fp16_cotangent_scale(g_out)
+            g_out = (g_out.float() * scale).to(torch.float16)
+            g_lse = None if g_lse is None else g_lse * scale
         if g_out.stride(-1) != 1:
             g_out = g_out.contiguous()
         delta = backward_delta(o, g_out, g_lse).contiguous()
@@ -345,7 +371,10 @@ class _FlashFwd(torch.autograd.Function):
         dq = flash_bwd_dq(*args)
         dk, dv = flash_bwd_dkv(*args)
         kvh = k.shape[1]
-        return dq, group_sum(dk, kvh), group_sum(dv, kvh), None, None
+        grads = [dq, group_sum(dk, kvh), group_sum(dv, kvh)]
+        if scale is not None:
+            grads = [(g.float() / scale).to(torch.float16) for g in grads]
+        return (*grads, None, None)
 
 
 def _attention(q, k, v, causal, window):

@@ -15,9 +15,11 @@ from __future__ import annotations
 import torch
 
 H100_BF16_FLOPS = 989e12   # dense tensor-core peak, NVIDIA data sheet (SXM)
+H100_FP16_FLOPS = 989e12   # dense fp16 tensor-core peak, the same as bf16's
 H100_FP32_FLOPS = 67e12    # fp32 outside the tensor cores
 H100_HBM_BYTES = 3.35e12   # bytes/s
-PEAK_FLOPS = {torch.bfloat16: H100_BF16_FLOPS, torch.float32: H100_FP32_FLOPS}
+PEAK_FLOPS = {torch.bfloat16: H100_BF16_FLOPS, torch.float16: H100_FP16_FLOPS,
+              torch.float32: H100_FP32_FLOPS}
 
 
 def visible_pairs(sq: int, sk: int, causal: bool, window: int | None) -> int:

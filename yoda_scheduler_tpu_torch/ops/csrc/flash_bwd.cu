@@ -31,19 +31,23 @@
 //   kernel. Below; flash_bwd_dkv_wgmma64_kernel and
 //   flash_bwd_dq_wgmma64_kernel are route 2 at D = 64 (bench_mfu's d1024
 //   widths), each with its own note. Route 2 refuses every other D.
-// - *_mma kernels (route 1; aligned bf16, the route of D = 32; they take
-//   D = 64 and 128 too, to be held against the wgmma kernels): 4 warps each
-//   own 16 rows of a 64-row tile and run all products on the tensor cores
-//   with mma.sync m16n8k16, 16 streamed rows at a time, skipping 16-row
-//   steps masked for all of their rows; the streamed tiles are copied
-//   through registers with no pipeline. The dK/dV kernel computes S^T = K
-//   Q^T directly, so its accumulator tiles are already the A operands of
-//   P^T dO and dS^T Q.
-// - *_simt kernels (route 0; fp32, and bf16 rows not 16-byte aligned):
-//   scalar fp32 FMAs from shared memory, 256 threads as a 16 x 16 grid, each
-//   owning 4 rows of the block's tile.
-// P and dS are rounded to bf16 as operands of the following products, where
-// the plain version rounds them too.
+// - *_mma kernels (route 1; aligned bf16 and fp16, D a multiple of 8 up to
+//   256; they take bf16 at D = 64 and 128 too, to be held against the wgmma
+//   kernels): 4 warps each own 16 rows of a 64-row tile and run all products
+//   on the tensor cores with mma.sync m16n8k16, 16 streamed rows at a time,
+//   skipping 16-row steps masked for all of their rows; the streamed tiles
+//   are copied through registers with no pipeline. The dK/dV kernel computes
+//   S^T = K Q^T directly, so its accumulator tiles are already the A operands
+//   of P^T dO and dS^T Q. At DP = 256 dQ reads its Q and dO fragments from
+//   shared memory at each step, and two dK/dV blocks take 128 columns each.
+// - *_simt kernels (route 0; fp32, and bf16 or fp16 rows the mma kernels do
+//   not take): scalar fp32 FMAs from shared memory, 256 threads as a 16 x 16
+//   grid, each owning 4 rows of the block's tile (2 at DP = 256).
+// The simt and mma kernels are built at a padded width DP of 32, 64, 128 or
+// 256 and take the true D at run time, as flash_fwd.cu's. P and dS are
+// rounded to the input type as operands of the following products, where
+// the plain version rounds them too (in fp16, ops/attention.py scales the
+// cotangents first, so that dS stays in fp16's normal range).
 //
 // The wgmma kernels. Three warpgroups: warpgroup 0 is the producer (it gives
 // up registers with setmaxnreg) and warpgroups 1 and 2 are consumers of 64
@@ -132,267 +136,279 @@ __device__ __forceinline__ void q_tiles(int k0, int keys, int bq, int Sq, int Sk
 }
 
 // ------------------------------------------------------------------ SIMT dQ
-template <typename T, int D>
+// Both SIMT kernels are built at a padded width DP (flash_common.cuh's
+// padded_dim) with tiles of SB = simt_tile(DP) rows: columns d .. DP read
+// as zeros and are not stored.
+template <typename T, int DP>
 __global__ void __launch_bounds__(NT) flash_bwd_dq_simt_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, T* __restrict__ dq,
-    int H, int KvH, int Sq, int Sk, Strides st, int causal, int window, float scale) {
-  constexpr int DP = D + 1;     // padded row: column reads are conflict-free
-  constexpr int CPT = D / 16;   // output columns per thread
+    int H, int KvH, int Sq, int Sk, int d, Strides st, int causal, int window,
+    float scale) {
+  constexpr int SB = simt_tile(DP);  // q rows per block, keys per tile
+  constexpr int RPT = SB / 16;       // rows (and key columns) per thread
+  constexpr int SBP = SB + 4;        // padded dS row
+  constexpr int DQ = DP + 1;         // padded row: column reads are conflict-free
+  constexpr int CPT = DP / 16;       // output columns per thread
   extern __shared__ float smem[];
-  float* sQ = smem;             // [BQ][DP]
-  float* sDO = sQ + BQ * DP;    // [BQ][DP]
-  float* sK = sDO + BQ * DP;    // [BK][DP]
-  float* sV = sK + BK * DP;     // [BK][DP]
-  float* sS = sV + BK * DP;     // [BQ][BKP]: dS
+  float* sQ = smem;             // [SB][DQ]
+  float* sDO = sQ + SB * DQ;    // [SB][DQ]
+  float* sK = sDO + SB * DQ;    // [SB][DQ]
+  float* sV = sK + SB * DQ;     // [SB][DQ]
+  float* sS = sV + SB * DQ;     // [SB][SBP]: dS
 
   const int tid = threadIdx.x;
-  const int ty = tid >> 4;      // this thread's rows: 4*ty .. 4*ty+3
+  const int ty = tid >> 4;      // this thread's rows: RPT*ty .. RPT*ty+RPT-1
   const int tx = tid & 15;      // this thread's key columns: tx + 16*j
   const int qt = gridDim.x - 1 - blockIdx.x;  // longest causal tiles first
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
   const int kvh = h / (H / KvH);
-  const int q0 = qt * BQ;
+  const int q0 = qt * SB;
   const int kv_offset = Sk - Sq;
   const T* qp = q + b * st.q_sb + h * st.q_sh;
   const T* dp_ = dout + b * st.o_sb + h * st.o_sh;
   const T* kp = k + b * st.k_sb + kvh * st.k_sh;
   const T* vp = v + b * st.v_sb + kvh * st.v_sh;
 
-  for (int i = tid; i < BQ * D; i += NT) {
-    const int r = i / D, c = i % D;
+  for (int i = tid; i < SB * DP; i += NT) {
+    const int r = i / DP, c = i % DP;
     float x = 0.f, y = 0.f;
-    if (q0 + r < Sq) {
+    if (q0 + r < Sq && c < d) {
       x = to_f32(qp[(int64_t)(q0 + r) * st.q_ss + c]);
       y = to_f32(dp_[(int64_t)(q0 + r) * st.o_ss + c]);
     }
-    sQ[r * DP + c] = x;
-    sDO[r * DP + c] = y;
+    sQ[r * DQ + c] = x;
+    sDO[r * DQ + c] = y;
   }
-  float lse_r[4], dlt_r[4];
+  float lse_r[RPT], dlt_r[RPT];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
+  for (int i = 0; i < RPT; ++i) {
+    const int row = q0 + RPT * ty + i;
     lse_r[i] = row < Sq ? lse[(int64_t)bh * Sq + row] : 0.f;
     dlt_r[i] = row < Sq ? delta[(int64_t)bh * Sq + row] : 0.f;
   }
   int first_tile, n_tiles;
-  key_tiles(q0, BQ, BK, Sq, Sk, causal, window, first_tile, n_tiles);
+  key_tiles(q0, SB, SB, Sq, Sk, causal, window, first_tile, n_tiles);
 
-  float acc[4][CPT];
+  float acc[RPT][CPT];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RPT; ++i)
 #pragma unroll
     for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
 
   for (int t = first_tile; t < n_tiles; ++t) {
-    const int k0 = t * BK;
+    const int k0 = t * SB;
     __syncthreads();  // the last tile's reads of sK/sV/sS are done
-    for (int i = tid; i < BK * D; i += NT) {
-      const int r = i / D, c = i % D;
+    for (int i = tid; i < SB * DP; i += NT) {
+      const int r = i / DP, c = i % DP;
       float kx = 0.f, vx = 0.f;
-      if (k0 + r < Sk) {
+      if (k0 + r < Sk && c < d) {
         kx = to_f32(kp[(int64_t)(k0 + r) * st.k_ss + c]);
         vx = to_f32(vp[(int64_t)(k0 + r) * st.v_ss + c]);
       }
-      sK[r * DP + c] = kx;
-      sV[r * DP + c] = vx;
+      sK[r * DQ + c] = kx;
+      sV[r * DQ + c] = vx;
     }
     __syncthreads();
 
-    float s[4][4], dpv[4][4];
+    float s[RPT][RPT], dpv[RPT][RPT];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RPT; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dpv[i][j] = 0.f;
+      for (int j = 0; j < RPT; ++j) s[i][j] = dpv[i][j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[4], ov[4], kv[4], vv[4];
+    for (int dd = 0; dd < DP; ++dd) {
+      float qv[RPT], ov[RPT], kv[RPT], vv[RPT];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = sQ[(4 * ty + i) * DP + d];
-        ov[i] = sDO[(4 * ty + i) * DP + d];
+      for (int i = 0; i < RPT; ++i) {
+        qv[i] = sQ[(RPT * ty + i) * DQ + dd];
+        ov[i] = sDO[(RPT * ty + i) * DQ + dd];
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kv[j] = sK[(tx + 16 * j) * DP + d];
-        vv[j] = sV[(tx + 16 * j) * DP + d];
+      for (int j = 0; j < RPT; ++j) {
+        kv[j] = sK[(tx + 16 * j) * DQ + dd];
+        vv[j] = sV[(tx + 16 * j) * DQ + dd];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RPT; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < RPT; ++j) {
           s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
           dpv[i][j] = fmaf(ov[i], vv[j], dpv[i][j]);
         }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = kv_offset + q0 + 4 * ty + i;
+    for (int i = 0; i < RPT; ++i) {
+      const int qpos = kv_offset + q0 + RPT * ty + i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RPT; ++j) {
         const int key = k0 + tx + 16 * j;
         const float p = visible(key, qpos, Sk, causal, window)
                             ? expf(s[i][j] * scale - lse_r[i]) : 0.f;
-        sS[(4 * ty + i) * BKP + tx + 16 * j] =
+        sS[(RPT * ty + i) * SBP + tx + 16 * j] =
             round_as(p * (dpv[i][j] - dlt_r[i]) * scale, T());
       }
     }
     __syncthreads();
 
 #pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float sv[4], kv[CPT];
+    for (int kk = 0; kk < SB; ++kk) {
+      float sv[RPT], kv[CPT];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) sv[i] = sS[(4 * ty + i) * BKP + kk];
+      for (int i = 0; i < RPT; ++i) sv[i] = sS[(RPT * ty + i) * SBP + kk];
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) kv[c] = sK[kk * DP + tx + 16 * c];
+      for (int c = 0; c < CPT; ++c) kv[c] = sK[kk * DQ + tx + 16 * c];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RPT; ++i)
 #pragma unroll
         for (int c = 0; c < CPT; ++c) acc[i][c] = fmaf(sv[i], kv[c], acc[i][c]);
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
+  for (int i = 0; i < RPT; ++i) {
+    const int row = q0 + RPT * ty + i;
     if (row >= Sq) continue;
-    T* out = dq + ((int64_t)bh * Sq + row) * D;
+    T* out = dq + ((int64_t)bh * Sq + row) * d;
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) store(out + tx + 16 * c, acc[i][c]);
+    for (int c = 0; c < CPT; ++c)
+      if (tx + 16 * c < d) store(out + tx + 16 * c, acc[i][c]);
   }
 }
 
 // --------------------------------------------------------------- SIMT dK/dV
-template <typename T, int D>
+template <typename T, int DP>
 __global__ void __launch_bounds__(NT) flash_bwd_dkv_simt_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-    int H, int KvH, int Sq, int Sk, Strides st, int causal, int window, float scale) {
-  constexpr int DP = D + 1;
-  constexpr int CPT = D / 16;
+    int H, int KvH, int Sq, int Sk, int d, Strides st, int causal, int window,
+    float scale) {
+  constexpr int SB = simt_tile(DP);  // keys per block, q rows per tile
+  constexpr int RPT = SB / 16;       // keys (and q columns) per thread
+  constexpr int SBP = SB + 4;
+  constexpr int DQ = DP + 1;
+  constexpr int CPT = DP / 16;
   extern __shared__ float smem[];
-  float* sK = smem;             // [BK][DP]
-  float* sV = sK + BK * DP;     // [BK][DP]
-  float* sQ = sV + BK * DP;     // [BQ][DP]
-  float* sDO = sQ + BQ * DP;    // [BQ][DP]
-  float* sP = sDO + BQ * DP;    // [BK][BKP]: P^T
-  float* sS = sP + BK * BKP;    // [BK][BKP]: dS^T
-  float* sL = sS + BK * BKP;    // [BQ]: LSE
-  float* sD = sL + BQ;          // [BQ]: delta
+  float* sK = smem;             // [SB][DQ]
+  float* sV = sK + SB * DQ;     // [SB][DQ]
+  float* sQ = sV + SB * DQ;     // [SB][DQ]
+  float* sDO = sQ + SB * DQ;    // [SB][DQ]
+  float* sP = sDO + SB * DQ;    // [SB][SBP]: P^T
+  float* sS = sP + SB * SBP;    // [SB][SBP]: dS^T
+  float* sL = sS + SB * SBP;    // [SB]: LSE
+  float* sD = sL + SB;          // [SB]: delta
 
   const int tid = threadIdx.x;
-  const int ty = tid >> 4;      // this thread's keys: 4*ty .. 4*ty+3
+  const int ty = tid >> 4;      // this thread's keys: RPT*ty .. RPT*ty+RPT-1
   const int tx = tid & 15;      // this thread's q columns: tx + 16*j
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
   const int kvh = h / (H / KvH);
-  const int k0 = blockIdx.x * BK;  // low tiles have the most q tiles: first
+  const int k0 = blockIdx.x * SB;  // low tiles have the most q tiles: first
   const int kv_offset = Sk - Sq;
   const T* qp = q + b * st.q_sb + h * st.q_sh;
   const T* dp_ = dout + b * st.o_sb + h * st.o_sh;
   const T* kp = k + b * st.k_sb + kvh * st.k_sh;
   const T* vp = v + b * st.v_sb + kvh * st.v_sh;
 
-  for (int i = tid; i < BK * D; i += NT) {
-    const int r = i / D, c = i % D;
+  for (int i = tid; i < SB * DP; i += NT) {
+    const int r = i / DP, c = i % DP;
     float kx = 0.f, vx = 0.f;
-    if (k0 + r < Sk) {
+    if (k0 + r < Sk && c < d) {
       kx = to_f32(kp[(int64_t)(k0 + r) * st.k_ss + c]);
       vx = to_f32(vp[(int64_t)(k0 + r) * st.v_ss + c]);
     }
-    sK[r * DP + c] = kx;
-    sV[r * DP + c] = vx;
+    sK[r * DQ + c] = kx;
+    sV[r * DQ + c] = vx;
   }
   int first_tile, n_tiles;
-  q_tiles(k0, BK, BQ, Sq, Sk, causal, window, first_tile, n_tiles);
+  q_tiles(k0, SB, SB, Sq, Sk, causal, window, first_tile, n_tiles);
 
-  float gk[4][CPT], gv[4][CPT];
+  float gk[RPT][CPT], gv[RPT][CPT];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RPT; ++i)
 #pragma unroll
     for (int c = 0; c < CPT; ++c) gk[i][c] = gv[i][c] = 0.f;
 
   for (int t = first_tile; t < n_tiles; ++t) {
-    const int q0 = t * BQ;
+    const int q0 = t * SB;
     __syncthreads();  // the last tile's reads of sQ/sDO/sP/sS are done
-    for (int i = tid; i < BQ * D; i += NT) {
-      const int r = i / D, c = i % D;
+    for (int i = tid; i < SB * DP; i += NT) {
+      const int r = i / DP, c = i % DP;
       float x = 0.f, y = 0.f;
-      if (q0 + r < Sq) {
+      if (q0 + r < Sq && c < d) {
         x = to_f32(qp[(int64_t)(q0 + r) * st.q_ss + c]);
         y = to_f32(dp_[(int64_t)(q0 + r) * st.o_ss + c]);
       }
-      sQ[r * DP + c] = x;
-      sDO[r * DP + c] = y;
+      sQ[r * DQ + c] = x;
+      sDO[r * DQ + c] = y;
     }
-    for (int i = tid; i < BQ; i += NT) {
+    for (int i = tid; i < SB; i += NT) {
       const bool in = q0 + i < Sq;
       sL[i] = in ? lse[(int64_t)bh * Sq + q0 + i] : 0.f;
       sD[i] = in ? delta[(int64_t)bh * Sq + q0 + i] : 0.f;
     }
     __syncthreads();
 
-    float s[4][4], dpv[4][4];
+    float s[RPT][RPT], dpv[RPT][RPT];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RPT; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dpv[i][j] = 0.f;
+      for (int j = 0; j < RPT; ++j) s[i][j] = dpv[i][j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float kv[4], vv[4], qv[4], ov[4];
+    for (int dd = 0; dd < DP; ++dd) {
+      float kv[RPT], vv[RPT], qv[RPT], ov[RPT];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        kv[i] = sK[(4 * ty + i) * DP + d];
-        vv[i] = sV[(4 * ty + i) * DP + d];
+      for (int i = 0; i < RPT; ++i) {
+        kv[i] = sK[(RPT * ty + i) * DQ + dd];
+        vv[i] = sV[(RPT * ty + i) * DQ + dd];
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        qv[j] = sQ[(tx + 16 * j) * DP + d];
-        ov[j] = sDO[(tx + 16 * j) * DP + d];
+      for (int j = 0; j < RPT; ++j) {
+        qv[j] = sQ[(tx + 16 * j) * DQ + dd];
+        ov[j] = sDO[(tx + 16 * j) * DQ + dd];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RPT; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < RPT; ++j) {
           s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
           dpv[i][j] = fmaf(vv[i], ov[j], dpv[i][j]);
         }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int key = k0 + 4 * ty + i;
+    for (int i = 0; i < RPT; ++i) {
+      const int key = k0 + RPT * ty + i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RPT; ++j) {
         const int r = tx + 16 * j;
         const bool ok = q0 + r < Sq &&
                         visible(key, kv_offset + q0 + r, Sk, causal, window);
         const float p = ok ? expf(s[i][j] * scale - sL[r]) : 0.f;
-        sP[(4 * ty + i) * BKP + r] = round_as(p, T());
-        sS[(4 * ty + i) * BKP + r] = round_as(p * (dpv[i][j] - sD[r]) * scale, T());
+        sP[(RPT * ty + i) * SBP + r] = round_as(p, T());
+        sS[(RPT * ty + i) * SBP + r] = round_as(p * (dpv[i][j] - sD[r]) * scale, T());
       }
     }
     __syncthreads();
 
 #pragma unroll 4
-    for (int r = 0; r < BQ; ++r) {
-      float pv[4], sv[4], ov[CPT], qv[CPT];
+    for (int r = 0; r < SB; ++r) {
+      float pv[RPT], sv[RPT], ov[CPT], qv[CPT];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = sP[(4 * ty + i) * BKP + r];
-        sv[i] = sS[(4 * ty + i) * BKP + r];
+      for (int i = 0; i < RPT; ++i) {
+        pv[i] = sP[(RPT * ty + i) * SBP + r];
+        sv[i] = sS[(RPT * ty + i) * SBP + r];
       }
 #pragma unroll
       for (int c = 0; c < CPT; ++c) {
-        ov[c] = sDO[r * DP + tx + 16 * c];
-        qv[c] = sQ[r * DP + tx + 16 * c];
+        ov[c] = sDO[r * DQ + tx + 16 * c];
+        qv[c] = sQ[r * DQ + tx + 16 * c];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RPT; ++i)
 #pragma unroll
         for (int c = 0; c < CPT; ++c) {
           gv[i][c] = fmaf(pv[i], ov[c], gv[i][c]);
@@ -402,13 +418,14 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_simt_kernel(
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + 4 * ty + i;
+  for (int i = 0; i < RPT; ++i) {
+    const int key = k0 + RPT * ty + i;
     if (key >= Sk) continue;
-    T* krow = dk + ((int64_t)bh * Sk + key) * D;
-    T* vrow = dv + ((int64_t)bh * Sk + key) * D;
+    T* krow = dk + ((int64_t)bh * Sk + key) * d;
+    T* vrow = dv + ((int64_t)bh * Sk + key) * d;
 #pragma unroll
     for (int c = 0; c < CPT; ++c) {
+      if (tx + 16 * c >= d) continue;
       store(krow + tx + 16 * c, gk[i][c]);
       store(vrow + tx + 16 * c, gv[i][c]);
     }
@@ -416,21 +433,33 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_simt_kernel(
 }
 
 // ------------------------------------------------------------ tensor-core dQ
-template <int D>
+// Both mma kernels are built for bf16 or fp16 (T) at a padded width DP, as
+// flash_fwd_mma_kernel is: an exact build (PAD false) for D = DP, a padded
+// one for D below DP:
+// columns d .. DP load as zeros, which add nothing to the products, and
+// nothing past d is stored (d is a multiple of 8). Their loops run over all
+// of DP, as at d = DP: skipping the k-steps and n-tiles past d behind a
+// branch made every product slower, d = DP's too.
+template <typename T, int DP, bool PAD>
 __global__ void __launch_bounds__(NT_MMA) flash_bwd_dq_mma_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    __nv_bfloat16* __restrict__ dq,
-    int H, int KvH, int Sq, int Sk, Strides st, int causal, int window, float scale) {
-  constexpr int DS = D + 8;     // padded smem row: fragment reads are conflict-free
-  constexpr int KS = D / 16;    // k-steps over the head dim
-  constexpr int NO = D / 8;     // n-tiles of dQ
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ dq,
+    int H, int KvH, int Sq, int Sk, int d_arg, Strides st, int causal, int window,
+    float scale) {
+  constexpr int DS = DP + 8;    // padded smem row: fragment reads are conflict-free
+  constexpr int KS = DP / 16;   // k-steps over the head dim
+  constexpr int NO = DP / 8;    // n-tiles of dQ
+  // up to DP = 128 a warp keeps its Q and dO fragments in registers for the
+  // whole loop; at 256 they would not fit beside dQ's 128 fp32 sums, and are
+  // read from shared memory at each k-step
+  constexpr bool QREG = DP <= 128;
+  const int d = PAD ? d_arg : DP;  // as flash_fwd_mma_kernel's
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BQ][DS]
-  __nv_bfloat16* sDO = sQ + BQ * DS;                                 // [BQ][DS]
-  __nv_bfloat16* sK = sDO + BQ * DS;                                 // [BK][DS]
-  __nv_bfloat16* sV = sK + BK * DS;                                  // [BK][DS]
+  T* sQ = reinterpret_cast<T*>(smem_raw);  // [BQ][DS]
+  T* sDO = sQ + BQ * DS;                   // [BQ][DS]
+  T* sK = sDO + BQ * DS;                   // [BK][DS]
+  T* sV = sK + BK * DS;                    // [BK][DS]
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
@@ -440,18 +469,22 @@ __global__ void __launch_bounds__(NT_MMA) flash_bwd_dq_mma_kernel(
   const int kvh = h / (H / KvH);
   const int q0 = qt * BQ;
   const int kv_offset = Sk - Sq;
-  const __nv_bfloat16* kp = k + b * st.k_sb + kvh * st.k_sh;
-  const __nv_bfloat16* vp = v + b * st.v_sb + kvh * st.v_sh;
+  const T* kp = k + b * st.k_sb + kvh * st.k_sh;
+  const T* vp = v + b * st.v_sb + kvh * st.v_sh;
 
-  load_tile<D>(sQ, q + b * st.q_sb + h * st.q_sh, st.q_ss, q0, Sq);
-  load_tile<D>(sDO, dout + b * st.o_sb + h * st.o_sh, st.o_ss, q0, Sq);
+  load_tile<DP>(sQ, q + b * st.q_sb + h * st.q_sh, st.q_ss, q0, Sq, d);
+  load_tile<DP>(sDO, dout + b * st.o_sb + h * st.o_sh, st.o_ss, q0, Sq, d);
   __syncthreads();
-  // this warp's 16 rows of Q and dO as A fragments, for the whole loop
-  uint32_t qf[KS][4], of[KS][4];
+  // this warp's 16 rows of Q and dO as A fragments
+  const T* qw = sQ + 16 * warp * DS;
+  const T* ow = sDO + 16 * warp * DS;
+  uint32_t qf[QREG ? KS : 1][4], of[QREG ? KS : 1][4];
+  if constexpr (QREG) {
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    load_a<DS>(qf[kk], sQ + 16 * warp * DS, kk, g, t4);
-    load_a<DS>(of[kk], sDO + 16 * warp * DS, kk, g, t4);
+    for (int kk = 0; kk < KS; ++kk) {
+      load_a<DS>(qf[kk], qw, kk, g, t4);
+      load_a<DS>(of[kk], ow, kk, g, t4);
+    }
   }
   // this warp's query positions; a warp wholly past Sq computes nothing
   const int w_row0 = q0 + 16 * warp;
@@ -475,8 +508,8 @@ __global__ void __launch_bounds__(NT_MMA) flash_bwd_dq_mma_kernel(
   for (int tile = first_tile; tile < n_tiles; ++tile) {
     const int k0 = tile * BK;
     __syncthreads();  // every warp is done with the last tile
-    load_tile<D>(sK, kp, st.k_ss, k0, Sk);
-    load_tile<D>(sV, vp, st.v_ss, k0, Sk);
+    load_tile<DP>(sK, kp, st.k_ss, k0, Sk, d);
+    load_tile<DP>(sV, vp, st.v_ss, k0, Sk, d);
     __syncthreads();
     if (!w_live) continue;
 #pragma unroll 1
@@ -491,15 +524,33 @@ __global__ void __launch_bounds__(NT_MMA) flash_bwd_dq_mma_kernel(
       // S = Q K^T and dP = dO V^T for 16 rows x 16 keys (two n-tiles of 8)
       float s[2][4], dpv[2][4];
 #pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-        dpv[n][0] = dpv[n][1] = dpv[n][2] = dpv[n][3] = 0.f;
-        const __nv_bfloat16* kr = sK + (16 * j + 8 * n + g) * DS + 2 * t4;
-        const __nv_bfloat16* vr = sV + (16 * j + 8 * n + g) * DS + 2 * t4;
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dpv[n][e] = 0.f;
+      if constexpr (QREG) {
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          const T* kr = sK + (16 * j + 8 * n + g) * DS + 2 * t4;
+          const T* vr = sV + (16 * j + 8 * n + g) * DS + 2 * t4;
+#pragma unroll
+          for (int kk = 0; kk < KS; ++kk) {
+            mma_t<T>(s[n], qf[kk], ld_pair(kr + 16 * kk), ld_pair(kr + 16 * kk + 8));
+            mma_t<T>(dpv[n], of[kk], ld_pair(vr + 16 * kk), ld_pair(vr + 16 * kk + 8));
+          }
+        }
+      } else {
 #pragma unroll
         for (int kk = 0; kk < KS; ++kk) {
-          mma_bf16(s[n], qf[kk], ld_pair(kr + 16 * kk), ld_pair(kr + 16 * kk + 8));
-          mma_bf16(dpv[n], of[kk], ld_pair(vr + 16 * kk), ld_pair(vr + 16 * kk + 8));
+          uint32_t qa[4], oa[4];
+          load_a<DS>(qa, qw, kk, g, t4);
+          load_a<DS>(oa, ow, kk, g, t4);
+#pragma unroll
+          for (int n = 0; n < 2; ++n) {
+            const T* kr = sK + (16 * j + 8 * n + g) * DS + 2 * t4 + 16 * kk;
+            const T* vr = sV + (16 * j + 8 * n + g) * DS + 2 * t4 + 16 * kk;
+            mma_t<T>(s[n], qa, ld_pair(kr), ld_pair(kr + 8));
+            mma_t<T>(dpv[n], oa, ld_pair(vr), ld_pair(vr + 8));
+          }
         }
       }
       // dS = P (dP - delta) scale with P = exp(S scale - LSE); row g in
@@ -515,14 +566,14 @@ __global__ void __launch_bounds__(NT_MMA) flash_bwd_dq_mma_kernel(
             p = 0.f;
           s[n][e] = p * (dpv[n][e] - dlt_r[e >> 1]) * scale;
         }
-      const uint32_t da[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
-                              pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
+      const uint32_t da[4] = {pack_t<T>(s[0][0], s[0][1]), pack_t<T>(s[0][2], s[0][3]),
+                              pack_t<T>(s[1][0], s[1][1]), pack_t<T>(s[1][2], s[1][3])};
       // dQ += dS K: B = K rows (the 16 keys) x 8 head-dim columns
-      const __nv_bfloat16* kc_ = sK + (16 * j + 2 * t4) * DS + g;
+      const T* kc_ = sK + (16 * j + 2 * t4) * DS + g;
 #pragma unroll
       for (int n = 0; n < NO; ++n) {
-        const __nv_bfloat16* c = kc_ + 8 * n;
-        mma_bf16(acc[n], da, pack_raw(c[0], c[DS]), pack_raw(c[8 * DS], c[9 * DS]));
+        const T* c = kc_ + 8 * n;
+        mma_t<T>(acc[n], da, pack_raw(c[0], c[DS]), pack_raw(c[8 * DS], c[9 * DS]));
       }
     }
   }
@@ -532,31 +583,38 @@ __global__ void __launch_bounds__(NT_MMA) flash_bwd_dq_mma_kernel(
   for (int r = 0; r < 2; ++r) {
     const int row = w_row0 + g + 8 * r;
     if (row >= Sq) continue;
-    __nv_bfloat16* out = dq + ((int64_t)bh * Sq + row) * D + 2 * t4;
+    T* out = dq + ((int64_t)bh * Sq + row) * d + 2 * t4;
 #pragma unroll
     for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<uint32_t*>(out + 8 * n) = pack_bf16(acc[n][2 * r], acc[n][2 * r + 1]);
+      if (8 * n < d)
+        *reinterpret_cast<uint32_t*>(out + 8 * n) = pack_t<T>(acc[n][2 * r], acc[n][2 * r + 1]);
   }
 }
 
 // --------------------------------------------------------- tensor-core dK/dV
-template <int D>
+// OC: the head-dim columns of dK and dV a block sums, DP up to 128; at DP =
+// 256 two blocks (blockIdx.z) take 128 columns each, each computing the
+// whole S^T and dP^T, as a warp's dK and dV of all 256 columns (256 fp32 a
+// thread) would not fit in its registers
+template <typename T, int DP, bool PAD>
 __global__ void __launch_bounds__(NT_MMA) flash_bwd_dkv_mma_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-    int H, int KvH, int Sq, int Sk, Strides st, int causal, int window, float scale) {
-  constexpr int DS = D + 8;
-  constexpr int KS = D / 16;
-  constexpr int NO = D / 8;
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+    int H, int KvH, int Sq, int Sk, int d_arg, Strides st, int causal, int window,
+    float scale) {
+  constexpr int DS = DP + 8;
+  constexpr int KS = DP / 16;
+  constexpr int OC = DP <= 128 ? DP : 128;
+  constexpr int NO = OC / 8;    // n-tiles of this block's dK and dV columns
+  const int d = PAD ? d_arg : DP;  // as flash_fwd_mma_kernel's
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BK][DS]
-  __nv_bfloat16* sV = sK + BK * DS;                                  // [BK][DS]
-  __nv_bfloat16* sQ = sV + BK * DS;                                  // [BQ][DS]
-  __nv_bfloat16* sDO = sQ + BQ * DS;                                 // [BQ][DS]
-  float* sL = reinterpret_cast<float*>(sDO + BQ * DS);               // [BQ]
-  float* sD = sL + BQ;                                               // [BQ]
+  T* sK = reinterpret_cast<T*>(smem_raw);             // [BK][DS]
+  T* sV = sK + BK * DS;                               // [BK][DS]
+  T* sQ = sV + BK * DS;                               // [BQ][DS]
+  T* sDO = sQ + BQ * DS;                              // [BQ][DS]
+  float* sL = reinterpret_cast<float*>(sDO + BQ * DS);  // [BQ]
+  float* sD = sL + BQ;                                // [BQ]
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
@@ -565,16 +623,17 @@ __global__ void __launch_bounds__(NT_MMA) flash_bwd_dkv_mma_kernel(
   const int kvh = h / (H / KvH);
   const int k0 = blockIdx.x * BK;  // low tiles have the most q tiles: first
   const int kv_offset = Sk - Sq;
-  const __nv_bfloat16* qp = q + b * st.q_sb + h * st.q_sh;
-  const __nv_bfloat16* op = dout + b * st.o_sb + h * st.o_sh;
+  const int c0 = OC < DP ? OC * blockIdx.z : 0;  // this block's first column
+  const T* qp = q + b * st.q_sb + h * st.q_sh;
+  const T* op = dout + b * st.o_sb + h * st.o_sh;
 
-  load_tile<D>(sK, k + b * st.k_sb + kvh * st.k_sh, st.k_ss, k0, Sk);
-  load_tile<D>(sV, v + b * st.v_sb + kvh * st.v_sh, st.v_ss, k0, Sk);
+  load_tile<DP>(sK, k + b * st.k_sb + kvh * st.k_sh, st.k_ss, k0, Sk, d);
+  load_tile<DP>(sV, v + b * st.v_sb + kvh * st.v_sh, st.v_ss, k0, Sk, d);
   // this warp's 16 keys; a warp wholly past Sk computes nothing
   const int w_key0 = k0 + 16 * warp;
   const bool w_live = w_key0 < Sk;
-  const __nv_bfloat16* kw = sK + 16 * warp * DS;
-  const __nv_bfloat16* vw = sV + 16 * warp * DS;
+  const T* kw = sK + 16 * warp * DS;
+  const T* vw = sV + 16 * warp * DS;
   int first_tile, n_tiles;
   q_tiles(k0, BK, BQ, Sq, Sk, causal, window, first_tile, n_tiles);
 
@@ -588,8 +647,8 @@ __global__ void __launch_bounds__(NT_MMA) flash_bwd_dkv_mma_kernel(
   for (int tile = first_tile; tile < n_tiles; ++tile) {
     const int q0 = tile * BQ;
     __syncthreads();  // every warp is done with the last tile
-    load_tile<D>(sQ, qp, st.q_ss, q0, Sq);
-    load_tile<D>(sDO, op, st.o_ss, q0, Sq);
+    load_tile<DP>(sQ, qp, st.q_ss, q0, Sq, d);
+    load_tile<DP>(sDO, op, st.o_ss, q0, Sq, d);
     for (int i = threadIdx.x; i < BQ; i += NT_MMA) {
       const bool in = q0 + i < Sq;
       sL[i] = in ? lse[(int64_t)bh * Sq + q0 + i] : 0.f;
@@ -622,10 +681,10 @@ __global__ void __launch_bounds__(NT_MMA) flash_bwd_dkv_mma_kernel(
         load_a<DS>(va, vw, kk, g, t4);
 #pragma unroll
         for (int n = 0; n < 2; ++n) {
-          const __nv_bfloat16* qr = sQ + (16 * c + 8 * n + g) * DS + 16 * kk + 2 * t4;
-          const __nv_bfloat16* orr = sDO + (16 * c + 8 * n + g) * DS + 16 * kk + 2 * t4;
-          mma_bf16(s[n], ka, ld_pair(qr), ld_pair(qr + 8));
-          mma_bf16(dpv[n], va, ld_pair(orr), ld_pair(orr + 8));
+          const T* qr = sQ + (16 * c + 8 * n + g) * DS + 16 * kk + 2 * t4;
+          const T* orr = sDO + (16 * c + 8 * n + g) * DS + 16 * kk + 2 * t4;
+          mma_t<T>(s[n], ka, ld_pair(qr), ld_pair(qr + 8));
+          mma_t<T>(dpv[n], va, ld_pair(orr), ld_pair(orr + 8));
         }
       }
       // P^T and dS^T; element e of n-tile n is (key g + 8 (e >> 1), q row
@@ -644,19 +703,19 @@ __global__ void __launch_bounds__(NT_MMA) flash_bwd_dkv_mma_kernel(
           pt[n][e] = p;
           s[n][e] = p * (dpv[n][e] - sD[r]) * scale;
         }
-      const uint32_t pa[4] = {pack_bf16(pt[0][0], pt[0][1]), pack_bf16(pt[0][2], pt[0][3]),
-                              pack_bf16(pt[1][0], pt[1][1]), pack_bf16(pt[1][2], pt[1][3])};
-      const uint32_t sa[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
-                              pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
+      const uint32_t pa[4] = {pack_t<T>(pt[0][0], pt[0][1]), pack_t<T>(pt[0][2], pt[0][3]),
+                              pack_t<T>(pt[1][0], pt[1][1]), pack_t<T>(pt[1][2], pt[1][3])};
+      const uint32_t sa[4] = {pack_t<T>(s[0][0], s[0][1]), pack_t<T>(s[0][2], s[0][3]),
+                              pack_t<T>(s[1][0], s[1][1]), pack_t<T>(s[1][2], s[1][3])};
       // dV += P^T dO and dK += dS^T Q: B = 16 q rows x 8 head-dim columns
-      const __nv_bfloat16* oc = sDO + (16 * c + 2 * t4) * DS + g;
-      const __nv_bfloat16* qc = sQ + (16 * c + 2 * t4) * DS + g;
+      const T* oc = sDO + (16 * c + 2 * t4) * DS + g + c0;
+      const T* qc = sQ + (16 * c + 2 * t4) * DS + g + c0;
 #pragma unroll
       for (int n = 0; n < NO; ++n) {
-        const __nv_bfloat16* o_ = oc + 8 * n;
-        const __nv_bfloat16* q_ = qc + 8 * n;
-        mma_bf16(gv[n], pa, pack_raw(o_[0], o_[DS]), pack_raw(o_[8 * DS], o_[9 * DS]));
-        mma_bf16(gk[n], sa, pack_raw(q_[0], q_[DS]), pack_raw(q_[8 * DS], q_[9 * DS]));
+        const T* o_ = oc + 8 * n;
+        const T* q_ = qc + 8 * n;
+        mma_t<T>(gv[n], pa, pack_raw(o_[0], o_[DS]), pack_raw(o_[8 * DS], o_[9 * DS]));
+        mma_t<T>(gk[n], sa, pack_raw(q_[0], q_[DS]), pack_raw(q_[8 * DS], q_[9 * DS]));
       }
     }
   }
@@ -666,11 +725,12 @@ __global__ void __launch_bounds__(NT_MMA) flash_bwd_dkv_mma_kernel(
   for (int r = 0; r < 2; ++r) {
     const int key = w_key0 + g + 8 * r;
     if (key >= Sk) continue;
-    const int64_t base = ((int64_t)bh * Sk + key) * D + 2 * t4;
+    const int64_t base = ((int64_t)bh * Sk + key) * d + c0 + 2 * t4;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
-      *reinterpret_cast<uint32_t*>(dk + base + 8 * n) = pack_bf16(gk[n][2 * r], gk[n][2 * r + 1]);
-      *reinterpret_cast<uint32_t*>(dv + base + 8 * n) = pack_bf16(gv[n][2 * r], gv[n][2 * r + 1]);
+      if (c0 + 8 * n >= d) continue;
+      *reinterpret_cast<uint32_t*>(dk + base + 8 * n) = pack_t<T>(gk[n][2 * r], gk[n][2 * r + 1]);
+      *reinterpret_cast<uint32_t*>(dv + base + 8 * n) = pack_t<T>(gv[n][2 * r], gv[n][2 * r + 1]);
     }
   }
 }
@@ -1483,7 +1543,7 @@ __global__ void __launch_bounds__((Q64_CONS + 1) * WG_THREADS, 1) flash_bwd_dq_w
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta;
   void *dq, *dk, *dv;
-  int B, H, KvH, Sq, Sk;
+  int B, H, KvH, Sq, Sk, D;
   Strides st;
   int causal, window;
   float scale;
@@ -1495,62 +1555,64 @@ cudaError_t set_smem(K kernel, int smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
-template <typename T, int D>
+template <typename T, int DP>
 cudaError_t launch_dq_simt(const Args& a) {
-  const int smem = (int)sizeof(float) * (2 * BQ * (D + 1) + 2 * BK * (D + 1) + BQ * BKP);
-  auto kernel = flash_bwd_dq_simt_kernel<T, D>;
+  constexpr int SB = simt_tile(DP);
+  constexpr int smem = (int)sizeof(float) * (4 * SB * (DP + 1) + SB * (SB + 4));
+  auto kernel = flash_bwd_dq_simt_kernel<T, DP>;
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.Sq + BQ - 1) / BQ, a.B * a.H);
+  const dim3 grid((a.Sq + SB - 1) / SB, a.B * a.H);
   kernel<<<grid, NT, smem, a.stream>>>(
       (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout,
       (const float*)a.lse, (const float*)a.delta, (T*)a.dq,
-      a.H, a.KvH, a.Sq, a.Sk, a.st, a.causal, a.window, a.scale);
+      a.H, a.KvH, a.Sq, a.Sk, a.D, a.st, a.causal, a.window, a.scale);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int DP>
 cudaError_t launch_dkv_simt(const Args& a) {
-  const int smem = (int)sizeof(float) *
-                   (2 * BK * (D + 1) + 2 * BQ * (D + 1) + 2 * BK * BKP + 2 * BQ);
-  auto kernel = flash_bwd_dkv_simt_kernel<T, D>;
+  constexpr int SB = simt_tile(DP);
+  constexpr int smem =
+      (int)sizeof(float) * (4 * SB * (DP + 1) + 2 * SB * (SB + 4) + 2 * SB);
+  auto kernel = flash_bwd_dkv_simt_kernel<T, DP>;
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.Sk + BK - 1) / BK, a.B * a.H);
+  const dim3 grid((a.Sk + SB - 1) / SB, a.B * a.H);
   kernel<<<grid, NT, smem, a.stream>>>(
       (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout,
       (const float*)a.lse, (const float*)a.delta, (T*)a.dk, (T*)a.dv,
-      a.H, a.KvH, a.Sq, a.Sk, a.st, a.causal, a.window, a.scale);
+      a.H, a.KvH, a.Sq, a.Sk, a.D, a.st, a.causal, a.window, a.scale);
   return cudaGetLastError();
 }
 
-template <int D>
+template <typename T, int DP, bool PAD>
 cudaError_t launch_dq_mma(const Args& a) {
-  const int smem = (int)sizeof(__nv_bfloat16) * (2 * BQ + 2 * BK) * (D + 8);
-  auto kernel = flash_bwd_dq_mma_kernel<D>;
+  constexpr int smem = (int)sizeof(T) * (2 * BQ + 2 * BK) * (DP + 8);
+  auto kernel = flash_bwd_dq_mma_kernel<T, DP, PAD>;
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Sq + BQ - 1) / BQ, a.B * a.H);
-  typedef const __nv_bfloat16* P;
+  typedef const T* P;
   kernel<<<grid, NT_MMA, smem, a.stream>>>(
       (P)a.q, (P)a.k, (P)a.v, (P)a.dout, (const float*)a.lse, (const float*)a.delta,
-      (__nv_bfloat16*)a.dq, a.H, a.KvH, a.Sq, a.Sk, a.st, a.causal, a.window, a.scale);
+      (T*)a.dq, a.H, a.KvH, a.Sq, a.Sk, a.D, a.st, a.causal, a.window, a.scale);
   return cudaGetLastError();
 }
 
-template <int D>
+template <typename T, int DP, bool PAD>
 cudaError_t launch_dkv_mma(const Args& a) {
-  const int smem = (int)sizeof(__nv_bfloat16) * (2 * BK + 2 * BQ) * (D + 8) +
-                   (int)sizeof(float) * 2 * BQ;
-  auto kernel = flash_bwd_dkv_mma_kernel<D>;
+  constexpr int smem = (int)sizeof(T) * (2 * BK + 2 * BQ) * (DP + 8) +
+                       (int)sizeof(float) * 2 * BQ;
+  auto kernel = flash_bwd_dkv_mma_kernel<T, DP, PAD>;
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.Sk + BK - 1) / BK, a.B * a.H);
-  typedef const __nv_bfloat16* P;
+  // at DP = 256 two blocks split the head-dim columns (the kernel's OC)
+  const dim3 grid((a.Sk + BK - 1) / BK, a.B * a.H, DP > 128 ? 2 : 1);
+  typedef const T* P;
   kernel<<<grid, NT_MMA, smem, a.stream>>>(
       (P)a.q, (P)a.k, (P)a.v, (P)a.dout, (const float*)a.lse, (const float*)a.delta,
-      (__nv_bfloat16*)a.dk, (__nv_bfloat16*)a.dv,
-      a.H, a.KvH, a.Sq, a.Sk, a.st, a.causal, a.window, a.scale);
+      (T*)a.dk, (T*)a.dv, a.H, a.KvH, a.Sq, a.Sk, a.D, a.st, a.causal, a.window, a.scale);
   return cudaGetLastError();
 }
 
@@ -1622,38 +1684,56 @@ cudaError_t launch_dq_wgmma(const Args& a, int D) {
   return cudaGetLastError();
 }
 
-// which: 0 = dQ, 1 = dK/dV
+// which: 0 = dQ, 1 = dK/dV; the simt (mma 0) or mma (mma 1) kernel of T at
+// the padded width of a.D
+template <typename T, int DP>
+cudaError_t launch_at(int which, int mma, const Args& a) {
+  if constexpr (std::is_same<T, float>::value) {
+    if (mma) return cudaErrorInvalidValue;  // fp32 has no mma kernel
+  } else if (mma) {
+    // the exact build at D = 32, 64 and 128, the padded one below them; DP =
+    // 256 has the padded build alone
+    if constexpr (DP < 256) {
+      if (a.D == DP) return which ? launch_dkv_mma<T, DP, false>(a) : launch_dq_mma<T, DP, false>(a);
+    }
+    return which ? launch_dkv_mma<T, DP, true>(a) : launch_dq_mma<T, DP, true>(a);
+  }
+  return which ? launch_dkv_simt<T, DP>(a) : launch_dq_simt<T, DP>(a);
+}
+
 template <typename T>
-cudaError_t launch_simt(int which, int D, const Args& a) {
-  switch (D) {
-    case 32: return which ? launch_dkv_simt<T, 32>(a) : launch_dq_simt<T, 32>(a);
-    case 64: return which ? launch_dkv_simt<T, 64>(a) : launch_dq_simt<T, 64>(a);
-    case 128: return which ? launch_dkv_simt<T, 128>(a) : launch_dq_simt<T, 128>(a);
+cudaError_t at_padded_dim(int which, int mma, const Args& a) {
+  switch (padded_dim(a.D)) {
+    case 32: return launch_at<T, 32>(which, mma, a);
+    case 64: return launch_at<T, 64>(which, mma, a);
+    case 128: return launch_at<T, 128>(which, mma, a);
+    case 256: return launch_at<T, 256>(which, mma, a);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// route 0 = simt (any input), 1 = mma (bf16, 16-byte aligned bases, strides
-// that are multiples of 8), 2 = wgmma (as mma, and Sk > 0, with D = 64 or
-// 128); a route that cannot take the inputs launches nothing
+// dtype 0 = fp32, 1 = bf16, 2 = fp16. route 0 = simt (any dtype, D from 1
+// to 256), 1 = mma (bf16 or fp16, D a multiple of 8 up to 256, 16-byte
+// aligned bases, strides that are multiples of 8), 2 = wgmma (bf16 only, as
+// mma, and Sk > 0, with D = 64 or 128); a route that cannot take the inputs
+// launches nothing
 cudaError_t dispatch(int which, int dtype, int route, int D, const Args& a) {
   const void* ptrs[4] = {a.q, a.k, a.v, a.dout};
-  const bool tensor_core = dtype == 1 && rows_aligned(ptrs, 4, &a.st.q_sb, 12);
+  const bool aligned = rows_aligned(ptrs, 4, &a.st.q_sb, 12, D);
   switch (route) {
     case 0:
-      if (dtype == 0) return launch_simt<float>(which, D, a);
-      if (dtype == 1) return launch_simt<__nv_bfloat16>(which, D, a);
+      if (dtype == 0) return at_padded_dim<float>(which, 0, a);
+      if (dtype == 1) return at_padded_dim<__nv_bfloat16>(which, 0, a);
+      if (dtype == 2) return at_padded_dim<__half>(which, 0, a);
       return cudaErrorInvalidValue;
     case 1:
-      if (!tensor_core) return cudaErrorInvalidValue;
-      switch (D) {
-        case 32: return which ? launch_dkv_mma<32>(a) : launch_dq_mma<32>(a);
-        case 64: return which ? launch_dkv_mma<64>(a) : launch_dq_mma<64>(a);
-        case 128: return which ? launch_dkv_mma<128>(a) : launch_dq_mma<128>(a);
-        default: return cudaErrorInvalidValue;
-      }
+      if (!aligned) return cudaErrorInvalidValue;
+      if (dtype == 1) return at_padded_dim<__nv_bfloat16>(which, 1, a);
+      if (dtype == 2) return at_padded_dim<__half>(which, 1, a);
+      return cudaErrorInvalidValue;
     case 2:
-      if (!tensor_core || a.Sk <= 0 || (D != 64 && D != 128)) return cudaErrorInvalidValue;
+      if (dtype != 1 || !aligned || a.Sk <= 0 || (D != 64 && D != 128))
+        return cudaErrorInvalidValue;
       return which ? launch_dkv_wgmma(a, D) : launch_dq_wgmma(a, D);
     default:
       return cudaErrorInvalidValue;
@@ -1673,10 +1753,10 @@ int run(int which, int dtype, int route, int device, const Args& a, int D) {
 // q, dout: [B, H, Sq, D] and k, v: [B, KvH, Sk, D] with the given (batch,
 // head, seq) strides and a contiguous last dim; lse, delta: contiguous fp32
 // [B, H, Sq]; dq: contiguous [B, H, Sq, D]; dk, dv: contiguous [B, H, Sk,
-// D], one per q head. dtype 0 = fp32, 1 = bf16. route: 0 = simt, 1 = mma,
-// 2 = wgmma (the conditions at `dispatch`); a route that cannot take the
-// inputs returns cudaErrorInvalidValue and launches nothing. window <= 0
-// means no window. Each returns the launch's cudaError_t (0 on success).
+// D], one per q head. dtype 0 = fp32, 1 = bf16, 2 = fp16. route: 0 = simt,
+// 1 = mma, 2 = wgmma (what each takes is at `dispatch`); a route that cannot
+// take the inputs returns cudaErrorInvalidValue and launches nothing. window
+// <= 0 means no window. Each returns the launch's cudaError_t (0 on success).
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* delta, void* dq,
                             int dtype, int route, int device, int B, int H, int KvH,
@@ -1685,7 +1765,7 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const v
                             int64_t v_sb, int64_t v_sh, int64_t v_ss,
                             int64_t o_sb, int64_t o_sh, int64_t o_ss,
                             int causal, int window, float scale, void* stream) {
-  const Args a = {q, k, v, dout, lse, delta, dq, nullptr, nullptr, B, H, KvH, Sq, Sk,
+  const Args a = {q, k, v, dout, lse, delta, dq, nullptr, nullptr, B, H, KvH, Sq, Sk, D,
                   {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss},
                   causal, window, scale, (cudaStream_t)stream};
   return run(0, dtype, route, device, a, D);
@@ -1699,7 +1779,7 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
                              int64_t v_sb, int64_t v_sh, int64_t v_ss,
                              int64_t o_sb, int64_t o_sh, int64_t o_ss,
                              int causal, int window, float scale, void* stream) {
-  const Args a = {q, k, v, dout, lse, delta, nullptr, dk, dv, B, H, KvH, Sq, Sk,
+  const Args a = {q, k, v, dout, lse, delta, nullptr, dk, dv, B, H, KvH, Sq, Sk, D,
                   {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss},
                   causal, window, scale, (cudaStream_t)stream};
   return run(1, dtype, route, device, a, D);

@@ -1,6 +1,7 @@
 // Pieces shared by the flash attention kernels (flash_fwd.cu, flash_bwd.cu):
-// dtype conversions, the fast exponential, the bf16 tensor-core product and
-// its fragment helpers, and the 16-byte tile copy into shared memory.
+// dtype conversions, the fast exponential, the bf16 and fp16 tensor-core
+// products and their fragment helpers, the 16-byte tile copy into shared
+// memory, and the padded widths the simt and mma kernels are built at.
 //
 // ops/_build.py hashes every .cuh in csrc/ into each kernel's library name,
 // so an edit here rebuilds both kernels.
@@ -8,8 +9,11 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -28,22 +32,41 @@ __device__ __forceinline__ float exp2_ftz(float x) {
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+__device__ __forceinline__ void store(__half* p, float x) { *p = __float2half_rn(x); }
 // x rounded to the storage type T, as the plain version rounds a product's
 // operand to the input dtype
 __device__ __forceinline__ float round_as(float x, float) { return x; }
 __device__ __forceinline__ float round_as(float x, __nv_bfloat16) {
   return __bfloat162float(__float2bfloat16(x));
 }
+__device__ __forceinline__ float round_as(float x, __half) {
+  return __half2float(__float2half_rn(x));
+}
+
+// The simt and mma kernels are built at a padded head dim DP of 32, 64, 128
+// or 256, the smallest that holds the true d, which they take at run time
+// (the mma kernels also have an exact build for d = DP): columns past d load
+// as zeros and are not stored, so the zero columns add nothing to Q.K^T and
+// the kept columns are exact. 0: d is past the widest.
+inline int padded_dim(int d) {
+  return d < 1 ? 0 : d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : d <= 256 ? 256 : 0;
+}
+
+// the simt kernels' tiles (q rows, keys): 64, or 32 at DP = 256, where
+// their fp32 tiles of 64 rows would not fit in shared memory
+__host__ __device__ constexpr int simt_tile(int DP) { return DP > 128 ? 32 : 64; }
 
 // Tensor-core helpers. mma.sync m16n8k16 fragments, with g = lane / 4 and
 // t = lane % 4: A (16x16, row-major) reg0 = (row g, cols 2t, 2t+1), reg1 =
 // row g+8, reg2 = row g cols +8, reg3 = row g+8 cols +8; B (16x8) reg0 =
 // (rows 2t, 2t+1, col g), reg1 = rows +8; C (16x8 fp32) c0, c1 = (row g,
 // cols 2t, 2t+1), c2, c3 = row g+8. The lower column sits in the low half.
-// So the C tiles of n-tiles 2j and 2j+1 are, packed to bf16, the A fragment
-// of k-step j of a following product.
+// So the C tiles of n-tiles 2j and 2j+1 are, packed to the input type, the
+// A fragment of k-step j of a following product. The same layout holds for
+// fp16 (mma_t<__half>, the .f16 form).
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
   asm volatile(
@@ -53,7 +76,28 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
+__device__ __forceinline__ void mma_f16(float (&d)[4], const uint32_t (&a)[4],
+                                        uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the product of the input type T (bf16 or fp16) with fp32 sums
+template <typename T>
+__device__ __forceinline__ void mma_t(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                      uint32_t b1) {
+  if constexpr (std::is_same<T, __half>::value) {
+    mma_f16(d, a, b0, b1);
+  } else {
+    mma_bf16(d, a, b0, b1);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ uint32_t ld_pair(const T* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
@@ -62,39 +106,58 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// lo and hi rounded to T (bf16 or fp16), lo in the low half
+template <typename T>
+__device__ __forceinline__ uint32_t pack_t(float lo, float hi) {
+  if constexpr (std::is_same<T, __half>::value) {
+    return pack_f16(lo, hi);
+  } else {
+    return pack_bf16(lo, hi);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ uint32_t pack_raw(T lo, T hi) {
   return (uint32_t)(*reinterpret_cast<const uint16_t*>(&lo)) |
          ((uint32_t)(*reinterpret_cast<const uint16_t*>(&hi)) << 16);
 }
 
-// A fragment of rows [0, 16) x cols [16 kk, 16 kk + 16) of a bf16 tile in
+// A fragment of rows [0, 16) x cols [16 kk, 16 kk + 16) of a 16-bit tile in
 // shared memory with row stride DS
-template <int DS>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* tile,
-                                       int kk, int g, int t4) {
+template <int DS, typename T>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const T* tile, int kk, int g,
+                                       int t4) {
   a[0] = ld_pair(tile + g * DS + 16 * kk + 2 * t4);
   a[1] = ld_pair(tile + (g + 8) * DS + 16 * kk + 2 * t4);
   a[2] = ld_pair(tile + g * DS + 16 * kk + 8 + 2 * t4);
   a[3] = ld_pair(tile + (g + 8) * DS + 16 * kk + 8 + 2 * t4);
 }
 
-// rows [r0, r0 + 64) of a [S, D] bf16 matrix (row stride `ss`) into shared
-// memory with row stride D + 8, zero past row S; 16-byte copies
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          int64_t ss, int r0, int S) {
-  constexpr int CH = D / 8;
+// rows [r0, r0 + 64) of a [S, d] matrix of 16-bit T (row stride `ss`, d a
+// multiple of 8) into shared memory with row stride DP + 8, zero past row S
+// and past column d up to DP; 16-byte copies
+template <int DP, typename T>
+__device__ __forceinline__ void load_tile(T* dst, const T* src, int64_t ss, int r0, int S,
+                                          int d) {
+  constexpr int CH = DP / 8;
   for (int i = threadIdx.x; i < 64 * CH; i += NT_MMA) {
     const int r = i / CH, c = (i % CH) * 8;
     uint4 x = {0u, 0u, 0u, 0u};
-    if (r0 + r < S) x = *reinterpret_cast<const uint4*>(src + (int64_t)(r0 + r) * ss + c);
-    *reinterpret_cast<uint4*>(dst + r * (D + 8) + c) = x;
+    if (r0 + r < S && c < d)
+      x = *reinterpret_cast<const uint4*>(src + (int64_t)(r0 + r) * ss + c);
+    *reinterpret_cast<uint4*>(dst + r * (DP + 8) + c) = x;
   }
 }
 
-// the tensor-core kernels copy rows in 16-byte pieces: the n base pointers
-// and the ns row strides (in elements) must allow that
-inline bool rows_aligned(const void* const* ptrs, int n, const int64_t* st, int ns) {
+// the tensor-core kernels copy rows in 16-byte pieces: the n base pointers,
+// the ns row strides (in elements) and the head dim d must allow that
+inline bool rows_aligned(const void* const* ptrs, int n, const int64_t* st, int ns, int d) {
+  if (d % 8) return false;
   for (int i = 0; i < n; ++i)
     if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16) return false;
   for (int i = 0; i < ns; ++i)

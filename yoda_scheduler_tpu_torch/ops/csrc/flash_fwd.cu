@@ -24,17 +24,25 @@
 //   the main path): TMA-fed and warp-specialised, on wgmma. Below.
 // - flash_fwd_wgmma64_kernel (route 2 at D = 64: bench_mfu's d1024 widths):
 //   the same plan with three consumer warpgroups; its note is below.
-// - flash_fwd_mma_kernel (route 1; aligned bf16, the route of D = 32; it
-//   takes D = 64 and 128 too, to be held against the wgmma kernels): 4 warps, each
-//   owning 16 of 64 q rows, mma.sync m16n8k16 for both products; K/V
-//   tiles of 64 keys copied through registers. Scores, probabilities and the
-//   output sum stay in registers; P is rounded to bf16 for P.V as the plain
-//   version rounds its probabilities. The fp32 scores are scaled (rather than
-//   Q, which would round Q a second time). A warp skips the tiles that are
-//   masked for all of its rows.
-// - flash_fwd_simt_kernel (route 0; fp32, and bf16 rows not 16-byte aligned):
-//   scalar fp32 FMAs from shared memory with Q pre-scaled in fp32 as in the
-//   Pallas kernel; 256 threads as a 16 x 16 grid, each owning 4 q rows.
+// - flash_fwd_mma_kernel (route 1; aligned bf16 and fp16, D a multiple of 8
+//   up to 256: every other model's head dim, and fp16 checkpoints; it takes
+//   bf16 at D = 64 and 128 too, to be held against the wgmma kernels): 4
+//   warps, each owning 16 of 64 q rows, mma.sync m16n8k16 (.bf16 or .f16)
+//   for both products; K/V tiles of 64 keys copied through registers.
+//   Scores, probabilities and the output sum stay in registers; P is rounded
+//   to the input type for P.V as the plain version rounds its probabilities.
+//   The fp32 scores are scaled (rather than Q, which would round Q a second
+//   time). A warp skips the tiles that are masked for all of its rows. At DP
+//   = 256 a warp's O sum is 128 fp32 a thread, so its Q fragments are read
+//   from shared memory at each k-step rather than held in registers.
+// - flash_fwd_simt_kernel (route 0; fp32, and bf16 or fp16 rows the mma
+//   kernel does not take): scalar fp32 FMAs from shared memory with Q
+//   pre-scaled in fp32 as in the Pallas kernel; 256 threads as a 16 x 16
+//   grid, each owning 4 q rows (2 at DP = 256, whose tiles are 32 rows).
+// The simt and mma kernels are built at a padded width DP of 32, 64, 128 or
+// 256 (flash_common.cuh's padded_dim) and take the true D at run time:
+// columns past D load as zeros and are not stored, so D = 32, 64 and 128 run
+// the code of their own width, and any other D that of the next one up.
 //
 // The wgmma kernel. Three warpgroups: warpgroup 0 is the producer, which gives
 // up registers (setmaxnreg) and has one thread issue every TMA load; warpgroups
@@ -58,66 +66,69 @@
 
 namespace {
 
-constexpr int BQ = 64;        // q rows per block
-constexpr int BK = 64;        // keys per streamed tile
-constexpr int BKP = BK + 4;   // padded P row: the two half-warps hit other banks
+constexpr int BQ = 64;        // q rows per block of the mma kernel
+constexpr int BK = 64;        // keys per streamed tile of the mma kernel
 constexpr int NT = 256;       // threads per block of the SIMT kernel (16 x 16)
 
-template <typename T, int D>
+template <typename T, int DP>
 __global__ void __launch_bounds__(NT) flash_fwd_simt_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ o, float* __restrict__ lse,
-    int H, int KvH, int Sq, int Sk,
+    int H, int KvH, int Sq, int Sk, int d,
     int64_t q_sb, int64_t q_sh, int64_t q_ss,
     int64_t k_sb, int64_t k_sh, int64_t k_ss,
     int64_t v_sb, int64_t v_sh, int64_t v_ss,
     int causal, int window, float scale) {
-  constexpr int DP = D + 1;     // padded Q/K row: column reads are conflict-free
-  constexpr int CPT = D / 16;   // output columns per thread
+  constexpr int SB = simt_tile(DP);  // q rows per block, keys per tile
+  constexpr int RPT = SB / 16;       // rows (and key columns) per thread
+  constexpr int SBP = SB + 4;        // padded P row: the two half-warps hit other banks
+  constexpr int DQ = DP + 1;         // padded Q/K row: column reads are conflict-free
+  constexpr int CPT = DP / 16;       // output columns per thread
   extern __shared__ float smem[];
-  float* sQ = smem;             // [BQ][DP], pre-scaled by 1/sqrt(d)
-  float* sK = sQ + BQ * DP;     // [BK][DP]
-  float* sV = sK + BK * DP;     // [BK][D]
-  float* sP = sV + BK * D;      // [BQ][BKP]
+  float* sQ = smem;             // [SB][DQ], pre-scaled by 1/sqrt(d)
+  float* sK = sQ + SB * DQ;     // [SB][DQ]
+  float* sV = sK + SB * DQ;     // [SB][DP]
+  float* sP = sV + SB * DP;     // [SB][SBP]
 
   const int tid = threadIdx.x;
-  const int ty = tid >> 4;      // this thread's rows: 4*ty .. 4*ty+3
+  const int ty = tid >> 4;      // this thread's rows: RPT*ty .. RPT*ty+RPT-1
   const int tx = tid & 15;      // this thread's score columns: tx + 16*j
   const int qt = gridDim.x - 1 - blockIdx.x;  // longest causal tiles first
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh % H;
   const int kvh = h / (H / KvH);
-  const int q0 = qt * BQ;
+  const int q0 = qt * SB;
   const int kv_offset = Sk - Sq;
 
   const T* qp = q + b * q_sb + h * q_sh;
   const T* kp = k + b * k_sb + kvh * k_sh;
   const T* vp = v + b * v_sb + kvh * v_sh;
 
-  for (int i = tid; i < BQ * D; i += NT) {
-    const int r = i / D, c = i % D;
+  // columns d .. DP read as zeros
+  for (int i = tid; i < SB * DP; i += NT) {
+    const int r = i / DP, c = i % DP;
     float x = 0.f;
-    if (q0 + r < Sq) x = to_f32(qp[(int64_t)(q0 + r) * q_ss + c]) * scale;
-    sQ[r * DP + c] = x;
+    if (q0 + r < Sq && c < d) x = to_f32(qp[(int64_t)(q0 + r) * q_ss + c]) * scale;
+    sQ[r * DQ + c] = x;
   }
 
-  int n_tiles = (Sk + BK - 1) / BK;
+  int n_tiles = (Sk + SB - 1) / SB;
   int first_tile = 0;
   if (causal) {
     // keys past the tile's last row are masked for every row: stop there
-    const int last_key = kv_offset + min(q0 + BQ, Sq) - 1;
-    n_tiles = min(n_tiles, last_key / BK + 1);
+    const int last_key = kv_offset + min(q0 + SB, Sq) - 1;
+    n_tiles = min(n_tiles, last_key / SB + 1);
     if (window > 0) {
       // keys before the tile's first row's window are masked for every row
       const int first_key = kv_offset + q0 - (window - 1);
-      first_tile = max(first_key, 0) / BK;
+      first_tile = max(first_key, 0) / SB;
     }
   }
 
-  float m[4], l[4], acc[4][CPT];
+  float m[RPT], l[RPT], acc[RPT][CPT];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RPT; ++i) {
     m[i] = NEG;
     l[i] = 0.f;
 #pragma unroll
@@ -125,44 +136,44 @@ __global__ void __launch_bounds__(NT) flash_fwd_simt_kernel(
   }
 
   for (int t = first_tile; t < n_tiles; ++t) {
-    const int k0 = t * BK;
+    const int k0 = t * SB;
     __syncthreads();  // the last tile's reads of sK/sV/sP are done
-    for (int i = tid; i < BK * D; i += NT) {
-      const int r = i / D, c = i % D;
+    for (int i = tid; i < SB * DP; i += NT) {
+      const int r = i / DP, c = i % DP;
       float kx = 0.f, vx = 0.f;
-      if (k0 + r < Sk) {
+      if (k0 + r < Sk && c < d) {
         kx = to_f32(kp[(int64_t)(k0 + r) * k_ss + c]);
         vx = to_f32(vp[(int64_t)(k0 + r) * v_ss + c]);
       }
-      sK[r * DP + c] = kx;
-      sV[r * D + c] = vx;
+      sK[r * DQ + c] = kx;
+      sV[r * DP + c] = vx;
     }
     __syncthreads();
 
-    float s[4][4];
+    float s[RPT][RPT];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RPT; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+      for (int j = 0; j < RPT; ++j) s[i][j] = 0.f;
 #pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
+    for (int dd = 0; dd < DP; ++dd) {
+      float qv[RPT], kv[RPT];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = sQ[(4 * ty + i) * DP + d];
+      for (int i = 0; i < RPT; ++i) qv[i] = sQ[(RPT * ty + i) * DQ + dd];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = sK[(tx + 16 * j) * DP + d];
+      for (int j = 0; j < RPT; ++j) kv[j] = sK[(tx + 16 * j) * DQ + dd];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RPT; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+        for (int j = 0; j < RPT; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
     }
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = kv_offset + q0 + 4 * ty + i;
+    for (int i = 0; i < RPT; ++i) {
+      const int qpos = kv_offset + q0 + RPT * ty + i;
       float mx = NEG;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RPT; ++j) {
         const int key = k0 + tx + 16 * j;
         bool ok = key < Sk;
         if (causal) {
@@ -180,9 +191,9 @@ __global__ void __launch_bounds__(NT) flash_fwd_simt_kernel(
       const float alpha = expf(m[i] - m_new);
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RPT; ++j) {
         const float p = expf(s[i][j] - m_new);
-        sP[(4 * ty + i) * BKP + tx + 16 * j] = p;
+        sP[(RPT * ty + i) * SBP + tx + 16 * j] = p;
         rs += p;
       }
 #pragma unroll
@@ -196,48 +207,57 @@ __global__ void __launch_bounds__(NT) flash_fwd_simt_kernel(
     __syncthreads();
 
 #pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float pv[4], vv[CPT];
+    for (int kk = 0; kk < SB; ++kk) {
+      float pv[RPT], vv[CPT];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = sP[(4 * ty + i) * BKP + kk];
+      for (int i = 0; i < RPT; ++i) pv[i] = sP[(RPT * ty + i) * SBP + kk];
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) vv[c] = sV[kk * D + tx + 16 * c];
+      for (int c = 0; c < CPT; ++c) vv[c] = sV[kk * DP + tx + 16 * c];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RPT; ++i)
 #pragma unroll
         for (int c = 0; c < CPT; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
+  for (int i = 0; i < RPT; ++i) {
+    const int row = q0 + RPT * ty + i;
     if (row >= Sq) continue;
     const float lc = fmaxf(l[i], 1e-30f);
-    T* orow = o + ((int64_t)bh * Sq + row) * D;
+    T* orow = o + ((int64_t)bh * Sq + row) * d;
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) store(orow + tx + 16 * c, acc[i][c] / lc);
+    for (int c = 0; c < CPT; ++c)
+      if (tx + 16 * c < d) store(orow + tx + 16 * c, acc[i][c] / lc);
     if (tx == 0) lse[(int64_t)bh * Sq + row] = m[i] + logf(lc);
   }
 }
 
-template <int D>
+template <typename T, int DP, bool PAD>
 __global__ void __launch_bounds__(NT_MMA) flash_fwd_mma_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-    float* __restrict__ lse, int H, int KvH, int Sq, int Sk,
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    T* __restrict__ o, float* __restrict__ lse, int H, int KvH, int Sq, int Sk, int d_arg,
     int64_t q_sb, int64_t q_sh, int64_t q_ss,
     int64_t k_sb, int64_t k_sh, int64_t k_ss,
     int64_t v_sb, int64_t v_sh, int64_t v_ss,
     int causal, int window, float scale) {
-  constexpr int DS = D + 8;     // padded smem row: fragment reads are conflict-free
-  constexpr int KS = D / 16;    // k-steps of Q.K^T
-  constexpr int NO = D / 8;     // n-tiles of the output
+  constexpr int DS = DP + 8;    // padded smem row: fragment reads are conflict-free
+  constexpr int KS = DP / 16;   // k-steps of Q.K^T
+  constexpr int NO = DP / 8;    // n-tiles of the output
   constexpr int NS = BK / 8;    // n-tiles of the scores
+  // up to DP = 128 a warp keeps its Q fragments in registers for the whole
+  // loop; at 256 they would not fit beside O's 128 fp32 sums, and are read
+  // from shared memory at each k-step
+  constexpr bool QREG = DP <= 128;
+  // the head dim: d_arg in a padded build, DP itself in an exact one (d =
+  // DP), whose code is then that of its width alone: a run-time d in the
+  // tile copies cost the DP = 128 build the registers of one block an SM,
+  // and time (PERF.md section 6)
+  const int d = PAD ? d_arg : DP;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BQ][DS]
-  __nv_bfloat16* sK = sQ + BQ * DS;                                  // [BK][DS]
-  __nv_bfloat16* sV = sK + BK * DS;                                  // [BK][DS]
+  T* sQ = reinterpret_cast<T*>(smem_raw);  // [BQ][DS]
+  T* sK = sQ + BQ * DS;                    // [BK][DS]
+  T* sV = sK + BK * DS;                    // [BK][DS]
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
@@ -247,15 +267,17 @@ __global__ void __launch_bounds__(NT_MMA) flash_fwd_mma_kernel(
   const int kvh = h / (H / KvH);
   const int q0 = qt * BQ;
   const int kv_offset = Sk - Sq;
-  const __nv_bfloat16* kp = k + b * k_sb + kvh * k_sh;
-  const __nv_bfloat16* vp = v + b * v_sb + kvh * v_sh;
+  const T* kp = k + b * k_sb + kvh * k_sh;
+  const T* vp = v + b * v_sb + kvh * v_sh;
 
-  load_tile<D>(sQ, q + b * q_sb + h * q_sh, q_ss, q0, Sq);
+  load_tile<DP>(sQ, q + b * q_sb + h * q_sh, q_ss, q0, Sq, d);
   __syncthreads();
-  // this warp's 16 rows of Q as A fragments, for the whole loop
-  uint32_t qf[KS][4];
+  const T* qw = sQ + 16 * warp * DS;  // this warp's 16 rows of Q
+  uint32_t qf[QREG ? KS : 1][4];
+  if constexpr (QREG) {
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk) load_a<DS>(qf[kk], sQ + 16 * warp * DS, kk, g, t4);
+    for (int kk = 0; kk < KS; ++kk) load_a<DS>(qf[kk], qw, kk, g, t4);
+  }
 
   int n_tiles = (Sk + BK - 1) / BK;
   int first_tile = 0;
@@ -278,8 +300,8 @@ __global__ void __launch_bounds__(NT_MMA) flash_fwd_mma_kernel(
   for (int tile = first_tile; tile < n_tiles; ++tile) {
     const int k0 = tile * BK;
     __syncthreads();  // every warp is done with the last tile
-    load_tile<D>(sK, kp, k_ss, k0, Sk);
-    load_tile<D>(sV, vp, v_ss, k0, Sk);
+    load_tile<DP>(sK, kp, k_ss, k0, Sk, d);
+    load_tile<DP>(sV, vp, v_ss, k0, Sk, d);
     __syncthreads();
     // tiles masked for every row of this warp contribute nothing
     if (!w_live) continue;
@@ -288,12 +310,26 @@ __global__ void __launch_bounds__(NT_MMA) flash_fwd_mma_kernel(
 
     float s[NS][4];
 #pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      const __nv_bfloat16* kr = sK + (8 * n + g) * DS + 2 * t4;
+    for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    if constexpr (QREG) {
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk)
-        mma_bf16(s[n], qf[kk], ld_pair(kr + 16 * kk), ld_pair(kr + 16 * kk + 8));
+      for (int n = 0; n < NS; ++n) {
+        const T* kr = sK + (8 * n + g) * DS + 2 * t4;
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk)
+          mma_t<T>(s[n], qf[kk], ld_pair(kr + 16 * kk), ld_pair(kr + 16 * kk + 8));
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t qa[4];
+        load_a<DS>(qa, qw, kk, g, t4);
+#pragma unroll
+        for (int n = 0; n < NS; ++n) {
+          const T* kr = sK + (8 * n + g) * DS + 2 * t4 + 16 * kk;
+          mma_t<T>(s[n], qa, ld_pair(kr), ld_pair(kr + 8));
+        }
+      }
     }
 
     const bool need_mask =
@@ -347,19 +383,19 @@ __global__ void __launch_bounds__(NT_MMA) flash_fwd_mma_kernel(
     }
 
     // O += P V: the score accumulators of n-tiles 2j, 2j+1 are the A
-    // fragment of key step j
+    // fragment of key step j; P is rounded to the input type here, where
+    // the plain version rounds its probabilities
 #pragma unroll
     for (int j = 0; j < BK / 16; ++j) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
-                              pack_bf16(s[2 * j][2], s[2 * j][3]),
-                              pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
-                              pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
-      const __nv_bfloat16* vr = sV + (16 * j + 2 * t4) * DS + g;
+      const uint32_t pa[4] = {pack_t<T>(s[2 * j][0], s[2 * j][1]),
+                              pack_t<T>(s[2 * j][2], s[2 * j][3]),
+                              pack_t<T>(s[2 * j + 1][0], s[2 * j + 1][1]),
+                              pack_t<T>(s[2 * j + 1][2], s[2 * j + 1][3])};
+      const T* vr = sV + (16 * j + 2 * t4) * DS + g;
 #pragma unroll
       for (int n = 0; n < NO; ++n) {
-        const __nv_bfloat16* vc = vr + 8 * n;
-        mma_bf16(acc[n], pa, pack_raw(vc[0], vc[DS]),
-                 pack_raw(vc[8 * DS], vc[9 * DS]));
+        const T* vc = vr + 8 * n;
+        mma_t<T>(acc[n], pa, pack_raw(vc[0], vc[DS]), pack_raw(vc[8 * DS], vc[9 * DS]));
       }
     }
   }
@@ -370,11 +406,12 @@ __global__ void __launch_bounds__(NT_MMA) flash_fwd_mma_kernel(
     const int row = w_row0 + g + 8 * r;
     if (row >= Sq) continue;
     const float lc = fmaxf(l[r], 1e-30f);
-    __nv_bfloat16* orow = o + ((int64_t)bh * Sq + row) * D + 2 * t4;
+    T* orow = o + ((int64_t)bh * Sq + row) * d + 2 * t4;
 #pragma unroll
     for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<uint32_t*>(orow + 8 * n) =
-          pack_bf16(acc[n][2 * r] / lc, acc[n][2 * r + 1] / lc);
+      if (8 * n < d)
+        *reinterpret_cast<uint32_t*>(orow + 8 * n) =
+            pack_t<T>(acc[n][2 * r] / lc, acc[n][2 * r + 1] / lc);
     if (t4 == 0) lse[(int64_t)bh * Sq + row] = m[r] + logf(lc);
   }
 }
@@ -841,38 +878,38 @@ cudaError_t allow_smem(Kernel kernel, int smem) {
 struct Args {
   const void *q, *k, *v;
   void *o, *lse;
-  int B, H, KvH, Sq, Sk;
+  int B, H, KvH, Sq, Sk, D;
   const int64_t* st;  // (batch, head, seq) strides of q, k, v in elements
   int causal, window;
   float scale;
   cudaStream_t stream;
 };
 
-template <typename T, int D>
+template <typename T, int DP>
 cudaError_t launch_simt(const Args& a) {
-  constexpr int smem = (int)sizeof(float) * (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * BKP);
-  static const cudaError_t attr = allow_smem(flash_fwd_simt_kernel<T, D>, smem);
+  constexpr int SB = simt_tile(DP);
+  constexpr int smem = (int)sizeof(float) * (SB * (DP + 1) * 2 + SB * DP + SB * (SB + 4));
+  static const cudaError_t attr = allow_smem(flash_fwd_simt_kernel<T, DP>, smem);
   if (attr != cudaSuccess) return attr;
-  const dim3 grid((a.Sq + BQ - 1) / BQ, a.B * a.H);
+  const dim3 grid((a.Sq + SB - 1) / SB, a.B * a.H);
   const int64_t* st = a.st;
-  flash_fwd_simt_kernel<T, D><<<grid, NT, smem, a.stream>>>(
+  flash_fwd_simt_kernel<T, DP><<<grid, NT, smem, a.stream>>>(
       (const T*)a.q, (const T*)a.k, (const T*)a.v, (T*)a.o, (float*)a.lse, a.H,
-      a.KvH, a.Sq, a.Sk, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
+      a.KvH, a.Sq, a.Sk, a.D, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
       st[8], a.causal, a.window, a.scale);
   return cudaGetLastError();
 }
 
-template <int D>
+template <typename T, int DP, bool PAD>
 cudaError_t launch_mma(const Args& a) {
-  constexpr int smem = (int)sizeof(__nv_bfloat16) * (BQ + 2 * BK) * (D + 8);
-  static const cudaError_t attr = allow_smem(flash_fwd_mma_kernel<D>, smem);
+  constexpr int smem = (int)sizeof(T) * (BQ + 2 * BK) * (DP + 8);
+  static const cudaError_t attr = allow_smem(flash_fwd_mma_kernel<T, DP, PAD>, smem);
   if (attr != cudaSuccess) return attr;
   const dim3 grid((a.Sq + BQ - 1) / BQ, a.B * a.H);
   const int64_t* st = a.st;
-  flash_fwd_mma_kernel<D><<<grid, NT_MMA, smem, a.stream>>>(
-      (const __nv_bfloat16*)a.q, (const __nv_bfloat16*)a.k,
-      (const __nv_bfloat16*)a.v, (__nv_bfloat16*)a.o, (float*)a.lse, a.H, a.KvH,
-      a.Sq, a.Sk, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+  flash_fwd_mma_kernel<T, DP, PAD><<<grid, NT_MMA, smem, a.stream>>>(
+      (const T*)a.q, (const T*)a.k, (const T*)a.v, (T*)a.o, (float*)a.lse, a.H, a.KvH,
+      a.Sq, a.Sk, a.D, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
       a.causal, a.window, a.scale);
   return cudaGetLastError();
 }
@@ -919,25 +956,46 @@ cudaError_t launch_wgmma(const Args& a, int D) {
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_simt_d(int D, const Args& a) {
-  switch (D) {
-    case 32: return launch_simt<T, 32>(a);
-    case 64: return launch_simt<T, 64>(a);
-    case 128: return launch_simt<T, 128>(a);
+// the launch of kernel `Launch<T, DP>` at the padded width of a.D
+template <typename T, template <typename, int> class Launch>
+cudaError_t at_padded_dim(const Args& a) {
+  switch (padded_dim(a.D)) {
+    case 32: return Launch<T, 32>::run(a);
+    case 64: return Launch<T, 64>::run(a);
+    case 128: return Launch<T, 128>::run(a);
+    case 256: return Launch<T, 256>::run(a);
     default: return cudaErrorInvalidValue;
   }
 }
+
+template <typename T, int DP>
+struct Simt {
+  static cudaError_t run(const Args& a) { return launch_simt<T, DP>(a); }
+};
+// the exact build at D = 32, 64 and 128, the padded one below them; DP =
+// 256 has the padded build alone
+template <typename T, int DP>
+struct Mma {
+  static cudaError_t run(const Args& a) {
+    if constexpr (DP < 256) {
+      if (a.D == DP) return launch_mma<T, DP, false>(a);
+    }
+    return launch_mma<T, DP, true>(a);
+  }
+};
 
 }  // namespace
 
 // q, k, v: [B, H|KvH, S, D] with the given (batch, head, seq) strides and a
 // contiguous last dim; o: contiguous [B, H, Sq, D]; lse: contiguous fp32
-// [B, H, Sq]. dtype 0 = fp32, 1 = bf16. window <= 0 means no window. route:
-// 0 = simt (any input), 1 = mma (bf16, 16-byte aligned bases, strides that
-// are multiples of 8), 2 = wgmma (as mma, and D = 64 or 128, Sk > 0). A route that
-// cannot take the inputs returns cudaErrorInvalidValue and launches nothing.
-// Returns the launch's cudaError_t (0 on success).
+// [B, H, Sq]. dtype 0 = fp32, 1 = bf16, 2 = fp16. window <= 0 means no
+// window. route: 0 = simt (any dtype, D from 1 to 256), 1 = mma (bf16 or
+// fp16, D a multiple of 8 up to 256, 16-byte aligned bases, strides that
+// are multiples of 8), 2 = wgmma (bf16 only, as mma, and D = 64 or 128,
+// Sk > 0). The simt and mma kernels run at the padded width of D
+// (padded_dim), the wgmma kernels at D itself. A route that cannot take the
+// inputs returns cudaErrorInvalidValue and launches nothing. Returns the
+// launch's cudaError_t (0 on success).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          void* lse, int dtype, int route, int device, int B,
                          int H, int KvH, int Sq, int Sk, int D,
@@ -950,25 +1008,24 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
   if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int64_t st[9] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss};
-  const Args a{q, k, v, o, lse, B, H, KvH, Sq, Sk, st, causal, window, scale,
+  const Args a{q, k, v, o, lse, B, H, KvH, Sq, Sk, D, st, causal, window, scale,
                (cudaStream_t)stream};
   const void* ptrs[3] = {q, k, v};
-  const bool tensor_core = dtype == 1 && rows_aligned(ptrs, 3, st, 9);
+  const bool aligned = rows_aligned(ptrs, 3, st, 9, D);
   switch (route) {
     case 0:
-      if (dtype == 0) return (int)launch_simt_d<float>(D, a);
-      if (dtype == 1) return (int)launch_simt_d<__nv_bfloat16>(D, a);
+      if (dtype == 0) return (int)at_padded_dim<float, Simt>(a);
+      if (dtype == 1) return (int)at_padded_dim<__nv_bfloat16, Simt>(a);
+      if (dtype == 2) return (int)at_padded_dim<__half, Simt>(a);
       return (int)cudaErrorInvalidValue;
     case 1:
-      if (!tensor_core) return (int)cudaErrorInvalidValue;
-      switch (D) {
-        case 32: return (int)launch_mma<32>(a);
-        case 64: return (int)launch_mma<64>(a);
-        case 128: return (int)launch_mma<128>(a);
-        default: return (int)cudaErrorInvalidValue;
-      }
+      if (!aligned) return (int)cudaErrorInvalidValue;
+      if (dtype == 1) return (int)at_padded_dim<__nv_bfloat16, Mma>(a);
+      if (dtype == 2) return (int)at_padded_dim<__half, Mma>(a);
+      return (int)cudaErrorInvalidValue;
     case 2:
-      if (!tensor_core || (D != 64 && D != 128) || Sk <= 0) return (int)cudaErrorInvalidValue;
+      if (dtype != 1 || !aligned || (D != 64 && D != 128) || Sk <= 0)
+        return (int)cudaErrorInvalidValue;
       return (int)launch_wgmma(a, D);
     default:
       return (int)cudaErrorInvalidValue;

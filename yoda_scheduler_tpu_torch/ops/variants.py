@@ -2,18 +2,21 @@
 in turns (A, B, ..., B, A), at the main path's shapes.
 
     python3 -m yoda_scheduler_tpu_torch.ops.variants fwd|bwd [--probe] [--head-dim 64] \\
-        A.cu B.cu ...
+        [--route mma] A.cu B.cu ...
 
 Each argument is a copy of `csrc/flash_fwd.cu` (fwd) or `csrc/flash_bwd.cu`
-(bwd) with a change, or "cur" for the package's own, built with the
-package's nvcc flags into `build/variants/`. fwd launches
-`attention.flash_fwd` on its automatic route; bwd launches
+(bwd) with a change (an earlier commit's copy with its own headers beside
+it, too), or "cur" for the package's own, built with the package's nvcc
+flags into `build/variants/`; each build's nvcc seconds are printed. fwd
+launches `attention.flash_fwd` on its automatic route; bwd launches
 `attention.flash_bwd_dq` and `attention.flash_bwd_dkv` on the wgmma route
 and first prints ptxas's registers and spills of each variant's wgmma
-kernels with its performance notes. Every launch is checked against the
+kernels with its performance notes. `--route mma` launches both kinds on
+the mma route instead. Every launch is checked against the
 plain version, elementwise and by `tile_rel_l2`. With `--probe` each
 variant runs once at the `PROBE` shapes, so that a variant that hangs or faults
-can be run alone under a time limit before the timing. `--head-dim 64`
+can be run alone under a time limit before the timing. Each reading says
+whether the variant's outputs equal the first variant's bit for bit. `--head-dim 64`
 takes the shapes of `SHAPES_64` (bench_mfu's d1024 train widths first, as
 the model's [B, S, H, D] views), where both backward kernels run their
 head-dim-64 wgmma kernels (`flash_bwd_dq_wgmma64_kernel`,
@@ -29,6 +32,7 @@ import math
 import re
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
@@ -81,18 +85,21 @@ def tile_rel_l2(got, ref, rows: int = 64) -> float:
     return float(torch.nan_to_num(err / scale, nan=0.0, posinf=math.inf).max())
 
 
-def build_variant(variant: str) -> tuple[ctypes.CDLL, str]:
+def build_variant(variant: str) -> tuple[ctypes.CDLL, str, float]:
     """A copy of a kernel source built with the package's nvcc flags (and
-    its csrc/ headers) into build/variants/: (library, nvcc's output)."""
+    its csrc/ headers, after the headers beside it) into build/variants/:
+    (library, nvcc's output, nvcc's seconds)."""
     src = Path(variant).resolve()
-    out = _build.BUILD_DIR.parent / "variants" / f"{src.stem}.so"
+    out = _build.BUILD_DIR.parent / "variants" / f"{src.parent.name}_{src.stem}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
            str(out), str(src)]
+    t0 = time.perf_counter()
     res = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
     if res.returncode:
         raise RuntimeError(f"nvcc failed for {src}:\n{res.stdout}{res.stderr}")
-    return ctypes.CDLL(str(out)), res.stdout + res.stderr
+    return ctypes.CDLL(str(out)), res.stdout + res.stderr, seconds
 
 
 def wgmma_ptxas(log: str) -> list[str]:
@@ -134,24 +141,26 @@ def _randn(gen, d, *shapes):
             .transpose(1, 2) for b, h, s, d_ in shapes]
 
 
-def _fwd_case(gen, d, b, h, kvh, sq, sk, causal, window):
-    """-> (check, timed): check() launches once and returns its readings
-    against the plain version with "ok"; timed maps a name to a launch."""
+def _fwd_case(gen, d, route, b, h, kvh, sq, sk, causal, window):
+    """-> (check, timed): check() launches once on `route` (None: the
+    automatic one) and returns its readings against the plain version with
+    "ok"; timed maps a name to a launch."""
     q, k, v = _randn(gen, d, (b, h, sq, d), (b, kvh, sk, d), (b, kvh, sk, d))
     ro, rl = attn.reference_attention_with_lse(q, k, v, causal, window)
 
     def check():
-        o, lse = attn.flash_fwd(q, k, v, causal, window)
+        o, lse = attn.flash_fwd(q, k, v, causal, window, route=route)
         tile = tile_rel_l2(o, ro)
-        return {"tile_rel_l2": tile,
+        return {"tile_rel_l2": tile, "outputs": (o, lse),
                 "ok": bool(torch.allclose(o.float(), ro.float(), atol=2e-2, rtol=2e-2)
                            and torch.allclose(lse, rl, atol=1e-3, rtol=1e-3))
                 and tile <= BWD_TILE_REL_L2}
 
-    return check, {"ms": lambda: attn.flash_fwd(q, k, v, causal, window)}
+    return check, {"ms": lambda: attn.flash_fwd(q, k, v, causal, window, route=route)}
 
 
-def _bwd_case(gen, d, b, h, kvh, sq, sk, causal, window):
+def _bwd_case(gen, d, route, b, h, kvh, sq, sk, causal, window):
+    route = route or "wgmma"
     q, k, v, do = _randn(gen, d, (b, h, sq, d), (b, kvh, sk, d), (b, kvh, sk, d),
                          (b, h, sq, d))
     o, lse = attn.flash_fwd(q, k, v, causal, window)
@@ -159,17 +168,17 @@ def _bwd_case(gen, d, b, h, kvh, sq, sk, causal, window):
     ref = attn.flash_backward_reference(q, k, v, o, lse, do, causal, window)
 
     def check():
-        dk, dv = attn.flash_bwd_dkv(*args, route="wgmma")
-        got = (attn.flash_bwd_dq(*args, route="wgmma"), attn.group_sum(dk, kvh),
+        dk, dv = attn.flash_bwd_dkv(*args, route=route)
+        got = (attn.flash_bwd_dq(*args, route=route), attn.group_sum(dk, kvh),
                attn.group_sum(dv, kvh))
         tiles = {n: tile_rel_l2(g, r) for n, g, r in zip(("dq", "dk", "dv"), got, ref)}
         close = all(bool(torch.allclose(g.float(), r.float(), atol=2e-2, rtol=2e-2))
                     for g, r in zip(got, ref))
-        return {"tile_rel_l2": tiles, "allclose": close,
+        return {"tile_rel_l2": tiles, "allclose": close, "outputs": got,
                 "ok": close and max(tiles.values()) <= BWD_TILE_REL_L2}
 
-    return check, {"dq_ms": lambda: attn.flash_bwd_dq(*args, route="wgmma"),
-                   "dkv_ms": lambda: attn.flash_bwd_dkv(*args, route="wgmma")}
+    return check, {"dq_ms": lambda: attn.flash_bwd_dq(*args, route=route),
+                   "dkv_ms": lambda: attn.flash_bwd_dkv(*args, route=route)}
 
 
 # kind -> (the source's name, its entries' argtypes, attention's loader of
@@ -180,35 +189,40 @@ KINDS = {
 }
 
 
-def _load(kind: str, variant: str) -> tuple[ctypes.CDLL, str]:
+def _load(kind: str, variant: str) -> tuple[ctypes.CDLL, str, float | None]:
     src, argtypes, loader, _ = KINDS[kind]
     if variant == "cur":
-        return getattr(attn, loader)(), _build.build_info[src]["log"]
-    lib, log = build_variant(variant)
+        lib = getattr(attn, loader)()
+        return lib, _build.build_info[src]["log"], _build.build_info[src]["seconds"]
+    lib, log, seconds = build_variant(variant)
     for name, types in argtypes.items():
         getattr(lib, name).argtypes = types
         getattr(lib, name).restype = ctypes.c_int
-    return lib, log
+    return lib, log, seconds
 
 
 def main(argv: list[str]) -> int:
     kind, argv = (argv[0], argv[1:]) if argv else (None, [])
     probe = argv[:1] == ["--probe"]
     argv = argv[1:] if probe else argv
-    d = 128
+    d, route = 128, None
     if argv[:1] == ["--head-dim"]:
         d, argv = int(argv[1]), argv[2:]
+    if argv[:1] == ["--route"]:
+        route, argv = argv[1], argv[2:]
     variants = argv
-    if kind not in KINDS or d not in (64, 128) or not torch.cuda.is_available() or not variants:
+    if (kind not in KINDS or d not in (64, 128) or route not in (None, "mma")
+            or not torch.cuda.is_available() or not variants):
         print(__doc__, file=sys.stderr)
         return 1
     _, _, loader, make_case = KINDS[kind]
     own_loader = getattr(attn, loader)
     libs = {}
     for v in variants:
-        libs[v], log = _load(kind, v)
-        if kind == "bwd":
-            print(json.dumps({"variant": v, "ptxas": wgmma_ptxas(log)}), flush=True)
+        libs[v], log, seconds = _load(kind, v)
+        print(json.dumps({"variant": v, "nvcc_s": seconds,
+                          **({"ptxas": wgmma_ptxas(log)} if kind == "bwd" else {})}),
+              flush=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
@@ -219,13 +233,17 @@ def main(argv: list[str]) -> int:
         for name, *shape in (SHAPES if d == 128 else SHAPES_64):
             if probe and name not in PROBE:
                 continue
-            check, timed = make_case(gen, d, *shape)
-            row = {"shape": name}
+            check, timed = make_case(gen, d, route, *shape)
+            row, first = {"shape": name}, None
             for var in order:
                 setattr(attn, loader, lambda lib=libs[var]: lib)
                 readings = check()
                 torch.cuda.synchronize()
                 ok_all = ok_all and readings["ok"]
+                outputs = readings.pop("outputs")
+                first = first or outputs
+                readings["equal_to_first"] = all(
+                    torch.equal(a, b) for a, b in zip(outputs, first))
                 row.setdefault(var, []).append(
                     {**{n: time_ms(fn) for n, fn in timed.items()}, **readings})
             print(json.dumps(row), flush=True)
