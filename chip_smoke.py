@@ -16,25 +16,30 @@ Phases, each printing one JSON line; any failure exits non-zero:
    cross-length, non-causal and ragged), each on the
    route `_route` picks, with the kernel's, the plain version's and one
    library call's times, TF/s and the card's bound for the same work; at
-   the main shape and at d1024_bshd the wgmma and mma routes are timed in
-   turns (mma, wgmma, wgmma, mma), and at d1024_bshd SDPA under its
-   default backend (named) and under its flash backend. Then the head dims
-   and dtypes of the padded simt and mma kernels (`WIDE_SHAPES`): Phi-3-mini's
-   attention (32 heads of 96, S=2048; GQA 32/8 and window 512 at 96), 80,
-   Gemma-2B's 8 heads of 256 over one, 40 ragged, 100 (unaligned: simt),
-   fp16 at the main shape and at d1024_bshd, and simt in fp32 and fp16; each
-   on every route `_routes` admits, with SDPA's default backend timed where
-   its inputs are aligned bf16 or fp16; and head dim 264 refused by every
-   wrapper on every route with no launch.
+   the main shape, at d1024_bshd and at phi3_d96_bshd the wgmma and mma
+   routes are timed in turns (mma, wgmma, wgmma, mma), SDPA's default
+   backend after each turn, and at d1024_bshd
+   SDPA under its default backend (named) and under its flash backend; at
+   head dim 96 (cross-length, non-causal, ragged) on the head-dim-96 wgmma
+   kernel. Then the head dims and dtypes of the padded simt and mma kernels
+   (`WIDE_SHAPES`): Phi-3-mini's attention (32 heads of 96, S=2048; GQA 32/8
+   and window 512 at 96; wgmma there), 80, Gemma-2B's 8 heads of 256 over
+   one, 40 ragged, 100 (unaligned: simt), fp16 at the main shape and at
+   d1024_bshd, simt in fp32 and fp16, and 320 on simt in fp32 and bf16;
+   each on every route `_routes` admits, with SDPA's default backend timed
+   where its inputs are aligned bf16 or fp16 (a failure of the library's
+   call is recorded with its error); and head dim 520 refused by every wrapper on every route with no launch.
 3. backward: the dQ and dK/dV kernels against the plain backward at the
    same shapes (a non-zero LSE cotangent at some), elementwise and by each
-   output's worst tile, each kernel on the route `_route` picks for it,
-   twice with equal bits, with their times, TF/s, the plain backward's
-   time, the bound of each, and at the main shape and at d1024_bshd the
+   output's worst tile, each kernel on the route `_route` picks for it
+   (dQ on mma at head dim 96, where dK/dV takes wgmma), twice with equal
+   bits, with their times, TF/s, the plain backward's time, the bound of
+   each, and at the main shape, at d1024_bshd and at phi3_d96_bshd the
    library's backward (timed alone) and the wgmma and mma routes of each
-   kernel, each held against the plain backward and timed in turns (mma,
-   wgmma, wgmma, mma); at d1024_bshd SDPA's backward under its default and
-   its flash backends.
+   kernel that takes them, each held against the plain backward and timed
+   in turns (mma, wgmma, wgmma, mma), SDPA's backward after each turn; at
+   d1024_bshd SDPA's backward under
+   its default and its flash backends.
 4. forward: Llama-2-7B width, all 32 layers, bf16, random weights from a
    seed, B=1, S=2048: one `llama_forward` must launch the kernel once per
    layer, and its logits must agree with the forward through the plain
@@ -54,15 +59,16 @@ The MoE phases run Mixtral-8x7B's published widths (8 experts, top-2, GQA
 moe_forward and moe_serving (16 layers) after serving, moe_train (4 layers)
 after train.
 
-After moe_train, the head dims and dtype the padded mma kernels take, every
-flash launch on the mma route:
+After moe_train, head dim 96 and fp16:
 
 - phi3_forward, phi3_gradient, phi3_train: Phi-3-mini's published widths
-  (`phi3_mini`: hidden 3072, 32 layers, 32 heads of 96, intermediate 8192,
-  vocab 32064), random bf16 weights from a seed: as forward (32 layers),
-  gradient (4 layers) and train (32 layers, B=1, S=2048).
+  (`profile_path.phi3_mini`: hidden 3072, 32 layers, 32 heads of 96,
+  intermediate 8192, vocab 32064), random bf16 weights from a seed: as forward (32 layers),
+  gradient (4 layers) and train (32 layers, B=1, S=2048), the forward and
+  dK/dV launches on wgmma and dQ's on mma (`D96_ROUTES`).
 - fp16_forward, fp16_gradient: Llama-2-7B in fp16, the dtype of its
-  published weights: as forward and gradient.
+  published weights: as forward and gradient, every flash launch on the
+  mma route.
 
 - moe_forward: B=1, S=2048: 16 flash_fwd launches, all on the wgmma route;
   logits and routing against the forward through the plain attention, end
@@ -581,9 +587,10 @@ def ptxas_summary(log: str) -> dict:
 
 
 # the wgmma kernels of csrc/, as ptxas names them: each must build
-WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_wgmma64_kernel",
-                 "flash_bwd_dq_wgmma_kernel", "flash_bwd_dq_wgmma64_kernel",
-                 "flash_bwd_dkv_wgmma_kernel", "flash_bwd_dkv_wgmma64_kernel")
+WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_wgmma96_kernel",
+                 "flash_fwd_wgmma64_kernel", "flash_bwd_dq_wgmma_kernel",
+                 "flash_bwd_dq_wgmma64_kernel", "flash_bwd_dkv_wgmma_kernel",
+                 "flash_bwd_dkv_wgmma96_kernel", "flash_bwd_dkv_wgmma64_kernel")
 
 
 def phase_build(build):
@@ -606,25 +613,31 @@ def phase_build(build):
         and all("0 bytes spill stores, 0 bytes spill loads" in v for v in wgmma.values())
         and not any("C7512" in n or "serialized" in n for n in notes))
     # reported, not gated: the simt and mma kernels at the widest padded
-    # width (256), whose sums are the largest
-    dp256 = {k: v for p in ptxas.values() for k, v in p.items()
-             if k != "notes" and "Li256E" in k}
+    # widths (256; 512, simt alone), whose sums are the largest
+    widest = {w: {k: v for p in ptxas.values() for k, v in p.items()
+                  if k != "notes" and f"Li{w}E" in k} for w in (256, 512)}
     emit("build", nvidia_smi=smi, device=torch.cuda.get_device_name(0),
          torch=torch.__version__, cuda=torch.version.cuda,
          build_s=time.perf_counter() - t0,
          nvcc_s={n: i.get("seconds") for n, i in info.items()}, ptxas=ptxas,
-         wgmma_kernels_spill_free=spill_free, padded_256_kernels=dp256)
+         wgmma_kernels_spill_free=spill_free, padded_256_kernels=widest[256],
+         padded_512_kernels=widest[512])
     if not spill_free:
         raise SystemExit(f"the wgmma kernels {WGMMA_KERNELS} must build with no spills "
                          f"and no serialised wgmma: {wgmma}, notes {notes}")
     return smi
 
 
+# the routes at head dim 96 in bf16 with aligned rows (forward, dQ, dK/dV):
+# the forward and dK/dV have wgmma kernels at 96, dQ runs on mma
+D96_ROUTES = ("wgmma", "mma", "wgmma")
+
 # (name, b, h, kvh, sq, sk, d, causal, window, dtype, layout, route):
 # layout "bhsd" is contiguous [B, H, S, D]; "bshd" the model's transposed
 # views of a contiguous [B, S, H, D]; "offset1" starts every tensor one
 # element into its storage, off 16-byte alignment. route is the one
-# `_route` must pick for these inputs for each kernel (`shape_routes`).
+# `_route` must pick for these inputs: one for every kernel, or a (forward,
+# dQ, dK/dV) tuple (`shape_routes`).
 SHAPES = [
     ("main", 1, 32, 32, 2048, 2048, 128, True, None, torch.bfloat16, "bhsd", "wgmma"),
     ("main_bshd", 1, 32, 32, 2048, 2048, 128, True, None, torch.bfloat16, "bshd",
@@ -650,21 +663,32 @@ SHAPES = [
      "wgmma"),
     ("ragged_d64", 2, 8, 4, 300, 300, 64, True, None, torch.bfloat16, "bshd", "wgmma"),
     ("ragged_300", 2, 8, 4, 300, 300, 128, True, None, torch.bfloat16, "bhsd", "wgmma"),
+    # head dim 96 (Phi-3-mini's): the forward and dK/dV on their wgmma
+    # kernels, dQ on mma; cross-length, non-causal and ragged here, and
+    # Phi-3-mini's attention with GQA and a window among the rows below
+    ("cross_length_d96", 1, 32, 32, 256, 1024, 96, True, None, torch.bfloat16, "bhsd",
+     D96_ROUTES),
+    ("non_causal_d96", 1, 32, 32, 1000, 1000, 96, False, None, torch.bfloat16, "bhsd",
+     D96_ROUTES),
+    ("ragged_d96", 2, 8, 4, 300, 300, 96, True, None, torch.bfloat16, "bshd", D96_ROUTES),
     ("main_unaligned", 1, 32, 32, 2048, 2048, 128, True, None, torch.bfloat16,
      "offset1", "simt"),
     # head dims other than 32, 64 and 128, and fp16, on the simt and mma
-    # kernels at their padded widths: Phi-3-mini's attention (32 heads of
-    # 96, S=2048) as the model gives it and contiguous, with GQA 32/8 and a
-    # window; 80 (2560 / 32, Phi-2's width); Gemma-2B's 8 query heads of
-    # 256 over one KV head; 40 on a ragged sequence; 100, whose rows are not
-    # 16-byte aligned (simt); fp16 at the main shape and at d1024_bshd (the
-    # dtype of Llama-2's published weights); and simt at each padded width
-    # in fp32 and fp16
-    ("phi3_d96", 1, 32, 32, 2048, 2048, 96, True, None, torch.bfloat16, "bhsd", "mma"),
+    # kernels at their padded widths (and at 96 on wgmma for the forward and
+    # dK/dV): Phi-3-mini's attention (32 heads of 96, S=2048) as the model
+    # gives it and contiguous, with GQA 32/8 and a window; 80 (2560 / 32,
+    # Phi-2's width); Gemma-2B's 8 query heads of 256 over one KV head; 40
+    # on a ragged sequence; 100, whose rows are not 16-byte aligned (simt);
+    # fp16 at the main shape and at d1024_bshd (the dtype of Llama-2's
+    # published weights); simt at each padded width in fp32 and fp16; and
+    # 320, past the mma kernels' 256, on simt's widest width (512)
+    ("phi3_d96", 1, 32, 32, 2048, 2048, 96, True, None, torch.bfloat16, "bhsd",
+     D96_ROUTES),
     ("phi3_d96_bshd", 1, 32, 32, 2048, 2048, 96, True, None, torch.bfloat16, "bshd",
-     "mma"),
-    ("gqa_d96", 1, 32, 8, 2048, 2048, 96, True, None, torch.bfloat16, "bshd", "mma"),
-    ("window_d96", 1, 32, 32, 2048, 2048, 96, True, 512, torch.bfloat16, "bhsd", "mma"),
+     D96_ROUTES),
+    ("gqa_d96", 1, 32, 8, 2048, 2048, 96, True, None, torch.bfloat16, "bshd", D96_ROUTES),
+    ("window_d96", 1, 32, 32, 2048, 2048, 96, True, 512, torch.bfloat16, "bhsd",
+     D96_ROUTES),
     ("d80", 1, 32, 32, 2048, 2048, 80, True, None, torch.bfloat16, "bhsd", "mma"),
     ("gemma_d256", 1, 8, 1, 2048, 2048, 256, True, None, torch.bfloat16, "bshd", "mma"),
     ("ragged_d40", 2, 8, 4, 300, 300, 40, True, None, torch.bfloat16, "bhsd", "mma"),
@@ -677,9 +701,13 @@ SHAPES = [
     ("fp16_unaligned_d80", 1, 8, 4, 512, 512, 80, True, 128, torch.float16, "offset1",
      "simt"),
     ("fp32_d256", 1, 4, 2, 300, 300, 256, True, None, torch.float32, "bhsd", "simt"),
+    ("fp32_d320", 1, 8, 4, 512, 512, 320, True, None, torch.float32, "bhsd", "simt"),
+    ("bf16_d320", 1, 8, 8, 300, 300, 320, True, None, torch.bfloat16, "bshd", "simt"),
 ]
-ROUTE_TURNS = ("mma", "wgmma", "wgmma", "mma")  # timed in turns at TURN_SHAPES
-TURN_SHAPES = ("main", "d1024_bshd")
+# timed in turns at TURN_SHAPES: each kernel on those of these routes it
+# takes, and SDPA's default backend after each turn
+ROUTE_TURNS = ("mma", "wgmma", "wgmma", "mma")
+TURN_SHAPES = ("main", "d1024_bshd", "phi3_d96_bshd")
 D64_SHAPE = "d1024_bshd"  # the head-dim-64 row of the kernels line
 # the rows at the new head dims and fp16: every route `_routes` admits is
 # held against the plain version there, and SDPA's default backend is timed
@@ -687,20 +715,31 @@ D64_SHAPE = "d1024_bshd"  # the head-dim-64 row of the kernels line
 # backward fails on the rows that start one element into their storage)
 WIDE_SHAPES = ("phi3_d96", "phi3_d96_bshd", "gqa_d96", "window_d96", "d80", "gemma_d256",
                "ragged_d40", "unaligned_d100", "fp16_main", "fp16_d1024_bshd", "fp32_d40",
-               "fp16_unaligned_d80", "fp32_d256")
+               "fp16_unaligned_d80", "fp32_d256", "fp32_d320", "bf16_d320")
 # the kernels line's head_dims entry: the rows of each new width and dtype
 HEAD_DIM_ROWS = ("d80", "phi3_d96_bshd", "gemma_d256", "unaligned_d100", "fp16_main",
-                 "fp16_d1024_bshd")
-# a head dim past the kernels' widest padded width (256): every wrapper
-# refuses it on every route, with no launch
-REFUSED_HEAD_DIM = 264
+                 "fp16_d1024_bshd", "bf16_d320")
+# a head dim past the kernels' widest padded width (512, simt's): every
+# wrapper refuses it on every route, with no launch
+REFUSED_HEAD_DIM = 520
 
 
-def shape_routes(route: str) -> dict:
-    """Each kernel's route at a SHAPES row whose forward takes `route`: the
-    backward kernels take the forward's, at every head dim (each kernel's
-    wgmma route takes 64 and 128)."""
-    return dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), route)
+def shape_routes(route) -> dict:
+    """Each kernel's route at a SHAPES row: `route` names one for all three
+    kernels (the wgmma route of each takes head dims 64 and 128), or a
+    (forward, dQ, dK/dV) tuple one for each (`D96_ROUTES`)."""
+    routes = (route,) * 3 if isinstance(route, str) else route
+    return dict(zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), routes))
+
+
+def step_routes(route, layers: int) -> dict:
+    """Each kernel's launches by route over `layers` layers of train steps
+    (remat): per layer the forward twice and each backward kernel once, each
+    kernel on its route of `shape_routes(route)`."""
+    routes = shape_routes(route)
+    return {name: {routes[name]: per_layer * layers}
+            for name, per_layer in (("flash_fwd", 2), ("flash_bwd_dq", 1),
+                                    ("flash_bwd_dkv", 1))}
 
 
 def rand_inputs(gen, dtype, layout, *shapes):
@@ -719,10 +758,21 @@ def rand_inputs(gen, dtype, layout, *shapes):
 
 
 def timed_against_library(name: str, dtype, layout: str) -> bool:
-    """Whether a SHAPES row times SDPA's default backend beside the kernel."""
+    """Whether a SHAPES row times SDPA's default backend beside the kernel:
+    on half-precision rows whose rows are aligned (cuDNN's backward fails on
+    the offset ones)."""
     if name in ("main", "main_bshd", D64_SHAPE):
         return True
     return name in WIDE_SHAPES and dtype != torch.float32 and layout != "offset1"
+
+
+def library_time(fn) -> tuple[float | None, str | None]:
+    """(ms, None) for one SDPA yardstick, or (None, the error) where the
+    library's call fails on the card: the row records the failure."""
+    try:
+        return fn(), None
+    except RuntimeError as e:
+        return None, f"{type(e).__name__}: {str(e)[:300]}"
 
 
 def window_mask(sq: int, sk: int, window: int | None):
@@ -771,7 +821,7 @@ def phase_kernel(attn, variants, tune):
     for name, b, h, kvh, sq, sk, d, causal, window, dtype, layout, want in SHAPES:
         q, k, v = rand_inputs(gen, dtype, layout, (b, h, sq, d), (b, kvh, sk, d),
                               (b, kvh, sk, d))
-        route = attn._route("flash_fwd", q, k, v)
+        route, want = attn._route("flash_fwd", q, k, v), shape_routes(want)["flash_fwd"]
         if route != want:
             raise SystemExit(f"{name} takes the {route} route, expected {want}")
         o, lse = attn.flash_fwd(q, k, v, causal, window)
@@ -794,18 +844,21 @@ def phase_kernel(attn, variants, tune):
         ms = cuda_time_ms(lambda: attn.flash_fwd(q, k, v, causal, window), 20)
         plain_ms = cuda_time_ms(
             lambda: attn.reference_attention_with_lse(q, k, v, causal, window), 5)
-        library_ms, turns, sdpa, route_tile = None, None, None, None
+        library_ms, library_error, sdpa, route_tile = None, None, None, None
+        turns, library_turns = None, None
         mask = window_mask(sq, sk, window)
         if timed_against_library(name, dtype, layout):
             # the yardstick, timed here and used nowhere in the port
-            library_ms = cuda_time_ms(lambda: sdpa_fn(q, k, v, mask=mask), 20)
+            library_ms, library_error = library_time(
+                lambda: cuda_time_ms(lambda: sdpa_fn(q, k, v, mask=mask), 20))
         if name == D64_SHAPE:
             sdpa = {"default_backend": sdpa_default_backend(q, k, v),
                     "default_ms": library_ms,
                     "flash_ms": cuda_time_ms(lambda: sdpa_fn(q, k, v, flash=True), 20)}
         if name in WIDE_SHAPES:
-            sdpa = {"default_backend": sdpa_default_backend(q, k, v, mask=mask),
-                    "default_ms": library_ms} if library_ms is not None else None
+            sdpa = ({"default_backend": sdpa_default_backend(q, k, v, mask=mask),
+                     "default_ms": library_ms, "error": library_error}
+                    if timed_against_library(name, dtype, layout) else None)
             # every other route that takes these inputs against the plain
             # version too
             route_tile = {}
@@ -816,13 +869,17 @@ def phase_kernel(attn, variants, tune):
                     ok = ok and agree
         if name in TURN_SHAPES:
             # the other route against the plain version too, then in turns
-            route_tile, agree = agrees(*attn.flash_fwd(q, k, v, causal, window, route="mma"))
-            route_tile = {"mma_o": route_tile}
+            route_tile = route_tile or {}
+            route_tile["mma_o"], agree = agrees(
+                *attn.flash_fwd(q, k, v, causal, window, route="mma"))
             ok = ok and agree
-            turns = {r: [] for r in ROUTE_TURNS}
+            # and the library's call after each turn, so that the factor
+            # over it is read within these turns too
+            turns, library_turns = {r: [] for r in ROUTE_TURNS}, []
             for r in ROUTE_TURNS:
                 turns[r].append(cuda_time_ms(
                     lambda: attn.flash_fwd(q, k, v, causal, window, route=r), 20))
+                library_turns.append(cuda_time_ms(lambda: sdpa_fn(q, k, v, mask=mask), 20))
         bound_ms, bound_by = attention_bound(b, h, kvh, sq, sk, d, causal,
                                              window, dtype)
         flops = 4 * b * h * d * visible_pairs(sq, sk, causal, window)
@@ -834,7 +891,7 @@ def phase_kernel(attn, variants, tune):
                    route_tile_rel_l2=route_tile, ok=ok, ms=ms, tflops=flops / ms / 1e9,
                    share_of_bound=bound_ms / ms, plain_ms=plain_ms,
                    library_ms=library_ms, sdpa=sdpa, route_turns_ms=turns,
-                   bound_ms=bound_ms, bound_by=bound_by)
+                   library_turns_ms=library_turns, bound_ms=bound_ms, bound_by=bound_by)
         print(json.dumps({"phase": "kernel", **row}), flush=True)
         rows.append(row)
         max_err = max(max_err, err_o)
@@ -904,47 +961,60 @@ def phase_backward(attn, variants, tune):
             errs[nm + "_rel_l2"] = rel_l2(got, ref_t)
             errs[nm + "_tile_rel_l2"], agree = agrees(got, ref_t, dtype)
             ok = ok and agree
-        turns, route_tile = None, None
+        turns, library_turns, route_tile = None, None, None
+        mask = window_mask(sq, sk, window)
+        kernels = {"dq": attn.flash_bwd_dq, "dkv": attn.flash_bwd_dkv}
+        taken = {key: attn._routes(fn.__name__, q, k, v, do) for key, fn in kernels.items()}
+
+        def held(routes):
+            """Each kernel on each of `routes` it takes, but its own route,
+            against the plain backward: {route_output: tile_rel_l2}, ok."""
+            tiles, agree_all = {}, True
+            for r in routes:
+                got = {}
+                if r in taken["dq"] and r != want["flash_bwd_dq"]:
+                    got["dq"] = attn.flash_bwd_dq(*args, route=r)
+                if r in taken["dkv"] and r != want["flash_bwd_dkv"]:
+                    got["dk"], got["dv"] = (attn.group_sum(t, kvh)
+                                            for t in attn.flash_bwd_dkv(*args, route=r))
+                for nm, ref_t in zip(("dq", "dk", "dv"), ref):
+                    if nm in got:
+                        tiles[f"{r}_{nm}"], agree = agrees(got[nm], ref_t, dtype)
+                        agree_all = agree_all and agree
+            return tiles, agree_all
+
         if name in WIDE_SHAPES:
             # every other route that takes these inputs against the plain
             # backward too
-            route_tile = {}
-            for r in attn._routes("flash_bwd_dq", q, k, v, do):
-                if r == want["flash_bwd_dq"]:
-                    continue
-                got = {"dq": attn.flash_bwd_dq(*args, route=r)}
-                got["dk"], got["dv"] = (attn.group_sum(t, kvh)
-                                        for t in attn.flash_bwd_dkv(*args, route=r))
-                for nm, ref_t in zip(("dq", "dk", "dv"), ref):
-                    route_tile[f"{r}_{nm}"], agree = agrees(got[nm], ref_t, dtype)
-                    ok = ok and agree
+            route_tile, agree = held(taken["dkv"])
+            ok = ok and agree
         if name in TURN_SHAPES:
             # each route against the plain backward too, then in turns
-            kernels = {"dq": attn.flash_bwd_dq, "dkv": attn.flash_bwd_dkv}
-            route_tile = {}
-            for r in ROUTE_TURNS[:2]:
-                got = {"dq": attn.flash_bwd_dq(*args, route=r)}
-                got["dk"], got["dv"] = (attn.group_sum(t, kvh)
-                                        for t in attn.flash_bwd_dkv(*args, route=r))
-                for nm, ref_t in zip(("dq", "dk", "dv"), ref):
-                    route_tile[f"{r}_{nm}"], agree = agrees(got[nm], ref_t, dtype)
-                    ok = ok and agree
-            turns = {key: {r: [] for r in ROUTE_TURNS} for key in kernels}
+            tiles, agree = held(ROUTE_TURNS[:2])
+            route_tile = {**(route_tile or {}), **tiles}
+            ok = ok and agree
+            # and SDPA's backward after each turn
+            turns = {key: {r: [] for r in ROUTE_TURNS if r in taken[key]} for key in kernels}
+            library_turns = []
             for r in ROUTE_TURNS:
                 for key, fn in kernels.items():
-                    turns[key][r].append(cuda_time_ms(lambda: fn(*args, route=r), 20))
+                    if r in taken[key]:
+                        turns[key][r].append(cuda_time_ms(lambda: fn(*args, route=r), 20))
+                library_turns.append(sdpa_backward_ms(tune, q, k, v, do, mask=mask))
         del runs, ref
         ms_dq = cuda_time_ms(lambda: attn.flash_bwd_dq(*args), 20)
         ms_dkv = cuda_time_ms(lambda: attn.flash_bwd_dkv(*args), 20)
         plain_ms = cuda_time_ms(lambda: attn.flash_backward_reference(
             q, k, v, o, lse, do, causal, window, g_lse), 3)
-        library_ms = (sdpa_backward_ms(tune, q, k, v, do, mask=window_mask(sq, sk, window))
-                      if name in TURN_SHAPES or (name in WIDE_SHAPES and timed_against_library(
-                          name, dtype, layout)) else None)
-        sdpa = None
-        if name in WIDE_SHAPES and library_ms is not None:
-            sdpa = {"default_backend": sdpa_default_backend(
-                q, k, v, mask=window_mask(sq, sk, window)), "default_backward_ms": library_ms}
+        library_ms, library_error, sdpa = None, None, None
+        timed = name in TURN_SHAPES or (name in WIDE_SHAPES
+                                        and timed_against_library(name, dtype, layout))
+        if timed:
+            library_ms, library_error = library_time(
+                lambda: sdpa_backward_ms(tune, q, k, v, do, mask=mask))
+        if name in WIDE_SHAPES and timed:
+            sdpa = {"default_backend": sdpa_default_backend(q, k, v, mask=mask),
+                    "default_backward_ms": library_ms, "error": library_error}
         if name == D64_SHAPE:
             sdpa = {"default_backend": sdpa_default_backend(q, k, v),
                     "default_backward_ms": library_ms,
@@ -962,7 +1032,8 @@ def phase_backward(attn, variants, tune):
                    dkv_tflops=8 * b * h * d * pairs / ms_dkv / 1e9,
                    dq_share_of_bound=bounds["dq"][0] / ms_dq,
                    dkv_share_of_bound=bounds["dkv"][0] / ms_dkv,
-                   route_turns_ms=turns, plain_ms=plain_ms, library_ms=library_ms,
+                   route_turns_ms=turns, library_turns_ms=library_turns,
+                   plain_ms=plain_ms, library_ms=library_ms,
                    sdpa=sdpa, dq_bound_ms=bounds["dq"][0], dq_bound_by=bounds["dq"][1],
                    dkv_bound_ms=bounds["dkv"][0], dkv_bound_by=bounds["dkv"][1])
         print(json.dumps({"phase": "backward", **row}), flush=True)
@@ -979,9 +1050,11 @@ def phase_backward(attn, variants, tune):
 def phase_forward(attn, llama, cfg=None, phase="forward", config="llama2_7b",
                   route="wgmma"):
     """llama_forward at B=1, S=2048 over all of `cfg`'s layers (Llama-2-7B
-    by default): one flash_fwd launch a layer, every one on `route`, and the
-    logits against the forward through the plain attention."""
+    by default): one flash_fwd launch a layer, every one on the forward's
+    route of `shape_routes(route)`, and the logits against the forward
+    through the plain attention."""
     cfg = cfg or llama.LlamaConfig.llama2_7b()
+    route = shape_routes(route)["flash_fwd"]
     free_memory()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1019,7 +1092,7 @@ def phase_forward(attn, llama, cfg=None, phase="forward", config="llama2_7b",
          logits_rel_l2_vs_plain=err, bound=LOGITS_REL_L2, forward_ms=times,
          forward_ms_median=statistics.median(times),
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    return cfg, params, launches
+    return cfg, params, launches, routes
 
 
 def phase_moe_forward(attn, llama, train, moe, cfg):
@@ -1201,23 +1274,12 @@ def phase_serving(cfg, params, llama, gen_mod, phase="serving",
          sampled_tokens=sampled[0].shape[1], **extra)
 
 
-def phi3_mini(llama):
-    """Phi-3-mini's widths as the port's Llama config, from the published
-    microsoft/Phi-3-mini-4k-instruct config.json: hidden 3072, 32 layers, 32
-    query and 32 KV heads of 96, intermediate 8192, vocab 32064, rope_theta
-    10000, rms_norm_eps 1e-5, 4096 positions, bf16. Its fused qkv and
-    gate_up projections are the same products as the Llama's separate ones;
-    the weights are random, from a seed."""
-    return llama.LlamaConfig(vocab_size=32064, dim=3072, n_layers=32, n_heads=32,
-                             n_kv_heads=32, ffn_dim=8192, rope_theta=10000.0,
-                             norm_eps=1e-5, max_seq_len=4096, dtype="bfloat16")
-
-
 def phase_gradient(attn, llama, train, cfg=None, phase="gradient",
                    config="llama2_7b width, 4 layers", route="wgmma"):
     """The loss's gradient at `cfg`'s widths cut to 4 layers (Llama-2-7B by
-    default) through the kernels, every launch on `route`, against the
-    gradient through the plain attention, every leaf."""
+    default) through the kernels, each kernel's launches on its route of
+    `shape_routes(route)`, against the gradient through the plain
+    attention, every leaf."""
     cfg = dataclasses.replace(cfg or llama.LlamaConfig.llama2_7b(), n_layers=4)
     free_memory()
     params = llama.init_llama(cfg, seed=0, device="cuda")
@@ -1238,11 +1300,10 @@ def phase_gradient(attn, llama, train, cfg=None, phase="gradient",
         grads[name] = [t.grad for t in leaves]
         for t in leaves:
             t.grad = None
-    want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
-            "flash_bwd_dkv": cfg.n_layers}
-    if launches != want or routes != {n: {route: c} for n, c in want.items()}:
+    want = step_routes(route, cfg.n_layers)
+    if routes != want:
         raise SystemExit(f"{phase}: the 4-layer gradient launched {routes}, expected "
-                         f"{want} on {route}")
+                         f"{want}")
     errs = [rel_l2(a, b) for a, b in zip(grads["kernels"], grads["plain"])]
     finite = all(bool(torch.isfinite(g).all()) for g in grads["kernels"])
     names = (["embed"] + [f"layers.{i}.{n}" for i, layer in enumerate(params["layers"])
@@ -1262,7 +1323,8 @@ def phase_gradient(attn, llama, train, cfg=None, phase="gradient",
 
 def phase_train(attn, train, moe, cfg, phase="train", config=None, route="wgmma"):
     """4 train steps at B=1, S=2048 on one batch (remat, AdamW lr 3e-4),
-    every flash launch on `route`. MFU counts each token's active
+    each kernel's launches on its route of `shape_routes(route)`
+    (`step_routes`). MFU counts each token's active
     parameters: all but the experts, and k/E of the experts (bench_mfu.py's
     6N + 6 L d S convention)."""
     free_memory()
@@ -1275,8 +1337,7 @@ def phase_train(attn, train, moe, cfg, phase="train", config=None, route="wgmma"
     init_s = time.perf_counter() - t0
     gen = torch.Generator(device="cuda").manual_seed(5)
     tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda")
-    want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
-            "flash_bwd_dkv": cfg.n_layers}
+    want = step_routes(route, cfg.n_layers)
     losses, times = [], []
     for _ in range(TRAIN_STEPS):
         reset_launches(attn)
@@ -1286,11 +1347,8 @@ def phase_train(attn, train, moe, cfg, phase="train", config=None, route="wgmma"
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         launches, routes = read_launches(attn), read_routes(attn)
-        if launches != want:
-            raise SystemExit(f"{phase}: a train step launched {launches}, expected {want}")
-        if routes != {n: {route: c} for n, c in want.items()}:
-            raise SystemExit(f"{phase}: a train step launched {routes}, expected every "
-                             f"launch on the {route} route")
+        if routes != want:
+            raise SystemExit(f"{phase}: a train step launched {routes}, expected {want}")
         losses.append(loss)
     losses = [float(x) for x in losses]
     tensors = (train.param_leaves(params) + [loss]
@@ -1332,7 +1390,7 @@ def phase_train(attn, train, moe, cfg, phase="train", config=None, route="wgmma"
         raise SystemExit(f"{phase}: training loss not finite and falling: {losses}")
     if not on_card:
         raise SystemExit(f"{phase}: a parameter, optimizer state or the loss left the card")
-    return launches
+    return launches, routes
 
 
 def phase_sharded_train(attn, train, mesh_mod, cfg, phase="sharded_train"):
@@ -2330,11 +2388,8 @@ def bench_train_routes(bench_mfu) -> dict:
     once, for the warm step and the timed ones; every kernel on the wgmma
     route, at head dim 128 and at the reference's d1024 widths' 64
     (`shape_routes`)."""
-    routes = shape_routes("wgmma")
-    layer_steps = (1 + bench_mfu.CARD_TRAIN_STEPS) * sum(
-        cfg.n_layers for cfg, _, _ in bench_mfu.train_candidates(True))
-    return {name: {routes[name]: per_layer * layer_steps}
-            for name, per_layer in (("flash_fwd", 2), ("flash_bwd_dq", 1), ("flash_bwd_dkv", 1))}
+    return step_routes("wgmma", (1 + bench_mfu.CARD_TRAIN_STEPS) * sum(
+        cfg.n_layers for cfg, _, _ in bench_mfu.train_candidates(True)))
 
 
 def planted_rings(gen_mod) -> dict:
@@ -2841,7 +2896,8 @@ def main() -> int:
     from yoda_scheduler_tpu_torch.tools import tune_attention as tune
     from yoda_scheduler_tpu_torch import bench_generate, bench_mfu, bench_util
     # Mixtral-8x7B's widths from its config.json, in the port's config fields
-    from yoda_scheduler_tpu_torch.profile_path import mixtral_8x7b
+    # and Phi-3-mini's, from its config.json
+    from yoda_scheduler_tpu_torch.profile_path import mixtral_8x7b, phi3_mini
 
     gen_mod = importlib.import_module("yoda_scheduler_tpu_torch.models.generate")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2854,7 +2910,7 @@ def main() -> int:
     bench_routes = phase_bench_mfu(attn, bench_util, bench_mfu, tune, smi)
     bench_routes.update(phase_bench_generate(attn, bench_util, bench_generate, llama,
                                                gen_mod, smi))
-    cfg, params, fwd_launches = phase_forward(attn, llama)
+    cfg, params, fwd_launches, _ = phase_forward(attn, llama)
     phase_serving(cfg, params, llama, gen_mod)
     del params
     mcfg, mparams, moe_fwd_launches = phase_moe_forward(
@@ -2869,20 +2925,22 @@ def main() -> int:
     del mparams
     free_memory()
     phase_gradient(attn, llama, train)
-    step_launches = phase_train(attn, train, moe, llama.LlamaConfig.llama2_7b())
+    step_launches, _ = phase_train(attn, train, moe, llama.LlamaConfig.llama2_7b())
     sharded_launches = phase_sharded_train(attn, train, mesh_mod,
                                            llama.LlamaConfig.llama2_7b())
-    moe_step_launches = phase_train(attn, train, moe, mixtral_8x7b(MOE_TRAIN_LAYERS),
-                                    phase="moe_train")
-    # head dim 96 (Phi-3-mini's widths) and fp16 (Llama-2-7B in the dtype of
-    # its published weights): every flash launch on the mma route
-    phi3, phi3_name = phi3_mini(llama), "phi3_mini_4k widths"
-    phi3_fwd_launches = phase_forward(attn, llama, phi3, phase="phi3_forward",
-                                      config=phi3_name, route="mma")[2]
+    moe_step_launches, _ = phase_train(attn, train, moe, mixtral_8x7b(MOE_TRAIN_LAYERS),
+                                       phase="moe_train")
+    # head dim 96 (Phi-3-mini's widths: the forward and dK/dV on wgmma, dQ
+    # on mma) and fp16 (Llama-2-7B in the dtype of its published weights:
+    # every flash launch on the mma route)
+    phi3, phi3_name = phi3_mini(), "phi3_mini_4k widths"
+    phi3_fwd_routes = phase_forward(attn, llama, phi3, phase="phi3_forward",
+                                    config=phi3_name, route=D96_ROUTES)[3]
     phase_gradient(attn, llama, train, phi3, phase="phi3_gradient",
-                   config=f"{phi3_name}, 4 layers", route="mma")
-    phi3_step_launches = phase_train(attn, train, moe, phi3, phase="phi3_train",
-                                     config=phi3_name, route="mma")
+                   config=f"{phi3_name}, 4 layers", route=D96_ROUTES)
+    # each kernel's launches by route in the last phi3 step
+    phi3_step_routes = phase_train(attn, train, moe, phi3, phase="phi3_train",
+                                   config=phi3_name, route=D96_ROUTES)[1]
     fp16 = dataclasses.replace(llama.LlamaConfig.llama2_7b(), dtype="float16")
     fp16_fwd_launches = phase_forward(attn, llama, fp16, phase="fp16_forward",
                                       config="llama2_7b fp16", route="mma")[2]
@@ -2961,8 +3019,8 @@ def main() -> int:
                              "checkpoint_resumed_step": resumed_launches["flash_fwd"],
                              "multihost_step": multihost_launches["flash_fwd"],
                              "telemetry_load": telemetry_launches["flash_fwd"],
-                             "phi3_forward_mma": phi3_fwd_launches,
-                             "phi3_train_step_mma": phi3_step_launches["flash_fwd"],
+                             "phi3_forward": phi3_fwd_routes,
+                             "phi3_train_step": phi3_step_routes["flash_fwd"],
                              "fp16_forward_mma": fp16_fwd_launches,
                              "tune_attention": tune_routes["flash_fwd"].get("wgmma", 0),
                              **{path: routes["flash_fwd"].get("wgmma", 0)
@@ -2988,7 +3046,7 @@ def main() -> int:
                              "pipeline_train_step": pipe_launches[name],
                              "checkpoint_resumed_step": resumed_launches[name],
                              "multihost_step": multihost_launches[name],
-                             "phi3_train_step_mma": phi3_step_launches[name],
+                             "phi3_train_step": phi3_step_routes[name],
                              "tune_attention": tune_routes[name].get("wgmma", 0),
                              **{path: routes[name].get("wgmma", 0)
                                 for path, routes in bench_routes.items()

@@ -121,6 +121,7 @@ def _hopper_lib():
     lib.hopper_wgmma_rs.argtypes = [p, p, p, p]
     lib.hopper_wgmma_ss64.argtypes = [p, p, i32, p, p]
     lib.hopper_wgmma_rs64.argtypes = [p, p, p, p]
+    lib.hopper_wgmma_rs96.argtypes = [p, p, i32, p, p]
     return lib
 
 
@@ -216,6 +217,21 @@ def test_wgmma_rs64_tile_is_a_matmul(gpu):
     torch.testing.assert_close(out, p.float() @ v.float(), atol=1e-3, rtol=1e-4)
 
 
+@pytest.mark.parametrize("rows", [64, 128])
+def test_wgmma_rs96_tile_is_a_matmul(gpu, rows):
+    """m64n96k16 with A from registers and B a [rows, 96] MN-major tile read
+    as two 64-column boxes, the second zero-filled past column 96: the D = 96
+    kernels' P V (128 rows), P^T dO and dS^T Q (64 rows)."""
+    gen = torch.Generator(gpu).manual_seed(5)
+    p = torch.rand(64, rows, generator=gen, device=gpu).to(torch.bfloat16)
+    v = torch.randn(rows, 96, generator=gen, device=gpu).to(torch.bfloat16)
+    out = torch.empty(64, 96, device=gpu)
+    assert _hopper_lib().hopper_wgmma_rs96(p.data_ptr(), v.data_ptr(), rows,
+                                           out.data_ptr(), _stream()) == 0
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, p.float() @ v.float(), atol=1e-3, rtol=1e-4)
+
+
 # (b, h, kvh, sq, sk), causal, window: shapes that reach each path of the
 # wgmma kernels (diagonal, ragged tails, cross length, window start, GQA)
 WGMMA_SHAPES = {
@@ -256,9 +272,10 @@ def test_wgmma_route_matches_the_mma_route(gpu):
 
 def _bwd_inputs(gpu, case, layout, seed=0, d=128):
     """q, k, v, dO of a WGMMA_SHAPES case (at head dim 128; WGMMA64_SHAPES
-    at 64) in `layout`, with the forward's O and LSE, a random LSE
-    cotangent and delta."""
-    (b, h, kvh, sq, sk), causal, window = (WGMMA_SHAPES if d == 128 else WGMMA64_SHAPES)[case]
+    at 64 and 32, WGMMA96_SHAPES at 96) in `layout`, with the forward's O and
+    LSE, a random LSE cotangent and delta."""
+    shapes = WGMMA_SHAPES if d == 128 else WGMMA96_SHAPES if d == 96 else WGMMA64_SHAPES
+    (b, h, kvh, sq, sk), causal, window = shapes[case]
     q, k, v = _qkv(gpu, torch.bfloat16, b, h, kvh, sq, sk, d, seed=seed)
     rng = np.random.default_rng(seed + 1)
     do = torch.from_numpy(rng.standard_normal(q.shape, dtype=np.float32)).to(gpu, q.dtype)
@@ -392,6 +409,101 @@ def test_wgmma64_backward_is_bit_repeatable(gpu, case):
     assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
+# the head-dim-96 wgmma kernels (flash_fwd_wgmma96_kernel,
+# flash_bwd_dkv_wgmma96_kernel; dQ runs on mma there): Phi-3-mini's
+# attention (32 heads of 96) and every path of their loops
+WGMMA96_SHAPES = {
+    "phi3_s2048": ((1, 32, 32, 2048, 2048), True, None),
+    "ragged_300": ((2, 4, 4, 300, 300), True, None),
+    "cross_256x1024": ((1, 4, 4, 256, 1024), True, None),
+    "window_512": ((1, 2, 2, 2048, 2048), True, 512),
+    "gqa_32_8": ((1, 32, 8, 512, 512), True, None),
+    "non_causal": ((1, 4, 2, 320, 448), False, None),
+}
+
+
+@pytest.mark.parametrize("case", list(WGMMA96_SHAPES))
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+def test_wgmma96_route_matches_the_plain_version(gpu, case, layout):
+    (b, h, kvh, sq, sk), causal, window = WGMMA96_SHAPES[case]
+    q, k, v = _qkv(gpu, torch.bfloat16, b, h, kvh, sq, sk, 96)
+    if layout == "bshd":  # the model's transposed views of [B, S, H, D]
+        q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
+    assert attn._route("flash_fwd", q, k, v) == "wgmma"
+    before = attn.flash_fwd.launches_by_route["wgmma"]
+    o, lse = attn.flash_fwd(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert attn.flash_fwd.launches_by_route["wgmma"] == before + 1
+    assert o.shape == q.shape and o.is_contiguous()
+    ro, rl = attn.reference_attention_with_lse(q, k, v, causal, window)
+    torch.testing.assert_close(o.float(), ro.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, rl, atol=1e-3, rtol=1e-3)
+    assert tile_rel_l2(o, ro) <= 1e-2
+
+
+def test_wgmma96_route_matches_the_mma_route(gpu):
+    q, k, v = _qkv(gpu, torch.bfloat16, 1, 8, 4, 1024, 1024, 96, seed=2)
+    o1, l1 = attn.flash_fwd(q, k, v, route="mma")
+    o2, l2 = attn.flash_fwd(q, k, v, route="wgmma")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o2.float(), o1.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(l2, l1, atol=1e-3, rtol=1e-3)
+    assert tile_rel_l2(o2, o1) <= 1e-2
+
+
+@pytest.mark.parametrize("case", list(WGMMA96_SHAPES))
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+def test_wgmma96_backward_matches_the_plain_backward(gpu, case, layout):
+    """dK/dV on wgmma and dQ on mma, as `_route` picks them at head dim 96,
+    elementwise and by each output's worst 64-row tile."""
+    args, (o, g_lse) = _bwd_inputs(gpu, case, layout, d=96)
+    q, k, v, do, lse, _, causal, window = args
+    assert [attn._route(n, q, k, v, do) for n in ("flash_bwd_dq", "flash_bwd_dkv")] == [
+        "mma", "wgmma"]
+    before = (attn.flash_bwd_dq.launches_by_route["mma"],
+              attn.flash_bwd_dkv.launches_by_route["wgmma"])
+    got = _bwd_kernels(args, None)
+    torch.cuda.synchronize()
+    assert (attn.flash_bwd_dq.launches_by_route["mma"],
+            attn.flash_bwd_dkv.launches_by_route["wgmma"]) == tuple(n + 1 for n in before)
+    want = attn.flash_backward_reference(q, k, v, o, lse, do, causal, window, g_lse)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        torch.testing.assert_close(g.float(), w.float(), atol=2e-2, rtol=2e-2)
+        assert tile_rel_l2(g, w) <= BWD_TILE_REL_L2
+
+
+def test_wgmma96_dkv_matches_the_mma_route(gpu):
+    args, _ = _bwd_inputs(gpu, "gqa_32_8", "bshd", seed=2, d=96)
+    kvh = args[1].shape[1]
+    got = attn.flash_bwd_dkv(*args, route="wgmma")
+    want = attn.flash_bwd_dkv(*args, route="mma")
+    for g, w in zip(got, want):
+        g, w = attn.group_sum(g, kvh), attn.group_sum(w, kvh)
+        torch.testing.assert_close(g.float(), w.float(), atol=2e-2, rtol=2e-2)
+        assert tile_rel_l2(g, w) <= BWD_TILE_REL_L2
+
+
+@pytest.mark.parametrize("case", ["ragged_300", "window_512", "phi3_s2048"])
+def test_wgmma96_dkv_is_bit_repeatable(gpu, case):
+    args, _ = _bwd_inputs(gpu, case, "bshd", d=96)
+    runs = [attn.flash_bwd_dkv(*args, route="wgmma") for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_wgmma_refuses_dq_at_head_dim_96(gpu):
+    """dQ has no wgmma kernel at head dim 96: named, its route raises and
+    launches nothing, where dK/dV's takes the same inputs."""
+    args, _ = _bwd_inputs(gpu, "ragged_300", "bhsd", d=96)
+    fn = attn.flash_bwd_dq
+    before = (fn.launches, dict(fn.launches_by_route))
+    with pytest.raises(ValueError, match="flash_bwd_dq route 'wgmma' cannot take"):
+        fn(*args, route="wgmma")
+    assert (fn.launches, fn.launches_by_route) == before
+    attn.flash_bwd_dkv(*args, route="wgmma")
+
+
 def test_wgmma_refuses_dq_at_head_dim_32(gpu):
     """No wgmma kernel takes head dim 32: named, the route of dQ (and of
     dK/dV) raises and launches nothing."""
@@ -403,9 +515,9 @@ def test_wgmma_refuses_dq_at_head_dim_32(gpu):
         assert (fn.launches, fn.launches_by_route) == before
 
 
-@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 264), (torch.float64, 64)])
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 520), (torch.float64, 64)])
 def test_kernel_refuses_what_it_does_not_take(gpu, dtype, d):
-    """A head dim past the widest padded width (256) and a dtype the
+    """A head dim past the widest padded width (512, simt's) and a dtype the
     kernels lack are refused by every wrapper, with no launch."""
     q, k, v = _qkv(gpu, dtype, 1, 2, 2, 32, 32, d)
     before = [(fn.launches, dict(fn.launches_by_route))
@@ -421,13 +533,15 @@ def test_kernel_refuses_what_it_does_not_take(gpu, dtype, d):
 
 
 # head dims other than 32, 64 and 128, and fp16: the simt and mma kernels at
-# their padded widths. (dtype, d, (b, h, kvh, sq, sk), causal, window,
-# layout, the route `_route` picks); "offset1" starts each tensor one element
-# into its storage, off 16-byte alignment
+# their padded widths (at 96 the forward and dK/dV on wgmma). (dtype, d, (b,
+# h, kvh, sq, sk), causal, window, layout, the route `_route` picks: one for
+# every kernel, or chip_smoke's (forward, dQ, dK/dV)); "offset1" starts each
+# tensor one element into its storage, off 16-byte alignment
 WIDE_CASES = {
-    "bf16_d96_bshd": (torch.bfloat16, 96, (1, 8, 8, 512, 512), True, None, "bshd", "mma"),
+    "bf16_d96_bshd": (torch.bfloat16, 96, (1, 8, 8, 512, 512), True, None, "bshd",
+                      chip_smoke.D96_ROUTES),
     "bf16_d96_gqa_window": (torch.bfloat16, 96, (1, 8, 2, 300, 300), True, 64, "bhsd",
-                            "mma"),
+                            chip_smoke.D96_ROUTES),
     "bf16_d80_cross": (torch.bfloat16, 80, (1, 4, 4, 128, 400), True, None, "bhsd", "mma"),
     "bf16_d256_gqa_8_1": (torch.bfloat16, 256, (1, 8, 1, 384, 384), True, None, "bshd",
                           "mma"),
@@ -443,6 +557,11 @@ WIDE_CASES = {
                         "simt"),
     "fp32_d96": (torch.float32, 96, (1, 4, 4, 200, 200), True, None, "bhsd", "simt"),
     "fp32_d256": (torch.float32, 256, (1, 2, 1, 130, 130), True, None, "bhsd", "simt"),
+    # past the mma kernels' 256: simt at its widest padded width (512)
+    "bf16_d320_bshd": (torch.bfloat16, 320, (1, 4, 4, 200, 200), True, None, "bshd",
+                       "simt"),
+    "fp16_d512_window": (torch.float16, 512, (1, 4, 2, 150, 150), True, 40, "bhsd", "simt"),
+    "fp32_d264_cross": (torch.float32, 264, (1, 2, 2, 70, 130), True, None, "bhsd", "simt"),
 }
 WIDE_TILE = {torch.bfloat16: BWD_TILE_REL_L2, torch.float16: chip_smoke.TILE_REL_L2_FP16,
              torch.float32: chip_smoke.TILE_REL_L2_FP32}
@@ -469,37 +588,47 @@ def test_wide_head_dims_and_fp16_match_the_plain_versions(gpu, case):
     dV from the forward's LSE with an LSE cotangent, elementwise and by each
     output's worst 64-row tile."""
     (q, k, v, do), causal, window = _wide_inputs(gpu, case)
-    dtype, want_route = q.dtype, WIDE_CASES[case][-1]
-    routes = attn._routes("flash_fwd", q, k, v)
-    assert routes[-1] == want_route and attn._route("flash_bwd_dq", q, k, v, do) == want_route
-    assert "wgmma" not in routes
+    dtype, want = q.dtype, chip_smoke.shape_routes(WIDE_CASES[case][-1])
+    fns = (attn.flash_fwd, attn.flash_bwd_dq, attn.flash_bwd_dkv)
+    taken = {fn: attn._routes(fn.__name__, q, k, v, *(() if fn is attn.flash_fwd else (do,)))
+             for fn in fns}
+    assert {fn.__name__: routes[-1] for fn, routes in taken.items()} == want
+    assert ("wgmma" in taken[attn.flash_fwd]) == (want["flash_fwd"] == "wgmma")
     ro, rl = attn.reference_attention_with_lse(q, k, v, causal, window)
     g_lse = torch.randn(q.shape[:3], generator=torch.Generator(gpu).manual_seed(1),
                         device=gpu)
-    want = attn.flash_backward_reference(q, k, v, ro, rl, do, causal, window, g_lse)
+    grads = attn.flash_backward_reference(q, k, v, ro, rl, do, causal, window, g_lse)
     delta = attn.backward_delta(ro, do, g_lse).contiguous()
-    for route in routes:
-        before = [fn.launches_by_route[route]
-                  for fn in (attn.flash_fwd, attn.flash_bwd_dq, attn.flash_bwd_dkv)]
+    args = (q, k, v, do, rl, delta, causal, window)
+    kvh = k.shape[1]
+    for route in taken[attn.flash_fwd]:
+        before = [fn.launches_by_route[route] for fn in fns]
         o, lse = attn.flash_fwd(q, k, v, causal, window, route=route)
-        args = (q, k, v, do, rl, delta, causal, window)
-        got = _bwd_kernels(args, route)
+        got = {}
+        if route in taken[attn.flash_bwd_dq]:
+            got["dq"] = attn.flash_bwd_dq(*args, route=route)
+        if route in taken[attn.flash_bwd_dkv]:
+            got["dk"], got["dv"] = (attn.group_sum(t, kvh)
+                                    for t in attn.flash_bwd_dkv(*args, route=route))
         torch.cuda.synchronize()
-        assert [fn.launches_by_route[route]
-                for fn in (attn.flash_fwd, attn.flash_bwd_dq, attn.flash_bwd_dkv)] == [
-            n + 1 for n in before]
+        assert [fn.launches_by_route[route] for fn in fns] == [
+            n + (route in taken[fn]) for n, fn in zip(before, fns)]
         assert o.dtype == dtype and o.shape == ro.shape
         torch.testing.assert_close(o.float(), ro.float(), atol=TOL[dtype], rtol=TOL[dtype])
         torch.testing.assert_close(lse, rl, atol=1e-3, rtol=1e-3)
         assert tile_rel_l2(o, ro) <= WIDE_TILE[dtype], route
-        for g, w in zip(got, want):
+        for name, w in zip(("dq", "dk", "dv"), grads):
+            if name not in got:
+                continue
+            g = got[name]
             assert g.dtype == w.dtype and g.shape == w.shape
             torch.testing.assert_close(g.float(), w.float(), atol=TOL[dtype],
                                        rtol=TOL[dtype])
             assert tile_rel_l2(g, w) <= WIDE_TILE[dtype], route
 
 
-@pytest.mark.parametrize("case", ["bf16_d256_gqa_8_1", "fp16_d200_window", "fp32_d96"])
+@pytest.mark.parametrize("case", ["bf16_d256_gqa_8_1", "fp16_d200_window", "fp32_d96",
+                                  "bf16_d320_bshd"])
 def test_wide_backward_is_bit_repeatable(gpu, case):
     (q, k, v, do), causal, window = _wide_inputs(gpu, case)
     o, lse = attn.flash_fwd(q, k, v, causal, window)

@@ -1,11 +1,12 @@
 """The port's attention at the head dims and dtypes past the kernels' first
-widths (head dims 40, 80, 96, 100 and 256; fp16 beside fp32 and bf16), and a
-tiny Llama whose head dim is 48, against the JAX package on the same inputs.
+widths (head dims 40, 80, 96, 100, 256 and 320; fp16 beside fp32 and bf16),
+and a tiny Llama whose head dim is 48, against the JAX package on the same
+inputs.
 
 The JAX kernels take `d` from the array and compute in any float dtype, so
 every such model runs in the JAX package; the port's kernels run these head
 dims at a padded width on the card (`ops/csrc/flash_common.cuh`,
-`padded_dim`). Here on the CPU the port's wrappers take the plain versions
+`padded_dim`; past 256 on the simt kernels alone, at 512). Here on the CPU the port's wrappers take the plain versions
 and the JAX side runs its Pallas kernels in interpret mode, as the JAX
 package's own tests do. The kernels are held against the plain versions on
 the card by chip_smoke.py and tests/test_torch_cuda.py."""
@@ -31,13 +32,14 @@ torch.set_num_threads(1)
 
 # (b, h, kvh, s, d, window), causal: each head dim alone, then GQA and a
 # window at Phi-3-mini's 96; 100 with a ragged sequence (no block of the
-# JAX kernel's but the whole sequence)
+# JAX kernel's but the whole sequence); 320, past the mma kernels' 256
 CASES = {
     "d40": (1, 2, 2, 64, 40, None),
     "d80": (1, 2, 2, 64, 80, None),
     "d96": (1, 2, 2, 64, 96, None),
     "d100_ragged": (1, 2, 2, 100, 100, None),
     "d256": (1, 2, 2, 64, 256, None),
+    "d320": (1, 2, 2, 64, 320, None),
     "d96_gqa_window": (1, 4, 2, 64, 96, 24),
 }
 DTYPES = ("float32", "bfloat16", "float16")

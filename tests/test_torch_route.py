@@ -37,8 +37,10 @@ CASES = {
     "empty_kv": (lambda: [_bhsd(1, 4, 64, 128), _bhsd(1, 4, 0, 128),
                           _bhsd(1, 4, 0, 128)], "mma"),
     # head dims past wgmma's and fp16: mma takes aligned rows whose head dim
-    # is a multiple of 8, simt the rest; wgmma stays bf16 at 64 and 128
-    "bf16_d96": (lambda: [_bhsd(1, 4, 64, 96)] * 3, "mma"),
+    # is a multiple of 8 up to 256, simt the rest; wgmma stays bf16, at 64,
+    # 96 (Phi-3-mini's: the forward and dK/dV alone) and 128
+    "bf16_d96": (lambda: [_bhsd(1, 4, 64, 96)] * 3, "wgmma"),
+    "bf16_d80": (lambda: [_bhsd(1, 4, 64, 80)] * 3, "mma"),
     "bf16_d256_gqa": (lambda: [_bhsd(1, 8, 64, 256)] + [_bhsd(1, 1, 64, 256)] * 2,
                       "mma"),
     "fp16_d128": (lambda: [_bhsd(1, 4, 64, 128, torch.float16)] * 3, "mma"),
@@ -48,6 +50,7 @@ CASES = {
     "fp16_offset_by_one": (lambda: [_bhsd(1, 4, 64, 128, torch.float16, offset=1)] * 3,
                            "simt"),
     "fp16_d40": (lambda: [_bhsd(1, 4, 64, 40, torch.float16)] * 3, "mma"),
+    "bf16_d320": (lambda: [_bhsd(1, 2, 32, 320)] * 3, "simt"),
 }
 
 
@@ -60,13 +63,19 @@ def test_route_follows_the_inputs(case):
     assert "simt" in attn._routes("flash_fwd", q, k, v)
 
 
+# the head dims each kernel has a wgmma kernel for (csrc/): dQ has none at 96
+WGMMA_TAKES = {"flash_fwd": (64, 96, 128), "flash_bwd_dq": (64, 128),
+               "flash_bwd_dkv": (64, 96, 128)}
+
+
 @pytest.mark.parametrize("kernel,d,wgmma", [
-    (kernel, d, d in (64, 128))
+    (kernel, d, d in WGMMA_TAKES[kernel])
     for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
     for d in (32, 64, 128, 40, 80, 96, 256)])
 def test_wgmma_admits_each_kernels_head_dims(kernel, d, wgmma):
-    """wgmma takes head dim 64 and 128 for each kernel; every aligned
-    bf16 head dim keeps mma, up to 256."""
+    """wgmma takes head dims 64 and 128 for each kernel and 96 for the
+    forward and dK/dV (`WGMMA_TAKES`); every aligned bf16 head dim keeps
+    mma, up to 256."""
     tensors = [_model_view(2, 64, 4, d)] * (3 if kernel == "flash_fwd" else 4)
     routes = attn._routes(kernel, *tensors)
     assert routes == (("simt", "mma", "wgmma") if wgmma else ("simt", "mma"))
@@ -75,7 +84,7 @@ def test_wgmma_admits_each_kernels_head_dims(kernel, d, wgmma):
 
 @pytest.mark.parametrize("case,route", [
     ("fp32_d128", "wgmma"), ("fp32_d128", "mma"), ("bf16_d32", "wgmma"),
-    ("bf16_offset_by_one", "mma"), ("bf16_d128", "tma"), ("bf16_d96", "wgmma"),
+    ("bf16_offset_by_one", "mma"), ("bf16_d128", "tma"), ("bf16_d80", "wgmma"),
     ("fp16_d128", "wgmma"), ("bf16_d100", "mma"), ("bf16_d100_aligned_rows", "mma"),
     ("fp16_offset_by_one", "mma")])
 def test_a_route_that_cannot_take_the_inputs_raises(case, route):
@@ -86,20 +95,38 @@ def test_a_route_that_cannot_take_the_inputs_raises(case, route):
     assert attn.flash_fwd.launches == before
 
 
-@pytest.mark.parametrize("d", [0, 257, 264])
+@pytest.mark.parametrize("d", [0, 513, 520])
 @pytest.mark.parametrize("kernel", ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"])
 def test_a_head_dim_past_the_limit_is_refused(kernel, d):
-    """Every wrapper refuses a head dim past 256 (or none), on every route,
+    """Every wrapper refuses a head dim past 512 (or none), on every route,
     with the limit in its message, before it asks for CUDA and without a
     launch."""
     fn = getattr(attn, kernel)
     q = _bhsd(1, 2, 32, d)
     args = (q, q, q) if kernel == "flash_fwd" else _bwd_args(q, q, q, q)
     before = (fn.launches, dict(fn.launches_by_route))
-    for route in (None, "simt", "mma"):
-        with pytest.raises(ValueError, match=f"{kernel} takes head_dim 1 to 256, got {d}"):
+    for route in (None, "simt", "mma", "wgmma"):
+        with pytest.raises(ValueError, match=f"{kernel} takes head_dim 1 to 512, got {d}"):
             fn(*args, route=route)
-    assert attn.KERNEL_MAX_HEAD_DIM == 256
+    assert attn.KERNEL_MAX_HEAD_DIM == 512
+    assert (fn.launches, fn.launches_by_route) == before
+
+
+@pytest.mark.parametrize("kernel", ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"])
+def test_head_dims_past_256_take_simt_alone(kernel):
+    """Head dims 257-512 run on simt alone: aligned bf16 at 264 routes to
+    simt, and a named mma or wgmma route raises without a launch."""
+    fn = getattr(attn, kernel)
+    q = _bhsd(1, 2, 32, 264)
+    tensors = (q, q, q) if kernel == "flash_fwd" else (q, q, q, q)
+    assert attn._routes(kernel, *tensors) == ("simt",)
+    args = (q, q, q) if kernel == "flash_fwd" else _bwd_args(q, q, q, q)
+    before = (fn.launches, dict(fn.launches_by_route))
+    for route in ("mma", "wgmma"):
+        with pytest.raises(ValueError, match=f"{kernel} route '{route}' cannot take"):
+            fn(*args, route=route)
+    with pytest.raises(ValueError, match="CUDA"):
+        fn(*args, route="simt")
     assert (fn.launches, fn.launches_by_route) == before
 
 
@@ -134,7 +161,9 @@ BWD_CASES = {
     "fp32_d128": (lambda: [_bhsd(1, 4, 64, 128, torch.float32)] * 4, "simt"),
     "empty_kv": (lambda: [_bhsd(1, 4, 64, 128), _bhsd(1, 4, 0, 128),
                           _bhsd(1, 4, 0, 128), _bhsd(1, 4, 64, 128)], "mma"),
-    "bf16_d96": (lambda: [_bhsd(1, 4, 64, 96)] * 4, "mma"),
+    "bf16_d96": (lambda: [_bhsd(1, 4, 64, 96)] * 4,
+                 {"flash_bwd_dq": "mma", "flash_bwd_dkv": "wgmma"}),
+    "bf16_d80": (lambda: [_bhsd(1, 4, 64, 80)] * 4, "mma"),
     "fp16_d128": (lambda: [_bhsd(1, 4, 64, 128, torch.float16)] * 4, "mma"),
     "bf16_d100": (lambda: [_bhsd(1, 4, 64, 100)] * 4, "simt"),
     "fp16_do_offset_by_one": (lambda: [_bhsd(1, 4, 64, 128, torch.float16)] * 3
@@ -161,18 +190,22 @@ def test_backward_route_follows_the_inputs(case):
         assert "simt" in attn._routes(kernel, q, k, v, do)
 
 
-# (case, route) a backward kernel must refuse
+# (case, route) both backward kernels must refuse, then (case, route) dQ
+# alone must (dK/dV has a wgmma kernel at head dim 96, dQ none)
 BWD_REFUSALS = [("fp32_d128", "wgmma"), ("fp32_d128", "mma"), ("bf16_d32", "wgmma"),
                 ("do_offset_by_one", "mma"), ("do_odd_seq_stride", "wgmma"),
-                ("empty_kv", "wgmma"), ("bf16_d128", "tma"), ("bf16_d96", "wgmma"),
+                ("empty_kv", "wgmma"), ("bf16_d128", "tma"), ("bf16_d80", "wgmma"),
                 ("fp16_d128", "wgmma"), ("bf16_d100", "mma"),
                 ("fp16_do_offset_by_one", "mma")]
+DQ_REFUSALS = [("bf16_d96", "wgmma")]
 
 
 @pytest.mark.parametrize("fn,case,route", [
     pytest.param(fn, case, route, id=f"{case}-{route}-{fn.__name__}")
     for case, route in BWD_REFUSALS
-    for fn in (attn.flash_bwd_dq, attn.flash_bwd_dkv)])
+    for fn in (attn.flash_bwd_dq, attn.flash_bwd_dkv)] + [
+    pytest.param(attn.flash_bwd_dq, case, route, id=f"{case}-{route}-flash_bwd_dq")
+    for case, route in DQ_REFUSALS])
 def test_a_backward_route_that_cannot_take_the_inputs_raises(fn, case, route):
     args = _bwd_args(*BWD_CASES[case][0]())
     before = (fn.launches, dict(fn.launches_by_route))
@@ -256,16 +289,53 @@ def test_the_models_backward_at_head_dim_64(monkeypatch):
                     ("flash_bwd_dq", "wgmma"), ("flash_bwd_dkv", "wgmma")]
 
 
-@pytest.mark.parametrize("d,route", [(64, "wgmma"), (128, "wgmma"), (32, "mma")])
+def test_the_models_backward_at_head_dim_96(monkeypatch):
+    """As above at head_dim 96 (Phi-3-mini's widths): the forward and dK/dV
+    take wgmma, dQ mma."""
+    cfg = dataclasses.replace(LlamaConfig.tiny(), dim=192, n_heads=2, n_kv_heads=1,
+                              n_layers=1, dtype="bfloat16")
+    assert cfg.head_dim == 96
+    seen = []
+
+    def fwd(q, k, v, causal=True, window=None):
+        seen.append(("flash_fwd", attn._route("flash_fwd", q, k, v)))
+        return attn.reference_attention_with_lse(q, k, v, causal, window)
+
+    def bwd(name, q, k, v, do, lse, delta, causal=True, window=None):
+        seen.append((name, attn._route(name, q, k, v, do)))
+        return attn.flash_backward_reference(q, k, v, q, lse, do, causal, window)
+
+    monkeypatch.setattr(attn, "flash_fwd", fwd)
+    monkeypatch.setattr(attn, "flash_bwd_dq", lambda *a, **kw: bwd("flash_bwd_dq", *a, **kw)[0])
+    monkeypatch.setattr(attn, "flash_bwd_dkv", lambda *a, **kw: (
+        [t.repeat_interleave(2, dim=1) for t in bwd("flash_bwd_dkv", *a, **kw)[1:]]))
+    monkeypatch.setattr(attn, "_attention", lambda q, k, v, causal, window: (
+        attn._FlashFwd.apply(q, k, v, causal, window)))
+    params = init_llama(cfg, seed=0, device="cpu")
+    for t in params["layers"][0].values():
+        t.requires_grad_(True)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 64), generator=torch.Generator().manual_seed(0))
+    llama_loss(params, tokens, cfg, remat=True).backward()
+    assert seen == [("flash_fwd", "wgmma"), ("flash_fwd", "wgmma"),
+                    ("flash_bwd_dq", "mma"), ("flash_bwd_dkv", "wgmma")]
+
+
+@pytest.mark.parametrize("d,route", [(64, "wgmma"), (128, "wgmma"), (32, "mma"),
+                                     (96, ("wgmma", "mma", "wgmma"))])
 def test_the_smokes_routes_are_the_routes_picks(d, route):
     """chip_smoke's one expectation of the routes at a SHAPES row
     (`shape_routes`) against `_route` on the model's views at head dim `d`:
     at 64 and 128 every kernel on wgmma, dQ's among them; at 32, which no
-    wgmma kernel takes, every kernel on mma."""
+    wgmma kernel takes, every kernel on mma; at 96 the forward and dK/dV on
+    wgmma and dQ on mma (`chip_smoke.D96_ROUTES`)."""
     import chip_smoke
 
     want = chip_smoke.shape_routes(route)
-    assert want == dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), route)
+    kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    assert want == (dict.fromkeys(kernels, route) if isinstance(route, str)
+                    else dict(zip(kernels, route)))
+    if d == 96:
+        assert chip_smoke.D96_ROUTES == route
     q, k, v, do = [_model_view(2, 64, 4, d)] * 4
     assert attn._route("flash_fwd", q, k, v) == want["flash_fwd"]
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
@@ -287,6 +357,24 @@ def test_bench_mfu_train_expects_no_mma_launch():
     d64 = sum(cfg.n_layers for cfg, _, _ in bench_mfu.train_candidates(True)
               if cfg.head_dim == 64)
     assert d64 * (1 + bench_mfu.CARD_TRAIN_STEPS) == 264
+
+
+def test_phi3_train_expects_wgmma_but_for_dq():
+    """chip_smoke's expected launches of a phi3_train step (Phi-3-mini's 32
+    layers at head dim 96; the forward twice a layer under remat, each
+    backward kernel once): the forward and dK/dV on wgmma, dQ on mma, as
+    `_route` picks them on the model's views at its head dim."""
+    import chip_smoke
+    from yoda_scheduler_tpu_torch.profile_path import phi3_mini
+
+    cfg = phi3_mini()
+    want = chip_smoke.step_routes(chip_smoke.D96_ROUTES, cfg.n_layers)
+    assert want == {"flash_fwd": {"wgmma": 64}, "flash_bwd_dq": {"mma": 32},
+                    "flash_bwd_dkv": {"wgmma": 32}}
+    q, k, v, do = [_model_view(1, 64, cfg.n_heads, cfg.head_dim)] * 4
+    assert {attn._route("flash_fwd", q, k, v)} == set(want["flash_fwd"])
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert {attn._route(name, q, k, v, do)} == set(want[name])
 
 
 def _smoke_row_tensors(row, seq=64):
@@ -313,7 +401,8 @@ def _wide_rows():
 @pytest.mark.parametrize("row", _wide_rows(), ids=lambda row: row[0])
 def test_the_smokes_wide_rows_take_their_routes(row):
     """Each row chip_smoke adds at the new head dims and in fp16 names the
-    route `_route` picks for all three kernels there, and never wgmma."""
+    route `_route` picks for each kernel there: wgmma only at head dim 96
+    in bf16, for the forward and dK/dV, and never for dQ."""
     import chip_smoke
 
     q, k, v, do = _smoke_row_tensors(row)
@@ -321,18 +410,22 @@ def test_the_smokes_wide_rows_take_their_routes(row):
     assert attn._route("flash_fwd", q, k, v) == want["flash_fwd"]
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         assert attn._route(name, q, k, v, do) == want[name]
-    assert "wgmma" not in attn._routes("flash_fwd", q, k, v)
+    d96 = row[6] == 96 and row[9] == torch.bfloat16
+    assert ("wgmma" in attn._routes("flash_fwd", q, k, v)) == d96
+    assert ("wgmma" in attn._routes("flash_bwd_dkv", q, k, v, do)) == d96
+    assert "wgmma" not in attn._routes("flash_bwd_dq", q, k, v, do)
     assert row[6] <= attn.KERNEL_MAX_HEAD_DIM
 
 
 def test_the_smoke_covers_each_new_width_and_dtype():
-    """chip_smoke's new rows reach every padded width of the simt and mma
+    """chip_smoke's wide rows reach every padded width of the simt and mma
     kernels that is not a width of its own, fp16 on both routes, and the
-    head dims the slice names (40, 80, 96, 100, 256)."""
+    head dims 40, 80, 96, 100, 256, and 320 past the mma kernels' widest."""
     import chip_smoke
 
     rows = _wide_rows()
-    assert {row[6] for row in rows} >= {40, 80, 96, 100, 256}
+    assert {row[6] for row in rows} >= {40, 80, 96, 100, 256, 320}
+    assert {row[9] for row in rows if row[6] > 256} >= {torch.float32, torch.bfloat16}
     assert {(row[9], row[-1]) for row in rows} >= {
         (torch.float16, "mma"), (torch.float16, "simt"), (torch.bfloat16, "mma"),
         (torch.bfloat16, "simt"), (torch.float32, "simt")}

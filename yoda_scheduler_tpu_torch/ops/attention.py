@@ -8,17 +8,19 @@ dV). CPU tensors take the plain versions: `reference_attention_with_lse`,
 with autograd through it, and `flash_backward_reference`, the plain twin of
 the backward kernels. The kernels mask ragged sequence tails themselves, so
 no shape falls back to a plain version on the card; they take fp32, bf16 or
-fp16 and any head_dim from 1 to 256 (`KERNEL_MAX_HEAD_DIM`), as the JAX
+fp16 and any head_dim from 1 to 512 (`KERNEL_MAX_HEAD_DIM`), as the JAX
 kernels do, and raise otherwise.
 Each kernel has three routes, which `_route` picks per kernel from the
 inputs alone: "wgmma" (TMA and wgmma, bf16 with 16-byte aligned rows:
-the model's path; head_dim 64 or 128), "mma" (mma.sync, other aligned
-bf16 and aligned fp16: rows 16-byte aligned and head_dim a multiple of 8,
-up to 256) and "simt" (fp32, and every bf16 or fp16 input the others do
-not take). The simt and mma kernels run at a padded width (32, 64, 128 or
-256) with the true head_dim at run time. A named route that cannot take the
-inputs raises; nothing falls back to another route or to the plain
-versions. The CPU tests hold the routing; only the card runs the kernels.
+the model's path; head_dim 64, 96 or 128 for the forward and dK/dV, 64 or
+128 for dQ, `_WGMMA_HEAD_DIMS`), "mma" (mma.sync, other aligned bf16 and
+aligned fp16: rows 16-byte aligned and head_dim a multiple of 8, up to
+256) and "simt" (fp32, and every input the others do not take, head_dim
+past 256 among them). The simt and mma kernels run at a padded width (32,
+64, 128, 256, and 512 for simt) with the true head_dim at run time. A named
+route that cannot take the inputs raises; nothing falls back to another
+route or to the plain versions. The CPU tests hold the routing; only the
+card runs the kernels.
 """
 
 from __future__ import annotations
@@ -128,7 +130,8 @@ def group_sum(x, kvh: int):
 
 # ----------------------------------------------------------------- kernels
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-KERNEL_MAX_HEAD_DIM = 256  # the widest padded width of csrc/flash_common.cuh
+KERNEL_MAX_HEAD_DIM = 512  # the widest padded width of csrc/flash_common.cuh (simt)
+_MMA_MAX_HEAD_DIM = 256  # the widest padded width of the mma kernels
 _ROUTES = {"simt": 0, "mma": 1, "wgmma": 2}  # route codes of csrc/flash_{fwd,bwd}.cu
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_int64] * 9
              + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
@@ -185,25 +188,27 @@ def _check_qkv(name: str, q, k, v, causal: bool):
 
 
 # the head dims each kernel's wgmma route takes (csrc/flash_fwd.cu,
-# csrc/flash_bwd.cu)
-_WGMMA_HEAD_DIMS = {"flash_fwd": (64, 128), "flash_bwd_dq": (64, 128),
-                    "flash_bwd_dkv": (64, 128)}
+# csrc/flash_bwd.cu): dQ has no kernel at 96 and runs on mma there
+_WGMMA_HEAD_DIMS = {"flash_fwd": (64, 96, 128), "flash_bwd_dq": (64, 128),
+                    "flash_bwd_dkv": (64, 96, 128)}
 
 
 def _routes(kernel: str, q, k, *rest) -> tuple[str, ...]:
     """The routes of `kernel` ("flash_fwd", "flash_bwd_dq" or
     "flash_bwd_dkv") that can take these inputs (q, k, v for the forward,
     q, k, v and dO for the backward), slowest first: simt takes any; mma
-    needs bf16 or fp16 with a head dim that is a multiple of 8, 16-byte
-    aligned bases and (batch, head, seq) strides that are multiples of 8
-    elements; wgmma needs that in bf16, a non-empty kv and a head dim of
-    `_WGMMA_HEAD_DIMS[kernel]` (the conditions of the csrc/ entries)."""
+    needs bf16 or fp16 with a head dim that is a multiple of 8 up to 256,
+    16-byte aligned bases and (batch, head, seq) strides that are multiples
+    of 8 elements; wgmma needs that in bf16, a non-empty kv and a head dim
+    of `_WGMMA_HEAD_DIMS[kernel]` (the conditions of the csrc/ entries)."""
     routes = ("simt",)
-    if q.dtype in (torch.bfloat16, torch.float16) and q.shape[-1] % 8 == 0 and all(
-            t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
-            for t in (q, k, *rest)):
+    d = q.shape[-1]
+    if (q.dtype in (torch.bfloat16, torch.float16) and d % 8 == 0
+            and d <= _MMA_MAX_HEAD_DIM
+            and all(t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
+                    for t in (q, k, *rest))):
         routes += ("mma",)
-        if (q.dtype == torch.bfloat16 and q.shape[-1] in _WGMMA_HEAD_DIMS[kernel]
+        if (q.dtype == torch.bfloat16 and d in _WGMMA_HEAD_DIMS[kernel]
                 and k.shape[2] > 0):
             routes += ("wgmma",)
     return routes

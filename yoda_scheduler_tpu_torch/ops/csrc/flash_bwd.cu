@@ -28,9 +28,11 @@
 // (ops/attention.py:_route picks it from dtype, head_dim and alignment):
 // - *_wgmma kernels (route 2; bf16, D = 128, 16-byte aligned rows: the main
 //   path): TMA-fed and warp-specialised on wgmma, as flash_fwd.cu's wgmma
-//   kernel. Below; flash_bwd_dkv_wgmma64_kernel and
-//   flash_bwd_dq_wgmma64_kernel are route 2 at D = 64 (bench_mfu's d1024
-//   widths), each with its own note. Route 2 refuses every other D.
+//   kernel. Below; flash_bwd_dkv_wgmma96_kernel is route 2 for dK/dV at D =
+//   96 (Phi-3-mini's attention), the D = 128 kernel's body at the true
+//   width; flash_bwd_dkv_wgmma64_kernel and flash_bwd_dq_wgmma64_kernel are
+//   route 2 at D = 64 (bench_mfu's d1024 widths), each with its own note.
+//   Route 2 refuses every other D (dQ at 96 too: it runs on mma there).
 // - *_mma kernels (route 1; aligned bf16 and fp16, D a multiple of 8 up to
 //   256; they take bf16 at D = 64 and 128 too, to be held against the wgmma
 //   kernels): 4 warps each own 16 rows of a 64-row tile and run all products
@@ -40,11 +42,13 @@
 //   S^T = K Q^T directly, so its accumulator tiles are already the A operands
 //   of P^T dO and dS^T Q. At DP = 256 dQ reads its Q and dO fragments from
 //   shared memory at each step, and two dK/dV blocks take 128 columns each.
-// - *_simt kernels (route 0; fp32, and bf16 or fp16 rows the mma kernels do
-//   not take): scalar fp32 FMAs from shared memory, 256 threads as a 16 x 16
-//   grid, each owning 4 rows of the block's tile (2 at DP = 256).
+// - *_simt kernels (route 0; fp32, bf16 or fp16 rows the mma kernels do not
+//   take, and D past 256 in every dtype): scalar fp32 FMAs from shared
+//   memory, 256 threads as a 16 x 16 grid, each owning 4 rows of the block's
+//   tile (2 at DP = 256, 1 at 512).
 // The simt and mma kernels are built at a padded width DP of 32, 64, 128 or
-// 256 and take the true D at run time, as flash_fwd.cu's. P and dS are
+// 256, and the simt kernels at 512 too, and take the true D at run time, as
+// flash_fwd.cu's. P and dS are
 // rounded to the input type as operands of the following products, where
 // the plain version rounds them too (in fp16, ops/attention.py scales the
 // cotangents first, so that dS stays in fp16's normal range).
@@ -62,8 +66,9 @@
 // ex2.approx.ftz, as the forward; the mask only on diagonal, window-edge and
 // ragged tiles), rounds them to bf16 as the A operands of the RS form (the
 // accumulator's columns 16 s .. 16 s + 15 are A's k-step s), and adds the
-// products into its fp32 sums with RS wgmma m64n128k16, the streamed tile an
-// MN-major B operand (head_dim contiguous; halves 8 KB apart). The two steps
+// products into its fp32 sums with RS wgmma m64n128k16 (m64n96k16 at D =
+// 96), the streamed tile an MN-major B operand (head_dim contiguous; halves
+// 8 KB apart). The two steps
 // are kept apart in time, as the forward's basic order, so the sums, the
 // scores and the operands fit the consumers' 240 registers without spills.
 // - flash_bwd_dkv_wgmma_kernel: a block is one (b, q head) and 128 keys;
@@ -771,13 +776,23 @@ __device__ __forceinline__ void to_a_operand(const float (&d)[32], uint32_t (&a)
     for (int i = 0; i < 4; ++i) a[s][i] = pack_bf16(d[8 * s + 2 * i], d[8 * s + 2 * i + 1]);
 }
 
-__global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma_kernel(
-    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-    int H, int KvH, int Sq, int Sk, int causal, int window, float scale) {
+// The body of flash_bwd_dkv_wgmma_kernel (D = 128) and
+// flash_bwd_dkv_wgmma96_kernel (D = 96). At D = 96 the tiles keep D = 128's
+// shared-memory layout, the second box of each row zero-filled by TMA past
+// column 96 (every expect_tx counts whole boxes); S^T and dP^T run 6 k-steps
+// (the last two in the second half), dV and dK are m64n96k16 sums (48 + 48
+// fp32 a thread, not 64 + 64), and the epilogue stores the 96 columns alone.
+// At Phi-3-mini's attention (B=1, H=32, S=2048, D=96, causal) dK/dV does
+// ~51.6 GFLOP against ~76 MB, bound by operations (~52 us at 989 TF/s).
+template <int D>
+__device__ __forceinline__ void dkv_wgmma_body(
+    const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+    const CUtensorMap* tm_do, const float* __restrict__ lse,
+    const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+    __nv_bfloat16* __restrict__ dv, int H, int KvH, int Sq, int Sk, int causal,
+    int window, float scale) {
   using namespace hopper;
+  constexpr int KSTEPS = D / 16;  // k-steps of S^T and dP^T
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   unsigned char* sK = smem;
@@ -812,10 +827,10 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma_kernel(
       const int lane = threadIdx.x;
       if (lane == 0) {
         mbar_arrive_expect_tx(full_kv, 2 * W_T128);
-        tma_load_4d(sK, &tm_k, full_kv, 0, k0, kvh, b);
-        tma_load_4d(sK + W_HALF128, &tm_k, full_kv, 64, k0, kvh, b);
-        tma_load_4d(sV, &tm_v, full_kv, 0, k0, kvh, b);
-        tma_load_4d(sV + W_HALF128, &tm_v, full_kv, 64, k0, kvh, b);
+        tma_load_4d(sK, tm_k, full_kv, 0, k0, kvh, b);
+        tma_load_4d(sK + W_HALF128, tm_k, full_kv, 64, k0, kvh, b);
+        tma_load_4d(sV, tm_v, full_kv, 0, k0, kvh, b);
+        tma_load_4d(sV + W_HALF128, tm_v, full_kv, 64, k0, kvh, b);
       }
       const float* lse_bh = lse + (int64_t)bh * Sq;
       const float* delta_bh = delta + (int64_t)bh * Sq;
@@ -826,10 +841,10 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma_kernel(
         if (lane == 0) {
           unsigned char* sQ = smem + DKV_Q + DKV_STAGE * s;
           mbar_arrive_expect_tx(&full[s], 2 * W_T64);
-          tma_load_4d(sQ, &tm_q, &full[s], 0, q0, h, b);
-          tma_load_4d(sQ + W_HALF64, &tm_q, &full[s], 64, q0, h, b);
-          tma_load_4d(sQ + W_T64, &tm_do, &full[s], 0, q0, h, b);
-          tma_load_4d(sQ + W_T64 + W_HALF64, &tm_do, &full[s], 64, q0, h, b);
+          tma_load_4d(sQ, tm_q, &full[s], 0, q0, h, b);
+          tma_load_4d(sQ + W_HALF64, tm_q, &full[s], 64, q0, h, b);
+          tma_load_4d(sQ + W_T64, tm_do, &full[s], 0, q0, h, b);
+          tma_load_4d(sQ + W_T64 + W_HALF64, tm_do, &full[s], 64, q0, h, b);
         }
         // rows past Sq get 0 here and are masked by the consumers
         float* st = stats + 128 * s;
@@ -854,9 +869,9 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma_kernel(
     const bool w_live = w_key0 < Sk;
     const int key0 = w_key0 + 16 * warp + g;  // this thread's keys: key0, key0 + 8
     const float c = scale * LOG2E;  // raw score -> log2 units
-    float gk[64], gv[64];
+    float gk[D / 2], gv[D / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) gk[i] = gv[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) gk[i] = gv[i] = 0.f;
     const uint64_t da_k = desc_kmajor(sK + 64 * 128 * cw);
     const uint64_t da_v = desc_kmajor(sV + 64 * 128 * cw);
 
@@ -876,16 +891,16 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma_kernel(
       unsigned char* sQ = smem + DKV_Q + DKV_STAGE * s;
       unsigned char* sDO = sQ + W_T64;
 
-      // S^T = K Q^T and dP^T = V dO^T, 8 k-steps of 16 head dims each
+      // S^T = K Q^T and dP^T = V dO^T, D / 16 k-steps of 16 head dims each
       float sc[32], dp[32];
       const uint64_t db_q = desc_kmajor(sQ), db_o = desc_kmajor(sDO);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
+      for (int kk = 0; kk < KSTEPS; ++kk)
         wgmma_m64n64k16_ss<0, 0>(sc, da_k + kstep(kk, W_HALF128), db_q + kstep(kk, W_HALF64),
                                  kk > 0);
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
+      for (int kk = 0; kk < KSTEPS; ++kk)
         wgmma_m64n64k16_ss<0, 0>(dp, da_v + kstep(kk, W_HALF128), db_o + kstep(kk, W_HALF64),
                                  kk > 0);
       wgmma_commit();
@@ -932,10 +947,10 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma_kernel(
       wgmma_fence();
 #pragma unroll
       for (int k4 = 0; k4 < 4; ++k4)
-        wgmma_m64n128k16_rs<1>(gv, pa[k4], db_o_mn + ((k4 * 2048) >> 4), 1);
+        wgmma_rs<D, 1>(gv, pa[k4], db_o_mn + ((k4 * 2048) >> 4), 1);
 #pragma unroll
       for (int k4 = 0; k4 < 4; ++k4)
-        wgmma_m64n128k16_rs<1>(gk, sa[k4], db_q_mn + ((k4 * 2048) >> 4), 1);
+        wgmma_rs<D, 1>(gk, sa[k4], db_q_mn + ((k4 * 2048) >> 4), 1);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(gv);
@@ -950,9 +965,9 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma_kernel(
       for (int r = 0; r < 2; ++r) {
         const int key = key0 + 8 * r;
         if (key >= Sk) continue;
-        const int64_t base = ((int64_t)bh * Sk + key) * 128 + 2 * t4;
+        const int64_t base = ((int64_t)bh * Sk + key) * D + 2 * t4;
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
+        for (int j = 0; j < D / 8; ++j) {
           *reinterpret_cast<uint32_t*>(dk + base + 8 * j) =
               pack_bf16(gk[4 * j + 2 * r] * scale, gk[4 * j + 2 * r + 1] * scale);
           *reinterpret_cast<uint32_t*>(dv + base + 8 * j) =
@@ -961,6 +976,26 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma_kernel(
       }
     }
   }
+}
+
+__global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+    int H, int KvH, int Sq, int Sk, int causal, int window, float scale) {
+  dkv_wgmma_body<128>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dk, dv, H, KvH, Sq, Sk,
+                      causal, window, scale);
+}
+
+__global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma96_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+    int H, int KvH, int Sq, int Sk, int causal, int window, float scale) {
+  dkv_wgmma_body<96>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dk, dv, H, KvH, Sq, Sk,
+                     causal, window, scale);
 }
 
 // ---- the dK/dV wgmma kernel at head dim 64
@@ -1636,11 +1671,13 @@ bool bwd_maps(const Args& a, int D, uint32_t q_rows, uint32_t kv_rows,
   return true;
 }
 
-// D = 128: flash_bwd_dkv_wgmma_kernel; D = 64: flash_bwd_dkv_wgmma64_kernel
+// D = 128: flash_bwd_dkv_wgmma_kernel; D = 96: flash_bwd_dkv_wgmma96_kernel,
+// on the same grid; D = 64: flash_bwd_dkv_wgmma64_kernel
 cudaError_t launch_dkv_wgmma(const Args& a, int D) {
   static const cudaError_t attr128 = set_smem(flash_bwd_dkv_wgmma_kernel, DKV_SMEM);
+  static const cudaError_t attr96 = set_smem(flash_bwd_dkv_wgmma96_kernel, DKV_SMEM);
   static const cudaError_t attr64 = set_smem(flash_bwd_dkv_wgmma64_kernel, K64_SMEM);
-  const cudaError_t attr = D == 64 ? attr64 : attr128;
+  const cudaError_t attr = D == 64 ? attr64 : D == 96 ? attr96 : attr128;
   if (attr != cudaSuccess) return attr;
   CUtensorMap m[4];
   if (D == 64) {
@@ -1653,7 +1690,8 @@ cudaError_t launch_dkv_wgmma(const Args& a, int D) {
   } else {
     if (!bwd_maps(a, D, 64, 128, m)) return cudaErrorInvalidValue;
     const dim3 grid(a.B * a.H, (a.Sk + 127) / 128);
-    flash_bwd_dkv_wgmma_kernel<<<grid, 3 * WG_THREADS, DKV_SMEM, a.stream>>>(
+    auto kernel = D == 96 ? flash_bwd_dkv_wgmma96_kernel : flash_bwd_dkv_wgmma_kernel;
+    kernel<<<grid, 3 * WG_THREADS, DKV_SMEM, a.stream>>>(
         m[0], m[1], m[2], m[3], (const float*)a.lse, (const float*)a.delta,
         (__nv_bfloat16*)a.dk, (__nv_bfloat16*)a.dv, a.H, a.KvH, a.Sq, a.Sk, a.causal,
         a.window, a.scale);
@@ -1688,8 +1726,8 @@ cudaError_t launch_dq_wgmma(const Args& a, int D) {
 // the padded width of a.D
 template <typename T, int DP>
 cudaError_t launch_at(int which, int mma, const Args& a) {
-  if constexpr (std::is_same<T, float>::value) {
-    if (mma) return cudaErrorInvalidValue;  // fp32 has no mma kernel
+  if constexpr (std::is_same<T, float>::value || DP > 256) {
+    if (mma) return cudaErrorInvalidValue;  // fp32 and DP = 512 have no mma kernel
   } else if (mma) {
     // the exact build at D = 32, 64 and 128, the padded one below them; DP =
     // 256 has the padded build alone
@@ -1708,15 +1746,16 @@ cudaError_t at_padded_dim(int which, int mma, const Args& a) {
     case 64: return launch_at<T, 64>(which, mma, a);
     case 128: return launch_at<T, 128>(which, mma, a);
     case 256: return launch_at<T, 256>(which, mma, a);
+    case 512: return launch_at<T, 512>(which, mma, a);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // dtype 0 = fp32, 1 = bf16, 2 = fp16. route 0 = simt (any dtype, D from 1
-// to 256), 1 = mma (bf16 or fp16, D a multiple of 8 up to 256, 16-byte
+// to 512), 1 = mma (bf16 or fp16, D a multiple of 8 up to 256, 16-byte
 // aligned bases, strides that are multiples of 8), 2 = wgmma (bf16 only, as
-// mma, and Sk > 0, with D = 64 or 128); a route that cannot take the inputs
-// launches nothing
+// mma, and Sk > 0, with D = 64 or 128 for dQ and 64, 96 or 128 for dK/dV); a
+// route that cannot take the inputs launches nothing
 cudaError_t dispatch(int which, int dtype, int route, int D, const Args& a) {
   const void* ptrs[4] = {a.q, a.k, a.v, a.dout};
   const bool aligned = rows_aligned(ptrs, 4, &a.st.q_sb, 12, D);
@@ -1731,10 +1770,12 @@ cudaError_t dispatch(int which, int dtype, int route, int D, const Args& a) {
       if (dtype == 1) return at_padded_dim<__nv_bfloat16>(which, 1, a);
       if (dtype == 2) return at_padded_dim<__half>(which, 1, a);
       return cudaErrorInvalidValue;
-    case 2:
-      if (dtype != 1 || !aligned || a.Sk <= 0 || (D != 64 && D != 128))
-        return cudaErrorInvalidValue;
+    case 2: {
+      // dK/dV has a D = 96 kernel, dQ none
+      const bool has_d = D == 64 || D == 128 || (which == 1 && D == 96);
+      if (dtype != 1 || !aligned || a.Sk <= 0 || !has_d) return cudaErrorInvalidValue;
       return which ? launch_dkv_wgmma(a, D) : launch_dq_wgmma(a, D);
+    }
     default:
       return cudaErrorInvalidValue;
   }

@@ -46,18 +46,22 @@ __device__ __forceinline__ float round_as(float x, __half) {
   return __half2float(__float2half_rn(x));
 }
 
-// The simt and mma kernels are built at a padded head dim DP of 32, 64, 128
-// or 256, the smallest that holds the true d, which they take at run time
-// (the mma kernels also have an exact build for d = DP): columns past d load
-// as zeros and are not stored, so the zero columns add nothing to Q.K^T and
-// the kept columns are exact. 0: d is past the widest.
+// The simt and mma kernels are built at a padded head dim DP of 32, 64, 128,
+// 256 or (simt alone) 512, the smallest that holds the true d, which they
+// take at run time (the mma kernels also have an exact build for d = DP):
+// columns past d load as zeros and are not stored, so the zero columns add
+// nothing to Q.K^T and the kept columns are exact. 0: d is past the widest.
 inline int padded_dim(int d) {
-  return d < 1 ? 0 : d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : d <= 256 ? 256 : 0;
+  return d < 1 ? 0 : d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : d <= 256 ? 256
+       : d <= 512 ? 512 : 0;
 }
 
-// the simt kernels' tiles (q rows, keys): 64, or 32 at DP = 256, where
-// their fp32 tiles of 64 rows would not fit in shared memory
-__host__ __device__ constexpr int simt_tile(int DP) { return DP > 128 ? 32 : 64; }
+// the simt kernels' tiles (q rows, keys): 64, 32 at DP = 256 and 16 at 512,
+// where their fp32 tiles of more rows would not fit in shared memory (at 512
+// the forward takes ~100 KB and the backward ~133 KB of the 227 KB)
+__host__ __device__ constexpr int simt_tile(int DP) {
+  return DP > 256 ? 16 : DP > 128 ? 32 : 64;
+}
 
 // Tensor-core helpers. mma.sync m16n8k16 fragments, with g = lane / 4 and
 // t = lane % 4: A (16x16, row-major) reg0 = (row g, cols 2t, 2t+1), reg1 =

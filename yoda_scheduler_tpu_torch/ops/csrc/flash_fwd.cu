@@ -18,10 +18,12 @@
 // one (batch, head) and streams K/V tiles through shared memory. Causal tiles
 // stop at the diagonal and windowed tiles start at the window's first tile, as
 // in the Pallas loop bounds; ragged q and k tails are masked in the kernel, so
-// every shape runs here. Four kernels share that plan; the caller names a
+// every shape runs here. Five kernels share that plan; the caller names a
 // route (ops/attention.py:_route picks it from dtype, head_dim and alignment):
 // - flash_fwd_wgmma_kernel (route 2 at D = 128; bf16, 16-byte aligned rows:
 //   the main path): TMA-fed and warp-specialised, on wgmma. Below.
+// - flash_fwd_wgmma96_kernel (route 2 at D = 96: Phi-3-mini's attention):
+//   the D = 128 kernel's body at the true width, 6 k-steps and P.V at n96.
 // - flash_fwd_wgmma64_kernel (route 2 at D = 64: bench_mfu's d1024 widths):
 //   the same plan with three consumer warpgroups; its note is below.
 // - flash_fwd_mma_kernel (route 1; aligned bf16 and fp16, D a multiple of 8
@@ -35,14 +37,16 @@
 //   time). A warp skips the tiles that are masked for all of its rows. At DP
 //   = 256 a warp's O sum is 128 fp32 a thread, so its Q fragments are read
 //   from shared memory at each k-step rather than held in registers.
-// - flash_fwd_simt_kernel (route 0; fp32, and bf16 or fp16 rows the mma
-//   kernel does not take): scalar fp32 FMAs from shared memory with Q
-//   pre-scaled in fp32 as in the Pallas kernel; 256 threads as a 16 x 16
-//   grid, each owning 4 q rows (2 at DP = 256, whose tiles are 32 rows).
+// - flash_fwd_simt_kernel (route 0; fp32, bf16 or fp16 rows the mma kernel
+//   does not take, and D past 256 in every dtype): scalar fp32 FMAs from
+//   shared memory with Q pre-scaled in fp32 as in the Pallas kernel; 256
+//   threads as a 16 x 16 grid, each owning 4 q rows (2 at DP = 256 and 1 at
+//   512, whose tiles are 32 and 16 rows).
 // The simt and mma kernels are built at a padded width DP of 32, 64, 128 or
-// 256 (flash_common.cuh's padded_dim) and take the true D at run time:
-// columns past D load as zeros and are not stored, so D = 32, 64 and 128 run
-// the code of their own width, and any other D that of the next one up.
+// 256, and the simt kernel at 512 too (flash_common.cuh's padded_dim), and
+// take the true D at run time: columns past D load as zeros and are not
+// stored, so D = 32, 64 and 128 run the code of their own width, and any
+// other D that of the next one up.
 //
 // The wgmma kernel. Three warpgroups: warpgroup 0 is the producer, which gives
 // up registers (setmaxnreg) and has one thread issue every TMA load; warpgroups
@@ -417,7 +421,7 @@ __global__ void __launch_bounds__(NT_MMA) flash_fwd_mma_kernel(
 }
 
 
-// ---- the wgmma kernel (bf16, D = 128)
+// ---- the wgmma kernels at D = 128 and 96 (bf16)
 constexpr int WG_THREADS = 128;
 constexpr int W_ROWS = 64;                  // q rows per consumer warpgroup
 constexpr int W_BQ = 2 * W_ROWS;            // q rows per block
@@ -428,12 +432,21 @@ constexpr int W_TILE = 2 * W_HALF;          // bytes of a 128 x 128 bf16 tile
 constexpr int W_BARS = W_TILE * (1 + 2 * W_STAGES);  // barriers after Q, K[], V[]
 constexpr int W_SMEM = W_BARS + 8 * (1 + 3 * W_STAGES) + 1024;  // + alignment slack
 
-__global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_fwd_wgmma_kernel(
-    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-    const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
-    float* __restrict__ lse, int H, int KvH, int Sq, int Sk, int causal,
-    int window, float scale) {
+// The body of flash_fwd_wgmma_kernel (D = 128) and flash_fwd_wgmma96_kernel
+// (D = 96). At D = 96 the tiles keep D = 128's shared-memory layout: each
+// row's second box reads columns 64-127 of a tensor 96 wide, so TMA fills
+// columns 96-127 with zeros and every expect_tx counts the whole box. Q.K^T
+// runs 6 k-steps (the last two in the second half) and P.V is m64n96k16
+// (48 fp32 sums a thread, not 64); the epilogue stores the 96 columns alone.
+// At Phi-3-mini's attention (B=1, H=32, S=2048, D=96, causal) the work is
+// ~25.8 GFLOP against ~51 MB, bound by operations (~26 us at 989 TF/s).
+template <int D>
+__device__ __forceinline__ void fwd_wgmma_body(
+    const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+    __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int H, int KvH, int Sq,
+    int Sk, int causal, int window, float scale) {
   using namespace hopper;
+  constexpr int KSTEPS = D / 16;  // k-steps of Q.K^T
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   unsigned char* sQ = smem;
@@ -473,19 +486,19 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_fwd_wgmma_kernel(
     setmaxnreg_dec<24>();
     if (threadIdx.x == 0) {
       mbar_arrive_expect_tx(full_q, W_TILE);
-      tma_load_4d(sQ, &tm_q, full_q, 0, q0, h, b);
-      tma_load_4d(sQ + W_HALF, &tm_q, full_q, 64, q0, h, b);
+      tma_load_4d(sQ, tm_q, full_q, 0, q0, h, b);
+      tma_load_4d(sQ + W_HALF, tm_q, full_q, 64, q0, h, b);
       for (int t = first_tile, i = 0; t < n_tiles; ++t, ++i) {
         const int s = i % W_STAGES;
         mbar_wait(&empty[s], ((i / W_STAGES) & 1) ^ 1);
         unsigned char* sK = smem + W_TILE * (1 + s);
         unsigned char* sV = smem + W_TILE * (1 + W_STAGES + s);
         mbar_arrive_expect_tx(&full_k[s], W_TILE);
-        tma_load_4d(sK, &tm_k, &full_k[s], 0, t * W_BK, kvh, b);
-        tma_load_4d(sK + W_HALF, &tm_k, &full_k[s], 64, t * W_BK, kvh, b);
+        tma_load_4d(sK, tm_k, &full_k[s], 0, t * W_BK, kvh, b);
+        tma_load_4d(sK + W_HALF, tm_k, &full_k[s], 64, t * W_BK, kvh, b);
         mbar_arrive_expect_tx(&full_v[s], W_TILE);
-        tma_load_4d(sV, &tm_v, &full_v[s], 0, t * W_BK, kvh, b);
-        tma_load_4d(sV + W_HALF, &tm_v, &full_v[s], 64, t * W_BK, kvh, b);
+        tma_load_4d(sV, tm_v, &full_v[s], 0, t * W_BK, kvh, b);
+        tma_load_4d(sV + W_HALF, tm_v, &full_v[s], 64, t * W_BK, kvh, b);
       }
     }
   } else {
@@ -501,9 +514,9 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_fwd_wgmma_kernel(
     const float c = scale * LOG2E;  // raw score -> log2 units
     // rows 16 warp + g (r = 0) and + 8 (r = 1) of this warpgroup's 64
     float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
-    float acc[64];
+    float acc[D / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
     const uint64_t dq = desc_kmajor(sQ + W_ROWS * 128 * cw);
 
     mbar_wait(full_q, 0);
@@ -522,12 +535,13 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_fwd_wgmma_kernel(
         continue;
       }
 
-      // S = Q K^T: 8 k-steps of 16 over head_dim, 4 in each 64-column half
+      // S = Q K^T: D / 16 k-steps of 16 over head_dim, 4 in the first
+      // 64-column half and the rest in the second
       float sc[64];
       const uint64_t dk = desc_kmajor(sK);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
+      for (int kk = 0; kk < KSTEPS; ++kk) {
         const uint64_t off = ((kk / 4) * W_HALF + (kk % 4) * 32) >> 4;
         wgmma_m64n128k16_ss<0, 0>(sc, dq + off, dk + off, kk > 0);
       }
@@ -582,7 +596,7 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_fwd_wgmma_kernel(
         l[r] = l[r] * alpha + rs;  // this thread's part of the row sum
         m[r] = mx;
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
+        for (int j = 0; j < D / 8; ++j) {
           acc[4 * j + 2 * r] *= alpha;
           acc[4 * j + 2 * r + 1] *= alpha;
         }
@@ -606,7 +620,7 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_fwd_wgmma_kernel(
       wgmma_fence();
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj)
-        wgmma_m64n128k16_rs<1>(acc, pa[jj], dv + ((jj * 16 * 128) >> 4), 1);
+        wgmma_rs<D, 1>(acc, pa[jj], dv + ((jj * 16 * 128) >> 4), 1);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
@@ -624,15 +638,31 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_fwd_wgmma_kernel(
         const int row = w_row0 + 16 * warp + g + 8 * r;
         if (row >= Sq) continue;
         const float lc = fmaxf(l[r], 1e-30f);
-        __nv_bfloat16* orow = o + ((int64_t)bh * Sq + row) * 128 + 2 * t4;
+        __nv_bfloat16* orow = o + ((int64_t)bh * Sq + row) * D + 2 * t4;
 #pragma unroll
-        for (int j = 0; j < 16; ++j)
+        for (int j = 0; j < D / 8; ++j)
           *reinterpret_cast<uint32_t*>(orow + 8 * j) =
               pack_bf16(acc[4 * j + 2 * r] / lc, acc[4 * j + 2 * r + 1] / lc);
         if (t4 == 0) lse[(int64_t)bh * Sq + row] = m[r] * scale + logf(lc);
       }
     }
   }
+}
+
+__global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_fwd_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
+    float* __restrict__ lse, int H, int KvH, int Sq, int Sk, int causal,
+    int window, float scale) {
+  fwd_wgmma_body<128>(&tm_q, &tm_k, &tm_v, o, lse, H, KvH, Sq, Sk, causal, window, scale);
+}
+
+__global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_fwd_wgmma96_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
+    float* __restrict__ lse, int H, int KvH, int Sq, int Sk, int causal,
+    int window, float scale) {
+  fwd_wgmma_body<96>(&tm_q, &tm_k, &tm_v, o, lse, H, KvH, Sq, Sk, causal, window, scale);
 }
 
 // ---- the wgmma kernel at head dim 64 (bf16)
@@ -932,12 +962,14 @@ bool fwd_maps(const Args& a, int D, uint32_t q_rows, uint32_t kv_rows, CUtensorM
   return true;
 }
 
-// D = 128: flash_fwd_wgmma_kernel; D = 64: flash_fwd_wgmma64_kernel, its
-// grid with the q tiles of one (batch, head) side by side
+// D = 128: flash_fwd_wgmma_kernel; D = 96: flash_fwd_wgmma96_kernel, on
+// the same grid; D = 64: flash_fwd_wgmma64_kernel, its grid with the q tiles
+// of one (batch, head) side by side
 cudaError_t launch_wgmma(const Args& a, int D) {
   static const cudaError_t attr128 = allow_smem(flash_fwd_wgmma_kernel, W_SMEM);
+  static const cudaError_t attr96 = allow_smem(flash_fwd_wgmma96_kernel, W_SMEM);
   static const cudaError_t attr64 = allow_smem(flash_fwd_wgmma64_kernel, F_SMEM);
-  const cudaError_t attr = D == 64 ? attr64 : attr128;
+  const cudaError_t attr = D == 64 ? attr64 : D == 96 ? attr96 : attr128;
   if (attr != cudaSuccess) return attr;
   CUtensorMap maps[3];
   if (D == 64) {
@@ -949,7 +981,8 @@ cudaError_t launch_wgmma(const Args& a, int D) {
   } else {
     if (!fwd_maps(a, D, W_BQ, W_BK, maps)) return cudaErrorInvalidValue;
     const dim3 grid(a.B * a.H, (a.Sq + W_BQ - 1) / W_BQ);
-    flash_fwd_wgmma_kernel<<<grid, 3 * WG_THREADS, W_SMEM, a.stream>>>(
+    auto kernel = D == 96 ? flash_fwd_wgmma96_kernel : flash_fwd_wgmma_kernel;
+    kernel<<<grid, 3 * WG_THREADS, W_SMEM, a.stream>>>(
         maps[0], maps[1], maps[2], (__nv_bfloat16*)a.o, (float*)a.lse, a.H, a.KvH,
         a.Sq, a.Sk, a.causal, a.window, a.scale);
   }
@@ -964,6 +997,7 @@ cudaError_t at_padded_dim(const Args& a) {
     case 64: return Launch<T, 64>::run(a);
     case 128: return Launch<T, 128>::run(a);
     case 256: return Launch<T, 256>::run(a);
+    case 512: return Launch<T, 512>::run(a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -973,14 +1007,18 @@ struct Simt {
   static cudaError_t run(const Args& a) { return launch_simt<T, DP>(a); }
 };
 // the exact build at D = 32, 64 and 128, the padded one below them; DP =
-// 256 has the padded build alone
+// 256 has the padded build alone, and DP = 512 none (simt alone)
 template <typename T, int DP>
 struct Mma {
   static cudaError_t run(const Args& a) {
-    if constexpr (DP < 256) {
-      if (a.D == DP) return launch_mma<T, DP, false>(a);
+    if constexpr (DP > 256) {
+      return cudaErrorInvalidValue;
+    } else {
+      if constexpr (DP < 256) {
+        if (a.D == DP) return launch_mma<T, DP, false>(a);
+      }
+      return launch_mma<T, DP, true>(a);
     }
-    return launch_mma<T, DP, true>(a);
   }
 };
 
@@ -989,9 +1027,9 @@ struct Mma {
 // q, k, v: [B, H|KvH, S, D] with the given (batch, head, seq) strides and a
 // contiguous last dim; o: contiguous [B, H, Sq, D]; lse: contiguous fp32
 // [B, H, Sq]. dtype 0 = fp32, 1 = bf16, 2 = fp16. window <= 0 means no
-// window. route: 0 = simt (any dtype, D from 1 to 256), 1 = mma (bf16 or
+// window. route: 0 = simt (any dtype, D from 1 to 512), 1 = mma (bf16 or
 // fp16, D a multiple of 8 up to 256, 16-byte aligned bases, strides that
-// are multiples of 8), 2 = wgmma (bf16 only, as mma, and D = 64 or 128,
+// are multiples of 8), 2 = wgmma (bf16 only, as mma, and D = 64, 96 or 128,
 // Sk > 0). The simt and mma kernels run at the padded width of D
 // (padded_dim), the wgmma kernels at D itself. A route that cannot take the
 // inputs returns cudaErrorInvalidValue and launches nothing. Returns the
@@ -1024,7 +1062,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
       if (dtype == 2) return (int)at_padded_dim<__half, Mma>(a);
       return (int)cudaErrorInvalidValue;
     case 2:
-      if (dtype != 1 || !aligned || (D != 64 && D != 128) || Sk <= 0)
+      if (dtype != 1 || !aligned || (D != 64 && D != 96 && D != 128) || Sk <= 0)
         return (int)cudaErrorInvalidValue;
       return (int)launch_wgmma(a, D);
     default:

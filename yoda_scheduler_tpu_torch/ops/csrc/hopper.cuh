@@ -2,7 +2,7 @@
 // TMA tiled loads and their tensor maps, wgmma shared-memory descriptors for
 // the 128-byte swizzle, the wgmma fences and groups, setmaxnreg, and the bf16
 // wgmma m64n128k16 and m64n64k16, each in its SS (both operands in shared
-// memory) and RS (A in registers) forms.
+// memory) and RS (A in registers) forms, and m64n96k16 in the RS form.
 //
 // The layout they assume. A tile row of 64 bf16 (128 bytes) is one line of
 // the 128-byte swizzle: TMA with CU_TENSOR_MAP_SWIZZLE_128B stores the 16-byte
@@ -10,6 +10,8 @@
 // start on a 1024-byte boundary. A 128-wide row (head_dim 128) therefore
 // arrives as two boxes of 64 columns, each a "half" of its own; the halves of
 // one tile of R rows lie R * 128 bytes apart (16 KB for 128 rows, 8 KB for 64).
+// A 96-wide row (head_dim 96) keeps that layout: its second box reads columns
+// 64-127 of a tensor 96 wide, and TMA fills columns 96-127 with zeros.
 //
 // tests/test_torch_cuda.py holds these pieces against torch on the card
 // (csrc/hopper_check.cu: one TMA tile against a slice copy, SS and RS
@@ -243,8 +245,52 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
         "n"(TB));
 }
 
+#define HOPPER_D48 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}"
+#define HOPPER_D48_OPS(d) \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+  "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+  "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+
+// D[64 x 96] (+)= A[64 x 16] B[16 x 96], A from registers in the RS form's
+// layout above, B an MN-major operand from shared memory: its columns 0-63
+// are the first 64-column half and 64-95 the first 32 columns of the next,
+// `LBO` bytes on (the m64n128 form's descriptor, read 96 wide). The
+// accumulator is the m64n128 layout's columns 0-95: d[4 j + e] is row 16 w +
+// g + 8 (e / 2), column 8 j + 2 t + (e % 2) for j < 12.
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n96k16_rs(float (&d)[48], const uint32_t (&a)[4],
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 " HOPPER_D48
+      ", {%48, %49, %50, %51}, %52, p, 1, 1, %54;\n}\n"
+      : HOPPER_D48_OPS(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TB));
+}
+
+// the RS product of width N (96 or 128) over an N / 2-float accumulator
+template <int N, int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t db, int scale_d) {
+  static_assert(N == 96 || N == 128, "wgmma_rs takes N = 96 or 128");
+  if constexpr (N == 96) {
+    wgmma_m64n96k16_rs<TB>(d, a, db, scale_d);
+  } else {
+    wgmma_m64n128k16_rs<TB>(d, a, db, scale_d);
+  }
+}
+
 #undef HOPPER_D64
 #undef HOPPER_D64_OPS
+#undef HOPPER_D48
+#undef HOPPER_D48_OPS
 #undef HOPPER_D32
 #undef HOPPER_D32_OPS
 

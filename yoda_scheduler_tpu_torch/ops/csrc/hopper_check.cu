@@ -12,7 +12,11 @@
 //   S^T = K Q^T (and S = Q K^T);
 // - hopper_wgmma_rs64: P [64, 64] from registers times V [64, 128], V a
 //   64-row MN-major B operand (halves 8 KB apart), as flash_bwd.cu's P^T dO,
-//   dS^T Q and dS K.
+//   dS^T Q and dS K;
+// - hopper_wgmma_rs96: P [64, rows] from registers times V [rows, 96] (rows
+//   64 or 128), V a tensor 96 wide read as two 64-column boxes (the second
+//   zero-filled past column 96) and an MN-major B operand of the m64n96k16
+//   form, as the D = 96 kernels' P V (128 rows), P^T dO and dS^T Q (64).
 // Each launches one block of one warpgroup; run them first after a change to
 // hopper.cuh or to a kernel's descriptors.
 
@@ -220,6 +224,62 @@ __global__ void __launch_bounds__(128) wgmma_rs64_kernel(
   store_acc(d, out);
 }
 
+// the m64n96 accumulator into a row-major [64, 96] fp32 matrix
+__device__ void store_acc96(const float (&d)[48], float* out) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 12; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      out[(16 * warp + g + 8 * (e >> 1)) * 96 + 8 * j + 2 * t + (e & 1)] = d[4 * j + e];
+}
+
+template <int ROWS>
+__global__ void __launch_bounds__(128) wgmma_rs96_kernel(
+    const __nv_bfloat16* __restrict__ p, const __grid_constant__ CUtensorMap map_v,
+    float* out) {
+  constexpr int VHALF = ROWS * 128;  // bytes of one 64-column box of V
+  extern __shared__ unsigned char raw[];
+  unsigned char* sV = aligned_smem(raw);
+  __shared__ uint64_t bar;
+  if (threadIdx.x == 0) {
+    mbar_init(&bar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_arrive_expect_tx(&bar, 2 * VHALF);
+    tma_load_4d(sV, &map_v, &bar, 0, 0, 0, 0);
+    tma_load_4d(sV + VHALF, &map_v, &bar, 64, 0, 0, 0);
+  }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  uint32_t pa[ROWS / 16][4];
+  const __nv_bfloat16* prow = p + (16 * warp + g) * ROWS + 2 * t;
+#pragma unroll
+  for (int jj = 0; jj < ROWS / 16; ++jj) {
+    pa[jj][0] = ld_pair(prow + 16 * jj);
+    pa[jj][1] = ld_pair(prow + 8 * ROWS + 16 * jj);
+    pa[jj][2] = ld_pair(prow + 16 * jj + 8);
+    pa[jj][3] = ld_pair(prow + 8 * ROWS + 16 * jj + 8);
+  }
+  mbar_wait(&bar, 0);
+  float d[48];
+#pragma unroll
+  for (int i = 0; i < 48; ++i) d[i] = 0.f;
+  const uint64_t dv = desc_mnmajor(sV, VHALF);
+  fence_regs(d);
+  wgmma_fence();
+#pragma unroll
+  for (int jj = 0; jj < ROWS / 16; ++jj)
+    wgmma_m64n96k16_rs<1>(d, pa[jj], dv + ((jj * 16 * 128) >> 4), 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(d);
+  store_acc96(d, out);
+}
+
 // a rows x 128 contiguous bf16 matrix as a 4-D map of 64-column boxes
 bool matrix_map(CUtensorMap* map, const void* base, int64_t rows, uint32_t box_rows) {
   const int64_t dims[4] = {128, rows, 1, 1};
@@ -301,5 +361,28 @@ extern "C" int hopper_wgmma_rs64(const void* p, const void* v, void* out, void* 
   constexpr int smem = 2 * HALF64 + 1024;
   wgmma_rs64_kernel<<<1, 128, smem, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)p, map_v, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// p: [64, rows], v: [rows, 96] bf16 contiguous, rows 64 or 128; out: [64, 96]
+// fp32 = p @ v
+extern "C" int hopper_wgmma_rs96(const void* p, const void* v, int rows, void* out,
+                                 void* stream) {
+  const int64_t dims[4] = {96, rows, 1, 1};
+  const int64_t strides[3] = {96, 96 * (int64_t)rows, 96 * (int64_t)rows};
+  CUtensorMap map_v;
+  if ((rows != 64 && rows != 128) || !make_map_bf16_4d(&map_v, v, dims, strides, rows))
+    return (int)cudaErrorInvalidValue;
+  const int smem = 2 * rows * 128 + 1024;
+  cudaError_t err = cudaFuncSetAttribute(rows == 64 ? wgmma_rs96_kernel<64> : wgmma_rs96_kernel<128>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (rows == 64) {
+    wgmma_rs96_kernel<64><<<1, 128, smem, (cudaStream_t)stream>>>(
+        (const __nv_bfloat16*)p, map_v, (float*)out);
+  } else {
+    wgmma_rs96_kernel<128><<<1, 128, smem, (cudaStream_t)stream>>>(
+        (const __nv_bfloat16*)p, map_v, (float*)out);
+  }
   return (int)cudaGetLastError();
 }

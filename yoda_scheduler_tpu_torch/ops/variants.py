@@ -1,7 +1,7 @@
 """Time variants of a flash kernel's source against each other on one card,
 in turns (A, B, ..., B, A), at the main path's shapes.
 
-    python3 -m yoda_scheduler_tpu_torch.ops.variants fwd|bwd [--probe] [--head-dim 64] \\
+    python3 -m yoda_scheduler_tpu_torch.ops.variants fwd|bwd [--probe] [--head-dim 64|96] \\
         [--route mma] A.cu B.cu ...
 
 Each argument is a copy of `csrc/flash_fwd.cu` (fwd) or `csrc/flash_bwd.cu`
@@ -9,10 +9,11 @@ Each argument is a copy of `csrc/flash_fwd.cu` (fwd) or `csrc/flash_bwd.cu`
 it, too), or "cur" for the package's own, built with the package's nvcc
 flags into `build/variants/`; each build's nvcc seconds are printed. fwd
 launches `attention.flash_fwd` on its automatic route; bwd launches
-`attention.flash_bwd_dq` and `attention.flash_bwd_dkv` on the wgmma route
-and first prints ptxas's registers and spills of each variant's wgmma
-kernels with its performance notes. `--route mma` launches both kinds on
-the mma route instead. Every launch is checked against the
+`attention.flash_bwd_dq` and `attention.flash_bwd_dkv` on theirs (wgmma at
+head dims 64 and 128; at 96 dK/dV on wgmma and dQ on mma) and first prints
+ptxas's registers and spills of each variant's wgmma kernels with its
+performance notes. `--route mma` launches both kinds on the mma route
+instead. Every launch is checked against the
 plain version, elementwise and by `tile_rel_l2`. With `--probe` each
 variant runs once at the `PROBE` shapes, so that a variant that hangs or faults
 can be run alone under a time limit before the timing. Each reading says
@@ -20,7 +21,10 @@ whether the variant's outputs equal the first variant's bit for bit. `--head-dim
 takes the shapes of `SHAPES_64` (bench_mfu's d1024 train widths first, as
 the model's [B, S, H, D] views), where both backward kernels run their
 head-dim-64 wgmma kernels (`flash_bwd_dq_wgmma64_kernel`,
-`flash_bwd_dkv_wgmma64_kernel`). Prints the card's name and power limit,
+`flash_bwd_dkv_wgmma64_kernel`); `--head-dim 96` those of `SHAPES_96`
+(Phi-3-mini's attention, 32 heads of 96, as its model gives it), where the
+forward and dK/dV run `flash_fwd_wgmma96_kernel` and
+`flash_bwd_dkv_wgmma96_kernel`. Prints the card's name and power limit,
 then one JSON line per shape.
 """
 
@@ -57,7 +61,16 @@ SHAPES_64 = [
     ("window_d64", 1, 16, 16, 2048, 2048, True, 512),
     ("ragged_d64", 2, 8, 4, 300, 300, True, None),
 ]
-PROBE = ("main", "window_512", "ragged_300", "d1024_bshd", "window_d64", "ragged_d64")
+# head dim 96: Phi-3-mini's attention (32 heads of 96, S=2048), as SHAPES_64
+SHAPES_96 = [
+    ("phi3_d96_bshd", 1, 32, 32, 2048, 2048, True, None),
+    ("gqa_d96", 1, 32, 8, 2048, 2048, True, None),
+    ("window_d96", 1, 32, 32, 2048, 2048, True, 512),
+    ("ragged_d96", 2, 8, 4, 300, 300, True, None),
+]
+SHAPES_BY_DIM = {128: SHAPES, 64: SHAPES_64, 96: SHAPES_96}
+PROBE = ("main", "window_512", "ragged_300", "d1024_bshd", "window_d64", "ragged_d64",
+         "phi3_d96_bshd", "window_d96", "ragged_d96")
 # the largest tile_rel_l2 of a bf16 backward output against the plain
 # backward: sound kernels read below 4e-3 on an H100 (they round P and dS
 # where the plain backward does, and differ in the order of fp32 sums); a
@@ -133,7 +146,7 @@ def time_ms(fn, iters: int = 50) -> float:
 
 def _randn(gen, d, *shapes):
     """bf16 normals of `shapes` ([B, H, S, D]): contiguous at head dim 128,
-    at 64 the model's transposed views of a contiguous [B, S, H, D]."""
+    at 64 and 96 the model's transposed views of a contiguous [B, S, H, D]."""
     if d == 128:
         return [torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)
                 for s in shapes]
@@ -160,7 +173,6 @@ def _fwd_case(gen, d, route, b, h, kvh, sq, sk, causal, window):
 
 
 def _bwd_case(gen, d, route, b, h, kvh, sq, sk, causal, window):
-    route = route or "wgmma"
     q, k, v, do = _randn(gen, d, (b, h, sq, d), (b, kvh, sk, d), (b, kvh, sk, d),
                          (b, h, sq, d))
     o, lse = attn.flash_fwd(q, k, v, causal, window)
@@ -211,7 +223,7 @@ def main(argv: list[str]) -> int:
     if argv[:1] == ["--route"]:
         route, argv = argv[1], argv[2:]
     variants = argv
-    if (kind not in KINDS or d not in (64, 128) or route not in (None, "mma")
+    if (kind not in KINDS or d not in SHAPES_BY_DIM or route not in (None, "mma")
             or not torch.cuda.is_available() or not variants):
         print(__doc__, file=sys.stderr)
         return 1
@@ -230,7 +242,7 @@ def main(argv: list[str]) -> int:
     order = variants if probe else variants + variants[::-1]
     ok_all = True
     try:
-        for name, *shape in (SHAPES if d == 128 else SHAPES_64):
+        for name, *shape in SHAPES_BY_DIM[d]:
             if probe and name not in PROBE:
                 continue
             check, timed = make_case(gen, d, route, *shape)

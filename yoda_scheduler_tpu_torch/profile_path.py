@@ -1,9 +1,16 @@
-"""Where the time goes on the port's path, at Llama-2-7B and Mixtral-8x7B
-widths on one GPU.
+"""Where the time goes on the port's path, at Phi-3-mini, Llama-2-7B and
+Mixtral-8x7B widths on one GPU.
 
     python3 -m yoda_scheduler_tpu_torch.profile_path
 
-Traces with torch.profiler, after a warm-up, at Llama-2-7B width one
+First, before any trace (a process that has run torch.profiler launches
+slower afterwards), it times training steps at Phi-3-mini width (32 layers,
+head dim 96, B=1, S=2048) on the host's clock, 8 steps at a turn in turns
+(wgmma, mma, mma, wgmma): on the routes `_route` picks, and with the
+head-dim-96 forward and dK/dV on the mma route, as before their wgmma
+kernels; then it traces one such step on each.
+
+Then it traces with torch.profiler, after a warm-up, at Llama-2-7B width one
 `llama_forward` (B=1, S=2048), one `prefill` (4 requests x 512 tokens), 16
 `decode_step`s of those requests (their prefill outside the trace), one
 training step (B=1, S=2048, remat, AdamW; all 32 layers) and one pipelined
@@ -11,7 +18,7 @@ training step (pp=4 stages in one process, 4 microbatches, B=4); then at
 Mixtral-8x7B width one `llama_forward` (16 layers) and one training step
 (4 layers), both B=1, S=2048; last one ResNet-50 training pass (bf16,
 B=256, 224 x 224, the forward and backward of a softmax cross-entropy). For
-each window it prints one JSON line: the host wall time, the device's busy
+each traced window it prints one JSON line: the host wall time, the device's busy
 time (the union of kernel intervals) and idle share, the kernel launches,
 the device time grouped into conv / matmul / flash_fwd / flash_bwd_dq /
 flash_bwd_dkv / optimizer / moe_route / batch_norm / other, and the kernels
@@ -28,8 +35,10 @@ The full report goes to chiprun_out/profile_path.json.
 from __future__ import annotations
 
 import bisect
+import contextlib
 import gc
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -43,6 +52,7 @@ from .models import (KVCache, LlamaConfig, decode_step, init_llama, llama_forwar
                      prefill, resnet_forward_fn)
 from .models.moe import ROUTE_SPAN
 from .models.resnet import BN_SPAN
+from .ops import attention
 from .parallel import build_llama_train_step, build_pipelined_llama_train_step
 
 
@@ -58,6 +68,18 @@ def mixtral_8x7b(n_layers: int) -> LlamaConfig:
                        n_kv_heads=8, ffn_dim=14336, rope_theta=1e6, norm_eps=1e-5,
                        max_seq_len=32768, num_experts=8, experts_per_token=2,
                        moe_aux_weight=0.02)
+
+
+def phi3_mini() -> LlamaConfig:
+    """Phi-3-mini's widths as the port's Llama config, from the published
+    microsoft/Phi-3-mini-4k-instruct config.json: hidden 3072, 32 layers, 32
+    query and 32 KV heads of 96, intermediate 8192, vocab 32064, rope_theta
+    10000, rms_norm_eps 1e-5, 4096 positions, bf16. Its fused qkv and
+    gate_up projections are the same products as the Llama's separate ones;
+    the weights are random, from a seed."""
+    return LlamaConfig(vocab_size=32064, dim=3072, n_layers=32, n_heads=32,
+                       n_kv_heads=32, ffn_dim=8192, rope_theta=10000.0,
+                       norm_eps=1e-5, max_seq_len=4096, dtype="bfloat16")
 
 
 def _group(name: str) -> str:
@@ -168,6 +190,58 @@ def train_window(cfg, label: str, build=build_llama_train_step, batch: int = 1,
     return trace(label, lambda _: step_fn(params, opt_state, tokens))
 
 
+@contextlib.contextmanager
+def d96_on_mma():
+    """Within it, head dim 96 takes the mma route for the forward and dK/dV
+    too, as before their wgmma kernels (dQ takes it at 96 anyway)."""
+    saved = dict(attention._WGMMA_HEAD_DIMS)
+    attention._WGMMA_HEAD_DIMS.update(
+        {k: tuple(d for d in dims if d != 96) for k, dims in saved.items()})
+    try:
+        yield
+    finally:
+        attention._WGMMA_HEAD_DIMS.update(saved)
+
+
+def phi3_train_windows(steps: int = 8) -> list[dict]:
+    """Phi-3-mini training steps (32 layers, B=1, S=2048, remat, AdamW) on
+    each route set: `steps` steps of each on the host's clock in turns
+    ({route set: step ms}, and each set's median; after a warm-up step on
+    each),
+    then one step of each traced. Run it before any other trace."""
+    cfg = phi3_mini()
+    init_fn, step_fn, batch_fn = build_llama_train_step(cfg, device="cuda")
+    params, opt_state = init_fn(0)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = batch_fn(torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen,
+                                    device="cuda"))
+
+    def step(_):
+        step_fn(params, opt_state, tokens)
+
+    sets = {"wgmma96": contextlib.nullcontext, "mma96": d96_on_mma}
+    for routes in sets.values():
+        with routes():
+            step(None)
+    times = {name: [] for name in sets}
+    for name in ("wgmma96", "mma96", "mma96", "wgmma96"):
+        with sets[name]():
+            for _ in range(steps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(None)
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t0) * 1e3)
+    report = {"window": "phi3_train_step_ms_in_turns", "step_ms": times,
+              "step_ms_median": {k: statistics.median(v) for k, v in times.items()}}
+    print(json.dumps(report), flush=True)
+    reports = [report]
+    for name, routes in sets.items():
+        with routes():
+            reports.append(trace(f"phi3_train_step_b1_s2048_{name}", step))
+    return reports
+
+
 def moe_forward_window(cfg) -> dict:
     params = init_llama(cfg, seed=0, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -211,8 +285,10 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(smi, flush=True)
+    reports = phi3_train_windows()
+    _free()
     cfg = LlamaConfig.llama2_7b()
-    reports = inference_windows(cfg)
+    reports += inference_windows(cfg)
     _free()
     reports.append(train_window(cfg, "train_step_b1_s2048"))
     _free()
