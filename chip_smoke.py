@@ -16,25 +16,29 @@ Phases, each printing one JSON line; any failure exits non-zero:
    cross-length, non-causal and ragged), each on the
    route `_route` picks, with the kernel's, the plain version's and one
    library call's times, TF/s and the card's bound for the same work; at
-   the main shape, at d1024_bshd and at phi3_d96_bshd the wgmma and mma
-   routes are timed in turns (mma, wgmma, wgmma, mma), SDPA's default
-   backend after each turn, and at d1024_bshd
+   the main shape, at d1024_bshd, at phi3_d96_bshd and at fp16_main the
+   wgmma and mma routes are timed in turns (mma, wgmma, wgmma, mma), SDPA's
+   default backend after each turn, and at d1024_bshd
    SDPA under its default backend (named) and under its flash backend; at
    head dim 96 (cross-length, non-causal, ragged) on the head-dim-96 wgmma
-   kernel. Then the head dims and dtypes of the padded simt and mma kernels
+   kernel; in fp16 at head dim 128 (the model's views, GQA 32/8, window,
+   ragged, cross-length) on the fp16 wgmma kernel. Then the head dims and
+   dtypes of the padded simt and mma kernels
    (`WIDE_SHAPES`): Phi-3-mini's attention (32 heads of 96, S=2048; GQA 32/8
    and window 512 at 96; wgmma there), 80, Gemma-2B's 8 heads of 256 over
-   one, 40 ragged, 100 (unaligned: simt), fp16 at the main shape and at
-   d1024_bshd, simt in fp32 and fp16, and 320 on simt in fp32 and bf16;
+   one, 40 ragged, 100 (unaligned: simt), fp16 at the main shape and the
+   five fp16 rows above (the forward on wgmma) and at d1024_bshd, simt in
+   fp32 and fp16, and 320 on simt in fp32 and bf16;
    each on every route `_routes` admits, with SDPA's default backend timed
    where its inputs are aligned bf16 or fp16 (a failure of the library's
    call is recorded with its error); and head dim 520 refused by every wrapper on every route with no launch.
 3. backward: the dQ and dK/dV kernels against the plain backward at the
    same shapes (a non-zero LSE cotangent at some), elementwise and by each
    output's worst tile, each kernel on the route `_route` picks for it
-   (dQ on mma at head dim 96, where dK/dV takes wgmma), twice with equal
+   (in fp16 mma: the fp16 backward has no wgmma kernel), twice with equal
    bits, with their times, TF/s, the plain backward's time, the bound of
-   each, and at the main shape, at d1024_bshd and at phi3_d96_bshd the
+   each, and at the main shape, at d1024_bshd, at phi3_d96_bshd and at
+   fp16_main the
    library's backward (timed alone) and the wgmma and mma routes of each
    kernel that takes them, each held against the plain backward and timed
    in turns (mma, wgmma, wgmma, mma), SDPA's backward after each turn; at
@@ -64,11 +68,11 @@ After moe_train, head dim 96 and fp16:
 - phi3_forward, phi3_gradient, phi3_train: Phi-3-mini's published widths
   (`profile_path.phi3_mini`: hidden 3072, 32 layers, 32 heads of 96,
   intermediate 8192, vocab 32064), random bf16 weights from a seed: as forward (32 layers),
-  gradient (4 layers) and train (32 layers, B=1, S=2048), the forward and
-  dK/dV launches on wgmma and dQ's on mma (`D96_ROUTES`).
+  gradient (4 layers) and train (32 layers, B=1, S=2048), every flash
+  launch on the wgmma route.
 - fp16_forward, fp16_gradient: Llama-2-7B in fp16, the dtype of its
-  published weights: as forward and gradient, every flash launch on the
-  mma route.
+  published weights: as forward and gradient, the forward's launches on
+  the wgmma route and dQ's and dK/dV's on mma (`FP16_ROUTES`).
 
 - moe_forward: B=1, S=2048: 16 flash_fwd launches, all on the wgmma route;
   logits and routing against the forward through the plain attention, end
@@ -588,7 +592,8 @@ def ptxas_summary(log: str) -> dict:
 
 # the wgmma kernels of csrc/, as ptxas names them: each must build
 WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_wgmma96_kernel",
-                 "flash_fwd_wgmma64_kernel", "flash_bwd_dq_wgmma_kernel",
+                 "flash_fwd_wgmma64_kernel", "flash_fwd_wgmma_f16_kernel",
+                 "flash_bwd_dq_wgmma_kernel", "flash_bwd_dq_wgmma96_kernel",
                  "flash_bwd_dq_wgmma64_kernel", "flash_bwd_dkv_wgmma_kernel",
                  "flash_bwd_dkv_wgmma96_kernel", "flash_bwd_dkv_wgmma64_kernel")
 
@@ -628,9 +633,9 @@ def phase_build(build):
     return smi
 
 
-# the routes at head dim 96 in bf16 with aligned rows (forward, dQ, dK/dV):
-# the forward and dK/dV have wgmma kernels at 96, dQ runs on mma
-D96_ROUTES = ("wgmma", "mma", "wgmma")
+# the routes (forward, dQ, dK/dV) in fp16 at head dim 128 with aligned rows:
+# the forward has a wgmma kernel in fp16, dQ and dK/dV run on mma
+FP16_ROUTES = ("wgmma", "mma", "mma")
 
 # (name, b, h, kvh, sq, sk, d, causal, window, dtype, layout, route):
 # layout "bhsd" is contiguous [B, H, S, D]; "bshd" the model's transposed
@@ -663,19 +668,33 @@ SHAPES = [
      "wgmma"),
     ("ragged_d64", 2, 8, 4, 300, 300, 64, True, None, torch.bfloat16, "bshd", "wgmma"),
     ("ragged_300", 2, 8, 4, 300, 300, 128, True, None, torch.bfloat16, "bhsd", "wgmma"),
-    # head dim 96 (Phi-3-mini's): the forward and dK/dV on their wgmma
-    # kernels, dQ on mma; cross-length, non-causal and ragged here, and
-    # Phi-3-mini's attention with GQA and a window among the rows below
+    # head dim 96 (Phi-3-mini's): every kernel on its wgmma kernel at 96;
+    # cross-length, non-causal and ragged here, and Phi-3-mini's attention
+    # with GQA and a window among the rows below
     ("cross_length_d96", 1, 32, 32, 256, 1024, 96, True, None, torch.bfloat16, "bhsd",
-     D96_ROUTES),
+     "wgmma"),
     ("non_causal_d96", 1, 32, 32, 1000, 1000, 96, False, None, torch.bfloat16, "bhsd",
-     D96_ROUTES),
-    ("ragged_d96", 2, 8, 4, 300, 300, 96, True, None, torch.bfloat16, "bshd", D96_ROUTES),
+     "wgmma"),
+    ("ragged_d96", 2, 8, 4, 300, 300, 96, True, None, torch.bfloat16, "bshd", "wgmma"),
+    # fp16 at head dim 128 (Llama-2-7B in its published weights' dtype): the
+    # forward on its fp16 wgmma kernel, dQ and dK/dV on mma; the model's
+    # views, GQA 32/8, a window, a ragged sequence and cross-length here,
+    # fp16_main among the rows below
+    ("fp16_main_bshd", 1, 32, 32, 2048, 2048, 128, True, None, torch.float16, "bshd",
+     FP16_ROUTES),
+    ("fp16_gqa_bshd", 1, 32, 8, 2048, 2048, 128, True, None, torch.float16, "bshd",
+     FP16_ROUTES),
+    ("fp16_window_512", 1, 32, 32, 2048, 2048, 128, True, 512, torch.float16, "bhsd",
+     FP16_ROUTES),
+    ("fp16_ragged_300", 2, 8, 4, 300, 300, 128, True, None, torch.float16, "bhsd",
+     FP16_ROUTES),
+    ("fp16_cross_length", 1, 32, 32, 256, 1024, 128, True, None, torch.float16, "bhsd",
+     FP16_ROUTES),
     ("main_unaligned", 1, 32, 32, 2048, 2048, 128, True, None, torch.bfloat16,
      "offset1", "simt"),
     # head dims other than 32, 64 and 128, and fp16, on the simt and mma
-    # kernels at their padded widths (and at 96 on wgmma for the forward and
-    # dK/dV): Phi-3-mini's attention (32 heads of 96, S=2048) as the model
+    # kernels at their padded widths (at 96 on wgmma, and the fp16 forward
+    # at 128): Phi-3-mini's attention (32 heads of 96, S=2048) as the model
     # gives it and contiguous, with GQA 32/8 and a window; 80 (2560 / 32,
     # Phi-2's width); Gemma-2B's 8 query heads of 256 over one KV head; 40
     # on a ragged sequence; 100, whose rows are not 16-byte aligned (simt);
@@ -683,18 +702,19 @@ SHAPES = [
     # published weights); simt at each padded width in fp32 and fp16; and
     # 320, past the mma kernels' 256, on simt's widest width (512)
     ("phi3_d96", 1, 32, 32, 2048, 2048, 96, True, None, torch.bfloat16, "bhsd",
-     D96_ROUTES),
+     "wgmma"),
     ("phi3_d96_bshd", 1, 32, 32, 2048, 2048, 96, True, None, torch.bfloat16, "bshd",
-     D96_ROUTES),
-    ("gqa_d96", 1, 32, 8, 2048, 2048, 96, True, None, torch.bfloat16, "bshd", D96_ROUTES),
+     "wgmma"),
+    ("gqa_d96", 1, 32, 8, 2048, 2048, 96, True, None, torch.bfloat16, "bshd", "wgmma"),
     ("window_d96", 1, 32, 32, 2048, 2048, 96, True, 512, torch.bfloat16, "bhsd",
-     D96_ROUTES),
+     "wgmma"),
     ("d80", 1, 32, 32, 2048, 2048, 80, True, None, torch.bfloat16, "bhsd", "mma"),
     ("gemma_d256", 1, 8, 1, 2048, 2048, 256, True, None, torch.bfloat16, "bshd", "mma"),
     ("ragged_d40", 2, 8, 4, 300, 300, 40, True, None, torch.bfloat16, "bhsd", "mma"),
     ("unaligned_d100", 1, 32, 32, 1024, 1024, 100, True, None, torch.bfloat16, "bhsd",
      "simt"),
-    ("fp16_main", 1, 32, 32, 2048, 2048, 128, True, None, torch.float16, "bhsd", "mma"),
+    ("fp16_main", 1, 32, 32, 2048, 2048, 128, True, None, torch.float16, "bhsd",
+     FP16_ROUTES),
     ("fp16_d1024_bshd", 8, 16, 16, 2048, 2048, 64, True, None, torch.float16, "bshd",
      "mma"),
     ("fp32_d40", 1, 8, 8, 512, 512, 40, True, None, torch.float32, "bhsd", "simt"),
@@ -707,15 +727,16 @@ SHAPES = [
 # timed in turns at TURN_SHAPES: each kernel on those of these routes it
 # takes, and SDPA's default backend after each turn
 ROUTE_TURNS = ("mma", "wgmma", "wgmma", "mma")
-TURN_SHAPES = ("main", "d1024_bshd", "phi3_d96_bshd")
+TURN_SHAPES = ("main", "d1024_bshd", "phi3_d96_bshd", "fp16_main")
 D64_SHAPE = "d1024_bshd"  # the head-dim-64 row of the kernels line
 # the rows at the new head dims and fp16: every route `_routes` admits is
 # held against the plain version there, and SDPA's default backend is timed
 # where its inputs are bf16 or fp16 rows that are 16-byte aligned (cuDNN's
 # backward fails on the rows that start one element into their storage)
 WIDE_SHAPES = ("phi3_d96", "phi3_d96_bshd", "gqa_d96", "window_d96", "d80", "gemma_d256",
-               "ragged_d40", "unaligned_d100", "fp16_main", "fp16_d1024_bshd", "fp32_d40",
-               "fp16_unaligned_d80", "fp32_d256", "fp32_d320", "bf16_d320")
+               "ragged_d40", "unaligned_d100", "fp16_main", "fp16_main_bshd", "fp16_gqa_bshd",
+               "fp16_window_512", "fp16_ragged_300", "fp16_cross_length", "fp16_d1024_bshd",
+               "fp32_d40", "fp16_unaligned_d80", "fp32_d256", "fp32_d320", "bf16_d320")
 # the kernels line's head_dims entry: the rows of each new width and dtype
 HEAD_DIM_ROWS = ("d80", "phi3_d96_bshd", "gemma_d256", "unaligned_d100", "fp16_main",
                  "fp16_d1024_bshd", "bf16_d320")
@@ -726,8 +747,8 @@ REFUSED_HEAD_DIM = 520
 
 def shape_routes(route) -> dict:
     """Each kernel's route at a SHAPES row: `route` names one for all three
-    kernels (the wgmma route of each takes head dims 64 and 128), or a
-    (forward, dQ, dK/dV) tuple one for each (`D96_ROUTES`)."""
+    kernels (the wgmma route of each takes head dims 64, 96 and 128 in
+    bf16), or a (forward, dQ, dK/dV) tuple one for each (`FP16_ROUTES`)."""
     routes = (route,) * 3 if isinstance(route, str) else route
     return dict(zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), routes))
 
@@ -2930,22 +2951,22 @@ def main() -> int:
                                            llama.LlamaConfig.llama2_7b())
     moe_step_launches, _ = phase_train(attn, train, moe, mixtral_8x7b(MOE_TRAIN_LAYERS),
                                        phase="moe_train")
-    # head dim 96 (Phi-3-mini's widths: the forward and dK/dV on wgmma, dQ
-    # on mma) and fp16 (Llama-2-7B in the dtype of its published weights:
-    # every flash launch on the mma route)
+    # head dim 96 (Phi-3-mini's widths: every flash launch on wgmma) and fp16
+    # (Llama-2-7B in the dtype of its published weights: the forward on
+    # wgmma, dQ and dK/dV on mma)
     phi3, phi3_name = phi3_mini(), "phi3_mini_4k widths"
     phi3_fwd_routes = phase_forward(attn, llama, phi3, phase="phi3_forward",
-                                    config=phi3_name, route=D96_ROUTES)[3]
+                                    config=phi3_name)[3]
     phase_gradient(attn, llama, train, phi3, phase="phi3_gradient",
-                   config=f"{phi3_name}, 4 layers", route=D96_ROUTES)
+                   config=f"{phi3_name}, 4 layers")
     # each kernel's launches by route in the last phi3 step
     phi3_step_routes = phase_train(attn, train, moe, phi3, phase="phi3_train",
-                                   config=phi3_name, route=D96_ROUTES)[1]
+                                   config=phi3_name)[1]
     fp16 = dataclasses.replace(llama.LlamaConfig.llama2_7b(), dtype="float16")
-    fp16_fwd_launches = phase_forward(attn, llama, fp16, phase="fp16_forward",
-                                      config="llama2_7b fp16", route="mma")[2]
+    fp16_fwd_routes = phase_forward(attn, llama, fp16, phase="fp16_forward",
+                                    config="llama2_7b fp16", route=FP16_ROUTES)[3]
     phase_gradient(attn, llama, train, fp16, phase="fp16_gradient",
-                   config="llama2_7b fp16 width, 4 layers", route="mma")
+                   config="llama2_7b fp16 width, 4 layers", route=FP16_ROUTES)
     free_memory()
     ring_launches = phase_ring(attn, ring, variants)
     ulysses_launches = phase_ulysses(attn, ulysses, variants)
@@ -3021,7 +3042,7 @@ def main() -> int:
                              "telemetry_load": telemetry_launches["flash_fwd"],
                              "phi3_forward": phi3_fwd_routes,
                              "phi3_train_step": phi3_step_routes["flash_fwd"],
-                             "fp16_forward_mma": fp16_fwd_launches,
+                             "fp16_forward": fp16_fwd_routes,
                              "tune_attention": tune_routes["flash_fwd"].get("wgmma", 0),
                              **{path: routes["flash_fwd"].get("wgmma", 0)
                                 for path, routes in bench_routes.items()}},

@@ -122,6 +122,8 @@ def _hopper_lib():
     lib.hopper_wgmma_ss64.argtypes = [p, p, i32, p, p]
     lib.hopper_wgmma_rs64.argtypes = [p, p, p, p]
     lib.hopper_wgmma_rs96.argtypes = [p, p, i32, p, p]
+    lib.hopper_wgmma_ss_f16.argtypes = [p, p, i32, p, p]
+    lib.hopper_wgmma_rs_f16.argtypes = [p, p, p, p]
     return lib
 
 
@@ -185,6 +187,34 @@ def test_wgmma_rs_tile_is_a_matmul(gpu):
     out = torch.empty(64, 128, device=gpu)
     assert _hopper_lib().hopper_wgmma_rs(p.data_ptr(), v.data_ptr(), out.data_ptr(),
                                          _stream()) == 0
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, p.float() @ v.float(), atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("a_row0", [0, 64])
+def test_wgmma_ss_f16_tile_is_a_matmul(gpu, a_row0):
+    """The fp16 form of the SS product (the .f16 instruction over FLOAT16
+    maps), as the fp16 forward's Q K^T: the operands' bits read as bf16
+    would give another product."""
+    gen = torch.Generator(gpu).manual_seed(11)
+    a, bm = (torch.randn(128, 128, generator=gen, device=gpu).to(torch.float16)
+             for _ in range(2))
+    out = torch.empty(64, 128, device=gpu)
+    assert _hopper_lib().hopper_wgmma_ss_f16(a.data_ptr(), bm.data_ptr(), a_row0,
+                                             out.data_ptr(), _stream()) == 0
+    torch.cuda.synchronize()
+    want = a[a_row0:a_row0 + 64].float() @ bm.float().T
+    torch.testing.assert_close(out, want, atol=1e-3, rtol=1e-4)
+
+
+def test_wgmma_rs_f16_tile_is_a_matmul(gpu):
+    """The fp16 form of the RS product, as the fp16 forward's P V."""
+    gen = torch.Generator(gpu).manual_seed(12)
+    p = torch.rand(64, 128, generator=gen, device=gpu).to(torch.float16)
+    v = torch.randn(128, 128, generator=gen, device=gpu).to(torch.float16)
+    out = torch.empty(64, 128, device=gpu)
+    assert _hopper_lib().hopper_wgmma_rs_f16(p.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                             _stream()) == 0
     torch.cuda.synchronize()
     torch.testing.assert_close(out, p.float() @ v.float(), atol=1e-3, rtol=1e-4)
 
@@ -410,7 +440,7 @@ def test_wgmma64_backward_is_bit_repeatable(gpu, case):
 
 
 # the head-dim-96 wgmma kernels (flash_fwd_wgmma96_kernel,
-# flash_bwd_dkv_wgmma96_kernel; dQ runs on mma there): Phi-3-mini's
+# flash_bwd_dq_wgmma96_kernel, flash_bwd_dkv_wgmma96_kernel): Phi-3-mini's
 # attention (32 heads of 96) and every path of their loops
 WGMMA96_SHAPES = {
     "phi3_s2048": ((1, 32, 32, 2048, 2048), True, None),
@@ -454,18 +484,17 @@ def test_wgmma96_route_matches_the_mma_route(gpu):
 @pytest.mark.parametrize("case", list(WGMMA96_SHAPES))
 @pytest.mark.parametrize("layout", ["bhsd", "bshd"])
 def test_wgmma96_backward_matches_the_plain_backward(gpu, case, layout):
-    """dK/dV on wgmma and dQ on mma, as `_route` picks them at head dim 96,
+    """dQ and dK/dV on wgmma, as `_route` picks them at head dim 96,
     elementwise and by each output's worst 64-row tile."""
     args, (o, g_lse) = _bwd_inputs(gpu, case, layout, d=96)
     q, k, v, do, lse, _, causal, window = args
     assert [attn._route(n, q, k, v, do) for n in ("flash_bwd_dq", "flash_bwd_dkv")] == [
-        "mma", "wgmma"]
-    before = (attn.flash_bwd_dq.launches_by_route["mma"],
-              attn.flash_bwd_dkv.launches_by_route["wgmma"])
+        "wgmma", "wgmma"]
+    before = [fn.launches_by_route["wgmma"] for fn in (attn.flash_bwd_dq, attn.flash_bwd_dkv)]
     got = _bwd_kernels(args, None)
     torch.cuda.synchronize()
-    assert (attn.flash_bwd_dq.launches_by_route["mma"],
-            attn.flash_bwd_dkv.launches_by_route["wgmma"]) == tuple(n + 1 for n in before)
+    assert [fn.launches_by_route["wgmma"] for fn in (attn.flash_bwd_dq, attn.flash_bwd_dkv)] == [
+        n + 1 for n in before]
     want = attn.flash_backward_reference(q, k, v, o, lse, do, causal, window, g_lse)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape
@@ -492,16 +521,72 @@ def test_wgmma96_dkv_is_bit_repeatable(gpu, case):
     assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
-def test_wgmma_refuses_dq_at_head_dim_96(gpu):
-    """dQ has no wgmma kernel at head dim 96: named, its route raises and
-    launches nothing, where dK/dV's takes the same inputs."""
-    args, _ = _bwd_inputs(gpu, "ragged_300", "bhsd", d=96)
-    fn = attn.flash_bwd_dq
-    before = (fn.launches, dict(fn.launches_by_route))
-    with pytest.raises(ValueError, match="flash_bwd_dq route 'wgmma' cannot take"):
-        fn(*args, route="wgmma")
-    assert (fn.launches, fn.launches_by_route) == before
-    attn.flash_bwd_dkv(*args, route="wgmma")
+def test_wgmma96_dq_matches_the_mma_route(gpu):
+    """dQ's head-dim-96 wgmma kernel against its padded mma kernel (d=96 in
+    the DP=128 build) on the same inputs."""
+    args, _ = _bwd_inputs(gpu, "gqa_32_8", "bshd", seed=2, d=96)
+    got = attn.flash_bwd_dq(*args, route="wgmma")
+    want = attn.flash_bwd_dq(*args, route="mma")
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    assert tile_rel_l2(got, want) <= BWD_TILE_REL_L2
+
+
+@pytest.mark.parametrize("case", ["ragged_300", "window_512", "phi3_s2048"])
+def test_wgmma96_dq_is_bit_repeatable(gpu, case):
+    args, _ = _bwd_inputs(gpu, case, "bshd", d=96)
+    runs = [attn.flash_bwd_dq(*args, route="wgmma") for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(*runs)
+
+
+# the fp16 wgmma forward (flash_fwd_wgmma_f16_kernel, head dim 128: Llama-2's
+# published dtype) at WGMMA_SHAPES, in both layouts, held to fp16's bounds
+# (chip_smoke.TOL's, and the bf16 tile bound over 8)
+@pytest.mark.parametrize("case", list(WGMMA_SHAPES))
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+def test_wgmma_f16_route_matches_the_plain_version(gpu, case, layout):
+    (b, h, kvh, sq, sk), causal, window = WGMMA_SHAPES[case]
+    q, k, v = _qkv(gpu, torch.float16, b, h, kvh, sq, sk, 128)
+    if layout == "bshd":  # the model's transposed views of [B, S, H, D]
+        q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
+    assert attn._route("flash_fwd", q, k, v) == "wgmma"
+    before = attn.flash_fwd.launches_by_route["wgmma"]
+    o, lse = attn.flash_fwd(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert attn.flash_fwd.launches_by_route["wgmma"] == before + 1
+    assert o.dtype == torch.float16 and o.shape == q.shape
+    ro, rl = attn.reference_attention_with_lse(q, k, v, causal, window)
+    tol = TOL[torch.float16]
+    torch.testing.assert_close(o.float(), ro.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, rl, atol=1e-3, rtol=1e-3)
+    assert tile_rel_l2(o, ro) <= chip_smoke.TILE_REL_L2_FP16
+
+
+def test_wgmma_f16_route_matches_the_mma_route(gpu):
+    q, k, v = _qkv(gpu, torch.float16, 1, 8, 4, 1024, 1024, 128, seed=2)
+    o1, l1 = attn.flash_fwd(q, k, v, route="mma")
+    o2, l2 = attn.flash_fwd(q, k, v, route="wgmma")
+    torch.cuda.synchronize()
+    tol = TOL[torch.float16]
+    torch.testing.assert_close(o2.float(), o1.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(l2, l1, atol=1e-3, rtol=1e-3)
+    assert tile_rel_l2(o2, o1) <= chip_smoke.TILE_REL_L2_FP16
+
+
+@pytest.mark.parametrize("d", [64, 96])
+def test_wgmma_refuses_fp16_but_the_forward_at_head_dim_128(gpu, d):
+    """fp16 has a wgmma forward at head dim 128 alone: named at 64 and 96,
+    the forward's route raises, and at 128 the backward's, with no launch."""
+    q, k, v = _qkv(gpu, torch.float16, 1, 4, 4, 128, 128, d)
+    q128 = _qkv(gpu, torch.float16, 1, 4, 4, 128, 128, 128)[0]
+    lse = torch.zeros(q.shape[:3], device=gpu)
+    calls = [(attn.flash_fwd, (q, k, v)), (attn.flash_bwd_dq, (q128,) * 4 + (lse, lse)),
+             (attn.flash_bwd_dkv, (q128,) * 4 + (lse, lse))]
+    for fn, args in calls:
+        before = (fn.launches, dict(fn.launches_by_route))
+        with pytest.raises(ValueError, match=f"{fn.__name__} route 'wgmma' cannot take"):
+            fn(*args, route="wgmma")
+        assert (fn.launches, fn.launches_by_route) == before
 
 
 def test_wgmma_refuses_dq_at_head_dim_32(gpu):
@@ -533,15 +618,15 @@ def test_kernel_refuses_what_it_does_not_take(gpu, dtype, d):
 
 
 # head dims other than 32, 64 and 128, and fp16: the simt and mma kernels at
-# their padded widths (at 96 the forward and dK/dV on wgmma). (dtype, d, (b,
+# their padded widths (at 96 and the fp16 forward at 128 on wgmma). (dtype, d, (b,
 # h, kvh, sq, sk), causal, window, layout, the route `_route` picks: one for
 # every kernel, or chip_smoke's (forward, dQ, dK/dV)); "offset1" starts each
 # tensor one element into its storage, off 16-byte alignment
 WIDE_CASES = {
     "bf16_d96_bshd": (torch.bfloat16, 96, (1, 8, 8, 512, 512), True, None, "bshd",
-                      chip_smoke.D96_ROUTES),
+                      "wgmma"),
     "bf16_d96_gqa_window": (torch.bfloat16, 96, (1, 8, 2, 300, 300), True, 64, "bhsd",
-                            chip_smoke.D96_ROUTES),
+                            "wgmma"),
     "bf16_d80_cross": (torch.bfloat16, 80, (1, 4, 4, 128, 400), True, None, "bhsd", "mma"),
     "bf16_d256_gqa_8_1": (torch.bfloat16, 256, (1, 8, 1, 384, 384), True, None, "bshd",
                           "mma"),
@@ -550,7 +635,8 @@ WIDE_CASES = {
                            "mma"),
     "bf16_d100": (torch.bfloat16, 100, (1, 4, 4, 256, 256), True, None, "bhsd", "simt"),
     "bf16_d1": (torch.bfloat16, 1, (1, 2, 2, 100, 100), True, None, "bhsd", "simt"),
-    "fp16_d128": (torch.float16, 128, (1, 8, 8, 512, 512), True, None, "bhsd", "mma"),
+    "fp16_d128": (torch.float16, 128, (1, 8, 8, 512, 512), True, None, "bhsd",
+                  chip_smoke.FP16_ROUTES),
     "fp16_d64_bshd": (torch.float16, 64, (2, 8, 8, 256, 256), True, None, "bshd", "mma"),
     "fp16_d200_window": (torch.float16, 200, (1, 4, 2, 300, 300), True, 50, "bhsd", "mma"),
     "fp16_d72_offset": (torch.float16, 72, (1, 4, 4, 200, 200), True, None, "offset1",

@@ -1,5 +1,6 @@
 """The port's attention at the head dims and dtypes past the kernels' first
-widths (head dims 40, 80, 96, 100, 256 and 320; fp16 beside fp32 and bf16),
+widths (head dims 40, 80, 96, 100, 256 and 320; fp16 beside fp32 and bf16,
+at 128 too),
 and a tiny Llama whose head dim is 48, against the JAX package on the same
 inputs.
 
@@ -32,7 +33,9 @@ torch.set_num_threads(1)
 
 # (b, h, kvh, s, d, window), causal: each head dim alone, then GQA and a
 # window at Phi-3-mini's 96; 100 with a ragged sequence (no block of the
-# JAX kernel's but the whole sequence); 320, past the mma kernels' 256
+# JAX kernel's but the whole sequence); 320, past the mma kernels' 256; and
+# 128, alone and with GQA and a window, the width of the fp16 wgmma forward
+# (Llama-2-7B's attention in its published weights' dtype)
 CASES = {
     "d40": (1, 2, 2, 64, 40, None),
     "d80": (1, 2, 2, 64, 80, None),
@@ -41,6 +44,8 @@ CASES = {
     "d256": (1, 2, 2, 64, 256, None),
     "d320": (1, 2, 2, 64, 320, None),
     "d96_gqa_window": (1, 4, 2, 64, 96, 24),
+    "d128": (1, 2, 2, 64, 128, None),
+    "d128_gqa_window": (1, 4, 2, 64, 128, 24),
 }
 DTYPES = ("float32", "bfloat16", "float16")
 # |port - JAX| <= atol + rtol * |JAX|. fp32: summation order only (measured

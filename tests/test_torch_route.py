@@ -19,9 +19,9 @@ def _bhsd(b, h, s, d, dtype=torch.bfloat16, offset=0):
     return x[offset:].view(b, h, s, d)
 
 
-def _model_view(b, s, h, d):
+def _model_view(b, s, h, d, dtype=torch.bfloat16):
     """The model's layout: [B, S, H, D] viewed as [B, H, S, D]."""
-    return torch.zeros(b, s, h, d, dtype=torch.bfloat16).transpose(1, 2)
+    return torch.zeros(b, s, h, d, dtype=dtype).transpose(1, 2)
 
 
 CASES = {
@@ -37,14 +37,17 @@ CASES = {
     "empty_kv": (lambda: [_bhsd(1, 4, 64, 128), _bhsd(1, 4, 0, 128),
                           _bhsd(1, 4, 0, 128)], "mma"),
     # head dims past wgmma's and fp16: mma takes aligned rows whose head dim
-    # is a multiple of 8 up to 256, simt the rest; wgmma stays bf16, at 64,
-    # 96 (Phi-3-mini's: the forward and dK/dV alone) and 128
+    # is a multiple of 8 up to 256, simt the rest; wgmma takes bf16 at 64,
+    # 96 (Phi-3-mini's) and 128, and fp16 at 128 (the forward alone)
     "bf16_d96": (lambda: [_bhsd(1, 4, 64, 96)] * 3, "wgmma"),
     "bf16_d80": (lambda: [_bhsd(1, 4, 64, 80)] * 3, "mma"),
     "bf16_d256_gqa": (lambda: [_bhsd(1, 8, 64, 256)] + [_bhsd(1, 1, 64, 256)] * 2,
                       "mma"),
-    "fp16_d128": (lambda: [_bhsd(1, 4, 64, 128, torch.float16)] * 3, "mma"),
+    "fp16_d128": (lambda: [_bhsd(1, 4, 64, 128, torch.float16)] * 3, "wgmma"),
+    "fp16_d128_bshd_view": (lambda: [_model_view(2, 64, 4, 128, torch.float16)] * 3,
+                            "wgmma"),
     "fp16_d64": (lambda: [_bhsd(1, 4, 64, 64, torch.float16)] * 3, "mma"),
+    "fp16_d96": (lambda: [_bhsd(1, 4, 64, 96, torch.float16)] * 3, "mma"),
     "bf16_d100": (lambda: [_bhsd(1, 4, 64, 100)] * 3, "simt"),
     "bf16_d100_aligned_rows": (lambda: [_bhsd(1, 4, 64, 104)[..., :100]] * 3, "simt"),
     "fp16_offset_by_one": (lambda: [_bhsd(1, 4, 64, 128, torch.float16, offset=1)] * 3,
@@ -63,30 +66,48 @@ def test_route_follows_the_inputs(case):
     assert "simt" in attn._routes("flash_fwd", q, k, v)
 
 
-# the head dims each kernel has a wgmma kernel for (csrc/): dQ has none at 96
-WGMMA_TAKES = {"flash_fwd": (64, 96, 128), "flash_bwd_dq": (64, 128),
-               "flash_bwd_dkv": (64, 96, 128)}
+# the head dims each kernel has a wgmma kernel for (csrc/), by dtype: every
+# kernel at 64, 96 and 128 in bf16; the forward alone at 128 in fp16
+WGMMA_TAKES = {torch.bfloat16: {"flash_fwd": (64, 96, 128), "flash_bwd_dq": (64, 96, 128),
+                                "flash_bwd_dkv": (64, 96, 128)},
+               torch.float16: {"flash_fwd": (128,), "flash_bwd_dq": (),
+                               "flash_bwd_dkv": ()}}
+KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+HEAD_DIMS = (32, 64, 128, 40, 80, 96, 256)
 
 
-@pytest.mark.parametrize("kernel,d,wgmma", [
-    (kernel, d, d in WGMMA_TAKES[kernel])
-    for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-    for d in (32, 64, 128, 40, 80, 96, 256)])
-def test_wgmma_admits_each_kernels_head_dims(kernel, d, wgmma):
-    """wgmma takes head dims 64 and 128 for each kernel and 96 for the
-    forward and dK/dV (`WGMMA_TAKES`); every aligned bf16 head dim keeps
-    mma, up to 256."""
-    tensors = [_model_view(2, 64, 4, d)] * (3 if kernel == "flash_fwd" else 4)
+def _assert_wgmma_admits(kernel, d, dtype, wgmma):
+    tensors = [_model_view(2, 64, 4, d, dtype)] * (3 if kernel == "flash_fwd" else 4)
     routes = attn._routes(kernel, *tensors)
     assert routes == (("simt", "mma", "wgmma") if wgmma else ("simt", "mma"))
     assert attn._route(kernel, *tensors) == routes[-1]
 
 
+@pytest.mark.parametrize("kernel,d,wgmma", [
+    (kernel, d, d in WGMMA_TAKES[torch.bfloat16][kernel])
+    for kernel in KERNELS for d in HEAD_DIMS])
+def test_wgmma_admits_each_kernels_head_dims(kernel, d, wgmma):
+    """wgmma takes head dims 64, 96 and 128 in bf16 for each kernel
+    (`WGMMA_TAKES`); every aligned bf16 head dim keeps mma, up to 256."""
+    _assert_wgmma_admits(kernel, d, torch.bfloat16, wgmma)
+
+
+@pytest.mark.parametrize("kernel,d,wgmma", [
+    (kernel, d, d in WGMMA_TAKES[torch.float16][kernel])
+    for kernel in KERNELS for d in HEAD_DIMS])
+def test_wgmma_admits_fp16_at_head_dim_128_for_the_forward_alone(kernel, d, wgmma):
+    """In fp16 wgmma takes the forward at head dim 128 alone: dQ and dK/dV
+    stay on mma there, and every other aligned fp16 head dim keeps mma for
+    all three kernels, up to 256."""
+    _assert_wgmma_admits(kernel, d, torch.float16, wgmma)
+
+
 @pytest.mark.parametrize("case,route", [
     ("fp32_d128", "wgmma"), ("fp32_d128", "mma"), ("bf16_d32", "wgmma"),
     ("bf16_offset_by_one", "mma"), ("bf16_d128", "tma"), ("bf16_d80", "wgmma"),
-    ("fp16_d128", "wgmma"), ("bf16_d100", "mma"), ("bf16_d100_aligned_rows", "mma"),
-    ("fp16_offset_by_one", "mma")])
+    ("fp16_d64", "wgmma"), ("fp16_d96", "wgmma"), ("bf16_d100", "mma"),
+    ("bf16_d100_aligned_rows", "mma"), ("fp16_offset_by_one", "mma"),
+    ("fp16_offset_by_one", "wgmma")])
 def test_a_route_that_cannot_take_the_inputs_raises(case, route):
     q, k, v = CASES[case][0]()
     before = attn.flash_fwd.launches
@@ -161,10 +182,13 @@ BWD_CASES = {
     "fp32_d128": (lambda: [_bhsd(1, 4, 64, 128, torch.float32)] * 4, "simt"),
     "empty_kv": (lambda: [_bhsd(1, 4, 64, 128), _bhsd(1, 4, 0, 128),
                           _bhsd(1, 4, 0, 128), _bhsd(1, 4, 64, 128)], "mma"),
-    "bf16_d96": (lambda: [_bhsd(1, 4, 64, 96)] * 4,
-                 {"flash_bwd_dq": "mma", "flash_bwd_dkv": "wgmma"}),
+    "bf16_d96": (lambda: [_bhsd(1, 4, 64, 96)] * 4, "wgmma"),
+    "bf16_d96_model_views": (lambda: [_model_view(1, 64, 4, 96)] * 4, "wgmma"),
     "bf16_d80": (lambda: [_bhsd(1, 4, 64, 80)] * 4, "mma"),
     "fp16_d128": (lambda: [_bhsd(1, 4, 64, 128, torch.float16)] * 4, "mma"),
+    "fp16_d128_model_views": (lambda: [_model_view(1, 64, 4, 128, torch.float16)] * 4,
+                              "mma"),
+    "fp16_d96": (lambda: [_bhsd(1, 4, 64, 96, torch.float16)] * 4, "mma"),
     "bf16_d100": (lambda: [_bhsd(1, 4, 64, 100)] * 4, "simt"),
     "fp16_do_offset_by_one": (lambda: [_bhsd(1, 4, 64, 128, torch.float16)] * 3
                               + [_bhsd(1, 4, 64, 128, torch.float16, offset=1)], "simt"),
@@ -190,22 +214,20 @@ def test_backward_route_follows_the_inputs(case):
         assert "simt" in attn._routes(kernel, q, k, v, do)
 
 
-# (case, route) both backward kernels must refuse, then (case, route) dQ
-# alone must (dK/dV has a wgmma kernel at head dim 96, dQ none)
+# (case, route) both backward kernels must refuse (fp16 has no wgmma
+# backward kernel, at head dim 128 either)
 BWD_REFUSALS = [("fp32_d128", "wgmma"), ("fp32_d128", "mma"), ("bf16_d32", "wgmma"),
                 ("do_offset_by_one", "mma"), ("do_odd_seq_stride", "wgmma"),
                 ("empty_kv", "wgmma"), ("bf16_d128", "tma"), ("bf16_d80", "wgmma"),
-                ("fp16_d128", "wgmma"), ("bf16_d100", "mma"),
+                ("fp16_d128", "wgmma"), ("fp16_d128_model_views", "wgmma"),
+                ("fp16_d96", "wgmma"), ("bf16_d100", "mma"),
                 ("fp16_do_offset_by_one", "mma")]
-DQ_REFUSALS = [("bf16_d96", "wgmma")]
 
 
 @pytest.mark.parametrize("fn,case,route", [
     pytest.param(fn, case, route, id=f"{case}-{route}-{fn.__name__}")
     for case, route in BWD_REFUSALS
-    for fn in (attn.flash_bwd_dq, attn.flash_bwd_dkv)] + [
-    pytest.param(attn.flash_bwd_dq, case, route, id=f"{case}-{route}-flash_bwd_dq")
-    for case, route in DQ_REFUSALS])
+    for fn in (attn.flash_bwd_dq, attn.flash_bwd_dkv)])
 def test_a_backward_route_that_cannot_take_the_inputs_raises(fn, case, route):
     args = _bwd_args(*BWD_CASES[case][0]())
     before = (fn.launches, dict(fn.launches_by_route))
@@ -223,16 +245,13 @@ def test_a_backward_route_that_can_take_them_still_needs_cuda(fn, route):
         fn(*args, route=route)
 
 
-def test_the_models_backward_lands_on_wgmma(monkeypatch):
-    """The loss gradient of a bf16 layer at head_dim 128 through the
-    autograd node of the kernels, with the kernels' launchers replaced by
-    recorders on the CPU: the forward's inputs (the model's [B, S, H, D]
-    views) take the forward's wgmma route, and the g_out that
-    `_FlashFwd.backward` hands to both backward launchers, with q, k and v,
-    takes the backward's."""
-    cfg = dataclasses.replace(LlamaConfig.tiny(), dim=256, n_heads=2, n_kv_heads=1,
-                              n_layers=1, dtype="bfloat16")
-    assert cfg.head_dim == 128
+def _a_models_launch_routes(monkeypatch, cfg):
+    """The routes of the flash launches of one loss gradient of `cfg`'s one
+    layer through the autograd node of the kernels, with the kernels'
+    launchers replaced by recorders on the CPU: [(kernel, route)] in launch
+    order. The forward's inputs are the model's [B, S, H, D] views; the
+    backward launchers get the g_out that `_FlashFwd.backward` hands them,
+    with q, k and v."""
     seen = []
 
     def fwd(q, k, v, causal=True, window=None):
@@ -240,13 +259,13 @@ def test_the_models_backward_lands_on_wgmma(monkeypatch):
         return attn.reference_attention_with_lse(q, k, v, causal, window)
 
     def bwd(name, q, k, v, do, lse, delta, causal=True, window=None):
-        seen.append((name, attn._route(f"flash_bwd_{name}", q, k, v, do)))
+        seen.append((name, attn._route(name, q, k, v, do)))
         return attn.flash_backward_reference(q, k, v, q, lse, do, causal, window)
 
     monkeypatch.setattr(attn, "flash_fwd", fwd)
-    monkeypatch.setattr(attn, "flash_bwd_dq", lambda *a, **kw: bwd("dq", *a, **kw)[0])
+    monkeypatch.setattr(attn, "flash_bwd_dq", lambda *a, **kw: bwd("flash_bwd_dq", *a, **kw)[0])
     monkeypatch.setattr(attn, "flash_bwd_dkv", lambda *a, **kw: (
-        [t.repeat_interleave(2, dim=1) for t in bwd("dkv", *a, **kw)[1:]]))
+        [t.repeat_interleave(2, dim=1) for t in bwd("flash_bwd_dkv", *a, **kw)[1:]]))
     monkeypatch.setattr(attn, "_attention", lambda q, k, v, causal, window: (
         attn._FlashFwd.apply(q, k, v, causal, window)))
     params = init_llama(cfg, seed=0, device="cpu")
@@ -254,88 +273,71 @@ def test_the_models_backward_lands_on_wgmma(monkeypatch):
         t.requires_grad_(True)
     tokens = torch.randint(0, cfg.vocab_size, (1, 64), generator=torch.Generator().manual_seed(0))
     llama_loss(params, tokens, cfg, remat=True).backward()
-    assert seen == [("flash_fwd", "wgmma"), ("flash_fwd", "wgmma"),
-                    ("dq", "wgmma"), ("dkv", "wgmma")]
+    return seen
+
+
+def _one_layer(dim, dtype="bfloat16"):
+    return dataclasses.replace(LlamaConfig.tiny(), dim=dim, n_heads=2, n_kv_heads=1,
+                               n_layers=1, dtype=dtype)
+
+
+def test_the_models_backward_lands_on_wgmma(monkeypatch):
+    """A bf16 layer at head_dim 128 (`_a_models_launch_routes`): the
+    forward's inputs take the forward's wgmma route, and the g_out that
+    `_FlashFwd.backward` hands to both backward launchers, with q, k and v,
+    takes the backward's."""
+    cfg = _one_layer(256)
+    assert cfg.head_dim == 128
+    assert _a_models_launch_routes(monkeypatch, cfg) == [
+        ("flash_fwd", "wgmma"), ("flash_fwd", "wgmma"), ("flash_bwd_dq", "wgmma"),
+        ("flash_bwd_dkv", "wgmma")]
 
 
 def test_the_models_backward_at_head_dim_64(monkeypatch):
     """As above at head_dim 64 (bench_mfu's d1024 widths): the forward and
     both backward launchers take wgmma."""
-    cfg = dataclasses.replace(LlamaConfig.tiny(), dim=128, n_heads=2, n_kv_heads=1,
-                              n_layers=1, dtype="bfloat16")
+    cfg = _one_layer(128)
     assert cfg.head_dim == 64
-    seen = []
-
-    def fwd(q, k, v, causal=True, window=None):
-        seen.append(("flash_fwd", attn._route("flash_fwd", q, k, v)))
-        return attn.reference_attention_with_lse(q, k, v, causal, window)
-
-    def bwd(name, q, k, v, do, lse, delta, causal=True, window=None):
-        seen.append((name, attn._route(name, q, k, v, do)))
-        return attn.flash_backward_reference(q, k, v, q, lse, do, causal, window)
-
-    monkeypatch.setattr(attn, "flash_fwd", fwd)
-    monkeypatch.setattr(attn, "flash_bwd_dq", lambda *a, **kw: bwd("flash_bwd_dq", *a, **kw)[0])
-    monkeypatch.setattr(attn, "flash_bwd_dkv", lambda *a, **kw: (
-        [t.repeat_interleave(2, dim=1) for t in bwd("flash_bwd_dkv", *a, **kw)[1:]]))
-    monkeypatch.setattr(attn, "_attention", lambda q, k, v, causal, window: (
-        attn._FlashFwd.apply(q, k, v, causal, window)))
-    params = init_llama(cfg, seed=0, device="cpu")
-    for t in params["layers"][0].values():
-        t.requires_grad_(True)
-    tokens = torch.randint(0, cfg.vocab_size, (1, 64), generator=torch.Generator().manual_seed(0))
-    llama_loss(params, tokens, cfg, remat=True).backward()
-    assert seen == [("flash_fwd", "wgmma"), ("flash_fwd", "wgmma"),
-                    ("flash_bwd_dq", "wgmma"), ("flash_bwd_dkv", "wgmma")]
+    assert _a_models_launch_routes(monkeypatch, cfg) == [
+        ("flash_fwd", "wgmma"), ("flash_fwd", "wgmma"), ("flash_bwd_dq", "wgmma"),
+        ("flash_bwd_dkv", "wgmma")]
 
 
 def test_the_models_backward_at_head_dim_96(monkeypatch):
-    """As above at head_dim 96 (Phi-3-mini's widths): the forward and dK/dV
-    take wgmma, dQ mma."""
-    cfg = dataclasses.replace(LlamaConfig.tiny(), dim=192, n_heads=2, n_kv_heads=1,
-                              n_layers=1, dtype="bfloat16")
+    """As above at head_dim 96 (Phi-3-mini's widths): the forward and both
+    backward launchers take wgmma, dQ on its head-dim-96 kernel."""
+    cfg = _one_layer(192)
     assert cfg.head_dim == 96
-    seen = []
+    assert _a_models_launch_routes(monkeypatch, cfg) == [
+        ("flash_fwd", "wgmma"), ("flash_fwd", "wgmma"), ("flash_bwd_dq", "wgmma"),
+        ("flash_bwd_dkv", "wgmma")]
 
-    def fwd(q, k, v, causal=True, window=None):
-        seen.append(("flash_fwd", attn._route("flash_fwd", q, k, v)))
-        return attn.reference_attention_with_lse(q, k, v, causal, window)
 
-    def bwd(name, q, k, v, do, lse, delta, causal=True, window=None):
-        seen.append((name, attn._route(name, q, k, v, do)))
-        return attn.flash_backward_reference(q, k, v, q, lse, do, causal, window)
-
-    monkeypatch.setattr(attn, "flash_fwd", fwd)
-    monkeypatch.setattr(attn, "flash_bwd_dq", lambda *a, **kw: bwd("flash_bwd_dq", *a, **kw)[0])
-    monkeypatch.setattr(attn, "flash_bwd_dkv", lambda *a, **kw: (
-        [t.repeat_interleave(2, dim=1) for t in bwd("flash_bwd_dkv", *a, **kw)[1:]]))
-    monkeypatch.setattr(attn, "_attention", lambda q, k, v, causal, window: (
-        attn._FlashFwd.apply(q, k, v, causal, window)))
-    params = init_llama(cfg, seed=0, device="cpu")
-    for t in params["layers"][0].values():
-        t.requires_grad_(True)
-    tokens = torch.randint(0, cfg.vocab_size, (1, 64), generator=torch.Generator().manual_seed(0))
-    llama_loss(params, tokens, cfg, remat=True).backward()
-    assert seen == [("flash_fwd", "wgmma"), ("flash_fwd", "wgmma"),
-                    ("flash_bwd_dq", "mma"), ("flash_bwd_dkv", "wgmma")]
+def test_the_fp16_models_forward_lands_on_wgmma_and_its_backward_on_mma(monkeypatch):
+    """As above in fp16 at head_dim 128 (Llama-2-7B in its published
+    weights' dtype): the forward takes its fp16 wgmma kernel, dQ and dK/dV
+    take mma, with the cotangent that `_FlashFwd.backward` scales in fp16."""
+    cfg = _one_layer(256, "float16")
+    assert cfg.head_dim == 128
+    assert _a_models_launch_routes(monkeypatch, cfg) == [
+        ("flash_fwd", "wgmma"), ("flash_fwd", "wgmma"), ("flash_bwd_dq", "mma"),
+        ("flash_bwd_dkv", "mma")]
 
 
 @pytest.mark.parametrize("d,route", [(64, "wgmma"), (128, "wgmma"), (32, "mma"),
-                                     (96, ("wgmma", "mma", "wgmma"))])
+                                     (96, ("wgmma", "wgmma", "wgmma"))])
 def test_the_smokes_routes_are_the_routes_picks(d, route):
     """chip_smoke's one expectation of the routes at a SHAPES row
     (`shape_routes`) against `_route` on the model's views at head dim `d`:
-    at 64 and 128 every kernel on wgmma, dQ's among them; at 32, which no
-    wgmma kernel takes, every kernel on mma; at 96 the forward and dK/dV on
-    wgmma and dQ on mma (`chip_smoke.D96_ROUTES`)."""
+    at 64, 96 and 128 every kernel on wgmma, dQ's among them (at 96 also
+    as a per-kernel tuple); at 32, which no wgmma kernel takes, every kernel
+    on mma."""
     import chip_smoke
 
     want = chip_smoke.shape_routes(route)
     kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
     assert want == (dict.fromkeys(kernels, route) if isinstance(route, str)
                     else dict(zip(kernels, route)))
-    if d == 96:
-        assert chip_smoke.D96_ROUTES == route
     q, k, v, do = [_model_view(2, 64, 4, d)] * 4
     assert attn._route("flash_fwd", q, k, v) == want["flash_fwd"]
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
@@ -359,19 +361,75 @@ def test_bench_mfu_train_expects_no_mma_launch():
     assert d64 * (1 + bench_mfu.CARD_TRAIN_STEPS) == 264
 
 
-def test_phi3_train_expects_wgmma_but_for_dq():
+def test_the_smokes_fp16_routes_are_the_routes_picks():
+    """chip_smoke's fp16 expectation (`FP16_ROUTES`: the forward on wgmma,
+    dQ and dK/dV on mma) against `_route` on the model's fp16 views at head
+    dim 128, and every fp16 row of its SHAPES at 128 naming it."""
+    import chip_smoke
+
+    want = chip_smoke.shape_routes(chip_smoke.FP16_ROUTES)
+    assert want == {"flash_fwd": "wgmma", "flash_bwd_dq": "mma", "flash_bwd_dkv": "mma"}
+    q, k, v, do = [_model_view(2, 64, 4, 128, torch.float16)] * 4
+    assert attn._route("flash_fwd", q, k, v) == want["flash_fwd"]
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert attn._route(name, q, k, v, do) == want[name]
+    rows = _fp16_rows()
+    assert {row[0] for row in rows} == {
+        "fp16_main", "fp16_main_bshd", "fp16_gqa_bshd", "fp16_window_512",
+        "fp16_ragged_300", "fp16_cross_length"}
+    assert all(row[-1] == chip_smoke.FP16_ROUTES for row in rows)
+    assert "fp16_main" in chip_smoke.TURN_SHAPES
+
+
+def _fp16_rows():
+    import chip_smoke
+
+    return [row for row in chip_smoke.SHAPES if row[9] == torch.float16 and row[6] == 128]
+
+
+@pytest.mark.parametrize("row", _fp16_rows(), ids=lambda row: row[0])
+def test_the_smokes_fp16_rows_take_their_routes(row):
+    """Each fp16 row of chip_smoke at head dim 128 on the CPU in its layout:
+    `_route` picks the route it names for each kernel."""
+    import chip_smoke
+
+    q, k, v, do = _smoke_row_tensors(row)
+    want = chip_smoke.shape_routes(row[-1])
+    assert attn._route("flash_fwd", q, k, v) == want["flash_fwd"]
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert attn._route(name, q, k, v, do) == want[name]
+
+
+def test_phi3_train_expects_every_launch_on_wgmma():
     """chip_smoke's expected launches of a phi3_train step (Phi-3-mini's 32
     layers at head dim 96; the forward twice a layer under remat, each
-    backward kernel once): the forward and dK/dV on wgmma, dQ on mma, as
-    `_route` picks them on the model's views at its head dim."""
+    backward kernel once): all three kernels on wgmma, as `_route` picks
+    them on the model's views at its head dim."""
     import chip_smoke
     from yoda_scheduler_tpu_torch.profile_path import phi3_mini
 
     cfg = phi3_mini()
-    want = chip_smoke.step_routes(chip_smoke.D96_ROUTES, cfg.n_layers)
-    assert want == {"flash_fwd": {"wgmma": 64}, "flash_bwd_dq": {"mma": 32},
+    want = chip_smoke.step_routes("wgmma", cfg.n_layers)
+    assert want == {"flash_fwd": {"wgmma": 64}, "flash_bwd_dq": {"wgmma": 32},
                     "flash_bwd_dkv": {"wgmma": 32}}
     q, k, v, do = [_model_view(1, 64, cfg.n_heads, cfg.head_dim)] * 4
+    assert {attn._route("flash_fwd", q, k, v)} == set(want["flash_fwd"])
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert {attn._route(name, q, k, v, do)} == set(want[name])
+
+
+def test_fp16_gradient_expects_the_forward_on_wgmma():
+    """chip_smoke's expected launches of the 4-layer fp16 gradient at
+    Llama-2-7B width: 8 forward launches on wgmma, 4 of dQ and of dK/dV on
+    mma, as `_route` picks them on the model's fp16 views at head dim 128."""
+    import chip_smoke
+    from yoda_scheduler_tpu_torch.models import LlamaConfig as Cfg
+
+    cfg = Cfg.llama2_7b()
+    want = chip_smoke.step_routes(chip_smoke.FP16_ROUTES, 4)
+    assert want == {"flash_fwd": {"wgmma": 8}, "flash_bwd_dq": {"mma": 4},
+                    "flash_bwd_dkv": {"mma": 4}}
+    q, k, v, do = [_model_view(1, 64, cfg.n_heads, cfg.head_dim, torch.float16)] * 4
     assert {attn._route("flash_fwd", q, k, v)} == set(want["flash_fwd"])
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         assert {attn._route(name, q, k, v, do)} == set(want[name])
@@ -402,7 +460,8 @@ def _wide_rows():
 def test_the_smokes_wide_rows_take_their_routes(row):
     """Each row chip_smoke adds at the new head dims and in fp16 names the
     route `_route` picks for each kernel there: wgmma only at head dim 96
-    in bf16, for the forward and dK/dV, and never for dQ."""
+    in bf16, for every kernel, and in fp16 at 128 aligned, for the forward
+    alone."""
     import chip_smoke
 
     q, k, v, do = _smoke_row_tensors(row)
@@ -411,9 +470,10 @@ def test_the_smokes_wide_rows_take_their_routes(row):
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         assert attn._route(name, q, k, v, do) == want[name]
     d96 = row[6] == 96 and row[9] == torch.bfloat16
-    assert ("wgmma" in attn._routes("flash_fwd", q, k, v)) == d96
+    fp16_128 = row[6] == 128 and row[9] == torch.float16 and row[10] != "offset1"
+    assert ("wgmma" in attn._routes("flash_fwd", q, k, v)) == (d96 or fp16_128)
     assert ("wgmma" in attn._routes("flash_bwd_dkv", q, k, v, do)) == d96
-    assert "wgmma" not in attn._routes("flash_bwd_dq", q, k, v, do)
+    assert ("wgmma" in attn._routes("flash_bwd_dq", q, k, v, do)) == d96
     assert row[6] <= attn.KERNEL_MAX_HEAD_DIM
 
 
@@ -431,3 +491,22 @@ def test_the_smoke_covers_each_new_width_and_dtype():
         (torch.bfloat16, "simt"), (torch.float32, "simt")}
     assert chip_smoke.REFUSED_HEAD_DIM > attn.KERNEL_MAX_HEAD_DIM
     assert set(chip_smoke.HEAD_DIM_ROWS) <= set(chip_smoke.WIDE_SHAPES)
+
+
+def test_d96_on_mma_puts_every_kernel_on_mma_and_restores():
+    """`profile_path.d96_on_mma`, the route set the Phi-3 step is timed
+    against: within it head dim 96 takes mma for the forward, dQ and dK/dV;
+    after it each takes wgmma again, and fp16 at 128 keeps its wgmma
+    forward throughout."""
+    from yoda_scheduler_tpu_torch.profile_path import d96_on_mma
+
+    q, k, v, do = [_model_view(1, 64, 4, 96)] * 4
+    h = [_model_view(1, 64, 4, 128, torch.float16)] * 3
+    with d96_on_mma():
+        assert attn._route("flash_fwd", q, k, v) == "mma"
+        for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+            assert attn._route(name, q, k, v, do) == "mma"
+        assert attn._route("flash_fwd", *h) == "wgmma"
+    assert attn._route("flash_fwd", q, k, v) == "wgmma"
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert attn._route(name, q, k, v, do) == "wgmma"

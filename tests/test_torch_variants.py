@@ -42,3 +42,33 @@ def test_a_zero_tile_reads_zero_only_if_both_are_zero():
     got = ref.clone()
     got[0, 0, 100, 5] = 1e-3
     assert tile_rel_l2(got, ref) == float("inf")
+
+
+def test_fp16_bounds_and_shapes_are_the_smokes():
+    """`--dtype float16` holds each launch to chip_smoke's fp16 bounds (the
+    bf16 ones over 8) at SHAPES in fp16, fp16_main first, and probes three
+    of them."""
+    import chip_smoke
+    from yoda_scheduler_tpu_torch.ops import variants
+
+    assert variants.BOUNDS[torch.float16] == (chip_smoke.TOL[torch.float16]["o"],
+                                               chip_smoke.TILE_REL_L2_FP16)
+    assert variants.BOUNDS[torch.bfloat16] == (2e-2, BWD_TILE_REL_L2)
+    names = [name for name, *_ in variants.SHAPES_F16]
+    assert names[0] == "fp16_main"
+    assert [shape for _, *shape in variants.SHAPES_F16] == [
+        shape for _, *shape in variants.SHAPES]
+    assert {"fp16_main", "fp16_window_512", "fp16_ragged_300"} <= set(variants.PROBE)
+
+
+@pytest.mark.parametrize("argv", [
+    ["fwd", "--dtype", "float16", "--head-dim", "96", "cur"],
+    ["fwd", "--head-dim", "96", "--dtype", "float16", "cur"],
+    ["fwd", "--dtype", "float32", "cur"]])
+def test_a_dtype_the_timer_lacks_is_refused(argv, capsys):
+    """fp16 runs at head dim 128 alone, and fp32 not at all: the usage and
+    exit 1, before anything is built."""
+    from yoda_scheduler_tpu_torch.ops import variants
+
+    assert variants.main(argv) == 1
+    assert "--dtype float16" in capsys.readouterr().err

@@ -11,9 +11,9 @@ no shape falls back to a plain version on the card; they take fp32, bf16 or
 fp16 and any head_dim from 1 to 512 (`KERNEL_MAX_HEAD_DIM`), as the JAX
 kernels do, and raise otherwise.
 Each kernel has three routes, which `_route` picks per kernel from the
-inputs alone: "wgmma" (TMA and wgmma, bf16 with 16-byte aligned rows:
-the model's path; head_dim 64, 96 or 128 for the forward and dK/dV, 64 or
-128 for dQ, `_WGMMA_HEAD_DIMS`), "mma" (mma.sync, other aligned bf16 and
+inputs alone: "wgmma" (TMA and wgmma, 16-byte aligned rows: the model's
+path; bf16 at head_dim 64, 96 or 128 for every kernel, and fp16 at 128 for
+the forward, `_WGMMA_HEAD_DIMS`), "mma" (mma.sync, other aligned bf16 and
 aligned fp16: rows 16-byte aligned and head_dim a multiple of 8, up to
 256) and "simt" (fp32, and every input the others do not take, head_dim
 past 256 among them). The simt and mma kernels run at a padded width (32,
@@ -187,10 +187,13 @@ def _check_qkv(name: str, q, k, v, causal: bool):
     return b, h, kvh, sq, sk, d
 
 
-# the head dims each kernel's wgmma route takes (csrc/flash_fwd.cu,
-# csrc/flash_bwd.cu): dQ has no kernel at 96 and runs on mma there
-_WGMMA_HEAD_DIMS = {"flash_fwd": (64, 96, 128), "flash_bwd_dq": (64, 128),
-                    "flash_bwd_dkv": (64, 96, 128)}
+# the head dims each kernel's wgmma route takes, by (kernel, dtype)
+# (csrc/flash_fwd.cu, csrc/flash_bwd.cu): bf16 at 64, 96 and 128 for every
+# kernel; fp16 at 128 for the forward alone (its backward runs on mma)
+_WGMMA_HEAD_DIMS = {("flash_fwd", torch.bfloat16): (64, 96, 128),
+                    ("flash_bwd_dq", torch.bfloat16): (64, 96, 128),
+                    ("flash_bwd_dkv", torch.bfloat16): (64, 96, 128),
+                    ("flash_fwd", torch.float16): (128,)}
 
 
 def _routes(kernel: str, q, k, *rest) -> tuple[str, ...]:
@@ -199,8 +202,9 @@ def _routes(kernel: str, q, k, *rest) -> tuple[str, ...]:
     q, k, v and dO for the backward), slowest first: simt takes any; mma
     needs bf16 or fp16 with a head dim that is a multiple of 8 up to 256,
     16-byte aligned bases and (batch, head, seq) strides that are multiples
-    of 8 elements; wgmma needs that in bf16, a non-empty kv and a head dim
-    of `_WGMMA_HEAD_DIMS[kernel]` (the conditions of the csrc/ entries)."""
+    of 8 elements; wgmma needs that, a non-empty kv and a head dim of
+    `_WGMMA_HEAD_DIMS[(kernel, dtype)]` (the conditions of the csrc/
+    entries)."""
     routes = ("simt",)
     d = q.shape[-1]
     if (q.dtype in (torch.bfloat16, torch.float16) and d % 8 == 0
@@ -208,8 +212,7 @@ def _routes(kernel: str, q, k, *rest) -> tuple[str, ...]:
             and all(t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
                     for t in (q, k, *rest))):
         routes += ("mma",)
-        if (q.dtype == torch.bfloat16 and d in _WGMMA_HEAD_DIMS[kernel]
-                and k.shape[2] > 0):
+        if d in _WGMMA_HEAD_DIMS.get((kernel, q.dtype), ()) and k.shape[2] > 0:
             routes += ("wgmma",)
     return routes
 

@@ -28,11 +28,12 @@
 // (ops/attention.py:_route picks it from dtype, head_dim and alignment):
 // - *_wgmma kernels (route 2; bf16, D = 128, 16-byte aligned rows: the main
 //   path): TMA-fed and warp-specialised on wgmma, as flash_fwd.cu's wgmma
-//   kernel. Below; flash_bwd_dkv_wgmma96_kernel is route 2 for dK/dV at D =
-//   96 (Phi-3-mini's attention), the D = 128 kernel's body at the true
-//   width; flash_bwd_dkv_wgmma64_kernel and flash_bwd_dq_wgmma64_kernel are
-//   route 2 at D = 64 (bench_mfu's d1024 widths), each with its own note.
-//   Route 2 refuses every other D (dQ at 96 too: it runs on mma there).
+//   kernel. Below; flash_bwd_dq_wgmma96_kernel and
+//   flash_bwd_dkv_wgmma96_kernel are route 2 at D = 96 (Phi-3-mini's
+//   attention), the D = 128 kernels' bodies at the true width;
+//   flash_bwd_dkv_wgmma64_kernel and flash_bwd_dq_wgmma64_kernel are route 2
+//   at D = 64 (bench_mfu's d1024 widths), each with its own note. Route 2
+//   refuses every other D, and fp16 (it runs on mma).
 // - *_mma kernels (route 1; aligned bf16 and fp16, D a multiple of 8 up to
 //   256; they take bf16 at D = 64 and 128 too, to be held against the wgmma
 //   kernels): 4 warps each own 16 rows of a 64-row tile and run all products
@@ -1217,13 +1218,23 @@ __global__ void __launch_bounds__((K64_CONS + 1) * WG_THREADS, 1) flash_bwd_dkv_
   }
 }
 
-__global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dq_wgmma_kernel(
-    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    __nv_bfloat16* __restrict__ dq, int H, int KvH, int Sq, int Sk, int causal,
-    int window, float scale) {
+// The body of flash_bwd_dq_wgmma_kernel (D = 128) and
+// flash_bwd_dq_wgmma96_kernel (D = 96), as dkv_wgmma_body: at D = 96 the
+// tiles keep D = 128's shared-memory layout and grid, the second box of each
+// row zero-filled by TMA past column 96 (every expect_tx counts whole
+// boxes); S and dP run 6 k-steps (the last two in the second half), dQ is an
+// m64n96k16 sum (48 fp32 a thread, not 64) with K the n96 MN-major B, and
+// the epilogue stores the 96 columns alone. At Phi-3-mini's attention (B=1,
+// H=32, S=2048, D=96, causal) dQ does ~38.7 GFLOP against ~63 MB, bound by
+// operations (~39 us at 989 TF/s).
+template <int D>
+__device__ __forceinline__ void dq_wgmma_body(
+    const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+    const CUtensorMap* tm_do, const float* __restrict__ lse,
+    const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int H, int KvH,
+    int Sq, int Sk, int causal, int window, float scale) {
   using namespace hopper;
+  constexpr int KSTEPS = D / 16;  // k-steps of S and dP
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   unsigned char* sQ = smem;
@@ -1255,19 +1266,19 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dq_wgmma_kernel(
     setmaxnreg_dec<24>();
     if (threadIdx.x == 0) {
       mbar_arrive_expect_tx(full_q, 2 * W_T128);
-      tma_load_4d(sQ, &tm_q, full_q, 0, q0, h, b);
-      tma_load_4d(sQ + W_HALF128, &tm_q, full_q, 64, q0, h, b);
-      tma_load_4d(sDO, &tm_do, full_q, 0, q0, h, b);
-      tma_load_4d(sDO + W_HALF128, &tm_do, full_q, 64, q0, h, b);
+      tma_load_4d(sQ, tm_q, full_q, 0, q0, h, b);
+      tma_load_4d(sQ + W_HALF128, tm_q, full_q, 64, q0, h, b);
+      tma_load_4d(sDO, tm_do, full_q, 0, q0, h, b);
+      tma_load_4d(sDO + W_HALF128, tm_do, full_q, 64, q0, h, b);
       for (int t = first, i = 0; t < last; ++t, ++i) {
         const int s = i % W_STAGES;
         mbar_wait(&empty[s], ((i / W_STAGES) & 1) ^ 1);
         unsigned char* sK = smem + DQ_K + DQ_STAGE * s;
         mbar_arrive_expect_tx(&full[s], 2 * W_T64);
-        tma_load_4d(sK, &tm_k, &full[s], 0, t * 64, kvh, b);
-        tma_load_4d(sK + W_HALF64, &tm_k, &full[s], 64, t * 64, kvh, b);
-        tma_load_4d(sK + W_T64, &tm_v, &full[s], 0, t * 64, kvh, b);
-        tma_load_4d(sK + W_T64 + W_HALF64, &tm_v, &full[s], 64, t * 64, kvh, b);
+        tma_load_4d(sK, tm_k, &full[s], 0, t * 64, kvh, b);
+        tma_load_4d(sK + W_HALF64, tm_k, &full[s], 64, t * 64, kvh, b);
+        tma_load_4d(sK + W_T64, tm_v, &full[s], 0, t * 64, kvh, b);
+        tma_load_4d(sK + W_T64 + W_HALF64, tm_v, &full[s], 64, t * 64, kvh, b);
       }
     }
   } else {
@@ -1290,9 +1301,9 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dq_wgmma_kernel(
       l2[r] = row < Sq ? lse[(int64_t)bh * Sq + row] * LOG2E : 0.f;
       dl[r] = row < Sq ? delta[(int64_t)bh * Sq + row] : 0.f;
     }
-    float acc[64];
+    float acc[D / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
     const uint64_t da_q = desc_kmajor(sQ + 64 * 128 * cw);
     const uint64_t da_o = desc_kmajor(sDO + 64 * 128 * cw);
 
@@ -1310,16 +1321,16 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dq_wgmma_kernel(
       unsigned char* sK = smem + DQ_K + DQ_STAGE * s;
       unsigned char* sV = sK + W_T64;
 
-      // S = Q K^T and dP = dO V^T
+      // S = Q K^T and dP = dO V^T, D / 16 k-steps of 16 head dims each
       float sc[32], dp[32];
       const uint64_t db_k = desc_kmajor(sK), db_v = desc_kmajor(sV);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
+      for (int kk = 0; kk < KSTEPS; ++kk)
         wgmma_m64n64k16_ss<0, 0>(sc, da_q + kstep(kk, W_HALF128), db_k + kstep(kk, W_HALF64),
                                  kk > 0);
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
+      for (int kk = 0; kk < KSTEPS; ++kk)
         wgmma_m64n64k16_ss<0, 0>(dp, da_o + kstep(kk, W_HALF128), db_v + kstep(kk, W_HALF64),
                                  kk > 0);
       wgmma_commit();
@@ -1347,13 +1358,14 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dq_wgmma_kernel(
       uint32_t sa[4][4];
       to_a_operand(dp, sa);
 
-      // dQ += dS K: K [keys][head_dim] as an MN-major B operand
+      // dQ += dS K: K [keys][head_dim] as an MN-major B operand (n96 at D =
+      // 96: its columns 64-95 the second half's first 32)
       const uint64_t db_k_mn = desc_mnmajor(sK, W_HALF64);
       fence_regs(acc);
       wgmma_fence();
 #pragma unroll
       for (int k4 = 0; k4 < 4; ++k4)
-        wgmma_m64n128k16_rs<1>(acc, sa[k4], db_k_mn + ((k4 * 2048) >> 4), 1);
+        wgmma_rs<D, 1>(acc, sa[k4], db_k_mn + ((k4 * 2048) >> 4), 1);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
@@ -1365,14 +1377,34 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dq_wgmma_kernel(
       for (int r = 0; r < 2; ++r) {
         const int row = row0 + 8 * r;
         if (row >= Sq) continue;
-        __nv_bfloat16* out = dq + ((int64_t)bh * Sq + row) * 128 + 2 * t4;
+        __nv_bfloat16* out = dq + ((int64_t)bh * Sq + row) * D + 2 * t4;
 #pragma unroll
-        for (int j = 0; j < 16; ++j)
+        for (int j = 0; j < D / 8; ++j)
           *reinterpret_cast<uint32_t*>(out + 8 * j) =
               pack_bf16(acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale);
       }
     }
   }
+}
+
+__global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dq_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    __nv_bfloat16* __restrict__ dq, int H, int KvH, int Sq, int Sk, int causal,
+    int window, float scale) {
+  dq_wgmma_body<128>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dq, H, KvH, Sq, Sk, causal,
+                     window, scale);
+}
+
+__global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dq_wgmma96_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    __nv_bfloat16* __restrict__ dq, int H, int KvH, int Sq, int Sk, int causal,
+    int window, float scale) {
+  dq_wgmma_body<96>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dq, H, KvH, Sq, Sk, causal,
+                    window, scale);
 }
 
 // ---- the dQ wgmma kernel at head dim 64
@@ -1664,8 +1696,8 @@ bool bwd_maps(const Args& a, int D, uint32_t q_rows, uint32_t kv_rows,
     const bool is_q = i == 0 || i == 3;
     // strides (seq, head, batch), innermost first after head_dim
     const int64_t strides[3] = {st[3 * i + 2], st[3 * i + 1], st[3 * i]};
-    if (!hopper::make_map_bf16_4d(&maps[i], bases[i], is_q ? q_dims : kv_dims, strides,
-                                  is_q ? q_rows : kv_rows))
+    if (!hopper::make_map_4d(&maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, bases[i],
+                             is_q ? q_dims : kv_dims, strides, is_q ? q_rows : kv_rows))
       return false;
   }
   return true;
@@ -1699,11 +1731,13 @@ cudaError_t launch_dkv_wgmma(const Args& a, int D) {
   return cudaGetLastError();
 }
 
-// D = 128: flash_bwd_dq_wgmma_kernel; D = 64: flash_bwd_dq_wgmma64_kernel
+// D = 128: flash_bwd_dq_wgmma_kernel; D = 96: flash_bwd_dq_wgmma96_kernel,
+// on the same grid; D = 64: flash_bwd_dq_wgmma64_kernel
 cudaError_t launch_dq_wgmma(const Args& a, int D) {
   static const cudaError_t attr128 = set_smem(flash_bwd_dq_wgmma_kernel, DQ_SMEM);
+  static const cudaError_t attr96 = set_smem(flash_bwd_dq_wgmma96_kernel, DQ_SMEM);
   static const cudaError_t attr64 = set_smem(flash_bwd_dq_wgmma64_kernel, Q64_SMEM);
-  const cudaError_t attr = D == 64 ? attr64 : attr128;
+  const cudaError_t attr = D == 64 ? attr64 : D == 96 ? attr96 : attr128;
   if (attr != cudaSuccess) return attr;
   CUtensorMap m[4];
   if (D == 64) {
@@ -1715,7 +1749,8 @@ cudaError_t launch_dq_wgmma(const Args& a, int D) {
   } else {
     if (!bwd_maps(a, D, 128, 64, m)) return cudaErrorInvalidValue;
     const dim3 grid(a.B * a.H, (a.Sq + 127) / 128);
-    flash_bwd_dq_wgmma_kernel<<<grid, 3 * WG_THREADS, DQ_SMEM, a.stream>>>(
+    auto kernel = D == 96 ? flash_bwd_dq_wgmma96_kernel : flash_bwd_dq_wgmma_kernel;
+    kernel<<<grid, 3 * WG_THREADS, DQ_SMEM, a.stream>>>(
         m[0], m[1], m[2], m[3], (const float*)a.lse, (const float*)a.delta,
         (__nv_bfloat16*)a.dq, a.H, a.KvH, a.Sq, a.Sk, a.causal, a.window, a.scale);
   }
@@ -1754,8 +1789,8 @@ cudaError_t at_padded_dim(int which, int mma, const Args& a) {
 // dtype 0 = fp32, 1 = bf16, 2 = fp16. route 0 = simt (any dtype, D from 1
 // to 512), 1 = mma (bf16 or fp16, D a multiple of 8 up to 256, 16-byte
 // aligned bases, strides that are multiples of 8), 2 = wgmma (bf16 only, as
-// mma, and Sk > 0, with D = 64 or 128 for dQ and 64, 96 or 128 for dK/dV); a
-// route that cannot take the inputs launches nothing
+// mma, and Sk > 0, with D = 64, 96 or 128); a route that cannot take the
+// inputs launches nothing
 cudaError_t dispatch(int which, int dtype, int route, int D, const Args& a) {
   const void* ptrs[4] = {a.q, a.k, a.v, a.dout};
   const bool aligned = rows_aligned(ptrs, 4, &a.st.q_sb, 12, D);
@@ -1770,12 +1805,10 @@ cudaError_t dispatch(int which, int dtype, int route, int D, const Args& a) {
       if (dtype == 1) return at_padded_dim<__nv_bfloat16>(which, 1, a);
       if (dtype == 2) return at_padded_dim<__half>(which, 1, a);
       return cudaErrorInvalidValue;
-    case 2: {
-      // dK/dV has a D = 96 kernel, dQ none
-      const bool has_d = D == 64 || D == 128 || (which == 1 && D == 96);
-      if (dtype != 1 || !aligned || a.Sk <= 0 || !has_d) return cudaErrorInvalidValue;
+    case 2:
+      if (dtype != 1 || !aligned || a.Sk <= 0 || (D != 64 && D != 96 && D != 128))
+        return cudaErrorInvalidValue;
       return which ? launch_dkv_wgmma(a, D) : launch_dq_wgmma(a, D);
-    }
     default:
       return cudaErrorInvalidValue;
   }

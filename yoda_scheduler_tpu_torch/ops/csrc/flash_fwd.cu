@@ -18,19 +18,21 @@
 // one (batch, head) and streams K/V tiles through shared memory. Causal tiles
 // stop at the diagonal and windowed tiles start at the window's first tile, as
 // in the Pallas loop bounds; ragged q and k tails are masked in the kernel, so
-// every shape runs here. Five kernels share that plan; the caller names a
+// every shape runs here. Six kernels share that plan; the caller names a
 // route (ops/attention.py:_route picks it from dtype, head_dim and alignment):
 // - flash_fwd_wgmma_kernel (route 2 at D = 128; bf16, 16-byte aligned rows:
 //   the main path): TMA-fed and warp-specialised, on wgmma. Below.
 // - flash_fwd_wgmma96_kernel (route 2 at D = 96: Phi-3-mini's attention):
 //   the D = 128 kernel's body at the true width, 6 k-steps and P.V at n96.
+// - flash_fwd_wgmma_f16_kernel (route 2 in fp16 at D = 128: Llama-2's
+//   published dtype): the D = 128 kernel's body on fp16 operands.
 // - flash_fwd_wgmma64_kernel (route 2 at D = 64: bench_mfu's d1024 widths):
 //   the same plan with three consumer warpgroups; its note is below.
 // - flash_fwd_mma_kernel (route 1; aligned bf16 and fp16, D a multiple of 8
-//   up to 256: every other model's head dim, and fp16 checkpoints; it takes
-//   bf16 at D = 64 and 128 too, to be held against the wgmma kernels): 4
-//   warps, each owning 16 of 64 q rows, mma.sync m16n8k16 (.bf16 or .f16)
-//   for both products; K/V tiles of 64 keys copied through registers.
+//   up to 256: every other model's head dim, and fp16 at D other than 128;
+//   it takes bf16 at D = 64 and 128 and fp16 at 128 too, to be held against
+//   the wgmma kernels): 4 warps, each owning 16 of 64 q rows, mma.sync
+//   m16n8k16 (.bf16 or .f16) for both products; K/V tiles of 64 keys copied through registers.
 //   Scores, probabilities and the output sum stay in registers; P is rounded
 //   to the input type for P.V as the plain version rounds its probabilities.
 //   The fp32 scores are scaled (rather than Q, which would round Q a second
@@ -62,9 +64,9 @@
 // K-major), masks only on diagonal, window-edge and ragged tiles, runs the
 // online softmax on the raw scores with exp2 (ex2.approx.ftz) and the scale
 // folded into one FMA (m is kept in raw-score units; LSE = m scale + ln l),
-// rounds P to bf16 in registers (the m64n128 accumulator is laid out as the A
-// operand of the RS form) and adds P V with 8 RS wgmma (V as an MN-major B
-// operand). The row sums l stay per thread until the epilogue.
+// rounds P to the input type in registers (the m64n128 accumulator is laid
+// out as the A operand of the RS form) and adds P V with 8 RS wgmma (V as an
+// MN-major B operand). The row sums l stay per thread until the epilogue.
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -432,18 +434,23 @@ constexpr int W_TILE = 2 * W_HALF;          // bytes of a 128 x 128 bf16 tile
 constexpr int W_BARS = W_TILE * (1 + 2 * W_STAGES);  // barriers after Q, K[], V[]
 constexpr int W_SMEM = W_BARS + 8 * (1 + 3 * W_STAGES) + 1024;  // + alignment slack
 
-// The body of flash_fwd_wgmma_kernel (D = 128) and flash_fwd_wgmma96_kernel
-// (D = 96). At D = 96 the tiles keep D = 128's shared-memory layout: each
+// The body of flash_fwd_wgmma_kernel (bf16, D = 128), flash_fwd_wgmma96_kernel
+// (bf16, D = 96) and flash_fwd_wgmma_f16_kernel (fp16, D = 128). fp16 differs
+// from bf16 only in names: the wgmma instructions (.f16 for .bf16), the
+// tensor maps' data type and the roundings of P (for P.V, where the plain
+// version rounds its probabilities) and of O; both are 2 bytes and the H100
+// runs both at one tensor rate, so tiles, swizzle, ring and grid are the
+// same. At D = 96 the tiles keep D = 128's shared-memory layout: each
 // row's second box reads columns 64-127 of a tensor 96 wide, so TMA fills
 // columns 96-127 with zeros and every expect_tx counts the whole box. Q.K^T
 // runs 6 k-steps (the last two in the second half) and P.V is m64n96k16
 // (48 fp32 sums a thread, not 64); the epilogue stores the 96 columns alone.
 // At Phi-3-mini's attention (B=1, H=32, S=2048, D=96, causal) the work is
 // ~25.8 GFLOP against ~51 MB, bound by operations (~26 us at 989 TF/s).
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void fwd_wgmma_body(
     const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
-    __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int H, int KvH, int Sq,
+    T* __restrict__ o, float* __restrict__ lse, int H, int KvH, int Sq,
     int Sk, int causal, int window, float scale) {
   using namespace hopper;
   constexpr int KSTEPS = D / 16;  // k-steps of Q.K^T
@@ -543,7 +550,7 @@ __device__ __forceinline__ void fwd_wgmma_body(
 #pragma unroll
       for (int kk = 0; kk < KSTEPS; ++kk) {
         const uint64_t off = ((kk / 4) * W_HALF + (kk % 4) * 32) >> 4;
-        wgmma_m64n128k16_ss<0, 0>(sc, dq + off, dk + off, kk > 0);
+        wgmma_m64n128k16_ss<0, 0, T>(sc, dq + off, dk + off, kk > 0);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -602,14 +609,14 @@ __device__ __forceinline__ void fwd_wgmma_body(
         }
       }
 
-      // P in bf16 as the A operand: k-step jj is keys 16 jj .. 16 jj + 15
+      // P in T as the A operand: k-step jj is keys 16 jj .. 16 jj + 15
       uint32_t pa[8][4];
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj) {
-        pa[jj][0] = pack_bf16(sc[8 * jj + 0], sc[8 * jj + 1]);
-        pa[jj][1] = pack_bf16(sc[8 * jj + 2], sc[8 * jj + 3]);
-        pa[jj][2] = pack_bf16(sc[8 * jj + 4], sc[8 * jj + 5]);
-        pa[jj][3] = pack_bf16(sc[8 * jj + 6], sc[8 * jj + 7]);
+        pa[jj][0] = pack_t<T>(sc[8 * jj + 0], sc[8 * jj + 1]);
+        pa[jj][1] = pack_t<T>(sc[8 * jj + 2], sc[8 * jj + 3]);
+        pa[jj][2] = pack_t<T>(sc[8 * jj + 4], sc[8 * jj + 5]);
+        pa[jj][3] = pack_t<T>(sc[8 * jj + 6], sc[8 * jj + 7]);
       }
 
       // O += P V: V [keys][head_dim] is B, MN-major; its two 64-column
@@ -620,7 +627,7 @@ __device__ __forceinline__ void fwd_wgmma_body(
       wgmma_fence();
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj)
-        wgmma_rs<D, 1>(acc, pa[jj], dv + ((jj * 16 * 128) >> 4), 1);
+        wgmma_rs<D, 1, T>(acc, pa[jj], dv + ((jj * 16 * 128) >> 4), 1);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
@@ -638,11 +645,11 @@ __device__ __forceinline__ void fwd_wgmma_body(
         const int row = w_row0 + 16 * warp + g + 8 * r;
         if (row >= Sq) continue;
         const float lc = fmaxf(l[r], 1e-30f);
-        __nv_bfloat16* orow = o + ((int64_t)bh * Sq + row) * D + 2 * t4;
+        T* orow = o + ((int64_t)bh * Sq + row) * D + 2 * t4;
 #pragma unroll
         for (int j = 0; j < D / 8; ++j)
           *reinterpret_cast<uint32_t*>(orow + 8 * j) =
-              pack_bf16(acc[4 * j + 2 * r] / lc, acc[4 * j + 2 * r + 1] / lc);
+              pack_t<T>(acc[4 * j + 2 * r] / lc, acc[4 * j + 2 * r + 1] / lc);
         if (t4 == 0) lse[(int64_t)bh * Sq + row] = m[r] * scale + logf(lc);
       }
     }
@@ -654,7 +661,8 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_fwd_wgmma_kernel(
     const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
     float* __restrict__ lse, int H, int KvH, int Sq, int Sk, int causal,
     int window, float scale) {
-  fwd_wgmma_body<128>(&tm_q, &tm_k, &tm_v, o, lse, H, KvH, Sq, Sk, causal, window, scale);
+  fwd_wgmma_body<__nv_bfloat16, 128>(&tm_q, &tm_k, &tm_v, o, lse, H, KvH, Sq, Sk, causal,
+                                     window, scale);
 }
 
 __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_fwd_wgmma96_kernel(
@@ -662,7 +670,17 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_fwd_wgmma96_kernel(
     const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
     float* __restrict__ lse, int H, int KvH, int Sq, int Sk, int causal,
     int window, float scale) {
-  fwd_wgmma_body<96>(&tm_q, &tm_k, &tm_v, o, lse, H, KvH, Sq, Sk, causal, window, scale);
+  fwd_wgmma_body<__nv_bfloat16, 96>(&tm_q, &tm_k, &tm_v, o, lse, H, KvH, Sq, Sk, causal,
+                                    window, scale);
+}
+
+__global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_fwd_wgmma_f16_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, __half* __restrict__ o,
+    float* __restrict__ lse, int H, int KvH, int Sq, int Sk, int causal,
+    int window, float scale) {
+  fwd_wgmma_body<__half, 128>(&tm_q, &tm_k, &tm_v, o, lse, H, KvH, Sq, Sk, causal, window,
+                              scale);
 }
 
 // ---- the wgmma kernel at head dim 64 (bf16)
@@ -944,10 +962,11 @@ cudaError_t launch_mma(const Args& a) {
   return cudaGetLastError();
 }
 
-// the three 4-D maps (head_dim D, seq, heads, batch) of a wgmma launch,
-// boxes of `q_rows` rows of q and `kv_rows` of k and v; false if
-// cuTensorMapEncodeTiled refuses one
-bool fwd_maps(const Args& a, int D, uint32_t q_rows, uint32_t kv_rows, CUtensorMap (&maps)[3]) {
+// the three 4-D maps (head_dim D, seq, heads, batch) of a wgmma launch over
+// tensors of `type`, boxes of `q_rows` rows of q and `kv_rows` of k and v;
+// false if cuTensorMapEncodeTiled refuses one
+bool fwd_maps(const Args& a, int D, CUtensorMapDataType type, uint32_t q_rows,
+              uint32_t kv_rows, CUtensorMap (&maps)[3]) {
   const int64_t* st = a.st;
   const int64_t q_dims[4] = {D, a.Sq, a.H, a.B};
   const int64_t kv_dims[4] = {D, a.Sk, a.KvH, a.B};
@@ -955,31 +974,44 @@ bool fwd_maps(const Args& a, int D, uint32_t q_rows, uint32_t kv_rows, CUtensorM
   for (int i = 0; i < 3; ++i) {
     // strides (seq, head, batch), innermost first after head_dim
     const int64_t strides[3] = {st[3 * i + 2], st[3 * i + 1], st[3 * i]};
-    if (!hopper::make_map_bf16_4d(&maps[i], bases[i], i == 0 ? q_dims : kv_dims,
-                                  strides, i == 0 ? q_rows : kv_rows))
+    if (!hopper::make_map_4d(&maps[i], type, bases[i], i == 0 ? q_dims : kv_dims,
+                             strides, i == 0 ? q_rows : kv_rows))
       return false;
   }
   return true;
 }
 
-// D = 128: flash_fwd_wgmma_kernel; D = 96: flash_fwd_wgmma96_kernel, on
-// the same grid; D = 64: flash_fwd_wgmma64_kernel, its grid with the q tiles
-// of one (batch, head) side by side
-cudaError_t launch_wgmma(const Args& a, int D) {
+// bf16 (dtype 1) at D = 128: flash_fwd_wgmma_kernel; at D = 96:
+// flash_fwd_wgmma96_kernel, on the same grid; at D = 64:
+// flash_fwd_wgmma64_kernel, its grid with the q tiles of one (batch, head)
+// side by side. fp16 (dtype 2) at D = 128: flash_fwd_wgmma_f16_kernel, on
+// the D = 128 grid.
+cudaError_t launch_wgmma(const Args& a, int D, int dtype) {
   static const cudaError_t attr128 = allow_smem(flash_fwd_wgmma_kernel, W_SMEM);
   static const cudaError_t attr96 = allow_smem(flash_fwd_wgmma96_kernel, W_SMEM);
   static const cudaError_t attr64 = allow_smem(flash_fwd_wgmma64_kernel, F_SMEM);
-  const cudaError_t attr = D == 64 ? attr64 : D == 96 ? attr96 : attr128;
+  static const cudaError_t attr_f16 = allow_smem(flash_fwd_wgmma_f16_kernel, W_SMEM);
+  const cudaError_t attr =
+      dtype == 2 ? attr_f16 : D == 64 ? attr64 : D == 96 ? attr96 : attr128;
   if (attr != cudaSuccess) return attr;
   CUtensorMap maps[3];
-  if (D == 64) {
-    if (!fwd_maps(a, D, F_BQ, F_BK, maps)) return cudaErrorInvalidValue;
+  if (dtype == 2) {
+    if (!fwd_maps(a, D, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, W_BQ, W_BK, maps))
+      return cudaErrorInvalidValue;
+    const dim3 grid(a.B * a.H, (a.Sq + W_BQ - 1) / W_BQ);
+    flash_fwd_wgmma_f16_kernel<<<grid, 3 * WG_THREADS, W_SMEM, a.stream>>>(
+        maps[0], maps[1], maps[2], (__half*)a.o, (float*)a.lse, a.H, a.KvH, a.Sq, a.Sk,
+        a.causal, a.window, a.scale);
+  } else if (D == 64) {
+    if (!fwd_maps(a, D, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, F_BQ, F_BK, maps))
+      return cudaErrorInvalidValue;
     const dim3 grid((a.Sq + F_BQ - 1) / F_BQ, a.B * a.H);
     flash_fwd_wgmma64_kernel<<<grid, (F_CONS + 1) * WG_THREADS, F_SMEM, a.stream>>>(
         maps[0], maps[1], maps[2], (__nv_bfloat16*)a.o, (float*)a.lse, a.H, a.KvH,
         a.Sq, a.Sk, a.causal, a.window, a.scale);
   } else {
-    if (!fwd_maps(a, D, W_BQ, W_BK, maps)) return cudaErrorInvalidValue;
+    if (!fwd_maps(a, D, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, W_BQ, W_BK, maps))
+      return cudaErrorInvalidValue;
     const dim3 grid(a.B * a.H, (a.Sq + W_BQ - 1) / W_BQ);
     auto kernel = D == 96 ? flash_fwd_wgmma96_kernel : flash_fwd_wgmma_kernel;
     kernel<<<grid, 3 * WG_THREADS, W_SMEM, a.stream>>>(
@@ -1029,8 +1061,8 @@ struct Mma {
 // [B, H, Sq]. dtype 0 = fp32, 1 = bf16, 2 = fp16. window <= 0 means no
 // window. route: 0 = simt (any dtype, D from 1 to 512), 1 = mma (bf16 or
 // fp16, D a multiple of 8 up to 256, 16-byte aligned bases, strides that
-// are multiples of 8), 2 = wgmma (bf16 only, as mma, and D = 64, 96 or 128,
-// Sk > 0). The simt and mma kernels run at the padded width of D
+// are multiples of 8), 2 = wgmma (as mma, and Sk > 0, with bf16 at D = 64,
+// 96 or 128 and fp16 at D = 128). The simt and mma kernels run at the padded width of D
 // (padded_dim), the wgmma kernels at D itself. A route that cannot take the
 // inputs returns cudaErrorInvalidValue and launches nothing. Returns the
 // launch's cudaError_t (0 on success).
@@ -1061,10 +1093,11 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
       if (dtype == 1) return (int)at_padded_dim<__nv_bfloat16, Mma>(a);
       if (dtype == 2) return (int)at_padded_dim<__half, Mma>(a);
       return (int)cudaErrorInvalidValue;
-    case 2:
-      if (dtype != 1 || !aligned || (D != 64 && D != 96 && D != 128) || Sk <= 0)
-        return (int)cudaErrorInvalidValue;
-      return (int)launch_wgmma(a, D);
+    case 2: {
+      const bool has_d = dtype == 1 ? D == 64 || D == 96 || D == 128 : dtype == 2 && D == 128;
+      if (!has_d || !aligned || Sk <= 0) return (int)cudaErrorInvalidValue;
+      return (int)launch_wgmma(a, D, dtype);
+    }
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -2,9 +2,10 @@
 // TMA tiled loads and their tensor maps, wgmma shared-memory descriptors for
 // the 128-byte swizzle, the wgmma fences and groups, setmaxnreg, and the bf16
 // wgmma m64n128k16 and m64n64k16, each in its SS (both operands in shared
-// memory) and RS (A in registers) forms, and m64n96k16 in the RS form.
+// memory) and RS (A in registers) forms, and m64n96k16 in the RS form;
+// m64n128k16 takes fp16 operands too, in both forms.
 //
-// The layout they assume. A tile row of 64 bf16 (128 bytes) is one line of
+// The layout they assume. A tile row of 64 bf16 or fp16 (128 bytes) is one line of
 // the 128-byte swizzle: TMA with CU_TENSOR_MAP_SWIZZLE_128B stores the 16-byte
 // chunk c of row r at chunk c ^ (r % 8), in atoms of 8 rows (1024 bytes) that
 // start on a 1024-byte boundary. A 128-wide row (head_dim 128) therefore
@@ -15,15 +16,19 @@
 //
 // tests/test_torch_cuda.py holds these pieces against torch on the card
 // (csrc/hopper_check.cu: one TMA tile against a slice copy, SS and RS
-// products of 128- and 64-row tiles against torch.matmul). ops/_build.py
+// products of 128- and 64-row tiles, in bf16 and at m64n128k16 in fp16,
+// against torch.matmul). ops/_build.py
 // hashes every .cuh in csrc/ into each kernel's library name.
 
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and the driver's enums; only the header
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace hopper {
 
@@ -171,38 +176,51 @@ __device__ __forceinline__ void setmaxnreg_dec() {
   "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
   "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
 
-// D[64 x 128] (+)= A[64 x 16] B[16 x 128], bf16 operands, fp32 sums, both
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128], T operands (bf16, or fp16 for
+// T = __half: the same instruction of another type), fp32 sums, both
 // from shared memory. The fp32 accumulator of thread i of the warpgroup
 // (warp w = i / 32, g = lane / 4, t = lane % 4): d[4 j + e] is row 16 w + g +
 // 8 (e / 2), column 8 j + 2 t + (e % 2). TA/TB = 1 marks an MN-major operand.
 // scale_d = 0 overwrites D.
-template <int TA, int TB>
+#define HOPPER_SS128(TY)                                                  \
+  asm volatile(                                                           \
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"                      \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " HOPPER_D64 \
+      ", %64, %65, p, 1, 1, %67, %68;\n}\n"                                 \
+      : HOPPER_D64_OPS(d)                                                 \
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB))
+template <int TA, int TB, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
                                                     uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_D64
-      ", %64, %65, p, 1, 1, %67, %68;\n}\n"
-      : HOPPER_D64_OPS(d)
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  if constexpr (std::is_same<T, __half>::value) {
+    HOPPER_SS128("f16");
+  } else {
+    HOPPER_SS128("bf16");
+  }
 }
 
-// The same with A from registers: a[0..3] hold, as bf16 pairs (low half the
+// The same with A from registers: a[0..3] hold, as T pairs (low half the
 // lower column), rows 16 w + g and 16 w + g + 8 at columns 2 t, 2 t + 1 and
 // at 2 t + 8, 2 t + 9, in the order (g, 2t) (g+8, 2t) (g, 2t+8) (g+8, 2t+8).
 // That is the accumulator layout above, so the columns 16 s .. 16 s + 15 of
-// an m64n128 accumulator, rounded to bf16, are A's k-step s.
-template <int TB>
+// an m64n128 accumulator, rounded to T, are A's k-step s.
+#define HOPPER_RS128(TY)                                                  \
+  asm volatile(                                                           \
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"                      \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " HOPPER_D64 \
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"                     \
+      : HOPPER_D64_OPS(d)                                                 \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), \
+        "n"(TB))
+template <int TB, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
                                                     const uint32_t (&a)[4],
                                                     uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_D64
-      ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-      : HOPPER_D64_OPS(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
-        "n"(TB));
+  if constexpr (std::is_same<T, __half>::value) {
+    HOPPER_RS128("f16");
+  } else {
+    HOPPER_RS128("bf16");
+  }
 }
 
 #define HOPPER_D32 \
@@ -275,18 +293,22 @@ __device__ __forceinline__ void wgmma_m64n96k16_rs(float (&d)[48], const uint32_
         "n"(TB));
 }
 
-// the RS product of width N (96 or 128) over an N / 2-float accumulator
-template <int N, int TB>
+// the RS product of width N (96 or 128) over an N / 2-float accumulator, T
+// operands (N = 96 in bf16 alone)
+template <int N, int TB, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                                          uint64_t db, int scale_d) {
   static_assert(N == 96 || N == 128, "wgmma_rs takes N = 96 or 128");
   if constexpr (N == 96) {
+    static_assert(std::is_same<T, __nv_bfloat16>::value, "m64n96k16 is bf16 alone");
     wgmma_m64n96k16_rs<TB>(d, a, db, scale_d);
   } else {
-    wgmma_m64n128k16_rs<TB>(d, a, db, scale_d);
+    wgmma_m64n128k16_rs<TB, T>(d, a, db, scale_d);
   }
 }
 
+#undef HOPPER_SS128
+#undef HOPPER_RS128
 #undef HOPPER_D64
 #undef HOPPER_D64_OPS
 #undef HOPPER_D48
@@ -321,15 +343,15 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A map over a bf16 tensor of dims[4] (innermost first; dim 0 contiguous) with
-// element strides strides[3] for dims 1-3, read in boxes of 64 x box_rows x 1 x
-// 1 with the 128-byte swizzle and zeros past the edges. The stride of a dim
+// A map over a 16-bit tensor of `type` (CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 or
+// _FLOAT16) of dims[4] (innermost first; dim 0 contiguous) with element
+// strides strides[3] for dims 1-3, read in boxes of 64 x box_rows x 1 x 1
+// with the 128-byte swizzle and zeros past the edges. The stride of a dim
 // of size 1 is never used, and any value is replaced by a valid one. False if
 // the driver refuses (a base not 16-byte aligned, a stride not a multiple of
 // 8 elements).
-inline bool make_map_bf16_4d(CUtensorMap* map, const void* base,
-                             const int64_t* dims, const int64_t* strides,
-                             uint32_t box_rows) {
+inline bool make_map_4d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                        const int64_t* dims, const int64_t* strides, uint32_t box_rows) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return false;
   cuuint64_t gdim[4], gstride[3];
@@ -340,7 +362,7 @@ inline bool make_map_bf16_4d(CUtensorMap* map, const void* base,
   }
   const cuuint32_t box[4] = {64, box_rows, 1, 1};
   const cuuint32_t estride[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+  return encode(map, type, 4, const_cast<void*>(base),
                 gdim, gstride, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

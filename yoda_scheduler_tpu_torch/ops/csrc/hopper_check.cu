@@ -17,6 +17,9 @@
 //   64 or 128), V a tensor 96 wide read as two 64-column boxes (the second
 //   zero-filled past column 96) and an MN-major B operand of the m64n96k16
 //   form, as the D = 96 kernels' P V (128 rows), P^T dO and dS^T Q (64).
+// - hopper_wgmma_ss_f16, hopper_wgmma_rs_f16: hopper_wgmma_ss and
+//   hopper_wgmma_rs on fp16 operands (the .f16 instructions over FLOAT16
+//   maps), as flash_fwd.cu's fp16 Q K^T and P V.
 // Each launches one block of one warpgroup; run them first after a change to
 // hopper.cuh or to a kernel's descriptors.
 
@@ -60,6 +63,7 @@ __device__ void store_acc(const float (&d)[64], float* out) {
       out[(16 * warp + g + 8 * (e >> 1)) * 128 + 8 * j + 2 * t + (e & 1)] = d[4 * j + e];
 }
 
+template <typename T>
 __global__ void __launch_bounds__(128) wgmma_ss_kernel(
     const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
     int a_row0, float* out) {
@@ -86,7 +90,7 @@ __global__ void __launch_bounds__(128) wgmma_ss_kernel(
 #pragma unroll
   for (int kk = 0; kk < 8; ++kk) {
     const uint64_t off = ((kk / 4) * HALF + (kk % 4) * 32) >> 4;
-    wgmma_m64n128k16_ss<0, 0>(d, da + off, db + off, kk > 0);
+    wgmma_m64n128k16_ss<0, 0, T>(d, da + off, db + off, kk > 0);
   }
   wgmma_commit();
   wgmma_wait<0>();
@@ -94,8 +98,9 @@ __global__ void __launch_bounds__(128) wgmma_ss_kernel(
   store_acc(d, out);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(128) wgmma_rs_kernel(
-    const __nv_bfloat16* __restrict__ p, const __grid_constant__ CUtensorMap map_v,
+    const T* __restrict__ p, const __grid_constant__ CUtensorMap map_v,
     float* out) {
   extern __shared__ unsigned char raw[];
   unsigned char* sV = aligned_smem(raw);
@@ -113,7 +118,7 @@ __global__ void __launch_bounds__(128) wgmma_rs_kernel(
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
   uint32_t pa[8][4];
-  const __nv_bfloat16* prow = p + (16 * warp + g) * 128 + 2 * t;
+  const T* prow = p + (16 * warp + g) * 128 + 2 * t;
 #pragma unroll
   for (int jj = 0; jj < 8; ++jj) {
     pa[jj][0] = ld_pair(prow + 16 * jj);
@@ -130,7 +135,7 @@ __global__ void __launch_bounds__(128) wgmma_rs_kernel(
   wgmma_fence();
 #pragma unroll
   for (int jj = 0; jj < 8; ++jj)
-    wgmma_m64n128k16_rs<1>(d, pa[jj], dv + ((jj * 16 * 128) >> 4), 1);
+    wgmma_m64n128k16_rs<1, T>(d, pa[jj], dv + ((jj * 16 * 128) >> 4), 1);
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(d);
@@ -280,15 +285,50 @@ __global__ void __launch_bounds__(128) wgmma_rs96_kernel(
   store_acc96(d, out);
 }
 
-// a rows x 128 contiguous bf16 matrix as a 4-D map of 64-column boxes
-bool matrix_map(CUtensorMap* map, const void* base, int64_t rows, uint32_t box_rows) {
+// a rows x 128 contiguous bf16 (or `type`) matrix as a 4-D map of 64-column
+// boxes
+bool matrix_map(CUtensorMap* map, const void* base, int64_t rows, uint32_t box_rows,
+                CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const int64_t dims[4] = {128, rows, 1, 1};
   const int64_t strides[3] = {128, 128 * rows, 128 * rows};
-  return make_map_bf16_4d(map, base, dims, strides, box_rows);
+  return make_map_4d(map, type, base, dims, strides, box_rows);
 }
 
-bool square_map(CUtensorMap* map, const void* base, uint32_t box_rows) {
-  return matrix_map(map, base, 128, box_rows);
+bool square_map(CUtensorMap* map, const void* base, uint32_t box_rows,
+                CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
+  return matrix_map(map, base, 128, box_rows, type);
+}
+
+// the map type of T (bf16 or fp16)
+template <typename T>
+constexpr CUtensorMapDataType map_type() {
+  return std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+
+template <typename T>
+int wgmma_ss(const void* a, const void* b, int a_row0, void* out, void* stream) {
+  CUtensorMap map_a, map_b;
+  if ((a_row0 != 0 && a_row0 != 64) || !square_map(&map_a, a, 128, map_type<T>()) ||
+      !square_map(&map_b, b, 128, map_type<T>()))
+    return (int)cudaErrorInvalidValue;
+  constexpr int smem = 4 * HALF + 1024;
+  cudaError_t err = cudaFuncSetAttribute(
+      wgmma_ss_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  wgmma_ss_kernel<T><<<1, 128, smem, (cudaStream_t)stream>>>(map_a, map_b, a_row0,
+                                                            (float*)out);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int wgmma_rs(const void* p, const void* v, void* out, void* stream) {
+  CUtensorMap map_v;
+  if (!square_map(&map_v, v, 128, map_type<T>())) return (int)cudaErrorInvalidValue;
+  constexpr int smem = 2 * HALF + 1024;
+  wgmma_rs_kernel<T><<<1, 128, smem, (cudaStream_t)stream>>>((const T*)p, map_v,
+                                                            (float*)out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -302,7 +342,8 @@ extern "C" int hopper_tma_tile(const void* src, int64_t d0, int64_t d1, int64_t 
   const int64_t dims[4] = {d0, d1, d2, d3};
   const int64_t strides[3] = {s1, s2, s3};
   CUtensorMap map;
-  if (rows < 1 || rows > 256 || !make_map_bf16_4d(&map, src, dims, strides, rows))
+  if (rows < 1 || rows > 256 ||
+      !make_map_4d(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, src, dims, strides, rows))
     return (int)cudaErrorInvalidValue;
   const int smem = rows * 128 + 1024;
   tma_tile_kernel<<<1, 128, smem, (cudaStream_t)stream>>>(
@@ -314,27 +355,23 @@ extern "C" int hopper_tma_tile(const void* src, int64_t d0, int64_t d1, int64_t 
 // a[a_row0 : a_row0 + 64] @ b^T
 extern "C" int hopper_wgmma_ss(const void* a, const void* b, int a_row0, void* out,
                                void* stream) {
-  CUtensorMap map_a, map_b;
-  if ((a_row0 != 0 && a_row0 != 64) || !square_map(&map_a, a, 128) ||
-      !square_map(&map_b, b, 128))
-    return (int)cudaErrorInvalidValue;
-  constexpr int smem = 4 * HALF + 1024;
-  cudaError_t err = cudaFuncSetAttribute(
-      wgmma_ss_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  wgmma_ss_kernel<<<1, 128, smem, (cudaStream_t)stream>>>(map_a, map_b, a_row0,
-                                                         (float*)out);
-  return (int)cudaGetLastError();
+  return wgmma_ss<__nv_bfloat16>(a, b, a_row0, out, stream);
+}
+
+// the same in fp16: the f16 form of the instruction over FLOAT16 maps
+extern "C" int hopper_wgmma_ss_f16(const void* a, const void* b, int a_row0, void* out,
+                                   void* stream) {
+  return wgmma_ss<__half>(a, b, a_row0, out, stream);
 }
 
 // p: [64, 128], v: [128, 128] bf16 contiguous; out: [64, 128] fp32 = p @ v
 extern "C" int hopper_wgmma_rs(const void* p, const void* v, void* out, void* stream) {
-  CUtensorMap map_v;
-  if (!square_map(&map_v, v, 128)) return (int)cudaErrorInvalidValue;
-  constexpr int smem = 2 * HALF + 1024;
-  wgmma_rs_kernel<<<1, 128, smem, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)p, map_v, (float*)out);
-  return (int)cudaGetLastError();
+  return wgmma_rs<__nv_bfloat16>(p, v, out, stream);
+}
+
+// the same in fp16
+extern "C" int hopper_wgmma_rs_f16(const void* p, const void* v, void* out, void* stream) {
+  return wgmma_rs<__half>(p, v, out, stream);
 }
 
 // a: [128, 128], b: [64, 128] bf16 contiguous; out: [64, 64] fp32 =
@@ -371,7 +408,8 @@ extern "C" int hopper_wgmma_rs96(const void* p, const void* v, int rows, void* o
   const int64_t dims[4] = {96, rows, 1, 1};
   const int64_t strides[3] = {96, 96 * (int64_t)rows, 96 * (int64_t)rows};
   CUtensorMap map_v;
-  if ((rows != 64 && rows != 128) || !make_map_bf16_4d(&map_v, v, dims, strides, rows))
+  if ((rows != 64 && rows != 128) ||
+      !make_map_4d(&map_v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, v, dims, strides, rows))
     return (int)cudaErrorInvalidValue;
   const int smem = 2 * rows * 128 + 1024;
   cudaError_t err = cudaFuncSetAttribute(rows == 64 ? wgmma_rs96_kernel<64> : wgmma_rs96_kernel<128>,

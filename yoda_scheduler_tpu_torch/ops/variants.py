@@ -2,7 +2,7 @@
 in turns (A, B, ..., B, A), at the main path's shapes.
 
     python3 -m yoda_scheduler_tpu_torch.ops.variants fwd|bwd [--probe] [--head-dim 64|96] \\
-        [--route mma] A.cu B.cu ...
+        [--dtype float16] [--route mma] A.cu B.cu ...
 
 Each argument is a copy of `csrc/flash_fwd.cu` (fwd) or `csrc/flash_bwd.cu`
 (bwd) with a change (an earlier commit's copy with its own headers beside
@@ -10,7 +10,7 @@ it, too), or "cur" for the package's own, built with the package's nvcc
 flags into `build/variants/`; each build's nvcc seconds are printed. fwd
 launches `attention.flash_fwd` on its automatic route; bwd launches
 `attention.flash_bwd_dq` and `attention.flash_bwd_dkv` on theirs (wgmma at
-head dims 64 and 128; at 96 dK/dV on wgmma and dQ on mma) and first prints
+head dims 64, 96 and 128 in bf16) and first prints
 ptxas's registers and spills of each variant's wgmma kernels with its
 performance notes. `--route mma` launches both kinds on the mma route
 instead. Every launch is checked against the
@@ -23,9 +23,14 @@ the model's [B, S, H, D] views), where both backward kernels run their
 head-dim-64 wgmma kernels (`flash_bwd_dq_wgmma64_kernel`,
 `flash_bwd_dkv_wgmma64_kernel`); `--head-dim 96` those of `SHAPES_96`
 (Phi-3-mini's attention, 32 heads of 96, as its model gives it), where the
-forward and dK/dV run `flash_fwd_wgmma96_kernel` and
-`flash_bwd_dkv_wgmma96_kernel`. Prints the card's name and power limit,
-then one JSON line per shape.
+three kernels run `flash_fwd_wgmma96_kernel`, `flash_bwd_dq_wgmma96_kernel`
+and `flash_bwd_dkv_wgmma96_kernel`. `--dtype float16` takes `SHAPES` in fp16
+at head dim 128 (`fp16_main` first: Llama-2-7B's attention in the dtype of
+its published weights), where the forward runs `flash_fwd_wgmma_f16_kernel`
+and the backward the mma kernels; each launch is held to fp16's bounds, the
+bf16 ones over 8 (a variant without the fp16 wgmma kernel takes `--route
+mma`). Prints the card's name and power limit, then one JSON line per
+shape.
 """
 
 from __future__ import annotations
@@ -69,8 +74,11 @@ SHAPES_96 = [
     ("ragged_d96", 2, 8, 4, 300, 300, True, None),
 ]
 SHAPES_BY_DIM = {128: SHAPES, 64: SHAPES_64, 96: SHAPES_96}
+# fp16 at head dim 128: SHAPES, contiguous
+SHAPES_F16 = [(f"fp16_{name}", *shape) for name, *shape in SHAPES]
 PROBE = ("main", "window_512", "ragged_300", "d1024_bshd", "window_d64", "ragged_d64",
-         "phi3_d96_bshd", "window_d96", "ragged_d96")
+         "phi3_d96_bshd", "window_d96", "ragged_d96", "fp16_main", "fp16_window_512",
+         "fp16_ragged_300")
 # the largest tile_rel_l2 of a bf16 backward output against the plain
 # backward: sound kernels read below 4e-3 on an H100 (they round P and dS
 # where the plain backward does, and differ in the order of fp32 sums); a
@@ -78,6 +86,9 @@ PROBE = ("main", "window_512", "ragged_300", "d1024_bshd", "window_d64", "ragged
 # several times more however small that tile's values are. The forward's O
 # is held to the same bound (a missed or repeated V tile of late rows).
 BWD_TILE_REL_L2 = 1e-2
+# each launch's bounds against the plain version: (elementwise atol and
+# rtol, tile_rel_l2); fp16 rounds one fp16 ulp deep, 8x finer than bf16
+BOUNDS = {torch.bfloat16: (2e-2, BWD_TILE_REL_L2), torch.float16: (2.5e-3, BWD_TILE_REL_L2 / 8)}
 
 
 def tile_rel_l2(got, ref, rows: int = 64) -> float:
@@ -144,50 +155,52 @@ def time_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _randn(gen, d, *shapes):
-    """bf16 normals of `shapes` ([B, H, S, D]): contiguous at head dim 128,
-    at 64 and 96 the model's transposed views of a contiguous [B, S, H, D]."""
+def _randn(gen, d, dtype, *shapes):
+    """Normals of `shapes` ([B, H, S, D]) in `dtype`: contiguous at head dim
+    128, at 64 and 96 the model's transposed views of a contiguous [B, S, H,
+    D]."""
     if d == 128:
-        return [torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)
-                for s in shapes]
-    return [torch.randn((b, s, h, d_), generator=gen, device="cuda").to(torch.bfloat16)
+        return [torch.randn(s, generator=gen, device="cuda").to(dtype) for s in shapes]
+    return [torch.randn((b, s, h, d_), generator=gen, device="cuda").to(dtype)
             .transpose(1, 2) for b, h, s, d_ in shapes]
 
 
-def _fwd_case(gen, d, route, b, h, kvh, sq, sk, causal, window):
+def _fwd_case(gen, d, dtype, route, b, h, kvh, sq, sk, causal, window):
     """-> (check, timed): check() launches once on `route` (None: the
     automatic one) and returns its readings against the plain version with
     "ok"; timed maps a name to a launch."""
-    q, k, v = _randn(gen, d, (b, h, sq, d), (b, kvh, sk, d), (b, kvh, sk, d))
+    q, k, v = _randn(gen, d, dtype, (b, h, sq, d), (b, kvh, sk, d), (b, kvh, sk, d))
     ro, rl = attn.reference_attention_with_lse(q, k, v, causal, window)
+    tol, tile_bound = BOUNDS[dtype]
 
     def check():
         o, lse = attn.flash_fwd(q, k, v, causal, window, route=route)
         tile = tile_rel_l2(o, ro)
         return {"tile_rel_l2": tile, "outputs": (o, lse),
-                "ok": bool(torch.allclose(o.float(), ro.float(), atol=2e-2, rtol=2e-2)
+                "ok": bool(torch.allclose(o.float(), ro.float(), atol=tol, rtol=tol)
                            and torch.allclose(lse, rl, atol=1e-3, rtol=1e-3))
-                and tile <= BWD_TILE_REL_L2}
+                and tile <= tile_bound}
 
     return check, {"ms": lambda: attn.flash_fwd(q, k, v, causal, window, route=route)}
 
 
-def _bwd_case(gen, d, route, b, h, kvh, sq, sk, causal, window):
-    q, k, v, do = _randn(gen, d, (b, h, sq, d), (b, kvh, sk, d), (b, kvh, sk, d),
+def _bwd_case(gen, d, dtype, route, b, h, kvh, sq, sk, causal, window):
+    q, k, v, do = _randn(gen, d, dtype, (b, h, sq, d), (b, kvh, sk, d), (b, kvh, sk, d),
                          (b, h, sq, d))
     o, lse = attn.flash_fwd(q, k, v, causal, window)
     args = (q, k, v, do, lse, attn.backward_delta(o, do).contiguous(), causal, window)
     ref = attn.flash_backward_reference(q, k, v, o, lse, do, causal, window)
+    tol, tile_bound = BOUNDS[dtype]
 
     def check():
         dk, dv = attn.flash_bwd_dkv(*args, route=route)
         got = (attn.flash_bwd_dq(*args, route=route), attn.group_sum(dk, kvh),
                attn.group_sum(dv, kvh))
         tiles = {n: tile_rel_l2(g, r) for n, g, r in zip(("dq", "dk", "dv"), got, ref)}
-        close = all(bool(torch.allclose(g.float(), r.float(), atol=2e-2, rtol=2e-2))
+        close = all(bool(torch.allclose(g.float(), r.float(), atol=tol, rtol=tol))
                     for g, r in zip(got, ref))
         return {"tile_rel_l2": tiles, "allclose": close, "outputs": got,
-                "ok": close and max(tiles.values()) <= BWD_TILE_REL_L2}
+                "ok": close and max(tiles.values()) <= tile_bound}
 
     return check, {"dq_ms": lambda: attn.flash_bwd_dq(*args, route=route),
                    "dkv_ms": lambda: attn.flash_bwd_dkv(*args, route=route)}
@@ -217,13 +230,16 @@ def main(argv: list[str]) -> int:
     kind, argv = (argv[0], argv[1:]) if argv else (None, [])
     probe = argv[:1] == ["--probe"]
     argv = argv[1:] if probe else argv
-    d, route = 128, None
+    d, dtype, route = 128, "bfloat16", None
     if argv[:1] == ["--head-dim"]:
         d, argv = int(argv[1]), argv[2:]
+    if argv[:1] == ["--dtype"]:
+        dtype, argv = argv[1], argv[2:]
     if argv[:1] == ["--route"]:
         route, argv = argv[1], argv[2:]
     variants = argv
     if (kind not in KINDS or d not in SHAPES_BY_DIM or route not in (None, "mma")
+            or dtype not in ("bfloat16", "float16") or (dtype == "float16" and d != 128)
             or not torch.cuda.is_available() or not variants):
         print(__doc__, file=sys.stderr)
         return 1
@@ -242,10 +258,11 @@ def main(argv: list[str]) -> int:
     order = variants if probe else variants + variants[::-1]
     ok_all = True
     try:
-        for name, *shape in SHAPES_BY_DIM[d]:
+        shapes = SHAPES_F16 if dtype == "float16" else SHAPES_BY_DIM[d]
+        for name, *shape in shapes:
             if probe and name not in PROBE:
                 continue
-            check, timed = make_case(gen, d, route, *shape)
+            check, timed = make_case(gen, d, getattr(torch, dtype), route, *shape)
             row, first = {"shape": name}, None
             for var in order:
                 setattr(attn, loader, lambda lib=libs[var]: lib)

@@ -7,7 +7,7 @@ First, before any trace (a process that has run torch.profiler launches
 slower afterwards), it times training steps at Phi-3-mini width (32 layers,
 head dim 96, B=1, S=2048) on the host's clock, 8 steps at a turn in turns
 (wgmma, mma, mma, wgmma): on the routes `_route` picks, and with the
-head-dim-96 forward and dK/dV on the mma route, as before their wgmma
+head-dim-96 forward, dQ and dK/dV on the mma route, as before their wgmma
 kernels; then it traces one such step on each.
 
 Then it traces with torch.profiler, after a warm-up, at Llama-2-7B width one
@@ -192,8 +192,8 @@ def train_window(cfg, label: str, build=build_llama_train_step, batch: int = 1,
 
 @contextlib.contextmanager
 def d96_on_mma():
-    """Within it, head dim 96 takes the mma route for the forward and dK/dV
-    too, as before their wgmma kernels (dQ takes it at 96 anyway)."""
+    """Within it, head dim 96 takes the mma route for all three kernels, as
+    before their wgmma kernels."""
     saved = dict(attention._WGMMA_HEAD_DIMS)
     attention._WGMMA_HEAD_DIMS.update(
         {k: tuple(d for d in dims if d != 96) for k, dims in saved.items()})
