@@ -22,12 +22,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
    SDPA under its default backend (named) and under its flash backend; at
    head dim 96 (cross-length, non-causal, ragged) on the head-dim-96 wgmma
    kernel; in fp16 at head dim 128 (the model's views, GQA 32/8, window,
-   ragged, cross-length) on the fp16 wgmma kernel. Then the head dims and
+   ragged, cross-length) on the fp16 wgmma kernels. Then the head dims and
    dtypes of the padded simt and mma kernels
    (`WIDE_SHAPES`): Phi-3-mini's attention (32 heads of 96, S=2048; GQA 32/8
    and window 512 at 96; wgmma there), 80, Gemma-2B's 8 heads of 256 over
    one, 40 ragged, 100 (unaligned: simt), fp16 at the main shape and the
-   five fp16 rows above (the forward on wgmma) and at d1024_bshd, simt in
+   five fp16 rows above (every kernel on wgmma) and at d1024_bshd, simt in
    fp32 and fp16, and 320 on simt in fp32 and bf16;
    each on every route `_routes` admits, with SDPA's default backend timed
    where its inputs are aligned bf16 or fp16 (a failure of the library's
@@ -35,7 +35,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
 3. backward: the dQ and dK/dV kernels against the plain backward at the
    same shapes (a non-zero LSE cotangent at some), elementwise and by each
    output's worst tile, each kernel on the route `_route` picks for it
-   (in fp16 mma: the fp16 backward has no wgmma kernel), twice with equal
+   (in fp16 at head dim 128 its fp16 wgmma kernel), twice with equal
    bits, with their times, TF/s, the plain backward's time, the bound of
    each, and at the main shape, at d1024_bshd, at phi3_d96_bshd and at
    fp16_main the
@@ -71,8 +71,10 @@ After moe_train, head dim 96 and fp16:
   gradient (4 layers) and train (32 layers, B=1, S=2048), every flash
   launch on the wgmma route.
 - fp16_forward, fp16_gradient: Llama-2-7B in fp16, the dtype of its
-  published weights: as forward and gradient, the forward's launches on
-  the wgmma route and dQ's and dK/dV's on mma (`FP16_ROUTES`).
+  published weights: as forward and gradient, every launch on the wgmma
+  route; fp16_gradient also times the 4-layer loss's forward and backward
+  on the host's clock in turns, all on wgmma against the backward on mma
+  (`profile_path.fp16_backward_on_mma`).
 
 - moe_forward: B=1, S=2048: 16 flash_fwd launches, all on the wgmma route;
   logits and routing against the forward through the plain attention, end
@@ -595,7 +597,8 @@ WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_wgmma96_kernel",
                  "flash_fwd_wgmma64_kernel", "flash_fwd_wgmma_f16_kernel",
                  "flash_bwd_dq_wgmma_kernel", "flash_bwd_dq_wgmma96_kernel",
                  "flash_bwd_dq_wgmma64_kernel", "flash_bwd_dkv_wgmma_kernel",
-                 "flash_bwd_dkv_wgmma96_kernel", "flash_bwd_dkv_wgmma64_kernel")
+                 "flash_bwd_dkv_wgmma96_kernel", "flash_bwd_dkv_wgmma64_kernel",
+                 "flash_bwd_dq_wgmma_f16_kernel", "flash_bwd_dkv_wgmma_f16_kernel")
 
 
 def phase_build(build):
@@ -633,16 +636,11 @@ def phase_build(build):
     return smi
 
 
-# the routes (forward, dQ, dK/dV) in fp16 at head dim 128 with aligned rows:
-# the forward has a wgmma kernel in fp16, dQ and dK/dV run on mma
-FP16_ROUTES = ("wgmma", "mma", "mma")
-
 # (name, b, h, kvh, sq, sk, d, causal, window, dtype, layout, route):
 # layout "bhsd" is contiguous [B, H, S, D]; "bshd" the model's transposed
 # views of a contiguous [B, S, H, D]; "offset1" starts every tensor one
 # element into its storage, off 16-byte alignment. route is the one
-# `_route` must pick for these inputs: one for every kernel, or a (forward,
-# dQ, dK/dV) tuple (`shape_routes`).
+# `_route` must pick for these inputs, for every kernel (`shape_routes`).
 SHAPES = [
     ("main", 1, 32, 32, 2048, 2048, 128, True, None, torch.bfloat16, "bhsd", "wgmma"),
     ("main_bshd", 1, 32, 32, 2048, 2048, 128, True, None, torch.bfloat16, "bshd",
@@ -676,25 +674,25 @@ SHAPES = [
     ("non_causal_d96", 1, 32, 32, 1000, 1000, 96, False, None, torch.bfloat16, "bhsd",
      "wgmma"),
     ("ragged_d96", 2, 8, 4, 300, 300, 96, True, None, torch.bfloat16, "bshd", "wgmma"),
-    # fp16 at head dim 128 (Llama-2-7B in its published weights' dtype): the
-    # forward on its fp16 wgmma kernel, dQ and dK/dV on mma; the model's
+    # fp16 at head dim 128 (Llama-2-7B in its published weights' dtype):
+    # every kernel on its fp16 wgmma kernel; the model's
     # views, GQA 32/8, a window, a ragged sequence and cross-length here,
     # fp16_main among the rows below
     ("fp16_main_bshd", 1, 32, 32, 2048, 2048, 128, True, None, torch.float16, "bshd",
-     FP16_ROUTES),
+     "wgmma"),
     ("fp16_gqa_bshd", 1, 32, 8, 2048, 2048, 128, True, None, torch.float16, "bshd",
-     FP16_ROUTES),
+     "wgmma"),
     ("fp16_window_512", 1, 32, 32, 2048, 2048, 128, True, 512, torch.float16, "bhsd",
-     FP16_ROUTES),
+     "wgmma"),
     ("fp16_ragged_300", 2, 8, 4, 300, 300, 128, True, None, torch.float16, "bhsd",
-     FP16_ROUTES),
+     "wgmma"),
     ("fp16_cross_length", 1, 32, 32, 256, 1024, 128, True, None, torch.float16, "bhsd",
-     FP16_ROUTES),
+     "wgmma"),
     ("main_unaligned", 1, 32, 32, 2048, 2048, 128, True, None, torch.bfloat16,
      "offset1", "simt"),
     # head dims other than 32, 64 and 128, and fp16, on the simt and mma
-    # kernels at their padded widths (at 96 on wgmma, and the fp16 forward
-    # at 128): Phi-3-mini's attention (32 heads of 96, S=2048) as the model
+    # kernels at their padded widths (at 96, and fp16 at 128, on wgmma):
+    # Phi-3-mini's attention (32 heads of 96, S=2048) as the model
     # gives it and contiguous, with GQA 32/8 and a window; 80 (2560 / 32,
     # Phi-2's width); Gemma-2B's 8 query heads of 256 over one KV head; 40
     # on a ragged sequence; 100, whose rows are not 16-byte aligned (simt);
@@ -714,7 +712,7 @@ SHAPES = [
     ("unaligned_d100", 1, 32, 32, 1024, 1024, 100, True, None, torch.bfloat16, "bhsd",
      "simt"),
     ("fp16_main", 1, 32, 32, 2048, 2048, 128, True, None, torch.float16, "bhsd",
-     FP16_ROUTES),
+     "wgmma"),
     ("fp16_d1024_bshd", 8, 16, 16, 2048, 2048, 64, True, None, torch.float16, "bshd",
      "mma"),
     ("fp32_d40", 1, 8, 8, 512, 512, 40, True, None, torch.float32, "bhsd", "simt"),
@@ -725,9 +723,11 @@ SHAPES = [
     ("bf16_d320", 1, 8, 8, 300, 300, 320, True, None, torch.bfloat16, "bshd", "simt"),
 ]
 # timed in turns at TURN_SHAPES: each kernel on those of these routes it
-# takes, and SDPA's default backend after each turn
+# takes, and SDPA's default backend after each turn; the short fp16 rows
+# too, where launches are near their bound's few microseconds
 ROUTE_TURNS = ("mma", "wgmma", "wgmma", "mma")
-TURN_SHAPES = ("main", "d1024_bshd", "phi3_d96_bshd", "fp16_main")
+TURN_SHAPES = ("main", "d1024_bshd", "phi3_d96_bshd", "fp16_main", "fp16_ragged_300",
+               "fp16_cross_length")
 D64_SHAPE = "d1024_bshd"  # the head-dim-64 row of the kernels line
 # the rows at the new head dims and fp16: every route `_routes` admits is
 # held against the plain version there, and SDPA's default backend is timed
@@ -745,12 +745,11 @@ HEAD_DIM_ROWS = ("d80", "phi3_d96_bshd", "gemma_d256", "unaligned_d100", "fp16_m
 REFUSED_HEAD_DIM = 520
 
 
-def shape_routes(route) -> dict:
+def shape_routes(route: str) -> dict:
     """Each kernel's route at a SHAPES row: `route` names one for all three
     kernels (the wgmma route of each takes head dims 64, 96 and 128 in
-    bf16), or a (forward, dQ, dK/dV) tuple one for each (`FP16_ROUTES`)."""
-    routes = (route,) * 3 if isinstance(route, str) else route
-    return dict(zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), routes))
+    bf16, and 128 in fp16)."""
+    return dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), route)
 
 
 def step_routes(route, layers: int) -> dict:
@@ -1295,12 +1294,57 @@ def phase_serving(cfg, params, llama, gen_mod, phase="serving",
          sampled_tokens=sampled[0].shape[1], **extra)
 
 
+# calls a turn of `gradient_turns`
+GRADIENT_TURN_CALLS = 3
+
+
+def gradient_turns(attn, llama, cfg, params, leaves, tokens, sets) -> dict:
+    """The loss's forward and backward through the kernels (remat), timed on
+    the host's clock around a synchronised call, GRADIENT_TURN_CALLS calls a
+    turn, in turns A, B, B, A over the two route sets of `sets` ({name: a
+    context manager factory within which the kernels take that set's
+    routes}, A first): {name: {"ms": each turn's calls, "turn_median_ms",
+    "median_ms": over all its calls, "launches_by_route": one call's}}."""
+    a, b = sets
+    out = {name: {"ms": [], "launches_by_route": None} for name in sets}
+    for name in (a, b, b, a):
+        calls = []
+        with sets[name]():
+            reset_launches(attn)
+            for _ in range(GRADIENT_TURN_CALLS):
+                for t in leaves:
+                    t.grad = None
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                llama.llama_loss(params, tokens, cfg, remat=True).backward()
+                torch.cuda.synchronize()
+                calls.append((time.perf_counter() - t0) * 1e3)
+            per_call = {fn: {r: n // GRADIENT_TURN_CALLS for r, n in routes.items()}
+                        for fn, routes in read_routes(attn).items()}
+        if out[name]["launches_by_route"] not in (None, per_call):
+            raise SystemExit(f"gradient turns: the set {name} launched {per_call}, "
+                             f"then {out[name]['launches_by_route']}")
+        out[name]["launches_by_route"] = per_call
+        out[name]["ms"].append(calls)
+    for t in leaves:
+        t.grad = None
+    for row in out.values():
+        row["turn_median_ms"] = [statistics.median(c) for c in row["ms"]]
+        row["median_ms"] = statistics.median(x for c in row["ms"] for x in c)
+    if out[a]["launches_by_route"] == out[b]["launches_by_route"]:
+        raise SystemExit(f"gradient turns: {a} and {b} launched the same routes")
+    return out
+
+
 def phase_gradient(attn, llama, train, cfg=None, phase="gradient",
-                   config="llama2_7b width, 4 layers", route="wgmma"):
+                   config="llama2_7b width, 4 layers", route="wgmma", turns=None):
     """The loss's gradient at `cfg`'s widths cut to 4 layers (Llama-2-7B by
     default) through the kernels, each kernel's launches on its route of
     `shape_routes(route)`, against the gradient through the plain
-    attention, every leaf."""
+    attention, every leaf. With `turns` ({name: route set}, the routes
+    `_route` picks first: `gradient_turns`) the kernels' forward and
+    backward are also timed in turns against another route set. Returns the
+    kernels' launches by route."""
     cfg = dataclasses.replace(cfg or llama.LlamaConfig.llama2_7b(), n_layers=4)
     free_memory()
     params = llama.init_llama(cfg, seed=0, device="cuda")
@@ -1327,19 +1371,24 @@ def phase_gradient(attn, llama, train, cfg=None, phase="gradient",
                          f"{want}")
     errs = [rel_l2(a, b) for a, b in zip(grads["kernels"], grads["plain"])]
     finite = all(bool(torch.isfinite(g).all()) for g in grads["kernels"])
+    del grads
     names = (["embed"] + [f"layers.{i}.{n}" for i, layer in enumerate(params["layers"])
                           for n in layer] + ["final_norm", "lm_head"])
     worst = max(range(len(errs)), key=errs.__getitem__)
+    timed = (gradient_turns(attn, llama, cfg, params, leaves, tokens, turns)
+             if turns else None)
     emit(phase, config=config, batch=1, seq=2048, head_dim=cfg.head_dim,
          dtype=cfg.dtype, launches=launches, launches_by_route=routes,
          loss_kernels=losses["kernels"],
          loss_plain=losses["plain"], grad_rel_l2_max=errs[worst],
          grad_rel_l2_worst_leaf=names[worst],
-         grad_rel_l2={n: e for n, e in zip(names, errs)}, bound=GRAD_REL_L2)
+         grad_rel_l2={n: e for n, e in zip(names, errs)}, bound=GRAD_REL_L2,
+         fwd_bwd_turns=timed)
     if not finite or errs[worst] > GRAD_REL_L2:
         raise SystemExit(f"{phase}: gradient through the kernels disagrees with the "
                          f"plain attention: rel L2 {errs[worst]} at {names[worst]}")
-    del params, leaves, grads
+    del params, leaves
+    return routes
 
 
 def phase_train(attn, train, moe, cfg, phase="train", config=None, route="wgmma"):
@@ -2918,7 +2967,8 @@ def main() -> int:
     from yoda_scheduler_tpu_torch import bench_generate, bench_mfu, bench_util
     # Mixtral-8x7B's widths from its config.json, in the port's config fields
     # and Phi-3-mini's, from its config.json
-    from yoda_scheduler_tpu_torch.profile_path import mixtral_8x7b, phi3_mini
+    from yoda_scheduler_tpu_torch.profile_path import (fp16_backward_on_mma, mixtral_8x7b,
+                                                       phi3_mini)
 
     gen_mod = importlib.import_module("yoda_scheduler_tpu_torch.models.generate")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2951,9 +3001,8 @@ def main() -> int:
                                            llama.LlamaConfig.llama2_7b())
     moe_step_launches, _ = phase_train(attn, train, moe, mixtral_8x7b(MOE_TRAIN_LAYERS),
                                        phase="moe_train")
-    # head dim 96 (Phi-3-mini's widths: every flash launch on wgmma) and fp16
-    # (Llama-2-7B in the dtype of its published weights: the forward on
-    # wgmma, dQ and dK/dV on mma)
+    # head dim 96 (Phi-3-mini's widths) and fp16 (Llama-2-7B in the dtype of
+    # its published weights): every flash launch on wgmma
     phi3, phi3_name = phi3_mini(), "phi3_mini_4k widths"
     phi3_fwd_routes = phase_forward(attn, llama, phi3, phase="phi3_forward",
                                     config=phi3_name)[3]
@@ -2964,9 +3013,12 @@ def main() -> int:
                                    config=phi3_name)[1]
     fp16 = dataclasses.replace(llama.LlamaConfig.llama2_7b(), dtype="float16")
     fp16_fwd_routes = phase_forward(attn, llama, fp16, phase="fp16_forward",
-                                    config="llama2_7b fp16", route=FP16_ROUTES)[3]
-    phase_gradient(attn, llama, train, fp16, phase="fp16_gradient",
-                   config="llama2_7b fp16 width, 4 layers", route=FP16_ROUTES)
+                                    config="llama2_7b fp16")[3]
+    # timed in turns against the same with dQ and dK/dV on mma
+    fp16_grad_routes = phase_gradient(
+        attn, llama, train, fp16, phase="fp16_gradient",
+        config="llama2_7b fp16 width, 4 layers",
+        turns={"wgmma": contextlib.nullcontext, "backward_on_mma": fp16_backward_on_mma})
     free_memory()
     ring_launches = phase_ring(attn, ring, variants)
     ulysses_launches = phase_ulysses(attn, ulysses, variants)
@@ -3068,6 +3120,7 @@ def main() -> int:
                              "checkpoint_resumed_step": resumed_launches[name],
                              "multihost_step": multihost_launches[name],
                              "phi3_train_step": phi3_step_routes[name],
+                             "fp16_gradient": fp16_grad_routes[name],
                              "tune_attention": tune_routes[name].get("wgmma", 0),
                              **{path: routes[name].get("wgmma", 0)
                                 for path, routes in bench_routes.items()

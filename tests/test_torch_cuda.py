@@ -124,6 +124,7 @@ def _hopper_lib():
     lib.hopper_wgmma_rs96.argtypes = [p, p, i32, p, p]
     lib.hopper_wgmma_ss_f16.argtypes = [p, p, i32, p, p]
     lib.hopper_wgmma_rs_f16.argtypes = [p, p, p, p]
+    lib.hopper_wgmma_ss64_f16.argtypes = [p, p, i32, p, p]
     return lib
 
 
@@ -234,6 +235,21 @@ def test_wgmma_ss64_tile_is_a_matmul(gpu, a_row0):
     torch.testing.assert_close(out, want, atol=1e-3, rtol=1e-4)
 
 
+@pytest.mark.parametrize("a_row0", [0, 64])
+def test_wgmma_ss64_f16_tile_is_a_matmul(gpu, a_row0):
+    """The fp16 form of m64n64k16 SS over FLOAT16 maps, as the fp16 backward
+    kernels' S^T = K Q^T, dP^T = V dO^T, S = Q K^T and dP = dO V^T."""
+    gen = torch.Generator(gpu).manual_seed(13)
+    a = torch.randn(128, 128, generator=gen, device=gpu).to(torch.float16)
+    bm = torch.randn(64, 128, generator=gen, device=gpu).to(torch.float16)
+    out = torch.empty(64, 64, device=gpu)
+    assert _hopper_lib().hopper_wgmma_ss64_f16(a.data_ptr(), bm.data_ptr(), a_row0,
+                                               out.data_ptr(), _stream()) == 0
+    torch.cuda.synchronize()
+    want = a[a_row0:a_row0 + 64].float() @ bm.float().T
+    torch.testing.assert_close(out, want, atol=1e-3, rtol=1e-4)
+
+
 def test_wgmma_rs64_tile_is_a_matmul(gpu):
     """m64n128k16 with A from registers and B a 64-row MN-major tile
     (halves 8 KB apart): flash_bwd.cu's P^T dO, dS^T Q and dS K."""
@@ -300,13 +316,13 @@ def test_wgmma_route_matches_the_mma_route(gpu):
     torch.testing.assert_close(l2, l1, atol=1e-3, rtol=1e-3)
 
 
-def _bwd_inputs(gpu, case, layout, seed=0, d=128):
+def _bwd_inputs(gpu, case, layout, seed=0, d=128, dtype=torch.bfloat16):
     """q, k, v, dO of a WGMMA_SHAPES case (at head dim 128; WGMMA64_SHAPES
-    at 64 and 32, WGMMA96_SHAPES at 96) in `layout`, with the forward's O and
-    LSE, a random LSE cotangent and delta."""
+    at 64 and 32, WGMMA96_SHAPES at 96) in `layout` and `dtype`, with the
+    forward's O and LSE, a random LSE cotangent and delta."""
     shapes = WGMMA_SHAPES if d == 128 else WGMMA96_SHAPES if d == 96 else WGMMA64_SHAPES
     (b, h, kvh, sq, sk), causal, window = shapes[case]
-    q, k, v = _qkv(gpu, torch.bfloat16, b, h, kvh, sq, sk, d, seed=seed)
+    q, k, v = _qkv(gpu, dtype, b, h, kvh, sq, sk, d, seed=seed)
     rng = np.random.default_rng(seed + 1)
     do = torch.from_numpy(rng.standard_normal(q.shape, dtype=np.float32)).to(gpu, q.dtype)
     g_lse = torch.from_numpy(rng.standard_normal(q.shape[:3], dtype=np.float32)).to(gpu)
@@ -573,20 +589,67 @@ def test_wgmma_f16_route_matches_the_mma_route(gpu):
     assert tile_rel_l2(o2, o1) <= chip_smoke.TILE_REL_L2_FP16
 
 
+# the fp16 wgmma backward (flash_bwd_dq_wgmma_f16_kernel,
+# flash_bwd_dkv_wgmma_f16_kernel, head dim 128) at the smoke's five fp16 edge
+# rows (the main shape, GQA 32/8, window 512, ragged 300, cross length
+# 256/1024), in both layouts, held to fp16's bounds
+F16_BWD_CASES = ["s2048", "gqa_32_8_s2048", "window_512", "ragged_300", "cross_256x1024"]
+
+
+@pytest.mark.parametrize("case", F16_BWD_CASES)
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+def test_wgmma_f16_backward_matches_the_plain_backward(gpu, case, layout):
+    args, (o, g_lse) = _bwd_inputs(gpu, case, layout, dtype=torch.float16)
+    q, k, v, do, lse, _, causal, window = args
+    fns = (attn.flash_bwd_dq, attn.flash_bwd_dkv)
+    assert [attn._route(fn.__name__, q, k, v, do) for fn in fns] == ["wgmma", "wgmma"]
+    before = [fn.launches_by_route["wgmma"] for fn in fns]
+    got = _bwd_kernels(args, None)
+    torch.cuda.synchronize()
+    assert [fn.launches_by_route["wgmma"] for fn in fns] == [n + 1 for n in before]
+    want = attn.flash_backward_reference(q, k, v, o, lse, do, causal, window, g_lse)
+    tol = TOL[torch.float16]
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == torch.float16 and g.shape == w.shape
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
+        assert tile_rel_l2(g, w) <= chip_smoke.TILE_REL_L2_FP16
+
+
+@pytest.mark.parametrize("case", F16_BWD_CASES)
+def test_wgmma_f16_backward_matches_the_mma_route(gpu, case):
+    args, _ = _bwd_inputs(gpu, case, "bhsd", seed=2, dtype=torch.float16)
+    tol = TOL[torch.float16]
+    for g, w in zip(_bwd_kernels(args, "wgmma"), _bwd_kernels(args, "mma")):
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
+        assert tile_rel_l2(g, w) <= chip_smoke.TILE_REL_L2_FP16
+
+
+@pytest.mark.parametrize("case", ["ragged_300", "window_512", "gqa_32_8_s2048"])
+def test_wgmma_f16_backward_is_bit_repeatable(gpu, case):
+    args, _ = _bwd_inputs(gpu, case, "bshd", dtype=torch.float16)
+    runs = [_bwd_kernels(args, "wgmma") for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
 @pytest.mark.parametrize("d", [64, 96])
-def test_wgmma_refuses_fp16_but_the_forward_at_head_dim_128(gpu, d):
-    """fp16 has a wgmma forward at head dim 128 alone: named at 64 and 96,
-    the forward's route raises, and at 128 the backward's, with no launch."""
-    q, k, v = _qkv(gpu, torch.float16, 1, 4, 4, 128, 128, d)
+def test_wgmma_takes_fp16_at_head_dim_128_alone(gpu, d):
+    """In fp16 all three kernels have a wgmma kernel at head dim 128 alone:
+    named at 64 and 96, each one's wgmma route raises with no launch, and at
+    128 each launches on it."""
+    q = _qkv(gpu, torch.float16, 1, 4, 4, 128, 128, d)[0]
     q128 = _qkv(gpu, torch.float16, 1, 4, 4, 128, 128, 128)[0]
     lse = torch.zeros(q.shape[:3], device=gpu)
-    calls = [(attn.flash_fwd, (q, k, v)), (attn.flash_bwd_dq, (q128,) * 4 + (lse, lse)),
-             (attn.flash_bwd_dkv, (q128,) * 4 + (lse, lse))]
-    for fn, args in calls:
+    for fn in (attn.flash_fwd, attn.flash_bwd_dq, attn.flash_bwd_dkv):
+        args = (q,) * 3 if fn is attn.flash_fwd else (q,) * 4 + (lse, lse)
         before = (fn.launches, dict(fn.launches_by_route))
         with pytest.raises(ValueError, match=f"{fn.__name__} route 'wgmma' cannot take"):
             fn(*args, route="wgmma")
         assert (fn.launches, fn.launches_by_route) == before
+        args = (q128,) * 3 if fn is attn.flash_fwd else (q128,) * 4 + (lse, lse)
+        fn(*args, route="wgmma")
+        torch.cuda.synchronize()
+        assert fn.launches_by_route["wgmma"] == before[1]["wgmma"] + 1
 
 
 def test_wgmma_refuses_dq_at_head_dim_32(gpu):
@@ -618,10 +681,10 @@ def test_kernel_refuses_what_it_does_not_take(gpu, dtype, d):
 
 
 # head dims other than 32, 64 and 128, and fp16: the simt and mma kernels at
-# their padded widths (at 96 and the fp16 forward at 128 on wgmma). (dtype, d, (b,
-# h, kvh, sq, sk), causal, window, layout, the route `_route` picks: one for
-# every kernel, or chip_smoke's (forward, dQ, dK/dV)); "offset1" starts each
-# tensor one element into its storage, off 16-byte alignment
+# their padded widths (at 96, and fp16 at 128, on wgmma). (dtype, d, (b,
+# h, kvh, sq, sk), causal, window, layout, the route `_route` picks for
+# every kernel); "offset1" starts each tensor one element into its storage,
+# off 16-byte alignment
 WIDE_CASES = {
     "bf16_d96_bshd": (torch.bfloat16, 96, (1, 8, 8, 512, 512), True, None, "bshd",
                       "wgmma"),
@@ -635,8 +698,7 @@ WIDE_CASES = {
                            "mma"),
     "bf16_d100": (torch.bfloat16, 100, (1, 4, 4, 256, 256), True, None, "bhsd", "simt"),
     "bf16_d1": (torch.bfloat16, 1, (1, 2, 2, 100, 100), True, None, "bhsd", "simt"),
-    "fp16_d128": (torch.float16, 128, (1, 8, 8, 512, 512), True, None, "bhsd",
-                  chip_smoke.FP16_ROUTES),
+    "fp16_d128": (torch.float16, 128, (1, 8, 8, 512, 512), True, None, "bhsd", "wgmma"),
     "fp16_d64_bshd": (torch.float16, 64, (2, 8, 8, 256, 256), True, None, "bshd", "mma"),
     "fp16_d200_window": (torch.float16, 200, (1, 4, 2, 300, 300), True, 50, "bhsd", "mma"),
     "fp16_d72_offset": (torch.float16, 72, (1, 4, 4, 200, 200), True, None, "offset1",

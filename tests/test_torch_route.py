@@ -38,7 +38,7 @@ CASES = {
                           _bhsd(1, 4, 0, 128)], "mma"),
     # head dims past wgmma's and fp16: mma takes aligned rows whose head dim
     # is a multiple of 8 up to 256, simt the rest; wgmma takes bf16 at 64,
-    # 96 (Phi-3-mini's) and 128, and fp16 at 128 (the forward alone)
+    # 96 (Phi-3-mini's) and 128, and fp16 at 128
     "bf16_d96": (lambda: [_bhsd(1, 4, 64, 96)] * 3, "wgmma"),
     "bf16_d80": (lambda: [_bhsd(1, 4, 64, 80)] * 3, "mma"),
     "bf16_d256_gqa": (lambda: [_bhsd(1, 8, 64, 256)] + [_bhsd(1, 1, 64, 256)] * 2,
@@ -67,11 +67,11 @@ def test_route_follows_the_inputs(case):
 
 
 # the head dims each kernel has a wgmma kernel for (csrc/), by dtype: every
-# kernel at 64, 96 and 128 in bf16; the forward alone at 128 in fp16
+# kernel at 64, 96 and 128 in bf16, and at 128 in fp16
 WGMMA_TAKES = {torch.bfloat16: {"flash_fwd": (64, 96, 128), "flash_bwd_dq": (64, 96, 128),
                                 "flash_bwd_dkv": (64, 96, 128)},
-               torch.float16: {"flash_fwd": (128,), "flash_bwd_dq": (),
-                               "flash_bwd_dkv": ()}}
+               torch.float16: {"flash_fwd": (128,), "flash_bwd_dq": (128,),
+                               "flash_bwd_dkv": (128,)}}
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 HEAD_DIMS = (32, 64, 128, 40, 80, 96, 256)
 
@@ -95,10 +95,10 @@ def test_wgmma_admits_each_kernels_head_dims(kernel, d, wgmma):
 @pytest.mark.parametrize("kernel,d,wgmma", [
     (kernel, d, d in WGMMA_TAKES[torch.float16][kernel])
     for kernel in KERNELS for d in HEAD_DIMS])
-def test_wgmma_admits_fp16_at_head_dim_128_for_the_forward_alone(kernel, d, wgmma):
-    """In fp16 wgmma takes the forward at head dim 128 alone: dQ and dK/dV
-    stay on mma there, and every other aligned fp16 head dim keeps mma for
-    all three kernels, up to 256."""
+def test_wgmma_admits_fp16_at_head_dim_128_alone(kernel, d, wgmma):
+    """In fp16 wgmma takes head dim 128 alone, for the forward, dQ and
+    dK/dV alike; every other aligned fp16 head dim keeps mma for all three
+    kernels, up to 256."""
     _assert_wgmma_admits(kernel, d, torch.float16, wgmma)
 
 
@@ -185,10 +185,11 @@ BWD_CASES = {
     "bf16_d96": (lambda: [_bhsd(1, 4, 64, 96)] * 4, "wgmma"),
     "bf16_d96_model_views": (lambda: [_model_view(1, 64, 4, 96)] * 4, "wgmma"),
     "bf16_d80": (lambda: [_bhsd(1, 4, 64, 80)] * 4, "mma"),
-    "fp16_d128": (lambda: [_bhsd(1, 4, 64, 128, torch.float16)] * 4, "mma"),
+    "fp16_d128": (lambda: [_bhsd(1, 4, 64, 128, torch.float16)] * 4, "wgmma"),
     "fp16_d128_model_views": (lambda: [_model_view(1, 64, 4, 128, torch.float16)] * 4,
-                              "mma"),
+                              "wgmma"),
     "fp16_d96": (lambda: [_bhsd(1, 4, 64, 96, torch.float16)] * 4, "mma"),
+    "fp16_d64": (lambda: [_model_view(1, 64, 4, 64, torch.float16)] * 4, "mma"),
     "bf16_d100": (lambda: [_bhsd(1, 4, 64, 100)] * 4, "simt"),
     "fp16_do_offset_by_one": (lambda: [_bhsd(1, 4, 64, 128, torch.float16)] * 3
                               + [_bhsd(1, 4, 64, 128, torch.float16, offset=1)], "simt"),
@@ -214,14 +215,13 @@ def test_backward_route_follows_the_inputs(case):
         assert "simt" in attn._routes(kernel, q, k, v, do)
 
 
-# (case, route) both backward kernels must refuse (fp16 has no wgmma
-# backward kernel, at head dim 128 either)
+# (case, route) both backward kernels must refuse (fp16 has a wgmma backward
+# kernel at head dim 128 alone, for aligned rows)
 BWD_REFUSALS = [("fp32_d128", "wgmma"), ("fp32_d128", "mma"), ("bf16_d32", "wgmma"),
                 ("do_offset_by_one", "mma"), ("do_odd_seq_stride", "wgmma"),
                 ("empty_kv", "wgmma"), ("bf16_d128", "tma"), ("bf16_d80", "wgmma"),
-                ("fp16_d128", "wgmma"), ("fp16_d128_model_views", "wgmma"),
-                ("fp16_d96", "wgmma"), ("bf16_d100", "mma"),
-                ("fp16_do_offset_by_one", "mma")]
+                ("fp16_d64", "wgmma"), ("fp16_d96", "wgmma"), ("bf16_d100", "mma"),
+                ("fp16_do_offset_by_one", "mma"), ("fp16_do_offset_by_one", "wgmma")]
 
 
 @pytest.mark.parametrize("fn,case,route", [
@@ -313,31 +313,29 @@ def test_the_models_backward_at_head_dim_96(monkeypatch):
         ("flash_bwd_dkv", "wgmma")]
 
 
-def test_the_fp16_models_forward_lands_on_wgmma_and_its_backward_on_mma(monkeypatch):
+def test_the_fp16_models_backward_lands_on_wgmma(monkeypatch):
     """As above in fp16 at head_dim 128 (Llama-2-7B in its published
-    weights' dtype): the forward takes its fp16 wgmma kernel, dQ and dK/dV
-    take mma, with the cotangent that `_FlashFwd.backward` scales in fp16."""
+    weights' dtype): the forward, dQ and dK/dV take their fp16 wgmma
+    kernels, the backward with the cotangent that `_FlashFwd.backward`
+    scales in fp16."""
     cfg = _one_layer(256, "float16")
     assert cfg.head_dim == 128
     assert _a_models_launch_routes(monkeypatch, cfg) == [
-        ("flash_fwd", "wgmma"), ("flash_fwd", "wgmma"), ("flash_bwd_dq", "mma"),
-        ("flash_bwd_dkv", "mma")]
+        ("flash_fwd", "wgmma"), ("flash_fwd", "wgmma"), ("flash_bwd_dq", "wgmma"),
+        ("flash_bwd_dkv", "wgmma")]
 
 
 @pytest.mark.parametrize("d,route", [(64, "wgmma"), (128, "wgmma"), (32, "mma"),
-                                     (96, ("wgmma", "wgmma", "wgmma"))])
+                                     (96, "wgmma")])
 def test_the_smokes_routes_are_the_routes_picks(d, route):
     """chip_smoke's one expectation of the routes at a SHAPES row
     (`shape_routes`) against `_route` on the model's views at head dim `d`:
-    at 64, 96 and 128 every kernel on wgmma, dQ's among them (at 96 also
-    as a per-kernel tuple); at 32, which no wgmma kernel takes, every kernel
-    on mma."""
+    at 64, 96 and 128 every kernel on wgmma, dQ's among them; at 32, which
+    no wgmma kernel takes, every kernel on mma."""
     import chip_smoke
 
     want = chip_smoke.shape_routes(route)
-    kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-    assert want == (dict.fromkeys(kernels, route) if isinstance(route, str)
-                    else dict(zip(kernels, route)))
+    assert want == dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), route)
     q, k, v, do = [_model_view(2, 64, 4, d)] * 4
     assert attn._route("flash_fwd", q, k, v) == want["flash_fwd"]
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
@@ -362,13 +360,13 @@ def test_bench_mfu_train_expects_no_mma_launch():
 
 
 def test_the_smokes_fp16_routes_are_the_routes_picks():
-    """chip_smoke's fp16 expectation (`FP16_ROUTES`: the forward on wgmma,
-    dQ and dK/dV on mma) against `_route` on the model's fp16 views at head
-    dim 128, and every fp16 row of its SHAPES at 128 naming it."""
+    """chip_smoke's fp16 expectation (the forward, dQ and dK/dV on wgmma)
+    against `_route` on the model's fp16 views at head dim 128, and every
+    fp16 row of its SHAPES at 128 naming it."""
     import chip_smoke
 
-    want = chip_smoke.shape_routes(chip_smoke.FP16_ROUTES)
-    assert want == {"flash_fwd": "wgmma", "flash_bwd_dq": "mma", "flash_bwd_dkv": "mma"}
+    want = chip_smoke.shape_routes("wgmma")
+    assert want == {"flash_fwd": "wgmma", "flash_bwd_dq": "wgmma", "flash_bwd_dkv": "wgmma"}
     q, k, v, do = [_model_view(2, 64, 4, 128, torch.float16)] * 4
     assert attn._route("flash_fwd", q, k, v) == want["flash_fwd"]
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
@@ -377,7 +375,7 @@ def test_the_smokes_fp16_routes_are_the_routes_picks():
     assert {row[0] for row in rows} == {
         "fp16_main", "fp16_main_bshd", "fp16_gqa_bshd", "fp16_window_512",
         "fp16_ragged_300", "fp16_cross_length"}
-    assert all(row[-1] == chip_smoke.FP16_ROUTES for row in rows)
+    assert all(row[-1] == "wgmma" for row in rows)
     assert "fp16_main" in chip_smoke.TURN_SHAPES
 
 
@@ -420,15 +418,16 @@ def test_phi3_train_expects_every_launch_on_wgmma():
 
 def test_fp16_gradient_expects_the_forward_on_wgmma():
     """chip_smoke's expected launches of the 4-layer fp16 gradient at
-    Llama-2-7B width: 8 forward launches on wgmma, 4 of dQ and of dK/dV on
-    mma, as `_route` picks them on the model's fp16 views at head dim 128."""
+    Llama-2-7B width: 8 forward launches on wgmma, and 4 of dQ and of dK/dV
+    on wgmma too, as `_route` picks them on the model's fp16 views at head
+    dim 128."""
     import chip_smoke
     from yoda_scheduler_tpu_torch.models import LlamaConfig as Cfg
 
     cfg = Cfg.llama2_7b()
-    want = chip_smoke.step_routes(chip_smoke.FP16_ROUTES, 4)
-    assert want == {"flash_fwd": {"wgmma": 8}, "flash_bwd_dq": {"mma": 4},
-                    "flash_bwd_dkv": {"mma": 4}}
+    want = chip_smoke.step_routes("wgmma", 4)
+    assert want == {"flash_fwd": {"wgmma": 8}, "flash_bwd_dq": {"wgmma": 4},
+                    "flash_bwd_dkv": {"wgmma": 4}}
     q, k, v, do = [_model_view(1, 64, cfg.n_heads, cfg.head_dim, torch.float16)] * 4
     assert {attn._route("flash_fwd", q, k, v)} == set(want["flash_fwd"])
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
@@ -460,8 +459,7 @@ def _wide_rows():
 def test_the_smokes_wide_rows_take_their_routes(row):
     """Each row chip_smoke adds at the new head dims and in fp16 names the
     route `_route` picks for each kernel there: wgmma only at head dim 96
-    in bf16, for every kernel, and in fp16 at 128 aligned, for the forward
-    alone."""
+    in bf16 and in fp16 at 128 aligned, for every kernel."""
     import chip_smoke
 
     q, k, v, do = _smoke_row_tensors(row)
@@ -472,8 +470,8 @@ def test_the_smokes_wide_rows_take_their_routes(row):
     d96 = row[6] == 96 and row[9] == torch.bfloat16
     fp16_128 = row[6] == 128 and row[9] == torch.float16 and row[10] != "offset1"
     assert ("wgmma" in attn._routes("flash_fwd", q, k, v)) == (d96 or fp16_128)
-    assert ("wgmma" in attn._routes("flash_bwd_dkv", q, k, v, do)) == d96
-    assert ("wgmma" in attn._routes("flash_bwd_dq", q, k, v, do)) == d96
+    assert ("wgmma" in attn._routes("flash_bwd_dkv", q, k, v, do)) == (d96 or fp16_128)
+    assert ("wgmma" in attn._routes("flash_bwd_dq", q, k, v, do)) == (d96 or fp16_128)
     assert row[6] <= attn.KERNEL_MAX_HEAD_DIM
 
 
@@ -510,3 +508,24 @@ def test_d96_on_mma_puts_every_kernel_on_mma_and_restores():
     assert attn._route("flash_fwd", q, k, v) == "wgmma"
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         assert attn._route(name, q, k, v, do) == "wgmma"
+
+
+def test_fp16_backward_on_mma_moves_the_backward_alone_and_restores():
+    """`profile_path.fp16_backward_on_mma`, the route set the fp16 gradient
+    is timed against: within it fp16 at head dim 128 takes mma for dQ and
+    dK/dV while the forward keeps wgmma, and bf16 keeps wgmma for every
+    kernel; after it `_WGMMA_HEAD_DIMS` is exactly what it was, and the
+    fp16 backward takes wgmma again."""
+    from yoda_scheduler_tpu_torch.profile_path import fp16_backward_on_mma
+
+    saved = {key: dims for key, dims in attn._WGMMA_HEAD_DIMS.items()}
+    h = [_model_view(1, 64, 4, 128, torch.float16)] * 4
+    b = [_model_view(1, 64, 4, 128)] * 4
+    with fp16_backward_on_mma():
+        assert attn._route("flash_fwd", *h[:3]) == "wgmma"
+        for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+            assert attn._route(name, *h) == "mma"
+            assert attn._route(name, *b) == "wgmma"
+    assert attn._WGMMA_HEAD_DIMS == saved
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert attn._route(name, *h) == "wgmma"

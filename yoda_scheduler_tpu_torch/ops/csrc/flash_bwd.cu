@@ -31,9 +31,12 @@
 //   kernel. Below; flash_bwd_dq_wgmma96_kernel and
 //   flash_bwd_dkv_wgmma96_kernel are route 2 at D = 96 (Phi-3-mini's
 //   attention), the D = 128 kernels' bodies at the true width;
-//   flash_bwd_dkv_wgmma64_kernel and flash_bwd_dq_wgmma64_kernel are route 2
-//   at D = 64 (bench_mfu's d1024 widths), each with its own note. Route 2
-//   refuses every other D, and fp16 (it runs on mma).
+//   flash_bwd_dq_wgmma_f16_kernel and flash_bwd_dkv_wgmma_f16_kernel are
+//   route 2 in fp16 at D = 128 (Llama-2's published dtype), the D = 128
+//   kernels' bodies on fp16 operands; flash_bwd_dkv_wgmma64_kernel and
+//   flash_bwd_dq_wgmma64_kernel are route 2 at D = 64 (bench_mfu's d1024
+//   widths), each with its own note. Route 2 refuses every other D, and fp16
+//   at any D but 128 (it runs on mma).
 // - *_mma kernels (route 1; aligned bf16 and fp16, D a multiple of 8 up to
 //   256; they take bf16 at D = 64 and 128 too, to be held against the wgmma
 //   kernels): 4 warps each own 16 rows of a 64-row tile and run all products
@@ -65,11 +68,11 @@
 // score products together (SS wgmma m64n64k16, both operands K-major), waits,
 // forms P and dS in registers (exp2 of log2e-scaled scores with
 // ex2.approx.ftz, as the forward; the mask only on diagonal, window-edge and
-// ragged tiles), rounds them to bf16 as the A operands of the RS form (the
-// accumulator's columns 16 s .. 16 s + 15 are A's k-step s), and adds the
-// products into its fp32 sums with RS wgmma m64n128k16 (m64n96k16 at D =
-// 96), the streamed tile an MN-major B operand (head_dim contiguous; halves
-// 8 KB apart). The two steps
+// ragged tiles), rounds them to the input type as the A operands of the RS
+// form (the accumulator's columns 16 s .. 16 s + 15 are A's k-step s), and
+// adds the products into its fp32 sums with RS wgmma m64n128k16 (m64n96k16 at
+// D = 96), the streamed tile an MN-major B operand (head_dim contiguous;
+// halves 8 KB apart). The two steps
 // are kept apart in time, as the forward's basic order, so the sums, the
 // scores and the operands fit the consumers' 240 registers without spills.
 // - flash_bwd_dkv_wgmma_kernel: a block is one (b, q head) and 128 keys;
@@ -746,8 +749,8 @@ constexpr int WG_THREADS = 128;
 constexpr int W_STAGES = 2;
 constexpr int W_HALF64 = 64 * 128;     // bytes of one 64-column half of a 64-row tile
 constexpr int W_HALF128 = 128 * 128;   // ... of a 128-row tile
-constexpr int W_T64 = 2 * W_HALF64;    // a 64 x 128 bf16 tile
-constexpr int W_T128 = 2 * W_HALF128;  // a 128 x 128 bf16 tile
+constexpr int W_T64 = 2 * W_HALF64;    // a 64 x 128 tile of bf16 or fp16
+constexpr int W_T128 = 2 * W_HALF128;  // a 128 x 128 tile of bf16 or fp16
 
 // dK/dV: K, V (128 keys), then per stage Q and dO (64 rows), then per stage
 // LSE (in log2 units) and delta (64 fp32 each), then the barriers
@@ -768,30 +771,35 @@ __device__ __forceinline__ uint64_t kstep(int kk, int half) {
   return (uint64_t)(((kk / 4) * half + (kk % 4) * 32) >> 4);
 }
 
-// an m64n64 accumulator rounded to bf16 as the RS form's A operand: k-step s
-// is columns 16 s .. 16 s + 15
+// an m64n64 accumulator rounded to T (bf16 or fp16) as the RS form's A
+// operand: k-step s is columns 16 s .. 16 s + 15
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void to_a_operand(const float (&d)[32], uint32_t (&a)[4][4]) {
 #pragma unroll
   for (int s = 0; s < 4; ++s)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a[s][i] = pack_bf16(d[8 * s + 2 * i], d[8 * s + 2 * i + 1]);
+    for (int i = 0; i < 4; ++i) a[s][i] = pack_t<T>(d[8 * s + 2 * i], d[8 * s + 2 * i + 1]);
 }
 
-// The body of flash_bwd_dkv_wgmma_kernel (D = 128) and
-// flash_bwd_dkv_wgmma96_kernel (D = 96). At D = 96 the tiles keep D = 128's
+// The body of flash_bwd_dkv_wgmma_kernel (bf16, D = 128),
+// flash_bwd_dkv_wgmma96_kernel (bf16, D = 96) and
+// flash_bwd_dkv_wgmma_f16_kernel (fp16, D = 128). fp16 differs from bf16 only
+// in names, as in flash_fwd.cu's fwd_wgmma_body: the wgmma instructions (.f16
+// for .bf16), the tensor maps' data type, and the roundings of P^T and dS^T
+// (the A operands) and of dK and dV; tiles, swizzle, ring and grid are the
+// same. At D = 96 the tiles keep D = 128's
 // shared-memory layout, the second box of each row zero-filled by TMA past
 // column 96 (every expect_tx counts whole boxes); S^T and dP^T run 6 k-steps
 // (the last two in the second half), dV and dK are m64n96k16 sums (48 + 48
 // fp32 a thread, not 64 + 64), and the epilogue stores the 96 columns alone.
 // At Phi-3-mini's attention (B=1, H=32, S=2048, D=96, causal) dK/dV does
 // ~51.6 GFLOP against ~76 MB, bound by operations (~52 us at 989 TF/s).
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void dkv_wgmma_body(
     const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
     const CUtensorMap* tm_do, const float* __restrict__ lse,
-    const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
-    __nv_bfloat16* __restrict__ dv, int H, int KvH, int Sq, int Sk, int causal,
-    int window, float scale) {
+    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int H,
+    int KvH, int Sq, int Sk, int causal, int window, float scale) {
   using namespace hopper;
   constexpr int KSTEPS = D / 16;  // k-steps of S^T and dP^T
   extern __shared__ unsigned char smem_raw[];
@@ -898,18 +906,18 @@ __device__ __forceinline__ void dkv_wgmma_body(
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < KSTEPS; ++kk)
-        wgmma_m64n64k16_ss<0, 0>(sc, da_k + kstep(kk, W_HALF128), db_q + kstep(kk, W_HALF64),
-                                 kk > 0);
+        wgmma_m64n64k16_ss<0, 0, T>(sc, da_k + kstep(kk, W_HALF128),
+                                    db_q + kstep(kk, W_HALF64), kk > 0);
 #pragma unroll
       for (int kk = 0; kk < KSTEPS; ++kk)
-        wgmma_m64n64k16_ss<0, 0>(dp, da_v + kstep(kk, W_HALF128), db_o + kstep(kk, W_HALF64),
-                                 kk > 0);
+        wgmma_m64n64k16_ss<0, 0, T>(dp, da_v + kstep(kk, W_HALF128),
+                                    db_o + kstep(kk, W_HALF64), kk > 0);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sc);
       fence_regs(dp);
 
-      // P^T and dS^T / scale, rounded to bf16 as the A operands k-step by
+      // P^T and dS^T / scale, rounded to T as the A operands k-step by
       // k-step (16 q rows), so that each step's fp32 values die at once;
       // element 4 j + e is key key0 + 8 (e / 2), q row q0 + 8 j + 2 t4 +
       // (e % 2)
@@ -935,8 +943,8 @@ __device__ __forceinline__ void dkv_wgmma_body(
         }
       }
       uint32_t pa[4][4], sa[4][4];
-      to_a_operand(sc, pa);
-      to_a_operand(dp, sa);
+      to_a_operand<T>(sc, pa);
+      to_a_operand<T>(dp, sa);
 
       // dV += P^T dO and dK += dS^T Q: dO and Q are MN-major B operands
       // (head_dim contiguous), halves 8 KB apart, a k-step of 16 q rows
@@ -948,10 +956,10 @@ __device__ __forceinline__ void dkv_wgmma_body(
       wgmma_fence();
 #pragma unroll
       for (int k4 = 0; k4 < 4; ++k4)
-        wgmma_rs<D, 1>(gv, pa[k4], db_o_mn + ((k4 * 2048) >> 4), 1);
+        wgmma_rs<D, 1, T>(gv, pa[k4], db_o_mn + ((k4 * 2048) >> 4), 1);
 #pragma unroll
       for (int k4 = 0; k4 < 4; ++k4)
-        wgmma_rs<D, 1>(gk, sa[k4], db_q_mn + ((k4 * 2048) >> 4), 1);
+        wgmma_rs<D, 1, T>(gk, sa[k4], db_q_mn + ((k4 * 2048) >> 4), 1);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(gv);
@@ -959,7 +967,7 @@ __device__ __forceinline__ void dkv_wgmma_body(
       mbar_arrive(&empty[s]);
     }
 
-    // dK scale and dV in bf16, one copy per q head; gk[4 j + e] is key key0
+    // dK scale and dV in T, one copy per q head; gk[4 j + e] is key key0
     // + 8 (e / 2), head dim 8 j + 2 t4 + (e % 2)
     if (w_live) {
 #pragma unroll
@@ -970,9 +978,9 @@ __device__ __forceinline__ void dkv_wgmma_body(
 #pragma unroll
         for (int j = 0; j < D / 8; ++j) {
           *reinterpret_cast<uint32_t*>(dk + base + 8 * j) =
-              pack_bf16(gk[4 * j + 2 * r] * scale, gk[4 * j + 2 * r + 1] * scale);
+              pack_t<T>(gk[4 * j + 2 * r] * scale, gk[4 * j + 2 * r + 1] * scale);
           *reinterpret_cast<uint32_t*>(dv + base + 8 * j) =
-              pack_bf16(gv[4 * j + 2 * r], gv[4 * j + 2 * r + 1]);
+              pack_t<T>(gv[4 * j + 2 * r], gv[4 * j + 2 * r + 1]);
         }
       }
     }
@@ -985,8 +993,8 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma_kernel(
     const float* __restrict__ lse, const float* __restrict__ delta,
     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
     int H, int KvH, int Sq, int Sk, int causal, int window, float scale) {
-  dkv_wgmma_body<128>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dk, dv, H, KvH, Sq, Sk,
-                      causal, window, scale);
+  dkv_wgmma_body<__nv_bfloat16, 128>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dk, dv, H,
+                                     KvH, Sq, Sk, causal, window, scale);
 }
 
 __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma96_kernel(
@@ -995,8 +1003,18 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma96_kerne
     const float* __restrict__ lse, const float* __restrict__ delta,
     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
     int H, int KvH, int Sq, int Sk, int causal, int window, float scale) {
-  dkv_wgmma_body<96>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dk, dv, H, KvH, Sq, Sk,
-                     causal, window, scale);
+  dkv_wgmma_body<__nv_bfloat16, 96>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dk, dv, H,
+                                    KvH, Sq, Sk, causal, window, scale);
+}
+
+__global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma_f16_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    __half* __restrict__ dk, __half* __restrict__ dv,
+    int H, int KvH, int Sq, int Sk, int causal, int window, float scale) {
+  dkv_wgmma_body<__half, 128>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dk, dv, H, KvH, Sq,
+                              Sk, causal, window, scale);
 }
 
 // ---- the dK/dV wgmma kernel at head dim 64
@@ -1218,8 +1236,9 @@ __global__ void __launch_bounds__((K64_CONS + 1) * WG_THREADS, 1) flash_bwd_dkv_
   }
 }
 
-// The body of flash_bwd_dq_wgmma_kernel (D = 128) and
-// flash_bwd_dq_wgmma96_kernel (D = 96), as dkv_wgmma_body: at D = 96 the
+// The body of flash_bwd_dq_wgmma_kernel (bf16, D = 128),
+// flash_bwd_dq_wgmma96_kernel (bf16, D = 96) and flash_bwd_dq_wgmma_f16_kernel
+// (fp16, D = 128), as dkv_wgmma_body (in fp16 dS and dQ round to fp16): at D = 96 the
 // tiles keep D = 128's shared-memory layout and grid, the second box of each
 // row zero-filled by TMA past column 96 (every expect_tx counts whole
 // boxes); S and dP run 6 k-steps (the last two in the second half), dQ is an
@@ -1227,11 +1246,11 @@ __global__ void __launch_bounds__((K64_CONS + 1) * WG_THREADS, 1) flash_bwd_dkv_
 // the epilogue stores the 96 columns alone. At Phi-3-mini's attention (B=1,
 // H=32, S=2048, D=96, causal) dQ does ~38.7 GFLOP against ~63 MB, bound by
 // operations (~39 us at 989 TF/s).
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void dq_wgmma_body(
     const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
     const CUtensorMap* tm_do, const float* __restrict__ lse,
-    const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int H, int KvH,
+    const float* __restrict__ delta, T* __restrict__ dq, int H, int KvH,
     int Sq, int Sk, int causal, int window, float scale) {
   using namespace hopper;
   constexpr int KSTEPS = D / 16;  // k-steps of S and dP
@@ -1327,12 +1346,12 @@ __device__ __forceinline__ void dq_wgmma_body(
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < KSTEPS; ++kk)
-        wgmma_m64n64k16_ss<0, 0>(sc, da_q + kstep(kk, W_HALF128), db_k + kstep(kk, W_HALF64),
-                                 kk > 0);
+        wgmma_m64n64k16_ss<0, 0, T>(sc, da_q + kstep(kk, W_HALF128),
+                                    db_k + kstep(kk, W_HALF64), kk > 0);
 #pragma unroll
       for (int kk = 0; kk < KSTEPS; ++kk)
-        wgmma_m64n64k16_ss<0, 0>(dp, da_o + kstep(kk, W_HALF128), db_v + kstep(kk, W_HALF64),
-                                 kk > 0);
+        wgmma_m64n64k16_ss<0, 0, T>(dp, da_o + kstep(kk, W_HALF128),
+                                    db_v + kstep(kk, W_HALF64), kk > 0);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sc);
@@ -1356,7 +1375,7 @@ __device__ __forceinline__ void dq_wgmma_body(
         }
       }
       uint32_t sa[4][4];
-      to_a_operand(dp, sa);
+      to_a_operand<T>(dp, sa);
 
       // dQ += dS K: K [keys][head_dim] as an MN-major B operand (n96 at D =
       // 96: its columns 64-95 the second half's first 32)
@@ -1365,7 +1384,7 @@ __device__ __forceinline__ void dq_wgmma_body(
       wgmma_fence();
 #pragma unroll
       for (int k4 = 0; k4 < 4; ++k4)
-        wgmma_rs<D, 1>(acc, sa[k4], db_k_mn + ((k4 * 2048) >> 4), 1);
+        wgmma_rs<D, 1, T>(acc, sa[k4], db_k_mn + ((k4 * 2048) >> 4), 1);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
@@ -1377,11 +1396,11 @@ __device__ __forceinline__ void dq_wgmma_body(
       for (int r = 0; r < 2; ++r) {
         const int row = row0 + 8 * r;
         if (row >= Sq) continue;
-        __nv_bfloat16* out = dq + ((int64_t)bh * Sq + row) * D + 2 * t4;
+        T* out = dq + ((int64_t)bh * Sq + row) * D + 2 * t4;
 #pragma unroll
         for (int j = 0; j < D / 8; ++j)
           *reinterpret_cast<uint32_t*>(out + 8 * j) =
-              pack_bf16(acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale);
+              pack_t<T>(acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale);
       }
     }
   }
@@ -1393,8 +1412,8 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dq_wgmma_kernel(
     const float* __restrict__ lse, const float* __restrict__ delta,
     __nv_bfloat16* __restrict__ dq, int H, int KvH, int Sq, int Sk, int causal,
     int window, float scale) {
-  dq_wgmma_body<128>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dq, H, KvH, Sq, Sk, causal,
-                     window, scale);
+  dq_wgmma_body<__nv_bfloat16, 128>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dq, H, KvH, Sq,
+                                    Sk, causal, window, scale);
 }
 
 __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dq_wgmma96_kernel(
@@ -1403,8 +1422,18 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dq_wgmma96_kernel
     const float* __restrict__ lse, const float* __restrict__ delta,
     __nv_bfloat16* __restrict__ dq, int H, int KvH, int Sq, int Sk, int causal,
     int window, float scale) {
-  dq_wgmma_body<96>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dq, H, KvH, Sq, Sk, causal,
-                    window, scale);
+  dq_wgmma_body<__nv_bfloat16, 96>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dq, H, KvH, Sq,
+                                   Sk, causal, window, scale);
+}
+
+__global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dq_wgmma_f16_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    __half* __restrict__ dq, int H, int KvH, int Sq, int Sk, int causal,
+    int window, float scale) {
+  dq_wgmma_body<__half, 128>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dq, H, KvH, Sq, Sk,
+                             causal, window, scale);
 }
 
 // ---- the dQ wgmma kernel at head dim 64
@@ -1683,11 +1712,11 @@ cudaError_t launch_dkv_mma(const Args& a) {
   return cudaGetLastError();
 }
 
-// the four 4-D maps (q, k, v, dO; head_dim D) of a wgmma launch, boxes of
-// `q_rows` rows of q and dO and `kv_rows` of k and v; false if
-// cuTensorMapEncodeTiled refuses one
-bool bwd_maps(const Args& a, int D, uint32_t q_rows, uint32_t kv_rows,
-              CUtensorMap (&maps)[4]) {
+// the four 4-D maps (q, k, v, dO; head_dim D) of a wgmma launch over tensors
+// of `type`, boxes of `q_rows` rows of q and dO and `kv_rows` of k and v;
+// false if cuTensorMapEncodeTiled refuses one
+bool bwd_maps(const Args& a, int D, CUtensorMapDataType type, uint32_t q_rows,
+              uint32_t kv_rows, CUtensorMap (&maps)[4]) {
   const int64_t q_dims[4] = {D, a.Sq, a.H, a.B};
   const int64_t kv_dims[4] = {D, a.Sk, a.KvH, a.B};
   const void* bases[4] = {a.q, a.k, a.v, a.dout};
@@ -1696,64 +1725,96 @@ bool bwd_maps(const Args& a, int D, uint32_t q_rows, uint32_t kv_rows,
     const bool is_q = i == 0 || i == 3;
     // strides (seq, head, batch), innermost first after head_dim
     const int64_t strides[3] = {st[3 * i + 2], st[3 * i + 1], st[3 * i]};
-    if (!hopper::make_map_4d(&maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, bases[i],
-                             is_q ? q_dims : kv_dims, strides, is_q ? q_rows : kv_rows))
+    if (!hopper::make_map_4d(&maps[i], type, bases[i], is_q ? q_dims : kv_dims, strides,
+                             is_q ? q_rows : kv_rows))
       return false;
   }
   return true;
 }
 
-// D = 128: flash_bwd_dkv_wgmma_kernel; D = 96: flash_bwd_dkv_wgmma96_kernel,
-// on the same grid; D = 64: flash_bwd_dkv_wgmma64_kernel
-cudaError_t launch_dkv_wgmma(const Args& a, int D) {
-  static const cudaError_t attr128 = set_smem(flash_bwd_dkv_wgmma_kernel, DKV_SMEM);
-  static const cudaError_t attr96 = set_smem(flash_bwd_dkv_wgmma96_kernel, DKV_SMEM);
-  static const cudaError_t attr64 = set_smem(flash_bwd_dkv_wgmma64_kernel, K64_SMEM);
-  const cudaError_t attr = D == 64 ? attr64 : D == 96 ? attr96 : attr128;
-  if (attr != cudaSuccess) return attr;
+// the tensor maps' element type of T (bf16 or fp16)
+template <typename T>
+constexpr CUtensorMapDataType map_type() {
+  return std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+
+// a dK/dV kernel over T on D = 128's grid (bf16 at D = 128 and 96, fp16 at
+// 128): 128 keys a block, boxes of 64 rows of q and dO
+template <typename T, typename K>
+cudaError_t dkv_wgmma128(K kernel, const Args& a, int D) {
   CUtensorMap m[4];
-  if (D == 64) {
-    if (!bwd_maps(a, D, 64, K64_KEYS, m)) return cudaErrorInvalidValue;
-    const dim3 grid(a.B * a.H, (a.Sk + K64_KEYS - 1) / K64_KEYS);
-    flash_bwd_dkv_wgmma64_kernel<<<grid, (K64_CONS + 1) * WG_THREADS, K64_SMEM, a.stream>>>(
-        m[0], m[1], m[2], m[3], (const float*)a.lse, (const float*)a.delta,
-        (__nv_bfloat16*)a.dk, (__nv_bfloat16*)a.dv, a.H, a.KvH, a.Sq, a.Sk, a.causal,
-        a.window, a.scale);
-  } else {
-    if (!bwd_maps(a, D, 64, 128, m)) return cudaErrorInvalidValue;
-    const dim3 grid(a.B * a.H, (a.Sk + 127) / 128);
-    auto kernel = D == 96 ? flash_bwd_dkv_wgmma96_kernel : flash_bwd_dkv_wgmma_kernel;
-    kernel<<<grid, 3 * WG_THREADS, DKV_SMEM, a.stream>>>(
-        m[0], m[1], m[2], m[3], (const float*)a.lse, (const float*)a.delta,
-        (__nv_bfloat16*)a.dk, (__nv_bfloat16*)a.dv, a.H, a.KvH, a.Sq, a.Sk, a.causal,
-        a.window, a.scale);
-  }
+  if (!bwd_maps(a, D, map_type<T>(), 64, 128, m)) return cudaErrorInvalidValue;
+  const dim3 grid(a.B * a.H, (a.Sk + 127) / 128);
+  kernel<<<grid, 3 * WG_THREADS, DKV_SMEM, a.stream>>>(
+      m[0], m[1], m[2], m[3], (const float*)a.lse, (const float*)a.delta, (T*)a.dk,
+      (T*)a.dv, a.H, a.KvH, a.Sq, a.Sk, a.causal, a.window, a.scale);
   return cudaGetLastError();
 }
 
-// D = 128: flash_bwd_dq_wgmma_kernel; D = 96: flash_bwd_dq_wgmma96_kernel,
-// on the same grid; D = 64: flash_bwd_dq_wgmma64_kernel
-cudaError_t launch_dq_wgmma(const Args& a, int D) {
+// bf16 (dtype 1) at D = 128: flash_bwd_dkv_wgmma_kernel; at D = 96:
+// flash_bwd_dkv_wgmma96_kernel, on the same grid; at D = 64:
+// flash_bwd_dkv_wgmma64_kernel. fp16 (dtype 2) at D = 128:
+// flash_bwd_dkv_wgmma_f16_kernel, on the D = 128 grid.
+cudaError_t launch_dkv_wgmma(const Args& a, int D, int dtype) {
+  static const cudaError_t attr128 = set_smem(flash_bwd_dkv_wgmma_kernel, DKV_SMEM);
+  static const cudaError_t attr96 = set_smem(flash_bwd_dkv_wgmma96_kernel, DKV_SMEM);
+  static const cudaError_t attr64 = set_smem(flash_bwd_dkv_wgmma64_kernel, K64_SMEM);
+  static const cudaError_t attr_f16 = set_smem(flash_bwd_dkv_wgmma_f16_kernel, DKV_SMEM);
+  const cudaError_t attr =
+      dtype == 2 ? attr_f16 : D == 64 ? attr64 : D == 96 ? attr96 : attr128;
+  if (attr != cudaSuccess) return attr;
+  if (dtype == 2) return dkv_wgmma128<__half>(flash_bwd_dkv_wgmma_f16_kernel, a, D);
+  if (D != 64)
+    return dkv_wgmma128<__nv_bfloat16>(
+        D == 96 ? flash_bwd_dkv_wgmma96_kernel : flash_bwd_dkv_wgmma_kernel, a, D);
+  CUtensorMap m[4];
+  if (!bwd_maps(a, D, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 64, K64_KEYS, m))
+    return cudaErrorInvalidValue;
+  const dim3 grid(a.B * a.H, (a.Sk + K64_KEYS - 1) / K64_KEYS);
+  flash_bwd_dkv_wgmma64_kernel<<<grid, (K64_CONS + 1) * WG_THREADS, K64_SMEM, a.stream>>>(
+      m[0], m[1], m[2], m[3], (const float*)a.lse, (const float*)a.delta,
+      (__nv_bfloat16*)a.dk, (__nv_bfloat16*)a.dv, a.H, a.KvH, a.Sq, a.Sk, a.causal,
+      a.window, a.scale);
+  return cudaGetLastError();
+}
+
+// a dQ kernel over T on D = 128's grid (bf16 at D = 128 and 96, fp16 at
+// 128): 128 queries a block, boxes of 64 rows of k and v
+template <typename T, typename K>
+cudaError_t dq_wgmma128(K kernel, const Args& a, int D) {
+  CUtensorMap m[4];
+  if (!bwd_maps(a, D, map_type<T>(), 128, 64, m)) return cudaErrorInvalidValue;
+  const dim3 grid(a.B * a.H, (a.Sq + 127) / 128);
+  kernel<<<grid, 3 * WG_THREADS, DQ_SMEM, a.stream>>>(
+      m[0], m[1], m[2], m[3], (const float*)a.lse, (const float*)a.delta, (T*)a.dq, a.H,
+      a.KvH, a.Sq, a.Sk, a.causal, a.window, a.scale);
+  return cudaGetLastError();
+}
+
+// bf16 (dtype 1) at D = 128: flash_bwd_dq_wgmma_kernel; at D = 96:
+// flash_bwd_dq_wgmma96_kernel, on the same grid; at D = 64:
+// flash_bwd_dq_wgmma64_kernel. fp16 (dtype 2) at D = 128:
+// flash_bwd_dq_wgmma_f16_kernel, on the D = 128 grid.
+cudaError_t launch_dq_wgmma(const Args& a, int D, int dtype) {
   static const cudaError_t attr128 = set_smem(flash_bwd_dq_wgmma_kernel, DQ_SMEM);
   static const cudaError_t attr96 = set_smem(flash_bwd_dq_wgmma96_kernel, DQ_SMEM);
   static const cudaError_t attr64 = set_smem(flash_bwd_dq_wgmma64_kernel, Q64_SMEM);
-  const cudaError_t attr = D == 64 ? attr64 : D == 96 ? attr96 : attr128;
+  static const cudaError_t attr_f16 = set_smem(flash_bwd_dq_wgmma_f16_kernel, DQ_SMEM);
+  const cudaError_t attr =
+      dtype == 2 ? attr_f16 : D == 64 ? attr64 : D == 96 ? attr96 : attr128;
   if (attr != cudaSuccess) return attr;
+  if (dtype == 2) return dq_wgmma128<__half>(flash_bwd_dq_wgmma_f16_kernel, a, D);
+  if (D != 64)
+    return dq_wgmma128<__nv_bfloat16>(
+        D == 96 ? flash_bwd_dq_wgmma96_kernel : flash_bwd_dq_wgmma_kernel, a, D);
   CUtensorMap m[4];
-  if (D == 64) {
-    if (!bwd_maps(a, D, Q64_ROWS, 64, m)) return cudaErrorInvalidValue;
-    const dim3 grid(a.B * a.H, (a.Sq + Q64_ROWS - 1) / Q64_ROWS);
-    flash_bwd_dq_wgmma64_kernel<<<grid, (Q64_CONS + 1) * WG_THREADS, Q64_SMEM, a.stream>>>(
-        m[0], m[1], m[2], m[3], (const float*)a.lse, (const float*)a.delta,
-        (__nv_bfloat16*)a.dq, a.H, a.KvH, a.Sq, a.Sk, a.causal, a.window, a.scale);
-  } else {
-    if (!bwd_maps(a, D, 128, 64, m)) return cudaErrorInvalidValue;
-    const dim3 grid(a.B * a.H, (a.Sq + 127) / 128);
-    auto kernel = D == 96 ? flash_bwd_dq_wgmma96_kernel : flash_bwd_dq_wgmma_kernel;
-    kernel<<<grid, 3 * WG_THREADS, DQ_SMEM, a.stream>>>(
-        m[0], m[1], m[2], m[3], (const float*)a.lse, (const float*)a.delta,
-        (__nv_bfloat16*)a.dq, a.H, a.KvH, a.Sq, a.Sk, a.causal, a.window, a.scale);
-  }
+  if (!bwd_maps(a, D, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, Q64_ROWS, 64, m))
+    return cudaErrorInvalidValue;
+  const dim3 grid(a.B * a.H, (a.Sq + Q64_ROWS - 1) / Q64_ROWS);
+  flash_bwd_dq_wgmma64_kernel<<<grid, (Q64_CONS + 1) * WG_THREADS, Q64_SMEM, a.stream>>>(
+      m[0], m[1], m[2], m[3], (const float*)a.lse, (const float*)a.delta,
+      (__nv_bfloat16*)a.dq, a.H, a.KvH, a.Sq, a.Sk, a.causal, a.window, a.scale);
   return cudaGetLastError();
 }
 
@@ -1788,9 +1849,9 @@ cudaError_t at_padded_dim(int which, int mma, const Args& a) {
 
 // dtype 0 = fp32, 1 = bf16, 2 = fp16. route 0 = simt (any dtype, D from 1
 // to 512), 1 = mma (bf16 or fp16, D a multiple of 8 up to 256, 16-byte
-// aligned bases, strides that are multiples of 8), 2 = wgmma (bf16 only, as
-// mma, and Sk > 0, with D = 64, 96 or 128); a route that cannot take the
-// inputs launches nothing
+// aligned bases, strides that are multiples of 8), 2 = wgmma (as mma, and
+// Sk > 0, with bf16 at D = 64, 96 or 128 and fp16 at D = 128); a route that
+// cannot take the inputs launches nothing
 cudaError_t dispatch(int which, int dtype, int route, int D, const Args& a) {
   const void* ptrs[4] = {a.q, a.k, a.v, a.dout};
   const bool aligned = rows_aligned(ptrs, 4, &a.st.q_sb, 12, D);
@@ -1805,10 +1866,11 @@ cudaError_t dispatch(int which, int dtype, int route, int D, const Args& a) {
       if (dtype == 1) return at_padded_dim<__nv_bfloat16>(which, 1, a);
       if (dtype == 2) return at_padded_dim<__half>(which, 1, a);
       return cudaErrorInvalidValue;
-    case 2:
-      if (dtype != 1 || !aligned || a.Sk <= 0 || (D != 64 && D != 96 && D != 128))
-        return cudaErrorInvalidValue;
-      return which ? launch_dkv_wgmma(a, D) : launch_dq_wgmma(a, D);
+    case 2: {
+      const bool has_d = dtype == 1 ? D == 64 || D == 96 || D == 128 : dtype == 2 && D == 128;
+      if (!has_d || !aligned || a.Sk <= 0) return cudaErrorInvalidValue;
+      return which ? launch_dkv_wgmma(a, D, dtype) : launch_dq_wgmma(a, D, dtype);
+    }
     default:
       return cudaErrorInvalidValue;
   }

@@ -3,7 +3,8 @@
 // the 128-byte swizzle, the wgmma fences and groups, setmaxnreg, and the bf16
 // wgmma m64n128k16 and m64n64k16, each in its SS (both operands in shared
 // memory) and RS (A in registers) forms, and m64n96k16 in the RS form;
-// m64n128k16 takes fp16 operands too, in both forms.
+// m64n128k16 takes fp16 operands too, in both forms, and m64n64k16 in the SS
+// form.
 //
 // The layout they assume. A tile row of 64 bf16 or fp16 (128 bytes) is one line of
 // the 128-byte swizzle: TMA with CU_TENSOR_MAP_SWIZZLE_128B stores the 16-byte
@@ -16,8 +17,8 @@
 //
 // tests/test_torch_cuda.py holds these pieces against torch on the card
 // (csrc/hopper_check.cu: one TMA tile against a slice copy, SS and RS
-// products of 128- and 64-row tiles, in bf16 and at m64n128k16 in fp16,
-// against torch.matmul). ops/_build.py
+// products of 128- and 64-row tiles, in bf16, and at m64n128k16 and SS
+// m64n64k16 in fp16, against torch.matmul). ops/_build.py
 // hashes every .cuh in csrc/ into each kernel's library name.
 
 #pragma once
@@ -232,20 +233,26 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
   "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
   "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
 
-// D[64 x 64] (+)= A[64 x 16] B[16 x 64], both from shared memory: the
-// m64n128 form's layout with columns 0-63, so d[4 j + e] is row 16 w + g + 8
-// (e / 2), column 8 j + 2 t + (e % 2) for j < 8, and columns 16 s .. 16 s + 15,
-// rounded to bf16, are the RS form's A for k-step s (a[0..3] = d[8 s ..
-// 8 s + 7] in pairs).
-template <int TA, int TB>
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], T operands (bf16, or fp16 for T =
+// __half) both from shared memory: the m64n128 form's layout with columns
+// 0-63, so d[4 j + e] is row 16 w + g + 8 (e / 2), column 8 j + 2 t + (e % 2)
+// for j < 8, and columns 16 s .. 16 s + 15, rounded to T, are the RS form's
+// A for k-step s (a[0..3] = d[8 s .. 8 s + 7] in pairs).
+#define HOPPER_SS64(TY)                                                  \
+  asm volatile(                                                          \
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"                     \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " HOPPER_D32 \
+      ", %32, %33, p, 1, 1, %35, %36;\n}\n"                                \
+      : HOPPER_D32_OPS(d)                                                \
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB))
+template <int TA, int TB, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da,
                                                    uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_D32
-      ", %32, %33, p, 1, 1, %35, %36;\n}\n"
-      : HOPPER_D32_OPS(d)
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  if constexpr (std::is_same<T, __half>::value) {
+    HOPPER_SS64("f16");
+  } else {
+    HOPPER_SS64("bf16");
+  }
 }
 
 // The same with A from registers, in the RS form's layout above (the
@@ -308,6 +315,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
 }
 
 #undef HOPPER_SS128
+#undef HOPPER_SS64
 #undef HOPPER_RS128
 #undef HOPPER_D64
 #undef HOPPER_D64_OPS

@@ -19,7 +19,9 @@
 //   form, as the D = 96 kernels' P V (128 rows), P^T dO and dS^T Q (64).
 // - hopper_wgmma_ss_f16, hopper_wgmma_rs_f16: hopper_wgmma_ss and
 //   hopper_wgmma_rs on fp16 operands (the .f16 instructions over FLOAT16
-//   maps), as flash_fwd.cu's fp16 Q K^T and P V.
+//   maps), as flash_fwd.cu's fp16 Q K^T and P V;
+// - hopper_wgmma_ss64_f16: hopper_wgmma_ss64 on fp16 operands, as
+//   flash_bwd.cu's fp16 S^T = K Q^T, dP^T = V dO^T, S = Q K^T and dP = dO V^T.
 // Each launches one block of one warpgroup; run them first after a change to
 // hopper.cuh or to a kernel's descriptors.
 
@@ -153,6 +155,7 @@ __device__ void store_acc64(const float (&d)[32], float* out) {
       out[(16 * warp + g + 8 * (e >> 1)) * 64 + 8 * j + 2 * t + (e & 1)] = d[4 * j + e];
 }
 
+template <typename T>
 __global__ void __launch_bounds__(128) wgmma_ss64_kernel(
     const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
     int a_row0, float* out) {
@@ -178,8 +181,8 @@ __global__ void __launch_bounds__(128) wgmma_ss64_kernel(
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < 8; ++kk)
-    wgmma_m64n64k16_ss<0, 0>(d, da + (((kk / 4) * HALF + (kk % 4) * 32) >> 4),
-                             db + (((kk / 4) * HALF64 + (kk % 4) * 32) >> 4), kk > 0);
+    wgmma_m64n64k16_ss<0, 0, T>(d, da + (((kk / 4) * HALF + (kk % 4) * 32) >> 4),
+                                db + (((kk / 4) * HALF64 + (kk % 4) * 32) >> 4), kk > 0);
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(d);
@@ -322,6 +325,21 @@ int wgmma_ss(const void* a, const void* b, int a_row0, void* out, void* stream) 
 }
 
 template <typename T>
+int wgmma_ss64(const void* a, const void* b, int a_row0, void* out, void* stream) {
+  CUtensorMap map_a, map_b;
+  if ((a_row0 != 0 && a_row0 != 64) || !square_map(&map_a, a, 128, map_type<T>()) ||
+      !matrix_map(&map_b, b, 64, 64, map_type<T>()))
+    return (int)cudaErrorInvalidValue;
+  constexpr int smem = 2 * HALF + 2 * HALF64 + 1024;
+  cudaError_t err = cudaFuncSetAttribute(
+      wgmma_ss64_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  wgmma_ss64_kernel<T><<<1, 128, smem, (cudaStream_t)stream>>>(map_a, map_b, a_row0,
+                                                              (float*)out);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
 int wgmma_rs(const void* p, const void* v, void* out, void* stream) {
   CUtensorMap map_v;
   if (!square_map(&map_v, v, 128, map_type<T>())) return (int)cudaErrorInvalidValue;
@@ -378,17 +396,13 @@ extern "C" int hopper_wgmma_rs_f16(const void* p, const void* v, void* out, void
 // a[a_row0 : a_row0 + 64] @ b^T
 extern "C" int hopper_wgmma_ss64(const void* a, const void* b, int a_row0, void* out,
                                  void* stream) {
-  CUtensorMap map_a, map_b;
-  if ((a_row0 != 0 && a_row0 != 64) || !square_map(&map_a, a, 128) ||
-      !matrix_map(&map_b, b, 64, 64))
-    return (int)cudaErrorInvalidValue;
-  constexpr int smem = 2 * HALF + 2 * HALF64 + 1024;
-  cudaError_t err = cudaFuncSetAttribute(
-      wgmma_ss64_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  wgmma_ss64_kernel<<<1, 128, smem, (cudaStream_t)stream>>>(map_a, map_b, a_row0,
-                                                           (float*)out);
-  return (int)cudaGetLastError();
+  return wgmma_ss64<__nv_bfloat16>(a, b, a_row0, out, stream);
+}
+
+// the same in fp16: the f16 form of the m64n64k16 instruction over FLOAT16 maps
+extern "C" int hopper_wgmma_ss64_f16(const void* a, const void* b, int a_row0, void* out,
+                                     void* stream) {
+  return wgmma_ss64<__half>(a, b, a_row0, out, stream);
 }
 
 // p: [64, 64], v: [64, 128] bf16 contiguous; out: [64, 128] fp32 = p @ v

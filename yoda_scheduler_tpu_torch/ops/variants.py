@@ -10,7 +10,7 @@ it, too), or "cur" for the package's own, built with the package's nvcc
 flags into `build/variants/`; each build's nvcc seconds are printed. fwd
 launches `attention.flash_fwd` on its automatic route; bwd launches
 `attention.flash_bwd_dq` and `attention.flash_bwd_dkv` on theirs (wgmma at
-head dims 64, 96 and 128 in bf16) and first prints
+head dims 64, 96 and 128 in bf16, and 128 in fp16) and first prints
 ptxas's registers and spills of each variant's wgmma kernels with its
 performance notes. `--route mma` launches both kinds on the mma route
 instead. Every launch is checked against the
@@ -26,9 +26,10 @@ head-dim-64 wgmma kernels (`flash_bwd_dq_wgmma64_kernel`,
 three kernels run `flash_fwd_wgmma96_kernel`, `flash_bwd_dq_wgmma96_kernel`
 and `flash_bwd_dkv_wgmma96_kernel`. `--dtype float16` takes `SHAPES` in fp16
 at head dim 128 (`fp16_main` first: Llama-2-7B's attention in the dtype of
-its published weights), where the forward runs `flash_fwd_wgmma_f16_kernel`
-and the backward the mma kernels; each launch is held to fp16's bounds, the
-bf16 ones over 8 (a variant without the fp16 wgmma kernel takes `--route
+its published weights), where the three kernels run
+`flash_fwd_wgmma_f16_kernel`, `flash_bwd_dq_wgmma_f16_kernel` and
+`flash_bwd_dkv_wgmma_f16_kernel`; each launch is held to fp16's bounds, the
+bf16 ones over 8 (a variant without an fp16 wgmma kernel takes `--route
 mma`). Prints the card's name and power limit, then one JSON line per
 shape.
 """

@@ -191,16 +191,30 @@ def train_window(cfg, label: str, build=build_llama_train_step, batch: int = 1,
 
 
 @contextlib.contextmanager
-def d96_on_mma():
-    """Within it, head dim 96 takes the mma route for all three kernels, as
-    before their wgmma kernels."""
+def _off_wgmma(drop):
+    """Within it, the wgmma route refuses each (kernel, dtype) key's head
+    dims d for which drop(key, d) holds, so that they take mma; after it
+    `attention._WGMMA_HEAD_DIMS` is what it was."""
     saved = dict(attention._WGMMA_HEAD_DIMS)
     attention._WGMMA_HEAD_DIMS.update(
-        {k: tuple(d for d in dims if d != 96) for k, dims in saved.items()})
+        {k: tuple(d for d in dims if not drop(k, d)) for k, dims in saved.items()})
     try:
         yield
     finally:
+        attention._WGMMA_HEAD_DIMS.clear()
         attention._WGMMA_HEAD_DIMS.update(saved)
+
+
+def d96_on_mma():
+    """Within it, head dim 96 takes the mma route for all three kernels, as
+    before their wgmma kernels."""
+    return _off_wgmma(lambda key, d: d == 96)
+
+
+def fp16_backward_on_mma():
+    """Within it, fp16 at head dim 128 takes the mma route for dQ and dK/dV,
+    as before their fp16 wgmma kernels; the forward keeps its wgmma kernel."""
+    return _off_wgmma(lambda key, d: key[1] == torch.float16 and key[0] != "flash_fwd")
 
 
 def phi3_train_windows(steps: int = 8) -> list[dict]:
