@@ -25,10 +25,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ragged, cross-length) on the fp16 wgmma kernels. Then the head dims and
    dtypes of the padded simt and mma kernels
    (`WIDE_SHAPES`): Phi-3-mini's attention (32 heads of 96, S=2048; GQA 32/8
-   and window 512 at 96; wgmma there), 80, Gemma-2B's 8 heads of 256 over
-   one, 40 ragged, 100 (unaligned: simt), fp16 at the main shape and the
+   and window 512 at 96; wgmma there), 80 (StableLM-3B's, also as its
+   model's views), Gemma-2B's 8 heads of 256 over one, 40 ragged, 100
+   (OpenLLaMA-3B's 200-byte rows, also as its model's views), the forward at
+   80 and 100 on its wgmma kernels and timed in turns against its old route
+   (mma at 80, simt at 100) at each of those four rows, fp16 at the main
+   shape and the
    five fp16 rows above (every kernel on wgmma) and at d1024_bshd, simt in
-   fp32 and fp16, and 320 on simt in fp32 and bf16;
+   fp32 and fp16, and 320 on simt in fp32 and bf16 (SDPA's memory-efficient
+   backend timed beside the fp32 row, its K and V repeated to q's heads);
    each on every route `_routes` admits, with SDPA's default backend timed
    where its inputs are aligned bf16 or fp16 (a failure of the library's
    call is recorded with its error); and head dim 520 refused by every wrapper on every route with no launch.
@@ -43,7 +48,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
    kernel that takes them, each held against the plain backward and timed
    in turns (mma, wgmma, wgmma, mma), SDPA's backward after each turn; at
    d1024_bshd SDPA's backward under
-   its default and its flash backends.
+   its default and its flash backends. Last two fp16 rows with a large LSE
+   cotangent (dO x1e-5, S=2048, head dim 128) through the kernels' autograd
+   node, g_lse x1e3 of random sign and, with an attention sink at key 0,
+   x100 of one sign: finite, and within twice the fp32 backward's own
+   rounding to fp16 of the fp32 backward.
 4. forward: Llama-2-7B width, all 32 layers, bf16, random weights from a
    seed, B=1, S=2048: one `llama_forward` must launch the kernel once per
    layer, and its logits must agree with the forward through the plain
@@ -63,7 +72,7 @@ The MoE phases run Mixtral-8x7B's published widths (8 experts, top-2, GQA
 moe_forward and moe_serving (16 layers) after serving, moe_train (4 layers)
 after train.
 
-After moe_train, head dim 96 and fp16:
+After moe_train, head dims 96, 100 and 80, and fp16:
 
 - phi3_forward, phi3_gradient, phi3_train: Phi-3-mini's published widths
   (`profile_path.phi3_mini`: hidden 3072, 32 layers, 32 heads of 96,
@@ -75,6 +84,13 @@ After moe_train, head dim 96 and fp16:
   route; fp16_gradient also times the 4-layer loss's forward and backward
   on the host's clock in turns, all on wgmma against the backward on mma
   (`profile_path.fp16_backward_on_mma`).
+- openllama3b_forward, stablelm3b_forward: OpenLLaMA-3B's widths (26
+  layers, 32 heads of 100) and StableLM-3B-4E1T's (32 layers, 32 heads of
+  80) on the Llama block (`profile_path.openllama_3b`,
+  `stablelm_3b_4e1t`), random bf16 weights from a seed: as forward, every
+  flash_fwd launch on wgmma, also timed on the host's clock in turns
+  against the forward on its old route (`profile_path.d100_forward_on_simt`,
+  `d80_forward_on_mma`); the weights freed after each.
 
 - moe_forward: B=1, S=2048: 16 flash_fwd launches, all on the wgmma route;
   logits and routing against the forward through the plain attention, end
@@ -318,6 +334,21 @@ BWD_TOL = {torch.bfloat16: 2e-2, torch.float16: 2.5e-3, torch.float32: 1e-4}
 # `variants.BWD_TILE_REL_L2`; fp32: summation order).
 TILE_REL_L2_FP32 = 1e-4
 TILE_REL_L2_FP16 = 1.25e-3  # bf16's 1e-2 over 8, as TOL's fp16 bounds
+# phase 3's fp16 row under a large LSE cotangent (a z-loss on the LSE): dO
+# of a model's size (x1e-5, Llama-2-7B width) beside g_lse x1e3, on the fp16
+# wgmma kernels at head dim 128 through the kernels' autograd node, against
+# the backward in fp32 on the same fp16 inputs. No fp16 gradient is nearer
+# the fp32 one than that rounded to fp16 (dV of ~1e-5 lies on fp16's
+# subnormal grid); each output must be finite and within twice that distance
+# (the kernels' plain twins on the CPU, S=512-2048, read 1.1-1.4x). With the
+# cotangent scale taken from dO alone, dQ and dK overflow to inf. The second
+# row puts an attention sink at key 0 under an LSE cotangent of one sign (a
+# z-loss's 2 c lse): the sink's dK, ~1.8e4, times the cotangent scale (256)
+# lies past fp16's largest value, so it is finite only because the kernels
+# multiply their sums by the inverse scale before rounding them to fp16.
+FP16_LSE_COTANGENT = dict(b=1, h=32, s=2048, d=128, do_scale=1e-5, g_lse_scale=1e3)
+FP16_SINK_COTANGENT = dict(FP16_LSE_COTANGENT, g_lse_scale=100.0, sink=True)
+FP16_ROUNDING_FACTOR = 2.0
 BWD_G_LSE = {"gqa", "gqa_bshd", "cross_length", "ragged_300",  # shapes with a non-zero
              "gqa_d64", "ragged_d64", "gqa_d96", "gemma_d256",   # LSE cotangent
              "ragged_d40"}
@@ -595,6 +626,7 @@ def ptxas_summary(log: str) -> dict:
 # the wgmma kernels of csrc/, as ptxas names them: each must build
 WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_wgmma96_kernel",
                  "flash_fwd_wgmma64_kernel", "flash_fwd_wgmma_f16_kernel",
+                 "flash_fwd_wgmma80_kernel", "flash_fwd_wgmma100_kernel",
                  "flash_bwd_dq_wgmma_kernel", "flash_bwd_dq_wgmma96_kernel",
                  "flash_bwd_dq_wgmma64_kernel", "flash_bwd_dkv_wgmma_kernel",
                  "flash_bwd_dkv_wgmma96_kernel", "flash_bwd_dkv_wgmma64_kernel",
@@ -640,7 +672,8 @@ def phase_build(build):
 # layout "bhsd" is contiguous [B, H, S, D]; "bshd" the model's transposed
 # views of a contiguous [B, S, H, D]; "offset1" starts every tensor one
 # element into its storage, off 16-byte alignment. route is the one
-# `_route` must pick for these inputs, for every kernel (`shape_routes`).
+# `_route` must pick for these inputs, for every kernel, or a pair (the
+# forward's, the backward kernels') (`shape_routes`).
 SHAPES = [
     ("main", 1, 32, 32, 2048, 2048, 128, True, None, torch.bfloat16, "bhsd", "wgmma"),
     ("main_bshd", 1, 32, 32, 2048, 2048, 128, True, None, torch.bfloat16, "bshd",
@@ -691,11 +724,14 @@ SHAPES = [
     ("main_unaligned", 1, 32, 32, 2048, 2048, 128, True, None, torch.bfloat16,
      "offset1", "simt"),
     # head dims other than 32, 64 and 128, and fp16, on the simt and mma
-    # kernels at their padded widths (at 96, and fp16 at 128, on wgmma):
+    # kernels at their padded widths (at 96, and fp16 at 128, on wgmma; at
+    # 80 and 100 the forward on wgmma, the backward on mma and simt):
     # Phi-3-mini's attention (32 heads of 96, S=2048) as the model
     # gives it and contiguous, with GQA 32/8 and a window; 80 (2560 / 32,
-    # Phi-2's width); Gemma-2B's 8 query heads of 256 over one KV head; 40
-    # on a ragged sequence; 100, whose rows are not 16-byte aligned (simt);
+    # StableLM-3B's and Phi-2's width), contiguous and as the model's views;
+    # Gemma-2B's 8 query heads of 256 over one KV head; 40 on a ragged
+    # sequence; 100 (OpenLLaMA-3B's), whose rows are not 16-byte aligned,
+    # contiguous and as the model's views;
     # fp16 at the main shape and at d1024_bshd (the dtype of Llama-2's
     # published weights); simt at each padded width in fp32 and fp16; and
     # 320, past the mma kernels' 256, on simt's widest width (512)
@@ -706,11 +742,16 @@ SHAPES = [
     ("gqa_d96", 1, 32, 8, 2048, 2048, 96, True, None, torch.bfloat16, "bshd", "wgmma"),
     ("window_d96", 1, 32, 32, 2048, 2048, 96, True, 512, torch.bfloat16, "bhsd",
      "wgmma"),
-    ("d80", 1, 32, 32, 2048, 2048, 80, True, None, torch.bfloat16, "bhsd", "mma"),
+    ("d80", 1, 32, 32, 2048, 2048, 80, True, None, torch.bfloat16, "bhsd",
+     ("wgmma", "mma")),
+    ("d80_bshd", 1, 32, 32, 2048, 2048, 80, True, None, torch.bfloat16, "bshd",
+     ("wgmma", "mma")),  # StableLM-3B-4E1T's attention as its model gives it
     ("gemma_d256", 1, 8, 1, 2048, 2048, 256, True, None, torch.bfloat16, "bshd", "mma"),
     ("ragged_d40", 2, 8, 4, 300, 300, 40, True, None, torch.bfloat16, "bhsd", "mma"),
     ("unaligned_d100", 1, 32, 32, 1024, 1024, 100, True, None, torch.bfloat16, "bhsd",
-     "simt"),
+     ("wgmma", "simt")),
+    ("d100_bshd", 1, 32, 32, 2048, 2048, 100, True, None, torch.bfloat16, "bshd",
+     ("wgmma", "simt")),  # OpenLLaMA-3B's attention as its model gives it
     ("fp16_main", 1, 32, 32, 2048, 2048, 128, True, None, torch.float16, "bhsd",
      "wgmma"),
     ("fp16_d1024_bshd", 8, 16, 16, 2048, 2048, 64, True, None, torch.float16, "bshd",
@@ -728,28 +769,35 @@ SHAPES = [
 ROUTE_TURNS = ("mma", "wgmma", "wgmma", "mma")
 TURN_SHAPES = ("main", "d1024_bshd", "phi3_d96_bshd", "fp16_main", "fp16_ragged_300",
                "fp16_cross_length")
+# the forward alone timed in turns against the route it took before its
+# wgmma kernel (mma at 80, simt at 100), SDPA's default after each turn
+FWD_TURN_SHAPES = ("d80", "d80_bshd", "unaligned_d100", "d100_bshd")
 D64_SHAPE = "d1024_bshd"  # the head-dim-64 row of the kernels line
 # the rows at the new head dims and fp16: every route `_routes` admits is
 # held against the plain version there, and SDPA's default backend is timed
 # where its inputs are bf16 or fp16 rows that are 16-byte aligned (cuDNN's
 # backward fails on the rows that start one element into their storage)
-WIDE_SHAPES = ("phi3_d96", "phi3_d96_bshd", "gqa_d96", "window_d96", "d80", "gemma_d256",
-               "ragged_d40", "unaligned_d100", "fp16_main", "fp16_main_bshd", "fp16_gqa_bshd",
+WIDE_SHAPES = ("phi3_d96", "phi3_d96_bshd", "gqa_d96", "window_d96", "d80", "d80_bshd",
+               "gemma_d256", "ragged_d40", "unaligned_d100", "d100_bshd", "fp16_main",
+               "fp16_main_bshd", "fp16_gqa_bshd",
                "fp16_window_512", "fp16_ragged_300", "fp16_cross_length", "fp16_d1024_bshd",
                "fp32_d40", "fp16_unaligned_d80", "fp32_d256", "fp32_d320", "bf16_d320")
 # the kernels line's head_dims entry: the rows of each new width and dtype
-HEAD_DIM_ROWS = ("d80", "phi3_d96_bshd", "gemma_d256", "unaligned_d100", "fp16_main",
-                 "fp16_d1024_bshd", "bf16_d320")
+HEAD_DIM_ROWS = ("d80", "d80_bshd", "phi3_d96_bshd", "gemma_d256", "unaligned_d100",
+                 "d100_bshd", "fp16_main", "fp16_d1024_bshd", "bf16_d320")
 # a head dim past the kernels' widest padded width (512, simt's): every
 # wrapper refuses it on every route, with no launch
 REFUSED_HEAD_DIM = 520
 
 
-def shape_routes(route: str) -> dict:
+def shape_routes(route) -> dict:
     """Each kernel's route at a SHAPES row: `route` names one for all three
     kernels (the wgmma route of each takes head dims 64, 96 and 128 in
-    bf16, and 128 in fp16)."""
-    return dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), route)
+    bf16, and 128 in fp16), or is a pair (the forward's, the backward
+    kernels'), as at 80 and 100, where the forward alone has a wgmma
+    kernel."""
+    fwd, bwd = (route, route) if isinstance(route, str) else route
+    return {"flash_fwd": fwd, "flash_bwd_dq": bwd, "flash_bwd_dkv": bwd}
 
 
 def step_routes(route, layers: int) -> dict:
@@ -784,6 +832,32 @@ def timed_against_library(name: str, dtype, layout: str) -> bool:
     if name in ("main", "main_bshd", D64_SHAPE):
         return True
     return name in WIDE_SHAPES and dtype != torch.float32 and layout != "offset1"
+
+
+# the fp32 row past the flash backends' widths: SDPA's memory-efficient
+# backend alone is the library's call there (its flash and cuDNN backends
+# take no fp32)
+EFFICIENT_SDPA_SHAPE = "fp32_d320"
+
+
+def efficient_sdpa_time(tune, q, k, v, mask, do=None) -> tuple:
+    """bench_mfu's SDPA call under the memory-efficient backend alone, on K
+    and V repeated to q's heads before it is timed (that backend takes no
+    grouped KV): (ms, error, the row's `sdpa` entry) of its forward, or with
+    `do` of its backward alone."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def call(q, k, v):
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            return sdpa_fn(q, k, v, mask=mask)
+
+    kr, vr = (t.repeat_interleave(q.shape[1] // k.shape[1], dim=1) for t in (k, v))
+    fn = ((lambda: call(q, kr, vr)) if do is None
+          else tune._backward_alone(call, q, kr, vr, do))
+    ms, error = library_time(lambda: cuda_time_ms(fn, 20))
+    key = "ms" if do is None else "backward_ms"
+    return ms, error, {"backend": "EFFICIENT_ATTENTION",
+                       "kv_repeated": k.shape[1] != q.shape[1], key: ms, "error": error}
 
 
 def library_time(fn) -> tuple[float | None, str | None]:
@@ -887,16 +961,21 @@ def phase_kernel(attn, variants, tune):
                     route_tile[f"{r}_o"], agree = agrees(
                         *attn.flash_fwd(q, k, v, causal, window, route=r))
                     ok = ok and agree
-        if name in TURN_SHAPES:
-            # the other route against the plain version too, then in turns
+        if name == EFFICIENT_SDPA_SHAPE:
+            library_ms, library_error, sdpa = efficient_sdpa_time(tune, q, k, v, mask)
+        if name in TURN_SHAPES or name in FWD_TURN_SHAPES:
+            # the route before wgmma (mma; simt at 100) against the plain
+            # version too, then in turns
+            old = attn._routes("flash_fwd", q, k, v)[-2]
             route_tile = route_tile or {}
-            route_tile["mma_o"], agree = agrees(
-                *attn.flash_fwd(q, k, v, causal, window, route="mma"))
+            route_tile[f"{old}_o"], agree = agrees(
+                *attn.flash_fwd(q, k, v, causal, window, route=old))
             ok = ok and agree
             # and the library's call after each turn, so that the factor
             # over it is read within these turns too
-            turns, library_turns = {r: [] for r in ROUTE_TURNS}, []
-            for r in ROUTE_TURNS:
+            order = (old, "wgmma", "wgmma", old)
+            turns, library_turns = {r: [] for r in order}, []
+            for r in order:
                 turns[r].append(cuda_time_ms(
                     lambda: attn.flash_fwd(q, k, v, causal, window, route=r), 20))
                 library_turns.append(cuda_time_ms(lambda: sdpa_fn(q, k, v, mask=mask), 20))
@@ -1035,6 +1114,8 @@ def phase_backward(attn, variants, tune):
         if name in WIDE_SHAPES and timed:
             sdpa = {"default_backend": sdpa_default_backend(q, k, v, mask=mask),
                     "default_backward_ms": library_ms, "error": library_error}
+        if name == EFFICIENT_SDPA_SHAPE:
+            library_ms, library_error, sdpa = efficient_sdpa_time(tune, q, k, v, mask, do)
         if name == D64_SHAPE:
             sdpa = {"default_backend": sdpa_default_backend(q, k, v),
                     "default_backward_ms": library_ms,
@@ -1063,16 +1144,68 @@ def phase_backward(attn, variants, tune):
         if not ok:
             raise SystemExit(f"flash_bwd_dq/dkv disagree with the plain backward "
                              f"or are not repeatable at {name}")
+    for case in (FP16_LSE_COTANGENT, FP16_SINK_COTANGENT):
+        row = fp16_lse_cotangent_row(attn, **case)
+        print(json.dumps({"phase": "backward", **row}), flush=True)
+        rows.append(row)
+        if not row["ok"]:
+            raise SystemExit(f"the fp16 backward under a large LSE cotangent: {row}")
     RESULTS["backward"] = rows
     return rows, max_err
 
 
+def fp16_lse_cotangent_row(attn, b, h, s, d, do_scale, g_lse_scale, sink=False,
+                           seed=7) -> dict:
+    """The fp16 backward through the kernels' autograd node (the cotangent
+    scale of `_FlashFwd.backward`, then dQ and dK/dV, each once on the fp16
+    wgmma route at head dim 128) with dO of `do_scale` beside an LSE
+    cotangent of `g_lse_scale`, against the backward in fp32 on the same
+    fp16 inputs: each output finite and within FP16_ROUNDING_FACTOR of the
+    distance of the fp32 backward's own rounding to fp16. `sink`: key 0 is
+    an attention sink (every component 2, q's components of mean 1) and the
+    LSE cotangent is `g_lse_scale` everywhere, of one sign."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn((b, h, s, d), generator=gen, device="cuda")
+               for _ in range(3))
+    do = (torch.randn((b, h, s, d), generator=gen, device="cuda") * do_scale).half()
+    g_lse = torch.randn((b, h, s), generator=gen, device="cuda") * g_lse_scale
+    if sink:
+        q += 1.0
+        k[:, :, 0] = 2.0
+        g_lse.fill_(g_lse_scale)
+    q, k, v = (t.half().requires_grad_(True) for t in (q, k, v))
+    reset_launches(attn)
+    o, lse = attn.flash_attention_with_lse(q, k, v)
+    torch.autograd.backward([o, lse], [do, g_lse])
+    torch.cuda.synchronize()
+    routes = read_routes(attn)
+    qf, kf, vf = (t.detach().float() for t in (q, k, v))
+    of, lf = attn.reference_attention_with_lse(qf, kf, vf)
+    ref = attn.flash_backward_reference(qf, kf, vf, of, lf, do.float(), g_lse=g_lse)
+    ok = routes == dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                                 {"wgmma": 1})
+    errs = {}
+    for name, t, r in zip(("dq", "dk", "dv"), (q, k, v), ref):
+        finite = bool(torch.isfinite(t.grad).all())
+        errs[name] = dict(rel_l2=rel_l2(t.grad, r) if finite else None,
+                          fp16_rounding_rel_l2=rel_l2(r.half(), r), finite=finite,
+                          max_abs=float(r.abs().max()))
+        ok = ok and finite and errs[name]["rel_l2"] <= (
+            FP16_ROUNDING_FACTOR * errs[name]["fp16_rounding_rel_l2"])
+    return dict(shape="fp16_sink_lse_cotangent" if sink else "fp16_large_lse_cotangent",
+                b=b, h=h, sq=s, sk=s, d=d,
+                dtype="float16", do_scale=do_scale, g_lse_scale=g_lse_scale,
+                launches_by_route=routes, errors=errs, bound=FP16_ROUNDING_FACTOR, ok=ok)
+
+
 def phase_forward(attn, llama, cfg=None, phase="forward", config="llama2_7b",
-                  route="wgmma"):
+                  route="wgmma", turns=None):
     """llama_forward at B=1, S=2048 over all of `cfg`'s layers (Llama-2-7B
     by default): one flash_fwd launch a layer, every one on the forward's
     route of `shape_routes(route)`, and the logits against the forward
-    through the plain attention."""
+    through the plain attention. With `turns` ({name: route set}, the
+    routes `_route` picks first: `route_turns`) the forward is also timed in
+    turns against another route set."""
     cfg = cfg or llama.LlamaConfig.llama2_7b()
     route = shape_routes(route)["flash_fwd"]
     free_memory()
@@ -1106,12 +1239,15 @@ def phase_forward(attn, llama, cfg=None, phase="forward", config="llama2_7b",
             llama.llama_forward(params, tokens, cfg)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        timed = (route_turns(attn, turns, lambda: llama.llama_forward(params, tokens, cfg))
+                 if turns else None)
     emit(phase, config=config, layers=cfg.n_layers, batch=1, seq=2048,
          dtype=cfg.dtype, head_dim=cfg.head_dim, init_s=init_s,
          flash_fwd_launches=launches, launches_by_route=routes,
          logits_rel_l2_vs_plain=err, bound=LOGITS_REL_L2, forward_ms=times,
-         forward_ms_median=statistics.median(times),
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+         forward_ms_median=statistics.median(times), peak_mem_gb=peak,
+         forward_turns=timed)
     return cfg, params, launches, routes
 
 
@@ -1294,45 +1430,57 @@ def phase_serving(cfg, params, llama, gen_mod, phase="serving",
          sampled_tokens=sampled[0].shape[1], **extra)
 
 
-# calls a turn of `gradient_turns`
-GRADIENT_TURN_CALLS = 3
+# calls a turn of `route_turns`
+TURN_CALLS = 3
 
 
-def gradient_turns(attn, llama, cfg, params, leaves, tokens, sets) -> dict:
-    """The loss's forward and backward through the kernels (remat), timed on
-    the host's clock around a synchronised call, GRADIENT_TURN_CALLS calls a
-    turn, in turns A, B, B, A over the two route sets of `sets` ({name: a
-    context manager factory within which the kernels take that set's
-    routes}, A first): {name: {"ms": each turn's calls, "turn_median_ms",
-    "median_ms": over all its calls, "launches_by_route": one call's}}."""
+def route_turns(attn, sets, call, setup=lambda: None) -> dict:
+    """`call()` timed on the host's clock around a synchronised call (after
+    `setup()`), TURN_CALLS calls a turn, in turns A, B, B, A over the two
+    route sets of `sets` ({name: a context manager factory within which the
+    kernels take that set's routes}, A first): {name: {"ms": each turn's
+    calls, "turn_median_ms", "median_ms": over all its calls,
+    "launches_by_route": one call's}}. The two sets must launch different
+    routes."""
     a, b = sets
     out = {name: {"ms": [], "launches_by_route": None} for name in sets}
     for name in (a, b, b, a):
         calls = []
         with sets[name]():
             reset_launches(attn)
-            for _ in range(GRADIENT_TURN_CALLS):
-                for t in leaves:
-                    t.grad = None
+            for _ in range(TURN_CALLS):
+                setup()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                llama.llama_loss(params, tokens, cfg, remat=True).backward()
+                call()
                 torch.cuda.synchronize()
                 calls.append((time.perf_counter() - t0) * 1e3)
-            per_call = {fn: {r: n // GRADIENT_TURN_CALLS for r, n in routes.items()}
+            per_call = {fn: {r: n // TURN_CALLS for r, n in routes.items()}
                         for fn, routes in read_routes(attn).items()}
         if out[name]["launches_by_route"] not in (None, per_call):
-            raise SystemExit(f"gradient turns: the set {name} launched {per_call}, "
+            raise SystemExit(f"route turns: the set {name} launched {per_call}, "
                              f"then {out[name]['launches_by_route']}")
         out[name]["launches_by_route"] = per_call
         out[name]["ms"].append(calls)
-    for t in leaves:
-        t.grad = None
     for row in out.values():
         row["turn_median_ms"] = [statistics.median(c) for c in row["ms"]]
         row["median_ms"] = statistics.median(x for c in row["ms"] for x in c)
     if out[a]["launches_by_route"] == out[b]["launches_by_route"]:
-        raise SystemExit(f"gradient turns: {a} and {b} launched the same routes")
+        raise SystemExit(f"route turns: {a} and {b} launched the same routes")
+    return out
+
+
+def gradient_turns(attn, llama, cfg, params, leaves, tokens, sets) -> dict:
+    """The loss's forward and backward through the kernels (remat) in turns
+    over the route sets of `sets` (`route_turns`), the leaves' gradients
+    cleared before each call."""
+    def clear():
+        for t in leaves:
+            t.grad = None
+
+    out = route_turns(attn, sets, lambda: llama.llama_loss(
+        params, tokens, cfg, remat=True).backward(), setup=clear)
+    clear()
     return out
 
 
@@ -2965,10 +3113,11 @@ def main() -> int:
     from yoda_scheduler_tpu_torch.parallel import checkpoint, multihost, ulysses
     from yoda_scheduler_tpu_torch.tools import tune_attention as tune
     from yoda_scheduler_tpu_torch import bench_generate, bench_mfu, bench_util
-    # Mixtral-8x7B's widths from its config.json, in the port's config fields
-    # and Phi-3-mini's, from its config.json
-    from yoda_scheduler_tpu_torch.profile_path import (fp16_backward_on_mma, mixtral_8x7b,
-                                                       phi3_mini)
+    # Mixtral-8x7B's widths from its config.json, in the port's config fields,
+    # and Phi-3-mini's, OpenLLaMA-3B's and StableLM-3B-4E1T's, from theirs
+    from yoda_scheduler_tpu_torch.profile_path import (
+        d80_forward_on_mma, d100_forward_on_simt, fp16_backward_on_mma, mixtral_8x7b,
+        openllama_3b, phi3_mini, stablelm_3b_4e1t)
 
     gen_mod = importlib.import_module("yoda_scheduler_tpu_torch.models.generate")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3019,6 +3168,18 @@ def main() -> int:
         attn, llama, train, fp16, phase="fp16_gradient",
         config="llama2_7b fp16 width, 4 layers",
         turns={"wgmma": contextlib.nullcontext, "backward_on_mma": fp16_backward_on_mma})
+    # head dims 100 and 80 (OpenLLaMA-3B's and StableLM-3B's widths): every
+    # forward launch on wgmma, timed in turns against the forward on the
+    # route it took before its wgmma kernel
+    new_width_routes = {}
+    for phase, cfg_3b, name, old in (
+            ("openllama3b_forward", openllama_3b(), "open_llama_3b widths",
+             ("forward_on_simt", d100_forward_on_simt)),
+            ("stablelm3b_forward", stablelm_3b_4e1t(), "stablelm_3b_4e1t widths",
+             ("forward_on_mma", d80_forward_on_mma))):
+        new_width_routes[phase] = phase_forward(
+            attn, llama, cfg_3b, phase=phase, config=name,
+            turns={"wgmma": contextlib.nullcontext, old[0]: old[1]})[3]
     free_memory()
     ring_launches = phase_ring(attn, ring, variants)
     ulysses_launches = phase_ulysses(attn, ulysses, variants)
@@ -3095,6 +3256,7 @@ def main() -> int:
                              "phi3_forward": phi3_fwd_routes,
                              "phi3_train_step": phi3_step_routes["flash_fwd"],
                              "fp16_forward": fp16_fwd_routes,
+                             **new_width_routes,
                              "tune_attention": tune_routes["flash_fwd"].get("wgmma", 0),
                              **{path: routes["flash_fwd"].get("wgmma", 0)
                                 for path, routes in bench_routes.items()}},

@@ -122,6 +122,9 @@ def _hopper_lib():
     lib.hopper_wgmma_ss64.argtypes = [p, p, i32, p, p]
     lib.hopper_wgmma_rs64.argtypes = [p, p, p, p]
     lib.hopper_wgmma_rs96.argtypes = [p, p, i32, p, p]
+    lib.hopper_wgmma_rs80.argtypes = [p, p, i32, p, p]
+    lib.hopper_wgmma_rs104.argtypes = [p, p, i32, p, p]
+    lib.hopper_cp_async_tile.argtypes = [p, p, i64, i32, i32, p, p, p, p]
     lib.hopper_wgmma_ss_f16.argtypes = [p, p, i32, p, p]
     lib.hopper_wgmma_rs_f16.argtypes = [p, p, p, p]
     lib.hopper_wgmma_ss64_f16.argtypes = [p, p, i32, p, p]
@@ -276,6 +279,71 @@ def test_wgmma_rs96_tile_is_a_matmul(gpu, rows):
                                            out.data_ptr(), _stream()) == 0
     torch.cuda.synchronize()
     torch.testing.assert_close(out, p.float() @ v.float(), atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("rows", [64, 128])
+@pytest.mark.parametrize("n", [80, 104])
+def test_wgmma_rs80_and_rs104_tiles_are_matmuls(gpu, n, rows):
+    """m64n80k16 and m64n104k16 with A from registers and B a [rows, n]
+    MN-major tile read as two 64-column boxes, the second zero-filled past
+    column n: the D = 80 forward's P V, and the D = 100 forward's (whose V
+    columns 100-103 are zeros)."""
+    gen = torch.Generator(gpu).manual_seed(6)
+    p = torch.rand(64, rows, generator=gen, device=gpu).to(torch.bfloat16)
+    v = torch.randn(rows, n, generator=gen, device=gpu).to(torch.bfloat16)
+    out = torch.empty(64, n, device=gpu)
+    fn = _hopper_lib().hopper_wgmma_rs80 if n == 80 else _hopper_lib().hopper_wgmma_rs104
+    assert fn(p.data_ptr(), v.data_ptr(), rows, out.data_ptr(), _stream()) == 0
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, p.float() @ v.float(), atol=1e-3, rtol=1e-4)
+
+
+# (rows S, row stride, offset of the base in elements, a_row0): rows of 100
+# bf16 (200 bytes) as the D = 100 forward's producer copies them, with bases
+# 8 bytes off a 16-byte boundary, a ragged end and a [B, S, H, 100] view's
+# second head
+CP_ASYNC_TILES = {
+    "contiguous": (128, 100, 0, 0),
+    "base_8_bytes_off": (128, 100, 4, 64),
+    "ragged_100_rows": (100, 100, 0, 64),
+    "bshd_head_1": (128, 3200, 100, 0),
+}
+
+
+@pytest.mark.parametrize("case", list(CP_ASYNC_TILES))
+def test_cp_async_tile_reads_back_through_wgmma(gpu, case):
+    """Two row sets A and B copied by `cp_async_rows` into the 128-wide
+    swizzled layout (zeros past row S and in columns 100-127), read back
+    through wgmma: A B^T over 7 SS k-steps and P B with m64n104k16, as the
+    D = 100 forward's Q K^T and P V; a wrong swizzle or piece breaks both."""
+    s, ss, offset, a_row0 = CP_ASYNC_TILES[case]
+    gen = torch.Generator(gpu).manual_seed(7)
+    flat = [torch.randn(offset + (s - 1) * ss + 100, generator=gen, device=gpu)
+            .to(torch.bfloat16) for _ in range(2)]
+    a, b = (x[offset:].as_strided((s, 100), (ss, 1)) for x in flat)
+    assert a.data_ptr() % 8 == 0
+    p = torch.rand(64, 128, generator=gen, device=gpu).to(torch.bfloat16)
+    out_s = torch.empty(64, 128, device=gpu)
+    out_o = torch.empty(64, 104, device=gpu)
+    assert _hopper_lib().hopper_cp_async_tile(
+        a.data_ptr(), b.data_ptr(), ss, s, a_row0, p.data_ptr(), out_s.data_ptr(),
+        out_o.data_ptr(), _stream()) == 0
+    torch.cuda.synchronize()
+    a128, b128 = (torch.zeros(128, 100, device=gpu) for _ in range(2))
+    a128[:s], b128[:s] = a.float(), b.float()
+    torch.testing.assert_close(out_s, a128[a_row0:a_row0 + 64] @ b128.T, atol=1e-3,
+                               rtol=1e-4)
+    torch.testing.assert_close(out_o[:, :100], p.float() @ b128, atol=1e-3, rtol=1e-4)
+    assert not out_o[:, 100:].any()
+
+
+def test_cp_async_tile_refuses_rows_off_8_bytes(gpu):
+    x = torch.zeros(2 + 128 * 100, dtype=torch.bfloat16, device=gpu)
+    out = torch.empty(64, 128, device=gpu)
+    lib = _hopper_lib()
+    for ptr, ss in ((x[2:].data_ptr(), 100), (x.data_ptr(), 102)):
+        assert lib.hopper_cp_async_tile(ptr, x.data_ptr(), ss, 128, 0, x.data_ptr(),
+                                        out.data_ptr(), out.data_ptr(), _stream()) == 1
 
 
 # (b, h, kvh, sq, sk), causal, window: shapes that reach each path of the
@@ -555,6 +623,165 @@ def test_wgmma96_dq_is_bit_repeatable(gpu, case):
     assert torch.equal(*runs)
 
 
+# the forward's wgmma kernels at head dims 80 and 100 (flash_fwd_wgmma80_kernel,
+# flash_fwd_wgmma100_kernel: StableLM-3B's and OpenLLaMA-3B's attention), at
+# the models' shape and every path of their loops; at 100 the model's views
+# put every other head's base 8 bytes off a 16-byte boundary
+NEW_WIDTH_SHAPES = {
+    "s2048_32_heads": ((1, 32, 32, 2048, 2048), True, None),
+    "ragged_300": ((2, 4, 4, 300, 300), True, None),
+    "cross_256x1024": ((1, 4, 4, 256, 1024), True, None),
+    "window_512": ((1, 2, 2, 2048, 2048), True, 512),
+    "gqa_32_8": ((1, 32, 8, 512, 512), True, None),
+    "non_causal": ((1, 4, 2, 320, 448), False, None),
+}
+
+
+@pytest.mark.parametrize("case", list(NEW_WIDTH_SHAPES))
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+@pytest.mark.parametrize("d", [80, 100])
+def test_wgmma_forward_at_80_and_100_matches_the_plain_version(gpu, d, case, layout):
+    (b, h, kvh, sq, sk), causal, window = NEW_WIDTH_SHAPES[case]
+    q, k, v = _qkv(gpu, torch.bfloat16, b, h, kvh, sq, sk, d)
+    if layout == "bshd":  # the model's transposed views of [B, S, H, D]
+        q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
+    assert attn._route("flash_fwd", q, k, v) == "wgmma"
+    before = attn.flash_fwd.launches_by_route["wgmma"]
+    o, lse = attn.flash_fwd(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert attn.flash_fwd.launches_by_route["wgmma"] == before + 1
+    assert o.shape == q.shape and o.is_contiguous()
+    ro, rl = attn.reference_attention_with_lse(q, k, v, causal, window)
+    torch.testing.assert_close(o.float(), ro.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, rl, atol=1e-3, rtol=1e-3)
+    assert tile_rel_l2(o, ro) <= 1e-2
+
+
+def test_wgmma_forward_at_100_takes_bases_8_bytes_off(gpu):
+    """Tensors that start 4 elements (8 bytes) into their storage: the
+    head-dim-100 forward takes them on wgmma, as the plain version."""
+    flat = [t.flatten() for t in _qkv(gpu, torch.bfloat16, 1, 4, 4, 260, 260, 100)]
+    q, k, v = (torch.cat([x.new_zeros(4), x])[4:].view(1, 4, 260, 100) for x in flat)
+    assert q.data_ptr() % 16 == 8 and attn._route("flash_fwd", q, k, v) == "wgmma"
+    o, lse = attn.flash_fwd(q, k, v)
+    torch.cuda.synchronize()
+    ro, rl = attn.reference_attention_with_lse(q, k, v)
+    torch.testing.assert_close(o.float(), ro.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, rl, atol=1e-3, rtol=1e-3)
+    assert tile_rel_l2(o, ro) <= 1e-2
+
+
+@pytest.mark.parametrize("d,old", [(80, "mma"), (100, "simt")])
+def test_wgmma_forward_at_80_and_100_matches_the_old_route(gpu, d, old):
+    q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+               for t in _qkv(gpu, torch.bfloat16, 1, 8, 4, 1024, 1024, d, seed=2))
+    o1, l1 = attn.flash_fwd(q, k, v, route=old)
+    o2, l2 = attn.flash_fwd(q, k, v, route="wgmma")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o2.float(), o1.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(l2, l1, atol=1e-3, rtol=1e-3)
+    assert tile_rel_l2(o2, o1) <= 1e-2
+
+
+def _c_entry(name, tensors, route, out_scale=None):
+    """csrc/'s entry `name` called straight on `route` with the wrapper's
+    arguments (q, k, v for the forward, q, k, v, dO and the backward's
+    `out_scale` for the backward), past `_routes`: its cudaError_t."""
+    q, k = tensors[0], tensors[1]
+    b, h, sq, d = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    strides = [st for t in tensors for st in t.stride()[:3]]
+    tail = (attn._KERNEL_DTYPES[q.dtype], attn._ROUTES[route], q.get_device(), b, h, kvh,
+            sq, sk, d, *strides, 1, 0, 1.0 / d ** 0.5, _stream())
+    lse = torch.zeros((b, h, sq), device=q.device)
+    o = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
+    if name == "flash_fwd":
+        return attn._flash_lib().flash_fwd(*(t.data_ptr() for t in (*tensors, o, lse)), *tail)
+    outs = (o,) if name == "flash_bwd_dq" else (o, torch.empty_like(o))
+    return getattr(attn._bwd_lib(), name)(
+        *(t.data_ptr() for t in (*tensors, lse, lse, *outs)),
+        None if out_scale is None else out_scale.data_ptr(), *tail)
+
+
+@pytest.mark.parametrize("d", [80, 100])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_the_c_entries_admit_what_routes_admits_at_80_and_100(gpu, d, dtype):
+    """For each kernel, every base offset (0, 1, 2 and 4 elements) and both
+    layouts: csrc/'s entry takes the wgmma route (returns 0, and launches)
+    exactly where `_routes` offers it, and refuses it (cudaErrorInvalidValue,
+    1) elsewhere: the forward in bf16 at 80 and 100, no backward kernel."""
+    seen = set()
+    for offset in (0, 1, 2, 4):
+        for layout in ("bhsd", "bshd"):
+            n = 2 * 4 * 64 * d
+            x = torch.randn(offset + n, device=gpu).to(dtype)[offset:]
+            t = (x.view(2, 64, 4, d).transpose(1, 2) if layout == "bshd"
+                 else x.view(2, 4, 64, d))
+            for name, tensors in (("flash_fwd", (t,) * 3), ("flash_bwd_dq", (t,) * 4),
+                                  ("flash_bwd_dkv", (t,) * 4)):
+                admitted = "wgmma" in attn._routes(name, *tensors)
+                err = _c_entry(name, tensors, "wgmma")
+                torch.cuda.synchronize()
+                assert err == (0 if admitted else 1), (name, offset, layout)
+                seen.add((name, admitted))
+    fwd_takes = dtype == torch.bfloat16
+    assert seen == ({("flash_fwd", fwd_takes), ("flash_fwd", False)}
+                    | {("flash_bwd_dq", False), ("flash_bwd_dkv", False)})
+
+
+@pytest.mark.parametrize("lse_scale, sink", [(8.0, False), (1e3, False), (1e3, True)],
+                         ids=["8.0", "1000.0", "sink-1000.0"])
+def test_fp16_backward_keeps_a_large_lse_cotangent(gpu, lse_scale, sink):
+    """F10 on the card: the fp16 backward through the kernels' autograd node
+    (the fp16 wgmma kernels at head dim 128) with dO of a model's size and a
+    large LSE cotangent, finite and within twice the fp32 backward's own
+    rounding to fp16 of it (chip_smoke's phase 3 rows, smaller). With an
+    attention sink at key 0 and the cotangent of one sign, the sink's dK
+    (~2.7e4) times the cotangent scale (32) lies past fp16's largest value:
+    finite only because the kernels multiply their sums by the inverse
+    scale before rounding them."""
+    row = chip_smoke.fp16_lse_cotangent_row(attn, 1, 2, 256, 128, 1e-5, lse_scale, sink)
+    assert row["ok"], row
+    if sink:
+        assert row["errors"]["dk"]["max_abs"] * 32 > torch.finfo(torch.float16).max
+
+
+@pytest.mark.parametrize("route", ["simt", "mma", "wgmma"])
+def test_out_scale_multiplies_each_fp16_output_before_its_rounding(gpu, route):
+    """Each fp16 backward kernel at head dim 128 with out_scale 2^-3: its
+    outputs are those without it times 2^-3 (exact in fp16's normal range;
+    at most 2^-24 apart where the product is subnormal), one launch a call."""
+    args, _ = _bwd_inputs(gpu, "gqa_32_8", "bshd", seed=3, dtype=torch.float16)
+    out_scale = torch.tensor(0.125, device=gpu)
+    before = [fn.launches_by_route[route] for fn in (attn.flash_bwd_dq, attn.flash_bwd_dkv)]
+    got = (attn.flash_bwd_dq(*args, route=route, out_scale=out_scale),
+           *attn.flash_bwd_dkv(*args, route=route, out_scale=out_scale))
+    assert [fn.launches_by_route[route] for fn in (attn.flash_bwd_dq, attn.flash_bwd_dkv)] == [
+        n + 1 for n in before]
+    want = (attn.flash_bwd_dq(*args, route=route), *attn.flash_bwd_dkv(*args, route=route))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float16 and bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g.float(), w.float() * 0.125, rtol=0, atol=2.0 ** -24)
+
+
+def test_out_scale_is_fp16_alone(gpu):
+    """An out_scale beside bf16 inputs: the wrappers raise before any
+    launch, and csrc/'s entries refuse it (cudaErrorInvalidValue) on every
+    route."""
+    args, _ = _bwd_inputs(gpu, "s128", "bhsd")
+    out_scale = torch.tensor(0.5, device=gpu)
+    before = (attn.flash_bwd_dq.launches, attn.flash_bwd_dkv.launches)
+    for fn in (attn.flash_bwd_dq, attn.flash_bwd_dkv):
+        with pytest.raises(ValueError, match="out_scale"):
+            fn(*args, out_scale=out_scale)
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        for route in ("simt", "mma", "wgmma"):
+            assert _c_entry(name, args[:4], route, out_scale) == 1, (name, route)
+    torch.cuda.synchronize()
+    assert (attn.flash_bwd_dq.launches, attn.flash_bwd_dkv.launches) == before
+
+
 # the fp16 wgmma forward (flash_fwd_wgmma_f16_kernel, head dim 128: Llama-2's
 # published dtype) at WGMMA_SHAPES, in both layouts, held to fp16's bounds
 # (chip_smoke.TOL's, and the bf16 tile bound over 8)
@@ -681,22 +908,25 @@ def test_kernel_refuses_what_it_does_not_take(gpu, dtype, d):
 
 
 # head dims other than 32, 64 and 128, and fp16: the simt and mma kernels at
-# their padded widths (at 96, and fp16 at 128, on wgmma). (dtype, d, (b,
-# h, kvh, sq, sk), causal, window, layout, the route `_route` picks for
-# every kernel); "offset1" starts each tensor one element into its storage,
+# their padded widths (at 96, and fp16 at 128, on wgmma; at 80 and 100 the
+# forward). (dtype, d, (b, h, kvh, sq, sk), causal, window, layout, the
+# route `_route` picks for every kernel, or for the forward and the
+# backward); "offset1" starts each tensor one element into its storage,
 # off 16-byte alignment
 WIDE_CASES = {
     "bf16_d96_bshd": (torch.bfloat16, 96, (1, 8, 8, 512, 512), True, None, "bshd",
                       "wgmma"),
     "bf16_d96_gqa_window": (torch.bfloat16, 96, (1, 8, 2, 300, 300), True, 64, "bhsd",
                             "wgmma"),
-    "bf16_d80_cross": (torch.bfloat16, 80, (1, 4, 4, 128, 400), True, None, "bhsd", "mma"),
+    "bf16_d80_cross": (torch.bfloat16, 80, (1, 4, 4, 128, 400), True, None, "bhsd",
+                       ("wgmma", "mma")),
     "bf16_d256_gqa_8_1": (torch.bfloat16, 256, (1, 8, 1, 384, 384), True, None, "bshd",
                           "mma"),
     "bf16_d40_ragged": (torch.bfloat16, 40, (2, 4, 2, 300, 300), True, None, "bhsd", "mma"),
     "bf16_d8_non_causal": (torch.bfloat16, 8, (1, 2, 2, 70, 130), False, None, "bhsd",
                            "mma"),
-    "bf16_d100": (torch.bfloat16, 100, (1, 4, 4, 256, 256), True, None, "bhsd", "simt"),
+    "bf16_d100": (torch.bfloat16, 100, (1, 4, 4, 256, 256), True, None, "bhsd",
+                  ("wgmma", "simt")),
     "bf16_d1": (torch.bfloat16, 1, (1, 2, 2, 100, 100), True, None, "bhsd", "simt"),
     "fp16_d128": (torch.float16, 128, (1, 8, 8, 512, 512), True, None, "bhsd", "wgmma"),
     "fp16_d64_bshd": (torch.float16, 64, (2, 8, 8, 256, 256), True, None, "bshd", "mma"),

@@ -1,8 +1,8 @@
 """The port's attention at the head dims and dtypes past the kernels' first
 widths (head dims 40, 80, 96, 100, 256 and 320; fp16 beside fp32 and bf16,
-at 128 too),
-and a tiny Llama whose head dim is 48, against the JAX package on the same
-inputs.
+at 128 too), the fp16 backward's cotangent scale under small and large
+cotangents, and tiny Llamas whose head dims are 48, 80 and 100, against the
+JAX package on the same inputs.
 
 The JAX kernels take `d` from the array and compute in any float dtype, so
 every such model runs in the JAX package; the port's kernels run these head
@@ -198,7 +198,7 @@ def test_fp16_llama_logits_match_jax(head_dim):
 # where the kernels round dS to fp16 for their products; the kernels'
 # autograd node scales the cotangents by a power of two first
 # (`attention._fp16_cotangent_scale`). Relative L2 of each gradient against
-# the JAX kernels' (dS in fp32): the scaled path reads 2.4e-3-3.3e-3 on the
+# the JAX kernels' (dS in fp32): the scaled path reads 1.8e-3-2.5e-3 on the
 # CPU (seed 12), the unscaled twin 0.105 for dQ and dK.
 SMALL_COTANGENT = 1e-5
 SMALL_COTANGENT_REL_L2 = 1e-2
@@ -209,13 +209,13 @@ def _kernel_twins(monkeypatch):
     rounds P and dS where the kernels do) behind the kernels' wrappers, and
     the wrappers' autograd node on CPU tensors. MHA only: the kernels'
     dK/dV per q head equal the group sums there."""
-    def dq(q, k, v, do, lse, delta, causal=True, window=None):
+    def dq(q, k, v, do, lse, delta, causal=True, window=None, out_scale=None):
         return tattn.flash_backward_reference(q, k, v, torch.zeros_like(q), lse, do, causal,
-                                              window, -delta)[0]
+                                              window, -delta, out_scale)[0]
 
-    def dkv(q, k, v, do, lse, delta, causal=True, window=None):
+    def dkv(q, k, v, do, lse, delta, causal=True, window=None, out_scale=None):
         return tattn.flash_backward_reference(q, k, v, torch.zeros_like(q), lse, do, causal,
-                                              window, -delta)[1:]
+                                              window, -delta, out_scale)[1:]
 
     monkeypatch.setattr(tattn, "flash_fwd", lambda q, k, v, causal=True, window=None: (
         tattn.reference_attention_with_lse(q, k, v, causal, window)))
@@ -225,13 +225,24 @@ def _kernel_twins(monkeypatch):
         tattn._FlashFwd.apply(q, k, v, causal, window)))
 
 
-def test_fp16_backward_keeps_small_cotangents(monkeypatch):
-    _kernel_twins(monkeypatch)
+def _fp16_vjp(lse_scale, sink=False):
+    """The fp16 gradients of flash_attention_with_lse (B=1, H=2, S=256, d=96,
+    causal, seed 12) for dO of a model's size (SMALL_COTANGENT) and an LSE
+    cotangent of `lse_scale`: (the port's autograd node's dQ, dK, dV, the
+    backward twin's without the cotangent scale, the JAX VJP's, the port's
+    cotangent scale). `sink`: key 0 is an attention sink (every component
+    2, q's components of mean 1, so that each row puts nearly all of its
+    weight on it) and the LSE cotangent is `lse_scale` everywhere, of one
+    sign (as a z-loss's 2 c lse is)."""
     rng = np.random.default_rng(12)
     b, h, s, d = 1, 2, 256, 96
     q, k, v, do = (rng.standard_normal((b, h, s, d), dtype=np.float32) for _ in range(4))
     do = do * SMALL_COTANGENT
-    g = rng.standard_normal((b, h, s), dtype=np.float32) * SMALL_COTANGENT
+    g = rng.standard_normal((b, h, s), dtype=np.float32) * lse_scale
+    if sink:
+        q = q + 1.0
+        k[:, :, 0] = 2.0
+        g = np.full_like(g, lse_scale)
     jx = [jnp.asarray(a).astype("float16") for a in (q, k, v)]
     _, vjp = jax.vjp(lambda q, k, v: jattn.flash_attention_with_lse(q, k, v), *jx)
     want = [_np(x) for x in vjp((jnp.asarray(do).astype("float16"), jnp.asarray(g)))]
@@ -241,13 +252,78 @@ def test_fp16_backward_keeps_small_cotangents(monkeypatch):
     torch.autograd.backward([o, lse], [tdo, tg])
     unscaled = tattn.flash_backward_reference(tq.detach(), tk.detach(), tv.detach(),
                                               o.detach(), lse.detach(), tdo, g_lse=tg)
+    scale = tattn._fp16_cotangent_scale(tdo, tattn.backward_delta(o.detach(), tdo, tg))
+    return (tq.grad, tk.grad, tv.grad), unscaled, want, float(scale)
 
-    def rel(got, w):
-        return float(np.linalg.norm(_np(got) - w) / np.linalg.norm(w))
 
-    for name, got, raw, w in zip(("dq", "dk", "dv"), (tq.grad, tk.grad, tv.grad),
-                                 unscaled, want):
+def _rel(got, w):
+    return float(np.linalg.norm(_np(got) - w) / np.linalg.norm(w))
+
+
+def test_fp16_backward_keeps_small_cotangents(monkeypatch):
+    _kernel_twins(monkeypatch)
+    grads, unscaled, want, _ = _fp16_vjp(SMALL_COTANGENT)
+    for name, got, raw, w in zip(("dq", "dk", "dv"), grads, unscaled, want):
         assert got.dtype == torch.float16
-        assert rel(got, w) <= SMALL_COTANGENT_REL_L2, name
+        assert _rel(got, w) <= SMALL_COTANGENT_REL_L2, name
         if name != "dv":  # dV = P^T dO rounds no dS
-            assert rel(raw, w) > SMALL_COTANGENT_REL_L2, name
+            assert _rel(raw, w) > SMALL_COTANGENT_REL_L2, name
+
+
+def _assert_finite_and_close(grads, want):
+    for name, got, w in zip(("dq", "dk", "dv"), grads, want):
+        assert got.dtype == torch.float16 and bool(torch.isfinite(got).all()), name
+        assert _rel(got, w) <= SMALL_COTANGENT_REL_L2, name
+
+
+# a large LSE cotangent beside dO of a model's size (a z-loss on the LSE):
+# delta = rowsum(dO * O) - g_lse then outweighs dO by up to 1e8, and a scale
+# taken from dO alone would push the scaled delta, and dS with it, past
+# fp16's largest value (the kernels round dS to fp16). The scale also bounds
+# delta (`attention._FP16_DELTA_LOG2`). With an attention sink under an LSE
+# cotangent of one sign (`sink`), the sink's dK sums dS over every q row,
+# ~3.1e4 in the JAX VJP, so that its value times the cotangent scale lies
+# past fp16's largest value: the kernels multiply their sums by the inverse
+# scale before rounding them to fp16 (`flash_bwd_dq`'s out_scale), so dK is
+# finite. Relative L2 against the JAX VJP on the CPU (seed 12), dQ / dK /
+# dV: 3.2e-4 / 3.4e-4 / 1.8e-3 at x8, 3.1e-4 / 3.3e-4 / 1.8e-3 at x1e3,
+# 2.0e-5 / 6.2e-5 / 1.3e-4 with the sink at x1e3
+@pytest.mark.parametrize("lse_scale, sink", [(8.0, False), (1e3, False), (1e3, True)],
+                         ids=["8.0", "1000.0", "sink-1000.0"])
+def test_fp16_backward_keeps_a_large_lse_cotangent(monkeypatch, lse_scale, sink):
+    _kernel_twins(monkeypatch)
+    grads, _, want, scale = _fp16_vjp(lse_scale, sink)
+    if sink:
+        assert np.abs(want[1]).max() * scale > float(torch.finfo(torch.float16).max)
+    for name, got, w in zip(("dq", "dk", "dv"), grads, want):
+        assert got.dtype == torch.float16 and bool(torch.isfinite(got).all()), name
+        assert _rel(got, w) <= SMALL_COTANGENT_REL_L2, name
+
+
+def test_a_scale_from_do_alone_overflows_ds(monkeypatch):
+    """The case the bound on delta is for: at an LSE cotangent of x1e3, the
+    scale from max |dO| alone (no bound on delta) rounds dS past fp16's
+    largest value, and dQ and dK come out inf."""
+    _kernel_twins(monkeypatch)
+    monkeypatch.setattr(tattn, "_FP16_DELTA_LOG2", 10_000)
+    grads, _, _, _ = _fp16_vjp(1e3)
+    for name, got in zip(("dq", "dk"), grads):
+        assert not bool(torch.isfinite(got).all()), name
+
+
+# Llamas at OpenLLaMA-3B's and StableLM-3B's head dims (100 and 80), cut to
+# 2 layers of 2 heads, whose forwards take the wgmma forward kernels at those
+# widths on the card: fp32 logits against the JAX package's, summation order
+# only (the bound of tests/test_torch_llama.py)
+@pytest.mark.parametrize("head_dim", [80, 100])
+def test_new_width_llama_logits_match_jax(head_dim):
+    jcfg = dataclasses.replace(jllama.LlamaConfig.tiny(), dim=2 * head_dim, n_heads=2,
+                               n_kv_heads=2, ffn_dim=256, dtype="float32")
+    assert jcfg.head_dim == _twin(jcfg).head_dim == head_dim and jcfg.n_layers == 2
+    jparams = jllama.init_llama(jcfg, jax.random.PRNGKey(9))
+    tokens = np.random.default_rng(10).integers(0, jcfg.vocab_size, (2, 40))
+    want = jllama.llama_forward(jparams, jnp.asarray(tokens), jcfg)
+    got = tllama.llama_forward(_port_params(jcfg, jparams), torch.from_numpy(tokens),
+                               _twin(jcfg))
+    assert got.shape == want.shape
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-4, rtol=1e-4)

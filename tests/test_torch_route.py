@@ -38,9 +38,12 @@ CASES = {
                           _bhsd(1, 4, 0, 128)], "mma"),
     # head dims past wgmma's and fp16: mma takes aligned rows whose head dim
     # is a multiple of 8 up to 256, simt the rest; wgmma takes bf16 at 64,
-    # 96 (Phi-3-mini's) and 128, and fp16 at 128
+    # 96 (Phi-3-mini's) and 128, and fp16 at 128; the forward's wgmma also
+    # bf16 at 80 (StableLM-3B's) and at 100 (OpenLLaMA-3B's), whose rows it
+    # copies in 8-byte pieces: bases 8-byte aligned, strides multiples of 4
     "bf16_d96": (lambda: [_bhsd(1, 4, 64, 96)] * 3, "wgmma"),
-    "bf16_d80": (lambda: [_bhsd(1, 4, 64, 80)] * 3, "mma"),
+    "bf16_d80": (lambda: [_bhsd(1, 4, 64, 80)] * 3, "wgmma"),
+    "bf16_d80_bshd_view": (lambda: [_model_view(2, 64, 4, 80)] * 3, "wgmma"),
     "bf16_d256_gqa": (lambda: [_bhsd(1, 8, 64, 256)] + [_bhsd(1, 1, 64, 256)] * 2,
                       "mma"),
     "fp16_d128": (lambda: [_bhsd(1, 4, 64, 128, torch.float16)] * 3, "wgmma"),
@@ -48,8 +51,17 @@ CASES = {
                             "wgmma"),
     "fp16_d64": (lambda: [_bhsd(1, 4, 64, 64, torch.float16)] * 3, "mma"),
     "fp16_d96": (lambda: [_bhsd(1, 4, 64, 96, torch.float16)] * 3, "mma"),
-    "bf16_d100": (lambda: [_bhsd(1, 4, 64, 100)] * 3, "simt"),
-    "bf16_d100_aligned_rows": (lambda: [_bhsd(1, 4, 64, 104)[..., :100]] * 3, "simt"),
+    "bf16_d100": (lambda: [_bhsd(1, 4, 64, 100)] * 3, "wgmma"),
+    "bf16_d100_aligned_rows": (lambda: [_bhsd(1, 4, 64, 104)[..., :100]] * 3, "wgmma"),
+    "bf16_d100_bshd_view": (lambda: [_model_view(2, 64, 4, 100)] * 3, "wgmma"),
+    "bf16_d100_offset_by_one": (lambda: [_bhsd(1, 4, 64, 100, offset=1)] * 3, "simt"),
+    "bf16_d100_offset_by_two": (lambda: [_bhsd(1, 4, 64, 100, offset=2)] * 3, "simt"),
+    "bf16_d100_odd_seq_stride": (lambda: [_bhsd(1, 4, 64, 102)[..., :100]] * 3, "simt"),
+    "bf16_d100_empty_kv": (lambda: [_bhsd(1, 4, 64, 100), _bhsd(1, 4, 0, 100),
+                                    _bhsd(1, 4, 0, 100)], "simt"),
+    "fp16_d100": (lambda: [_bhsd(1, 4, 64, 100, torch.float16)] * 3, "simt"),
+    "fp16_d80": (lambda: [_bhsd(1, 4, 64, 80, torch.float16)] * 3, "mma"),
+    "fp32_d80": (lambda: [_bhsd(1, 4, 64, 80, torch.float32)] * 3, "simt"),
     "fp16_offset_by_one": (lambda: [_bhsd(1, 4, 64, 128, torch.float16, offset=1)] * 3,
                            "simt"),
     "fp16_d40": (lambda: [_bhsd(1, 4, 64, 40, torch.float16)] * 3, "mma"),
@@ -67,8 +79,10 @@ def test_route_follows_the_inputs(case):
 
 
 # the head dims each kernel has a wgmma kernel for (csrc/), by dtype: every
-# kernel at 64, 96 and 128 in bf16, and at 128 in fp16
-WGMMA_TAKES = {torch.bfloat16: {"flash_fwd": (64, 96, 128), "flash_bwd_dq": (64, 96, 128),
+# kernel at 64, 96 and 128 in bf16, and at 128 in fp16; the forward at 80 in
+# bf16 too (and at 100, whose rows are not 16-byte aligned: not among these)
+WGMMA_TAKES = {torch.bfloat16: {"flash_fwd": (64, 80, 96, 128),
+                                "flash_bwd_dq": (64, 96, 128),
                                 "flash_bwd_dkv": (64, 96, 128)},
                torch.float16: {"flash_fwd": (128,), "flash_bwd_dq": (128,),
                                "flash_bwd_dkv": (128,)}}
@@ -87,8 +101,9 @@ def _assert_wgmma_admits(kernel, d, dtype, wgmma):
     (kernel, d, d in WGMMA_TAKES[torch.bfloat16][kernel])
     for kernel in KERNELS for d in HEAD_DIMS])
 def test_wgmma_admits_each_kernels_head_dims(kernel, d, wgmma):
-    """wgmma takes head dims 64, 96 and 128 in bf16 for each kernel
-    (`WGMMA_TAKES`); every aligned bf16 head dim keeps mma, up to 256."""
+    """wgmma takes head dims 64, 96 and 128 in bf16 for each kernel, and 80
+    for the forward (`WGMMA_TAKES`); every aligned bf16 head dim keeps mma,
+    up to 256."""
     _assert_wgmma_admits(kernel, d, torch.bfloat16, wgmma)
 
 
@@ -104,10 +119,12 @@ def test_wgmma_admits_fp16_at_head_dim_128_alone(kernel, d, wgmma):
 
 @pytest.mark.parametrize("case,route", [
     ("fp32_d128", "wgmma"), ("fp32_d128", "mma"), ("bf16_d32", "wgmma"),
-    ("bf16_offset_by_one", "mma"), ("bf16_d128", "tma"), ("bf16_d80", "wgmma"),
+    ("bf16_offset_by_one", "mma"), ("bf16_d128", "tma"), ("fp16_d80", "wgmma"),
     ("fp16_d64", "wgmma"), ("fp16_d96", "wgmma"), ("bf16_d100", "mma"),
     ("bf16_d100_aligned_rows", "mma"), ("fp16_offset_by_one", "mma"),
-    ("fp16_offset_by_one", "wgmma")])
+    ("fp16_offset_by_one", "wgmma"), ("bf16_d100_offset_by_two", "wgmma"),
+    ("bf16_d100_odd_seq_stride", "wgmma"), ("bf16_d100_empty_kv", "wgmma"),
+    ("fp16_d100", "wgmma"), ("fp32_d80", "wgmma")])
 def test_a_route_that_cannot_take_the_inputs_raises(case, route):
     q, k, v = CASES[case][0]()
     before = attn.flash_fwd.launches
@@ -185,12 +202,14 @@ BWD_CASES = {
     "bf16_d96": (lambda: [_bhsd(1, 4, 64, 96)] * 4, "wgmma"),
     "bf16_d96_model_views": (lambda: [_model_view(1, 64, 4, 96)] * 4, "wgmma"),
     "bf16_d80": (lambda: [_bhsd(1, 4, 64, 80)] * 4, "mma"),
+    "bf16_d80_model_views": (lambda: [_model_view(1, 64, 4, 80)] * 4, "mma"),
     "fp16_d128": (lambda: [_bhsd(1, 4, 64, 128, torch.float16)] * 4, "wgmma"),
     "fp16_d128_model_views": (lambda: [_model_view(1, 64, 4, 128, torch.float16)] * 4,
                               "wgmma"),
     "fp16_d96": (lambda: [_bhsd(1, 4, 64, 96, torch.float16)] * 4, "mma"),
     "fp16_d64": (lambda: [_model_view(1, 64, 4, 64, torch.float16)] * 4, "mma"),
     "bf16_d100": (lambda: [_bhsd(1, 4, 64, 100)] * 4, "simt"),
+    "bf16_d100_model_views": (lambda: [_model_view(1, 64, 4, 100)] * 4, "simt"),
     "fp16_do_offset_by_one": (lambda: [_bhsd(1, 4, 64, 128, torch.float16)] * 3
                               + [_bhsd(1, 4, 64, 128, torch.float16, offset=1)], "simt"),
 }
@@ -216,12 +235,14 @@ def test_backward_route_follows_the_inputs(case):
 
 
 # (case, route) both backward kernels must refuse (fp16 has a wgmma backward
-# kernel at head dim 128 alone, for aligned rows)
+# kernel at head dim 128 alone, for aligned rows; bf16 none at 80 or 100)
 BWD_REFUSALS = [("fp32_d128", "wgmma"), ("fp32_d128", "mma"), ("bf16_d32", "wgmma"),
                 ("do_offset_by_one", "mma"), ("do_odd_seq_stride", "wgmma"),
                 ("empty_kv", "wgmma"), ("bf16_d128", "tma"), ("bf16_d80", "wgmma"),
                 ("fp16_d64", "wgmma"), ("fp16_d96", "wgmma"), ("bf16_d100", "mma"),
-                ("fp16_do_offset_by_one", "mma"), ("fp16_do_offset_by_one", "wgmma")]
+                ("fp16_do_offset_by_one", "mma"), ("fp16_do_offset_by_one", "wgmma"),
+                ("bf16_d100", "wgmma"), ("bf16_d100_model_views", "wgmma"),
+                ("bf16_d80_model_views", "wgmma")]
 
 
 @pytest.mark.parametrize("fn,case,route", [
@@ -258,9 +279,10 @@ def _a_models_launch_routes(monkeypatch, cfg):
         seen.append(("flash_fwd", attn._route("flash_fwd", q, k, v)))
         return attn.reference_attention_with_lse(q, k, v, causal, window)
 
-    def bwd(name, q, k, v, do, lse, delta, causal=True, window=None):
+    def bwd(name, q, k, v, do, lse, delta, causal=True, window=None, out_scale=None):
         seen.append((name, attn._route(name, q, k, v, do)))
-        return attn.flash_backward_reference(q, k, v, q, lse, do, causal, window)
+        return attn.flash_backward_reference(q, k, v, q, lse, do, causal, window,
+                                             out_scale=out_scale)
 
     monkeypatch.setattr(attn, "flash_fwd", fwd)
     monkeypatch.setattr(attn, "flash_bwd_dq", lambda *a, **kw: bwd("flash_bwd_dq", *a, **kw)[0])
@@ -458,8 +480,9 @@ def _wide_rows():
 @pytest.mark.parametrize("row", _wide_rows(), ids=lambda row: row[0])
 def test_the_smokes_wide_rows_take_their_routes(row):
     """Each row chip_smoke adds at the new head dims and in fp16 names the
-    route `_route` picks for each kernel there: wgmma only at head dim 96
-    in bf16 and in fp16 at 128 aligned, for every kernel."""
+    route `_route` picks for each kernel there: wgmma at head dim 96 in bf16
+    and in fp16 at 128 aligned, for every kernel, and for the forward alone
+    at 80 and 100 in bf16 (not one element into its storage)."""
     import chip_smoke
 
     q, k, v, do = _smoke_row_tensors(row)
@@ -469,7 +492,8 @@ def test_the_smokes_wide_rows_take_their_routes(row):
         assert attn._route(name, q, k, v, do) == want[name]
     d96 = row[6] == 96 and row[9] == torch.bfloat16
     fp16_128 = row[6] == 128 and row[9] == torch.float16 and row[10] != "offset1"
-    assert ("wgmma" in attn._routes("flash_fwd", q, k, v)) == (d96 or fp16_128)
+    fwd_alone = row[6] in (80, 100) and row[9] == torch.bfloat16 and row[10] != "offset1"
+    assert ("wgmma" in attn._routes("flash_fwd", q, k, v)) == (d96 or fp16_128 or fwd_alone)
     assert ("wgmma" in attn._routes("flash_bwd_dkv", q, k, v, do)) == (d96 or fp16_128)
     assert ("wgmma" in attn._routes("flash_bwd_dq", q, k, v, do)) == (d96 or fp16_128)
     assert row[6] <= attn.KERNEL_MAX_HEAD_DIM
@@ -529,3 +553,107 @@ def test_fp16_backward_on_mma_moves_the_backward_alone_and_restores():
     assert attn._WGMMA_HEAD_DIMS == saved
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         assert attn._route(name, *h) == "wgmma"
+
+
+# head dims 80 (StableLM-3B-4E1T's) and 100 (OpenLLaMA-3B's): the forward has
+# a wgmma kernel at each in bf16, the backward kernels none (mma at 80, simt
+# at 100, whose rows are no multiple of 8 elements)
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+@pytest.mark.parametrize("d,bwd", [(80, ("simt", "mma")), (100, ("simt",))])
+def test_the_forward_alone_takes_wgmma_at_head_dims_80_and_100(d, bwd, layout):
+    """bf16, contiguous and as the model's views: the forward's routes end in
+    wgmma (after mma at 80, straight after simt at 100); dQ and dK/dV keep
+    the routes they had."""
+    q, k, v, do = ([_bhsd(1, 4, 64, d)] if layout == "bhsd" else [_model_view(1, 64, 4, d)]) * 4
+    assert attn._routes("flash_fwd", q, k, v) == bwd + ("wgmma",)
+    for kernel in BWD_KERNELS:
+        assert attn._routes(kernel, q, k, v, do) == bwd
+
+
+@pytest.mark.parametrize("d", [80, 100])
+@pytest.mark.parametrize("dtype,offset", [(torch.float16, 0), (torch.float32, 0),
+                                          (torch.bfloat16, 1), (torch.bfloat16, 2)])
+def test_no_wgmma_forward_at_80_or_100_but_aligned_bf16(d, dtype, offset):
+    """fp16 and fp32 at those widths, and bf16 rows that start one or two
+    elements into their storage (2 or 4 bytes off an 8-byte boundary), take
+    no wgmma route, and a named one raises with no launch."""
+    q = _bhsd(1, 4, 64, d, dtype, offset=offset)
+    assert "wgmma" not in attn._routes("flash_fwd", q, q, q)
+    before = (attn.flash_fwd.launches, dict(attn.flash_fwd.launches_by_route))
+    with pytest.raises(ValueError, match="route 'wgmma' cannot take"):
+        attn.flash_fwd(q, q, q, route="wgmma")
+    assert (attn.flash_fwd.launches, attn.flash_fwd.launches_by_route) == before
+
+
+@pytest.mark.parametrize("dim,bwd", [(160, "mma"), (200, "simt")])
+def test_the_models_forward_at_head_dims_80_and_100(monkeypatch, dim, bwd):
+    """A bf16 layer at head_dim 80 and 100 (`_a_models_launch_routes`):
+    both forward launches take wgmma, and the backward launchers the route
+    they took before (mma at 80, simt at 100)."""
+    cfg = _one_layer(dim)
+    assert cfg.head_dim == dim // 2
+    assert _a_models_launch_routes(monkeypatch, cfg) == [
+        ("flash_fwd", "wgmma"), ("flash_fwd", "wgmma"), ("flash_bwd_dq", bwd),
+        ("flash_bwd_dkv", bwd)]
+
+
+def test_the_new_width_configs_have_their_published_widths():
+    """`profile_path.openllama_3b` and `stablelm_3b_4e1t` against their
+    published config.json (hidden, layers, heads, KV heads, head dim,
+    intermediate, vocab, rope theta, norm eps, positions), bf16."""
+    from yoda_scheduler_tpu_torch.profile_path import openllama_3b, stablelm_3b_4e1t
+
+    fields = ("dim", "n_layers", "n_heads", "n_kv_heads", "head_dim", "ffn_dim",
+              "vocab_size", "rope_theta", "norm_eps", "max_seq_len", "dtype")
+    for cfg, want in ((openllama_3b(), (3200, 26, 32, 32, 100, 8640, 32000, 10000.0, 1e-6,
+                                        2048, "bfloat16")),
+                      (stablelm_3b_4e1t(), (2560, 32, 32, 32, 80, 6912, 50304, 10000.0,
+                                            1e-5, 4096, "bfloat16"))):
+        assert tuple(getattr(cfg, f) for f in fields) == want
+        assert not cfg.is_moe and cfg.sliding_window is None
+
+
+def test_the_new_width_forwards_expect_every_launch_on_wgmma():
+    """chip_smoke's openllama3b_forward and stablelm3b_forward expect one
+    flash_fwd launch a layer on wgmma (`phase_forward`'s route): `_route`
+    picks it on each config's model views at its head dim, and each old
+    route set (`profile_path.d100_forward_on_simt`, `d80_forward_on_mma`)
+    moves the forward alone, to simt at 100 and mma at 80, and restores."""
+    import chip_smoke
+    from yoda_scheduler_tpu_torch.profile_path import (d80_forward_on_mma,
+                                                       d100_forward_on_simt, openllama_3b,
+                                                       stablelm_3b_4e1t)
+
+    assert chip_smoke.shape_routes("wgmma")["flash_fwd"] == "wgmma"
+    saved = dict(attn._WGMMA_HEAD_DIMS)
+    for cfg, old_routes, old, bwd in ((openllama_3b(), d100_forward_on_simt, "simt", "simt"),
+                                      (stablelm_3b_4e1t(), d80_forward_on_mma, "mma", "mma")):
+        q, k, v, do = [_model_view(1, 64, cfg.n_heads, cfg.head_dim)] * 4
+        other = [_model_view(1, 64, 4, 96)] * 3
+        assert attn._route("flash_fwd", q, k, v) == "wgmma"
+        with old_routes():
+            assert attn._route("flash_fwd", q, k, v) == old
+            assert attn._route("flash_fwd", *other) == "wgmma"
+            for name in BWD_KERNELS:
+                assert attn._route(name, q, k, v, do) == bwd
+        assert attn._WGMMA_HEAD_DIMS == saved
+        assert attn._route("flash_fwd", q, k, v) == "wgmma"
+
+
+def test_shape_routes_takes_a_forward_and_backward_pair():
+    """A SHAPES row at 80 or 100 names the forward's route and the backward
+    kernels' apart; the smoke's forward-only turn rows are such rows, among
+    its wide rows, each with a route before wgmma to be timed against."""
+    import chip_smoke
+
+    assert chip_smoke.shape_routes(("wgmma", "simt")) == {
+        "flash_fwd": "wgmma", "flash_bwd_dq": "simt", "flash_bwd_dkv": "simt"}
+    rows = {row[0]: row for row in chip_smoke.SHAPES}
+    assert set(chip_smoke.FWD_TURN_SHAPES) <= set(chip_smoke.WIDE_SHAPES)
+    assert {(rows[n][6], rows[n][10]) for n in chip_smoke.FWD_TURN_SHAPES} == {
+        (80, "bhsd"), (80, "bshd"), (100, "bhsd"), (100, "bshd")}
+    for name in chip_smoke.FWD_TURN_SHAPES:
+        old = "mma" if rows[name][6] == 80 else "simt"
+        q, k, v, _ = _smoke_row_tensors(rows[name])
+        assert rows[name][-1] == ("wgmma", old)
+        assert attn._routes("flash_fwd", q, k, v)[-2:] == (old, "wgmma")

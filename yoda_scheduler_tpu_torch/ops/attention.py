@@ -12,11 +12,12 @@ fp16 and any head_dim from 1 to 512 (`KERNEL_MAX_HEAD_DIM`), as the JAX
 kernels do, and raise otherwise.
 Each kernel has three routes, which `_route` picks per kernel from the
 inputs alone: "wgmma" (TMA and wgmma, 16-byte aligned rows: the model's
-path; bf16 at head_dim 64, 96 or 128 and fp16 at 128, for every kernel,
-`_WGMMA_HEAD_DIMS`), "mma" (mma.sync, other aligned bf16 and
-aligned fp16: rows 16-byte aligned and head_dim a multiple of 8, up to
-256) and "simt" (fp32, and every input the others do not take, head_dim
-past 256 among them). The simt and mma kernels run at a padded width (32,
+path; bf16 at head_dim 64, 96 or 128 and fp16 at 128, for every kernel;
+bf16 at 80, and at 100, whose 8-byte aligned rows its producer copies with
+cp.async, for the forward alone; `_WGMMA_HEAD_DIMS`), "mma" (mma.sync,
+other aligned bf16 and aligned fp16: rows 16-byte aligned and head_dim a
+multiple of 8, up to 256) and "simt" (fp32, and every input the others do
+not take, head_dim past 256 among them). The simt and mma kernels run at a padded width (32,
 64, 128, 256, and 512 for simt) with the true head_dim at run time. A named
 route that cannot take the inputs raises; nothing falls back to another
 route or to the plain versions. The CPU tests hold the routing; only the
@@ -74,7 +75,7 @@ def reference_attention_with_lse(q, k, v, causal: bool = True,
 
 
 def flash_backward_reference(q, k, v, o, lse, do, causal: bool = True,
-                             window: int | None = None, g_lse=None):
+                             window: int | None = None, g_lse=None, out_scale=None):
     """The plain backward of flash attention, the twin of the JAX package's
     `_flash_backward`: -> (dq, dk, dv) in the inputs' dtypes, dk/dv with
     k's head count. It computes the backward kernels' formula explicitly
@@ -83,7 +84,9 @@ def flash_backward_reference(q, k, v, o, lse, do, causal: bool = True,
     scale, dQ = dS K, dK = dS^T Q, dV = P^T dO. P and dS are rounded to the
     input dtype before their products, where the kernels round them (as
     `reference_attention_with_lse` rounds its probabilities). GQA: K/V are
-    repeated to q's heads and dK/dV group-summed back."""
+    repeated to q's heads and dK/dV group-summed back. `out_scale` (the
+    kernels' fp16 output factor, `flash_bwd_dq`) multiplies dQ, dK and dV
+    before their rounding."""
     _, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
     if window is not None and not causal:
@@ -108,6 +111,8 @@ def flash_backward_reference(q, k, v, o, lse, do, causal: bool = True,
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
     dk = group_sum(torch.einsum("bhqk,bhqd->bhkd", ds, qf), kvh)
     dv = group_sum(torch.einsum("bhqk,bhqd->bhkd", p, dof), kvh)
+    if out_scale is not None:
+        dq, dk, dv = (g * out_scale for g in (dq, dk, dv))
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -137,8 +142,8 @@ _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_int64] * 9
              + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
 _BWD_TAIL = ([ctypes.c_int] * 9 + [ctypes.c_int64] * 12
              + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
-_BWD_ARGTYPES = {"flash_bwd_dq": [ctypes.c_void_p] * 7 + _BWD_TAIL,
-                 "flash_bwd_dkv": [ctypes.c_void_p] * 8 + _BWD_TAIL}
+_BWD_ARGTYPES = {"flash_bwd_dq": [ctypes.c_void_p] * 8 + _BWD_TAIL,
+                 "flash_bwd_dkv": [ctypes.c_void_p] * 9 + _BWD_TAIL}
 
 
 def _flash_lib():
@@ -189,13 +194,21 @@ def _check_qkv(name: str, q, k, v, causal: bool):
 
 # the head dims each kernel's wgmma route takes, by (kernel, dtype)
 # (csrc/flash_fwd.cu, csrc/flash_bwd.cu): bf16 at 64, 96 and 128 and fp16 at
-# 128, for every kernel (fp16 at other head dims runs on mma)
-_WGMMA_HEAD_DIMS = {("flash_fwd", torch.bfloat16): (64, 96, 128),
+# 128, for every kernel, and bf16 at 80 and 100 for the forward alone (the
+# backward there, and fp16 at other head dims, runs on mma or simt)
+_WGMMA_HEAD_DIMS = {("flash_fwd", torch.bfloat16): (64, 80, 96, 100, 128),
                     ("flash_bwd_dq", torch.bfloat16): (64, 96, 128),
                     ("flash_bwd_dkv", torch.bfloat16): (64, 96, 128),
                     ("flash_fwd", torch.float16): (128,),
                     ("flash_bwd_dq", torch.float16): (128,),
                     ("flash_bwd_dkv", torch.float16): (128,)}
+
+
+def _rows_aligned(tensors, elems: int) -> bool:
+    """Every tensor's base and (batch, head, seq) strides fall on pieces of
+    `elems` 2-byte elements."""
+    return all(t.data_ptr() % (2 * elems) == 0
+               and all(s % elems == 0 for s in t.stride()[:3]) for t in tensors)
 
 
 def _routes(kernel: str, q, k, *rest) -> tuple[str, ...]:
@@ -204,18 +217,21 @@ def _routes(kernel: str, q, k, *rest) -> tuple[str, ...]:
     q, k, v and dO for the backward), slowest first: simt takes any; mma
     needs bf16 or fp16 with a head dim that is a multiple of 8 up to 256,
     16-byte aligned bases and (batch, head, seq) strides that are multiples
-    of 8 elements; wgmma needs that, a non-empty kv and a head dim of
-    `_WGMMA_HEAD_DIMS[(kernel, dtype)]` (the conditions of the csrc/
+    of 8 elements; wgmma needs a non-empty kv, a head dim of
+    `_WGMMA_HEAD_DIMS[(kernel, dtype)]` and rows aligned as mma's, or at head
+    dim 100 (200-byte rows, copied in 8-byte pieces) 8-byte aligned bases and
+    strides that are multiples of 4 elements (the conditions of the csrc/
     entries)."""
     routes = ("simt",)
     d = q.shape[-1]
-    if (q.dtype in (torch.bfloat16, torch.float16) and d % 8 == 0
-            and d <= _MMA_MAX_HEAD_DIM
-            and all(t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
-                    for t in (q, k, *rest))):
+    if q.dtype not in (torch.bfloat16, torch.float16):
+        return routes
+    tensors = (q, k, *rest)
+    if d % 8 == 0 and d <= _MMA_MAX_HEAD_DIM and _rows_aligned(tensors, 8):
         routes += ("mma",)
-        if d in _WGMMA_HEAD_DIMS.get((kernel, q.dtype), ()) and k.shape[2] > 0:
-            routes += ("wgmma",)
+    if (d in _WGMMA_HEAD_DIMS.get((kernel, q.dtype), ()) and k.shape[2] > 0
+            and _rows_aligned(tensors, 8 if d % 8 == 0 else 4)):
+        routes += ("wgmma",)
     return routes
 
 
@@ -276,7 +292,8 @@ def _reset_counts(fn) -> None:
 _reset_counts(flash_fwd)
 
 
-def _launch_bwd(fn, q, k, v, do, lse, delta, outs, causal, window, route):
+def _launch_bwd(fn, q, k, v, do, lse, delta, outs, causal, window, route,
+                out_scale):
     """Checks the backward kernels' inputs and launches the kernel of
     wrapper `fn` on `route` (or `_route`'s) into the preallocated
     `outs`, counting the launch (none for empty inputs)."""
@@ -289,6 +306,12 @@ def _launch_bwd(fn, q, k, v, do, lse, delta, outs, causal, window, route):
         if t.shape != (b, h, sq) or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} needs contiguous fp32 LSE and delta of "
                              f"shape {(b, h, sq)}, got {tuple(t.shape)} {t.dtype}")
+    if out_scale is not None and (q.dtype != torch.float16 or out_scale.numel() != 1
+                                  or out_scale.dtype != torch.float32
+                                  or out_scale.device != q.device):
+        raise ValueError(f"{name} takes an out_scale in fp16 alone, one fp32 "
+                         f"element on q's device, got {tuple(out_scale.shape)} "
+                         f"{out_scale.dtype} on {out_scale.device} for {q.dtype}")
     route = _pick_route(name, _routes(name, q, k, v, do), route)
     _require_cuda(name, q, k, v, do, lse, delta)
     if q.numel() == 0 or k.numel() == 0:
@@ -300,7 +323,7 @@ def _launch_bwd(fn, q, k, v, do, lse, delta, outs, causal, window, route):
     err = getattr(lib, name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), *(t.data_ptr() for t in outs),
-        _KERNEL_DTYPES[q.dtype], _ROUTES[route], q.get_device(), b, h, kvh, sq, sk,
+        None if out_scale is None else out_scale.data_ptr(), _KERNEL_DTYPES[q.dtype], _ROUTES[route], q.get_device(), b, h, kvh, sq, sk,
         d, *strides, int(causal), window or 0, 1.0 / (d ** 0.5), _stream(q))
     if err:
         raise RuntimeError(f"{name} ({route}) launch failed with CUDA error {err}")
@@ -308,29 +331,35 @@ def _launch_bwd(fn, q, k, v, do, lse, delta, outs, causal, window, route):
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
-                 window: int | None = None, route: str | None = None):
+                 window: int | None = None, route: str | None = None,
+                 out_scale=None):
     """Launch the dQ kernel on CUDA tensors: -> dQ [B, H, Sq, D] in q's
     dtype. q/k/v/dO may be strided views with a contiguous last dim; lse and
     delta ([B, H, Sq] fp32, contiguous) are the forward's LSE and
     `rowsum(dO * O) - g_lse`. `route` None takes `_route`'s kernel; a
-    named route must be able to take the inputs. `flash_bwd_dq.launches`
-    counts the launches, `.launches_by_route` each route's."""
+    named route must be able to take the inputs. In fp16 `out_scale`, a
+    one-element fp32 tensor on the card, multiplies the kernel's fp32 sums
+    before their rounding to fp16 (`_FlashFwd.backward`).
+    `flash_bwd_dq.launches` counts the launches, `.launches_by_route` each
+    route's."""
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch_bwd(flash_bwd_dq, q, k, v, do, lse, delta, (dq,), causal, window, route)
+    _launch_bwd(flash_bwd_dq, q, k, v, do, lse, delta, (dq,), causal, window, route,
+                out_scale)
     return dq
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True,
-                  window: int | None = None, route: str | None = None):
+                  window: int | None = None, route: str | None = None,
+                  out_scale=None):
     """Launch the dK/dV kernel on CUDA tensors: -> (dK, dV), each [B, H, Sk,
     D] in k's dtype, one per q head (group-sum them for GQA, `group_sum`).
-    Inputs, `route` and the counts as for `flash_bwd_dq`."""
+    Inputs, `route`, `out_scale` and the counts as for `flash_bwd_dq`."""
     b, h, _, d = q.shape
     shape = (b, h, k.shape[2], d)
     dk = torch.empty(shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(shape, dtype=k.dtype, device=k.device)
     _launch_bwd(flash_bwd_dkv, q, k, v, do, lse, delta, (dk, dv), causal, window,
-                route)
+                route, out_scale)
     return dk, dv
 
 
@@ -338,17 +367,35 @@ _reset_counts(flash_bwd_dq)
 _reset_counts(flash_bwd_dkv)
 
 
-def _fp16_cotangent_scale(g_out):
+# The fp16 cotangent scale keeps max |delta| scale below 2^(_FP16_DELTA_LOG2
+# + 1) = 2^15, half of fp16's largest value: the kernels round dS = P (dP -
+# delta) / sqrt(d) to fp16 (`_fp16_cotangent_scale`). A lower bound pushes
+# the scaled dO, which the kernels also round to fp16, further below fp16's
+# normal range under a large LSE cotangent; a higher one leaves dP = dO V^T
+# less room beside delta.
+_FP16_DELTA_LOG2 = 14
+
+
+def _fp16_cotangent_scale(g_out, delta):
     """A power of two (a 0-d fp32 tensor on g_out's device, no host sync)
-    that brings the largest |dO| into [1, 2). The backward kernels round P
-    and dS to the input dtype for their tensor-core products, where the JAX
-    kernels keep them in fp32; in fp16 a model's cotangents (~1e-5 at
-    Llama-2-7B width) make dS ~1e-8, below fp16's smallest subnormal, and
-    dQ and dK would lose most of their value. The backward is linear in
-    (dO, the LSE cotangent), so it runs on both times this scale and divides
-    its outputs by it: exact in powers of two, and dS then lies in fp16's
-    normal range. bf16 has fp32's exponent range and needs none."""
-    amax = g_out.abs().amax().float()
+    for the fp16 backward's cotangents: the largest that keeps max |dO|
+    below 2 and max |delta| below 2^(_FP16_DELTA_LOG2 + 1), delta =
+    rowsum(dO * O) - g_lse unscaled (`backward_delta`). The backward
+    kernels round P and dS to the input dtype for their tensor-core
+    products, where the JAX kernels keep them in fp32; in fp16 a model's
+    cotangents (~1e-5 at Llama-2-7B width) make dS ~1e-8, below fp16's
+    smallest subnormal, and dQ and dK would lose most of their value. The
+    backward is linear in (dO, the LSE cotangent), so it runs on both times
+    this scale, and the kernels multiply their fp32 sums by its inverse
+    (`out_scale`) before rounding them to fp16: exact in powers of two, dS
+    then lies in fp16's normal range, and dQ, dK and dV are rounded once at
+    their true size, where a sum over many rows (the dK of a key every row
+    attends to) may lie far above dS. A large LSE cotangent (a z-loss on the
+    LSE) makes delta, and with it dS, far larger than dO: the bound on delta
+    keeps dS finite, where a scale from dO alone overflows it. bf16 has
+    fp32's exponent range and needs none."""
+    amax = torch.maximum(g_out.abs().amax().float(),
+                         delta.abs().amax() * 2.0 ** -_FP16_DELTA_LOG2)
     return torch.where(amax > 0, torch.exp2(-torch.floor(torch.log2(amax))),
                        torch.ones_like(amax))
 
@@ -369,22 +416,21 @@ class _FlashFwd(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_out, g_lse):
         q, k, v, o, lse = ctx.saved_tensors
-        scale = None
+        out_scale = None
+        delta = backward_delta(o, g_out, g_lse)
         if q.dtype == torch.float16:
-            scale = _fp16_cotangent_scale(g_out)
+            scale = _fp16_cotangent_scale(g_out, delta)
             g_out = (g_out.float() * scale).to(torch.float16)
-            g_lse = None if g_lse is None else g_lse * scale
+            delta = delta * scale
+            out_scale = 1.0 / scale
         if g_out.stride(-1) != 1:
             g_out = g_out.contiguous()
-        delta = backward_delta(o, g_out, g_lse).contiguous()
+        delta = delta.contiguous()
         args = (q, k, v, g_out, lse, delta, ctx.causal, ctx.window)
-        dq = flash_bwd_dq(*args)
-        dk, dv = flash_bwd_dkv(*args)
+        dq = flash_bwd_dq(*args, out_scale=out_scale)
+        dk, dv = flash_bwd_dkv(*args, out_scale=out_scale)
         kvh = k.shape[1]
-        grads = [dq, group_sum(dk, kvh), group_sum(dv, kvh)]
-        if scale is not None:
-            grads = [(g.float() / scale).to(torch.float16) for g in grads]
-        return (*grads, None, None)
+        return dq, group_sum(dk, kvh), group_sum(dv, kvh), None, None
 
 
 def _attention(q, k, v, causal, window):

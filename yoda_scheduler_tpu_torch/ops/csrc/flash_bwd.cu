@@ -55,7 +55,10 @@
 // flash_fwd.cu's. P and dS are
 // rounded to the input type as operands of the following products, where
 // the plain version rounds them too (in fp16, ops/attention.py scales the
-// cotangents first, so that dS stays in fp16's normal range).
+// cotangents first, so that dS stays in fp16's normal range, and passes the
+// inverse scale as out_scale: each kernel multiplies its fp32 sums by it
+// before their one rounding to fp16, so dQ, dK and dV are rounded at their
+// true size).
 //
 // The wgmma kernels. Three warpgroups: warpgroup 0 is the producer (it gives
 // up registers with setmaxnreg) and warpgroups 1 and 2 are consumers of 64
@@ -153,8 +156,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_simt_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, T* __restrict__ dq,
-    int H, int KvH, int Sq, int Sk, int d, Strides st, int causal, int window,
-    float scale) {
+    const float* __restrict__ out_scale, int H, int KvH, int Sq, int Sk, int d,
+    Strides st, int causal, int window, float scale) {
   constexpr int SB = simt_tile(DP);  // q rows per block, keys per tile
   constexpr int RPT = SB / 16;       // rows (and key columns) per thread
   constexpr int SBP = SB + 4;        // padded dS row
@@ -276,6 +279,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_simt_kernel(
     }
   }
 
+  const float os = out_scale ? *out_scale : 1.f;
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     const int row = q0 + RPT * ty + i;
@@ -283,7 +287,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_simt_kernel(
     T* out = dq + ((int64_t)bh * Sq + row) * d;
 #pragma unroll
     for (int c = 0; c < CPT; ++c)
-      if (tx + 16 * c < d) store(out + tx + 16 * c, acc[i][c]);
+      if (tx + 16 * c < d) store(out + tx + 16 * c, acc[i][c] * os);
   }
 }
 
@@ -293,8 +297,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_simt_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-    int H, int KvH, int Sq, int Sk, int d, Strides st, int causal, int window,
-    float scale) {
+    const float* __restrict__ out_scale, int H, int KvH, int Sq, int Sk, int d,
+    Strides st, int causal, int window, float scale) {
   constexpr int SB = simt_tile(DP);  // keys per block, q rows per tile
   constexpr int RPT = SB / 16;       // keys (and q columns) per thread
   constexpr int SBP = SB + 4;
@@ -426,6 +430,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_simt_kernel(
     }
   }
 
+  const float os = out_scale ? *out_scale : 1.f;
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     const int key = k0 + RPT * ty + i;
@@ -435,8 +440,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_simt_kernel(
 #pragma unroll
     for (int c = 0; c < CPT; ++c) {
       if (tx + 16 * c >= d) continue;
-      store(krow + tx + 16 * c, gk[i][c]);
-      store(vrow + tx + 16 * c, gv[i][c]);
+      store(krow + tx + 16 * c, gk[i][c] * os);
+      store(vrow + tx + 16 * c, gv[i][c] * os);
     }
   }
 }
@@ -454,8 +459,8 @@ __global__ void __launch_bounds__(NT_MMA) flash_bwd_dq_mma_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, T* __restrict__ dq,
-    int H, int KvH, int Sq, int Sk, int d_arg, Strides st, int causal, int window,
-    float scale) {
+    const float* __restrict__ out_scale, int H, int KvH, int Sq, int Sk, int d_arg,
+    Strides st, int causal, int window, float scale) {
   constexpr int DS = DP + 8;    // padded smem row: fragment reads are conflict-free
   constexpr int KS = DP / 16;   // k-steps over the head dim
   constexpr int NO = DP / 8;    // n-tiles of dQ
@@ -588,6 +593,7 @@ __global__ void __launch_bounds__(NT_MMA) flash_bwd_dq_mma_kernel(
   }
 
   if (!w_live) return;
+  const float os = out_scale ? *out_scale : 1.f;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = w_row0 + g + 8 * r;
@@ -596,7 +602,8 @@ __global__ void __launch_bounds__(NT_MMA) flash_bwd_dq_mma_kernel(
 #pragma unroll
     for (int n = 0; n < NO; ++n)
       if (8 * n < d)
-        *reinterpret_cast<uint32_t*>(out + 8 * n) = pack_t<T>(acc[n][2 * r], acc[n][2 * r + 1]);
+        *reinterpret_cast<uint32_t*>(out + 8 * n) =
+            pack_t<T>(acc[n][2 * r] * os, acc[n][2 * r + 1] * os);
   }
 }
 
@@ -610,8 +617,8 @@ __global__ void __launch_bounds__(NT_MMA) flash_bwd_dkv_mma_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-    int H, int KvH, int Sq, int Sk, int d_arg, Strides st, int causal, int window,
-    float scale) {
+    const float* __restrict__ out_scale, int H, int KvH, int Sq, int Sk, int d_arg,
+    Strides st, int causal, int window, float scale) {
   constexpr int DS = DP + 8;
   constexpr int KS = DP / 16;
   constexpr int OC = DP <= 128 ? DP : 128;
@@ -730,6 +737,7 @@ __global__ void __launch_bounds__(NT_MMA) flash_bwd_dkv_mma_kernel(
   }
 
   if (!w_live) return;
+  const float os = out_scale ? *out_scale : 1.f;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int key = w_key0 + g + 8 * r;
@@ -738,8 +746,10 @@ __global__ void __launch_bounds__(NT_MMA) flash_bwd_dkv_mma_kernel(
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
       if (c0 + 8 * n >= d) continue;
-      *reinterpret_cast<uint32_t*>(dk + base + 8 * n) = pack_t<T>(gk[n][2 * r], gk[n][2 * r + 1]);
-      *reinterpret_cast<uint32_t*>(dv + base + 8 * n) = pack_t<T>(gv[n][2 * r], gv[n][2 * r + 1]);
+      *reinterpret_cast<uint32_t*>(dk + base + 8 * n) =
+          pack_t<T>(gk[n][2 * r] * os, gk[n][2 * r + 1] * os);
+      *reinterpret_cast<uint32_t*>(dv + base + 8 * n) =
+          pack_t<T>(gv[n][2 * r] * os, gv[n][2 * r + 1] * os);
     }
   }
 }
@@ -798,8 +808,9 @@ template <typename T, int D>
 __device__ __forceinline__ void dkv_wgmma_body(
     const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
     const CUtensorMap* tm_do, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int H,
-    int KvH, int Sq, int Sk, int causal, int window, float scale) {
+    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+    const float* __restrict__ out_scale, int H, int KvH, int Sq, int Sk, int causal,
+    int window, float scale) {
   using namespace hopper;
   constexpr int KSTEPS = D / 16;  // k-steps of S^T and dP^T
   extern __shared__ unsigned char smem_raw[];
@@ -967,9 +978,11 @@ __device__ __forceinline__ void dkv_wgmma_body(
       mbar_arrive(&empty[s]);
     }
 
-    // dK scale and dV in T, one copy per q head; gk[4 j + e] is key key0
-    // + 8 (e / 2), head dim 8 j + 2 t4 + (e % 2)
+    // dK scale and dV in T (times *out_scale), one copy per q head; gk[4 j
+    // + e] is key key0 + 8 (e / 2), head dim 8 j + 2 t4 + (e % 2)
     if (w_live) {
+      const float os = out_scale ? *out_scale : 1.f;
+      const float ks = scale * os;
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int key = key0 + 8 * r;
@@ -978,9 +991,9 @@ __device__ __forceinline__ void dkv_wgmma_body(
 #pragma unroll
         for (int j = 0; j < D / 8; ++j) {
           *reinterpret_cast<uint32_t*>(dk + base + 8 * j) =
-              pack_t<T>(gk[4 * j + 2 * r] * scale, gk[4 * j + 2 * r + 1] * scale);
+              pack_t<T>(gk[4 * j + 2 * r] * ks, gk[4 * j + 2 * r + 1] * ks);
           *reinterpret_cast<uint32_t*>(dv + base + 8 * j) =
-              pack_t<T>(gv[4 * j + 2 * r], gv[4 * j + 2 * r + 1]);
+              pack_t<T>(gv[4 * j + 2 * r] * os, gv[4 * j + 2 * r + 1] * os);
         }
       }
     }
@@ -992,9 +1005,10 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma_kernel(
     const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
     const float* __restrict__ lse, const float* __restrict__ delta,
     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-    int H, int KvH, int Sq, int Sk, int causal, int window, float scale) {
-  dkv_wgmma_body<__nv_bfloat16, 128>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dk, dv, H,
-                                     KvH, Sq, Sk, causal, window, scale);
+    const float* __restrict__ out_scale, int H, int KvH, int Sq, int Sk, int causal,
+    int window, float scale) {
+  dkv_wgmma_body<__nv_bfloat16, 128>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dk, dv,
+                                     out_scale, H, KvH, Sq, Sk, causal, window, scale);
 }
 
 __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma96_kernel(
@@ -1002,9 +1016,10 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma96_kerne
     const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
     const float* __restrict__ lse, const float* __restrict__ delta,
     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-    int H, int KvH, int Sq, int Sk, int causal, int window, float scale) {
-  dkv_wgmma_body<__nv_bfloat16, 96>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dk, dv, H,
-                                    KvH, Sq, Sk, causal, window, scale);
+    const float* __restrict__ out_scale, int H, int KvH, int Sq, int Sk, int causal,
+    int window, float scale) {
+  dkv_wgmma_body<__nv_bfloat16, 96>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dk, dv,
+                                    out_scale, H, KvH, Sq, Sk, causal, window, scale);
 }
 
 __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma_f16_kernel(
@@ -1012,9 +1027,10 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma_f16_ker
     const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
     const float* __restrict__ lse, const float* __restrict__ delta,
     __half* __restrict__ dk, __half* __restrict__ dv,
-    int H, int KvH, int Sq, int Sk, int causal, int window, float scale) {
-  dkv_wgmma_body<__half, 128>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dk, dv, H, KvH, Sq,
-                              Sk, causal, window, scale);
+    const float* __restrict__ out_scale, int H, int KvH, int Sq, int Sk, int causal,
+    int window, float scale) {
+  dkv_wgmma_body<__half, 128>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dk, dv, out_scale, H,
+                              KvH, Sq, Sk, causal, window, scale);
 }
 
 // ---- the dK/dV wgmma kernel at head dim 64
@@ -1250,7 +1266,8 @@ template <typename T, int D>
 __device__ __forceinline__ void dq_wgmma_body(
     const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
     const CUtensorMap* tm_do, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dq, int H, int KvH,
+    const float* __restrict__ delta, T* __restrict__ dq,
+    const float* __restrict__ out_scale, int H, int KvH,
     int Sq, int Sk, int causal, int window, float scale) {
   using namespace hopper;
   constexpr int KSTEPS = D / 16;  // k-steps of S and dP
@@ -1392,6 +1409,7 @@ __device__ __forceinline__ void dq_wgmma_body(
     }
 
     if (w_live) {
+      const float qs = scale * (out_scale ? *out_scale : 1.f);
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = row0 + 8 * r;
@@ -1400,7 +1418,7 @@ __device__ __forceinline__ void dq_wgmma_body(
 #pragma unroll
         for (int j = 0; j < D / 8; ++j)
           *reinterpret_cast<uint32_t*>(out + 8 * j) =
-              pack_t<T>(acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale);
+              pack_t<T>(acc[4 * j + 2 * r] * qs, acc[4 * j + 2 * r + 1] * qs);
       }
     }
   }
@@ -1410,30 +1428,30 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dq_wgmma_kernel(
     const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    __nv_bfloat16* __restrict__ dq, int H, int KvH, int Sq, int Sk, int causal,
-    int window, float scale) {
-  dq_wgmma_body<__nv_bfloat16, 128>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dq, H, KvH, Sq,
-                                    Sk, causal, window, scale);
+    __nv_bfloat16* __restrict__ dq, const float* __restrict__ out_scale, int H, int KvH,
+    int Sq, int Sk, int causal, int window, float scale) {
+  dq_wgmma_body<__nv_bfloat16, 128>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dq, out_scale, H,
+                                    KvH, Sq, Sk, causal, window, scale);
 }
 
 __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dq_wgmma96_kernel(
     const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    __nv_bfloat16* __restrict__ dq, int H, int KvH, int Sq, int Sk, int causal,
-    int window, float scale) {
-  dq_wgmma_body<__nv_bfloat16, 96>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dq, H, KvH, Sq,
-                                   Sk, causal, window, scale);
+    __nv_bfloat16* __restrict__ dq, const float* __restrict__ out_scale, int H, int KvH,
+    int Sq, int Sk, int causal, int window, float scale) {
+  dq_wgmma_body<__nv_bfloat16, 96>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dq, out_scale, H,
+                                   KvH, Sq, Sk, causal, window, scale);
 }
 
 __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dq_wgmma_f16_kernel(
     const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    __half* __restrict__ dq, int H, int KvH, int Sq, int Sk, int causal,
-    int window, float scale) {
-  dq_wgmma_body<__half, 128>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dq, H, KvH, Sq, Sk,
-                             causal, window, scale);
+    __half* __restrict__ dq, const float* __restrict__ out_scale, int H, int KvH,
+    int Sq, int Sk, int causal, int window, float scale) {
+  dq_wgmma_body<__half, 128>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dq, out_scale, H, KvH,
+                             Sq, Sk, causal, window, scale);
 }
 
 // ---- the dQ wgmma kernel at head dim 64
@@ -1639,6 +1657,7 @@ __global__ void __launch_bounds__((Q64_CONS + 1) * WG_THREADS, 1) flash_bwd_dq_w
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta;
   void *dq, *dk, *dv;
+  const float* out_scale;  // fp16 alone: the outputs times *out_scale; null: 1
   int B, H, KvH, Sq, Sk, D;
   Strides st;
   int causal, window;
@@ -1662,7 +1681,7 @@ cudaError_t launch_dq_simt(const Args& a) {
   kernel<<<grid, NT, smem, a.stream>>>(
       (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout,
       (const float*)a.lse, (const float*)a.delta, (T*)a.dq,
-      a.H, a.KvH, a.Sq, a.Sk, a.D, a.st, a.causal, a.window, a.scale);
+      a.out_scale, a.H, a.KvH, a.Sq, a.Sk, a.D, a.st, a.causal, a.window, a.scale);
   return cudaGetLastError();
 }
 
@@ -1678,7 +1697,7 @@ cudaError_t launch_dkv_simt(const Args& a) {
   kernel<<<grid, NT, smem, a.stream>>>(
       (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout,
       (const float*)a.lse, (const float*)a.delta, (T*)a.dk, (T*)a.dv,
-      a.H, a.KvH, a.Sq, a.Sk, a.D, a.st, a.causal, a.window, a.scale);
+      a.out_scale, a.H, a.KvH, a.Sq, a.Sk, a.D, a.st, a.causal, a.window, a.scale);
   return cudaGetLastError();
 }
 
@@ -1692,7 +1711,7 @@ cudaError_t launch_dq_mma(const Args& a) {
   typedef const T* P;
   kernel<<<grid, NT_MMA, smem, a.stream>>>(
       (P)a.q, (P)a.k, (P)a.v, (P)a.dout, (const float*)a.lse, (const float*)a.delta,
-      (T*)a.dq, a.H, a.KvH, a.Sq, a.Sk, a.D, a.st, a.causal, a.window, a.scale);
+      (T*)a.dq, a.out_scale, a.H, a.KvH, a.Sq, a.Sk, a.D, a.st, a.causal, a.window, a.scale);
   return cudaGetLastError();
 }
 
@@ -1708,7 +1727,8 @@ cudaError_t launch_dkv_mma(const Args& a) {
   typedef const T* P;
   kernel<<<grid, NT_MMA, smem, a.stream>>>(
       (P)a.q, (P)a.k, (P)a.v, (P)a.dout, (const float*)a.lse, (const float*)a.delta,
-      (T*)a.dk, (T*)a.dv, a.H, a.KvH, a.Sq, a.Sk, a.D, a.st, a.causal, a.window, a.scale);
+      (T*)a.dk, (T*)a.dv, a.out_scale, a.H, a.KvH, a.Sq, a.Sk, a.D, a.st, a.causal,
+      a.window, a.scale);
   return cudaGetLastError();
 }
 
@@ -1748,7 +1768,7 @@ cudaError_t dkv_wgmma128(K kernel, const Args& a, int D) {
   const dim3 grid(a.B * a.H, (a.Sk + 127) / 128);
   kernel<<<grid, 3 * WG_THREADS, DKV_SMEM, a.stream>>>(
       m[0], m[1], m[2], m[3], (const float*)a.lse, (const float*)a.delta, (T*)a.dk,
-      (T*)a.dv, a.H, a.KvH, a.Sq, a.Sk, a.causal, a.window, a.scale);
+      (T*)a.dv, a.out_scale, a.H, a.KvH, a.Sq, a.Sk, a.causal, a.window, a.scale);
   return cudaGetLastError();
 }
 
@@ -1787,8 +1807,8 @@ cudaError_t dq_wgmma128(K kernel, const Args& a, int D) {
   if (!bwd_maps(a, D, map_type<T>(), 128, 64, m)) return cudaErrorInvalidValue;
   const dim3 grid(a.B * a.H, (a.Sq + 127) / 128);
   kernel<<<grid, 3 * WG_THREADS, DQ_SMEM, a.stream>>>(
-      m[0], m[1], m[2], m[3], (const float*)a.lse, (const float*)a.delta, (T*)a.dq, a.H,
-      a.KvH, a.Sq, a.Sk, a.causal, a.window, a.scale);
+      m[0], m[1], m[2], m[3], (const float*)a.lse, (const float*)a.delta, (T*)a.dq,
+      a.out_scale, a.H, a.KvH, a.Sq, a.Sk, a.causal, a.window, a.scale);
   return cudaGetLastError();
 }
 
@@ -1851,10 +1871,12 @@ cudaError_t at_padded_dim(int which, int mma, const Args& a) {
 // to 512), 1 = mma (bf16 or fp16, D a multiple of 8 up to 256, 16-byte
 // aligned bases, strides that are multiples of 8), 2 = wgmma (as mma, and
 // Sk > 0, with bf16 at D = 64, 96 or 128 and fp16 at D = 128); a route that
-// cannot take the inputs launches nothing
+// cannot take the inputs launches nothing, and so does an out_scale in fp32
+// or bf16
 cudaError_t dispatch(int which, int dtype, int route, int D, const Args& a) {
   const void* ptrs[4] = {a.q, a.k, a.v, a.dout};
   const bool aligned = rows_aligned(ptrs, 4, &a.st.q_sb, 12, D);
+  if (a.out_scale && dtype != 2) return cudaErrorInvalidValue;
   switch (route) {
     case 0:
       if (dtype == 0) return at_padded_dim<float>(which, 0, a);
@@ -1889,19 +1911,23 @@ int run(int which, int dtype, int route, int device, const Args& a, int D) {
 // q, dout: [B, H, Sq, D] and k, v: [B, KvH, Sk, D] with the given (batch,
 // head, seq) strides and a contiguous last dim; lse, delta: contiguous fp32
 // [B, H, Sq]; dq: contiguous [B, H, Sq, D]; dk, dv: contiguous [B, H, Sk,
-// D], one per q head. dtype 0 = fp32, 1 = bf16, 2 = fp16. route: 0 = simt,
+// D], one per q head. out_scale: null, or in fp16 alone a device fp32 that
+// every output is multiplied by in fp32 before its one rounding to fp16.
+// dtype 0 = fp32, 1 = bf16, 2 = fp16. route: 0 = simt,
 // 1 = mma, 2 = wgmma (what each takes is at `dispatch`); a route that cannot
 // take the inputs returns cudaErrorInvalidValue and launches nothing. window
 // <= 0 means no window. Each returns the launch's cudaError_t (0 on success).
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* delta, void* dq,
-                            int dtype, int route, int device, int B, int H, int KvH,
-                            int Sq, int Sk, int D, int64_t q_sb, int64_t q_sh, int64_t q_ss,
+                            const float* out_scale, int dtype, int route, int device,
+                            int B, int H, int KvH, int Sq, int Sk, int D,
+                            int64_t q_sb, int64_t q_sh, int64_t q_ss,
                             int64_t k_sb, int64_t k_sh, int64_t k_ss,
                             int64_t v_sb, int64_t v_sh, int64_t v_ss,
                             int64_t o_sb, int64_t o_sh, int64_t o_ss,
                             int causal, int window, float scale, void* stream) {
-  const Args a = {q, k, v, dout, lse, delta, dq, nullptr, nullptr, B, H, KvH, Sq, Sk, D,
+  const Args a = {q, k, v, dout, lse, delta, dq, nullptr, nullptr, out_scale, B, H, KvH, Sq,
+                  Sk, D,
                   {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss},
                   causal, window, scale, (cudaStream_t)stream};
   return run(0, dtype, route, device, a, D);
@@ -1909,13 +1935,15 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const v
 
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                              const void* lse, const void* delta, void* dk, void* dv,
-                             int dtype, int route, int device, int B, int H, int KvH,
-                             int Sq, int Sk, int D, int64_t q_sb, int64_t q_sh, int64_t q_ss,
+                             const float* out_scale, int dtype, int route, int device,
+                             int B, int H, int KvH, int Sq, int Sk, int D,
+                             int64_t q_sb, int64_t q_sh, int64_t q_ss,
                              int64_t k_sb, int64_t k_sh, int64_t k_ss,
                              int64_t v_sb, int64_t v_sh, int64_t v_ss,
                              int64_t o_sb, int64_t o_sh, int64_t o_ss,
                              int causal, int window, float scale, void* stream) {
-  const Args a = {q, k, v, dout, lse, delta, nullptr, dk, dv, B, H, KvH, Sq, Sk, D,
+  const Args a = {q, k, v, dout, lse, delta, nullptr, dk, dv, out_scale, B, H, KvH, Sq,
+                  Sk, D,
                   {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss},
                   causal, window, scale, (cudaStream_t)stream};
   return run(1, dtype, route, device, a, D);

@@ -158,14 +158,17 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, int64_t ss, int 
   }
 }
 
-// the tensor-core kernels copy rows in 16-byte pieces: the n base pointers,
-// the ns row strides (in elements) and the head dim d must allow that
-inline bool rows_aligned(const void* const* ptrs, int n, const int64_t* st, int ns, int d) {
-  if (d % 8) return false;
+// the tensor-core kernels copy rows of 16-bit elements in pieces of `bytes`
+// (16; 8 for the head-dim-100 wgmma forward): the n base pointers, the ns
+// row strides (in elements) and the head dim d must allow that
+inline bool rows_aligned(const void* const* ptrs, int n, const int64_t* st, int ns, int d,
+                         int bytes = 16) {
+  const int elems = bytes / 2;
+  if (d % elems) return false;
   for (int i = 0; i < n; ++i)
-    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16) return false;
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % bytes) return false;
   for (int i = 0; i < ns; ++i)
-    if (st[i] % 8) return false;
+    if (st[i] % elems) return false;
   return true;
 }
 

@@ -18,12 +18,16 @@
 // one (batch, head) and streams K/V tiles through shared memory. Causal tiles
 // stop at the diagonal and windowed tiles start at the window's first tile, as
 // in the Pallas loop bounds; ragged q and k tails are masked in the kernel, so
-// every shape runs here. Six kernels share that plan; the caller names a
+// every shape runs here. Eight kernels share that plan; the caller names a
 // route (ops/attention.py:_route picks it from dtype, head_dim and alignment):
 // - flash_fwd_wgmma_kernel (route 2 at D = 128; bf16, 16-byte aligned rows:
 //   the main path): TMA-fed and warp-specialised, on wgmma. Below.
-// - flash_fwd_wgmma96_kernel (route 2 at D = 96: Phi-3-mini's attention):
-//   the D = 128 kernel's body at the true width, 6 k-steps and P.V at n96.
+// - flash_fwd_wgmma96_kernel (route 2 at D = 96: Phi-3-mini's attention) and
+//   flash_fwd_wgmma80_kernel (D = 80: StableLM-3B's): the D = 128 kernel's
+//   body at the true width, 6 (5) k-steps and P.V at n96 (n80).
+// - flash_fwd_wgmma100_kernel (route 2 at D = 100: OpenLLaMA-3B's 200-byte
+//   rows, 8-byte aligned): the same body, its producer copying the rows with
+//   cp.async where TMA cannot read them; 7 k-steps and P.V at n104.
 // - flash_fwd_wgmma_f16_kernel (route 2 in fp16 at D = 128: Llama-2's
 //   published dtype): the D = 128 kernel's body on fp16 operands.
 // - flash_fwd_wgmma64_kernel (route 2 at D = 64: bench_mfu's d1024 widths):
@@ -423,7 +427,7 @@ __global__ void __launch_bounds__(NT_MMA) flash_fwd_mma_kernel(
 }
 
 
-// ---- the wgmma kernels at D = 128 and 96 (bf16)
+// ---- the wgmma kernels at D = 128, 100, 96 and 80 (bf16) and 128 (fp16)
 constexpr int WG_THREADS = 128;
 constexpr int W_ROWS = 64;                  // q rows per consumer warpgroup
 constexpr int W_BQ = 2 * W_ROWS;            // q rows per block
@@ -434,26 +438,54 @@ constexpr int W_TILE = 2 * W_HALF;          // bytes of a 128 x 128 bf16 tile
 constexpr int W_BARS = W_TILE * (1 + 2 * W_STAGES);  // barriers after Q, K[], V[]
 constexpr int W_SMEM = W_BARS + 8 * (1 + 3 * W_STAGES) + 1024;  // + alignment slack
 
+// The q, k and v rows of a launch whose producer copies them itself
+// (flash_fwd_wgmma100_kernel): bases, and (batch, head, seq) strides of q, k,
+// v in elements.
+template <typename T>
+struct RowSrc {
+  const T* q;
+  const T* k;
+  const T* v;
+  int64_t st[9];
+};
+
 // The body of flash_fwd_wgmma_kernel (bf16, D = 128), flash_fwd_wgmma96_kernel
-// (bf16, D = 96) and flash_fwd_wgmma_f16_kernel (fp16, D = 128). fp16 differs
-// from bf16 only in names: the wgmma instructions (.f16 for .bf16), the
-// tensor maps' data type and the roundings of P (for P.V, where the plain
-// version rounds its probabilities) and of O; both are 2 bytes and the H100
-// runs both at one tensor rate, so tiles, swizzle, ring and grid are the
-// same. At D = 96 the tiles keep D = 128's shared-memory layout: each
-// row's second box reads columns 64-127 of a tensor 96 wide, so TMA fills
-// columns 96-127 with zeros and every expect_tx counts the whole box. Q.K^T
-// runs 6 k-steps (the last two in the second half) and P.V is m64n96k16
-// (48 fp32 sums a thread, not 64); the epilogue stores the 96 columns alone.
+// (bf16, D = 96), flash_fwd_wgmma80_kernel (bf16, D = 80),
+// flash_fwd_wgmma100_kernel (bf16, D = 100) and flash_fwd_wgmma_f16_kernel
+// (fp16, D = 128). fp16 differs from bf16 only in names: the wgmma
+// instructions (.f16 for .bf16), the tensor maps' data type and the roundings
+// of P (for P.V, where the plain version rounds its probabilities) and of O;
+// both are 2 bytes and the H100 runs both at one tensor rate, so tiles,
+// swizzle, ring and grid are the same. At D = 96 and 80 the tiles keep D =
+// 128's shared-memory layout: each row's second box reads columns 64-127 of a
+// tensor 96 (80) wide, so TMA fills columns 96-127 (80-127) with zeros and
+// every expect_tx counts the whole box. Q.K^T runs D / 16 k-steps (6, 5;
+// those past the fourth in the second half) and P.V is m64n96k16 (m64n80k16:
+// 48, 40 fp32 sums a thread, not 64); the epilogue stores the D columns alone.
+// At D = 100 a row is 200 bytes, and half of a [B, S, H, 100] view's heads
+// start 8 bytes off a 16-byte boundary, so TMA cannot read it: the producer
+// warpgroup's 128 threads copy Q, K and V in 8-byte cp.async pieces straight
+// into that layout (`cp_async_rows`, the swizzle computed by hand; rows past
+// the sequence zero-filled), and each thread's cp.async.mbarrier.arrive.noinc
+// counts one of the 128 arrivals a stage's barrier waits for. Columns 100-127
+// are zeroed once for the whole run (no copy writes them); Q.K^T runs 7
+// k-steps, the 7th over columns 96-111, and P.V is m64n104k16 (52 sums), whose
+// columns 100-103 are not stored: in the last n-tile threads with 2 t4 >= 4
+// write nothing. The consumers fence the generic proxy's writes against
+// wgmma's reads after each wait.
 // At Phi-3-mini's attention (B=1, H=32, S=2048, D=96, causal) the work is
-// ~25.8 GFLOP against ~51 MB, bound by operations (~26 us at 989 TF/s).
+// ~25.8 GFLOP against ~51 MB, bound by operations (~26 us at 989 TF/s); at
+// StableLM-3B's (D=80) ~21.5 GFLOP, ~22 us; at OpenLLaMA-3B's (D=100)
+// ~26.9 GFLOP, ~27 us.
 template <typename T, int D>
 __device__ __forceinline__ void fwd_wgmma_body(
     const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
-    T* __restrict__ o, float* __restrict__ lse, int H, int KvH, int Sq,
-    int Sk, int causal, int window, float scale) {
+    const RowSrc<T>& src, T* __restrict__ o, float* __restrict__ lse, int H, int KvH,
+    int Sq, int Sk, int causal, int window, float scale) {
   using namespace hopper;
-  constexpr int KSTEPS = D / 16;  // k-steps of Q.K^T
+  constexpr int KSTEPS = (D + 15) / 16;  // k-steps of Q.K^T
+  constexpr int DN = (D + 7) / 8 * 8;    // P.V's width: D rounded up to 8
+  constexpr bool COPY = D % 8 != 0;      // rows TMA cannot read: cp.async
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   unsigned char* sQ = smem;
@@ -478,20 +510,42 @@ __device__ __forceinline__ void fwd_wgmma_body(
   }
 
   if (threadIdx.x == 0) {
-    mbar_init(full_q, 1);
+    const uint32_t fills = COPY ? WG_THREADS : 1;  // arrivals that fill a tile
+    mbar_init(full_q, fills);
     for (int s = 0; s < W_STAGES; ++s) {
-      mbar_init(&full_k[s], 1);
-      mbar_init(&full_v[s], 1);
+      mbar_init(&full_k[s], fills);
+      mbar_init(&full_v[s], fills);
       mbar_init(&empty[s], 2 * WG_THREADS);
     }
     mbar_fence_init();
   }
+  if constexpr (COPY) {
+    for (int t = 0; t < 1 + 2 * W_STAGES; ++t)
+      zero_cols_past<D>(smem + W_TILE * t, threadIdx.x, blockDim.x);
+    fence_proxy_async();
+  }
   __syncthreads();
 
   if (threadIdx.x < WG_THREADS) {
-    // ---- producer: one thread issues every load
-    setmaxnreg_dec<24>();
-    if (threadIdx.x == 0) {
+    // ---- producer: one thread issues every TMA load, or all 128 copy
+    setmaxnreg_dec<COPY ? 40 : 24>();
+    if constexpr (COPY) {
+      const int p = threadIdx.x;
+      const int64_t* st = src.st;
+      const T* kp = src.k + b * st[3] + kvh * st[4];
+      const T* vp = src.v + b * st[6] + kvh * st[7];
+      cp_async_rows<D>(sQ, src.q + b * st[0] + h * st[1], st[2], q0, Sq, p);
+      cp_async_arrive_noinc(full_q);
+      for (int t = first_tile, i = 0; t < n_tiles; ++t, ++i) {
+        const int s = i % W_STAGES;
+        mbar_wait(&empty[s], ((i / W_STAGES) & 1) ^ 1);
+        cp_async_rows<D>(smem + W_TILE * (1 + s), kp, st[5], t * W_BK, Sk, p);
+        cp_async_arrive_noinc(&full_k[s]);
+        cp_async_rows<D>(smem + W_TILE * (1 + W_STAGES + s), vp, st[8], t * W_BK, Sk, p);
+        cp_async_arrive_noinc(&full_v[s]);
+      }
+      cp_async_wait_all();
+    } else if (threadIdx.x == 0) {
       mbar_arrive_expect_tx(full_q, W_TILE);
       tma_load_4d(sQ, tm_q, full_q, 0, q0, h, b);
       tma_load_4d(sQ + W_HALF, tm_q, full_q, 64, q0, h, b);
@@ -510,7 +564,7 @@ __device__ __forceinline__ void fwd_wgmma_body(
     }
   } else {
     // ---- consumers
-    setmaxnreg_inc<240>();
+    setmaxnreg_inc<COPY ? 232 : 240>();
     const int cw = threadIdx.x / WG_THREADS - 1;  // this consumer's 64 rows
     const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
     const int g = lane >> 2, t4 = lane & 3;
@@ -519,21 +573,26 @@ __device__ __forceinline__ void fwd_wgmma_body(
     const int w_first = kv_offset + w_row0;
     const int w_last = kv_offset + min(w_row0 + W_ROWS - 1, Sq - 1);
     const float c = scale * LOG2E;  // raw score -> log2 units
+    // a tile the producer copied is read by wgmma only after this fence
+    auto wait_full = [&](uint64_t* bar, uint32_t ph) {
+      mbar_wait(bar, ph);
+      if constexpr (COPY) fence_proxy_async();
+    };
     // rows 16 warp + g (r = 0) and + 8 (r = 1) of this warpgroup's 64
     float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
-    float acc[D / 2];
+    float acc[DN / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < DN / 2; ++i) acc[i] = 0.f;
     const uint64_t dq = desc_kmajor(sQ + W_ROWS * 128 * cw);
 
-    mbar_wait(full_q, 0);
+    wait_full(full_q, 0);
     for (int t = first_tile, i = 0; t < n_tiles; ++t, ++i) {
       const int s = i % W_STAGES;
       const uint32_t ph = (i / W_STAGES) & 1;
       const int k0 = t * W_BK;
       unsigned char* sK = smem + W_TILE * (1 + s);
       unsigned char* sV = smem + W_TILE * (1 + W_STAGES + s);
-      mbar_wait(&full_k[s], ph);
+      wait_full(&full_k[s], ph);
       // a tile masked for every row of this warpgroup is only released
       if (!w_live || (causal && (k0 > w_last ||
                                  (window > 0 && k0 + W_BK - 1 <= w_first - window)))) {
@@ -542,7 +601,7 @@ __device__ __forceinline__ void fwd_wgmma_body(
         continue;
       }
 
-      // S = Q K^T: D / 16 k-steps of 16 over head_dim, 4 in the first
+      // S = Q K^T: KSTEPS k-steps of 16 over head_dim, 4 in the first
       // 64-column half and the rest in the second
       float sc[64];
       const uint64_t dk = desc_kmajor(sK);
@@ -603,7 +662,7 @@ __device__ __forceinline__ void fwd_wgmma_body(
         l[r] = l[r] * alpha + rs;  // this thread's part of the row sum
         m[r] = mx;
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
+        for (int j = 0; j < DN / 8; ++j) {
           acc[4 * j + 2 * r] *= alpha;
           acc[4 * j + 2 * r + 1] *= alpha;
         }
@@ -621,13 +680,13 @@ __device__ __forceinline__ void fwd_wgmma_body(
 
       // O += P V: V [keys][head_dim] is B, MN-major; its two 64-column
       // halves are LBO apart and each k-step of 16 keys is 2048 bytes
-      mbar_wait(&full_v[s], ph);
+      wait_full(&full_v[s], ph);
       const uint64_t dv = desc_mnmajor(sV, W_HALF);
       fence_regs(acc);
       wgmma_fence();
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj)
-        wgmma_rs<D, 1, T>(acc, pa[jj], dv + ((jj * 16 * 128) >> 4), 1);
+        wgmma_rs<DN, 1, T>(acc, pa[jj], dv + ((jj * 16 * 128) >> 4), 1);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
@@ -647,40 +706,37 @@ __device__ __forceinline__ void fwd_wgmma_body(
         const float lc = fmaxf(l[r], 1e-30f);
         T* orow = o + ((int64_t)bh * Sq + row) * D + 2 * t4;
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j)
-          *reinterpret_cast<uint32_t*>(orow + 8 * j) =
-              pack_t<T>(acc[4 * j + 2 * r] / lc, acc[4 * j + 2 * r + 1] / lc);
+        for (int j = 0; j < DN / 8; ++j)
+          if (D % 8 == 0 || 8 * j + 2 * t4 < D)
+            *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+                pack_t<T>(acc[4 * j + 2 * r] / lc, acc[4 * j + 2 * r + 1] / lc);
         if (t4 == 0) lse[(int64_t)bh * Sq + row] = m[r] * scale + logf(lc);
       }
     }
   }
 }
 
-__global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_fwd_wgmma_kernel(
-    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-    const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
-    float* __restrict__ lse, int H, int KvH, int Sq, int Sk, int causal,
-    int window, float scale) {
-  fwd_wgmma_body<__nv_bfloat16, 128>(&tm_q, &tm_k, &tm_v, o, lse, H, KvH, Sq, Sk, causal,
-                                     window, scale);
-}
+#define FWD_WGMMA_TMA_KERNEL(NAME, T, D)                                               \
+  __global__ void __launch_bounds__(3 * WG_THREADS, 1) NAME(                             \
+      const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k, \
+      const __grid_constant__ CUtensorMap tm_v, T* __restrict__ o,                       \
+      float* __restrict__ lse, int H, int KvH, int Sq, int Sk, int causal, int window,   \
+      float scale) {                                                                     \
+    fwd_wgmma_body<T, D>(&tm_q, &tm_k, &tm_v, RowSrc<T>{}, o, lse, H, KvH, Sq, Sk,       \
+                         causal, window, scale);                                          \
+  }
+FWD_WGMMA_TMA_KERNEL(flash_fwd_wgmma_kernel, __nv_bfloat16, 128)
+FWD_WGMMA_TMA_KERNEL(flash_fwd_wgmma96_kernel, __nv_bfloat16, 96)
+FWD_WGMMA_TMA_KERNEL(flash_fwd_wgmma80_kernel, __nv_bfloat16, 80)
+FWD_WGMMA_TMA_KERNEL(flash_fwd_wgmma_f16_kernel, __half, 128)
+#undef FWD_WGMMA_TMA_KERNEL
 
-__global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_fwd_wgmma96_kernel(
-    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-    const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
-    float* __restrict__ lse, int H, int KvH, int Sq, int Sk, int causal,
-    int window, float scale) {
-  fwd_wgmma_body<__nv_bfloat16, 96>(&tm_q, &tm_k, &tm_v, o, lse, H, KvH, Sq, Sk, causal,
-                                    window, scale);
-}
-
-__global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_fwd_wgmma_f16_kernel(
-    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-    const __grid_constant__ CUtensorMap tm_v, __half* __restrict__ o,
-    float* __restrict__ lse, int H, int KvH, int Sq, int Sk, int causal,
-    int window, float scale) {
-  fwd_wgmma_body<__half, 128>(&tm_q, &tm_k, &tm_v, o, lse, H, KvH, Sq, Sk, causal, window,
-                              scale);
+__global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_fwd_wgmma100_kernel(
+    const __grid_constant__ RowSrc<__nv_bfloat16> src, __nv_bfloat16* __restrict__ o,
+    float* __restrict__ lse, int H, int KvH, int Sq, int Sk, int causal, int window,
+    float scale) {
+  fwd_wgmma_body<__nv_bfloat16, 100>(nullptr, nullptr, nullptr, src, o, lse, H, KvH, Sq, Sk,
+                                     causal, window, scale);
 }
 
 // ---- the wgmma kernel at head dim 64 (bf16)
@@ -981,39 +1037,56 @@ bool fwd_maps(const Args& a, int D, CUtensorMapDataType type, uint32_t q_rows,
   return true;
 }
 
-// bf16 (dtype 1) at D = 128: flash_fwd_wgmma_kernel; at D = 96:
-// flash_fwd_wgmma96_kernel, on the same grid; at D = 64:
-// flash_fwd_wgmma64_kernel, its grid with the q tiles of one (batch, head)
-// side by side. fp16 (dtype 2) at D = 128: flash_fwd_wgmma_f16_kernel, on
-// the D = 128 grid.
+// bf16 (dtype 1) at D = 128: flash_fwd_wgmma_kernel; at D = 96, 80 and 100:
+// flash_fwd_wgmma96_kernel, flash_fwd_wgmma80_kernel and
+// flash_fwd_wgmma100_kernel (which takes the rows themselves, not maps), on
+// the same grid; at D = 64: flash_fwd_wgmma64_kernel, its grid with the q
+// tiles of one (batch, head) side by side. fp16 (dtype 2) at D = 128:
+// flash_fwd_wgmma_f16_kernel, on the D = 128 grid.
 cudaError_t launch_wgmma(const Args& a, int D, int dtype) {
   static const cudaError_t attr128 = allow_smem(flash_fwd_wgmma_kernel, W_SMEM);
   static const cudaError_t attr96 = allow_smem(flash_fwd_wgmma96_kernel, W_SMEM);
+  static const cudaError_t attr80 = allow_smem(flash_fwd_wgmma80_kernel, W_SMEM);
+  static const cudaError_t attr100 = allow_smem(flash_fwd_wgmma100_kernel, W_SMEM);
   static const cudaError_t attr64 = allow_smem(flash_fwd_wgmma64_kernel, F_SMEM);
   static const cudaError_t attr_f16 = allow_smem(flash_fwd_wgmma_f16_kernel, W_SMEM);
-  const cudaError_t attr =
-      dtype == 2 ? attr_f16 : D == 64 ? attr64 : D == 96 ? attr96 : attr128;
+  const cudaError_t attr = dtype == 2   ? attr_f16
+                           : D == 64   ? attr64
+                           : D == 80   ? attr80
+                           : D == 96   ? attr96
+                           : D == 100  ? attr100
+                                       : attr128;
   if (attr != cudaSuccess) return attr;
+  const dim3 grid(a.B * a.H, (a.Sq + W_BQ - 1) / W_BQ);
+  if (D == 100) {
+    RowSrc<__nv_bfloat16> src{(const __nv_bfloat16*)a.q, (const __nv_bfloat16*)a.k,
+                              (const __nv_bfloat16*)a.v, {}};
+    for (int i = 0; i < 9; ++i) src.st[i] = a.st[i];
+    flash_fwd_wgmma100_kernel<<<grid, 3 * WG_THREADS, W_SMEM, a.stream>>>(
+        src, (__nv_bfloat16*)a.o, (float*)a.lse, a.H, a.KvH, a.Sq, a.Sk, a.causal,
+        a.window, a.scale);
+    return cudaGetLastError();
+  }
   CUtensorMap maps[3];
   if (dtype == 2) {
     if (!fwd_maps(a, D, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, W_BQ, W_BK, maps))
       return cudaErrorInvalidValue;
-    const dim3 grid(a.B * a.H, (a.Sq + W_BQ - 1) / W_BQ);
     flash_fwd_wgmma_f16_kernel<<<grid, 3 * WG_THREADS, W_SMEM, a.stream>>>(
         maps[0], maps[1], maps[2], (__half*)a.o, (float*)a.lse, a.H, a.KvH, a.Sq, a.Sk,
         a.causal, a.window, a.scale);
   } else if (D == 64) {
     if (!fwd_maps(a, D, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, F_BQ, F_BK, maps))
       return cudaErrorInvalidValue;
-    const dim3 grid((a.Sq + F_BQ - 1) / F_BQ, a.B * a.H);
-    flash_fwd_wgmma64_kernel<<<grid, (F_CONS + 1) * WG_THREADS, F_SMEM, a.stream>>>(
+    const dim3 grid64((a.Sq + F_BQ - 1) / F_BQ, a.B * a.H);
+    flash_fwd_wgmma64_kernel<<<grid64, (F_CONS + 1) * WG_THREADS, F_SMEM, a.stream>>>(
         maps[0], maps[1], maps[2], (__nv_bfloat16*)a.o, (float*)a.lse, a.H, a.KvH,
         a.Sq, a.Sk, a.causal, a.window, a.scale);
   } else {
     if (!fwd_maps(a, D, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, W_BQ, W_BK, maps))
       return cudaErrorInvalidValue;
-    const dim3 grid(a.B * a.H, (a.Sq + W_BQ - 1) / W_BQ);
-    auto kernel = D == 96 ? flash_fwd_wgmma96_kernel : flash_fwd_wgmma_kernel;
+    auto kernel = D == 96   ? flash_fwd_wgmma96_kernel
+                  : D == 80 ? flash_fwd_wgmma80_kernel
+                            : flash_fwd_wgmma_kernel;
     kernel<<<grid, 3 * WG_THREADS, W_SMEM, a.stream>>>(
         maps[0], maps[1], maps[2], (__nv_bfloat16*)a.o, (float*)a.lse, a.H, a.KvH,
         a.Sq, a.Sk, a.causal, a.window, a.scale);
@@ -1062,8 +1135,9 @@ struct Mma {
 // window. route: 0 = simt (any dtype, D from 1 to 512), 1 = mma (bf16 or
 // fp16, D a multiple of 8 up to 256, 16-byte aligned bases, strides that
 // are multiples of 8), 2 = wgmma (as mma, and Sk > 0, with bf16 at D = 64,
-// 96 or 128 and fp16 at D = 128). The simt and mma kernels run at the padded width of D
-// (padded_dim), the wgmma kernels at D itself. A route that cannot take the
+// 80, 96 or 128 and fp16 at D = 128; or bf16 at D = 100 with 8-byte aligned
+// bases and strides that are multiples of 4). The simt and mma kernels run at
+// the padded width of D (padded_dim), the wgmma kernels at D itself. A route that cannot take the
 // inputs returns cudaErrorInvalidValue and launches nothing. Returns the
 // launch's cudaError_t (0 on success).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
@@ -1094,8 +1168,11 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
       if (dtype == 2) return (int)at_padded_dim<__half, Mma>(a);
       return (int)cudaErrorInvalidValue;
     case 2: {
-      const bool has_d = dtype == 1 ? D == 64 || D == 96 || D == 128 : dtype == 2 && D == 128;
-      if (!has_d || !aligned || Sk <= 0) return (int)cudaErrorInvalidValue;
+      const bool has_d = dtype == 1 ? D == 64 || D == 80 || D == 96 || D == 100 || D == 128
+                                    : dtype == 2 && D == 128;
+      // the D = 100 kernel copies its 200-byte rows in 8-byte pieces
+      const bool rows_ok = D == 100 ? rows_aligned(ptrs, 3, st, 9, D, 8) : aligned;
+      if (!has_d || !rows_ok || Sk <= 0) return (int)cudaErrorInvalidValue;
       return (int)launch_wgmma(a, D, dtype);
     }
     default:

@@ -2,9 +2,10 @@
 // TMA tiled loads and their tensor maps, wgmma shared-memory descriptors for
 // the 128-byte swizzle, the wgmma fences and groups, setmaxnreg, and the bf16
 // wgmma m64n128k16 and m64n64k16, each in its SS (both operands in shared
-// memory) and RS (A in registers) forms, and m64n96k16 in the RS form;
-// m64n128k16 takes fp16 operands too, in both forms, and m64n64k16 in the SS
-// form.
+// memory) and RS (A in registers) forms, and m64n80k16, m64n96k16 and
+// m64n104k16 in the RS form; m64n128k16 takes fp16 operands too, in both
+// forms, and m64n64k16 in the SS form. Last, 8-byte cp.async copies of rows
+// TMA cannot read into the same swizzled layout.
 //
 // The layout they assume. A tile row of 64 bf16 or fp16 (128 bytes) is one line of
 // the 128-byte swizzle: TMA with CU_TENSOR_MAP_SWIZZLE_128B stores the 16-byte
@@ -13,12 +14,14 @@
 // arrives as two boxes of 64 columns, each a "half" of its own; the halves of
 // one tile of R rows lie R * 128 bytes apart (16 KB for 128 rows, 8 KB for 64).
 // A 96-wide row (head_dim 96) keeps that layout: its second box reads columns
-// 64-127 of a tensor 96 wide, and TMA fills columns 96-127 with zeros.
+// 64-127 of a tensor 96 wide, and TMA fills columns 96-127 with zeros; so do
+// 80-wide rows, and 100-wide ones copied by `cp_async_rows`.
 //
 // tests/test_torch_cuda.py holds these pieces against torch on the card
 // (csrc/hopper_check.cu: one TMA tile against a slice copy, SS and RS
 // products of 128- and 64-row tiles, in bf16, and at m64n128k16 and SS
-// m64n64k16 in fp16, against torch.matmul). ops/_build.py
+// m64n64k16 in fp16, against torch.matmul; rows of 100 copied by cp.async and
+// read back through wgmma). ops/_build.py
 // hashes every .cuh in csrc/ into each kernel's library name.
 
 #pragma once
@@ -300,15 +303,66 @@ __device__ __forceinline__ void wgmma_m64n96k16_rs(float (&d)[48], const uint32_
         "n"(TB));
 }
 
-// the RS product of width N (96 or 128) over an N / 2-float accumulator, T
-// operands (N = 96 in bf16 alone)
+#define HOPPER_D40 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39}"
+#define HOPPER_D40_OPS(d) \
+  HOPPER_D32_OPS(d), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), \
+  "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+
+// The m64n96k16 RS form's product at N = 80: B's columns 0-63 are the first
+// 64-column half and 64-79 the first 16 columns of the next; the
+// accumulator is the m64n128 layout's columns 0-79 (d[4 j + e] for j < 10).
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n80k16_rs(float (&d)[40], const uint32_t (&a)[4],
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 " HOPPER_D40
+      ", {%40, %41, %42, %43}, %44, p, 1, 1, %46;\n}\n"
+      : HOPPER_D40_OPS(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TB));
+}
+
+#define HOPPER_D52 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51}"
+#define HOPPER_D52_OPS(d) \
+  HOPPER_D48_OPS(d), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51])
+
+// The same at N = 104 (head dim 100 rounded up to 8): columns 64-103 are the
+// first 40 of the second half; d[4 j + e] for j < 13.
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n104k16_rs(float (&d)[52], const uint32_t (&a)[4],
+                                                    uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %57, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n104k16.f32.bf16.bf16 " HOPPER_D52
+      ", {%52, %53, %54, %55}, %56, p, 1, 1, %58;\n}\n"
+      : HOPPER_D52_OPS(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TB));
+}
+
+// the RS product of width N (80, 96, 104 or 128) over an N / 2-float
+// accumulator, T operands (N < 128 in bf16 alone)
 template <int N, int TB, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                                          uint64_t db, int scale_d) {
-  static_assert(N == 96 || N == 128, "wgmma_rs takes N = 96 or 128");
-  if constexpr (N == 96) {
-    static_assert(std::is_same<T, __nv_bfloat16>::value, "m64n96k16 is bf16 alone");
+  static_assert(N == 80 || N == 96 || N == 104 || N == 128,
+                "wgmma_rs takes N = 80, 96, 104 or 128");
+  static_assert(N == 128 || std::is_same<T, __nv_bfloat16>::value,
+                "m64n80k16, m64n96k16 and m64n104k16 are bf16 alone");
+  if constexpr (N == 80) {
+    wgmma_m64n80k16_rs<TB>(d, a, db, scale_d);
+  } else if constexpr (N == 96) {
     wgmma_m64n96k16_rs<TB>(d, a, db, scale_d);
+  } else if constexpr (N == 104) {
+    wgmma_m64n104k16_rs<TB>(d, a, db, scale_d);
   } else {
     wgmma_m64n128k16_rs<TB, T>(d, a, db, scale_d);
   }
@@ -319,10 +373,96 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
 #undef HOPPER_RS128
 #undef HOPPER_D64
 #undef HOPPER_D64_OPS
+#undef HOPPER_D52
+#undef HOPPER_D52_OPS
 #undef HOPPER_D48
 #undef HOPPER_D48_OPS
+#undef HOPPER_D40
+#undef HOPPER_D40_OPS
 #undef HOPPER_D32
 #undef HOPPER_D32_OPS
+
+// --------------------------------------------- cp.async into the swizzle
+// Rows whose bases or strides are not 16-byte aligned (head dim 100: 200-byte
+// rows) cannot be read by TMA. A warpgroup then copies them itself, in 8-byte
+// cp.async pieces, straight into the layout a TMA load of a 128-wide row
+// gives (two 64-column halves, each 128-byte swizzled), which the wgmma
+// descriptors above read.
+
+// 8 bytes from global `src` into shared memory at `dst` (a shared-space
+// address); `bytes` 0 writes zeros and reads nothing
+__device__ __forceinline__ void cp_async_8(uint32_t dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.ca.shared::cta.global [%0], [%1], 8, %2;\n"
+               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+
+// one arrival on `bar` once every cp.async this thread issued before it has
+// landed (.noinc: the barrier's count includes these arrivals)
+__device__ __forceinline__ void cp_async_arrive_noinc(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Orders shared memory written through the generic proxy (st.shared and
+// cp.async), and seen by this thread, before its later reads through the
+// async proxy (wgmma): after the barrier wait that shows the writes, before
+// the wgmma that reads them.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// where byte `off` of a 1024-byte-aligned region lies under the 128-byte
+// swizzle: the 16-byte chunk c of 128-byte line r moves to chunk c ^ (r % 8)
+__device__ __forceinline__ uint32_t sw128(uint32_t off) {
+  return off ^ ((off >> 3) & 0x70);
+}
+
+// the byte of 8-byte piece u (columns 4u .. 4u + 3) of row r in a tile of
+// `rows` rows of the 128-wide layout, before the swizzle
+__device__ __forceinline__ uint32_t piece_off(int rows, int r, int u) {
+  return (u >> 4) * rows * 128 + r * 128 + (u & 15) * 8;
+}
+
+// Rows [row0, row0 + 128) of a [S, D] 16-bit matrix (D a multiple of 4 up to
+// 128; `src` and the row stride `ss` in elements 8-byte aligned) into the
+// 128-row tile at `tile` (1024-byte aligned) by the warpgroup's threads
+// (`tid` 0-127): D / 4 pieces each. Rows past S are zero-filled; columns D-127
+// are not written (`zero_cols_past`).
+template <int D, typename T>
+__device__ __forceinline__ void cp_async_rows(unsigned char* tile, const T* src, int64_t ss,
+                                              int row0, int S, int tid) {
+  static_assert(D % 4 == 0 && D <= 128, "8-byte pieces of a row at most 128 wide");
+  constexpr int P = D / 4;  // pieces a row; 128 rows x P pieces over 128 threads
+  const uint32_t base = smem_u32(tile);
+  int r = tid / P, u = tid % P;
+#pragma unroll 5
+  for (int i = 0; i < P; ++i) {
+    const bool in = row0 + r < S;
+    const T* g = in ? src + (int64_t)(row0 + r) * ss + 4 * u : src;
+    cp_async_8(base + sw128(piece_off(128, r, u)), g, in ? 8 : 0);
+    // the thread's next piece is 128 on: 128 / P rows and 128 % P pieces
+    r += 128 / P;
+    u += 128 % P;
+    if (u >= P) {
+      u -= P;
+      ++r;
+    }
+  }
+}
+
+// zeros in columns D-127 of the 128 rows of such a tile, by `nthreads`
+// threads from `tid`
+template <int D>
+__device__ __forceinline__ void zero_cols_past(unsigned char* tile, int tid, int nthreads) {
+  constexpr int P0 = D / 4, PN = 32 - P0;  // pieces a row: D's, and past it
+  for (int i = tid; i < 128 * PN; i += nthreads)
+    *reinterpret_cast<uint2*>(tile + sw128(piece_off(128, i / PN, P0 + i % PN))) =
+        make_uint2(0u, 0u);
+}
 
 // --------------------------------------------------------- host: tensor maps
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,

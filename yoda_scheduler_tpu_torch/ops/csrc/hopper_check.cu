@@ -16,7 +16,15 @@
 // - hopper_wgmma_rs96: P [64, rows] from registers times V [rows, 96] (rows
 //   64 or 128), V a tensor 96 wide read as two 64-column boxes (the second
 //   zero-filled past column 96) and an MN-major B operand of the m64n96k16
-//   form, as the D = 96 kernels' P V (128 rows), P^T dO and dS^T Q (64).
+//   form, as the D = 96 kernels' P V (128 rows), P^T dO and dS^T Q (64);
+// - hopper_wgmma_rs80, hopper_wgmma_rs104: the same with V 80 and 104 wide
+//   and the m64n80k16 and m64n104k16 forms, as the D = 80 and D = 100
+//   forwards' P V;
+// - hopper_cp_async_tile: two [S, 100] row sets, A and B, 8-byte aligned,
+//   copied by cp_async_rows into the 128-wide swizzled layout (rows past S
+//   zero, columns 100-127 zeroed) and read back through wgmma: A B^T with 7
+//   SS k-steps and P B with m64n104k16, as flash_fwd_wgmma100_kernel's Q K^T
+//   and P V;
 // - hopper_wgmma_ss_f16, hopper_wgmma_rs_f16: hopper_wgmma_ss and
 //   hopper_wgmma_rs on fp16 operands (the .f16 instructions over FLOAT16
 //   maps), as flash_fwd.cu's fp16 Q K^T and P V;
@@ -54,15 +62,17 @@ __global__ void __launch_bounds__(128) tma_tile_kernel(
   for (int i = threadIdx.x; i < rows * 128; i += blockDim.x) out[i] = tile[i];
 }
 
-// d (the m64n128 accumulator layout) into a row-major [64, 128] fp32 matrix
-__device__ void store_acc(const float (&d)[64], float* out) {
+// an m64nN accumulator (the m64n128 layout's columns 0 to N - 1) into a
+// row-major [64, N] fp32 matrix
+template <int N>
+__device__ void store_acc(const float (&d)[N / 2], float* out) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int j = 0; j < 16; ++j)
+  for (int j = 0; j < N / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e)
-      out[(16 * warp + g + 8 * (e >> 1)) * 128 + 8 * j + 2 * t + (e & 1)] = d[4 * j + e];
+      out[(16 * warp + g + 8 * (e >> 1)) * N + 8 * j + 2 * t + (e & 1)] = d[4 * j + e];
 }
 
 template <typename T>
@@ -97,7 +107,7 @@ __global__ void __launch_bounds__(128) wgmma_ss_kernel(
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(d);
-  store_acc(d, out);
+  store_acc<128>(d, out);
 }
 
 template <typename T>
@@ -141,18 +151,7 @@ __global__ void __launch_bounds__(128) wgmma_rs_kernel(
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(d);
-  store_acc(d, out);
-}
-
-// the m64n64 accumulator into a row-major [64, 64] fp32 matrix
-__device__ void store_acc64(const float (&d)[32], float* out) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      out[(16 * warp + g + 8 * (e >> 1)) * 64 + 8 * j + 2 * t + (e & 1)] = d[4 * j + e];
+  store_acc<128>(d, out);
 }
 
 template <typename T>
@@ -186,7 +185,7 @@ __global__ void __launch_bounds__(128) wgmma_ss64_kernel(
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(d);
-  store_acc64(d, out);
+  store_acc<64>(d, out);
 }
 
 __global__ void __launch_bounds__(128) wgmma_rs64_kernel(
@@ -229,22 +228,11 @@ __global__ void __launch_bounds__(128) wgmma_rs64_kernel(
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(d);
-  store_acc(d, out);
+  store_acc<128>(d, out);
 }
 
-// the m64n96 accumulator into a row-major [64, 96] fp32 matrix
-__device__ void store_acc96(const float (&d)[48], float* out) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < 12; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      out[(16 * warp + g + 8 * (e >> 1)) * 96 + 8 * j + 2 * t + (e & 1)] = d[4 * j + e];
-}
-
-template <int ROWS>
-__global__ void __launch_bounds__(128) wgmma_rs96_kernel(
+template <int N, int ROWS>
+__global__ void __launch_bounds__(128) wgmma_rs_n_kernel(
     const __nv_bfloat16* __restrict__ p, const __grid_constant__ CUtensorMap map_v,
     float* out) {
   constexpr int VHALF = ROWS * 128;  // bytes of one 64-column box of V
@@ -273,19 +261,96 @@ __global__ void __launch_bounds__(128) wgmma_rs96_kernel(
     pa[jj][3] = ld_pair(prow + 8 * ROWS + 16 * jj + 8);
   }
   mbar_wait(&bar, 0);
-  float d[48];
+  float d[N / 2];
 #pragma unroll
-  for (int i = 0; i < 48; ++i) d[i] = 0.f;
+  for (int i = 0; i < N / 2; ++i) d[i] = 0.f;
   const uint64_t dv = desc_mnmajor(sV, VHALF);
   fence_regs(d);
   wgmma_fence();
 #pragma unroll
   for (int jj = 0; jj < ROWS / 16; ++jj)
-    wgmma_m64n96k16_rs<1>(d, pa[jj], dv + ((jj * 16 * 128) >> 4), 1);
+    wgmma_rs<N, 1>(d, pa[jj], dv + ((jj * 16 * 128) >> 4), 1);
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(d);
-  store_acc96(d, out);
+  store_acc<N>(d, out);
+}
+
+__global__ void __launch_bounds__(128) cp_async_tile_kernel(
+    const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__ b, int64_t ss,
+    int S, int a_row0, const __nv_bfloat16* __restrict__ p, float* out_s, float* out_o) {
+  extern __shared__ unsigned char raw[];
+  unsigned char* sA = aligned_smem(raw);
+  unsigned char* sB = sA + 2 * HALF;
+  __shared__ uint64_t bar;
+  if (threadIdx.x == 0) {
+    mbar_init(&bar, 128);
+    mbar_fence_init();
+  }
+  zero_cols_past<100>(sA, threadIdx.x, 128);
+  zero_cols_past<100>(sB, threadIdx.x, 128);
+  fence_proxy_async();
+  __syncthreads();
+  cp_async_rows<100>(sA, a, ss, 0, S, threadIdx.x);
+  cp_async_rows<100>(sB, b, ss, 0, S, threadIdx.x);
+  cp_async_arrive_noinc(&bar);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  uint32_t pa[8][4];
+  const __nv_bfloat16* prow = p + (16 * warp + g) * 128 + 2 * t;
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+    pa[jj][0] = ld_pair(prow + 16 * jj);
+    pa[jj][1] = ld_pair(prow + 8 * 128 + 16 * jj);
+    pa[jj][2] = ld_pair(prow + 16 * jj + 8);
+    pa[jj][3] = ld_pair(prow + 8 * 128 + 16 * jj + 8);
+  }
+  mbar_wait(&bar, 0);
+  fence_proxy_async();
+  float d[64];
+  const uint64_t da = desc_kmajor(sA + 128 * a_row0), db = desc_kmajor(sB);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 7; ++kk) {
+    const uint64_t off = ((kk / 4) * HALF + (kk % 4) * 32) >> 4;
+    wgmma_m64n128k16_ss<0, 0>(d, da + off, db + off, kk > 0);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(d);
+  store_acc<128>(d, out_s);
+  float o[52];
+#pragma unroll
+  for (int i = 0; i < 52; ++i) o[i] = 0.f;
+  const uint64_t dv = desc_mnmajor(sB, HALF);
+  fence_regs(o);
+  wgmma_fence();
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj)
+    wgmma_rs<104, 1>(o, pa[jj], dv + ((jj * 16 * 128) >> 4), 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(o);
+  store_acc<104>(o, out_o);
+}
+
+// P [64, rows] times V [rows, N] (rows 64 or 128) through wgmma_rs_n_kernel
+template <int N>
+int wgmma_rs_n(const void* p, const void* v, int rows, void* out, void* stream) {
+  const int64_t dims[4] = {N, rows, 1, 1};
+  const int64_t strides[3] = {N, N * (int64_t)rows, N * (int64_t)rows};
+  CUtensorMap map_v;
+  if ((rows != 64 && rows != 128) ||
+      !make_map_4d(&map_v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, v, dims, strides, rows))
+    return (int)cudaErrorInvalidValue;
+  const int smem = 2 * rows * 128 + 1024;
+  auto kernel = rows == 64 ? wgmma_rs_n_kernel<N, 64> : wgmma_rs_n_kernel<N, 128>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<1, 128, smem, (cudaStream_t)stream>>>((const __nv_bfloat16*)p, map_v,
+                                                (float*)out);
+  return (int)cudaGetLastError();
 }
 
 // a rows x 128 contiguous bf16 (or `type`) matrix as a 4-D map of 64-column
@@ -419,22 +484,37 @@ extern "C" int hopper_wgmma_rs64(const void* p, const void* v, void* out, void* 
 // fp32 = p @ v
 extern "C" int hopper_wgmma_rs96(const void* p, const void* v, int rows, void* out,
                                  void* stream) {
-  const int64_t dims[4] = {96, rows, 1, 1};
-  const int64_t strides[3] = {96, 96 * (int64_t)rows, 96 * (int64_t)rows};
-  CUtensorMap map_v;
-  if ((rows != 64 && rows != 128) ||
-      !make_map_4d(&map_v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, v, dims, strides, rows))
-    return (int)cudaErrorInvalidValue;
-  const int smem = 2 * rows * 128 + 1024;
-  cudaError_t err = cudaFuncSetAttribute(rows == 64 ? wgmma_rs96_kernel<64> : wgmma_rs96_kernel<128>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  return wgmma_rs_n<96>(p, v, rows, out, stream);
+}
+
+// the same with v [rows, 80] and out [64, 80]: m64n80k16
+extern "C" int hopper_wgmma_rs80(const void* p, const void* v, int rows, void* out,
+                                 void* stream) {
+  return wgmma_rs_n<80>(p, v, rows, out, stream);
+}
+
+// the same with v [rows, 104] and out [64, 104]: m64n104k16
+extern "C" int hopper_wgmma_rs104(const void* p, const void* v, int rows, void* out,
+                                  void* stream) {
+  return wgmma_rs_n<104>(p, v, rows, out, stream);
+}
+
+// a, b: S rows of 100 bf16 (S <= 128) at row stride ss elements, base and
+// ss 8-byte aligned; p: [64, 128] bf16 contiguous. out_s: [64, 128] fp32 =
+// a[a_row0 : a_row0 + 64] @ b^T, out_o: [64, 104] fp32 = p @ b (b's rows
+// past S and its columns 100-103 read as zeros)
+extern "C" int hopper_cp_async_tile(const void* a, const void* b, int64_t ss, int S,
+                                    int a_row0, const void* p, void* out_s, void* out_o,
+                                    void* stream) {
+  if (S < 1 || S > 128 || (a_row0 != 0 && a_row0 != 64)) return (int)cudaErrorInvalidValue;
+  const void* ptrs[2] = {a, b};
+  if (!rows_aligned(ptrs, 2, &ss, 1, 100, 8)) return (int)cudaErrorInvalidValue;
+  constexpr int smem = 4 * HALF + 1024;
+  cudaError_t err = cudaFuncSetAttribute(
+      cp_async_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  if (rows == 64) {
-    wgmma_rs96_kernel<64><<<1, 128, smem, (cudaStream_t)stream>>>(
-        (const __nv_bfloat16*)p, map_v, (float*)out);
-  } else {
-    wgmma_rs96_kernel<128><<<1, 128, smem, (cudaStream_t)stream>>>(
-        (const __nv_bfloat16*)p, map_v, (float*)out);
-  }
+  cp_async_tile_kernel<<<1, 128, smem, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)a, (const __nv_bfloat16*)b, ss, S, a_row0,
+      (const __nv_bfloat16*)p, (float*)out_s, (float*)out_o);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,5 @@
-"""Where the time goes on the port's path, at Phi-3-mini, Llama-2-7B and
-Mixtral-8x7B widths on one GPU.
+"""Where the time goes on the port's path, at Phi-3-mini, Llama-2-7B,
+Mixtral-8x7B, OpenLLaMA-3B and StableLM-3B-4E1T widths on one GPU.
 
     python3 -m yoda_scheduler_tpu_torch.profile_path
 
@@ -16,8 +16,11 @@ Then it traces with torch.profiler, after a warm-up, at Llama-2-7B width one
 training step (B=1, S=2048, remat, AdamW; all 32 layers) and one pipelined
 training step (pp=4 stages in one process, 4 microbatches, B=4); then at
 Mixtral-8x7B width one `llama_forward` (16 layers) and one training step
-(4 layers), both B=1, S=2048; last one ResNet-50 training pass (bf16,
-B=256, 224 x 224, the forward and backward of a softmax cross-entropy). For
+(4 layers), both B=1, S=2048; then one ResNet-50 training pass (bf16,
+B=256, 224 x 224, the forward and backward of a softmax cross-entropy); last
+one `llama_forward` at OpenLLaMA-3B's widths (head dim 100) and one at
+StableLM-3B-4E1T's (80), B=1, S=2048, each with flash_fwd on its wgmma
+kernel and on the route it took before (simt at 100, mma at 80). For
 each traced window it prints one JSON line: the host wall time, the device's busy
 time (the union of kernel intervals) and idle share, the kernel launches,
 the device time grouped into conv / matmul / flash_fwd / flash_bwd_dq /
@@ -79,6 +82,29 @@ def phi3_mini() -> LlamaConfig:
     the weights are random, from a seed."""
     return LlamaConfig(vocab_size=32064, dim=3072, n_layers=32, n_heads=32,
                        n_kv_heads=32, ffn_dim=8192, rope_theta=10000.0,
+                       norm_eps=1e-5, max_seq_len=4096, dtype="bfloat16")
+
+
+def openllama_3b() -> LlamaConfig:
+    """OpenLLaMA-3B's widths, from the published openlm-research/open_llama_3b
+    config.json: hidden 3200, 26 layers, 32 query and 32 KV heads of 100,
+    intermediate 8640, vocab 32000, rope_theta 10000, rms_norm_eps 1e-6, 2048
+    positions: a Llama architecture the config takes as it is; bf16, the
+    weights random from a seed."""
+    return LlamaConfig(vocab_size=32000, dim=3200, n_layers=26, n_heads=32,
+                       n_kv_heads=32, ffn_dim=8640, rope_theta=10000.0,
+                       norm_eps=1e-6, max_seq_len=2048, dtype="bfloat16")
+
+
+def stablelm_3b_4e1t() -> LlamaConfig:
+    """StableLM-3B-4E1T's widths, from the published
+    stabilityai/stablelm-3b-4e1t config.json: hidden 2560, 32 layers, 32
+    query and 32 KV heads of 80, intermediate 6912, vocab 50304, rope_theta
+    10000, norm eps 1e-5, 4096 positions; bf16, the weights random from a
+    seed. Its LayerNorm and 25% partial rotary are not modelled: these are
+    its widths on the Llama block, as `phi3_mini` is Phi-3's."""
+    return LlamaConfig(vocab_size=50304, dim=2560, n_layers=32, n_heads=32,
+                       n_kv_heads=32, ffn_dim=6912, rope_theta=10000.0,
                        norm_eps=1e-5, max_seq_len=4096, dtype="bfloat16")
 
 
@@ -217,6 +243,18 @@ def fp16_backward_on_mma():
     return _off_wgmma(lambda key, d: key[1] == torch.float16 and key[0] != "flash_fwd")
 
 
+def d80_forward_on_mma():
+    """Within it, the forward at head dim 80 takes the mma route, as before
+    its wgmma kernel; the backward there is on mma either way."""
+    return _off_wgmma(lambda key, d: key[0] == "flash_fwd" and d == 80)
+
+
+def d100_forward_on_simt():
+    """Within it, the forward at head dim 100 takes the simt route, as before
+    its wgmma kernel (no mma kernel takes 200-byte rows)."""
+    return _off_wgmma(lambda key, d: key[0] == "flash_fwd" and d == 100)
+
+
 def phi3_train_windows(steps: int = 8) -> list[dict]:
     """Phi-3-mini training steps (32 layers, B=1, S=2048, remat, AdamW) on
     each route set: `steps` steps of each on the host's clock in turns
@@ -253,6 +291,27 @@ def phi3_train_windows(steps: int = 8) -> list[dict]:
     for name, routes in sets.items():
         with routes():
             reports.append(trace(f"phi3_train_step_b1_s2048_{name}", step))
+    return reports
+
+
+def new_width_forward_windows() -> list[dict]:
+    """At OpenLLaMA-3B's widths (head dim 100) and StableLM-3B-4E1T's (80),
+    B=1, S=2048: one traced `llama_forward` with flash_fwd on its wgmma
+    kernel and one on the route it took before (simt at 100, mma at 80)."""
+    reports = []
+    for cfg, old_name, old in ((openllama_3b(), "simt", d100_forward_on_simt),
+                               (stablelm_3b_4e1t(), "mma", d80_forward_on_mma)):
+        params = init_llama(cfg, seed=0, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        tokens = torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen, device="cuda")
+        with torch.no_grad():
+            for name, routes in (("wgmma", contextlib.nullcontext), (old_name, old)):
+                with routes():
+                    reports.append(trace(
+                        f"forward_d{cfg.head_dim}_{cfg.n_layers}_layers_b1_s2048_{name}",
+                        lambda _: llama_forward(params, tokens, cfg)))
+        del params
+        _free()
     return reports
 
 
@@ -315,6 +374,8 @@ def main() -> int:
     reports.append(train_window(mixtral_8x7b(4), "moe_train_step_4_layers_b1_s2048"))
     _free()
     reports.append(resnet_window())
+    _free()
+    reports += new_width_forward_windows()
     out = Path(__file__).resolve().parents[1] / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "profile_path.json").write_text(json.dumps(
