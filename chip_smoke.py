@@ -48,7 +48,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
    kernel that takes them, each held against the plain backward and timed
    in turns (mma, wgmma, wgmma, mma), SDPA's backward after each turn; at
    d1024_bshd SDPA's backward under
-   its default and its flash backends. Last two fp16 rows with a large LSE
+   its default and its flash backends; at head dim 100 (unaligned_d100,
+   d100_bshd) dQ and dK/dV on their wgmma kernels timed in turns against
+   simt (simt, wgmma, wgmma, simt), SDPA's backward under its flash backend
+   after each turn. Last two fp16 rows with a large LSE
    cotangent (dO x1e-5, S=2048, head dim 128) through the kernels' autograd
    node, g_lse x1e3 of random sign and, with an attention sink at key 0,
    x100 of one sign: finite, and within twice the fp32 backward's own
@@ -91,6 +94,12 @@ After moe_train, head dims 96, 100 and 80, and fp16:
   flash_fwd launch on wgmma, also timed on the host's clock in turns
   against the forward on its old route (`profile_path.d100_forward_on_simt`,
   `d80_forward_on_mma`); the weights freed after each.
+- openllama3b_gradient, openllama3b_train: OpenLLaMA-3B's widths as
+  gradient (4 layers) and train (all 26 layers, B=1, S=2048, 52/26/26
+  launches a step), every flash launch on wgmma, dQ and dK/dV on their
+  head-dim-100 kernels; both also timed on the host's clock in turns
+  against dQ and dK/dV on simt (`profile_path.d100_backward_on_simt`), the
+  train step's turns after its 4 steps.
 
 - moe_forward: B=1, S=2048: 16 flash_fwd launches, all on the wgmma route;
   logits and routing against the forward through the plain attention, end
@@ -630,7 +639,8 @@ WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_wgmma96_kernel",
                  "flash_bwd_dq_wgmma_kernel", "flash_bwd_dq_wgmma96_kernel",
                  "flash_bwd_dq_wgmma64_kernel", "flash_bwd_dkv_wgmma_kernel",
                  "flash_bwd_dkv_wgmma96_kernel", "flash_bwd_dkv_wgmma64_kernel",
-                 "flash_bwd_dq_wgmma_f16_kernel", "flash_bwd_dkv_wgmma_f16_kernel")
+                 "flash_bwd_dq_wgmma_f16_kernel", "flash_bwd_dkv_wgmma_f16_kernel",
+                 "flash_bwd_dq_wgmma100_kernel", "flash_bwd_dkv_wgmma100_kernel")
 
 
 def phase_build(build):
@@ -724,8 +734,8 @@ SHAPES = [
     ("main_unaligned", 1, 32, 32, 2048, 2048, 128, True, None, torch.bfloat16,
      "offset1", "simt"),
     # head dims other than 32, 64 and 128, and fp16, on the simt and mma
-    # kernels at their padded widths (at 96, and fp16 at 128, on wgmma; at
-    # 80 and 100 the forward on wgmma, the backward on mma and simt):
+    # kernels at their padded widths (at 96 and 100, and fp16 at 128, on
+    # wgmma; at 80 the forward on wgmma, the backward on mma):
     # Phi-3-mini's attention (32 heads of 96, S=2048) as the model
     # gives it and contiguous, with GQA 32/8 and a window; 80 (2560 / 32,
     # StableLM-3B's and Phi-2's width), contiguous and as the model's views;
@@ -749,9 +759,9 @@ SHAPES = [
     ("gemma_d256", 1, 8, 1, 2048, 2048, 256, True, None, torch.bfloat16, "bshd", "mma"),
     ("ragged_d40", 2, 8, 4, 300, 300, 40, True, None, torch.bfloat16, "bhsd", "mma"),
     ("unaligned_d100", 1, 32, 32, 1024, 1024, 100, True, None, torch.bfloat16, "bhsd",
-     ("wgmma", "simt")),
+     "wgmma"),
     ("d100_bshd", 1, 32, 32, 2048, 2048, 100, True, None, torch.bfloat16, "bshd",
-     ("wgmma", "simt")),  # OpenLLaMA-3B's attention as its model gives it
+     "wgmma"),  # OpenLLaMA-3B's attention as its model gives it
     ("fp16_main", 1, 32, 32, 2048, 2048, 128, True, None, torch.float16, "bhsd",
      "wgmma"),
     ("fp16_d1024_bshd", 8, 16, 16, 2048, 2048, 64, True, None, torch.float16, "bshd",
@@ -772,6 +782,10 @@ TURN_SHAPES = ("main", "d1024_bshd", "phi3_d96_bshd", "fp16_main", "fp16_ragged_
 # the forward alone timed in turns against the route it took before its
 # wgmma kernel (mma at 80, simt at 100), SDPA's default after each turn
 FWD_TURN_SHAPES = ("d80", "d80_bshd", "unaligned_d100", "d100_bshd")
+# dQ and dK/dV timed in turns against the route they took before their
+# wgmma kernels (simt at 100), SDPA's backward under its flash backend after
+# each turn
+BWD_TURN_SHAPES = ("unaligned_d100", "d100_bshd")
 D64_SHAPE = "d1024_bshd"  # the head-dim-64 row of the kernels line
 # the rows at the new head dims and fp16: every route `_routes` admits is
 # held against the plain version there, and SDPA's default backend is timed
@@ -792,10 +806,9 @@ REFUSED_HEAD_DIM = 520
 
 def shape_routes(route) -> dict:
     """Each kernel's route at a SHAPES row: `route` names one for all three
-    kernels (the wgmma route of each takes head dims 64, 96 and 128 in
+    kernels (the wgmma route of each takes head dims 64, 96, 100 and 128 in
     bf16, and 128 in fp16), or is a pair (the forward's, the backward
-    kernels'), as at 80 and 100, where the forward alone has a wgmma
-    kernel."""
+    kernels'), as at 80, where the forward alone has a wgmma kernel."""
     fwd, bwd = (route, route) if isinstance(route, str) else route
     return {"flash_fwd": fwd, "flash_bwd_dq": bwd, "flash_bwd_dkv": bwd}
 
@@ -1100,6 +1113,22 @@ def phase_backward(attn, variants, tune):
                     if r in taken[key]:
                         turns[key][r].append(cuda_time_ms(lambda: fn(*args, route=r), 20))
                 library_turns.append(sdpa_backward_ms(tune, q, k, v, do, mask=mask))
+        if name in BWD_TURN_SHAPES:
+            # both kernels against the route before their wgmma kernels, in
+            # turns, and SDPA's whole backward (flash backend) after each
+            old = taken["dq"][-2]
+            order = (old, "wgmma", "wgmma", old)
+            turns = {key: {r: [] for r in order} for key in kernels}
+            library_turns, library_error = [], None
+            for r in order:
+                for key, fn in kernels.items():
+                    turns[key][r].append(cuda_time_ms(lambda: fn(*args, route=r), 20))
+                ms, library_error = library_time(lambda: sdpa_backward_ms(
+                    tune, q, k, v, do, flash=True, mask=mask))
+                library_turns.append(ms)
+            turns["dq_plus_dkv"] = {r: [a + b for a, b in zip(turns["dq"][r], turns["dkv"][r])]
+                                    for r in turns["dq"]}
+            turns["library_flash_error"] = library_error
         del runs, ref
         ms_dq = cuda_time_ms(lambda: attn.flash_bwd_dq(*args), 20)
         ms_dkv = cuda_time_ms(lambda: attn.flash_bwd_dkv(*args), 20)
@@ -1539,10 +1568,13 @@ def phase_gradient(attn, llama, train, cfg=None, phase="gradient",
     return routes
 
 
-def phase_train(attn, train, moe, cfg, phase="train", config=None, route="wgmma"):
+def phase_train(attn, train, moe, cfg, phase="train", config=None, route="wgmma",
+                turns=None):
     """4 train steps at B=1, S=2048 on one batch (remat, AdamW lr 3e-4),
     each kernel's launches on its route of `shape_routes(route)`
-    (`step_routes`). MFU counts each token's active
+    (`step_routes`). With `turns` ({name: route set}, the routes `_route`
+    picks first: `route_turns`) more steps are then timed in turns against
+    another route set. MFU counts each token's active
     parameters: all but the experts, and k/E of the experts (bench_mfu.py's
     6N + 6 L d S convention)."""
     free_memory()
@@ -1569,6 +1601,8 @@ def phase_train(attn, train, moe, cfg, phase="train", config=None, route="wgmma"
             raise SystemExit(f"{phase}: a train step launched {routes}, expected {want}")
         losses.append(loss)
     losses = [float(x) for x in losses]
+    timed = (route_turns(attn, turns, lambda: step_fn(params, opt_state, tokens))
+             if turns else None)
     tensors = (train.param_leaves(params) + [loss]
                + [t for st in opt_state.state.values() for t in st.values()
                   if isinstance(t, torch.Tensor)])
@@ -1601,7 +1635,8 @@ def phase_train(attn, train, moe, cfg, phase="train", config=None, route="wgmma"
          launches_by_route=routes,
          losses=losses, step_ms=times, step_ms_median=step_ms,
          tokens_per_s=tokens_per_s, model_tflops_per_s=flops_per_token * tokens_per_s / 1e12,
-         mfu=mfu, peak_mem_gb=peak_gb, all_on_card=on_card, **moe_fields)
+         mfu=mfu, peak_mem_gb=peak_gb, all_on_card=on_card, step_turns=timed,
+         **moe_fields)
     # every later step's loss below the first: AdamW at 3e-4 with no
     # warm-up overshoots after its first large drop on one batch
     if not all(math.isfinite(x) and x < losses[0] for x in losses[1:]):
@@ -3116,8 +3151,8 @@ def main() -> int:
     # Mixtral-8x7B's widths from its config.json, in the port's config fields,
     # and Phi-3-mini's, OpenLLaMA-3B's and StableLM-3B-4E1T's, from theirs
     from yoda_scheduler_tpu_torch.profile_path import (
-        d80_forward_on_mma, d100_forward_on_simt, fp16_backward_on_mma, mixtral_8x7b,
-        openllama_3b, phi3_mini, stablelm_3b_4e1t)
+        d80_forward_on_mma, d100_backward_on_simt, d100_forward_on_simt,
+        fp16_backward_on_mma, mixtral_8x7b, openllama_3b, phi3_mini, stablelm_3b_4e1t)
 
     gen_mod = importlib.import_module("yoda_scheduler_tpu_torch.models.generate")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3180,6 +3215,15 @@ def main() -> int:
         new_width_routes[phase] = phase_forward(
             attn, llama, cfg_3b, phase=phase, config=name,
             turns={"wgmma": contextlib.nullcontext, old[0]: old[1]})[3]
+    # OpenLLaMA-3B's gradient and train step: dQ and dK/dV on their
+    # head-dim-100 wgmma kernels, timed in turns against both on simt
+    d100_turns = {"wgmma": contextlib.nullcontext, "backward_on_simt": d100_backward_on_simt}
+    openllama_grad_routes = phase_gradient(
+        attn, llama, train, openllama_3b(), phase="openllama3b_gradient",
+        config="open_llama_3b widths, 4 layers", turns=d100_turns)
+    openllama_step_routes = phase_train(attn, train, moe, openllama_3b(),
+                                        phase="openllama3b_train",
+                                        config="open_llama_3b widths", turns=d100_turns)[1]
     free_memory()
     ring_launches = phase_ring(attn, ring, variants)
     ulysses_launches = phase_ulysses(attn, ulysses, variants)
@@ -3257,6 +3301,8 @@ def main() -> int:
                              "phi3_train_step": phi3_step_routes["flash_fwd"],
                              "fp16_forward": fp16_fwd_routes,
                              **new_width_routes,
+                             "openllama3b_gradient": openllama_grad_routes["flash_fwd"],
+                             "openllama3b_train_step": openllama_step_routes["flash_fwd"],
                              "tune_attention": tune_routes["flash_fwd"].get("wgmma", 0),
                              **{path: routes["flash_fwd"].get("wgmma", 0)
                                 for path, routes in bench_routes.items()}},
@@ -3283,6 +3329,8 @@ def main() -> int:
                              "multihost_step": multihost_launches[name],
                              "phi3_train_step": phi3_step_routes[name],
                              "fp16_gradient": fp16_grad_routes[name],
+                             "openllama3b_gradient": openllama_grad_routes[name],
+                             "openllama3b_train_step": openllama_step_routes[name],
                              "tune_attention": tune_routes[name].get("wgmma", 0),
                              **{path: routes[name].get("wgmma", 0)
                                 for path, routes in bench_routes.items()

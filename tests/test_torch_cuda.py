@@ -125,6 +125,7 @@ def _hopper_lib():
     lib.hopper_wgmma_rs80.argtypes = [p, p, i32, p, p]
     lib.hopper_wgmma_rs104.argtypes = [p, p, i32, p, p]
     lib.hopper_cp_async_tile.argtypes = [p, p, i64, i32, i32, p, p, p, p]
+    lib.hopper_cp_async_tile64.argtypes = [p, p, p, i64, i32, i32, i32, p, p, p, p]
     lib.hopper_wgmma_ss_f16.argtypes = [p, p, i32, p, p]
     lib.hopper_wgmma_rs_f16.argtypes = [p, p, p, p]
     lib.hopper_wgmma_ss64_f16.argtypes = [p, p, i32, p, p]
@@ -337,6 +338,60 @@ def test_cp_async_tile_reads_back_through_wgmma(gpu, case):
     assert not out_o[:, 100:].any()
 
 
+# (rows S, row stride, offset of the base in elements, row0, a_row0): rows of
+# 100 bf16 as the D = 100 backward kernels' producers copy them, a 128-row
+# tile and two 64-row tiles in one pass (the stage's rows [row0, row0 + 64)),
+# with bases 8 bytes off a 16-byte boundary, a ragged end inside the second
+# stage and a [B, S, H, 100] view's second head
+CP_ASYNC_TILES64 = {
+    "contiguous": (128, 100, 0, 0, 0),
+    "base_8_bytes_off": (128, 100, 4, 64, 64),
+    "ragged_100_rows": (100, 100, 0, 64, 0),
+    "bshd_head_1": (128, 3200, 100, 64, 64),
+}
+
+
+@pytest.mark.parametrize("case", list(CP_ASYNC_TILES64))
+def test_cp_async_tile64_reads_back_through_wgmma(gpu, case):
+    """Row set A copied by `cp_async_rows` into a 128-row tile and rows
+    [row0, row0 + 64) of B and C into two 64-row tiles in one pass
+    (`cp_async_rows<100, 64>`), zeros past row S and in columns 100-127,
+    read back through the backward's products: A B^T over 7 SS m64n64k16
+    k-steps and P C with m64n104k16, C a 64-row MN-major B, as the D = 100
+    dK/dV kernel's S^T = K Q^T and dV += P^T dO; a wrong swizzle, half
+    stride or piece breaks both."""
+    s, ss, offset, row0, a_row0 = CP_ASYNC_TILES64[case]
+    gen = torch.Generator(gpu).manual_seed(8)
+    flat = [torch.randn(offset + (s - 1) * ss + 100, generator=gen, device=gpu)
+            .to(torch.bfloat16) for _ in range(3)]
+    a, b, c = (x[offset:].as_strided((s, 100), (ss, 1)) for x in flat)
+    assert a.data_ptr() % 8 == 0
+    p = torch.rand(64, 64, generator=gen, device=gpu).to(torch.bfloat16)
+    out_s = torch.empty(64, 64, device=gpu)
+    out_o = torch.empty(64, 104, device=gpu)
+    assert _hopper_lib().hopper_cp_async_tile64(
+        a.data_ptr(), b.data_ptr(), c.data_ptr(), ss, s, row0, a_row0, p.data_ptr(),
+        out_s.data_ptr(), out_o.data_ptr(), _stream()) == 0
+    torch.cuda.synchronize()
+    a128, b128, c128 = (torch.zeros(128, 100, device=gpu) for _ in range(3))
+    a128[:s], b128[:s], c128[:s] = a.float(), b.float(), c.float()
+    torch.testing.assert_close(out_s, a128[a_row0:a_row0 + 64] @ b128[row0:row0 + 64].T,
+                               atol=1e-3, rtol=1e-4)
+    torch.testing.assert_close(out_o[:, :100], p.float() @ c128[row0:row0 + 64], atol=1e-3,
+                               rtol=1e-4)
+    assert not out_o[:, 100:].any()
+
+
+def test_cp_async_tile64_refuses_rows_off_8_bytes(gpu):
+    x = torch.zeros(2 + 128 * 102, dtype=torch.bfloat16, device=gpu)
+    out = torch.empty(64, 104, device=gpu)
+    lib = _hopper_lib()
+    for ptr, ss in ((x[2:].data_ptr(), 100), (x.data_ptr(), 102)):
+        assert lib.hopper_cp_async_tile64(x.data_ptr(), ptr, x.data_ptr(), ss, 128, 0, 0,
+                                          x.data_ptr(), out.data_ptr(), out.data_ptr(),
+                                          _stream()) == 1
+
+
 def test_cp_async_tile_refuses_rows_off_8_bytes(gpu):
     x = torch.zeros(2 + 128 * 100, dtype=torch.bfloat16, device=gpu)
     out = torch.empty(64, 128, device=gpu)
@@ -386,9 +441,11 @@ def test_wgmma_route_matches_the_mma_route(gpu):
 
 def _bwd_inputs(gpu, case, layout, seed=0, d=128, dtype=torch.bfloat16):
     """q, k, v, dO of a WGMMA_SHAPES case (at head dim 128; WGMMA64_SHAPES
-    at 64 and 32, WGMMA96_SHAPES at 96) in `layout` and `dtype`, with the
-    forward's O and LSE, a random LSE cotangent and delta."""
-    shapes = WGMMA_SHAPES if d == 128 else WGMMA96_SHAPES if d == 96 else WGMMA64_SHAPES
+    at 64 and 32, WGMMA96_SHAPES at 96, NEW_WIDTH_SHAPES at 100) in `layout`
+    and `dtype`, with the forward's O and LSE, a random LSE cotangent and
+    delta."""
+    shapes = {128: WGMMA_SHAPES, 96: WGMMA96_SHAPES, 100: NEW_WIDTH_SHAPES}.get(
+        d, WGMMA64_SHAPES)
     (b, h, kvh, sq, sk), causal, window = shapes[case]
     q, k, v = _qkv(gpu, dtype, b, h, kvh, sq, sk, d, seed=seed)
     rng = np.random.default_rng(seed + 1)
@@ -683,6 +740,81 @@ def test_wgmma_forward_at_80_and_100_matches_the_old_route(gpu, d, old):
     assert tile_rel_l2(o2, o1) <= 1e-2
 
 
+# the backward's wgmma kernels at head dim 100 (flash_bwd_dq_wgmma100_kernel,
+# flash_bwd_dkv_wgmma100_kernel: OpenLLaMA-3B's attention), whose producers
+# copy the rows with cp.async, at NEW_WIDTH_SHAPES: the model's shape and
+# every path of their loops, contiguous and as the model's views
+@pytest.mark.parametrize("case", list(NEW_WIDTH_SHAPES))
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+def test_wgmma100_backward_matches_the_plain_backward(gpu, case, layout):
+    """dQ and dK/dV on wgmma, as `_route` picks them at head dim 100,
+    elementwise and by each output's worst 64-row tile."""
+    args, (o, g_lse) = _bwd_inputs(gpu, case, layout, d=100)
+    q, k, v, do, lse, _, causal, window = args
+    assert [attn._route(n, q, k, v, do) for n in ("flash_bwd_dq", "flash_bwd_dkv")] == [
+        "wgmma", "wgmma"]
+    before = [fn.launches_by_route["wgmma"] for fn in (attn.flash_bwd_dq, attn.flash_bwd_dkv)]
+    got = _bwd_kernels(args, None)
+    torch.cuda.synchronize()
+    assert [fn.launches_by_route["wgmma"] for fn in (attn.flash_bwd_dq, attn.flash_bwd_dkv)] == [
+        n + 1 for n in before]
+    want = attn.flash_backward_reference(q, k, v, o, lse, do, causal, window, g_lse)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        torch.testing.assert_close(g.float(), w.float(), atol=2e-2, rtol=2e-2)
+        assert tile_rel_l2(g, w) <= BWD_TILE_REL_L2
+
+
+def test_wgmma100_backward_takes_bases_8_bytes_off(gpu):
+    """q, k, v and dO that start 4 elements (8 bytes) into their storage:
+    dQ and dK/dV take them on wgmma, as the plain backward."""
+    flat = [t.flatten() for t in _qkv(gpu, torch.bfloat16, 1, 4, 4, 260, 260, 100)]
+    flat.append(_qkv(gpu, torch.bfloat16, 1, 4, 4, 260, 260, 100, seed=1)[0].flatten())
+    q, k, v, do = (torch.cat([x.new_zeros(4), x])[4:].view(1, 4, 260, 100) for x in flat)
+    assert q.data_ptr() % 16 == 8
+    o, lse = attn.flash_fwd(q, k, v)
+    delta = attn.backward_delta(o, do).contiguous()
+    args = (q, k, v, do, lse, delta, True, None)
+    assert [attn._route(n, q, k, v, do) for n in ("flash_bwd_dq", "flash_bwd_dkv")] == [
+        "wgmma", "wgmma"]
+    got = _bwd_kernels(args, None)
+    torch.cuda.synchronize()
+    want = attn.flash_backward_reference(q, k, v, o, lse, do)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), atol=2e-2, rtol=2e-2)
+        assert tile_rel_l2(g, w) <= BWD_TILE_REL_L2
+
+
+def test_wgmma100_backward_matches_the_simt_route(gpu):
+    """Both head-dim-100 wgmma kernels against the simt kernels (the route
+    they took before) on the same inputs: GQA 32/8 as the model's views."""
+    args, _ = _bwd_inputs(gpu, "gqa_32_8", "bshd", seed=2, d=100)
+    for g, w in zip(_bwd_kernels(args, "wgmma"), _bwd_kernels(args, "simt")):
+        torch.testing.assert_close(g.float(), w.float(), atol=2e-2, rtol=2e-2)
+        assert tile_rel_l2(g, w) <= BWD_TILE_REL_L2
+
+
+@pytest.mark.parametrize("case", ["ragged_300", "window_512", "s2048_32_heads"])
+def test_wgmma100_backward_is_bit_repeatable(gpu, case):
+    args, _ = _bwd_inputs(gpu, case, "bshd", d=100)
+    runs = [_bwd_kernels(args, "wgmma") for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_wgmma100_backward_refuses_fp16(gpu):
+    """No wgmma kernel takes fp16 at head dim 100: named, the route of dQ
+    and of dK/dV raises and launches nothing."""
+    q = _qkv(gpu, torch.float16, 1, 4, 4, 128, 128, 100)[0]
+    lse = torch.zeros(q.shape[:3], device=gpu)
+    for fn in (attn.flash_bwd_dq, attn.flash_bwd_dkv):
+        assert "wgmma" not in attn._routes(fn.__name__, q, q, q, q)
+        before = (fn.launches, dict(fn.launches_by_route))
+        with pytest.raises(ValueError, match=f"{fn.__name__} route 'wgmma' cannot take"):
+            fn(q, q, q, q, lse, lse, route="wgmma")
+        assert (fn.launches, fn.launches_by_route) == before
+
+
 def _c_entry(name, tensors, route, out_scale=None):
     """csrc/'s entry `name` called straight on `route` with the wrapper's
     arguments (q, k, v for the forward, q, k, v, dO and the backward's
@@ -709,7 +841,8 @@ def test_the_c_entries_admit_what_routes_admits_at_80_and_100(gpu, d, dtype):
     """For each kernel, every base offset (0, 1, 2 and 4 elements) and both
     layouts: csrc/'s entry takes the wgmma route (returns 0, and launches)
     exactly where `_routes` offers it, and refuses it (cudaErrorInvalidValue,
-    1) elsewhere: the forward in bf16 at 80 and 100, no backward kernel."""
+    1) elsewhere: the forward in bf16 at 80 and 100, and dQ and dK/dV in
+    bf16 at 100 alone."""
     seen = set()
     for offset in (0, 1, 2, 4):
         for layout in ("bhsd", "bshd"):
@@ -725,8 +858,27 @@ def test_the_c_entries_admit_what_routes_admits_at_80_and_100(gpu, d, dtype):
                 assert err == (0 if admitted else 1), (name, offset, layout)
                 seen.add((name, admitted))
     fwd_takes = dtype == torch.bfloat16
+    bwd_takes = fwd_takes and d == 100
     assert seen == ({("flash_fwd", fwd_takes), ("flash_fwd", False)}
-                    | {("flash_bwd_dq", False), ("flash_bwd_dkv", False)})
+                    | {("flash_bwd_dq", bwd_takes), ("flash_bwd_dq", False),
+                       ("flash_bwd_dkv", bwd_takes), ("flash_bwd_dkv", False)})
+
+
+def test_the_wgmma100_backward_c_entries_refuse_what_they_cannot_take(gpu):
+    """csrc/'s dQ and dK/dV entries at head dim 100 on the wgmma route,
+    past `_routes`: a sequence stride that is no multiple of 4 elements, an
+    empty kv and fp16 each return cudaErrorInvalidValue (1) and launch
+    nothing; the same rows with a stride of 104 launch (0)."""
+    wide = torch.randn(1, 4, 64, 104, device=gpu).to(torch.bfloat16)
+    odd = torch.randn(1, 4, 64, 102, device=gpu).to(torch.bfloat16)[..., :100]
+    empty = torch.zeros(1, 4, 0, 100, device=gpu, dtype=torch.bfloat16)
+    half = torch.randn(1, 4, 64, 100, device=gpu).to(torch.float16)
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert _c_entry(name, (wide[..., :100],) * 4, "wgmma") == 0
+        assert _c_entry(name, (odd,) * 4, "wgmma") == 1
+        assert _c_entry(name, (wide[..., :100], empty, empty, wide[..., :100]), "wgmma") == 1
+        assert _c_entry(name, (half,) * 4, "wgmma") == 1
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("lse_scale, sink", [(8.0, False), (1e3, False), (1e3, True)],
@@ -908,7 +1060,7 @@ def test_kernel_refuses_what_it_does_not_take(gpu, dtype, d):
 
 
 # head dims other than 32, 64 and 128, and fp16: the simt and mma kernels at
-# their padded widths (at 96, and fp16 at 128, on wgmma; at 80 and 100 the
+# their padded widths (at 96 and 100, and fp16 at 128, on wgmma; at 80 the
 # forward). (dtype, d, (b, h, kvh, sq, sk), causal, window, layout, the
 # route `_route` picks for every kernel, or for the forward and the
 # backward); "offset1" starts each tensor one element into its storage,
@@ -925,8 +1077,7 @@ WIDE_CASES = {
     "bf16_d40_ragged": (torch.bfloat16, 40, (2, 4, 2, 300, 300), True, None, "bhsd", "mma"),
     "bf16_d8_non_causal": (torch.bfloat16, 8, (1, 2, 2, 70, 130), False, None, "bhsd",
                            "mma"),
-    "bf16_d100": (torch.bfloat16, 100, (1, 4, 4, 256, 256), True, None, "bhsd",
-                  ("wgmma", "simt")),
+    "bf16_d100": (torch.bfloat16, 100, (1, 4, 4, 256, 256), True, None, "bhsd", "wgmma"),
     "bf16_d1": (torch.bfloat16, 1, (1, 2, 2, 100, 100), True, None, "bhsd", "simt"),
     "fp16_d128": (torch.float16, 128, (1, 8, 8, 512, 512), True, None, "bhsd", "wgmma"),
     "fp16_d64_bshd": (torch.float16, 64, (2, 8, 8, 256, 256), True, None, "bshd", "mma"),

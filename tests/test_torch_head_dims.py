@@ -315,11 +315,16 @@ def test_a_scale_from_do_alone_overflows_ds(monkeypatch):
 # 2 layers of 2 heads, whose forwards take the wgmma forward kernels at those
 # widths on the card: fp32 logits against the JAX package's, summation order
 # only (the bound of tests/test_torch_llama.py)
-@pytest.mark.parametrize("head_dim", [80, 100])
-def test_new_width_llama_logits_match_jax(head_dim):
+def _new_width(head_dim):
     jcfg = dataclasses.replace(jllama.LlamaConfig.tiny(), dim=2 * head_dim, n_heads=2,
                                n_kv_heads=2, ffn_dim=256, dtype="float32")
     assert jcfg.head_dim == _twin(jcfg).head_dim == head_dim and jcfg.n_layers == 2
+    return jcfg
+
+
+@pytest.mark.parametrize("head_dim", [80, 100])
+def test_new_width_llama_logits_match_jax(head_dim):
+    jcfg = _new_width(head_dim)
     jparams = jllama.init_llama(jcfg, jax.random.PRNGKey(9))
     tokens = np.random.default_rng(10).integers(0, jcfg.vocab_size, (2, 40))
     want = jllama.llama_forward(jparams, jnp.asarray(tokens), jcfg)
@@ -327,3 +332,30 @@ def test_new_width_llama_logits_match_jax(head_dim):
                                _twin(jcfg))
     assert got.shape == want.shape
     np.testing.assert_allclose(_np(got), _np(want), atol=1e-4, rtol=1e-4)
+
+
+# the same Llamas' gradients, whose backward takes dQ and dK/dV's wgmma
+# kernels at 100 on the card (mma at 80): jax.value_and_grad of llama_loss
+# (remat) against the port's backward, every leaf, in fp32 (the bound of
+# test_head_dim_48_llama_gradients_match_jax)
+@pytest.mark.parametrize("head_dim", [80, 100])
+def test_new_width_llama_gradients_match_jax(head_dim):
+    jcfg = _new_width(head_dim)
+    jparams = jllama.init_llama(jcfg, jax.random.PRNGKey(11))
+    tokens = np.random.default_rng(12).integers(0, jcfg.vocab_size, (2, 40))
+    want_loss, want = jax.value_and_grad(jllama.llama_loss)(
+        jparams, jnp.asarray(tokens), jcfg, remat=True)
+    tparams = _port_params(jcfg, jparams)
+    for t in param_leaves(tparams):
+        t.requires_grad_(True)
+    loss = tllama.llama_loss(tparams, torch.from_numpy(tokens), _twin(jcfg), remat=True)
+    loss.backward()
+    assert float(loss.detach()) == pytest.approx(float(want_loss), rel=1e-6)
+    want = jax.tree.map(np.asarray, want)
+    for name in ("embed", "final_norm", "lm_head"):
+        np.testing.assert_allclose(_np(tparams[name].grad), want[name], atol=1e-6,
+                                   err_msg=name)
+    for i, layer in enumerate(tparams["layers"]):
+        for name, t in layer.items():
+            np.testing.assert_allclose(_np(t.grad), want["layers"][name][i], atol=1e-6,
+                                       err_msg=f"layers.{i}.{name}")

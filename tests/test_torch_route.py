@@ -38,9 +38,9 @@ CASES = {
                           _bhsd(1, 4, 0, 128)], "mma"),
     # head dims past wgmma's and fp16: mma takes aligned rows whose head dim
     # is a multiple of 8 up to 256, simt the rest; wgmma takes bf16 at 64,
-    # 96 (Phi-3-mini's) and 128, and fp16 at 128; the forward's wgmma also
-    # bf16 at 80 (StableLM-3B's) and at 100 (OpenLLaMA-3B's), whose rows it
-    # copies in 8-byte pieces: bases 8-byte aligned, strides multiples of 4
+    # 96 (Phi-3-mini's), 100 (OpenLLaMA-3B's, whose rows the kernels copy in
+    # 8-byte pieces: bases 8-byte aligned, strides multiples of 4) and 128,
+    # and fp16 at 128; the forward's wgmma also bf16 at 80 (StableLM-3B's)
     "bf16_d96": (lambda: [_bhsd(1, 4, 64, 96)] * 3, "wgmma"),
     "bf16_d80": (lambda: [_bhsd(1, 4, 64, 80)] * 3, "wgmma"),
     "bf16_d80_bshd_view": (lambda: [_model_view(2, 64, 4, 80)] * 3, "wgmma"),
@@ -80,7 +80,8 @@ def test_route_follows_the_inputs(case):
 
 # the head dims each kernel has a wgmma kernel for (csrc/), by dtype: every
 # kernel at 64, 96 and 128 in bf16, and at 128 in fp16; the forward at 80 in
-# bf16 too (and at 100, whose rows are not 16-byte aligned: not among these)
+# bf16 too (and every kernel at 100, whose rows are not 16-byte aligned: not
+# among these, which mma takes too)
 WGMMA_TAKES = {torch.bfloat16: {"flash_fwd": (64, 80, 96, 128),
                                 "flash_bwd_dq": (64, 96, 128),
                                 "flash_bwd_dkv": (64, 96, 128)},
@@ -208,8 +209,19 @@ BWD_CASES = {
                               "wgmma"),
     "fp16_d96": (lambda: [_bhsd(1, 4, 64, 96, torch.float16)] * 4, "mma"),
     "fp16_d64": (lambda: [_model_view(1, 64, 4, 64, torch.float16)] * 4, "mma"),
-    "bf16_d100": (lambda: [_bhsd(1, 4, 64, 100)] * 4, "simt"),
-    "bf16_d100_model_views": (lambda: [_model_view(1, 64, 4, 100)] * 4, "simt"),
+    # head dim 100 (OpenLLaMA-3B's): wgmma for 8-byte aligned bases and
+    # strides that are multiples of 4, simt otherwise, and in fp16
+    "bf16_d100": (lambda: [_bhsd(1, 4, 64, 100)] * 4, "wgmma"),
+    "bf16_d100_model_views": (lambda: [_model_view(1, 64, 4, 100)] * 4, "wgmma"),
+    "bf16_d100_aligned_rows": (lambda: [_bhsd(1, 4, 64, 104)[..., :100]] * 4, "wgmma"),
+    "bf16_d100_offset_by_four": (lambda: [_bhsd(1, 4, 64, 100, offset=4)] * 4, "wgmma"),
+    "bf16_d100_offset_by_one": (lambda: [_bhsd(1, 4, 64, 100, offset=1)] * 4, "simt"),
+    "bf16_d100_do_offset_by_two": (lambda: [_bhsd(1, 4, 64, 100)] * 3
+                                   + [_bhsd(1, 4, 64, 100, offset=2)], "simt"),
+    "bf16_d100_odd_seq_stride": (lambda: [_bhsd(1, 4, 64, 102)[..., :100]] * 4, "simt"),
+    "bf16_d100_empty_kv": (lambda: [_bhsd(1, 4, 64, 100), _bhsd(1, 4, 0, 100),
+                                    _bhsd(1, 4, 0, 100), _bhsd(1, 4, 64, 100)], "simt"),
+    "fp16_d100": (lambda: [_bhsd(1, 4, 64, 100, torch.float16)] * 4, "simt"),
     "fp16_do_offset_by_one": (lambda: [_bhsd(1, 4, 64, 128, torch.float16)] * 3
                               + [_bhsd(1, 4, 64, 128, torch.float16, offset=1)], "simt"),
 }
@@ -235,14 +247,17 @@ def test_backward_route_follows_the_inputs(case):
 
 
 # (case, route) both backward kernels must refuse (fp16 has a wgmma backward
-# kernel at head dim 128 alone, for aligned rows; bf16 none at 80 or 100)
+# kernel at head dim 128 alone, for aligned rows; bf16 none at 80, and at 100
+# none for rows off 8 bytes, strides off 4 elements or an empty kv)
 BWD_REFUSALS = [("fp32_d128", "wgmma"), ("fp32_d128", "mma"), ("bf16_d32", "wgmma"),
                 ("do_offset_by_one", "mma"), ("do_odd_seq_stride", "wgmma"),
                 ("empty_kv", "wgmma"), ("bf16_d128", "tma"), ("bf16_d80", "wgmma"),
                 ("fp16_d64", "wgmma"), ("fp16_d96", "wgmma"), ("bf16_d100", "mma"),
                 ("fp16_do_offset_by_one", "mma"), ("fp16_do_offset_by_one", "wgmma"),
-                ("bf16_d100", "wgmma"), ("bf16_d100_model_views", "wgmma"),
-                ("bf16_d80_model_views", "wgmma")]
+                ("bf16_d100_model_views", "mma"), ("bf16_d80_model_views", "wgmma"),
+                ("bf16_d100_offset_by_one", "wgmma"), ("bf16_d100_do_offset_by_two", "wgmma"),
+                ("bf16_d100_odd_seq_stride", "wgmma"), ("bf16_d100_empty_kv", "wgmma"),
+                ("fp16_d100", "wgmma")]
 
 
 @pytest.mark.parametrize("fn,case,route", [
@@ -325,6 +340,18 @@ def test_the_models_backward_at_head_dim_64(monkeypatch):
         ("flash_bwd_dkv", "wgmma")]
 
 
+def test_the_models_backward_at_head_dim_100(monkeypatch):
+    """As above at head_dim 100 (OpenLLaMA-3B's widths), whose model views
+    put every other head's rows 8 bytes off a 16-byte boundary: the forward
+    and both backward launchers take wgmma, on the kernels whose producers
+    copy the rows with cp.async."""
+    cfg = dataclasses.replace(_one_layer(200), n_kv_heads=2)
+    assert cfg.head_dim == 100
+    assert _a_models_launch_routes(monkeypatch, cfg) == [
+        ("flash_fwd", "wgmma"), ("flash_fwd", "wgmma"), ("flash_bwd_dq", "wgmma"),
+        ("flash_bwd_dkv", "wgmma")]
+
+
 def test_the_models_backward_at_head_dim_96(monkeypatch):
     """As above at head_dim 96 (Phi-3-mini's widths): the forward and both
     backward launchers take wgmma, dQ on its head-dim-96 kernel."""
@@ -348,12 +375,12 @@ def test_the_fp16_models_backward_lands_on_wgmma(monkeypatch):
 
 
 @pytest.mark.parametrize("d,route", [(64, "wgmma"), (128, "wgmma"), (32, "mma"),
-                                     (96, "wgmma")])
+                                     (96, "wgmma"), (100, "wgmma")])
 def test_the_smokes_routes_are_the_routes_picks(d, route):
     """chip_smoke's one expectation of the routes at a SHAPES row
     (`shape_routes`) against `_route` on the model's views at head dim `d`:
-    at 64, 96 and 128 every kernel on wgmma, dQ's among them; at 32, which
-    no wgmma kernel takes, every kernel on mma."""
+    at 64, 96, 100 and 128 every kernel on wgmma, dQ's among them; at 32,
+    which no wgmma kernel takes, every kernel on mma."""
     import chip_smoke
 
     want = chip_smoke.shape_routes(route)
@@ -480,9 +507,9 @@ def _wide_rows():
 @pytest.mark.parametrize("row", _wide_rows(), ids=lambda row: row[0])
 def test_the_smokes_wide_rows_take_their_routes(row):
     """Each row chip_smoke adds at the new head dims and in fp16 names the
-    route `_route` picks for each kernel there: wgmma at head dim 96 in bf16
-    and in fp16 at 128 aligned, for every kernel, and for the forward alone
-    at 80 and 100 in bf16 (not one element into its storage)."""
+    route `_route` picks for each kernel there: wgmma at head dims 96 and 100
+    in bf16 and in fp16 at 128 aligned, for every kernel, and for the
+    forward alone at 80 in bf16 (not one element into its storage)."""
     import chip_smoke
 
     q, k, v, do = _smoke_row_tensors(row)
@@ -490,12 +517,13 @@ def test_the_smokes_wide_rows_take_their_routes(row):
     assert attn._route("flash_fwd", q, k, v) == want["flash_fwd"]
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         assert attn._route(name, q, k, v, do) == want[name]
-    d96 = row[6] == 96 and row[9] == torch.bfloat16
-    fp16_128 = row[6] == 128 and row[9] == torch.float16 and row[10] != "offset1"
-    fwd_alone = row[6] in (80, 100) and row[9] == torch.bfloat16 and row[10] != "offset1"
-    assert ("wgmma" in attn._routes("flash_fwd", q, k, v)) == (d96 or fp16_128 or fwd_alone)
-    assert ("wgmma" in attn._routes("flash_bwd_dkv", q, k, v, do)) == (d96 or fp16_128)
-    assert ("wgmma" in attn._routes("flash_bwd_dq", q, k, v, do)) == (d96 or fp16_128)
+    aligned_bf16 = row[9] == torch.bfloat16 and row[10] != "offset1"
+    every = (row[6] in (96, 100) and aligned_bf16) or (
+        row[6] == 128 and row[9] == torch.float16 and row[10] != "offset1")
+    fwd_alone = row[6] == 80 and aligned_bf16
+    assert ("wgmma" in attn._routes("flash_fwd", q, k, v)) == (every or fwd_alone)
+    assert ("wgmma" in attn._routes("flash_bwd_dkv", q, k, v, do)) == every
+    assert ("wgmma" in attn._routes("flash_bwd_dq", q, k, v, do)) == every
     assert row[6] <= attn.KERNEL_MAX_HEAD_DIM
 
 
@@ -556,16 +584,18 @@ def test_fp16_backward_on_mma_moves_the_backward_alone_and_restores():
 
 
 # head dims 80 (StableLM-3B-4E1T's) and 100 (OpenLLaMA-3B's): the forward has
-# a wgmma kernel at each in bf16, the backward kernels none (mma at 80, simt
-# at 100, whose rows are no multiple of 8 elements)
+# a wgmma kernel at each in bf16; the backward kernels none at 80 (mma) and
+# theirs at 100 (straight after simt: no mma kernel takes rows that are no
+# multiple of 8 elements)
 @pytest.mark.parametrize("layout", ["bhsd", "bshd"])
-@pytest.mark.parametrize("d,bwd", [(80, ("simt", "mma")), (100, ("simt",))])
-def test_the_forward_alone_takes_wgmma_at_head_dims_80_and_100(d, bwd, layout):
+@pytest.mark.parametrize("d,fwd,bwd", [(80, ("simt", "mma", "wgmma"), ("simt", "mma")),
+                                       (100, ("simt", "wgmma"), ("simt", "wgmma"))])
+def test_the_forward_alone_takes_wgmma_at_head_dims_80_and_100(d, fwd, bwd, layout):
     """bf16, contiguous and as the model's views: the forward's routes end in
-    wgmma (after mma at 80, straight after simt at 100); dQ and dK/dV keep
-    the routes they had."""
+    wgmma (after mma at 80, straight after simt at 100); at 80 dQ and dK/dV
+    keep mma, at 100 they end in wgmma too."""
     q, k, v, do = ([_bhsd(1, 4, 64, d)] if layout == "bhsd" else [_model_view(1, 64, 4, d)]) * 4
-    assert attn._routes("flash_fwd", q, k, v) == bwd + ("wgmma",)
+    assert attn._routes("flash_fwd", q, k, v) == fwd
     for kernel in BWD_KERNELS:
         assert attn._routes(kernel, q, k, v, do) == bwd
 
@@ -585,11 +615,11 @@ def test_no_wgmma_forward_at_80_or_100_but_aligned_bf16(d, dtype, offset):
     assert (attn.flash_fwd.launches, attn.flash_fwd.launches_by_route) == before
 
 
-@pytest.mark.parametrize("dim,bwd", [(160, "mma"), (200, "simt")])
+@pytest.mark.parametrize("dim,bwd", [(160, "mma"), (200, "wgmma")])
 def test_the_models_forward_at_head_dims_80_and_100(monkeypatch, dim, bwd):
     """A bf16 layer at head_dim 80 and 100 (`_a_models_launch_routes`):
-    both forward launches take wgmma, and the backward launchers the route
-    they took before (mma at 80, simt at 100)."""
+    both forward launches take wgmma, and the backward launchers mma at 80
+    and their head-dim-100 wgmma kernels at 100."""
     cfg = _one_layer(dim)
     assert cfg.head_dim == dim // 2
     assert _a_models_launch_routes(monkeypatch, cfg) == [
@@ -618,7 +648,8 @@ def test_the_new_width_forwards_expect_every_launch_on_wgmma():
     flash_fwd launch a layer on wgmma (`phase_forward`'s route): `_route`
     picks it on each config's model views at its head dim, and each old
     route set (`profile_path.d100_forward_on_simt`, `d80_forward_on_mma`)
-    moves the forward alone, to simt at 100 and mma at 80, and restores."""
+    moves the forward alone, to simt at 100 and mma at 80 (the backward on
+    wgmma at 100, mma at 80), and restores."""
     import chip_smoke
     from yoda_scheduler_tpu_torch.profile_path import (d80_forward_on_mma,
                                                        d100_forward_on_simt, openllama_3b,
@@ -626,7 +657,7 @@ def test_the_new_width_forwards_expect_every_launch_on_wgmma():
 
     assert chip_smoke.shape_routes("wgmma")["flash_fwd"] == "wgmma"
     saved = dict(attn._WGMMA_HEAD_DIMS)
-    for cfg, old_routes, old, bwd in ((openllama_3b(), d100_forward_on_simt, "simt", "simt"),
+    for cfg, old_routes, old, bwd in ((openllama_3b(), d100_forward_on_simt, "simt", "wgmma"),
                                       (stablelm_3b_4e1t(), d80_forward_on_mma, "mma", "mma")):
         q, k, v, do = [_model_view(1, 64, cfg.n_heads, cfg.head_dim)] * 4
         other = [_model_view(1, 64, 4, 96)] * 3
@@ -641,9 +672,11 @@ def test_the_new_width_forwards_expect_every_launch_on_wgmma():
 
 
 def test_shape_routes_takes_a_forward_and_backward_pair():
-    """A SHAPES row at 80 or 100 names the forward's route and the backward
-    kernels' apart; the smoke's forward-only turn rows are such rows, among
-    its wide rows, each with a route before wgmma to be timed against."""
+    """A SHAPES row at 80 names the forward's route and the backward
+    kernels' apart, and one at 100 one route for all three; the smoke's
+    forward turn rows are such rows, among its wide rows, each with a route
+    before wgmma to be timed against, and its backward turn rows the two at
+    100, where dQ and dK/dV took simt before their wgmma kernels."""
     import chip_smoke
 
     assert chip_smoke.shape_routes(("wgmma", "simt")) == {
@@ -655,5 +688,59 @@ def test_shape_routes_takes_a_forward_and_backward_pair():
     for name in chip_smoke.FWD_TURN_SHAPES:
         old = "mma" if rows[name][6] == 80 else "simt"
         q, k, v, _ = _smoke_row_tensors(rows[name])
-        assert rows[name][-1] == ("wgmma", old)
+        assert rows[name][-1] == (("wgmma", old) if old == "mma" else "wgmma")
         assert attn._routes("flash_fwd", q, k, v)[-2:] == (old, "wgmma")
+    assert set(chip_smoke.BWD_TURN_SHAPES) == {n for n in chip_smoke.FWD_TURN_SHAPES
+                                               if rows[n][6] == 100}
+    for name in chip_smoke.BWD_TURN_SHAPES:
+        q, k, v, do = _smoke_row_tensors(rows[name])
+        for kernel in BWD_KERNELS:
+            assert attn._routes(kernel, q, k, v, do) == ("simt", "wgmma")
+
+
+def test_d100_backward_on_simt_moves_the_backward_alone_and_restores():
+    """`profile_path.d100_backward_on_simt`, the route set OpenLLaMA-3B's
+    gradient and train step are timed against: within it head dim 100 takes
+    simt for dQ and dK/dV while the forward keeps wgmma, and head dim 96
+    keeps wgmma for every kernel; after it `_WGMMA_HEAD_DIMS` is exactly what
+    it was, and the backward at 100 takes wgmma again."""
+    from yoda_scheduler_tpu_torch.profile_path import d100_backward_on_simt
+
+    saved = {key: dims for key, dims in attn._WGMMA_HEAD_DIMS.items()}
+    t = [_model_view(1, 64, 4, 100)] * 4
+    other = [_model_view(1, 64, 4, 96)] * 4
+    with d100_backward_on_simt():
+        assert attn._route("flash_fwd", *t[:3]) == "wgmma"
+        for name in BWD_KERNELS:
+            assert attn._route(name, *t) == "simt"
+            assert attn._route(name, *other) == "wgmma"
+    assert attn._WGMMA_HEAD_DIMS == saved
+    for name in BWD_KERNELS:
+        assert attn._route(name, *t) == "wgmma"
+
+
+def test_openllama3b_gradient_and_train_expect_every_launch_on_wgmma():
+    """chip_smoke's expected launches of openllama3b_gradient (4 layers:
+    8/4/4) and of an openllama3b_train step (all 26 layers, the forward
+    twice a layer under remat and each backward kernel once: 52/26/26), all
+    on wgmma, as `_route` picks them on the model's views at head dim 100;
+    both phases appear in the kernels line's launches by path."""
+    import inspect
+
+    import chip_smoke
+    from yoda_scheduler_tpu_torch.profile_path import openllama_3b
+
+    cfg = openllama_3b()
+    assert chip_smoke.step_routes("wgmma", cfg.n_layers) == {
+        "flash_fwd": {"wgmma": 52}, "flash_bwd_dq": {"wgmma": 26},
+        "flash_bwd_dkv": {"wgmma": 26}}
+    assert chip_smoke.step_routes("wgmma", 4) == {
+        "flash_fwd": {"wgmma": 8}, "flash_bwd_dq": {"wgmma": 4},
+        "flash_bwd_dkv": {"wgmma": 4}}
+    q, k, v, do = [_model_view(1, 64, cfg.n_heads, cfg.head_dim)] * 4
+    assert attn._route("flash_fwd", q, k, v) == "wgmma"
+    for name in BWD_KERNELS:
+        assert attn._route(name, q, k, v, do) == "wgmma"
+    main = inspect.getsource(chip_smoke.main)
+    for path in ("openllama3b_gradient", "openllama3b_train_step"):
+        assert main.count(f'"{path}": openllama_') == 2, path

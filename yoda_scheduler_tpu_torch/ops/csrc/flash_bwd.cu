@@ -30,7 +30,10 @@
 //   path): TMA-fed and warp-specialised on wgmma, as flash_fwd.cu's wgmma
 //   kernel. Below; flash_bwd_dq_wgmma96_kernel and
 //   flash_bwd_dkv_wgmma96_kernel are route 2 at D = 96 (Phi-3-mini's
-//   attention), the D = 128 kernels' bodies at the true width;
+//   attention), the D = 128 kernels' bodies at the true width, and
+//   flash_bwd_dq_wgmma100_kernel and flash_bwd_dkv_wgmma100_kernel route 2
+//   at D = 100 (OpenLLaMA-3B's, 200-byte rows with 8-byte aligned bases,
+//   which their producers copy with cp.async where TMA cannot read them);
 //   flash_bwd_dq_wgmma_f16_kernel and flash_bwd_dkv_wgmma_f16_kernel are
 //   route 2 in fp16 at D = 128 (Llama-2's published dtype), the D = 128
 //   kernels' bodies on fp16 operands; flash_bwd_dkv_wgmma64_kernel and
@@ -74,7 +77,7 @@
 // ragged tiles), rounds them to the input type as the A operands of the RS
 // form (the accumulator's columns 16 s .. 16 s + 15 are A's k-step s), and
 // adds the products into its fp32 sums with RS wgmma m64n128k16 (m64n96k16 at
-// D = 96), the streamed tile an MN-major B operand (head_dim contiguous;
+// D = 96, m64n104k16 at 100), the streamed tile an MN-major B operand (head_dim contiguous;
 // halves 8 KB apart). The two steps
 // are kept apart in time, as the forward's basic order, so the sums, the
 // scores and the operands fit the consumers' 240 registers without spills.
@@ -791,8 +794,21 @@ __device__ __forceinline__ void to_a_operand(const float (&d)[32], uint32_t (&a)
     for (int i = 0; i < 4; ++i) a[s][i] = pack_t<T>(d[8 * s + 2 * i], d[8 * s + 2 * i + 1]);
 }
 
+// The q, k, v and dO rows of a launch whose producer copies them itself
+// (the D = 100 kernels): bases, and (batch, head, seq) strides of q, k, v and
+// dO in elements, in Strides' order.
+template <typename T>
+struct BwdRows {
+  const T* q;
+  const T* k;
+  const T* v;
+  const T* dout;
+  int64_t st[12];
+};
+
 // The body of flash_bwd_dkv_wgmma_kernel (bf16, D = 128),
-// flash_bwd_dkv_wgmma96_kernel (bf16, D = 96) and
+// flash_bwd_dkv_wgmma96_kernel (bf16, D = 96),
+// flash_bwd_dkv_wgmma100_kernel (bf16, D = 100) and
 // flash_bwd_dkv_wgmma_f16_kernel (fp16, D = 128). fp16 differs from bf16 only
 // in names, as in flash_fwd.cu's fwd_wgmma_body: the wgmma instructions (.f16
 // for .bf16), the tensor maps' data type, and the roundings of P^T and dS^T
@@ -802,17 +818,34 @@ __device__ __forceinline__ void to_a_operand(const float (&d)[32], uint32_t (&a)
 // column 96 (every expect_tx counts whole boxes); S^T and dP^T run 6 k-steps
 // (the last two in the second half), dV and dK are m64n96k16 sums (48 + 48
 // fp32 a thread, not 64 + 64), and the epilogue stores the 96 columns alone.
+// At D = 100 (OpenLLaMA-3B's 200-byte rows, half of a [B, S, H, 100] view's
+// heads 8 bytes off a 16-byte boundary) TMA cannot read the rows, and the
+// producer warpgroup's 128 threads copy them in 8-byte cp.async pieces into
+// the same layout, as flash_fwd.cu's D = 100 kernel: K and V as 128-row
+// tiles, and each stage's Q and dO as 64-row tiles in one pass of 25 pieces a
+// thread (`cp_async_rows<D, 64>`). Each thread's cp.async.mbarrier.arrive
+// .noinc counts one of 128 arrivals, so a stage's barrier waits for 128 + 32
+// (the first warp still stages LSE and delta with plain stores and arrives
+// after them); columns 100-127 of every tile are zeroed once for the whole
+// run, and the consumers fence the generic proxy's writes against wgmma's
+// reads after each wait. S^T and dP^T run 7 k-steps (the 7th over columns
+// 96-111), dV and dK are m64n104k16 sums (52 + 52 fp32 a thread), whose
+// columns 100-103 are not stored. The producer keeps 40 registers for its
+// copies (24 under TMA) and the consumers get 232.
 // At Phi-3-mini's attention (B=1, H=32, S=2048, D=96, causal) dK/dV does
-// ~51.6 GFLOP against ~76 MB, bound by operations (~52 us at 989 TF/s).
+// ~51.6 GFLOP against ~76 MB, bound by operations (~52 us at 989 TF/s); at
+// OpenLLaMA-3B's (D=100) ~53.7 GFLOP, ~54 us.
 template <typename T, int D>
 __device__ __forceinline__ void dkv_wgmma_body(
     const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
-    const CUtensorMap* tm_do, const float* __restrict__ lse,
+    const CUtensorMap* tm_do, const BwdRows<T>& src, const float* __restrict__ lse,
     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
     const float* __restrict__ out_scale, int H, int KvH, int Sq, int Sk, int causal,
     int window, float scale) {
   using namespace hopper;
-  constexpr int KSTEPS = D / 16;  // k-steps of S^T and dP^T
+  constexpr int KSTEPS = (D + 15) / 16;  // k-steps of S^T and dP^T
+  constexpr int DN = (D + 7) / 8 * 8;    // the sums' width: D rounded up to 8
+  constexpr bool COPY = D % 8 != 0;      // rows TMA cannot read: cp.async
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   unsigned char* sK = smem;
@@ -830,20 +863,59 @@ __device__ __forceinline__ void dkv_wgmma_body(
   q_tiles(k0, 128, 64, Sq, Sk, causal, window, first, last);
 
   if (threadIdx.x == 0) {
-    mbar_init(full_kv, 1);
+    const uint32_t fills = COPY ? WG_THREADS : 1;  // arrivals that fill a tile
+    mbar_init(full_kv, fills);
     for (int s = 0; s < W_STAGES; ++s) {
-      mbar_init(&full[s], 1 + 32);  // the TMA's expect_tx, and the 32 lanes staging LSE/delta
+      mbar_init(&full[s], fills + 32);  // the fill, and the 32 lanes staging LSE/delta
       mbar_init(&empty[s], 2 * WG_THREADS);
     }
     mbar_fence_init();
   }
+  if constexpr (COPY) {
+    zero_cols_past<D>(sK, threadIdx.x, blockDim.x);
+    zero_cols_past<D>(sV, threadIdx.x, blockDim.x);
+    for (int t = 0; t < 2 * W_STAGES; ++t)
+      zero_cols_past<D, 64>(smem + DKV_Q + W_T64 * t, threadIdx.x, blockDim.x);
+    fence_proxy_async();
+  }
   __syncthreads();
 
   if (threadIdx.x < WG_THREADS) {
-    // ---- producer: lane 0 issues every TMA load, the first warp stages
-    // LSE and delta with plain loads
-    setmaxnreg_dec<24>();
-    if (threadIdx.x < 32) {
+    // ---- producer: lane 0 issues every TMA load, or all 128 copy; the
+    // first warp stages LSE and delta with plain loads
+    setmaxnreg_dec<COPY ? 40 : 24>();
+    if constexpr (COPY) {
+      const int p = threadIdx.x;
+      const int64_t* st = src.st;
+      cp_async_rows<D>(sK, src.k + b * st[3] + kvh * st[4], st[5], k0, Sk, p);
+      cp_async_rows<D>(sV, src.v + b * st[6] + kvh * st[7], st[8], k0, Sk, p);
+      cp_async_arrive_noinc(full_kv);
+      const T* qp = src.q + b * st[0] + h * st[1];
+      const T* dop = src.dout + b * st[9] + h * st[10];
+      const float* lse_bh = lse + (int64_t)bh * Sq;
+      const float* delta_bh = delta + (int64_t)bh * Sq;
+      for (int t = first, i = 0; t < last; ++t, ++i) {
+        const int s = i % W_STAGES;
+        const int q0 = t * 64;
+        mbar_wait(&empty[s], ((i / W_STAGES) & 1) ^ 1);
+        unsigned char* sQ = smem + DKV_Q + DKV_STAGE * s;
+        cp_async_rows<D, 64>(sQ, qp, st[2], q0, Sq, p, sQ + W_T64, dop, st[11]);
+        cp_async_arrive_noinc(&full[s]);
+        if (p < 32) {
+          // rows past Sq get 0 here and are masked by the consumers
+          float* sts = stats + 128 * s;
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int r = p + 32 * half;
+            const bool in = q0 + r < Sq;
+            sts[r] = in ? lse_bh[q0 + r] * LOG2E : 0.f;
+            sts[64 + r] = in ? delta_bh[q0 + r] : 0.f;
+          }
+          mbar_arrive(&full[s]);
+        }
+      }
+      cp_async_wait_all();
+    } else if (threadIdx.x < 32) {
       const int lane = threadIdx.x;
       if (lane == 0) {
         mbar_arrive_expect_tx(full_kv, 2 * W_T128);
@@ -880,7 +952,7 @@ __device__ __forceinline__ void dkv_wgmma_body(
     }
   } else {
     // ---- consumers: 64 keys each
-    setmaxnreg_inc<240>();
+    setmaxnreg_inc<COPY ? 232 : 240>();
     const int cw = threadIdx.x / WG_THREADS - 1;
     const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
     const int g = lane >> 2, t4 = lane & 3;
@@ -889,19 +961,22 @@ __device__ __forceinline__ void dkv_wgmma_body(
     const bool w_live = w_key0 < Sk;
     const int key0 = w_key0 + 16 * warp + g;  // this thread's keys: key0, key0 + 8
     const float c = scale * LOG2E;  // raw score -> log2 units
-    float gk[D / 2], gv[D / 2];
+    float gk[DN / 2], gv[DN / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) gk[i] = gv[i] = 0.f;
+    for (int i = 0; i < DN / 2; ++i) gk[i] = gv[i] = 0.f;
     const uint64_t da_k = desc_kmajor(sK + 64 * 128 * cw);
     const uint64_t da_v = desc_kmajor(sV + 64 * 128 * cw);
 
+    // a tile the producer copied is read by wgmma only after this fence
     mbar_wait(full_kv, 0);
+    if constexpr (COPY) fence_proxy_async();
     for (int t = first, i = 0; t < last; ++t, ++i) {
       const int s = i % W_STAGES;
       const int q0 = t * 64;
       const int p_first = kv_offset + q0;
       const int p_last = kv_offset + min(q0 + 63, Sq - 1);
       mbar_wait(&full[s], (i / W_STAGES) & 1);
+      if constexpr (COPY) fence_proxy_async();
       // a tile masked for every key of this warpgroup is only released
       if (!w_live || (causal && (w_key0 > p_last ||
                                  (window > 0 && w_key0 + 63 <= p_first - window)))) {
@@ -967,10 +1042,10 @@ __device__ __forceinline__ void dkv_wgmma_body(
       wgmma_fence();
 #pragma unroll
       for (int k4 = 0; k4 < 4; ++k4)
-        wgmma_rs<D, 1, T>(gv, pa[k4], db_o_mn + ((k4 * 2048) >> 4), 1);
+        wgmma_rs<DN, 1, T>(gv, pa[k4], db_o_mn + ((k4 * 2048) >> 4), 1);
 #pragma unroll
       for (int k4 = 0; k4 < 4; ++k4)
-        wgmma_rs<D, 1, T>(gk, sa[k4], db_q_mn + ((k4 * 2048) >> 4), 1);
+        wgmma_rs<DN, 1, T>(gk, sa[k4], db_q_mn + ((k4 * 2048) >> 4), 1);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(gv);
@@ -979,7 +1054,8 @@ __device__ __forceinline__ void dkv_wgmma_body(
     }
 
     // dK scale and dV in T (times *out_scale), one copy per q head; gk[4 j
-    // + e] is key key0 + 8 (e / 2), head dim 8 j + 2 t4 + (e % 2)
+    // + e] is key key0 + 8 (e / 2), head dim 8 j + 2 t4 + (e % 2) (at D =
+    // 100 the last n-tile's columns 100-103 are not stored)
     if (w_live) {
       const float os = out_scale ? *out_scale : 1.f;
       const float ks = scale * os;
@@ -989,7 +1065,8 @@ __device__ __forceinline__ void dkv_wgmma_body(
         if (key >= Sk) continue;
         const int64_t base = ((int64_t)bh * Sk + key) * D + 2 * t4;
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
+        for (int j = 0; j < DN / 8; ++j) {
+          if (D % 8 != 0 && 8 * j + 2 * t4 >= D) continue;
           *reinterpret_cast<uint32_t*>(dk + base + 8 * j) =
               pack_t<T>(gk[4 * j + 2 * r] * ks, gk[4 * j + 2 * r + 1] * ks);
           *reinterpret_cast<uint32_t*>(dv + base + 8 * j) =
@@ -1007,8 +1084,9 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma_kernel(
     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
     const float* __restrict__ out_scale, int H, int KvH, int Sq, int Sk, int causal,
     int window, float scale) {
-  dkv_wgmma_body<__nv_bfloat16, 128>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dk, dv,
-                                     out_scale, H, KvH, Sq, Sk, causal, window, scale);
+  dkv_wgmma_body<__nv_bfloat16, 128>(&tm_q, &tm_k, &tm_v, &tm_do, BwdRows<__nv_bfloat16>{},
+                                     lse, delta, dk, dv, out_scale, H, KvH, Sq, Sk, causal,
+                                     window, scale);
 }
 
 __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma96_kernel(
@@ -1018,8 +1096,18 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma96_kerne
     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
     const float* __restrict__ out_scale, int H, int KvH, int Sq, int Sk, int causal,
     int window, float scale) {
-  dkv_wgmma_body<__nv_bfloat16, 96>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dk, dv,
-                                    out_scale, H, KvH, Sq, Sk, causal, window, scale);
+  dkv_wgmma_body<__nv_bfloat16, 96>(&tm_q, &tm_k, &tm_v, &tm_do, BwdRows<__nv_bfloat16>{},
+                                    lse, delta, dk, dv, out_scale, H, KvH, Sq, Sk, causal,
+                                    window, scale);
+}
+
+__global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma100_kernel(
+    const __grid_constant__ BwdRows<__nv_bfloat16> src, const float* __restrict__ lse,
+    const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+    __nv_bfloat16* __restrict__ dv, const float* __restrict__ out_scale, int H, int KvH,
+    int Sq, int Sk, int causal, int window, float scale) {
+  dkv_wgmma_body<__nv_bfloat16, 100>(nullptr, nullptr, nullptr, nullptr, src, lse, delta, dk,
+                                     dv, out_scale, H, KvH, Sq, Sk, causal, window, scale);
 }
 
 __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma_f16_kernel(
@@ -1029,8 +1117,8 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma_f16_ker
     __half* __restrict__ dk, __half* __restrict__ dv,
     const float* __restrict__ out_scale, int H, int KvH, int Sq, int Sk, int causal,
     int window, float scale) {
-  dkv_wgmma_body<__half, 128>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dk, dv, out_scale, H,
-                              KvH, Sq, Sk, causal, window, scale);
+  dkv_wgmma_body<__half, 128>(&tm_q, &tm_k, &tm_v, &tm_do, BwdRows<__half>{}, lse, delta, dk,
+                              dv, out_scale, H, KvH, Sq, Sk, causal, window, scale);
 }
 
 // ---- the dK/dV wgmma kernel at head dim 64
@@ -1253,24 +1341,33 @@ __global__ void __launch_bounds__((K64_CONS + 1) * WG_THREADS, 1) flash_bwd_dkv_
 }
 
 // The body of flash_bwd_dq_wgmma_kernel (bf16, D = 128),
-// flash_bwd_dq_wgmma96_kernel (bf16, D = 96) and flash_bwd_dq_wgmma_f16_kernel
-// (fp16, D = 128), as dkv_wgmma_body (in fp16 dS and dQ round to fp16): at D = 96 the
+// flash_bwd_dq_wgmma96_kernel (bf16, D = 96), flash_bwd_dq_wgmma100_kernel
+// (bf16, D = 100) and flash_bwd_dq_wgmma_f16_kernel (fp16, D = 128), as
+// dkv_wgmma_body (in fp16 dS and dQ round to fp16): at D = 96 the
 // tiles keep D = 128's shared-memory layout and grid, the second box of each
 // row zero-filled by TMA past column 96 (every expect_tx counts whole
 // boxes); S and dP run 6 k-steps (the last two in the second half), dQ is an
 // m64n96k16 sum (48 fp32 a thread, not 64) with K the n96 MN-major B, and
-// the epilogue stores the 96 columns alone. At Phi-3-mini's attention (B=1,
+// the epilogue stores the 96 columns alone. At D = 100 the producer
+// warpgroup copies the rows with cp.async, as dkv_wgmma_body's: Q and dO as
+// 128-row tiles, each stage's K and V as 64-row tiles in one pass; a
+// stage's barrier waits for the 128 copying threads; S and dP run 7 k-steps
+// and dQ is an m64n104k16 sum (52 fp32 a thread), K the n104 MN-major B,
+// whose columns 100-103 are not stored. At Phi-3-mini's attention (B=1,
 // H=32, S=2048, D=96, causal) dQ does ~38.7 GFLOP against ~63 MB, bound by
-// operations (~39 us at 989 TF/s).
+// operations (~39 us at 989 TF/s); at OpenLLaMA-3B's (D=100) ~40.3 GFLOP,
+// ~41 us.
 template <typename T, int D>
 __device__ __forceinline__ void dq_wgmma_body(
     const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
-    const CUtensorMap* tm_do, const float* __restrict__ lse,
+    const CUtensorMap* tm_do, const BwdRows<T>& src, const float* __restrict__ lse,
     const float* __restrict__ delta, T* __restrict__ dq,
     const float* __restrict__ out_scale, int H, int KvH,
     int Sq, int Sk, int causal, int window, float scale) {
   using namespace hopper;
-  constexpr int KSTEPS = D / 16;  // k-steps of S and dP
+  constexpr int KSTEPS = (D + 15) / 16;  // k-steps of S and dP
+  constexpr int DN = (D + 7) / 8 * 8;    // dQ's width: D rounded up to 8
+  constexpr bool COPY = D % 8 != 0;      // rows TMA cannot read: cp.async
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   unsigned char* sQ = smem;
@@ -1288,19 +1385,43 @@ __device__ __forceinline__ void dq_wgmma_body(
   key_tiles(q0, 128, 64, Sq, Sk, causal, window, first, last);
 
   if (threadIdx.x == 0) {
-    mbar_init(full_q, 1);
+    const uint32_t fills = COPY ? WG_THREADS : 1;  // arrivals that fill a tile
+    mbar_init(full_q, fills);
     for (int s = 0; s < W_STAGES; ++s) {
-      mbar_init(&full[s], 1);
+      mbar_init(&full[s], fills);
       mbar_init(&empty[s], 2 * WG_THREADS);
     }
     mbar_fence_init();
   }
+  if constexpr (COPY) {
+    zero_cols_past<D>(sQ, threadIdx.x, blockDim.x);
+    zero_cols_past<D>(sDO, threadIdx.x, blockDim.x);
+    for (int t = 0; t < 2 * W_STAGES; ++t)
+      zero_cols_past<D, 64>(smem + DQ_K + W_T64 * t, threadIdx.x, blockDim.x);
+    fence_proxy_async();
+  }
   __syncthreads();
 
   if (threadIdx.x < WG_THREADS) {
-    // ---- producer: one thread issues every load
-    setmaxnreg_dec<24>();
-    if (threadIdx.x == 0) {
+    // ---- producer: one thread issues every load, or all 128 copy
+    setmaxnreg_dec<COPY ? 40 : 24>();
+    if constexpr (COPY) {
+      const int p = threadIdx.x;
+      const int64_t* st = src.st;
+      cp_async_rows<D>(sQ, src.q + b * st[0] + h * st[1], st[2], q0, Sq, p);
+      cp_async_rows<D>(sDO, src.dout + b * st[9] + h * st[10], st[11], q0, Sq, p);
+      cp_async_arrive_noinc(full_q);
+      const T* kp = src.k + b * st[3] + kvh * st[4];
+      const T* vp = src.v + b * st[6] + kvh * st[7];
+      for (int t = first, i = 0; t < last; ++t, ++i) {
+        const int s = i % W_STAGES;
+        mbar_wait(&empty[s], ((i / W_STAGES) & 1) ^ 1);
+        unsigned char* sK = smem + DQ_K + DQ_STAGE * s;
+        cp_async_rows<D, 64>(sK, kp, st[5], t * 64, Sk, p, sK + W_T64, vp, st[8]);
+        cp_async_arrive_noinc(&full[s]);
+      }
+      cp_async_wait_all();
+    } else if (threadIdx.x == 0) {
       mbar_arrive_expect_tx(full_q, 2 * W_T128);
       tma_load_4d(sQ, tm_q, full_q, 0, q0, h, b);
       tma_load_4d(sQ + W_HALF128, tm_q, full_q, 64, q0, h, b);
@@ -1319,7 +1440,7 @@ __device__ __forceinline__ void dq_wgmma_body(
     }
   } else {
     // ---- consumers: 64 q rows each
-    setmaxnreg_inc<240>();
+    setmaxnreg_inc<COPY ? 232 : 240>();
     const int cw = threadIdx.x / WG_THREADS - 1;
     const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
     const int g = lane >> 2, t4 = lane & 3;
@@ -1337,17 +1458,20 @@ __device__ __forceinline__ void dq_wgmma_body(
       l2[r] = row < Sq ? lse[(int64_t)bh * Sq + row] * LOG2E : 0.f;
       dl[r] = row < Sq ? delta[(int64_t)bh * Sq + row] : 0.f;
     }
-    float acc[D / 2];
+    float acc[DN / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < DN / 2; ++i) acc[i] = 0.f;
     const uint64_t da_q = desc_kmajor(sQ + 64 * 128 * cw);
     const uint64_t da_o = desc_kmajor(sDO + 64 * 128 * cw);
 
+    // a tile the producer copied is read by wgmma only after this fence
     mbar_wait(full_q, 0);
+    if constexpr (COPY) fence_proxy_async();
     for (int t = first, i = 0; t < last; ++t, ++i) {
       const int s = i % W_STAGES;
       const int k0 = t * 64;
       mbar_wait(&full[s], (i / W_STAGES) & 1);
+      if constexpr (COPY) fence_proxy_async();
       // a tile masked for every row of this warpgroup is only released
       if (!w_live || (causal && (k0 > w_last ||
                                  (window > 0 && k0 + 63 <= w_first - window)))) {
@@ -1395,13 +1519,13 @@ __device__ __forceinline__ void dq_wgmma_body(
       to_a_operand<T>(dp, sa);
 
       // dQ += dS K: K [keys][head_dim] as an MN-major B operand (n96 at D =
-      // 96: its columns 64-95 the second half's first 32)
+      // 96: its columns 64-95 the second half's first 32; n104 at 100)
       const uint64_t db_k_mn = desc_mnmajor(sK, W_HALF64);
       fence_regs(acc);
       wgmma_fence();
 #pragma unroll
       for (int k4 = 0; k4 < 4; ++k4)
-        wgmma_rs<D, 1, T>(acc, sa[k4], db_k_mn + ((k4 * 2048) >> 4), 1);
+        wgmma_rs<DN, 1, T>(acc, sa[k4], db_k_mn + ((k4 * 2048) >> 4), 1);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
@@ -1416,9 +1540,10 @@ __device__ __forceinline__ void dq_wgmma_body(
         if (row >= Sq) continue;
         T* out = dq + ((int64_t)bh * Sq + row) * D + 2 * t4;
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j)
-          *reinterpret_cast<uint32_t*>(out + 8 * j) =
-              pack_t<T>(acc[4 * j + 2 * r] * qs, acc[4 * j + 2 * r + 1] * qs);
+        for (int j = 0; j < DN / 8; ++j)
+          if (D % 8 == 0 || 8 * j + 2 * t4 < D)
+            *reinterpret_cast<uint32_t*>(out + 8 * j) =
+                pack_t<T>(acc[4 * j + 2 * r] * qs, acc[4 * j + 2 * r + 1] * qs);
       }
     }
   }
@@ -1430,8 +1555,9 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dq_wgmma_kernel(
     const float* __restrict__ lse, const float* __restrict__ delta,
     __nv_bfloat16* __restrict__ dq, const float* __restrict__ out_scale, int H, int KvH,
     int Sq, int Sk, int causal, int window, float scale) {
-  dq_wgmma_body<__nv_bfloat16, 128>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dq, out_scale, H,
-                                    KvH, Sq, Sk, causal, window, scale);
+  dq_wgmma_body<__nv_bfloat16, 128>(&tm_q, &tm_k, &tm_v, &tm_do, BwdRows<__nv_bfloat16>{}, lse,
+                                    delta, dq, out_scale, H, KvH, Sq, Sk, causal, window,
+                                    scale);
 }
 
 __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dq_wgmma96_kernel(
@@ -1440,8 +1566,18 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dq_wgmma96_kernel
     const float* __restrict__ lse, const float* __restrict__ delta,
     __nv_bfloat16* __restrict__ dq, const float* __restrict__ out_scale, int H, int KvH,
     int Sq, int Sk, int causal, int window, float scale) {
-  dq_wgmma_body<__nv_bfloat16, 96>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dq, out_scale, H,
-                                   KvH, Sq, Sk, causal, window, scale);
+  dq_wgmma_body<__nv_bfloat16, 96>(&tm_q, &tm_k, &tm_v, &tm_do, BwdRows<__nv_bfloat16>{}, lse,
+                                   delta, dq, out_scale, H, KvH, Sq, Sk, causal, window,
+                                   scale);
+}
+
+__global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dq_wgmma100_kernel(
+    const __grid_constant__ BwdRows<__nv_bfloat16> src, const float* __restrict__ lse,
+    const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
+    const float* __restrict__ out_scale, int H, int KvH, int Sq, int Sk, int causal,
+    int window, float scale) {
+  dq_wgmma_body<__nv_bfloat16, 100>(nullptr, nullptr, nullptr, nullptr, src, lse, delta, dq,
+                                    out_scale, H, KvH, Sq, Sk, causal, window, scale);
 }
 
 __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dq_wgmma_f16_kernel(
@@ -1450,8 +1586,8 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dq_wgmma_f16_kern
     const float* __restrict__ lse, const float* __restrict__ delta,
     __half* __restrict__ dq, const float* __restrict__ out_scale, int H, int KvH,
     int Sq, int Sk, int causal, int window, float scale) {
-  dq_wgmma_body<__half, 128>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dq, out_scale, H, KvH,
-                             Sq, Sk, causal, window, scale);
+  dq_wgmma_body<__half, 128>(&tm_q, &tm_k, &tm_v, &tm_do, BwdRows<__half>{}, lse, delta, dq,
+                             out_scale, H, KvH, Sq, Sk, causal, window, scale);
 }
 
 // ---- the dQ wgmma kernel at head dim 64
@@ -1772,19 +1908,42 @@ cudaError_t dkv_wgmma128(K kernel, const Args& a, int D) {
   return cudaGetLastError();
 }
 
-// bf16 (dtype 1) at D = 128: flash_bwd_dkv_wgmma_kernel; at D = 96:
-// flash_bwd_dkv_wgmma96_kernel, on the same grid; at D = 64:
+// the rows of a launch whose producer copies them itself (the D = 100
+// kernels), from its arguments
+BwdRows<__nv_bfloat16> bwd_rows(const Args& a) {
+  BwdRows<__nv_bfloat16> src{(const __nv_bfloat16*)a.q, (const __nv_bfloat16*)a.k,
+                             (const __nv_bfloat16*)a.v, (const __nv_bfloat16*)a.dout, {}};
+  const int64_t* st = &a.st.q_sb;
+  for (int i = 0; i < 12; ++i) src.st[i] = st[i];
+  return src;
+}
+
+// bf16 (dtype 1) at D = 128: flash_bwd_dkv_wgmma_kernel; at D = 96 and 100:
+// flash_bwd_dkv_wgmma96_kernel and flash_bwd_dkv_wgmma100_kernel (which
+// takes the rows themselves, not maps), on the same grid; at D = 64:
 // flash_bwd_dkv_wgmma64_kernel. fp16 (dtype 2) at D = 128:
 // flash_bwd_dkv_wgmma_f16_kernel, on the D = 128 grid.
 cudaError_t launch_dkv_wgmma(const Args& a, int D, int dtype) {
   static const cudaError_t attr128 = set_smem(flash_bwd_dkv_wgmma_kernel, DKV_SMEM);
   static const cudaError_t attr96 = set_smem(flash_bwd_dkv_wgmma96_kernel, DKV_SMEM);
+  static const cudaError_t attr100 = set_smem(flash_bwd_dkv_wgmma100_kernel, DKV_SMEM);
   static const cudaError_t attr64 = set_smem(flash_bwd_dkv_wgmma64_kernel, K64_SMEM);
   static const cudaError_t attr_f16 = set_smem(flash_bwd_dkv_wgmma_f16_kernel, DKV_SMEM);
-  const cudaError_t attr =
-      dtype == 2 ? attr_f16 : D == 64 ? attr64 : D == 96 ? attr96 : attr128;
+  const cudaError_t attr = dtype == 2   ? attr_f16
+                           : D == 64   ? attr64
+                           : D == 96   ? attr96
+                           : D == 100  ? attr100
+                                       : attr128;
   if (attr != cudaSuccess) return attr;
   if (dtype == 2) return dkv_wgmma128<__half>(flash_bwd_dkv_wgmma_f16_kernel, a, D);
+  if (D == 100) {
+    const dim3 grid(a.B * a.H, (a.Sk + 127) / 128);
+    flash_bwd_dkv_wgmma100_kernel<<<grid, 3 * WG_THREADS, DKV_SMEM, a.stream>>>(
+        bwd_rows(a), (const float*)a.lse, (const float*)a.delta, (__nv_bfloat16*)a.dk,
+        (__nv_bfloat16*)a.dv, a.out_scale, a.H, a.KvH, a.Sq, a.Sk, a.causal, a.window,
+        a.scale);
+    return cudaGetLastError();
+  }
   if (D != 64)
     return dkv_wgmma128<__nv_bfloat16>(
         D == 96 ? flash_bwd_dkv_wgmma96_kernel : flash_bwd_dkv_wgmma_kernel, a, D);
@@ -1812,19 +1971,31 @@ cudaError_t dq_wgmma128(K kernel, const Args& a, int D) {
   return cudaGetLastError();
 }
 
-// bf16 (dtype 1) at D = 128: flash_bwd_dq_wgmma_kernel; at D = 96:
-// flash_bwd_dq_wgmma96_kernel, on the same grid; at D = 64:
+// bf16 (dtype 1) at D = 128: flash_bwd_dq_wgmma_kernel; at D = 96 and 100:
+// flash_bwd_dq_wgmma96_kernel and flash_bwd_dq_wgmma100_kernel (which takes
+// the rows themselves, not maps), on the same grid; at D = 64:
 // flash_bwd_dq_wgmma64_kernel. fp16 (dtype 2) at D = 128:
 // flash_bwd_dq_wgmma_f16_kernel, on the D = 128 grid.
 cudaError_t launch_dq_wgmma(const Args& a, int D, int dtype) {
   static const cudaError_t attr128 = set_smem(flash_bwd_dq_wgmma_kernel, DQ_SMEM);
   static const cudaError_t attr96 = set_smem(flash_bwd_dq_wgmma96_kernel, DQ_SMEM);
+  static const cudaError_t attr100 = set_smem(flash_bwd_dq_wgmma100_kernel, DQ_SMEM);
   static const cudaError_t attr64 = set_smem(flash_bwd_dq_wgmma64_kernel, Q64_SMEM);
   static const cudaError_t attr_f16 = set_smem(flash_bwd_dq_wgmma_f16_kernel, DQ_SMEM);
-  const cudaError_t attr =
-      dtype == 2 ? attr_f16 : D == 64 ? attr64 : D == 96 ? attr96 : attr128;
+  const cudaError_t attr = dtype == 2   ? attr_f16
+                           : D == 64   ? attr64
+                           : D == 96   ? attr96
+                           : D == 100  ? attr100
+                                       : attr128;
   if (attr != cudaSuccess) return attr;
   if (dtype == 2) return dq_wgmma128<__half>(flash_bwd_dq_wgmma_f16_kernel, a, D);
+  if (D == 100) {
+    const dim3 grid(a.B * a.H, (a.Sq + 127) / 128);
+    flash_bwd_dq_wgmma100_kernel<<<grid, 3 * WG_THREADS, DQ_SMEM, a.stream>>>(
+        bwd_rows(a), (const float*)a.lse, (const float*)a.delta, (__nv_bfloat16*)a.dq,
+        a.out_scale, a.H, a.KvH, a.Sq, a.Sk, a.causal, a.window, a.scale);
+    return cudaGetLastError();
+  }
   if (D != 64)
     return dq_wgmma128<__nv_bfloat16>(
         D == 96 ? flash_bwd_dq_wgmma96_kernel : flash_bwd_dq_wgmma_kernel, a, D);
@@ -1870,9 +2041,10 @@ cudaError_t at_padded_dim(int which, int mma, const Args& a) {
 // dtype 0 = fp32, 1 = bf16, 2 = fp16. route 0 = simt (any dtype, D from 1
 // to 512), 1 = mma (bf16 or fp16, D a multiple of 8 up to 256, 16-byte
 // aligned bases, strides that are multiples of 8), 2 = wgmma (as mma, and
-// Sk > 0, with bf16 at D = 64, 96 or 128 and fp16 at D = 128); a route that
-// cannot take the inputs launches nothing, and so does an out_scale in fp32
-// or bf16
+// Sk > 0, with bf16 at D = 64, 96 or 128 and fp16 at D = 128; or bf16 at D =
+// 100 with 8-byte aligned bases and strides that are multiples of 4); a
+// route that cannot take the inputs launches nothing, and so does an
+// out_scale in fp32 or bf16
 cudaError_t dispatch(int which, int dtype, int route, int D, const Args& a) {
   const void* ptrs[4] = {a.q, a.k, a.v, a.dout};
   const bool aligned = rows_aligned(ptrs, 4, &a.st.q_sb, 12, D);
@@ -1889,8 +2061,11 @@ cudaError_t dispatch(int which, int dtype, int route, int D, const Args& a) {
       if (dtype == 2) return at_padded_dim<__half>(which, 1, a);
       return cudaErrorInvalidValue;
     case 2: {
-      const bool has_d = dtype == 1 ? D == 64 || D == 96 || D == 128 : dtype == 2 && D == 128;
-      if (!has_d || !aligned || a.Sk <= 0) return cudaErrorInvalidValue;
+      const bool has_d = dtype == 1 ? D == 64 || D == 96 || D == 100 || D == 128
+                                    : dtype == 2 && D == 128;
+      // the D = 100 kernels copy their 200-byte rows in 8-byte pieces
+      const bool rows_ok = D == 100 ? rows_aligned(ptrs, 4, &a.st.q_sb, 12, D, 8) : aligned;
+      if (!has_d || !rows_ok || a.Sk <= 0) return cudaErrorInvalidValue;
       return which ? launch_dkv_wgmma(a, D, dtype) : launch_dq_wgmma(a, D, dtype);
     }
     default:

@@ -159,7 +159,7 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, int64_t ss, int 
 }
 
 // the tensor-core kernels copy rows of 16-bit elements in pieces of `bytes`
-// (16; 8 for the head-dim-100 wgmma forward): the n base pointers, the ns
+// (16; 8 for the head-dim-100 wgmma kernels): the n base pointers, the ns
 // row strides (in elements) and the head dim d must allow that
 inline bool rows_aligned(const void* const* ptrs, int n, const int64_t* st, int ns, int d,
                          int bytes = 16) {

@@ -20,8 +20,8 @@
 // tests/test_torch_cuda.py holds these pieces against torch on the card
 // (csrc/hopper_check.cu: one TMA tile against a slice copy, SS and RS
 // products of 128- and 64-row tiles, in bf16, and at m64n128k16 and SS
-// m64n64k16 in fp16, against torch.matmul; rows of 100 copied by cp.async and
-// read back through wgmma). ops/_build.py
+// m64n64k16 in fp16, against torch.matmul; rows of 100 copied by cp.async
+// into 128- and 64-row tiles and read back through wgmma). ops/_build.py
 // hashes every .cuh in csrc/ into each kernel's library name.
 
 #pragma once
@@ -427,23 +427,42 @@ __device__ __forceinline__ uint32_t piece_off(int rows, int r, int u) {
   return (u >> 4) * rows * 128 + r * 128 + (u & 15) * 8;
 }
 
-// Rows [row0, row0 + 128) of a [S, D] 16-bit matrix (D a multiple of 4 up to
-// 128; `src` and the row stride `ss` in elements 8-byte aligned) into the
-// 128-row tile at `tile` (1024-byte aligned) by the warpgroup's threads
-// (`tid` 0-127): D / 4 pieces each. Rows past S are zero-filled; columns D-127
-// are not written (`zero_cols_past`).
-template <int D, typename T>
+// Rows [row0, row0 + ROWS) of a [S, D] 16-bit matrix (D a multiple of 4 up
+// to 128; `src` and the row stride `ss` in elements 8-byte aligned) into the
+// ROWS-row tile at `tile` (1024-byte aligned; its 64-column halves ROWS * 128
+// bytes apart) by the warpgroup's threads (`tid` 0-127). ROWS = 128 (the
+// forward's tiles, the backward's resident ones): D / 4 pieces each. ROWS =
+// 64 (the backward's streamed tiles) copies the same rows of a second matrix
+// (`src2`, stride `ss2`) into the 64-row tile at `tile2` in the same pass:
+// the two tiles' 2 x 64 rows are the 128 rows the threads walk, so each
+// again copies D / 4 pieces, none idle or doubled. Rows past S are
+// zero-filled; columns D-127 are not written (`zero_cols_past`).
+template <int D, int ROWS = 128, typename T>
 __device__ __forceinline__ void cp_async_rows(unsigned char* tile, const T* src, int64_t ss,
-                                              int row0, int S, int tid) {
+                                              int row0, int S, int tid,
+                                              unsigned char* tile2 = nullptr,
+                                              const T* src2 = nullptr, int64_t ss2 = 0) {
   static_assert(D % 4 == 0 && D <= 128, "8-byte pieces of a row at most 128 wide");
+  static_assert(ROWS == 64 || ROWS == 128, "tiles of 64 or 128 rows");
   constexpr int P = D / 4;  // pieces a row; 128 rows x P pieces over 128 threads
   const uint32_t base = smem_u32(tile);
   int r = tid / P, u = tid % P;
 #pragma unroll 5
   for (int i = 0; i < P; ++i) {
-    const bool in = row0 + r < S;
-    const T* g = in ? src + (int64_t)(row0 + r) * ss + 4 * u : src;
-    cp_async_8(base + sw128(piece_off(128, r, u)), g, in ? 8 : 0);
+    if constexpr (ROWS == 128) {
+      const bool in = row0 + r < S;
+      const T* g = in ? src + (int64_t)(row0 + r) * ss + 4 * u : src;
+      cp_async_8(base + sw128(piece_off(128, r, u)), g, in ? 8 : 0);
+    } else {
+      // rows 0-63 of the walk are the first matrix's, 64-127 the second's
+      const bool second = r >= 64;
+      const int rr = r & 63;
+      const bool in = row0 + rr < S;
+      const T* m = second ? src2 : src;
+      const T* g = in ? m + (int64_t)(row0 + rr) * (second ? ss2 : ss) + 4 * u : m;
+      cp_async_8((second ? smem_u32(tile2) : base) + sw128(piece_off(64, rr, u)), g,
+                 in ? 8 : 0);
+    }
     // the thread's next piece is 128 on: 128 / P rows and 128 % P pieces
     r += 128 / P;
     u += 128 % P;
@@ -454,13 +473,13 @@ __device__ __forceinline__ void cp_async_rows(unsigned char* tile, const T* src,
   }
 }
 
-// zeros in columns D-127 of the 128 rows of such a tile, by `nthreads`
+// zeros in columns D-127 of the ROWS rows of such a tile, by `nthreads`
 // threads from `tid`
-template <int D>
+template <int D, int ROWS = 128>
 __device__ __forceinline__ void zero_cols_past(unsigned char* tile, int tid, int nthreads) {
   constexpr int P0 = D / 4, PN = 32 - P0;  // pieces a row: D's, and past it
-  for (int i = tid; i < 128 * PN; i += nthreads)
-    *reinterpret_cast<uint2*>(tile + sw128(piece_off(128, i / PN, P0 + i % PN))) =
+  for (int i = tid; i < ROWS * PN; i += nthreads)
+    *reinterpret_cast<uint2*>(tile + sw128(piece_off(ROWS, i / PN, P0 + i % PN))) =
         make_uint2(0u, 0u);
 }
 

@@ -25,6 +25,12 @@
 //   zero, columns 100-127 zeroed) and read back through wgmma: A B^T with 7
 //   SS k-steps and P B with m64n104k16, as flash_fwd_wgmma100_kernel's Q K^T
 //   and P V;
+// - hopper_cp_async_tile64: [S, 100] row sets A, B and C, 8-byte aligned: A
+//   copied by cp_async_rows into a 128-row tile, rows [row0, row0 + 64) of B
+//   and C into two 64-row tiles in one pass (cp_async_rows<100, 64>), read
+//   back through the backward's products: A B^T with 7 SS m64n64k16 k-steps
+//   and P C with m64n104k16, C a 64-row MN-major B, as the D = 100 backward
+//   kernels' S^T = K Q^T and dV += P^T dO (and S = Q K^T, dQ += dS K);
 // - hopper_wgmma_ss_f16, hopper_wgmma_rs_f16: hopper_wgmma_ss and
 //   hopper_wgmma_rs on fp16 operands (the .f16 instructions over FLOAT16
 //   maps), as flash_fwd.cu's fp16 Q K^T and P V;
@@ -334,6 +340,66 @@ __global__ void __launch_bounds__(128) cp_async_tile_kernel(
   store_acc<104>(o, out_o);
 }
 
+__global__ void __launch_bounds__(128) cp_async_tile64_kernel(
+    const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__ b,
+    const __nv_bfloat16* __restrict__ c, int64_t ss, int S, int row0, int a_row0,
+    const __nv_bfloat16* __restrict__ p, float* out_s, float* out_o) {
+  extern __shared__ unsigned char raw[];
+  unsigned char* sA = aligned_smem(raw);
+  unsigned char* sB = sA + 2 * HALF;
+  unsigned char* sC = sB + 2 * HALF64;
+  __shared__ uint64_t bar;
+  if (threadIdx.x == 0) {
+    mbar_init(&bar, 128);
+    mbar_fence_init();
+  }
+  zero_cols_past<100>(sA, threadIdx.x, 128);
+  zero_cols_past<100, 64>(sB, threadIdx.x, 128);
+  zero_cols_past<100, 64>(sC, threadIdx.x, 128);
+  fence_proxy_async();
+  __syncthreads();
+  cp_async_rows<100>(sA, a, ss, 0, S, threadIdx.x);
+  cp_async_rows<100, 64>(sB, b, ss, row0, S, threadIdx.x, sC, c, ss);
+  cp_async_arrive_noinc(&bar);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  uint32_t pa[4][4];
+  const __nv_bfloat16* prow = p + (16 * warp + g) * 64 + 2 * t;
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) {
+    pa[jj][0] = ld_pair(prow + 16 * jj);
+    pa[jj][1] = ld_pair(prow + 8 * 64 + 16 * jj);
+    pa[jj][2] = ld_pair(prow + 16 * jj + 8);
+    pa[jj][3] = ld_pair(prow + 8 * 64 + 16 * jj + 8);
+  }
+  mbar_wait(&bar, 0);
+  fence_proxy_async();
+  float d[32];
+  const uint64_t da = desc_kmajor(sA + 128 * a_row0), db = desc_kmajor(sB);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 7; ++kk)
+    wgmma_m64n64k16_ss<0, 0>(d, da + (((kk / 4) * HALF + (kk % 4) * 32) >> 4),
+                             db + (((kk / 4) * HALF64 + (kk % 4) * 32) >> 4), kk > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(d);
+  store_acc<64>(d, out_s);
+  float o[52];
+#pragma unroll
+  for (int i = 0; i < 52; ++i) o[i] = 0.f;
+  const uint64_t dc = desc_mnmajor(sC, HALF64);
+  fence_regs(o);
+  wgmma_fence();
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj)
+    wgmma_rs<104, 1>(o, pa[jj], dc + ((jj * 16 * 128) >> 4), 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(o);
+  store_acc<104>(o, out_o);
+}
+
 // P [64, rows] times V [rows, N] (rows 64 or 128) through wgmma_rs_n_kernel
 template <int N>
 int wgmma_rs_n(const void* p, const void* v, int rows, void* out, void* stream) {
@@ -516,5 +582,26 @@ extern "C" int hopper_cp_async_tile(const void* a, const void* b, int64_t ss, in
   cp_async_tile_kernel<<<1, 128, smem, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)a, (const __nv_bfloat16*)b, ss, S, a_row0,
       (const __nv_bfloat16*)p, (float*)out_s, (float*)out_o);
+  return (int)cudaGetLastError();
+}
+
+// a, b, c: S rows of 100 bf16 (S <= 128) at row stride ss elements, bases
+// and ss 8-byte aligned; p: [64, 64] bf16 contiguous. out_s: [64, 64] fp32 =
+// a[a_row0 : a_row0 + 64] @ b[row0 : row0 + 64]^T, out_o: [64, 104] fp32 = p
+// @ c[row0 : row0 + 64] (rows past S and c's columns 100-103 read as zeros)
+extern "C" int hopper_cp_async_tile64(const void* a, const void* b, const void* c, int64_t ss,
+                                      int S, int row0, int a_row0, const void* p,
+                                      void* out_s, void* out_o, void* stream) {
+  if (S < 1 || S > 128 || (row0 != 0 && row0 != 64) || (a_row0 != 0 && a_row0 != 64))
+    return (int)cudaErrorInvalidValue;
+  const void* ptrs[3] = {a, b, c};
+  if (!rows_aligned(ptrs, 3, &ss, 1, 100, 8)) return (int)cudaErrorInvalidValue;
+  constexpr int smem = 2 * HALF + 4 * HALF64 + 1024;
+  cudaError_t err = cudaFuncSetAttribute(
+      cp_async_tile64_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  cp_async_tile64_kernel<<<1, 128, smem, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)a, (const __nv_bfloat16*)b, (const __nv_bfloat16*)c, ss, S, row0,
+      a_row0, (const __nv_bfloat16*)p, (float*)out_s, (float*)out_o);
   return (int)cudaGetLastError();
 }

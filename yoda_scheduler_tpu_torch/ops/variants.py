@@ -1,7 +1,7 @@
 """Time variants of a flash kernel's source against each other on one card,
 in turns (A, B, ..., B, A), at the main path's shapes.
 
-    python3 -m yoda_scheduler_tpu_torch.ops.variants fwd|bwd [--probe] [--head-dim 64|96] \\
+    python3 -m yoda_scheduler_tpu_torch.ops.variants fwd|bwd [--probe] [--head-dim 64|96|100] \\
         [--dtype float16] [--route mma] A.cu B.cu ...
 
 Each argument is a copy of `csrc/flash_fwd.cu` (fwd) or `csrc/flash_bwd.cu`
@@ -10,7 +10,7 @@ it, too), or "cur" for the package's own, built with the package's nvcc
 flags into `build/variants/`; each build's nvcc seconds are printed. fwd
 launches `attention.flash_fwd` on its automatic route; bwd launches
 `attention.flash_bwd_dq` and `attention.flash_bwd_dkv` on theirs (wgmma at
-head dims 64, 96 and 128 in bf16, and 128 in fp16) and first prints
+head dims 64, 96, 100 and 128 in bf16, and 128 in fp16) and first prints
 ptxas's registers and spills of each variant's wgmma kernels with its
 performance notes. `--route mma` launches both kinds on the mma route
 instead. Every launch is checked against the
@@ -24,7 +24,11 @@ head-dim-64 wgmma kernels (`flash_bwd_dq_wgmma64_kernel`,
 `flash_bwd_dkv_wgmma64_kernel`); `--head-dim 96` those of `SHAPES_96`
 (Phi-3-mini's attention, 32 heads of 96, as its model gives it), where the
 three kernels run `flash_fwd_wgmma96_kernel`, `flash_bwd_dq_wgmma96_kernel`
-and `flash_bwd_dkv_wgmma96_kernel`. `--dtype float16` takes `SHAPES` in fp16
+and `flash_bwd_dkv_wgmma96_kernel`; `--head-dim 100` those of `SHAPES_100`
+(OpenLLaMA-3B's attention, 32 heads of 100, as its model gives it: half of
+its heads' rows start 8 bytes off a 16-byte boundary), where the three
+kernels run `flash_fwd_wgmma100_kernel`, `flash_bwd_dq_wgmma100_kernel` and
+`flash_bwd_dkv_wgmma100_kernel`. `--dtype float16` takes `SHAPES` in fp16
 at head dim 128 (`fp16_main` first: Llama-2-7B's attention in the dtype of
 its published weights), where the three kernels run
 `flash_fwd_wgmma_f16_kernel`, `flash_bwd_dq_wgmma_f16_kernel` and
@@ -74,12 +78,19 @@ SHAPES_96 = [
     ("window_d96", 1, 32, 32, 2048, 2048, True, 512),
     ("ragged_d96", 2, 8, 4, 300, 300, True, None),
 ]
-SHAPES_BY_DIM = {128: SHAPES, 64: SHAPES_64, 96: SHAPES_96}
+# head dim 100: OpenLLaMA-3B's attention (32 heads of 100, S=2048), as SHAPES_64
+SHAPES_100 = [
+    ("d100_bshd", 1, 32, 32, 2048, 2048, True, None),
+    ("gqa_d100", 1, 32, 8, 2048, 2048, True, None),
+    ("window_d100", 1, 32, 32, 2048, 2048, True, 512),
+    ("ragged_d100", 2, 8, 4, 300, 300, True, None),
+]
+SHAPES_BY_DIM = {128: SHAPES, 64: SHAPES_64, 96: SHAPES_96, 100: SHAPES_100}
 # fp16 at head dim 128: SHAPES, contiguous
 SHAPES_F16 = [(f"fp16_{name}", *shape) for name, *shape in SHAPES]
 PROBE = ("main", "window_512", "ragged_300", "d1024_bshd", "window_d64", "ragged_d64",
-         "phi3_d96_bshd", "window_d96", "ragged_d96", "fp16_main", "fp16_window_512",
-         "fp16_ragged_300")
+         "phi3_d96_bshd", "window_d96", "ragged_d96", "d100_bshd", "window_d100",
+         "ragged_d100", "fp16_main", "fp16_window_512", "fp16_ragged_300")
 # the largest tile_rel_l2 of a bf16 backward output against the plain
 # backward: sound kernels read below 4e-3 on an H100 (they round P and dS
 # where the plain backward does, and differ in the order of fp32 sums); a
@@ -158,8 +169,8 @@ def time_ms(fn, iters: int = 50) -> float:
 
 def _randn(gen, d, dtype, *shapes):
     """Normals of `shapes` ([B, H, S, D]) in `dtype`: contiguous at head dim
-    128, at 64 and 96 the model's transposed views of a contiguous [B, S, H,
-    D]."""
+    128, at 64, 96 and 100 the model's transposed views of a contiguous [B,
+    S, H, D]."""
     if d == 128:
         return [torch.randn(s, generator=gen, device="cuda").to(dtype) for s in shapes]
     return [torch.randn((b, s, h, d_), generator=gen, device="cuda").to(dtype)

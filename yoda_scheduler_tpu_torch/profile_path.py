@@ -20,9 +20,13 @@ Mixtral-8x7B width one `llama_forward` (16 layers) and one training step
 B=256, 224 x 224, the forward and backward of a softmax cross-entropy); last
 one `llama_forward` at OpenLLaMA-3B's widths (head dim 100) and one at
 StableLM-3B-4E1T's (80), B=1, S=2048, each with flash_fwd on its wgmma
-kernel and on the route it took before (simt at 100, mma at 80). For
-each traced window it prints one JSON line: the host wall time, the device's busy
-time (the union of kernel intervals) and idle share, the kernel launches,
+kernel and on the route it took before (simt at 100, mma at 80), and one
+OpenLLaMA-3B training step (all 26 layers, B=1, S=2048, remat, AdamW) with
+dQ and dK/dV on their head-dim-100 wgmma kernels and one on simt
+(`d100_backward_on_simt`; `openllama3b_train_windows()` traces those two
+steps alone). For each traced window it prints one JSON line: the host
+wall time, the device's busy time (the union of kernel intervals) and idle
+share, the kernel launches,
 the device time grouped into conv / matmul / flash_fwd / flash_bwd_dq /
 flash_bwd_dkv / optimizer / moe_route / batch_norm / other, and the kernels
 with the most device time. moe_route is every kernel that starts inside a
@@ -255,6 +259,13 @@ def d100_forward_on_simt():
     return _off_wgmma(lambda key, d: key[0] == "flash_fwd" and d == 100)
 
 
+def d100_backward_on_simt():
+    """Within it, dQ and dK/dV at head dim 100 take the simt route, as before
+    their wgmma kernels (no mma kernel takes 200-byte rows); the forward
+    keeps its wgmma kernel."""
+    return _off_wgmma(lambda key, d: key[0] != "flash_fwd" and d == 100)
+
+
 def phi3_train_windows(steps: int = 8) -> list[dict]:
     """Phi-3-mini training steps (32 layers, B=1, S=2048, remat, AdamW) on
     each route set: `steps` steps of each on the host's clock in turns
@@ -312,6 +323,26 @@ def new_width_forward_windows() -> list[dict]:
                         lambda _: llama_forward(params, tokens, cfg)))
         del params
         _free()
+    return reports
+
+
+def openllama3b_train_windows() -> list[dict]:
+    """One traced OpenLLaMA-3B training step (26 layers, B=1, S=2048, remat,
+    AdamW) with dQ and dK/dV on their head-dim-100 wgmma kernels, and one
+    with both on simt (`d100_backward_on_simt`); the forward on wgmma in
+    both."""
+    cfg = openllama_3b()
+    init_fn, step_fn, batch_fn = build_llama_train_step(cfg, device="cuda")
+    params, opt_state = init_fn(0)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = batch_fn(torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen,
+                                    device="cuda"))
+    reports = []
+    for name, routes in (("wgmma", contextlib.nullcontext),
+                         ("backward_on_simt", d100_backward_on_simt)):
+        with routes():
+            reports.append(trace(f"openllama3b_train_step_b1_s2048_{name}",
+                                 lambda _: step_fn(params, opt_state, tokens)))
     return reports
 
 
@@ -376,6 +407,8 @@ def main() -> int:
     reports.append(resnet_window())
     _free()
     reports += new_width_forward_windows()
+    _free()
+    reports += openllama3b_train_windows()
     out = Path(__file__).resolve().parents[1] / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "profile_path.json").write_text(json.dumps(
