@@ -6,7 +6,9 @@
 Phases, each printing one JSON line; any failure exits non-zero:
 
 1. build: the card's name and power limit, and the CUDA kernels compiled
-   from the sources in this checkout (nvcc, sm_90a, one process per source).
+   from the sources in this checkout (nvcc, sm_90a, one process per source);
+   each of the eighteen wgmma kernels (`WGMMA_KERNELS`) without a spill or
+   a serialised wgmma.
 2. kernel: the flash forward kernel against its plain version on the card,
    elementwise and by O's worst 64-row tile, at the main path's shape (also
    as the model's transposed [B, S, H, D] views), at Mixtral's GQA 32/8
@@ -26,12 +28,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
    dtypes of the padded simt and mma kernels
    (`WIDE_SHAPES`): Phi-3-mini's attention (32 heads of 96, S=2048; GQA 32/8
    and window 512 at 96; wgmma there), 80 (StableLM-3B's, also as its
-   model's views), Gemma-2B's 8 heads of 256 over one, 40 ragged, 100
+   model's views), Gemma-2B's 8 heads of 256 over one and Gemma-7B's 16
+   over 16 (with ragged, cross-length and non-causal rows at 256: the
+   forward on its wgmma kernel), 40 ragged, 100
    (OpenLLaMA-3B's 200-byte rows, also as its model's views), the forward at
    80 and 100 on its wgmma kernels and timed in turns against its old route
-   (mma at 80, simt at 100) at each of those four rows, fp16 at the main
-   shape and the
-   five fp16 rows above (every kernel on wgmma) and at d1024_bshd, simt in
+   (mma at 80, simt at 100) at each of those four rows, and so at 256
+   (gemma_d256) and in fp16 at 64 (fp16_d1024_bshd) against mma, fp16 at
+   the main shape and the
+   five fp16 rows above (every kernel on wgmma), at d1024_bshd and at
+   OPT-1.3B's 32 heads of 64 and a ragged GQA row (the forward on its fp16
+   wgmma kernel at 64), simt in
    fp32 and fp16, and 320 on simt in fp32 and bf16 (SDPA's memory-efficient
    backend timed beside the fp32 row, its K and V repeated to q's heads);
    each on every route `_routes` admits, with SDPA's default backend timed
@@ -94,6 +101,13 @@ After moe_train, head dims 96, 100 and 80, and fp16:
   flash_fwd launch on wgmma, also timed on the host's clock in turns
   against the forward on its old route (`profile_path.d100_forward_on_simt`,
   `d80_forward_on_mma`); the weights freed after each.
+- gemma2b_forward, opt13b_fp16_forward: Gemma-2B's widths (18 layers, 8
+  query heads of 256 over one KV head, vocab 256000; bf16) and OPT-1.3B's
+  (24 layers, 32 heads of 64, vocab 50272) in its published dtype, fp16,
+  on the Llama block (`profile_path.gemma_2b`, `opt_1_3b`), random weights
+  from a seed: as forward, all 18 (24) flash_fwd launches on wgmma, also
+  timed on the host's clock in turns against the forward on mma
+  (`profile_path.d256_forward_on_mma`, `fp16_d64_forward_on_mma`).
 - openllama3b_gradient, openllama3b_train: OpenLLaMA-3B's widths as
   gradient (4 layers) and train (all 26 layers, B=1, S=2048, 52/26/26
   launches a step), every flash launch on wgmma, dQ and dK/dV on their
@@ -640,7 +654,8 @@ WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_wgmma96_kernel",
                  "flash_bwd_dq_wgmma64_kernel", "flash_bwd_dkv_wgmma_kernel",
                  "flash_bwd_dkv_wgmma96_kernel", "flash_bwd_dkv_wgmma64_kernel",
                  "flash_bwd_dq_wgmma_f16_kernel", "flash_bwd_dkv_wgmma_f16_kernel",
-                 "flash_bwd_dq_wgmma100_kernel", "flash_bwd_dkv_wgmma100_kernel")
+                 "flash_bwd_dq_wgmma100_kernel", "flash_bwd_dkv_wgmma100_kernel",
+                 "flash_fwd_wgmma256_kernel", "flash_fwd_wgmma64_f16_kernel")
 
 
 def phase_build(build):
@@ -756,7 +771,19 @@ SHAPES = [
      ("wgmma", "mma")),
     ("d80_bshd", 1, 32, 32, 2048, 2048, 80, True, None, torch.bfloat16, "bshd",
      ("wgmma", "mma")),  # StableLM-3B-4E1T's attention as its model gives it
-    ("gemma_d256", 1, 8, 1, 2048, 2048, 256, True, None, torch.bfloat16, "bshd", "mma"),
+    ("gemma_d256", 1, 8, 1, 2048, 2048, 256, True, None, torch.bfloat16, "bshd",
+     ("wgmma", "mma")),  # Gemma-2B's attention as its model gives it
+    # head dim 256 on the forward's wgmma kernel (the backward on mma):
+    # Gemma-7B's 16 heads over 16, ragged over one KV head, cross-length and
+    # non-causal
+    ("gemma7b_d256", 1, 16, 16, 2048, 2048, 256, True, None, torch.bfloat16, "bshd",
+     ("wgmma", "mma")),
+    ("ragged_d256", 2, 8, 1, 300, 300, 256, True, None, torch.bfloat16, "bshd",
+     ("wgmma", "mma")),
+    ("cross_d256", 1, 8, 1, 256, 1024, 256, True, None, torch.bfloat16, "bhsd",
+     ("wgmma", "mma")),
+    ("noncausal_d256", 1, 8, 1, 1000, 1000, 256, False, None, torch.bfloat16, "bhsd",
+     ("wgmma", "mma")),
     ("ragged_d40", 2, 8, 4, 300, 300, 40, True, None, torch.bfloat16, "bhsd", "mma"),
     ("unaligned_d100", 1, 32, 32, 1024, 1024, 100, True, None, torch.bfloat16, "bhsd",
      "wgmma"),
@@ -765,7 +792,13 @@ SHAPES = [
     ("fp16_main", 1, 32, 32, 2048, 2048, 128, True, None, torch.float16, "bhsd",
      "wgmma"),
     ("fp16_d1024_bshd", 8, 16, 16, 2048, 2048, 64, True, None, torch.float16, "bshd",
-     "mma"),
+     ("wgmma", "mma")),
+    # fp16 at head dim 64 on the forward's fp16 wgmma kernel (the backward on
+    # mma): OPT-1.3B's attention as its model gives it, and a ragged GQA row
+    ("opt13b_d64_bshd", 1, 32, 32, 2048, 2048, 64, True, None, torch.float16, "bshd",
+     ("wgmma", "mma")),
+    ("fp16_ragged_d64", 2, 8, 4, 300, 300, 64, True, None, torch.float16, "bhsd",
+     ("wgmma", "mma")),
     ("fp32_d40", 1, 8, 8, 512, 512, 40, True, None, torch.float32, "bhsd", "simt"),
     ("fp16_unaligned_d80", 1, 8, 4, 512, 512, 80, True, 128, torch.float16, "offset1",
      "simt"),
@@ -780,8 +813,10 @@ ROUTE_TURNS = ("mma", "wgmma", "wgmma", "mma")
 TURN_SHAPES = ("main", "d1024_bshd", "phi3_d96_bshd", "fp16_main", "fp16_ragged_300",
                "fp16_cross_length")
 # the forward alone timed in turns against the route it took before its
-# wgmma kernel (mma at 80, simt at 100), SDPA's default after each turn
-FWD_TURN_SHAPES = ("d80", "d80_bshd", "unaligned_d100", "d100_bshd")
+# wgmma kernel (mma at 80, 256 and in fp16 at 64, simt at 100), SDPA's
+# default after each turn
+FWD_TURN_SHAPES = ("d80", "d80_bshd", "unaligned_d100", "d100_bshd", "gemma_d256",
+                   "fp16_d1024_bshd")
 # dQ and dK/dV timed in turns against the route they took before their
 # wgmma kernels (simt at 100), SDPA's backward under its flash backend after
 # each turn
@@ -792,13 +827,16 @@ D64_SHAPE = "d1024_bshd"  # the head-dim-64 row of the kernels line
 # where its inputs are bf16 or fp16 rows that are 16-byte aligned (cuDNN's
 # backward fails on the rows that start one element into their storage)
 WIDE_SHAPES = ("phi3_d96", "phi3_d96_bshd", "gqa_d96", "window_d96", "d80", "d80_bshd",
-               "gemma_d256", "ragged_d40", "unaligned_d100", "d100_bshd", "fp16_main",
+               "gemma_d256", "gemma7b_d256", "ragged_d256", "cross_d256", "noncausal_d256",
+               "ragged_d40", "unaligned_d100", "d100_bshd", "fp16_main",
                "fp16_main_bshd", "fp16_gqa_bshd",
                "fp16_window_512", "fp16_ragged_300", "fp16_cross_length", "fp16_d1024_bshd",
+               "opt13b_d64_bshd", "fp16_ragged_d64",
                "fp32_d40", "fp16_unaligned_d80", "fp32_d256", "fp32_d320", "bf16_d320")
 # the kernels line's head_dims entry: the rows of each new width and dtype
-HEAD_DIM_ROWS = ("d80", "d80_bshd", "phi3_d96_bshd", "gemma_d256", "unaligned_d100",
-                 "d100_bshd", "fp16_main", "fp16_d1024_bshd", "bf16_d320")
+HEAD_DIM_ROWS = ("d80", "d80_bshd", "phi3_d96_bshd", "gemma_d256", "gemma7b_d256",
+                 "unaligned_d100", "d100_bshd", "fp16_main", "fp16_d1024_bshd",
+                 "opt13b_d64_bshd", "bf16_d320")
 # a head dim past the kernels' widest padded width (512, simt's): every
 # wrapper refuses it on every route, with no launch
 REFUSED_HEAD_DIM = 520
@@ -808,7 +846,8 @@ def shape_routes(route) -> dict:
     """Each kernel's route at a SHAPES row: `route` names one for all three
     kernels (the wgmma route of each takes head dims 64, 96, 100 and 128 in
     bf16, and 128 in fp16), or is a pair (the forward's, the backward
-    kernels'), as at 80, where the forward alone has a wgmma kernel."""
+    kernels'), as at 80 and 256 in bf16 and at 64 in fp16, where the
+    forward alone has a wgmma kernel."""
     fwd, bwd = (route, route) if isinstance(route, str) else route
     return {"flash_fwd": fwd, "flash_bwd_dq": bwd, "flash_bwd_dkv": bwd}
 
@@ -3149,10 +3188,12 @@ def main() -> int:
     from yoda_scheduler_tpu_torch.tools import tune_attention as tune
     from yoda_scheduler_tpu_torch import bench_generate, bench_mfu, bench_util
     # Mixtral-8x7B's widths from its config.json, in the port's config fields,
-    # and Phi-3-mini's, OpenLLaMA-3B's and StableLM-3B-4E1T's, from theirs
+    # and Phi-3-mini's, OpenLLaMA-3B's, StableLM-3B-4E1T's, Gemma-2B's and
+    # OPT-1.3B's, from theirs
     from yoda_scheduler_tpu_torch.profile_path import (
         d80_forward_on_mma, d100_backward_on_simt, d100_forward_on_simt,
-        fp16_backward_on_mma, mixtral_8x7b, openllama_3b, phi3_mini, stablelm_3b_4e1t)
+        d256_forward_on_mma, fp16_backward_on_mma, fp16_d64_forward_on_mma, gemma_2b,
+        mixtral_8x7b, openllama_3b, opt_1_3b, phi3_mini, stablelm_3b_4e1t)
 
     gen_mod = importlib.import_module("yoda_scheduler_tpu_torch.models.generate")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3203,17 +3244,22 @@ def main() -> int:
         attn, llama, train, fp16, phase="fp16_gradient",
         config="llama2_7b fp16 width, 4 layers",
         turns={"wgmma": contextlib.nullcontext, "backward_on_mma": fp16_backward_on_mma})
-    # head dims 100 and 80 (OpenLLaMA-3B's and StableLM-3B's widths): every
-    # forward launch on wgmma, timed in turns against the forward on the
-    # route it took before its wgmma kernel
+    # head dims 100 and 80 (OpenLLaMA-3B's and StableLM-3B's widths), 256
+    # (Gemma-2B's) and 64 in fp16 (OPT-1.3B's): every forward launch on
+    # wgmma, timed in turns against the forward on the route it took before
+    # its wgmma kernel
     new_width_routes = {}
-    for phase, cfg_3b, name, old in (
+    for phase, width_cfg, name, old in (
             ("openllama3b_forward", openllama_3b(), "open_llama_3b widths",
              ("forward_on_simt", d100_forward_on_simt)),
             ("stablelm3b_forward", stablelm_3b_4e1t(), "stablelm_3b_4e1t widths",
-             ("forward_on_mma", d80_forward_on_mma))):
+             ("forward_on_mma", d80_forward_on_mma)),
+            ("gemma2b_forward", gemma_2b(), "gemma_2b widths",
+             ("forward_on_mma", d256_forward_on_mma)),
+            ("opt13b_fp16_forward", opt_1_3b(), "opt_1_3b widths, fp16",
+             ("forward_on_mma", fp16_d64_forward_on_mma))):
         new_width_routes[phase] = phase_forward(
-            attn, llama, cfg_3b, phase=phase, config=name,
+            attn, llama, width_cfg, phase=phase, config=name,
             turns={"wgmma": contextlib.nullcontext, old[0]: old[1]})[3]
     # OpenLLaMA-3B's gradient and train step: dQ and dK/dV on their
     # head-dim-100 wgmma kernels, timed in turns against both on simt

@@ -129,6 +129,9 @@ def _hopper_lib():
     lib.hopper_wgmma_ss_f16.argtypes = [p, p, i32, p, p]
     lib.hopper_wgmma_rs_f16.argtypes = [p, p, p, p]
     lib.hopper_wgmma_ss64_f16.argtypes = [p, p, i32, p, p]
+    lib.hopper_wgmma_rs64_f16.argtypes = [p, p, p, p]
+    lib.hopper_wgmma_ss256.argtypes = [p, p, i32, p, p]
+    lib.hopper_wgmma_rs256.argtypes = [p, p, p, p]
     return lib
 
 
@@ -265,6 +268,49 @@ def test_wgmma_rs64_tile_is_a_matmul(gpu):
                                            _stream()) == 0
     torch.cuda.synchronize()
     torch.testing.assert_close(out, p.float() @ v.float(), atol=1e-3, rtol=1e-4)
+
+
+def test_wgmma_rs64_f16_tile_is_a_matmul(gpu):
+    """The fp16 m64n64k16 RS form: P [64, 128] from registers times V [128,
+    64], one MN-major box, as flash_fwd_wgmma64_f16_kernel's P V."""
+    torch.manual_seed(11)
+    p = torch.randn(64, 128, device=gpu).to(torch.float16)
+    v = torch.randn(128, 64, device=gpu).to(torch.float16)
+    out = torch.zeros(64, 64, device=gpu)
+    assert _hopper_lib().hopper_wgmma_rs64_f16(p.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                               _stream()) == 0
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, p.float() @ v.float(), atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("a_row0", [0, 64])
+def test_wgmma_ss256_tile_is_a_matmul(gpu, a_row0):
+    """Rows of A [128, 256] times B^T, B [64, 256], each row four 64-column
+    boxes (A's 16 KB apart, B's 8 KB), 16 SS m64n64k16 k-steps, as
+    flash_fwd_wgmma256_kernel's Q K^T."""
+    torch.manual_seed(12)
+    a = torch.randn(128, 256, device=gpu).to(torch.bfloat16)
+    b = torch.randn(64, 256, device=gpu).to(torch.bfloat16)
+    out = torch.zeros(64, 64, device=gpu)
+    assert _hopper_lib().hopper_wgmma_ss256(a.data_ptr(), b.data_ptr(), a_row0,
+                                            out.data_ptr(), _stream()) == 0
+    torch.cuda.synchronize()
+    want = a[a_row0:a_row0 + 64].float() @ b.float().T
+    torch.testing.assert_close(out, want, atol=1e-3, rtol=1e-3)
+
+
+def test_wgmma_rs256_tile_is_a_matmul(gpu):
+    """P [64, 64] from registers times V [64, 256], V four 64-row MN-major
+    boxes 8 KB apart read as two RS m64n128k16 products over its column
+    halves, as flash_fwd_wgmma256_kernel's P V."""
+    torch.manual_seed(13)
+    p = torch.randn(64, 64, device=gpu).to(torch.bfloat16)
+    v = torch.randn(64, 256, device=gpu).to(torch.bfloat16)
+    out = torch.zeros(64, 256, device=gpu)
+    assert _hopper_lib().hopper_wgmma_rs256(p.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                            _stream()) == 0
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, p.float() @ v.float(), atol=1e-3, rtol=1e-3)
 
 
 @pytest.mark.parametrize("rows", [64, 128])
@@ -881,6 +927,119 @@ def test_the_wgmma100_backward_c_entries_refuse_what_they_cannot_take(gpu):
     torch.cuda.synchronize()
 
 
+# the forward's wgmma kernels at head dim 256 in bf16 (flash_fwd_wgmma256_kernel:
+# Gemma's attention) and at 64 in fp16 (flash_fwd_wgmma64_f16_kernel:
+# OPT-1.3B's), at the models' shapes and every path of their loops: dtype,
+# head dim, (b, h, kvh, sq, sk), causal, window
+FWD_NEW_CASES = {
+    "gemma2b_s2048": (torch.bfloat16, 256, (1, 8, 1, 2048, 2048), True, None),
+    "gemma7b_s2048": (torch.bfloat16, 256, (1, 16, 16, 2048, 2048), True, None),
+    "d256_ragged_300": (torch.bfloat16, 256, (2, 8, 1, 300, 300), True, None),
+    "d256_cross_256x1024": (torch.bfloat16, 256, (1, 8, 1, 256, 1024), True, None),
+    "d256_window_512": (torch.bfloat16, 256, (1, 4, 2, 2048, 2048), True, 512),
+    "d256_non_causal": (torch.bfloat16, 256, (1, 4, 2, 320, 448), False, None),
+    "opt13b_s2048": (torch.float16, 64, (1, 32, 32, 2048, 2048), True, None),
+    "fp16_d64_ragged_300": (torch.float16, 64, (2, 8, 4, 300, 300), True, None),
+    "fp16_d64_cross_256x1024": (torch.float16, 64, (1, 4, 4, 256, 1024), True, None),
+    "fp16_d64_window_512": (torch.float16, 64, (1, 2, 2, 2048, 2048), True, 512),
+    "fp16_d64_non_causal": (torch.float16, 64, (1, 4, 2, 320, 448), False, None),
+}
+FWD_NEW_TILE = {torch.bfloat16: 1e-2, torch.float16: chip_smoke.TILE_REL_L2_FP16}
+
+
+def _fwd_new_inputs(gpu, case, layout, seed=0):
+    dtype, d, (b, h, kvh, sq, sk), causal, window = FWD_NEW_CASES[case]
+    q, k, v = _qkv(gpu, dtype, b, h, kvh, sq, sk, d, seed=seed)
+    if layout == "bshd":  # the model's transposed views of [B, S, H, D]
+        q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
+    return q, k, v, causal, window
+
+
+@pytest.mark.parametrize("case", list(FWD_NEW_CASES))
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+def test_wgmma_forward_at_256_and_fp16_64_matches_the_plain_version(gpu, case, layout):
+    q, k, v, causal, window = _fwd_new_inputs(gpu, case, layout)
+    assert attn._route("flash_fwd", q, k, v) == "wgmma"
+    before = attn.flash_fwd.launches_by_route["wgmma"]
+    o, lse = attn.flash_fwd(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert attn.flash_fwd.launches_by_route["wgmma"] == before + 1
+    assert o.dtype == q.dtype and o.shape == q.shape and o.is_contiguous()
+    ro, rl = attn.reference_attention_with_lse(q, k, v, causal, window)
+    tol = TOL[q.dtype]
+    torch.testing.assert_close(o.float(), ro.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, rl, atol=1e-3, rtol=1e-3)
+    assert tile_rel_l2(o, ro) <= FWD_NEW_TILE[q.dtype]
+
+
+@pytest.mark.parametrize("case", ["gemma2b_s2048", "d256_window_512", "opt13b_s2048",
+                                  "fp16_d64_ragged_300"])
+def test_wgmma_forward_at_256_and_fp16_64_matches_the_mma_route(gpu, case):
+    """The new kernels against the mma kernel, the route they took before,
+    on the same inputs (the model's views), and each bit-repeatable."""
+    q, k, v, causal, window = _fwd_new_inputs(gpu, case, "bshd", seed=2)
+    o1, l1 = attn.flash_fwd(q, k, v, causal, window, route="mma")
+    runs = [attn.flash_fwd(q, k, v, causal, window, route="wgmma") for _ in range(2)]
+    torch.cuda.synchronize()
+    o2, l2 = runs[0]
+    tol = TOL[q.dtype]
+    torch.testing.assert_close(o2.float(), o1.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(l2, l1, atol=1e-3, rtol=1e-3)
+    assert tile_rel_l2(o2, o1) <= FWD_NEW_TILE[q.dtype]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.parametrize("d,dtype", [(256, torch.bfloat16), (64, torch.float16)])
+def test_the_c_entries_admit_what_routes_admits_at_256_and_fp16_64(gpu, d, dtype):
+    """For each kernel, every base offset (0, 1, 2 and 4 elements) and both
+    layouts: csrc/'s entry takes the wgmma route (returns 0, and launches)
+    exactly where `_routes` offers it, and refuses it (cudaErrorInvalidValue,
+    1) elsewhere: the forward on 16-byte aligned rows alone, dQ and dK/dV
+    never."""
+    seen = set()
+    for offset in (0, 1, 2, 4):
+        for layout in ("bhsd", "bshd"):
+            n = 2 * 4 * 64 * d
+            x = torch.randn(offset + n, device=gpu).to(dtype)[offset:]
+            t = (x.view(2, 64, 4, d).transpose(1, 2) if layout == "bshd"
+                 else x.view(2, 4, 64, d))
+            for name, tensors in (("flash_fwd", (t,) * 3), ("flash_bwd_dq", (t,) * 4),
+                                  ("flash_bwd_dkv", (t,) * 4)):
+                admitted = "wgmma" in attn._routes(name, *tensors)
+                err = _c_entry(name, tensors, "wgmma")
+                torch.cuda.synchronize()
+                assert err == (0 if admitted else 1), (name, offset, layout)
+                seen.add((name, admitted))
+    assert seen == {("flash_fwd", True), ("flash_fwd", False), ("flash_bwd_dq", False),
+                    ("flash_bwd_dkv", False)}
+
+
+@pytest.mark.parametrize("d,dtype", [(256, torch.bfloat16), (64, torch.float16)])
+def test_the_new_wgmma_forwards_refuse_what_they_cannot_take(gpu, d, dtype):
+    """csrc/'s forward entry on the wgmma route at 256 (bf16) and 64 (fp16),
+    past `_routes`: an empty kv, a sequence stride that is no multiple of 8
+    elements and a dtype no wgmma kernel takes at that head dim (fp16 at
+    256, fp32 at 64) each return cudaErrorInvalidValue (1); the same rows at
+    a stride of d + 8 launch (0). Named, the backward kernels' wgmma route
+    raises with no launch."""
+    wide = torch.randn(1, 4, 64, d + 8, device=gpu).to(dtype)
+    odd = torch.randn(1, 4, 64, d + 4, device=gpu).to(dtype)[..., :d]
+    empty = torch.zeros(1, 4, 0, d, device=gpu, dtype=dtype)
+    other = wide[..., :d].to(torch.float16 if dtype == torch.bfloat16 else torch.float32)
+    assert _c_entry("flash_fwd", (wide[..., :d],) * 3, "wgmma") == 0
+    assert _c_entry("flash_fwd", (odd,) * 3, "wgmma") == 1
+    assert _c_entry("flash_fwd", (wide[..., :d], empty, empty), "wgmma") == 1
+    assert _c_entry("flash_fwd", (other.contiguous(),) * 3, "wgmma") == 1
+    torch.cuda.synchronize()
+    q = wide[..., :d].contiguous()
+    lse = torch.zeros(q.shape[:3], device=gpu)
+    for fn in (attn.flash_bwd_dq, attn.flash_bwd_dkv):
+        before = (fn.launches, dict(fn.launches_by_route))
+        with pytest.raises(ValueError, match=f"{fn.__name__} route 'wgmma' cannot take"):
+            fn(q, q, q, q, lse, lse, route="wgmma")
+        assert (fn.launches, fn.launches_by_route) == before
+
+
 @pytest.mark.parametrize("lse_scale, sink", [(8.0, False), (1e3, False), (1e3, True)],
                          ids=["8.0", "1000.0", "sink-1000.0"])
 def test_fp16_backward_keeps_a_large_lse_cotangent(gpu, lse_scale, sink):
@@ -1013,18 +1172,25 @@ def test_wgmma_f16_backward_is_bit_repeatable(gpu, case):
 
 @pytest.mark.parametrize("d", [64, 96])
 def test_wgmma_takes_fp16_at_head_dim_128_alone(gpu, d):
-    """In fp16 all three kernels have a wgmma kernel at head dim 128 alone:
-    named at 64 and 96, each one's wgmma route raises with no launch, and at
-    128 each launches on it."""
+    """In fp16 dQ and dK/dV have a wgmma kernel at head dim 128 alone, the
+    forward at 128 and 64 (OPT-1.3B's): named at 96, each one's wgmma route
+    raises with no launch, and at 64 so do the backward kernels' while the
+    forward launches on it; at 128 each launches on it."""
     q = _qkv(gpu, torch.float16, 1, 4, 4, 128, 128, d)[0]
     q128 = _qkv(gpu, torch.float16, 1, 4, 4, 128, 128, 128)[0]
     lse = torch.zeros(q.shape[:3], device=gpu)
     for fn in (attn.flash_fwd, attn.flash_bwd_dq, attn.flash_bwd_dkv):
         args = (q,) * 3 if fn is attn.flash_fwd else (q,) * 4 + (lse, lse)
         before = (fn.launches, dict(fn.launches_by_route))
-        with pytest.raises(ValueError, match=f"{fn.__name__} route 'wgmma' cannot take"):
+        if fn is attn.flash_fwd and d == 64:
             fn(*args, route="wgmma")
-        assert (fn.launches, fn.launches_by_route) == before
+            torch.cuda.synchronize()
+            assert fn.launches_by_route["wgmma"] == before[1]["wgmma"] + 1
+            before = (fn.launches, dict(fn.launches_by_route))
+        else:
+            with pytest.raises(ValueError, match=f"{fn.__name__} route 'wgmma' cannot take"):
+                fn(*args, route="wgmma")
+            assert (fn.launches, fn.launches_by_route) == before
         args = (q128,) * 3 if fn is attn.flash_fwd else (q128,) * 4 + (lse, lse)
         fn(*args, route="wgmma")
         torch.cuda.synchronize()
@@ -1060,8 +1226,8 @@ def test_kernel_refuses_what_it_does_not_take(gpu, dtype, d):
 
 
 # head dims other than 32, 64 and 128, and fp16: the simt and mma kernels at
-# their padded widths (at 96 and 100, and fp16 at 128, on wgmma; at 80 the
-# forward). (dtype, d, (b, h, kvh, sq, sk), causal, window, layout, the
+# their padded widths (at 96 and 100, and fp16 at 128, on wgmma; at 80 and
+# 256, and fp16 at 64, the forward). (dtype, d, (b, h, kvh, sq, sk), causal, window, layout, the
 # route `_route` picks for every kernel, or for the forward and the
 # backward); "offset1" starts each tensor one element into its storage,
 # off 16-byte alignment
@@ -1073,14 +1239,15 @@ WIDE_CASES = {
     "bf16_d80_cross": (torch.bfloat16, 80, (1, 4, 4, 128, 400), True, None, "bhsd",
                        ("wgmma", "mma")),
     "bf16_d256_gqa_8_1": (torch.bfloat16, 256, (1, 8, 1, 384, 384), True, None, "bshd",
-                          "mma"),
+                          ("wgmma", "mma")),
     "bf16_d40_ragged": (torch.bfloat16, 40, (2, 4, 2, 300, 300), True, None, "bhsd", "mma"),
     "bf16_d8_non_causal": (torch.bfloat16, 8, (1, 2, 2, 70, 130), False, None, "bhsd",
                            "mma"),
     "bf16_d100": (torch.bfloat16, 100, (1, 4, 4, 256, 256), True, None, "bhsd", "wgmma"),
     "bf16_d1": (torch.bfloat16, 1, (1, 2, 2, 100, 100), True, None, "bhsd", "simt"),
     "fp16_d128": (torch.float16, 128, (1, 8, 8, 512, 512), True, None, "bhsd", "wgmma"),
-    "fp16_d64_bshd": (torch.float16, 64, (2, 8, 8, 256, 256), True, None, "bshd", "mma"),
+    "fp16_d64_bshd": (torch.float16, 64, (2, 8, 8, 256, 256), True, None, "bshd",
+                      ("wgmma", "mma")),
     "fp16_d200_window": (torch.float16, 200, (1, 4, 2, 300, 300), True, 50, "bhsd", "mma"),
     "fp16_d72_offset": (torch.float16, 72, (1, 4, 4, 200, 200), True, None, "offset1",
                         "simt"),

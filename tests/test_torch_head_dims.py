@@ -1,8 +1,8 @@
 """The port's attention at the head dims and dtypes past the kernels' first
 widths (head dims 40, 80, 96, 100, 256 and 320; fp16 beside fp32 and bf16,
 at 128 too), the fp16 backward's cotangent scale under small and large
-cotangents, and tiny Llamas whose head dims are 48, 80 and 100, against the
-JAX package on the same inputs.
+cotangents, and tiny Llamas whose head dims are 48, 64 (fp16), 80, 100 and
+256 (one KV head), against the JAX package on the same inputs.
 
 The JAX kernels take `d` from the array and compute in any float dtype, so
 every such model runs in the JAX package; the port's kernels run these head
@@ -175,12 +175,19 @@ def test_head_dim_48_llama_gradients_match_jax(llama48):
 FP16_LOGITS_REL_L2 = 2.5e-3
 
 
-@pytest.mark.parametrize("head_dim", [32, 48])
+# the fp16 Llamas: the tiny preset (head dim 32), dim 96 over 2 heads (48) and
+# dim 128 over 2 heads (64, the width of OPT-1.3B, whose forward takes the
+# fp16 wgmma kernel at 64 on the card)
+FP16_CONFIGS = {32: dict(), 48: dict(dim=96, n_heads=2, n_kv_heads=1, ffn_dim=192),
+                64: dict(n_heads=2, n_kv_heads=2)}
+
+
+@pytest.mark.parametrize("head_dim", [32, 48, 64])
 def test_fp16_llama_logits_match_jax(head_dim):
-    """A tiny fp16 Llama (the dtype of Llama-2's published weights) at the
-    tiny preset's head dim 32 and at 48."""
-    jcfg = (dataclasses.replace(jllama.LlamaConfig.tiny(), dtype="float16")
-            if head_dim == 32 else _head_dim_48("float16"))
+    """A tiny fp16 Llama (the dtype of Llama-2's and OPT's published
+    weights) at the tiny preset's head dim 32, at 48 and at 64."""
+    jcfg = dataclasses.replace(jllama.LlamaConfig.tiny(), dtype="float16",
+                               **FP16_CONFIGS[head_dim])
     assert jcfg.head_dim == head_dim
     jparams = jllama.init_llama(jcfg, jax.random.PRNGKey(7))
     tokens = np.random.default_rng(8).integers(0, jcfg.vocab_size, (2, 40))
@@ -311,18 +318,20 @@ def test_a_scale_from_do_alone_overflows_ds(monkeypatch):
         assert not bool(torch.isfinite(got).all()), name
 
 
-# Llamas at OpenLLaMA-3B's and StableLM-3B's head dims (100 and 80), cut to
-# 2 layers of 2 heads, whose forwards take the wgmma forward kernels at those
-# widths on the card: fp32 logits against the JAX package's, summation order
-# only (the bound of tests/test_torch_llama.py)
+# Llamas at OpenLLaMA-3B's, StableLM-3B's and Gemma-2B's head dims (100, 80
+# and 256; at 256 with Gemma's one KV head), cut to 2 layers of 2 heads, whose
+# forwards take the wgmma forward kernels at those widths on the card: fp32
+# logits against the JAX package's, summation order only (the bound of
+# tests/test_torch_llama.py)
 def _new_width(head_dim):
     jcfg = dataclasses.replace(jllama.LlamaConfig.tiny(), dim=2 * head_dim, n_heads=2,
-                               n_kv_heads=2, ffn_dim=256, dtype="float32")
+                               n_kv_heads=1 if head_dim == 256 else 2, ffn_dim=256,
+                               dtype="float32")
     assert jcfg.head_dim == _twin(jcfg).head_dim == head_dim and jcfg.n_layers == 2
     return jcfg
 
 
-@pytest.mark.parametrize("head_dim", [80, 100])
+@pytest.mark.parametrize("head_dim", [80, 100, 256])
 def test_new_width_llama_logits_match_jax(head_dim):
     jcfg = _new_width(head_dim)
     jparams = jllama.init_llama(jcfg, jax.random.PRNGKey(9))

@@ -41,15 +41,22 @@ CASES = {
     # 96 (Phi-3-mini's), 100 (OpenLLaMA-3B's, whose rows the kernels copy in
     # 8-byte pieces: bases 8-byte aligned, strides multiples of 4) and 128,
     # and fp16 at 128; the forward's wgmma also bf16 at 80 (StableLM-3B's)
+    # and 256 (Gemma's), and fp16 at 64 (OPT-1.3B's)
     "bf16_d96": (lambda: [_bhsd(1, 4, 64, 96)] * 3, "wgmma"),
     "bf16_d80": (lambda: [_bhsd(1, 4, 64, 80)] * 3, "wgmma"),
     "bf16_d80_bshd_view": (lambda: [_model_view(2, 64, 4, 80)] * 3, "wgmma"),
     "bf16_d256_gqa": (lambda: [_bhsd(1, 8, 64, 256)] + [_bhsd(1, 1, 64, 256)] * 2,
-                      "mma"),
+                      "wgmma"),
+    "bf16_d256_bshd_view": (lambda: [_model_view(1, 64, 8, 256)] * 3, "wgmma"),
+    "bf16_d256_offset_by_one": (lambda: [_bhsd(1, 8, 64, 256, offset=1)] * 3, "simt"),
+    "bf16_d256_odd_seq_stride": (lambda: [_bhsd(1, 8, 64, 260)[..., :256]] * 3, "simt"),
     "fp16_d128": (lambda: [_bhsd(1, 4, 64, 128, torch.float16)] * 3, "wgmma"),
     "fp16_d128_bshd_view": (lambda: [_model_view(2, 64, 4, 128, torch.float16)] * 3,
                             "wgmma"),
-    "fp16_d64": (lambda: [_bhsd(1, 4, 64, 64, torch.float16)] * 3, "mma"),
+    "fp16_d64": (lambda: [_bhsd(1, 4, 64, 64, torch.float16)] * 3, "wgmma"),
+    "fp16_d64_bshd_view": (lambda: [_model_view(1, 64, 32, 64, torch.float16)] * 3, "wgmma"),
+    "fp16_d64_offset_by_one": (lambda: [_bhsd(1, 4, 64, 64, torch.float16, offset=1)] * 3,
+                               "simt"),
     "fp16_d96": (lambda: [_bhsd(1, 4, 64, 96, torch.float16)] * 3, "mma"),
     "bf16_d100": (lambda: [_bhsd(1, 4, 64, 100)] * 3, "wgmma"),
     "bf16_d100_aligned_rows": (lambda: [_bhsd(1, 4, 64, 104)[..., :100]] * 3, "wgmma"),
@@ -79,13 +86,13 @@ def test_route_follows_the_inputs(case):
 
 
 # the head dims each kernel has a wgmma kernel for (csrc/), by dtype: every
-# kernel at 64, 96 and 128 in bf16, and at 128 in fp16; the forward at 80 in
-# bf16 too (and every kernel at 100, whose rows are not 16-byte aligned: not
-# among these, which mma takes too)
-WGMMA_TAKES = {torch.bfloat16: {"flash_fwd": (64, 80, 96, 128),
+# kernel at 64, 96 and 128 in bf16, and at 128 in fp16; the forward at 80 and
+# 256 in bf16 and at 64 in fp16 too (and every kernel at 100, whose rows are
+# not 16-byte aligned: not among these, which mma takes too)
+WGMMA_TAKES = {torch.bfloat16: {"flash_fwd": (64, 80, 96, 128, 256),
                                 "flash_bwd_dq": (64, 96, 128),
                                 "flash_bwd_dkv": (64, 96, 128)},
-               torch.float16: {"flash_fwd": (128,), "flash_bwd_dq": (128,),
+               torch.float16: {"flash_fwd": (64, 128), "flash_bwd_dq": (128,),
                                "flash_bwd_dkv": (128,)}}
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 HEAD_DIMS = (32, 64, 128, 40, 80, 96, 256)
@@ -103,8 +110,8 @@ def _assert_wgmma_admits(kernel, d, dtype, wgmma):
     for kernel in KERNELS for d in HEAD_DIMS])
 def test_wgmma_admits_each_kernels_head_dims(kernel, d, wgmma):
     """wgmma takes head dims 64, 96 and 128 in bf16 for each kernel, and 80
-    for the forward (`WGMMA_TAKES`); every aligned bf16 head dim keeps mma,
-    up to 256."""
+    and 256 for the forward (`WGMMA_TAKES`); every aligned bf16 head dim
+    keeps mma, up to 256."""
     _assert_wgmma_admits(kernel, d, torch.bfloat16, wgmma)
 
 
@@ -112,20 +119,22 @@ def test_wgmma_admits_each_kernels_head_dims(kernel, d, wgmma):
     (kernel, d, d in WGMMA_TAKES[torch.float16][kernel])
     for kernel in KERNELS for d in HEAD_DIMS])
 def test_wgmma_admits_fp16_at_head_dim_128_alone(kernel, d, wgmma):
-    """In fp16 wgmma takes head dim 128 alone, for the forward, dQ and
-    dK/dV alike; every other aligned fp16 head dim keeps mma for all three
-    kernels, up to 256."""
+    """In fp16 wgmma takes head dim 128 for the forward, dQ and dK/dV alike,
+    and 64 for the forward alone (`WGMMA_TAKES`); every other aligned fp16
+    head dim keeps mma for all three kernels, up to 256."""
     _assert_wgmma_admits(kernel, d, torch.float16, wgmma)
 
 
 @pytest.mark.parametrize("case,route", [
     ("fp32_d128", "wgmma"), ("fp32_d128", "mma"), ("bf16_d32", "wgmma"),
     ("bf16_offset_by_one", "mma"), ("bf16_d128", "tma"), ("fp16_d80", "wgmma"),
-    ("fp16_d64", "wgmma"), ("fp16_d96", "wgmma"), ("bf16_d100", "mma"),
+    ("fp16_d40", "wgmma"), ("fp16_d96", "wgmma"), ("bf16_d100", "mma"),
     ("bf16_d100_aligned_rows", "mma"), ("fp16_offset_by_one", "mma"),
     ("fp16_offset_by_one", "wgmma"), ("bf16_d100_offset_by_two", "wgmma"),
     ("bf16_d100_odd_seq_stride", "wgmma"), ("bf16_d100_empty_kv", "wgmma"),
-    ("fp16_d100", "wgmma"), ("fp32_d80", "wgmma")])
+    ("fp16_d100", "wgmma"), ("fp32_d80", "wgmma"), ("bf16_d256_offset_by_one", "wgmma"),
+    ("bf16_d256_offset_by_one", "mma"), ("bf16_d256_odd_seq_stride", "wgmma"),
+    ("fp16_d64_offset_by_one", "wgmma"), ("fp16_d64_offset_by_one", "mma")])
 def test_a_route_that_cannot_take_the_inputs_raises(case, route):
     q, k, v = CASES[case][0]()
     before = attn.flash_fwd.launches
@@ -209,6 +218,10 @@ BWD_CASES = {
                               "wgmma"),
     "fp16_d96": (lambda: [_bhsd(1, 4, 64, 96, torch.float16)] * 4, "mma"),
     "fp16_d64": (lambda: [_model_view(1, 64, 4, 64, torch.float16)] * 4, "mma"),
+    # head dim 256 (Gemma's): the backward stays on mma, as at fp16 64
+    "bf16_d256_gqa_model_views": (lambda: [_model_view(1, 64, 8, 256)]
+                                  + [_model_view(1, 64, 1, 256)] * 2
+                                  + [_model_view(1, 64, 8, 256)], "mma"),
     # head dim 100 (OpenLLaMA-3B's): wgmma for 8-byte aligned bases and
     # strides that are multiples of 4, simt otherwise, and in fp16
     "bf16_d100": (lambda: [_bhsd(1, 4, 64, 100)] * 4, "wgmma"),
@@ -257,7 +270,7 @@ BWD_REFUSALS = [("fp32_d128", "wgmma"), ("fp32_d128", "mma"), ("bf16_d32", "wgmm
                 ("bf16_d100_model_views", "mma"), ("bf16_d80_model_views", "wgmma"),
                 ("bf16_d100_offset_by_one", "wgmma"), ("bf16_d100_do_offset_by_two", "wgmma"),
                 ("bf16_d100_odd_seq_stride", "wgmma"), ("bf16_d100_empty_kv", "wgmma"),
-                ("fp16_d100", "wgmma")]
+                ("fp16_d100", "wgmma"), ("bf16_d256_gqa_model_views", "wgmma")]
 
 
 @pytest.mark.parametrize("fn,case,route", [
@@ -509,7 +522,8 @@ def test_the_smokes_wide_rows_take_their_routes(row):
     """Each row chip_smoke adds at the new head dims and in fp16 names the
     route `_route` picks for each kernel there: wgmma at head dims 96 and 100
     in bf16 and in fp16 at 128 aligned, for every kernel, and for the
-    forward alone at 80 in bf16 (not one element into its storage)."""
+    forward alone at 80 and 256 in bf16 and at 64 in fp16 (not one element
+    into its storage)."""
     import chip_smoke
 
     q, k, v, do = _smoke_row_tensors(row)
@@ -518,9 +532,9 @@ def test_the_smokes_wide_rows_take_their_routes(row):
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         assert attn._route(name, q, k, v, do) == want[name]
     aligned_bf16 = row[9] == torch.bfloat16 and row[10] != "offset1"
-    every = (row[6] in (96, 100) and aligned_bf16) or (
-        row[6] == 128 and row[9] == torch.float16 and row[10] != "offset1")
-    fwd_alone = row[6] == 80 and aligned_bf16
+    aligned_fp16 = row[9] == torch.float16 and row[10] != "offset1"
+    every = (row[6] in (96, 100) and aligned_bf16) or (row[6] == 128 and aligned_fp16)
+    fwd_alone = (row[6] in (80, 256) and aligned_bf16) or (row[6] == 64 and aligned_fp16)
     assert ("wgmma" in attn._routes("flash_fwd", q, k, v)) == (every or fwd_alone)
     assert ("wgmma" in attn._routes("flash_bwd_dkv", q, k, v, do)) == every
     assert ("wgmma" in attn._routes("flash_bwd_dq", q, k, v, do)) == every
@@ -529,14 +543,17 @@ def test_the_smokes_wide_rows_take_their_routes(row):
 
 def test_the_smoke_covers_each_new_width_and_dtype():
     """chip_smoke's wide rows reach every padded width of the simt and mma
-    kernels that is not a width of its own, fp16 on both routes, and the
-    head dims 40, 80, 96, 100, 256, and 320 past the mma kernels' widest."""
+    kernels that is not a width of its own, fp16 on every route, and the
+    head dims 40, 80, 96, 100, 256, and 320 past the mma kernels' widest
+    (a row's routes: its forward's and its backward kernels')."""
     import chip_smoke
 
     rows = _wide_rows()
     assert {row[6] for row in rows} >= {40, 80, 96, 100, 256, 320}
     assert {row[9] for row in rows if row[6] > 256} >= {torch.float32, torch.bfloat16}
-    assert {(row[9], row[-1]) for row in rows} >= {
+    assert {(row[9], r) for row in rows
+            for r in chip_smoke.shape_routes(row[-1]).values()} >= {
+        (torch.float16, "wgmma"),
         (torch.float16, "mma"), (torch.float16, "simt"), (torch.bfloat16, "mma"),
         (torch.bfloat16, "simt"), (torch.float32, "simt")}
     assert chip_smoke.REFUSED_HEAD_DIM > attn.KERNEL_MAX_HEAD_DIM
@@ -672,21 +689,24 @@ def test_the_new_width_forwards_expect_every_launch_on_wgmma():
 
 
 def test_shape_routes_takes_a_forward_and_backward_pair():
-    """A SHAPES row at 80 names the forward's route and the backward
-    kernels' apart, and one at 100 one route for all three; the smoke's
-    forward turn rows are such rows, among its wide rows, each with a route
-    before wgmma to be timed against, and its backward turn rows the two at
-    100, where dQ and dK/dV took simt before their wgmma kernels."""
+    """A SHAPES row at 80 (and at 256, and in fp16 at 64) names the
+    forward's route and the backward kernels' apart, and one at 100 one
+    route for all three; the smoke's forward turn rows are such rows, among
+    its wide rows, each with a route before wgmma to be timed against (simt
+    at 100, mma elsewhere), and its backward turn rows the two at 100, where
+    dQ and dK/dV took simt before their wgmma kernels."""
     import chip_smoke
 
     assert chip_smoke.shape_routes(("wgmma", "simt")) == {
         "flash_fwd": "wgmma", "flash_bwd_dq": "simt", "flash_bwd_dkv": "simt"}
     rows = {row[0]: row for row in chip_smoke.SHAPES}
     assert set(chip_smoke.FWD_TURN_SHAPES) <= set(chip_smoke.WIDE_SHAPES)
-    assert {(rows[n][6], rows[n][10]) for n in chip_smoke.FWD_TURN_SHAPES} == {
-        (80, "bhsd"), (80, "bshd"), (100, "bhsd"), (100, "bshd")}
+    assert {(rows[n][6], rows[n][9], rows[n][10]) for n in chip_smoke.FWD_TURN_SHAPES} == {
+        (80, torch.bfloat16, "bhsd"), (80, torch.bfloat16, "bshd"),
+        (100, torch.bfloat16, "bhsd"), (100, torch.bfloat16, "bshd"),
+        (256, torch.bfloat16, "bshd"), (64, torch.float16, "bshd")}
     for name in chip_smoke.FWD_TURN_SHAPES:
-        old = "mma" if rows[name][6] == 80 else "simt"
+        old = "simt" if rows[name][6] == 100 else "mma"
         q, k, v, _ = _smoke_row_tensors(rows[name])
         assert rows[name][-1] == (("wgmma", old) if old == "mma" else "wgmma")
         assert attn._routes("flash_fwd", q, k, v)[-2:] == (old, "wgmma")
@@ -744,3 +764,123 @@ def test_openllama3b_gradient_and_train_expect_every_launch_on_wgmma():
     main = inspect.getsource(chip_smoke.main)
     for path in ("openllama3b_gradient", "openllama3b_train_step"):
         assert main.count(f'"{path}": openllama_') == 2, path
+
+
+# head dim 256 in bf16 (Gemma's) and 64 in fp16 (OPT-1.3B's): the forward has
+# a wgmma kernel at each; dQ and dK/dV none (mma), and unaligned rows fall to
+# simt as before
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+@pytest.mark.parametrize("d,dtype", [(256, torch.bfloat16), (64, torch.float16)])
+def test_the_forward_alone_takes_wgmma_at_256_and_fp16_64(d, dtype, layout):
+    q, k, v, do = ([_bhsd(1, 8, 64, d, dtype)] if layout == "bhsd"
+                   else [_model_view(1, 64, 8, d, dtype)]) * 4
+    assert attn._routes("flash_fwd", q, k, v) == ("simt", "mma", "wgmma")
+    for kernel in BWD_KERNELS:
+        assert attn._routes(kernel, q, k, v, do) == ("simt", "mma")
+    off = _bhsd(1, 8, 64, d, dtype, offset=1)
+    assert attn._routes("flash_fwd", off, off, off) == ("simt",)
+
+
+@pytest.mark.parametrize("dim,dtype", [(512, "bfloat16"), (128, "float16")])
+def test_the_models_forward_at_256_and_fp16_64(monkeypatch, dim, dtype):
+    """A layer at head_dim 256 over one KV head in bf16 (Gemma's), and at 64
+    in fp16 (OPT-1.3B's) (`_a_models_launch_routes`): both forward launches
+    take wgmma, and the backward launchers mma."""
+    cfg = _one_layer(dim, dtype)
+    assert cfg.head_dim == dim // 2 and cfg.n_kv_heads == 1
+    assert _a_models_launch_routes(monkeypatch, cfg) == [
+        ("flash_fwd", "wgmma"), ("flash_fwd", "wgmma"), ("flash_bwd_dq", "mma"),
+        ("flash_bwd_dkv", "mma")]
+
+
+def test_the_gemma_and_opt_configs_have_their_published_widths():
+    """`profile_path.gemma_2b` and `opt_1_3b` against their published
+    config.json (hidden, layers, heads, KV heads, head dim, intermediate,
+    vocab, rope theta, norm eps, positions, dtype): Gemma-2B's head dim 256
+    is hidden / heads, so the Llama config holds it with no field of its
+    own."""
+    from yoda_scheduler_tpu_torch.profile_path import gemma_2b, opt_1_3b
+
+    fields = ("dim", "n_layers", "n_heads", "n_kv_heads", "head_dim", "ffn_dim",
+              "vocab_size", "rope_theta", "norm_eps", "max_seq_len", "dtype")
+    for cfg, want in ((gemma_2b(), (2048, 18, 8, 1, 256, 16384, 256000, 10000.0, 1e-6,
+                                    8192, "bfloat16")),
+                      (opt_1_3b(), (2048, 24, 32, 32, 64, 8192, 50272, 10000.0, 1e-5,
+                                    2048, "float16"))):
+        assert tuple(getattr(cfg, f) for f in fields) == want
+        assert not cfg.is_moe and cfg.sliding_window is None
+
+
+def test_d256_and_fp16_d64_forward_on_mma_move_the_forward_alone_and_restore():
+    """`profile_path.d256_forward_on_mma` and `fp16_d64_forward_on_mma`, the
+    route sets the Gemma-2B and OPT-1.3B forwards are timed against: within
+    each the forward at its width and dtype takes mma, while the backward
+    keeps mma, the other dtype at that width keeps its wgmma forward and
+    head dim 128 keeps wgmma; after it `_WGMMA_HEAD_DIMS` is exactly what it
+    was."""
+    from yoda_scheduler_tpu_torch.profile_path import (d256_forward_on_mma,
+                                                       fp16_d64_forward_on_mma)
+
+    saved = {key: dims for key, dims in attn._WGMMA_HEAD_DIMS.items()}
+    for routes, d, dtype, other in ((d256_forward_on_mma, 256, torch.bfloat16, None),
+                                    (fp16_d64_forward_on_mma, 64, torch.float16,
+                                     torch.bfloat16)):
+        t = [_model_view(1, 64, 8, d, dtype)] * 4
+        rest = [[_model_view(1, 64, 8, 128, dt)] * 3 for dt in (torch.bfloat16, torch.float16)]
+        if other is not None:
+            rest.append([_model_view(1, 64, 8, d, other)] * 3)
+        with routes():
+            assert attn._route("flash_fwd", *t[:3]) == "mma"
+            for name in BWD_KERNELS:
+                assert attn._route(name, *t) == "mma"
+            for r in rest:
+                assert attn._route("flash_fwd", *r) == "wgmma"
+        assert attn._WGMMA_HEAD_DIMS == saved
+        assert attn._route("flash_fwd", *t[:3]) == "wgmma"
+
+
+def test_the_gemma_and_opt_forwards_expect_every_launch_on_wgmma():
+    """chip_smoke's gemma2b_forward and opt13b_fp16_forward expect one
+    flash_fwd launch a layer on wgmma (`phase_forward`'s route), 18 and 24:
+    `_route` picks it on each config's model views at its head dim and
+    dtype; both run in main's loop of forward phases, timed in turns
+    against the forward on mma, and the build expects both new kernels."""
+    import inspect
+
+    import chip_smoke
+    from yoda_scheduler_tpu_torch.profile_path import gemma_2b, opt_1_3b
+
+    assert chip_smoke.shape_routes("wgmma")["flash_fwd"] == "wgmma"
+    for cfg, layers in ((gemma_2b(), 18), (opt_1_3b(), 24)):
+        assert cfg.n_layers == layers
+        q = _model_view(1, 64, cfg.n_heads, cfg.head_dim, cfg.torch_dtype)
+        k = _model_view(1, 64, cfg.n_kv_heads, cfg.head_dim, cfg.torch_dtype)
+        assert attn._route("flash_fwd", q, k, k) == "wgmma"
+    main = inspect.getsource(chip_smoke.main)
+    for phase, manager in (("gemma2b_forward", "d256_forward_on_mma"),
+                           ("opt13b_fp16_forward", "fp16_d64_forward_on_mma")):
+        assert f'("{phase}", ' in main and f'("forward_on_mma", {manager})' in main
+    assert {"flash_fwd_wgmma256_kernel", "flash_fwd_wgmma64_f16_kernel"} <= set(
+        chip_smoke.WGMMA_KERNELS)
+    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 18
+
+
+def test_the_smokes_new_rows_at_256_and_fp16_64():
+    """chip_smoke's rows at head dim 256 (Gemma-2B's and Gemma-7B's
+    attention, ragged, cross-length, non-causal) and in fp16 at 64
+    (OPT-1.3B's, bench_mfu's d1024 widths, ragged GQA) name the forward on
+    wgmma and the backward on mma, are held on every route (wide rows), and
+    the models' rows are timed in turns against mma (forward turn rows)."""
+    import chip_smoke
+
+    rows = {row[0]: row for row in chip_smoke.SHAPES}
+    new = {"gemma_d256", "gemma7b_d256", "ragged_d256", "cross_d256", "noncausal_d256",
+           "fp16_d1024_bshd", "opt13b_d64_bshd", "fp16_ragged_d64"}
+    assert new <= set(chip_smoke.WIDE_SHAPES)
+    for name in new:
+        assert rows[name][-1] == ("wgmma", "mma"), name
+        assert (rows[name][6], rows[name][9]) in ((256, torch.bfloat16), (64, torch.float16))
+    assert rows["gemma7b_d256"][1:7] == (1, 16, 16, 2048, 2048, 256)
+    assert rows["opt13b_d64_bshd"][1:7] == (1, 32, 32, 2048, 2048, 64)
+    assert not rows["noncausal_d256"][7] and rows["cross_d256"][4] < rows["cross_d256"][5]
+    assert {"gemma_d256", "fp16_d1024_bshd"} <= set(chip_smoke.FWD_TURN_SHAPES)

@@ -18,7 +18,7 @@
 // one (batch, head) and streams K/V tiles through shared memory. Causal tiles
 // stop at the diagonal and windowed tiles start at the window's first tile, as
 // in the Pallas loop bounds; ragged q and k tails are masked in the kernel, so
-// every shape runs here. Eight kernels share that plan; the caller names a
+// every shape runs here. Ten kernels share that plan; the caller names a
 // route (ops/attention.py:_route picks it from dtype, head_dim and alignment):
 // - flash_fwd_wgmma_kernel (route 2 at D = 128; bf16, 16-byte aligned rows:
 //   the main path): TMA-fed and warp-specialised, on wgmma. Below.
@@ -30,12 +30,15 @@
 //   cp.async where TMA cannot read them; 7 k-steps and P.V at n104.
 // - flash_fwd_wgmma_f16_kernel (route 2 in fp16 at D = 128: Llama-2's
 //   published dtype): the D = 128 kernel's body on fp16 operands.
-// - flash_fwd_wgmma64_kernel (route 2 at D = 64: bench_mfu's d1024 widths):
-//   the same plan with three consumer warpgroups; its note is below.
+// - flash_fwd_wgmma64_kernel (route 2 at D = 64: bench_mfu's d1024 widths)
+//   and flash_fwd_wgmma64_f16_kernel (fp16 at D = 64: OPT-1.3B's published
+//   dtype): the same plan with three consumer warpgroups; the note is below.
+// - flash_fwd_wgmma256_kernel (route 2 at D = 256: Gemma's attention): the
+//   same plan on stages of 64 keys, each row in four boxes; its note is below.
 // - flash_fwd_mma_kernel (route 1; aligned bf16 and fp16, D a multiple of 8
-//   up to 256: every other model's head dim, and fp16 at D other than 128;
-//   it takes bf16 at D = 64 and 128 and fp16 at 128 too, to be held against
-//   the wgmma kernels): 4 warps, each owning 16 of 64 q rows, mma.sync
+//   up to 256: every other model's head dim, and fp16 at D other than 64 and
+//   128; it takes bf16 at D = 64, 128 and 256 and fp16 at 64 and 128 too, to
+//   be held against the wgmma kernels): 4 warps, each owning 16 of 64 q rows, mma.sync
 //   m16n8k16 (.bf16 or .f16) for both products; K/V tiles of 64 keys copied through registers.
 //   Scores, probabilities and the output sum stay in registers; P is rounded
 //   to the input type for P.V as the plain version rounds its probabilities.
@@ -739,7 +742,7 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_fwd_wgmma100_kernel(
                                      causal, window, scale);
 }
 
-// ---- the wgmma kernel at head dim 64 (bf16)
+// ---- the wgmma kernels at head dim 64 (bf16 and fp16)
 // A 64-column bf16 row is 128 bytes, one box of the 128-byte swizzle: every
 // tile is one TMA box, Q.K^T has 4 k-steps, and a K or V stage of 128 keys
 // is 16 KB, so the ring holds three. A consumer's score tile stays 64 x 128
@@ -762,10 +765,13 @@ constexpr int F_TILE = F_BK * 128;         // bytes of a K or V stage
 constexpr int F_BARS = F_QTILE + 2 * F_STAGES * F_TILE;  // barriers after Q, K[], V[]
 constexpr int F_SMEM = F_BARS + 8 * (1 + 3 * F_STAGES) + 1024;  // + alignment slack
 
-__global__ void __launch_bounds__((F_CONS + 1) * WG_THREADS, 1) flash_fwd_wgmma64_kernel(
-    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-    const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
-    float* __restrict__ lse, int H, int KvH, int Sq, int Sk, int causal,
+// The body of flash_fwd_wgmma64_kernel (bf16) and flash_fwd_wgmma64_f16_kernel
+// (fp16: OPT-1.3B's published dtype); as at D = 128, the two differ only in
+// the wgmma instructions' type, the maps' and the roundings of P and O.
+template <typename T>
+__device__ __forceinline__ void fwd_wgmma64_body(
+    const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+    T* __restrict__ o, float* __restrict__ lse, int H, int KvH, int Sq, int Sk, int causal,
     int window, float scale) {
   using namespace hopper;
   extern __shared__ unsigned char smem_raw[];
@@ -807,14 +813,14 @@ __global__ void __launch_bounds__((F_CONS + 1) * WG_THREADS, 1) flash_fwd_wgmma6
     setmaxnreg_dec<24>();
     if (threadIdx.x == 0) {
       mbar_arrive_expect_tx(full_q, F_QTILE);
-      tma_load_4d(sQ, &tm_q, full_q, 0, q0, h, b);
+      tma_load_4d(sQ, tm_q, full_q, 0, q0, h, b);
       for (int t = first_tile, i = 0; t < n_tiles; ++t, ++i) {
         const int s = i % F_STAGES;
         mbar_wait(&empty[s], ((i / F_STAGES) & 1) ^ 1);
         mbar_arrive_expect_tx(&full_k[s], F_TILE);
-        tma_load_4d(smem + F_QTILE + F_TILE * s, &tm_k, &full_k[s], 0, t * F_BK, kvh, b);
+        tma_load_4d(smem + F_QTILE + F_TILE * s, tm_k, &full_k[s], 0, t * F_BK, kvh, b);
         mbar_arrive_expect_tx(&full_v[s], F_TILE);
-        tma_load_4d(smem + F_QTILE + F_TILE * (F_STAGES + s), &tm_v, &full_v[s], 0,
+        tma_load_4d(smem + F_QTILE + F_TILE * (F_STAGES + s), tm_v, &full_v[s], 0,
                     t * F_BK, kvh, b);
       }
     }
@@ -872,7 +878,8 @@ __global__ void __launch_bounds__((F_CONS + 1) * WG_THREADS, 1) flash_fwd_wgmma6
       const uint64_t dk = desc_kmajor(sK);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) wgmma_m64n128k16_ss<0, 0>(sc, dq + 2 * kk, dk + 2 * kk, kk > 0);
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_m64n128k16_ss<0, 0, T>(sc, dq + 2 * kk, dk + 2 * kk, kk > 0);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sc);
@@ -927,12 +934,12 @@ __global__ void __launch_bounds__((F_CONS + 1) * WG_THREADS, 1) flash_fwd_wgmma6
         }
       }
 
-      // P in bf16 as the A operand: k-step jj is keys 16 jj .. 16 jj + 15
+      // P in T as the A operand: k-step jj is keys 16 jj .. 16 jj + 15
       uint32_t pa[8][4];
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj)
 #pragma unroll
-        for (int q = 0; q < 4; ++q) pa[jj][q] = pack_bf16(sc[8 * jj + 2 * q], sc[8 * jj + 2 * q + 1]);
+        for (int q = 0; q < 4; ++q) pa[jj][q] = pack_t<T>(sc[8 * jj + 2 * q], sc[8 * jj + 2 * q + 1]);
 
       // O += P V: V [keys][64] is an MN-major B operand (one 128-byte line a
       // key); a k-step of 16 keys is 2048 bytes
@@ -941,7 +948,7 @@ __global__ void __launch_bounds__((F_CONS + 1) * WG_THREADS, 1) flash_fwd_wgmma6
       fence_regs(acc);
       wgmma_fence();
 #pragma unroll
-      for (int jj = 0; jj < 8; ++jj) wgmma_m64n64k16_rs<1>(acc, pa[jj], dv + jj * 128, 1);
+      for (int jj = 0; jj < 8; ++jj) wgmma_m64n64k16_rs<1, T>(acc, pa[jj], dv + jj * 128, 1);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
@@ -960,11 +967,261 @@ __global__ void __launch_bounds__((F_CONS + 1) * WG_THREADS, 1) flash_fwd_wgmma6
         const int row = w_row0 + 16 * warp + g + 8 * r;
         if (row >= Sq) continue;
         const float lc = fmaxf(l[r], 1e-30f);
-        __nv_bfloat16* orow = o + ((int64_t)bh * Sq + row) * 64 + 2 * t4;
+        T* orow = o + ((int64_t)bh * Sq + row) * 64 + 2 * t4;
 #pragma unroll
         for (int j = 0; j < 8; ++j)
           *reinterpret_cast<uint32_t*>(orow + 8 * j) =
-              pack_bf16(acc[4 * j + 2 * r] / lc, acc[4 * j + 2 * r + 1] / lc);
+              pack_t<T>(acc[4 * j + 2 * r] / lc, acc[4 * j + 2 * r + 1] / lc);
+        if (t4 == 0) lse[(int64_t)bh * Sq + row] = m[r] * scale + logf(lc);
+      }
+    }
+  }
+}
+
+#define FWD_WGMMA64_KERNEL(NAME, T)                                                      \
+  __global__ void __launch_bounds__((F_CONS + 1) * WG_THREADS, 1) NAME(                  \
+      const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k, \
+      const __grid_constant__ CUtensorMap tm_v, T* __restrict__ o,                       \
+      float* __restrict__ lse, int H, int KvH, int Sq, int Sk, int causal, int window,   \
+      float scale) {                                                                     \
+    fwd_wgmma64_body<T>(&tm_q, &tm_k, &tm_v, o, lse, H, KvH, Sq, Sk, causal, window,     \
+                        scale);                                                           \
+  }
+FWD_WGMMA64_KERNEL(flash_fwd_wgmma64_kernel, __nv_bfloat16)
+FWD_WGMMA64_KERNEL(flash_fwd_wgmma64_f16_kernel, __half)
+#undef FWD_WGMMA64_KERNEL
+
+// ---- the wgmma kernel at head dim 256 (bf16: Gemma's attention)
+// A 256-wide row is four 128-byte boxes, so Q's 128-row tile is 64 KB, and
+// the D = 128 plan does not fit: two stages of 128 keys of K and V would take
+// 256 KB beside it, and its 64 fp32 scores beside DN / 2 = 128 output sums a
+// thread pass the consumers' 240 registers. Here a stage is 64 keys (K and
+// V 32 KB each; two stages and Q make 192 KB of the 227), and each consumer
+// warpgroup keeps a 64 x 64 score tile (m64n64k16: 32 floats) beside its
+// 64 x 256 O (two m64n128 sums, 128 floats) and P's 16 registers. Q.K^T is
+// 16 SS k-steps, four in each 64-column box: Q's boxes (128 rows) lie 16 KB
+// apart and K's (64 rows) 8 KB, so each operand steps by its own offset.
+// P.V is 4 k-steps of 16 keys, each two RS m64n128k16 over V's column
+// halves (boxes 0-1 and 2-3, 16 KB apart; the boxes of a half LBO = 8 KB
+// apart). Producer, ring, masks and softmax are the D = 128 kernel's. At
+// Gemma-2B's attention (B=1, H=8 over one KV head, S=2048, causal) the work
+// is ~17.2 GFLOP against ~10 MB, bound by operations (~17 us at 989 TF/s);
+// its 128 blocks are one wave on 132 SMs, so the longest (32 stages) sets
+// the time.
+constexpr int G_BK = 64;                 // keys per stage
+constexpr int G_STAGES = 2;
+constexpr int G_QBOX = W_BQ * 128;       // bytes of one 64-column box of Q
+constexpr int G_KBOX = G_BK * 128;       // ... of a K or V stage
+constexpr int G_QTILE = 4 * G_QBOX;      // the Q tile, 64 KB
+constexpr int G_TILE = 4 * G_KBOX;       // a K or V stage, 32 KB
+constexpr int G_BARS = G_QTILE + 2 * G_STAGES * G_TILE;  // barriers after Q, K[], V[]
+constexpr int G_SMEM = G_BARS + 8 * (1 + 3 * G_STAGES) + 1024;  // + alignment slack
+
+__global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_fwd_wgmma256_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
+    float* __restrict__ lse, int H, int KvH, int Sq, int Sk, int causal, int window,
+    float scale) {
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  unsigned char* sQ = smem;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + G_BARS);
+  uint64_t* full_q = bars;
+  uint64_t* full_k = bars + 1;
+  uint64_t* full_v = full_k + G_STAGES;
+  uint64_t* empty = full_v + G_STAGES;
+
+  const int qt = gridDim.y - 1 - blockIdx.y;  // longest causal tiles first
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int kvh = h / (H / KvH);
+  const int q0 = qt * W_BQ;
+  const int kv_offset = Sk - Sq;
+  int n_tiles = (Sk + G_BK - 1) / G_BK;
+  int first_tile = 0;
+  if (causal) {
+    const int last_key = kv_offset + min(q0 + W_BQ, Sq) - 1;
+    n_tiles = min(n_tiles, last_key / G_BK + 1);
+    if (window > 0) first_tile = max(kv_offset + q0 - (window - 1), 0) / G_BK;
+  }
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < G_STAGES; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty[s], 2 * WG_THREADS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < WG_THREADS) {
+    // ---- producer: one thread issues every load, four boxes a tile
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(full_q, G_QTILE);
+      for (int c = 0; c < 4; ++c) tma_load_4d(sQ + G_QBOX * c, &tm_q, full_q, 64 * c, q0, h, b);
+      for (int t = first_tile, i = 0; t < n_tiles; ++t, ++i) {
+        const int s = i % G_STAGES;
+        mbar_wait(&empty[s], ((i / G_STAGES) & 1) ^ 1);
+        unsigned char* sK = smem + G_QTILE + G_TILE * s;
+        unsigned char* sV = smem + G_QTILE + G_TILE * (G_STAGES + s);
+        mbar_arrive_expect_tx(&full_k[s], G_TILE);
+        for (int c = 0; c < 4; ++c)
+          tma_load_4d(sK + G_KBOX * c, &tm_k, &full_k[s], 64 * c, t * G_BK, kvh, b);
+        mbar_arrive_expect_tx(&full_v[s], G_TILE);
+        for (int c = 0; c < 4; ++c)
+          tma_load_4d(sV + G_KBOX * c, &tm_v, &full_v[s], 64 * c, t * G_BK, kvh, b);
+      }
+    }
+  } else {
+    // ---- consumers: 64 q rows each
+    setmaxnreg_inc<240>();
+    const int cw = threadIdx.x / WG_THREADS - 1;
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int w_row0 = q0 + W_ROWS * cw;
+    const bool w_live = w_row0 < Sq;
+    const int w_first = kv_offset + w_row0;
+    const int w_last = kv_offset + min(w_row0 + W_ROWS - 1, Sq - 1);
+    const float c = scale * LOG2E;  // raw score -> log2 units
+    // rows 16 warp + g (r = 0) and + 8 (r = 1) of this warpgroup's 64;
+    // acc[hf] holds O's columns 128 hf .. 128 hf + 127 in the m64n128 layout
+    float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+    float acc[2][64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[0][i] = acc[1][i] = 0.f;
+    const uint64_t dq = desc_kmajor(sQ + W_ROWS * 128 * cw);
+
+    mbar_wait(full_q, 0);
+    for (int t = first_tile, i = 0; t < n_tiles; ++t, ++i) {
+      const int s = i % G_STAGES;
+      const uint32_t ph = (i / G_STAGES) & 1;
+      const int k0 = t * G_BK;
+      unsigned char* sK = smem + G_QTILE + G_TILE * s;
+      unsigned char* sV = smem + G_QTILE + G_TILE * (G_STAGES + s);
+      mbar_wait(&full_k[s], ph);
+      // a tile masked for every row of this warpgroup is only released
+      if (!w_live || (causal && (k0 > w_last ||
+                                 (window > 0 && k0 + G_BK - 1 <= w_first - window)))) {
+        mbar_wait(&full_v[s], ph);
+        mbar_arrive(&empty[s]);
+        continue;
+      }
+
+      // S = Q K^T: 16 k-steps of 16 over head_dim; k-step kk is 32 (kk % 4)
+      // bytes into box kk / 4 of each operand
+      float sc[32];
+      const uint64_t dk = desc_kmajor(sK);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 16; ++kk)
+        wgmma_m64n64k16_ss<0, 0>(sc, dq + (((kk / 4) * G_QBOX + (kk % 4) * 32) >> 4),
+                                 dk + (((kk / 4) * G_KBOX + (kk % 4) * 32) >> 4), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+
+      // sc[4 j + e]: row 16 warp + g + 8 (e / 2), key k0 + 8 j + 2 t4 + (e % 2)
+      const bool need_mask =
+          k0 + G_BK > Sk ||
+          (causal && (k0 + G_BK - 1 > w_first || (window > 0 && k0 <= w_last - window)));
+      if (need_mask) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = k0 + 8 * j + 2 * t4 + (e & 1);
+            const int qpos = w_first + 16 * warp + g + 8 * (e >> 1);
+            bool ok = key < Sk;
+            if (causal) {
+              ok = ok && key <= qpos;
+              if (window > 0) ok = ok && key > qpos - window;
+            }
+            if (!ok) sc[4 * j + e] = NEG;
+          }
+        }
+      }
+
+      // online softmax in log2 units, as in flash_fwd_wgmma_kernel; a row's
+      // 64 scores lie in the 4 lanes of a quad
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = m[r];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * r], sc[4 * j + 2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float alpha = exp2_ftz((m[r] - mx) * c);
+        const float mc = mx == NEG ? 0.f : mx * c;
+        float rs = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float p0 = exp2_ftz(fmaf(sc[4 * j + 2 * r], c, -mc));
+          const float p1 = exp2_ftz(fmaf(sc[4 * j + 2 * r + 1], c, -mc));
+          sc[4 * j + 2 * r] = p0;
+          sc[4 * j + 2 * r + 1] = p1;
+          rs += p0 + p1;
+        }
+        l[r] = l[r] * alpha + rs;  // this thread's part of the row sum
+        m[r] = mx;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          acc[0][4 * j + 2 * r] *= alpha;
+          acc[0][4 * j + 2 * r + 1] *= alpha;
+          acc[1][4 * j + 2 * r] *= alpha;
+          acc[1][4 * j + 2 * r + 1] *= alpha;
+        }
+      }
+
+      // P in bf16 as the A operand: k-step jj is keys 16 jj .. 16 jj + 15
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) pa[jj][q] = pack_bf16(sc[8 * jj + 2 * q], sc[8 * jj + 2 * q + 1]);
+
+      // O += P V: V [64 keys][256] is an MN-major B operand in four boxes of
+      // 64 columns, 8 KB apart (LBO); a k-step of 16 keys is 2048 bytes, and
+      // the second half of the columns starts two boxes on
+      mbar_wait(&full_v[s], ph);
+      const uint64_t dv = desc_mnmajor(sV, G_KBOX);
+      fence_regs(acc[0]);
+      fence_regs(acc[1]);
+      wgmma_fence();
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        wgmma_m64n128k16_rs<1>(acc[0], pa[jj], dv + ((jj * 2048) >> 4), 1);
+        wgmma_m64n128k16_rs<1>(acc[1], pa[jj], dv + ((2 * G_KBOX + jj * 2048) >> 4), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc[0]);
+      fence_regs(acc[1]);
+      mbar_arrive(&empty[s]);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+    if (w_live) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = w_row0 + 16 * warp + g + 8 * r;
+        if (row >= Sq) continue;
+        const float lc = fmaxf(l[r], 1e-30f);
+        __nv_bfloat16* orow = o + ((int64_t)bh * Sq + row) * 256 + 2 * t4;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+          for (int j = 0; j < 16; ++j)
+            *reinterpret_cast<uint32_t*>(orow + 128 * hf + 8 * j) =
+                pack_bf16(acc[hf][4 * j + 2 * r] / lc, acc[hf][4 * j + 2 * r + 1] / lc);
         if (t4 == 0) lse[(int64_t)bh * Sq + row] = m[r] * scale + logf(lc);
       }
     }
@@ -1040,21 +1297,26 @@ bool fwd_maps(const Args& a, int D, CUtensorMapDataType type, uint32_t q_rows,
 // bf16 (dtype 1) at D = 128: flash_fwd_wgmma_kernel; at D = 96, 80 and 100:
 // flash_fwd_wgmma96_kernel, flash_fwd_wgmma80_kernel and
 // flash_fwd_wgmma100_kernel (which takes the rows themselves, not maps), on
-// the same grid; at D = 64: flash_fwd_wgmma64_kernel, its grid with the q
-// tiles of one (batch, head) side by side. fp16 (dtype 2) at D = 128:
-// flash_fwd_wgmma_f16_kernel, on the D = 128 grid.
+// the same grid; at D = 256: flash_fwd_wgmma256_kernel, on that grid too; at
+// D = 64: flash_fwd_wgmma64_kernel, its grid with the q tiles of one (batch,
+// head) side by side. fp16 (dtype 2) at D = 128: flash_fwd_wgmma_f16_kernel,
+// on the D = 128 grid; at D = 64: flash_fwd_wgmma64_f16_kernel, on the D = 64
+// one.
 cudaError_t launch_wgmma(const Args& a, int D, int dtype) {
   static const cudaError_t attr128 = allow_smem(flash_fwd_wgmma_kernel, W_SMEM);
   static const cudaError_t attr96 = allow_smem(flash_fwd_wgmma96_kernel, W_SMEM);
   static const cudaError_t attr80 = allow_smem(flash_fwd_wgmma80_kernel, W_SMEM);
   static const cudaError_t attr100 = allow_smem(flash_fwd_wgmma100_kernel, W_SMEM);
+  static const cudaError_t attr256 = allow_smem(flash_fwd_wgmma256_kernel, G_SMEM);
   static const cudaError_t attr64 = allow_smem(flash_fwd_wgmma64_kernel, F_SMEM);
+  static const cudaError_t attr64_f16 = allow_smem(flash_fwd_wgmma64_f16_kernel, F_SMEM);
   static const cudaError_t attr_f16 = allow_smem(flash_fwd_wgmma_f16_kernel, W_SMEM);
-  const cudaError_t attr = dtype == 2   ? attr_f16
+  const cudaError_t attr = dtype == 2  ? (D == 64 ? attr64_f16 : attr_f16)
                            : D == 64   ? attr64
                            : D == 80   ? attr80
                            : D == 96   ? attr96
                            : D == 100  ? attr100
+                           : D == 256  ? attr256
                                        : attr128;
   if (attr != cudaSuccess) return attr;
   const dim3 grid(a.B * a.H, (a.Sq + W_BQ - 1) / W_BQ);
@@ -1068,22 +1330,31 @@ cudaError_t launch_wgmma(const Args& a, int D, int dtype) {
     return cudaGetLastError();
   }
   CUtensorMap maps[3];
-  if (dtype == 2) {
-    if (!fwd_maps(a, D, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, W_BQ, W_BK, maps))
-      return cudaErrorInvalidValue;
+  const CUtensorMapDataType type =
+      dtype == 2 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  if (D == 64) {
+    if (!fwd_maps(a, D, type, F_BQ, F_BK, maps)) return cudaErrorInvalidValue;
+    const dim3 grid64((a.Sq + F_BQ - 1) / F_BQ, a.B * a.H);
+    if (dtype == 2)
+      flash_fwd_wgmma64_f16_kernel<<<grid64, (F_CONS + 1) * WG_THREADS, F_SMEM, a.stream>>>(
+          maps[0], maps[1], maps[2], (__half*)a.o, (float*)a.lse, a.H, a.KvH, a.Sq, a.Sk,
+          a.causal, a.window, a.scale);
+    else
+      flash_fwd_wgmma64_kernel<<<grid64, (F_CONS + 1) * WG_THREADS, F_SMEM, a.stream>>>(
+          maps[0], maps[1], maps[2], (__nv_bfloat16*)a.o, (float*)a.lse, a.H, a.KvH,
+          a.Sq, a.Sk, a.causal, a.window, a.scale);
+  } else if (dtype == 2) {
+    if (!fwd_maps(a, D, type, W_BQ, W_BK, maps)) return cudaErrorInvalidValue;
     flash_fwd_wgmma_f16_kernel<<<grid, 3 * WG_THREADS, W_SMEM, a.stream>>>(
         maps[0], maps[1], maps[2], (__half*)a.o, (float*)a.lse, a.H, a.KvH, a.Sq, a.Sk,
         a.causal, a.window, a.scale);
-  } else if (D == 64) {
-    if (!fwd_maps(a, D, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, F_BQ, F_BK, maps))
-      return cudaErrorInvalidValue;
-    const dim3 grid64((a.Sq + F_BQ - 1) / F_BQ, a.B * a.H);
-    flash_fwd_wgmma64_kernel<<<grid64, (F_CONS + 1) * WG_THREADS, F_SMEM, a.stream>>>(
+  } else if (D == 256) {
+    if (!fwd_maps(a, D, type, W_BQ, G_BK, maps)) return cudaErrorInvalidValue;
+    flash_fwd_wgmma256_kernel<<<grid, 3 * WG_THREADS, G_SMEM, a.stream>>>(
         maps[0], maps[1], maps[2], (__nv_bfloat16*)a.o, (float*)a.lse, a.H, a.KvH,
         a.Sq, a.Sk, a.causal, a.window, a.scale);
   } else {
-    if (!fwd_maps(a, D, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, W_BQ, W_BK, maps))
-      return cudaErrorInvalidValue;
+    if (!fwd_maps(a, D, type, W_BQ, W_BK, maps)) return cudaErrorInvalidValue;
     auto kernel = D == 96   ? flash_fwd_wgmma96_kernel
                   : D == 80 ? flash_fwd_wgmma80_kernel
                             : flash_fwd_wgmma_kernel;
@@ -1135,8 +1406,8 @@ struct Mma {
 // window. route: 0 = simt (any dtype, D from 1 to 512), 1 = mma (bf16 or
 // fp16, D a multiple of 8 up to 256, 16-byte aligned bases, strides that
 // are multiples of 8), 2 = wgmma (as mma, and Sk > 0, with bf16 at D = 64,
-// 80, 96 or 128 and fp16 at D = 128; or bf16 at D = 100 with 8-byte aligned
-// bases and strides that are multiples of 4). The simt and mma kernels run at
+// 80, 96, 128 or 256 and fp16 at D = 64 or 128; or bf16 at D = 100 with
+// 8-byte aligned bases and strides that are multiples of 4). The simt and mma kernels run at
 // the padded width of D (padded_dim), the wgmma kernels at D itself. A route that cannot take the
 // inputs returns cudaErrorInvalidValue and launches nothing. Returns the
 // launch's cudaError_t (0 on success).
@@ -1168,8 +1439,9 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
       if (dtype == 2) return (int)at_padded_dim<__half, Mma>(a);
       return (int)cudaErrorInvalidValue;
     case 2: {
-      const bool has_d = dtype == 1 ? D == 64 || D == 80 || D == 96 || D == 100 || D == 128
-                                    : dtype == 2 && D == 128;
+      const bool has_d = dtype == 1 ? D == 64 || D == 80 || D == 96 || D == 100 || D == 128 ||
+                                          D == 256
+                                    : dtype == 2 && (D == 64 || D == 128);
       // the D = 100 kernel copies its 200-byte rows in 8-byte pieces
       const bool rows_ok = D == 100 ? rows_aligned(ptrs, 3, st, 9, D, 8) : aligned;
       if (!has_d || !rows_ok || Sk <= 0) return (int)cudaErrorInvalidValue;

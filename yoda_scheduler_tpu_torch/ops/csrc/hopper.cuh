@@ -3,9 +3,9 @@
 // the 128-byte swizzle, the wgmma fences and groups, setmaxnreg, and the bf16
 // wgmma m64n128k16 and m64n64k16, each in its SS (both operands in shared
 // memory) and RS (A in registers) forms, and m64n80k16, m64n96k16 and
-// m64n104k16 in the RS form; m64n128k16 takes fp16 operands too, in both
-// forms, and m64n64k16 in the SS form. Last, 8-byte cp.async copies of rows
-// TMA cannot read into the same swizzled layout.
+// m64n104k16 in the RS form; m64n128k16 and m64n64k16 take fp16 operands
+// too, in both forms. Last, 8-byte cp.async copies of rows TMA cannot read
+// into the same swizzled layout.
 //
 // The layout they assume. A tile row of 64 bf16 or fp16 (128 bytes) is one line of
 // the 128-byte swizzle: TMA with CU_TENSOR_MAP_SWIZZLE_128B stores the 16-byte
@@ -15,12 +15,14 @@
 // one tile of R rows lie R * 128 bytes apart (16 KB for 128 rows, 8 KB for 64).
 // A 96-wide row (head_dim 96) keeps that layout: its second box reads columns
 // 64-127 of a tensor 96 wide, and TMA fills columns 96-127 with zeros; so do
-// 80-wide rows, and 100-wide ones copied by `cp_async_rows`.
+// 80-wide rows, and 100-wide ones copied by `cp_async_rows`. A 256-wide row
+// (head dim 256) arrives as four such boxes, R * 128 bytes apart.
 //
 // tests/test_torch_cuda.py holds these pieces against torch on the card
 // (csrc/hopper_check.cu: one TMA tile against a slice copy, SS and RS
-// products of 128- and 64-row tiles, in bf16, and at m64n128k16 and SS
-// m64n64k16 in fp16, against torch.matmul; rows of 100 copied by cp.async
+// products of 128- and 64-row tiles, in bf16, and at m64n128k16 and
+// m64n64k16 in fp16, against torch.matmul; a 64-row V 256 wide in four
+// boxes read as two RS m64n128k16 products; rows of 100 copied by cp.async
 // into 128- and 64-row tiles and read back through wgmma). ops/_build.py
 // hashes every .cuh in csrc/ into each kernel's library name.
 
@@ -260,17 +262,23 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da,
 
 // The same with A from registers, in the RS form's layout above (the
 // columns 16 s .. 16 s + 15 of an m64n64 or m64n128 accumulator, rounded to
-// bf16, are A's k-step s).
-template <int TB>
+// T, are A's k-step s); T operands, bf16 or fp16.
+#define HOPPER_RS64(TY)                                                  \
+  asm volatile(                                                          \
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"                     \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " HOPPER_D32 \
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"                    \
+      : HOPPER_D32_OPS(d)                                                \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), \
+        "n"(TB))
+template <int TB, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
                                                    uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_D32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : HOPPER_D32_OPS(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
-        "n"(TB));
+  if constexpr (std::is_same<T, __half>::value) {
+    HOPPER_RS64("f16");
+  } else {
+    HOPPER_RS64("bf16");
+  }
 }
 
 #define HOPPER_D48 \
@@ -370,6 +378,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
 
 #undef HOPPER_SS128
 #undef HOPPER_SS64
+#undef HOPPER_RS64
 #undef HOPPER_RS128
 #undef HOPPER_D64
 #undef HOPPER_D64_OPS

@@ -35,7 +35,17 @@
 //   hopper_wgmma_rs on fp16 operands (the .f16 instructions over FLOAT16
 //   maps), as flash_fwd.cu's fp16 Q K^T and P V;
 // - hopper_wgmma_ss64_f16: hopper_wgmma_ss64 on fp16 operands, as
-//   flash_bwd.cu's fp16 S^T = K Q^T, dP^T = V dO^T, S = Q K^T and dP = dO V^T.
+//   flash_bwd.cu's fp16 S^T = K Q^T, dP^T = V dO^T, S = Q K^T and dP = dO V^T;
+// - hopper_wgmma_rs64_f16: P [64, 128] from registers times V [128, 64], V
+//   one MN-major box, with the fp16 m64n64k16 RS form, as
+//   flash_fwd_wgmma64_f16_kernel's P V;
+// - hopper_wgmma_ss256: rows [a_row0, a_row0 + 64) of A [128, 256] times
+//   B^T, B [64, 256], each row in four 64-column boxes (A's 16 KB apart, B's
+//   8 KB), with 16 SS m64n64k16 k-steps, as flash_fwd_wgmma256_kernel's
+//   Q K^T;
+// - hopper_wgmma_rs256: P [64, 64] from registers times V [64, 256], V in
+//   four MN-major 64-row boxes 8 KB apart, as two RS m64n128k16 products
+//   over its column halves, as flash_fwd_wgmma256_kernel's P V.
 // Each launches one block of one warpgroup; run them first after a change to
 // hopper.cuh or to a kernel's descriptors.
 
@@ -400,6 +410,138 @@ __global__ void __launch_bounds__(128) cp_async_tile64_kernel(
   store_acc<104>(o, out_o);
 }
 
+// P [64, 128] (fp16) times V [128, 64] (fp16, one 128-row box): m64n64k16 RS
+__global__ void __launch_bounds__(128) wgmma_rs64_f16_kernel(
+    const __half* __restrict__ p, const __grid_constant__ CUtensorMap map_v, float* out) {
+  extern __shared__ unsigned char raw[];
+  unsigned char* sV = aligned_smem(raw);
+  __shared__ uint64_t bar;
+  if (threadIdx.x == 0) {
+    mbar_init(&bar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_arrive_expect_tx(&bar, HALF);
+    tma_load_4d(sV, &map_v, &bar, 0, 0, 0, 0);
+  }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  uint32_t pa[8][4];
+  const __half* prow = p + (16 * warp + g) * 128 + 2 * t;
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+    pa[jj][0] = ld_pair(prow + 16 * jj);
+    pa[jj][1] = ld_pair(prow + 8 * 128 + 16 * jj);
+    pa[jj][2] = ld_pair(prow + 16 * jj + 8);
+    pa[jj][3] = ld_pair(prow + 8 * 128 + 16 * jj + 8);
+  }
+  mbar_wait(&bar, 0);
+  float d[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) d[i] = 0.f;
+  const uint64_t dv = desc_mnmajor(sV, HALF);
+  fence_regs(d);
+  wgmma_fence();
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) wgmma_m64n64k16_rs<1, __half>(d, pa[jj], dv + jj * 128, 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(d);
+  store_acc<64>(d, out);
+}
+
+// rows [a_row0, a_row0 + 64) of A [128, 256] times B^T, B [64, 256]: each
+// row four 64-column boxes, A's 16 KB apart and B's 8 KB
+__global__ void __launch_bounds__(128) wgmma_ss256_kernel(
+    const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
+    int a_row0, float* out) {
+  extern __shared__ unsigned char raw[];
+  unsigned char* sA = aligned_smem(raw);
+  unsigned char* sB = sA + 4 * HALF;
+  __shared__ uint64_t bar;
+  if (threadIdx.x == 0) {
+    mbar_init(&bar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_arrive_expect_tx(&bar, 4 * HALF + 4 * HALF64);
+    for (int c = 0; c < 4; ++c) {
+      tma_load_4d(sA + HALF * c, &map_a, &bar, 64 * c, 0, 0, 0);
+      tma_load_4d(sB + HALF64 * c, &map_b, &bar, 64 * c, 0, 0, 0);
+    }
+  }
+  mbar_wait(&bar, 0);
+  float d[32];
+  const uint64_t da = desc_kmajor(sA + 128 * a_row0), db = desc_kmajor(sB);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 16; ++kk)
+    wgmma_m64n64k16_ss<0, 0>(d, da + (((kk / 4) * HALF + (kk % 4) * 32) >> 4),
+                             db + (((kk / 4) * HALF64 + (kk % 4) * 32) >> 4), kk > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(d);
+  store_acc<64>(d, out);
+}
+
+// P [64, 64] times V [64, 256], V four 64-row MN-major boxes 8 KB apart:
+// two RS m64n128k16 products over its column halves, 16 KB apart
+__global__ void __launch_bounds__(128) wgmma_rs256_kernel(
+    const __nv_bfloat16* __restrict__ p, const __grid_constant__ CUtensorMap map_v,
+    float* out) {
+  extern __shared__ unsigned char raw[];
+  unsigned char* sV = aligned_smem(raw);
+  __shared__ uint64_t bar;
+  if (threadIdx.x == 0) {
+    mbar_init(&bar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_arrive_expect_tx(&bar, 4 * HALF64);
+    for (int c = 0; c < 4; ++c) tma_load_4d(sV + HALF64 * c, &map_v, &bar, 64 * c, 0, 0, 0);
+  }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  uint32_t pa[4][4];
+  const __nv_bfloat16* prow = p + (16 * warp + g) * 64 + 2 * t;
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) {
+    pa[jj][0] = ld_pair(prow + 16 * jj);
+    pa[jj][1] = ld_pair(prow + 8 * 64 + 16 * jj);
+    pa[jj][2] = ld_pair(prow + 16 * jj + 8);
+    pa[jj][3] = ld_pair(prow + 8 * 64 + 16 * jj + 8);
+  }
+  mbar_wait(&bar, 0);
+  float d[2][64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) d[0][i] = d[1][i] = 0.f;
+  const uint64_t dv = desc_mnmajor(sV, HALF64);
+  fence_regs(d[0]);
+  fence_regs(d[1]);
+  wgmma_fence();
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) {
+    wgmma_m64n128k16_rs<1>(d[0], pa[jj], dv + ((jj * 2048) >> 4), 1);
+    wgmma_m64n128k16_rs<1>(d[1], pa[jj], dv + ((2 * HALF64 + jj * 2048) >> 4), 1);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(d[0]);
+  fence_regs(d[1]);
+  // the two halves as columns 0-127 and 128-255 of a row-major [64, 256]
+  const int row = 16 * warp + g;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        out[(row + 8 * (e >> 1)) * 256 + 128 * hf + 8 * j + 2 * t + (e & 1)] = d[hf][4 * j + e];
+}
+
 // P [64, rows] times V [rows, N] (rows 64 or 128) through wgmma_rs_n_kernel
 template <int N>
 int wgmma_rs_n(const void* p, const void* v, int rows, void* out, void* stream) {
@@ -603,5 +745,53 @@ extern "C" int hopper_cp_async_tile64(const void* a, const void* b, const void* 
   cp_async_tile64_kernel<<<1, 128, smem, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)a, (const __nv_bfloat16*)b, (const __nv_bfloat16*)c, ss, S, row0,
       a_row0, (const __nv_bfloat16*)p, (float*)out_s, (float*)out_o);
+  return (int)cudaGetLastError();
+}
+
+
+// p: [64, 128], v: [128, 64] fp16 contiguous; out: [64, 64] fp32 = p @ v
+extern "C" int hopper_wgmma_rs64_f16(const void* p, const void* v, void* out, void* stream) {
+  const int64_t dims[4] = {64, 128, 1, 1};
+  const int64_t strides[3] = {64, 64 * 128, 64 * 128};
+  CUtensorMap map_v;
+  if (!make_map_4d(&map_v, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, v, dims, strides, 128))
+    return (int)cudaErrorInvalidValue;
+  constexpr int smem = HALF + 1024;
+  wgmma_rs64_f16_kernel<<<1, 128, smem, (cudaStream_t)stream>>>((const __half*)p, map_v,
+                                                               (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// a: [128, 256], b: [64, 256] bf16 contiguous; out: [64, 64] fp32 =
+// a[a_row0 : a_row0 + 64] @ b^T
+extern "C" int hopper_wgmma_ss256(const void* a, const void* b, int a_row0, void* out,
+                                  void* stream) {
+  const int64_t dims_a[4] = {256, 128, 1, 1}, dims_b[4] = {256, 64, 1, 1};
+  const int64_t strides_a[3] = {256, 256 * 128, 256 * 128};
+  const int64_t strides_b[3] = {256, 256 * 64, 256 * 64};
+  CUtensorMap map_a, map_b;
+  if ((a_row0 != 0 && a_row0 != 64) ||
+      !make_map_4d(&map_a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a, dims_a, strides_a, 128) ||
+      !make_map_4d(&map_b, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, b, dims_b, strides_b, 64))
+    return (int)cudaErrorInvalidValue;
+  constexpr int smem = 4 * HALF + 4 * HALF64 + 1024;
+  cudaError_t err = cudaFuncSetAttribute(
+      wgmma_ss256_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  wgmma_ss256_kernel<<<1, 128, smem, (cudaStream_t)stream>>>(map_a, map_b, a_row0,
+                                                            (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// p: [64, 64], v: [64, 256] bf16 contiguous; out: [64, 256] fp32 = p @ v
+extern "C" int hopper_wgmma_rs256(const void* p, const void* v, void* out, void* stream) {
+  const int64_t dims[4] = {256, 64, 1, 1};
+  const int64_t strides[3] = {256, 256 * 64, 256 * 64};
+  CUtensorMap map_v;
+  if (!make_map_4d(&map_v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, v, dims, strides, 64))
+    return (int)cudaErrorInvalidValue;
+  constexpr int smem = 4 * HALF64 + 1024;
+  wgmma_rs256_kernel<<<1, 128, smem, (cudaStream_t)stream>>>((const __nv_bfloat16*)p, map_v,
+                                                            (float*)out);
   return (int)cudaGetLastError();
 }

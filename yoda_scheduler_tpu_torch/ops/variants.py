@@ -1,8 +1,8 @@
 """Time variants of a flash kernel's source against each other on one card,
 in turns (A, B, ..., B, A), at the main path's shapes.
 
-    python3 -m yoda_scheduler_tpu_torch.ops.variants fwd|bwd [--probe] [--head-dim 64|96|100] \\
-        [--dtype float16] [--route mma] A.cu B.cu ...
+    python3 -m yoda_scheduler_tpu_torch.ops.variants fwd|bwd [--probe] \\
+        [--head-dim 64|96|100|256] [--dtype float16] [--route mma] A.cu B.cu ...
 
 Each argument is a copy of `csrc/flash_fwd.cu` (fwd) or `csrc/flash_bwd.cu`
 (bwd) with a change (an earlier commit's copy with its own headers beside
@@ -10,7 +10,7 @@ it, too), or "cur" for the package's own, built with the package's nvcc
 flags into `build/variants/`; each build's nvcc seconds are printed. fwd
 launches `attention.flash_fwd` on its automatic route; bwd launches
 `attention.flash_bwd_dq` and `attention.flash_bwd_dkv` on theirs (wgmma at
-head dims 64, 96, 100 and 128 in bf16, and 128 in fp16) and first prints
+head dims 64, 96, 100 and 128 in bf16, and 128 in fp16); both first print
 ptxas's registers and spills of each variant's wgmma kernels with its
 performance notes. `--route mma` launches both kinds on the mma route
 instead. Every launch is checked against the
@@ -28,14 +28,18 @@ and `flash_bwd_dkv_wgmma96_kernel`; `--head-dim 100` those of `SHAPES_100`
 (OpenLLaMA-3B's attention, 32 heads of 100, as its model gives it: half of
 its heads' rows start 8 bytes off a 16-byte boundary), where the three
 kernels run `flash_fwd_wgmma100_kernel`, `flash_bwd_dq_wgmma100_kernel` and
-`flash_bwd_dkv_wgmma100_kernel`. `--dtype float16` takes `SHAPES` in fp16
-at head dim 128 (`fp16_main` first: Llama-2-7B's attention in the dtype of
-its published weights), where the three kernels run
-`flash_fwd_wgmma_f16_kernel`, `flash_bwd_dq_wgmma_f16_kernel` and
-`flash_bwd_dkv_wgmma_f16_kernel`; each launch is held to fp16's bounds, the
-bf16 ones over 8 (a variant without an fp16 wgmma kernel takes `--route
-mma`). Prints the card's name and power limit, then one JSON line per
-shape.
+`flash_bwd_dkv_wgmma100_kernel`; `--head-dim 256` those of `SHAPES_256`
+(Gemma-2B's attention, 8 heads of 256 over one, as its model gives it),
+where the forward runs `flash_fwd_wgmma256_kernel` (the backward kernels
+mma). `--dtype float16` takes `SHAPES` in fp16 at head dim 128
+(`fp16_main` first: Llama-2-7B's attention in the dtype of its published
+weights), where the three kernels run `flash_fwd_wgmma_f16_kernel`,
+`flash_bwd_dq_wgmma_f16_kernel` and `flash_bwd_dkv_wgmma_f16_kernel`, and
+with `--head-dim 64` those of `SHAPES_F16_64` (OPT-1.3B's attention, 32
+heads of 64, first), where the forward runs `flash_fwd_wgmma64_f16_kernel`
+(the backward kernels mma); each launch is held to fp16's bounds, the bf16
+ones over 8 (a variant without an fp16 wgmma kernel takes `--route mma`).
+Prints the card's name and power limit, then one JSON line per shape.
 """
 
 from __future__ import annotations
@@ -85,12 +89,31 @@ SHAPES_100 = [
     ("window_d100", 1, 32, 32, 2048, 2048, True, 512),
     ("ragged_d100", 2, 8, 4, 300, 300, True, None),
 ]
-SHAPES_BY_DIM = {128: SHAPES, 64: SHAPES_64, 96: SHAPES_96, 100: SHAPES_100}
-# fp16 at head dim 128: SHAPES, contiguous
+# head dim 256: Gemma-2B's attention (8 heads over one KV head, S=2048) and
+# Gemma-7B's (16 over 16), as SHAPES_64
+SHAPES_256 = [
+    ("gemma_d256", 1, 8, 1, 2048, 2048, True, None),
+    ("gemma7b_d256", 1, 16, 16, 2048, 2048, True, None),
+    ("window_d256", 1, 8, 1, 2048, 2048, True, 512),
+    ("ragged_d256", 2, 8, 1, 300, 300, True, None),
+]
+SHAPES_BY_DIM = {128: SHAPES, 64: SHAPES_64, 96: SHAPES_96, 100: SHAPES_100,
+                 256: SHAPES_256}
+# fp16 at head dim 128: SHAPES, contiguous; at 64: OPT-1.3B's attention (32
+# heads of 64, S=2048) and bench_mfu's d1024 widths, as SHAPES_64
 SHAPES_F16 = [(f"fp16_{name}", *shape) for name, *shape in SHAPES]
+SHAPES_F16_64 = [
+    ("opt13b_d64_bshd", 1, 32, 32, 2048, 2048, True, None),
+    ("fp16_d1024_bshd", 8, 16, 16, 2048, 2048, True, None),
+    ("fp16_window_d64", 1, 16, 16, 2048, 2048, True, 512),
+    ("fp16_ragged_d64", 2, 8, 4, 300, 300, True, None),
+]
+SHAPES_F16_BY_DIM = {128: SHAPES_F16, 64: SHAPES_F16_64}
 PROBE = ("main", "window_512", "ragged_300", "d1024_bshd", "window_d64", "ragged_d64",
          "phi3_d96_bshd", "window_d96", "ragged_d96", "d100_bshd", "window_d100",
-         "ragged_d100", "fp16_main", "fp16_window_512", "fp16_ragged_300")
+         "ragged_d100", "fp16_main", "fp16_window_512", "fp16_ragged_300", "gemma_d256",
+         "window_d256", "ragged_d256", "opt13b_d64_bshd", "fp16_window_d64",
+         "fp16_ragged_d64")
 # the largest tile_rel_l2 of a bf16 backward output against the plain
 # backward: sound kernels read below 4e-3 on an H100 (they round P and dS
 # where the plain backward does, and differ in the order of fp32 sums); a
@@ -169,8 +192,8 @@ def time_ms(fn, iters: int = 50) -> float:
 
 def _randn(gen, d, dtype, *shapes):
     """Normals of `shapes` ([B, H, S, D]) in `dtype`: contiguous at head dim
-    128, at 64, 96 and 100 the model's transposed views of a contiguous [B,
-    S, H, D]."""
+    128, at 64, 96, 100 and 256 the model's transposed views of a contiguous
+    [B, S, H, D]."""
     if d == 128:
         return [torch.randn(s, generator=gen, device="cuda").to(dtype) for s in shapes]
     return [torch.randn((b, s, h, d_), generator=gen, device="cuda").to(dtype)
@@ -251,7 +274,8 @@ def main(argv: list[str]) -> int:
         route, argv = argv[1], argv[2:]
     variants = argv
     if (kind not in KINDS or d not in SHAPES_BY_DIM or route not in (None, "mma")
-            or dtype not in ("bfloat16", "float16") or (dtype == "float16" and d != 128)
+            or dtype not in ("bfloat16", "float16")
+            or (dtype == "float16" and d not in SHAPES_F16_BY_DIM)
             or not torch.cuda.is_available() or not variants):
         print(__doc__, file=sys.stderr)
         return 1
@@ -260,8 +284,7 @@ def main(argv: list[str]) -> int:
     libs = {}
     for v in variants:
         libs[v], log, seconds = _load(kind, v)
-        print(json.dumps({"variant": v, "nvcc_s": seconds,
-                          **({"ptxas": wgmma_ptxas(log)} if kind == "bwd" else {})}),
+        print(json.dumps({"variant": v, "nvcc_s": seconds, "ptxas": wgmma_ptxas(log)}),
               flush=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -270,7 +293,7 @@ def main(argv: list[str]) -> int:
     order = variants if probe else variants + variants[::-1]
     ok_all = True
     try:
-        shapes = SHAPES_F16 if dtype == "float16" else SHAPES_BY_DIM[d]
+        shapes = SHAPES_F16_BY_DIM[d] if dtype == "float16" else SHAPES_BY_DIM[d]
         for name, *shape in shapes:
             if probe and name not in PROBE:
                 continue

@@ -1,5 +1,6 @@
 """Where the time goes on the port's path, at Phi-3-mini, Llama-2-7B,
-Mixtral-8x7B, OpenLLaMA-3B and StableLM-3B-4E1T widths on one GPU.
+Mixtral-8x7B, OpenLLaMA-3B, StableLM-3B-4E1T, Gemma-2B and OPT-1.3B widths
+on one GPU.
 
     python3 -m yoda_scheduler_tpu_torch.profile_path
 
@@ -24,7 +25,10 @@ kernel and on the route it took before (simt at 100, mma at 80), and one
 OpenLLaMA-3B training step (all 26 layers, B=1, S=2048, remat, AdamW) with
 dQ and dK/dV on their head-dim-100 wgmma kernels and one on simt
 (`d100_backward_on_simt`; `openllama3b_train_windows()` traces those two
-steps alone). For each traced window it prints one JSON line: the host
+steps alone); then one `llama_forward` at Gemma-2B's widths (head dim 256,
+bf16) and one at OPT-1.3B's (64, fp16), B=1, S=2048, each with flash_fwd on
+its wgmma kernel and on mma, as before it (`gemma_opt_forward_windows()`
+traces those four alone). For each traced window it prints one JSON line: the host
 wall time, the device's busy time (the union of kernel intervals) and idle
 share, the kernel launches,
 the device time grouped into conv / matmul / flash_fwd / flash_bwd_dq /
@@ -110,6 +114,33 @@ def stablelm_3b_4e1t() -> LlamaConfig:
     return LlamaConfig(vocab_size=50304, dim=2560, n_layers=32, n_heads=32,
                        n_kv_heads=32, ffn_dim=6912, rope_theta=10000.0,
                        norm_eps=1e-5, max_seq_len=4096, dtype="bfloat16")
+
+
+def gemma_2b() -> LlamaConfig:
+    """Gemma-2B's widths, from the published google/gemma-2b config.json:
+    hidden 2048, 18 layers, 8 query heads and 1 KV head of 256 (2048 / 8,
+    so no head-dim field is needed), intermediate 16384, vocab 256000,
+    rms_norm_eps 1e-6, rope_theta 10000, 8192 positions; bf16, the weights
+    random from a seed: about 3.0 B parameters, 6.1 GB. These are its widths
+    on the Llama block, as `phi3_mini` is Phi-3's: its GeGLU (a GELU gate
+    where the block has SiLU), the sqrt(hidden) scale of the embeddings,
+    the tied embedding and output weights (two matrices here) and its
+    (1 + w) RMSNorm weights are not modelled."""
+    return LlamaConfig(vocab_size=256000, dim=2048, n_layers=18, n_heads=8,
+                       n_kv_heads=1, ffn_dim=16384, rope_theta=10000.0,
+                       norm_eps=1e-6, max_seq_len=8192, dtype="bfloat16")
+
+
+def opt_1_3b() -> LlamaConfig:
+    """OPT-1.3B's widths, from the published facebook/opt-1.3b config.json:
+    hidden 2048, 24 layers, 32 heads of 64 (query and KV alike), FFN 8192,
+    vocab 50272, 2048 positions, in its published torch_dtype, fp16; the
+    weights random from a seed: about 1.8 B parameters, 3.6 GB. Its
+    LayerNorm, learned positions (rotary here), two-matrix ReLU FFN (three
+    matrices and SiLU here) and biases are not modelled."""
+    return LlamaConfig(vocab_size=50272, dim=2048, n_layers=24, n_heads=32,
+                       n_kv_heads=32, ffn_dim=8192, rope_theta=10000.0,
+                       norm_eps=1e-5, max_seq_len=2048, dtype="float16")
 
 
 def _group(name: str) -> str:
@@ -253,6 +284,19 @@ def d80_forward_on_mma():
     return _off_wgmma(lambda key, d: key[0] == "flash_fwd" and d == 80)
 
 
+def d256_forward_on_mma():
+    """Within it, the forward at head dim 256 takes the mma route, as before
+    its wgmma kernel; the backward there is on mma either way."""
+    return _off_wgmma(lambda key, d: key[0] == "flash_fwd" and d == 256)
+
+
+def fp16_d64_forward_on_mma():
+    """Within it, the fp16 forward at head dim 64 takes the mma route, as
+    before its wgmma kernel; the fp16 backward there is on mma either way,
+    and bf16 at 64 keeps its wgmma kernels."""
+    return _off_wgmma(lambda key, d: key == ("flash_fwd", torch.float16) and d == 64)
+
+
 def d100_forward_on_simt():
     """Within it, the forward at head dim 100 takes the simt route, as before
     its wgmma kernel (no mma kernel takes 200-byte rows)."""
@@ -305,25 +349,41 @@ def phi3_train_windows(steps: int = 8) -> list[dict]:
     return reports
 
 
-def new_width_forward_windows() -> list[dict]:
-    """At OpenLLaMA-3B's widths (head dim 100) and StableLM-3B-4E1T's (80),
-    B=1, S=2048: one traced `llama_forward` with flash_fwd on its wgmma
-    kernel and one on the route it took before (simt at 100, mma at 80)."""
+def _forward_windows(cases) -> list[dict]:
+    """For each (config, old route's name, its route set): one traced
+    `llama_forward` (B=1, S=2048) with flash_fwd on its wgmma kernel and one
+    on the old route, the weights freed after each config."""
     reports = []
-    for cfg, old_name, old in ((openllama_3b(), "simt", d100_forward_on_simt),
-                               (stablelm_3b_4e1t(), "mma", d80_forward_on_mma)):
+    for cfg, old_name, old in cases:
         params = init_llama(cfg, seed=0, device="cuda")
         gen = torch.Generator(device="cuda").manual_seed(1)
         tokens = torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen, device="cuda")
+        dtype = "" if cfg.dtype == "bfloat16" else "_fp16"
         with torch.no_grad():
             for name, routes in (("wgmma", contextlib.nullcontext), (old_name, old)):
                 with routes():
                     reports.append(trace(
-                        f"forward_d{cfg.head_dim}_{cfg.n_layers}_layers_b1_s2048_{name}",
+                        f"forward_d{cfg.head_dim}{dtype}_{cfg.n_layers}_layers_b1_s2048_{name}",
                         lambda _: llama_forward(params, tokens, cfg)))
         del params
         _free()
     return reports
+
+
+def new_width_forward_windows() -> list[dict]:
+    """At OpenLLaMA-3B's widths (head dim 100) and StableLM-3B-4E1T's (80),
+    B=1, S=2048: one traced `llama_forward` with flash_fwd on its wgmma
+    kernel and one on the route it took before (simt at 100, mma at 80)."""
+    return _forward_windows(((openllama_3b(), "simt", d100_forward_on_simt),
+                             (stablelm_3b_4e1t(), "mma", d80_forward_on_mma)))
+
+
+def gemma_opt_forward_windows() -> list[dict]:
+    """At Gemma-2B's widths (head dim 256, bf16) and OPT-1.3B's (64, fp16),
+    B=1, S=2048: one traced `llama_forward` with flash_fwd on its wgmma
+    kernel and one on mma, the route it took before."""
+    return _forward_windows(((gemma_2b(), "mma", d256_forward_on_mma),
+                             (opt_1_3b(), "mma", fp16_d64_forward_on_mma)))
 
 
 def openllama3b_train_windows() -> list[dict]:
@@ -409,6 +469,8 @@ def main() -> int:
     reports += new_width_forward_windows()
     _free()
     reports += openllama3b_train_windows()
+    _free()
+    reports += gemma_opt_forward_windows()
     out = Path(__file__).resolve().parents[1] / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "profile_path.json").write_text(json.dumps(
