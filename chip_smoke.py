@@ -7,7 +7,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 1. build: the card's name and power limit, and the CUDA kernels compiled
    from the sources in this checkout (nvcc, sm_90a, one process per source);
-   each of the eighteen wgmma kernels (`WGMMA_KERNELS`) without a spill or
+   each of the twenty wgmma kernels (`WGMMA_KERNELS`) without a spill or
    a serialised wgmma.
 2. kernel: the flash forward kernel against its plain version on the card,
    elementwise and by O's worst 64-row tile, at the main path's shape (also
@@ -28,9 +28,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
    dtypes of the padded simt and mma kernels
    (`WIDE_SHAPES`): Phi-3-mini's attention (32 heads of 96, S=2048; GQA 32/8
    and window 512 at 96; wgmma there), 80 (StableLM-3B's, also as its
-   model's views), Gemma-2B's 8 heads of 256 over one and Gemma-7B's 16
-   over 16 (with ragged, cross-length and non-causal rows at 256: the
-   forward on its wgmma kernel), 40 ragged, 100
+   model's views, with GQA 32/8, window 512, ragged, cross-length and
+   non-causal rows: every kernel on its wgmma kernel), Gemma-2B's 8 heads
+   of 256 over one and Gemma-7B's 16 over 16 (with ragged, cross-length
+   and non-causal rows at 256: the forward on its wgmma kernel), 40
+   ragged, 100
    (OpenLLaMA-3B's 200-byte rows, also as its model's views), the forward at
    80 and 100 on its wgmma kernels and timed in turns against its old route
    (mma at 80, simt at 100) at each of those four rows, and so at 256
@@ -55,10 +57,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
    kernel that takes them, each held against the plain backward and timed
    in turns (mma, wgmma, wgmma, mma), SDPA's backward after each turn; at
    d1024_bshd SDPA's backward under
-   its default and its flash backends; at head dim 100 (unaligned_d100,
-   d100_bshd) dQ and dK/dV on their wgmma kernels timed in turns against
-   simt (simt, wgmma, wgmma, simt), SDPA's backward under its flash backend
-   after each turn. Last two fp16 rows with a large LSE
+   its default and its flash backends; at head dims 80 (d80, d80_bshd) and
+   100 (unaligned_d100, d100_bshd) dQ and dK/dV on their wgmma kernels
+   timed in turns against their old route (mma at 80, simt at 100: old,
+   wgmma, wgmma, old), SDPA's backward after each turn under its default
+   backend (cuDNN) at 80 and its flash backend at 100; where they have no
+   wgmma kernel yet (gemma_d256, fp16_d1024_bshd, opt13b_d64_bshd), on mma
+   in four turns with SDPA's default backward after each. Last two fp16 rows with a large LSE
    cotangent (dO x1e-5, S=2048, head dim 128) through the kernels' autograd
    node, g_lse x1e3 of random sign and, with an attention sink at key 0,
    x100 of one sign: finite, and within twice the fp32 backward's own
@@ -114,6 +119,12 @@ After moe_train, head dims 96, 100 and 80, and fp16:
   head-dim-100 kernels; both also timed on the host's clock in turns
   against dQ and dK/dV on simt (`profile_path.d100_backward_on_simt`), the
   train step's turns after its 4 steps.
+- stablelm3b_gradient, stablelm3b_train: StableLM-3B-4E1T's widths as
+  gradient (4 layers: 8/4/4 launches) and train (all 32 layers, B=1,
+  S=2048, 64/32/32 launches a step), every flash launch on wgmma, dQ and
+  dK/dV on their head-dim-80 kernels; both also timed on the host's clock
+  in turns against dQ and dK/dV on mma (`profile_path.d80_backward_on_mma`),
+  the train step's turns after its 4 steps.
 
 - moe_forward: B=1, S=2048: 16 flash_fwd launches, all on the wgmma route;
   logits and routing against the forward through the plain attention, end
@@ -374,7 +385,7 @@ FP16_SINK_COTANGENT = dict(FP16_LSE_COTANGENT, g_lse_scale=100.0, sink=True)
 FP16_ROUNDING_FACTOR = 2.0
 BWD_G_LSE = {"gqa", "gqa_bshd", "cross_length", "ragged_300",  # shapes with a non-zero
              "gqa_d64", "ragged_d64", "gqa_d96", "gemma_d256",   # LSE cotangent
-             "ragged_d40"}
+             "ragged_d40", "gqa_d80", "ragged_d80"}
 # phase 6: relative L2 error of each leaf's gradient against the gradient
 # through the plain attention. The two round at different places in bf16:
 # autograd of the plain attention rounds the probabilities and their
@@ -655,7 +666,8 @@ WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_wgmma96_kernel",
                  "flash_bwd_dkv_wgmma96_kernel", "flash_bwd_dkv_wgmma64_kernel",
                  "flash_bwd_dq_wgmma_f16_kernel", "flash_bwd_dkv_wgmma_f16_kernel",
                  "flash_bwd_dq_wgmma100_kernel", "flash_bwd_dkv_wgmma100_kernel",
-                 "flash_fwd_wgmma256_kernel", "flash_fwd_wgmma64_f16_kernel")
+                 "flash_fwd_wgmma256_kernel", "flash_fwd_wgmma64_f16_kernel",
+                 "flash_bwd_dq_wgmma80_kernel", "flash_bwd_dkv_wgmma80_kernel")
 
 
 def phase_build(build):
@@ -749,11 +761,14 @@ SHAPES = [
     ("main_unaligned", 1, 32, 32, 2048, 2048, 128, True, None, torch.bfloat16,
      "offset1", "simt"),
     # head dims other than 32, 64 and 128, and fp16, on the simt and mma
-    # kernels at their padded widths (at 96 and 100, and fp16 at 128, on
-    # wgmma; at 80 the forward on wgmma, the backward on mma):
+    # kernels at their padded widths (at 80, 96 and 100, and fp16 at 128,
+    # on wgmma; at 256, and fp16 at 64, the forward on wgmma, the backward
+    # on mma):
     # Phi-3-mini's attention (32 heads of 96, S=2048) as the model
     # gives it and contiguous, with GQA 32/8 and a window; 80 (2560 / 32,
-    # StableLM-3B's and Phi-2's width), contiguous and as the model's views;
+    # StableLM-3B's and Phi-2's width), contiguous and as the model's views,
+    # with GQA 32/8, a window, a ragged sequence, cross-length and
+    # non-causal rows;
     # Gemma-2B's 8 query heads of 256 over one KV head; 40 on a ragged
     # sequence; 100 (OpenLLaMA-3B's), whose rows are not 16-byte aligned,
     # contiguous and as the model's views;
@@ -767,10 +782,17 @@ SHAPES = [
     ("gqa_d96", 1, 32, 8, 2048, 2048, 96, True, None, torch.bfloat16, "bshd", "wgmma"),
     ("window_d96", 1, 32, 32, 2048, 2048, 96, True, 512, torch.bfloat16, "bhsd",
      "wgmma"),
-    ("d80", 1, 32, 32, 2048, 2048, 80, True, None, torch.bfloat16, "bhsd",
-     ("wgmma", "mma")),
+    ("d80", 1, 32, 32, 2048, 2048, 80, True, None, torch.bfloat16, "bhsd", "wgmma"),
     ("d80_bshd", 1, 32, 32, 2048, 2048, 80, True, None, torch.bfloat16, "bshd",
-     ("wgmma", "mma")),  # StableLM-3B-4E1T's attention as its model gives it
+     "wgmma"),  # StableLM-3B-4E1T's attention as its model gives it
+    ("gqa_d80", 1, 32, 8, 2048, 2048, 80, True, None, torch.bfloat16, "bshd", "wgmma"),
+    ("window_d80", 1, 32, 32, 2048, 2048, 80, True, 512, torch.bfloat16, "bhsd",
+     "wgmma"),
+    ("ragged_d80", 2, 8, 4, 300, 300, 80, True, None, torch.bfloat16, "bshd", "wgmma"),
+    ("cross_length_d80", 1, 32, 32, 256, 1024, 80, True, None, torch.bfloat16, "bhsd",
+     "wgmma"),
+    ("non_causal_d80", 1, 32, 32, 1000, 1000, 80, False, None, torch.bfloat16, "bhsd",
+     "wgmma"),
     ("gemma_d256", 1, 8, 1, 2048, 2048, 256, True, None, torch.bfloat16, "bshd",
      ("wgmma", "mma")),  # Gemma-2B's attention as its model gives it
     # head dim 256 on the forward's wgmma kernel (the backward on mma):
@@ -818,15 +840,21 @@ TURN_SHAPES = ("main", "d1024_bshd", "phi3_d96_bshd", "fp16_main", "fp16_ragged_
 FWD_TURN_SHAPES = ("d80", "d80_bshd", "unaligned_d100", "d100_bshd", "gemma_d256",
                    "fp16_d1024_bshd")
 # dQ and dK/dV timed in turns against the route they took before their
-# wgmma kernels (simt at 100), SDPA's backward under its flash backend after
-# each turn
-BWD_TURN_SHAPES = ("unaligned_d100", "d100_bshd")
+# wgmma kernels (mma at 80, simt at 100), or where they have none yet (256,
+# fp16 at 64) on mma alone in four turns, with SDPA's whole backward after
+# each turn under the backend named here: its default (cuDNN), which the
+# padded-width queue's factors are read against, or at 100 its flash
+# backend
+BWD_TURN_SHAPES = {"d80": "default", "d80_bshd": "default", "unaligned_d100": "flash",
+                   "d100_bshd": "flash", "gemma_d256": "default",
+                   "fp16_d1024_bshd": "default", "opt13b_d64_bshd": "default"}
 D64_SHAPE = "d1024_bshd"  # the head-dim-64 row of the kernels line
 # the rows at the new head dims and fp16: every route `_routes` admits is
 # held against the plain version there, and SDPA's default backend is timed
 # where its inputs are bf16 or fp16 rows that are 16-byte aligned (cuDNN's
 # backward fails on the rows that start one element into their storage)
 WIDE_SHAPES = ("phi3_d96", "phi3_d96_bshd", "gqa_d96", "window_d96", "d80", "d80_bshd",
+               "gqa_d80", "window_d80", "ragged_d80", "cross_length_d80", "non_causal_d80",
                "gemma_d256", "gemma7b_d256", "ragged_d256", "cross_d256", "noncausal_d256",
                "ragged_d40", "unaligned_d100", "d100_bshd", "fp16_main",
                "fp16_main_bshd", "fp16_gqa_bshd",
@@ -844,10 +872,10 @@ REFUSED_HEAD_DIM = 520
 
 def shape_routes(route) -> dict:
     """Each kernel's route at a SHAPES row: `route` names one for all three
-    kernels (the wgmma route of each takes head dims 64, 96, 100 and 128 in
-    bf16, and 128 in fp16), or is a pair (the forward's, the backward
-    kernels'), as at 80 and 256 in bf16 and at 64 in fp16, where the
-    forward alone has a wgmma kernel."""
+    kernels (the wgmma route of each takes head dims 64, 80, 96, 100 and
+    128 in bf16, and 128 in fp16), or is a pair (the forward's, the backward
+    kernels'), as at 256 in bf16 and at 64 in fp16, where the forward alone
+    has a wgmma kernel."""
     fwd, bwd = (route, route) if isinstance(route, str) else route
     return {"flash_fwd": fwd, "flash_bwd_dq": bwd, "flash_bwd_dkv": bwd}
 
@@ -1153,21 +1181,25 @@ def phase_backward(attn, variants, tune):
                         turns[key][r].append(cuda_time_ms(lambda: fn(*args, route=r), 20))
                 library_turns.append(sdpa_backward_ms(tune, q, k, v, do, mask=mask))
         if name in BWD_TURN_SHAPES:
-            # both kernels against the route before their wgmma kernels, in
-            # turns, and SDPA's whole backward (flash backend) after each
-            old = taken["dq"][-2]
-            order = (old, "wgmma", "wgmma", old)
+            # both kernels against the route before their wgmma kernels (or,
+            # with none, their own route four times), in turns, and SDPA's
+            # whole backward after each under the row's backend
+            own = want["flash_bwd_dq"]
+            old = taken["dq"][-2] if own == "wgmma" else own
+            order = (old, own, own, old)
+            backend = BWD_TURN_SHAPES[name]
             turns = {key: {r: [] for r in order} for key in kernels}
             library_turns, library_error = [], None
             for r in order:
                 for key, fn in kernels.items():
                     turns[key][r].append(cuda_time_ms(lambda: fn(*args, route=r), 20))
                 ms, library_error = library_time(lambda: sdpa_backward_ms(
-                    tune, q, k, v, do, flash=True, mask=mask))
+                    tune, q, k, v, do, flash=backend == "flash", mask=mask))
                 library_turns.append(ms)
             turns["dq_plus_dkv"] = {r: [a + b for a, b in zip(turns["dq"][r], turns["dkv"][r])]
                                     for r in turns["dq"]}
-            turns["library_flash_error"] = library_error
+            turns["library_backend"] = backend
+            turns["library_error"] = library_error
         del runs, ref
         ms_dq = cuda_time_ms(lambda: attn.flash_bwd_dq(*args), 20)
         ms_dkv = cuda_time_ms(lambda: attn.flash_bwd_dkv(*args), 20)
@@ -3191,8 +3223,8 @@ def main() -> int:
     # and Phi-3-mini's, OpenLLaMA-3B's, StableLM-3B-4E1T's, Gemma-2B's and
     # OPT-1.3B's, from theirs
     from yoda_scheduler_tpu_torch.profile_path import (
-        d80_forward_on_mma, d100_backward_on_simt, d100_forward_on_simt,
-        d256_forward_on_mma, fp16_backward_on_mma, fp16_d64_forward_on_mma, gemma_2b,
+        d80_backward_on_mma, d80_forward_on_mma, d100_backward_on_simt,
+        d100_forward_on_simt, d256_forward_on_mma, fp16_backward_on_mma, fp16_d64_forward_on_mma, gemma_2b,
         mixtral_8x7b, openllama_3b, opt_1_3b, phi3_mini, stablelm_3b_4e1t)
 
     gen_mod = importlib.import_module("yoda_scheduler_tpu_torch.models.generate")
@@ -3270,6 +3302,15 @@ def main() -> int:
     openllama_step_routes = phase_train(attn, train, moe, openllama_3b(),
                                         phase="openllama3b_train",
                                         config="open_llama_3b widths", turns=d100_turns)[1]
+    # StableLM-3B-4E1T's gradient and train step: dQ and dK/dV on their
+    # head-dim-80 wgmma kernels, timed in turns against both on mma
+    d80_turns = {"wgmma": contextlib.nullcontext, "backward_on_mma": d80_backward_on_mma}
+    stablelm_grad_routes = phase_gradient(
+        attn, llama, train, stablelm_3b_4e1t(), phase="stablelm3b_gradient",
+        config="stablelm_3b_4e1t widths, 4 layers", turns=d80_turns)
+    stablelm_step_routes = phase_train(attn, train, moe, stablelm_3b_4e1t(),
+                                       phase="stablelm3b_train",
+                                       config="stablelm_3b_4e1t widths", turns=d80_turns)[1]
     free_memory()
     ring_launches = phase_ring(attn, ring, variants)
     ulysses_launches = phase_ulysses(attn, ulysses, variants)
@@ -3349,6 +3390,8 @@ def main() -> int:
                              **new_width_routes,
                              "openllama3b_gradient": openllama_grad_routes["flash_fwd"],
                              "openllama3b_train_step": openllama_step_routes["flash_fwd"],
+                             "stablelm3b_gradient": stablelm_grad_routes["flash_fwd"],
+                             "stablelm3b_train_step": stablelm_step_routes["flash_fwd"],
                              "tune_attention": tune_routes["flash_fwd"].get("wgmma", 0),
                              **{path: routes["flash_fwd"].get("wgmma", 0)
                                 for path, routes in bench_routes.items()}},
@@ -3377,6 +3420,8 @@ def main() -> int:
                              "fp16_gradient": fp16_grad_routes[name],
                              "openllama3b_gradient": openllama_grad_routes[name],
                              "openllama3b_train_step": openllama_step_routes[name],
+                             "stablelm3b_gradient": stablelm_grad_routes[name],
+                             "stablelm3b_train_step": stablelm_step_routes[name],
                              "tune_attention": tune_routes[name].get("wgmma", 0),
                              **{path: routes[name].get("wgmma", 0)
                                 for path, routes in bench_routes.items()

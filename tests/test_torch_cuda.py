@@ -487,11 +487,11 @@ def test_wgmma_route_matches_the_mma_route(gpu):
 
 def _bwd_inputs(gpu, case, layout, seed=0, d=128, dtype=torch.bfloat16):
     """q, k, v, dO of a WGMMA_SHAPES case (at head dim 128; WGMMA64_SHAPES
-    at 64 and 32, WGMMA96_SHAPES at 96, NEW_WIDTH_SHAPES at 100) in `layout`
-    and `dtype`, with the forward's O and LSE, a random LSE cotangent and
-    delta."""
-    shapes = {128: WGMMA_SHAPES, 96: WGMMA96_SHAPES, 100: NEW_WIDTH_SHAPES}.get(
-        d, WGMMA64_SHAPES)
+    at 64 and 32, WGMMA96_SHAPES at 96, NEW_WIDTH_SHAPES at 80 and 100) in
+    `layout` and `dtype`, with the forward's O and LSE, a random LSE
+    cotangent and delta."""
+    shapes = {128: WGMMA_SHAPES, 96: WGMMA96_SHAPES, 80: NEW_WIDTH_SHAPES,
+              100: NEW_WIDTH_SHAPES}.get(d, WGMMA64_SHAPES)
     (b, h, kvh, sq, sk), causal, window = shapes[case]
     q, k, v = _qkv(gpu, dtype, b, h, kvh, sq, sk, d, seed=seed)
     rng = np.random.default_rng(seed + 1)
@@ -861,6 +861,84 @@ def test_wgmma100_backward_refuses_fp16(gpu):
         assert (fn.launches, fn.launches_by_route) == before
 
 
+# the backward's wgmma kernels at head dim 80 (flash_bwd_dq_wgmma80_kernel,
+# flash_bwd_dkv_wgmma80_kernel: StableLM-3B-4E1T's attention), the D = 96
+# bodies at 80 with TMA-fed 160-byte rows, at NEW_WIDTH_SHAPES (the model's
+# shape, GQA 32/8, window 512, ragged, cross-length and non-causal),
+# contiguous and as the model's views
+@pytest.mark.parametrize("case", list(NEW_WIDTH_SHAPES))
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+def test_wgmma80_backward_matches_the_plain_backward(gpu, case, layout):
+    """dQ and dK/dV on wgmma, as `_route` picks them at head dim 80, one
+    launch each, elementwise, by rel. L2 and by each output's worst 64-row
+    tile."""
+    args, (o, g_lse) = _bwd_inputs(gpu, case, layout, d=80)
+    q, k, v, do, lse, _, causal, window = args
+    assert [attn._route(n, q, k, v, do) for n in ("flash_bwd_dq", "flash_bwd_dkv")] == [
+        "wgmma", "wgmma"]
+    before = [fn.launches_by_route["wgmma"] for fn in (attn.flash_bwd_dq, attn.flash_bwd_dkv)]
+    got = _bwd_kernels(args, None)
+    torch.cuda.synchronize()
+    assert [fn.launches_by_route["wgmma"] for fn in (attn.flash_bwd_dq, attn.flash_bwd_dkv)] == [
+        n + 1 for n in before]
+    want = attn.flash_backward_reference(q, k, v, o, lse, do, causal, window, g_lse)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape and g.shape[-1] == 80
+        torch.testing.assert_close(g.float(), w.float(), atol=2e-2, rtol=2e-2)
+        assert chip_smoke.rel_l2(g, w) <= 2e-2
+        assert tile_rel_l2(g, w) <= BWD_TILE_REL_L2
+
+
+def test_wgmma80_backward_matches_the_mma_route(gpu):
+    """Both head-dim-80 wgmma kernels and the mma kernels (the route they
+    took before) on the same inputs, GQA 32/8 as the model's views: each
+    against the plain backward elementwise and by tile, and the two routes
+    against each other by tile. Elementwise the two may stand up to twice
+    the bound apart: each rounds dS to bf16 after fp32 sums in its own
+    order, and the dK of key 0, a sum over every query row of 4 heads with
+    much cancellation, carries the flips of both (one entry of 327680 read
+    0.025 apart on an H100)."""
+    args, (o, g_lse) = _bwd_inputs(gpu, "gqa_32_8", "bshd", seed=2, d=80)
+    q, k, v, do, lse, _, causal, window = args
+    want = attn.flash_backward_reference(q, k, v, o, lse, do, causal, window, g_lse)
+    for g, m, w in zip(_bwd_kernels(args, "wgmma"), _bwd_kernels(args, "mma"), want):
+        for got in (g, m):
+            torch.testing.assert_close(got.float(), w.float(), atol=2e-2, rtol=2e-2)
+            assert tile_rel_l2(got, w) <= BWD_TILE_REL_L2
+        assert tile_rel_l2(g, m) <= BWD_TILE_REL_L2
+
+
+@pytest.mark.parametrize("case", ["ragged_300", "window_512", "s2048_32_heads", "gqa_32_8",
+                                  "non_causal"])
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+def test_wgmma80_backward_is_bit_repeatable(gpu, case, layout):
+    args, _ = _bwd_inputs(gpu, case, layout, d=80)
+    runs = [_bwd_kernels(args, "wgmma") for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_wgmma80_backward_refuses_fp16_and_its_out_scale(gpu):
+    """No wgmma kernel takes fp16 at head dim 80: named, the route of dQ
+    and of dK/dV raises and launches nothing, and csrc/'s entries refuse it
+    (cudaErrorInvalidValue) with the fp16 cotangent's out_scale and without,
+    while the mma route takes the same call with the out_scale."""
+    args, _ = _bwd_inputs(gpu, "ragged_300", "bshd", seed=4, d=80, dtype=torch.float16)
+    out_scale = torch.tensor(0.125, device=gpu)
+    for fn in (attn.flash_bwd_dq, attn.flash_bwd_dkv):
+        assert "wgmma" not in attn._routes(fn.__name__, *args[:4])
+        before = (fn.launches, dict(fn.launches_by_route))
+        for scale in (None, out_scale):
+            with pytest.raises(ValueError, match=f"{fn.__name__} route 'wgmma' cannot take"):
+                fn(*args, route="wgmma", out_scale=scale)
+        assert (fn.launches, fn.launches_by_route) == before
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        for scale in (None, out_scale):
+            assert _c_entry(name, args[:4], "wgmma", scale) == 1, (name, scale)
+        assert _c_entry(name, args[:4], "mma", out_scale) == 0, name
+    torch.cuda.synchronize()
+
+
 def _c_entry(name, tensors, route, out_scale=None):
     """csrc/'s entry `name` called straight on `route` with the wrapper's
     arguments (q, k, v for the forward, q, k, v, dO and the backward's
@@ -887,8 +965,7 @@ def test_the_c_entries_admit_what_routes_admits_at_80_and_100(gpu, d, dtype):
     """For each kernel, every base offset (0, 1, 2 and 4 elements) and both
     layouts: csrc/'s entry takes the wgmma route (returns 0, and launches)
     exactly where `_routes` offers it, and refuses it (cudaErrorInvalidValue,
-    1) elsewhere: the forward in bf16 at 80 and 100, and dQ and dK/dV in
-    bf16 at 100 alone."""
+    1) elsewhere: the forward, dQ and dK/dV in bf16 at 80 and 100."""
     seen = set()
     for offset in (0, 1, 2, 4):
         for layout in ("bhsd", "bshd"):
@@ -903,11 +980,9 @@ def test_the_c_entries_admit_what_routes_admits_at_80_and_100(gpu, d, dtype):
                 torch.cuda.synchronize()
                 assert err == (0 if admitted else 1), (name, offset, layout)
                 seen.add((name, admitted))
-    fwd_takes = dtype == torch.bfloat16
-    bwd_takes = fwd_takes and d == 100
-    assert seen == ({("flash_fwd", fwd_takes), ("flash_fwd", False)}
-                    | {("flash_bwd_dq", bwd_takes), ("flash_bwd_dq", False),
-                       ("flash_bwd_dkv", bwd_takes), ("flash_bwd_dkv", False)})
+    takes = dtype == torch.bfloat16
+    assert seen == {(name, admitted) for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+                    for admitted in {takes, False}}
 
 
 def test_the_wgmma100_backward_c_entries_refuse_what_they_cannot_take(gpu):
@@ -1226,8 +1301,8 @@ def test_kernel_refuses_what_it_does_not_take(gpu, dtype, d):
 
 
 # head dims other than 32, 64 and 128, and fp16: the simt and mma kernels at
-# their padded widths (at 96 and 100, and fp16 at 128, on wgmma; at 80 and
-# 256, and fp16 at 64, the forward). (dtype, d, (b, h, kvh, sq, sk), causal, window, layout, the
+# their padded widths (at 80, 96 and 100, and fp16 at 128, on wgmma; at 256,
+# and fp16 at 64, the forward). (dtype, d, (b, h, kvh, sq, sk), causal, window, layout, the
 # route `_route` picks for every kernel, or for the forward and the
 # backward); "offset1" starts each tensor one element into its storage,
 # off 16-byte alignment
@@ -1237,7 +1312,7 @@ WIDE_CASES = {
     "bf16_d96_gqa_window": (torch.bfloat16, 96, (1, 8, 2, 300, 300), True, 64, "bhsd",
                             "wgmma"),
     "bf16_d80_cross": (torch.bfloat16, 80, (1, 4, 4, 128, 400), True, None, "bhsd",
-                       ("wgmma", "mma")),
+                       "wgmma"),
     "bf16_d256_gqa_8_1": (torch.bfloat16, 256, (1, 8, 1, 384, 384), True, None, "bshd",
                           ("wgmma", "mma")),
     "bf16_d40_ragged": (torch.bfloat16, 40, (2, 4, 2, 300, 300), True, None, "bhsd", "mma"),

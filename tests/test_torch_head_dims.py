@@ -344,7 +344,7 @@ def test_new_width_llama_logits_match_jax(head_dim):
 
 
 # the same Llamas' gradients, whose backward takes dQ and dK/dV's wgmma
-# kernels at 100 on the card (mma at 80): jax.value_and_grad of llama_loss
+# kernels at 80 and 100 on the card: jax.value_and_grad of llama_loss
 # (remat) against the port's backward, every leaf, in fp32 (the bound of
 # test_head_dim_48_llama_gradients_match_jax)
 @pytest.mark.parametrize("head_dim", [80, 100])
@@ -368,3 +368,63 @@ def test_new_width_llama_gradients_match_jax(head_dim):
         for name, t in layer.items():
             np.testing.assert_allclose(_np(t.grad), want["layers"][name][i], atol=1e-6,
                                        err_msg=f"layers.{i}.{name}")
+
+
+# StableLM-3B's head dim (80, MHA) on a tiny Llama of 2 layers of 2 heads:
+# two AdamW steps of the port's `build_llama_train_step` against the JAX
+# package's on a one-device mesh, from the same weights (`params_from_jax`)
+# and one numpy-seeded batch, in fp32; on the card both backward kernels of
+# each step take their head-dim-80 wgmma kernels. Losses within
+# tests/test_torch_train.py's fp32 bound (summation order only); each leaf
+# as tests/test_torch_moe.py's fp32 steps hold it, by rel. L2 and each entry
+# within 2 lr: AdamW's first step moves an entry by lr g / (|g| + eps), so
+# an entry whose gradient is at rounding level moves by up to lr either way
+# in either framework (here the worst leaf's rel. L2 is 5.2e-6, and one
+# w_up entry of 40960 differs by 8.3e-5, every other by <= 1e-5).
+TRAIN_STEPS = 2
+TRAIN_LR = 3e-4
+TRAIN_TOL = dict(loss=dict(rtol=1e-5, atol=0), leaf_rel_l2=2e-5, entry=2 * TRAIN_LR)
+
+
+@pytest.fixture(scope="module")
+def trained_d80():
+    """(JAX losses, port losses, JAX final params as numpy, port params)."""
+    from yoda_scheduler_tpu.parallel import build_llama_train_step as jax_build
+    from yoda_scheduler_tpu.parallel import make_mesh
+    from yoda_scheduler_tpu_torch.parallel import build_llama_train_step, init_opt_state
+
+    jcfg = _new_width(80)
+    assert jcfg.n_kv_heads == jcfg.n_heads
+    init_fn, step_fn, _ = jax_build(jcfg, make_mesh({}, devices=jax.devices()[:1]))
+    jparams, jopt = init_fn(jax.random.PRNGKey(13))
+    tparams = _port_params(jcfg, jparams)
+    _, tstep, _ = build_llama_train_step(_twin(jcfg), device="cpu")
+    topt = init_opt_state(tparams, TRAIN_LR)
+    tokens = np.random.default_rng(14).integers(0, jcfg.vocab_size, (2, 40))
+    jlosses, tlosses = [], []
+    for _ in range(TRAIN_STEPS):
+        jparams, jopt, jloss = step_fn(jparams, jopt, jnp.asarray(tokens, jnp.int32))
+        tparams, topt, tloss = tstep(tparams, topt, torch.from_numpy(tokens))
+        jlosses.append(float(jloss))
+        tlosses.append(float(tloss))
+    return jlosses, tlosses, jax.tree.map(np.asarray, jparams), tparams
+
+
+def test_d80_train_losses_match_jax(trained_d80):
+    jlosses, tlosses, _, _ = trained_d80
+    np.testing.assert_allclose(tlosses, jlosses, **TRAIN_TOL["loss"])
+    assert tlosses[1] < tlosses[0]
+
+
+def test_d80_trained_weights_match_jax(trained_d80):
+    _, _, jparams, tparams = trained_d80
+    pairs = [(f"layers.{i}.{n}", t, jparams["layers"][n][i])
+             for i, layer in enumerate(tparams["layers"]) for n, t in layer.items()]
+    pairs += [(n, tparams[n], jparams[n]) for n in ("embed", "final_norm", "lm_head")]
+    assert {tuple(t.shape) for n, t, _ in pairs if n.endswith((".wq", ".wk", ".wv"))} == {
+        (160, 160)}
+    for name, t, want in pairs:
+        assert t.dtype == getattr(torch, str(want.dtype)), name
+        err = _np(t) - want
+        assert np.linalg.norm(err) / np.linalg.norm(want) < TRAIN_TOL["leaf_rel_l2"], name
+        assert np.abs(err).max() <= TRAIN_TOL["entry"], name

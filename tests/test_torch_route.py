@@ -86,12 +86,12 @@ def test_route_follows_the_inputs(case):
 
 
 # the head dims each kernel has a wgmma kernel for (csrc/), by dtype: every
-# kernel at 64, 96 and 128 in bf16, and at 128 in fp16; the forward at 80 and
+# kernel at 64, 80, 96 and 128 in bf16, and at 128 in fp16; the forward at
 # 256 in bf16 and at 64 in fp16 too (and every kernel at 100, whose rows are
 # not 16-byte aligned: not among these, which mma takes too)
 WGMMA_TAKES = {torch.bfloat16: {"flash_fwd": (64, 80, 96, 128, 256),
-                                "flash_bwd_dq": (64, 96, 128),
-                                "flash_bwd_dkv": (64, 96, 128)},
+                                "flash_bwd_dq": (64, 80, 96, 128),
+                                "flash_bwd_dkv": (64, 80, 96, 128)},
                torch.float16: {"flash_fwd": (64, 128), "flash_bwd_dq": (128,),
                                "flash_bwd_dkv": (128,)}}
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
@@ -109,7 +109,7 @@ def _assert_wgmma_admits(kernel, d, dtype, wgmma):
     (kernel, d, d in WGMMA_TAKES[torch.bfloat16][kernel])
     for kernel in KERNELS for d in HEAD_DIMS])
 def test_wgmma_admits_each_kernels_head_dims(kernel, d, wgmma):
-    """wgmma takes head dims 64, 96 and 128 in bf16 for each kernel, and 80
+    """wgmma takes head dims 64, 80, 96 and 128 in bf16 for each kernel,
     and 256 for the forward (`WGMMA_TAKES`); every aligned bf16 head dim
     keeps mma, up to 256."""
     _assert_wgmma_admits(kernel, d, torch.bfloat16, wgmma)
@@ -211,8 +211,18 @@ BWD_CASES = {
                           _bhsd(1, 4, 0, 128), _bhsd(1, 4, 64, 128)], "mma"),
     "bf16_d96": (lambda: [_bhsd(1, 4, 64, 96)] * 4, "wgmma"),
     "bf16_d96_model_views": (lambda: [_model_view(1, 64, 4, 96)] * 4, "wgmma"),
-    "bf16_d80": (lambda: [_bhsd(1, 4, 64, 80)] * 4, "mma"),
-    "bf16_d80_model_views": (lambda: [_model_view(1, 64, 4, 80)] * 4, "mma"),
+    # head dim 80 (StableLM-3B's): wgmma for rows aligned as mma's, contiguous
+    # and as the model's views; mma in fp16 and for an empty kv, simt for
+    # rows 8 bytes off 16
+    "bf16_d80": (lambda: [_bhsd(1, 4, 64, 80)] * 4, "wgmma"),
+    "bf16_d80_model_views": (lambda: [_model_view(1, 64, 4, 80)] * 4, "wgmma"),
+    "bf16_d80_gqa_model_views": (lambda: [_model_view(1, 64, 8, 80)]
+                                 + [_model_view(1, 64, 2, 80)] * 2
+                                 + [_model_view(1, 64, 8, 80)], "wgmma"),
+    "bf16_d80_offset_by_four": (lambda: [_bhsd(1, 4, 64, 80, offset=4)] * 4, "simt"),
+    "bf16_d80_empty_kv": (lambda: [_bhsd(1, 4, 64, 80), _bhsd(1, 4, 0, 80),
+                                   _bhsd(1, 4, 0, 80), _bhsd(1, 4, 64, 80)], "mma"),
+    "fp16_d80": (lambda: [_model_view(1, 64, 4, 80, torch.float16)] * 4, "mma"),
     "fp16_d128": (lambda: [_bhsd(1, 4, 64, 128, torch.float16)] * 4, "wgmma"),
     "fp16_d128_model_views": (lambda: [_model_view(1, 64, 4, 128, torch.float16)] * 4,
                               "wgmma"),
@@ -260,14 +270,16 @@ def test_backward_route_follows_the_inputs(case):
 
 
 # (case, route) both backward kernels must refuse (fp16 has a wgmma backward
-# kernel at head dim 128 alone, for aligned rows; bf16 none at 80, and at 100
-# none for rows off 8 bytes, strides off 4 elements or an empty kv)
+# kernel at head dim 128 alone, for aligned rows; bf16 at 80 none for rows
+# off 16 bytes or an empty kv, and at 100 none for rows off 8 bytes, strides
+# off 4 elements or an empty kv)
 BWD_REFUSALS = [("fp32_d128", "wgmma"), ("fp32_d128", "mma"), ("bf16_d32", "wgmma"),
                 ("do_offset_by_one", "mma"), ("do_odd_seq_stride", "wgmma"),
-                ("empty_kv", "wgmma"), ("bf16_d128", "tma"), ("bf16_d80", "wgmma"),
+                ("empty_kv", "wgmma"), ("bf16_d128", "tma"), ("fp16_d80", "wgmma"),
                 ("fp16_d64", "wgmma"), ("fp16_d96", "wgmma"), ("bf16_d100", "mma"),
                 ("fp16_do_offset_by_one", "mma"), ("fp16_do_offset_by_one", "wgmma"),
-                ("bf16_d100_model_views", "mma"), ("bf16_d80_model_views", "wgmma"),
+                ("bf16_d100_model_views", "mma"), ("bf16_d80_offset_by_four", "wgmma"),
+                ("bf16_d80_offset_by_four", "mma"), ("bf16_d80_empty_kv", "wgmma"),
                 ("bf16_d100_offset_by_one", "wgmma"), ("bf16_d100_do_offset_by_two", "wgmma"),
                 ("bf16_d100_odd_seq_stride", "wgmma"), ("bf16_d100_empty_kv", "wgmma"),
                 ("fp16_d100", "wgmma"), ("bf16_d256_gqa_model_views", "wgmma")]
@@ -365,6 +377,18 @@ def test_the_models_backward_at_head_dim_100(monkeypatch):
         ("flash_bwd_dkv", "wgmma")]
 
 
+def test_the_models_backward_at_head_dim_80(monkeypatch):
+    """As above at head_dim 80 (StableLM-3B-4E1T's widths), MHA and GQA: the
+    forward and both backward launchers take wgmma, on the head-dim-80
+    kernels."""
+    for kv_heads in (2, 1):
+        cfg = dataclasses.replace(_one_layer(160), n_kv_heads=kv_heads)
+        assert cfg.head_dim == 80
+        assert _a_models_launch_routes(monkeypatch, cfg) == [
+            ("flash_fwd", "wgmma"), ("flash_fwd", "wgmma"), ("flash_bwd_dq", "wgmma"),
+            ("flash_bwd_dkv", "wgmma")]
+
+
 def test_the_models_backward_at_head_dim_96(monkeypatch):
     """As above at head_dim 96 (Phi-3-mini's widths): the forward and both
     backward launchers take wgmma, dQ on its head-dim-96 kernel."""
@@ -388,12 +412,12 @@ def test_the_fp16_models_backward_lands_on_wgmma(monkeypatch):
 
 
 @pytest.mark.parametrize("d,route", [(64, "wgmma"), (128, "wgmma"), (32, "mma"),
-                                     (96, "wgmma"), (100, "wgmma")])
+                                     (96, "wgmma"), (100, "wgmma"), (80, "wgmma")])
 def test_the_smokes_routes_are_the_routes_picks(d, route):
     """chip_smoke's one expectation of the routes at a SHAPES row
     (`shape_routes`) against `_route` on the model's views at head dim `d`:
-    at 64, 96, 100 and 128 every kernel on wgmma, dQ's among them; at 32,
-    which no wgmma kernel takes, every kernel on mma."""
+    at 64, 80, 96, 100 and 128 every kernel on wgmma, dQ's among them; at
+    32, which no wgmma kernel takes, every kernel on mma."""
     import chip_smoke
 
     want = chip_smoke.shape_routes(route)
@@ -520,10 +544,10 @@ def _wide_rows():
 @pytest.mark.parametrize("row", _wide_rows(), ids=lambda row: row[0])
 def test_the_smokes_wide_rows_take_their_routes(row):
     """Each row chip_smoke adds at the new head dims and in fp16 names the
-    route `_route` picks for each kernel there: wgmma at head dims 96 and 100
-    in bf16 and in fp16 at 128 aligned, for every kernel, and for the
-    forward alone at 80 and 256 in bf16 and at 64 in fp16 (not one element
-    into its storage)."""
+    route `_route` picks for each kernel there: wgmma at head dims 80, 96
+    and 100 in bf16 and in fp16 at 128 aligned, for every kernel, and for
+    the forward alone at 256 in bf16 and at 64 in fp16 (not one element into
+    its storage)."""
     import chip_smoke
 
     q, k, v, do = _smoke_row_tensors(row)
@@ -533,8 +557,8 @@ def test_the_smokes_wide_rows_take_their_routes(row):
         assert attn._route(name, q, k, v, do) == want[name]
     aligned_bf16 = row[9] == torch.bfloat16 and row[10] != "offset1"
     aligned_fp16 = row[9] == torch.float16 and row[10] != "offset1"
-    every = (row[6] in (96, 100) and aligned_bf16) or (row[6] == 128 and aligned_fp16)
-    fwd_alone = (row[6] in (80, 256) and aligned_bf16) or (row[6] == 64 and aligned_fp16)
+    every = (row[6] in (80, 96, 100) and aligned_bf16) or (row[6] == 128 and aligned_fp16)
+    fwd_alone = (row[6] == 256 and aligned_bf16) or (row[6] == 64 and aligned_fp16)
     assert ("wgmma" in attn._routes("flash_fwd", q, k, v)) == (every or fwd_alone)
     assert ("wgmma" in attn._routes("flash_bwd_dkv", q, k, v, do)) == every
     assert ("wgmma" in attn._routes("flash_bwd_dq", q, k, v, do)) == every
@@ -600,17 +624,16 @@ def test_fp16_backward_on_mma_moves_the_backward_alone_and_restores():
         assert attn._route(name, *h) == "wgmma"
 
 
-# head dims 80 (StableLM-3B-4E1T's) and 100 (OpenLLaMA-3B's): the forward has
-# a wgmma kernel at each in bf16; the backward kernels none at 80 (mma) and
-# theirs at 100 (straight after simt: no mma kernel takes rows that are no
-# multiple of 8 elements)
+# head dims 80 (StableLM-3B-4E1T's) and 100 (OpenLLaMA-3B's): every kernel
+# has a wgmma kernel at each in bf16 (after mma at 80; straight after simt
+# at 100: no mma kernel takes rows that are no multiple of 8 elements)
 @pytest.mark.parametrize("layout", ["bhsd", "bshd"])
-@pytest.mark.parametrize("d,fwd,bwd", [(80, ("simt", "mma", "wgmma"), ("simt", "mma")),
+@pytest.mark.parametrize("d,fwd,bwd", [(80, ("simt", "mma", "wgmma"), ("simt", "mma", "wgmma")),
                                        (100, ("simt", "wgmma"), ("simt", "wgmma"))])
 def test_the_forward_alone_takes_wgmma_at_head_dims_80_and_100(d, fwd, bwd, layout):
     """bf16, contiguous and as the model's views: the forward's routes end in
-    wgmma (after mma at 80, straight after simt at 100); at 80 dQ and dK/dV
-    keep mma, at 100 they end in wgmma too."""
+    wgmma (after mma at 80, straight after simt at 100), and dQ's and
+    dK/dV's too (since their head-dim-80 kernels, at 80 as well)."""
     q, k, v, do = ([_bhsd(1, 4, 64, d)] if layout == "bhsd" else [_model_view(1, 64, 4, d)]) * 4
     assert attn._routes("flash_fwd", q, k, v) == fwd
     for kernel in BWD_KERNELS:
@@ -632,11 +655,11 @@ def test_no_wgmma_forward_at_80_or_100_but_aligned_bf16(d, dtype, offset):
     assert (attn.flash_fwd.launches, attn.flash_fwd.launches_by_route) == before
 
 
-@pytest.mark.parametrize("dim,bwd", [(160, "mma"), (200, "wgmma")])
+@pytest.mark.parametrize("dim,bwd", [(160, "wgmma"), (200, "wgmma")])
 def test_the_models_forward_at_head_dims_80_and_100(monkeypatch, dim, bwd):
     """A bf16 layer at head_dim 80 and 100 (`_a_models_launch_routes`):
-    both forward launches take wgmma, and the backward launchers mma at 80
-    and their head-dim-100 wgmma kernels at 100."""
+    both forward launches take wgmma, and the backward launchers their
+    head-dim-80 and head-dim-100 wgmma kernels."""
     cfg = _one_layer(dim)
     assert cfg.head_dim == dim // 2
     assert _a_models_launch_routes(monkeypatch, cfg) == [
@@ -666,7 +689,7 @@ def test_the_new_width_forwards_expect_every_launch_on_wgmma():
     picks it on each config's model views at its head dim, and each old
     route set (`profile_path.d100_forward_on_simt`, `d80_forward_on_mma`)
     moves the forward alone, to simt at 100 and mma at 80 (the backward on
-    wgmma at 100, mma at 80), and restores."""
+    wgmma at both), and restores."""
     import chip_smoke
     from yoda_scheduler_tpu_torch.profile_path import (d80_forward_on_mma,
                                                        d100_forward_on_simt, openllama_3b,
@@ -675,7 +698,7 @@ def test_the_new_width_forwards_expect_every_launch_on_wgmma():
     assert chip_smoke.shape_routes("wgmma")["flash_fwd"] == "wgmma"
     saved = dict(attn._WGMMA_HEAD_DIMS)
     for cfg, old_routes, old, bwd in ((openllama_3b(), d100_forward_on_simt, "simt", "wgmma"),
-                                      (stablelm_3b_4e1t(), d80_forward_on_mma, "mma", "mma")):
+                                      (stablelm_3b_4e1t(), d80_forward_on_mma, "mma", "wgmma")):
         q, k, v, do = [_model_view(1, 64, cfg.n_heads, cfg.head_dim)] * 4
         other = [_model_view(1, 64, 4, 96)] * 3
         assert attn._route("flash_fwd", q, k, v) == "wgmma"
@@ -689,12 +712,15 @@ def test_the_new_width_forwards_expect_every_launch_on_wgmma():
 
 
 def test_shape_routes_takes_a_forward_and_backward_pair():
-    """A SHAPES row at 80 (and at 256, and in fp16 at 64) names the
-    forward's route and the backward kernels' apart, and one at 100 one
-    route for all three; the smoke's forward turn rows are such rows, among
-    its wide rows, each with a route before wgmma to be timed against (simt
-    at 100, mma elsewhere), and its backward turn rows the two at 100, where
-    dQ and dK/dV took simt before their wgmma kernels."""
+    """A SHAPES row at 256 (and in fp16 at 64) names the forward's route and
+    the backward kernels' apart, and one at 80 or 100 one route for all
+    three; the smoke's forward turn rows are among its wide rows, each with
+    a route before wgmma to be timed against (simt at 100, mma elsewhere);
+    its backward turn rows are the four at 80 and 100, where dQ and dK/dV
+    took mma and simt before their wgmma kernels, timed beside SDPA's
+    default backend (cuDNN) at 80 and its flash backend at 100, and the
+    three rows whose backward has no wgmma kernel yet (256, fp16 at 64),
+    timed on mma beside SDPA's default backend."""
     import chip_smoke
 
     assert chip_smoke.shape_routes(("wgmma", "simt")) == {
@@ -708,14 +734,18 @@ def test_shape_routes_takes_a_forward_and_backward_pair():
     for name in chip_smoke.FWD_TURN_SHAPES:
         old = "simt" if rows[name][6] == 100 else "mma"
         q, k, v, _ = _smoke_row_tensors(rows[name])
-        assert rows[name][-1] == (("wgmma", old) if old == "mma" else "wgmma")
+        assert rows[name][-1] == ("wgmma" if rows[name][6] in (80, 100) else ("wgmma", old))
         assert attn._routes("flash_fwd", q, k, v)[-2:] == (old, "wgmma")
-    assert set(chip_smoke.BWD_TURN_SHAPES) == {n for n in chip_smoke.FWD_TURN_SHAPES
-                                               if rows[n][6] == 100}
-    for name in chip_smoke.BWD_TURN_SHAPES:
+    turns = chip_smoke.BWD_TURN_SHAPES
+    assert set(turns) == set(chip_smoke.FWD_TURN_SHAPES) | {"opt13b_d64_bshd"}
+    assert set(turns) <= set(chip_smoke.WIDE_SHAPES)
+    for name, backend in turns.items():
+        d = rows[name][6]
+        assert backend == ("flash" if d == 100 else "default"), name
         q, k, v, do = _smoke_row_tensors(rows[name])
+        want = {80: ("simt", "mma", "wgmma"), 100: ("simt", "wgmma")}.get(d, ("simt", "mma"))
         for kernel in BWD_KERNELS:
-            assert attn._routes(kernel, q, k, v, do) == ("simt", "wgmma")
+            assert attn._routes(kernel, q, k, v, do) == want, name
 
 
 def test_d100_backward_on_simt_moves_the_backward_alone_and_restores():
@@ -862,7 +892,7 @@ def test_the_gemma_and_opt_forwards_expect_every_launch_on_wgmma():
         assert f'("{phase}", ' in main and f'("forward_on_mma", {manager})' in main
     assert {"flash_fwd_wgmma256_kernel", "flash_fwd_wgmma64_f16_kernel"} <= set(
         chip_smoke.WGMMA_KERNELS)
-    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 18
+    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 20
 
 
 def test_the_smokes_new_rows_at_256_and_fp16_64():
@@ -884,3 +914,80 @@ def test_the_smokes_new_rows_at_256_and_fp16_64():
     assert rows["opt13b_d64_bshd"][1:7] == (1, 32, 32, 2048, 2048, 64)
     assert not rows["noncausal_d256"][7] and rows["cross_d256"][4] < rows["cross_d256"][5]
     assert {"gemma_d256", "fp16_d1024_bshd"} <= set(chip_smoke.FWD_TURN_SHAPES)
+
+
+def test_d80_backward_on_mma_moves_the_backward_alone_and_restores():
+    """`profile_path.d80_backward_on_mma`, the route set StableLM-3B's
+    gradient and train step are timed against: within it head dim 80 takes
+    mma for dQ and dK/dV while the forward keeps wgmma, and head dims 96 and
+    100 keep wgmma for every kernel; after it `_WGMMA_HEAD_DIMS` is exactly
+    what it was, and the backward at 80 takes wgmma again."""
+    from yoda_scheduler_tpu_torch.profile_path import d80_backward_on_mma
+
+    saved = {key: dims for key, dims in attn._WGMMA_HEAD_DIMS.items()}
+    t = [_model_view(1, 64, 4, 80)] * 4
+    others = [[_model_view(1, 64, 4, d)] * 4 for d in (96, 100)]
+    with d80_backward_on_mma():
+        assert attn._route("flash_fwd", *t[:3]) == "wgmma"
+        for name in BWD_KERNELS:
+            assert attn._route(name, *t) == "mma"
+            for other in others:
+                assert attn._route(name, *other) == "wgmma"
+    assert attn._WGMMA_HEAD_DIMS == saved
+    for name in BWD_KERNELS:
+        assert attn._route(name, *t) == "wgmma"
+
+
+def test_stablelm3b_gradient_and_train_expect_every_launch_on_wgmma():
+    """chip_smoke's expected launches of stablelm3b_gradient (4 layers:
+    8/4/4) and of a stablelm3b_train step (all 32 layers, the forward twice
+    a layer under remat and each backward kernel once: 64/32/32), all on
+    wgmma, as `_route` picks them on the model's views at head dim 80; both
+    phases run timed in turns against `d80_backward_on_mma` and appear in
+    the kernels line's launches by path; the build expects both new
+    kernels."""
+    import inspect
+
+    import chip_smoke
+    from yoda_scheduler_tpu_torch.profile_path import stablelm_3b_4e1t
+
+    cfg = stablelm_3b_4e1t()
+    assert chip_smoke.step_routes("wgmma", cfg.n_layers) == {
+        "flash_fwd": {"wgmma": 64}, "flash_bwd_dq": {"wgmma": 32},
+        "flash_bwd_dkv": {"wgmma": 32}}
+    assert chip_smoke.step_routes("wgmma", 4) == {
+        "flash_fwd": {"wgmma": 8}, "flash_bwd_dq": {"wgmma": 4},
+        "flash_bwd_dkv": {"wgmma": 4}}
+    q, k, v, do = [_model_view(1, 64, cfg.n_heads, cfg.head_dim)] * 4
+    assert attn._route("flash_fwd", q, k, v) == "wgmma"
+    for name in BWD_KERNELS:
+        assert attn._route(name, q, k, v, do) == "wgmma"
+    main = inspect.getsource(chip_smoke.main)
+    for path in ("stablelm3b_gradient", "stablelm3b_train_step"):
+        assert main.count(f'"{path}": stablelm_') == 2, path
+    for phase in ("stablelm3b_gradient", "stablelm3b_train"):
+        assert f'phase="{phase}"' in main, phase
+    assert '"backward_on_mma": d80_backward_on_mma' in main
+    assert {"flash_bwd_dq_wgmma80_kernel", "flash_bwd_dkv_wgmma80_kernel"} <= set(
+        chip_smoke.WGMMA_KERNELS)
+
+
+def test_the_smokes_new_rows_at_80():
+    """chip_smoke's rows at head dim 80 (StableLM-3B's attention, contiguous
+    and as its model's views, GQA 32/8, window 512, ragged, cross-length,
+    non-causal) name every kernel on wgmma, are held on every route (wide
+    rows), and the GQA and ragged rows carry an LSE cotangent."""
+    import chip_smoke
+
+    rows = {row[0]: row for row in chip_smoke.SHAPES}
+    new = {"d80", "d80_bshd", "gqa_d80", "window_d80", "ragged_d80", "cross_length_d80",
+           "non_causal_d80"}
+    assert new == {n for n, row in rows.items()
+                   if row[6] == 80 and row[9] == torch.bfloat16}
+    assert new <= set(chip_smoke.WIDE_SHAPES)
+    for name in new:
+        assert rows[name][-1] == "wgmma", name
+    assert rows["gqa_d80"][2:4] == (32, 8) and rows["window_d80"][8] == 512
+    assert rows["ragged_d80"][1:6] == (2, 8, 4, 300, 300)
+    assert rows["cross_length_d80"][4:6] == (256, 1024) and not rows["non_causal_d80"][7]
+    assert {"gqa_d80", "ragged_d80"} <= chip_smoke.BWD_G_LSE

@@ -72,3 +72,21 @@ def test_a_dtype_the_timer_lacks_is_refused(argv, capsys):
 
     assert variants.main(argv) == 1
     assert "--dtype float16" in capsys.readouterr().err
+
+
+def test_head_dim_80_shapes_are_the_smokes_stablelm_rows():
+    """`--head-dim 80` takes SHAPES_80: StableLM-3B-4E1T's attention first
+    (32 heads of 80, S=2048, as its model gives it), then GQA 32/8, a window
+    and a ragged sequence, each the smoke's row of the same name, three of
+    them probed."""
+    import chip_smoke
+    from yoda_scheduler_tpu_torch.ops import variants
+
+    assert variants.SHAPES_BY_DIM[80] is variants.SHAPES_80
+    assert [name for name, *_ in variants.SHAPES_80] == [
+        "d80_bshd", "gqa_d80", "window_d80", "ragged_d80"]
+    rows = {row[0]: row for row in chip_smoke.SHAPES}
+    for name, b, h, kvh, sq, sk, causal, window in variants.SHAPES_80:
+        assert rows[name][1:9] == (b, h, kvh, sq, sk, 80, causal, window), name
+        assert rows[name][9] == torch.bfloat16 and rows[name][-1] == "wgmma", name
+    assert {"d80_bshd", "window_d80", "ragged_d80"} <= set(variants.PROBE)

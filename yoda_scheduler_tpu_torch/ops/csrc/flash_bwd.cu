@@ -30,7 +30,9 @@
 //   path): TMA-fed and warp-specialised on wgmma, as flash_fwd.cu's wgmma
 //   kernel. Below; flash_bwd_dq_wgmma96_kernel and
 //   flash_bwd_dkv_wgmma96_kernel are route 2 at D = 96 (Phi-3-mini's
-//   attention), the D = 128 kernels' bodies at the true width, and
+//   attention), the D = 128 kernels' bodies at the true width, as are
+//   flash_bwd_dq_wgmma80_kernel and flash_bwd_dkv_wgmma80_kernel at D = 80
+//   (StableLM-3B-4E1T's), and
 //   flash_bwd_dq_wgmma100_kernel and flash_bwd_dkv_wgmma100_kernel route 2
 //   at D = 100 (OpenLLaMA-3B's, 200-byte rows with 8-byte aligned bases,
 //   which their producers copy with cp.async where TMA cannot read them);
@@ -76,11 +78,11 @@
 // ex2.approx.ftz, as the forward; the mask only on diagonal, window-edge and
 // ragged tiles), rounds them to the input type as the A operands of the RS
 // form (the accumulator's columns 16 s .. 16 s + 15 are A's k-step s), and
-// adds the products into its fp32 sums with RS wgmma m64n128k16 (m64n96k16 at
-// D = 96, m64n104k16 at 100), the streamed tile an MN-major B operand (head_dim contiguous;
-// halves 8 KB apart). The two steps
-// are kept apart in time, as the forward's basic order, so the sums, the
-// scores and the operands fit the consumers' 240 registers without spills.
+// adds the products into its fp32 sums with RS wgmma m64n128k16 (m64n80k16 at
+// D = 80, m64n96k16 at 96, m64n104k16 at 100), the streamed tile an MN-major
+// B operand (head_dim contiguous; halves 8 KB apart). The two steps are kept
+// apart in time, as the forward's basic order, so the sums, the scores and
+// the operands fit the consumers' 240 registers without spills.
 // - flash_bwd_dkv_wgmma_kernel: a block is one (b, q head) and 128 keys;
 //   K and V once, then Q and dO tiles of 64 rows with their LSE and delta.
 //   S^T = K Q^T and dP^T = V dO^T; dV += P^T dO and dK += dS^T Q, both sums
@@ -808,6 +810,7 @@ struct BwdRows {
 
 // The body of flash_bwd_dkv_wgmma_kernel (bf16, D = 128),
 // flash_bwd_dkv_wgmma96_kernel (bf16, D = 96),
+// flash_bwd_dkv_wgmma80_kernel (bf16, D = 80),
 // flash_bwd_dkv_wgmma100_kernel (bf16, D = 100) and
 // flash_bwd_dkv_wgmma_f16_kernel (fp16, D = 128). fp16 differs from bf16 only
 // in names, as in flash_fwd.cu's fwd_wgmma_body: the wgmma instructions (.f16
@@ -818,6 +821,10 @@ struct BwdRows {
 // column 96 (every expect_tx counts whole boxes); S^T and dP^T run 6 k-steps
 // (the last two in the second half), dV and dK are m64n96k16 sums (48 + 48
 // fp32 a thread, not 64 + 64), and the epilogue stores the 96 columns alone.
+// D = 80 (StableLM-3B-4E1T's 160-byte rows, which TMA reads) is the same
+// body with 5 k-steps, the 5th over the second box's columns 64-79 (80-127
+// zero-filled), m64n80k16 sums (40 + 40 fp32 a thread) whose B is the 64-row
+// tile's two boxes 8 KB apart, and an epilogue of 80 columns.
 // At D = 100 (OpenLLaMA-3B's 200-byte rows, half of a [B, S, H, 100] view's
 // heads 8 bytes off a 16-byte boundary) TMA cannot read the rows, and the
 // producer warpgroup's 128 threads copy them in 8-byte cp.async pieces into
@@ -834,7 +841,8 @@ struct BwdRows {
 // copies (24 under TMA) and the consumers get 232.
 // At Phi-3-mini's attention (B=1, H=32, S=2048, D=96, causal) dK/dV does
 // ~51.6 GFLOP against ~76 MB, bound by operations (~52 us at 989 TF/s); at
-// OpenLLaMA-3B's (D=100) ~53.7 GFLOP, ~54 us.
+// OpenLLaMA-3B's (D=100) ~53.7 GFLOP, ~54 us; at StableLM-3B-4E1T's (D=80)
+// ~43.0 GFLOP against ~63 MB, ~43.4 us.
 template <typename T, int D>
 __device__ __forceinline__ void dkv_wgmma_body(
     const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
@@ -1101,6 +1109,18 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma96_kerne
                                     window, scale);
 }
 
+__global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma80_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+    const float* __restrict__ out_scale, int H, int KvH, int Sq, int Sk, int causal,
+    int window, float scale) {
+  dkv_wgmma_body<__nv_bfloat16, 80>(&tm_q, &tm_k, &tm_v, &tm_do, BwdRows<__nv_bfloat16>{},
+                                    lse, delta, dk, dv, out_scale, H, KvH, Sq, Sk, causal,
+                                    window, scale);
+}
+
 __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma100_kernel(
     const __grid_constant__ BwdRows<__nv_bfloat16> src, const float* __restrict__ lse,
     const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
@@ -1341,22 +1361,24 @@ __global__ void __launch_bounds__((K64_CONS + 1) * WG_THREADS, 1) flash_bwd_dkv_
 }
 
 // The body of flash_bwd_dq_wgmma_kernel (bf16, D = 128),
-// flash_bwd_dq_wgmma96_kernel (bf16, D = 96), flash_bwd_dq_wgmma100_kernel
-// (bf16, D = 100) and flash_bwd_dq_wgmma_f16_kernel (fp16, D = 128), as
-// dkv_wgmma_body (in fp16 dS and dQ round to fp16): at D = 96 the
-// tiles keep D = 128's shared-memory layout and grid, the second box of each
-// row zero-filled by TMA past column 96 (every expect_tx counts whole
-// boxes); S and dP run 6 k-steps (the last two in the second half), dQ is an
-// m64n96k16 sum (48 fp32 a thread, not 64) with K the n96 MN-major B, and
-// the epilogue stores the 96 columns alone. At D = 100 the producer
-// warpgroup copies the rows with cp.async, as dkv_wgmma_body's: Q and dO as
-// 128-row tiles, each stage's K and V as 64-row tiles in one pass; a
-// stage's barrier waits for the 128 copying threads; S and dP run 7 k-steps
+// flash_bwd_dq_wgmma96_kernel (bf16, D = 96), flash_bwd_dq_wgmma80_kernel
+// (bf16, D = 80), flash_bwd_dq_wgmma100_kernel (bf16, D = 100) and
+// flash_bwd_dq_wgmma_f16_kernel (fp16, D = 128), as dkv_wgmma_body (in fp16
+// dS and dQ round to fp16): at D = 96 the tiles keep D = 128's shared-memory
+// layout and grid, the second box of each row zero-filled by TMA past column
+// 96 (every expect_tx counts whole boxes); S and dP run 6 k-steps (the last
+// two in the second half), dQ is an m64n96k16 sum (48 fp32 a thread, not 64)
+// with K the n96 MN-major B, and the epilogue stores the 96 columns alone;
+// at D = 80 likewise with 5 k-steps, an m64n80k16 sum (40 fp32 a thread, K's
+// columns 64-79 the second box's first 16) and 80 columns. At D = 100 the
+// producer warpgroup copies the rows with cp.async, as dkv_wgmma_body's: Q
+// and dO as 128-row tiles, each stage's K and V as 64-row tiles in one pass;
+// a stage's barrier waits for the 128 copying threads; S and dP run 7 k-steps
 // and dQ is an m64n104k16 sum (52 fp32 a thread), K the n104 MN-major B,
 // whose columns 100-103 are not stored. At Phi-3-mini's attention (B=1,
 // H=32, S=2048, D=96, causal) dQ does ~38.7 GFLOP against ~63 MB, bound by
 // operations (~39 us at 989 TF/s); at OpenLLaMA-3B's (D=100) ~40.3 GFLOP,
-// ~41 us.
+// ~41 us; at StableLM-3B-4E1T's (D=80) ~32.2 GFLOP against ~53 MB, ~32.6 us.
 template <typename T, int D>
 __device__ __forceinline__ void dq_wgmma_body(
     const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
@@ -1519,7 +1541,8 @@ __device__ __forceinline__ void dq_wgmma_body(
       to_a_operand<T>(dp, sa);
 
       // dQ += dS K: K [keys][head_dim] as an MN-major B operand (n96 at D =
-      // 96: its columns 64-95 the second half's first 32; n104 at 100)
+      // 96: its columns 64-95 the second half's first 32; n80 at 80, n104 at
+      // 100)
       const uint64_t db_k_mn = desc_mnmajor(sK, W_HALF64);
       fence_regs(acc);
       wgmma_fence();
@@ -1567,6 +1590,17 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dq_wgmma96_kernel
     __nv_bfloat16* __restrict__ dq, const float* __restrict__ out_scale, int H, int KvH,
     int Sq, int Sk, int causal, int window, float scale) {
   dq_wgmma_body<__nv_bfloat16, 96>(&tm_q, &tm_k, &tm_v, &tm_do, BwdRows<__nv_bfloat16>{}, lse,
+                                   delta, dq, out_scale, H, KvH, Sq, Sk, causal, window,
+                                   scale);
+}
+
+__global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dq_wgmma80_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    __nv_bfloat16* __restrict__ dq, const float* __restrict__ out_scale, int H, int KvH,
+    int Sq, int Sk, int causal, int window, float scale) {
+  dq_wgmma_body<__nv_bfloat16, 80>(&tm_q, &tm_k, &tm_v, &tm_do, BwdRows<__nv_bfloat16>{}, lse,
                                    delta, dq, out_scale, H, KvH, Sq, Sk, causal, window,
                                    scale);
 }
@@ -1895,8 +1929,8 @@ constexpr CUtensorMapDataType map_type() {
                                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 }
 
-// a dK/dV kernel over T on D = 128's grid (bf16 at D = 128 and 96, fp16 at
-// 128): 128 keys a block, boxes of 64 rows of q and dO
+// a dK/dV kernel over T on D = 128's grid (bf16 at D = 128, 96 and 80, fp16
+// at 128): 128 keys a block, boxes of 64 rows of q and dO
 template <typename T, typename K>
 cudaError_t dkv_wgmma128(K kernel, const Args& a, int D) {
   CUtensorMap m[4];
@@ -1918,20 +1952,23 @@ BwdRows<__nv_bfloat16> bwd_rows(const Args& a) {
   return src;
 }
 
-// bf16 (dtype 1) at D = 128: flash_bwd_dkv_wgmma_kernel; at D = 96 and 100:
-// flash_bwd_dkv_wgmma96_kernel and flash_bwd_dkv_wgmma100_kernel (which
-// takes the rows themselves, not maps), on the same grid; at D = 64:
+// bf16 (dtype 1) at D = 128: flash_bwd_dkv_wgmma_kernel; at D = 96, 80 and
+// 100: flash_bwd_dkv_wgmma96_kernel, flash_bwd_dkv_wgmma80_kernel and
+// flash_bwd_dkv_wgmma100_kernel (which takes the rows themselves, not maps),
+// on the same grid; at D = 64:
 // flash_bwd_dkv_wgmma64_kernel. fp16 (dtype 2) at D = 128:
 // flash_bwd_dkv_wgmma_f16_kernel, on the D = 128 grid.
 cudaError_t launch_dkv_wgmma(const Args& a, int D, int dtype) {
   static const cudaError_t attr128 = set_smem(flash_bwd_dkv_wgmma_kernel, DKV_SMEM);
   static const cudaError_t attr96 = set_smem(flash_bwd_dkv_wgmma96_kernel, DKV_SMEM);
+  static const cudaError_t attr80 = set_smem(flash_bwd_dkv_wgmma80_kernel, DKV_SMEM);
   static const cudaError_t attr100 = set_smem(flash_bwd_dkv_wgmma100_kernel, DKV_SMEM);
   static const cudaError_t attr64 = set_smem(flash_bwd_dkv_wgmma64_kernel, K64_SMEM);
   static const cudaError_t attr_f16 = set_smem(flash_bwd_dkv_wgmma_f16_kernel, DKV_SMEM);
   const cudaError_t attr = dtype == 2   ? attr_f16
                            : D == 64   ? attr64
                            : D == 96   ? attr96
+                           : D == 80   ? attr80
                            : D == 100  ? attr100
                                        : attr128;
   if (attr != cudaSuccess) return attr;
@@ -1945,8 +1982,10 @@ cudaError_t launch_dkv_wgmma(const Args& a, int D, int dtype) {
     return cudaGetLastError();
   }
   if (D != 64)
-    return dkv_wgmma128<__nv_bfloat16>(
-        D == 96 ? flash_bwd_dkv_wgmma96_kernel : flash_bwd_dkv_wgmma_kernel, a, D);
+    return dkv_wgmma128<__nv_bfloat16>(D == 96   ? flash_bwd_dkv_wgmma96_kernel
+                                       : D == 80 ? flash_bwd_dkv_wgmma80_kernel
+                                                 : flash_bwd_dkv_wgmma_kernel,
+                                       a, D);
   CUtensorMap m[4];
   if (!bwd_maps(a, D, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 64, K64_KEYS, m))
     return cudaErrorInvalidValue;
@@ -1958,7 +1997,7 @@ cudaError_t launch_dkv_wgmma(const Args& a, int D, int dtype) {
   return cudaGetLastError();
 }
 
-// a dQ kernel over T on D = 128's grid (bf16 at D = 128 and 96, fp16 at
+// a dQ kernel over T on D = 128's grid (bf16 at D = 128, 96 and 80, fp16 at
 // 128): 128 queries a block, boxes of 64 rows of k and v
 template <typename T, typename K>
 cudaError_t dq_wgmma128(K kernel, const Args& a, int D) {
@@ -1971,20 +2010,23 @@ cudaError_t dq_wgmma128(K kernel, const Args& a, int D) {
   return cudaGetLastError();
 }
 
-// bf16 (dtype 1) at D = 128: flash_bwd_dq_wgmma_kernel; at D = 96 and 100:
-// flash_bwd_dq_wgmma96_kernel and flash_bwd_dq_wgmma100_kernel (which takes
-// the rows themselves, not maps), on the same grid; at D = 64:
+// bf16 (dtype 1) at D = 128: flash_bwd_dq_wgmma_kernel; at D = 96, 80 and
+// 100: flash_bwd_dq_wgmma96_kernel, flash_bwd_dq_wgmma80_kernel and
+// flash_bwd_dq_wgmma100_kernel (which takes the rows themselves, not maps),
+// on the same grid; at D = 64:
 // flash_bwd_dq_wgmma64_kernel. fp16 (dtype 2) at D = 128:
 // flash_bwd_dq_wgmma_f16_kernel, on the D = 128 grid.
 cudaError_t launch_dq_wgmma(const Args& a, int D, int dtype) {
   static const cudaError_t attr128 = set_smem(flash_bwd_dq_wgmma_kernel, DQ_SMEM);
   static const cudaError_t attr96 = set_smem(flash_bwd_dq_wgmma96_kernel, DQ_SMEM);
+  static const cudaError_t attr80 = set_smem(flash_bwd_dq_wgmma80_kernel, DQ_SMEM);
   static const cudaError_t attr100 = set_smem(flash_bwd_dq_wgmma100_kernel, DQ_SMEM);
   static const cudaError_t attr64 = set_smem(flash_bwd_dq_wgmma64_kernel, Q64_SMEM);
   static const cudaError_t attr_f16 = set_smem(flash_bwd_dq_wgmma_f16_kernel, DQ_SMEM);
   const cudaError_t attr = dtype == 2   ? attr_f16
                            : D == 64   ? attr64
                            : D == 96   ? attr96
+                           : D == 80   ? attr80
                            : D == 100  ? attr100
                                        : attr128;
   if (attr != cudaSuccess) return attr;
@@ -1997,8 +2039,10 @@ cudaError_t launch_dq_wgmma(const Args& a, int D, int dtype) {
     return cudaGetLastError();
   }
   if (D != 64)
-    return dq_wgmma128<__nv_bfloat16>(
-        D == 96 ? flash_bwd_dq_wgmma96_kernel : flash_bwd_dq_wgmma_kernel, a, D);
+    return dq_wgmma128<__nv_bfloat16>(D == 96   ? flash_bwd_dq_wgmma96_kernel
+                                      : D == 80 ? flash_bwd_dq_wgmma80_kernel
+                                                : flash_bwd_dq_wgmma_kernel,
+                                      a, D);
   CUtensorMap m[4];
   if (!bwd_maps(a, D, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, Q64_ROWS, 64, m))
     return cudaErrorInvalidValue;
@@ -2041,7 +2085,7 @@ cudaError_t at_padded_dim(int which, int mma, const Args& a) {
 // dtype 0 = fp32, 1 = bf16, 2 = fp16. route 0 = simt (any dtype, D from 1
 // to 512), 1 = mma (bf16 or fp16, D a multiple of 8 up to 256, 16-byte
 // aligned bases, strides that are multiples of 8), 2 = wgmma (as mma, and
-// Sk > 0, with bf16 at D = 64, 96 or 128 and fp16 at D = 128; or bf16 at D =
+// Sk > 0, with bf16 at D = 64, 80, 96 or 128 and fp16 at D = 128; or bf16 at D =
 // 100 with 8-byte aligned bases and strides that are multiples of 4); a
 // route that cannot take the inputs launches nothing, and so does an
 // out_scale in fp32 or bf16
@@ -2061,7 +2105,7 @@ cudaError_t dispatch(int which, int dtype, int route, int D, const Args& a) {
       if (dtype == 2) return at_padded_dim<__half>(which, 1, a);
       return cudaErrorInvalidValue;
     case 2: {
-      const bool has_d = dtype == 1 ? D == 64 || D == 96 || D == 100 || D == 128
+      const bool has_d = dtype == 1 ? D == 64 || D == 80 || D == 96 || D == 100 || D == 128
                                     : dtype == 2 && D == 128;
       // the D = 100 kernels copy their 200-byte rows in 8-byte pieces
       const bool rows_ok = D == 100 ? rows_aligned(ptrs, 4, &a.st.q_sb, 12, D, 8) : aligned;

@@ -2,7 +2,7 @@
 in turns (A, B, ..., B, A), at the main path's shapes.
 
     python3 -m yoda_scheduler_tpu_torch.ops.variants fwd|bwd [--probe] \\
-        [--head-dim 64|96|100|256] [--dtype float16] [--route mma] A.cu B.cu ...
+        [--head-dim 64|80|96|100|256] [--dtype float16] [--route mma] A.cu B.cu ...
 
 Each argument is a copy of `csrc/flash_fwd.cu` (fwd) or `csrc/flash_bwd.cu`
 (bwd) with a change (an earlier commit's copy with its own headers beside
@@ -10,7 +10,7 @@ it, too), or "cur" for the package's own, built with the package's nvcc
 flags into `build/variants/`; each build's nvcc seconds are printed. fwd
 launches `attention.flash_fwd` on its automatic route; bwd launches
 `attention.flash_bwd_dq` and `attention.flash_bwd_dkv` on theirs (wgmma at
-head dims 64, 96, 100 and 128 in bf16, and 128 in fp16); both first print
+head dims 64, 80, 96, 100 and 128 in bf16, and 128 in fp16); both first print
 ptxas's registers and spills of each variant's wgmma kernels with its
 performance notes. `--route mma` launches both kinds on the mma route
 instead. Every launch is checked against the
@@ -24,7 +24,10 @@ head-dim-64 wgmma kernels (`flash_bwd_dq_wgmma64_kernel`,
 `flash_bwd_dkv_wgmma64_kernel`); `--head-dim 96` those of `SHAPES_96`
 (Phi-3-mini's attention, 32 heads of 96, as its model gives it), where the
 three kernels run `flash_fwd_wgmma96_kernel`, `flash_bwd_dq_wgmma96_kernel`
-and `flash_bwd_dkv_wgmma96_kernel`; `--head-dim 100` those of `SHAPES_100`
+and `flash_bwd_dkv_wgmma96_kernel`; `--head-dim 80` those of `SHAPES_80`
+(StableLM-3B-4E1T's attention, 32 heads of 80, as its model gives it),
+where they run `flash_fwd_wgmma80_kernel`, `flash_bwd_dq_wgmma80_kernel`
+and `flash_bwd_dkv_wgmma80_kernel`; `--head-dim 100` those of `SHAPES_100`
 (OpenLLaMA-3B's attention, 32 heads of 100, as its model gives it: half of
 its heads' rows start 8 bytes off a 16-byte boundary), where the three
 kernels run `flash_fwd_wgmma100_kernel`, `flash_bwd_dq_wgmma100_kernel` and
@@ -82,6 +85,13 @@ SHAPES_96 = [
     ("window_d96", 1, 32, 32, 2048, 2048, True, 512),
     ("ragged_d96", 2, 8, 4, 300, 300, True, None),
 ]
+# head dim 80: StableLM-3B-4E1T's attention (32 heads of 80, S=2048), as SHAPES_64
+SHAPES_80 = [
+    ("d80_bshd", 1, 32, 32, 2048, 2048, True, None),
+    ("gqa_d80", 1, 32, 8, 2048, 2048, True, None),
+    ("window_d80", 1, 32, 32, 2048, 2048, True, 512),
+    ("ragged_d80", 2, 8, 4, 300, 300, True, None),
+]
 # head dim 100: OpenLLaMA-3B's attention (32 heads of 100, S=2048), as SHAPES_64
 SHAPES_100 = [
     ("d100_bshd", 1, 32, 32, 2048, 2048, True, None),
@@ -97,8 +107,8 @@ SHAPES_256 = [
     ("window_d256", 1, 8, 1, 2048, 2048, True, 512),
     ("ragged_d256", 2, 8, 1, 300, 300, True, None),
 ]
-SHAPES_BY_DIM = {128: SHAPES, 64: SHAPES_64, 96: SHAPES_96, 100: SHAPES_100,
-                 256: SHAPES_256}
+SHAPES_BY_DIM = {128: SHAPES, 64: SHAPES_64, 80: SHAPES_80, 96: SHAPES_96,
+                 100: SHAPES_100, 256: SHAPES_256}
 # fp16 at head dim 128: SHAPES, contiguous; at 64: OPT-1.3B's attention (32
 # heads of 64, S=2048) and bench_mfu's d1024 widths, as SHAPES_64
 SHAPES_F16 = [(f"fp16_{name}", *shape) for name, *shape in SHAPES]
@@ -110,7 +120,8 @@ SHAPES_F16_64 = [
 ]
 SHAPES_F16_BY_DIM = {128: SHAPES_F16, 64: SHAPES_F16_64}
 PROBE = ("main", "window_512", "ragged_300", "d1024_bshd", "window_d64", "ragged_d64",
-         "phi3_d96_bshd", "window_d96", "ragged_d96", "d100_bshd", "window_d100",
+         "d80_bshd", "window_d80", "ragged_d80", "phi3_d96_bshd", "window_d96",
+         "ragged_d96", "d100_bshd", "window_d100",
          "ragged_d100", "fp16_main", "fp16_window_512", "fp16_ragged_300", "gemma_d256",
          "window_d256", "ragged_d256", "opt13b_d64_bshd", "fp16_window_d64",
          "fp16_ragged_d64")
@@ -192,8 +203,8 @@ def time_ms(fn, iters: int = 50) -> float:
 
 def _randn(gen, d, dtype, *shapes):
     """Normals of `shapes` ([B, H, S, D]) in `dtype`: contiguous at head dim
-    128, at 64, 96, 100 and 256 the model's transposed views of a contiguous
-    [B, S, H, D]."""
+    128, at 64, 80, 96, 100 and 256 the model's transposed views of a
+    contiguous [B, S, H, D]."""
     if d == 128:
         return [torch.randn(s, generator=gen, device="cuda").to(dtype) for s in shapes]
     return [torch.randn((b, s, h, d_), generator=gen, device="cuda").to(dtype)

@@ -5,7 +5,11 @@ on one GPU.
     python3 -m yoda_scheduler_tpu_torch.profile_path
 
 First, before any trace (a process that has run torch.profiler launches
-slower afterwards), it times training steps at Phi-3-mini width (32 layers,
+slower afterwards), it reads the host's side of the StableLM-3B-4E1T step
+(`stablelm3b_host_turns`: dQ's and dK/dV's host ms a launch on wgmma and on
+mma, idle and behind a busy device, and steps in alternated turns with the
+backward on each, the host's enqueue ms beside each step's ms); then it
+times training steps at Phi-3-mini width (32 layers,
 head dim 96, B=1, S=2048) on the host's clock, 8 steps at a turn in turns
 (wgmma, mma, mma, wgmma): on the routes `_route` picks, and with the
 head-dim-96 forward, dQ and dK/dV on the mma route, as before their wgmma
@@ -18,7 +22,7 @@ training step (B=1, S=2048, remat, AdamW; all 32 layers) and one pipelined
 training step (pp=4 stages in one process, 4 microbatches, B=4); then at
 Mixtral-8x7B width one `llama_forward` (16 layers) and one training step
 (4 layers), both B=1, S=2048; then one ResNet-50 training pass (bf16,
-B=256, 224 x 224, the forward and backward of a softmax cross-entropy); last
+B=256, 224 x 224, the forward and backward of a softmax cross-entropy); then
 one `llama_forward` at OpenLLaMA-3B's widths (head dim 100) and one at
 StableLM-3B-4E1T's (80), B=1, S=2048, each with flash_fwd on its wgmma
 kernel and on the route it took before (simt at 100, mma at 80), and one
@@ -28,10 +32,13 @@ dQ and dK/dV on their head-dim-100 wgmma kernels and one on simt
 steps alone); then one `llama_forward` at Gemma-2B's widths (head dim 256,
 bf16) and one at OPT-1.3B's (64, fp16), B=1, S=2048, each with flash_fwd on
 its wgmma kernel and on mma, as before it (`gemma_opt_forward_windows()`
-traces those four alone). For each traced window it prints one JSON line: the host
-wall time, the device's busy time (the union of kernel intervals) and idle
-share, the kernel launches,
-the device time grouped into conv / matmul / flash_fwd / flash_bwd_dq /
+traces those four alone); last one StableLM-3B-4E1T training step (all 32
+layers, B=1, S=2048, remat, AdamW) with dQ and dK/dV on their head-dim-80
+wgmma kernels and one on mma (`d80_backward_on_mma`;
+`stablelm3b_train_windows()` traces those two alone). For each traced
+window it prints one JSON line: the host wall time, the device's busy time
+(the union of kernel intervals) and idle share, the kernel launches, the
+device time grouped into conv / matmul / flash_fwd / flash_bwd_dq /
 flash_bwd_dkv / optimizer / moe_route / batch_norm / other, and the kernels
 with the most device time. moe_route is every kernel that starts inside a
 `moe_route` span on the device's timeline (models/moe.py: the router's
@@ -280,8 +287,14 @@ def fp16_backward_on_mma():
 
 def d80_forward_on_mma():
     """Within it, the forward at head dim 80 takes the mma route, as before
-    its wgmma kernel; the backward there is on mma either way."""
+    its wgmma kernel; dQ and dK/dV keep theirs."""
     return _off_wgmma(lambda key, d: key[0] == "flash_fwd" and d == 80)
+
+
+def d80_backward_on_mma():
+    """Within it, dQ and dK/dV at head dim 80 take the mma route, as before
+    their wgmma kernels; the forward keeps its wgmma kernel."""
+    return _off_wgmma(lambda key, d: key[0] != "flash_fwd" and d == 80)
 
 
 def d256_forward_on_mma():
@@ -308,6 +321,70 @@ def d100_backward_on_simt():
     their wgmma kernels (no mma kernel takes 200-byte rows); the forward
     keeps its wgmma kernel."""
     return _off_wgmma(lambda key, d: key[0] != "flash_fwd" and d == 100)
+
+
+def _launch_host_ms(fn, n: int = 50) -> dict:
+    """The host's ms a call of `fn` takes to enqueue, over `n` calls: with
+    the device idle, and behind ~1 s of device work (`torch.cuda._sleep`),
+    where a launch that waits on the device would show it."""
+    fn()
+    out = {}
+    for name, cycles in (("idle", 0), ("behind_busy_device", 2_000_000_000)):
+        torch.cuda.synchronize()
+        if cycles:
+            torch.cuda._sleep(cycles)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        out[name] = (time.perf_counter() - t0) * 1e3 / n
+        torch.cuda.synchronize()
+    return out
+
+
+def stablelm3b_host_turns(rounds: int = 5, steps: int = 3) -> dict:
+    """Where the StableLM-3B-4E1T step's host clock goes, before any trace:
+    dQ's and dK/dV's host ms a launch at its attention's shape (B=1, S=2048,
+    32 heads of 80, the model's views) on wgmma and on mma, idle and behind
+    a busy device (`_launch_host_ms`); then `rounds` rounds of `steps` steps
+    (all 32 layers, remat, AdamW) on each route set, the backward on wgmma
+    and on mma (`d80_backward_on_mma`), the order flipped each round, with
+    the host's ms to enqueue each step and to finish it, and their
+    medians."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v, do = (torch.randn((1, 2048, 32, 80), generator=gen, device="cuda")
+                   .to(torch.bfloat16).transpose(1, 2) for _ in range(4))
+    o, lse = attention.flash_fwd(q, k, v)
+    args = (q, k, v, do, lse, attention.backward_delta(o, do).contiguous())
+    launch = {f"{fn.__name__}_{route}": _launch_host_ms(lambda: fn(*args, route=route))
+              for fn in (attention.flash_bwd_dq, attention.flash_bwd_dkv)
+              for route in ("wgmma", "mma")}
+    del q, k, v, do, o, lse, args
+    cfg = stablelm_3b_4e1t()
+    init_fn, step_fn, batch_fn = build_llama_train_step(cfg, device="cuda")
+    params, opt_state = init_fn(0)
+    tokens = batch_fn(torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen,
+                                    device="cuda"))
+    sets = {"wgmma": contextlib.nullcontext, "backward_on_mma": d80_backward_on_mma}
+    for routes in sets.values():
+        with routes():
+            step_fn(params, opt_state, tokens)
+    times = {name: {"enqueue_ms": [], "step_ms": []} for name in sets}
+    for i in range(rounds):
+        for name in (list(sets) if i % 2 else list(sets)[::-1]):
+            with sets[name]():
+                for _ in range(steps):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    step_fn(params, opt_state, tokens)
+                    t1 = time.perf_counter()
+                    torch.cuda.synchronize()
+                    times[name]["enqueue_ms"].append((t1 - t0) * 1e3)
+                    times[name]["step_ms"].append((time.perf_counter() - t0) * 1e3)
+    report = {"window": "stablelm3b_host_turns", "launch_host_ms": launch, "steps": times,
+              "median_ms": {name: {key: statistics.median(v) for key, v in t.items()}
+                            for name, t in times.items()}}
+    print(json.dumps(report), flush=True)
+    return report
 
 
 def phi3_train_windows(steps: int = 8) -> list[dict]:
@@ -386,24 +463,35 @@ def gemma_opt_forward_windows() -> list[dict]:
                              (opt_1_3b(), "mma", fp16_d64_forward_on_mma)))
 
 
-def openllama3b_train_windows() -> list[dict]:
-    """One traced OpenLLaMA-3B training step (26 layers, B=1, S=2048, remat,
-    AdamW) with dQ and dK/dV on their head-dim-100 wgmma kernels, and one
-    with both on simt (`d100_backward_on_simt`); the forward on wgmma in
-    both."""
-    cfg = openllama_3b()
+def _backward_train_windows(cfg, label: str, old_name: str, old) -> list[dict]:
+    """One traced training step of `cfg` (all its layers, B=1, S=2048,
+    remat, AdamW) with dQ and dK/dV on their wgmma kernels, and one with
+    both on their old route (`old`); the forward on wgmma in both."""
     init_fn, step_fn, batch_fn = build_llama_train_step(cfg, device="cuda")
     params, opt_state = init_fn(0)
     gen = torch.Generator(device="cuda").manual_seed(1)
     tokens = batch_fn(torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen,
                                     device="cuda"))
     reports = []
-    for name, routes in (("wgmma", contextlib.nullcontext),
-                         ("backward_on_simt", d100_backward_on_simt)):
+    for name, routes in (("wgmma", contextlib.nullcontext), (old_name, old)):
         with routes():
-            reports.append(trace(f"openllama3b_train_step_b1_s2048_{name}",
+            reports.append(trace(f"{label}_train_step_b1_s2048_{name}",
                                  lambda _: step_fn(params, opt_state, tokens)))
     return reports
+
+
+def openllama3b_train_windows() -> list[dict]:
+    """OpenLLaMA-3B's step (26 layers) traced with dQ and dK/dV on their
+    head-dim-100 wgmma kernels and on simt (`d100_backward_on_simt`)."""
+    return _backward_train_windows(openllama_3b(), "openllama3b", "backward_on_simt",
+                                   d100_backward_on_simt)
+
+
+def stablelm3b_train_windows() -> list[dict]:
+    """StableLM-3B-4E1T's step (32 layers) traced with dQ and dK/dV on their
+    head-dim-80 wgmma kernels and on mma (`d80_backward_on_mma`)."""
+    return _backward_train_windows(stablelm_3b_4e1t(), "stablelm3b", "backward_on_mma",
+                                   d80_backward_on_mma)
 
 
 def moe_forward_window(cfg) -> dict:
@@ -449,7 +537,9 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(smi, flush=True)
-    reports = phi3_train_windows()
+    reports = [stablelm3b_host_turns()]
+    _free()
+    reports += phi3_train_windows()
     _free()
     cfg = LlamaConfig.llama2_7b()
     reports += inference_windows(cfg)
@@ -471,6 +561,8 @@ def main() -> int:
     reports += openllama3b_train_windows()
     _free()
     reports += gemma_opt_forward_windows()
+    _free()
+    reports += stablelm3b_train_windows()
     out = Path(__file__).resolve().parents[1] / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "profile_path.json").write_text(json.dumps(
