@@ -7,8 +7,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 1. build: the card's name and power limit, and the CUDA kernels compiled
    from the sources in this checkout (nvcc, sm_90a, one process per source);
-   each of the twenty wgmma kernels (`WGMMA_KERNELS`) without a spill or
-   a serialised wgmma.
+   each of the twenty-two wgmma kernels (`WGMMA_KERNELS`) without a spill
+   or a serialised wgmma.
 2. kernel: the flash forward kernel against its plain version on the card,
    elementwise and by O's worst 64-row tile, at the main path's shape (also
    as the model's transposed [B, S, H, D] views), at Mixtral's GQA 32/8
@@ -30,9 +30,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    and window 512 at 96; wgmma there), 80 (StableLM-3B's, also as its
    model's views, with GQA 32/8, window 512, ragged, cross-length and
    non-causal rows: every kernel on its wgmma kernel), Gemma-2B's 8 heads
-   of 256 over one and Gemma-7B's 16 over 16 (with ragged, cross-length
-   and non-causal rows at 256: the forward on its wgmma kernel), 40
-   ragged, 100
+   of 256 over one and Gemma-7B's 16 over 16 (with a window-512 row at
+   Gemma-2-9B's 16 over 8, ragged, cross-length and non-causal rows at 256:
+   every kernel on its wgmma kernel), 40 ragged, 100
    (OpenLLaMA-3B's 200-byte rows, also as its model's views), the forward at
    80 and 100 on its wgmma kernels and timed in turns against its old route
    (mma at 80, simt at 100) at each of those four rows, and so at 256
@@ -57,13 +57,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
    kernel that takes them, each held against the plain backward and timed
    in turns (mma, wgmma, wgmma, mma), SDPA's backward after each turn; at
    d1024_bshd SDPA's backward under
-   its default and its flash backends; at head dims 80 (d80, d80_bshd) and
-   100 (unaligned_d100, d100_bshd) dQ and dK/dV on their wgmma kernels
-   timed in turns against their old route (mma at 80, simt at 100: old,
-   wgmma, wgmma, old), SDPA's backward after each turn under its default
-   backend (cuDNN) at 80 and its flash backend at 100; where they have no
-   wgmma kernel yet (gemma_d256, fp16_d1024_bshd, opt13b_d64_bshd), on mma
-   in four turns with SDPA's default backward after each. Last two fp16 rows with a large LSE
+   its default and its flash backends; at head dims 80 (d80, d80_bshd),
+   100 (unaligned_d100, d100_bshd) and 256 (gemma_d256) dQ and dK/dV on
+   their wgmma kernels timed in turns against their old route (mma at 80
+   and 256, simt at 100: old, wgmma, wgmma, old), SDPA's backward after
+   each turn under its default backend (cuDNN) at 80 and 256 and its flash
+   backend at 100; where they have no wgmma kernel yet (fp16_d1024_bshd,
+   opt13b_d64_bshd), on mma in four turns with SDPA's default backward
+   after each. Last two fp16 rows with a large LSE
    cotangent (dO x1e-5, S=2048, head dim 128) through the kernels' autograd
    node, g_lse x1e3 of random sign and, with an attention sink at key 0,
    x100 of one sign: finite, and within twice the fp32 backward's own
@@ -125,6 +126,12 @@ After moe_train, head dims 96, 100 and 80, and fp16:
   dK/dV on their head-dim-80 kernels; both also timed on the host's clock
   in turns against dQ and dK/dV on mma (`profile_path.d80_backward_on_mma`),
   the train step's turns after its 4 steps.
+- gemma2b_gradient, gemma2b_train: Gemma-2B's widths as gradient (4
+  layers: 8/4/4 launches) and train (all 18 layers, B=1, S=2048, 36/18/18
+  launches a step), every flash launch on wgmma, dQ and dK/dV on their
+  head-dim-256 kernels; both also timed on the host's clock in turns
+  against dQ and dK/dV on mma (`profile_path.d256_backward_on_mma`), the
+  train step's turns after its 4 steps.
 
 - moe_forward: B=1, S=2048: 16 flash_fwd launches, all on the wgmma route;
   logits and routing against the forward through the plain attention, end
@@ -667,7 +674,8 @@ WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_wgmma96_kernel",
                  "flash_bwd_dq_wgmma_f16_kernel", "flash_bwd_dkv_wgmma_f16_kernel",
                  "flash_bwd_dq_wgmma100_kernel", "flash_bwd_dkv_wgmma100_kernel",
                  "flash_fwd_wgmma256_kernel", "flash_fwd_wgmma64_f16_kernel",
-                 "flash_bwd_dq_wgmma80_kernel", "flash_bwd_dkv_wgmma80_kernel")
+                 "flash_bwd_dq_wgmma80_kernel", "flash_bwd_dkv_wgmma80_kernel",
+                 "flash_bwd_dq_wgmma256_kernel", "flash_bwd_dkv_wgmma256_kernel")
 
 
 def phase_build(build):
@@ -761,9 +769,9 @@ SHAPES = [
     ("main_unaligned", 1, 32, 32, 2048, 2048, 128, True, None, torch.bfloat16,
      "offset1", "simt"),
     # head dims other than 32, 64 and 128, and fp16, on the simt and mma
-    # kernels at their padded widths (at 80, 96 and 100, and fp16 at 128,
-    # on wgmma; at 256, and fp16 at 64, the forward on wgmma, the backward
-    # on mma):
+    # kernels at their padded widths (at 80, 96, 100 and 256, and fp16 at
+    # 128, on wgmma; in fp16 at 64, the forward on wgmma, the backward on
+    # mma):
     # Phi-3-mini's attention (32 heads of 96, S=2048) as the model
     # gives it and contiguous, with GQA 32/8 and a window; 80 (2560 / 32,
     # StableLM-3B's and Phi-2's width), contiguous and as the model's views,
@@ -794,18 +802,18 @@ SHAPES = [
     ("non_causal_d80", 1, 32, 32, 1000, 1000, 80, False, None, torch.bfloat16, "bhsd",
      "wgmma"),
     ("gemma_d256", 1, 8, 1, 2048, 2048, 256, True, None, torch.bfloat16, "bshd",
-     ("wgmma", "mma")),  # Gemma-2B's attention as its model gives it
-    # head dim 256 on the forward's wgmma kernel (the backward on mma):
-    # Gemma-7B's 16 heads over 16, ragged over one KV head, cross-length and
-    # non-causal
+     "wgmma"),  # Gemma-2B's attention as its model gives it
+    # head dim 256 on the wgmma kernels: Gemma-7B's 16 heads over 16,
+    # Gemma-2-9B's 16 over 8 with a window (its own is 4096; 512 bites at
+    # S=2048), ragged over one KV head, cross-length and non-causal
     ("gemma7b_d256", 1, 16, 16, 2048, 2048, 256, True, None, torch.bfloat16, "bshd",
-     ("wgmma", "mma")),
-    ("ragged_d256", 2, 8, 1, 300, 300, 256, True, None, torch.bfloat16, "bshd",
-     ("wgmma", "mma")),
-    ("cross_d256", 1, 8, 1, 256, 1024, 256, True, None, torch.bfloat16, "bhsd",
-     ("wgmma", "mma")),
+     "wgmma"),
+    ("gemma2_window_d256", 1, 16, 8, 2048, 2048, 256, True, 512, torch.bfloat16, "bshd",
+     "wgmma"),
+    ("ragged_d256", 2, 8, 1, 300, 300, 256, True, None, torch.bfloat16, "bshd", "wgmma"),
+    ("cross_d256", 1, 8, 1, 256, 1024, 256, True, None, torch.bfloat16, "bhsd", "wgmma"),
     ("noncausal_d256", 1, 8, 1, 1000, 1000, 256, False, None, torch.bfloat16, "bhsd",
-     ("wgmma", "mma")),
+     "wgmma"),
     ("ragged_d40", 2, 8, 4, 300, 300, 40, True, None, torch.bfloat16, "bhsd", "mma"),
     ("unaligned_d100", 1, 32, 32, 1024, 1024, 100, True, None, torch.bfloat16, "bhsd",
      "wgmma"),
@@ -840,10 +848,10 @@ TURN_SHAPES = ("main", "d1024_bshd", "phi3_d96_bshd", "fp16_main", "fp16_ragged_
 FWD_TURN_SHAPES = ("d80", "d80_bshd", "unaligned_d100", "d100_bshd", "gemma_d256",
                    "fp16_d1024_bshd")
 # dQ and dK/dV timed in turns against the route they took before their
-# wgmma kernels (mma at 80, simt at 100), or where they have none yet (256,
-# fp16 at 64) on mma alone in four turns, with SDPA's whole backward after
-# each turn under the backend named here: its default (cuDNN), which the
-# padded-width queue's factors are read against, or at 100 its flash
+# wgmma kernels (mma at 80 and 256, simt at 100), or where they have none
+# yet (fp16 at 64) on mma alone in four turns, with SDPA's whole backward
+# after each turn under the backend named here: its default (cuDNN), which
+# the padded-width queue's factors are read against, or at 100 its flash
 # backend
 BWD_TURN_SHAPES = {"d80": "default", "d80_bshd": "default", "unaligned_d100": "flash",
                    "d100_bshd": "flash", "gemma_d256": "default",
@@ -855,8 +863,8 @@ D64_SHAPE = "d1024_bshd"  # the head-dim-64 row of the kernels line
 # backward fails on the rows that start one element into their storage)
 WIDE_SHAPES = ("phi3_d96", "phi3_d96_bshd", "gqa_d96", "window_d96", "d80", "d80_bshd",
                "gqa_d80", "window_d80", "ragged_d80", "cross_length_d80", "non_causal_d80",
-               "gemma_d256", "gemma7b_d256", "ragged_d256", "cross_d256", "noncausal_d256",
-               "ragged_d40", "unaligned_d100", "d100_bshd", "fp16_main",
+               "gemma_d256", "gemma7b_d256", "gemma2_window_d256", "ragged_d256", "cross_d256",
+               "noncausal_d256", "ragged_d40", "unaligned_d100", "d100_bshd", "fp16_main",
                "fp16_main_bshd", "fp16_gqa_bshd",
                "fp16_window_512", "fp16_ragged_300", "fp16_cross_length", "fp16_d1024_bshd",
                "opt13b_d64_bshd", "fp16_ragged_d64",
@@ -872,10 +880,10 @@ REFUSED_HEAD_DIM = 520
 
 def shape_routes(route) -> dict:
     """Each kernel's route at a SHAPES row: `route` names one for all three
-    kernels (the wgmma route of each takes head dims 64, 80, 96, 100 and
-    128 in bf16, and 128 in fp16), or is a pair (the forward's, the backward
-    kernels'), as at 256 in bf16 and at 64 in fp16, where the forward alone
-    has a wgmma kernel."""
+    kernels (the wgmma route of each takes head dims 64, 80, 96, 100, 128
+    and 256 in bf16, and 128 in fp16), or is a pair (the forward's, the
+    backward kernels'), as at 64 in fp16, where the forward alone has a
+    wgmma kernel."""
     fwd, bwd = (route, route) if isinstance(route, str) else route
     return {"flash_fwd": fwd, "flash_bwd_dq": bwd, "flash_bwd_dkv": bwd}
 
@@ -3224,8 +3232,9 @@ def main() -> int:
     # OPT-1.3B's, from theirs
     from yoda_scheduler_tpu_torch.profile_path import (
         d80_backward_on_mma, d80_forward_on_mma, d100_backward_on_simt,
-        d100_forward_on_simt, d256_forward_on_mma, fp16_backward_on_mma, fp16_d64_forward_on_mma, gemma_2b,
-        mixtral_8x7b, openllama_3b, opt_1_3b, phi3_mini, stablelm_3b_4e1t)
+        d100_forward_on_simt, d256_backward_on_mma, d256_forward_on_mma,
+        fp16_backward_on_mma, fp16_d64_forward_on_mma, gemma_2b, mixtral_8x7b,
+        openllama_3b, opt_1_3b, phi3_mini, stablelm_3b_4e1t)
 
     gen_mod = importlib.import_module("yoda_scheduler_tpu_torch.models.generate")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3311,6 +3320,14 @@ def main() -> int:
     stablelm_step_routes = phase_train(attn, train, moe, stablelm_3b_4e1t(),
                                        phase="stablelm3b_train",
                                        config="stablelm_3b_4e1t widths", turns=d80_turns)[1]
+    # Gemma-2B's gradient and train step: dQ and dK/dV on their head-dim-256
+    # wgmma kernels, timed in turns against both on mma
+    d256_turns = {"wgmma": contextlib.nullcontext, "backward_on_mma": d256_backward_on_mma}
+    gemma_grad_routes = phase_gradient(
+        attn, llama, train, gemma_2b(), phase="gemma2b_gradient",
+        config="gemma_2b widths, 4 layers", turns=d256_turns)
+    gemma_step_routes = phase_train(attn, train, moe, gemma_2b(), phase="gemma2b_train",
+                                    config="gemma_2b widths", turns=d256_turns)[1]
     free_memory()
     ring_launches = phase_ring(attn, ring, variants)
     ulysses_launches = phase_ulysses(attn, ulysses, variants)
@@ -3392,6 +3409,8 @@ def main() -> int:
                              "openllama3b_train_step": openllama_step_routes["flash_fwd"],
                              "stablelm3b_gradient": stablelm_grad_routes["flash_fwd"],
                              "stablelm3b_train_step": stablelm_step_routes["flash_fwd"],
+                             "gemma2b_gradient": gemma_grad_routes["flash_fwd"],
+                             "gemma2b_train_step": gemma_step_routes["flash_fwd"],
                              "tune_attention": tune_routes["flash_fwd"].get("wgmma", 0),
                              **{path: routes["flash_fwd"].get("wgmma", 0)
                                 for path, routes in bench_routes.items()}},
@@ -3422,6 +3441,8 @@ def main() -> int:
                              "openllama3b_train_step": openllama_step_routes[name],
                              "stablelm3b_gradient": stablelm_grad_routes[name],
                              "stablelm3b_train_step": stablelm_step_routes[name],
+                             "gemma2b_gradient": gemma_grad_routes[name],
+                             "gemma2b_train_step": gemma_step_routes[name],
                              "tune_attention": tune_routes[name].get("wgmma", 0),
                              **{path: routes[name].get("wgmma", 0)
                                 for path, routes in bench_routes.items()

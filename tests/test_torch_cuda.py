@@ -131,6 +131,7 @@ def _hopper_lib():
     lib.hopper_wgmma_ss64_f16.argtypes = [p, p, i32, p, p]
     lib.hopper_wgmma_rs64_f16.argtypes = [p, p, p, p]
     lib.hopper_wgmma_ss256.argtypes = [p, p, i32, p, p]
+    lib.hopper_wgmma_ss256_a64.argtypes = [p, p, p, p]
     lib.hopper_wgmma_rs256.argtypes = [p, p, p, p]
     return lib
 
@@ -297,6 +298,20 @@ def test_wgmma_ss256_tile_is_a_matmul(gpu, a_row0):
     torch.cuda.synchronize()
     want = a[a_row0:a_row0 + 64].float() @ b.float().T
     torch.testing.assert_close(out, want, atol=1e-3, rtol=1e-3)
+
+
+def test_wgmma_ss256_a64_tile_is_a_matmul(gpu):
+    """A [64, 256] times B^T, B [64, 256], both four 64-row boxes 8 KB
+    apart, 16 SS m64n64k16 k-steps: the head-dim-256 backward kernels' S^T =
+    K Q^T, dP^T = V dO^T, S = Q K^T and dP = dO V^T (`scores256`)."""
+    torch.manual_seed(14)
+    a = torch.randn(64, 256, device=gpu).to(torch.bfloat16)
+    b = torch.randn(64, 256, device=gpu).to(torch.bfloat16)
+    out = torch.zeros(64, 64, device=gpu)
+    assert _hopper_lib().hopper_wgmma_ss256_a64(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                                _stream()) == 0
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, a.float() @ b.float().T, atol=1e-3, rtol=1e-3)
 
 
 def test_wgmma_rs256_tile_is_a_matmul(gpu):
@@ -487,11 +502,12 @@ def test_wgmma_route_matches_the_mma_route(gpu):
 
 def _bwd_inputs(gpu, case, layout, seed=0, d=128, dtype=torch.bfloat16):
     """q, k, v, dO of a WGMMA_SHAPES case (at head dim 128; WGMMA64_SHAPES
-    at 64 and 32, WGMMA96_SHAPES at 96, NEW_WIDTH_SHAPES at 80 and 100) in
+    at 64 and 32, WGMMA96_SHAPES at 96, NEW_WIDTH_SHAPES at 80 and 100,
+    WGMMA256_SHAPES at 256) in
     `layout` and `dtype`, with the forward's O and LSE, a random LSE
     cotangent and delta."""
     shapes = {128: WGMMA_SHAPES, 96: WGMMA96_SHAPES, 80: NEW_WIDTH_SHAPES,
-              100: NEW_WIDTH_SHAPES}.get(d, WGMMA64_SHAPES)
+              100: NEW_WIDTH_SHAPES, 256: WGMMA256_SHAPES}.get(d, WGMMA64_SHAPES)
     (b, h, kvh, sq, sk), causal, window = shapes[case]
     q, k, v = _qkv(gpu, dtype, b, h, kvh, sq, sk, d, seed=seed)
     rng = np.random.default_rng(seed + 1)
@@ -1069,8 +1085,8 @@ def test_the_c_entries_admit_what_routes_admits_at_256_and_fp16_64(gpu, d, dtype
     """For each kernel, every base offset (0, 1, 2 and 4 elements) and both
     layouts: csrc/'s entry takes the wgmma route (returns 0, and launches)
     exactly where `_routes` offers it, and refuses it (cudaErrorInvalidValue,
-    1) elsewhere: the forward on 16-byte aligned rows alone, dQ and dK/dV
-    never."""
+    1) elsewhere: on 16-byte aligned rows alone, every kernel at 256 in bf16
+    and the forward alone at 64 in fp16 (dQ and dK/dV never there)."""
     seen = set()
     for offset in (0, 1, 2, 4):
         for layout in ("bhsd", "bshd"):
@@ -1085,27 +1101,35 @@ def test_the_c_entries_admit_what_routes_admits_at_256_and_fp16_64(gpu, d, dtype
                 torch.cuda.synchronize()
                 assert err == (0 if admitted else 1), (name, offset, layout)
                 seen.add((name, admitted))
-    assert seen == {("flash_fwd", True), ("flash_fwd", False), ("flash_bwd_dq", False),
-                    ("flash_bwd_dkv", False)}
+    bwd = {True, False} if d == 256 else {False}
+    assert seen == {("flash_fwd", True), ("flash_fwd", False)} | {
+        (name, admitted) for name in ("flash_bwd_dq", "flash_bwd_dkv") for admitted in bwd}
 
 
 @pytest.mark.parametrize("d,dtype", [(256, torch.bfloat16), (64, torch.float16)])
 def test_the_new_wgmma_forwards_refuse_what_they_cannot_take(gpu, d, dtype):
-    """csrc/'s forward entry on the wgmma route at 256 (bf16) and 64 (fp16),
-    past `_routes`: an empty kv, a sequence stride that is no multiple of 8
-    elements and a dtype no wgmma kernel takes at that head dim (fp16 at
-    256, fp32 at 64) each return cudaErrorInvalidValue (1); the same rows at
-    a stride of d + 8 launch (0). Named, the backward kernels' wgmma route
-    raises with no launch."""
+    """csrc/'s entries on the wgmma route at 256 (bf16: the forward, dQ and
+    dK/dV) and 64 (fp16: the forward), past `_routes`: an empty kv, a
+    sequence stride that is no multiple of 8 elements and a dtype no wgmma
+    kernel takes at that head dim (fp16 at 256, fp32 at 64) each return
+    cudaErrorInvalidValue (1); the same rows at a stride of d + 8 launch (0).
+    Named at fp16 64, the backward kernels' wgmma route raises with no
+    launch."""
     wide = torch.randn(1, 4, 64, d + 8, device=gpu).to(dtype)
     odd = torch.randn(1, 4, 64, d + 4, device=gpu).to(dtype)[..., :d]
     empty = torch.zeros(1, 4, 0, d, device=gpu, dtype=dtype)
     other = wide[..., :d].to(torch.float16 if dtype == torch.bfloat16 else torch.float32)
-    assert _c_entry("flash_fwd", (wide[..., :d],) * 3, "wgmma") == 0
-    assert _c_entry("flash_fwd", (odd,) * 3, "wgmma") == 1
-    assert _c_entry("flash_fwd", (wide[..., :d], empty, empty), "wgmma") == 1
-    assert _c_entry("flash_fwd", (other.contiguous(),) * 3, "wgmma") == 1
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv") if d == 256 else ("flash_fwd",)
+    for name in names:
+        n = 3 if name == "flash_fwd" else 4
+        assert _c_entry(name, (wide[..., :d],) * n, "wgmma") == 0, name
+        assert _c_entry(name, (odd,) * n, "wgmma") == 1, name
+        assert _c_entry(name, (wide[..., :d], empty, empty, wide[..., :d])[:n],
+                        "wgmma") == 1, name
+        assert _c_entry(name, (other.contiguous(),) * n, "wgmma") == 1, name
     torch.cuda.synchronize()
+    if d == 256:
+        return
     q = wide[..., :d].contiguous()
     lse = torch.zeros(q.shape[:3], device=gpu)
     for fn in (attn.flash_bwd_dq, attn.flash_bwd_dkv):
@@ -1113,6 +1137,90 @@ def test_the_new_wgmma_forwards_refuse_what_they_cannot_take(gpu, d, dtype):
         with pytest.raises(ValueError, match=f"{fn.__name__} route 'wgmma' cannot take"):
             fn(q, q, q, q, lse, lse, route="wgmma")
         assert (fn.launches, fn.launches_by_route) == before
+
+
+# the backward's wgmma kernels at head dim 256 in bf16 (flash_bwd_dq_wgmma256_kernel,
+# flash_bwd_dkv_wgmma256_kernel: Gemma's attention) at FWD_NEW_CASES' rows at
+# 256: Gemma-2B's shape (8 q heads over one KV head) and Gemma-7B's (16 over
+# 16), ragged, cross-length, window 512 and non-causal, contiguous and as
+# the models' views
+WGMMA256_SHAPES = {case: (shape, causal, window)
+                   for case, (_, d, shape, causal, window) in FWD_NEW_CASES.items() if d == 256}
+
+
+@pytest.mark.parametrize("case", list(WGMMA256_SHAPES))
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+def test_wgmma256_backward_matches_the_plain_backward(gpu, case, layout):
+    """dQ and dK/dV on wgmma, as `_route` picks them at head dim 256, one
+    launch each, elementwise, by rel. L2 and by each output's worst 64-row
+    tile."""
+    args, (o, g_lse) = _bwd_inputs(gpu, case, layout, d=256)
+    q, k, v, do, lse, _, causal, window = args
+    assert [attn._route(n, q, k, v, do) for n in ("flash_bwd_dq", "flash_bwd_dkv")] == [
+        "wgmma", "wgmma"]
+    before = [fn.launches_by_route["wgmma"] for fn in (attn.flash_bwd_dq, attn.flash_bwd_dkv)]
+    got = _bwd_kernels(args, None)
+    torch.cuda.synchronize()
+    assert [fn.launches_by_route["wgmma"] for fn in (attn.flash_bwd_dq, attn.flash_bwd_dkv)] == [
+        n + 1 for n in before]
+    want = attn.flash_backward_reference(q, k, v, o, lse, do, causal, window, g_lse)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape and g.shape[-1] == 256
+        torch.testing.assert_close(g.float(), w.float(), atol=2e-2, rtol=2e-2)
+        assert chip_smoke.rel_l2(g, w) <= 2e-2
+        assert tile_rel_l2(g, w) <= BWD_TILE_REL_L2
+
+
+def test_wgmma256_backward_matches_the_mma_route(gpu):
+    """Both head-dim-256 wgmma kernels and the mma kernels (the route they
+    took before) on the same inputs, Gemma-2B's 8 q heads over one KV head as
+    the model's views: each against the plain backward elementwise and by
+    tile, and the two routes against each other by tile (elementwise they
+    may stand twice the bound apart: each rounds dS to bf16 after fp32 sums
+    in its own order; test_wgmma80_backward_matches_the_mma_route)."""
+    args, (o, g_lse) = _bwd_inputs(gpu, "gemma2b_s2048", "bshd", seed=2, d=256)
+    q, k, v, do, lse, _, causal, window = args
+    want = attn.flash_backward_reference(q, k, v, o, lse, do, causal, window, g_lse)
+    for g, m, w in zip(_bwd_kernels(args, "wgmma"), _bwd_kernels(args, "mma"), want):
+        for got in (g, m):
+            torch.testing.assert_close(got.float(), w.float(), atol=2e-2, rtol=2e-2)
+            assert tile_rel_l2(got, w) <= BWD_TILE_REL_L2
+        assert tile_rel_l2(g, m) <= BWD_TILE_REL_L2
+
+
+@pytest.mark.parametrize("case", list(WGMMA256_SHAPES))
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+def test_wgmma256_backward_is_bit_repeatable(gpu, case, layout):
+    """No atomics: dQ's two warpgroups' sums join in one order."""
+    args, _ = _bwd_inputs(gpu, case, layout, d=256)
+    runs = [_bwd_kernels(args, "wgmma") for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_wgmma256_backward_refuses_fp16_and_its_out_scale(gpu):
+    """No wgmma kernel takes fp16 at head dim 256: named, the route of dQ
+    and of dK/dV raises and launches nothing, and csrc/'s entries refuse it
+    (cudaErrorInvalidValue) with the fp16 cotangent's out_scale and without,
+    while the mma route takes the same call with the out_scale; in bf16 the
+    entries refuse an out_scale."""
+    args, _ = _bwd_inputs(gpu, "d256_ragged_300", "bshd", seed=4, d=256, dtype=torch.float16)
+    out_scale = torch.tensor(0.125, device=gpu)
+    for fn in (attn.flash_bwd_dq, attn.flash_bwd_dkv):
+        assert "wgmma" not in attn._routes(fn.__name__, *args[:4])
+        before = (fn.launches, dict(fn.launches_by_route))
+        for scale in (None, out_scale):
+            with pytest.raises(ValueError, match=f"{fn.__name__} route 'wgmma' cannot take"):
+                fn(*args, route="wgmma", out_scale=scale)
+        assert (fn.launches, fn.launches_by_route) == before
+    bf16 = [t.to(torch.bfloat16) for t in args[:4]]
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        for scale in (None, out_scale):
+            assert _c_entry(name, args[:4], "wgmma", scale) == 1, (name, scale)
+        assert _c_entry(name, args[:4], "mma", out_scale) == 0, name
+        assert _c_entry(name, bf16, "wgmma", out_scale) == 1, name
+        assert _c_entry(name, bf16, "wgmma") == 0, name
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("lse_scale, sink", [(8.0, False), (1e3, False), (1e3, True)],
@@ -1301,8 +1409,8 @@ def test_kernel_refuses_what_it_does_not_take(gpu, dtype, d):
 
 
 # head dims other than 32, 64 and 128, and fp16: the simt and mma kernels at
-# their padded widths (at 80, 96 and 100, and fp16 at 128, on wgmma; at 256,
-# and fp16 at 64, the forward). (dtype, d, (b, h, kvh, sq, sk), causal, window, layout, the
+# their padded widths (at 80, 96, 100 and 256, and fp16 at 128, on wgmma; in
+# fp16 at 64, the forward). (dtype, d, (b, h, kvh, sq, sk), causal, window, layout, the
 # route `_route` picks for every kernel, or for the forward and the
 # backward); "offset1" starts each tensor one element into its storage,
 # off 16-byte alignment
@@ -1314,7 +1422,7 @@ WIDE_CASES = {
     "bf16_d80_cross": (torch.bfloat16, 80, (1, 4, 4, 128, 400), True, None, "bhsd",
                        "wgmma"),
     "bf16_d256_gqa_8_1": (torch.bfloat16, 256, (1, 8, 1, 384, 384), True, None, "bshd",
-                          ("wgmma", "mma")),
+                          "wgmma"),
     "bf16_d40_ragged": (torch.bfloat16, 40, (2, 4, 2, 300, 300), True, None, "bhsd", "mma"),
     "bf16_d8_non_causal": (torch.bfloat16, 8, (1, 2, 2, 70, 130), False, None, "bhsd",
                            "mma"),

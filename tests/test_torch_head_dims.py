@@ -344,10 +344,10 @@ def test_new_width_llama_logits_match_jax(head_dim):
 
 
 # the same Llamas' gradients, whose backward takes dQ and dK/dV's wgmma
-# kernels at 80 and 100 on the card: jax.value_and_grad of llama_loss
+# kernels at 80, 100 and 256 on the card: jax.value_and_grad of llama_loss
 # (remat) against the port's backward, every leaf, in fp32 (the bound of
 # test_head_dim_48_llama_gradients_match_jax)
-@pytest.mark.parametrize("head_dim", [80, 100])
+@pytest.mark.parametrize("head_dim", [80, 100, 256])
 def test_new_width_llama_gradients_match_jax(head_dim):
     jcfg = _new_width(head_dim)
     jparams = jllama.init_llama(jcfg, jax.random.PRNGKey(11))
@@ -370,31 +370,31 @@ def test_new_width_llama_gradients_match_jax(head_dim):
                                        err_msg=f"layers.{i}.{name}")
 
 
-# StableLM-3B's head dim (80, MHA) on a tiny Llama of 2 layers of 2 heads:
-# two AdamW steps of the port's `build_llama_train_step` against the JAX
-# package's on a one-device mesh, from the same weights (`params_from_jax`)
-# and one numpy-seeded batch, in fp32; on the card both backward kernels of
-# each step take their head-dim-80 wgmma kernels. Losses within
+# StableLM-3B's head dim (80, MHA) and Gemma-2B's (256 over one KV head) on
+# tiny Llamas of 2 layers of 2 heads: two AdamW steps of the port's
+# `build_llama_train_step` against the JAX package's on a one-device mesh,
+# from the same weights (`params_from_jax`) and one numpy-seeded batch, in
+# fp32; on the card both backward kernels of each step take their
+# head-dim-80 (head-dim-256) wgmma kernels. Losses within
 # tests/test_torch_train.py's fp32 bound (summation order only); each leaf
 # as tests/test_torch_moe.py's fp32 steps hold it, by rel. L2 and each entry
 # within 2 lr: AdamW's first step moves an entry by lr g / (|g| + eps), so
 # an entry whose gradient is at rounding level moves by up to lr either way
-# in either framework (here the worst leaf's rel. L2 is 5.2e-6, and one
+# in either framework (at 80 the worst leaf's rel. L2 is 5.2e-6, and one
 # w_up entry of 40960 differs by 8.3e-5, every other by <= 1e-5).
 TRAIN_STEPS = 2
 TRAIN_LR = 3e-4
 TRAIN_TOL = dict(loss=dict(rtol=1e-5, atol=0), leaf_rel_l2=2e-5, entry=2 * TRAIN_LR)
 
 
-@pytest.fixture(scope="module")
-def trained_d80():
-    """(JAX losses, port losses, JAX final params as numpy, port params)."""
+def _trained(head_dim):
+    """(JAX losses, port losses, JAX final params as numpy, port params)
+    after TRAIN_STEPS steps of `_new_width(head_dim)`."""
     from yoda_scheduler_tpu.parallel import build_llama_train_step as jax_build
     from yoda_scheduler_tpu.parallel import make_mesh
     from yoda_scheduler_tpu_torch.parallel import build_llama_train_step, init_opt_state
 
-    jcfg = _new_width(80)
-    assert jcfg.n_kv_heads == jcfg.n_heads
+    jcfg = _new_width(head_dim)
     init_fn, step_fn, _ = jax_build(jcfg, make_mesh({}, devices=jax.devices()[:1]))
     jparams, jopt = init_fn(jax.random.PRNGKey(13))
     tparams = _port_params(jcfg, jparams)
@@ -410,21 +410,53 @@ def trained_d80():
     return jlosses, tlosses, jax.tree.map(np.asarray, jparams), tparams
 
 
-def test_d80_train_losses_match_jax(trained_d80):
-    jlosses, tlosses, _, _ = trained_d80
+@pytest.fixture(scope="module")
+def trained_d80():
+    jcfg = _new_width(80)
+    assert jcfg.n_kv_heads == jcfg.n_heads
+    return _trained(80)
+
+
+@pytest.fixture(scope="module")
+def trained_d256():
+    assert _new_width(256).n_kv_heads == 1
+    return _trained(256)
+
+
+def _assert_losses_match(trained):
+    jlosses, tlosses, _, _ = trained
     np.testing.assert_allclose(tlosses, jlosses, **TRAIN_TOL["loss"])
     assert tlosses[1] < tlosses[0]
 
 
-def test_d80_trained_weights_match_jax(trained_d80):
-    _, _, jparams, tparams = trained_d80
+def test_d80_train_losses_match_jax(trained_d80):
+    _assert_losses_match(trained_d80)
+
+
+def test_d256_train_losses_match_jax(trained_d256):
+    _assert_losses_match(trained_d256)
+
+
+def _assert_weights_match(trained, qkv_shapes):
+    """Every leaf's dtype, rel. L2 and largest entry error (TRAIN_TOL), and
+    the attention projections' shapes."""
+    _, _, jparams, tparams = trained
     pairs = [(f"layers.{i}.{n}", t, jparams["layers"][n][i])
              for i, layer in enumerate(tparams["layers"]) for n, t in layer.items()]
     pairs += [(n, tparams[n], jparams[n]) for n in ("embed", "final_norm", "lm_head")]
-    assert {tuple(t.shape) for n, t, _ in pairs if n.endswith((".wq", ".wk", ".wv"))} == {
-        (160, 160)}
+    assert {tuple(t.shape) for n, t, _ in pairs
+            if n.endswith((".wq", ".wk", ".wv"))} == qkv_shapes
     for name, t, want in pairs:
         assert t.dtype == getattr(torch, str(want.dtype)), name
         err = _np(t) - want
         assert np.linalg.norm(err) / np.linalg.norm(want) < TRAIN_TOL["leaf_rel_l2"], name
         assert np.abs(err).max() <= TRAIN_TOL["entry"], name
+
+
+def test_d80_trained_weights_match_jax(trained_d80):
+    _assert_weights_match(trained_d80, {(160, 160)})
+
+
+def test_d256_trained_weights_match_jax(trained_d256):
+    """At 256 over one KV head wq is [512, 512] and wk, wv [512, 256]."""
+    _assert_weights_match(trained_d256, {(512, 512), (512, 256)})

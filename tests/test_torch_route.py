@@ -86,12 +86,12 @@ def test_route_follows_the_inputs(case):
 
 
 # the head dims each kernel has a wgmma kernel for (csrc/), by dtype: every
-# kernel at 64, 80, 96 and 128 in bf16, and at 128 in fp16; the forward at
-# 256 in bf16 and at 64 in fp16 too (and every kernel at 100, whose rows are
-# not 16-byte aligned: not among these, which mma takes too)
+# kernel at 64, 80, 96, 128 and 256 in bf16, and at 128 in fp16; the
+# forward at 64 in fp16 too (and every kernel at 100, whose rows are not
+# 16-byte aligned: not among these, which mma takes too)
 WGMMA_TAKES = {torch.bfloat16: {"flash_fwd": (64, 80, 96, 128, 256),
-                                "flash_bwd_dq": (64, 80, 96, 128),
-                                "flash_bwd_dkv": (64, 80, 96, 128)},
+                                "flash_bwd_dq": (64, 80, 96, 128, 256),
+                                "flash_bwd_dkv": (64, 80, 96, 128, 256)},
                torch.float16: {"flash_fwd": (64, 128), "flash_bwd_dq": (128,),
                                "flash_bwd_dkv": (128,)}}
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
@@ -109,9 +109,8 @@ def _assert_wgmma_admits(kernel, d, dtype, wgmma):
     (kernel, d, d in WGMMA_TAKES[torch.bfloat16][kernel])
     for kernel in KERNELS for d in HEAD_DIMS])
 def test_wgmma_admits_each_kernels_head_dims(kernel, d, wgmma):
-    """wgmma takes head dims 64, 80, 96 and 128 in bf16 for each kernel,
-    and 256 for the forward (`WGMMA_TAKES`); every aligned bf16 head dim
-    keeps mma, up to 256."""
+    """wgmma takes head dims 64, 80, 96, 128 and 256 in bf16 for each kernel
+    (`WGMMA_TAKES`); every aligned bf16 head dim keeps mma, up to 256."""
     _assert_wgmma_admits(kernel, d, torch.bfloat16, wgmma)
 
 
@@ -228,10 +227,20 @@ BWD_CASES = {
                               "wgmma"),
     "fp16_d96": (lambda: [_bhsd(1, 4, 64, 96, torch.float16)] * 4, "mma"),
     "fp16_d64": (lambda: [_model_view(1, 64, 4, 64, torch.float16)] * 4, "mma"),
-    # head dim 256 (Gemma's): the backward stays on mma, as at fp16 64
+    # head dim 256 (Gemma's, 8 q heads over one KV head): wgmma for rows
+    # aligned as mma's; mma in fp16 and for an empty kv, simt for rows 8
+    # bytes off 16
     "bf16_d256_gqa_model_views": (lambda: [_model_view(1, 64, 8, 256)]
                                   + [_model_view(1, 64, 1, 256)] * 2
-                                  + [_model_view(1, 64, 8, 256)], "mma"),
+                                  + [_model_view(1, 64, 8, 256)], "wgmma"),
+    "bf16_d256_contiguous": (lambda: [_bhsd(1, 8, 64, 256)] + [_bhsd(1, 1, 64, 256)] * 2
+                             + [_bhsd(1, 8, 64, 256)], "wgmma"),
+    "bf16_d256_offset_by_four": (lambda: [_bhsd(1, 8, 64, 256, offset=4)] * 4, "simt"),
+    "bf16_d256_empty_kv": (lambda: [_bhsd(1, 8, 64, 256), _bhsd(1, 1, 0, 256),
+                                    _bhsd(1, 1, 0, 256), _bhsd(1, 8, 64, 256)], "mma"),
+    "fp16_d256_model_views": (lambda: [_model_view(1, 64, 8, 256, torch.float16)]
+                              + [_model_view(1, 64, 1, 256, torch.float16)] * 2
+                              + [_model_view(1, 64, 8, 256, torch.float16)], "mma"),
     # head dim 100 (OpenLLaMA-3B's): wgmma for 8-byte aligned bases and
     # strides that are multiples of 4, simt otherwise, and in fp16
     "bf16_d100": (lambda: [_bhsd(1, 4, 64, 100)] * 4, "wgmma"),
@@ -270,9 +279,9 @@ def test_backward_route_follows_the_inputs(case):
 
 
 # (case, route) both backward kernels must refuse (fp16 has a wgmma backward
-# kernel at head dim 128 alone, for aligned rows; bf16 at 80 none for rows
-# off 16 bytes or an empty kv, and at 100 none for rows off 8 bytes, strides
-# off 4 elements or an empty kv)
+# kernel at head dim 128 alone, for aligned rows; bf16 at 80 and 256 none
+# for rows off 16 bytes or an empty kv, and at 100 none for rows off 8
+# bytes, strides off 4 elements or an empty kv)
 BWD_REFUSALS = [("fp32_d128", "wgmma"), ("fp32_d128", "mma"), ("bf16_d32", "wgmma"),
                 ("do_offset_by_one", "mma"), ("do_odd_seq_stride", "wgmma"),
                 ("empty_kv", "wgmma"), ("bf16_d128", "tma"), ("fp16_d80", "wgmma"),
@@ -282,7 +291,9 @@ BWD_REFUSALS = [("fp32_d128", "wgmma"), ("fp32_d128", "mma"), ("bf16_d32", "wgmm
                 ("bf16_d80_offset_by_four", "mma"), ("bf16_d80_empty_kv", "wgmma"),
                 ("bf16_d100_offset_by_one", "wgmma"), ("bf16_d100_do_offset_by_two", "wgmma"),
                 ("bf16_d100_odd_seq_stride", "wgmma"), ("bf16_d100_empty_kv", "wgmma"),
-                ("fp16_d100", "wgmma"), ("bf16_d256_gqa_model_views", "wgmma")]
+                ("fp16_d100", "wgmma"), ("fp16_d256_model_views", "wgmma"),
+                ("bf16_d256_offset_by_four", "wgmma"), ("bf16_d256_offset_by_four", "mma"),
+                ("bf16_d256_empty_kv", "wgmma")]
 
 
 @pytest.mark.parametrize("fn,case,route", [
@@ -412,12 +423,13 @@ def test_the_fp16_models_backward_lands_on_wgmma(monkeypatch):
 
 
 @pytest.mark.parametrize("d,route", [(64, "wgmma"), (128, "wgmma"), (32, "mma"),
-                                     (96, "wgmma"), (100, "wgmma"), (80, "wgmma")])
+                                     (96, "wgmma"), (100, "wgmma"), (80, "wgmma"),
+                                     (256, "wgmma")])
 def test_the_smokes_routes_are_the_routes_picks(d, route):
     """chip_smoke's one expectation of the routes at a SHAPES row
     (`shape_routes`) against `_route` on the model's views at head dim `d`:
-    at 64, 80, 96, 100 and 128 every kernel on wgmma, dQ's among them; at
-    32, which no wgmma kernel takes, every kernel on mma."""
+    at 64, 80, 96, 100, 128 and 256 every kernel on wgmma, dQ's among them;
+    at 32, which no wgmma kernel takes, every kernel on mma."""
     import chip_smoke
 
     want = chip_smoke.shape_routes(route)
@@ -544,10 +556,10 @@ def _wide_rows():
 @pytest.mark.parametrize("row", _wide_rows(), ids=lambda row: row[0])
 def test_the_smokes_wide_rows_take_their_routes(row):
     """Each row chip_smoke adds at the new head dims and in fp16 names the
-    route `_route` picks for each kernel there: wgmma at head dims 80, 96
-    and 100 in bf16 and in fp16 at 128 aligned, for every kernel, and for
-    the forward alone at 256 in bf16 and at 64 in fp16 (not one element into
-    its storage)."""
+    route `_route` picks for each kernel there: wgmma at head dims 80, 96,
+    100 and 256 in bf16 and in fp16 at 128 aligned, for every kernel, and
+    for the forward alone at 64 in fp16 (not one element into its
+    storage)."""
     import chip_smoke
 
     q, k, v, do = _smoke_row_tensors(row)
@@ -557,8 +569,8 @@ def test_the_smokes_wide_rows_take_their_routes(row):
         assert attn._route(name, q, k, v, do) == want[name]
     aligned_bf16 = row[9] == torch.bfloat16 and row[10] != "offset1"
     aligned_fp16 = row[9] == torch.float16 and row[10] != "offset1"
-    every = (row[6] in (80, 96, 100) and aligned_bf16) or (row[6] == 128 and aligned_fp16)
-    fwd_alone = (row[6] == 256 and aligned_bf16) or (row[6] == 64 and aligned_fp16)
+    every = (row[6] in (80, 96, 100, 256) and aligned_bf16) or (row[6] == 128 and aligned_fp16)
+    fwd_alone = row[6] == 64 and aligned_fp16
     assert ("wgmma" in attn._routes("flash_fwd", q, k, v)) == (every or fwd_alone)
     assert ("wgmma" in attn._routes("flash_bwd_dkv", q, k, v, do)) == every
     assert ("wgmma" in attn._routes("flash_bwd_dq", q, k, v, do)) == every
@@ -712,15 +724,15 @@ def test_the_new_width_forwards_expect_every_launch_on_wgmma():
 
 
 def test_shape_routes_takes_a_forward_and_backward_pair():
-    """A SHAPES row at 256 (and in fp16 at 64) names the forward's route and
-    the backward kernels' apart, and one at 80 or 100 one route for all
-    three; the smoke's forward turn rows are among its wide rows, each with
-    a route before wgmma to be timed against (simt at 100, mma elsewhere);
-    its backward turn rows are the four at 80 and 100, where dQ and dK/dV
-    took mma and simt before their wgmma kernels, timed beside SDPA's
-    default backend (cuDNN) at 80 and its flash backend at 100, and the
-    three rows whose backward has no wgmma kernel yet (256, fp16 at 64),
-    timed on mma beside SDPA's default backend."""
+    """A SHAPES row in fp16 at 64 names the forward's route and the backward
+    kernels' apart, and one at 80, 100 or 256 one route for all three; the
+    smoke's forward turn rows are among its wide rows, each with a route
+    before wgmma to be timed against (simt at 100, mma elsewhere); its
+    backward turn rows are the five at 80, 100 and 256, where dQ and dK/dV
+    took mma or simt before their wgmma kernels, timed beside SDPA's
+    default backend (cuDNN) at 80 and 256 and its flash backend at 100, and
+    the two rows whose backward has no wgmma kernel yet (fp16 at 64), timed
+    on mma beside SDPA's default backend."""
     import chip_smoke
 
     assert chip_smoke.shape_routes(("wgmma", "simt")) == {
@@ -734,7 +746,8 @@ def test_shape_routes_takes_a_forward_and_backward_pair():
     for name in chip_smoke.FWD_TURN_SHAPES:
         old = "simt" if rows[name][6] == 100 else "mma"
         q, k, v, _ = _smoke_row_tensors(rows[name])
-        assert rows[name][-1] == ("wgmma" if rows[name][6] in (80, 100) else ("wgmma", old))
+        assert rows[name][-1] == ("wgmma" if rows[name][6] in (80, 100, 256)
+                                  else ("wgmma", old))
         assert attn._routes("flash_fwd", q, k, v)[-2:] == (old, "wgmma")
     turns = chip_smoke.BWD_TURN_SHAPES
     assert set(turns) == set(chip_smoke.FWD_TURN_SHAPES) | {"opt13b_d64_bshd"}
@@ -743,7 +756,8 @@ def test_shape_routes_takes_a_forward_and_backward_pair():
         d = rows[name][6]
         assert backend == ("flash" if d == 100 else "default"), name
         q, k, v, do = _smoke_row_tensors(rows[name])
-        want = {80: ("simt", "mma", "wgmma"), 100: ("simt", "wgmma")}.get(d, ("simt", "mma"))
+        want = {80: ("simt", "mma", "wgmma"), 100: ("simt", "wgmma"),
+                256: ("simt", "mma", "wgmma")}.get(d, ("simt", "mma"))
         for kernel in BWD_KERNELS:
             assert attn._routes(kernel, q, k, v, do) == want, name
 
@@ -797,7 +811,8 @@ def test_openllama3b_gradient_and_train_expect_every_launch_on_wgmma():
 
 
 # head dim 256 in bf16 (Gemma's) and 64 in fp16 (OPT-1.3B's): the forward has
-# a wgmma kernel at each; dQ and dK/dV none (mma), and unaligned rows fall to
+# a wgmma kernel at each; dQ and dK/dV at 256 in bf16 too (since their
+# head-dim-256 kernels), at 64 in fp16 none (mma); unaligned rows fall to
 # simt as before
 @pytest.mark.parametrize("layout", ["bhsd", "bshd"])
 @pytest.mark.parametrize("d,dtype", [(256, torch.bfloat16), (64, torch.float16)])
@@ -805,22 +820,25 @@ def test_the_forward_alone_takes_wgmma_at_256_and_fp16_64(d, dtype, layout):
     q, k, v, do = ([_bhsd(1, 8, 64, d, dtype)] if layout == "bhsd"
                    else [_model_view(1, 64, 8, d, dtype)]) * 4
     assert attn._routes("flash_fwd", q, k, v) == ("simt", "mma", "wgmma")
+    bwd = ("simt", "mma", "wgmma") if d == 256 else ("simt", "mma")
     for kernel in BWD_KERNELS:
-        assert attn._routes(kernel, q, k, v, do) == ("simt", "mma")
+        assert attn._routes(kernel, q, k, v, do) == bwd
     off = _bhsd(1, 8, 64, d, dtype, offset=1)
     assert attn._routes("flash_fwd", off, off, off) == ("simt",)
 
 
-@pytest.mark.parametrize("dim,dtype", [(512, "bfloat16"), (128, "float16")])
-def test_the_models_forward_at_256_and_fp16_64(monkeypatch, dim, dtype):
+@pytest.mark.parametrize("dim,dtype,bwd", [(512, "bfloat16", "wgmma"),
+                                           (128, "float16", "mma")])
+def test_the_models_forward_at_256_and_fp16_64(monkeypatch, dim, dtype, bwd):
     """A layer at head_dim 256 over one KV head in bf16 (Gemma's), and at 64
     in fp16 (OPT-1.3B's) (`_a_models_launch_routes`): both forward launches
-    take wgmma, and the backward launchers mma."""
+    take wgmma, and the backward launchers their head-dim-256 wgmma kernels
+    in bf16 and mma in fp16."""
     cfg = _one_layer(dim, dtype)
     assert cfg.head_dim == dim // 2 and cfg.n_kv_heads == 1
     assert _a_models_launch_routes(monkeypatch, cfg) == [
-        ("flash_fwd", "wgmma"), ("flash_fwd", "wgmma"), ("flash_bwd_dq", "mma"),
-        ("flash_bwd_dkv", "mma")]
+        ("flash_fwd", "wgmma"), ("flash_fwd", "wgmma"), ("flash_bwd_dq", bwd),
+        ("flash_bwd_dkv", bwd)]
 
 
 def test_the_gemma_and_opt_configs_have_their_published_widths():
@@ -845,16 +863,16 @@ def test_d256_and_fp16_d64_forward_on_mma_move_the_forward_alone_and_restore():
     """`profile_path.d256_forward_on_mma` and `fp16_d64_forward_on_mma`, the
     route sets the Gemma-2B and OPT-1.3B forwards are timed against: within
     each the forward at its width and dtype takes mma, while the backward
-    keeps mma, the other dtype at that width keeps its wgmma forward and
-    head dim 128 keeps wgmma; after it `_WGMMA_HEAD_DIMS` is exactly what it
-    was."""
+    keeps its route (wgmma at 256 in bf16, mma at 64 in fp16), the other
+    dtype at that width keeps its wgmma forward and head dim 128 keeps
+    wgmma; after it `_WGMMA_HEAD_DIMS` is exactly what it was."""
     from yoda_scheduler_tpu_torch.profile_path import (d256_forward_on_mma,
                                                        fp16_d64_forward_on_mma)
 
     saved = {key: dims for key, dims in attn._WGMMA_HEAD_DIMS.items()}
-    for routes, d, dtype, other in ((d256_forward_on_mma, 256, torch.bfloat16, None),
-                                    (fp16_d64_forward_on_mma, 64, torch.float16,
-                                     torch.bfloat16)):
+    for routes, d, dtype, other, bwd in (
+            (d256_forward_on_mma, 256, torch.bfloat16, None, "wgmma"),
+            (fp16_d64_forward_on_mma, 64, torch.float16, torch.bfloat16, "mma")):
         t = [_model_view(1, 64, 8, d, dtype)] * 4
         rest = [[_model_view(1, 64, 8, 128, dt)] * 3 for dt in (torch.bfloat16, torch.float16)]
         if other is not None:
@@ -862,7 +880,7 @@ def test_d256_and_fp16_d64_forward_on_mma_move_the_forward_alone_and_restore():
         with routes():
             assert attn._route("flash_fwd", *t[:3]) == "mma"
             for name in BWD_KERNELS:
-                assert attn._route(name, *t) == "mma"
+                assert attn._route(name, *t) == bwd
             for r in rest:
                 assert attn._route("flash_fwd", *r) == "wgmma"
         assert attn._WGMMA_HEAD_DIMS == saved
@@ -892,28 +910,34 @@ def test_the_gemma_and_opt_forwards_expect_every_launch_on_wgmma():
         assert f'("{phase}", ' in main and f'("forward_on_mma", {manager})' in main
     assert {"flash_fwd_wgmma256_kernel", "flash_fwd_wgmma64_f16_kernel"} <= set(
         chip_smoke.WGMMA_KERNELS)
-    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 20
+    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 22
 
 
 def test_the_smokes_new_rows_at_256_and_fp16_64():
     """chip_smoke's rows at head dim 256 (Gemma-2B's and Gemma-7B's
-    attention, ragged, cross-length, non-causal) and in fp16 at 64
-    (OPT-1.3B's, bench_mfu's d1024 widths, ragged GQA) name the forward on
-    wgmma and the backward on mma, are held on every route (wide rows), and
-    the models' rows are timed in turns against mma (forward turn rows)."""
+    attention, Gemma-2-9B's grouping with a window, ragged, cross-length,
+    non-causal) name every
+    kernel on wgmma, and those in fp16 at 64 (OPT-1.3B's, bench_mfu's d1024
+    widths, ragged GQA) the forward on wgmma and the backward on mma; all
+    are held on every route (wide rows), and the models' rows are timed in
+    turns against mma (forward turn rows; at 256 the backward's too)."""
     import chip_smoke
 
     rows = {row[0]: row for row in chip_smoke.SHAPES}
-    new = {"gemma_d256", "gemma7b_d256", "ragged_d256", "cross_d256", "noncausal_d256",
-           "fp16_d1024_bshd", "opt13b_d64_bshd", "fp16_ragged_d64"}
-    assert new <= set(chip_smoke.WIDE_SHAPES)
-    for name in new:
-        assert rows[name][-1] == ("wgmma", "mma"), name
+    d256 = {"gemma_d256", "gemma7b_d256", "gemma2_window_d256", "ragged_d256", "cross_d256",
+            "noncausal_d256"}
+    fp16_d64 = {"fp16_d1024_bshd", "opt13b_d64_bshd", "fp16_ragged_d64"}
+    assert d256 == {n for n, row in rows.items() if row[6] == 256 and row[9] == torch.bfloat16}
+    assert d256 | fp16_d64 <= set(chip_smoke.WIDE_SHAPES)
+    for name in d256 | fp16_d64:
+        assert rows[name][-1] == ("wgmma" if name in d256 else ("wgmma", "mma")), name
         assert (rows[name][6], rows[name][9]) in ((256, torch.bfloat16), (64, torch.float16))
     assert rows["gemma7b_d256"][1:7] == (1, 16, 16, 2048, 2048, 256)
+    assert rows["gemma2_window_d256"][1:9] == (1, 16, 8, 2048, 2048, 256, True, 512)
     assert rows["opt13b_d64_bshd"][1:7] == (1, 32, 32, 2048, 2048, 64)
     assert not rows["noncausal_d256"][7] and rows["cross_d256"][4] < rows["cross_d256"][5]
     assert {"gemma_d256", "fp16_d1024_bshd"} <= set(chip_smoke.FWD_TURN_SHAPES)
+    assert "gemma_d256" in chip_smoke.BWD_TURN_SHAPES and "gemma_d256" in chip_smoke.BWD_G_LSE
 
 
 def test_d80_backward_on_mma_moves_the_backward_alone_and_restores():
@@ -991,3 +1015,61 @@ def test_the_smokes_new_rows_at_80():
     assert rows["ragged_d80"][1:6] == (2, 8, 4, 300, 300)
     assert rows["cross_length_d80"][4:6] == (256, 1024) and not rows["non_causal_d80"][7]
     assert {"gqa_d80", "ragged_d80"} <= chip_smoke.BWD_G_LSE
+
+
+def test_d256_backward_on_mma_moves_the_backward_alone_and_restores():
+    """`profile_path.d256_backward_on_mma`, the route set Gemma-2B's gradient
+    and train step are timed against: within it head dim 256 takes mma for
+    dQ and dK/dV while the forward keeps wgmma, and head dims 80 and 128
+    keep wgmma for every kernel; after it `_WGMMA_HEAD_DIMS` is exactly what
+    it was, and the backward at 256 takes wgmma again."""
+    from yoda_scheduler_tpu_torch.profile_path import d256_backward_on_mma
+
+    saved = {key: dims for key, dims in attn._WGMMA_HEAD_DIMS.items()}
+    t = [_model_view(1, 64, 8, 256)] + [_model_view(1, 64, 1, 256)] * 2 + [
+        _model_view(1, 64, 8, 256)]
+    others = [[_model_view(1, 64, 4, d)] * 4 for d in (80, 128)]
+    with d256_backward_on_mma():
+        assert attn._route("flash_fwd", *t[:3]) == "wgmma"
+        for name in BWD_KERNELS:
+            assert attn._route(name, *t) == "mma"
+            for other in others:
+                assert attn._route(name, *other) == "wgmma"
+    assert attn._WGMMA_HEAD_DIMS == saved
+    for name in BWD_KERNELS:
+        assert attn._route(name, *t) == "wgmma"
+
+
+def test_gemma2b_gradient_and_train_expect_every_launch_on_wgmma():
+    """chip_smoke's expected launches of gemma2b_gradient (4 layers: 8/4/4)
+    and of a gemma2b_train step (all 18 layers, the forward twice a layer
+    under remat and each backward kernel once: 36/18/18), all on wgmma, as
+    `_route` picks them on the model's views at head dim 256 over one KV
+    head; both phases run timed in turns against `d256_backward_on_mma` and
+    appear in the kernels line's launches by path; the build expects both
+    new kernels."""
+    import inspect
+
+    import chip_smoke
+    from yoda_scheduler_tpu_torch.profile_path import gemma_2b
+
+    cfg = gemma_2b()
+    assert chip_smoke.step_routes("wgmma", cfg.n_layers) == {
+        "flash_fwd": {"wgmma": 36}, "flash_bwd_dq": {"wgmma": 18},
+        "flash_bwd_dkv": {"wgmma": 18}}
+    assert chip_smoke.step_routes("wgmma", 4) == {
+        "flash_fwd": {"wgmma": 8}, "flash_bwd_dq": {"wgmma": 4},
+        "flash_bwd_dkv": {"wgmma": 4}}
+    q, do = [_model_view(1, 64, cfg.n_heads, cfg.head_dim)] * 2
+    k = v = _model_view(1, 64, cfg.n_kv_heads, cfg.head_dim)
+    assert attn._route("flash_fwd", q, k, v) == "wgmma"
+    for name in BWD_KERNELS:
+        assert attn._route(name, q, k, v, do) == "wgmma"
+    main = inspect.getsource(chip_smoke.main)
+    for path in ("gemma2b_gradient", "gemma2b_train_step"):
+        assert main.count(f'"{path}": gemma_') == 2, path
+    for phase in ("gemma2b_gradient", "gemma2b_train"):
+        assert f'phase="{phase}"' in main, phase
+    assert '"backward_on_mma": d256_backward_on_mma' in main
+    assert {"flash_bwd_dq_wgmma256_kernel", "flash_bwd_dkv_wgmma256_kernel"} <= set(
+        chip_smoke.WGMMA_KERNELS)

@@ -40,7 +40,9 @@
 //   route 2 in fp16 at D = 128 (Llama-2's published dtype), the D = 128
 //   kernels' bodies on fp16 operands; flash_bwd_dkv_wgmma64_kernel and
 //   flash_bwd_dq_wgmma64_kernel are route 2 at D = 64 (bench_mfu's d1024
-//   widths), each with its own note. Route 2 refuses every other D, and fp16
+//   widths), and flash_bwd_dq_wgmma256_kernel and
+//   flash_bwd_dkv_wgmma256_kernel at D = 256 (Gemma's attention, tiles of 64
+//   rows), each with its own note. Route 2 refuses every other D, and fp16
 //   at any D but 128 (it runs on mma).
 // - *_mma kernels (route 1; aligned bf16 and fp16, D a multiple of 8 up to
 //   256; they take bf16 at D = 64 and 128 too, to be held against the wgmma
@@ -1823,6 +1825,458 @@ __global__ void __launch_bounds__((Q64_CONS + 1) * WG_THREADS, 1) flash_bwd_dq_w
   }
 }
 
+// ---- the dQ and dK/dV wgmma kernels at head dim 256 (bf16: Gemma's attention)
+// A 256-wide row is four 128-byte boxes, so a 64-row tile is 32 KB and the
+// D = 128 plans fit neither shared memory nor registers: 128 resident rows
+// (64 KB a tile) beside two stages of 64 streamed rows of two tiles (128
+// KB) pass the 227 KB, and a warpgroup's dK and dV sums of all 256 columns
+// would be 256 fp32 a thread. Here every tile is 64 rows: the block's own
+// pair (K and V, or Q and dO) takes 64 KB and two stages of the streamed
+// pair 128 KB. Products over the head dim (S, dP and their transposes) are
+// 16 SS m64n64k16 k-steps, four in each box of both 64-row operands, whose
+// boxes lie 8 KB apart (`scores256`); the sums over 256 columns are two RS
+// m64n128k16 products a k-step over the MN-major streamed tile's column
+// halves, boxes 0-1 and 2-3 (`sum256`), as flash_fwd_wgmma256_kernel's P V.
+// Both kernels keep every sum in one warpgroup's registers (128 fp32 a
+// thread beside the two 32-float score tiles) and split the work between
+// their two consumer warpgroups without adding to it:
+// - flash_bwd_dkv_wgmma256_kernel: a block is one (b, q head) and 64 keys.
+//   Warpgroup 1 computes S^T = K Q^T, forms P^T and adds dV += P^T dO;
+//   warpgroup 2 computes dP^T = V dO^T, forms dS^T from the P^T that
+//   warpgroup 1 hands it through shared memory (16 KB of fp32, each
+//   thread's 32 values at the same place for the thread of the other
+//   warpgroup that holds the same elements; a "full" and an "empty"
+//   mbarrier a tile) and adds dK += dS^T Q. Four 64 x 64 x 256 products a
+//   tile, where splitting dK's and dV's columns would recompute S^T and
+//   dP^T in both warpgroups (six) and one warpgroup a sum each with S^T in
+//   both five. Q and dO of 64 rows stream through two stages with their
+//   LSE and delta, as in dkv_wgmma_body.
+// - flash_bwd_dq_wgmma256_kernel: a block is one (b, q head) and 64 q rows.
+//   Both consumer warpgroups hold the same rows and take alternate key
+//   tiles, each stage its own warpgroup's (the producer's warps 0 and 1
+//   feed one stage each), each with its own dQ sum; at the end the second
+//   adds its sum to the first's through its stage's shared memory, in one
+//   order, so the bits repeat. S = Q K^T, dP = dO V^T, dQ += dS K with K
+//   the MN-major B.
+// Grids of 64 rows give Gemma-2B's attention (B=1, 8 q heads, S=2048) 256
+// blocks, two per SM and a tail, where 128-row blocks would be one wave
+// that its longest block sets (PERF.md: the forward's d=256 finding); the
+// longest blocks go first. There dQ does ~25.8 GFLOP against ~12 MB and
+// dK/dV ~34.4 GFLOP against ~26 MB, bound by operations (~26 and ~35 us at
+// 989 TF/s).
+constexpr int W256_BOX = 64 * 128;         // bytes of one 64-column box of a 64-row tile
+constexpr int W256_TILE = 4 * W256_BOX;    // a 64 x 256 tile of bf16, 32 KB
+constexpr int W256_PAIR = 2 * W256_TILE;   // the block's own pair, and a stage's
+// dK/dV: K, V, then per stage Q and dO, then per stage LSE (log2 units) and
+// delta (64 fp32 each), then P^T's hand-over (64 x 64 fp32), then the
+// barriers (K/V full, the stages' full and empty, P^T's full and empty)
+constexpr int DKV256_STATS = W256_PAIR + W_STAGES * W256_PAIR;
+constexpr int DKV256_XCHG = DKV256_STATS + W_STAGES * 128 * 4;
+constexpr int DKV256_BARS = DKV256_XCHG + 64 * 64 * 4;
+constexpr int DKV256_SMEM = DKV256_BARS + 8 * (3 + 2 * W_STAGES) + 1024;  // + alignment slack
+// dQ: Q, dO, then per stage K and V, then the barriers
+constexpr int DQ256_BARS = W256_PAIR + W_STAGES * W256_PAIR;
+constexpr int DQ256_SMEM = DQ256_BARS + 8 * (1 + 2 * W_STAGES) + 1024;
+
+// d = A B^T over the head dim, A and B K-major 64 x 256 tiles (four boxes 8
+// KB apart): 16 SS m64n64k16 k-steps, k-step kk 32 (kk % 4) bytes into box
+// kk / 4 of each; the caller fences, commits and waits
+__device__ __forceinline__ void scores256(float (&d)[32], const unsigned char* a,
+                                          const unsigned char* b) {
+  const uint64_t da = hopper::desc_kmajor(a), db = hopper::desc_kmajor(b);
+#pragma unroll
+  for (int kk = 0; kk < 16; ++kk) {
+    const uint64_t step = (uint64_t)(((kk / 4) * W256_BOX + (kk % 4) * 32) >> 4);
+    hopper::wgmma_m64n64k16_ss<0, 0>(d, da + step, db + step, kk > 0);
+  }
+}
+
+// acc += A B, A 64 x 64 from registers (4 k-steps of 16 rows of B, the RS
+// form's layout) and B a 64 x 256 MN-major tile: per k-step two RS
+// m64n128k16 over B's column halves, 16 KB apart (its boxes LBO = 8 KB
+// apart; a k-step 2048 bytes); acc[hf] holds columns 128 hf .. 128 hf + 127
+// in the m64n128 layout. The caller fences, commits and waits.
+__device__ __forceinline__ void sum256(float (&acc)[2][64], const uint32_t (&a)[4][4],
+                                       const unsigned char* b) {
+  const uint64_t db = hopper::desc_mnmajor(b, W256_BOX);
+#pragma unroll
+  for (int k4 = 0; k4 < 4; ++k4) {
+    hopper::wgmma_m64n128k16_rs<1>(acc[0], a[k4], db + ((k4 * 2048) >> 4), 1);
+    hopper::wgmma_m64n128k16_rs<1>(acc[1], a[k4], db + ((2 * W256_BOX + k4 * 2048) >> 4), 1);
+  }
+}
+
+// the four boxes of rows [row0, row0 + 64) of a 256-wide map into `tile`
+__device__ __forceinline__ void tma_tile256(unsigned char* tile, const CUtensorMap* map,
+                                            uint64_t* bar, int row0, int head, int b) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) hopper::tma_load_4d(tile + W256_BOX * c, map, bar, 64 * c, row0, head, b);
+}
+
+// this thread's row r (r = 0, 1: row 16 warp + g + 8 r of the warpgroup's
+// 64) of two m64n128 sums, times `mul`, in bf16 at `out`, the row's column
+// 2 t4: its columns 128 hf + 8 j + 2 t4 and the next
+__device__ __forceinline__ void store_row256(__nv_bfloat16* out, const float (&acc)[2][64],
+                                             int r, float mul) {
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      *reinterpret_cast<uint32_t*>(out + 128 * hf + 8 * j) =
+          pack_bf16(acc[hf][4 * j + 2 * r] * mul, acc[hf][4 * j + 2 * r + 1] * mul);
+}
+
+__global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma256_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+    const float* __restrict__ out_scale, int H, int KvH, int Sq, int Sk, int causal,
+    int window, float scale) {
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  unsigned char* sK = smem;
+  unsigned char* sV = smem + W256_TILE;
+  float* stats = reinterpret_cast<float*>(smem + DKV256_STATS);
+  float4* xchg = reinterpret_cast<float4*>(smem + DKV256_XCHG);
+  uint64_t* full_kv = reinterpret_cast<uint64_t*>(smem + DKV256_BARS);
+  uint64_t* full = full_kv + 1;
+  uint64_t* empty = full + W_STAGES;
+  uint64_t* p_full = empty + W_STAGES;
+  uint64_t* p_empty = p_full + 1;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int kvh = h / (H / KvH);
+  const int k0 = blockIdx.y * 64;  // low key blocks have the most q tiles: first
+  int first, last;
+  q_tiles(k0, 64, 64, Sq, Sk, causal, window, first, last);
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_kv, 1);
+    for (int s = 0; s < W_STAGES; ++s) {
+      mbar_init(&full[s], 1 + 32);  // the TMA's expect_tx, and the 32 lanes staging LSE/delta
+      mbar_init(&empty[s], 2 * WG_THREADS);
+    }
+    mbar_init(p_full, WG_THREADS);
+    mbar_init(p_empty, WG_THREADS);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < WG_THREADS) {
+    // ---- producer: lane 0 issues every TMA load, the first warp stages
+    // LSE and delta with plain loads
+    setmaxnreg_dec<24>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(full_kv, W256_PAIR);
+        tma_tile256(sK, &tm_k, full_kv, k0, kvh, b);
+        tma_tile256(sV, &tm_v, full_kv, k0, kvh, b);
+      }
+      const float* lse_bh = lse + (int64_t)bh * Sq;
+      const float* delta_bh = delta + (int64_t)bh * Sq;
+      for (int t = first, i = 0; t < last; ++t, ++i) {
+        const int s = i % W_STAGES;
+        const int q0 = t * 64;
+        mbar_wait(&empty[s], ((i / W_STAGES) & 1) ^ 1);
+        if (lane == 0) {
+          unsigned char* sQ = smem + W256_PAIR + W256_PAIR * s;
+          mbar_arrive_expect_tx(&full[s], W256_PAIR);
+          tma_tile256(sQ, &tm_q, &full[s], q0, h, b);
+          tma_tile256(sQ + W256_TILE, &tm_do, &full[s], q0, h, b);
+        }
+        // rows past Sq get 0 here and are masked by the consumers
+        float* st = stats + 128 * s;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = lane + 32 * half;
+          const bool in = q0 + r < Sq;
+          st[r] = in ? lse_bh[q0 + r] * LOG2E : 0.f;
+          st[64 + r] = in ? delta_bh[q0 + r] : 0.f;
+        }
+        mbar_arrive(&full[s]);
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup 1 S^T, P^T and dV; warpgroup 2 dP^T, dS^T
+    // and dK; both over the block's 64 keys
+    setmaxnreg_inc<240>();
+    const bool dv_side = threadIdx.x < 2 * WG_THREADS;
+    const int tid = threadIdx.x % WG_THREADS;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int kv_offset = Sk - Sq;
+    const int key0 = k0 + 16 * warp + g;  // this thread's keys: key0, key0 + 8
+    const float c = scale * LOG2E;        // raw score -> log2 units
+    float acc[2][64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[0][i] = acc[1][i] = 0.f;
+
+    mbar_wait(full_kv, 0);
+    int handed = 0;  // tiles whose P^T passed between the warpgroups
+    for (int t = first, i = 0; t < last; ++t, ++i) {
+      const int s = i % W_STAGES;
+      const int q0 = t * 64;
+      const int p_first = kv_offset + q0;
+      const int p_last = kv_offset + min(q0 + 63, Sq - 1);
+      mbar_wait(&full[s], (i / W_STAGES) & 1);
+      // a tile masked for every key of the block is only released, by both
+      if (causal && (k0 > p_last || (window > 0 && k0 + 63 <= p_first - window))) {
+        mbar_arrive(&empty[s]);
+        continue;
+      }
+      unsigned char* sQ = smem + W256_PAIR + W256_PAIR * s;
+      unsigned char* sDO = sQ + W256_TILE;
+      const float* st = stats + 128 * s;
+
+      // S^T = K Q^T (dV's side) or dP^T = V dO^T (dK's); element 4 j + e
+      // is key key0 + 8 (e / 2), q row q0 + 8 j + 2 t4 + (e % 2)
+      float sc[32];
+      wgmma_fence();
+      scores256(sc, dv_side ? sK : sV, dv_side ? sQ : sDO);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+
+      if (dv_side) {
+        // P^T, handed to the other warpgroup in fp32 as it is
+        const bool need_mask =
+            q0 + 64 > Sq ||
+            (causal && (k0 + 63 > p_first || (window > 0 && k0 <= p_last - window)));
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 l2 = *reinterpret_cast<const float2*>(st + 8 * j + 2 * t4);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float x = sc[4 * j + e];
+            if (need_mask) {
+              const int r = q0 + 8 * j + 2 * t4 + (e & 1);
+              if (!(r < Sq && visible(key0 + 8 * (e >> 1), kv_offset + r, Sk, causal, window)))
+                x = NEG;
+            }
+            sc[4 * j + e] = exp2_ftz(fmaf(x, c, -((e & 1) ? l2.y : l2.x)));
+          }
+        }
+        mbar_wait(p_empty, (handed & 1) ^ 1);
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          xchg[u * WG_THREADS + tid] =
+              make_float4(sc[4 * u], sc[4 * u + 1], sc[4 * u + 2], sc[4 * u + 3]);
+        mbar_arrive(p_full);
+      } else {
+        // dS^T / scale = P^T (dP^T - delta), delta by q row
+        mbar_wait(p_full, handed & 1);
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const float4 p = xchg[u * WG_THREADS + tid];
+          const float2 dl = *reinterpret_cast<const float2*>(st + 64 + 8 * u + 2 * t4);
+          sc[4 * u] = p.x * (sc[4 * u] - dl.x);
+          sc[4 * u + 1] = p.y * (sc[4 * u + 1] - dl.y);
+          sc[4 * u + 2] = p.z * (sc[4 * u + 2] - dl.x);
+          sc[4 * u + 3] = p.w * (sc[4 * u + 3] - dl.y);
+        }
+        mbar_arrive(p_empty);
+      }
+      ++handed;
+      uint32_t a[4][4];
+      to_a_operand(sc, a);
+
+      // dV += P^T dO or dK += dS^T Q: dO and Q are MN-major B operands
+      fence_regs(acc[0]);
+      fence_regs(acc[1]);
+      wgmma_fence();
+      sum256(acc, a, dv_side ? sDO : sQ);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc[0]);
+      fence_regs(acc[1]);
+      mbar_arrive(&empty[s]);
+    }
+
+    // dV (times *out_scale) or dK scale (times it) in bf16, one copy per q
+    // head; acc[hf][4 j + e] is key key0 + 8 (e / 2), head dim 128 hf + 8 j
+    // + 2 t4 + (e % 2)
+    const float os = out_scale ? *out_scale : 1.f;
+    __nv_bfloat16* out = dv_side ? dv : dk;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = key0 + 8 * r;
+      if (key < Sk)
+        store_row256(out + ((int64_t)bh * Sk + key) * 256 + 2 * t4, acc, r,
+                     dv_side ? os : scale * os);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dq_wgmma256_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    __nv_bfloat16* __restrict__ dq, const float* __restrict__ out_scale, int H, int KvH,
+    int Sq, int Sk, int causal, int window, float scale) {
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  unsigned char* sQ = smem;
+  unsigned char* sDO = smem + W256_TILE;
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(smem + DQ256_BARS);
+  uint64_t* full = full_q + 1;
+  uint64_t* empty = full + W_STAGES;
+
+  const int qt = gridDim.y - 1 - blockIdx.y;  // longest causal tiles first
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int kvh = h / (H / KvH);
+  const int q0 = qt * 64;
+  int first, last;
+  key_tiles(q0, 64, 64, Sq, Sk, causal, window, first, last);
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < W_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], WG_THREADS);  // a stage is one warpgroup's
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < WG_THREADS) {
+    // ---- producer: lane 0 of warp w feeds stage w, key tiles first + w,
+    // first + w + 2, ...; warp 0 loads Q and dO first
+    setmaxnreg_dec<24>();
+    const int w = threadIdx.x / 32;
+    if (threadIdx.x % 32 == 0 && w < W_STAGES) {
+      if (w == 0) {
+        mbar_arrive_expect_tx(full_q, W256_PAIR);
+        tma_tile256(sQ, &tm_q, full_q, q0, h, b);
+        tma_tile256(sDO, &tm_do, full_q, q0, h, b);
+      }
+      unsigned char* sK = smem + W256_PAIR + W256_PAIR * w;
+      for (int i = w; first + i < last; i += W_STAGES) {
+        const int k0 = (first + i) * 64;
+        mbar_wait(&empty[w], ((i / W_STAGES) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[w], W256_PAIR);
+        tma_tile256(sK, &tm_k, &full[w], k0, kvh, b);
+        tma_tile256(sK + W256_TILE, &tm_v, &full[w], k0, kvh, b);
+      }
+    }
+  } else {
+    // ---- consumers: the block's 64 q rows each, warpgroup 1 + cw over key
+    // tiles first + cw, first + cw + 2, ... from stage cw
+    setmaxnreg_inc<240>();
+    const int cw = threadIdx.x / WG_THREADS - 1;
+    const int tid = threadIdx.x % WG_THREADS;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int kv_offset = Sk - Sq;
+    const int w_first = kv_offset + q0;
+    const int w_last = kv_offset + min(q0 + 63, Sq - 1);
+    const int row0 = q0 + 16 * warp + g;  // this thread's rows: row0, row0 + 8
+    const float c = scale * LOG2E;
+    float l2[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      l2[r] = row < Sq ? lse[(int64_t)bh * Sq + row] * LOG2E : 0.f;
+      dl[r] = row < Sq ? delta[(int64_t)bh * Sq + row] : 0.f;
+    }
+    float acc[2][64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[0][i] = acc[1][i] = 0.f;
+    unsigned char* sK = smem + W256_PAIR + W256_PAIR * cw;
+    unsigned char* sV = sK + W256_TILE;
+
+    mbar_wait(full_q, 0);
+    for (int i = cw; first + i < last; i += W_STAGES) {
+      const int k0 = (first + i) * 64;
+      mbar_wait(&full[cw], (i / W_STAGES) & 1);
+      // a tile masked for every row of the block is only released
+      if (causal && (k0 > w_last || (window > 0 && k0 + 63 <= w_first - window))) {
+        mbar_arrive(&empty[cw]);
+        continue;
+      }
+
+      // S = Q K^T and dP = dO V^T
+      float sc[32], dp[32];
+      wgmma_fence();
+      scores256(sc, sQ, sK);
+      scores256(dp, sDO, sV);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      // dS / scale; element 4 j + e is row row0 + 8 (e / 2), key k0 + 8 j +
+      // 2 t4 + (e % 2)
+      const bool need_mask =
+          k0 + 64 > Sk ||
+          (causal && (k0 + 63 > w_first || (window > 0 && k0 <= w_last - window)));
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[4 * j + e];
+          if (need_mask && !visible(k0 + 8 * j + 2 * t4 + (e & 1),
+                                    kv_offset + row0 + 8 * (e >> 1), Sk, causal, window))
+            x = NEG;
+          const float p = exp2_ftz(fmaf(x, c, -l2[e >> 1]));
+          dp[4 * j + e] = p * (dp[4 * j + e] - dl[e >> 1]);
+        }
+      }
+      uint32_t sa[4][4];
+      to_a_operand(dp, sa);
+
+      // dQ += dS K: K [keys][256] as the MN-major B
+      fence_regs(acc[0]);
+      fence_regs(acc[1]);
+      wgmma_fence();
+      sum256(acc, sa, sK);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc[0]);
+      fence_regs(acc[1]);
+      mbar_arrive(&empty[cw]);
+    }
+
+    // warpgroup 2's sum joins warpgroup 1's through stage 1, which no load
+    // targets once warpgroup 2 has consumed its last tile: thread tid's 128
+    // floats as 32 float4 at [32 u + v][tid], then warpgroup 1 adds them
+    float4* red = reinterpret_cast<float4*>(smem + 2 * W256_PAIR);
+    if (cw == 1) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+        for (int u = 0; u < 16; ++u)
+          red[(16 * hf + u) * WG_THREADS + tid] =
+              make_float4(acc[hf][4 * u], acc[hf][4 * u + 1], acc[hf][4 * u + 2],
+                          acc[hf][4 * u + 3]);
+    }
+    asm volatile("bar.sync 1, %0;\n" :: "n"(2 * WG_THREADS) : "memory");
+    if (cw == 0) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+        for (int u = 0; u < 16; ++u) {
+          const float4 o = red[(16 * hf + u) * WG_THREADS + tid];
+          acc[hf][4 * u] += o.x;
+          acc[hf][4 * u + 1] += o.y;
+          acc[hf][4 * u + 2] += o.z;
+          acc[hf][4 * u + 3] += o.w;
+        }
+      const float qs = scale * (out_scale ? *out_scale : 1.f);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 8 * r;
+        if (row < Sq) store_row256(dq + ((int64_t)bh * Sq + row) * 256 + 2 * t4, acc, r, qs);
+      }
+    }
+  }
+}
+
 // ---- host side
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta;
@@ -1956,7 +2410,8 @@ BwdRows<__nv_bfloat16> bwd_rows(const Args& a) {
 // 100: flash_bwd_dkv_wgmma96_kernel, flash_bwd_dkv_wgmma80_kernel and
 // flash_bwd_dkv_wgmma100_kernel (which takes the rows themselves, not maps),
 // on the same grid; at D = 64:
-// flash_bwd_dkv_wgmma64_kernel. fp16 (dtype 2) at D = 128:
+// flash_bwd_dkv_wgmma64_kernel; at D = 256: flash_bwd_dkv_wgmma256_kernel,
+// 64 keys a block. fp16 (dtype 2) at D = 128:
 // flash_bwd_dkv_wgmma_f16_kernel, on the D = 128 grid.
 cudaError_t launch_dkv_wgmma(const Args& a, int D, int dtype) {
   static const cudaError_t attr128 = set_smem(flash_bwd_dkv_wgmma_kernel, DKV_SMEM);
@@ -1964,15 +2419,28 @@ cudaError_t launch_dkv_wgmma(const Args& a, int D, int dtype) {
   static const cudaError_t attr80 = set_smem(flash_bwd_dkv_wgmma80_kernel, DKV_SMEM);
   static const cudaError_t attr100 = set_smem(flash_bwd_dkv_wgmma100_kernel, DKV_SMEM);
   static const cudaError_t attr64 = set_smem(flash_bwd_dkv_wgmma64_kernel, K64_SMEM);
+  static const cudaError_t attr256 = set_smem(flash_bwd_dkv_wgmma256_kernel, DKV256_SMEM);
   static const cudaError_t attr_f16 = set_smem(flash_bwd_dkv_wgmma_f16_kernel, DKV_SMEM);
   const cudaError_t attr = dtype == 2   ? attr_f16
                            : D == 64   ? attr64
                            : D == 96   ? attr96
                            : D == 80   ? attr80
                            : D == 100  ? attr100
+                           : D == 256  ? attr256
                                        : attr128;
   if (attr != cudaSuccess) return attr;
   if (dtype == 2) return dkv_wgmma128<__half>(flash_bwd_dkv_wgmma_f16_kernel, a, D);
+  if (D == 256) {
+    CUtensorMap m[4];
+    if (!bwd_maps(a, D, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 64, 64, m))
+      return cudaErrorInvalidValue;
+    const dim3 grid(a.B * a.H, (a.Sk + 63) / 64);
+    flash_bwd_dkv_wgmma256_kernel<<<grid, 3 * WG_THREADS, DKV256_SMEM, a.stream>>>(
+        m[0], m[1], m[2], m[3], (const float*)a.lse, (const float*)a.delta,
+        (__nv_bfloat16*)a.dk, (__nv_bfloat16*)a.dv, a.out_scale, a.H, a.KvH, a.Sq, a.Sk,
+        a.causal, a.window, a.scale);
+    return cudaGetLastError();
+  }
   if (D == 100) {
     const dim3 grid(a.B * a.H, (a.Sk + 127) / 128);
     flash_bwd_dkv_wgmma100_kernel<<<grid, 3 * WG_THREADS, DKV_SMEM, a.stream>>>(
@@ -2014,7 +2482,8 @@ cudaError_t dq_wgmma128(K kernel, const Args& a, int D) {
 // 100: flash_bwd_dq_wgmma96_kernel, flash_bwd_dq_wgmma80_kernel and
 // flash_bwd_dq_wgmma100_kernel (which takes the rows themselves, not maps),
 // on the same grid; at D = 64:
-// flash_bwd_dq_wgmma64_kernel. fp16 (dtype 2) at D = 128:
+// flash_bwd_dq_wgmma64_kernel; at D = 256: flash_bwd_dq_wgmma256_kernel, 64
+// q rows a block. fp16 (dtype 2) at D = 128:
 // flash_bwd_dq_wgmma_f16_kernel, on the D = 128 grid.
 cudaError_t launch_dq_wgmma(const Args& a, int D, int dtype) {
   static const cudaError_t attr128 = set_smem(flash_bwd_dq_wgmma_kernel, DQ_SMEM);
@@ -2022,15 +2491,28 @@ cudaError_t launch_dq_wgmma(const Args& a, int D, int dtype) {
   static const cudaError_t attr80 = set_smem(flash_bwd_dq_wgmma80_kernel, DQ_SMEM);
   static const cudaError_t attr100 = set_smem(flash_bwd_dq_wgmma100_kernel, DQ_SMEM);
   static const cudaError_t attr64 = set_smem(flash_bwd_dq_wgmma64_kernel, Q64_SMEM);
+  static const cudaError_t attr256 = set_smem(flash_bwd_dq_wgmma256_kernel, DQ256_SMEM);
   static const cudaError_t attr_f16 = set_smem(flash_bwd_dq_wgmma_f16_kernel, DQ_SMEM);
   const cudaError_t attr = dtype == 2   ? attr_f16
                            : D == 64   ? attr64
                            : D == 96   ? attr96
                            : D == 80   ? attr80
                            : D == 100  ? attr100
+                           : D == 256  ? attr256
                                        : attr128;
   if (attr != cudaSuccess) return attr;
   if (dtype == 2) return dq_wgmma128<__half>(flash_bwd_dq_wgmma_f16_kernel, a, D);
+  if (D == 256) {
+    CUtensorMap m[4];
+    if (!bwd_maps(a, D, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 64, 64, m))
+      return cudaErrorInvalidValue;
+    const dim3 grid(a.B * a.H, (a.Sq + 63) / 64);
+    flash_bwd_dq_wgmma256_kernel<<<grid, 3 * WG_THREADS, DQ256_SMEM, a.stream>>>(
+        m[0], m[1], m[2], m[3], (const float*)a.lse, (const float*)a.delta,
+        (__nv_bfloat16*)a.dq, a.out_scale, a.H, a.KvH, a.Sq, a.Sk, a.causal, a.window,
+        a.scale);
+    return cudaGetLastError();
+  }
   if (D == 100) {
     const dim3 grid(a.B * a.H, (a.Sq + 127) / 128);
     flash_bwd_dq_wgmma100_kernel<<<grid, 3 * WG_THREADS, DQ_SMEM, a.stream>>>(
@@ -2085,10 +2567,10 @@ cudaError_t at_padded_dim(int which, int mma, const Args& a) {
 // dtype 0 = fp32, 1 = bf16, 2 = fp16. route 0 = simt (any dtype, D from 1
 // to 512), 1 = mma (bf16 or fp16, D a multiple of 8 up to 256, 16-byte
 // aligned bases, strides that are multiples of 8), 2 = wgmma (as mma, and
-// Sk > 0, with bf16 at D = 64, 80, 96 or 128 and fp16 at D = 128; or bf16 at D =
-// 100 with 8-byte aligned bases and strides that are multiples of 4); a
-// route that cannot take the inputs launches nothing, and so does an
-// out_scale in fp32 or bf16
+// Sk > 0, with bf16 at D = 64, 80, 96, 128 or 256 and fp16 at D = 128; or
+// bf16 at D = 100 with 8-byte aligned bases and strides that are multiples
+// of 4); a route that cannot take the inputs launches nothing, and so does
+// an out_scale in fp32 or bf16
 cudaError_t dispatch(int which, int dtype, int route, int D, const Args& a) {
   const void* ptrs[4] = {a.q, a.k, a.v, a.dout};
   const bool aligned = rows_aligned(ptrs, 4, &a.st.q_sb, 12, D);
@@ -2105,7 +2587,8 @@ cudaError_t dispatch(int which, int dtype, int route, int D, const Args& a) {
       if (dtype == 2) return at_padded_dim<__half>(which, 1, a);
       return cudaErrorInvalidValue;
     case 2: {
-      const bool has_d = dtype == 1 ? D == 64 || D == 80 || D == 96 || D == 100 || D == 128
+      const bool has_d = dtype == 1 ? D == 64 || D == 80 || D == 96 || D == 100 || D == 128 ||
+                                          D == 256
                                     : dtype == 2 && D == 128;
       // the D = 100 kernels copy their 200-byte rows in 8-byte pieces
       const bool rows_ok = D == 100 ? rows_aligned(ptrs, 4, &a.st.q_sb, 12, D, 8) : aligned;

@@ -43,6 +43,9 @@
 //   B^T, B [64, 256], each row in four 64-column boxes (A's 16 KB apart, B's
 //   8 KB), with 16 SS m64n64k16 k-steps, as flash_fwd_wgmma256_kernel's
 //   Q K^T;
+// - hopper_wgmma_ss256_a64: the same with A [64, 256] of four 64-row boxes
+//   8 KB apart, as B's, as the head-dim-256 backward kernels' S^T = K Q^T,
+//   dP^T = V dO^T, S = Q K^T and dP = dO V^T (`scores256`);
 // - hopper_wgmma_rs256: P [64, 64] from registers times V [64, 256], V in
 //   four MN-major 64-row boxes 8 KB apart, as two RS m64n128k16 products
 //   over its column halves, as flash_fwd_wgmma256_kernel's P V.
@@ -451,14 +454,17 @@ __global__ void __launch_bounds__(128) wgmma_rs64_f16_kernel(
   store_acc<64>(d, out);
 }
 
-// rows [a_row0, a_row0 + 64) of A [128, 256] times B^T, B [64, 256]: each
-// row four 64-column boxes, A's 16 KB apart and B's 8 KB
+// rows [a_row0, a_row0 + 64) of A [AROWS, 256] times B^T, B [64, 256]:
+// each row four 64-column boxes, A's AROWS * 128 bytes apart (16 KB for 128
+// rows, 8 KB for 64) and B's 8 KB
+template <int AROWS>
 __global__ void __launch_bounds__(128) wgmma_ss256_kernel(
     const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
     int a_row0, float* out) {
+  constexpr int ABOX = AROWS * 128;
   extern __shared__ unsigned char raw[];
   unsigned char* sA = aligned_smem(raw);
-  unsigned char* sB = sA + 4 * HALF;
+  unsigned char* sB = sA + 4 * ABOX;
   __shared__ uint64_t bar;
   if (threadIdx.x == 0) {
     mbar_init(&bar, 1);
@@ -466,9 +472,9 @@ __global__ void __launch_bounds__(128) wgmma_ss256_kernel(
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    mbar_arrive_expect_tx(&bar, 4 * HALF + 4 * HALF64);
+    mbar_arrive_expect_tx(&bar, 4 * ABOX + 4 * HALF64);
     for (int c = 0; c < 4; ++c) {
-      tma_load_4d(sA + HALF * c, &map_a, &bar, 64 * c, 0, 0, 0);
+      tma_load_4d(sA + ABOX * c, &map_a, &bar, 64 * c, 0, 0, 0);
       tma_load_4d(sB + HALF64 * c, &map_b, &bar, 64 * c, 0, 0, 0);
     }
   }
@@ -478,7 +484,7 @@ __global__ void __launch_bounds__(128) wgmma_ss256_kernel(
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < 16; ++kk)
-    wgmma_m64n64k16_ss<0, 0>(d, da + (((kk / 4) * HALF + (kk % 4) * 32) >> 4),
+    wgmma_m64n64k16_ss<0, 0>(d, da + (((kk / 4) * ABOX + (kk % 4) * 32) >> 4),
                              db + (((kk / 4) * HALF64 + (kk % 4) * 32) >> 4), kk > 0);
   wgmma_commit();
   wgmma_wait<0>();
@@ -619,6 +625,26 @@ int wgmma_rs(const void* p, const void* v, void* out, void* stream) {
   constexpr int smem = 2 * HALF + 1024;
   wgmma_rs_kernel<T><<<1, 128, smem, (cudaStream_t)stream>>>((const T*)p, map_v,
                                                             (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// A [AROWS, 256] and B [64, 256] (bf16, contiguous) through their maps
+// into wgmma_ss256_kernel<AROWS>
+template <int AROWS>
+int wgmma_ss256(const void* a, const void* b, int a_row0, void* out, void* stream) {
+  const int64_t dims_a[4] = {256, AROWS, 1, 1}, dims_b[4] = {256, 64, 1, 1};
+  const int64_t strides_a[3] = {256, 256 * AROWS, 256 * AROWS};
+  const int64_t strides_b[3] = {256, 256 * 64, 256 * 64};
+  CUtensorMap map_a, map_b;
+  if (!make_map_4d(&map_a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a, dims_a, strides_a, AROWS) ||
+      !make_map_4d(&map_b, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, b, dims_b, strides_b, 64))
+    return (int)cudaErrorInvalidValue;
+  constexpr int smem = 4 * AROWS * 128 + 4 * HALF64 + 1024;
+  cudaError_t err = cudaFuncSetAttribute(
+      wgmma_ss256_kernel<AROWS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  wgmma_ss256_kernel<AROWS><<<1, 128, smem, (cudaStream_t)stream>>>(map_a, map_b, a_row0,
+                                                                   (float*)out);
   return (int)cudaGetLastError();
 }
 
@@ -766,21 +792,14 @@ extern "C" int hopper_wgmma_rs64_f16(const void* p, const void* v, void* out, vo
 // a[a_row0 : a_row0 + 64] @ b^T
 extern "C" int hopper_wgmma_ss256(const void* a, const void* b, int a_row0, void* out,
                                   void* stream) {
-  const int64_t dims_a[4] = {256, 128, 1, 1}, dims_b[4] = {256, 64, 1, 1};
-  const int64_t strides_a[3] = {256, 256 * 128, 256 * 128};
-  const int64_t strides_b[3] = {256, 256 * 64, 256 * 64};
-  CUtensorMap map_a, map_b;
-  if ((a_row0 != 0 && a_row0 != 64) ||
-      !make_map_4d(&map_a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a, dims_a, strides_a, 128) ||
-      !make_map_4d(&map_b, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, b, dims_b, strides_b, 64))
-    return (int)cudaErrorInvalidValue;
-  constexpr int smem = 4 * HALF + 4 * HALF64 + 1024;
-  cudaError_t err = cudaFuncSetAttribute(
-      wgmma_ss256_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  wgmma_ss256_kernel<<<1, 128, smem, (cudaStream_t)stream>>>(map_a, map_b, a_row0,
-                                                            (float*)out);
-  return (int)cudaGetLastError();
+  if (a_row0 != 0 && a_row0 != 64) return (int)cudaErrorInvalidValue;
+  return wgmma_ss256<128>(a, b, a_row0, out, stream);
+}
+
+// a: [64, 256], b: [64, 256] bf16 contiguous; out: [64, 64] fp32 = a @ b^T
+extern "C" int hopper_wgmma_ss256_a64(const void* a, const void* b, void* out,
+                                      void* stream) {
+  return wgmma_ss256<64>(a, b, 0, out, stream);
 }
 
 // p: [64, 64], v: [64, 256] bf16 contiguous; out: [64, 256] fp32 = p @ v

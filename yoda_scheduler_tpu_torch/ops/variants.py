@@ -10,7 +10,7 @@ it, too), or "cur" for the package's own, built with the package's nvcc
 flags into `build/variants/`; each build's nvcc seconds are printed. fwd
 launches `attention.flash_fwd` on its automatic route; bwd launches
 `attention.flash_bwd_dq` and `attention.flash_bwd_dkv` on theirs (wgmma at
-head dims 64, 80, 96, 100 and 128 in bf16, and 128 in fp16); both first print
+head dims 64, 80, 96, 100, 128 and 256 in bf16, and 128 in fp16); both first print
 ptxas's registers and spills of each variant's wgmma kernels with its
 performance notes. `--route mma` launches both kinds on the mma route
 instead. Every launch is checked against the
@@ -33,8 +33,8 @@ its heads' rows start 8 bytes off a 16-byte boundary), where the three
 kernels run `flash_fwd_wgmma100_kernel`, `flash_bwd_dq_wgmma100_kernel` and
 `flash_bwd_dkv_wgmma100_kernel`; `--head-dim 256` those of `SHAPES_256`
 (Gemma-2B's attention, 8 heads of 256 over one, as its model gives it),
-where the forward runs `flash_fwd_wgmma256_kernel` (the backward kernels
-mma). `--dtype float16` takes `SHAPES` in fp16 at head dim 128
+where the three kernels run `flash_fwd_wgmma256_kernel`,
+`flash_bwd_dq_wgmma256_kernel` and `flash_bwd_dkv_wgmma256_kernel`. `--dtype float16` takes `SHAPES` in fp16 at head dim 128
 (`fp16_main` first: Llama-2-7B's attention in the dtype of its published
 weights), where the three kernels run `flash_fwd_wgmma_f16_kernel`,
 `flash_bwd_dq_wgmma_f16_kernel` and `flash_bwd_dkv_wgmma_f16_kernel`, and

@@ -32,10 +32,13 @@ dQ and dK/dV on their head-dim-100 wgmma kernels and one on simt
 steps alone); then one `llama_forward` at Gemma-2B's widths (head dim 256,
 bf16) and one at OPT-1.3B's (64, fp16), B=1, S=2048, each with flash_fwd on
 its wgmma kernel and on mma, as before it (`gemma_opt_forward_windows()`
-traces those four alone); last one StableLM-3B-4E1T training step (all 32
+traces those four alone); then one StableLM-3B-4E1T training step (all 32
 layers, B=1, S=2048, remat, AdamW) with dQ and dK/dV on their head-dim-80
 wgmma kernels and one on mma (`d80_backward_on_mma`;
-`stablelm3b_train_windows()` traces those two alone). For each traced
+`stablelm3b_train_windows()` traces those two alone); last one Gemma-2B
+training step (all 18 layers, B=1, S=2048, remat, AdamW) with dQ and dK/dV
+on their head-dim-256 wgmma kernels and one on mma (`d256_backward_on_mma`;
+`gemma2b_train_windows()` traces those two alone). For each traced
 window it prints one JSON line: the host wall time, the device's busy time
 (the union of kernel intervals) and idle share, the kernel launches, the
 device time grouped into conv / matmul / flash_fwd / flash_bwd_dq /
@@ -299,8 +302,14 @@ def d80_backward_on_mma():
 
 def d256_forward_on_mma():
     """Within it, the forward at head dim 256 takes the mma route, as before
-    its wgmma kernel; the backward there is on mma either way."""
+    its wgmma kernel; dQ and dK/dV keep theirs."""
     return _off_wgmma(lambda key, d: key[0] == "flash_fwd" and d == 256)
+
+
+def d256_backward_on_mma():
+    """Within it, dQ and dK/dV at head dim 256 take the mma route, as before
+    their wgmma kernels; the forward keeps its wgmma kernel."""
+    return _off_wgmma(lambda key, d: key[0] != "flash_fwd" and d == 256)
 
 
 def fp16_d64_forward_on_mma():
@@ -494,6 +503,13 @@ def stablelm3b_train_windows() -> list[dict]:
                                    d80_backward_on_mma)
 
 
+def gemma2b_train_windows() -> list[dict]:
+    """Gemma-2B's step (18 layers) traced with dQ and dK/dV on their
+    head-dim-256 wgmma kernels and on mma (`d256_backward_on_mma`)."""
+    return _backward_train_windows(gemma_2b(), "gemma2b", "backward_on_mma",
+                                   d256_backward_on_mma)
+
+
 def moe_forward_window(cfg) -> dict:
     params = init_llama(cfg, seed=0, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -563,6 +579,8 @@ def main() -> int:
     reports += gemma_opt_forward_windows()
     _free()
     reports += stablelm3b_train_windows()
+    _free()
+    reports += gemma2b_train_windows()
     out = Path(__file__).resolve().parents[1] / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "profile_path.json").write_text(json.dumps(
