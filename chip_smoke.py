@@ -7,7 +7,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 1. build: the card's name and power limit, and the CUDA kernels compiled
    from the sources in this checkout (nvcc, sm_90a, one process per source);
-   each of the twenty-two wgmma kernels (`WGMMA_KERNELS`) without a spill
+   each of the twenty-four wgmma kernels (`WGMMA_KERNELS`) without a spill
    or a serialised wgmma.
 2. kernel: the flash forward kernel against its plain version on the card,
    elementwise and by O's worst 64-row tile, at the main path's shape (also
@@ -30,16 +30,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
    and window 512 at 96; wgmma there), 80 (StableLM-3B's, also as its
    model's views, with GQA 32/8, window 512, ragged, cross-length and
    non-causal rows: every kernel on its wgmma kernel), Gemma-2B's 8 heads
-   of 256 over one and Gemma-7B's 16 over 16 (with a window-512 row at
-   Gemma-2-9B's 16 over 8, ragged, cross-length and non-causal rows at 256:
-   every kernel on its wgmma kernel), 40 ragged, 100
+   of 256 over one and Gemma-7B's 16 over 16 (with window-512 rows at
+   Gemma-2B's 8 over 1 and Gemma-2-9B's 16 over 8, ragged, cross-length and
+   non-causal rows at 256: every kernel on its wgmma kernel), 40 ragged, 100
    (OpenLLaMA-3B's 200-byte rows, also as its model's views), the forward at
    80 and 100 on its wgmma kernels and timed in turns against its old route
    (mma at 80, simt at 100) at each of those four rows, and so at 256
    (gemma_d256) and in fp16 at 64 (fp16_d1024_bshd) against mma, fp16 at
    the main shape and the
    five fp16 rows above (every kernel on wgmma), at d1024_bshd and at
-   OPT-1.3B's 32 heads of 64 and a ragged GQA row (the forward on its fp16
+   OPT-1.3B's 32 heads of 64 and a ragged GQA row (every kernel on its fp16
    wgmma kernel at 64), simt in
    fp32 and fp16, and 320 on simt in fp32 and bf16 (SDPA's memory-efficient
    backend timed beside the fp32 row, its K and V repeated to q's heads);
@@ -62,13 +62,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
    their wgmma kernels timed in turns against their old route (mma at 80
    and 256, simt at 100: old, wgmma, wgmma, old), SDPA's backward after
    each turn under its default backend (cuDNN) at 80 and 256 and its flash
-   backend at 100; where they have no wgmma kernel yet (fp16_d1024_bshd,
-   opt13b_d64_bshd), on mma in four turns with SDPA's default backward
-   after each. Last two fp16 rows with a large LSE
-   cotangent (dO x1e-5, S=2048, head dim 128) through the kernels' autograd
-   node, g_lse x1e3 of random sign and, with an attention sink at key 0,
-   x100 of one sign: finite, and within twice the fp32 backward's own
-   rounding to fp16 of the fp32 backward.
+   backend at 100; and so in fp16 at 64 (fp16_d1024_bshd, opt13b_d64_bshd)
+   against mma, with SDPA's default backward after each turn. Last three
+   fp16 rows with a large LSE cotangent (dO x1e-5, S=2048, head dim 128)
+   through the kernels' autograd node, g_lse x1e3 of random sign and, with
+   an attention sink at key 0, x100 of one sign, at head dim 128 and again
+   at 64: finite, and within twice the fp32 backward's own rounding to fp16
+   of the fp32 backward.
 4. forward: Llama-2-7B width, all 32 layers, bf16, random weights from a
    seed, B=1, S=2048: one `llama_forward` must launch the kernel once per
    layer, and its logits must agree with the forward through the plain
@@ -132,6 +132,16 @@ After moe_train, head dims 96, 100 and 80, and fp16:
   head-dim-256 kernels; both also timed on the host's clock in turns
   against dQ and dK/dV on mma (`profile_path.d256_backward_on_mma`), the
   train step's turns after its 4 steps.
+- opt13b_fp16_gradient, opt13b_fp16_backward: OPT-1.3B's widths in fp16 as
+  gradient (4 layers: 8/4/4 launches), and the loss's forward and backward
+  (remat) at all 24 layers, B=1, S=2048, with no optimizer (AdamW's eps of
+  1e-8 is 0 in fp16, and the JAX package's fp16 step, as the port's, gives
+  NaN weights after its first update): 48/24/24 launches a call, every one
+  on wgmma, dQ and dK/dV on their fp16 head-dim-64 kernels, a finite loss
+  and finite gradients on the card, ms a call, tokens/s, MFU by the train
+  phases' convention and peak memory; both also timed on the host's clock
+  in turns against dQ and dK/dV on mma (`profile_path.fp16_backward_on_mma`),
+  the backward's turns after its 4 calls.
 
 - moe_forward: B=1, S=2048: 16 flash_fwd launches, all on the wgmma route;
   logits and routing against the forward through the plain attention, end
@@ -389,6 +399,9 @@ TILE_REL_L2_FP16 = 1.25e-3  # bf16's 1e-2 over 8, as TOL's fp16 bounds
 # multiply their sums by the inverse scale before rounding them to fp16.
 FP16_LSE_COTANGENT = dict(b=1, h=32, s=2048, d=128, do_scale=1e-5, g_lse_scale=1e3)
 FP16_SINK_COTANGENT = dict(FP16_LSE_COTANGENT, g_lse_scale=100.0, sink=True)
+# the sink row again at OPT-1.3B's head dim, 64, on the fp16 head-dim-64
+# wgmma kernels
+FP16_SINK_COTANGENT_D64 = dict(FP16_SINK_COTANGENT, d=64)
 FP16_ROUNDING_FACTOR = 2.0
 BWD_G_LSE = {"gqa", "gqa_bshd", "cross_length", "ragged_300",  # shapes with a non-zero
              "gqa_d64", "ragged_d64", "gqa_d96", "gemma_d256",   # LSE cotangent
@@ -675,7 +688,8 @@ WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_wgmma96_kernel",
                  "flash_bwd_dq_wgmma100_kernel", "flash_bwd_dkv_wgmma100_kernel",
                  "flash_fwd_wgmma256_kernel", "flash_fwd_wgmma64_f16_kernel",
                  "flash_bwd_dq_wgmma80_kernel", "flash_bwd_dkv_wgmma80_kernel",
-                 "flash_bwd_dq_wgmma256_kernel", "flash_bwd_dkv_wgmma256_kernel")
+                 "flash_bwd_dq_wgmma256_kernel", "flash_bwd_dkv_wgmma256_kernel",
+                 "flash_bwd_dq_wgmma64_f16_kernel", "flash_bwd_dkv_wgmma64_f16_kernel")
 
 
 def phase_build(build):
@@ -770,8 +784,7 @@ SHAPES = [
      "offset1", "simt"),
     # head dims other than 32, 64 and 128, and fp16, on the simt and mma
     # kernels at their padded widths (at 80, 96, 100 and 256, and fp16 at
-    # 128, on wgmma; in fp16 at 64, the forward on wgmma, the backward on
-    # mma):
+    # 64 and 128, on wgmma):
     # Phi-3-mini's attention (32 heads of 96, S=2048) as the model
     # gives it and contiguous, with GQA 32/8 and a window; 80 (2560 / 32,
     # StableLM-3B's and Phi-2's width), contiguous and as the model's views,
@@ -804,9 +817,12 @@ SHAPES = [
     ("gemma_d256", 1, 8, 1, 2048, 2048, 256, True, None, torch.bfloat16, "bshd",
      "wgmma"),  # Gemma-2B's attention as its model gives it
     # head dim 256 on the wgmma kernels: Gemma-7B's 16 heads over 16,
-    # Gemma-2-9B's 16 over 8 with a window (its own is 4096; 512 bites at
-    # S=2048), ragged over one KV head, cross-length and non-causal
+    # Gemma-2B's 8 over 1 and Gemma-2-9B's 16 over 8 with a window (Gemma-2's
+    # own is 4096; 512 bites at S=2048), ragged over one KV head,
+    # cross-length and non-causal
     ("gemma7b_d256", 1, 16, 16, 2048, 2048, 256, True, None, torch.bfloat16, "bshd",
+     "wgmma"),
+    ("gemma2b_window_d256", 1, 8, 1, 2048, 2048, 256, True, 512, torch.bfloat16, "bshd",
      "wgmma"),
     ("gemma2_window_d256", 1, 16, 8, 2048, 2048, 256, True, 512, torch.bfloat16, "bshd",
      "wgmma"),
@@ -822,13 +838,13 @@ SHAPES = [
     ("fp16_main", 1, 32, 32, 2048, 2048, 128, True, None, torch.float16, "bhsd",
      "wgmma"),
     ("fp16_d1024_bshd", 8, 16, 16, 2048, 2048, 64, True, None, torch.float16, "bshd",
-     ("wgmma", "mma")),
-    # fp16 at head dim 64 on the forward's fp16 wgmma kernel (the backward on
-    # mma): OPT-1.3B's attention as its model gives it, and a ragged GQA row
+     "wgmma"),
+    # fp16 at head dim 64 on the fp16 wgmma kernels: OPT-1.3B's attention as
+    # its model gives it, and a ragged GQA row
     ("opt13b_d64_bshd", 1, 32, 32, 2048, 2048, 64, True, None, torch.float16, "bshd",
-     ("wgmma", "mma")),
+     "wgmma"),
     ("fp16_ragged_d64", 2, 8, 4, 300, 300, 64, True, None, torch.float16, "bhsd",
-     ("wgmma", "mma")),
+     "wgmma"),
     ("fp32_d40", 1, 8, 8, 512, 512, 40, True, None, torch.float32, "bhsd", "simt"),
     ("fp16_unaligned_d80", 1, 8, 4, 512, 512, 80, True, 128, torch.float16, "offset1",
      "simt"),
@@ -848,11 +864,10 @@ TURN_SHAPES = ("main", "d1024_bshd", "phi3_d96_bshd", "fp16_main", "fp16_ragged_
 FWD_TURN_SHAPES = ("d80", "d80_bshd", "unaligned_d100", "d100_bshd", "gemma_d256",
                    "fp16_d1024_bshd")
 # dQ and dK/dV timed in turns against the route they took before their
-# wgmma kernels (mma at 80 and 256, simt at 100), or where they have none
-# yet (fp16 at 64) on mma alone in four turns, with SDPA's whole backward
-# after each turn under the backend named here: its default (cuDNN), which
-# the padded-width queue's factors are read against, or at 100 its flash
-# backend
+# wgmma kernels (mma at 80, 256 and in fp16 at 64, simt at 100), with SDPA's
+# whole backward after each turn under the backend named here: its default
+# (cuDNN), which the padded-width queue's factors are read against, or at
+# 100 its flash backend
 BWD_TURN_SHAPES = {"d80": "default", "d80_bshd": "default", "unaligned_d100": "flash",
                    "d100_bshd": "flash", "gemma_d256": "default",
                    "fp16_d1024_bshd": "default", "opt13b_d64_bshd": "default"}
@@ -863,9 +878,9 @@ D64_SHAPE = "d1024_bshd"  # the head-dim-64 row of the kernels line
 # backward fails on the rows that start one element into their storage)
 WIDE_SHAPES = ("phi3_d96", "phi3_d96_bshd", "gqa_d96", "window_d96", "d80", "d80_bshd",
                "gqa_d80", "window_d80", "ragged_d80", "cross_length_d80", "non_causal_d80",
-               "gemma_d256", "gemma7b_d256", "gemma2_window_d256", "ragged_d256", "cross_d256",
-               "noncausal_d256", "ragged_d40", "unaligned_d100", "d100_bshd", "fp16_main",
-               "fp16_main_bshd", "fp16_gqa_bshd",
+               "gemma_d256", "gemma7b_d256", "gemma2b_window_d256", "gemma2_window_d256",
+               "ragged_d256", "cross_d256", "noncausal_d256", "ragged_d40", "unaligned_d100",
+               "d100_bshd", "fp16_main", "fp16_main_bshd", "fp16_gqa_bshd",
                "fp16_window_512", "fp16_ragged_300", "fp16_cross_length", "fp16_d1024_bshd",
                "opt13b_d64_bshd", "fp16_ragged_d64",
                "fp32_d40", "fp16_unaligned_d80", "fp32_d256", "fp32_d320", "bf16_d320")
@@ -881,9 +896,8 @@ REFUSED_HEAD_DIM = 520
 def shape_routes(route) -> dict:
     """Each kernel's route at a SHAPES row: `route` names one for all three
     kernels (the wgmma route of each takes head dims 64, 80, 96, 100, 128
-    and 256 in bf16, and 128 in fp16), or is a pair (the forward's, the
-    backward kernels'), as at 64 in fp16, where the forward alone has a
-    wgmma kernel."""
+    and 256 in bf16, and 64 and 128 in fp16), or is a pair (the forward's,
+    the backward kernels'), for a row where they differ."""
     fwd, bwd = (route, route) if isinstance(route, str) else route
     return {"flash_fwd": fwd, "flash_bwd_dq": bwd, "flash_bwd_dkv": bwd}
 
@@ -1252,7 +1266,7 @@ def phase_backward(attn, variants, tune):
         if not ok:
             raise SystemExit(f"flash_bwd_dq/dkv disagree with the plain backward "
                              f"or are not repeatable at {name}")
-    for case in (FP16_LSE_COTANGENT, FP16_SINK_COTANGENT):
+    for case in (FP16_LSE_COTANGENT, FP16_SINK_COTANGENT, FP16_SINK_COTANGENT_D64):
         row = fp16_lse_cotangent_row(attn, **case)
         print(json.dumps({"phase": "backward", **row}), flush=True)
         rows.append(row)
@@ -1266,7 +1280,7 @@ def fp16_lse_cotangent_row(attn, b, h, s, d, do_scale, g_lse_scale, sink=False,
                            seed=7) -> dict:
     """The fp16 backward through the kernels' autograd node (the cotangent
     scale of `_FlashFwd.backward`, then dQ and dK/dV, each once on the fp16
-    wgmma route at head dim 128) with dO of `do_scale` beside an LSE
+    wgmma route at head dim `d`, 128 or 64) with dO of `do_scale` beside an LSE
     cotangent of `g_lse_scale`, against the backward in fp32 on the same
     fp16 inputs: each output finite and within FP16_ROUNDING_FACTOR of the
     distance of the fp32 backward's own rounding to fp16. `sink`: key 0 is
@@ -1648,45 +1662,68 @@ def phase_gradient(attn, llama, train, cfg=None, phase="gradient",
 
 
 def phase_train(attn, train, moe, cfg, phase="train", config=None, route="wgmma",
-                turns=None):
+                turns=None, llama=None):
     """4 train steps at B=1, S=2048 on one batch (remat, AdamW lr 3e-4),
     each kernel's launches on its route of `shape_routes(route)`
-    (`step_routes`). With `turns` ({name: route set}, the routes `_route`
-    picks first: `route_turns`) more steps are then timed in turns against
-    another route set. MFU counts each token's active
-    parameters: all but the experts, and k/E of the experts (bench_mfu.py's
-    6N + 6 L d S convention)."""
+    (`step_routes`). With `llama` (the models' module) a call is instead
+    the loss's forward and backward (`llama.llama_loss`, remat) with the
+    leaves' gradients cleared first and no optimizer: its loss and
+    gradients must be finite where a train step's loss must fall. With
+    `turns` ({name: route set}, the routes `_route` picks first:
+    `route_turns`) more calls are then timed in turns against another route
+    set. MFU counts each token's active parameters: all but the experts,
+    and k/E of the experts (bench_mfu.py's 6N + 6 L d S convention)."""
     free_memory()
     b, s = 1, 2048
     torch.cuda.reset_peak_memory_stats()
-    init_fn, step_fn, dev = train.build_llama_train_step(cfg, device="cuda")
+    if llama is None:
+        init_fn, step_fn, _ = train.build_llama_train_step(cfg, device="cuda")
     t0 = time.perf_counter()
-    params, opt_state = init_fn(0)
+    if llama is None:
+        params, opt_state = init_fn(0)
+    else:
+        params, opt_state = llama.init_llama(cfg, seed=0, device="cuda"), None
+    leaves = train.param_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     gen = torch.Generator(device="cuda").manual_seed(5)
     tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda")
+
+    def call():
+        if llama is None:
+            return step_fn(params, opt_state, tokens)[2]
+        for t in leaves:
+            t.grad = None
+        loss = llama.llama_loss(params, tokens, cfg, remat=True)
+        loss.backward()
+        return loss
+
     want = step_routes(route, cfg.n_layers)
     losses, times = [], []
     for _ in range(TRAIN_STEPS):
         reset_launches(attn)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        params, opt_state, loss = step_fn(params, opt_state, tokens)
+        loss = call()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         launches, routes = read_launches(attn), read_routes(attn)
         if routes != want:
-            raise SystemExit(f"{phase}: a train step launched {routes}, expected {want}")
-        losses.append(loss)
+            raise SystemExit(f"{phase}: a call launched {routes}, expected {want}")
+        losses.append(loss.detach())
     losses = [float(x) for x in losses]
-    timed = (route_turns(attn, turns, lambda: step_fn(params, opt_state, tokens))
-             if turns else None)
-    tensors = (train.param_leaves(params) + [loss]
-               + [t for st in opt_state.state.values() for t in st.values()
-                  if isinstance(t, torch.Tensor)])
-    on_card = all(t.is_cuda for t in tensors)
-    n_params = sum(t.numel() for t in train.param_leaves(params))
+    grads = [t.grad for t in leaves] if llama else []
+    finite = (all(math.isfinite(x) for x in losses)
+              and all(g is not None and bool(torch.isfinite(g).all()) for g in grads))
+    tensors = (leaves + [loss] + grads
+               + ([t for st in opt_state.state.values() for t in st.values()
+                   if isinstance(t, torch.Tensor)] if opt_state else []))
+    on_card = all(t is not None and t.is_cuda for t in tensors)
+    del grads, tensors  # the turns' calls make their own gradients
+    timed = route_turns(attn, turns, call) if turns else None
+    n_params = sum(t.numel() for t in leaves)
     step_ms = statistics.median(times[1:])
     tokens_per_s = b * s / (step_ms / 1e3)
     n_active, moe_fields = n_params, {}
@@ -1709,19 +1746,23 @@ def phase_train(attn, train, moe, cfg, phase="train", config=None, route="wgmma"
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     emit(phase, config=config or ("mixtral_8x7b widths" if cfg.is_moe else "llama2_7b"),
          layers=cfg.n_layers, batch=b, seq=s, head_dim=cfg.head_dim,
-         dtype=cfg.dtype, remat=True, optimizer="AdamW lr 3e-4 wd 1e-4 (fused)",
+         dtype=cfg.dtype, remat=True,
+         optimizer="AdamW lr 3e-4 wd 1e-4 (fused)" if llama is None else None,
          params=n_params, init_s=init_s, launches_per_step=launches,
          launches_by_route=routes,
          losses=losses, step_ms=times, step_ms_median=step_ms,
          tokens_per_s=tokens_per_s, model_tflops_per_s=flops_per_token * tokens_per_s / 1e12,
-         mfu=mfu, peak_mem_gb=peak_gb, all_on_card=on_card, step_turns=timed,
-         **moe_fields)
+         mfu=mfu, peak_mem_gb=peak_gb, finite=finite, all_on_card=on_card,
+         step_turns=timed, **moe_fields)
     # every later step's loss below the first: AdamW at 3e-4 with no
     # warm-up overshoots after its first large drop on one batch
-    if not all(math.isfinite(x) and x < losses[0] for x in losses[1:]):
+    if llama is None and not all(math.isfinite(x) and x < losses[0] for x in losses[1:]):
         raise SystemExit(f"{phase}: training loss not finite and falling: {losses}")
+    if not finite:
+        raise SystemExit(f"{phase}: the loss or a gradient is not finite: {losses}")
     if not on_card:
-        raise SystemExit(f"{phase}: a parameter, optimizer state or the loss left the card")
+        raise SystemExit(f"{phase}: a parameter, gradient, optimizer state or the loss "
+                         f"left the card")
     return launches, routes
 
 
@@ -3328,6 +3369,16 @@ def main() -> int:
         config="gemma_2b widths, 4 layers", turns=d256_turns)
     gemma_step_routes = phase_train(attn, train, moe, gemma_2b(), phase="gemma2b_train",
                                     config="gemma_2b widths", turns=d256_turns)[1]
+    # OPT-1.3B's gradient and its loss's backward at all 24 layers (fp16; no
+    # optimizer step, whose eps is 0 in fp16): dQ and dK/dV on their fp16
+    # head-dim-64 wgmma kernels, timed in turns against both on mma
+    fp16_turns = {"wgmma": contextlib.nullcontext, "backward_on_mma": fp16_backward_on_mma}
+    opt_grad_routes = phase_gradient(
+        attn, llama, train, opt_1_3b(), phase="opt13b_fp16_gradient",
+        config="opt_1_3b widths, fp16, 4 layers", turns=fp16_turns)
+    opt_bwd_routes = phase_train(attn, train, moe, opt_1_3b(), phase="opt13b_fp16_backward",
+                                 config="opt_1_3b widths, fp16", turns=fp16_turns,
+                                 llama=llama)[1]
     free_memory()
     ring_launches = phase_ring(attn, ring, variants)
     ulysses_launches = phase_ulysses(attn, ulysses, variants)
@@ -3381,7 +3432,9 @@ def main() -> int:
                 "bound_by": row[f"{key}_bound_by"],
                 "share_of_bound": row[f"{key}_share_of_bound"],
                 "plain_ms": row["plain_ms"], "library_ms": row["library_ms"],
-                "sdpa": row["sdpa"]}
+                "sdpa": row["sdpa"],
+                "route_turns_ms": (row["route_turns_ms"] or {}).get(key),
+                "library_turns_ms": row["library_turns_ms"]}
     src = "yoda_scheduler_tpu_torch/ops/csrc/"
     kernels = {"kernels": [{
         "name": "flash_fwd", "route": "cuda", "source": src + "flash_fwd.cu",
@@ -3411,6 +3464,8 @@ def main() -> int:
                              "stablelm3b_train_step": stablelm_step_routes["flash_fwd"],
                              "gemma2b_gradient": gemma_grad_routes["flash_fwd"],
                              "gemma2b_train_step": gemma_step_routes["flash_fwd"],
+                             "opt13b_fp16_gradient": opt_grad_routes["flash_fwd"],
+                             "opt13b_fp16_backward": opt_bwd_routes["flash_fwd"],
                              "tune_attention": tune_routes["flash_fwd"].get("wgmma", 0),
                              **{path: routes["flash_fwd"].get("wgmma", 0)
                                 for path, routes in bench_routes.items()}},
@@ -3443,6 +3498,8 @@ def main() -> int:
                              "stablelm3b_train_step": stablelm_step_routes[name],
                              "gemma2b_gradient": gemma_grad_routes[name],
                              "gemma2b_train_step": gemma_step_routes[name],
+                             "opt13b_fp16_gradient": opt_grad_routes[name],
+                             "opt13b_fp16_backward": opt_bwd_routes[name],
                              "tune_attention": tune_routes[name].get("wgmma", 0),
                              **{path: routes[name].get("wgmma", 0)
                                 for path, routes in bench_routes.items()

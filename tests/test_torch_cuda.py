@@ -23,7 +23,7 @@ from yoda_scheduler_tpu_torch.models import (LlamaConfig, init_llama, llama_forw
 from yoda_scheduler_tpu_torch.models import moe
 from yoda_scheduler_tpu_torch.ops import _build
 from yoda_scheduler_tpu_torch.ops import attention as attn
-from yoda_scheduler_tpu_torch.ops.variants import BWD_TILE_REL_L2, tile_rel_l2
+from yoda_scheduler_tpu_torch.ops.variants import BWD_TILE_REL_L2, tile_rel_l2, unequal_share
 from yoda_scheduler_tpu_torch.parallel import (build_llama_train_step, init_opt_state,
                                                param_leaves)
 
@@ -130,6 +130,7 @@ def _hopper_lib():
     lib.hopper_wgmma_rs_f16.argtypes = [p, p, p, p]
     lib.hopper_wgmma_ss64_f16.argtypes = [p, p, i32, p, p]
     lib.hopper_wgmma_rs64_f16.argtypes = [p, p, p, p]
+    lib.hopper_wgmma_chain64_f16.argtypes = [p, p, p, p, p]
     lib.hopper_wgmma_ss256.argtypes = [p, p, i32, p, p]
     lib.hopper_wgmma_ss256_a64.argtypes = [p, p, p, p]
     lib.hopper_wgmma_rs256.argtypes = [p, p, p, p]
@@ -282,6 +283,26 @@ def test_wgmma_rs64_f16_tile_is_a_matmul(gpu):
                                                _stream()) == 0
     torch.cuda.synchronize()
     torch.testing.assert_close(out, p.float() @ v.float(), atol=1e-3, rtol=1e-3)
+
+
+def test_wgmma_chain64_f16_tile_is_two_matmuls(gpu):
+    """The fp16 head-dim-64 backward's chain on one warpgroup: S = A B^T by
+    SS m64n64k16 (A, B [64, 64], one K-major box each), S rounded to fp16
+    in registers as the RS form's A operand, times C [64, 64] (one 64-row
+    MN-major box) by RS m64n64k16, as flash_bwd_dkv_wgmma64_f16_kernel's
+    S^T = K Q^T, P^T and dV += P^T dO. A and B hold small integers, so S
+    is exact in fp32 and in fp16, and the product differs from torch's by
+    its fp32 summation order alone."""
+    gen = torch.Generator(gpu).manual_seed(26)
+    a, b = (torch.randint(-2, 3, (64, 64), generator=gen, device=gpu).to(torch.float16)
+            for _ in range(2))
+    c = torch.randn(64, 64, generator=gen, device=gpu).to(torch.float16)
+    out = torch.empty(64, 64, device=gpu)
+    assert _hopper_lib().hopper_wgmma_chain64_f16(a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                                                  out.data_ptr(), _stream()) == 0
+    torch.cuda.synchronize()
+    s = (a.float() @ b.float().T).half()
+    torch.testing.assert_close(out, s.float() @ c.float(), atol=1e-3, rtol=1e-4)
 
 
 @pytest.mark.parametrize("a_row0", [0, 64])
@@ -502,12 +523,13 @@ def test_wgmma_route_matches_the_mma_route(gpu):
 
 def _bwd_inputs(gpu, case, layout, seed=0, d=128, dtype=torch.bfloat16):
     """q, k, v, dO of a WGMMA_SHAPES case (at head dim 128; WGMMA64_SHAPES
-    at 64 and 32, WGMMA96_SHAPES at 96, NEW_WIDTH_SHAPES at 80 and 100,
-    WGMMA256_SHAPES at 256) in
+    at 64 and 32, WGMMA64_F16_SHAPES in fp16 there, WGMMA96_SHAPES at 96,
+    NEW_WIDTH_SHAPES at 80 and 100, WGMMA256_SHAPES at 256) in
     `layout` and `dtype`, with the forward's O and LSE, a random LSE
     cotangent and delta."""
     shapes = {128: WGMMA_SHAPES, 96: WGMMA96_SHAPES, 80: NEW_WIDTH_SHAPES,
-              100: NEW_WIDTH_SHAPES, 256: WGMMA256_SHAPES}.get(d, WGMMA64_SHAPES)
+              100: NEW_WIDTH_SHAPES, 256: WGMMA256_SHAPES}.get(
+                  d, WGMMA64_F16_SHAPES if dtype == torch.float16 else WGMMA64_SHAPES)
     (b, h, kvh, sq, sk), causal, window = shapes[case]
     q, k, v = _qkv(gpu, dtype, b, h, kvh, sq, sk, d, seed=seed)
     rng = np.random.default_rng(seed + 1)
@@ -1086,7 +1108,7 @@ def test_the_c_entries_admit_what_routes_admits_at_256_and_fp16_64(gpu, d, dtype
     layouts: csrc/'s entry takes the wgmma route (returns 0, and launches)
     exactly where `_routes` offers it, and refuses it (cudaErrorInvalidValue,
     1) elsewhere: on 16-byte aligned rows alone, every kernel at 256 in bf16
-    and the forward alone at 64 in fp16 (dQ and dK/dV never there)."""
+    and at 64 in fp16."""
     seen = set()
     for offset in (0, 1, 2, 4):
         for layout in ("bhsd", "bshd"):
@@ -1101,26 +1123,23 @@ def test_the_c_entries_admit_what_routes_admits_at_256_and_fp16_64(gpu, d, dtype
                 torch.cuda.synchronize()
                 assert err == (0 if admitted else 1), (name, offset, layout)
                 seen.add((name, admitted))
-    bwd = {True, False} if d == 256 else {False}
-    assert seen == {("flash_fwd", True), ("flash_fwd", False)} | {
-        (name, admitted) for name in ("flash_bwd_dq", "flash_bwd_dkv") for admitted in bwd}
+    assert seen == {(name, admitted) for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+                    for admitted in (True, False)}
 
 
 @pytest.mark.parametrize("d,dtype", [(256, torch.bfloat16), (64, torch.float16)])
 def test_the_new_wgmma_forwards_refuse_what_they_cannot_take(gpu, d, dtype):
-    """csrc/'s entries on the wgmma route at 256 (bf16: the forward, dQ and
-    dK/dV) and 64 (fp16: the forward), past `_routes`: an empty kv, a
-    sequence stride that is no multiple of 8 elements and a dtype no wgmma
-    kernel takes at that head dim (fp16 at 256, fp32 at 64) each return
-    cudaErrorInvalidValue (1); the same rows at a stride of d + 8 launch (0).
-    Named at fp16 64, the backward kernels' wgmma route raises with no
-    launch."""
+    """csrc/'s entries on the wgmma route at 256 (bf16) and 64 (fp16), the
+    forward, dQ and dK/dV, past `_routes`: an empty kv, a sequence stride
+    that is no multiple of 8 elements and a dtype no wgmma kernel takes at
+    that head dim (fp16 at 256, fp32 at 64) each return
+    cudaErrorInvalidValue (1); the same rows at a stride of d + 8 launch
+    (0)."""
     wide = torch.randn(1, 4, 64, d + 8, device=gpu).to(dtype)
     odd = torch.randn(1, 4, 64, d + 4, device=gpu).to(dtype)[..., :d]
     empty = torch.zeros(1, 4, 0, d, device=gpu, dtype=dtype)
     other = wide[..., :d].to(torch.float16 if dtype == torch.bfloat16 else torch.float32)
-    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv") if d == 256 else ("flash_fwd",)
-    for name in names:
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         n = 3 if name == "flash_fwd" else 4
         assert _c_entry(name, (wide[..., :d],) * n, "wgmma") == 0, name
         assert _c_entry(name, (odd,) * n, "wgmma") == 1, name
@@ -1128,15 +1147,6 @@ def test_the_new_wgmma_forwards_refuse_what_they_cannot_take(gpu, d, dtype):
                         "wgmma") == 1, name
         assert _c_entry(name, (other.contiguous(),) * n, "wgmma") == 1, name
     torch.cuda.synchronize()
-    if d == 256:
-        return
-    q = wide[..., :d].contiguous()
-    lse = torch.zeros(q.shape[:3], device=gpu)
-    for fn in (attn.flash_bwd_dq, attn.flash_bwd_dkv):
-        before = (fn.launches, dict(fn.launches_by_route))
-        with pytest.raises(ValueError, match=f"{fn.__name__} route 'wgmma' cannot take"):
-            fn(q, q, q, q, lse, lse, route="wgmma")
-        assert (fn.launches, fn.launches_by_route) == before
 
 
 # the backward's wgmma kernels at head dim 256 in bf16 (flash_bwd_dq_wgmma256_kernel,
@@ -1353,19 +1363,167 @@ def test_wgmma_f16_backward_is_bit_repeatable(gpu, case):
     assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
+# the fp16 wgmma backward at head dim 64 (flash_bwd_dq_wgmma64_f16_kernel,
+# flash_bwd_dkv_wgmma64_f16_kernel: OPT-1.3B's attention in its published
+# dtype) at WGMMA64_SHAPES (bench_mfu's d1024 widths and every path of the
+# kernels' loops) and OPT-1.3B's 32 heads, in both layouts, held to fp16's
+# bounds
+WGMMA64_F16_SHAPES = {**WGMMA64_SHAPES, "opt13b_s2048": ((1, 32, 32, 2048, 2048), True, None)}
+
+
+@pytest.mark.parametrize("case", list(WGMMA64_F16_SHAPES))
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+def test_wgmma64_f16_backward_matches_the_plain_backward(gpu, case, layout):
+    """dQ and dK/dV on their fp16 head-dim-64 wgmma kernels, as `_route`
+    picks them, one launch each, elementwise and by each output's worst
+    64-row tile."""
+    args, (o, g_lse) = _bwd_inputs(gpu, case, layout, d=64, dtype=torch.float16)
+    q, k, v, do, lse, _, causal, window = args
+    fns = (attn.flash_bwd_dq, attn.flash_bwd_dkv)
+    assert [attn._route(fn.__name__, q, k, v, do) for fn in fns] == ["wgmma", "wgmma"]
+    before = [fn.launches_by_route["wgmma"] for fn in fns]
+    got = _bwd_kernels(args, None)
+    torch.cuda.synchronize()
+    assert [fn.launches_by_route["wgmma"] for fn in fns] == [n + 1 for n in before]
+    want = attn.flash_backward_reference(q, k, v, o, lse, do, causal, window, g_lse)
+    tol = TOL[torch.float16]
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == torch.float16 and g.shape == w.shape
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
+        assert tile_rel_l2(g, w) <= chip_smoke.TILE_REL_L2_FP16
+
+
+@pytest.mark.parametrize("case", ["opt13b_s2048", "gqa_16_4", "ragged_300"])
+def test_wgmma64_f16_backward_matches_the_mma_route(gpu, case):
+    """The new kernels against the mma kernels, the route they took before,
+    on the same inputs (the model's views): each against the plain backward,
+    and the two routes against each other by tile."""
+    args, (o, g_lse) = _bwd_inputs(gpu, case, "bshd", seed=2, d=64,
+                                   dtype=torch.float16)
+    q, k, v, do, lse, _, causal, window = args
+    want = attn.flash_backward_reference(q, k, v, o, lse, do, causal, window, g_lse)
+    tol = TOL[torch.float16]
+    for g, m, w in zip(_bwd_kernels(args, "wgmma"), _bwd_kernels(args, "mma"), want):
+        for got in (g, m):
+            torch.testing.assert_close(got.float(), w.float(), atol=tol, rtol=tol)
+            assert tile_rel_l2(got, w) <= chip_smoke.TILE_REL_L2_FP16
+        assert tile_rel_l2(g, m) <= chip_smoke.TILE_REL_L2_FP16
+
+
+@pytest.mark.parametrize("case", ["ragged_300", "window_512", "opt13b_s2048"])
+def test_wgmma64_f16_backward_is_bit_repeatable(gpu, case):
+    args, _ = _bwd_inputs(gpu, case, "bshd", d=64, dtype=torch.float16)
+    runs = [_bwd_kernels(args, "wgmma") for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.parametrize("route", ["mma", "wgmma"])
+def test_wgmma64_f16_out_scale_multiplies_before_the_rounding(gpu, route):
+    """At head dim 64 in fp16, on the new kernels and on mma: with out_scale
+    2^-3 each output (per q head, as the kernels write it) is the one
+    without it times 2^-3 (exact in fp16's normal range, at most 2^-24
+    apart where subnormal); and with the cotangents 2^6 times larger and
+    out_scale 2^-6, as `_FlashFwd.backward` passes them, the outputs equal
+    the plain backward's with the same out_scale, which multiplies before
+    its one rounding, within fp16's bounds."""
+    args, (o, g_lse) = _bwd_inputs(gpu, "gqa_16_4", "bshd", seed=3, d=64,
+                                   dtype=torch.float16)
+    q, k, v, do, lse, delta, causal, window = args
+    kvh = k.shape[1]
+    got = _bwd_kernels_scaled(args, route, torch.tensor(0.125, device=gpu))
+    want = _bwd_kernels_scaled(args, route, None)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float16 and bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g.float(), w.float() * 0.125, rtol=0, atol=2.0 ** -24)
+    big = (q, k, v, (do.float() * 64).half(), lse, delta * 64, causal, window)
+    scale = torch.tensor(2.0 ** -6, device=gpu)
+    dq, dk, dv = _bwd_kernels_scaled(big, route, scale)
+    ref = attn.flash_backward_reference(q, k, v, o, lse, big[3], causal, window,
+                                        g_lse * 64, scale)
+    tol = TOL[torch.float16]
+    for g, w in zip((dq, attn.group_sum(dk, kvh), attn.group_sum(dv, kvh)), ref):
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
+        assert tile_rel_l2(g, w) <= chip_smoke.TILE_REL_L2_FP16
+
+
+def _bwd_kernels_scaled(args, route, out_scale):
+    """(dQ, dK, dV), dK and dV per q head, each kernel on `route` with
+    `out_scale`."""
+    return (attn.flash_bwd_dq(*args, route=route, out_scale=out_scale),
+            *attn.flash_bwd_dkv(*args, route=route, out_scale=out_scale))
+
+
+@pytest.mark.parametrize("lse_scale, sink", [(1e3, False), (1e3, True)],
+                         ids=["1000.0", "sink-1000.0"])
+def test_fp16_d64_backward_keeps_a_large_lse_cotangent(gpu, lse_scale, sink):
+    """F10 at head dim 64, through the kernels' autograd node on the new
+    fp16 kernels (chip_smoke's large-cotangent rows at OPT-1.3B's width,
+    smaller): finite and within twice the fp32 backward's own rounding to
+    fp16 of it; with the sink the unscaled dK of key 0 times the cotangent
+    scale (32, as at head dim 128) lies past fp16's largest value."""
+    row = chip_smoke.fp16_lse_cotangent_row(attn, 1, 2, 256, 64, 1e-5, lse_scale, sink)
+    assert row["ok"], row
+    if sink:
+        assert row["errors"]["dk"]["max_abs"] * 32 > torch.finfo(torch.float16).max
+
+
+# a GQA case of each wgmma backward kernel pair: (head dim, dtype, case of
+# `_bwd_inputs`)
+ROUNDING_CASES = {
+    "bf16_d64": (64, torch.bfloat16, "gqa_16_4"),
+    "bf16_d80": (80, torch.bfloat16, "gqa_32_8"),
+    "bf16_d96": (96, torch.bfloat16, "gqa_32_8"),
+    "bf16_d100": (100, torch.bfloat16, "gqa_32_8"),
+    "bf16_d128": (128, torch.bfloat16, "gqa_32_8"),
+    "bf16_d256": (256, torch.bfloat16, "d256_ragged_300"),
+    "fp16_d64": (64, torch.float16, "gqa_16_4"),
+    "fp16_d128": (128, torch.float16, "gqa_32_8"),
+}
+# the largest share of an output's entries that differ from the plain
+# backward's per q head, by dtype: fp16's ulp is 8x finer than bf16's, so 8x
+# as many fp32 sums land across a rounding boundary in another order (dV,
+# whose P no scale touches, reads 0.3% in bf16 and 2.4% in fp16 on an H100);
+# rounding dS before its scale (not a power of two at 80, 96, 100 and 128)
+# reads near half of dQ's and dK's entries off
+ROUNDING_SHARE = {torch.bfloat16: 1e-2, torch.float16: 8e-2}
+
+
+@pytest.mark.parametrize("case", list(ROUNDING_CASES))
+def test_wgmma_backward_rounds_ds_where_the_plain_backward_does(gpu, case):
+    """dQ and dK/dV on wgmma against the plain backward per q head (K and V
+    repeated to q's heads, so that the plain dK/dV is each head's, rounded
+    once, as the kernels write it): under `ROUNDING_SHARE` of each output's
+    entries differ (`unequal_share`). Both round dS = P (dP - delta) scale,
+    and differ only in fp32 rounding and the order of sums."""
+    d, dtype, shape = ROUNDING_CASES[case]
+    args, (o, g_lse) = _bwd_inputs(gpu, shape, "bshd", d=d, dtype=dtype)
+    q, k, v, do, lse, _, causal, window = args
+    rep = q.shape[1] // k.shape[1]
+    want = attn.flash_backward_reference(
+        q, k.repeat_interleave(rep, dim=1), v.repeat_interleave(rep, dim=1), o, lse, do,
+        causal, window, g_lse)
+    got = (attn.flash_bwd_dq(*args, route="wgmma"), *attn.flash_bwd_dkv(*args, route="wgmma"))
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape
+        assert unequal_share(g, w) < ROUNDING_SHARE[dtype], name
+
+
 @pytest.mark.parametrize("d", [64, 96])
 def test_wgmma_takes_fp16_at_head_dim_128_alone(gpu, d):
-    """In fp16 dQ and dK/dV have a wgmma kernel at head dim 128 alone, the
-    forward at 128 and 64 (OPT-1.3B's): named at 96, each one's wgmma route
-    raises with no launch, and at 64 so do the backward kernels' while the
-    forward launches on it; at 128 each launches on it."""
+    """In fp16 the forward, dQ and dK/dV have wgmma kernels at head dims 128
+    and 64 (OPT-1.3B's) alone: named at 96, each one's wgmma route raises
+    with no launch, and at 64 each launches on it; at 128 each launches on
+    it."""
     q = _qkv(gpu, torch.float16, 1, 4, 4, 128, 128, d)[0]
     q128 = _qkv(gpu, torch.float16, 1, 4, 4, 128, 128, 128)[0]
     lse = torch.zeros(q.shape[:3], device=gpu)
     for fn in (attn.flash_fwd, attn.flash_bwd_dq, attn.flash_bwd_dkv):
         args = (q,) * 3 if fn is attn.flash_fwd else (q,) * 4 + (lse, lse)
         before = (fn.launches, dict(fn.launches_by_route))
-        if fn is attn.flash_fwd and d == 64:
+        if d == 64:
             fn(*args, route="wgmma")
             torch.cuda.synchronize()
             assert fn.launches_by_route["wgmma"] == before[1]["wgmma"] + 1
@@ -1409,8 +1567,8 @@ def test_kernel_refuses_what_it_does_not_take(gpu, dtype, d):
 
 
 # head dims other than 32, 64 and 128, and fp16: the simt and mma kernels at
-# their padded widths (at 80, 96, 100 and 256, and fp16 at 128, on wgmma; in
-# fp16 at 64, the forward). (dtype, d, (b, h, kvh, sq, sk), causal, window, layout, the
+# their padded widths (at 80, 96, 100 and 256, and fp16 at 64 and 128, on
+# wgmma). (dtype, d, (b, h, kvh, sq, sk), causal, window, layout, the
 # route `_route` picks for every kernel, or for the forward and the
 # backward); "offset1" starts each tensor one element into its storage,
 # off 16-byte alignment
@@ -1430,7 +1588,7 @@ WIDE_CASES = {
     "bf16_d1": (torch.bfloat16, 1, (1, 2, 2, 100, 100), True, None, "bhsd", "simt"),
     "fp16_d128": (torch.float16, 128, (1, 8, 8, 512, 512), True, None, "bhsd", "wgmma"),
     "fp16_d64_bshd": (torch.float16, 64, (2, 8, 8, 256, 256), True, None, "bshd",
-                      ("wgmma", "mma")),
+                      "wgmma"),
     "fp16_d200_window": (torch.float16, 200, (1, 4, 2, 300, 300), True, 50, "bhsd", "mma"),
     "fp16_d72_offset": (torch.float16, 72, (1, 4, 4, 200, 200), True, None, "offset1",
                         "simt"),

@@ -86,14 +86,14 @@ def test_route_follows_the_inputs(case):
 
 
 # the head dims each kernel has a wgmma kernel for (csrc/), by dtype: every
-# kernel at 64, 80, 96, 128 and 256 in bf16, and at 128 in fp16; the
-# forward at 64 in fp16 too (and every kernel at 100, whose rows are not
-# 16-byte aligned: not among these, which mma takes too)
+# kernel at 64, 80, 96, 128 and 256 in bf16, and at 64 and 128 in fp16 (and
+# every kernel at 100, whose rows are not 16-byte aligned: not among these,
+# which mma takes too)
 WGMMA_TAKES = {torch.bfloat16: {"flash_fwd": (64, 80, 96, 128, 256),
                                 "flash_bwd_dq": (64, 80, 96, 128, 256),
                                 "flash_bwd_dkv": (64, 80, 96, 128, 256)},
-               torch.float16: {"flash_fwd": (64, 128), "flash_bwd_dq": (128,),
-                               "flash_bwd_dkv": (128,)}}
+               torch.float16: {"flash_fwd": (64, 128), "flash_bwd_dq": (64, 128),
+                               "flash_bwd_dkv": (64, 128)}}
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 HEAD_DIMS = (32, 64, 128, 40, 80, 96, 256)
 
@@ -118,9 +118,9 @@ def test_wgmma_admits_each_kernels_head_dims(kernel, d, wgmma):
     (kernel, d, d in WGMMA_TAKES[torch.float16][kernel])
     for kernel in KERNELS for d in HEAD_DIMS])
 def test_wgmma_admits_fp16_at_head_dim_128_alone(kernel, d, wgmma):
-    """In fp16 wgmma takes head dim 128 for the forward, dQ and dK/dV alike,
-    and 64 for the forward alone (`WGMMA_TAKES`); every other aligned fp16
-    head dim keeps mma for all three kernels, up to 256."""
+    """In fp16 wgmma takes head dims 128 and 64 alone, for the forward, dQ
+    and dK/dV alike (`WGMMA_TAKES`); every other aligned fp16 head dim keeps
+    mma for all three kernels, up to 256."""
     _assert_wgmma_admits(kernel, d, torch.float16, wgmma)
 
 
@@ -226,7 +226,9 @@ BWD_CASES = {
     "fp16_d128_model_views": (lambda: [_model_view(1, 64, 4, 128, torch.float16)] * 4,
                               "wgmma"),
     "fp16_d96": (lambda: [_bhsd(1, 4, 64, 96, torch.float16)] * 4, "mma"),
-    "fp16_d64": (lambda: [_model_view(1, 64, 4, 64, torch.float16)] * 4, "mma"),
+    "fp16_d64": (lambda: [_model_view(1, 64, 4, 64, torch.float16)] * 4, "wgmma"),
+    "fp16_d64_do_offset_by_one": (lambda: [_model_view(1, 64, 4, 64, torch.float16)] * 3
+                                  + [_bhsd(1, 4, 64, 64, torch.float16, offset=1)], "simt"),
     # head dim 256 (Gemma's, 8 q heads over one KV head): wgmma for rows
     # aligned as mma's; mma in fp16 and for an empty kv, simt for rows 8
     # bytes off 16
@@ -278,14 +280,15 @@ def test_backward_route_follows_the_inputs(case):
         assert "simt" in attn._routes(kernel, q, k, v, do)
 
 
-# (case, route) both backward kernels must refuse (fp16 has a wgmma backward
-# kernel at head dim 128 alone, for aligned rows; bf16 at 80 and 256 none
+# (case, route) both backward kernels must refuse (fp16 has wgmma backward
+# kernels at head dims 64 and 128 alone, for aligned rows; bf16 at 80 and 256 none
 # for rows off 16 bytes or an empty kv, and at 100 none for rows off 8
 # bytes, strides off 4 elements or an empty kv)
 BWD_REFUSALS = [("fp32_d128", "wgmma"), ("fp32_d128", "mma"), ("bf16_d32", "wgmma"),
                 ("do_offset_by_one", "mma"), ("do_odd_seq_stride", "wgmma"),
                 ("empty_kv", "wgmma"), ("bf16_d128", "tma"), ("fp16_d80", "wgmma"),
-                ("fp16_d64", "wgmma"), ("fp16_d96", "wgmma"), ("bf16_d100", "mma"),
+                ("fp16_d64_do_offset_by_one", "wgmma"), ("fp16_d96", "wgmma"),
+                ("bf16_d100", "mma"), ("fp16_d64_do_offset_by_one", "mma"),
                 ("fp16_do_offset_by_one", "mma"), ("fp16_do_offset_by_one", "wgmma"),
                 ("bf16_d100_model_views", "mma"), ("bf16_d80_offset_by_four", "wgmma"),
                 ("bf16_d80_offset_by_four", "mma"), ("bf16_d80_empty_kv", "wgmma"),
@@ -557,9 +560,8 @@ def _wide_rows():
 def test_the_smokes_wide_rows_take_their_routes(row):
     """Each row chip_smoke adds at the new head dims and in fp16 names the
     route `_route` picks for each kernel there: wgmma at head dims 80, 96,
-    100 and 256 in bf16 and in fp16 at 128 aligned, for every kernel, and
-    for the forward alone at 64 in fp16 (not one element into its
-    storage)."""
+    100 and 256 in bf16 and in fp16 at 64 and 128 aligned (not one element
+    into its storage), for every kernel."""
     import chip_smoke
 
     q, k, v, do = _smoke_row_tensors(row)
@@ -569,9 +571,9 @@ def test_the_smokes_wide_rows_take_their_routes(row):
         assert attn._route(name, q, k, v, do) == want[name]
     aligned_bf16 = row[9] == torch.bfloat16 and row[10] != "offset1"
     aligned_fp16 = row[9] == torch.float16 and row[10] != "offset1"
-    every = (row[6] in (80, 96, 100, 256) and aligned_bf16) or (row[6] == 128 and aligned_fp16)
-    fwd_alone = row[6] == 64 and aligned_fp16
-    assert ("wgmma" in attn._routes("flash_fwd", q, k, v)) == (every or fwd_alone)
+    every = ((row[6] in (80, 96, 100, 256) and aligned_bf16)
+             or (row[6] in (64, 128) and aligned_fp16))
+    assert ("wgmma" in attn._routes("flash_fwd", q, k, v)) == every
     assert ("wgmma" in attn._routes("flash_bwd_dkv", q, k, v, do)) == every
     assert ("wgmma" in attn._routes("flash_bwd_dq", q, k, v, do)) == every
     assert row[6] <= attn.KERNEL_MAX_HEAD_DIM
@@ -581,14 +583,20 @@ def test_the_smoke_covers_each_new_width_and_dtype():
     """chip_smoke's wide rows reach every padded width of the simt and mma
     kernels that is not a width of its own, fp16 on every route, and the
     head dims 40, 80, 96, 100, 256, and 320 past the mma kernels' widest
-    (a row's routes: its forward's and its backward kernels')."""
+    (a row's routes: every route `_routes` admits there for its forward and
+    its backward kernels, each of which the smoke holds against the plain
+    version)."""
     import chip_smoke
+
+    def admitted(row):
+        q, k, v, do = _smoke_row_tensors(row)
+        return {*attn._routes("flash_fwd", q, k, v),
+                *(r for name in BWD_KERNELS for r in attn._routes(name, q, k, v, do))}
 
     rows = _wide_rows()
     assert {row[6] for row in rows} >= {40, 80, 96, 100, 256, 320}
     assert {row[9] for row in rows if row[6] > 256} >= {torch.float32, torch.bfloat16}
-    assert {(row[9], r) for row in rows
-            for r in chip_smoke.shape_routes(row[-1]).values()} >= {
+    assert {(row[9], r) for row in rows for r in admitted(row)} >= {
         (torch.float16, "wgmma"),
         (torch.float16, "mma"), (torch.float16, "simt"), (torch.bfloat16, "mma"),
         (torch.bfloat16, "simt"), (torch.float32, "simt")}
@@ -616,24 +624,26 @@ def test_d96_on_mma_puts_every_kernel_on_mma_and_restores():
 
 
 def test_fp16_backward_on_mma_moves_the_backward_alone_and_restores():
-    """`profile_path.fp16_backward_on_mma`, the route set the fp16 gradient
-    is timed against: within it fp16 at head dim 128 takes mma for dQ and
-    dK/dV while the forward keeps wgmma, and bf16 keeps wgmma for every
-    kernel; after it `_WGMMA_HEAD_DIMS` is exactly what it was, and the
-    fp16 backward takes wgmma again."""
+    """`profile_path.fp16_backward_on_mma`, the route set the fp16 gradients
+    (Llama-2-7B's at head dim 128, OPT-1.3B's at 64) are timed against:
+    within it fp16 takes mma for dQ and dK/dV at both while the forward
+    keeps wgmma, and bf16 keeps wgmma for every kernel; after it
+    `_WGMMA_HEAD_DIMS` is exactly what it was, and the fp16 backward takes
+    wgmma again."""
     from yoda_scheduler_tpu_torch.profile_path import fp16_backward_on_mma
 
     saved = {key: dims for key, dims in attn._WGMMA_HEAD_DIMS.items()}
-    h = [_model_view(1, 64, 4, 128, torch.float16)] * 4
-    b = [_model_view(1, 64, 4, 128)] * 4
-    with fp16_backward_on_mma():
-        assert attn._route("flash_fwd", *h[:3]) == "wgmma"
+    for d in (128, 64):
+        h = [_model_view(1, 64, 4, d, torch.float16)] * 4
+        b = [_model_view(1, 64, 4, d)] * 4
+        with fp16_backward_on_mma():
+            assert attn._route("flash_fwd", *h[:3]) == "wgmma"
+            for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+                assert attn._route(name, *h) == "mma"
+                assert attn._route(name, *b) == "wgmma"
+        assert attn._WGMMA_HEAD_DIMS == saved
         for name in ("flash_bwd_dq", "flash_bwd_dkv"):
-            assert attn._route(name, *h) == "mma"
-            assert attn._route(name, *b) == "wgmma"
-    assert attn._WGMMA_HEAD_DIMS == saved
-    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
-        assert attn._route(name, *h) == "wgmma"
+            assert attn._route(name, *h) == "wgmma"
 
 
 # head dims 80 (StableLM-3B-4E1T's) and 100 (OpenLLaMA-3B's): every kernel
@@ -724,15 +734,14 @@ def test_the_new_width_forwards_expect_every_launch_on_wgmma():
 
 
 def test_shape_routes_takes_a_forward_and_backward_pair():
-    """A SHAPES row in fp16 at 64 names the forward's route and the backward
-    kernels' apart, and one at 80, 100 or 256 one route for all three; the
-    smoke's forward turn rows are among its wide rows, each with a route
+    """`shape_routes` takes a (forward, backward kernels) pair as well as one
+    route for all three, which every row at 64 in fp16, 80, 100 or 256 names
+    (all on wgmma); the smoke's forward turn rows are among its wide rows, each with a route
     before wgmma to be timed against (simt at 100, mma elsewhere); its
-    backward turn rows are the five at 80, 100 and 256, where dQ and dK/dV
-    took mma or simt before their wgmma kernels, timed beside SDPA's
-    default backend (cuDNN) at 80 and 256 and its flash backend at 100, and
-    the two rows whose backward has no wgmma kernel yet (fp16 at 64), timed
-    on mma beside SDPA's default backend."""
+    backward turn rows are the seven at 80, 100, 256 and in fp16 at 64,
+    where dQ and dK/dV took mma or simt before their wgmma kernels, timed
+    beside SDPA's default backend (cuDNN) at 80, 256 and 64 and its flash
+    backend at 100."""
     import chip_smoke
 
     assert chip_smoke.shape_routes(("wgmma", "simt")) == {
@@ -746,8 +755,7 @@ def test_shape_routes_takes_a_forward_and_backward_pair():
     for name in chip_smoke.FWD_TURN_SHAPES:
         old = "simt" if rows[name][6] == 100 else "mma"
         q, k, v, _ = _smoke_row_tensors(rows[name])
-        assert rows[name][-1] == ("wgmma" if rows[name][6] in (80, 100, 256)
-                                  else ("wgmma", old))
+        assert rows[name][-1] == "wgmma"
         assert attn._routes("flash_fwd", q, k, v)[-2:] == (old, "wgmma")
     turns = chip_smoke.BWD_TURN_SHAPES
     assert set(turns) == set(chip_smoke.FWD_TURN_SHAPES) | {"opt13b_d64_bshd"}
@@ -756,8 +764,7 @@ def test_shape_routes_takes_a_forward_and_backward_pair():
         d = rows[name][6]
         assert backend == ("flash" if d == 100 else "default"), name
         q, k, v, do = _smoke_row_tensors(rows[name])
-        want = {80: ("simt", "mma", "wgmma"), 100: ("simt", "wgmma"),
-                256: ("simt", "mma", "wgmma")}.get(d, ("simt", "mma"))
+        want = ("simt", "wgmma") if d == 100 else ("simt", "mma", "wgmma")
         for kernel in BWD_KERNELS:
             assert attn._routes(kernel, q, k, v, do) == want, name
 
@@ -811,29 +818,28 @@ def test_openllama3b_gradient_and_train_expect_every_launch_on_wgmma():
 
 
 # head dim 256 in bf16 (Gemma's) and 64 in fp16 (OPT-1.3B's): the forward has
-# a wgmma kernel at each; dQ and dK/dV at 256 in bf16 too (since their
-# head-dim-256 kernels), at 64 in fp16 none (mma); unaligned rows fall to
-# simt as before
+# a wgmma kernel at each, and so have dQ and dK/dV (since their head-dim-256
+# kernels, and their fp16 head-dim-64 kernels); unaligned rows fall to simt
+# as before
 @pytest.mark.parametrize("layout", ["bhsd", "bshd"])
 @pytest.mark.parametrize("d,dtype", [(256, torch.bfloat16), (64, torch.float16)])
 def test_the_forward_alone_takes_wgmma_at_256_and_fp16_64(d, dtype, layout):
     q, k, v, do = ([_bhsd(1, 8, 64, d, dtype)] if layout == "bhsd"
                    else [_model_view(1, 64, 8, d, dtype)]) * 4
     assert attn._routes("flash_fwd", q, k, v) == ("simt", "mma", "wgmma")
-    bwd = ("simt", "mma", "wgmma") if d == 256 else ("simt", "mma")
     for kernel in BWD_KERNELS:
-        assert attn._routes(kernel, q, k, v, do) == bwd
+        assert attn._routes(kernel, q, k, v, do) == ("simt", "mma", "wgmma")
     off = _bhsd(1, 8, 64, d, dtype, offset=1)
     assert attn._routes("flash_fwd", off, off, off) == ("simt",)
 
 
 @pytest.mark.parametrize("dim,dtype,bwd", [(512, "bfloat16", "wgmma"),
-                                           (128, "float16", "mma")])
+                                           (128, "float16", "wgmma")])
 def test_the_models_forward_at_256_and_fp16_64(monkeypatch, dim, dtype, bwd):
     """A layer at head_dim 256 over one KV head in bf16 (Gemma's), and at 64
     in fp16 (OPT-1.3B's) (`_a_models_launch_routes`): both forward launches
     take wgmma, and the backward launchers their head-dim-256 wgmma kernels
-    in bf16 and mma in fp16."""
+    in bf16 and their fp16 head-dim-64 wgmma kernels in fp16."""
     cfg = _one_layer(dim, dtype)
     assert cfg.head_dim == dim // 2 and cfg.n_kv_heads == 1
     assert _a_models_launch_routes(monkeypatch, cfg) == [
@@ -863,16 +869,16 @@ def test_d256_and_fp16_d64_forward_on_mma_move_the_forward_alone_and_restore():
     """`profile_path.d256_forward_on_mma` and `fp16_d64_forward_on_mma`, the
     route sets the Gemma-2B and OPT-1.3B forwards are timed against: within
     each the forward at its width and dtype takes mma, while the backward
-    keeps its route (wgmma at 256 in bf16, mma at 64 in fp16), the other
-    dtype at that width keeps its wgmma forward and head dim 128 keeps
-    wgmma; after it `_WGMMA_HEAD_DIMS` is exactly what it was."""
+    keeps its wgmma kernels, the other dtype at that width keeps its wgmma
+    forward and head dim 128 keeps wgmma; after it `_WGMMA_HEAD_DIMS` is
+    exactly what it was."""
     from yoda_scheduler_tpu_torch.profile_path import (d256_forward_on_mma,
                                                        fp16_d64_forward_on_mma)
 
     saved = {key: dims for key, dims in attn._WGMMA_HEAD_DIMS.items()}
     for routes, d, dtype, other, bwd in (
             (d256_forward_on_mma, 256, torch.bfloat16, None, "wgmma"),
-            (fp16_d64_forward_on_mma, 64, torch.float16, torch.bfloat16, "mma")):
+            (fp16_d64_forward_on_mma, 64, torch.float16, torch.bfloat16, "wgmma")):
         t = [_model_view(1, 64, 8, d, dtype)] * 4
         rest = [[_model_view(1, 64, 8, 128, dt)] * 3 for dt in (torch.bfloat16, torch.float16)]
         if other is not None:
@@ -910,34 +916,37 @@ def test_the_gemma_and_opt_forwards_expect_every_launch_on_wgmma():
         assert f'("{phase}", ' in main and f'("forward_on_mma", {manager})' in main
     assert {"flash_fwd_wgmma256_kernel", "flash_fwd_wgmma64_f16_kernel"} <= set(
         chip_smoke.WGMMA_KERNELS)
-    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 22
+    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 24
 
 
 def test_the_smokes_new_rows_at_256_and_fp16_64():
     """chip_smoke's rows at head dim 256 (Gemma-2B's and Gemma-7B's
-    attention, Gemma-2-9B's grouping with a window, ragged, cross-length,
-    non-causal) name every
-    kernel on wgmma, and those in fp16 at 64 (OPT-1.3B's, bench_mfu's d1024
-    widths, ragged GQA) the forward on wgmma and the backward on mma; all
+    attention, Gemma-2B's and Gemma-2-9B's groupings with a window, ragged,
+    cross-length, non-causal) and those in fp16 at 64 (OPT-1.3B's,
+    bench_mfu's d1024 widths, ragged GQA) name every kernel on wgmma; all
     are held on every route (wide rows), and the models' rows are timed in
-    turns against mma (forward turn rows; at 256 the backward's too)."""
+    turns against mma (forward and backward turn rows)."""
     import chip_smoke
 
     rows = {row[0]: row for row in chip_smoke.SHAPES}
-    d256 = {"gemma_d256", "gemma7b_d256", "gemma2_window_d256", "ragged_d256", "cross_d256",
-            "noncausal_d256"}
+    d256 = {"gemma_d256", "gemma7b_d256", "gemma2b_window_d256", "gemma2_window_d256",
+            "ragged_d256", "cross_d256", "noncausal_d256"}
     fp16_d64 = {"fp16_d1024_bshd", "opt13b_d64_bshd", "fp16_ragged_d64"}
     assert d256 == {n for n, row in rows.items() if row[6] == 256 and row[9] == torch.bfloat16}
     assert d256 | fp16_d64 <= set(chip_smoke.WIDE_SHAPES)
     for name in d256 | fp16_d64:
-        assert rows[name][-1] == ("wgmma" if name in d256 else ("wgmma", "mma")), name
+        assert rows[name][-1] == "wgmma", name
         assert (rows[name][6], rows[name][9]) in ((256, torch.bfloat16), (64, torch.float16))
     assert rows["gemma7b_d256"][1:7] == (1, 16, 16, 2048, 2048, 256)
     assert rows["gemma2_window_d256"][1:9] == (1, 16, 8, 2048, 2048, 256, True, 512)
+    assert rows["gemma2b_window_d256"][1:11] == (1, 8, 1, 2048, 2048, 256, True, 512,
+                                                 torch.bfloat16, "bshd")
     assert rows["opt13b_d64_bshd"][1:7] == (1, 32, 32, 2048, 2048, 64)
     assert not rows["noncausal_d256"][7] and rows["cross_d256"][4] < rows["cross_d256"][5]
     assert {"gemma_d256", "fp16_d1024_bshd"} <= set(chip_smoke.FWD_TURN_SHAPES)
-    assert "gemma_d256" in chip_smoke.BWD_TURN_SHAPES and "gemma_d256" in chip_smoke.BWD_G_LSE
+    assert {"gemma_d256", "fp16_d1024_bshd", "opt13b_d64_bshd"} <= set(
+        chip_smoke.BWD_TURN_SHAPES)
+    assert "gemma_d256" in chip_smoke.BWD_G_LSE
 
 
 def test_d80_backward_on_mma_moves_the_backward_alone_and_restores():
@@ -1072,4 +1081,37 @@ def test_gemma2b_gradient_and_train_expect_every_launch_on_wgmma():
         assert f'phase="{phase}"' in main, phase
     assert '"backward_on_mma": d256_backward_on_mma' in main
     assert {"flash_bwd_dq_wgmma256_kernel", "flash_bwd_dkv_wgmma256_kernel"} <= set(
+        chip_smoke.WGMMA_KERNELS)
+
+
+def test_opt13b_gradient_and_backward_expect_every_launch_on_wgmma():
+    """chip_smoke's expected launches of opt13b_fp16_gradient (4 layers:
+    8/4/4) and of one opt13b_fp16_backward call (the loss's forward and
+    backward at all 24 layers under remat, no optimizer: 48/24/24), all on
+    wgmma, as `_route` picks them on the model's fp16 views at head dim 64;
+    both phases run timed in turns against `fp16_backward_on_mma` and appear
+    in the kernels line's launches by path; the build expects both new
+    kernels."""
+    import inspect
+
+    import chip_smoke
+    from yoda_scheduler_tpu_torch.profile_path import opt_1_3b
+
+    cfg = opt_1_3b()
+    assert (cfg.n_layers, cfg.head_dim, cfg.dtype) == (24, 64, "float16")
+    assert chip_smoke.step_routes("wgmma", cfg.n_layers) == {
+        "flash_fwd": {"wgmma": 48}, "flash_bwd_dq": {"wgmma": 24},
+        "flash_bwd_dkv": {"wgmma": 24}}
+    q, k, v, do = [_model_view(1, 64, cfg.n_heads, cfg.head_dim, cfg.torch_dtype)] * 4
+    assert attn._route("flash_fwd", q, k, v) == "wgmma"
+    for name in BWD_KERNELS:
+        assert attn._route(name, q, k, v, do) == "wgmma"
+    main = inspect.getsource(chip_smoke.main)
+    for path in ("opt13b_fp16_gradient", "opt13b_fp16_backward"):
+        assert main.count(f'"{path}": opt_') == 2, path
+        assert f'phase="{path}"' in main, path
+    assert '"backward_on_mma": fp16_backward_on_mma' in main
+    assert "llama=llama)" in main and "llama.llama_loss(" in inspect.getsource(
+        chip_smoke.phase_train)
+    assert {"flash_bwd_dq_wgmma64_f16_kernel", "flash_bwd_dkv_wgmma64_f16_kernel"} <= set(
         chip_smoke.WGMMA_KERNELS)

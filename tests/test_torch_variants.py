@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 import torch
 
-from yoda_scheduler_tpu_torch.ops.variants import BWD_TILE_REL_L2, tile_rel_l2
+from yoda_scheduler_tpu_torch.ops.variants import BWD_TILE_REL_L2, tile_rel_l2, unequal_share
 
 
 def _late_keys_small(s=2048, seed=0):
@@ -33,6 +33,25 @@ def test_rounding_noise_reads_far_below_the_bound():
     ref = _late_keys_small()
     got = ref.to(torch.bfloat16)
     assert tile_rel_l2(got, ref) < BWD_TILE_REL_L2 / 2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_unequal_share_reads_rounding_at_another_point(dtype):
+    """Equal values read 0; every entry one step up (zero and subnormals
+    among them) reads 1; a value rounded, then scaled by 1/sqrt(80) and
+    rounded again, against the scaled value rounded once, reads a large
+    share (the wgmma backward's dS before its repair, in small); tensors of
+    two dtypes are refused."""
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(4096).astype(np.float32))
+    a = torch.cat([x.abs(), torch.zeros(8), torch.full((8,), 1e-42)]).to(dtype)
+    assert unequal_share(a, a) == 0.0
+    up = (a.view(torch.int16) + 1).view(dtype)
+    assert unequal_share(up, a) == 1.0
+    scale = 80 ** -0.5
+    twice = (x.to(dtype).float() * scale).to(dtype)
+    assert unequal_share(twice, (x * scale).to(dtype)) > 0.1
+    with pytest.raises(ValueError):
+        unequal_share(a, a.float())
 
 
 def test_a_zero_tile_reads_zero_only_if_both_are_zero():

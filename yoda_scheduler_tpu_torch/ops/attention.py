@@ -12,11 +12,11 @@ fp16 and any head_dim from 1 to 512 (`KERNEL_MAX_HEAD_DIM`), as the JAX
 kernels do, and raise otherwise.
 Each kernel has three routes, which `_route` picks per kernel from the
 inputs alone: "wgmma" (TMA and wgmma, 16-byte aligned rows: the model's
-path; bf16 at head_dim 64, 80, 96, 128 or 256 and fp16 at 128, and bf16
-at 100, whose 8-byte aligned rows the kernels' producers copy with
-cp.async, for every kernel; fp16 at 64 for the forward alone;
-`_WGMMA_HEAD_DIMS`), "mma" (mma.sync, other aligned bf16 and aligned fp16:
-rows 16-byte aligned and head_dim a multiple of 8, up to 256) and "simt"
+path; bf16 at head_dim 64, 80, 96, 128 or 256 and fp16 at 64 or 128, and
+bf16 at 100, whose 8-byte aligned rows the kernels' producers copy with
+cp.async, for every kernel; `_WGMMA_HEAD_DIMS`), "mma" (mma.sync, other
+aligned bf16 and aligned fp16: rows 16-byte aligned and head_dim a
+multiple of 8, up to 256) and "simt"
 (fp32, and every input the others do not take, head_dim past 256 among
 them). The simt and mma kernels run at a padded width (32,
 64, 128, 256, and 512 for simt) with the true head_dim at run time. A named
@@ -84,10 +84,13 @@ def flash_backward_reference(q, k, v, o, lse, do, causal: bool = True,
     P = exp(S scale - LSE) under the forward's mask, dS = P (dP - delta)
     scale, dQ = dS K, dK = dS^T Q, dV = P^T dO. P and dS are rounded to the
     input dtype before their products, where the kernels round them (as
-    `reference_attention_with_lse` rounds its probabilities). GQA: K/V are
-    repeated to q's heads and dK/dV group-summed back. `out_scale` (the
-    kernels' fp16 output factor, `flash_bwd_dq`) multiplies dQ, dK and dV
-    before their rounding."""
+    `reference_attention_with_lse` rounds its probabilities). `out_scale`
+    (the kernels' fp16 output factor, `flash_bwd_dq`) multiplies dQ, dK and
+    dV before their rounding. GQA: K/V are repeated to q's heads; each q
+    head's dK and dV is rounded to k's dtype, as the JAX package's dK/dV
+    kernel writes it and the kernels here do, and then group-summed back in
+    fp32 and rounded once (the JAX package's `jnp.sum` of each group); with
+    as many kv heads as q heads that is the one rounding."""
     _, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
     if window is not None and not causal:
@@ -110,11 +113,13 @@ def flash_backward_reference(q, k, v, o, lse, do, causal: bool = True,
     ds = (p * (dp - delta[..., None]) * scale).to(q.dtype).float()
     p = p.to(q.dtype).float()
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
-    dk = group_sum(torch.einsum("bhqk,bhqd->bhkd", ds, qf), kvh)
-    dv = group_sum(torch.einsum("bhqk,bhqd->bhkd", p, dof), kvh)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
     if out_scale is not None:
         dq, dk, dv = (g * out_scale for g in (dq, dk, dv))
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    dk, dv = (group_sum(g.to(t.dtype).float(), kvh).to(t.dtype)
+              for g, t in ((dk, k), (dv, v)))
+    return dq.to(q.dtype), dk, dv
 
 
 def backward_delta(o, do, g_lse=None):
@@ -195,15 +200,14 @@ def _check_qkv(name: str, q, k, v, causal: bool):
 
 # the head dims each kernel's wgmma route takes, by (kernel, dtype)
 # (csrc/flash_fwd.cu, csrc/flash_bwd.cu): bf16 at 64, 80, 96, 100, 128 and
-# 256 and fp16 at 128, for every kernel, and fp16 at 64 for the forward
-# alone (the fp16 backward there, and fp16 at other head dims, 80 and 256
-# among them, runs on mma)
+# 256 and fp16 at 64 and 128, for every kernel (fp16 at other head dims, 80
+# and 256 among them, runs on mma)
 _WGMMA_HEAD_DIMS = {("flash_fwd", torch.bfloat16): (64, 80, 96, 100, 128, 256),
                     ("flash_bwd_dq", torch.bfloat16): (64, 80, 96, 100, 128, 256),
                     ("flash_bwd_dkv", torch.bfloat16): (64, 80, 96, 100, 128, 256),
                     ("flash_fwd", torch.float16): (64, 128),
-                    ("flash_bwd_dq", torch.float16): (128,),
-                    ("flash_bwd_dkv", torch.float16): (128,)}
+                    ("flash_bwd_dq", torch.float16): (64, 128),
+                    ("flash_bwd_dkv", torch.float16): (64, 128)}
 
 
 def _rows_aligned(tensors, elems: int) -> bool:

@@ -40,10 +40,13 @@
 //   route 2 in fp16 at D = 128 (Llama-2's published dtype), the D = 128
 //   kernels' bodies on fp16 operands; flash_bwd_dkv_wgmma64_kernel and
 //   flash_bwd_dq_wgmma64_kernel are route 2 at D = 64 (bench_mfu's d1024
-//   widths), and flash_bwd_dq_wgmma256_kernel and
-//   flash_bwd_dkv_wgmma256_kernel at D = 256 (Gemma's attention, tiles of 64
-//   rows), each with its own note. Route 2 refuses every other D, and fp16
-//   at any D but 128 (it runs on mma).
+//   widths), and flash_bwd_dkv_wgmma64_f16_kernel and
+//   flash_bwd_dq_wgmma64_f16_kernel route 2 in fp16 at D = 64 (OPT-1.3B's
+//   attention in its published dtype), the D = 64 kernels' bodies on fp16
+//   operands; flash_bwd_dq_wgmma256_kernel and
+//   flash_bwd_dkv_wgmma256_kernel are route 2 at D = 256 (Gemma's
+//   attention, tiles of 64 rows), each with its own note. Route 2 refuses
+//   every other D, and fp16 at any D but 64 and 128 (it runs on mma).
 // - *_mma kernels (route 1; aligned bf16 and fp16, D a multiple of 8 up to
 //   256; they take bf16 at D = 64 and 128 too, to be held against the wgmma
 //   kernels): 4 warps each own 16 rows of a 64-row tile and run all products
@@ -78,7 +81,11 @@
 // score products together (SS wgmma m64n64k16, both operands K-major), waits,
 // forms P and dS in registers (exp2 of log2e-scaled scores with
 // ex2.approx.ftz, as the forward; the mask only on diagonal, window-edge and
-// ragged tiles), rounds them to the input type as the A operands of the RS
+// ragged tiles; dS = P (dP scale - delta scale), one FMA with delta scaled
+// where it is staged, so that the scale is applied before the rounding, as
+// the plain version and the simt and mma kernels apply it, and every route
+// rounds the same value at head dims whose scale is not a power of two),
+// rounds them to the input type as the A operands of the RS
 // form (the accumulator's columns 16 s .. 16 s + 15 are A's k-step s), and
 // adds the products into its fp32 sums with RS wgmma m64n128k16 (m64n80k16 at
 // D = 80, m64n96k16 at 96, m64n104k16 at 100), the streamed tile an MN-major
@@ -88,15 +95,15 @@
 // - flash_bwd_dkv_wgmma_kernel: a block is one (b, q head) and 128 keys;
 //   K and V once, then Q and dO tiles of 64 rows with their LSE and delta.
 //   S^T = K Q^T and dP^T = V dO^T; dV += P^T dO and dK += dS^T Q, both sums
-//   (64 + 64 fp32 a thread) held across the q loop; dK scale and dV stored
-//   once. LSE and delta (64 fp32 a tile each) are staged into the ring by
+//   (64 + 64 fp32 a thread) held across the q loop; dK and dV stored
+//   once. LSE and delta scale (64 fp32 a tile each) are staged into the ring by
 //   the producer's first warp with plain loads: (b H + h) Sq 4 bytes need
 //   not be 16-byte aligned for a bulk copy. Rows past Sq read as zeros from
 //   TMA, and are masked so that no LSE or delta beyond Sq reaches P or dS.
 // - flash_bwd_dq_wgmma_kernel: a block is one (b, q head) and 128 q rows;
-//   Q and dO once, LSE and delta of each thread's two rows in registers,
+//   Q and dO once, LSE and delta scale of each thread's two rows in registers,
 //   then K and V tiles of 64 keys. S = Q K^T and dP = dO V^T; dQ += dS K
-//   with K as an MN-major B (the same tile that is S's K-major B); dQ scale
+//   with K as an MN-major B (the same tile that is S's K-major B); dQ
 //   stored once.
 
 #include "flash_common.cuh"
@@ -919,7 +926,7 @@ __device__ __forceinline__ void dkv_wgmma_body(
             const int r = p + 32 * half;
             const bool in = q0 + r < Sq;
             sts[r] = in ? lse_bh[q0 + r] * LOG2E : 0.f;
-            sts[64 + r] = in ? delta_bh[q0 + r] : 0.f;
+            sts[64 + r] = in ? delta_bh[q0 + r] * scale : 0.f;
           }
           mbar_arrive(&full[s]);
         }
@@ -955,7 +962,7 @@ __device__ __forceinline__ void dkv_wgmma_body(
           const int r = lane + 32 * half;
           const bool in = q0 + r < Sq;
           st[r] = in ? lse_bh[q0 + r] * LOG2E : 0.f;
-          st[64 + r] = in ? delta_bh[q0 + r] : 0.f;
+          st[64 + r] = in ? delta_bh[q0 + r] * scale : 0.f;
         }
         mbar_arrive(&full[s]);
       }
@@ -1013,8 +1020,8 @@ __device__ __forceinline__ void dkv_wgmma_body(
       fence_regs(sc);
       fence_regs(dp);
 
-      // P^T and dS^T / scale, rounded to T as the A operands k-step by
-      // k-step (16 q rows), so that each step's fp32 values die at once;
+      // P^T and dS^T, rounded to T as the A operands k-step by k-step (16
+      // q rows), so that each step's fp32 values die at once;
       // element 4 j + e is key key0 + 8 (e / 2), q row q0 + 8 j + 2 t4 +
       // (e % 2)
       const bool need_mask =
@@ -1035,7 +1042,7 @@ __device__ __forceinline__ void dkv_wgmma_body(
           }
           const float p = exp2_ftz(fmaf(x, c, -((e & 1) ? l2.y : l2.x)));
           sc[4 * j + e] = p;
-          dp[4 * j + e] = p * (dp[4 * j + e] - ((e & 1) ? dl.y : dl.x));
+          dp[4 * j + e] = p * fmaf(dp[4 * j + e], scale, -((e & 1) ? dl.y : dl.x));
         }
       }
       uint32_t pa[4][4], sa[4][4];
@@ -1063,12 +1070,11 @@ __device__ __forceinline__ void dkv_wgmma_body(
       mbar_arrive(&empty[s]);
     }
 
-    // dK scale and dV in T (times *out_scale), one copy per q head; gk[4 j
-    // + e] is key key0 + 8 (e / 2), head dim 8 j + 2 t4 + (e % 2) (at D =
-    // 100 the last n-tile's columns 100-103 are not stored)
+    // dK and dV in T (times *out_scale), one copy per q head; gk[4 j + e]
+    // is key key0 + 8 (e / 2), head dim 8 j + 2 t4 + (e % 2) (at D = 100
+    // the last n-tile's columns 100-103 are not stored)
     if (w_live) {
       const float os = out_scale ? *out_scale : 1.f;
-      const float ks = scale * os;
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int key = key0 + 8 * r;
@@ -1078,7 +1084,7 @@ __device__ __forceinline__ void dkv_wgmma_body(
         for (int j = 0; j < DN / 8; ++j) {
           if (D % 8 != 0 && 8 * j + 2 * t4 >= D) continue;
           *reinterpret_cast<uint32_t*>(dk + base + 8 * j) =
-              pack_t<T>(gk[4 * j + 2 * r] * ks, gk[4 * j + 2 * r + 1] * ks);
+              pack_t<T>(gk[4 * j + 2 * r] * os, gk[4 * j + 2 * r + 1] * os);
           *reinterpret_cast<uint32_t*>(dv + base + 8 * j) =
               pack_t<T>(gv[4 * j + 2 * r] * os, gv[4 * j + 2 * r + 1] * os);
         }
@@ -1143,35 +1149,45 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma_f16_ker
                               dv, out_scale, H, KvH, Sq, Sk, causal, window, scale);
 }
 
-// ---- the dK/dV wgmma kernel at head dim 64
-// A 64-column bf16 row is one 128-byte swizzle box, so every tile is one TMA
-// box and each product has 4 k-steps of 16 head dims; the sums dK and dV are
-// m64n64 (32 floats a thread each). With the registers that frees, a block
-// keeps 192 keys in three consumer warpgroups (64 keys and 160 registers
-// each) against Q and dO tiles of 64 rows, so that the tensor cores have two
-// warpgroups' products to run while the third forms P and dS. Each
-// warpgroup takes its steps in order, as the D = 128 kernel does: issuing
-// the next tile's score products before this tile's sums needs more
-// registers than 160, and at two warpgroups it was slower than three
+// ---- the dK/dV wgmma kernels at head dim 64 (bf16 and fp16)
+// A 64-column bf16 or fp16 row is one 128-byte swizzle box, so every tile is
+// one TMA box and each product has 4 k-steps of 16 head dims; the sums dK
+// and dV are m64n64 (32 floats a thread each). With the registers that
+// frees, a block keeps 192 keys in three consumer warpgroups (64 keys and
+// 160 registers each) against Q and dO tiles of 64 rows, so that the tensor
+// cores have two warpgroups' products to run while the third forms P and
+// dS. Each warpgroup takes its steps in order, as the D = 128 kernel does:
+// issuing the next tile's score products before this tile's sums needs
+// more registers than 160, and at two warpgroups it was slower than three
 // (PERF.md). A stage of Q and dO is 16 KB, so the ring holds four.
 // At bench_mfu's d1024 shape (B=8, H=16, S=2048, causal) the work is ~137
-// GFLOP against ~203 MB, bound by operations (~139 us at 989 TF/s).
+// GFLOP against ~203 MB, bound by operations (~139 us at 989 TF/s); at
+// OPT-1.3B's attention (B=1, H=32, S=2048, causal, fp16) ~34.4 GFLOP against
+// ~51 MB, ~35 us.
 constexpr int K64_STAGES = 4;
 constexpr int K64_CONS = 3;                    // consumer warpgroups
 constexpr int K64_KEYS = 64 * K64_CONS;        // keys per block
-constexpr int K64_TILE = 64 * 128;             // bytes of a 64-row tile of 64 bf16 columns
+constexpr int K64_TILE = 64 * 128;             // bytes of a 64-row tile of 64 bf16 or fp16 columns
 constexpr int K64_Q = 2 * K64_CONS * K64_TILE;  // K and V
 constexpr int K64_STAGE = 2 * K64_TILE;        // Q and dO
 constexpr int K64_STATS = K64_Q + K64_STAGES * K64_STAGE;
 constexpr int K64_BARS = K64_STATS + K64_STAGES * 128 * 4;
 constexpr int K64_SMEM = K64_BARS + 8 * (1 + 2 * K64_STAGES) + 1024;  // + alignment slack
 
-__global__ void __launch_bounds__((K64_CONS + 1) * WG_THREADS, 1) flash_bwd_dkv_wgmma64_kernel(
-    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-    int H, int KvH, int Sq, int Sk, int causal, int window, float scale) {
+// The body of flash_bwd_dkv_wgmma64_kernel (bf16) and
+// flash_bwd_dkv_wgmma64_f16_kernel (fp16: OPT-1.3B's published dtype). fp16
+// differs from bf16 only in names, as dkv_wgmma_body's: the wgmma
+// instructions (.f16 for .bf16), the tensor maps' data type and the
+// roundings of P^T and dS^T (the A operands) and of dK and dV, which in
+// fp16 are first multiplied by *out_scale (the cotangent scale's inverse;
+// bf16 takes none).
+template <typename T>
+__device__ __forceinline__ void dkv_wgmma64_body(
+    const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+    const CUtensorMap* tm_do, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+    const float* __restrict__ out_scale, int H, int KvH, int Sq, int Sk, int causal,
+    int window, float scale) {
   using namespace hopper;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
@@ -1207,8 +1223,8 @@ __global__ void __launch_bounds__((K64_CONS + 1) * WG_THREADS, 1) flash_bwd_dkv_
       const int lane = threadIdx.x;
       if (lane == 0) {
         mbar_arrive_expect_tx(full_kv, K64_Q);
-        tma_load_4d(sK, &tm_k, full_kv, 0, k0, kvh, b);
-        tma_load_4d(sV, &tm_v, full_kv, 0, k0, kvh, b);
+        tma_load_4d(sK, tm_k, full_kv, 0, k0, kvh, b);
+        tma_load_4d(sV, tm_v, full_kv, 0, k0, kvh, b);
       }
       const float* lse_bh = lse + (int64_t)bh * Sq;
       const float* delta_bh = delta + (int64_t)bh * Sq;
@@ -1219,8 +1235,8 @@ __global__ void __launch_bounds__((K64_CONS + 1) * WG_THREADS, 1) flash_bwd_dkv_
         if (lane == 0) {
           unsigned char* sQ = smem + K64_Q + K64_STAGE * s;
           mbar_arrive_expect_tx(&full[s], K64_STAGE);
-          tma_load_4d(sQ, &tm_q, &full[s], 0, q0, h, b);
-          tma_load_4d(sQ + K64_TILE, &tm_do, &full[s], 0, q0, h, b);
+          tma_load_4d(sQ, tm_q, &full[s], 0, q0, h, b);
+          tma_load_4d(sQ + K64_TILE, tm_do, &full[s], 0, q0, h, b);
         }
         // rows past Sq get 0 here and are masked by the consumers
         float* st = stats + 128 * s;
@@ -1229,7 +1245,7 @@ __global__ void __launch_bounds__((K64_CONS + 1) * WG_THREADS, 1) flash_bwd_dkv_
           const int r = lane + 32 * half;
           const bool in = q0 + r < Sq;
           st[r] = in ? lse_bh[q0 + r] * LOG2E : 0.f;
-          st[64 + r] = in ? delta_bh[q0 + r] : 0.f;
+          st[64 + r] = in ? delta_bh[q0 + r] * scale : 0.f;
         }
         mbar_arrive(&full[s]);
       }
@@ -1287,16 +1303,16 @@ __global__ void __launch_bounds__((K64_CONS + 1) * WG_THREADS, 1) flash_bwd_dkv_
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_m64n64k16_ss<0, 0>(sc, da_k + 2 * kk, db_q + 2 * kk, kk > 0);
+        wgmma_m64n64k16_ss<0, 0, T>(sc, da_k + 2 * kk, db_q + 2 * kk, kk > 0);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_m64n64k16_ss<0, 0>(dp, da_v + 2 * kk, db_o + 2 * kk, kk > 0);
+        wgmma_m64n64k16_ss<0, 0, T>(dp, da_v + 2 * kk, db_o + 2 * kk, kk > 0);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sc);
       fence_regs(dp);
 
-      // P^T and dS^T / scale, as in flash_bwd_dkv_wgmma_kernel; element
+      // P^T and dS^T, as in flash_bwd_dkv_wgmma_kernel; element
       // 4 j + e is key key0 + 8 (e / 2), q row q0 + 8 j + 2 t4 + (e % 2)
       const bool need_mask =
           q0 + 64 > Sq ||
@@ -1316,12 +1332,12 @@ __global__ void __launch_bounds__((K64_CONS + 1) * WG_THREADS, 1) flash_bwd_dkv_
           }
           const float p = exp2_ftz(fmaf(x, c, -((e & 1) ? l2.y : l2.x)));
           sc[4 * j + e] = p;
-          dp[4 * j + e] = p * (dp[4 * j + e] - ((e & 1) ? dl.y : dl.x));
+          dp[4 * j + e] = p * fmaf(dp[4 * j + e], scale, -((e & 1) ? dl.y : dl.x));
         }
       }
       uint32_t pa[4][4], sa[4][4];
-      to_a_operand(sc, pa);
-      to_a_operand(dp, sa);
+      to_a_operand<T>(sc, pa);
+      to_a_operand<T>(dp, sa);
 
       // dV += P^T dO and dK += dS^T Q: dO and Q are MN-major B operands
       // (head_dim contiguous), a k-step of 16 q rows 2048 bytes
@@ -1331,9 +1347,11 @@ __global__ void __launch_bounds__((K64_CONS + 1) * WG_THREADS, 1) flash_bwd_dkv_
       fence_regs(gk);
       wgmma_fence();
 #pragma unroll
-      for (int k4 = 0; k4 < 4; ++k4) wgmma_m64n64k16_rs<1>(gv, pa[k4], db_o_mn + k4 * 128, 1);
+      for (int k4 = 0; k4 < 4; ++k4)
+        wgmma_m64n64k16_rs<1, T>(gv, pa[k4], db_o_mn + k4 * 128, 1);
 #pragma unroll
-      for (int k4 = 0; k4 < 4; ++k4) wgmma_m64n64k16_rs<1>(gk, sa[k4], db_q_mn + k4 * 128, 1);
+      for (int k4 = 0; k4 < 4; ++k4)
+        wgmma_m64n64k16_rs<1, T>(gk, sa[k4], db_q_mn + k4 * 128, 1);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(gv);
@@ -1342,9 +1360,11 @@ __global__ void __launch_bounds__((K64_CONS + 1) * WG_THREADS, 1) flash_bwd_dkv_
     }
     for (int t = hi; t < last; ++t) release(t);
 
-    // dK scale and dV in bf16, one copy per q head; gk[4 j + e] is key key0
-    // + 8 (e / 2), head dim 8 j + 2 t4 + (e % 2)
+    // dK and dV in T (in fp16 times *out_scale), one copy per q head; gk[4
+    // j + e] is key key0 + 8 (e / 2), head dim 8 j + 2 t4 + (e % 2)
     if (w_live) {
+      float os = 1.f;
+      if constexpr (std::is_same<T, __half>::value) os = out_scale ? *out_scale : 1.f;
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int key = key0 + 8 * r;
@@ -1353,14 +1373,28 @@ __global__ void __launch_bounds__((K64_CONS + 1) * WG_THREADS, 1) flash_bwd_dkv_
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           *reinterpret_cast<uint32_t*>(dk + base + 8 * j) =
-              pack_bf16(gk[4 * j + 2 * r] * scale, gk[4 * j + 2 * r + 1] * scale);
+              pack_t<T>(gk[4 * j + 2 * r] * os, gk[4 * j + 2 * r + 1] * os);
           *reinterpret_cast<uint32_t*>(dv + base + 8 * j) =
-              pack_bf16(gv[4 * j + 2 * r], gv[4 * j + 2 * r + 1]);
+              pack_t<T>(gv[4 * j + 2 * r] * os, gv[4 * j + 2 * r + 1] * os);
         }
       }
     }
   }
 }
+
+#define BWD_DKV64_KERNEL(NAME, T)                                                          \
+  __global__ void __launch_bounds__((K64_CONS + 1) * WG_THREADS, 1) NAME(                  \
+      const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,   \
+      const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,  \
+      const float* __restrict__ lse, const float* __restrict__ delta, T* __restrict__ dk,  \
+      T* __restrict__ dv, const float* __restrict__ out_scale, int H, int KvH, int Sq,     \
+      int Sk, int causal, int window, float scale) {                                       \
+    dkv_wgmma64_body<T>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dk, dv, out_scale, H, KvH, \
+                        Sq, Sk, causal, window, scale);                                    \
+  }
+BWD_DKV64_KERNEL(flash_bwd_dkv_wgmma64_kernel, __nv_bfloat16)
+BWD_DKV64_KERNEL(flash_bwd_dkv_wgmma64_f16_kernel, __half)
+#undef BWD_DKV64_KERNEL
 
 // The body of flash_bwd_dq_wgmma_kernel (bf16, D = 128),
 // flash_bwd_dq_wgmma96_kernel (bf16, D = 96), flash_bwd_dq_wgmma80_kernel
@@ -1480,7 +1514,7 @@ __device__ __forceinline__ void dq_wgmma_body(
     for (int r = 0; r < 2; ++r) {
       const int row = row0 + 8 * r;
       l2[r] = row < Sq ? lse[(int64_t)bh * Sq + row] * LOG2E : 0.f;
-      dl[r] = row < Sq ? delta[(int64_t)bh * Sq + row] : 0.f;
+      dl[r] = row < Sq ? delta[(int64_t)bh * Sq + row] * scale : 0.f;
     }
     float acc[DN / 2];
 #pragma unroll
@@ -1522,8 +1556,8 @@ __device__ __forceinline__ void dq_wgmma_body(
       fence_regs(sc);
       fence_regs(dp);
 
-      // dS / scale; element 4 j + e is row row0 + 8 (e / 2), key k0 + 8 j +
-      // 2 t4 + (e % 2)
+      // dS; element 4 j + e is row row0 + 8 (e / 2), key k0 + 8 j + 2 t4 +
+      // (e % 2)
       const bool need_mask =
           k0 + 64 > Sk ||
           (causal && (k0 + 63 > w_first || (window > 0 && k0 <= w_last - window)));
@@ -1536,7 +1570,7 @@ __device__ __forceinline__ void dq_wgmma_body(
                                     kv_offset + row0 + 8 * (e >> 1), Sk, causal, window))
             x = NEG;
           const float p = exp2_ftz(fmaf(x, c, -l2[e >> 1]));
-          dp[4 * j + e] = p * (dp[4 * j + e] - dl[e >> 1]);
+          dp[4 * j + e] = p * fmaf(dp[4 * j + e], scale, -dl[e >> 1]);
         }
       }
       uint32_t sa[4][4];
@@ -1558,7 +1592,7 @@ __device__ __forceinline__ void dq_wgmma_body(
     }
 
     if (w_live) {
-      const float qs = scale * (out_scale ? *out_scale : 1.f);
+      const float qs = out_scale ? *out_scale : 1.f;
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = row0 + 8 * r;
@@ -1626,7 +1660,7 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dq_wgmma_f16_kern
                              out_scale, H, KvH, Sq, Sk, causal, window, scale);
 }
 
-// ---- the dQ wgmma kernel at head dim 64
+// ---- the dQ wgmma kernels at head dim 64 (bf16 and fp16)
 // The dK/dV kernel's plan with the sides swapped: a block is one (b, q head)
 // and 192 q rows in three consumer warpgroups of 64 rows at 160 registers;
 // their Q and dO (one 128-byte swizzle box a row) arrive once, and K and V
@@ -1642,7 +1676,8 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dq_wgmma_f16_kern
 // loops of their own. The grid puts every head's last q blocks, which
 // reach the most keys, first. At bench_mfu's d1024 shape (B=8, H=16,
 // S=2048, causal) the work is ~103 GFLOP against ~170 MB, bound by
-// operations (~104 us at 989 TF/s).
+// operations (~104 us at 989 TF/s); at OPT-1.3B's attention (B=1, H=32,
+// S=2048, causal, fp16) ~25.8 GFLOP against ~42 MB, ~26 us.
 constexpr int Q64_STAGES = 4;
 constexpr int Q64_CONS = 3;                      // consumer warpgroups
 constexpr int Q64_ROWS = 64 * Q64_CONS;          // q rows per block
@@ -1651,11 +1686,15 @@ constexpr int Q64_STAGE = 2 * K64_TILE;          // K and V
 constexpr int Q64_BARS = Q64_Q + Q64_STAGES * Q64_STAGE;
 constexpr int Q64_SMEM = Q64_BARS + 8 * (1 + 2 * Q64_STAGES) + 1024;  // + alignment slack
 
-__global__ void __launch_bounds__((Q64_CONS + 1) * WG_THREADS, 1) flash_bwd_dq_wgmma64_kernel(
-    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    __nv_bfloat16* __restrict__ dq, int H, int KvH, int Sq, int Sk, int causal,
+// The body of flash_bwd_dq_wgmma64_kernel (bf16) and
+// flash_bwd_dq_wgmma64_f16_kernel (fp16), as dkv_wgmma64_body's: in fp16 dS
+// and dQ round to fp16, dQ first multiplied by *out_scale.
+template <typename T>
+__device__ __forceinline__ void dq_wgmma64_body(
+    const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+    const CUtensorMap* tm_do, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ dq,
+    const float* __restrict__ out_scale, int H, int KvH, int Sq, int Sk, int causal,
     int window, float scale) {
   using namespace hopper;
   extern __shared__ unsigned char smem_raw[];
@@ -1689,15 +1728,15 @@ __global__ void __launch_bounds__((Q64_CONS + 1) * WG_THREADS, 1) flash_bwd_dq_w
     setmaxnreg_dec<24>();
     if (threadIdx.x == 0) {
       mbar_arrive_expect_tx(full_q, Q64_Q);
-      tma_load_4d(sQ, &tm_q, full_q, 0, q0, h, b);
-      tma_load_4d(sDO, &tm_do, full_q, 0, q0, h, b);
+      tma_load_4d(sQ, tm_q, full_q, 0, q0, h, b);
+      tma_load_4d(sDO, tm_do, full_q, 0, q0, h, b);
       for (int t = first, i = 0; t < last; ++t, ++i) {
         const int s = i % Q64_STAGES;
         mbar_wait(&empty[s], ((i / Q64_STAGES) & 1) ^ 1);
         unsigned char* sK = smem + Q64_Q + Q64_STAGE * s;
         mbar_arrive_expect_tx(&full[s], Q64_STAGE);
-        tma_load_4d(sK, &tm_k, &full[s], 0, t * 64, kvh, b);
-        tma_load_4d(sK + K64_TILE, &tm_v, &full[s], 0, t * 64, kvh, b);
+        tma_load_4d(sK, tm_k, &full[s], 0, t * 64, kvh, b);
+        tma_load_4d(sK + K64_TILE, tm_v, &full[s], 0, t * 64, kvh, b);
       }
     }
   } else {
@@ -1718,7 +1757,7 @@ __global__ void __launch_bounds__((Q64_CONS + 1) * WG_THREADS, 1) flash_bwd_dq_w
     for (int r = 0; r < 2; ++r) {
       const int row = row0 + 8 * r;
       l2[r] = row < Sq ? lse[(int64_t)bh * Sq + row] * LOG2E : 0.f;
-      dl[r] = row < Sq ? delta[(int64_t)bh * Sq + row] : 0.f;
+      dl[r] = row < Sq ? delta[(int64_t)bh * Sq + row] * scale : 0.f;
     }
     float acc[32];
 #pragma unroll
@@ -1760,16 +1799,16 @@ __global__ void __launch_bounds__((Q64_CONS + 1) * WG_THREADS, 1) flash_bwd_dq_w
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_m64n64k16_ss<0, 0>(sc, da_q + 2 * kk, db_k + 2 * kk, kk > 0);
+        wgmma_m64n64k16_ss<0, 0, T>(sc, da_q + 2 * kk, db_k + 2 * kk, kk > 0);
       wgmma_commit();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_m64n64k16_ss<0, 0>(dp, da_o + 2 * kk, db_v + 2 * kk, kk > 0);
+        wgmma_m64n64k16_ss<0, 0, T>(dp, da_o + 2 * kk, db_v + 2 * kk, kk > 0);
       wgmma_commit();
       wgmma_wait<1>();
       fence_regs(sc);
 
-      // P, then dS / scale; element 4 j + e is row row0 + 8 (e / 2), key
+      // P, then dS; element 4 j + e is row row0 + 8 (e / 2), key
       // k0 + 8 j + 2 t4 + (e % 2)
       const bool need_mask =
           k0 + 64 > Sk ||
@@ -1790,9 +1829,10 @@ __global__ void __launch_bounds__((Q64_CONS + 1) * WG_THREADS, 1) flash_bwd_dq_w
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) dp[4 * j + e] = sc[4 * j + e] * (dp[4 * j + e] - dl[e >> 1]);
+        for (int e = 0; e < 4; ++e)
+          dp[4 * j + e] = sc[4 * j + e] * fmaf(dp[4 * j + e], scale, -dl[e >> 1]);
       uint32_t sa[4][4];
-      to_a_operand(dp, sa);
+      to_a_operand<T>(dp, sa);
 
       // dQ += dS K: K [keys][64] as an MN-major B operand, a k-step of 16
       // keys 2048 bytes
@@ -1800,7 +1840,8 @@ __global__ void __launch_bounds__((Q64_CONS + 1) * WG_THREADS, 1) flash_bwd_dq_w
       fence_regs(acc);
       wgmma_fence();
 #pragma unroll
-      for (int k4 = 0; k4 < 4; ++k4) wgmma_m64n64k16_rs<1>(acc, sa[k4], db_k_mn + k4 * 128, 1);
+      for (int k4 = 0; k4 < 4; ++k4)
+        wgmma_m64n64k16_rs<1, T>(acc, sa[k4], db_k_mn + k4 * 128, 1);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
@@ -1808,22 +1849,38 @@ __global__ void __launch_bounds__((Q64_CONS + 1) * WG_THREADS, 1) flash_bwd_dq_w
     }
     for (int t = hi; t < last; ++t) release(t);
 
-    // dQ scale in bf16; acc[4 j + e] is row row0 + 8 (e / 2), head dim 8 j
-    // + 2 t4 + (e % 2)
+    // dQ in T (in fp16 times *out_scale); acc[4 j + e] is row row0 + 8 (e /
+    // 2), head dim 8 j + 2 t4 + (e % 2)
     if (w_live) {
+      float ks = 1.f;
+      if constexpr (std::is_same<T, __half>::value) ks = out_scale ? *out_scale : 1.f;
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = row0 + 8 * r;
         if (row >= Sq) continue;
-        __nv_bfloat16* out = dq + ((int64_t)bh * Sq + row) * 64 + 2 * t4;
+        T* out = dq + ((int64_t)bh * Sq + row) * 64 + 2 * t4;
 #pragma unroll
         for (int j = 0; j < 8; ++j)
           *reinterpret_cast<uint32_t*>(out + 8 * j) =
-              pack_bf16(acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale);
+              pack_t<T>(acc[4 * j + 2 * r] * ks, acc[4 * j + 2 * r + 1] * ks);
       }
     }
   }
 }
+
+#define BWD_DQ64_KERNEL(NAME, T)                                                           \
+  __global__ void __launch_bounds__((Q64_CONS + 1) * WG_THREADS, 1) NAME(                  \
+      const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,   \
+      const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,  \
+      const float* __restrict__ lse, const float* __restrict__ delta, T* __restrict__ dq,  \
+      const float* __restrict__ out_scale, int H, int KvH, int Sq, int Sk, int causal,     \
+      int window, float scale) {                                                           \
+    dq_wgmma64_body<T>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dq, out_scale, H, KvH, Sq,  \
+                       Sk, causal, window, scale);                                         \
+  }
+BWD_DQ64_KERNEL(flash_bwd_dq_wgmma64_kernel, __nv_bfloat16)
+BWD_DQ64_KERNEL(flash_bwd_dq_wgmma64_f16_kernel, __half)
+#undef BWD_DQ64_KERNEL
 
 // ---- the dQ and dK/dV wgmma kernels at head dim 256 (bf16: Gemma's attention)
 // A 256-wide row is four 128-byte boxes, so a 64-row tile is 32 KB and the
@@ -1995,7 +2052,7 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma256_kern
           const int r = lane + 32 * half;
           const bool in = q0 + r < Sq;
           st[r] = in ? lse_bh[q0 + r] * LOG2E : 0.f;
-          st[64 + r] = in ? delta_bh[q0 + r] : 0.f;
+          st[64 + r] = in ? delta_bh[q0 + r] * scale : 0.f;
         }
         mbar_arrive(&full[s]);
       }
@@ -2067,16 +2124,16 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma256_kern
               make_float4(sc[4 * u], sc[4 * u + 1], sc[4 * u + 2], sc[4 * u + 3]);
         mbar_arrive(p_full);
       } else {
-        // dS^T / scale = P^T (dP^T - delta), delta by q row
+        // dS^T = P^T (dP^T - delta) scale, delta by q row
         mbar_wait(p_full, handed & 1);
 #pragma unroll
         for (int u = 0; u < 8; ++u) {
           const float4 p = xchg[u * WG_THREADS + tid];
           const float2 dl = *reinterpret_cast<const float2*>(st + 64 + 8 * u + 2 * t4);
-          sc[4 * u] = p.x * (sc[4 * u] - dl.x);
-          sc[4 * u + 1] = p.y * (sc[4 * u + 1] - dl.y);
-          sc[4 * u + 2] = p.z * (sc[4 * u + 2] - dl.x);
-          sc[4 * u + 3] = p.w * (sc[4 * u + 3] - dl.y);
+          sc[4 * u] = p.x * fmaf(sc[4 * u], scale, -dl.x);
+          sc[4 * u + 1] = p.y * fmaf(sc[4 * u + 1], scale, -dl.y);
+          sc[4 * u + 2] = p.z * fmaf(sc[4 * u + 2], scale, -dl.x);
+          sc[4 * u + 3] = p.w * fmaf(sc[4 * u + 3], scale, -dl.y);
         }
         mbar_arrive(p_empty);
       }
@@ -2096,17 +2153,15 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma256_kern
       mbar_arrive(&empty[s]);
     }
 
-    // dV (times *out_scale) or dK scale (times it) in bf16, one copy per q
-    // head; acc[hf][4 j + e] is key key0 + 8 (e / 2), head dim 128 hf + 8 j
-    // + 2 t4 + (e % 2)
+    // dV or dK (times *out_scale) in bf16, one copy per q head; acc[hf][4 j
+    // + e] is key key0 + 8 (e / 2), head dim 128 hf + 8 j + 2 t4 + (e % 2)
     const float os = out_scale ? *out_scale : 1.f;
     __nv_bfloat16* out = dv_side ? dv : dk;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int key = key0 + 8 * r;
       if (key < Sk)
-        store_row256(out + ((int64_t)bh * Sk + key) * 256 + 2 * t4, acc, r,
-                     dv_side ? os : scale * os);
+        store_row256(out + ((int64_t)bh * Sk + key) * 256 + 2 * t4, acc, r, os);
     }
   }
 }
@@ -2182,7 +2237,7 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dq_wgmma256_kerne
     for (int r = 0; r < 2; ++r) {
       const int row = row0 + 8 * r;
       l2[r] = row < Sq ? lse[(int64_t)bh * Sq + row] * LOG2E : 0.f;
-      dl[r] = row < Sq ? delta[(int64_t)bh * Sq + row] : 0.f;
+      dl[r] = row < Sq ? delta[(int64_t)bh * Sq + row] * scale : 0.f;
     }
     float acc[2][64];
 #pragma unroll
@@ -2210,8 +2265,8 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dq_wgmma256_kerne
       fence_regs(sc);
       fence_regs(dp);
 
-      // dS / scale; element 4 j + e is row row0 + 8 (e / 2), key k0 + 8 j +
-      // 2 t4 + (e % 2)
+      // dS; element 4 j + e is row row0 + 8 (e / 2), key k0 + 8 j + 2 t4 +
+      // (e % 2)
       const bool need_mask =
           k0 + 64 > Sk ||
           (causal && (k0 + 63 > w_first || (window > 0 && k0 <= w_last - window)));
@@ -2224,7 +2279,7 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dq_wgmma256_kerne
                                     kv_offset + row0 + 8 * (e >> 1), Sk, causal, window))
             x = NEG;
           const float p = exp2_ftz(fmaf(x, c, -l2[e >> 1]));
-          dp[4 * j + e] = p * (dp[4 * j + e] - dl[e >> 1]);
+          dp[4 * j + e] = p * fmaf(dp[4 * j + e], scale, -dl[e >> 1]);
         }
       }
       uint32_t sa[4][4];
@@ -2267,7 +2322,7 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dq_wgmma256_kerne
           acc[hf][4 * u + 2] += o.z;
           acc[hf][4 * u + 3] += o.w;
         }
-      const float qs = scale * (out_scale ? *out_scale : 1.f);
+      const float qs = out_scale ? *out_scale : 1.f;
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = row0 + 8 * r;
@@ -2406,13 +2461,27 @@ BwdRows<__nv_bfloat16> bwd_rows(const Args& a) {
   return src;
 }
 
+// a dK/dV kernel over T at D = 64 (bf16 or fp16): 192 keys a block, boxes
+// of 64 rows of q and dO
+template <typename T, typename K>
+cudaError_t dkv_wgmma64(K kernel, const Args& a) {
+  CUtensorMap m[4];
+  if (!bwd_maps(a, 64, map_type<T>(), 64, K64_KEYS, m)) return cudaErrorInvalidValue;
+  const dim3 grid(a.B * a.H, (a.Sk + K64_KEYS - 1) / K64_KEYS);
+  kernel<<<grid, (K64_CONS + 1) * WG_THREADS, K64_SMEM, a.stream>>>(
+      m[0], m[1], m[2], m[3], (const float*)a.lse, (const float*)a.delta, (T*)a.dk,
+      (T*)a.dv, a.out_scale, a.H, a.KvH, a.Sq, a.Sk, a.causal, a.window, a.scale);
+  return cudaGetLastError();
+}
+
 // bf16 (dtype 1) at D = 128: flash_bwd_dkv_wgmma_kernel; at D = 96, 80 and
 // 100: flash_bwd_dkv_wgmma96_kernel, flash_bwd_dkv_wgmma80_kernel and
 // flash_bwd_dkv_wgmma100_kernel (which takes the rows themselves, not maps),
 // on the same grid; at D = 64:
 // flash_bwd_dkv_wgmma64_kernel; at D = 256: flash_bwd_dkv_wgmma256_kernel,
 // 64 keys a block. fp16 (dtype 2) at D = 128:
-// flash_bwd_dkv_wgmma_f16_kernel, on the D = 128 grid.
+// flash_bwd_dkv_wgmma_f16_kernel, on the D = 128 grid; at D = 64:
+// flash_bwd_dkv_wgmma64_f16_kernel, on the D = 64 grid.
 cudaError_t launch_dkv_wgmma(const Args& a, int D, int dtype) {
   static const cudaError_t attr128 = set_smem(flash_bwd_dkv_wgmma_kernel, DKV_SMEM);
   static const cudaError_t attr96 = set_smem(flash_bwd_dkv_wgmma96_kernel, DKV_SMEM);
@@ -2421,7 +2490,9 @@ cudaError_t launch_dkv_wgmma(const Args& a, int D, int dtype) {
   static const cudaError_t attr64 = set_smem(flash_bwd_dkv_wgmma64_kernel, K64_SMEM);
   static const cudaError_t attr256 = set_smem(flash_bwd_dkv_wgmma256_kernel, DKV256_SMEM);
   static const cudaError_t attr_f16 = set_smem(flash_bwd_dkv_wgmma_f16_kernel, DKV_SMEM);
-  const cudaError_t attr = dtype == 2   ? attr_f16
+  static const cudaError_t attr64_f16 =
+      set_smem(flash_bwd_dkv_wgmma64_f16_kernel, K64_SMEM);
+  const cudaError_t attr = dtype == 2   ? (D == 64 ? attr64_f16 : attr_f16)
                            : D == 64   ? attr64
                            : D == 96   ? attr96
                            : D == 80   ? attr80
@@ -2429,7 +2500,9 @@ cudaError_t launch_dkv_wgmma(const Args& a, int D, int dtype) {
                            : D == 256  ? attr256
                                        : attr128;
   if (attr != cudaSuccess) return attr;
-  if (dtype == 2) return dkv_wgmma128<__half>(flash_bwd_dkv_wgmma_f16_kernel, a, D);
+  if (dtype == 2)
+    return D == 64 ? dkv_wgmma64<__half>(flash_bwd_dkv_wgmma64_f16_kernel, a)
+                   : dkv_wgmma128<__half>(flash_bwd_dkv_wgmma_f16_kernel, a, D);
   if (D == 256) {
     CUtensorMap m[4];
     if (!bwd_maps(a, D, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 64, 64, m))
@@ -2449,20 +2522,11 @@ cudaError_t launch_dkv_wgmma(const Args& a, int D, int dtype) {
         a.scale);
     return cudaGetLastError();
   }
-  if (D != 64)
-    return dkv_wgmma128<__nv_bfloat16>(D == 96   ? flash_bwd_dkv_wgmma96_kernel
-                                       : D == 80 ? flash_bwd_dkv_wgmma80_kernel
-                                                 : flash_bwd_dkv_wgmma_kernel,
-                                       a, D);
-  CUtensorMap m[4];
-  if (!bwd_maps(a, D, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 64, K64_KEYS, m))
-    return cudaErrorInvalidValue;
-  const dim3 grid(a.B * a.H, (a.Sk + K64_KEYS - 1) / K64_KEYS);
-  flash_bwd_dkv_wgmma64_kernel<<<grid, (K64_CONS + 1) * WG_THREADS, K64_SMEM, a.stream>>>(
-      m[0], m[1], m[2], m[3], (const float*)a.lse, (const float*)a.delta,
-      (__nv_bfloat16*)a.dk, (__nv_bfloat16*)a.dv, a.H, a.KvH, a.Sq, a.Sk, a.causal,
-      a.window, a.scale);
-  return cudaGetLastError();
+  if (D == 64) return dkv_wgmma64<__nv_bfloat16>(flash_bwd_dkv_wgmma64_kernel, a);
+  return dkv_wgmma128<__nv_bfloat16>(D == 96   ? flash_bwd_dkv_wgmma96_kernel
+                                     : D == 80 ? flash_bwd_dkv_wgmma80_kernel
+                                               : flash_bwd_dkv_wgmma_kernel,
+                                     a, D);
 }
 
 // a dQ kernel over T on D = 128's grid (bf16 at D = 128, 96 and 80, fp16 at
@@ -2478,13 +2542,27 @@ cudaError_t dq_wgmma128(K kernel, const Args& a, int D) {
   return cudaGetLastError();
 }
 
+// a dQ kernel over T at D = 64 (bf16 or fp16): 192 q rows a block, boxes of
+// 64 rows of k and v
+template <typename T, typename K>
+cudaError_t dq_wgmma64(K kernel, const Args& a) {
+  CUtensorMap m[4];
+  if (!bwd_maps(a, 64, map_type<T>(), Q64_ROWS, 64, m)) return cudaErrorInvalidValue;
+  const dim3 grid(a.B * a.H, (a.Sq + Q64_ROWS - 1) / Q64_ROWS);
+  kernel<<<grid, (Q64_CONS + 1) * WG_THREADS, Q64_SMEM, a.stream>>>(
+      m[0], m[1], m[2], m[3], (const float*)a.lse, (const float*)a.delta, (T*)a.dq,
+      a.out_scale, a.H, a.KvH, a.Sq, a.Sk, a.causal, a.window, a.scale);
+  return cudaGetLastError();
+}
+
 // bf16 (dtype 1) at D = 128: flash_bwd_dq_wgmma_kernel; at D = 96, 80 and
 // 100: flash_bwd_dq_wgmma96_kernel, flash_bwd_dq_wgmma80_kernel and
 // flash_bwd_dq_wgmma100_kernel (which takes the rows themselves, not maps),
 // on the same grid; at D = 64:
 // flash_bwd_dq_wgmma64_kernel; at D = 256: flash_bwd_dq_wgmma256_kernel, 64
 // q rows a block. fp16 (dtype 2) at D = 128:
-// flash_bwd_dq_wgmma_f16_kernel, on the D = 128 grid.
+// flash_bwd_dq_wgmma_f16_kernel, on the D = 128 grid; at D = 64:
+// flash_bwd_dq_wgmma64_f16_kernel, on the D = 64 grid.
 cudaError_t launch_dq_wgmma(const Args& a, int D, int dtype) {
   static const cudaError_t attr128 = set_smem(flash_bwd_dq_wgmma_kernel, DQ_SMEM);
   static const cudaError_t attr96 = set_smem(flash_bwd_dq_wgmma96_kernel, DQ_SMEM);
@@ -2493,7 +2571,8 @@ cudaError_t launch_dq_wgmma(const Args& a, int D, int dtype) {
   static const cudaError_t attr64 = set_smem(flash_bwd_dq_wgmma64_kernel, Q64_SMEM);
   static const cudaError_t attr256 = set_smem(flash_bwd_dq_wgmma256_kernel, DQ256_SMEM);
   static const cudaError_t attr_f16 = set_smem(flash_bwd_dq_wgmma_f16_kernel, DQ_SMEM);
-  const cudaError_t attr = dtype == 2   ? attr_f16
+  static const cudaError_t attr64_f16 = set_smem(flash_bwd_dq_wgmma64_f16_kernel, Q64_SMEM);
+  const cudaError_t attr = dtype == 2   ? (D == 64 ? attr64_f16 : attr_f16)
                            : D == 64   ? attr64
                            : D == 96   ? attr96
                            : D == 80   ? attr80
@@ -2501,7 +2580,9 @@ cudaError_t launch_dq_wgmma(const Args& a, int D, int dtype) {
                            : D == 256  ? attr256
                                        : attr128;
   if (attr != cudaSuccess) return attr;
-  if (dtype == 2) return dq_wgmma128<__half>(flash_bwd_dq_wgmma_f16_kernel, a, D);
+  if (dtype == 2)
+    return D == 64 ? dq_wgmma64<__half>(flash_bwd_dq_wgmma64_f16_kernel, a)
+                   : dq_wgmma128<__half>(flash_bwd_dq_wgmma_f16_kernel, a, D);
   if (D == 256) {
     CUtensorMap m[4];
     if (!bwd_maps(a, D, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 64, 64, m))
@@ -2520,19 +2601,11 @@ cudaError_t launch_dq_wgmma(const Args& a, int D, int dtype) {
         a.out_scale, a.H, a.KvH, a.Sq, a.Sk, a.causal, a.window, a.scale);
     return cudaGetLastError();
   }
-  if (D != 64)
-    return dq_wgmma128<__nv_bfloat16>(D == 96   ? flash_bwd_dq_wgmma96_kernel
-                                      : D == 80 ? flash_bwd_dq_wgmma80_kernel
-                                                : flash_bwd_dq_wgmma_kernel,
-                                      a, D);
-  CUtensorMap m[4];
-  if (!bwd_maps(a, D, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, Q64_ROWS, 64, m))
-    return cudaErrorInvalidValue;
-  const dim3 grid(a.B * a.H, (a.Sq + Q64_ROWS - 1) / Q64_ROWS);
-  flash_bwd_dq_wgmma64_kernel<<<grid, (Q64_CONS + 1) * WG_THREADS, Q64_SMEM, a.stream>>>(
-      m[0], m[1], m[2], m[3], (const float*)a.lse, (const float*)a.delta,
-      (__nv_bfloat16*)a.dq, a.H, a.KvH, a.Sq, a.Sk, a.causal, a.window, a.scale);
-  return cudaGetLastError();
+  if (D == 64) return dq_wgmma64<__nv_bfloat16>(flash_bwd_dq_wgmma64_kernel, a);
+  return dq_wgmma128<__nv_bfloat16>(D == 96   ? flash_bwd_dq_wgmma96_kernel
+                                    : D == 80 ? flash_bwd_dq_wgmma80_kernel
+                                              : flash_bwd_dq_wgmma_kernel,
+                                    a, D);
 }
 
 // which: 0 = dQ, 1 = dK/dV; the simt (mma 0) or mma (mma 1) kernel of T at
@@ -2567,7 +2640,7 @@ cudaError_t at_padded_dim(int which, int mma, const Args& a) {
 // dtype 0 = fp32, 1 = bf16, 2 = fp16. route 0 = simt (any dtype, D from 1
 // to 512), 1 = mma (bf16 or fp16, D a multiple of 8 up to 256, 16-byte
 // aligned bases, strides that are multiples of 8), 2 = wgmma (as mma, and
-// Sk > 0, with bf16 at D = 64, 80, 96, 128 or 256 and fp16 at D = 128; or
+// Sk > 0, with bf16 at D = 64, 80, 96, 128 or 256 and fp16 at D = 64 or 128; or
 // bf16 at D = 100 with 8-byte aligned bases and strides that are multiples
 // of 4); a route that cannot take the inputs launches nothing, and so does
 // an out_scale in fp32 or bf16
@@ -2589,7 +2662,7 @@ cudaError_t dispatch(int which, int dtype, int route, int D, const Args& a) {
     case 2: {
       const bool has_d = dtype == 1 ? D == 64 || D == 80 || D == 96 || D == 100 || D == 128 ||
                                           D == 256
-                                    : dtype == 2 && D == 128;
+                                    : dtype == 2 && (D == 64 || D == 128);
       // the D = 100 kernels copy their 200-byte rows in 8-byte pieces
       const bool rows_ok = D == 100 ? rows_aligned(ptrs, 4, &a.st.q_sb, 12, D, 8) : aligned;
       if (!has_d || !rows_ok || a.Sk <= 0) return cudaErrorInvalidValue;

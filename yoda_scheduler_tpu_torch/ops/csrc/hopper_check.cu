@@ -39,6 +39,11 @@
 // - hopper_wgmma_rs64_f16: P [64, 128] from registers times V [128, 64], V
 //   one MN-major box, with the fp16 m64n64k16 RS form, as
 //   flash_fwd_wgmma64_f16_kernel's P V;
+// - hopper_wgmma_chain64_f16: S = A B^T (A, B [64, 64] fp16, one K-major box
+//   each, 4 SS m64n64k16 k-steps), S rounded to fp16 in registers as the RS
+//   form's A (`to_a_operand<__half>` of flash_bwd.cu), times C [64, 64], one
+//   64-row MN-major box, with 4 RS m64n64k16 k-steps: the fp16 head-dim-64
+//   backward kernels' S^T = K Q^T, P^T, dV += P^T dO (and dS^T Q, dS K);
 // - hopper_wgmma_ss256: rows [a_row0, a_row0 + 64) of A [128, 256] times
 //   B^T, B [64, 256], each row in four 64-column boxes (A's 16 KB apart, B's
 //   8 KB), with 16 SS m64n64k16 k-steps, as flash_fwd_wgmma256_kernel's
@@ -454,6 +459,57 @@ __global__ void __launch_bounds__(128) wgmma_rs64_f16_kernel(
   store_acc<64>(d, out);
 }
 
+// round(A B^T, fp16) C, A, B and C [64, 64] fp16 (one box each): the
+// scores from SS m64n64k16, rounded in registers, then RS m64n64k16 over C
+// as a 64-row MN-major B
+__global__ void __launch_bounds__(128) wgmma_chain64_f16_kernel(
+    const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
+    const __grid_constant__ CUtensorMap map_c, float* out) {
+  extern __shared__ unsigned char raw[];
+  unsigned char* sA = aligned_smem(raw);
+  unsigned char* sB = sA + HALF64;
+  unsigned char* sC = sB + HALF64;
+  __shared__ uint64_t bar;
+  if (threadIdx.x == 0) {
+    mbar_init(&bar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_arrive_expect_tx(&bar, 3 * HALF64);
+    tma_load_4d(sA, &map_a, &bar, 0, 0, 0, 0);
+    tma_load_4d(sB, &map_b, &bar, 0, 0, 0, 0);
+    tma_load_4d(sC, &map_c, &bar, 0, 0, 0, 0);
+  }
+  mbar_wait(&bar, 0);
+  float sc[32], d[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) d[i] = 0.f;
+  const uint64_t da = desc_kmajor(sA), db = desc_kmajor(sB);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_m64n64k16_ss<0, 0, __half>(sc, da + 2 * kk, db + 2 * kk, kk > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(sc);
+  uint32_t pa[4][4];
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      pa[s][i] = pack_t<__half>(sc[8 * s + 2 * i], sc[8 * s + 2 * i + 1]);
+  const uint64_t dc = desc_mnmajor(sC, HALF64);
+  fence_regs(d);
+  wgmma_fence();
+#pragma unroll
+  for (int k4 = 0; k4 < 4; ++k4) wgmma_m64n64k16_rs<1, __half>(d, pa[k4], dc + k4 * 128, 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(d);
+  store_acc<64>(d, out);
+}
+
 // rows [a_row0, a_row0 + 64) of A [AROWS, 256] times B^T, B [64, 256]:
 // each row four 64-column boxes, A's AROWS * 128 bytes apart (16 KB for 128
 // rows, 8 KB for 64) and B's 8 KB
@@ -785,6 +841,22 @@ extern "C" int hopper_wgmma_rs64_f16(const void* p, const void* v, void* out, vo
   constexpr int smem = HALF + 1024;
   wgmma_rs64_f16_kernel<<<1, 128, smem, (cudaStream_t)stream>>>((const __half*)p, map_v,
                                                                (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// a, b, c: [64, 64] fp16 contiguous; out: [64, 64] fp32 = fp16(a @ b^T) @ c
+extern "C" int hopper_wgmma_chain64_f16(const void* a, const void* b, const void* c,
+                                        void* out, void* stream) {
+  const int64_t dims[4] = {64, 64, 1, 1};
+  const int64_t strides[3] = {64, 64 * 64, 64 * 64};
+  CUtensorMap map_a, map_b, map_c;
+  if (!make_map_4d(&map_a, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, a, dims, strides, 64) ||
+      !make_map_4d(&map_b, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, b, dims, strides, 64) ||
+      !make_map_4d(&map_c, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, c, dims, strides, 64))
+    return (int)cudaErrorInvalidValue;
+  constexpr int smem = 3 * HALF64 + 1024;
+  wgmma_chain64_f16_kernel<<<1, 128, smem, (cudaStream_t)stream>>>(map_a, map_b, map_c,
+                                                                  (float*)out);
   return (int)cudaGetLastError();
 }
 

@@ -10,11 +10,13 @@ it, too), or "cur" for the package's own, built with the package's nvcc
 flags into `build/variants/`; each build's nvcc seconds are printed. fwd
 launches `attention.flash_fwd` on its automatic route; bwd launches
 `attention.flash_bwd_dq` and `attention.flash_bwd_dkv` on theirs (wgmma at
-head dims 64, 80, 96, 100, 128 and 256 in bf16, and 128 in fp16); both first print
+head dims 64, 80, 96, 100, 128 and 256 in bf16, and 64 and 128 in fp16); both first print
 ptxas's registers and spills of each variant's wgmma kernels with its
 performance notes. `--route mma` launches both kinds on the mma route
 instead. Every launch is checked against the
-plain version, elementwise and by `tile_rel_l2`. With `--probe` each
+plain version, elementwise and by `tile_rel_l2`; bwd also reads, for each
+of dQ, dK and dV, the share of its entries that differ from the plain
+version's per q head (`unequal_share`). With `--probe` each
 variant runs once at the `PROBE` shapes, so that a variant that hangs or faults
 can be run alone under a time limit before the timing. Each reading says
 whether the variant's outputs equal the first variant's bit for bit. `--head-dim 64`
@@ -39,8 +41,9 @@ where the three kernels run `flash_fwd_wgmma256_kernel`,
 weights), where the three kernels run `flash_fwd_wgmma_f16_kernel`,
 `flash_bwd_dq_wgmma_f16_kernel` and `flash_bwd_dkv_wgmma_f16_kernel`, and
 with `--head-dim 64` those of `SHAPES_F16_64` (OPT-1.3B's attention, 32
-heads of 64, first), where the forward runs `flash_fwd_wgmma64_f16_kernel`
-(the backward kernels mma); each launch is held to fp16's bounds, the bf16
+heads of 64, first), where the three kernels run
+`flash_fwd_wgmma64_f16_kernel`, `flash_bwd_dq_wgmma64_f16_kernel` and
+`flash_bwd_dkv_wgmma64_f16_kernel`; each launch is held to fp16's bounds, the bf16
 ones over 8 (a variant without an fp16 wgmma kernel takes `--route mma`).
 Prints the card's name and power limit, then one JSON line per shape.
 """
@@ -155,6 +158,18 @@ def tile_rel_l2(got, ref, rows: int = 64) -> float:
     return float(torch.nan_to_num(err / scale, nan=0.0, posinf=math.inf).max())
 
 
+def unequal_share(got, ref) -> float:
+    """The share of `got`'s entries that differ from `ref`'s, both in one
+    dtype, so that each one that differs is a unit in the last place or
+    more off: small where both round the same values and differ only in
+    the order of fp32 sums, near half where one rounds values the other
+    does not."""
+    if got.dtype != ref.dtype or got.shape != ref.shape:
+        raise ValueError(f"{got.dtype} {tuple(got.shape)} against {ref.dtype} "
+                         f"{tuple(ref.shape)}")
+    return float((got != ref).float().mean())
+
+
 def build_variant(variant: str) -> tuple[ctypes.CDLL, str, float]:
     """A copy of a kernel source built with the package's nvcc flags (and
     its csrc/ headers, after the headers beside it) into build/variants/:
@@ -236,6 +251,10 @@ def _bwd_case(gen, d, dtype, route, b, h, kvh, sq, sk, causal, window):
     o, lse = attn.flash_fwd(q, k, v, causal, window)
     args = (q, k, v, do, lse, attn.backward_delta(o, do).contiguous(), causal, window)
     ref = attn.flash_backward_reference(q, k, v, o, lse, do, causal, window)
+    # per q head: K and V repeated to q's heads, each head's dK/dV rounded once
+    heads = attn.flash_backward_reference(
+        q, *(t.repeat_interleave(h // kvh, dim=1) for t in (k, v)), o, lse, do, causal,
+        window)[1:]
     tol, tile_bound = BOUNDS[dtype]
 
     def check():
@@ -245,8 +264,10 @@ def _bwd_case(gen, d, dtype, route, b, h, kvh, sq, sk, causal, window):
         tiles = {n: tile_rel_l2(g, r) for n, g, r in zip(("dq", "dk", "dv"), got, ref)}
         close = all(bool(torch.allclose(g.float(), r.float(), atol=tol, rtol=tol))
                     for g, r in zip(got, ref))
-        return {"tile_rel_l2": tiles, "allclose": close, "outputs": got,
-                "ok": close and max(tiles.values()) <= tile_bound}
+        unequal = {n: unequal_share(g, r)
+                for n, g, r in zip(("dq", "dk", "dv"), (got[0], dk, dv), (ref[0], *heads))}
+        return {"tile_rel_l2": tiles, "allclose": close, "unequal_share": unequal,
+                "outputs": got, "ok": close and max(tiles.values()) <= tile_bound}
 
     return check, {"dq_ms": lambda: attn.flash_bwd_dq(*args, route=route),
                    "dkv_ms": lambda: attn.flash_bwd_dkv(*args, route=route)}

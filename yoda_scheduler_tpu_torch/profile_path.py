@@ -35,10 +35,14 @@ its wgmma kernel and on mma, as before it (`gemma_opt_forward_windows()`
 traces those four alone); then one StableLM-3B-4E1T training step (all 32
 layers, B=1, S=2048, remat, AdamW) with dQ and dK/dV on their head-dim-80
 wgmma kernels and one on mma (`d80_backward_on_mma`;
-`stablelm3b_train_windows()` traces those two alone); last one Gemma-2B
+`stablelm3b_train_windows()` traces those two alone); then one Gemma-2B
 training step (all 18 layers, B=1, S=2048, remat, AdamW) with dQ and dK/dV
 on their head-dim-256 wgmma kernels and one on mma (`d256_backward_on_mma`;
-`gemma2b_train_windows()` traces those two alone). For each traced
+`gemma2b_train_windows()` traces those two alone); last OPT-1.3B's loss
+(all 24 layers, fp16, B=1, S=2048, remat) through its forward and backward,
+no optimizer step, with dQ and dK/dV on their fp16 head-dim-64 wgmma kernels
+and on mma (`fp16_backward_on_mma`; `opt13b_backward_windows()` traces those
+two alone). For each traced
 window it prints one JSON line: the host wall time, the device's busy time
 (the union of kernel intervals) and idle share, the kernel launches, the
 device time grouped into conv / matmul / flash_fwd / flash_bwd_dq /
@@ -70,11 +74,12 @@ import torch
 import torch.nn.functional as F
 
 from .models import (KVCache, LlamaConfig, decode_step, init_llama, llama_forward,
-                     prefill, resnet_forward_fn)
+                     llama_loss, prefill, resnet_forward_fn)
 from .models.moe import ROUTE_SPAN
 from .models.resnet import BN_SPAN
 from .ops import attention
-from .parallel import build_llama_train_step, build_pipelined_llama_train_step
+from .parallel import (build_llama_train_step, build_pipelined_llama_train_step,
+                       param_leaves)
 
 
 def mixtral_8x7b(n_layers: int) -> LlamaConfig:
@@ -283,8 +288,9 @@ def d96_on_mma():
 
 
 def fp16_backward_on_mma():
-    """Within it, fp16 at head dim 128 takes the mma route for dQ and dK/dV,
-    as before their fp16 wgmma kernels; the forward keeps its wgmma kernel."""
+    """Within it, fp16 takes the mma route for dQ and dK/dV at every head
+    dim (64 and 128, those of their fp16 wgmma kernels), as before those
+    kernels; the forward keeps its wgmma kernels, and bf16 all of its."""
     return _off_wgmma(lambda key, d: key[1] == torch.float16 and key[0] != "flash_fwd")
 
 
@@ -314,8 +320,8 @@ def d256_backward_on_mma():
 
 def fp16_d64_forward_on_mma():
     """Within it, the fp16 forward at head dim 64 takes the mma route, as
-    before its wgmma kernel; the fp16 backward there is on mma either way,
-    and bf16 at 64 keeps its wgmma kernels."""
+    before its wgmma kernel; dQ and dK/dV keep their fp16 wgmma kernels
+    there, and bf16 at 64 keeps its wgmma kernels."""
     return _off_wgmma(lambda key, d: key == ("flash_fwd", torch.float16) and d == 64)
 
 
@@ -510,6 +516,33 @@ def gemma2b_train_windows() -> list[dict]:
                                    d256_backward_on_mma)
 
 
+def opt13b_backward_windows() -> list[dict]:
+    """OPT-1.3B's loss (24 layers, fp16, B=1, S=2048, remat) traced through
+    its forward and backward, with no optimizer step (AdamW's eps is 0 in
+    fp16), with dQ and dK/dV on their fp16 head-dim-64 wgmma kernels and on
+    mma (`fp16_backward_on_mma`), each traced twice, in turns."""
+    cfg = opt_1_3b()
+    params = init_llama(cfg, seed=0, device="cuda")
+    leaves = param_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen, device="cuda")
+
+    def fwd_bwd(_):
+        for t in leaves:
+            t.grad = None
+        llama_loss(params, tokens, cfg, remat=True).backward()
+
+    # in turns A, B, B, A, so that neither set is only the first traced
+    sets = (("wgmma", contextlib.nullcontext), ("backward_on_mma", fp16_backward_on_mma))
+    reports = []
+    for name, routes in sets + sets[::-1]:
+        with routes():
+            reports.append(trace(f"opt13b_fp16_fwd_bwd_b1_s2048_{name}", fwd_bwd))
+    return reports
+
+
 def moe_forward_window(cfg) -> dict:
     params = init_llama(cfg, seed=0, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -581,6 +614,8 @@ def main() -> int:
     reports += stablelm3b_train_windows()
     _free()
     reports += gemma2b_train_windows()
+    _free()
+    reports += opt13b_backward_windows()
     out = Path(__file__).resolve().parents[1] / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "profile_path.json").write_text(json.dumps(
