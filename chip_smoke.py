@@ -689,7 +689,8 @@ WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_wgmma96_kernel",
                  "flash_fwd_wgmma256_kernel", "flash_fwd_wgmma64_f16_kernel",
                  "flash_bwd_dq_wgmma80_kernel", "flash_bwd_dkv_wgmma80_kernel",
                  "flash_bwd_dq_wgmma256_kernel", "flash_bwd_dkv_wgmma256_kernel",
-                 "flash_bwd_dq_wgmma64_f16_kernel", "flash_bwd_dkv_wgmma64_f16_kernel")
+                 "flash_bwd_dq_wgmma64_f16_kernel", "flash_bwd_dkv_wgmma64_f16_kernel",
+                 "flash_fwd_wgmma80_f16_kernel", "flash_fwd_wgmma100_f16_kernel")
 
 
 def phase_build(build):
@@ -784,7 +785,7 @@ SHAPES = [
      "offset1", "simt"),
     # head dims other than 32, 64 and 128, and fp16, on the simt and mma
     # kernels at their padded widths (at 80, 96, 100 and 256, and fp16 at
-    # 64 and 128, on wgmma):
+    # 64 and 128, on wgmma; fp16 at 80 and 100 the forward alone, above):
     # Phi-3-mini's attention (32 heads of 96, S=2048) as the model
     # gives it and contiguous, with GQA 32/8 and a window; 80 (2560 / 32,
     # StableLM-3B's and Phi-2's width), contiguous and as the model's views,
@@ -845,6 +846,38 @@ SHAPES = [
      "wgmma"),
     ("fp16_ragged_d64", 2, 8, 4, 300, 300, 64, True, None, torch.float16, "bhsd",
      "wgmma"),
+    # fp16 at head dims 80 and 100, the forward on its fp16 wgmma kernels (dQ
+    # and dK/dV on mma at 80 and simt at 100): OPT-2.7B's attention and
+    # OpenLLaMA-3B's in fp16 as their models give them (at 100 half of the
+    # heads start 8 bytes off a 16-byte boundary), 200-byte rows contiguous,
+    # and at each width GQA 32/8, a window, a ragged sequence, cross-length
+    # and non-causal
+    ("opt27b_d80_bshd", 1, 32, 32, 2048, 2048, 80, True, None, torch.float16, "bshd",
+     ("wgmma", "mma")),
+    ("fp16_gqa_d80", 1, 32, 8, 2048, 2048, 80, True, None, torch.float16, "bshd",
+     ("wgmma", "mma")),
+    ("fp16_window_d80", 1, 32, 32, 2048, 2048, 80, True, 512, torch.float16, "bhsd",
+     ("wgmma", "mma")),
+    ("fp16_ragged_d80", 2, 8, 4, 300, 300, 80, True, None, torch.float16, "bshd",
+     ("wgmma", "mma")),
+    ("fp16_cross_length_d80", 1, 32, 32, 256, 1024, 80, True, None, torch.float16, "bhsd",
+     ("wgmma", "mma")),
+    ("fp16_non_causal_d80", 1, 32, 32, 1000, 1000, 80, False, None, torch.float16, "bhsd",
+     ("wgmma", "mma")),
+    ("openllama3b_fp16_d100_bshd", 1, 32, 32, 2048, 2048, 100, True, None, torch.float16,
+     "bshd", ("wgmma", "simt")),
+    ("fp16_unaligned_d100", 1, 32, 32, 1024, 1024, 100, True, None, torch.float16, "bhsd",
+     ("wgmma", "simt")),
+    ("fp16_gqa_d100", 1, 32, 8, 2048, 2048, 100, True, None, torch.float16, "bshd",
+     ("wgmma", "simt")),
+    ("fp16_window_d100", 1, 32, 32, 2048, 2048, 100, True, 512, torch.float16, "bhsd",
+     ("wgmma", "simt")),
+    ("fp16_ragged_d100", 2, 8, 4, 300, 300, 100, True, None, torch.float16, "bshd",
+     ("wgmma", "simt")),
+    ("fp16_cross_length_d100", 1, 32, 32, 256, 1024, 100, True, None, torch.float16,
+     "bhsd", ("wgmma", "simt")),
+    ("fp16_non_causal_d100", 1, 32, 32, 1000, 1000, 100, False, None, torch.float16,
+     "bhsd", ("wgmma", "simt")),
     ("fp32_d40", 1, 8, 8, 512, 512, 40, True, None, torch.float32, "bhsd", "simt"),
     ("fp16_unaligned_d80", 1, 8, 4, 512, 512, 80, True, 128, torch.float16, "offset1",
      "simt"),
@@ -859,10 +892,10 @@ ROUTE_TURNS = ("mma", "wgmma", "wgmma", "mma")
 TURN_SHAPES = ("main", "d1024_bshd", "phi3_d96_bshd", "fp16_main", "fp16_ragged_300",
                "fp16_cross_length")
 # the forward alone timed in turns against the route it took before its
-# wgmma kernel (mma at 80, 256 and in fp16 at 64, simt at 100), SDPA's
-# default after each turn
+# wgmma kernel (mma at 80, 256 and in fp16 at 64 and 80, simt at 100 in bf16
+# and fp16), SDPA's default after each turn (cuDNN at 80, flash at 100)
 FWD_TURN_SHAPES = ("d80", "d80_bshd", "unaligned_d100", "d100_bshd", "gemma_d256",
-                   "fp16_d1024_bshd")
+                   "fp16_d1024_bshd", "opt27b_d80_bshd", "openllama3b_fp16_d100_bshd")
 # dQ and dK/dV timed in turns against the route they took before their
 # wgmma kernels (mma at 80, 256 and in fp16 at 64, simt at 100), with SDPA's
 # whole backward after each turn under the backend named here: its default
@@ -882,12 +915,17 @@ WIDE_SHAPES = ("phi3_d96", "phi3_d96_bshd", "gqa_d96", "window_d96", "d80", "d80
                "ragged_d256", "cross_d256", "noncausal_d256", "ragged_d40", "unaligned_d100",
                "d100_bshd", "fp16_main", "fp16_main_bshd", "fp16_gqa_bshd",
                "fp16_window_512", "fp16_ragged_300", "fp16_cross_length", "fp16_d1024_bshd",
-               "opt13b_d64_bshd", "fp16_ragged_d64",
+               "opt13b_d64_bshd", "fp16_ragged_d64", "opt27b_d80_bshd", "fp16_gqa_d80",
+               "fp16_window_d80", "fp16_ragged_d80", "fp16_cross_length_d80",
+               "fp16_non_causal_d80", "openllama3b_fp16_d100_bshd", "fp16_unaligned_d100",
+               "fp16_gqa_d100", "fp16_window_d100", "fp16_ragged_d100",
+               "fp16_cross_length_d100", "fp16_non_causal_d100",
                "fp32_d40", "fp16_unaligned_d80", "fp32_d256", "fp32_d320", "bf16_d320")
 # the kernels line's head_dims entry: the rows of each new width and dtype
 HEAD_DIM_ROWS = ("d80", "d80_bshd", "phi3_d96_bshd", "gemma_d256", "gemma7b_d256",
                  "unaligned_d100", "d100_bshd", "fp16_main", "fp16_d1024_bshd",
-                 "opt13b_d64_bshd", "bf16_d320")
+                 "opt13b_d64_bshd", "opt27b_d80_bshd", "openllama3b_fp16_d100_bshd",
+                 "fp16_unaligned_d100", "bf16_d320")
 # a head dim past the kernels' widest padded width (512, simt's): every
 # wrapper refuses it on every route, with no launch
 REFUSED_HEAD_DIM = 520
@@ -896,8 +934,9 @@ REFUSED_HEAD_DIM = 520
 def shape_routes(route) -> dict:
     """Each kernel's route at a SHAPES row: `route` names one for all three
     kernels (the wgmma route of each takes head dims 64, 80, 96, 100, 128
-    and 256 in bf16, and 64 and 128 in fp16), or is a pair (the forward's,
-    the backward kernels'), for a row where they differ."""
+    and 256 in bf16, and 64 and 128 in fp16; the forward's also 80 and 100
+    in fp16), or is a pair (the forward's, the backward kernels'), for a row
+    where they differ."""
     fwd, bwd = (route, route) if isinstance(route, str) else route
     return {"flash_fwd": fwd, "flash_bwd_dq": bwd, "flash_bwd_dkv": bwd}
 
@@ -3269,13 +3308,14 @@ def main() -> int:
     from yoda_scheduler_tpu_torch.tools import tune_attention as tune
     from yoda_scheduler_tpu_torch import bench_generate, bench_mfu, bench_util
     # Mixtral-8x7B's widths from its config.json, in the port's config fields,
-    # and Phi-3-mini's, OpenLLaMA-3B's, StableLM-3B-4E1T's, Gemma-2B's and
-    # OPT-1.3B's, from theirs
+    # and Phi-3-mini's, OpenLLaMA-3B's, StableLM-3B-4E1T's, Gemma-2B's,
+    # OPT-1.3B's and OPT-2.7B's, from theirs
     from yoda_scheduler_tpu_torch.profile_path import (
         d80_backward_on_mma, d80_forward_on_mma, d100_backward_on_simt,
         d100_forward_on_simt, d256_backward_on_mma, d256_forward_on_mma,
-        fp16_backward_on_mma, fp16_d64_forward_on_mma, gemma_2b, mixtral_8x7b,
-        openllama_3b, opt_1_3b, phi3_mini, stablelm_3b_4e1t)
+        fp16_backward_on_mma, fp16_d64_forward_on_mma, fp16_d80_forward_on_mma,
+        fp16_d100_forward_on_simt, gemma_2b, mixtral_8x7b, openllama_3b,
+        openllama_3b_fp16, opt_1_3b, opt_2_7b, phi3_mini, stablelm_3b_4e1t)
 
     gen_mod = importlib.import_module("yoda_scheduler_tpu_torch.models.generate")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3327,9 +3367,10 @@ def main() -> int:
         config="llama2_7b fp16 width, 4 layers",
         turns={"wgmma": contextlib.nullcontext, "backward_on_mma": fp16_backward_on_mma})
     # head dims 100 and 80 (OpenLLaMA-3B's and StableLM-3B's widths), 256
-    # (Gemma-2B's) and 64 in fp16 (OPT-1.3B's): every forward launch on
-    # wgmma, timed in turns against the forward on the route it took before
-    # its wgmma kernel
+    # (Gemma-2B's), 64 in fp16 (OPT-1.3B's), 80 in fp16 (OPT-2.7B's) and 100
+    # in fp16 (OpenLLaMA-3B's in its published dtype): every forward launch
+    # on wgmma, timed in turns against the forward on the route it took
+    # before its wgmma kernel
     new_width_routes = {}
     for phase, width_cfg, name, old in (
             ("openllama3b_forward", openllama_3b(), "open_llama_3b widths",
@@ -3339,7 +3380,11 @@ def main() -> int:
             ("gemma2b_forward", gemma_2b(), "gemma_2b widths",
              ("forward_on_mma", d256_forward_on_mma)),
             ("opt13b_fp16_forward", opt_1_3b(), "opt_1_3b widths, fp16",
-             ("forward_on_mma", fp16_d64_forward_on_mma))):
+             ("forward_on_mma", fp16_d64_forward_on_mma)),
+            ("opt27b_fp16_forward", opt_2_7b(), "opt_2_7b widths, fp16",
+             ("forward_on_mma", fp16_d80_forward_on_mma)),
+            ("openllama3b_fp16_forward", openllama_3b_fp16(), "open_llama_3b widths, fp16",
+             ("forward_on_simt", fp16_d100_forward_on_simt))):
         new_width_routes[phase] = phase_forward(
             attn, llama, width_cfg, phase=phase, config=name,
             turns={"wgmma": contextlib.nullcontext, old[0]: old[1]})[3]

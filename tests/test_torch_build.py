@@ -83,8 +83,9 @@ def test_every_wgmma_kernel_is_read_from_ptxas():
     """The smoke's phase 1 and `ops.variants` both find each wgmma kernel
     of chip_smoke.WGMMA_KERNELS in ptxas's output, the head-dim-64,
     head-dim-96, head-dim-80, head-dim-100 and head-dim-256 ones (the
-    forward, dQ and dK/dV at each) and the six fp16 kernels (at head dims
-    128 and 64) among them; variants leaves out the other kernels."""
+    forward, dQ and dK/dV at each) and the eight fp16 kernels (every kernel
+    at head dims 128 and 64, the forward at 80 and 100) among them; variants
+    leaves out the other kernels."""
     import chip_smoke
 
     log = _ptxas_log(chip_smoke.WGMMA_KERNELS + ("flash_bwd_dq_mma_kernel",))
@@ -99,8 +100,9 @@ def test_every_wgmma_kernel_is_read_from_ptxas():
             "flash_fwd_wgmma64_f16_kernel", "flash_bwd_dq_wgmma80_kernel",
             "flash_bwd_dkv_wgmma80_kernel", "flash_bwd_dq_wgmma256_kernel",
             "flash_bwd_dkv_wgmma256_kernel", "flash_bwd_dq_wgmma64_f16_kernel",
-            "flash_bwd_dkv_wgmma64_f16_kernel"} <= set(chip_smoke.WGMMA_KERNELS)
-    assert len(chip_smoke.WGMMA_KERNELS) == 24
+            "flash_bwd_dkv_wgmma64_f16_kernel", "flash_fwd_wgmma80_f16_kernel",
+            "flash_fwd_wgmma100_f16_kernel"} <= set(chip_smoke.WGMMA_KERNELS)
+    assert len(chip_smoke.WGMMA_KERNELS) == 26
     kept = variants.wgmma_ptxas(log)
     for name in chip_smoke.WGMMA_KERNELS:
         assert any(name in ln for ln in kept), name

@@ -124,6 +124,8 @@ def _hopper_lib():
     lib.hopper_wgmma_rs96.argtypes = [p, p, i32, p, p]
     lib.hopper_wgmma_rs80.argtypes = [p, p, i32, p, p]
     lib.hopper_wgmma_rs104.argtypes = [p, p, i32, p, p]
+    lib.hopper_wgmma_rs80_f16.argtypes = [p, p, i32, p, p]
+    lib.hopper_wgmma_rs104_f16.argtypes = [p, p, i32, p, p]
     lib.hopper_cp_async_tile.argtypes = [p, p, i64, i32, i32, p, p, p, p]
     lib.hopper_cp_async_tile64.argtypes = [p, p, p, i64, i32, i32, i32, p, p, p, p]
     lib.hopper_wgmma_ss_f16.argtypes = [p, p, i32, p, p]
@@ -376,6 +378,24 @@ def test_wgmma_rs80_and_rs104_tiles_are_matmuls(gpu, n, rows):
     v = torch.randn(rows, n, generator=gen, device=gpu).to(torch.bfloat16)
     out = torch.empty(64, n, device=gpu)
     fn = _hopper_lib().hopper_wgmma_rs80 if n == 80 else _hopper_lib().hopper_wgmma_rs104
+    assert fn(p.data_ptr(), v.data_ptr(), rows, out.data_ptr(), _stream()) == 0
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, p.float() @ v.float(), atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("rows", [64, 128])
+@pytest.mark.parametrize("n", [80, 104])
+def test_wgmma_rs80_and_rs104_f16_tiles_are_matmuls(gpu, n, rows):
+    """The f16 forms of m64n80k16 and m64n104k16 (A from registers, B a
+    [rows, n] MN-major fp16 tile read through FLOAT16 maps as two 64-column
+    boxes, the second zero-filled past column n): the fp16 D = 80 and D =
+    100 forwards' P V."""
+    gen = torch.Generator(gpu).manual_seed(6)
+    p = torch.rand(64, rows, generator=gen, device=gpu).to(torch.float16)
+    v = torch.randn(rows, n, generator=gen, device=gpu).to(torch.float16)
+    out = torch.empty(64, n, device=gpu)
+    lib = _hopper_lib()
+    fn = lib.hopper_wgmma_rs80_f16 if n == 80 else lib.hopper_wgmma_rs104_f16
     assert fn(p.data_ptr(), v.data_ptr(), rows, out.data_ptr(), _stream()) == 0
     torch.cuda.synchronize()
     torch.testing.assert_close(out, p.float() @ v.float(), atol=1e-3, rtol=1e-4)
@@ -1003,7 +1023,8 @@ def test_the_c_entries_admit_what_routes_admits_at_80_and_100(gpu, d, dtype):
     """For each kernel, every base offset (0, 1, 2 and 4 elements) and both
     layouts: csrc/'s entry takes the wgmma route (returns 0, and launches)
     exactly where `_routes` offers it, and refuses it (cudaErrorInvalidValue,
-    1) elsewhere: the forward, dQ and dK/dV in bf16 at 80 and 100."""
+    1) elsewhere: the forward, dQ and dK/dV in bf16 at 80 and 100, and the
+    forward alone in fp16."""
     seen = set()
     for offset in (0, 1, 2, 4):
         for layout in ("bhsd", "bshd"):
@@ -1018,9 +1039,10 @@ def test_the_c_entries_admit_what_routes_admits_at_80_and_100(gpu, d, dtype):
                 torch.cuda.synchronize()
                 assert err == (0 if admitted else 1), (name, offset, layout)
                 seen.add((name, admitted))
-    takes = dtype == torch.bfloat16
-    assert seen == {(name, admitted) for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-                    for admitted in {takes, False}}
+    # fp16 has the forward's wgmma kernels at 80 and 100 alone
+    takes = {name: dtype == torch.bfloat16 or name == "flash_fwd"
+             for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    assert seen == {(name, admitted) for name in takes for admitted in {takes[name], False}}
 
 
 def test_the_wgmma100_backward_c_entries_refuse_what_they_cannot_take(gpu):
@@ -1037,6 +1059,101 @@ def test_the_wgmma100_backward_c_entries_refuse_what_they_cannot_take(gpu):
         assert _c_entry(name, (odd,) * 4, "wgmma") == 1
         assert _c_entry(name, (wide[..., :100], empty, empty, wide[..., :100]), "wgmma") == 1
         assert _c_entry(name, (half,) * 4, "wgmma") == 1
+    torch.cuda.synchronize()
+
+
+# the forward's fp16 wgmma kernels at head dims 80 and 100
+# (flash_fwd_wgmma80_f16_kernel: OPT-2.7B's attention, TMA-fed 160-byte rows;
+# flash_fwd_wgmma100_f16_kernel: OpenLLaMA-3B's in fp16, 200-byte rows copied
+# by cp.async) at NEW_WIDTH_SHAPES, contiguous and as the models' views
+@pytest.mark.parametrize("case", list(NEW_WIDTH_SHAPES))
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+@pytest.mark.parametrize("d", [80, 100])
+def test_wgmma_f16_forward_at_80_and_100_matches_the_plain_version(gpu, d, case, layout):
+    """One launch on wgmma, as `_route` picks it, within fp16's bounds
+    (chip_smoke's: bf16's over 8) elementwise and by O's worst 64-row
+    tile."""
+    (b, h, kvh, sq, sk), causal, window = NEW_WIDTH_SHAPES[case]
+    q, k, v = _qkv(gpu, torch.float16, b, h, kvh, sq, sk, d)
+    if layout == "bshd":  # the model's transposed views of [B, S, H, D]
+        q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
+    assert attn._route("flash_fwd", q, k, v) == "wgmma"
+    before = attn.flash_fwd.launches_by_route["wgmma"]
+    o, lse = attn.flash_fwd(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert attn.flash_fwd.launches_by_route["wgmma"] == before + 1
+    assert o.dtype == torch.float16 and o.shape == q.shape and o.is_contiguous()
+    ro, rl = attn.reference_attention_with_lse(q, k, v, causal, window)
+    tol = TOL[torch.float16]
+    torch.testing.assert_close(o.float(), ro.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, rl, atol=1e-3, rtol=1e-3)
+    assert tile_rel_l2(o, ro) <= chip_smoke.TILE_REL_L2_FP16
+
+
+@pytest.mark.parametrize("d,old", [(80, "mma"), (100, "simt")])
+def test_wgmma_f16_forward_at_80_and_100_matches_the_old_route(gpu, d, old):
+    """The fp16 kernels against the route each took before (mma at 80, simt
+    at 100) on the same inputs (the models' views, GQA 8/4), and each
+    bit-repeatable."""
+    q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+               for t in _qkv(gpu, torch.float16, 1, 8, 4, 1024, 1024, d, seed=2))
+    o1, l1 = attn.flash_fwd(q, k, v, route=old)
+    runs = [attn.flash_fwd(q, k, v, route="wgmma") for _ in range(2)]
+    torch.cuda.synchronize()
+    o2, l2 = runs[0]
+    tol = TOL[torch.float16]
+    torch.testing.assert_close(o2.float(), o1.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(l2, l1, atol=1e-3, rtol=1e-3)
+    assert tile_rel_l2(o2, o1) <= chip_smoke.TILE_REL_L2_FP16
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_wgmma_f16_forward_at_100_takes_bases_8_bytes_off(gpu):
+    """fp16 tensors that start 4 elements (8 bytes) into their storage: the
+    fp16 head-dim-100 forward takes them on wgmma, as the plain version."""
+    flat = [t.flatten() for t in _qkv(gpu, torch.float16, 1, 4, 4, 260, 260, 100)]
+    q, k, v = (torch.cat([x.new_zeros(4), x])[4:].view(1, 4, 260, 100) for x in flat)
+    assert q.data_ptr() % 16 == 8 and attn._route("flash_fwd", q, k, v) == "wgmma"
+    o, lse = attn.flash_fwd(q, k, v)
+    torch.cuda.synchronize()
+    ro, rl = attn.reference_attention_with_lse(q, k, v)
+    tol = TOL[torch.float16]
+    torch.testing.assert_close(o.float(), ro.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, rl, atol=1e-3, rtol=1e-3)
+    assert tile_rel_l2(o, ro) <= chip_smoke.TILE_REL_L2_FP16
+
+
+def test_the_fp16_wgmma_forwards_refuse_what_they_cannot_take(gpu):
+    """The fp16 refusals that still hold on the wgmma route: the forward at
+    head dim 96 (no fp16 kernel there), and at 100 rows 2 or 4 bytes off an
+    8-byte boundary, a sequence stride that is no multiple of 4 elements and
+    an empty kv. The wrapper raises with no launch where `_routes` refuses;
+    csrc/'s entry, called past `_routes`, returns cudaErrorInvalidValue (1)
+    for each; the same rows at a stride of 104 launch (0). dQ and dK/dV
+    refuse fp16 at 80 and 100 alike."""
+    half = torch.float16
+    d96 = _qkv(gpu, half, 1, 4, 4, 64, 64, 96)[0]
+    wide = torch.randn(1, 4, 64, 104, device=gpu).to(half)
+    odd = torch.randn(1, 4, 64, 102, device=gpu).to(half)[..., :100]
+    empty = torch.zeros(1, 4, 0, 100, device=gpu, dtype=half)
+    flat = torch.randn(2 + 4 * 64 * 100, device=gpu).to(half)
+    off = [flat[o:o + 4 * 64 * 100].view(1, 4, 64, 100) for o in (1, 2)]
+    fn = attn.flash_fwd
+    for tensors in [(d96,) * 3, (odd,) * 3, (wide[..., :100], empty, empty)] + [
+            (t,) * 3 for t in off]:
+        assert "wgmma" not in attn._routes("flash_fwd", *tensors)
+        before = (fn.launches, dict(fn.launches_by_route))
+        with pytest.raises(ValueError, match="flash_fwd route 'wgmma' cannot take"):
+            fn(*tensors, causal=False, route="wgmma")
+        assert (fn.launches, fn.launches_by_route) == before
+        assert _c_entry("flash_fwd", tensors, "wgmma") == 1
+    assert _c_entry("flash_fwd", (wide[..., :100],) * 3, "wgmma") == 0
+    for d in (80, 100):
+        t = _qkv(gpu, half, 1, 4, 4, 64, 64, d)[0]
+        assert _c_entry("flash_fwd", (t,) * 3, "wgmma") == 0
+        for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+            assert "wgmma" not in attn._routes(name, t, t, t, t)
+            assert _c_entry(name, (t,) * 4, "wgmma") == 1, (name, d)
     torch.cuda.synchronize()
 
 
@@ -1568,7 +1685,7 @@ def test_kernel_refuses_what_it_does_not_take(gpu, dtype, d):
 
 # head dims other than 32, 64 and 128, and fp16: the simt and mma kernels at
 # their padded widths (at 80, 96, 100 and 256, and fp16 at 64 and 128, on
-# wgmma). (dtype, d, (b, h, kvh, sq, sk), causal, window, layout, the
+# wgmma; fp16 at 80 and 100 the forward alone). (dtype, d, (b, h, kvh, sq, sk), causal, window, layout, the
 # route `_route` picks for every kernel, or for the forward and the
 # backward); "offset1" starts each tensor one element into its storage,
 # off 16-byte alignment

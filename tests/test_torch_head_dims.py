@@ -171,21 +171,27 @@ def test_head_dim_48_llama_gradients_match_jax(llama48):
 # fp16: every matmul output is rounded to fp16 in both, at places that
 # differ by an ulp, so the logits are held by their relative L2 error, as
 # tests/test_torch_llama.py holds bf16's at 2e-2, over 8 for fp16's finer
-# ulp (measured 8.7e-4 at head dim 32 and 8.2e-4 at 48 on the CPU, seed 7)
+# ulp (measured 8.7e-4 at head dim 32, 8.2e-4 at 48, 8.2e-4 at 80 and 8.3e-4
+# at 100 on the CPU, seed 7)
 FP16_LOGITS_REL_L2 = 2.5e-3
 
 
-# the fp16 Llamas: the tiny preset (head dim 32), dim 96 over 2 heads (48) and
+# the fp16 Llamas: the tiny preset (head dim 32), dim 96 over 2 heads (48),
 # dim 128 over 2 heads (64, the width of OPT-1.3B, whose forward takes the
-# fp16 wgmma kernel at 64 on the card)
+# fp16 wgmma kernel at 64 on the card), dim 160 over 2 (80, OPT-2.7B's) and
+# dim 200 over 2 (100, OpenLLaMA-3B's), whose forwards take the fp16 wgmma
+# kernels at 80 and 100
 FP16_CONFIGS = {32: dict(), 48: dict(dim=96, n_heads=2, n_kv_heads=1, ffn_dim=192),
-                64: dict(n_heads=2, n_kv_heads=2)}
+                64: dict(n_heads=2, n_kv_heads=2),
+                80: dict(dim=160, n_heads=2, n_kv_heads=2),
+                100: dict(dim=200, n_heads=2, n_kv_heads=2)}
 
 
-@pytest.mark.parametrize("head_dim", [32, 48, 64])
+@pytest.mark.parametrize("head_dim", [32, 48, 64, 80, 100])
 def test_fp16_llama_logits_match_jax(head_dim):
-    """A tiny fp16 Llama (the dtype of Llama-2's and OPT's published
-    weights) at the tiny preset's head dim 32, at 48 and at 64."""
+    """A tiny fp16 Llama (the dtype of Llama-2's, OPT's and OpenLLaMA's
+    published weights) at the tiny preset's head dim 32, at 48, 64, 80 and
+    100."""
     jcfg = dataclasses.replace(jllama.LlamaConfig.tiny(), dtype="float16",
                                **FP16_CONFIGS[head_dim])
     assert jcfg.head_dim == head_dim

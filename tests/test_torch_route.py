@@ -41,7 +41,8 @@ CASES = {
     # 96 (Phi-3-mini's), 100 (OpenLLaMA-3B's, whose rows the kernels copy in
     # 8-byte pieces: bases 8-byte aligned, strides multiples of 4) and 128,
     # and fp16 at 128; the forward's wgmma also bf16 at 80 (StableLM-3B's)
-    # and 256 (Gemma's), and fp16 at 64 (OPT-1.3B's)
+    # and 256 (Gemma's), and fp16 at 64 (OPT-1.3B's), 80 (OPT-2.7B's) and
+    # 100 (OpenLLaMA-3B's published dtype; 8-byte aligned rows, as in bf16)
     "bf16_d96": (lambda: [_bhsd(1, 4, 64, 96)] * 3, "wgmma"),
     "bf16_d80": (lambda: [_bhsd(1, 4, 64, 80)] * 3, "wgmma"),
     "bf16_d80_bshd_view": (lambda: [_model_view(2, 64, 4, 80)] * 3, "wgmma"),
@@ -66,8 +67,19 @@ CASES = {
     "bf16_d100_odd_seq_stride": (lambda: [_bhsd(1, 4, 64, 102)[..., :100]] * 3, "simt"),
     "bf16_d100_empty_kv": (lambda: [_bhsd(1, 4, 64, 100), _bhsd(1, 4, 0, 100),
                                     _bhsd(1, 4, 0, 100)], "simt"),
-    "fp16_d100": (lambda: [_bhsd(1, 4, 64, 100, torch.float16)] * 3, "simt"),
-    "fp16_d80": (lambda: [_bhsd(1, 4, 64, 80, torch.float16)] * 3, "mma"),
+    "fp16_d100": (lambda: [_bhsd(1, 4, 64, 100, torch.float16)] * 3, "wgmma"),
+    "fp16_d100_bshd_view": (lambda: [_model_view(2, 64, 4, 100, torch.float16)] * 3,
+                            "wgmma"),
+    "fp16_d100_offset_by_four": (lambda: [_bhsd(1, 4, 64, 100, torch.float16, offset=4)]
+                                 * 3, "wgmma"),
+    "fp16_d100_offset_by_two": (lambda: [_bhsd(1, 4, 64, 100, torch.float16, offset=2)]
+                                * 3, "simt"),
+    "fp16_d100_odd_seq_stride": (lambda: [_bhsd(1, 4, 64, 102, torch.float16)[..., :100]]
+                                 * 3, "simt"),
+    "fp16_d80": (lambda: [_bhsd(1, 4, 64, 80, torch.float16)] * 3, "wgmma"),
+    "fp16_d80_bshd_view": (lambda: [_model_view(2, 64, 4, 80, torch.float16)] * 3, "wgmma"),
+    "fp16_d80_offset_by_four": (lambda: [_bhsd(1, 4, 64, 80, torch.float16, offset=4)] * 3,
+                                "simt"),
     "fp32_d80": (lambda: [_bhsd(1, 4, 64, 80, torch.float32)] * 3, "simt"),
     "fp16_offset_by_one": (lambda: [_bhsd(1, 4, 64, 128, torch.float16, offset=1)] * 3,
                            "simt"),
@@ -86,13 +98,14 @@ def test_route_follows_the_inputs(case):
 
 
 # the head dims each kernel has a wgmma kernel for (csrc/), by dtype: every
-# kernel at 64, 80, 96, 128 and 256 in bf16, and at 64 and 128 in fp16 (and
-# every kernel at 100, whose rows are not 16-byte aligned: not among these,
-# which mma takes too)
+# kernel at 64, 80, 96, 128 and 256 in bf16, and at 64 and 128 in fp16, and
+# the forward at 80 in fp16 too (and the forward at 100 in both dtypes, and
+# dQ and dK/dV at 100 in bf16, whose rows are not 16-byte aligned: not among
+# these, which mma takes too)
 WGMMA_TAKES = {torch.bfloat16: {"flash_fwd": (64, 80, 96, 128, 256),
                                 "flash_bwd_dq": (64, 80, 96, 128, 256),
                                 "flash_bwd_dkv": (64, 80, 96, 128, 256)},
-               torch.float16: {"flash_fwd": (64, 128), "flash_bwd_dq": (64, 128),
+               torch.float16: {"flash_fwd": (64, 80, 128), "flash_bwd_dq": (64, 128),
                                "flash_bwd_dkv": (64, 128)}}
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 HEAD_DIMS = (32, 64, 128, 40, 80, 96, 256)
@@ -118,20 +131,22 @@ def test_wgmma_admits_each_kernels_head_dims(kernel, d, wgmma):
     (kernel, d, d in WGMMA_TAKES[torch.float16][kernel])
     for kernel in KERNELS for d in HEAD_DIMS])
 def test_wgmma_admits_fp16_at_head_dim_128_alone(kernel, d, wgmma):
-    """In fp16 wgmma takes head dims 128 and 64 alone, for the forward, dQ
-    and dK/dV alike (`WGMMA_TAKES`); every other aligned fp16 head dim keeps
-    mma for all three kernels, up to 256."""
+    """In fp16 wgmma takes head dims 128 and 64 alone for dQ and dK/dV, and
+    80 too for the forward (`WGMMA_TAKES`); every other aligned fp16 head
+    dim keeps mma for all three kernels, up to 256."""
     _assert_wgmma_admits(kernel, d, torch.float16, wgmma)
 
 
 @pytest.mark.parametrize("case,route", [
     ("fp32_d128", "wgmma"), ("fp32_d128", "mma"), ("bf16_d32", "wgmma"),
-    ("bf16_offset_by_one", "mma"), ("bf16_d128", "tma"), ("fp16_d80", "wgmma"),
+    ("bf16_offset_by_one", "mma"), ("bf16_d128", "tma"), ("fp16_d80_offset_by_four", "wgmma"),
     ("fp16_d40", "wgmma"), ("fp16_d96", "wgmma"), ("bf16_d100", "mma"),
     ("bf16_d100_aligned_rows", "mma"), ("fp16_offset_by_one", "mma"),
     ("fp16_offset_by_one", "wgmma"), ("bf16_d100_offset_by_two", "wgmma"),
     ("bf16_d100_odd_seq_stride", "wgmma"), ("bf16_d100_empty_kv", "wgmma"),
-    ("fp16_d100", "wgmma"), ("fp32_d80", "wgmma"), ("bf16_d256_offset_by_one", "wgmma"),
+    ("fp16_d100_offset_by_two", "wgmma"), ("fp16_d100_odd_seq_stride", "wgmma"),
+    ("fp16_d100", "mma"), ("fp16_d80_offset_by_four", "mma"),
+    ("fp32_d80", "wgmma"), ("bf16_d256_offset_by_one", "wgmma"),
     ("bf16_d256_offset_by_one", "mma"), ("bf16_d256_odd_seq_stride", "wgmma"),
     ("fp16_d64_offset_by_one", "wgmma"), ("fp16_d64_offset_by_one", "mma")])
 def test_a_route_that_cannot_take_the_inputs_raises(case, route):
@@ -561,7 +576,8 @@ def test_the_smokes_wide_rows_take_their_routes(row):
     """Each row chip_smoke adds at the new head dims and in fp16 names the
     route `_route` picks for each kernel there: wgmma at head dims 80, 96,
     100 and 256 in bf16 and in fp16 at 64 and 128 aligned (not one element
-    into its storage), for every kernel."""
+    into its storage), for every kernel, and for the forward alone in fp16
+    at 80 and 100."""
     import chip_smoke
 
     q, k, v, do = _smoke_row_tensors(row)
@@ -573,7 +589,8 @@ def test_the_smokes_wide_rows_take_their_routes(row):
     aligned_fp16 = row[9] == torch.float16 and row[10] != "offset1"
     every = ((row[6] in (80, 96, 100, 256) and aligned_bf16)
              or (row[6] in (64, 128) and aligned_fp16))
-    assert ("wgmma" in attn._routes("flash_fwd", q, k, v)) == every
+    forward = every or (row[6] in (80, 100) and aligned_fp16)
+    assert ("wgmma" in attn._routes("flash_fwd", q, k, v)) == forward
     assert ("wgmma" in attn._routes("flash_bwd_dkv", q, k, v, do)) == every
     assert ("wgmma" in attn._routes("flash_bwd_dq", q, k, v, do)) == every
     assert row[6] <= attn.KERNEL_MAX_HEAD_DIM
@@ -663,12 +680,13 @@ def test_the_forward_alone_takes_wgmma_at_head_dims_80_and_100(d, fwd, bwd, layo
 
 
 @pytest.mark.parametrize("d", [80, 100])
-@pytest.mark.parametrize("dtype,offset", [(torch.float16, 0), (torch.float32, 0),
+@pytest.mark.parametrize("dtype,offset", [(torch.float16, 2), (torch.float32, 0),
                                           (torch.bfloat16, 1), (torch.bfloat16, 2)])
 def test_no_wgmma_forward_at_80_or_100_but_aligned_bf16(d, dtype, offset):
-    """fp16 and fp32 at those widths, and bf16 rows that start one or two
+    """fp32 at those widths, and bf16 and fp16 rows that start one or two
     elements into their storage (2 or 4 bytes off an 8-byte boundary), take
-    no wgmma route, and a named one raises with no launch."""
+    no wgmma route, and a named one raises with no launch (aligned fp16 has
+    the forward's wgmma kernels there since OPT-2.7B's path)."""
     q = _bhsd(1, 4, 64, d, dtype, offset=offset)
     assert "wgmma" not in attn._routes("flash_fwd", q, q, q)
     before = (attn.flash_fwd.launches, dict(attn.flash_fwd.launches_by_route))
@@ -737,11 +755,11 @@ def test_shape_routes_takes_a_forward_and_backward_pair():
     """`shape_routes` takes a (forward, backward kernels) pair as well as one
     route for all three, which every row at 64 in fp16, 80, 100 or 256 names
     (all on wgmma); the smoke's forward turn rows are among its wide rows, each with a route
-    before wgmma to be timed against (simt at 100, mma elsewhere); its
-    backward turn rows are the seven at 80, 100, 256 and in fp16 at 64,
-    where dQ and dK/dV took mma or simt before their wgmma kernels, timed
-    beside SDPA's default backend (cuDNN) at 80, 256 and 64 and its flash
-    backend at 100."""
+    before wgmma to be timed against (simt at 100, mma elsewhere), the fp16
+    rows at 80 and 100 among them; its backward turn rows are the seven at
+    80, 100, 256 and in fp16 at 64, where dQ and dK/dV took mma or simt
+    before their wgmma kernels, timed beside SDPA's default backend (cuDNN)
+    at 80, 256 and 64 and its flash backend at 100."""
     import chip_smoke
 
     assert chip_smoke.shape_routes(("wgmma", "simt")) == {
@@ -751,14 +769,17 @@ def test_shape_routes_takes_a_forward_and_backward_pair():
     assert {(rows[n][6], rows[n][9], rows[n][10]) for n in chip_smoke.FWD_TURN_SHAPES} == {
         (80, torch.bfloat16, "bhsd"), (80, torch.bfloat16, "bshd"),
         (100, torch.bfloat16, "bhsd"), (100, torch.bfloat16, "bshd"),
-        (256, torch.bfloat16, "bshd"), (64, torch.float16, "bshd")}
+        (256, torch.bfloat16, "bshd"), (64, torch.float16, "bshd"),
+        (80, torch.float16, "bshd"), (100, torch.float16, "bshd")}
     for name in chip_smoke.FWD_TURN_SHAPES:
         old = "simt" if rows[name][6] == 100 else "mma"
         q, k, v, _ = _smoke_row_tensors(rows[name])
-        assert rows[name][-1] == "wgmma"
+        assert chip_smoke.shape_routes(rows[name][-1])["flash_fwd"] == "wgmma"
         assert attn._routes("flash_fwd", q, k, v)[-2:] == (old, "wgmma")
     turns = chip_smoke.BWD_TURN_SHAPES
-    assert set(turns) == set(chip_smoke.FWD_TURN_SHAPES) | {"opt13b_d64_bshd"}
+    fp16_forward_alone = {"opt27b_d80_bshd", "openllama3b_fp16_d100_bshd"}
+    assert set(turns) == (set(chip_smoke.FWD_TURN_SHAPES) - fp16_forward_alone
+                          | {"opt13b_d64_bshd"})
     assert set(turns) <= set(chip_smoke.WIDE_SHAPES)
     for name, backend in turns.items():
         d = rows[name][6]
@@ -916,7 +937,7 @@ def test_the_gemma_and_opt_forwards_expect_every_launch_on_wgmma():
         assert f'("{phase}", ' in main and f'("forward_on_mma", {manager})' in main
     assert {"flash_fwd_wgmma256_kernel", "flash_fwd_wgmma64_f16_kernel"} <= set(
         chip_smoke.WGMMA_KERNELS)
-    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 24
+    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 26
 
 
 def test_the_smokes_new_rows_at_256_and_fp16_64():
@@ -1115,3 +1136,151 @@ def test_opt13b_gradient_and_backward_expect_every_launch_on_wgmma():
         chip_smoke.phase_train)
     assert {"flash_bwd_dq_wgmma64_f16_kernel", "flash_bwd_dkv_wgmma64_f16_kernel"} <= set(
         chip_smoke.WGMMA_KERNELS)
+
+
+# fp16 at head dims 80 (OPT-2.7B's) and 100 (OpenLLaMA-3B's published dtype):
+# the forward has an fp16 wgmma kernel at each; dQ and dK/dV keep mma at 80
+# and simt at 100
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+@pytest.mark.parametrize("d,bwd", [(80, ("simt", "mma")), (100, ("simt",))])
+def test_the_fp16_forward_alone_takes_wgmma_at_80_and_100(d, bwd, layout):
+    """fp16, contiguous and as the model's views: the forward's routes end
+    in wgmma (after mma at 80, straight after simt at 100), and dQ's and
+    dK/dV's stay as they were."""
+    half = torch.float16
+    q, k, v, do = ([_bhsd(1, 4, 64, d, half)] if layout == "bhsd"
+                   else [_model_view(1, 64, 4, d, half)]) * 4
+    assert attn._routes("flash_fwd", q, k, v) == bwd + ("wgmma",)
+    for kernel in BWD_KERNELS:
+        assert attn._routes(kernel, q, k, v, do) == bwd
+
+
+@pytest.mark.parametrize("dim,bwd", [(160, "mma"), (200, "simt")])
+def test_the_models_fp16_forward_at_80_and_100(monkeypatch, dim, bwd):
+    """An fp16 layer at head_dim 80 and 100 (`_a_models_launch_routes`):
+    both forward launches take their fp16 wgmma kernel, and the backward
+    launchers the route they took before (mma at 80, simt at 100) with the
+    cotangent that `_FlashFwd.backward` scales in fp16."""
+    cfg = dataclasses.replace(_one_layer(dim, "float16"), n_kv_heads=2)
+    assert cfg.head_dim == dim // 2
+    assert _a_models_launch_routes(monkeypatch, cfg) == [
+        ("flash_fwd", "wgmma"), ("flash_fwd", "wgmma"), ("flash_bwd_dq", bwd),
+        ("flash_bwd_dkv", bwd)]
+
+
+def test_the_opt27b_and_fp16_openllama_configs_have_their_published_widths():
+    """`profile_path.opt_2_7b` against facebook/opt-2.7b's config.json, and
+    `openllama_3b_fp16` against open_llama_3b's in its published dtype
+    (hidden, layers, heads, KV heads, head dim, FFN, vocab, rope theta, norm
+    eps, positions, dtype)."""
+    from yoda_scheduler_tpu_torch.profile_path import (openllama_3b, openllama_3b_fp16,
+                                                       opt_2_7b)
+
+    fields = ("dim", "n_layers", "n_heads", "n_kv_heads", "head_dim", "ffn_dim",
+              "vocab_size", "rope_theta", "norm_eps", "max_seq_len", "dtype")
+    for cfg, want in ((opt_2_7b(), (2560, 32, 32, 32, 80, 10240, 50272, 10000.0, 1e-5,
+                                    2048, "float16")),
+                      (openllama_3b_fp16(), (3200, 26, 32, 32, 100, 8640, 32000, 10000.0,
+                                             1e-6, 2048, "float16"))):
+        assert tuple(getattr(cfg, f) for f in fields) == want
+        assert not cfg.is_moe and cfg.sliding_window is None
+    assert openllama_3b().dtype == "bfloat16"
+
+
+def test_fp16_d80_and_d100_forward_old_routes_move_the_fp16_forward_alone():
+    """`profile_path.fp16_d80_forward_on_mma` and `fp16_d100_forward_on_simt`,
+    the route sets the OPT-2.7B and fp16 OpenLLaMA-3B forwards are timed
+    against: within each the fp16 forward at its width takes its old route
+    (mma at 80, simt at 100), while fp16 dQ and dK/dV keep theirs, bf16 at
+    that width keeps wgmma for every kernel, and fp16 at the other width and
+    at 64 and 128 keeps its wgmma forward; after it `_WGMMA_HEAD_DIMS` is
+    exactly what it was."""
+    from yoda_scheduler_tpu_torch.profile_path import (fp16_d80_forward_on_mma,
+                                                       fp16_d100_forward_on_simt)
+
+    half = torch.float16
+    saved = {key: dims for key, dims in attn._WGMMA_HEAD_DIMS.items()}
+    for routes, d, old, other, bwd in ((fp16_d80_forward_on_mma, 80, "mma", 100, "mma"),
+                                       (fp16_d100_forward_on_simt, 100, "simt", 80, "simt")):
+        t = [_model_view(1, 64, 4, d, half)] * 4
+        bf16 = [_model_view(1, 64, 4, d)] * 4
+        rest = [[_model_view(1, 64, 4, dd, half)] * 3 for dd in (other, 64, 128)]
+        with routes():
+            assert attn._route("flash_fwd", *t[:3]) == old
+            for name in BWD_KERNELS:
+                assert attn._route(name, *t) == bwd
+                assert attn._route(name, *bf16) == "wgmma"
+            assert attn._route("flash_fwd", *bf16[:3]) == "wgmma"
+            for r in rest:
+                assert attn._route("flash_fwd", *r) == "wgmma"
+        assert attn._WGMMA_HEAD_DIMS == saved
+        assert attn._route("flash_fwd", *t[:3]) == "wgmma"
+
+
+def test_the_opt27b_and_fp16_openllama_forwards_expect_every_launch_on_wgmma():
+    """chip_smoke's opt27b_fp16_forward and openllama3b_fp16_forward expect
+    one flash_fwd launch a layer on wgmma (`phase_forward`'s route), 32 and
+    26: `_route` picks it on each config's fp16 model views; both run in
+    main's loop of forward phases, timed in turns against the forward on
+    its old route, and the build expects both new kernels among 26."""
+    import inspect
+
+    import chip_smoke
+    from yoda_scheduler_tpu_torch.profile_path import openllama_3b_fp16, opt_2_7b
+
+    for cfg, layers in ((opt_2_7b(), 32), (openllama_3b_fp16(), 26)):
+        assert cfg.n_layers == layers and cfg.dtype == "float16"
+        q = _model_view(1, 64, cfg.n_heads, cfg.head_dim, cfg.torch_dtype)
+        k = _model_view(1, 64, cfg.n_kv_heads, cfg.head_dim, cfg.torch_dtype)
+        assert attn._route("flash_fwd", q, k, k) == "wgmma"
+    main = inspect.getsource(chip_smoke.main)
+    for phase, old in (("opt27b_fp16_forward", '("forward_on_mma", fp16_d80_forward_on_mma)'),
+                       ("openllama3b_fp16_forward",
+                        '("forward_on_simt", fp16_d100_forward_on_simt)')):
+        assert f'("{phase}", ' in main and old in main
+    assert {"flash_fwd_wgmma80_f16_kernel", "flash_fwd_wgmma100_f16_kernel"} <= set(
+        chip_smoke.WGMMA_KERNELS)
+    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 26
+
+
+def test_the_smokes_fp16_rows_at_80_and_100():
+    """chip_smoke's fp16 rows at head dims 80 (OPT-2.7B's attention as its
+    model gives it, GQA 32/8, window 512, ragged, cross-length, non-causal)
+    and 100 (OpenLLaMA-3B's in fp16 as its model gives it, contiguous, and
+    the same five) name the forward on wgmma and dQ and dK/dV on mma at 80
+    and simt at 100; all are wide rows, held on every route; the models'
+    rows are forward turn rows and in the kernels line, and no backward
+    turn row; the unaligned fp16 row at 80 stays on simt."""
+    import chip_smoke
+
+    rows = {row[0]: row for row in chip_smoke.SHAPES}
+    new = {80: {"opt27b_d80_bshd", "fp16_gqa_d80", "fp16_window_d80", "fp16_ragged_d80",
+                "fp16_cross_length_d80", "fp16_non_causal_d80"},
+           100: {"openllama3b_fp16_d100_bshd", "fp16_unaligned_d100", "fp16_gqa_d100",
+                 "fp16_window_d100", "fp16_ragged_d100", "fp16_cross_length_d100",
+                 "fp16_non_causal_d100"}}
+    for d, old in ((80, "mma"), (100, "simt")):
+        assert new[d] | ({"fp16_unaligned_d80"} if d == 80 else set()) == {
+            n for n, row in rows.items() if row[6] == d and row[9] == torch.float16}
+        assert new[d] <= set(chip_smoke.WIDE_SHAPES)
+        for name in new[d]:
+            assert chip_smoke.shape_routes(rows[name][-1]) == {
+                "flash_fwd": "wgmma", "flash_bwd_dq": old, "flash_bwd_dkv": old}, name
+    assert rows["opt27b_d80_bshd"][1:11] == (1, 32, 32, 2048, 2048, 80, True, None,
+                                             torch.float16, "bshd")
+    assert rows["openllama3b_fp16_d100_bshd"][1:11] == (1, 32, 32, 2048, 2048, 100, True,
+                                                        None, torch.float16, "bshd")
+    assert rows["fp16_unaligned_d100"][1:11] == (1, 32, 32, 1024, 1024, 100, True, None,
+                                                 torch.float16, "bhsd")
+    for d in (80, 100):
+        assert rows[f"fp16_gqa_d{d}"][2:4] == (32, 8)
+        assert rows[f"fp16_window_d{d}"][8] == 512
+        assert rows[f"fp16_ragged_d{d}"][1:6] == (2, 8, 4, 300, 300)
+        assert rows[f"fp16_cross_length_d{d}"][4:6] == (256, 1024)
+        assert rows[f"fp16_non_causal_d{d}"][4:8] == (1000, 1000, 100 if d == 100 else 80,
+                                                      False)
+    models = {"opt27b_d80_bshd", "openllama3b_fp16_d100_bshd"}
+    assert models <= set(chip_smoke.FWD_TURN_SHAPES) and models <= set(
+        chip_smoke.HEAD_DIM_ROWS)
+    assert not (new[80] | new[100]) & set(chip_smoke.BWD_TURN_SHAPES)
+    assert rows["fp16_unaligned_d80"][-1] == "simt"

@@ -85,8 +85,8 @@ def test_fp16_bounds_and_shapes_are_the_smokes():
     ["fwd", "--head-dim", "96", "--dtype", "float16", "cur"],
     ["fwd", "--dtype", "float32", "cur"]])
 def test_a_dtype_the_timer_lacks_is_refused(argv, capsys):
-    """fp16 runs at head dim 128 alone, and fp32 not at all: the usage and
-    exit 1, before anything is built."""
+    """fp16 runs at head dims 64, 80, 100 and 128 alone (not at 96), and
+    fp32 not at all: the usage and exit 1, before anything is built."""
     from yoda_scheduler_tpu_torch.ops import variants
 
     assert variants.main(argv) == 1
@@ -109,3 +109,26 @@ def test_head_dim_80_shapes_are_the_smokes_stablelm_rows():
         assert rows[name][1:9] == (b, h, kvh, sq, sk, 80, causal, window), name
         assert rows[name][9] == torch.bfloat16 and rows[name][-1] == "wgmma", name
     assert {"d80_bshd", "window_d80", "ragged_d80"} <= set(variants.PROBE)
+
+
+@pytest.mark.parametrize("d", [80, 100])
+def test_fp16_head_dims_80_and_100_shapes_are_the_smokes_rows(d):
+    """`--dtype float16 --head-dim 80|100` takes SHAPES_F16_80 and
+    SHAPES_F16_100: OPT-2.7B's attention and OpenLLaMA-3B's in fp16 first
+    (32 heads, S=2048, as their models give them), then GQA 32/8, a window
+    and a ragged sequence, each the smoke's fp16 row of the same name with
+    the forward on wgmma, three of them probed."""
+    import chip_smoke
+    from yoda_scheduler_tpu_torch.ops import variants
+
+    shapes = variants.SHAPES_F16_BY_DIM[d]
+    assert shapes is {80: variants.SHAPES_F16_80, 100: variants.SHAPES_F16_100}[d]
+    first = "opt27b_d80_bshd" if d == 80 else "openllama3b_fp16_d100_bshd"
+    assert [name for name, *_ in shapes] == [
+        first, f"fp16_gqa_d{d}", f"fp16_window_d{d}", f"fp16_ragged_d{d}"]
+    rows = {row[0]: row for row in chip_smoke.SHAPES}
+    for name, b, h, kvh, sq, sk, causal, window in shapes:
+        assert rows[name][1:9] == (b, h, kvh, sq, sk, d, causal, window), name
+        assert rows[name][9] == torch.float16, name
+        assert chip_smoke.shape_routes(rows[name][-1])["flash_fwd"] == "wgmma", name
+    assert {first, f"fp16_window_d{d}", f"fp16_ragged_d{d}"} <= set(variants.PROBE)

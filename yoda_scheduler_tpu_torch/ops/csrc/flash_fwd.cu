@@ -18,7 +18,7 @@
 // one (batch, head) and streams K/V tiles through shared memory. Causal tiles
 // stop at the diagonal and windowed tiles start at the window's first tile, as
 // in the Pallas loop bounds; ragged q and k tails are masked in the kernel, so
-// every shape runs here. Ten kernels share that plan; the caller names a
+// every shape runs here. Twelve kernels share that plan; the caller names a
 // route (ops/attention.py:_route picks it from dtype, head_dim and alignment):
 // - flash_fwd_wgmma_kernel (route 2 at D = 128; bf16, 16-byte aligned rows:
 //   the main path): TMA-fed and warp-specialised, on wgmma. Below.
@@ -29,16 +29,18 @@
 //   rows, 8-byte aligned): the same body, its producer copying the rows with
 //   cp.async where TMA cannot read them; 7 k-steps and P.V at n104.
 // - flash_fwd_wgmma_f16_kernel (route 2 in fp16 at D = 128: Llama-2's
-//   published dtype): the D = 128 kernel's body on fp16 operands.
+//   published dtype), flash_fwd_wgmma80_f16_kernel (fp16 at D = 80:
+//   OPT-2.7B's) and flash_fwd_wgmma100_f16_kernel (fp16 at D = 100:
+//   OpenLLaMA-3B's): the D = 128, 80 and 100 kernels' body on fp16 operands.
 // - flash_fwd_wgmma64_kernel (route 2 at D = 64: bench_mfu's d1024 widths)
 //   and flash_fwd_wgmma64_f16_kernel (fp16 at D = 64: OPT-1.3B's published
 //   dtype): the same plan with three consumer warpgroups; the note is below.
 // - flash_fwd_wgmma256_kernel (route 2 at D = 256: Gemma's attention): the
 //   same plan on stages of 64 keys, each row in four boxes; its note is below.
 // - flash_fwd_mma_kernel (route 1; aligned bf16 and fp16, D a multiple of 8
-//   up to 256: every other model's head dim, and fp16 at D other than 64 and
-//   128; it takes bf16 at D = 64, 128 and 256 and fp16 at 64 and 128 too, to
-//   be held against the wgmma kernels): 4 warps, each owning 16 of 64 q rows, mma.sync
+//   up to 256: every other model's head dim, and fp16 at D other than 64, 80
+//   and 128; it takes bf16 at D = 64, 80, 96, 128 and 256 and fp16 at 64, 80
+//   and 128 too, to be held against the wgmma kernels): 4 warps, each owning 16 of 64 q rows, mma.sync
 //   m16n8k16 (.bf16 or .f16) for both products; K/V tiles of 64 keys copied through registers.
 //   Scores, probabilities and the output sum stay in registers; P is rounded
 //   to the input type for P.V as the plain version rounds its probabilities.
@@ -430,7 +432,8 @@ __global__ void __launch_bounds__(NT_MMA) flash_fwd_mma_kernel(
 }
 
 
-// ---- the wgmma kernels at D = 128, 100, 96 and 80 (bf16) and 128 (fp16)
+// ---- the wgmma kernels at D = 128, 100, 96 and 80 (bf16) and 128, 100 and
+// 80 (fp16)
 constexpr int WG_THREADS = 128;
 constexpr int W_ROWS = 64;                  // q rows per consumer warpgroup
 constexpr int W_BQ = 2 * W_ROWS;            // q rows per block
@@ -442,8 +445,8 @@ constexpr int W_BARS = W_TILE * (1 + 2 * W_STAGES);  // barriers after Q, K[], V
 constexpr int W_SMEM = W_BARS + 8 * (1 + 3 * W_STAGES) + 1024;  // + alignment slack
 
 // The q, k and v rows of a launch whose producer copies them itself
-// (flash_fwd_wgmma100_kernel): bases, and (batch, head, seq) strides of q, k,
-// v in elements.
+// (flash_fwd_wgmma100_kernel, flash_fwd_wgmma100_f16_kernel): bases, and
+// (batch, head, seq) strides of q, k, v in elements.
 template <typename T>
 struct RowSrc {
   const T* q;
@@ -454,8 +457,10 @@ struct RowSrc {
 
 // The body of flash_fwd_wgmma_kernel (bf16, D = 128), flash_fwd_wgmma96_kernel
 // (bf16, D = 96), flash_fwd_wgmma80_kernel (bf16, D = 80),
-// flash_fwd_wgmma100_kernel (bf16, D = 100) and flash_fwd_wgmma_f16_kernel
-// (fp16, D = 128). fp16 differs from bf16 only in names: the wgmma
+// flash_fwd_wgmma100_kernel (bf16, D = 100), flash_fwd_wgmma_f16_kernel
+// (fp16, D = 128), flash_fwd_wgmma80_f16_kernel (fp16, D = 80: OPT-2.7B's,
+// Pythia-2.8B's and Phi-2's published dtype) and flash_fwd_wgmma100_f16_kernel
+// (fp16, D = 100: OpenLLaMA-3B's). fp16 differs from bf16 only in names: the wgmma
 // instructions (.f16 for .bf16), the tensor maps' data type and the roundings
 // of P (for P.V, where the plain version rounds its probabilities) and of O;
 // both are 2 bytes and the H100 runs both at one tensor rate, so tiles,
@@ -479,7 +484,7 @@ struct RowSrc {
 // At Phi-3-mini's attention (B=1, H=32, S=2048, D=96, causal) the work is
 // ~25.8 GFLOP against ~51 MB, bound by operations (~26 us at 989 TF/s); at
 // StableLM-3B's (D=80) ~21.5 GFLOP, ~22 us; at OpenLLaMA-3B's (D=100)
-// ~26.9 GFLOP, ~27 us.
+// ~26.9 GFLOP, ~27 us; fp16 at each the same.
 template <typename T, int D>
 __device__ __forceinline__ void fwd_wgmma_body(
     const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
@@ -732,15 +737,19 @@ FWD_WGMMA_TMA_KERNEL(flash_fwd_wgmma_kernel, __nv_bfloat16, 128)
 FWD_WGMMA_TMA_KERNEL(flash_fwd_wgmma96_kernel, __nv_bfloat16, 96)
 FWD_WGMMA_TMA_KERNEL(flash_fwd_wgmma80_kernel, __nv_bfloat16, 80)
 FWD_WGMMA_TMA_KERNEL(flash_fwd_wgmma_f16_kernel, __half, 128)
+FWD_WGMMA_TMA_KERNEL(flash_fwd_wgmma80_f16_kernel, __half, 80)
 #undef FWD_WGMMA_TMA_KERNEL
 
-__global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_fwd_wgmma100_kernel(
-    const __grid_constant__ RowSrc<__nv_bfloat16> src, __nv_bfloat16* __restrict__ o,
-    float* __restrict__ lse, int H, int KvH, int Sq, int Sk, int causal, int window,
-    float scale) {
-  fwd_wgmma_body<__nv_bfloat16, 100>(nullptr, nullptr, nullptr, src, o, lse, H, KvH, Sq, Sk,
-                                     causal, window, scale);
-}
+#define FWD_WGMMA_COPY_KERNEL(NAME, T, D)                                                \
+  __global__ void __launch_bounds__(3 * WG_THREADS, 1) NAME(                             \
+      const __grid_constant__ RowSrc<T> src, T* __restrict__ o, float* __restrict__ lse, \
+      int H, int KvH, int Sq, int Sk, int causal, int window, float scale) {             \
+    fwd_wgmma_body<T, D>(nullptr, nullptr, nullptr, src, o, lse, H, KvH, Sq, Sk, causal,  \
+                         window, scale);                                                  \
+  }
+FWD_WGMMA_COPY_KERNEL(flash_fwd_wgmma100_kernel, __nv_bfloat16, 100)
+FWD_WGMMA_COPY_KERNEL(flash_fwd_wgmma100_f16_kernel, __half, 100)
+#undef FWD_WGMMA_COPY_KERNEL
 
 // ---- the wgmma kernels at head dim 64 (bf16 and fp16)
 // A 64-column bf16 row is 128 bytes, one box of the 128-byte swizzle: every
@@ -1294,15 +1303,34 @@ bool fwd_maps(const Args& a, int D, CUtensorMapDataType type, uint32_t q_rows,
   return true;
 }
 
-// bf16 (dtype 1) at D = 128: flash_fwd_wgmma_kernel; at D = 96, 80 and 100:
-// flash_fwd_wgmma96_kernel, flash_fwd_wgmma80_kernel and
-// flash_fwd_wgmma100_kernel (which takes the rows themselves, not maps), on
-// the same grid; at D = 256: flash_fwd_wgmma256_kernel, on that grid too; at
-// D = 64: flash_fwd_wgmma64_kernel, its grid with the q tiles of one (batch,
-// head) side by side. fp16 (dtype 2) at D = 128: flash_fwd_wgmma_f16_kernel,
-// on the D = 128 grid; at D = 64: flash_fwd_wgmma64_f16_kernel, on the D = 64
-// one.
+// whether a wgmma kernel takes (dtype, D): bf16 (dtype 1) at 64, 80, 96, 100,
+// 128 and 256, fp16 (dtype 2) at 64, 80, 100 and 128
+bool has_wgmma(int dtype, int D) {
+  if (dtype == 1) return D == 64 || D == 80 || D == 96 || D == 100 || D == 128 || D == 256;
+  return dtype == 2 && (D == 64 || D == 80 || D == 100 || D == 128);
+}
+
+// the rows of q, k and v for a kernel that copies them itself (D = 100)
+template <typename T>
+RowSrc<T> row_src(const Args& a) {
+  RowSrc<T> src{(const T*)a.q, (const T*)a.k, (const T*)a.v, {}};
+  for (int i = 0; i < 9; ++i) src.st[i] = a.st[i];
+  return src;
+}
+
+// The kernel of (dtype, D), each chosen by both: bf16 (dtype 1) at D = 128:
+// flash_fwd_wgmma_kernel; at D = 96, 80 and 100: flash_fwd_wgmma96_kernel,
+// flash_fwd_wgmma80_kernel and flash_fwd_wgmma100_kernel (which takes the
+// rows themselves, not maps), on the same grid; at D = 256:
+// flash_fwd_wgmma256_kernel, on that grid too; at D = 64:
+// flash_fwd_wgmma64_kernel, its grid with the q tiles of one (batch, head)
+// side by side. fp16 (dtype 2) at D = 128, 80 and 100:
+// flash_fwd_wgmma_f16_kernel, flash_fwd_wgmma80_f16_kernel and
+// flash_fwd_wgmma100_f16_kernel, on the D = 128 grid; at D = 64:
+// flash_fwd_wgmma64_f16_kernel, on the D = 64 one. Any other pair returns
+// cudaErrorInvalidValue and launches nothing.
 cudaError_t launch_wgmma(const Args& a, int D, int dtype) {
+  if (!has_wgmma(dtype, D)) return cudaErrorInvalidValue;
   static const cudaError_t attr128 = allow_smem(flash_fwd_wgmma_kernel, W_SMEM);
   static const cudaError_t attr96 = allow_smem(flash_fwd_wgmma96_kernel, W_SMEM);
   static const cudaError_t attr80 = allow_smem(flash_fwd_wgmma80_kernel, W_SMEM);
@@ -1311,31 +1339,36 @@ cudaError_t launch_wgmma(const Args& a, int D, int dtype) {
   static const cudaError_t attr64 = allow_smem(flash_fwd_wgmma64_kernel, F_SMEM);
   static const cudaError_t attr64_f16 = allow_smem(flash_fwd_wgmma64_f16_kernel, F_SMEM);
   static const cudaError_t attr_f16 = allow_smem(flash_fwd_wgmma_f16_kernel, W_SMEM);
-  const cudaError_t attr = dtype == 2  ? (D == 64 ? attr64_f16 : attr_f16)
-                           : D == 64   ? attr64
-                           : D == 80   ? attr80
-                           : D == 96   ? attr96
-                           : D == 100  ? attr100
-                           : D == 256  ? attr256
-                                       : attr128;
+  static const cudaError_t attr80_f16 = allow_smem(flash_fwd_wgmma80_f16_kernel, W_SMEM);
+  static const cudaError_t attr100_f16 = allow_smem(flash_fwd_wgmma100_f16_kernel, W_SMEM);
+  const bool f16 = dtype == 2;
+  // fp16 has no kernel at 96 or 256 (has_wgmma)
+  const cudaError_t attr = D == 64    ? (f16 ? attr64_f16 : attr64)
+                           : D == 80  ? (f16 ? attr80_f16 : attr80)
+                           : D == 100 ? (f16 ? attr100_f16 : attr100)
+                           : D == 128 ? (f16 ? attr_f16 : attr128)
+                           : D == 96  ? attr96
+                                      : attr256;
   if (attr != cudaSuccess) return attr;
   const dim3 grid(a.B * a.H, (a.Sq + W_BQ - 1) / W_BQ);
   if (D == 100) {
-    RowSrc<__nv_bfloat16> src{(const __nv_bfloat16*)a.q, (const __nv_bfloat16*)a.k,
-                              (const __nv_bfloat16*)a.v, {}};
-    for (int i = 0; i < 9; ++i) src.st[i] = a.st[i];
-    flash_fwd_wgmma100_kernel<<<grid, 3 * WG_THREADS, W_SMEM, a.stream>>>(
-        src, (__nv_bfloat16*)a.o, (float*)a.lse, a.H, a.KvH, a.Sq, a.Sk, a.causal,
-        a.window, a.scale);
+    if (f16)
+      flash_fwd_wgmma100_f16_kernel<<<grid, 3 * WG_THREADS, W_SMEM, a.stream>>>(
+          row_src<__half>(a), (__half*)a.o, (float*)a.lse, a.H, a.KvH, a.Sq, a.Sk,
+          a.causal, a.window, a.scale);
+    else
+      flash_fwd_wgmma100_kernel<<<grid, 3 * WG_THREADS, W_SMEM, a.stream>>>(
+          row_src<__nv_bfloat16>(a), (__nv_bfloat16*)a.o, (float*)a.lse, a.H, a.KvH,
+          a.Sq, a.Sk, a.causal, a.window, a.scale);
     return cudaGetLastError();
   }
   CUtensorMap maps[3];
   const CUtensorMapDataType type =
-      dtype == 2 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+      f16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   if (D == 64) {
     if (!fwd_maps(a, D, type, F_BQ, F_BK, maps)) return cudaErrorInvalidValue;
     const dim3 grid64((a.Sq + F_BQ - 1) / F_BQ, a.B * a.H);
-    if (dtype == 2)
+    if (f16)
       flash_fwd_wgmma64_f16_kernel<<<grid64, (F_CONS + 1) * WG_THREADS, F_SMEM, a.stream>>>(
           maps[0], maps[1], maps[2], (__half*)a.o, (float*)a.lse, a.H, a.KvH, a.Sq, a.Sk,
           a.causal, a.window, a.scale);
@@ -1343,16 +1376,17 @@ cudaError_t launch_wgmma(const Args& a, int D, int dtype) {
       flash_fwd_wgmma64_kernel<<<grid64, (F_CONS + 1) * WG_THREADS, F_SMEM, a.stream>>>(
           maps[0], maps[1], maps[2], (__nv_bfloat16*)a.o, (float*)a.lse, a.H, a.KvH,
           a.Sq, a.Sk, a.causal, a.window, a.scale);
-  } else if (dtype == 2) {
-    if (!fwd_maps(a, D, type, W_BQ, W_BK, maps)) return cudaErrorInvalidValue;
-    flash_fwd_wgmma_f16_kernel<<<grid, 3 * WG_THREADS, W_SMEM, a.stream>>>(
-        maps[0], maps[1], maps[2], (__half*)a.o, (float*)a.lse, a.H, a.KvH, a.Sq, a.Sk,
-        a.causal, a.window, a.scale);
   } else if (D == 256) {
     if (!fwd_maps(a, D, type, W_BQ, G_BK, maps)) return cudaErrorInvalidValue;
     flash_fwd_wgmma256_kernel<<<grid, 3 * WG_THREADS, G_SMEM, a.stream>>>(
         maps[0], maps[1], maps[2], (__nv_bfloat16*)a.o, (float*)a.lse, a.H, a.KvH,
         a.Sq, a.Sk, a.causal, a.window, a.scale);
+  } else if (f16) {
+    if (!fwd_maps(a, D, type, W_BQ, W_BK, maps)) return cudaErrorInvalidValue;
+    auto kernel = D == 80 ? flash_fwd_wgmma80_f16_kernel : flash_fwd_wgmma_f16_kernel;
+    kernel<<<grid, 3 * WG_THREADS, W_SMEM, a.stream>>>(
+        maps[0], maps[1], maps[2], (__half*)a.o, (float*)a.lse, a.H, a.KvH, a.Sq, a.Sk,
+        a.causal, a.window, a.scale);
   } else {
     if (!fwd_maps(a, D, type, W_BQ, W_BK, maps)) return cudaErrorInvalidValue;
     auto kernel = D == 96   ? flash_fwd_wgmma96_kernel
@@ -1406,8 +1440,9 @@ struct Mma {
 // window. route: 0 = simt (any dtype, D from 1 to 512), 1 = mma (bf16 or
 // fp16, D a multiple of 8 up to 256, 16-byte aligned bases, strides that
 // are multiples of 8), 2 = wgmma (as mma, and Sk > 0, with bf16 at D = 64,
-// 80, 96, 128 or 256 and fp16 at D = 64 or 128; or bf16 at D = 100 with
-// 8-byte aligned bases and strides that are multiples of 4). The simt and mma kernels run at
+// 80, 96, 128 or 256 and fp16 at D = 64, 80 or 128; or bf16 or fp16 at D =
+// 100 with 8-byte aligned bases and strides that are multiples of 4; fp16
+// has no wgmma kernel at 96 or 256). The simt and mma kernels run at
 // the padded width of D (padded_dim), the wgmma kernels at D itself. A route that cannot take the
 // inputs returns cudaErrorInvalidValue and launches nothing. Returns the
 // launch's cudaError_t (0 on success).
@@ -1439,12 +1474,10 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
       if (dtype == 2) return (int)at_padded_dim<__half, Mma>(a);
       return (int)cudaErrorInvalidValue;
     case 2: {
-      const bool has_d = dtype == 1 ? D == 64 || D == 80 || D == 96 || D == 100 || D == 128 ||
-                                          D == 256
-                                    : dtype == 2 && (D == 64 || D == 128);
-      // the D = 100 kernel copies its 200-byte rows in 8-byte pieces
+      // the D = 100 kernels copy their 200-byte rows in 8-byte pieces; a
+      // (dtype, D) without a kernel is refused by launch_wgmma
       const bool rows_ok = D == 100 ? rows_aligned(ptrs, 3, st, 9, D, 8) : aligned;
-      if (!has_d || !rows_ok || Sk <= 0) return (int)cudaErrorInvalidValue;
+      if (!rows_ok || Sk <= 0) return (int)cudaErrorInvalidValue;
       return (int)launch_wgmma(a, D, dtype);
     }
     default:

@@ -3,9 +3,9 @@
 // the 128-byte swizzle, the wgmma fences and groups, setmaxnreg, and the bf16
 // wgmma m64n128k16 and m64n64k16, each in its SS (both operands in shared
 // memory) and RS (A in registers) forms, and m64n80k16, m64n96k16 and
-// m64n104k16 in the RS form; m64n128k16 and m64n64k16 take fp16 operands
-// too, in both forms. Last, 8-byte cp.async copies of rows TMA cannot read
-// into the same swizzled layout.
+// m64n104k16 in the RS form; each takes fp16 operands too, in each of its
+// forms. Last, 8-byte cp.async copies of rows TMA cannot read into the same
+// swizzled layout.
 //
 // The layout they assume. A tile row of 64 bf16 or fp16 (128 bytes) is one line of
 // the 128-byte swizzle: TMA with CU_TENSOR_MAP_SWIZZLE_128B stores the 16-byte
@@ -20,8 +20,9 @@
 //
 // tests/test_torch_cuda.py holds these pieces against torch on the card
 // (csrc/hopper_check.cu: one TMA tile against a slice copy, SS and RS
-// products of 128- and 64-row tiles, in bf16, and at m64n128k16 and
-// m64n64k16 in fp16, against torch.matmul; a 64-row V 256 wide in four
+// products of 128- and 64-row tiles, in bf16, and at m64n128k16,
+// m64n64k16, and in the RS form m64n80k16 and m64n104k16, in fp16, against
+// torch.matmul; a 64-row V 256 wide in four
 // boxes read as two RS m64n128k16 products; rows of 100 copied by cp.async
 // into 128- and 64-row tiles and read back through wgmma). ops/_build.py
 // hashes every .cuh in csrc/ into each kernel's library name.
@@ -299,16 +300,23 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
 // `LBO` bytes on (the m64n128 form's descriptor, read 96 wide). The
 // accumulator is the m64n128 layout's columns 0-95: d[4 j + e] is row 16 w +
 // g + 8 (e / 2), column 8 j + 2 t + (e % 2) for j < 12.
-template <int TB>
+// T operands, bf16 or fp16 (the f16 form of the same instruction).
+#define HOPPER_RS96(TY)                                                  \
+  asm volatile(                                                          \
+      "{\n .reg .pred p;\n setp.ne.b32 p, %53, 0;\n"                     \
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32." TY "." TY " " HOPPER_D48 \
+      ", {%48, %49, %50, %51}, %52, p, 1, 1, %54;\n}\n"                    \
+      : HOPPER_D48_OPS(d)                                                \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), \
+        "n"(TB))
+template <int TB, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_m64n96k16_rs(float (&d)[48], const uint32_t (&a)[4],
                                                    uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %53, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 " HOPPER_D48
-      ", {%48, %49, %50, %51}, %52, p, 1, 1, %54;\n}\n"
-      : HOPPER_D48_OPS(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
-        "n"(TB));
+  if constexpr (std::is_same<T, __half>::value) {
+    HOPPER_RS96("f16");
+  } else {
+    HOPPER_RS96("bf16");
+  }
 }
 
 #define HOPPER_D40 \
@@ -321,17 +329,24 @@ __device__ __forceinline__ void wgmma_m64n96k16_rs(float (&d)[48], const uint32_
 
 // The m64n96k16 RS form's product at N = 80: B's columns 0-63 are the first
 // 64-column half and 64-79 the first 16 columns of the next; the
-// accumulator is the m64n128 layout's columns 0-79 (d[4 j + e] for j < 10).
-template <int TB>
+// accumulator is the m64n128 layout's columns 0-79 (d[4 j + e] for j < 10);
+// T operands, bf16 or fp16.
+#define HOPPER_RS80(TY)                                                  \
+  asm volatile(                                                          \
+      "{\n .reg .pred p;\n setp.ne.b32 p, %45, 0;\n"                     \
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32." TY "." TY " " HOPPER_D40 \
+      ", {%40, %41, %42, %43}, %44, p, 1, 1, %46;\n}\n"                    \
+      : HOPPER_D40_OPS(d)                                                \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), \
+        "n"(TB))
+template <int TB, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_m64n80k16_rs(float (&d)[40], const uint32_t (&a)[4],
                                                    uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %45, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 " HOPPER_D40
-      ", {%40, %41, %42, %43}, %44, p, 1, 1, %46;\n}\n"
-      : HOPPER_D40_OPS(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
-        "n"(TB));
+  if constexpr (std::is_same<T, __half>::value) {
+    HOPPER_RS80("f16");
+  } else {
+    HOPPER_RS80("bf16");
+  }
 }
 
 #define HOPPER_D52 \
@@ -343,34 +358,39 @@ __device__ __forceinline__ void wgmma_m64n80k16_rs(float (&d)[40], const uint32_
   HOPPER_D48_OPS(d), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51])
 
 // The same at N = 104 (head dim 100 rounded up to 8): columns 64-103 are the
-// first 40 of the second half; d[4 j + e] for j < 13.
-template <int TB>
+// first 40 of the second half; d[4 j + e] for j < 13. T operands, bf16 or
+// fp16.
+#define HOPPER_RS104(TY)                                                  \
+  asm volatile(                                                           \
+      "{\n .reg .pred p;\n setp.ne.b32 p, %57, 0;\n"                      \
+      "wgmma.mma_async.sync.aligned.m64n104k16.f32." TY "." TY " " HOPPER_D52 \
+      ", {%52, %53, %54, %55}, %56, p, 1, 1, %58;\n}\n"                     \
+      : HOPPER_D52_OPS(d)                                                 \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), \
+        "n"(TB))
+template <int TB, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_m64n104k16_rs(float (&d)[52], const uint32_t (&a)[4],
                                                     uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %57, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n104k16.f32.bf16.bf16 " HOPPER_D52
-      ", {%52, %53, %54, %55}, %56, p, 1, 1, %58;\n}\n"
-      : HOPPER_D52_OPS(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
-        "n"(TB));
+  if constexpr (std::is_same<T, __half>::value) {
+    HOPPER_RS104("f16");
+  } else {
+    HOPPER_RS104("bf16");
+  }
 }
 
 // the RS product of width N (80, 96, 104 or 128) over an N / 2-float
-// accumulator, T operands (N < 128 in bf16 alone)
+// accumulator, T operands (bf16 or fp16)
 template <int N, int TB, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                                          uint64_t db, int scale_d) {
   static_assert(N == 80 || N == 96 || N == 104 || N == 128,
                 "wgmma_rs takes N = 80, 96, 104 or 128");
-  static_assert(N == 128 || std::is_same<T, __nv_bfloat16>::value,
-                "m64n80k16, m64n96k16 and m64n104k16 are bf16 alone");
   if constexpr (N == 80) {
-    wgmma_m64n80k16_rs<TB>(d, a, db, scale_d);
+    wgmma_m64n80k16_rs<TB, T>(d, a, db, scale_d);
   } else if constexpr (N == 96) {
-    wgmma_m64n96k16_rs<TB>(d, a, db, scale_d);
+    wgmma_m64n96k16_rs<TB, T>(d, a, db, scale_d);
   } else if constexpr (N == 104) {
-    wgmma_m64n104k16_rs<TB>(d, a, db, scale_d);
+    wgmma_m64n104k16_rs<TB, T>(d, a, db, scale_d);
   } else {
     wgmma_m64n128k16_rs<TB, T>(d, a, db, scale_d);
   }
@@ -380,6 +400,9 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
 #undef HOPPER_SS64
 #undef HOPPER_RS64
 #undef HOPPER_RS128
+#undef HOPPER_RS104
+#undef HOPPER_RS96
+#undef HOPPER_RS80
 #undef HOPPER_D64
 #undef HOPPER_D64_OPS
 #undef HOPPER_D52

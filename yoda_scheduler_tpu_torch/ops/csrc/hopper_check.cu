@@ -19,7 +19,9 @@
 //   form, as the D = 96 kernels' P V (128 rows), P^T dO and dS^T Q (64);
 // - hopper_wgmma_rs80, hopper_wgmma_rs104: the same with V 80 and 104 wide
 //   and the m64n80k16 and m64n104k16 forms, as the D = 80 and D = 100
-//   forwards' P V;
+//   forwards' P V; hopper_wgmma_rs80_f16, hopper_wgmma_rs104_f16: those two
+//   on fp16 operands (the .f16 forms over FLOAT16 maps), as the fp16 D = 80
+//   and D = 100 forwards' P V;
 // - hopper_cp_async_tile: two [S, 100] row sets, A and B, 8-byte aligned,
 //   copied by cp_async_rows into the 128-wide swizzled layout (rows past S
 //   zero, columns 100-127 zeroed) and read back through wgmma: A B^T with 7
@@ -255,10 +257,9 @@ __global__ void __launch_bounds__(128) wgmma_rs64_kernel(
   store_acc<128>(d, out);
 }
 
-template <int N, int ROWS>
+template <typename T, int N, int ROWS>
 __global__ void __launch_bounds__(128) wgmma_rs_n_kernel(
-    const __nv_bfloat16* __restrict__ p, const __grid_constant__ CUtensorMap map_v,
-    float* out) {
+    const T* __restrict__ p, const __grid_constant__ CUtensorMap map_v, float* out) {
   constexpr int VHALF = ROWS * 128;  // bytes of one 64-column box of V
   extern __shared__ unsigned char raw[];
   unsigned char* sV = aligned_smem(raw);
@@ -276,7 +277,7 @@ __global__ void __launch_bounds__(128) wgmma_rs_n_kernel(
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
   uint32_t pa[ROWS / 16][4];
-  const __nv_bfloat16* prow = p + (16 * warp + g) * ROWS + 2 * t;
+  const T* prow = p + (16 * warp + g) * ROWS + 2 * t;
 #pragma unroll
   for (int jj = 0; jj < ROWS / 16; ++jj) {
     pa[jj][0] = ld_pair(prow + 16 * jj);
@@ -293,7 +294,7 @@ __global__ void __launch_bounds__(128) wgmma_rs_n_kernel(
   wgmma_fence();
 #pragma unroll
   for (int jj = 0; jj < ROWS / 16; ++jj)
-    wgmma_rs<N, 1>(d, pa[jj], dv + ((jj * 16 * 128) >> 4), 1);
+    wgmma_rs<N, 1, T>(d, pa[jj], dv + ((jj * 16 * 128) >> 4), 1);
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(d);
@@ -604,22 +605,29 @@ __global__ void __launch_bounds__(128) wgmma_rs256_kernel(
         out[(row + 8 * (e >> 1)) * 256 + 128 * hf + 8 * j + 2 * t + (e & 1)] = d[hf][4 * j + e];
 }
 
-// P [64, rows] times V [rows, N] (rows 64 or 128) through wgmma_rs_n_kernel
-template <int N>
+// the map type of T (bf16 or fp16)
+template <typename T>
+constexpr CUtensorMapDataType map_type() {
+  return std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+
+// P [64, rows] times V [rows, N] (rows 64 or 128; T bf16 or fp16) through
+// wgmma_rs_n_kernel
+template <typename T, int N>
 int wgmma_rs_n(const void* p, const void* v, int rows, void* out, void* stream) {
   const int64_t dims[4] = {N, rows, 1, 1};
   const int64_t strides[3] = {N, N * (int64_t)rows, N * (int64_t)rows};
   CUtensorMap map_v;
   if ((rows != 64 && rows != 128) ||
-      !make_map_4d(&map_v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, v, dims, strides, rows))
+      !make_map_4d(&map_v, map_type<T>(), v, dims, strides, rows))
     return (int)cudaErrorInvalidValue;
   const int smem = 2 * rows * 128 + 1024;
-  auto kernel = rows == 64 ? wgmma_rs_n_kernel<N, 64> : wgmma_rs_n_kernel<N, 128>;
+  auto kernel = rows == 64 ? wgmma_rs_n_kernel<T, N, 64> : wgmma_rs_n_kernel<T, N, 128>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<1, 128, smem, (cudaStream_t)stream>>>((const __nv_bfloat16*)p, map_v,
-                                                (float*)out);
+  kernel<<<1, 128, smem, (cudaStream_t)stream>>>((const T*)p, map_v, (float*)out);
   return (int)cudaGetLastError();
 }
 
@@ -635,13 +643,6 @@ bool matrix_map(CUtensorMap* map, const void* base, int64_t rows, uint32_t box_r
 bool square_map(CUtensorMap* map, const void* base, uint32_t box_rows,
                 CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   return matrix_map(map, base, 128, box_rows, type);
-}
-
-// the map type of T (bf16 or fp16)
-template <typename T>
-constexpr CUtensorMapDataType map_type() {
-  return std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 }
 
 template <typename T>
@@ -774,19 +775,33 @@ extern "C" int hopper_wgmma_rs64(const void* p, const void* v, void* out, void* 
 // fp32 = p @ v
 extern "C" int hopper_wgmma_rs96(const void* p, const void* v, int rows, void* out,
                                  void* stream) {
-  return wgmma_rs_n<96>(p, v, rows, out, stream);
+  return wgmma_rs_n<__nv_bfloat16, 96>(p, v, rows, out, stream);
 }
 
 // the same with v [rows, 80] and out [64, 80]: m64n80k16
 extern "C" int hopper_wgmma_rs80(const void* p, const void* v, int rows, void* out,
                                  void* stream) {
-  return wgmma_rs_n<80>(p, v, rows, out, stream);
+  return wgmma_rs_n<__nv_bfloat16, 80>(p, v, rows, out, stream);
 }
 
 // the same with v [rows, 104] and out [64, 104]: m64n104k16
 extern "C" int hopper_wgmma_rs104(const void* p, const void* v, int rows, void* out,
                                   void* stream) {
-  return wgmma_rs_n<104>(p, v, rows, out, stream);
+  return wgmma_rs_n<__nv_bfloat16, 104>(p, v, rows, out, stream);
+}
+
+// the same in fp16 with v [rows, 80] and out [64, 80]: m64n80k16's f16 form,
+// the fp16 D = 80 forward's P V
+extern "C" int hopper_wgmma_rs80_f16(const void* p, const void* v, int rows, void* out,
+                                     void* stream) {
+  return wgmma_rs_n<__half, 80>(p, v, rows, out, stream);
+}
+
+// the same in fp16 with v [rows, 104] and out [64, 104]: m64n104k16's f16
+// form, the fp16 D = 100 forward's P V
+extern "C" int hopper_wgmma_rs104_f16(const void* p, const void* v, int rows, void* out,
+                                      void* stream) {
+  return wgmma_rs_n<__half, 104>(p, v, rows, out, stream);
 }
 
 // a, b: S rows of 100 bf16 (S <= 128) at row stride ss elements, base and

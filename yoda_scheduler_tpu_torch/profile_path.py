@@ -1,6 +1,6 @@
 """Where the time goes on the port's path, at Phi-3-mini, Llama-2-7B,
-Mixtral-8x7B, OpenLLaMA-3B, StableLM-3B-4E1T, Gemma-2B and OPT-1.3B widths
-on one GPU.
+Mixtral-8x7B, OpenLLaMA-3B, StableLM-3B-4E1T, Gemma-2B, OPT-1.3B and
+OPT-2.7B widths on one GPU.
 
     python3 -m yoda_scheduler_tpu_torch.profile_path
 
@@ -38,11 +38,15 @@ wgmma kernels and one on mma (`d80_backward_on_mma`;
 `stablelm3b_train_windows()` traces those two alone); then one Gemma-2B
 training step (all 18 layers, B=1, S=2048, remat, AdamW) with dQ and dK/dV
 on their head-dim-256 wgmma kernels and one on mma (`d256_backward_on_mma`;
-`gemma2b_train_windows()` traces those two alone); last OPT-1.3B's loss
+`gemma2b_train_windows()` traces those two alone); then OPT-1.3B's loss
 (all 24 layers, fp16, B=1, S=2048, remat) through its forward and backward,
 no optimizer step, with dQ and dK/dV on their fp16 head-dim-64 wgmma kernels
 and on mma (`fp16_backward_on_mma`; `opt13b_backward_windows()` traces those
-two alone). For each traced
+two alone); then one `llama_forward` at OPT-2.7B's widths (head dim 80,
+fp16) and one at OpenLLaMA-3B's in fp16 (100), B=1, S=2048, each with
+flash_fwd on its fp16 wgmma kernel and on the route it took before (mma at
+80, simt at 100; `fp16_new_width_forward_windows()` traces those four
+alone). For each traced
 window it prints one JSON line: the host wall time, the device's busy time
 (the union of kernel intervals) and idle share, the kernel launches, the
 device time grouped into conv / matmul / flash_fwd / flash_bwd_dq /
@@ -61,6 +65,7 @@ from __future__ import annotations
 
 import bisect
 import contextlib
+import dataclasses
 import gc
 import json
 import statistics
@@ -156,6 +161,24 @@ def opt_1_3b() -> LlamaConfig:
     return LlamaConfig(vocab_size=50272, dim=2048, n_layers=24, n_heads=32,
                        n_kv_heads=32, ffn_dim=8192, rope_theta=10000.0,
                        norm_eps=1e-5, max_seq_len=2048, dtype="float16")
+
+
+def opt_2_7b() -> LlamaConfig:
+    """OPT-2.7B's widths, from the published facebook/opt-2.7b config.json:
+    hidden 2560, 32 layers, 32 heads of 80 (query and KV alike), FFN 10240,
+    vocab 50272, 2048 positions, in its published torch_dtype, fp16; the
+    weights random from a seed: about 3.6 B parameters, 7.2 GB. As in
+    `opt_1_3b`, its LayerNorm, learned positions, two-matrix ReLU FFN and
+    biases are not modelled."""
+    return LlamaConfig(vocab_size=50272, dim=2560, n_layers=32, n_heads=32,
+                       n_kv_heads=32, ffn_dim=10240, rope_theta=10000.0,
+                       norm_eps=1e-5, max_seq_len=2048, dtype="float16")
+
+
+def openllama_3b_fp16() -> LlamaConfig:
+    """`openllama_3b` in the published open_llama_3b checkpoint's
+    torch_dtype, fp16: about 3.4 B parameters, 6.9 GB."""
+    return dataclasses.replace(openllama_3b(), dtype="float16")
 
 
 def _group(name: str) -> str:
@@ -325,6 +348,20 @@ def fp16_d64_forward_on_mma():
     return _off_wgmma(lambda key, d: key == ("flash_fwd", torch.float16) and d == 64)
 
 
+def fp16_d80_forward_on_mma():
+    """Within it, the fp16 forward at head dim 80 takes the mma route, as
+    before its wgmma kernel; fp16 dQ and dK/dV stay on mma there, and bf16
+    at 80 keeps its wgmma kernels."""
+    return _off_wgmma(lambda key, d: key == ("flash_fwd", torch.float16) and d == 80)
+
+
+def fp16_d100_forward_on_simt():
+    """Within it, the fp16 forward at head dim 100 takes the simt route, as
+    before its wgmma kernel (no mma kernel takes 200-byte rows); fp16 dQ and
+    dK/dV stay on simt there, and bf16 at 100 keeps its wgmma kernels."""
+    return _off_wgmma(lambda key, d: key == ("flash_fwd", torch.float16) and d == 100)
+
+
 def d100_forward_on_simt():
     """Within it, the forward at head dim 100 takes the simt route, as before
     its wgmma kernel (no mma kernel takes 200-byte rows)."""
@@ -478,6 +515,15 @@ def gemma_opt_forward_windows() -> list[dict]:
                              (opt_1_3b(), "mma", fp16_d64_forward_on_mma)))
 
 
+def fp16_new_width_forward_windows() -> list[dict]:
+    """At OPT-2.7B's widths (head dim 80, fp16) and OpenLLaMA-3B's in fp16
+    (100), B=1, S=2048: one traced `llama_forward` with flash_fwd on its
+    fp16 wgmma kernel and one on the route it took before (mma at 80, simt
+    at 100)."""
+    return _forward_windows(((opt_2_7b(), "mma", fp16_d80_forward_on_mma),
+                             (openllama_3b_fp16(), "simt", fp16_d100_forward_on_simt)))
+
+
 def _backward_train_windows(cfg, label: str, old_name: str, old) -> list[dict]:
     """One traced training step of `cfg` (all its layers, B=1, S=2048,
     remat, AdamW) with dQ and dK/dV on their wgmma kernels, and one with
@@ -616,6 +662,8 @@ def main() -> int:
     reports += gemma2b_train_windows()
     _free()
     reports += opt13b_backward_windows()
+    _free()
+    reports += fp16_new_width_forward_windows()
     out = Path(__file__).resolve().parents[1] / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "profile_path.json").write_text(json.dumps(
