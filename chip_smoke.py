@@ -7,7 +7,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 1. build: the card's name and power limit, and the CUDA kernels compiled
    from the sources in this checkout (nvcc, sm_90a, one process per source);
-   each of the twenty-four wgmma kernels (`WGMMA_KERNELS`) without a spill
+   each of the twenty-eight wgmma kernels (`WGMMA_KERNELS`) without a spill
    or a serialised wgmma.
 2. kernel: the flash forward kernel against its plain version on the card,
    elementwise and by O's worst 64-row tile, at the main path's shape (also
@@ -63,11 +63,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
    and 256, simt at 100: old, wgmma, wgmma, old), SDPA's backward after
    each turn under its default backend (cuDNN) at 80 and 256 and its flash
    backend at 100; and so in fp16 at 64 (fp16_d1024_bshd, opt13b_d64_bshd)
-   against mma, with SDPA's default backward after each turn. Last three
-   fp16 rows with a large LSE cotangent (dO x1e-5, S=2048, head dim 128)
-   through the kernels' autograd node, g_lse x1e3 of random sign and, with
-   an attention sink at key 0, x100 of one sign, at head dim 128 and again
-   at 64: finite, and within twice the fp32 backward's own rounding to fp16
+   against mma, with SDPA's default backward after each turn, and in fp16
+   at 100 (openllama3b_fp16_d100_bshd, fp16_unaligned_d100) against simt,
+   with its flash backward after each turn. Last four fp16 rows with a
+   large LSE cotangent (dO x1e-5, S=2048, head dim 128) through the
+   kernels' autograd node, g_lse x1e3 of random sign and, with an attention
+   sink at key 0, x100 of one sign, at head dim 128 and again at 64 and at
+   100: finite, and within twice the fp32 backward's own rounding to fp16
    of the fp32 backward.
 4. forward: Llama-2-7B width, all 32 layers, bf16, random weights from a
    seed, B=1, S=2048: one `llama_forward` must launch the kernel once per
@@ -142,6 +144,13 @@ After moe_train, head dims 96, 100 and 80, and fp16:
   phases' convention and peak memory; both also timed on the host's clock
   in turns against dQ and dK/dV on mma (`profile_path.fp16_backward_on_mma`),
   the backward's turns after its 4 calls.
+- openllama3b_fp16_gradient, openllama3b_fp16_backward: OpenLLaMA-3B's
+  widths in its published dtype, fp16 (`profile_path.openllama_3b_fp16`),
+  as OPT-1.3B's pair: gradient (4 layers: 8/4/4 launches) and the loss's
+  forward and backward at all 26 layers with no optimizer (52/26/26 a
+  call), every launch on wgmma, dQ and dK/dV on their fp16 head-dim-100
+  kernels; both also timed on the host's clock in turns against dQ and
+  dK/dV on simt (`profile_path.fp16_d100_backward_on_simt`).
 
 - moe_forward: B=1, S=2048: 16 flash_fwd launches, all on the wgmma route;
   logits and routing against the forward through the plain attention, end
@@ -399,9 +408,10 @@ TILE_REL_L2_FP16 = 1.25e-3  # bf16's 1e-2 over 8, as TOL's fp16 bounds
 # multiply their sums by the inverse scale before rounding them to fp16.
 FP16_LSE_COTANGENT = dict(b=1, h=32, s=2048, d=128, do_scale=1e-5, g_lse_scale=1e3)
 FP16_SINK_COTANGENT = dict(FP16_LSE_COTANGENT, g_lse_scale=100.0, sink=True)
-# the sink row again at OPT-1.3B's head dim, 64, on the fp16 head-dim-64
-# wgmma kernels
+# the sink row again at OPT-1.3B's head dim, 64, and at OpenLLaMA-3B's, 100,
+# on the fp16 wgmma kernels at each
 FP16_SINK_COTANGENT_D64 = dict(FP16_SINK_COTANGENT, d=64)
+FP16_SINK_COTANGENT_D100 = dict(FP16_SINK_COTANGENT, d=100)
 FP16_ROUNDING_FACTOR = 2.0
 BWD_G_LSE = {"gqa", "gqa_bshd", "cross_length", "ragged_300",  # shapes with a non-zero
              "gqa_d64", "ragged_d64", "gqa_d96", "gemma_d256",   # LSE cotangent
@@ -690,7 +700,8 @@ WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_wgmma96_kernel",
                  "flash_bwd_dq_wgmma80_kernel", "flash_bwd_dkv_wgmma80_kernel",
                  "flash_bwd_dq_wgmma256_kernel", "flash_bwd_dkv_wgmma256_kernel",
                  "flash_bwd_dq_wgmma64_f16_kernel", "flash_bwd_dkv_wgmma64_f16_kernel",
-                 "flash_fwd_wgmma80_f16_kernel", "flash_fwd_wgmma100_f16_kernel")
+                 "flash_fwd_wgmma80_f16_kernel", "flash_fwd_wgmma100_f16_kernel",
+                 "flash_bwd_dq_wgmma100_f16_kernel", "flash_bwd_dkv_wgmma100_f16_kernel")
 
 
 def phase_build(build):
@@ -785,7 +796,7 @@ SHAPES = [
      "offset1", "simt"),
     # head dims other than 32, 64 and 128, and fp16, on the simt and mma
     # kernels at their padded widths (at 80, 96, 100 and 256, and fp16 at
-    # 64 and 128, on wgmma; fp16 at 80 and 100 the forward alone, above):
+    # 64, 100 and 128, on wgmma; fp16 at 80 the forward alone, above):
     # Phi-3-mini's attention (32 heads of 96, S=2048) as the model
     # gives it and contiguous, with GQA 32/8 and a window; 80 (2560 / 32,
     # StableLM-3B's and Phi-2's width), contiguous and as the model's views,
@@ -846,8 +857,8 @@ SHAPES = [
      "wgmma"),
     ("fp16_ragged_d64", 2, 8, 4, 300, 300, 64, True, None, torch.float16, "bhsd",
      "wgmma"),
-    # fp16 at head dims 80 and 100, the forward on its fp16 wgmma kernels (dQ
-    # and dK/dV on mma at 80 and simt at 100): OPT-2.7B's attention and
+    # fp16 at head dims 80 and 100, the forward on its fp16 wgmma kernels,
+    # and at 100 dQ and dK/dV too (on mma at 80): OPT-2.7B's attention and
     # OpenLLaMA-3B's in fp16 as their models give them (at 100 half of the
     # heads start 8 bytes off a 16-byte boundary), 200-byte rows contiguous,
     # and at each width GQA 32/8, a window, a ragged sequence, cross-length
@@ -865,19 +876,19 @@ SHAPES = [
     ("fp16_non_causal_d80", 1, 32, 32, 1000, 1000, 80, False, None, torch.float16, "bhsd",
      ("wgmma", "mma")),
     ("openllama3b_fp16_d100_bshd", 1, 32, 32, 2048, 2048, 100, True, None, torch.float16,
-     "bshd", ("wgmma", "simt")),
+     "bshd", "wgmma"),
     ("fp16_unaligned_d100", 1, 32, 32, 1024, 1024, 100, True, None, torch.float16, "bhsd",
-     ("wgmma", "simt")),
+     "wgmma"),
     ("fp16_gqa_d100", 1, 32, 8, 2048, 2048, 100, True, None, torch.float16, "bshd",
-     ("wgmma", "simt")),
+     "wgmma"),
     ("fp16_window_d100", 1, 32, 32, 2048, 2048, 100, True, 512, torch.float16, "bhsd",
-     ("wgmma", "simt")),
+     "wgmma"),
     ("fp16_ragged_d100", 2, 8, 4, 300, 300, 100, True, None, torch.float16, "bshd",
-     ("wgmma", "simt")),
+     "wgmma"),
     ("fp16_cross_length_d100", 1, 32, 32, 256, 1024, 100, True, None, torch.float16,
-     "bhsd", ("wgmma", "simt")),
+     "bhsd", "wgmma"),
     ("fp16_non_causal_d100", 1, 32, 32, 1000, 1000, 100, False, None, torch.float16,
-     "bhsd", ("wgmma", "simt")),
+     "bhsd", "wgmma"),
     ("fp32_d40", 1, 8, 8, 512, 512, 40, True, None, torch.float32, "bhsd", "simt"),
     ("fp16_unaligned_d80", 1, 8, 4, 512, 512, 80, True, 128, torch.float16, "offset1",
      "simt"),
@@ -897,13 +908,14 @@ TURN_SHAPES = ("main", "d1024_bshd", "phi3_d96_bshd", "fp16_main", "fp16_ragged_
 FWD_TURN_SHAPES = ("d80", "d80_bshd", "unaligned_d100", "d100_bshd", "gemma_d256",
                    "fp16_d1024_bshd", "opt27b_d80_bshd", "openllama3b_fp16_d100_bshd")
 # dQ and dK/dV timed in turns against the route they took before their
-# wgmma kernels (mma at 80, 256 and in fp16 at 64, simt at 100), with SDPA's
-# whole backward after each turn under the backend named here: its default
-# (cuDNN), which the padded-width queue's factors are read against, or at
-# 100 its flash backend
+# wgmma kernels (mma at 80, 256 and in fp16 at 64, simt at 100 in bf16 and
+# fp16), with SDPA's whole backward after each turn under the backend named
+# here: its default (cuDNN), which the padded-width queue's factors are read
+# against, or at 100 its flash backend
 BWD_TURN_SHAPES = {"d80": "default", "d80_bshd": "default", "unaligned_d100": "flash",
                    "d100_bshd": "flash", "gemma_d256": "default",
-                   "fp16_d1024_bshd": "default", "opt13b_d64_bshd": "default"}
+                   "fp16_d1024_bshd": "default", "opt13b_d64_bshd": "default",
+                   "openllama3b_fp16_d100_bshd": "flash", "fp16_unaligned_d100": "flash"}
 D64_SHAPE = "d1024_bshd"  # the head-dim-64 row of the kernels line
 # the rows at the new head dims and fp16: every route `_routes` admits is
 # held against the plain version there, and SDPA's default backend is timed
@@ -934,8 +946,8 @@ REFUSED_HEAD_DIM = 520
 def shape_routes(route) -> dict:
     """Each kernel's route at a SHAPES row: `route` names one for all three
     kernels (the wgmma route of each takes head dims 64, 80, 96, 100, 128
-    and 256 in bf16, and 64 and 128 in fp16; the forward's also 80 and 100
-    in fp16), or is a pair (the forward's, the backward kernels'), for a row
+    and 256 in bf16, and 64, 100 and 128 in fp16; the forward's also 80 in
+    fp16), or is a pair (the forward's, the backward kernels'), for a row
     where they differ."""
     fwd, bwd = (route, route) if isinstance(route, str) else route
     return {"flash_fwd": fwd, "flash_bwd_dq": bwd, "flash_bwd_dkv": bwd}
@@ -1305,7 +1317,8 @@ def phase_backward(attn, variants, tune):
         if not ok:
             raise SystemExit(f"flash_bwd_dq/dkv disagree with the plain backward "
                              f"or are not repeatable at {name}")
-    for case in (FP16_LSE_COTANGENT, FP16_SINK_COTANGENT, FP16_SINK_COTANGENT_D64):
+    for case in (FP16_LSE_COTANGENT, FP16_SINK_COTANGENT, FP16_SINK_COTANGENT_D64,
+                 FP16_SINK_COTANGENT_D100):
         row = fp16_lse_cotangent_row(attn, **case)
         print(json.dumps({"phase": "backward", **row}), flush=True)
         rows.append(row)
@@ -1319,7 +1332,7 @@ def fp16_lse_cotangent_row(attn, b, h, s, d, do_scale, g_lse_scale, sink=False,
                            seed=7) -> dict:
     """The fp16 backward through the kernels' autograd node (the cotangent
     scale of `_FlashFwd.backward`, then dQ and dK/dV, each once on the fp16
-    wgmma route at head dim `d`, 128 or 64) with dO of `do_scale` beside an LSE
+    wgmma route at head dim `d`, 128, 64 or 100) with dO of `do_scale` beside an LSE
     cotangent of `g_lse_scale`, against the backward in fp32 on the same
     fp16 inputs: each output finite and within FP16_ROUNDING_FACTOR of the
     distance of the fp32 backward's own rounding to fp16. `sink`: key 0 is
@@ -3314,8 +3327,8 @@ def main() -> int:
         d80_backward_on_mma, d80_forward_on_mma, d100_backward_on_simt,
         d100_forward_on_simt, d256_backward_on_mma, d256_forward_on_mma,
         fp16_backward_on_mma, fp16_d64_forward_on_mma, fp16_d80_forward_on_mma,
-        fp16_d100_forward_on_simt, gemma_2b, mixtral_8x7b, openllama_3b,
-        openllama_3b_fp16, opt_1_3b, opt_2_7b, phi3_mini, stablelm_3b_4e1t)
+        fp16_d100_backward_on_simt, fp16_d100_forward_on_simt, gemma_2b, mixtral_8x7b,
+        openllama_3b, openllama_3b_fp16, opt_1_3b, opt_2_7b, phi3_mini, stablelm_3b_4e1t)
 
     gen_mod = importlib.import_module("yoda_scheduler_tpu_torch.models.generate")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3424,6 +3437,17 @@ def main() -> int:
     opt_bwd_routes = phase_train(attn, train, moe, opt_1_3b(), phase="opt13b_fp16_backward",
                                  config="opt_1_3b widths, fp16", turns=fp16_turns,
                                  llama=llama)[1]
+    # OpenLLaMA-3B's gradient and its loss's backward at all 26 layers in its
+    # published dtype, fp16 (no optimizer step): dQ and dK/dV on their fp16
+    # head-dim-100 wgmma kernels, timed in turns against both on simt
+    fp16_d100_turns = {"wgmma": contextlib.nullcontext,
+                       "backward_on_simt": fp16_d100_backward_on_simt}
+    openllama_fp16_grad_routes = phase_gradient(
+        attn, llama, train, openllama_3b_fp16(), phase="openllama3b_fp16_gradient",
+        config="open_llama_3b widths, fp16, 4 layers", turns=fp16_d100_turns)
+    openllama_fp16_bwd_routes = phase_train(
+        attn, train, moe, openllama_3b_fp16(), phase="openllama3b_fp16_backward",
+        config="open_llama_3b widths, fp16", turns=fp16_d100_turns, llama=llama)[1]
     free_memory()
     ring_launches = phase_ring(attn, ring, variants)
     ulysses_launches = phase_ulysses(attn, ulysses, variants)
@@ -3511,6 +3535,10 @@ def main() -> int:
                              "gemma2b_train_step": gemma_step_routes["flash_fwd"],
                              "opt13b_fp16_gradient": opt_grad_routes["flash_fwd"],
                              "opt13b_fp16_backward": opt_bwd_routes["flash_fwd"],
+                             "openllama3b_fp16_gradient":
+                                 openllama_fp16_grad_routes["flash_fwd"],
+                             "openllama3b_fp16_backward":
+                                 openllama_fp16_bwd_routes["flash_fwd"],
                              "tune_attention": tune_routes["flash_fwd"].get("wgmma", 0),
                              **{path: routes["flash_fwd"].get("wgmma", 0)
                                 for path, routes in bench_routes.items()}},
@@ -3545,6 +3573,8 @@ def main() -> int:
                              "gemma2b_train_step": gemma_step_routes[name],
                              "opt13b_fp16_gradient": opt_grad_routes[name],
                              "opt13b_fp16_backward": opt_bwd_routes[name],
+                             "openllama3b_fp16_gradient": openllama_fp16_grad_routes[name],
+                             "openllama3b_fp16_backward": openllama_fp16_bwd_routes[name],
                              "tune_attention": tune_routes[name].get("wgmma", 0),
                              **{path: routes[name].get("wgmma", 0)
                                 for path, routes in bench_routes.items()

@@ -907,16 +907,31 @@ def test_wgmma100_backward_is_bit_repeatable(gpu, case):
 
 
 def test_wgmma100_backward_refuses_fp16(gpu):
-    """No wgmma kernel takes fp16 at head dim 100: named, the route of dQ
-    and of dK/dV raises and launches nothing."""
-    q = _qkv(gpu, torch.float16, 1, 4, 4, 128, 128, 100)[0]
-    lse = torch.zeros(q.shape[:3], device=gpu)
+    """The fp16 inputs the wgmma backward still refuses: head dims 80 and 96
+    (no fp16 kernel there), and at 100 rows that start 2 or 4 bytes off an
+    8-byte boundary or whose sequence stride is no multiple of 4 elements.
+    Named, the route of dQ and of dK/dV raises and launches nothing; csrc/'s
+    entry, called past `_routes`, returns cudaErrorInvalidValue (1) for each
+    (the launcher itself refusing fp16 at 80 and 96), and launches (0) the
+    aligned fp16 rows at 100."""
+    half = torch.float16
+    flat = torch.randn(2 + 4 * 64 * 100, device=gpu).to(half)
+    refused = [_qkv(gpu, half, 1, 4, 4, 64, 64, d)[0] for d in (80, 96)]
+    refused += [flat[o:o + 4 * 64 * 100].view(1, 4, 64, 100) for o in (1, 2)]
+    refused.append(torch.randn(1, 4, 64, 102, device=gpu).to(half)[..., :100])
+    aligned = _qkv(gpu, half, 1, 4, 4, 64, 64, 100)[0]
     for fn in (attn.flash_bwd_dq, attn.flash_bwd_dkv):
-        assert "wgmma" not in attn._routes(fn.__name__, q, q, q, q)
-        before = (fn.launches, dict(fn.launches_by_route))
-        with pytest.raises(ValueError, match=f"{fn.__name__} route 'wgmma' cannot take"):
-            fn(q, q, q, q, lse, lse, route="wgmma")
-        assert (fn.launches, fn.launches_by_route) == before
+        for q in refused:
+            lse = torch.zeros(q.shape[:3], device=gpu)
+            assert "wgmma" not in attn._routes(fn.__name__, q, q, q, q)
+            before = (fn.launches, dict(fn.launches_by_route))
+            with pytest.raises(ValueError, match=f"{fn.__name__} route 'wgmma' cannot take"):
+                fn(q, q, q, q, lse, lse, route="wgmma")
+            assert (fn.launches, fn.launches_by_route) == before
+            assert _c_entry(fn.__name__, (q,) * 4, "wgmma") == 1, (fn.__name__, q.shape)
+        assert "wgmma" in attn._routes(fn.__name__, *(aligned,) * 4)
+        assert _c_entry(fn.__name__, (aligned,) * 4, "wgmma") == 0
+    torch.cuda.synchronize()
 
 
 # the backward's wgmma kernels at head dim 80 (flash_bwd_dq_wgmma80_kernel,
@@ -1023,8 +1038,8 @@ def test_the_c_entries_admit_what_routes_admits_at_80_and_100(gpu, d, dtype):
     """For each kernel, every base offset (0, 1, 2 and 4 elements) and both
     layouts: csrc/'s entry takes the wgmma route (returns 0, and launches)
     exactly where `_routes` offers it, and refuses it (cudaErrorInvalidValue,
-    1) elsewhere: the forward, dQ and dK/dV in bf16 at 80 and 100, and the
-    forward alone in fp16."""
+    1) elsewhere: the forward, dQ and dK/dV in bf16 at 80 and 100 and in fp16
+    at 100, and the forward alone in fp16 at 80."""
     seen = set()
     for offset in (0, 1, 2, 4):
         for layout in ("bhsd", "bshd"):
@@ -1039,8 +1054,8 @@ def test_the_c_entries_admit_what_routes_admits_at_80_and_100(gpu, d, dtype):
                 torch.cuda.synchronize()
                 assert err == (0 if admitted else 1), (name, offset, layout)
                 seen.add((name, admitted))
-    # fp16 has the forward's wgmma kernels at 80 and 100 alone
-    takes = {name: dtype == torch.bfloat16 or name == "flash_fwd"
+    # fp16 at 80 has the forward's wgmma kernel alone
+    takes = {name: dtype == torch.bfloat16 or d == 100 or name == "flash_fwd"
              for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
     assert seen == {(name, admitted) for name in takes for admitted in {takes[name], False}}
 
@@ -1048,17 +1063,19 @@ def test_the_c_entries_admit_what_routes_admits_at_80_and_100(gpu, d, dtype):
 def test_the_wgmma100_backward_c_entries_refuse_what_they_cannot_take(gpu):
     """csrc/'s dQ and dK/dV entries at head dim 100 on the wgmma route,
     past `_routes`: a sequence stride that is no multiple of 4 elements, an
-    empty kv and fp16 each return cudaErrorInvalidValue (1) and launch
-    nothing; the same rows with a stride of 104 launch (0)."""
+    empty kv and fp16 rows 4 bytes off an 8-byte boundary each return
+    cudaErrorInvalidValue (1) and launch nothing; the same rows with a
+    stride of 104, and aligned fp16 rows, launch (0)."""
     wide = torch.randn(1, 4, 64, 104, device=gpu).to(torch.bfloat16)
     odd = torch.randn(1, 4, 64, 102, device=gpu).to(torch.bfloat16)[..., :100]
     empty = torch.zeros(1, 4, 0, 100, device=gpu, dtype=torch.bfloat16)
-    half = torch.randn(1, 4, 64, 100, device=gpu).to(torch.float16)
+    half = torch.randn(2 + 4 * 64 * 100, device=gpu).to(torch.float16)
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         assert _c_entry(name, (wide[..., :100],) * 4, "wgmma") == 0
         assert _c_entry(name, (odd,) * 4, "wgmma") == 1
         assert _c_entry(name, (wide[..., :100], empty, empty, wide[..., :100]), "wgmma") == 1
-        assert _c_entry(name, (half,) * 4, "wgmma") == 1
+        assert _c_entry(name, (half[:4 * 64 * 100].view(1, 4, 64, 100),) * 4, "wgmma") == 0
+        assert _c_entry(name, (half[2:].view(1, 4, 64, 100),) * 4, "wgmma") == 1
     torch.cuda.synchronize()
 
 
@@ -1130,7 +1147,7 @@ def test_the_fp16_wgmma_forwards_refuse_what_they_cannot_take(gpu):
     an empty kv. The wrapper raises with no launch where `_routes` refuses;
     csrc/'s entry, called past `_routes`, returns cudaErrorInvalidValue (1)
     for each; the same rows at a stride of 104 launch (0). dQ and dK/dV
-    refuse fp16 at 80 and 100 alike."""
+    refuse fp16 at 80 and take it at 100."""
     half = torch.float16
     d96 = _qkv(gpu, half, 1, 4, 4, 64, 64, 96)[0]
     wide = torch.randn(1, 4, 64, 104, device=gpu).to(half)
@@ -1152,8 +1169,8 @@ def test_the_fp16_wgmma_forwards_refuse_what_they_cannot_take(gpu):
         t = _qkv(gpu, half, 1, 4, 4, 64, 64, d)[0]
         assert _c_entry("flash_fwd", (t,) * 3, "wgmma") == 0
         for name in ("flash_bwd_dq", "flash_bwd_dkv"):
-            assert "wgmma" not in attn._routes(name, t, t, t, t)
-            assert _c_entry(name, (t,) * 4, "wgmma") == 1, (name, d)
+            assert ("wgmma" in attn._routes(name, t, t, t, t)) == (d == 100)
+            assert _c_entry(name, (t,) * 4, "wgmma") == (d == 80), (name, d)
     torch.cuda.synchronize()
 
 
@@ -1586,6 +1603,95 @@ def test_fp16_d64_backward_keeps_a_large_lse_cotangent(gpu, lse_scale, sink):
         assert row["errors"]["dk"]["max_abs"] * 32 > torch.finfo(torch.float16).max
 
 
+# the fp16 wgmma backward at head dim 100 (flash_bwd_dq_wgmma100_f16_kernel,
+# flash_bwd_dkv_wgmma100_f16_kernel: OpenLLaMA-3B's attention in its
+# published dtype, 200-byte rows copied by cp.async) at NEW_WIDTH_SHAPES (the
+# model's shape and every path of the kernels' loops), in both layouts, held
+# to fp16's bounds
+@pytest.mark.parametrize("case", list(NEW_WIDTH_SHAPES))
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+def test_wgmma100_f16_backward_matches_the_plain_backward(gpu, case, layout):
+    """dQ and dK/dV on their fp16 head-dim-100 wgmma kernels, as `_route`
+    picks them, one launch each, elementwise and by each output's worst
+    64-row tile."""
+    args, (o, g_lse) = _bwd_inputs(gpu, case, layout, d=100, dtype=torch.float16)
+    q, k, v, do, lse, _, causal, window = args
+    fns = (attn.flash_bwd_dq, attn.flash_bwd_dkv)
+    assert [attn._route(fn.__name__, q, k, v, do) for fn in fns] == ["wgmma", "wgmma"]
+    before = [fn.launches_by_route["wgmma"] for fn in fns]
+    got = _bwd_kernels(args, None)
+    torch.cuda.synchronize()
+    assert [fn.launches_by_route["wgmma"] for fn in fns] == [n + 1 for n in before]
+    want = attn.flash_backward_reference(q, k, v, o, lse, do, causal, window, g_lse)
+    tol = TOL[torch.float16]
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == torch.float16 and g.shape == w.shape
+        assert g.shape[-1] == 100
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
+        assert tile_rel_l2(g, w) <= chip_smoke.TILE_REL_L2_FP16
+
+
+@pytest.mark.parametrize("case", ["s2048_32_heads", "gqa_32_8", "ragged_300"])
+def test_wgmma100_f16_backward_matches_the_simt_route(gpu, case):
+    """The new kernels against the simt kernels, the route they took
+    before, on the same inputs (the model's views): each against the plain
+    backward, and the two routes against each other by tile."""
+    args, (o, g_lse) = _bwd_inputs(gpu, case, "bshd", seed=2, d=100, dtype=torch.float16)
+    q, k, v, do, lse, _, causal, window = args
+    want = attn.flash_backward_reference(q, k, v, o, lse, do, causal, window, g_lse)
+    tol = TOL[torch.float16]
+    for g, m, w in zip(_bwd_kernels(args, "wgmma"), _bwd_kernels(args, "simt"), want):
+        for got in (g, m):
+            torch.testing.assert_close(got.float(), w.float(), atol=tol, rtol=tol)
+            assert tile_rel_l2(got, w) <= chip_smoke.TILE_REL_L2_FP16
+        assert tile_rel_l2(g, m) <= chip_smoke.TILE_REL_L2_FP16
+
+
+@pytest.mark.parametrize("case", ["ragged_300", "window_512", "s2048_32_heads", "gqa_32_8"])
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+def test_wgmma100_f16_backward_is_bit_repeatable(gpu, case, layout):
+    args, _ = _bwd_inputs(gpu, case, layout, d=100, dtype=torch.float16)
+    runs = [_bwd_kernels(args, "wgmma") for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_wgmma100_f16_backward_takes_bases_8_bytes_off(gpu):
+    """fp16 q, k, v and dO that start 4 elements (8 bytes) into their
+    storage: dQ and dK/dV take them on their fp16 wgmma kernels, as the
+    plain backward."""
+    half = torch.float16
+    flat = [t.flatten() for t in _qkv(gpu, half, 1, 4, 4, 260, 260, 100)]
+    flat.append(_qkv(gpu, half, 1, 4, 4, 260, 260, 100, seed=1)[0].flatten())
+    q, k, v, do = (torch.cat([x.new_zeros(4), x])[4:].view(1, 4, 260, 100) for x in flat)
+    assert q.data_ptr() % 16 == 8
+    o, lse = attn.flash_fwd(q, k, v)
+    delta = attn.backward_delta(o, do).contiguous()
+    args = (q, k, v, do, lse, delta, True, None)
+    assert [attn._route(n, q, k, v, do) for n in ("flash_bwd_dq", "flash_bwd_dkv")] == [
+        "wgmma", "wgmma"]
+    got = _bwd_kernels(args, None)
+    torch.cuda.synchronize()
+    want = attn.flash_backward_reference(q, k, v, o, lse, do)
+    tol = TOL[half]
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
+        assert tile_rel_l2(g, w) <= chip_smoke.TILE_REL_L2_FP16
+
+
+@pytest.mark.parametrize("lse_scale, sink", [(1e3, False), (1e3, True)],
+                         ids=["1000.0", "sink-1000.0"])
+def test_fp16_d100_backward_keeps_a_large_lse_cotangent(gpu, lse_scale, sink):
+    """F10 at head dim 100, through the kernels' autograd node on the new
+    fp16 kernels (chip_smoke's large-cotangent rows at OpenLLaMA-3B's
+    width, smaller): every output finite and within twice the fp32
+    backward's own rounding to fp16 of it, one launch of each kernel on
+    wgmma."""
+    row = chip_smoke.fp16_lse_cotangent_row(attn, 1, 2, 256, 100, 1e-5, lse_scale, sink)
+    assert row["ok"], row
+    assert all(e["finite"] for e in row["errors"].values())
+
+
 # a GQA case of each wgmma backward kernel pair: (head dim, dtype, case of
 # `_bwd_inputs`)
 ROUNDING_CASES = {
@@ -1596,6 +1702,7 @@ ROUNDING_CASES = {
     "bf16_d128": (128, torch.bfloat16, "gqa_32_8"),
     "bf16_d256": (256, torch.bfloat16, "d256_ragged_300"),
     "fp16_d64": (64, torch.float16, "gqa_16_4"),
+    "fp16_d100": (100, torch.float16, "gqa_32_8"),
     "fp16_d128": (128, torch.float16, "gqa_32_8"),
 }
 # the largest share of an output's entries that differ from the plain

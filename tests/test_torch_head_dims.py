@@ -423,20 +423,22 @@ def test_the_plain_backward_at_mha_rounds_once_as_before(dtype, out_scale):
         assert gt.dtype == q.dtype and torch.equal(gt, w), name
 
 
-# OPT-1.3B's attention (fp16, MHA, head dim 64) on a tiny Llama of 2 layers of
-# 2 heads, whose backward takes dQ's and dK/dV's fp16 wgmma kernels at 64 on
-# the card: the loss and every gradient leaf of jax.value_and_grad of the
-# JAX package's llama_loss (remat) against the port's, with the kernels'
-# plain twins behind the wrappers (`_kernel_twins`), so that the fp16
-# cotangent scale and `out_scale` run as on the card. fp16 rounds every
-# matmul output at places an ulp apart in the two frameworks, as for
-# FP16_LOGITS_REL_L2: the loss within 1e-4 relative (measured 1.0e-5) and
-# each leaf within rel. L2 5e-3 (measured <= 1.6e-3 on the CPU), every
-# gradient finite.
+# OPT-1.3B's attention (fp16, MHA, head dim 64) and OpenLLaMA-3B's in its
+# published dtype (fp16, head dim 100) on tiny Llamas of 2 layers of 2
+# heads, whose backward takes dQ's and dK/dV's fp16 wgmma kernels at 64 and
+# at 100 on the card: the loss and every gradient leaf of
+# jax.value_and_grad of the JAX package's llama_loss (remat) against the
+# port's, with the kernels' plain twins behind the wrappers
+# (`_kernel_twins`), so that the fp16 cotangent scale and `out_scale` run as
+# on the card. fp16 rounds every matmul output at places an ulp apart in the
+# two frameworks, as for FP16_LOGITS_REL_L2: the loss within 1e-4 relative
+# (measured 1.0e-5 at 64) and each leaf within rel. L2 5e-3 (measured <=
+# 1.6e-3 at 64 and at 100 on the CPU), every gradient finite.
 FP16_GRAD_REL_L2 = 5e-3
 
 
-def test_fp16_d64_llama_gradients_match_jax(monkeypatch):
+@pytest.mark.parametrize("head_dim", [64, 100])
+def test_fp16_llama_gradients_match_jax(monkeypatch, head_dim):
     _kernel_twins(monkeypatch)
     scales = []
     twin_dq = tattn.flash_bwd_dq
@@ -447,8 +449,8 @@ def test_fp16_d64_llama_gradients_match_jax(monkeypatch):
 
     monkeypatch.setattr(tattn, "flash_bwd_dq", dq)
     jcfg = dataclasses.replace(jllama.LlamaConfig.tiny(), dtype="float16",
-                               **FP16_CONFIGS[64])
-    assert jcfg.head_dim == 64 and jcfg.n_kv_heads == jcfg.n_heads == 2
+                               **FP16_CONFIGS[head_dim])
+    assert jcfg.head_dim == head_dim and jcfg.n_kv_heads == jcfg.n_heads == 2
     jparams = jllama.init_llama(jcfg, jax.random.PRNGKey(15))
     tokens = np.random.default_rng(16).integers(0, jcfg.vocab_size, (2, 40))
     want_loss, want = jax.value_and_grad(jllama.llama_loss)(

@@ -99,9 +99,8 @@ def test_route_follows_the_inputs(case):
 
 # the head dims each kernel has a wgmma kernel for (csrc/), by dtype: every
 # kernel at 64, 80, 96, 128 and 256 in bf16, and at 64 and 128 in fp16, and
-# the forward at 80 in fp16 too (and the forward at 100 in both dtypes, and
-# dQ and dK/dV at 100 in bf16, whose rows are not 16-byte aligned: not among
-# these, which mma takes too)
+# the forward at 80 in fp16 too (and every kernel at 100 in both dtypes,
+# whose rows are not 16-byte aligned: not among these, which mma takes too)
 WGMMA_TAKES = {torch.bfloat16: {"flash_fwd": (64, 80, 96, 128, 256),
                                 "flash_bwd_dq": (64, 80, 96, 128, 256),
                                 "flash_bwd_dkv": (64, 80, 96, 128, 256)},
@@ -259,7 +258,7 @@ BWD_CASES = {
                               + [_model_view(1, 64, 1, 256, torch.float16)] * 2
                               + [_model_view(1, 64, 8, 256, torch.float16)], "mma"),
     # head dim 100 (OpenLLaMA-3B's): wgmma for 8-byte aligned bases and
-    # strides that are multiples of 4, simt otherwise, and in fp16
+    # strides that are multiples of 4, in bf16 and fp16, simt otherwise
     "bf16_d100": (lambda: [_bhsd(1, 4, 64, 100)] * 4, "wgmma"),
     "bf16_d100_model_views": (lambda: [_model_view(1, 64, 4, 100)] * 4, "wgmma"),
     "bf16_d100_aligned_rows": (lambda: [_bhsd(1, 4, 64, 104)[..., :100]] * 4, "wgmma"),
@@ -270,7 +269,20 @@ BWD_CASES = {
     "bf16_d100_odd_seq_stride": (lambda: [_bhsd(1, 4, 64, 102)[..., :100]] * 4, "simt"),
     "bf16_d100_empty_kv": (lambda: [_bhsd(1, 4, 64, 100), _bhsd(1, 4, 0, 100),
                                     _bhsd(1, 4, 0, 100), _bhsd(1, 4, 64, 100)], "simt"),
-    "fp16_d100": (lambda: [_bhsd(1, 4, 64, 100, torch.float16)] * 4, "simt"),
+    "fp16_d100": (lambda: [_bhsd(1, 4, 64, 100, torch.float16)] * 4, "wgmma"),
+    "fp16_d100_model_views": (lambda: [_model_view(1, 64, 4, 100, torch.float16)] * 4,
+                              "wgmma"),
+    "fp16_d100_gqa_model_views": (lambda: [_model_view(1, 64, 8, 100, torch.float16)]
+                                  + [_model_view(1, 64, 2, 100, torch.float16)] * 2
+                                  + [_model_view(1, 64, 8, 100, torch.float16)], "wgmma"),
+    "fp16_d100_offset_by_four": (lambda: [_bhsd(1, 4, 64, 100, torch.float16, offset=4)]
+                                 * 4, "wgmma"),
+    "fp16_d100_offset_by_one": (lambda: [_bhsd(1, 4, 64, 100, torch.float16, offset=1)]
+                                * 4, "simt"),
+    "fp16_d100_do_offset_by_two": (lambda: [_bhsd(1, 4, 64, 100, torch.float16)] * 3
+                                   + [_bhsd(1, 4, 64, 100, torch.float16, offset=2)], "simt"),
+    "fp16_d100_odd_seq_stride": (lambda: [_bhsd(1, 4, 64, 102, torch.float16)[..., :100]]
+                                 * 4, "simt"),
     "fp16_do_offset_by_one": (lambda: [_bhsd(1, 4, 64, 128, torch.float16)] * 3
                               + [_bhsd(1, 4, 64, 128, torch.float16, offset=1)], "simt"),
 }
@@ -296,9 +308,10 @@ def test_backward_route_follows_the_inputs(case):
 
 
 # (case, route) both backward kernels must refuse (fp16 has wgmma backward
-# kernels at head dims 64 and 128 alone, for aligned rows; bf16 at 80 and 256 none
-# for rows off 16 bytes or an empty kv, and at 100 none for rows off 8
-# bytes, strides off 4 elements or an empty kv)
+# kernels at head dims 64, 100 and 128 alone, for aligned rows; bf16 at 80 and
+# 256 none for rows off 16 bytes or an empty kv, and at 100, in bf16 and
+# fp16, none for rows off 8 bytes, strides off 4 elements or an empty kv; no
+# mma kernel takes 200-byte rows)
 BWD_REFUSALS = [("fp32_d128", "wgmma"), ("fp32_d128", "mma"), ("bf16_d32", "wgmma"),
                 ("do_offset_by_one", "mma"), ("do_odd_seq_stride", "wgmma"),
                 ("empty_kv", "wgmma"), ("bf16_d128", "tma"), ("fp16_d80", "wgmma"),
@@ -309,9 +322,11 @@ BWD_REFUSALS = [("fp32_d128", "wgmma"), ("fp32_d128", "mma"), ("bf16_d32", "wgmm
                 ("bf16_d80_offset_by_four", "mma"), ("bf16_d80_empty_kv", "wgmma"),
                 ("bf16_d100_offset_by_one", "wgmma"), ("bf16_d100_do_offset_by_two", "wgmma"),
                 ("bf16_d100_odd_seq_stride", "wgmma"), ("bf16_d100_empty_kv", "wgmma"),
-                ("fp16_d100", "wgmma"), ("fp16_d256_model_views", "wgmma"),
+                ("fp16_d100", "mma"), ("fp16_d256_model_views", "wgmma"),
                 ("bf16_d256_offset_by_four", "wgmma"), ("bf16_d256_offset_by_four", "mma"),
-                ("bf16_d256_empty_kv", "wgmma")]
+                ("bf16_d256_empty_kv", "wgmma"), ("fp16_d100_offset_by_one", "wgmma"),
+                ("fp16_d100_do_offset_by_two", "wgmma"),
+                ("fp16_d100_odd_seq_stride", "wgmma"), ("fp16_d100_model_views", "mma")]
 
 
 @pytest.mark.parametrize("fn,case,route", [
@@ -575,9 +590,9 @@ def _wide_rows():
 def test_the_smokes_wide_rows_take_their_routes(row):
     """Each row chip_smoke adds at the new head dims and in fp16 names the
     route `_route` picks for each kernel there: wgmma at head dims 80, 96,
-    100 and 256 in bf16 and in fp16 at 64 and 128 aligned (not one element
-    into its storage), for every kernel, and for the forward alone in fp16
-    at 80 and 100."""
+    100 and 256 in bf16 and in fp16 at 64, 100 and 128 aligned (not one
+    element into its storage), for every kernel, and for the forward alone
+    in fp16 at 80."""
     import chip_smoke
 
     q, k, v, do = _smoke_row_tensors(row)
@@ -588,8 +603,8 @@ def test_the_smokes_wide_rows_take_their_routes(row):
     aligned_bf16 = row[9] == torch.bfloat16 and row[10] != "offset1"
     aligned_fp16 = row[9] == torch.float16 and row[10] != "offset1"
     every = ((row[6] in (80, 96, 100, 256) and aligned_bf16)
-             or (row[6] in (64, 128) and aligned_fp16))
-    forward = every or (row[6] in (80, 100) and aligned_fp16)
+             or (row[6] in (64, 100, 128) and aligned_fp16))
+    forward = every or (row[6] == 80 and aligned_fp16)
     assert ("wgmma" in attn._routes("flash_fwd", q, k, v)) == forward
     assert ("wgmma" in attn._routes("flash_bwd_dkv", q, k, v, do)) == every
     assert ("wgmma" in attn._routes("flash_bwd_dq", q, k, v, do)) == every
@@ -756,10 +771,10 @@ def test_shape_routes_takes_a_forward_and_backward_pair():
     route for all three, which every row at 64 in fp16, 80, 100 or 256 names
     (all on wgmma); the smoke's forward turn rows are among its wide rows, each with a route
     before wgmma to be timed against (simt at 100, mma elsewhere), the fp16
-    rows at 80 and 100 among them; its backward turn rows are the seven at
-    80, 100, 256 and in fp16 at 64, where dQ and dK/dV took mma or simt
-    before their wgmma kernels, timed beside SDPA's default backend (cuDNN)
-    at 80, 256 and 64 and its flash backend at 100."""
+    rows at 80 and 100 among them; its backward turn rows are the nine at
+    80, 100, 256 and in fp16 at 64 and 100, where dQ and dK/dV took mma or
+    simt before their wgmma kernels, timed beside SDPA's default backend
+    (cuDNN) at 80, 256 and 64 and its flash backend at 100."""
     import chip_smoke
 
     assert chip_smoke.shape_routes(("wgmma", "simt")) == {
@@ -777,9 +792,8 @@ def test_shape_routes_takes_a_forward_and_backward_pair():
         assert chip_smoke.shape_routes(rows[name][-1])["flash_fwd"] == "wgmma"
         assert attn._routes("flash_fwd", q, k, v)[-2:] == (old, "wgmma")
     turns = chip_smoke.BWD_TURN_SHAPES
-    fp16_forward_alone = {"opt27b_d80_bshd", "openllama3b_fp16_d100_bshd"}
-    assert set(turns) == (set(chip_smoke.FWD_TURN_SHAPES) - fp16_forward_alone
-                          | {"opt13b_d64_bshd"})
+    assert set(turns) == (set(chip_smoke.FWD_TURN_SHAPES) - {"opt27b_d80_bshd"}
+                          | {"opt13b_d64_bshd", "fp16_unaligned_d100"})
     assert set(turns) <= set(chip_smoke.WIDE_SHAPES)
     for name, backend in turns.items():
         d = rows[name][6]
@@ -937,7 +951,7 @@ def test_the_gemma_and_opt_forwards_expect_every_launch_on_wgmma():
         assert f'("{phase}", ' in main and f'("forward_on_mma", {manager})' in main
     assert {"flash_fwd_wgmma256_kernel", "flash_fwd_wgmma64_f16_kernel"} <= set(
         chip_smoke.WGMMA_KERNELS)
-    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 26
+    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 28
 
 
 def test_the_smokes_new_rows_at_256_and_fp16_64():
@@ -1139,27 +1153,28 @@ def test_opt13b_gradient_and_backward_expect_every_launch_on_wgmma():
 
 
 # fp16 at head dims 80 (OPT-2.7B's) and 100 (OpenLLaMA-3B's published dtype):
-# the forward has an fp16 wgmma kernel at each; dQ and dK/dV keep mma at 80
-# and simt at 100
+# the forward has an fp16 wgmma kernel at each; dQ and dK/dV keep mma at 80,
+# and have fp16 wgmma kernels of their own at 100 (straight after simt)
 @pytest.mark.parametrize("layout", ["bhsd", "bshd"])
-@pytest.mark.parametrize("d,bwd", [(80, ("simt", "mma")), (100, ("simt",))])
+@pytest.mark.parametrize("d,bwd", [(80, ("simt", "mma")), (100, ("simt", "wgmma"))])
 def test_the_fp16_forward_alone_takes_wgmma_at_80_and_100(d, bwd, layout):
     """fp16, contiguous and as the model's views: the forward's routes end
-    in wgmma (after mma at 80, straight after simt at 100), and dQ's and
-    dK/dV's stay as they were."""
+    in wgmma (after mma at 80, straight after simt at 100); dQ's and
+    dK/dV's end in mma at 80 and in wgmma at 100."""
     half = torch.float16
     q, k, v, do = ([_bhsd(1, 4, 64, d, half)] if layout == "bhsd"
                    else [_model_view(1, 64, 4, d, half)]) * 4
-    assert attn._routes("flash_fwd", q, k, v) == bwd + ("wgmma",)
+    fwd = ("simt", "mma", "wgmma") if d == 80 else ("simt", "wgmma")
+    assert attn._routes("flash_fwd", q, k, v) == fwd
     for kernel in BWD_KERNELS:
         assert attn._routes(kernel, q, k, v, do) == bwd
 
 
-@pytest.mark.parametrize("dim,bwd", [(160, "mma"), (200, "simt")])
+@pytest.mark.parametrize("dim,bwd", [(160, "mma"), (200, "wgmma")])
 def test_the_models_fp16_forward_at_80_and_100(monkeypatch, dim, bwd):
     """An fp16 layer at head_dim 80 and 100 (`_a_models_launch_routes`):
     both forward launches take their fp16 wgmma kernel, and the backward
-    launchers the route they took before (mma at 80, simt at 100) with the
+    launchers mma at 80 and their fp16 wgmma kernels at 100, with the
     cotangent that `_FlashFwd.backward` scales in fp16."""
     cfg = dataclasses.replace(_one_layer(dim, "float16"), n_kv_heads=2)
     assert cfg.head_dim == dim // 2
@@ -1191,17 +1206,17 @@ def test_fp16_d80_and_d100_forward_old_routes_move_the_fp16_forward_alone():
     """`profile_path.fp16_d80_forward_on_mma` and `fp16_d100_forward_on_simt`,
     the route sets the OPT-2.7B and fp16 OpenLLaMA-3B forwards are timed
     against: within each the fp16 forward at its width takes its old route
-    (mma at 80, simt at 100), while fp16 dQ and dK/dV keep theirs, bf16 at
-    that width keeps wgmma for every kernel, and fp16 at the other width and
-    at 64 and 128 keeps its wgmma forward; after it `_WGMMA_HEAD_DIMS` is
-    exactly what it was."""
+    (mma at 80, simt at 100), while fp16 dQ and dK/dV keep theirs (mma at 80,
+    wgmma at 100), bf16 at that width keeps wgmma for every kernel, and fp16
+    at the other width and at 64 and 128 keeps its wgmma forward; after it
+    `_WGMMA_HEAD_DIMS` is exactly what it was."""
     from yoda_scheduler_tpu_torch.profile_path import (fp16_d80_forward_on_mma,
                                                        fp16_d100_forward_on_simt)
 
     half = torch.float16
     saved = {key: dims for key, dims in attn._WGMMA_HEAD_DIMS.items()}
     for routes, d, old, other, bwd in ((fp16_d80_forward_on_mma, 80, "mma", 100, "mma"),
-                                       (fp16_d100_forward_on_simt, 100, "simt", 80, "simt")):
+                                       (fp16_d100_forward_on_simt, 100, "simt", 80, "wgmma")):
         t = [_model_view(1, 64, 4, d, half)] * 4
         bf16 = [_model_view(1, 64, 4, d)] * 4
         rest = [[_model_view(1, 64, 4, dd, half)] * 3 for dd in (other, 64, 128)]
@@ -1240,17 +1255,19 @@ def test_the_opt27b_and_fp16_openllama_forwards_expect_every_launch_on_wgmma():
         assert f'("{phase}", ' in main and old in main
     assert {"flash_fwd_wgmma80_f16_kernel", "flash_fwd_wgmma100_f16_kernel"} <= set(
         chip_smoke.WGMMA_KERNELS)
-    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 26
+    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 28
 
 
 def test_the_smokes_fp16_rows_at_80_and_100():
     """chip_smoke's fp16 rows at head dims 80 (OPT-2.7B's attention as its
     model gives it, GQA 32/8, window 512, ragged, cross-length, non-causal)
     and 100 (OpenLLaMA-3B's in fp16 as its model gives it, contiguous, and
-    the same five) name the forward on wgmma and dQ and dK/dV on mma at 80
-    and simt at 100; all are wide rows, held on every route; the models'
-    rows are forward turn rows and in the kernels line, and no backward
-    turn row; the unaligned fp16 row at 80 stays on simt."""
+    the same five) name the forward on wgmma, and dQ and dK/dV on mma at 80
+    and on wgmma at 100; all are wide rows, held on every route; the models'
+    rows are forward turn rows and in the kernels line; at 100 the model's
+    row and the contiguous one are backward turn rows (against simt, SDPA's
+    flash backend after each turn), and no row at 80; the unaligned fp16
+    row at 80 stays on simt."""
     import chip_smoke
 
     rows = {row[0]: row for row in chip_smoke.SHAPES}
@@ -1259,13 +1276,13 @@ def test_the_smokes_fp16_rows_at_80_and_100():
            100: {"openllama3b_fp16_d100_bshd", "fp16_unaligned_d100", "fp16_gqa_d100",
                  "fp16_window_d100", "fp16_ragged_d100", "fp16_cross_length_d100",
                  "fp16_non_causal_d100"}}
-    for d, old in ((80, "mma"), (100, "simt")):
+    for d, bwd in ((80, "mma"), (100, "wgmma")):
         assert new[d] | ({"fp16_unaligned_d80"} if d == 80 else set()) == {
             n for n, row in rows.items() if row[6] == d and row[9] == torch.float16}
         assert new[d] <= set(chip_smoke.WIDE_SHAPES)
         for name in new[d]:
             assert chip_smoke.shape_routes(rows[name][-1]) == {
-                "flash_fwd": "wgmma", "flash_bwd_dq": old, "flash_bwd_dkv": old}, name
+                "flash_fwd": "wgmma", "flash_bwd_dq": bwd, "flash_bwd_dkv": bwd}, name
     assert rows["opt27b_d80_bshd"][1:11] == (1, 32, 32, 2048, 2048, 80, True, None,
                                              torch.float16, "bshd")
     assert rows["openllama3b_fp16_d100_bshd"][1:11] == (1, 32, 32, 2048, 2048, 100, True,
@@ -1282,5 +1299,82 @@ def test_the_smokes_fp16_rows_at_80_and_100():
     models = {"opt27b_d80_bshd", "openllama3b_fp16_d100_bshd"}
     assert models <= set(chip_smoke.FWD_TURN_SHAPES) and models <= set(
         chip_smoke.HEAD_DIM_ROWS)
-    assert not (new[80] | new[100]) & set(chip_smoke.BWD_TURN_SHAPES)
+    turns = {"openllama3b_fp16_d100_bshd", "fp16_unaligned_d100"}
+    assert (new[80] | new[100]) & set(chip_smoke.BWD_TURN_SHAPES) == turns
+    assert all(chip_smoke.BWD_TURN_SHAPES[name] == "flash" for name in turns)
     assert rows["fp16_unaligned_d80"][-1] == "simt"
+
+
+def test_fp16_d100_backward_on_simt_moves_the_fp16_backward_alone_and_restores():
+    """`profile_path.fp16_d100_backward_on_simt`, the route set the fp16
+    OpenLLaMA-3B gradient and backward are timed against: within it fp16 dQ
+    and dK/dV at head dim 100 take simt while the fp16 forward there keeps
+    wgmma, bf16 at 100 keeps wgmma for every kernel, and fp16 dQ and dK/dV
+    at 64 and 128 keep theirs; `fp16_backward_on_mma` moves fp16 at 64 and
+    128 alone and leaves 100 on wgmma; after each `_WGMMA_HEAD_DIMS` is
+    exactly what it was, and the fp16 backward at 100 takes wgmma again."""
+    from yoda_scheduler_tpu_torch.profile_path import (fp16_backward_on_mma,
+                                                       fp16_d100_backward_on_simt)
+
+    half = torch.float16
+    saved = {key: dims for key, dims in attn._WGMMA_HEAD_DIMS.items()}
+    t = [_model_view(1, 64, 4, 100, half)] * 4
+    bf16 = [_model_view(1, 64, 4, 100)] * 4
+    rest = [[_model_view(1, 64, 4, d, half)] * 4 for d in (64, 128)]
+    with fp16_d100_backward_on_simt():
+        assert attn._route("flash_fwd", *t[:3]) == "wgmma"
+        assert attn._route("flash_fwd", *bf16[:3]) == "wgmma"
+        for name in BWD_KERNELS:
+            assert attn._route(name, *t) == "simt"
+            assert attn._route(name, *bf16) == "wgmma"
+            for r in rest:
+                assert attn._route(name, *r) == "wgmma"
+    assert attn._WGMMA_HEAD_DIMS == saved
+    with fp16_backward_on_mma():
+        for name in BWD_KERNELS:
+            assert attn._route(name, *t) == "wgmma"
+            for r in rest:
+                assert attn._route(name, *r) == "mma"
+    assert attn._WGMMA_HEAD_DIMS == saved
+    for name in BWD_KERNELS:
+        assert attn._route(name, *t) == "wgmma"
+
+
+def test_openllama3b_fp16_gradient_and_backward_expect_every_launch_on_wgmma():
+    """chip_smoke's expected launches of openllama3b_fp16_gradient (4
+    layers: 8/4/4) and of one openllama3b_fp16_backward call (the loss's
+    forward and backward at all 26 layers under remat, no optimizer:
+    52/26/26), all on wgmma, as `_route` picks them on the model's fp16
+    views at head dim 100; both phases run timed in turns against
+    `fp16_d100_backward_on_simt`, as the loss's backward where a call is
+    one, and appear in the kernels line's launches by path; the build
+    expects both new kernels among 28; the smoke's third sink row is at
+    head dim 100."""
+    import inspect
+
+    import chip_smoke
+    from yoda_scheduler_tpu_torch.profile_path import openllama_3b_fp16
+
+    cfg = openllama_3b_fp16()
+    assert (cfg.n_layers, cfg.head_dim, cfg.dtype) == (26, 100, "float16")
+    assert chip_smoke.step_routes("wgmma", cfg.n_layers) == {
+        "flash_fwd": {"wgmma": 52}, "flash_bwd_dq": {"wgmma": 26},
+        "flash_bwd_dkv": {"wgmma": 26}}
+    assert chip_smoke.step_routes("wgmma", 4) == {
+        "flash_fwd": {"wgmma": 8}, "flash_bwd_dq": {"wgmma": 4},
+        "flash_bwd_dkv": {"wgmma": 4}}
+    q, k, v, do = [_model_view(1, 64, cfg.n_heads, cfg.head_dim, cfg.torch_dtype)] * 4
+    assert attn._route("flash_fwd", q, k, v) == "wgmma"
+    for name in BWD_KERNELS:
+        assert attn._route(name, q, k, v, do) == "wgmma"
+    main = inspect.getsource(chip_smoke.main)
+    for path in ("openllama3b_fp16_gradient", "openllama3b_fp16_backward"):
+        assert main.count(f'"{path}":') == 2, path
+        assert f'phase="{path}"' in main, path
+    assert '"backward_on_simt": fp16_d100_backward_on_simt' in main
+    assert "turns=fp16_d100_turns, llama=llama)" in main
+    assert {"flash_bwd_dq_wgmma100_f16_kernel", "flash_bwd_dkv_wgmma100_f16_kernel"} <= set(
+        chip_smoke.WGMMA_KERNELS)
+    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 28
+    assert chip_smoke.FP16_SINK_COTANGENT_D100 == dict(chip_smoke.FP16_SINK_COTANGENT, d=100)
+    assert "FP16_SINK_COTANGENT_D100" in inspect.getsource(chip_smoke.phase_backward)

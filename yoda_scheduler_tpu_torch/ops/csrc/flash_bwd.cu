@@ -35,10 +35,13 @@
 //   (StableLM-3B-4E1T's), and
 //   flash_bwd_dq_wgmma100_kernel and flash_bwd_dkv_wgmma100_kernel route 2
 //   at D = 100 (OpenLLaMA-3B's, 200-byte rows with 8-byte aligned bases,
-//   which their producers copy with cp.async where TMA cannot read them);
-//   flash_bwd_dq_wgmma_f16_kernel and flash_bwd_dkv_wgmma_f16_kernel are
-//   route 2 in fp16 at D = 128 (Llama-2's published dtype), the D = 128
-//   kernels' bodies on fp16 operands; flash_bwd_dkv_wgmma64_kernel and
+//   which their producers copy with cp.async where TMA cannot read them),
+//   with flash_bwd_dq_wgmma100_f16_kernel and
+//   flash_bwd_dkv_wgmma100_f16_kernel the same bodies in fp16 (OpenLLaMA-3B's
+//   published dtype); flash_bwd_dq_wgmma_f16_kernel and
+//   flash_bwd_dkv_wgmma_f16_kernel are route 2 in fp16 at D = 128 (Llama-2's
+//   published dtype), the D = 128 kernels' bodies on fp16 operands;
+//   flash_bwd_dkv_wgmma64_kernel and
 //   flash_bwd_dq_wgmma64_kernel are route 2 at D = 64 (bench_mfu's d1024
 //   widths), and flash_bwd_dkv_wgmma64_f16_kernel and
 //   flash_bwd_dq_wgmma64_f16_kernel route 2 in fp16 at D = 64 (OPT-1.3B's
@@ -46,7 +49,7 @@
 //   operands; flash_bwd_dq_wgmma256_kernel and
 //   flash_bwd_dkv_wgmma256_kernel are route 2 at D = 256 (Gemma's
 //   attention, tiles of 64 rows), each with its own note. Route 2 refuses
-//   every other D, and fp16 at any D but 64 and 128 (it runs on mma).
+//   every other D, and fp16 at any D but 64, 100 and 128 (it runs on mma).
 // - *_mma kernels (route 1; aligned bf16 and fp16, D a multiple of 8 up to
 //   256; they take bf16 at D = 64 and 128 too, to be held against the wgmma
 //   kernels): 4 warps each own 16 rows of a 64-row tile and run all products
@@ -820,9 +823,10 @@ struct BwdRows {
 // The body of flash_bwd_dkv_wgmma_kernel (bf16, D = 128),
 // flash_bwd_dkv_wgmma96_kernel (bf16, D = 96),
 // flash_bwd_dkv_wgmma80_kernel (bf16, D = 80),
-// flash_bwd_dkv_wgmma100_kernel (bf16, D = 100) and
-// flash_bwd_dkv_wgmma_f16_kernel (fp16, D = 128). fp16 differs from bf16 only
-// in names, as in flash_fwd.cu's fwd_wgmma_body: the wgmma instructions (.f16
+// flash_bwd_dkv_wgmma100_kernel (bf16, D = 100),
+// flash_bwd_dkv_wgmma_f16_kernel (fp16, D = 128) and
+// flash_bwd_dkv_wgmma100_f16_kernel (fp16, D = 100). fp16 differs from bf16
+// only in names, as in flash_fwd.cu's fwd_wgmma_body: the wgmma instructions (.f16
 // for .bf16), the tensor maps' data type, and the roundings of P^T and dS^T
 // (the A operands) and of dK and dV; tiles, swizzle, ring and grid are the
 // same. At D = 96 the tiles keep D = 128's
@@ -847,7 +851,10 @@ struct BwdRows {
 // reads after each wait. S^T and dP^T run 7 k-steps (the 7th over columns
 // 96-111), dV and dK are m64n104k16 sums (52 + 52 fp32 a thread), whose
 // columns 100-103 are not stored. The producer keeps 40 registers for its
-// copies (24 under TMA) and the consumers get 232.
+// copies (24 under TMA) and the consumers get 232. In fp16 (OpenLLaMA-3B's
+// published weights) D = 100 is the same body on a BwdRows<__half>: the
+// copies move bytes whatever the element type, and the m64n104k16 sums take
+// their f16 form.
 // At Phi-3-mini's attention (B=1, H=32, S=2048, D=96, causal) dK/dV does
 // ~51.6 GFLOP against ~76 MB, bound by operations (~52 us at 989 TF/s); at
 // OpenLLaMA-3B's (D=100) ~53.7 GFLOP, ~54 us; at StableLM-3B-4E1T's (D=80)
@@ -1138,6 +1145,15 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma100_kern
                                      dv, out_scale, H, KvH, Sq, Sk, causal, window, scale);
 }
 
+__global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma100_f16_kernel(
+    const __grid_constant__ BwdRows<__half> src, const float* __restrict__ lse,
+    const float* __restrict__ delta, __half* __restrict__ dk, __half* __restrict__ dv,
+    const float* __restrict__ out_scale, int H, int KvH, int Sq, int Sk, int causal,
+    int window, float scale) {
+  dkv_wgmma_body<__half, 100>(nullptr, nullptr, nullptr, nullptr, src, lse, delta, dk, dv,
+                              out_scale, H, KvH, Sq, Sk, causal, window, scale);
+}
+
 __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma_f16_kernel(
     const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
@@ -1398,8 +1414,9 @@ BWD_DKV64_KERNEL(flash_bwd_dkv_wgmma64_f16_kernel, __half)
 
 // The body of flash_bwd_dq_wgmma_kernel (bf16, D = 128),
 // flash_bwd_dq_wgmma96_kernel (bf16, D = 96), flash_bwd_dq_wgmma80_kernel
-// (bf16, D = 80), flash_bwd_dq_wgmma100_kernel (bf16, D = 100) and
-// flash_bwd_dq_wgmma_f16_kernel (fp16, D = 128), as dkv_wgmma_body (in fp16
+// (bf16, D = 80), flash_bwd_dq_wgmma100_kernel (bf16, D = 100),
+// flash_bwd_dq_wgmma_f16_kernel (fp16, D = 128) and
+// flash_bwd_dq_wgmma100_f16_kernel (fp16, D = 100), as dkv_wgmma_body (in fp16
 // dS and dQ round to fp16): at D = 96 the tiles keep D = 128's shared-memory
 // layout and grid, the second box of each row zero-filled by TMA past column
 // 96 (every expect_tx counts whole boxes); S and dP run 6 k-steps (the last
@@ -1648,6 +1665,15 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dq_wgmma100_kerne
     int window, float scale) {
   dq_wgmma_body<__nv_bfloat16, 100>(nullptr, nullptr, nullptr, nullptr, src, lse, delta, dq,
                                     out_scale, H, KvH, Sq, Sk, causal, window, scale);
+}
+
+__global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dq_wgmma100_f16_kernel(
+    const __grid_constant__ BwdRows<__half> src, const float* __restrict__ lse,
+    const float* __restrict__ delta, __half* __restrict__ dq,
+    const float* __restrict__ out_scale, int H, int KvH, int Sq, int Sk, int causal,
+    int window, float scale) {
+  dq_wgmma_body<__half, 100>(nullptr, nullptr, nullptr, nullptr, src, lse, delta, dq,
+                             out_scale, H, KvH, Sq, Sk, causal, window, scale);
 }
 
 __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dq_wgmma_f16_kernel(
@@ -2452,13 +2478,20 @@ cudaError_t dkv_wgmma128(K kernel, const Args& a, int D) {
 }
 
 // the rows of a launch whose producer copies them itself (the D = 100
-// kernels), from its arguments
-BwdRows<__nv_bfloat16> bwd_rows(const Args& a) {
-  BwdRows<__nv_bfloat16> src{(const __nv_bfloat16*)a.q, (const __nv_bfloat16*)a.k,
-                             (const __nv_bfloat16*)a.v, (const __nv_bfloat16*)a.dout, {}};
+// kernels, over T), from its arguments
+template <typename T>
+BwdRows<T> bwd_rows(const Args& a) {
+  BwdRows<T> src{(const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout, {}};
   const int64_t* st = &a.st.q_sb;
   for (int i = 0; i < 12; ++i) src.st[i] = st[i];
   return src;
+}
+
+// whether a wgmma kernel of dQ and dK/dV takes (dtype, D): bf16 (dtype 1) at
+// 64, 80, 96, 100, 128 and 256, fp16 (dtype 2) at 64, 100 and 128
+bool has_wgmma(int dtype, int D) {
+  if (dtype == 1) return D == 64 || D == 80 || D == 96 || D == 100 || D == 128 || D == 256;
+  return dtype == 2 && (D == 64 || D == 100 || D == 128);
 }
 
 // a dK/dV kernel over T at D = 64 (bf16 or fp16): 192 keys a block, boxes
@@ -2474,15 +2507,18 @@ cudaError_t dkv_wgmma64(K kernel, const Args& a) {
   return cudaGetLastError();
 }
 
-// bf16 (dtype 1) at D = 128: flash_bwd_dkv_wgmma_kernel; at D = 96, 80 and
-// 100: flash_bwd_dkv_wgmma96_kernel, flash_bwd_dkv_wgmma80_kernel and
+// The kernel of (dtype, D), each chosen by both: bf16 (dtype 1) at D = 128:
+// flash_bwd_dkv_wgmma_kernel; at D = 96, 80 and 100:
+// flash_bwd_dkv_wgmma96_kernel, flash_bwd_dkv_wgmma80_kernel and
 // flash_bwd_dkv_wgmma100_kernel (which takes the rows themselves, not maps),
-// on the same grid; at D = 64:
-// flash_bwd_dkv_wgmma64_kernel; at D = 256: flash_bwd_dkv_wgmma256_kernel,
-// 64 keys a block. fp16 (dtype 2) at D = 128:
-// flash_bwd_dkv_wgmma_f16_kernel, on the D = 128 grid; at D = 64:
-// flash_bwd_dkv_wgmma64_f16_kernel, on the D = 64 grid.
+// on the same grid; at D = 64: flash_bwd_dkv_wgmma64_kernel; at D = 256:
+// flash_bwd_dkv_wgmma256_kernel, 64 keys a block. fp16 (dtype 2) at D = 128
+// and 100: flash_bwd_dkv_wgmma_f16_kernel and
+// flash_bwd_dkv_wgmma100_f16_kernel (its rows too), on the D = 128 grid; at
+// D = 64: flash_bwd_dkv_wgmma64_f16_kernel, on the D = 64 grid. Any other
+// pair returns cudaErrorInvalidValue and launches nothing.
 cudaError_t launch_dkv_wgmma(const Args& a, int D, int dtype) {
+  if (!has_wgmma(dtype, D)) return cudaErrorInvalidValue;
   static const cudaError_t attr128 = set_smem(flash_bwd_dkv_wgmma_kernel, DKV_SMEM);
   static const cudaError_t attr96 = set_smem(flash_bwd_dkv_wgmma96_kernel, DKV_SMEM);
   static const cudaError_t attr80 = set_smem(flash_bwd_dkv_wgmma80_kernel, DKV_SMEM);
@@ -2490,17 +2526,33 @@ cudaError_t launch_dkv_wgmma(const Args& a, int D, int dtype) {
   static const cudaError_t attr64 = set_smem(flash_bwd_dkv_wgmma64_kernel, K64_SMEM);
   static const cudaError_t attr256 = set_smem(flash_bwd_dkv_wgmma256_kernel, DKV256_SMEM);
   static const cudaError_t attr_f16 = set_smem(flash_bwd_dkv_wgmma_f16_kernel, DKV_SMEM);
+  static const cudaError_t attr100_f16 =
+      set_smem(flash_bwd_dkv_wgmma100_f16_kernel, DKV_SMEM);
   static const cudaError_t attr64_f16 =
       set_smem(flash_bwd_dkv_wgmma64_f16_kernel, K64_SMEM);
-  const cudaError_t attr = dtype == 2   ? (D == 64 ? attr64_f16 : attr_f16)
-                           : D == 64   ? attr64
-                           : D == 96   ? attr96
-                           : D == 80   ? attr80
-                           : D == 100  ? attr100
-                           : D == 256  ? attr256
-                                       : attr128;
+  const bool f16 = dtype == 2;
+  // fp16 has no kernel at 80, 96 or 256 (has_wgmma)
+  const cudaError_t attr = D == 64    ? (f16 ? attr64_f16 : attr64)
+                           : D == 100 ? (f16 ? attr100_f16 : attr100)
+                           : D == 128 ? (f16 ? attr_f16 : attr128)
+                           : D == 96  ? attr96
+                           : D == 80  ? attr80
+                                      : attr256;
   if (attr != cudaSuccess) return attr;
-  if (dtype == 2)
+  if (D == 100) {
+    const dim3 grid(a.B * a.H, (a.Sk + 127) / 128);
+    if (f16)
+      flash_bwd_dkv_wgmma100_f16_kernel<<<grid, 3 * WG_THREADS, DKV_SMEM, a.stream>>>(
+          bwd_rows<__half>(a), (const float*)a.lse, (const float*)a.delta, (__half*)a.dk,
+          (__half*)a.dv, a.out_scale, a.H, a.KvH, a.Sq, a.Sk, a.causal, a.window, a.scale);
+    else
+      flash_bwd_dkv_wgmma100_kernel<<<grid, 3 * WG_THREADS, DKV_SMEM, a.stream>>>(
+          bwd_rows<__nv_bfloat16>(a), (const float*)a.lse, (const float*)a.delta,
+          (__nv_bfloat16*)a.dk, (__nv_bfloat16*)a.dv, a.out_scale, a.H, a.KvH, a.Sq, a.Sk,
+          a.causal, a.window, a.scale);
+    return cudaGetLastError();
+  }
+  if (f16)
     return D == 64 ? dkv_wgmma64<__half>(flash_bwd_dkv_wgmma64_f16_kernel, a)
                    : dkv_wgmma128<__half>(flash_bwd_dkv_wgmma_f16_kernel, a, D);
   if (D == 256) {
@@ -2512,14 +2564,6 @@ cudaError_t launch_dkv_wgmma(const Args& a, int D, int dtype) {
         m[0], m[1], m[2], m[3], (const float*)a.lse, (const float*)a.delta,
         (__nv_bfloat16*)a.dk, (__nv_bfloat16*)a.dv, a.out_scale, a.H, a.KvH, a.Sq, a.Sk,
         a.causal, a.window, a.scale);
-    return cudaGetLastError();
-  }
-  if (D == 100) {
-    const dim3 grid(a.B * a.H, (a.Sk + 127) / 128);
-    flash_bwd_dkv_wgmma100_kernel<<<grid, 3 * WG_THREADS, DKV_SMEM, a.stream>>>(
-        bwd_rows(a), (const float*)a.lse, (const float*)a.delta, (__nv_bfloat16*)a.dk,
-        (__nv_bfloat16*)a.dv, a.out_scale, a.H, a.KvH, a.Sq, a.Sk, a.causal, a.window,
-        a.scale);
     return cudaGetLastError();
   }
   if (D == 64) return dkv_wgmma64<__nv_bfloat16>(flash_bwd_dkv_wgmma64_kernel, a);
@@ -2555,15 +2599,18 @@ cudaError_t dq_wgmma64(K kernel, const Args& a) {
   return cudaGetLastError();
 }
 
-// bf16 (dtype 1) at D = 128: flash_bwd_dq_wgmma_kernel; at D = 96, 80 and
-// 100: flash_bwd_dq_wgmma96_kernel, flash_bwd_dq_wgmma80_kernel and
+// The kernel of (dtype, D), each chosen by both: bf16 (dtype 1) at D = 128:
+// flash_bwd_dq_wgmma_kernel; at D = 96, 80 and 100:
+// flash_bwd_dq_wgmma96_kernel, flash_bwd_dq_wgmma80_kernel and
 // flash_bwd_dq_wgmma100_kernel (which takes the rows themselves, not maps),
-// on the same grid; at D = 64:
-// flash_bwd_dq_wgmma64_kernel; at D = 256: flash_bwd_dq_wgmma256_kernel, 64
-// q rows a block. fp16 (dtype 2) at D = 128:
-// flash_bwd_dq_wgmma_f16_kernel, on the D = 128 grid; at D = 64:
-// flash_bwd_dq_wgmma64_f16_kernel, on the D = 64 grid.
+// on the same grid; at D = 64: flash_bwd_dq_wgmma64_kernel; at D = 256:
+// flash_bwd_dq_wgmma256_kernel, 64 q rows a block. fp16 (dtype 2) at D = 128
+// and 100: flash_bwd_dq_wgmma_f16_kernel and
+// flash_bwd_dq_wgmma100_f16_kernel (its rows too), on the D = 128 grid; at
+// D = 64: flash_bwd_dq_wgmma64_f16_kernel, on the D = 64 grid. Any other pair
+// returns cudaErrorInvalidValue and launches nothing.
 cudaError_t launch_dq_wgmma(const Args& a, int D, int dtype) {
+  if (!has_wgmma(dtype, D)) return cudaErrorInvalidValue;
   static const cudaError_t attr128 = set_smem(flash_bwd_dq_wgmma_kernel, DQ_SMEM);
   static const cudaError_t attr96 = set_smem(flash_bwd_dq_wgmma96_kernel, DQ_SMEM);
   static const cudaError_t attr80 = set_smem(flash_bwd_dq_wgmma80_kernel, DQ_SMEM);
@@ -2571,16 +2618,31 @@ cudaError_t launch_dq_wgmma(const Args& a, int D, int dtype) {
   static const cudaError_t attr64 = set_smem(flash_bwd_dq_wgmma64_kernel, Q64_SMEM);
   static const cudaError_t attr256 = set_smem(flash_bwd_dq_wgmma256_kernel, DQ256_SMEM);
   static const cudaError_t attr_f16 = set_smem(flash_bwd_dq_wgmma_f16_kernel, DQ_SMEM);
+  static const cudaError_t attr100_f16 = set_smem(flash_bwd_dq_wgmma100_f16_kernel, DQ_SMEM);
   static const cudaError_t attr64_f16 = set_smem(flash_bwd_dq_wgmma64_f16_kernel, Q64_SMEM);
-  const cudaError_t attr = dtype == 2   ? (D == 64 ? attr64_f16 : attr_f16)
-                           : D == 64   ? attr64
-                           : D == 96   ? attr96
-                           : D == 80   ? attr80
-                           : D == 100  ? attr100
-                           : D == 256  ? attr256
-                                       : attr128;
+  const bool f16 = dtype == 2;
+  // fp16 has no kernel at 80, 96 or 256 (has_wgmma)
+  const cudaError_t attr = D == 64    ? (f16 ? attr64_f16 : attr64)
+                           : D == 100 ? (f16 ? attr100_f16 : attr100)
+                           : D == 128 ? (f16 ? attr_f16 : attr128)
+                           : D == 96  ? attr96
+                           : D == 80  ? attr80
+                                      : attr256;
   if (attr != cudaSuccess) return attr;
-  if (dtype == 2)
+  if (D == 100) {
+    const dim3 grid(a.B * a.H, (a.Sq + 127) / 128);
+    if (f16)
+      flash_bwd_dq_wgmma100_f16_kernel<<<grid, 3 * WG_THREADS, DQ_SMEM, a.stream>>>(
+          bwd_rows<__half>(a), (const float*)a.lse, (const float*)a.delta, (__half*)a.dq,
+          a.out_scale, a.H, a.KvH, a.Sq, a.Sk, a.causal, a.window, a.scale);
+    else
+      flash_bwd_dq_wgmma100_kernel<<<grid, 3 * WG_THREADS, DQ_SMEM, a.stream>>>(
+          bwd_rows<__nv_bfloat16>(a), (const float*)a.lse, (const float*)a.delta,
+          (__nv_bfloat16*)a.dq, a.out_scale, a.H, a.KvH, a.Sq, a.Sk, a.causal, a.window,
+          a.scale);
+    return cudaGetLastError();
+  }
+  if (f16)
     return D == 64 ? dq_wgmma64<__half>(flash_bwd_dq_wgmma64_f16_kernel, a)
                    : dq_wgmma128<__half>(flash_bwd_dq_wgmma_f16_kernel, a, D);
   if (D == 256) {
@@ -2592,13 +2654,6 @@ cudaError_t launch_dq_wgmma(const Args& a, int D, int dtype) {
         m[0], m[1], m[2], m[3], (const float*)a.lse, (const float*)a.delta,
         (__nv_bfloat16*)a.dq, a.out_scale, a.H, a.KvH, a.Sq, a.Sk, a.causal, a.window,
         a.scale);
-    return cudaGetLastError();
-  }
-  if (D == 100) {
-    const dim3 grid(a.B * a.H, (a.Sq + 127) / 128);
-    flash_bwd_dq_wgmma100_kernel<<<grid, 3 * WG_THREADS, DQ_SMEM, a.stream>>>(
-        bwd_rows(a), (const float*)a.lse, (const float*)a.delta, (__nv_bfloat16*)a.dq,
-        a.out_scale, a.H, a.KvH, a.Sq, a.Sk, a.causal, a.window, a.scale);
     return cudaGetLastError();
   }
   if (D == 64) return dq_wgmma64<__nv_bfloat16>(flash_bwd_dq_wgmma64_kernel, a);
@@ -2639,11 +2694,11 @@ cudaError_t at_padded_dim(int which, int mma, const Args& a) {
 
 // dtype 0 = fp32, 1 = bf16, 2 = fp16. route 0 = simt (any dtype, D from 1
 // to 512), 1 = mma (bf16 or fp16, D a multiple of 8 up to 256, 16-byte
-// aligned bases, strides that are multiples of 8), 2 = wgmma (as mma, and
-// Sk > 0, with bf16 at D = 64, 80, 96, 128 or 256 and fp16 at D = 64 or 128; or
-// bf16 at D = 100 with 8-byte aligned bases and strides that are multiples
-// of 4); a route that cannot take the inputs launches nothing, and so does
-// an out_scale in fp32 or bf16
+// aligned bases, strides that are multiples of 8), 2 = wgmma (Sk > 0 and a
+// kernel for (dtype, D), `has_wgmma`: rows as mma's at bf16 D = 64, 80, 96,
+// 128 or 256 and fp16 D = 64 or 128; at D = 100, bf16 or fp16, 8-byte aligned
+// bases and strides that are multiples of 4); a route that cannot take the
+// inputs launches nothing, and so does an out_scale in fp32 or bf16
 cudaError_t dispatch(int which, int dtype, int route, int D, const Args& a) {
   const void* ptrs[4] = {a.q, a.k, a.v, a.dout};
   const bool aligned = rows_aligned(ptrs, 4, &a.st.q_sb, 12, D);
@@ -2660,12 +2715,10 @@ cudaError_t dispatch(int which, int dtype, int route, int D, const Args& a) {
       if (dtype == 2) return at_padded_dim<__half>(which, 1, a);
       return cudaErrorInvalidValue;
     case 2: {
-      const bool has_d = dtype == 1 ? D == 64 || D == 80 || D == 96 || D == 100 || D == 128 ||
-                                          D == 256
-                                    : dtype == 2 && (D == 64 || D == 128);
-      // the D = 100 kernels copy their 200-byte rows in 8-byte pieces
+      // the D = 100 kernels copy their 200-byte rows in 8-byte pieces; the
+      // launchers refuse a (dtype, D) without a kernel themselves
       const bool rows_ok = D == 100 ? rows_aligned(ptrs, 4, &a.st.q_sb, 12, D, 8) : aligned;
-      if (!has_d || !rows_ok || a.Sk <= 0) return cudaErrorInvalidValue;
+      if (!rows_ok || a.Sk <= 0) return cudaErrorInvalidValue;
       return which ? launch_dkv_wgmma(a, D, dtype) : launch_dq_wgmma(a, D, dtype);
     }
     default:

@@ -1,6 +1,6 @@
 """Where the time goes on the port's path, at Phi-3-mini, Llama-2-7B,
-Mixtral-8x7B, OpenLLaMA-3B, StableLM-3B-4E1T, Gemma-2B, OPT-1.3B and
-OPT-2.7B widths on one GPU.
+Mixtral-8x7B, OpenLLaMA-3B (bf16 and fp16), StableLM-3B-4E1T, Gemma-2B,
+OPT-1.3B and OPT-2.7B widths on one GPU.
 
     python3 -m yoda_scheduler_tpu_torch.profile_path
 
@@ -46,7 +46,10 @@ two alone); then one `llama_forward` at OPT-2.7B's widths (head dim 80,
 fp16) and one at OpenLLaMA-3B's in fp16 (100), B=1, S=2048, each with
 flash_fwd on its fp16 wgmma kernel and on the route it took before (mma at
 80, simt at 100; `fp16_new_width_forward_windows()` traces those four
-alone). For each traced
+alone); then OpenLLaMA-3B's loss in fp16 (all 26 layers) as OPT-1.3B's, with
+dQ and dK/dV on their fp16 head-dim-100 wgmma kernels and on simt
+(`fp16_d100_backward_on_simt`; `openllama3b_fp16_backward_windows()` traces
+those alone), each route traced twice in turns. For each traced
 window it prints one JSON line: the host wall time, the device's busy time
 (the union of kernel intervals) and idle share, the kernel launches, the
 device time grouped into conv / matmul / flash_fwd / flash_bwd_dq /
@@ -311,10 +314,12 @@ def d96_on_mma():
 
 
 def fp16_backward_on_mma():
-    """Within it, fp16 takes the mma route for dQ and dK/dV at every head
-    dim (64 and 128, those of their fp16 wgmma kernels), as before those
-    kernels; the forward keeps its wgmma kernels, and bf16 all of its."""
-    return _off_wgmma(lambda key, d: key[1] == torch.float16 and key[0] != "flash_fwd")
+    """Within it, fp16 takes the mma route for dQ and dK/dV at head dims 64
+    and 128, as before their fp16 wgmma kernels there; at 100 they keep
+    theirs (`fp16_d100_backward_on_simt` moves them), the forward keeps its
+    wgmma kernels, and bf16 all of its."""
+    return _off_wgmma(lambda key, d: (key[1] == torch.float16 and key[0] != "flash_fwd"
+                                      and d in (64, 128)))
 
 
 def d80_forward_on_mma():
@@ -358,8 +363,16 @@ def fp16_d80_forward_on_mma():
 def fp16_d100_forward_on_simt():
     """Within it, the fp16 forward at head dim 100 takes the simt route, as
     before its wgmma kernel (no mma kernel takes 200-byte rows); fp16 dQ and
-    dK/dV stay on simt there, and bf16 at 100 keeps its wgmma kernels."""
+    dK/dV keep their wgmma kernels there, and bf16 at 100 keeps its."""
     return _off_wgmma(lambda key, d: key == ("flash_fwd", torch.float16) and d == 100)
+
+
+def fp16_d100_backward_on_simt():
+    """Within it, fp16 dQ and dK/dV at head dim 100 take the simt route, as
+    before their wgmma kernels; the fp16 forward keeps its wgmma kernel
+    there, and bf16 at 100 keeps all of its."""
+    return _off_wgmma(lambda key, d: (key[1] == torch.float16 and key[0] != "flash_fwd"
+                                      and d == 100))
 
 
 def d100_forward_on_simt():
@@ -562,12 +575,11 @@ def gemma2b_train_windows() -> list[dict]:
                                    d256_backward_on_mma)
 
 
-def opt13b_backward_windows() -> list[dict]:
-    """OPT-1.3B's loss (24 layers, fp16, B=1, S=2048, remat) traced through
+def _fp16_backward_windows(cfg, label: str, old_name: str, old) -> list[dict]:
+    """`cfg`'s loss (all its layers, fp16, B=1, S=2048, remat) traced through
     its forward and backward, with no optimizer step (AdamW's eps is 0 in
-    fp16), with dQ and dK/dV on their fp16 head-dim-64 wgmma kernels and on
-    mma (`fp16_backward_on_mma`), each traced twice, in turns."""
-    cfg = opt_1_3b()
+    fp16), with dQ and dK/dV on their fp16 wgmma kernels and on their old
+    route (`old`), each traced twice, in turns."""
     params = init_llama(cfg, seed=0, device="cuda")
     leaves = param_leaves(params)
     for t in leaves:
@@ -581,12 +593,28 @@ def opt13b_backward_windows() -> list[dict]:
         llama_loss(params, tokens, cfg, remat=True).backward()
 
     # in turns A, B, B, A, so that neither set is only the first traced
-    sets = (("wgmma", contextlib.nullcontext), ("backward_on_mma", fp16_backward_on_mma))
+    sets = (("wgmma", contextlib.nullcontext), (old_name, old))
     reports = []
     for name, routes in sets + sets[::-1]:
         with routes():
-            reports.append(trace(f"opt13b_fp16_fwd_bwd_b1_s2048_{name}", fwd_bwd))
+            reports.append(trace(f"{label}_fp16_fwd_bwd_b1_s2048_{name}", fwd_bwd))
     return reports
+
+
+def opt13b_backward_windows() -> list[dict]:
+    """OPT-1.3B's loss (24 layers) traced as `_fp16_backward_windows`, dQ
+    and dK/dV on their fp16 head-dim-64 wgmma kernels and on mma
+    (`fp16_backward_on_mma`)."""
+    return _fp16_backward_windows(opt_1_3b(), "opt13b", "backward_on_mma",
+                                  fp16_backward_on_mma)
+
+
+def openllama3b_fp16_backward_windows() -> list[dict]:
+    """OpenLLaMA-3B's loss in fp16 (26 layers) traced as
+    `_fp16_backward_windows`, dQ and dK/dV on their fp16 head-dim-100 wgmma
+    kernels and on simt (`fp16_d100_backward_on_simt`)."""
+    return _fp16_backward_windows(openllama_3b_fp16(), "openllama3b", "backward_on_simt",
+                                  fp16_d100_backward_on_simt)
 
 
 def moe_forward_window(cfg) -> dict:
@@ -664,6 +692,8 @@ def main() -> int:
     reports += opt13b_backward_windows()
     _free()
     reports += fp16_new_width_forward_windows()
+    _free()
+    reports += openllama3b_fp16_backward_windows()
     out = Path(__file__).resolve().parents[1] / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "profile_path.json").write_text(json.dumps(
