@@ -7,7 +7,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 1. build: the card's name and power limit, and the CUDA kernels compiled
    from the sources in this checkout (nvcc, sm_90a, one process per source);
-   each of the twenty-eight wgmma kernels (`WGMMA_KERNELS`) without a spill
+   each of the thirty wgmma kernels (`WGMMA_KERNELS`) without a spill
    or a serialised wgmma.
 2. kernel: the flash forward kernel against its plain version on the card,
    elementwise and by O's worst 64-row tile, at the main path's shape (also
@@ -40,7 +40,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
    the main shape and the
    five fp16 rows above (every kernel on wgmma), at d1024_bshd and at
    OPT-1.3B's 32 heads of 64 and a ragged GQA row (every kernel on its fp16
-   wgmma kernel at 64), simt in
+   wgmma kernel at 64), fp16 at 80, 96, 100 and 256 (OPT-2.7B's,
+   GPT-NeoX-20B's, OpenLLaMA-3B's and GPT-J-6B's attention as their models
+   give them, with GQA, window, ragged, cross-length and non-causal rows:
+   the forward on its fp16 wgmma kernel, each model's row timed in turns
+   against the forward's old route), simt in
    fp32 and fp16, and 320 on simt in fp32 and bf16 (SDPA's memory-efficient
    backend timed beside the fp32 row, its K and V repeated to q's heads);
    each on every route `_routes` admits, with SDPA's default backend timed
@@ -151,6 +155,16 @@ After moe_train, head dims 96, 100 and 80, and fp16:
   call), every launch on wgmma, dQ and dK/dV on their fp16 head-dim-100
   kernels; both also timed on the host's clock in turns against dQ and
   dK/dV on simt (`profile_path.fp16_d100_backward_on_simt`).
+- opt27b_fp16_forward, openllama3b_fp16_forward, neox20b_fp16_forward,
+  gptj6b_fp16_forward (run with the forwards above): OPT-2.7B's,
+  OpenLLaMA-3B's, GPT-NeoX-20B's (44 layers, 64 heads of 96, 54 GB of
+  weights) and GPT-J-6B's (28 layers, 16 heads of 256) widths in fp16
+  (`profile_path.opt_2_7b`, `openllama_3b_fp16`, `gpt_neox_20b`,
+  `gptj_6b`): as forward, all 32, 26, 44 and 28 flash_fwd launches on
+  their fp16 wgmma kernels, also timed on the host's clock in turns against
+  the forward on its old route (`profile_path.fp16_d80_forward_on_mma`,
+  `fp16_d100_forward_on_simt`, `fp16_d96_forward_on_mma`,
+  `fp16_d256_forward_on_mma`).
 
 - moe_forward: B=1, S=2048: 16 flash_fwd launches, all on the wgmma route;
   logits and routing against the forward through the plain attention, end
@@ -701,7 +715,8 @@ WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_wgmma96_kernel",
                  "flash_bwd_dq_wgmma256_kernel", "flash_bwd_dkv_wgmma256_kernel",
                  "flash_bwd_dq_wgmma64_f16_kernel", "flash_bwd_dkv_wgmma64_f16_kernel",
                  "flash_fwd_wgmma80_f16_kernel", "flash_fwd_wgmma100_f16_kernel",
-                 "flash_bwd_dq_wgmma100_f16_kernel", "flash_bwd_dkv_wgmma100_f16_kernel")
+                 "flash_bwd_dq_wgmma100_f16_kernel", "flash_bwd_dkv_wgmma100_f16_kernel",
+                 "flash_fwd_wgmma96_f16_kernel", "flash_fwd_wgmma256_f16_kernel")
 
 
 def phase_build(build):
@@ -796,7 +811,8 @@ SHAPES = [
      "offset1", "simt"),
     # head dims other than 32, 64 and 128, and fp16, on the simt and mma
     # kernels at their padded widths (at 80, 96, 100 and 256, and fp16 at
-    # 64, 100 and 128, on wgmma; fp16 at 80 the forward alone, above):
+    # 64, 100 and 128, on wgmma; fp16 at 80, 96 and 256 the forward alone,
+    # below):
     # Phi-3-mini's attention (32 heads of 96, S=2048) as the model
     # gives it and contiguous, with GQA 32/8 and a window; 80 (2560 / 32,
     # StableLM-3B's and Phi-2's width), contiguous and as the model's views,
@@ -889,6 +905,34 @@ SHAPES = [
      "bhsd", "wgmma"),
     ("fp16_non_causal_d100", 1, 32, 32, 1000, 1000, 100, False, None, torch.float16,
      "bhsd", "wgmma"),
+    # fp16 at head dims 96 and 256, the forward on its fp16 wgmma kernels (dQ
+    # and dK/dV on mma): GPT-NeoX-20B's attention (64 heads of 96) and
+    # GPT-J-6B's (16 heads of 256) as their models give them, and at each
+    # width GQA, a window, a ragged sequence, cross-length and non-causal
+    ("neox20b_fp16_d96_bshd", 1, 64, 64, 2048, 2048, 96, True, None, torch.float16, "bshd",
+     ("wgmma", "mma")),
+    ("fp16_gqa_d96", 1, 32, 8, 2048, 2048, 96, True, None, torch.float16, "bshd",
+     ("wgmma", "mma")),
+    ("fp16_window_d96", 1, 32, 32, 2048, 2048, 96, True, 512, torch.float16, "bhsd",
+     ("wgmma", "mma")),
+    ("fp16_ragged_d96", 2, 8, 4, 300, 300, 96, True, None, torch.float16, "bshd",
+     ("wgmma", "mma")),
+    ("fp16_cross_length_d96", 1, 32, 32, 256, 1024, 96, True, None, torch.float16, "bhsd",
+     ("wgmma", "mma")),
+    ("fp16_non_causal_d96", 1, 32, 32, 1000, 1000, 96, False, None, torch.float16, "bhsd",
+     ("wgmma", "mma")),
+    ("gptj6b_fp16_d256_bshd", 1, 16, 16, 2048, 2048, 256, True, None, torch.float16, "bshd",
+     ("wgmma", "mma")),
+    ("fp16_gqa_d256", 1, 16, 8, 2048, 2048, 256, True, None, torch.float16, "bshd",
+     ("wgmma", "mma")),
+    ("fp16_window_d256", 1, 16, 16, 2048, 2048, 256, True, 512, torch.float16, "bhsd",
+     ("wgmma", "mma")),
+    ("fp16_ragged_d256", 2, 8, 1, 300, 300, 256, True, None, torch.float16, "bshd",
+     ("wgmma", "mma")),
+    ("fp16_cross_length_d256", 1, 8, 1, 256, 1024, 256, True, None, torch.float16, "bhsd",
+     ("wgmma", "mma")),
+    ("fp16_non_causal_d256", 1, 8, 1, 1000, 1000, 256, False, None, torch.float16, "bhsd",
+     ("wgmma", "mma")),
     ("fp32_d40", 1, 8, 8, 512, 512, 40, True, None, torch.float32, "bhsd", "simt"),
     ("fp16_unaligned_d80", 1, 8, 4, 512, 512, 80, True, 128, torch.float16, "offset1",
      "simt"),
@@ -903,10 +947,12 @@ ROUTE_TURNS = ("mma", "wgmma", "wgmma", "mma")
 TURN_SHAPES = ("main", "d1024_bshd", "phi3_d96_bshd", "fp16_main", "fp16_ragged_300",
                "fp16_cross_length")
 # the forward alone timed in turns against the route it took before its
-# wgmma kernel (mma at 80, 256 and in fp16 at 64 and 80, simt at 100 in bf16
-# and fp16), SDPA's default after each turn (cuDNN at 80, flash at 100)
+# wgmma kernel (mma at 80, 256 and in fp16 at 64, 80, 96 and 256, simt at
+# 100 in bf16 and fp16), SDPA's default after each turn (cuDNN at 80, flash
+# at 100)
 FWD_TURN_SHAPES = ("d80", "d80_bshd", "unaligned_d100", "d100_bshd", "gemma_d256",
-                   "fp16_d1024_bshd", "opt27b_d80_bshd", "openllama3b_fp16_d100_bshd")
+                   "fp16_d1024_bshd", "opt27b_d80_bshd", "openllama3b_fp16_d100_bshd",
+                   "neox20b_fp16_d96_bshd", "gptj6b_fp16_d256_bshd")
 # dQ and dK/dV timed in turns against the route they took before their
 # wgmma kernels (mma at 80, 256 and in fp16 at 64, simt at 100 in bf16 and
 # fp16), with SDPA's whole backward after each turn under the backend named
@@ -931,13 +977,17 @@ WIDE_SHAPES = ("phi3_d96", "phi3_d96_bshd", "gqa_d96", "window_d96", "d80", "d80
                "fp16_window_d80", "fp16_ragged_d80", "fp16_cross_length_d80",
                "fp16_non_causal_d80", "openllama3b_fp16_d100_bshd", "fp16_unaligned_d100",
                "fp16_gqa_d100", "fp16_window_d100", "fp16_ragged_d100",
-               "fp16_cross_length_d100", "fp16_non_causal_d100",
-               "fp32_d40", "fp16_unaligned_d80", "fp32_d256", "fp32_d320", "bf16_d320")
+               "fp16_cross_length_d100", "fp16_non_causal_d100", "neox20b_fp16_d96_bshd",
+               "fp16_gqa_d96", "fp16_window_d96", "fp16_ragged_d96", "fp16_cross_length_d96",
+               "fp16_non_causal_d96", "gptj6b_fp16_d256_bshd", "fp16_gqa_d256",
+               "fp16_window_d256", "fp16_ragged_d256", "fp16_cross_length_d256",
+               "fp16_non_causal_d256", "fp32_d40", "fp16_unaligned_d80", "fp32_d256", "fp32_d320", "bf16_d320")
 # the kernels line's head_dims entry: the rows of each new width and dtype
 HEAD_DIM_ROWS = ("d80", "d80_bshd", "phi3_d96_bshd", "gemma_d256", "gemma7b_d256",
                  "unaligned_d100", "d100_bshd", "fp16_main", "fp16_d1024_bshd",
                  "opt13b_d64_bshd", "opt27b_d80_bshd", "openllama3b_fp16_d100_bshd",
-                 "fp16_unaligned_d100", "bf16_d320")
+                 "fp16_unaligned_d100", "neox20b_fp16_d96_bshd", "gptj6b_fp16_d256_bshd",
+                 "bf16_d320")
 # a head dim past the kernels' widest padded width (512, simt's): every
 # wrapper refuses it on every route, with no launch
 REFUSED_HEAD_DIM = 520
@@ -946,8 +996,8 @@ REFUSED_HEAD_DIM = 520
 def shape_routes(route) -> dict:
     """Each kernel's route at a SHAPES row: `route` names one for all three
     kernels (the wgmma route of each takes head dims 64, 80, 96, 100, 128
-    and 256 in bf16, and 64, 100 and 128 in fp16; the forward's also 80 in
-    fp16), or is a pair (the forward's, the backward kernels'), for a row
+    and 256 in bf16, and 64, 100 and 128 in fp16; the forward's also 80, 96
+    and 256 in fp16), or is a pair (the forward's, the backward kernels'), for a row
     where they differ."""
     fwd, bwd = (route, route) if isinstance(route, str) else route
     return {"flash_fwd": fwd, "flash_bwd_dq": bwd, "flash_bwd_dkv": bwd}
@@ -3322,12 +3372,13 @@ def main() -> int:
     from yoda_scheduler_tpu_torch import bench_generate, bench_mfu, bench_util
     # Mixtral-8x7B's widths from its config.json, in the port's config fields,
     # and Phi-3-mini's, OpenLLaMA-3B's, StableLM-3B-4E1T's, Gemma-2B's,
-    # OPT-1.3B's and OPT-2.7B's, from theirs
+    # OPT-1.3B's, OPT-2.7B's, GPT-NeoX-20B's and GPT-J-6B's, from theirs
     from yoda_scheduler_tpu_torch.profile_path import (
         d80_backward_on_mma, d80_forward_on_mma, d100_backward_on_simt,
         d100_forward_on_simt, d256_backward_on_mma, d256_forward_on_mma,
         fp16_backward_on_mma, fp16_d64_forward_on_mma, fp16_d80_forward_on_mma,
-        fp16_d100_backward_on_simt, fp16_d100_forward_on_simt, gemma_2b, mixtral_8x7b,
+        fp16_d96_forward_on_mma, fp16_d100_backward_on_simt, fp16_d100_forward_on_simt,
+        fp16_d256_forward_on_mma, gemma_2b, gpt_neox_20b, gptj_6b, mixtral_8x7b,
         openllama_3b, openllama_3b_fp16, opt_1_3b, opt_2_7b, phi3_mini, stablelm_3b_4e1t)
 
     gen_mod = importlib.import_module("yoda_scheduler_tpu_torch.models.generate")
@@ -3380,10 +3431,11 @@ def main() -> int:
         config="llama2_7b fp16 width, 4 layers",
         turns={"wgmma": contextlib.nullcontext, "backward_on_mma": fp16_backward_on_mma})
     # head dims 100 and 80 (OpenLLaMA-3B's and StableLM-3B's widths), 256
-    # (Gemma-2B's), 64 in fp16 (OPT-1.3B's), 80 in fp16 (OPT-2.7B's) and 100
-    # in fp16 (OpenLLaMA-3B's in its published dtype): every forward launch
-    # on wgmma, timed in turns against the forward on the route it took
-    # before its wgmma kernel
+    # (Gemma-2B's), 64 in fp16 (OPT-1.3B's), 80 in fp16 (OPT-2.7B's), 100
+    # in fp16 (OpenLLaMA-3B's in its published dtype), 96 in fp16
+    # (GPT-NeoX-20B's, 54 GB of weights: phase_forward frees the card first)
+    # and 256 in fp16 (GPT-J-6B's): every forward launch on wgmma, timed in
+    # turns against the forward on the route it took before its wgmma kernel
     new_width_routes = {}
     for phase, width_cfg, name, old in (
             ("openllama3b_forward", openllama_3b(), "open_llama_3b widths",
@@ -3397,7 +3449,11 @@ def main() -> int:
             ("opt27b_fp16_forward", opt_2_7b(), "opt_2_7b widths, fp16",
              ("forward_on_mma", fp16_d80_forward_on_mma)),
             ("openllama3b_fp16_forward", openllama_3b_fp16(), "open_llama_3b widths, fp16",
-             ("forward_on_simt", fp16_d100_forward_on_simt))):
+             ("forward_on_simt", fp16_d100_forward_on_simt)),
+            ("neox20b_fp16_forward", gpt_neox_20b(), "gpt_neox_20b widths, fp16",
+             ("forward_on_mma", fp16_d96_forward_on_mma)),
+            ("gptj6b_fp16_forward", gptj_6b(), "gpt_j_6b widths, fp16",
+             ("forward_on_mma", fp16_d256_forward_on_mma))):
         new_width_routes[phase] = phase_forward(
             attn, llama, width_cfg, phase=phase, config=name,
             turns={"wgmma": contextlib.nullcontext, old[0]: old[1]})[3]

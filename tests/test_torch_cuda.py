@@ -125,6 +125,7 @@ def _hopper_lib():
     lib.hopper_wgmma_rs80.argtypes = [p, p, i32, p, p]
     lib.hopper_wgmma_rs104.argtypes = [p, p, i32, p, p]
     lib.hopper_wgmma_rs80_f16.argtypes = [p, p, i32, p, p]
+    lib.hopper_wgmma_rs96_f16.argtypes = [p, p, i32, p, p]
     lib.hopper_wgmma_rs104_f16.argtypes = [p, p, i32, p, p]
     lib.hopper_cp_async_tile.argtypes = [p, p, i64, i32, i32, p, p, p, p]
     lib.hopper_cp_async_tile64.argtypes = [p, p, p, i64, i32, i32, i32, p, p, p, p]
@@ -397,6 +398,21 @@ def test_wgmma_rs80_and_rs104_f16_tiles_are_matmuls(gpu, n, rows):
     lib = _hopper_lib()
     fn = lib.hopper_wgmma_rs80_f16 if n == 80 else lib.hopper_wgmma_rs104_f16
     assert fn(p.data_ptr(), v.data_ptr(), rows, out.data_ptr(), _stream()) == 0
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, p.float() @ v.float(), atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("rows", [64, 128])
+def test_wgmma_rs96_f16_tile_is_a_matmul(gpu, rows):
+    """The f16 form of m64n96k16 (A from registers, B a [rows, 96] MN-major
+    fp16 tile read through FLOAT16 maps as two 64-column boxes, the second
+    zero-filled past column 96): the fp16 D = 96 forward's P V."""
+    gen = torch.Generator(gpu).manual_seed(7)
+    p = torch.rand(64, rows, generator=gen, device=gpu).to(torch.float16)
+    v = torch.randn(rows, 96, generator=gen, device=gpu).to(torch.float16)
+    out = torch.empty(64, 96, device=gpu)
+    assert _hopper_lib().hopper_wgmma_rs96_f16(p.data_ptr(), v.data_ptr(), rows,
+                                               out.data_ptr(), _stream()) == 0
     torch.cuda.synchronize()
     torch.testing.assert_close(out, p.float() @ v.float(), atol=1e-3, rtol=1e-4)
 
@@ -1142,21 +1158,22 @@ def test_wgmma_f16_forward_at_100_takes_bases_8_bytes_off(gpu):
 
 def test_the_fp16_wgmma_forwards_refuse_what_they_cannot_take(gpu):
     """The fp16 refusals that still hold on the wgmma route: the forward at
-    head dim 96 (no fp16 kernel there), and at 100 rows 2 or 4 bytes off an
-    8-byte boundary, a sequence stride that is no multiple of 4 elements and
-    an empty kv. The wrapper raises with no launch where `_routes` refuses;
-    csrc/'s entry, called past `_routes`, returns cudaErrorInvalidValue (1)
-    for each; the same rows at a stride of 104 launch (0). dQ and dK/dV
-    refuse fp16 at 80 and take it at 100."""
+    head dim 112 (no kernel there in either dtype), and at 100 rows 2 or 4
+    bytes off an 8-byte boundary, a sequence stride that is no multiple of 4
+    elements and an empty kv. The wrapper raises with no launch where
+    `_routes` refuses; csrc/'s entry, called past `_routes`, returns
+    cudaErrorInvalidValue (1) for each; the same rows at a stride of 104
+    launch (0), and so do aligned rows at 80 and 96. dQ and dK/dV refuse
+    fp16 at 80 and 96 and take it at 100."""
     half = torch.float16
-    d96 = _qkv(gpu, half, 1, 4, 4, 64, 64, 96)[0]
+    d112 = _qkv(gpu, half, 1, 4, 4, 64, 64, 112)[0]
     wide = torch.randn(1, 4, 64, 104, device=gpu).to(half)
     odd = torch.randn(1, 4, 64, 102, device=gpu).to(half)[..., :100]
     empty = torch.zeros(1, 4, 0, 100, device=gpu, dtype=half)
     flat = torch.randn(2 + 4 * 64 * 100, device=gpu).to(half)
     off = [flat[o:o + 4 * 64 * 100].view(1, 4, 64, 100) for o in (1, 2)]
     fn = attn.flash_fwd
-    for tensors in [(d96,) * 3, (odd,) * 3, (wide[..., :100], empty, empty)] + [
+    for tensors in [(d112,) * 3, (odd,) * 3, (wide[..., :100], empty, empty)] + [
             (t,) * 3 for t in off]:
         assert "wgmma" not in attn._routes("flash_fwd", *tensors)
         before = (fn.launches, dict(fn.launches_by_route))
@@ -1165,12 +1182,110 @@ def test_the_fp16_wgmma_forwards_refuse_what_they_cannot_take(gpu):
         assert (fn.launches, fn.launches_by_route) == before
         assert _c_entry("flash_fwd", tensors, "wgmma") == 1
     assert _c_entry("flash_fwd", (wide[..., :100],) * 3, "wgmma") == 0
-    for d in (80, 100):
+    for d in (80, 96, 100):
         t = _qkv(gpu, half, 1, 4, 4, 64, 64, d)[0]
         assert _c_entry("flash_fwd", (t,) * 3, "wgmma") == 0
         for name in ("flash_bwd_dq", "flash_bwd_dkv"):
             assert ("wgmma" in attn._routes(name, t, t, t, t)) == (d == 100)
-            assert _c_entry(name, (t,) * 4, "wgmma") == (d == 80), (name, d)
+            assert _c_entry(name, (t,) * 4, "wgmma") == (d != 100), (name, d)
+    torch.cuda.synchronize()
+
+
+# the forward's fp16 wgmma kernels at head dims 96 (flash_fwd_wgmma96_f16_kernel:
+# GPT-NeoX-20B's attention, 64 heads of 96) and 256
+# (flash_fwd_wgmma256_f16_kernel: GPT-J-6B's, 16 heads of 256): (b, h, kvh,
+# sq, sk), causal, window at each head dim, the model's shape first
+F16_96_256_SHAPES = {
+    96: {"neox20b_s2048": ((1, 64, 64, 2048, 2048), True, None),
+         "gqa_32_8": ((1, 32, 8, 512, 512), True, None),
+         "window_512": ((1, 4, 4, 2048, 2048), True, 512),
+         "ragged_300": ((2, 8, 4, 300, 300), True, None),
+         "cross_256x1024": ((1, 4, 4, 256, 1024), True, None),
+         "non_causal": ((1, 4, 2, 320, 448), False, None)},
+    256: {"gptj6b_s2048": ((1, 16, 16, 2048, 2048), True, None),
+          "gqa_16_8": ((1, 16, 8, 512, 512), True, None),
+          "window_512": ((1, 4, 4, 2048, 2048), True, 512),
+          "ragged_300": ((2, 8, 1, 300, 300), True, None),
+          "cross_256x1024": ((1, 8, 1, 256, 1024), True, None),
+          "non_causal": ((1, 4, 2, 320, 448), False, None)},
+}
+
+
+def _f16_inputs(gpu, d, case, layout, seed=0):
+    (b, h, kvh, sq, sk), causal, window = F16_96_256_SHAPES[d][case]
+    q, k, v = _qkv(gpu, torch.float16, b, h, kvh, sq, sk, d, seed=seed)
+    if layout == "bshd":  # the model's transposed views of [B, S, H, D]
+        q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
+    return q, k, v, causal, window
+
+
+@pytest.mark.parametrize("d,case", [(d, case) for d, cases in F16_96_256_SHAPES.items()
+                                    for case in cases])
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+def test_wgmma_f16_forward_at_96_and_256_matches_the_plain_version(gpu, d, case, layout):
+    """One launch on wgmma, as `_route` picks it, within fp16's bounds
+    (chip_smoke's) elementwise and by O's worst 64-row tile; dQ and dK/dV
+    stay on mma at these inputs."""
+    q, k, v, causal, window = _f16_inputs(gpu, d, case, layout)
+    assert attn._route("flash_fwd", q, k, v) == "wgmma"
+    assert attn._route("flash_bwd_dq", q, k, v, q) == "mma"
+    before = attn.flash_fwd.launches_by_route["wgmma"]
+    o, lse = attn.flash_fwd(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert attn.flash_fwd.launches_by_route["wgmma"] == before + 1
+    assert o.dtype == torch.float16 and o.shape == q.shape and o.is_contiguous()
+    ro, rl = attn.reference_attention_with_lse(q, k, v, causal, window)
+    tol = TOL[torch.float16]
+    torch.testing.assert_close(o.float(), ro.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, rl, atol=1e-3, rtol=1e-3)
+    assert tile_rel_l2(o, ro) <= chip_smoke.TILE_REL_L2_FP16
+
+
+@pytest.mark.parametrize("d,case", [(96, "neox20b_s2048"), (96, "window_512"),
+                                    (256, "gptj6b_s2048"), (256, "ragged_300")])
+def test_wgmma_f16_forward_at_96_and_256_matches_the_mma_route(gpu, d, case):
+    """The new kernels against the mma kernel, the route they took before,
+    on the same inputs (the models' views), and each bit-repeatable."""
+    q, k, v, causal, window = _f16_inputs(gpu, d, case, "bshd", seed=2)
+    o1, l1 = attn.flash_fwd(q, k, v, causal, window, route="mma")
+    runs = [attn.flash_fwd(q, k, v, causal, window, route="wgmma") for _ in range(2)]
+    torch.cuda.synchronize()
+    o2, l2 = runs[0]
+    tol = TOL[torch.float16]
+    torch.testing.assert_close(o2.float(), o1.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(l2, l1, atol=1e-3, rtol=1e-3)
+    assert tile_rel_l2(o2, o1) <= chip_smoke.TILE_REL_L2_FP16
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.parametrize("d", [96, 256])
+def test_the_fp16_wgmma_forwards_at_96_and_256_refuse_rows_off_16_bytes(gpu, d):
+    """fp16 rows that start 1, 2 or 4 elements into their storage (2, 4 or
+    8 bytes off a 16-byte boundary), a sequence stride that is no multiple
+    of 8 elements and an empty kv: `_routes` offers no wgmma, the named
+    route raises with no launch (the empty kv is refused by csrc/ alone),
+    and csrc/'s entry, called past `_routes`, returns cudaErrorInvalidValue
+    (1) for each; the same rows at a stride of d + 8 launch (0). fp32 at
+    d, and fp16 dQ and dK/dV at d, are refused by csrc/ too."""
+    half = torch.float16
+    n = 4 * 64 * d
+    flat = torch.randn(4 + n, device=gpu).to(half)
+    wide = torch.randn(1, 4, 64, d + 8, device=gpu).to(half)
+    odd = torch.randn(1, 4, 64, d + 4, device=gpu).to(half)[..., :d]
+    empty = torch.zeros(1, 4, 0, d, device=gpu, dtype=half)
+    fn = attn.flash_fwd
+    for t in [flat[o:o + n].view(1, 4, 64, d) for o in (1, 2, 4)] + [odd]:
+        assert "wgmma" not in attn._routes("flash_fwd", t, t, t)
+        before = (fn.launches, dict(fn.launches_by_route))
+        with pytest.raises(ValueError, match="flash_fwd route 'wgmma' cannot take"):
+            fn(t, t, t, causal=False, route="wgmma")
+        assert (fn.launches, fn.launches_by_route) == before
+        assert _c_entry("flash_fwd", (t,) * 3, "wgmma") == 1
+    assert _c_entry("flash_fwd", (wide[..., :d], empty, empty), "wgmma") == 1
+    assert _c_entry("flash_fwd", (wide[..., :d],) * 3, "wgmma") == 0
+    assert _c_entry("flash_fwd", (wide[..., :d].float().contiguous(),) * 3, "wgmma") == 1
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert _c_entry(name, (wide[..., :d],) * 4, "wgmma") == 1, name
     torch.cuda.synchronize()
 
 
@@ -1265,16 +1380,18 @@ def test_the_c_entries_admit_what_routes_admits_at_256_and_fp16_64(gpu, d, dtype
 def test_the_new_wgmma_forwards_refuse_what_they_cannot_take(gpu, d, dtype):
     """csrc/'s entries on the wgmma route at 256 (bf16) and 64 (fp16), the
     forward, dQ and dK/dV, past `_routes`: an empty kv, a sequence stride
-    that is no multiple of 8 elements and a dtype no wgmma kernel takes at
-    that head dim (fp16 at 256, fp32 at 64) each return
-    cudaErrorInvalidValue (1); the same rows at a stride of d + 8 launch
-    (0)."""
+    that is no multiple of 8 elements and a dtype no wgmma kernel of that
+    entry takes at that head dim (fp32 for the forward, whose fp16 kernel at
+    256 is GPT-J-6B's; fp16 for dQ and dK/dV at 256, fp32 at 64) each
+    return cudaErrorInvalidValue (1); the same rows at a stride of d + 8
+    launch (0)."""
     wide = torch.randn(1, 4, 64, d + 8, device=gpu).to(dtype)
     odd = torch.randn(1, 4, 64, d + 4, device=gpu).to(dtype)[..., :d]
     empty = torch.zeros(1, 4, 0, d, device=gpu, dtype=dtype)
-    other = wide[..., :d].to(torch.float16 if dtype == torch.bfloat16 else torch.float32)
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         n = 3 if name == "flash_fwd" else 4
+        other = wide[..., :d].to(torch.float16 if dtype == torch.bfloat16
+                                 and name != "flash_fwd" else torch.float32)
         assert _c_entry(name, (wide[..., :d],) * n, "wgmma") == 0, name
         assert _c_entry(name, (odd,) * n, "wgmma") == 1, name
         assert _c_entry(name, (wide[..., :d], empty, empty, wide[..., :d])[:n],
@@ -1737,17 +1854,18 @@ def test_wgmma_backward_rounds_ds_where_the_plain_backward_does(gpu, case):
 
 @pytest.mark.parametrize("d", [64, 96])
 def test_wgmma_takes_fp16_at_head_dim_128_alone(gpu, d):
-    """In fp16 the forward, dQ and dK/dV have wgmma kernels at head dims 128
-    and 64 (OPT-1.3B's) alone: named at 96, each one's wgmma route raises
-    with no launch, and at 64 each launches on it; at 128 each launches on
-    it."""
+    """In fp16 dQ and dK/dV have wgmma kernels at head dims 128 and 64
+    (OPT-1.3B's), not at 96, and the forward at all three: named at 96, dQ's
+    and dK/dV's wgmma route raises with no launch while the forward's
+    (GPT-NeoX-20B's kernel) launches, and at 64 each launches on it; at 128
+    each launches on it."""
     q = _qkv(gpu, torch.float16, 1, 4, 4, 128, 128, d)[0]
     q128 = _qkv(gpu, torch.float16, 1, 4, 4, 128, 128, 128)[0]
     lse = torch.zeros(q.shape[:3], device=gpu)
     for fn in (attn.flash_fwd, attn.flash_bwd_dq, attn.flash_bwd_dkv):
         args = (q,) * 3 if fn is attn.flash_fwd else (q,) * 4 + (lse, lse)
         before = (fn.launches, dict(fn.launches_by_route))
-        if d == 64:
+        if d == 64 or fn is attn.flash_fwd:
             fn(*args, route="wgmma")
             torch.cuda.synchronize()
             assert fn.launches_by_route["wgmma"] == before[1]["wgmma"] + 1

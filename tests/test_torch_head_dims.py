@@ -184,14 +184,17 @@ FP16_LOGITS_REL_L2 = 2.5e-3
 FP16_CONFIGS = {32: dict(), 48: dict(dim=96, n_heads=2, n_kv_heads=1, ffn_dim=192),
                 64: dict(n_heads=2, n_kv_heads=2),
                 80: dict(dim=160, n_heads=2, n_kv_heads=2),
-                100: dict(dim=200, n_heads=2, n_kv_heads=2)}
+                100: dict(dim=200, n_heads=2, n_kv_heads=2),
+                96: dict(dim=192, n_heads=2, n_kv_heads=2),
+                256: dict(dim=512, n_heads=2, n_kv_heads=2)}
 
 
-@pytest.mark.parametrize("head_dim", [32, 48, 64, 80, 100])
+@pytest.mark.parametrize("head_dim", [32, 48, 64, 80, 100, 96, 256])
 def test_fp16_llama_logits_match_jax(head_dim):
-    """A tiny fp16 Llama (the dtype of Llama-2's, OPT's and OpenLLaMA's
-    published weights) at the tiny preset's head dim 32, at 48, 64, 80 and
-    100."""
+    """A tiny fp16 Llama (the dtype of Llama-2's, OPT's, OpenLLaMA's,
+    GPT-NeoX-20B's and GPT-J-6B's published weights) at the tiny preset's
+    head dim 32, at 48, 64, 80, 100, 96 (GPT-NeoX-20B's) and 256
+    (GPT-J-6B's)."""
     jcfg = dataclasses.replace(jllama.LlamaConfig.tiny(), dtype="float16",
                                **FP16_CONFIGS[head_dim])
     assert jcfg.head_dim == head_dim

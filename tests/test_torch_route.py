@@ -41,8 +41,9 @@ CASES = {
     # 96 (Phi-3-mini's), 100 (OpenLLaMA-3B's, whose rows the kernels copy in
     # 8-byte pieces: bases 8-byte aligned, strides multiples of 4) and 128,
     # and fp16 at 128; the forward's wgmma also bf16 at 80 (StableLM-3B's)
-    # and 256 (Gemma's), and fp16 at 64 (OPT-1.3B's), 80 (OPT-2.7B's) and
-    # 100 (OpenLLaMA-3B's published dtype; 8-byte aligned rows, as in bf16)
+    # and 256 (Gemma's), and fp16 at 64 (OPT-1.3B's), 80 (OPT-2.7B's), 96
+    # (GPT-NeoX-20B's), 100 (OpenLLaMA-3B's published dtype; 8-byte aligned
+    # rows, as in bf16) and 256 (GPT-J-6B's)
     "bf16_d96": (lambda: [_bhsd(1, 4, 64, 96)] * 3, "wgmma"),
     "bf16_d80": (lambda: [_bhsd(1, 4, 64, 80)] * 3, "wgmma"),
     "bf16_d80_bshd_view": (lambda: [_model_view(2, 64, 4, 80)] * 3, "wgmma"),
@@ -58,7 +59,17 @@ CASES = {
     "fp16_d64_bshd_view": (lambda: [_model_view(1, 64, 32, 64, torch.float16)] * 3, "wgmma"),
     "fp16_d64_offset_by_one": (lambda: [_bhsd(1, 4, 64, 64, torch.float16, offset=1)] * 3,
                                "simt"),
-    "fp16_d96": (lambda: [_bhsd(1, 4, 64, 96, torch.float16)] * 3, "mma"),
+    "fp16_d96": (lambda: [_bhsd(1, 4, 64, 96, torch.float16)] * 3, "wgmma"),
+    "fp16_d96_bshd_view": (lambda: [_model_view(1, 64, 64, 96, torch.float16)] * 3, "wgmma"),
+    "fp16_d96_offset_by_one": (lambda: [_bhsd(1, 4, 64, 96, torch.float16, offset=1)] * 3,
+                               "simt"),
+    "fp16_d256": (lambda: [_bhsd(1, 4, 64, 256, torch.float16)] * 3, "wgmma"),
+    "fp16_d256_bshd_view": (lambda: [_model_view(1, 64, 16, 256, torch.float16)] * 3,
+                            "wgmma"),
+    "fp16_d256_gqa": (lambda: [_bhsd(1, 8, 64, 256, torch.float16)]
+                      + [_bhsd(1, 1, 64, 256, torch.float16)] * 2, "wgmma"),
+    "fp16_d256_offset_by_four": (lambda: [_bhsd(1, 4, 64, 256, torch.float16, offset=4)]
+                                 * 3, "simt"),
     "bf16_d100": (lambda: [_bhsd(1, 4, 64, 100)] * 3, "wgmma"),
     "bf16_d100_aligned_rows": (lambda: [_bhsd(1, 4, 64, 104)[..., :100]] * 3, "wgmma"),
     "bf16_d100_bshd_view": (lambda: [_model_view(2, 64, 4, 100)] * 3, "wgmma"),
@@ -99,12 +110,13 @@ def test_route_follows_the_inputs(case):
 
 # the head dims each kernel has a wgmma kernel for (csrc/), by dtype: every
 # kernel at 64, 80, 96, 128 and 256 in bf16, and at 64 and 128 in fp16, and
-# the forward at 80 in fp16 too (and every kernel at 100 in both dtypes,
-# whose rows are not 16-byte aligned: not among these, which mma takes too)
+# the forward at 80, 96 and 256 in fp16 too (and every kernel at 100 in both
+# dtypes, whose rows are not 16-byte aligned: not among these, which mma
+# takes too)
 WGMMA_TAKES = {torch.bfloat16: {"flash_fwd": (64, 80, 96, 128, 256),
                                 "flash_bwd_dq": (64, 80, 96, 128, 256),
                                 "flash_bwd_dkv": (64, 80, 96, 128, 256)},
-               torch.float16: {"flash_fwd": (64, 80, 128), "flash_bwd_dq": (64, 128),
+               torch.float16: {"flash_fwd": (64, 80, 96, 128, 256), "flash_bwd_dq": (64, 128),
                                "flash_bwd_dkv": (64, 128)}}
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 HEAD_DIMS = (32, 64, 128, 40, 80, 96, 256)
@@ -131,15 +143,17 @@ def test_wgmma_admits_each_kernels_head_dims(kernel, d, wgmma):
     for kernel in KERNELS for d in HEAD_DIMS])
 def test_wgmma_admits_fp16_at_head_dim_128_alone(kernel, d, wgmma):
     """In fp16 wgmma takes head dims 128 and 64 alone for dQ and dK/dV, and
-    80 too for the forward (`WGMMA_TAKES`); every other aligned fp16 head
-    dim keeps mma for all three kernels, up to 256."""
+    80, 96 and 256 too for the forward (`WGMMA_TAKES`); every other aligned
+    fp16 head dim keeps mma for all three kernels, up to 256."""
     _assert_wgmma_admits(kernel, d, torch.float16, wgmma)
 
 
 @pytest.mark.parametrize("case,route", [
     ("fp32_d128", "wgmma"), ("fp32_d128", "mma"), ("bf16_d32", "wgmma"),
     ("bf16_offset_by_one", "mma"), ("bf16_d128", "tma"), ("fp16_d80_offset_by_four", "wgmma"),
-    ("fp16_d40", "wgmma"), ("fp16_d96", "wgmma"), ("bf16_d100", "mma"),
+    ("fp16_d40", "wgmma"), ("fp16_d96_offset_by_one", "wgmma"), ("bf16_d100", "mma"),
+    ("fp16_d96_offset_by_one", "mma"), ("fp16_d256_offset_by_four", "wgmma"),
+    ("fp16_d256_offset_by_four", "mma"),
     ("bf16_d100_aligned_rows", "mma"), ("fp16_offset_by_one", "mma"),
     ("fp16_offset_by_one", "wgmma"), ("bf16_d100_offset_by_two", "wgmma"),
     ("bf16_d100_odd_seq_stride", "wgmma"), ("bf16_d100_empty_kv", "wgmma"),
@@ -244,8 +258,9 @@ BWD_CASES = {
     "fp16_d64_do_offset_by_one": (lambda: [_model_view(1, 64, 4, 64, torch.float16)] * 3
                                   + [_bhsd(1, 4, 64, 64, torch.float16, offset=1)], "simt"),
     # head dim 256 (Gemma's, 8 q heads over one KV head): wgmma for rows
-    # aligned as mma's; mma in fp16 and for an empty kv, simt for rows 8
-    # bytes off 16
+    # aligned as mma's; mma in fp16 (where the forward alone has an fp16
+    # wgmma kernel, GPT-J-6B's) and for an empty kv, simt for rows 8 bytes
+    # off 16
     "bf16_d256_gqa_model_views": (lambda: [_model_view(1, 64, 8, 256)]
                                   + [_model_view(1, 64, 1, 256)] * 2
                                   + [_model_view(1, 64, 8, 256)], "wgmma"),
@@ -592,7 +607,7 @@ def test_the_smokes_wide_rows_take_their_routes(row):
     route `_route` picks for each kernel there: wgmma at head dims 80, 96,
     100 and 256 in bf16 and in fp16 at 64, 100 and 128 aligned (not one
     element into its storage), for every kernel, and for the forward alone
-    in fp16 at 80."""
+    in fp16 at 80, 96 and 256."""
     import chip_smoke
 
     q, k, v, do = _smoke_row_tensors(row)
@@ -604,7 +619,7 @@ def test_the_smokes_wide_rows_take_their_routes(row):
     aligned_fp16 = row[9] == torch.float16 and row[10] != "offset1"
     every = ((row[6] in (80, 96, 100, 256) and aligned_bf16)
              or (row[6] in (64, 100, 128) and aligned_fp16))
-    forward = every or (row[6] == 80 and aligned_fp16)
+    forward = every or (row[6] in (80, 96, 256) and aligned_fp16)
     assert ("wgmma" in attn._routes("flash_fwd", q, k, v)) == forward
     assert ("wgmma" in attn._routes("flash_bwd_dkv", q, k, v, do)) == every
     assert ("wgmma" in attn._routes("flash_bwd_dq", q, k, v, do)) == every
@@ -771,7 +786,7 @@ def test_shape_routes_takes_a_forward_and_backward_pair():
     route for all three, which every row at 64 in fp16, 80, 100 or 256 names
     (all on wgmma); the smoke's forward turn rows are among its wide rows, each with a route
     before wgmma to be timed against (simt at 100, mma elsewhere), the fp16
-    rows at 80 and 100 among them; its backward turn rows are the nine at
+    rows at 80, 96, 100 and 256 among them; its backward turn rows are the nine at
     80, 100, 256 and in fp16 at 64 and 100, where dQ and dK/dV took mma or
     simt before their wgmma kernels, timed beside SDPA's default backend
     (cuDNN) at 80, 256 and 64 and its flash backend at 100."""
@@ -785,14 +800,17 @@ def test_shape_routes_takes_a_forward_and_backward_pair():
         (80, torch.bfloat16, "bhsd"), (80, torch.bfloat16, "bshd"),
         (100, torch.bfloat16, "bhsd"), (100, torch.bfloat16, "bshd"),
         (256, torch.bfloat16, "bshd"), (64, torch.float16, "bshd"),
-        (80, torch.float16, "bshd"), (100, torch.float16, "bshd")}
+        (80, torch.float16, "bshd"), (100, torch.float16, "bshd"),
+        (96, torch.float16, "bshd"), (256, torch.float16, "bshd")}
     for name in chip_smoke.FWD_TURN_SHAPES:
         old = "simt" if rows[name][6] == 100 else "mma"
         q, k, v, _ = _smoke_row_tensors(rows[name])
         assert chip_smoke.shape_routes(rows[name][-1])["flash_fwd"] == "wgmma"
         assert attn._routes("flash_fwd", q, k, v)[-2:] == (old, "wgmma")
     turns = chip_smoke.BWD_TURN_SHAPES
-    assert set(turns) == (set(chip_smoke.FWD_TURN_SHAPES) - {"opt27b_d80_bshd"}
+    assert set(turns) == (set(chip_smoke.FWD_TURN_SHAPES)
+                          - {"opt27b_d80_bshd", "neox20b_fp16_d96_bshd",
+                             "gptj6b_fp16_d256_bshd"}
                           | {"opt13b_d64_bshd", "fp16_unaligned_d100"})
     assert set(turns) <= set(chip_smoke.WIDE_SHAPES)
     for name, backend in turns.items():
@@ -951,7 +969,7 @@ def test_the_gemma_and_opt_forwards_expect_every_launch_on_wgmma():
         assert f'("{phase}", ' in main and f'("forward_on_mma", {manager})' in main
     assert {"flash_fwd_wgmma256_kernel", "flash_fwd_wgmma64_f16_kernel"} <= set(
         chip_smoke.WGMMA_KERNELS)
-    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 28
+    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 30
 
 
 def test_the_smokes_new_rows_at_256_and_fp16_64():
@@ -1255,7 +1273,7 @@ def test_the_opt27b_and_fp16_openllama_forwards_expect_every_launch_on_wgmma():
         assert f'("{phase}", ' in main and old in main
     assert {"flash_fwd_wgmma80_f16_kernel", "flash_fwd_wgmma100_f16_kernel"} <= set(
         chip_smoke.WGMMA_KERNELS)
-    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 28
+    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 30
 
 
 def test_the_smokes_fp16_rows_at_80_and_100():
@@ -1375,6 +1393,164 @@ def test_openllama3b_fp16_gradient_and_backward_expect_every_launch_on_wgmma():
     assert "turns=fp16_d100_turns, llama=llama)" in main
     assert {"flash_bwd_dq_wgmma100_f16_kernel", "flash_bwd_dkv_wgmma100_f16_kernel"} <= set(
         chip_smoke.WGMMA_KERNELS)
-    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 28
+    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 30
     assert chip_smoke.FP16_SINK_COTANGENT_D100 == dict(chip_smoke.FP16_SINK_COTANGENT, d=100)
     assert "FP16_SINK_COTANGENT_D100" in inspect.getsource(chip_smoke.phase_backward)
+
+
+# fp16 at head dims 96 (GPT-NeoX-20B's) and 256 (GPT-J-6B's): the forward has
+# an fp16 wgmma kernel at each; dQ and dK/dV keep mma
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+@pytest.mark.parametrize("d", [96, 256])
+def test_the_fp16_forward_alone_takes_wgmma_at_96_and_256(d, layout):
+    """fp16, contiguous and as the model's views: the forward's routes end
+    in wgmma after mma, dQ's and dK/dV's in mma; rows one element into
+    their storage take simt alone."""
+    half = torch.float16
+    q, k, v, do = ([_bhsd(1, 4, 64, d, half)] if layout == "bhsd"
+                   else [_model_view(1, 64, 4, d, half)]) * 4
+    assert attn._routes("flash_fwd", q, k, v) == ("simt", "mma", "wgmma")
+    for kernel in BWD_KERNELS:
+        assert attn._routes(kernel, q, k, v, do) == ("simt", "mma")
+    off = _bhsd(1, 4, 64, d, half, offset=1)
+    assert attn._routes("flash_fwd", off, off, off) == ("simt",)
+
+
+@pytest.mark.parametrize("dim", [192, 512])
+def test_the_models_fp16_forward_at_96_and_256(monkeypatch, dim):
+    """An fp16 layer at head_dim 96 and 256 (`_a_models_launch_routes`):
+    both forward launches take their fp16 wgmma kernel, and the backward
+    launchers mma, with the cotangent that `_FlashFwd.backward` scales in
+    fp16."""
+    cfg = dataclasses.replace(_one_layer(dim, "float16"), n_kv_heads=2)
+    assert cfg.head_dim == dim // 2
+    assert _a_models_launch_routes(monkeypatch, cfg) == [
+        ("flash_fwd", "wgmma"), ("flash_fwd", "wgmma"), ("flash_bwd_dq", "mma"),
+        ("flash_bwd_dkv", "mma")]
+
+
+def _llama_params(cfg) -> int:
+    """The parameters of `init_llama(cfg)`: embedding and output head, and
+    per layer the four attention matrices, the three FFN matrices and two
+    norms, and the final norm."""
+    d, hd = cfg.dim, cfg.head_dim
+    attn_mats = 2 * d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
+    return (2 * cfg.vocab_size * d + cfg.n_layers * (attn_mats + 3 * d * cfg.ffn_dim + 2 * d)
+            + d)
+
+
+def test_the_neox20b_and_gptj6b_configs_have_their_published_widths():
+    """`profile_path.gpt_neox_20b` against EleutherAI/gpt-neox-20b's
+    config.json and `gptj_6b` against EleutherAI/gpt-j-6b's (hidden,
+    layers, heads, KV heads, head dim, FFN, vocab, rope theta, norm eps,
+    positions, dtype: fp16, their published weights'); on the Llama block
+    they reckon 27,195,365,376 and 7,929,303,040 parameters."""
+    from yoda_scheduler_tpu_torch.profile_path import gpt_neox_20b, gptj_6b
+
+    fields = ("dim", "n_layers", "n_heads", "n_kv_heads", "head_dim", "ffn_dim",
+              "vocab_size", "rope_theta", "norm_eps", "max_seq_len", "dtype")
+    for cfg, want, params in (
+            (gpt_neox_20b(), (6144, 44, 64, 64, 96, 24576, 50432, 10000.0, 1e-5, 2048,
+                              "float16"), 27_195_365_376),
+            (gptj_6b(), (4096, 28, 16, 16, 256, 16384, 50400, 10000.0, 1e-5, 2048,
+                         "float16"), 7_929_303_040)):
+        assert tuple(getattr(cfg, f) for f in fields) == want
+        assert not cfg.is_moe and cfg.sliding_window is None
+        assert _llama_params(cfg) == params
+
+
+def test_fp16_d96_and_d256_forward_on_mma_move_the_fp16_forward_alone():
+    """`profile_path.fp16_d96_forward_on_mma` and `fp16_d256_forward_on_mma`,
+    the route sets the GPT-NeoX-20B and GPT-J-6B forwards are timed against:
+    within each the fp16 forward at its width takes mma, while fp16 dQ and
+    dK/dV stay on mma there, bf16 at that width keeps wgmma for every
+    kernel, and fp16 at the other width and at 64, 80 and 128 keeps its
+    wgmma forward; after it `_WGMMA_HEAD_DIMS` is exactly what it was."""
+    from yoda_scheduler_tpu_torch.profile_path import (fp16_d96_forward_on_mma,
+                                                       fp16_d256_forward_on_mma)
+
+    half = torch.float16
+    saved = {key: dims for key, dims in attn._WGMMA_HEAD_DIMS.items()}
+    for routes, d, other in ((fp16_d96_forward_on_mma, 96, 256),
+                             (fp16_d256_forward_on_mma, 256, 96)):
+        t = [_model_view(1, 64, 4, d, half)] * 4
+        bf16 = [_model_view(1, 64, 4, d)] * 4
+        rest = [[_model_view(1, 64, 4, dd, half)] * 3 for dd in (other, 64, 80, 128)]
+        with routes():
+            assert attn._route("flash_fwd", *t[:3]) == "mma"
+            for name in BWD_KERNELS:
+                assert attn._route(name, *t) == "mma"
+                assert attn._route(name, *bf16) == "wgmma"
+            assert attn._route("flash_fwd", *bf16[:3]) == "wgmma"
+            for r in rest:
+                assert attn._route("flash_fwd", *r) == "wgmma"
+        assert attn._WGMMA_HEAD_DIMS == saved
+        assert attn._route("flash_fwd", *t[:3]) == "wgmma"
+
+
+def test_the_neox20b_and_gptj6b_forwards_expect_every_launch_on_wgmma():
+    """chip_smoke's neox20b_fp16_forward and gptj6b_fp16_forward expect one
+    flash_fwd launch a layer on wgmma (`phase_forward`'s route), 44 and 28:
+    `_route` picks it on each config's fp16 model views; both run in main's
+    loop of forward phases (whose launches go into the kernels line's
+    launches by path), timed in turns against the forward on mma, and the
+    build expects both new kernels among 30; profile_path's main traces
+    both forwards on each route last."""
+    import inspect
+
+    import chip_smoke
+    from yoda_scheduler_tpu_torch import profile_path
+    from yoda_scheduler_tpu_torch.profile_path import gpt_neox_20b, gptj_6b
+
+    for cfg, layers in ((gpt_neox_20b(), 44), (gptj_6b(), 28)):
+        assert cfg.n_layers == layers and cfg.dtype == "float16"
+        q = _model_view(1, 64, cfg.n_heads, cfg.head_dim, cfg.torch_dtype)
+        k = _model_view(1, 64, cfg.n_kv_heads, cfg.head_dim, cfg.torch_dtype)
+        assert attn._route("flash_fwd", q, k, k) == "wgmma"
+    main = inspect.getsource(chip_smoke.main)
+    for phase, manager in (("neox20b_fp16_forward", "fp16_d96_forward_on_mma"),
+                           ("gptj6b_fp16_forward", "fp16_d256_forward_on_mma")):
+        assert f'("{phase}", ' in main and f'("forward_on_mma", {manager})' in main
+    assert "**new_width_routes" in main
+    assert {"flash_fwd_wgmma96_f16_kernel", "flash_fwd_wgmma256_f16_kernel"} <= set(
+        chip_smoke.WGMMA_KERNELS)
+    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 30
+    windows = inspect.getsource(profile_path.neox_gptj_forward_windows)
+    assert "fp16_d96_forward_on_mma" in windows and "fp16_d256_forward_on_mma" in windows
+    assert "neox_gptj_forward_windows()" in inspect.getsource(profile_path.main)
+
+
+def test_the_smokes_fp16_rows_at_96_and_256():
+    """chip_smoke's fp16 rows at head dims 96 (GPT-NeoX-20B's attention as
+    its model gives it, 64 heads of 96, then GQA 32/8, window 512, ragged,
+    cross-length, non-causal) and 256 (GPT-J-6B's, 16 heads of 256, and the
+    same five) name the forward on wgmma and dQ and dK/dV on mma; all are
+    wide rows, held on every route; the models' rows are forward turn rows
+    (against mma) and in the kernels line, and no row at either width is a
+    backward turn row."""
+    import chip_smoke
+
+    rows = {row[0]: row for row in chip_smoke.SHAPES}
+    new = {96: {"neox20b_fp16_d96_bshd", "fp16_gqa_d96", "fp16_window_d96",
+                "fp16_ragged_d96", "fp16_cross_length_d96", "fp16_non_causal_d96"},
+           256: {"gptj6b_fp16_d256_bshd", "fp16_gqa_d256", "fp16_window_d256",
+                 "fp16_ragged_d256", "fp16_cross_length_d256", "fp16_non_causal_d256"}}
+    for d in (96, 256):
+        assert new[d] == {n for n, row in rows.items() if row[6] == d and row[9] == torch.float16}
+        assert new[d] <= set(chip_smoke.WIDE_SHAPES)
+        assert not new[d] & set(chip_smoke.BWD_TURN_SHAPES)
+        for name in new[d]:
+            assert chip_smoke.shape_routes(rows[name][-1]) == {
+                "flash_fwd": "wgmma", "flash_bwd_dq": "mma", "flash_bwd_dkv": "mma"}, name
+        assert rows[f"fp16_window_d{d}"][8] == 512
+        assert rows[f"fp16_cross_length_d{d}"][4:6] == (256, 1024)
+        assert not rows[f"fp16_non_causal_d{d}"][7]
+        assert rows[f"fp16_ragged_d{d}"][4:6] == (300, 300)
+    assert rows["neox20b_fp16_d96_bshd"][1:11] == (1, 64, 64, 2048, 2048, 96, True, None,
+                                                   torch.float16, "bshd")
+    assert rows["gptj6b_fp16_d256_bshd"][1:11] == (1, 16, 16, 2048, 2048, 256, True, None,
+                                                   torch.float16, "bshd")
+    assert rows["fp16_gqa_d96"][2:4] == (32, 8) and rows["fp16_gqa_d256"][2:4] == (16, 8)
+    models = {"neox20b_fp16_d96_bshd", "gptj6b_fp16_d256_bshd"}
+    assert models <= set(chip_smoke.FWD_TURN_SHAPES) and models <= set(
+        chip_smoke.HEAD_DIM_ROWS)

@@ -132,3 +132,29 @@ def test_fp16_head_dims_80_and_100_shapes_are_the_smokes_rows(d):
         assert rows[name][9] == torch.float16, name
         assert chip_smoke.shape_routes(rows[name][-1])["flash_fwd"] == "wgmma", name
     assert {first, f"fp16_window_d{d}", f"fp16_ragged_d{d}"} <= set(variants.PROBE)
+
+
+@pytest.mark.parametrize("d", [96, 256])
+def test_fp16_head_dims_96_and_256_shapes_are_the_smokes_rows(d):
+    """`--dtype float16 --head-dim 96|256` takes SHAPES_F16_96 and
+    SHAPES_F16_256: GPT-NeoX-20B's attention (64 heads of 96) and GPT-J-6B's
+    (16 heads of 256) first, S=2048, as their models give them, then GQA, a
+    window and a ragged sequence, each the smoke's fp16 row of the same name
+    with the forward on wgmma and dQ and dK/dV on mma, three of them
+    probed."""
+    import chip_smoke
+    from yoda_scheduler_tpu_torch.ops import variants
+
+    shapes = variants.SHAPES_F16_BY_DIM[d]
+    assert shapes is {96: variants.SHAPES_F16_96, 256: variants.SHAPES_F16_256}[d]
+    first = "neox20b_fp16_d96_bshd" if d == 96 else "gptj6b_fp16_d256_bshd"
+    assert [name for name, *_ in shapes] == [
+        first, f"fp16_gqa_d{d}", f"fp16_window_d{d}", f"fp16_ragged_d{d}"]
+    assert shapes[0][1:4] == ((1, 64, 64) if d == 96 else (1, 16, 16))
+    rows = {row[0]: row for row in chip_smoke.SHAPES}
+    for name, b, h, kvh, sq, sk, causal, window in shapes:
+        assert rows[name][1:9] == (b, h, kvh, sq, sk, d, causal, window), name
+        assert rows[name][9] == torch.float16, name
+        assert chip_smoke.shape_routes(rows[name][-1]) == {
+            "flash_fwd": "wgmma", "flash_bwd_dq": "mma", "flash_bwd_dkv": "mma"}, name
+    assert {first, f"fp16_window_d{d}", f"fp16_ragged_d{d}"} <= set(variants.PROBE)

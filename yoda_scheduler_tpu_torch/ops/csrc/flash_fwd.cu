@@ -18,7 +18,7 @@
 // one (batch, head) and streams K/V tiles through shared memory. Causal tiles
 // stop at the diagonal and windowed tiles start at the window's first tile, as
 // in the Pallas loop bounds; ragged q and k tails are masked in the kernel, so
-// every shape runs here. Twelve kernels share that plan; the caller names a
+// every shape runs here. Fourteen kernels share that plan; the caller names a
 // route (ops/attention.py:_route picks it from dtype, head_dim and alignment):
 // - flash_fwd_wgmma_kernel (route 2 at D = 128; bf16, 16-byte aligned rows:
 //   the main path): TMA-fed and warp-specialised, on wgmma. Below.
@@ -29,18 +29,20 @@
 //   rows, 8-byte aligned): the same body, its producer copying the rows with
 //   cp.async where TMA cannot read them; 7 k-steps and P.V at n104.
 // - flash_fwd_wgmma_f16_kernel (route 2 in fp16 at D = 128: Llama-2's
-//   published dtype), flash_fwd_wgmma80_f16_kernel (fp16 at D = 80:
+//   published dtype), flash_fwd_wgmma96_f16_kernel (fp16 at D = 96:
+//   GPT-NeoX-20B's), flash_fwd_wgmma80_f16_kernel (fp16 at D = 80:
 //   OPT-2.7B's) and flash_fwd_wgmma100_f16_kernel (fp16 at D = 100:
-//   OpenLLaMA-3B's): the D = 128, 80 and 100 kernels' body on fp16 operands.
+//   OpenLLaMA-3B's): the D = 128, 96, 80 and 100 kernels' body on fp16
+//   operands.
 // - flash_fwd_wgmma64_kernel (route 2 at D = 64: bench_mfu's d1024 widths)
 //   and flash_fwd_wgmma64_f16_kernel (fp16 at D = 64: OPT-1.3B's published
 //   dtype): the same plan with three consumer warpgroups; the note is below.
-// - flash_fwd_wgmma256_kernel (route 2 at D = 256: Gemma's attention): the
-//   same plan on stages of 64 keys, each row in four boxes; its note is below.
+// - flash_fwd_wgmma256_kernel (route 2 at D = 256: Gemma's attention) and
+//   flash_fwd_wgmma256_f16_kernel (fp16 at D = 256: GPT-J-6B's): the same
+//   plan on stages of 64 keys, each row in four boxes; its note is below.
 // - flash_fwd_mma_kernel (route 1; aligned bf16 and fp16, D a multiple of 8
-//   up to 256: every other model's head dim, and fp16 at D other than 64, 80
-//   and 128; it takes bf16 at D = 64, 80, 96, 128 and 256 and fp16 at 64, 80
-//   and 128 too, to be held against the wgmma kernels): 4 warps, each owning 16 of 64 q rows, mma.sync
+//   up to 256: every other model's head dim; it takes bf16 and fp16 at D =
+//   64, 80, 96, 128 and 256 too, to be held against the wgmma kernels): 4 warps, each owning 16 of 64 q rows, mma.sync
 //   m16n8k16 (.bf16 or .f16) for both products; K/V tiles of 64 keys copied through registers.
 //   Scores, probabilities and the output sum stay in registers; P is rounded
 //   to the input type for P.V as the plain version rounds its probabilities.
@@ -432,8 +434,7 @@ __global__ void __launch_bounds__(NT_MMA) flash_fwd_mma_kernel(
 }
 
 
-// ---- the wgmma kernels at D = 128, 100, 96 and 80 (bf16) and 128, 100 and
-// 80 (fp16)
+// ---- the wgmma kernels at D = 128, 100, 96 and 80 (bf16 and fp16)
 constexpr int WG_THREADS = 128;
 constexpr int W_ROWS = 64;                  // q rows per consumer warpgroup
 constexpr int W_BQ = 2 * W_ROWS;            // q rows per block
@@ -458,9 +459,10 @@ struct RowSrc {
 // The body of flash_fwd_wgmma_kernel (bf16, D = 128), flash_fwd_wgmma96_kernel
 // (bf16, D = 96), flash_fwd_wgmma80_kernel (bf16, D = 80),
 // flash_fwd_wgmma100_kernel (bf16, D = 100), flash_fwd_wgmma_f16_kernel
-// (fp16, D = 128), flash_fwd_wgmma80_f16_kernel (fp16, D = 80: OPT-2.7B's,
-// Pythia-2.8B's and Phi-2's published dtype) and flash_fwd_wgmma100_f16_kernel
-// (fp16, D = 100: OpenLLaMA-3B's). fp16 differs from bf16 only in names: the wgmma
+// (fp16, D = 128), flash_fwd_wgmma96_f16_kernel (fp16, D = 96: GPT-NeoX-20B's
+// published dtype), flash_fwd_wgmma80_f16_kernel (fp16, D = 80: OPT-2.7B's,
+// Pythia-2.8B's and Phi-2's) and flash_fwd_wgmma100_f16_kernel (fp16, D = 100:
+// OpenLLaMA-3B's). fp16 differs from bf16 only in names: the wgmma
 // instructions (.f16 for .bf16), the tensor maps' data type and the roundings
 // of P (for P.V, where the plain version rounds its probabilities) and of O;
 // both are 2 bytes and the H100 runs both at one tensor rate, so tiles,
@@ -484,7 +486,8 @@ struct RowSrc {
 // At Phi-3-mini's attention (B=1, H=32, S=2048, D=96, causal) the work is
 // ~25.8 GFLOP against ~51 MB, bound by operations (~26 us at 989 TF/s); at
 // StableLM-3B's (D=80) ~21.5 GFLOP, ~22 us; at OpenLLaMA-3B's (D=100)
-// ~26.9 GFLOP, ~27 us; fp16 at each the same.
+// ~26.9 GFLOP, ~27 us; fp16 at each the same; at GPT-NeoX-20B's (fp16, H=64,
+// D=96) ~51.5 GFLOP, ~52 us.
 template <typename T, int D>
 __device__ __forceinline__ void fwd_wgmma_body(
     const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
@@ -738,6 +741,7 @@ FWD_WGMMA_TMA_KERNEL(flash_fwd_wgmma96_kernel, __nv_bfloat16, 96)
 FWD_WGMMA_TMA_KERNEL(flash_fwd_wgmma80_kernel, __nv_bfloat16, 80)
 FWD_WGMMA_TMA_KERNEL(flash_fwd_wgmma_f16_kernel, __half, 128)
 FWD_WGMMA_TMA_KERNEL(flash_fwd_wgmma80_f16_kernel, __half, 80)
+FWD_WGMMA_TMA_KERNEL(flash_fwd_wgmma96_f16_kernel, __half, 96)
 #undef FWD_WGMMA_TMA_KERNEL
 
 #define FWD_WGMMA_COPY_KERNEL(NAME, T, D)                                                \
@@ -1000,7 +1004,8 @@ FWD_WGMMA64_KERNEL(flash_fwd_wgmma64_kernel, __nv_bfloat16)
 FWD_WGMMA64_KERNEL(flash_fwd_wgmma64_f16_kernel, __half)
 #undef FWD_WGMMA64_KERNEL
 
-// ---- the wgmma kernel at head dim 256 (bf16: Gemma's attention)
+// ---- the wgmma kernels at head dim 256 (bf16: Gemma's attention; fp16:
+// GPT-J-6B's)
 // A 256-wide row is four 128-byte boxes, so Q's 128-row tile is 64 KB, and
 // the D = 128 plan does not fit: two stages of 128 keys of K and V would take
 // 256 KB beside it, and its 64 fp32 scores beside DN / 2 = 128 output sums a
@@ -1016,7 +1021,8 @@ FWD_WGMMA64_KERNEL(flash_fwd_wgmma64_f16_kernel, __half)
 // Gemma-2B's attention (B=1, H=8 over one KV head, S=2048, causal) the work
 // is ~17.2 GFLOP against ~10 MB, bound by operations (~17 us at 989 TF/s);
 // its 128 blocks are one wave on 132 SMs, so the longest (32 stages) sets
-// the time.
+// the time. At GPT-J-6B's (fp16, H=16 with 16 KV heads) ~34.4 GFLOP against
+// ~67 MB, ~35 us: 256 blocks, two waves.
 constexpr int G_BK = 64;                 // keys per stage
 constexpr int G_STAGES = 2;
 constexpr int G_QBOX = W_BQ * 128;       // bytes of one 64-column box of Q
@@ -1026,11 +1032,15 @@ constexpr int G_TILE = 4 * G_KBOX;       // a K or V stage, 32 KB
 constexpr int G_BARS = G_QTILE + 2 * G_STAGES * G_TILE;  // barriers after Q, K[], V[]
 constexpr int G_SMEM = G_BARS + 8 * (1 + 3 * G_STAGES) + 1024;  // + alignment slack
 
-__global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_fwd_wgmma256_kernel(
-    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-    const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
-    float* __restrict__ lse, int H, int KvH, int Sq, int Sk, int causal, int window,
-    float scale) {
+// The body of flash_fwd_wgmma256_kernel (bf16) and
+// flash_fwd_wgmma256_f16_kernel (fp16: GPT-J-6B's published dtype); fp16
+// differs only in the wgmma forms' element type, the maps' data type and the
+// roundings of P and O, as in fwd_wgmma_body.
+template <typename T>
+__device__ __forceinline__ void fwd_wgmma256_body(
+    const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+    T* __restrict__ o, float* __restrict__ lse, int H, int KvH, int Sq, int Sk, int causal,
+    int window, float scale) {
   using namespace hopper;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
@@ -1071,7 +1081,7 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_fwd_wgmma256_kernel(
     setmaxnreg_dec<24>();
     if (threadIdx.x == 0) {
       mbar_arrive_expect_tx(full_q, G_QTILE);
-      for (int c = 0; c < 4; ++c) tma_load_4d(sQ + G_QBOX * c, &tm_q, full_q, 64 * c, q0, h, b);
+      for (int c = 0; c < 4; ++c) tma_load_4d(sQ + G_QBOX * c, tm_q, full_q, 64 * c, q0, h, b);
       for (int t = first_tile, i = 0; t < n_tiles; ++t, ++i) {
         const int s = i % G_STAGES;
         mbar_wait(&empty[s], ((i / G_STAGES) & 1) ^ 1);
@@ -1079,10 +1089,10 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_fwd_wgmma256_kernel(
         unsigned char* sV = smem + G_QTILE + G_TILE * (G_STAGES + s);
         mbar_arrive_expect_tx(&full_k[s], G_TILE);
         for (int c = 0; c < 4; ++c)
-          tma_load_4d(sK + G_KBOX * c, &tm_k, &full_k[s], 64 * c, t * G_BK, kvh, b);
+          tma_load_4d(sK + G_KBOX * c, tm_k, &full_k[s], 64 * c, t * G_BK, kvh, b);
         mbar_arrive_expect_tx(&full_v[s], G_TILE);
         for (int c = 0; c < 4; ++c)
-          tma_load_4d(sV + G_KBOX * c, &tm_v, &full_v[s], 64 * c, t * G_BK, kvh, b);
+          tma_load_4d(sV + G_KBOX * c, tm_v, &full_v[s], 64 * c, t * G_BK, kvh, b);
       }
     }
   } else {
@@ -1127,8 +1137,8 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_fwd_wgmma256_kernel(
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 16; ++kk)
-        wgmma_m64n64k16_ss<0, 0>(sc, dq + (((kk / 4) * G_QBOX + (kk % 4) * 32) >> 4),
-                                 dk + (((kk / 4) * G_KBOX + (kk % 4) * 32) >> 4), kk > 0);
+        wgmma_m64n64k16_ss<0, 0, T>(sc, dq + (((kk / 4) * G_QBOX + (kk % 4) * 32) >> 4),
+                                    dk + (((kk / 4) * G_KBOX + (kk % 4) * 32) >> 4), kk > 0);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sc);
@@ -1186,12 +1196,12 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_fwd_wgmma256_kernel(
         }
       }
 
-      // P in bf16 as the A operand: k-step jj is keys 16 jj .. 16 jj + 15
+      // P in T as the A operand: k-step jj is keys 16 jj .. 16 jj + 15
       uint32_t pa[4][4];
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj)
 #pragma unroll
-        for (int q = 0; q < 4; ++q) pa[jj][q] = pack_bf16(sc[8 * jj + 2 * q], sc[8 * jj + 2 * q + 1]);
+        for (int q = 0; q < 4; ++q) pa[jj][q] = pack_t<T>(sc[8 * jj + 2 * q], sc[8 * jj + 2 * q + 1]);
 
       // O += P V: V [64 keys][256] is an MN-major B operand in four boxes of
       // 64 columns, 8 KB apart (LBO); a k-step of 16 keys is 2048 bytes, and
@@ -1203,8 +1213,8 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_fwd_wgmma256_kernel(
       wgmma_fence();
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
-        wgmma_m64n128k16_rs<1>(acc[0], pa[jj], dv + ((jj * 2048) >> 4), 1);
-        wgmma_m64n128k16_rs<1>(acc[1], pa[jj], dv + ((2 * G_KBOX + jj * 2048) >> 4), 1);
+        wgmma_m64n128k16_rs<1, T>(acc[0], pa[jj], dv + ((jj * 2048) >> 4), 1);
+        wgmma_m64n128k16_rs<1, T>(acc[1], pa[jj], dv + ((2 * G_KBOX + jj * 2048) >> 4), 1);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -1224,18 +1234,31 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_fwd_wgmma256_kernel(
         const int row = w_row0 + 16 * warp + g + 8 * r;
         if (row >= Sq) continue;
         const float lc = fmaxf(l[r], 1e-30f);
-        __nv_bfloat16* orow = o + ((int64_t)bh * Sq + row) * 256 + 2 * t4;
+        T* orow = o + ((int64_t)bh * Sq + row) * 256 + 2 * t4;
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf)
 #pragma unroll
           for (int j = 0; j < 16; ++j)
             *reinterpret_cast<uint32_t*>(orow + 128 * hf + 8 * j) =
-                pack_bf16(acc[hf][4 * j + 2 * r] / lc, acc[hf][4 * j + 2 * r + 1] / lc);
+                pack_t<T>(acc[hf][4 * j + 2 * r] / lc, acc[hf][4 * j + 2 * r + 1] / lc);
         if (t4 == 0) lse[(int64_t)bh * Sq + row] = m[r] * scale + logf(lc);
       }
     }
   }
 }
+
+#define FWD_WGMMA256_KERNEL(NAME, T)                                                     \
+  __global__ void __launch_bounds__(3 * WG_THREADS, 1) NAME(                             \
+      const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k, \
+      const __grid_constant__ CUtensorMap tm_v, T* __restrict__ o,                       \
+      float* __restrict__ lse, int H, int KvH, int Sq, int Sk, int causal, int window,   \
+      float scale) {                                                                     \
+    fwd_wgmma256_body<T>(&tm_q, &tm_k, &tm_v, o, lse, H, KvH, Sq, Sk, causal, window,    \
+                         scale);                                                          \
+  }
+FWD_WGMMA256_KERNEL(flash_fwd_wgmma256_kernel, __nv_bfloat16)
+FWD_WGMMA256_KERNEL(flash_fwd_wgmma256_f16_kernel, __half)
+#undef FWD_WGMMA256_KERNEL
 
 // ---- host entry
 // cudaFuncSetAttribute once per kernel instantiation (C++ statics initialise
@@ -1303,11 +1326,11 @@ bool fwd_maps(const Args& a, int D, CUtensorMapDataType type, uint32_t q_rows,
   return true;
 }
 
-// whether a wgmma kernel takes (dtype, D): bf16 (dtype 1) at 64, 80, 96, 100,
-// 128 and 256, fp16 (dtype 2) at 64, 80, 100 and 128
+// whether a wgmma kernel takes (dtype, D): bf16 (dtype 1) and fp16 (dtype 2)
+// alike at 64, 80, 96, 100, 128 and 256
 bool has_wgmma(int dtype, int D) {
-  if (dtype == 1) return D == 64 || D == 80 || D == 96 || D == 100 || D == 128 || D == 256;
-  return dtype == 2 && (D == 64 || D == 80 || D == 100 || D == 128);
+  return (dtype == 1 || dtype == 2) &&
+         (D == 64 || D == 80 || D == 96 || D == 100 || D == 128 || D == 256);
 }
 
 // the rows of q, k and v for a kernel that copies them itself (D = 100)
@@ -1324,11 +1347,12 @@ RowSrc<T> row_src(const Args& a) {
 // rows themselves, not maps), on the same grid; at D = 256:
 // flash_fwd_wgmma256_kernel, on that grid too; at D = 64:
 // flash_fwd_wgmma64_kernel, its grid with the q tiles of one (batch, head)
-// side by side. fp16 (dtype 2) at D = 128, 80 and 100:
-// flash_fwd_wgmma_f16_kernel, flash_fwd_wgmma80_f16_kernel and
-// flash_fwd_wgmma100_f16_kernel, on the D = 128 grid; at D = 64:
-// flash_fwd_wgmma64_f16_kernel, on the D = 64 one. Any other pair returns
-// cudaErrorInvalidValue and launches nothing.
+// side by side. fp16 (dtype 2) at D = 128, 96, 80 and 100:
+// flash_fwd_wgmma_f16_kernel, flash_fwd_wgmma96_f16_kernel,
+// flash_fwd_wgmma80_f16_kernel and flash_fwd_wgmma100_f16_kernel, on the D =
+// 128 grid; at D = 256: flash_fwd_wgmma256_f16_kernel, on that grid too; at
+// D = 64: flash_fwd_wgmma64_f16_kernel, on the D = 64 one. Any other pair
+// returns cudaErrorInvalidValue and launches nothing.
 cudaError_t launch_wgmma(const Args& a, int D, int dtype) {
   if (!has_wgmma(dtype, D)) return cudaErrorInvalidValue;
   static const cudaError_t attr128 = allow_smem(flash_fwd_wgmma_kernel, W_SMEM);
@@ -1341,14 +1365,15 @@ cudaError_t launch_wgmma(const Args& a, int D, int dtype) {
   static const cudaError_t attr_f16 = allow_smem(flash_fwd_wgmma_f16_kernel, W_SMEM);
   static const cudaError_t attr80_f16 = allow_smem(flash_fwd_wgmma80_f16_kernel, W_SMEM);
   static const cudaError_t attr100_f16 = allow_smem(flash_fwd_wgmma100_f16_kernel, W_SMEM);
+  static const cudaError_t attr96_f16 = allow_smem(flash_fwd_wgmma96_f16_kernel, W_SMEM);
+  static const cudaError_t attr256_f16 = allow_smem(flash_fwd_wgmma256_f16_kernel, G_SMEM);
   const bool f16 = dtype == 2;
-  // fp16 has no kernel at 96 or 256 (has_wgmma)
   const cudaError_t attr = D == 64    ? (f16 ? attr64_f16 : attr64)
                            : D == 80  ? (f16 ? attr80_f16 : attr80)
+                           : D == 96  ? (f16 ? attr96_f16 : attr96)
                            : D == 100 ? (f16 ? attr100_f16 : attr100)
                            : D == 128 ? (f16 ? attr_f16 : attr128)
-                           : D == 96  ? attr96
-                                      : attr256;
+                                      : (f16 ? attr256_f16 : attr256);
   if (attr != cudaSuccess) return attr;
   const dim3 grid(a.B * a.H, (a.Sq + W_BQ - 1) / W_BQ);
   if (D == 100) {
@@ -1378,12 +1403,19 @@ cudaError_t launch_wgmma(const Args& a, int D, int dtype) {
           a.Sq, a.Sk, a.causal, a.window, a.scale);
   } else if (D == 256) {
     if (!fwd_maps(a, D, type, W_BQ, G_BK, maps)) return cudaErrorInvalidValue;
-    flash_fwd_wgmma256_kernel<<<grid, 3 * WG_THREADS, G_SMEM, a.stream>>>(
-        maps[0], maps[1], maps[2], (__nv_bfloat16*)a.o, (float*)a.lse, a.H, a.KvH,
-        a.Sq, a.Sk, a.causal, a.window, a.scale);
+    if (f16)
+      flash_fwd_wgmma256_f16_kernel<<<grid, 3 * WG_THREADS, G_SMEM, a.stream>>>(
+          maps[0], maps[1], maps[2], (__half*)a.o, (float*)a.lse, a.H, a.KvH, a.Sq, a.Sk,
+          a.causal, a.window, a.scale);
+    else
+      flash_fwd_wgmma256_kernel<<<grid, 3 * WG_THREADS, G_SMEM, a.stream>>>(
+          maps[0], maps[1], maps[2], (__nv_bfloat16*)a.o, (float*)a.lse, a.H, a.KvH,
+          a.Sq, a.Sk, a.causal, a.window, a.scale);
   } else if (f16) {
     if (!fwd_maps(a, D, type, W_BQ, W_BK, maps)) return cudaErrorInvalidValue;
-    auto kernel = D == 80 ? flash_fwd_wgmma80_f16_kernel : flash_fwd_wgmma_f16_kernel;
+    auto kernel = D == 96   ? flash_fwd_wgmma96_f16_kernel
+                  : D == 80 ? flash_fwd_wgmma80_f16_kernel
+                            : flash_fwd_wgmma_f16_kernel;
     kernel<<<grid, 3 * WG_THREADS, W_SMEM, a.stream>>>(
         maps[0], maps[1], maps[2], (__half*)a.o, (float*)a.lse, a.H, a.KvH, a.Sq, a.Sk,
         a.causal, a.window, a.scale);
@@ -1439,10 +1471,9 @@ struct Mma {
 // [B, H, Sq]. dtype 0 = fp32, 1 = bf16, 2 = fp16. window <= 0 means no
 // window. route: 0 = simt (any dtype, D from 1 to 512), 1 = mma (bf16 or
 // fp16, D a multiple of 8 up to 256, 16-byte aligned bases, strides that
-// are multiples of 8), 2 = wgmma (as mma, and Sk > 0, with bf16 at D = 64,
-// 80, 96, 128 or 256 and fp16 at D = 64, 80 or 128; or bf16 or fp16 at D =
-// 100 with 8-byte aligned bases and strides that are multiples of 4; fp16
-// has no wgmma kernel at 96 or 256). The simt and mma kernels run at
+// are multiples of 8), 2 = wgmma (as mma, and Sk > 0, with bf16 or fp16 at
+// D = 64, 80, 96, 128 or 256; or bf16 or fp16 at D = 100 with 8-byte aligned
+// bases and strides that are multiples of 4). The simt and mma kernels run at
 // the padded width of D (padded_dim), the wgmma kernels at D itself. A route that cannot take the
 // inputs returns cudaErrorInvalidValue and launches nothing. Returns the
 // launch's cudaError_t (0 on success).

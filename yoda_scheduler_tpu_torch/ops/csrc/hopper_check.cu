@@ -19,9 +19,10 @@
 //   form, as the D = 96 kernels' P V (128 rows), P^T dO and dS^T Q (64);
 // - hopper_wgmma_rs80, hopper_wgmma_rs104: the same with V 80 and 104 wide
 //   and the m64n80k16 and m64n104k16 forms, as the D = 80 and D = 100
-//   forwards' P V; hopper_wgmma_rs80_f16, hopper_wgmma_rs104_f16: those two
-//   on fp16 operands (the .f16 forms over FLOAT16 maps), as the fp16 D = 80
-//   and D = 100 forwards' P V;
+//   forwards' P V; hopper_wgmma_rs80_f16, hopper_wgmma_rs96_f16,
+//   hopper_wgmma_rs104_f16: the m64n80k16, m64n96k16 and m64n104k16 forms on
+//   fp16 operands (the .f16 forms over FLOAT16 maps), as the fp16 D = 80, 96
+//   and 100 forwards' P V;
 // - hopper_cp_async_tile: two [S, 100] row sets, A and B, 8-byte aligned,
 //   copied by cp_async_rows into the 128-wide swizzled layout (rows past S
 //   zero, columns 100-127 zeroed) and read back through wgmma: A B^T with 7
@@ -795,6 +796,13 @@ extern "C" int hopper_wgmma_rs104(const void* p, const void* v, int rows, void* 
 extern "C" int hopper_wgmma_rs80_f16(const void* p, const void* v, int rows, void* out,
                                      void* stream) {
   return wgmma_rs_n<__half, 80>(p, v, rows, out, stream);
+}
+
+// the same in fp16 with v [rows, 96] and out [64, 96]: m64n96k16's f16 form,
+// the fp16 D = 96 forward's P V
+extern "C" int hopper_wgmma_rs96_f16(const void* p, const void* v, int rows, void* out,
+                                     void* stream) {
+  return wgmma_rs_n<__half, 96>(p, v, rows, out, stream);
 }
 
 // the same in fp16 with v [rows, 104] and out [64, 104]: m64n104k16's f16

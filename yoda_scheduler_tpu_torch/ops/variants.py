@@ -49,7 +49,11 @@ forward runs `flash_fwd_wgmma80_f16_kernel` and dQ and dK/dV mma, and with
 `--head-dim 100` those of `SHAPES_F16_100` (OpenLLaMA-3B's attention in
 fp16 first), where the three kernels run `flash_fwd_wgmma100_f16_kernel`,
 `flash_bwd_dq_wgmma100_f16_kernel` and `flash_bwd_dkv_wgmma100_f16_kernel`;
-each launch is held to fp16's bounds, the bf16
+with `--head-dim 96` those of `SHAPES_F16_96` (GPT-NeoX-20B's attention, 64
+heads of 96, first), where the forward runs `flash_fwd_wgmma96_f16_kernel`
+and dQ and dK/dV mma, and with `--head-dim 256` those of `SHAPES_F16_256`
+(GPT-J-6B's attention, 16 heads of 256, first), where the forward runs
+`flash_fwd_wgmma256_f16_kernel` and dQ and dK/dV mma; each launch is held to fp16's bounds, the bf16
 ones over 8 (a variant without an fp16 wgmma kernel takes `--route mma`,
 which no kernel offers at head dim 100).
 Prints the card's name and power limit, then one JSON line per shape.
@@ -142,15 +146,31 @@ SHAPES_F16_100 = [
     ("fp16_window_d100", 1, 32, 32, 2048, 2048, True, 512),
     ("fp16_ragged_d100", 2, 8, 4, 300, 300, True, None),
 ]
+# fp16 at 96: GPT-NeoX-20B's attention (64 heads of 96, S=2048), as
+# SHAPES_64; at 256: GPT-J-6B's (16 heads of 256), as SHAPES_256
+SHAPES_F16_96 = [
+    ("neox20b_fp16_d96_bshd", 1, 64, 64, 2048, 2048, True, None),
+    ("fp16_gqa_d96", 1, 32, 8, 2048, 2048, True, None),
+    ("fp16_window_d96", 1, 32, 32, 2048, 2048, True, 512),
+    ("fp16_ragged_d96", 2, 8, 4, 300, 300, True, None),
+]
+SHAPES_F16_256 = [
+    ("gptj6b_fp16_d256_bshd", 1, 16, 16, 2048, 2048, True, None),
+    ("fp16_gqa_d256", 1, 16, 8, 2048, 2048, True, None),
+    ("fp16_window_d256", 1, 16, 16, 2048, 2048, True, 512),
+    ("fp16_ragged_d256", 2, 8, 1, 300, 300, True, None),
+]
 SHAPES_F16_BY_DIM = {128: SHAPES_F16, 64: SHAPES_F16_64, 80: SHAPES_F16_80,
-                     100: SHAPES_F16_100}
+                     100: SHAPES_F16_100, 96: SHAPES_F16_96, 256: SHAPES_F16_256}
 PROBE = ("main", "window_512", "ragged_300", "d1024_bshd", "window_d64", "ragged_d64",
          "d80_bshd", "window_d80", "ragged_d80", "phi3_d96_bshd", "window_d96",
          "ragged_d96", "d100_bshd", "window_d100",
          "ragged_d100", "fp16_main", "fp16_window_512", "fp16_ragged_300", "gemma_d256",
          "window_d256", "ragged_d256", "opt13b_d64_bshd", "fp16_window_d64",
          "fp16_ragged_d64", "opt27b_d80_bshd", "fp16_window_d80", "fp16_ragged_d80",
-         "openllama3b_fp16_d100_bshd", "fp16_window_d100", "fp16_ragged_d100")
+         "openllama3b_fp16_d100_bshd", "fp16_window_d100", "fp16_ragged_d100",
+         "neox20b_fp16_d96_bshd", "fp16_window_d96", "fp16_ragged_d96",
+         "gptj6b_fp16_d256_bshd", "fp16_window_d256", "fp16_ragged_d256")
 # the largest tile_rel_l2 of a bf16 backward output against the plain
 # backward: sound kernels read below 4e-3 on an H100 (they round P and dS
 # where the plain backward does, and differ in the order of fp32 sums); a

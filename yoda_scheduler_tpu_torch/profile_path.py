@@ -1,6 +1,6 @@
 """Where the time goes on the port's path, at Phi-3-mini, Llama-2-7B,
 Mixtral-8x7B, OpenLLaMA-3B (bf16 and fp16), StableLM-3B-4E1T, Gemma-2B,
-OPT-1.3B and OPT-2.7B widths on one GPU.
+OPT-1.3B, OPT-2.7B, GPT-NeoX-20B and GPT-J-6B widths on one GPU.
 
     python3 -m yoda_scheduler_tpu_torch.profile_path
 
@@ -49,7 +49,11 @@ flash_fwd on its fp16 wgmma kernel and on the route it took before (mma at
 alone); then OpenLLaMA-3B's loss in fp16 (all 26 layers) as OPT-1.3B's, with
 dQ and dK/dV on their fp16 head-dim-100 wgmma kernels and on simt
 (`fp16_d100_backward_on_simt`; `openllama3b_fp16_backward_windows()` traces
-those alone), each route traced twice in turns. For each traced
+those alone), each route traced twice in turns; last one `llama_forward` at
+GPT-NeoX-20B's widths (head dim 96, fp16, all 44 layers) and one at
+GPT-J-6B's (256, fp16, 28 layers), B=1, S=2048, each with flash_fwd on its
+fp16 wgmma kernel and on mma, as before it (`neox_gptj_forward_windows()`
+traces those four alone). For each traced
 window it prints one JSON line: the host wall time, the device's busy time
 (the union of kernel intervals) and idle share, the kernel launches, the
 device time grouped into conv / matmul / flash_fwd / flash_bwd_dq /
@@ -175,6 +179,33 @@ def opt_2_7b() -> LlamaConfig:
     biases are not modelled."""
     return LlamaConfig(vocab_size=50272, dim=2560, n_layers=32, n_heads=32,
                        n_kv_heads=32, ffn_dim=10240, rope_theta=10000.0,
+                       norm_eps=1e-5, max_seq_len=2048, dtype="float16")
+
+
+def gpt_neox_20b() -> LlamaConfig:
+    """GPT-NeoX-20B's widths, from the published EleutherAI/gpt-neox-20b
+    config.json: hidden 6144, 44 layers, 64 heads of 96 (query and KV
+    alike), FFN 24576, vocab 50432, 2048 positions, in its published
+    torch_dtype, fp16; the weights random from a seed: about 27.2 B
+    parameters on this Llama block, 54.4 GB. Its LayerNorm, rotary on 25% of
+    each head (all of it here), parallel residual, two-matrix GELU FFN
+    (three matrices and SiLU here) and biases are not modelled."""
+    return LlamaConfig(vocab_size=50432, dim=6144, n_layers=44, n_heads=64,
+                       n_kv_heads=64, ffn_dim=24576, rope_theta=10000.0,
+                       norm_eps=1e-5, max_seq_len=2048, dtype="float16")
+
+
+def gptj_6b() -> LlamaConfig:
+    """GPT-J-6B's widths, from the published EleutherAI/gpt-j-6b config.json:
+    hidden 4096, 28 layers, 16 heads of 256 (query and KV alike), FFN 16384
+    (n_inner null: 4 x 4096), vocab 50400, 2048 positions, in fp16, the
+    dtype of the repo's float16 revision; the weights random from a seed:
+    about 7.9 B parameters on this Llama block, 15.9 GB. Its LayerNorm,
+    rotary on 64 of each head's 256 dims (all of them here), parallel
+    attention and FFN, gelu_new FFN of two matrices and biases are not
+    modelled."""
+    return LlamaConfig(vocab_size=50400, dim=4096, n_layers=28, n_heads=16,
+                       n_kv_heads=16, ffn_dim=16384, rope_theta=10000.0,
                        norm_eps=1e-5, max_seq_len=2048, dtype="float16")
 
 
@@ -360,6 +391,20 @@ def fp16_d80_forward_on_mma():
     return _off_wgmma(lambda key, d: key == ("flash_fwd", torch.float16) and d == 80)
 
 
+def fp16_d96_forward_on_mma():
+    """Within it, the fp16 forward at head dim 96 takes the mma route, as
+    before its wgmma kernel; fp16 dQ and dK/dV stay on mma there, and bf16
+    at 96 keeps its wgmma kernels."""
+    return _off_wgmma(lambda key, d: key == ("flash_fwd", torch.float16) and d == 96)
+
+
+def fp16_d256_forward_on_mma():
+    """Within it, the fp16 forward at head dim 256 takes the mma route, as
+    before its wgmma kernel; fp16 dQ and dK/dV stay on mma there, and bf16
+    at 256 keeps its wgmma kernels."""
+    return _off_wgmma(lambda key, d: key == ("flash_fwd", torch.float16) and d == 256)
+
+
 def fp16_d100_forward_on_simt():
     """Within it, the fp16 forward at head dim 100 takes the simt route, as
     before its wgmma kernel (no mma kernel takes 200-byte rows); fp16 dQ and
@@ -537,6 +582,15 @@ def fp16_new_width_forward_windows() -> list[dict]:
                              (openllama_3b_fp16(), "simt", fp16_d100_forward_on_simt)))
 
 
+def neox_gptj_forward_windows() -> list[dict]:
+    """At GPT-NeoX-20B's widths (head dim 96, fp16, 44 layers) and
+    GPT-J-6B's (256, fp16, 28 layers), B=1, S=2048: one traced
+    `llama_forward` with flash_fwd on its fp16 wgmma kernel and one on mma,
+    the route it took before."""
+    return _forward_windows(((gpt_neox_20b(), "mma", fp16_d96_forward_on_mma),
+                             (gptj_6b(), "mma", fp16_d256_forward_on_mma)))
+
+
 def _backward_train_windows(cfg, label: str, old_name: str, old) -> list[dict]:
     """One traced training step of `cfg` (all its layers, B=1, S=2048,
     remat, AdamW) with dQ and dK/dV on their wgmma kernels, and one with
@@ -694,6 +748,8 @@ def main() -> int:
     reports += fp16_new_width_forward_windows()
     _free()
     reports += openllama3b_fp16_backward_windows()
+    _free()
+    reports += neox_gptj_forward_windows()
     out = Path(__file__).resolve().parents[1] / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "profile_path.json").write_text(json.dumps(
