@@ -137,6 +137,8 @@ def _hopper_lib():
     lib.hopper_wgmma_ss256.argtypes = [p, p, i32, p, p]
     lib.hopper_wgmma_ss256_a64.argtypes = [p, p, p, p]
     lib.hopper_wgmma_rs256.argtypes = [p, p, p, p]
+    lib.hopper_wgmma_ss256_a64_f16.argtypes = [p, p, p, p]
+    lib.hopper_wgmma_rs256_f16.argtypes = [p, p, p, p]
     return lib
 
 
@@ -352,6 +354,36 @@ def test_wgmma_rs256_tile_is_a_matmul(gpu):
     torch.testing.assert_close(out, p.float() @ v.float(), atol=1e-3, rtol=1e-3)
 
 
+def test_wgmma_ss256_a64_f16_tile_is_a_matmul(gpu):
+    """hopper_wgmma_ss256_a64 on fp16 operands (the .f16 SS m64n64k16 form
+    over FLOAT16 maps): A [64, 256] times B^T, B [64, 256], both four 64-row
+    boxes 8 KB apart, as the fp16 head-dim-256 backward kernels'
+    `scores256`."""
+    torch.manual_seed(15)
+    a = torch.randn(64, 256, device=gpu).to(torch.float16)
+    b = torch.randn(64, 256, device=gpu).to(torch.float16)
+    out = torch.zeros(64, 64, device=gpu)
+    assert _hopper_lib().hopper_wgmma_ss256_a64_f16(a.data_ptr(), b.data_ptr(),
+                                                    out.data_ptr(), _stream()) == 0
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, a.float() @ b.float().T, atol=1e-3, rtol=1e-3)
+
+
+def test_wgmma_rs256_f16_tile_is_a_matmul(gpu):
+    """hopper_wgmma_rs256 on fp16 operands (the .f16 RS m64n128k16 form over
+    a FLOAT16 map): P [64, 64] from registers times V [64, 256], V four
+    64-row MN-major boxes 8 KB apart read as two products over its column
+    halves, as the fp16 head-dim-256 backward kernels' `sum256`."""
+    torch.manual_seed(16)
+    p = torch.randn(64, 64, device=gpu).to(torch.float16)
+    v = torch.randn(64, 256, device=gpu).to(torch.float16)
+    out = torch.zeros(64, 256, device=gpu)
+    assert _hopper_lib().hopper_wgmma_rs256_f16(p.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                                _stream()) == 0
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, p.float() @ v.float(), atol=1e-3, rtol=1e-3)
+
+
 @pytest.mark.parametrize("rows", [64, 128])
 def test_wgmma_rs96_tile_is_a_matmul(gpu, rows):
     """m64n96k16 with A from registers and B a [rows, 96] MN-major tile read
@@ -560,11 +592,12 @@ def test_wgmma_route_matches_the_mma_route(gpu):
 def _bwd_inputs(gpu, case, layout, seed=0, d=128, dtype=torch.bfloat16):
     """q, k, v, dO of a WGMMA_SHAPES case (at head dim 128; WGMMA64_SHAPES
     at 64 and 32, WGMMA64_F16_SHAPES in fp16 there, WGMMA96_SHAPES at 96,
-    NEW_WIDTH_SHAPES at 80 and 100, WGMMA256_SHAPES at 256) in
-    `layout` and `dtype`, with the forward's O and LSE, a random LSE
-    cotangent and delta."""
+    NEW_WIDTH_SHAPES at 80 and 100, WGMMA256_SHAPES at 256 and
+    F16_96_256_SHAPES[256] in fp16 there) in `layout` and `dtype`, with the
+    forward's O and LSE, a random LSE cotangent and delta."""
     shapes = {128: WGMMA_SHAPES, 96: WGMMA96_SHAPES, 80: NEW_WIDTH_SHAPES,
-              100: NEW_WIDTH_SHAPES, 256: WGMMA256_SHAPES}.get(
+              100: NEW_WIDTH_SHAPES,
+              256: F16_96_256_SHAPES[256] if dtype == torch.float16 else WGMMA256_SHAPES}.get(
                   d, WGMMA64_F16_SHAPES if dtype == torch.float16 else WGMMA64_SHAPES)
     (b, h, kvh, sq, sk), causal, window = shapes[case]
     q, k, v = _qkv(gpu, dtype, b, h, kvh, sq, sk, d, seed=seed)
@@ -1225,10 +1258,12 @@ def _f16_inputs(gpu, d, case, layout, seed=0):
 def test_wgmma_f16_forward_at_96_and_256_matches_the_plain_version(gpu, d, case, layout):
     """One launch on wgmma, as `_route` picks it, within fp16's bounds
     (chip_smoke's) elementwise and by O's worst 64-row tile; dQ and dK/dV
-    stay on mma at these inputs."""
+    stay on mma at these inputs at 96, and take their own fp16 wgmma
+    kernels at 256."""
     q, k, v, causal, window = _f16_inputs(gpu, d, case, layout)
     assert attn._route("flash_fwd", q, k, v) == "wgmma"
-    assert attn._route("flash_bwd_dq", q, k, v, q) == "mma"
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert attn._route(name, q, k, v, q) == ("mma" if d == 96 else "wgmma"), name
     before = attn.flash_fwd.launches_by_route["wgmma"]
     o, lse = attn.flash_fwd(q, k, v, causal, window)
     torch.cuda.synchronize()
@@ -1266,7 +1301,8 @@ def test_the_fp16_wgmma_forwards_at_96_and_256_refuse_rows_off_16_bytes(gpu, d):
     route raises with no launch (the empty kv is refused by csrc/ alone),
     and csrc/'s entry, called past `_routes`, returns cudaErrorInvalidValue
     (1) for each; the same rows at a stride of d + 8 launch (0). fp32 at
-    d, and fp16 dQ and dK/dV at d, are refused by csrc/ too."""
+    d is refused by csrc/ too, and so are fp16 dQ and dK/dV at 96, which
+    launch at 256 (GPT-J-6B's fp16 backward kernels)."""
     half = torch.float16
     n = 4 * 64 * d
     flat = torch.randn(4 + n, device=gpu).to(half)
@@ -1285,7 +1321,7 @@ def test_the_fp16_wgmma_forwards_at_96_and_256_refuse_rows_off_16_bytes(gpu, d):
     assert _c_entry("flash_fwd", (wide[..., :d],) * 3, "wgmma") == 0
     assert _c_entry("flash_fwd", (wide[..., :d].float().contiguous(),) * 3, "wgmma") == 1
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
-        assert _c_entry(name, (wide[..., :d],) * 4, "wgmma") == 1, name
+        assert _c_entry(name, (wide[..., :d],) * 4, "wgmma") == (d == 96), name
     torch.cuda.synchronize()
 
 
@@ -1351,13 +1387,14 @@ def test_wgmma_forward_at_256_and_fp16_64_matches_the_mma_route(gpu, case):
     assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
-@pytest.mark.parametrize("d,dtype", [(256, torch.bfloat16), (64, torch.float16)])
+@pytest.mark.parametrize("d,dtype", [(256, torch.bfloat16), (64, torch.float16),
+                                     (256, torch.float16)])
 def test_the_c_entries_admit_what_routes_admits_at_256_and_fp16_64(gpu, d, dtype):
     """For each kernel, every base offset (0, 1, 2 and 4 elements) and both
     layouts: csrc/'s entry takes the wgmma route (returns 0, and launches)
     exactly where `_routes` offers it, and refuses it (cudaErrorInvalidValue,
     1) elsewhere: on 16-byte aligned rows alone, every kernel at 256 in bf16
-    and at 64 in fp16."""
+    and fp16 and at 64 in fp16."""
     seen = set()
     for offset in (0, 1, 2, 4):
         for layout in ("bhsd", "bshd"):
@@ -1381,17 +1418,16 @@ def test_the_new_wgmma_forwards_refuse_what_they_cannot_take(gpu, d, dtype):
     """csrc/'s entries on the wgmma route at 256 (bf16) and 64 (fp16), the
     forward, dQ and dK/dV, past `_routes`: an empty kv, a sequence stride
     that is no multiple of 8 elements and a dtype no wgmma kernel of that
-    entry takes at that head dim (fp32 for the forward, whose fp16 kernel at
-    256 is GPT-J-6B's; fp16 for dQ and dK/dV at 256, fp32 at 64) each
-    return cudaErrorInvalidValue (1); the same rows at a stride of d + 8
-    launch (0)."""
+    entry takes at that head dim (fp32 for every entry: fp16 at 256 is
+    GPT-J-6B's, whose forward, dQ and dK/dV have wgmma kernels) each return
+    cudaErrorInvalidValue (1); the same rows at a stride of d + 8 launch
+    (0)."""
     wide = torch.randn(1, 4, 64, d + 8, device=gpu).to(dtype)
     odd = torch.randn(1, 4, 64, d + 4, device=gpu).to(dtype)[..., :d]
     empty = torch.zeros(1, 4, 0, d, device=gpu, dtype=dtype)
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         n = 3 if name == "flash_fwd" else 4
-        other = wide[..., :d].to(torch.float16 if dtype == torch.bfloat16
-                                 and name != "flash_fwd" else torch.float32)
+        other = wide[..., :d].to(torch.float32)
         assert _c_entry(name, (wide[..., :d],) * n, "wgmma") == 0, name
         assert _c_entry(name, (odd,) * n, "wgmma") == 1, name
         assert _c_entry(name, (wide[..., :d], empty, empty, wide[..., :d])[:n],
@@ -1460,24 +1496,30 @@ def test_wgmma256_backward_is_bit_repeatable(gpu, case, layout):
 
 
 def test_wgmma256_backward_refuses_fp16_and_its_out_scale(gpu):
-    """No wgmma kernel takes fp16 at head dim 256: named, the route of dQ
-    and of dK/dV raises and launches nothing, and csrc/'s entries refuse it
-    (cudaErrorInvalidValue) with the fp16 cotangent's out_scale and without,
-    while the mma route takes the same call with the out_scale; in bf16 the
-    entries refuse an out_scale."""
-    args, _ = _bwd_inputs(gpu, "d256_ragged_300", "bshd", seed=4, d=256, dtype=torch.float16)
+    """At head dim 256 dQ and dK/dV take fp16 on wgmma (GPT-J-6B's
+    kernels) but not fp32: named on fp32 rows, the route of each raises and
+    launches nothing, and csrc/'s entries refuse it (cudaErrorInvalidValue);
+    on fp16 rows the wrappers launch once each, and the entries take the
+    call with the fp16 cotangent's out_scale and without, as the mma route
+    does; in bf16 the entries refuse an out_scale."""
+    args, _ = _bwd_inputs(gpu, "ragged_300", "bshd", seed=4, d=256, dtype=torch.float16)
     out_scale = torch.tensor(0.125, device=gpu)
+    fp32 = [t.float().contiguous() for t in args[:4]]
     for fn in (attn.flash_bwd_dq, attn.flash_bwd_dkv):
-        assert "wgmma" not in attn._routes(fn.__name__, *args[:4])
+        assert "wgmma" not in attn._routes(fn.__name__, *fp32)
         before = (fn.launches, dict(fn.launches_by_route))
-        for scale in (None, out_scale):
-            with pytest.raises(ValueError, match=f"{fn.__name__} route 'wgmma' cannot take"):
-                fn(*args, route="wgmma", out_scale=scale)
+        with pytest.raises(ValueError, match=f"{fn.__name__} route 'wgmma' cannot take"):
+            fn(*fp32, *args[4:], route="wgmma")
         assert (fn.launches, fn.launches_by_route) == before
+        for scale in (None, out_scale):
+            fn(*args, route="wgmma", out_scale=scale)
+        torch.cuda.synchronize()
+        assert fn.launches_by_route["wgmma"] == before[1]["wgmma"] + 2
     bf16 = [t.to(torch.bfloat16) for t in args[:4]]
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert _c_entry(name, fp32, "wgmma") == 1, name
         for scale in (None, out_scale):
-            assert _c_entry(name, args[:4], "wgmma", scale) == 1, (name, scale)
+            assert _c_entry(name, args[:4], "wgmma", scale) == 0, (name, scale)
         assert _c_entry(name, args[:4], "mma", out_scale) == 0, name
         assert _c_entry(name, bf16, "wgmma", out_scale) == 1, name
         assert _c_entry(name, bf16, "wgmma") == 0, name
@@ -1809,6 +1851,131 @@ def test_fp16_d100_backward_keeps_a_large_lse_cotangent(gpu, lse_scale, sink):
     assert all(e["finite"] for e in row["errors"].values())
 
 
+# the fp16 wgmma backward at head dim 256 (flash_bwd_dq_wgmma256_f16_kernel,
+# flash_bwd_dkv_wgmma256_f16_kernel: GPT-J-6B's attention in its published
+# dtype) at F16_96_256_SHAPES[256] (the model's shape and every path of the
+# kernels' loops), in both layouts, held to fp16's bounds
+@pytest.mark.parametrize("case", list(F16_96_256_SHAPES[256]))
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+def test_wgmma256_f16_backward_matches_the_plain_backward(gpu, case, layout):
+    """dQ and dK/dV on their fp16 head-dim-256 wgmma kernels, as `_route`
+    picks them, one launch each, elementwise and by each output's worst
+    64-row tile."""
+    args, (o, g_lse) = _bwd_inputs(gpu, case, layout, d=256, dtype=torch.float16)
+    q, k, v, do, lse, _, causal, window = args
+    fns = (attn.flash_bwd_dq, attn.flash_bwd_dkv)
+    assert [attn._route(fn.__name__, q, k, v, do) for fn in fns] == ["wgmma", "wgmma"]
+    before = [fn.launches_by_route["wgmma"] for fn in fns]
+    got = _bwd_kernels(args, None)
+    torch.cuda.synchronize()
+    assert [fn.launches_by_route["wgmma"] for fn in fns] == [n + 1 for n in before]
+    want = attn.flash_backward_reference(q, k, v, o, lse, do, causal, window, g_lse)
+    tol = TOL[torch.float16]
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == torch.float16 and g.shape == w.shape
+        assert g.shape[-1] == 256
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
+        assert tile_rel_l2(g, w) <= chip_smoke.TILE_REL_L2_FP16
+
+
+@pytest.mark.parametrize("case", ["gptj6b_s2048", "gqa_16_8", "ragged_300"])
+def test_wgmma256_f16_backward_matches_the_mma_route(gpu, case):
+    """The new kernels against the mma kernels, the route they took before,
+    on the same inputs (the model's views): each against the plain backward,
+    and the two routes against each other by tile."""
+    args, (o, g_lse) = _bwd_inputs(gpu, case, "bshd", seed=2, d=256, dtype=torch.float16)
+    q, k, v, do, lse, _, causal, window = args
+    want = attn.flash_backward_reference(q, k, v, o, lse, do, causal, window, g_lse)
+    tol = TOL[torch.float16]
+    for g, m, w in zip(_bwd_kernels(args, "wgmma"), _bwd_kernels(args, "mma"), want):
+        for got in (g, m):
+            torch.testing.assert_close(got.float(), w.float(), atol=tol, rtol=tol)
+            assert tile_rel_l2(got, w) <= chip_smoke.TILE_REL_L2_FP16
+        assert tile_rel_l2(g, m) <= chip_smoke.TILE_REL_L2_FP16
+
+
+@pytest.mark.parametrize("case", ["ragged_300", "window_512", "gptj6b_s2048", "gqa_16_8"])
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+def test_wgmma256_f16_backward_is_bit_repeatable(gpu, case, layout):
+    """No atomics: dQ's two warpgroups' sums join in one order in fp16 too."""
+    args, _ = _bwd_inputs(gpu, case, layout, d=256, dtype=torch.float16)
+    runs = [_bwd_kernels(args, "wgmma") for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.parametrize("route", ["mma", "wgmma"])
+def test_wgmma256_f16_out_scale_multiplies_before_the_rounding(gpu, route):
+    """At head dim 256 in fp16, on the new kernels and on mma: with
+    out_scale 2^-3 each output (per q head, as the kernels write it) is the
+    one without it times 2^-3 (exact in fp16's normal range, at most 2^-24
+    apart where subnormal); and with the cotangents 2^6 times larger and
+    out_scale 2^-6, as `_FlashFwd.backward` passes them, the outputs equal
+    the plain backward's with the same out_scale, which multiplies before
+    its one rounding, within fp16's bounds."""
+    args, (o, g_lse) = _bwd_inputs(gpu, "gqa_16_8", "bshd", seed=3, d=256,
+                                   dtype=torch.float16)
+    q, k, v, do, lse, delta, causal, window = args
+    kvh = k.shape[1]
+    got = _bwd_kernels_scaled(args, route, torch.tensor(0.125, device=gpu))
+    want = _bwd_kernels_scaled(args, route, None)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float16 and bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g.float(), w.float() * 0.125, rtol=0, atol=2.0 ** -24)
+    big = (q, k, v, (do.float() * 64).half(), lse, delta * 64, causal, window)
+    scale = torch.tensor(2.0 ** -6, device=gpu)
+    dq, dk, dv = _bwd_kernels_scaled(big, route, scale)
+    ref = attn.flash_backward_reference(q, k, v, o, lse, big[3], causal, window,
+                                        g_lse * 64, scale)
+    tol = TOL[torch.float16]
+    for g, w in zip((dq, attn.group_sum(dk, kvh), attn.group_sum(dv, kvh)), ref):
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
+        assert tile_rel_l2(g, w) <= chip_smoke.TILE_REL_L2_FP16
+
+
+def test_wgmma256_f16_backward_refuses_rows_off_16_bytes(gpu):
+    """fp16 q, k, v and dO that start 1, 2 or 4 elements (2, 4 or 8 bytes)
+    into their storage, a sequence stride that is no multiple of 8 elements
+    and an empty kv: `_routes` offers dQ and dK/dV no wgmma, the named route
+    raises with no launch (the empty kv is refused by csrc/ alone), and
+    csrc/'s entries, called past `_routes`, return cudaErrorInvalidValue (1)
+    for each, with no fallback; the same rows at a stride of 264 launch
+    (0)."""
+    half, d = torch.float16, 256
+    n = 4 * 64 * d
+    flat = torch.randn(4 + n, device=gpu).to(half)
+    wide = torch.randn(1, 4, 64, d + 8, device=gpu).to(half)
+    odd = torch.randn(1, 4, 64, d + 4, device=gpu).to(half)[..., :d]
+    empty = torch.zeros(1, 4, 0, d, device=gpu, dtype=half)
+    lse = torch.zeros(1, 4, 64, device=gpu)
+    for fn in (attn.flash_bwd_dq, attn.flash_bwd_dkv):
+        name = fn.__name__
+        for t in [flat[o:o + n].view(1, 4, 64, d) for o in (1, 2, 4)] + [odd]:
+            assert "wgmma" not in attn._routes(name, t, t, t, t)
+            before = (fn.launches, dict(fn.launches_by_route))
+            with pytest.raises(ValueError, match=f"{name} route 'wgmma' cannot take"):
+                fn(t, t, t, t, lse, lse, causal=False, route="wgmma")
+            assert (fn.launches, fn.launches_by_route) == before
+            assert _c_entry(name, (t,) * 4, "wgmma") == 1, name
+        ok = wide[..., :d]
+        assert _c_entry(name, (ok, empty, empty, ok), "wgmma") == 1, name
+        assert _c_entry(name, (ok,) * 4, "wgmma") == 0, name
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("lse_scale, sink", [(1e3, False), (1e3, True)],
+                         ids=["1000.0", "sink-1000.0"])
+def test_fp16_d256_backward_keeps_a_large_lse_cotangent(gpu, lse_scale, sink):
+    """F10 at head dim 256, through the kernels' autograd node on the new
+    fp16 kernels (chip_smoke's large-cotangent rows at GPT-J-6B's width,
+    smaller): every output finite and within twice the fp32 backward's own
+    rounding to fp16 of it, one launch of each kernel on wgmma."""
+    row = chip_smoke.fp16_lse_cotangent_row(attn, 1, 2, 256, 256, 1e-5, lse_scale, sink)
+    assert row["ok"], row
+    assert all(e["finite"] for e in row["errors"].values())
+
+
 # a GQA case of each wgmma backward kernel pair: (head dim, dtype, case of
 # `_bwd_inputs`)
 ROUNDING_CASES = {
@@ -1821,6 +1988,7 @@ ROUNDING_CASES = {
     "fp16_d64": (64, torch.float16, "gqa_16_4"),
     "fp16_d100": (100, torch.float16, "gqa_32_8"),
     "fp16_d128": (128, torch.float16, "gqa_32_8"),
+    "fp16_d256": (256, torch.float16, "gqa_16_8"),
 }
 # the largest share of an output's entries that differ from the plain
 # backward's per q head, by dtype: fp16's ulp is 8x finer than bf16's, so 8x

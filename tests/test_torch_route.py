@@ -109,15 +109,16 @@ def test_route_follows_the_inputs(case):
 
 
 # the head dims each kernel has a wgmma kernel for (csrc/), by dtype: every
-# kernel at 64, 80, 96, 128 and 256 in bf16, and at 64 and 128 in fp16, and
-# the forward at 80, 96 and 256 in fp16 too (and every kernel at 100 in both
+# kernel at 64, 80, 96, 128 and 256 in bf16, and at 64, 128 and 256 in fp16,
+# and the forward at 80 and 96 in fp16 too (and every kernel at 100 in both
 # dtypes, whose rows are not 16-byte aligned: not among these, which mma
 # takes too)
 WGMMA_TAKES = {torch.bfloat16: {"flash_fwd": (64, 80, 96, 128, 256),
                                 "flash_bwd_dq": (64, 80, 96, 128, 256),
                                 "flash_bwd_dkv": (64, 80, 96, 128, 256)},
-               torch.float16: {"flash_fwd": (64, 80, 96, 128, 256), "flash_bwd_dq": (64, 128),
-                               "flash_bwd_dkv": (64, 128)}}
+               torch.float16: {"flash_fwd": (64, 80, 96, 128, 256),
+                               "flash_bwd_dq": (64, 128, 256),
+                               "flash_bwd_dkv": (64, 128, 256)}}
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 HEAD_DIMS = (32, 64, 128, 40, 80, 96, 256)
 
@@ -142,9 +143,9 @@ def test_wgmma_admits_each_kernels_head_dims(kernel, d, wgmma):
     (kernel, d, d in WGMMA_TAKES[torch.float16][kernel])
     for kernel in KERNELS for d in HEAD_DIMS])
 def test_wgmma_admits_fp16_at_head_dim_128_alone(kernel, d, wgmma):
-    """In fp16 wgmma takes head dims 128 and 64 alone for dQ and dK/dV, and
-    80, 96 and 256 too for the forward (`WGMMA_TAKES`); every other aligned
-    fp16 head dim keeps mma for all three kernels, up to 256."""
+    """In fp16 wgmma takes head dims 128, 64 and 256 alone for dQ and
+    dK/dV, and 80 and 96 too for the forward (`WGMMA_TAKES`); every other
+    aligned fp16 head dim keeps mma for all three kernels, up to 256."""
     _assert_wgmma_admits(kernel, d, torch.float16, wgmma)
 
 
@@ -258,9 +259,9 @@ BWD_CASES = {
     "fp16_d64_do_offset_by_one": (lambda: [_model_view(1, 64, 4, 64, torch.float16)] * 3
                                   + [_bhsd(1, 4, 64, 64, torch.float16, offset=1)], "simt"),
     # head dim 256 (Gemma's, 8 q heads over one KV head): wgmma for rows
-    # aligned as mma's; mma in fp16 (where the forward alone has an fp16
-    # wgmma kernel, GPT-J-6B's) and for an empty kv, simt for rows 8 bytes
-    # off 16
+    # aligned as mma's, in bf16 and in fp16 (GPT-J-6B's published dtype;
+    # contiguous, GQA and as the model's views); mma for an empty kv, simt
+    # for rows 8 bytes or 2 bytes off 16
     "bf16_d256_gqa_model_views": (lambda: [_model_view(1, 64, 8, 256)]
                                   + [_model_view(1, 64, 1, 256)] * 2
                                   + [_model_view(1, 64, 8, 256)], "wgmma"),
@@ -271,7 +272,22 @@ BWD_CASES = {
                                     _bhsd(1, 1, 0, 256), _bhsd(1, 8, 64, 256)], "mma"),
     "fp16_d256_model_views": (lambda: [_model_view(1, 64, 8, 256, torch.float16)]
                               + [_model_view(1, 64, 1, 256, torch.float16)] * 2
-                              + [_model_view(1, 64, 8, 256, torch.float16)], "mma"),
+                              + [_model_view(1, 64, 8, 256, torch.float16)], "wgmma"),
+    "fp16_d256_mha_model_views": (lambda: [_model_view(1, 64, 16, 256, torch.float16)] * 4,
+                                  "wgmma"),
+    "fp16_d256_gqa_contiguous": (lambda: [_bhsd(1, 16, 64, 256, torch.float16)]
+                                 + [_bhsd(1, 8, 64, 256, torch.float16)] * 2
+                                 + [_bhsd(1, 16, 64, 256, torch.float16)], "wgmma"),
+    "fp16_d256_offset_by_one": (lambda: [_bhsd(1, 4, 64, 256, torch.float16, offset=1)] * 4,
+                                "simt"),
+    "fp16_d256_offset_by_four": (lambda: [_bhsd(1, 4, 64, 256, torch.float16, offset=4)] * 4,
+                                 "simt"),
+    "fp16_d256_do_offset_by_four": (lambda: [_bhsd(1, 4, 64, 256, torch.float16)] * 3
+                                    + [_bhsd(1, 4, 64, 256, torch.float16, offset=4)], "simt"),
+    "fp16_d256_empty_kv": (lambda: [_bhsd(1, 8, 64, 256, torch.float16),
+                                    _bhsd(1, 1, 0, 256, torch.float16),
+                                    _bhsd(1, 1, 0, 256, torch.float16),
+                                    _bhsd(1, 8, 64, 256, torch.float16)], "mma"),
     # head dim 100 (OpenLLaMA-3B's): wgmma for 8-byte aligned bases and
     # strides that are multiples of 4, in bf16 and fp16, simt otherwise
     "bf16_d100": (lambda: [_bhsd(1, 4, 64, 100)] * 4, "wgmma"),
@@ -323,10 +339,10 @@ def test_backward_route_follows_the_inputs(case):
 
 
 # (case, route) both backward kernels must refuse (fp16 has wgmma backward
-# kernels at head dims 64, 100 and 128 alone, for aligned rows; bf16 at 80 and
-# 256 none for rows off 16 bytes or an empty kv, and at 100, in bf16 and
-# fp16, none for rows off 8 bytes, strides off 4 elements or an empty kv; no
-# mma kernel takes 200-byte rows)
+# kernels at head dims 64, 100, 128 and 256 alone, for aligned rows; bf16 and
+# fp16 at 256, and bf16 at 80, none for rows off 16 bytes or an empty kv, and
+# at 100, in bf16 and fp16, none for rows off 8 bytes, strides off 4
+# elements or an empty kv; no mma kernel takes 200-byte rows)
 BWD_REFUSALS = [("fp32_d128", "wgmma"), ("fp32_d128", "mma"), ("bf16_d32", "wgmma"),
                 ("do_offset_by_one", "mma"), ("do_odd_seq_stride", "wgmma"),
                 ("empty_kv", "wgmma"), ("bf16_d128", "tma"), ("fp16_d80", "wgmma"),
@@ -337,8 +353,10 @@ BWD_REFUSALS = [("fp32_d128", "wgmma"), ("fp32_d128", "mma"), ("bf16_d32", "wgmm
                 ("bf16_d80_offset_by_four", "mma"), ("bf16_d80_empty_kv", "wgmma"),
                 ("bf16_d100_offset_by_one", "wgmma"), ("bf16_d100_do_offset_by_two", "wgmma"),
                 ("bf16_d100_odd_seq_stride", "wgmma"), ("bf16_d100_empty_kv", "wgmma"),
-                ("fp16_d100", "mma"), ("fp16_d256_model_views", "wgmma"),
-                ("bf16_d256_offset_by_four", "wgmma"), ("bf16_d256_offset_by_four", "mma"),
+                ("fp16_d100", "mma"), ("fp16_d256_offset_by_one", "wgmma"),
+                ("fp16_d256_offset_by_one", "mma"), ("fp16_d256_offset_by_four", "wgmma"),
+                ("fp16_d256_offset_by_four", "mma"), ("fp16_d256_do_offset_by_four", "wgmma"),
+                ("fp16_d256_empty_kv", "wgmma"), ("bf16_d256_offset_by_four", "wgmma"), ("bf16_d256_offset_by_four", "mma"),
                 ("bf16_d256_empty_kv", "wgmma"), ("fp16_d100_offset_by_one", "wgmma"),
                 ("fp16_d100_do_offset_by_two", "wgmma"),
                 ("fp16_d100_odd_seq_stride", "wgmma"), ("fp16_d100_model_views", "mma")]
@@ -605,9 +623,9 @@ def _wide_rows():
 def test_the_smokes_wide_rows_take_their_routes(row):
     """Each row chip_smoke adds at the new head dims and in fp16 names the
     route `_route` picks for each kernel there: wgmma at head dims 80, 96,
-    100 and 256 in bf16 and in fp16 at 64, 100 and 128 aligned (not one
+    100 and 256 in bf16 and in fp16 at 64, 100, 128 and 256 aligned (not one
     element into its storage), for every kernel, and for the forward alone
-    in fp16 at 80, 96 and 256."""
+    in fp16 at 80 and 96."""
     import chip_smoke
 
     q, k, v, do = _smoke_row_tensors(row)
@@ -618,8 +636,8 @@ def test_the_smokes_wide_rows_take_their_routes(row):
     aligned_bf16 = row[9] == torch.bfloat16 and row[10] != "offset1"
     aligned_fp16 = row[9] == torch.float16 and row[10] != "offset1"
     every = ((row[6] in (80, 96, 100, 256) and aligned_bf16)
-             or (row[6] in (64, 100, 128) and aligned_fp16))
-    forward = every or (row[6] in (80, 96, 256) and aligned_fp16)
+             or (row[6] in (64, 100, 128, 256) and aligned_fp16))
+    forward = every or (row[6] in (80, 96) and aligned_fp16)
     assert ("wgmma" in attn._routes("flash_fwd", q, k, v)) == forward
     assert ("wgmma" in attn._routes("flash_bwd_dkv", q, k, v, do)) == every
     assert ("wgmma" in attn._routes("flash_bwd_dq", q, k, v, do)) == every
@@ -784,12 +802,13 @@ def test_the_new_width_forwards_expect_every_launch_on_wgmma():
 def test_shape_routes_takes_a_forward_and_backward_pair():
     """`shape_routes` takes a (forward, backward kernels) pair as well as one
     route for all three, which every row at 64 in fp16, 80, 100 or 256 names
-    (all on wgmma); the smoke's forward turn rows are among its wide rows, each with a route
-    before wgmma to be timed against (simt at 100, mma elsewhere), the fp16
-    rows at 80, 96, 100 and 256 among them; its backward turn rows are the nine at
-    80, 100, 256 and in fp16 at 64 and 100, where dQ and dK/dV took mma or
-    simt before their wgmma kernels, timed beside SDPA's default backend
-    (cuDNN) at 80, 256 and 64 and its flash backend at 100."""
+    (all on wgmma); the smoke's forward turn rows are among its wide rows,
+    each with a route before wgmma to be timed against (simt at 100, mma
+    elsewhere), the fp16 rows at 80, 96, 100 and 256 among them; its
+    backward turn rows are the ten at 80, 100, 256 and in fp16 at 64, 100
+    and 256, where dQ and dK/dV took mma or simt before their wgmma kernels,
+    timed beside SDPA's default backend (cuDNN) at 80, 256 and 64 and its
+    flash backend at 100."""
     import chip_smoke
 
     assert chip_smoke.shape_routes(("wgmma", "simt")) == {
@@ -809,8 +828,7 @@ def test_shape_routes_takes_a_forward_and_backward_pair():
         assert attn._routes("flash_fwd", q, k, v)[-2:] == (old, "wgmma")
     turns = chip_smoke.BWD_TURN_SHAPES
     assert set(turns) == (set(chip_smoke.FWD_TURN_SHAPES)
-                          - {"opt27b_d80_bshd", "neox20b_fp16_d96_bshd",
-                             "gptj6b_fp16_d256_bshd"}
+                          - {"opt27b_d80_bshd", "neox20b_fp16_d96_bshd"}
                           | {"opt13b_d64_bshd", "fp16_unaligned_d100"})
     assert set(turns) <= set(chip_smoke.WIDE_SHAPES)
     for name, backend in turns.items():
@@ -969,7 +987,7 @@ def test_the_gemma_and_opt_forwards_expect_every_launch_on_wgmma():
         assert f'("{phase}", ' in main and f'("forward_on_mma", {manager})' in main
     assert {"flash_fwd_wgmma256_kernel", "flash_fwd_wgmma64_f16_kernel"} <= set(
         chip_smoke.WGMMA_KERNELS)
-    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 30
+    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 32
 
 
 def test_the_smokes_new_rows_at_256_and_fp16_64():
@@ -1255,7 +1273,7 @@ def test_the_opt27b_and_fp16_openllama_forwards_expect_every_launch_on_wgmma():
     one flash_fwd launch a layer on wgmma (`phase_forward`'s route), 32 and
     26: `_route` picks it on each config's fp16 model views; both run in
     main's loop of forward phases, timed in turns against the forward on
-    its old route, and the build expects both new kernels among 26."""
+    its old route, and the build expects both new kernels among 32."""
     import inspect
 
     import chip_smoke
@@ -1273,7 +1291,7 @@ def test_the_opt27b_and_fp16_openllama_forwards_expect_every_launch_on_wgmma():
         assert f'("{phase}", ' in main and old in main
     assert {"flash_fwd_wgmma80_f16_kernel", "flash_fwd_wgmma100_f16_kernel"} <= set(
         chip_smoke.WGMMA_KERNELS)
-    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 30
+    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 32
 
 
 def test_the_smokes_fp16_rows_at_80_and_100():
@@ -1366,7 +1384,7 @@ def test_openllama3b_fp16_gradient_and_backward_expect_every_launch_on_wgmma():
     views at head dim 100; both phases run timed in turns against
     `fp16_d100_backward_on_simt`, as the loss's backward where a call is
     one, and appear in the kernels line's launches by path; the build
-    expects both new kernels among 28; the smoke's third sink row is at
+    expects both new kernels among 32; the smoke's third sink row is at
     head dim 100."""
     import inspect
 
@@ -1393,40 +1411,42 @@ def test_openllama3b_fp16_gradient_and_backward_expect_every_launch_on_wgmma():
     assert "turns=fp16_d100_turns, llama=llama)" in main
     assert {"flash_bwd_dq_wgmma100_f16_kernel", "flash_bwd_dkv_wgmma100_f16_kernel"} <= set(
         chip_smoke.WGMMA_KERNELS)
-    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 30
+    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 32
     assert chip_smoke.FP16_SINK_COTANGENT_D100 == dict(chip_smoke.FP16_SINK_COTANGENT, d=100)
     assert "FP16_SINK_COTANGENT_D100" in inspect.getsource(chip_smoke.phase_backward)
 
 
 # fp16 at head dims 96 (GPT-NeoX-20B's) and 256 (GPT-J-6B's): the forward has
-# an fp16 wgmma kernel at each; dQ and dK/dV keep mma
+# an fp16 wgmma kernel at each; dQ and dK/dV keep mma at 96 and have fp16
+# wgmma kernels of their own at 256
 @pytest.mark.parametrize("layout", ["bhsd", "bshd"])
 @pytest.mark.parametrize("d", [96, 256])
 def test_the_fp16_forward_alone_takes_wgmma_at_96_and_256(d, layout):
     """fp16, contiguous and as the model's views: the forward's routes end
-    in wgmma after mma, dQ's and dK/dV's in mma; rows one element into
-    their storage take simt alone."""
+    in wgmma after mma, dQ's and dK/dV's in mma at 96 and in wgmma after
+    mma at 256; rows one element into their storage take simt alone."""
     half = torch.float16
     q, k, v, do = ([_bhsd(1, 4, 64, d, half)] if layout == "bhsd"
                    else [_model_view(1, 64, 4, d, half)]) * 4
     assert attn._routes("flash_fwd", q, k, v) == ("simt", "mma", "wgmma")
+    bwd = ("simt", "mma", "wgmma") if d == 256 else ("simt", "mma")
     for kernel in BWD_KERNELS:
-        assert attn._routes(kernel, q, k, v, do) == ("simt", "mma")
+        assert attn._routes(kernel, q, k, v, do) == bwd
     off = _bhsd(1, 4, 64, d, half, offset=1)
     assert attn._routes("flash_fwd", off, off, off) == ("simt",)
 
 
-@pytest.mark.parametrize("dim", [192, 512])
-def test_the_models_fp16_forward_at_96_and_256(monkeypatch, dim):
+@pytest.mark.parametrize("dim,bwd", [(192, "mma"), (512, "wgmma")])
+def test_the_models_fp16_forward_at_96_and_256(monkeypatch, dim, bwd):
     """An fp16 layer at head_dim 96 and 256 (`_a_models_launch_routes`):
     both forward launches take their fp16 wgmma kernel, and the backward
-    launchers mma, with the cotangent that `_FlashFwd.backward` scales in
-    fp16."""
+    launchers mma at 96 and their fp16 wgmma kernels at 256, with the
+    cotangent that `_FlashFwd.backward` scales in fp16."""
     cfg = dataclasses.replace(_one_layer(dim, "float16"), n_kv_heads=2)
     assert cfg.head_dim == dim // 2
     assert _a_models_launch_routes(monkeypatch, cfg) == [
-        ("flash_fwd", "wgmma"), ("flash_fwd", "wgmma"), ("flash_bwd_dq", "mma"),
-        ("flash_bwd_dkv", "mma")]
+        ("flash_fwd", "wgmma"), ("flash_fwd", "wgmma"), ("flash_bwd_dq", bwd),
+        ("flash_bwd_dkv", bwd)]
 
 
 def _llama_params(cfg) -> int:
@@ -1463,23 +1483,24 @@ def test_fp16_d96_and_d256_forward_on_mma_move_the_fp16_forward_alone():
     """`profile_path.fp16_d96_forward_on_mma` and `fp16_d256_forward_on_mma`,
     the route sets the GPT-NeoX-20B and GPT-J-6B forwards are timed against:
     within each the fp16 forward at its width takes mma, while fp16 dQ and
-    dK/dV stay on mma there, bf16 at that width keeps wgmma for every
-    kernel, and fp16 at the other width and at 64, 80 and 128 keeps its
-    wgmma forward; after it `_WGMMA_HEAD_DIMS` is exactly what it was."""
+    dK/dV keep their routes there (mma at 96, wgmma at 256), bf16 at that
+    width keeps wgmma for every kernel, and fp16 at the other width and at
+    64, 80 and 128 keeps its wgmma forward; after it `_WGMMA_HEAD_DIMS` is
+    exactly what it was."""
     from yoda_scheduler_tpu_torch.profile_path import (fp16_d96_forward_on_mma,
                                                        fp16_d256_forward_on_mma)
 
     half = torch.float16
     saved = {key: dims for key, dims in attn._WGMMA_HEAD_DIMS.items()}
-    for routes, d, other in ((fp16_d96_forward_on_mma, 96, 256),
-                             (fp16_d256_forward_on_mma, 256, 96)):
+    for routes, d, other, bwd in ((fp16_d96_forward_on_mma, 96, 256, "mma"),
+                                  (fp16_d256_forward_on_mma, 256, 96, "wgmma")):
         t = [_model_view(1, 64, 4, d, half)] * 4
         bf16 = [_model_view(1, 64, 4, d)] * 4
         rest = [[_model_view(1, 64, 4, dd, half)] * 3 for dd in (other, 64, 80, 128)]
         with routes():
             assert attn._route("flash_fwd", *t[:3]) == "mma"
             for name in BWD_KERNELS:
-                assert attn._route(name, *t) == "mma"
+                assert attn._route(name, *t) == bwd
                 assert attn._route(name, *bf16) == "wgmma"
             assert attn._route("flash_fwd", *bf16[:3]) == "wgmma"
             for r in rest:
@@ -1494,7 +1515,7 @@ def test_the_neox20b_and_gptj6b_forwards_expect_every_launch_on_wgmma():
     `_route` picks it on each config's fp16 model views; both run in main's
     loop of forward phases (whose launches go into the kernels line's
     launches by path), timed in turns against the forward on mma, and the
-    build expects both new kernels among 30; profile_path's main traces
+    build expects both new kernels among 32; profile_path's main traces
     both forwards on each route last."""
     import inspect
 
@@ -1514,7 +1535,7 @@ def test_the_neox20b_and_gptj6b_forwards_expect_every_launch_on_wgmma():
     assert "**new_width_routes" in main
     assert {"flash_fwd_wgmma96_f16_kernel", "flash_fwd_wgmma256_f16_kernel"} <= set(
         chip_smoke.WGMMA_KERNELS)
-    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 30
+    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 32
     windows = inspect.getsource(profile_path.neox_gptj_forward_windows)
     assert "fp16_d96_forward_on_mma" in windows and "fp16_d256_forward_on_mma" in windows
     assert "neox_gptj_forward_windows()" in inspect.getsource(profile_path.main)
@@ -1524,10 +1545,11 @@ def test_the_smokes_fp16_rows_at_96_and_256():
     """chip_smoke's fp16 rows at head dims 96 (GPT-NeoX-20B's attention as
     its model gives it, 64 heads of 96, then GQA 32/8, window 512, ragged,
     cross-length, non-causal) and 256 (GPT-J-6B's, 16 heads of 256, and the
-    same five) name the forward on wgmma and dQ and dK/dV on mma; all are
-    wide rows, held on every route; the models' rows are forward turn rows
-    (against mma) and in the kernels line, and no row at either width is a
-    backward turn row."""
+    same five) name the forward on wgmma, and dQ and dK/dV on mma at 96 and
+    on wgmma at 256; all are wide rows, held on every route; the models'
+    rows are forward turn rows (against mma) and in the kernels line, and
+    GPT-J-6B's row alone is a backward turn row too (against mma, cuDNN's
+    whole backward after each turn)."""
     import chip_smoke
 
     rows = {row[0]: row for row in chip_smoke.SHAPES}
@@ -1535,13 +1557,12 @@ def test_the_smokes_fp16_rows_at_96_and_256():
                 "fp16_ragged_d96", "fp16_cross_length_d96", "fp16_non_causal_d96"},
            256: {"gptj6b_fp16_d256_bshd", "fp16_gqa_d256", "fp16_window_d256",
                  "fp16_ragged_d256", "fp16_cross_length_d256", "fp16_non_causal_d256"}}
-    for d in (96, 256):
+    for d, bwd in ((96, "mma"), (256, "wgmma")):
         assert new[d] == {n for n, row in rows.items() if row[6] == d and row[9] == torch.float16}
         assert new[d] <= set(chip_smoke.WIDE_SHAPES)
-        assert not new[d] & set(chip_smoke.BWD_TURN_SHAPES)
         for name in new[d]:
             assert chip_smoke.shape_routes(rows[name][-1]) == {
-                "flash_fwd": "wgmma", "flash_bwd_dq": "mma", "flash_bwd_dkv": "mma"}, name
+                "flash_fwd": "wgmma", "flash_bwd_dq": bwd, "flash_bwd_dkv": bwd}, name
         assert rows[f"fp16_window_d{d}"][8] == 512
         assert rows[f"fp16_cross_length_d{d}"][4:6] == (256, 1024)
         assert not rows[f"fp16_non_causal_d{d}"][7]
@@ -1554,3 +1575,82 @@ def test_the_smokes_fp16_rows_at_96_and_256():
     models = {"neox20b_fp16_d96_bshd", "gptj6b_fp16_d256_bshd"}
     assert models <= set(chip_smoke.FWD_TURN_SHAPES) and models <= set(
         chip_smoke.HEAD_DIM_ROWS)
+    assert (new[96] | new[256]) & set(chip_smoke.BWD_TURN_SHAPES) == {"gptj6b_fp16_d256_bshd"}
+    assert chip_smoke.BWD_TURN_SHAPES["gptj6b_fp16_d256_bshd"] == "default"
+
+
+def test_fp16_d256_backward_on_mma_moves_the_fp16_backward_alone_and_restores():
+    """`profile_path.fp16_d256_backward_on_mma`, the route set the GPT-J-6B
+    gradient and backward are timed against: within it fp16 dQ and dK/dV at
+    head dim 256 take mma while the fp16 forward there keeps wgmma, bf16 at
+    256 keeps wgmma for every kernel, and fp16 dQ and dK/dV at 64, 100 and
+    128 keep theirs; `fp16_backward_on_mma` moves fp16 at 64 and 128 alone
+    and leaves 256 on wgmma; after each `_WGMMA_HEAD_DIMS` is exactly what
+    it was, and the fp16 backward at 256 takes wgmma again."""
+    from yoda_scheduler_tpu_torch.profile_path import (fp16_backward_on_mma,
+                                                       fp16_d256_backward_on_mma)
+
+    half = torch.float16
+    saved = {key: dims for key, dims in attn._WGMMA_HEAD_DIMS.items()}
+    t = [_model_view(1, 64, 16, 256, half)] * 4
+    bf16 = [_model_view(1, 64, 16, 256)] * 4
+    rest = [[_model_view(1, 64, 4, d, half)] * 4 for d in (64, 100, 128)]
+    with fp16_d256_backward_on_mma():
+        assert attn._route("flash_fwd", *t[:3]) == "wgmma"
+        assert attn._route("flash_fwd", *bf16[:3]) == "wgmma"
+        for name in BWD_KERNELS:
+            assert attn._route(name, *t) == "mma"
+            assert attn._route(name, *bf16) == "wgmma"
+            for r in rest:
+                assert attn._route(name, *r) == "wgmma"
+    assert attn._WGMMA_HEAD_DIMS == saved
+    with fp16_backward_on_mma():
+        for name in BWD_KERNELS:
+            assert attn._route(name, *t) == "wgmma"
+    assert attn._WGMMA_HEAD_DIMS == saved
+    for name in BWD_KERNELS:
+        assert attn._route(name, *t) == "wgmma"
+
+
+def test_gptj6b_fp16_gradient_and_backward_expect_every_launch_on_wgmma():
+    """chip_smoke's expected launches of gptj6b_fp16_gradient (4 layers:
+    8/4/4) and of one gptj6b_fp16_backward call (the loss's forward and
+    backward at all 28 layers under remat, no optimizer: 56/28/28), all on
+    wgmma, as `_route` picks them on the model's fp16 views at head dim 256;
+    both phases run after openllama3b_fp16_backward and before the card is
+    freed, timed in turns against `fp16_d256_backward_on_mma`, as the loss's
+    backward where a call is one, and appear in the kernels line's launches
+    by path; the build expects both new kernels among 32; profile_path's
+    main traces GPT-J-6B's backward on each route last."""
+    import inspect
+
+    import chip_smoke
+    from yoda_scheduler_tpu_torch import profile_path
+    from yoda_scheduler_tpu_torch.profile_path import gptj_6b
+
+    cfg = gptj_6b()
+    assert (cfg.n_layers, cfg.head_dim, cfg.dtype) == (28, 256, "float16")
+    assert chip_smoke.step_routes("wgmma", cfg.n_layers) == {
+        "flash_fwd": {"wgmma": 56}, "flash_bwd_dq": {"wgmma": 28},
+        "flash_bwd_dkv": {"wgmma": 28}}
+    q, k, v, do = [_model_view(1, 64, cfg.n_heads, cfg.head_dim, cfg.torch_dtype)] * 4
+    assert attn._route("flash_fwd", q, k, v) == "wgmma"
+    for name in BWD_KERNELS:
+        assert attn._route(name, q, k, v, do) == "wgmma"
+    main = inspect.getsource(chip_smoke.main)
+    for path in ("gptj6b_fp16_gradient", "gptj6b_fp16_backward"):
+        assert main.count(f'"{path}":') == 2, path
+        assert f'phase="{path}"' in main, path
+    assert '"backward_on_mma": fp16_d256_backward_on_mma' in main
+    assert "turns=fp16_d256_turns, llama=llama)" in main
+    before = main.index('phase="openllama3b_fp16_backward"')
+    assert before < main.index('phase="gptj6b_fp16_gradient"') < main.index(
+        'phase="gptj6b_fp16_backward"') < main.index("free_memory()", before)
+    assert {"flash_bwd_dq_wgmma256_f16_kernel", "flash_bwd_dkv_wgmma256_f16_kernel"} <= set(
+        chip_smoke.WGMMA_KERNELS)
+    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 32
+    windows = inspect.getsource(profile_path.gptj6b_fp16_backward_windows)
+    assert "fp16_d256_backward_on_mma" in windows and "gptj_6b()" in windows
+    body = inspect.getsource(profile_path.main)
+    assert body.index("gptj6b_fp16_backward_windows()") > body.index(
+        "neox_gptj_forward_windows()")

@@ -48,8 +48,11 @@
 //   attention in its published dtype), the D = 64 kernels' bodies on fp16
 //   operands; flash_bwd_dq_wgmma256_kernel and
 //   flash_bwd_dkv_wgmma256_kernel are route 2 at D = 256 (Gemma's
-//   attention, tiles of 64 rows), each with its own note. Route 2 refuses
-//   every other D, and fp16 at any D but 64, 100 and 128 (it runs on mma).
+//   attention, tiles of 64 rows), each with its own note, and
+//   flash_bwd_dq_wgmma256_f16_kernel and flash_bwd_dkv_wgmma256_f16_kernel
+//   the same bodies in fp16 (GPT-J-6B's attention in its published dtype).
+//   Route 2 refuses every other D, and fp16 at any D but 64, 100, 128 and
+//   256 (it runs on mma).
 // - *_mma kernels (route 1; aligned bf16 and fp16, D a multiple of 8 up to
 //   256; they take bf16 at D = 64 and 128 too, to be held against the wgmma
 //   kernels): 4 warps each own 16 rows of a 64-row tile and run all products
@@ -1908,7 +1911,8 @@ BWD_DQ64_KERNEL(flash_bwd_dq_wgmma64_kernel, __nv_bfloat16)
 BWD_DQ64_KERNEL(flash_bwd_dq_wgmma64_f16_kernel, __half)
 #undef BWD_DQ64_KERNEL
 
-// ---- the dQ and dK/dV wgmma kernels at head dim 256 (bf16: Gemma's attention)
+// ---- the dQ and dK/dV wgmma kernels at head dim 256 (bf16: Gemma's attention;
+// fp16: GPT-J-6B's)
 // A 256-wide row is four 128-byte boxes, so a 64-row tile is 32 KB and the
 // D = 128 plans fit neither shared memory nor registers: 128 resident rows
 // (64 KB a tile) beside two stages of 64 streamed rows of two tiles (128
@@ -1946,9 +1950,15 @@ BWD_DQ64_KERNEL(flash_bwd_dq_wgmma64_f16_kernel, __half)
 // that its longest block sets (PERF.md: the forward's d=256 finding); the
 // longest blocks go first. There dQ does ~25.8 GFLOP against ~12 MB and
 // dK/dV ~34.4 GFLOP against ~26 MB, bound by operations (~26 and ~35 us at
-// 989 TF/s).
+// 989 TF/s). At GPT-J-6B's (fp16, 16 q heads over 16 KV heads, S=2048) dQ
+// does ~51.6 GFLOP against ~84 MB and dK/dV ~68.8 GFLOP against ~101 MB,
+// ~52 and ~70 us (ops/bounds.py), 512 blocks each. fp16 differs from bf16
+// only in the wgmma forms' element type, the maps' data type and the
+// roundings of P^T and dS (as operands) and of the outputs, which are
+// multiplied by *out_scale first, as in dq_wgmma_body; the bf16 kernels are
+// the bodies' <__nv_bfloat16> instances.
 constexpr int W256_BOX = 64 * 128;         // bytes of one 64-column box of a 64-row tile
-constexpr int W256_TILE = 4 * W256_BOX;    // a 64 x 256 tile of bf16, 32 KB
+constexpr int W256_TILE = 4 * W256_BOX;    // a 64 x 256 tile of 2-byte elements, 32 KB
 constexpr int W256_PAIR = 2 * W256_TILE;   // the block's own pair, and a stage's
 // dK/dV: K, V, then per stage Q and dO, then per stage LSE (log2 units) and
 // delta (64 fp32 each), then P^T's hand-over (64 x 64 fp32), then the
@@ -1963,14 +1973,15 @@ constexpr int DQ256_SMEM = DQ256_BARS + 8 * (1 + 2 * W_STAGES) + 1024;
 
 // d = A B^T over the head dim, A and B K-major 64 x 256 tiles (four boxes 8
 // KB apart): 16 SS m64n64k16 k-steps, k-step kk 32 (kk % 4) bytes into box
-// kk / 4 of each; the caller fences, commits and waits
+// kk / 4 of each, of T (bf16 or fp16); the caller fences, commits and waits
+template <typename T>
 __device__ __forceinline__ void scores256(float (&d)[32], const unsigned char* a,
                                           const unsigned char* b) {
   const uint64_t da = hopper::desc_kmajor(a), db = hopper::desc_kmajor(b);
 #pragma unroll
   for (int kk = 0; kk < 16; ++kk) {
     const uint64_t step = (uint64_t)(((kk / 4) * W256_BOX + (kk % 4) * 32) >> 4);
-    hopper::wgmma_m64n64k16_ss<0, 0>(d, da + step, db + step, kk > 0);
+    hopper::wgmma_m64n64k16_ss<0, 0, T>(d, da + step, db + step, kk > 0);
   }
 }
 
@@ -1978,14 +1989,15 @@ __device__ __forceinline__ void scores256(float (&d)[32], const unsigned char* a
 // form's layout) and B a 64 x 256 MN-major tile: per k-step two RS
 // m64n128k16 over B's column halves, 16 KB apart (its boxes LBO = 8 KB
 // apart; a k-step 2048 bytes); acc[hf] holds columns 128 hf .. 128 hf + 127
-// in the m64n128 layout. The caller fences, commits and waits.
+// in the m64n128 layout; A and B of T. The caller fences, commits and waits.
+template <typename T>
 __device__ __forceinline__ void sum256(float (&acc)[2][64], const uint32_t (&a)[4][4],
                                        const unsigned char* b) {
   const uint64_t db = hopper::desc_mnmajor(b, W256_BOX);
 #pragma unroll
   for (int k4 = 0; k4 < 4; ++k4) {
-    hopper::wgmma_m64n128k16_rs<1>(acc[0], a[k4], db + ((k4 * 2048) >> 4), 1);
-    hopper::wgmma_m64n128k16_rs<1>(acc[1], a[k4], db + ((2 * W256_BOX + k4 * 2048) >> 4), 1);
+    hopper::wgmma_m64n128k16_rs<1, T>(acc[0], a[k4], db + ((k4 * 2048) >> 4), 1);
+    hopper::wgmma_m64n128k16_rs<1, T>(acc[1], a[k4], db + ((2 * W256_BOX + k4 * 2048) >> 4), 1);
   }
 }
 
@@ -1997,25 +2009,27 @@ __device__ __forceinline__ void tma_tile256(unsigned char* tile, const CUtensorM
 }
 
 // this thread's row r (r = 0, 1: row 16 warp + g + 8 r of the warpgroup's
-// 64) of two m64n128 sums, times `mul`, in bf16 at `out`, the row's column
-// 2 t4: its columns 128 hf + 8 j + 2 t4 and the next
-__device__ __forceinline__ void store_row256(__nv_bfloat16* out, const float (&acc)[2][64],
-                                             int r, float mul) {
+// 64) of two m64n128 sums, times `mul`, in T (bf16 or fp16) at `out`, the
+// row's column 2 t4: its columns 128 hf + 8 j + 2 t4 and the next
+template <typename T>
+__device__ __forceinline__ void store_row256(T* out, const float (&acc)[2][64], int r,
+                                             float mul) {
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf)
 #pragma unroll
     for (int j = 0; j < 16; ++j)
       *reinterpret_cast<uint32_t*>(out + 128 * hf + 8 * j) =
-          pack_bf16(acc[hf][4 * j + 2 * r] * mul, acc[hf][4 * j + 2 * r + 1] * mul);
+          pack_t<T>(acc[hf][4 * j + 2 * r] * mul, acc[hf][4 * j + 2 * r + 1] * mul);
 }
 
-__global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma256_kernel(
-    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-    const float* __restrict__ out_scale, int H, int KvH, int Sq, int Sk, int causal,
-    int window, float scale) {
+// The body of flash_bwd_dkv_wgmma256_kernel (bf16) and
+// flash_bwd_dkv_wgmma256_f16_kernel (fp16: GPT-J-6B's published dtype)
+template <typename T>
+__device__ __forceinline__ void dkv_wgmma256_body(
+    const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+    const CUtensorMap* tm_do, const float* __restrict__ lse, const float* __restrict__ delta,
+    T* __restrict__ dk, T* __restrict__ dv, const float* __restrict__ out_scale, int H,
+    int KvH, int Sq, int Sk, int causal, int window, float scale) {
   using namespace hopper;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
@@ -2056,8 +2070,8 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma256_kern
       const int lane = threadIdx.x;
       if (lane == 0) {
         mbar_arrive_expect_tx(full_kv, W256_PAIR);
-        tma_tile256(sK, &tm_k, full_kv, k0, kvh, b);
-        tma_tile256(sV, &tm_v, full_kv, k0, kvh, b);
+        tma_tile256(sK, tm_k, full_kv, k0, kvh, b);
+        tma_tile256(sV, tm_v, full_kv, k0, kvh, b);
       }
       const float* lse_bh = lse + (int64_t)bh * Sq;
       const float* delta_bh = delta + (int64_t)bh * Sq;
@@ -2068,8 +2082,8 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma256_kern
         if (lane == 0) {
           unsigned char* sQ = smem + W256_PAIR + W256_PAIR * s;
           mbar_arrive_expect_tx(&full[s], W256_PAIR);
-          tma_tile256(sQ, &tm_q, &full[s], q0, h, b);
-          tma_tile256(sQ + W256_TILE, &tm_do, &full[s], q0, h, b);
+          tma_tile256(sQ, tm_q, &full[s], q0, h, b);
+          tma_tile256(sQ + W256_TILE, tm_do, &full[s], q0, h, b);
         }
         // rows past Sq get 0 here and are masked by the consumers
         float* st = stats + 128 * s;
@@ -2119,7 +2133,7 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma256_kern
       // is key key0 + 8 (e / 2), q row q0 + 8 j + 2 t4 + (e % 2)
       float sc[32];
       wgmma_fence();
-      scores256(sc, dv_side ? sK : sV, dv_side ? sQ : sDO);
+      scores256<T>(sc, dv_side ? sK : sV, dv_side ? sQ : sDO);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sc);
@@ -2165,13 +2179,13 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma256_kern
       }
       ++handed;
       uint32_t a[4][4];
-      to_a_operand(sc, a);
+      to_a_operand<T>(sc, a);
 
       // dV += P^T dO or dK += dS^T Q: dO and Q are MN-major B operands
       fence_regs(acc[0]);
       fence_regs(acc[1]);
       wgmma_fence();
-      sum256(acc, a, dv_side ? sDO : sQ);
+      sum256<T>(acc, a, dv_side ? sDO : sQ);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc[0]);
@@ -2179,10 +2193,10 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma256_kern
       mbar_arrive(&empty[s]);
     }
 
-    // dV or dK (times *out_scale) in bf16, one copy per q head; acc[hf][4 j
-    // + e] is key key0 + 8 (e / 2), head dim 128 hf + 8 j + 2 t4 + (e % 2)
+    // dV or dK (times *out_scale) in T, one copy per q head; acc[hf][4 j + e]
+    // is key key0 + 8 (e / 2), head dim 128 hf + 8 j + 2 t4 + (e % 2)
     const float os = out_scale ? *out_scale : 1.f;
-    __nv_bfloat16* out = dv_side ? dv : dk;
+    T* out = dv_side ? dv : dk;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int key = key0 + 8 * r;
@@ -2192,12 +2206,28 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma256_kern
   }
 }
 
-__global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dq_wgmma256_kernel(
-    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    __nv_bfloat16* __restrict__ dq, const float* __restrict__ out_scale, int H, int KvH,
-    int Sq, int Sk, int causal, int window, float scale) {
+#define BWD_DKV256_KERNEL(NAME, T)                                                         \
+  __global__ void __launch_bounds__(3 * WG_THREADS, 1) NAME(                               \
+      const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,   \
+      const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,  \
+      const float* __restrict__ lse, const float* __restrict__ delta, T* __restrict__ dk,  \
+      T* __restrict__ dv, const float* __restrict__ out_scale, int H, int KvH, int Sq,     \
+      int Sk, int causal, int window, float scale) {                                       \
+    dkv_wgmma256_body<T>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dk, dv, out_scale, H,    \
+                         KvH, Sq, Sk, causal, window, scale);                              \
+  }
+BWD_DKV256_KERNEL(flash_bwd_dkv_wgmma256_kernel, __nv_bfloat16)
+BWD_DKV256_KERNEL(flash_bwd_dkv_wgmma256_f16_kernel, __half)
+#undef BWD_DKV256_KERNEL
+
+// The body of flash_bwd_dq_wgmma256_kernel (bf16) and
+// flash_bwd_dq_wgmma256_f16_kernel (fp16)
+template <typename T>
+__device__ __forceinline__ void dq_wgmma256_body(
+    const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+    const CUtensorMap* tm_do, const float* __restrict__ lse, const float* __restrict__ delta,
+    T* __restrict__ dq, const float* __restrict__ out_scale, int H, int KvH, int Sq, int Sk,
+    int causal, int window, float scale) {
   using namespace hopper;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
@@ -2233,16 +2263,16 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dq_wgmma256_kerne
     if (threadIdx.x % 32 == 0 && w < W_STAGES) {
       if (w == 0) {
         mbar_arrive_expect_tx(full_q, W256_PAIR);
-        tma_tile256(sQ, &tm_q, full_q, q0, h, b);
-        tma_tile256(sDO, &tm_do, full_q, q0, h, b);
+        tma_tile256(sQ, tm_q, full_q, q0, h, b);
+        tma_tile256(sDO, tm_do, full_q, q0, h, b);
       }
       unsigned char* sK = smem + W256_PAIR + W256_PAIR * w;
       for (int i = w; first + i < last; i += W_STAGES) {
         const int k0 = (first + i) * 64;
         mbar_wait(&empty[w], ((i / W_STAGES) & 1) ^ 1);
         mbar_arrive_expect_tx(&full[w], W256_PAIR);
-        tma_tile256(sK, &tm_k, &full[w], k0, kvh, b);
-        tma_tile256(sK + W256_TILE, &tm_v, &full[w], k0, kvh, b);
+        tma_tile256(sK, tm_k, &full[w], k0, kvh, b);
+        tma_tile256(sK + W256_TILE, tm_v, &full[w], k0, kvh, b);
       }
     }
   } else {
@@ -2284,8 +2314,8 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dq_wgmma256_kerne
       // S = Q K^T and dP = dO V^T
       float sc[32], dp[32];
       wgmma_fence();
-      scores256(sc, sQ, sK);
-      scores256(dp, sDO, sV);
+      scores256<T>(sc, sQ, sK);
+      scores256<T>(dp, sDO, sV);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sc);
@@ -2309,13 +2339,13 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dq_wgmma256_kerne
         }
       }
       uint32_t sa[4][4];
-      to_a_operand(dp, sa);
+      to_a_operand<T>(dp, sa);
 
       // dQ += dS K: K [keys][256] as the MN-major B
       fence_regs(acc[0]);
       fence_regs(acc[1]);
       wgmma_fence();
-      sum256(acc, sa, sK);
+      sum256<T>(acc, sa, sK);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc[0]);
@@ -2357,6 +2387,20 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dq_wgmma256_kerne
     }
   }
 }
+
+#define BWD_DQ256_KERNEL(NAME, T)                                                          \
+  __global__ void __launch_bounds__(3 * WG_THREADS, 1) NAME(                               \
+      const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,   \
+      const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,  \
+      const float* __restrict__ lse, const float* __restrict__ delta, T* __restrict__ dq,  \
+      const float* __restrict__ out_scale, int H, int KvH, int Sq, int Sk, int causal,     \
+      int window, float scale) {                                                           \
+    dq_wgmma256_body<T>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dq, out_scale, H, KvH, Sq, \
+                        Sk, causal, window, scale);                                        \
+  }
+BWD_DQ256_KERNEL(flash_bwd_dq_wgmma256_kernel, __nv_bfloat16)
+BWD_DQ256_KERNEL(flash_bwd_dq_wgmma256_f16_kernel, __half)
+#undef BWD_DQ256_KERNEL
 
 // ---- host side
 struct Args {
@@ -2488,10 +2532,23 @@ BwdRows<T> bwd_rows(const Args& a) {
 }
 
 // whether a wgmma kernel of dQ and dK/dV takes (dtype, D): bf16 (dtype 1) at
-// 64, 80, 96, 100, 128 and 256, fp16 (dtype 2) at 64, 100 and 128
+// 64, 80, 96, 100, 128 and 256, fp16 (dtype 2) at 64, 100, 128 and 256
 bool has_wgmma(int dtype, int D) {
   if (dtype == 1) return D == 64 || D == 80 || D == 96 || D == 100 || D == 128 || D == 256;
-  return dtype == 2 && (D == 64 || D == 100 || D == 128);
+  return dtype == 2 && (D == 64 || D == 100 || D == 128 || D == 256);
+}
+
+// a dK/dV kernel over T at D = 256 (bf16 or fp16): 64 keys a block, boxes
+// of 64 rows of every map
+template <typename T, typename K>
+cudaError_t dkv_wgmma256(K kernel, const Args& a) {
+  CUtensorMap m[4];
+  if (!bwd_maps(a, 256, map_type<T>(), 64, 64, m)) return cudaErrorInvalidValue;
+  const dim3 grid(a.B * a.H, (a.Sk + 63) / 64);
+  kernel<<<grid, 3 * WG_THREADS, DKV256_SMEM, a.stream>>>(
+      m[0], m[1], m[2], m[3], (const float*)a.lse, (const float*)a.delta, (T*)a.dk,
+      (T*)a.dv, a.out_scale, a.H, a.KvH, a.Sq, a.Sk, a.causal, a.window, a.scale);
+  return cudaGetLastError();
 }
 
 // a dK/dV kernel over T at D = 64 (bf16 or fp16): 192 keys a block, boxes
@@ -2515,8 +2572,9 @@ cudaError_t dkv_wgmma64(K kernel, const Args& a) {
 // flash_bwd_dkv_wgmma256_kernel, 64 keys a block. fp16 (dtype 2) at D = 128
 // and 100: flash_bwd_dkv_wgmma_f16_kernel and
 // flash_bwd_dkv_wgmma100_f16_kernel (its rows too), on the D = 128 grid; at
-// D = 64: flash_bwd_dkv_wgmma64_f16_kernel, on the D = 64 grid. Any other
-// pair returns cudaErrorInvalidValue and launches nothing.
+// D = 64: flash_bwd_dkv_wgmma64_f16_kernel, on the D = 64 grid; at D = 256:
+// flash_bwd_dkv_wgmma256_f16_kernel, on the D = 256 one. Any other pair
+// returns cudaErrorInvalidValue and launches nothing.
 cudaError_t launch_dkv_wgmma(const Args& a, int D, int dtype) {
   if (!has_wgmma(dtype, D)) return cudaErrorInvalidValue;
   static const cudaError_t attr128 = set_smem(flash_bwd_dkv_wgmma_kernel, DKV_SMEM);
@@ -2530,14 +2588,16 @@ cudaError_t launch_dkv_wgmma(const Args& a, int D, int dtype) {
       set_smem(flash_bwd_dkv_wgmma100_f16_kernel, DKV_SMEM);
   static const cudaError_t attr64_f16 =
       set_smem(flash_bwd_dkv_wgmma64_f16_kernel, K64_SMEM);
+  static const cudaError_t attr256_f16 =
+      set_smem(flash_bwd_dkv_wgmma256_f16_kernel, DKV256_SMEM);
   const bool f16 = dtype == 2;
-  // fp16 has no kernel at 80, 96 or 256 (has_wgmma)
+  // fp16 has no kernel at 80 or 96 (has_wgmma)
   const cudaError_t attr = D == 64    ? (f16 ? attr64_f16 : attr64)
                            : D == 100 ? (f16 ? attr100_f16 : attr100)
                            : D == 128 ? (f16 ? attr_f16 : attr128)
+                           : D == 256 ? (f16 ? attr256_f16 : attr256)
                            : D == 96  ? attr96
-                           : D == 80  ? attr80
-                                      : attr256;
+                                      : attr80;
   if (attr != cudaSuccess) return attr;
   if (D == 100) {
     const dim3 grid(a.B * a.H, (a.Sk + 127) / 128);
@@ -2552,20 +2612,12 @@ cudaError_t launch_dkv_wgmma(const Args& a, int D, int dtype) {
           a.causal, a.window, a.scale);
     return cudaGetLastError();
   }
+  if (D == 256)
+    return f16 ? dkv_wgmma256<__half>(flash_bwd_dkv_wgmma256_f16_kernel, a)
+               : dkv_wgmma256<__nv_bfloat16>(flash_bwd_dkv_wgmma256_kernel, a);
   if (f16)
     return D == 64 ? dkv_wgmma64<__half>(flash_bwd_dkv_wgmma64_f16_kernel, a)
                    : dkv_wgmma128<__half>(flash_bwd_dkv_wgmma_f16_kernel, a, D);
-  if (D == 256) {
-    CUtensorMap m[4];
-    if (!bwd_maps(a, D, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 64, 64, m))
-      return cudaErrorInvalidValue;
-    const dim3 grid(a.B * a.H, (a.Sk + 63) / 64);
-    flash_bwd_dkv_wgmma256_kernel<<<grid, 3 * WG_THREADS, DKV256_SMEM, a.stream>>>(
-        m[0], m[1], m[2], m[3], (const float*)a.lse, (const float*)a.delta,
-        (__nv_bfloat16*)a.dk, (__nv_bfloat16*)a.dv, a.out_scale, a.H, a.KvH, a.Sq, a.Sk,
-        a.causal, a.window, a.scale);
-    return cudaGetLastError();
-  }
   if (D == 64) return dkv_wgmma64<__nv_bfloat16>(flash_bwd_dkv_wgmma64_kernel, a);
   return dkv_wgmma128<__nv_bfloat16>(D == 96   ? flash_bwd_dkv_wgmma96_kernel
                                      : D == 80 ? flash_bwd_dkv_wgmma80_kernel
@@ -2581,6 +2633,19 @@ cudaError_t dq_wgmma128(K kernel, const Args& a, int D) {
   if (!bwd_maps(a, D, map_type<T>(), 128, 64, m)) return cudaErrorInvalidValue;
   const dim3 grid(a.B * a.H, (a.Sq + 127) / 128);
   kernel<<<grid, 3 * WG_THREADS, DQ_SMEM, a.stream>>>(
+      m[0], m[1], m[2], m[3], (const float*)a.lse, (const float*)a.delta, (T*)a.dq,
+      a.out_scale, a.H, a.KvH, a.Sq, a.Sk, a.causal, a.window, a.scale);
+  return cudaGetLastError();
+}
+
+// a dQ kernel over T at D = 256 (bf16 or fp16): 64 q rows a block, boxes of
+// 64 rows of every map
+template <typename T, typename K>
+cudaError_t dq_wgmma256(K kernel, const Args& a) {
+  CUtensorMap m[4];
+  if (!bwd_maps(a, 256, map_type<T>(), 64, 64, m)) return cudaErrorInvalidValue;
+  const dim3 grid(a.B * a.H, (a.Sq + 63) / 64);
+  kernel<<<grid, 3 * WG_THREADS, DQ256_SMEM, a.stream>>>(
       m[0], m[1], m[2], m[3], (const float*)a.lse, (const float*)a.delta, (T*)a.dq,
       a.out_scale, a.H, a.KvH, a.Sq, a.Sk, a.causal, a.window, a.scale);
   return cudaGetLastError();
@@ -2607,7 +2672,8 @@ cudaError_t dq_wgmma64(K kernel, const Args& a) {
 // flash_bwd_dq_wgmma256_kernel, 64 q rows a block. fp16 (dtype 2) at D = 128
 // and 100: flash_bwd_dq_wgmma_f16_kernel and
 // flash_bwd_dq_wgmma100_f16_kernel (its rows too), on the D = 128 grid; at
-// D = 64: flash_bwd_dq_wgmma64_f16_kernel, on the D = 64 grid. Any other pair
+// D = 64: flash_bwd_dq_wgmma64_f16_kernel, on the D = 64 grid; at D = 256:
+// flash_bwd_dq_wgmma256_f16_kernel, on the D = 256 one. Any other pair
 // returns cudaErrorInvalidValue and launches nothing.
 cudaError_t launch_dq_wgmma(const Args& a, int D, int dtype) {
   if (!has_wgmma(dtype, D)) return cudaErrorInvalidValue;
@@ -2620,14 +2686,16 @@ cudaError_t launch_dq_wgmma(const Args& a, int D, int dtype) {
   static const cudaError_t attr_f16 = set_smem(flash_bwd_dq_wgmma_f16_kernel, DQ_SMEM);
   static const cudaError_t attr100_f16 = set_smem(flash_bwd_dq_wgmma100_f16_kernel, DQ_SMEM);
   static const cudaError_t attr64_f16 = set_smem(flash_bwd_dq_wgmma64_f16_kernel, Q64_SMEM);
+  static const cudaError_t attr256_f16 =
+      set_smem(flash_bwd_dq_wgmma256_f16_kernel, DQ256_SMEM);
   const bool f16 = dtype == 2;
-  // fp16 has no kernel at 80, 96 or 256 (has_wgmma)
+  // fp16 has no kernel at 80 or 96 (has_wgmma)
   const cudaError_t attr = D == 64    ? (f16 ? attr64_f16 : attr64)
                            : D == 100 ? (f16 ? attr100_f16 : attr100)
                            : D == 128 ? (f16 ? attr_f16 : attr128)
+                           : D == 256 ? (f16 ? attr256_f16 : attr256)
                            : D == 96  ? attr96
-                           : D == 80  ? attr80
-                                      : attr256;
+                                      : attr80;
   if (attr != cudaSuccess) return attr;
   if (D == 100) {
     const dim3 grid(a.B * a.H, (a.Sq + 127) / 128);
@@ -2642,20 +2710,12 @@ cudaError_t launch_dq_wgmma(const Args& a, int D, int dtype) {
           a.scale);
     return cudaGetLastError();
   }
+  if (D == 256)
+    return f16 ? dq_wgmma256<__half>(flash_bwd_dq_wgmma256_f16_kernel, a)
+               : dq_wgmma256<__nv_bfloat16>(flash_bwd_dq_wgmma256_kernel, a);
   if (f16)
     return D == 64 ? dq_wgmma64<__half>(flash_bwd_dq_wgmma64_f16_kernel, a)
                    : dq_wgmma128<__half>(flash_bwd_dq_wgmma_f16_kernel, a, D);
-  if (D == 256) {
-    CUtensorMap m[4];
-    if (!bwd_maps(a, D, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 64, 64, m))
-      return cudaErrorInvalidValue;
-    const dim3 grid(a.B * a.H, (a.Sq + 63) / 64);
-    flash_bwd_dq_wgmma256_kernel<<<grid, 3 * WG_THREADS, DQ256_SMEM, a.stream>>>(
-        m[0], m[1], m[2], m[3], (const float*)a.lse, (const float*)a.delta,
-        (__nv_bfloat16*)a.dq, a.out_scale, a.H, a.KvH, a.Sq, a.Sk, a.causal, a.window,
-        a.scale);
-    return cudaGetLastError();
-  }
   if (D == 64) return dq_wgmma64<__nv_bfloat16>(flash_bwd_dq_wgmma64_kernel, a);
   return dq_wgmma128<__nv_bfloat16>(D == 96   ? flash_bwd_dq_wgmma96_kernel
                                     : D == 80 ? flash_bwd_dq_wgmma80_kernel
@@ -2696,7 +2756,7 @@ cudaError_t at_padded_dim(int which, int mma, const Args& a) {
 // to 512), 1 = mma (bf16 or fp16, D a multiple of 8 up to 256, 16-byte
 // aligned bases, strides that are multiples of 8), 2 = wgmma (Sk > 0 and a
 // kernel for (dtype, D), `has_wgmma`: rows as mma's at bf16 D = 64, 80, 96,
-// 128 or 256 and fp16 D = 64 or 128; at D = 100, bf16 or fp16, 8-byte aligned
+// 128 or 256 and fp16 D = 64, 128 or 256; at D = 100, bf16 or fp16, 8-byte aligned
 // bases and strides that are multiples of 4); a route that cannot take the
 // inputs launches nothing, and so does an out_scale in fp32 or bf16
 cudaError_t dispatch(int which, int dtype, int route, int D, const Args& a) {

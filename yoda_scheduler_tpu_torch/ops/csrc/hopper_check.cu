@@ -56,7 +56,10 @@
 //   dP^T = V dO^T, S = Q K^T and dP = dO V^T (`scores256`);
 // - hopper_wgmma_rs256: P [64, 64] from registers times V [64, 256], V in
 //   four MN-major 64-row boxes 8 KB apart, as two RS m64n128k16 products
-//   over its column halves, as flash_fwd_wgmma256_kernel's P V.
+//   over its column halves, as flash_fwd_wgmma256_kernel's P V;
+// - hopper_wgmma_ss256_a64_f16, hopper_wgmma_rs256_f16: those two on fp16
+//   operands (the .f16 forms over FLOAT16 maps), as the fp16 head-dim-256
+//   backward kernels' `scores256` and `sum256` (and the fp16 forward's P V).
 // Each launches one block of one warpgroup; run them first after a change to
 // hopper.cuh or to a kernel's descriptors.
 
@@ -514,8 +517,8 @@ __global__ void __launch_bounds__(128) wgmma_chain64_f16_kernel(
 
 // rows [a_row0, a_row0 + 64) of A [AROWS, 256] times B^T, B [64, 256]:
 // each row four 64-column boxes, A's AROWS * 128 bytes apart (16 KB for 128
-// rows, 8 KB for 64) and B's 8 KB
-template <int AROWS>
+// rows, 8 KB for 64) and B's 8 KB; T bf16 or fp16
+template <int AROWS, typename T>
 __global__ void __launch_bounds__(128) wgmma_ss256_kernel(
     const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
     int a_row0, float* out) {
@@ -542,8 +545,8 @@ __global__ void __launch_bounds__(128) wgmma_ss256_kernel(
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < 16; ++kk)
-    wgmma_m64n64k16_ss<0, 0>(d, da + (((kk / 4) * ABOX + (kk % 4) * 32) >> 4),
-                             db + (((kk / 4) * HALF64 + (kk % 4) * 32) >> 4), kk > 0);
+    wgmma_m64n64k16_ss<0, 0, T>(d, da + (((kk / 4) * ABOX + (kk % 4) * 32) >> 4),
+                                db + (((kk / 4) * HALF64 + (kk % 4) * 32) >> 4), kk > 0);
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(d);
@@ -551,10 +554,11 @@ __global__ void __launch_bounds__(128) wgmma_ss256_kernel(
 }
 
 // P [64, 64] times V [64, 256], V four 64-row MN-major boxes 8 KB apart:
-// two RS m64n128k16 products over its column halves, 16 KB apart
+// two RS m64n128k16 products over its column halves, 16 KB apart; T bf16 or
+// fp16
+template <typename T>
 __global__ void __launch_bounds__(128) wgmma_rs256_kernel(
-    const __nv_bfloat16* __restrict__ p, const __grid_constant__ CUtensorMap map_v,
-    float* out) {
+    const T* __restrict__ p, const __grid_constant__ CUtensorMap map_v, float* out) {
   extern __shared__ unsigned char raw[];
   unsigned char* sV = aligned_smem(raw);
   __shared__ uint64_t bar;
@@ -570,7 +574,7 @@ __global__ void __launch_bounds__(128) wgmma_rs256_kernel(
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
   uint32_t pa[4][4];
-  const __nv_bfloat16* prow = p + (16 * warp + g) * 64 + 2 * t;
+  const T* prow = p + (16 * warp + g) * 64 + 2 * t;
 #pragma unroll
   for (int jj = 0; jj < 4; ++jj) {
     pa[jj][0] = ld_pair(prow + 16 * jj);
@@ -588,8 +592,8 @@ __global__ void __launch_bounds__(128) wgmma_rs256_kernel(
   wgmma_fence();
 #pragma unroll
   for (int jj = 0; jj < 4; ++jj) {
-    wgmma_m64n128k16_rs<1>(d[0], pa[jj], dv + ((jj * 2048) >> 4), 1);
-    wgmma_m64n128k16_rs<1>(d[1], pa[jj], dv + ((2 * HALF64 + jj * 2048) >> 4), 1);
+    wgmma_m64n128k16_rs<1, T>(d[0], pa[jj], dv + ((jj * 2048) >> 4), 1);
+    wgmma_m64n128k16_rs<1, T>(d[1], pa[jj], dv + ((2 * HALF64 + jj * 2048) >> 4), 1);
   }
   wgmma_commit();
   wgmma_wait<0>();
@@ -686,23 +690,37 @@ int wgmma_rs(const void* p, const void* v, void* out, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// A [AROWS, 256] and B [64, 256] (bf16, contiguous) through their maps
-// into wgmma_ss256_kernel<AROWS>
-template <int AROWS>
+// A [AROWS, 256] and B [64, 256] (T, contiguous) through their maps into
+// wgmma_ss256_kernel<AROWS, T>
+template <int AROWS, typename T>
 int wgmma_ss256(const void* a, const void* b, int a_row0, void* out, void* stream) {
   const int64_t dims_a[4] = {256, AROWS, 1, 1}, dims_b[4] = {256, 64, 1, 1};
   const int64_t strides_a[3] = {256, 256 * AROWS, 256 * AROWS};
   const int64_t strides_b[3] = {256, 256 * 64, 256 * 64};
   CUtensorMap map_a, map_b;
-  if (!make_map_4d(&map_a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a, dims_a, strides_a, AROWS) ||
-      !make_map_4d(&map_b, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, b, dims_b, strides_b, 64))
+  if (!make_map_4d(&map_a, map_type<T>(), a, dims_a, strides_a, AROWS) ||
+      !make_map_4d(&map_b, map_type<T>(), b, dims_b, strides_b, 64))
     return (int)cudaErrorInvalidValue;
   constexpr int smem = 4 * AROWS * 128 + 4 * HALF64 + 1024;
   cudaError_t err = cudaFuncSetAttribute(
-      wgmma_ss256_kernel<AROWS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      wgmma_ss256_kernel<AROWS, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  wgmma_ss256_kernel<AROWS><<<1, 128, smem, (cudaStream_t)stream>>>(map_a, map_b, a_row0,
-                                                                   (float*)out);
+  wgmma_ss256_kernel<AROWS, T><<<1, 128, smem, (cudaStream_t)stream>>>(map_a, map_b, a_row0,
+                                                                      (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// P [64, 64] and V [64, 256] (T, contiguous) into wgmma_rs256_kernel<T>
+template <typename T>
+int wgmma_rs256(const void* p, const void* v, void* out, void* stream) {
+  const int64_t dims[4] = {256, 64, 1, 1};
+  const int64_t strides[3] = {256, 256 * 64, 256 * 64};
+  CUtensorMap map_v;
+  if (!make_map_4d(&map_v, map_type<T>(), v, dims, strides, 64))
+    return (int)cudaErrorInvalidValue;
+  constexpr int smem = 4 * HALF64 + 1024;
+  wgmma_rs256_kernel<T><<<1, 128, smem, (cudaStream_t)stream>>>((const T*)p, map_v,
+                                                               (float*)out);
   return (int)cudaGetLastError();
 }
 
@@ -888,24 +906,30 @@ extern "C" int hopper_wgmma_chain64_f16(const void* a, const void* b, const void
 extern "C" int hopper_wgmma_ss256(const void* a, const void* b, int a_row0, void* out,
                                   void* stream) {
   if (a_row0 != 0 && a_row0 != 64) return (int)cudaErrorInvalidValue;
-  return wgmma_ss256<128>(a, b, a_row0, out, stream);
+  return wgmma_ss256<128, __nv_bfloat16>(a, b, a_row0, out, stream);
 }
 
 // a: [64, 256], b: [64, 256] bf16 contiguous; out: [64, 64] fp32 = a @ b^T
 extern "C" int hopper_wgmma_ss256_a64(const void* a, const void* b, void* out,
                                       void* stream) {
-  return wgmma_ss256<64>(a, b, 0, out, stream);
+  return wgmma_ss256<64, __nv_bfloat16>(a, b, 0, out, stream);
+}
+
+// the same in fp16: the .f16 SS m64n64k16 form over FLOAT16 maps, as the
+// fp16 head-dim-256 backward kernels' `scores256`
+extern "C" int hopper_wgmma_ss256_a64_f16(const void* a, const void* b, void* out,
+                                          void* stream) {
+  return wgmma_ss256<64, __half>(a, b, 0, out, stream);
 }
 
 // p: [64, 64], v: [64, 256] bf16 contiguous; out: [64, 256] fp32 = p @ v
 extern "C" int hopper_wgmma_rs256(const void* p, const void* v, void* out, void* stream) {
-  const int64_t dims[4] = {256, 64, 1, 1};
-  const int64_t strides[3] = {256, 256 * 64, 256 * 64};
-  CUtensorMap map_v;
-  if (!make_map_4d(&map_v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, v, dims, strides, 64))
-    return (int)cudaErrorInvalidValue;
-  constexpr int smem = 4 * HALF64 + 1024;
-  wgmma_rs256_kernel<<<1, 128, smem, (cudaStream_t)stream>>>((const __nv_bfloat16*)p, map_v,
-                                                            (float*)out);
-  return (int)cudaGetLastError();
+  return wgmma_rs256<__nv_bfloat16>(p, v, out, stream);
+}
+
+// the same in fp16: the .f16 RS m64n128k16 form over a FLOAT16 map, as the
+// fp16 head-dim-256 backward kernels' `sum256`
+extern "C" int hopper_wgmma_rs256_f16(const void* p, const void* v, void* out,
+                                      void* stream) {
+  return wgmma_rs256<__half>(p, v, out, stream);
 }

@@ -10,7 +10,8 @@ it, too), or "cur" for the package's own, built with the package's nvcc
 flags into `build/variants/`; each build's nvcc seconds are printed. fwd
 launches `attention.flash_fwd` on its automatic route; bwd launches
 `attention.flash_bwd_dq` and `attention.flash_bwd_dkv` on theirs (wgmma at
-head dims 64, 80, 96, 100, 128 and 256 in bf16, and 64, 100 and 128 in fp16); both first print
+head dims 64, 80, 96, 100, 128 and 256 in bf16, and 64, 100, 128 and 256 in
+fp16); both first print
 ptxas's registers and spills of each variant's wgmma kernels with its
 performance notes. `--route mma` launches both kinds on the mma route
 instead. Every launch is checked against the
@@ -52,9 +53,10 @@ fp16 first), where the three kernels run `flash_fwd_wgmma100_f16_kernel`,
 with `--head-dim 96` those of `SHAPES_F16_96` (GPT-NeoX-20B's attention, 64
 heads of 96, first), where the forward runs `flash_fwd_wgmma96_f16_kernel`
 and dQ and dK/dV mma, and with `--head-dim 256` those of `SHAPES_F16_256`
-(GPT-J-6B's attention, 16 heads of 256, first), where the forward runs
-`flash_fwd_wgmma256_f16_kernel` and dQ and dK/dV mma; each launch is held to fp16's bounds, the bf16
-ones over 8 (a variant without an fp16 wgmma kernel takes `--route mma`,
+(GPT-J-6B's attention, 16 heads of 256, first), where the three kernels run
+`flash_fwd_wgmma256_f16_kernel`, `flash_bwd_dq_wgmma256_f16_kernel` and
+`flash_bwd_dkv_wgmma256_f16_kernel`; each launch is held to fp16's bounds,
+the bf16 ones over 8 (a variant without an fp16 wgmma kernel takes `--route mma`,
 which no kernel offers at head dim 100).
 Prints the card's name and power limit, then one JSON line per shape.
 """

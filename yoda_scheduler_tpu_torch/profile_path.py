@@ -49,11 +49,14 @@ flash_fwd on its fp16 wgmma kernel and on the route it took before (mma at
 alone); then OpenLLaMA-3B's loss in fp16 (all 26 layers) as OPT-1.3B's, with
 dQ and dK/dV on their fp16 head-dim-100 wgmma kernels and on simt
 (`fp16_d100_backward_on_simt`; `openllama3b_fp16_backward_windows()` traces
-those alone), each route traced twice in turns; last one `llama_forward` at
+those alone), each route traced twice in turns; then one `llama_forward` at
 GPT-NeoX-20B's widths (head dim 96, fp16, all 44 layers) and one at
 GPT-J-6B's (256, fp16, 28 layers), B=1, S=2048, each with flash_fwd on its
 fp16 wgmma kernel and on mma, as before it (`neox_gptj_forward_windows()`
-traces those four alone). For each traced
+traces those four alone); last GPT-J-6B's loss (all 28 layers, fp16) as
+OPT-1.3B's, with dQ and dK/dV on their fp16 head-dim-256 wgmma kernels and
+on mma (`fp16_d256_backward_on_mma`; `gptj6b_fp16_backward_windows()`
+traces those alone), each route traced twice in turns. For each traced
 window it prints one JSON line: the host wall time, the device's busy time
 (the union of kernel intervals) and idle share, the kernel launches, the
 device time grouped into conv / matmul / flash_fwd / flash_bwd_dq /
@@ -346,9 +349,9 @@ def d96_on_mma():
 
 def fp16_backward_on_mma():
     """Within it, fp16 takes the mma route for dQ and dK/dV at head dims 64
-    and 128, as before their fp16 wgmma kernels there; at 100 they keep
-    theirs (`fp16_d100_backward_on_simt` moves them), the forward keeps its
-    wgmma kernels, and bf16 all of its."""
+    and 128, as before their fp16 wgmma kernels there; at 100 and 256 they
+    keep theirs (`fp16_d100_backward_on_simt` and `fp16_d256_backward_on_mma`
+    move them), the forward keeps its wgmma kernels, and bf16 all of its."""
     return _off_wgmma(lambda key, d: (key[1] == torch.float16 and key[0] != "flash_fwd"
                                       and d in (64, 128)))
 
@@ -400,9 +403,17 @@ def fp16_d96_forward_on_mma():
 
 def fp16_d256_forward_on_mma():
     """Within it, the fp16 forward at head dim 256 takes the mma route, as
-    before its wgmma kernel; fp16 dQ and dK/dV stay on mma there, and bf16
-    at 256 keeps its wgmma kernels."""
+    before its wgmma kernel; fp16 dQ and dK/dV keep their wgmma kernels
+    there, and bf16 at 256 keeps its."""
     return _off_wgmma(lambda key, d: key == ("flash_fwd", torch.float16) and d == 256)
+
+
+def fp16_d256_backward_on_mma():
+    """Within it, fp16 dQ and dK/dV at head dim 256 take the mma route, as
+    before their wgmma kernels; the fp16 forward keeps its wgmma kernel
+    there, and bf16 at 256 keeps all of its."""
+    return _off_wgmma(lambda key, d: (key[1] == torch.float16 and key[0] != "flash_fwd"
+                                      and d == 256))
 
 
 def fp16_d100_forward_on_simt():
@@ -671,6 +682,14 @@ def openllama3b_fp16_backward_windows() -> list[dict]:
                                   fp16_d100_backward_on_simt)
 
 
+def gptj6b_fp16_backward_windows() -> list[dict]:
+    """GPT-J-6B's loss (28 layers, fp16) traced as `_fp16_backward_windows`,
+    dQ and dK/dV on their fp16 head-dim-256 wgmma kernels and on mma
+    (`fp16_d256_backward_on_mma`)."""
+    return _fp16_backward_windows(gptj_6b(), "gptj6b", "backward_on_mma",
+                                  fp16_d256_backward_on_mma)
+
+
 def moe_forward_window(cfg) -> dict:
     params = init_llama(cfg, seed=0, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -750,6 +769,8 @@ def main() -> int:
     reports += openllama3b_fp16_backward_windows()
     _free()
     reports += neox_gptj_forward_windows()
+    _free()
+    reports += gptj6b_fp16_backward_windows()
     out = Path(__file__).resolve().parents[1] / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "profile_path.json").write_text(json.dumps(
