@@ -7,7 +7,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 1. build: the card's name and power limit, and the CUDA kernels compiled
    from the sources in this checkout (nvcc, sm_90a, one process per source);
-   each of the thirty-two wgmma kernels (`WGMMA_KERNELS`) without a spill
+   each of the thirty-four wgmma kernels (`WGMMA_KERNELS`) without a spill
    or a serialised wgmma.
 2. kernel: the flash forward kernel against its plain version on the card,
    elementwise and by O's worst 64-row tile, at the main path's shape (also
@@ -43,9 +43,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    wgmma kernel at 64), fp16 at 80, 96, 100 and 256 (OPT-2.7B's,
    GPT-NeoX-20B's, OpenLLaMA-3B's and GPT-J-6B's attention as their models
    give them, with GQA, window, ragged, cross-length and non-causal rows:
-   the forward on its fp16 wgmma kernel, and at 100 and 256 dQ and dK/dV
-   on theirs, each model's row timed in turns against the forward's old
-   route), simt in
+   the forward on its fp16 wgmma kernel, and at 96, 100 and 256 dQ and
+   dK/dV on theirs, each model's row timed in turns against the forward's
+   old route), simt in
    fp32 and fp16, and 320 on simt in fp32 and bf16 (SDPA's memory-efficient
    backend timed beside the fp32 row, its K and V repeated to q's heads);
    each on every route `_routes` admits, with SDPA's default backend timed
@@ -70,13 +70,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
    backend at 100; and so in fp16 at 64 (fp16_d1024_bshd, opt13b_d64_bshd)
    against mma, with SDPA's default backward after each turn, and in fp16
    at 100 (openllama3b_fp16_d100_bshd, fp16_unaligned_d100) against simt,
-   with its flash backward after each turn, and in fp16 at 256
-   (gptj6b_fp16_d256_bshd) against mma, with SDPA's default backward after
-   each turn. Last five fp16 rows with a
+   with its flash backward after each turn, and in fp16 at 96 and 256
+   (neox20b_fp16_d96_bshd, gptj6b_fp16_d256_bshd) against mma, with SDPA's
+   default backward after each turn; in fp16 at 80 (opt27b_d80_bshd), which
+   has no wgmma backward, dQ and dK/dV on mma in four turns with SDPA's
+   default backward after each. Last six fp16 rows with a
    large LSE cotangent (dO x1e-5, S=2048, head dim 128) through the
    kernels' autograd node, g_lse x1e3 of random sign and, with an attention
-   sink at key 0, x100 of one sign, at head dim 128 and again at 64, 100
-   and 256: finite, and within twice the fp32 backward's own rounding to
+   sink at key 0, x100 of one sign, at head dim 128 and again at 64, 96,
+   100 and 256: finite, and within twice the fp32 backward's own rounding to
    fp16 of the fp32 backward.
 4. forward: Llama-2-7B width, all 32 layers, bf16, random weights from a
    seed, B=1, S=2048: one `llama_forward` must launch the kernel once per
@@ -166,6 +168,15 @@ After moe_train, head dims 96, 100 and 80, and fp16:
   on their fp16 head-dim-256 kernels; both also timed on the host's clock
   in turns against dQ and dK/dV on mma
   (`profile_path.fp16_d256_backward_on_mma`).
+- neox20b_fp16_gradient, neox20b_fp16_backward: GPT-NeoX-20B's widths in
+  its published dtype, fp16 (`profile_path.gpt_neox_20b`: 6144 wide, 64
+  heads of 96, FFN 24576, vocab 50432), as OPT-1.3B's pair: gradient (4
+  layers: 8/4/4 launches) and the loss's forward and backward with no
+  optimizer at 22 of its 44 layers (`profile_path.NEOX20B_BACKWARD_LAYERS`:
+  44 layers' fp16 weights and gradients, 108.8 GB, do not fit the card;
+  44/22/22 a call), every launch on wgmma, dQ and dK/dV on their fp16
+  head-dim-96 kernels; both also timed on the host's clock in turns against
+  dQ and dK/dV on mma (`profile_path.fp16_d96_backward_on_mma`).
 - opt27b_fp16_forward, openllama3b_fp16_forward, neox20b_fp16_forward,
   gptj6b_fp16_forward (run with the forwards above): OPT-2.7B's,
   OpenLLaMA-3B's, GPT-NeoX-20B's (44 layers, 64 heads of 96, 54 GB of
@@ -433,11 +444,13 @@ TILE_REL_L2_FP16 = 1.25e-3  # bf16's 1e-2 over 8, as TOL's fp16 bounds
 # multiply their sums by the inverse scale before rounding them to fp16.
 FP16_LSE_COTANGENT = dict(b=1, h=32, s=2048, d=128, do_scale=1e-5, g_lse_scale=1e3)
 FP16_SINK_COTANGENT = dict(FP16_LSE_COTANGENT, g_lse_scale=100.0, sink=True)
-# the sink row again at OPT-1.3B's head dim, 64, at OpenLLaMA-3B's, 100, and
-# at GPT-J-6B's, 256, on the fp16 wgmma kernels at each
+# the sink row again at OPT-1.3B's head dim, 64, at OpenLLaMA-3B's, 100, at
+# GPT-J-6B's, 256, and at GPT-NeoX-20B's, 96, on the fp16 wgmma kernels at
+# each
 FP16_SINK_COTANGENT_D64 = dict(FP16_SINK_COTANGENT, d=64)
 FP16_SINK_COTANGENT_D100 = dict(FP16_SINK_COTANGENT, d=100)
 FP16_SINK_COTANGENT_D256 = dict(FP16_SINK_COTANGENT, d=256)
+FP16_SINK_COTANGENT_D96 = dict(FP16_SINK_COTANGENT, d=96)
 FP16_ROUNDING_FACTOR = 2.0
 BWD_G_LSE = {"gqa", "gqa_bshd", "cross_length", "ragged_300",  # shapes with a non-zero
              "gqa_d64", "ragged_d64", "gqa_d96", "gemma_d256",   # LSE cotangent
@@ -729,7 +742,8 @@ WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_wgmma96_kernel",
                  "flash_fwd_wgmma80_f16_kernel", "flash_fwd_wgmma100_f16_kernel",
                  "flash_bwd_dq_wgmma100_f16_kernel", "flash_bwd_dkv_wgmma100_f16_kernel",
                  "flash_fwd_wgmma96_f16_kernel", "flash_fwd_wgmma256_f16_kernel",
-                 "flash_bwd_dq_wgmma256_f16_kernel", "flash_bwd_dkv_wgmma256_f16_kernel")
+                 "flash_bwd_dq_wgmma256_f16_kernel", "flash_bwd_dkv_wgmma256_f16_kernel",
+                 "flash_bwd_dq_wgmma96_f16_kernel", "flash_bwd_dkv_wgmma96_f16_kernel")
 
 
 def phase_build(build):
@@ -824,7 +838,7 @@ SHAPES = [
      "offset1", "simt"),
     # head dims other than 32, 64 and 128, and fp16, on the simt and mma
     # kernels at their padded widths (at 80, 96, 100 and 256, and fp16 at
-    # 64, 100, 128 and 256, on wgmma; fp16 at 80 and 96 the forward alone,
+    # 64, 96, 100, 128 and 256, on wgmma; fp16 at 80 the forward alone,
     # below):
     # Phi-3-mini's attention (32 heads of 96, S=2048) as the model
     # gives it and contiguous, with GQA 32/8 and a window; 80 (2560 / 32,
@@ -918,23 +932,22 @@ SHAPES = [
      "bhsd", "wgmma"),
     ("fp16_non_causal_d100", 1, 32, 32, 1000, 1000, 100, False, None, torch.float16,
      "bhsd", "wgmma"),
-    # fp16 at head dims 96 and 256, the forward on its fp16 wgmma kernels, and
-    # at 256 dQ and dK/dV too (on mma at 96): GPT-NeoX-20B's attention (64
-    # heads of 96) and GPT-J-6B's (16 heads of 256) as their models give
-    # them, and at each width GQA, a window, a ragged sequence, cross-length
-    # and non-causal
+    # fp16 at head dims 96 and 256, the forward, dQ and dK/dV on their fp16
+    # wgmma kernels: GPT-NeoX-20B's attention (64 heads of 96) and GPT-J-6B's
+    # (16 heads of 256) as their models give them, and at each width GQA, a
+    # window, a ragged sequence, cross-length and non-causal
     ("neox20b_fp16_d96_bshd", 1, 64, 64, 2048, 2048, 96, True, None, torch.float16, "bshd",
-     ("wgmma", "mma")),
+     "wgmma"),
     ("fp16_gqa_d96", 1, 32, 8, 2048, 2048, 96, True, None, torch.float16, "bshd",
-     ("wgmma", "mma")),
+     "wgmma"),
     ("fp16_window_d96", 1, 32, 32, 2048, 2048, 96, True, 512, torch.float16, "bhsd",
-     ("wgmma", "mma")),
+     "wgmma"),
     ("fp16_ragged_d96", 2, 8, 4, 300, 300, 96, True, None, torch.float16, "bshd",
-     ("wgmma", "mma")),
+     "wgmma"),
     ("fp16_cross_length_d96", 1, 32, 32, 256, 1024, 96, True, None, torch.float16, "bhsd",
-     ("wgmma", "mma")),
+     "wgmma"),
     ("fp16_non_causal_d96", 1, 32, 32, 1000, 1000, 96, False, None, torch.float16, "bhsd",
-     ("wgmma", "mma")),
+     "wgmma"),
     ("gptj6b_fp16_d256_bshd", 1, 16, 16, 2048, 2048, 256, True, None, torch.float16, "bshd",
      "wgmma"),
     ("fp16_gqa_d256", 1, 16, 8, 2048, 2048, 256, True, None, torch.float16, "bshd",
@@ -968,15 +981,17 @@ FWD_TURN_SHAPES = ("d80", "d80_bshd", "unaligned_d100", "d100_bshd", "gemma_d256
                    "fp16_d1024_bshd", "opt27b_d80_bshd", "openllama3b_fp16_d100_bshd",
                    "neox20b_fp16_d96_bshd", "gptj6b_fp16_d256_bshd")
 # dQ and dK/dV timed in turns against the route they took before their
-# wgmma kernels (mma at 80, 256 and in fp16 at 64 and 256, simt at 100 in
-# bf16 and fp16), with SDPA's whole backward after each turn under the
-# backend named here: its default (cuDNN), which the padded-width queue's
-# factors are read against, or at 100 its flash backend
+# wgmma kernels (mma at 80, 256 and in fp16 at 64, 96 and 256, simt at 100
+# in bf16 and fp16), or, at fp16 80, which has none, on mma in four turns,
+# with SDPA's whole backward after each turn under the backend named here:
+# its default (cuDNN), which the padded-width queue's factors are read
+# against, or at 100 its flash backend
 BWD_TURN_SHAPES = {"d80": "default", "d80_bshd": "default", "unaligned_d100": "flash",
                    "d100_bshd": "flash", "gemma_d256": "default",
                    "fp16_d1024_bshd": "default", "opt13b_d64_bshd": "default",
                    "openllama3b_fp16_d100_bshd": "flash", "fp16_unaligned_d100": "flash",
-                   "gptj6b_fp16_d256_bshd": "default"}
+                   "gptj6b_fp16_d256_bshd": "default", "neox20b_fp16_d96_bshd": "default",
+                   "opt27b_d80_bshd": "default"}
 D64_SHAPE = "d1024_bshd"  # the head-dim-64 row of the kernels line
 # the rows at the new head dims and fp16: every route `_routes` admits is
 # held against the plain version there, and SDPA's default backend is timed
@@ -1011,8 +1026,8 @@ REFUSED_HEAD_DIM = 520
 def shape_routes(route) -> dict:
     """Each kernel's route at a SHAPES row: `route` names one for all three
     kernels (the wgmma route of each takes head dims 64, 80, 96, 100, 128
-    and 256 in bf16, and 64, 100, 128 and 256 in fp16; the forward's also 80
-    and 96 in fp16), or is a pair (the forward's, the backward kernels'),
+    and 256 in bf16, and 64, 96, 100, 128 and 256 in fp16; the forward's
+    also 80 in fp16), or is a pair (the forward's, the backward kernels'),
     for a row where they differ."""
     fwd, bwd = (route, route) if isinstance(route, str) else route
     return {"flash_fwd": fwd, "flash_bwd_dq": bwd, "flash_bwd_dkv": bwd}
@@ -1383,7 +1398,8 @@ def phase_backward(attn, variants, tune):
             raise SystemExit(f"flash_bwd_dq/dkv disagree with the plain backward "
                              f"or are not repeatable at {name}")
     for case in (FP16_LSE_COTANGENT, FP16_SINK_COTANGENT, FP16_SINK_COTANGENT_D64,
-                 FP16_SINK_COTANGENT_D100, FP16_SINK_COTANGENT_D256):
+                 FP16_SINK_COTANGENT_D100, FP16_SINK_COTANGENT_D256,
+                 FP16_SINK_COTANGENT_D96):
         row = fp16_lse_cotangent_row(attn, **case)
         print(json.dumps({"phase": "backward", **row}), flush=True)
         rows.append(row)
@@ -1397,7 +1413,7 @@ def fp16_lse_cotangent_row(attn, b, h, s, d, do_scale, g_lse_scale, sink=False,
                            seed=7) -> dict:
     """The fp16 backward through the kernels' autograd node (the cotangent
     scale of `_FlashFwd.backward`, then dQ and dK/dV, each once on the fp16
-    wgmma route at head dim `d`, 128, 64, 100 or 256) with dO of `do_scale` beside an LSE
+    wgmma route at head dim `d`, 128, 64, 100, 256 or 96) with dO of `do_scale` beside an LSE
     cotangent of `g_lse_scale`, against the backward in fp32 on the same
     fp16 inputs: each output finite and within FP16_ROUNDING_FACTOR of the
     distance of the fp32 backward's own rounding to fp16. `sink`: key 0 is
@@ -3392,9 +3408,9 @@ def main() -> int:
         d80_backward_on_mma, d80_forward_on_mma, d100_backward_on_simt,
         d100_forward_on_simt, d256_backward_on_mma, d256_forward_on_mma,
         fp16_backward_on_mma, fp16_d64_forward_on_mma, fp16_d80_forward_on_mma,
-        fp16_d96_forward_on_mma, fp16_d100_backward_on_simt, fp16_d100_forward_on_simt,
-        fp16_d256_backward_on_mma, fp16_d256_forward_on_mma, gemma_2b, gpt_neox_20b,
-        gptj_6b, mixtral_8x7b,
+        fp16_d96_backward_on_mma, fp16_d96_forward_on_mma, fp16_d100_backward_on_simt,
+        fp16_d100_forward_on_simt, fp16_d256_backward_on_mma, fp16_d256_forward_on_mma,
+        gemma_2b, gpt_neox_20b, gptj_6b, mixtral_8x7b, NEOX20B_BACKWARD_LAYERS,
         openllama_3b, openllama_3b_fp16, opt_1_3b, opt_2_7b, phi3_mini, stablelm_3b_4e1t)
 
     gen_mod = importlib.import_module("yoda_scheduler_tpu_torch.models.generate")
@@ -3531,6 +3547,22 @@ def main() -> int:
     gptj_bwd_routes = phase_train(
         attn, train, moe, gptj_6b(), phase="gptj6b_fp16_backward",
         config="gpt_j_6b widths, fp16", turns=fp16_d256_turns, llama=llama)[1]
+    # GPT-NeoX-20B's gradient and its loss's backward in its published dtype,
+    # fp16 (no optimizer step), the backward at 22 of its 44 layers (44
+    # layers' fp16 weights and gradients, 108.8 GB, do not fit the card): dQ
+    # and dK/dV on their fp16 head-dim-96 wgmma kernels, timed in turns
+    # against both on mma
+    fp16_d96_turns = {"wgmma": contextlib.nullcontext,
+                      "backward_on_mma": fp16_d96_backward_on_mma}
+    neox_grad_routes = phase_gradient(
+        attn, llama, train, gpt_neox_20b(), phase="neox20b_fp16_gradient",
+        config="gpt_neox_20b widths, fp16, 4 layers", turns=fp16_d96_turns)
+    neox_bwd_routes = phase_train(
+        attn, train, moe, gpt_neox_20b(NEOX20B_BACKWARD_LAYERS),
+        phase="neox20b_fp16_backward",
+        config=f"gpt_neox_20b widths, fp16, {NEOX20B_BACKWARD_LAYERS} of 44 layers "
+               f"(44 layers' fp16 weights and gradients, 108.8 GB, do not fit)",
+        turns=fp16_d96_turns, llama=llama)[1]
     free_memory()
     ring_launches = phase_ring(attn, ring, variants)
     ulysses_launches = phase_ulysses(attn, ulysses, variants)
@@ -3624,6 +3656,8 @@ def main() -> int:
                                  openllama_fp16_bwd_routes["flash_fwd"],
                              "gptj6b_fp16_gradient": gptj_grad_routes["flash_fwd"],
                              "gptj6b_fp16_backward": gptj_bwd_routes["flash_fwd"],
+                             "neox20b_fp16_gradient": neox_grad_routes["flash_fwd"],
+                             "neox20b_fp16_backward": neox_bwd_routes["flash_fwd"],
                              "tune_attention": tune_routes["flash_fwd"].get("wgmma", 0),
                              **{path: routes["flash_fwd"].get("wgmma", 0)
                                 for path, routes in bench_routes.items()}},
@@ -3662,6 +3696,8 @@ def main() -> int:
                              "openllama3b_fp16_backward": openllama_fp16_bwd_routes[name],
                              "gptj6b_fp16_gradient": gptj_grad_routes[name],
                              "gptj6b_fp16_backward": gptj_bwd_routes[name],
+                             "neox20b_fp16_gradient": neox_grad_routes[name],
+                             "neox20b_fp16_backward": neox_bwd_routes[name],
                              "tune_attention": tune_routes[name].get("wgmma", 0),
                              **{path: routes[name].get("wgmma", 0)
                                 for path, routes in bench_routes.items()

@@ -132,6 +132,7 @@ def _hopper_lib():
     lib.hopper_wgmma_ss_f16.argtypes = [p, p, i32, p, p]
     lib.hopper_wgmma_rs_f16.argtypes = [p, p, p, p]
     lib.hopper_wgmma_ss64_f16.argtypes = [p, p, i32, p, p]
+    lib.hopper_wgmma_ss96_f16.argtypes = [p, p, i32, p, p]
     lib.hopper_wgmma_rs64_f16.argtypes = [p, p, p, p]
     lib.hopper_wgmma_chain64_f16.argtypes = [p, p, p, p, p]
     lib.hopper_wgmma_ss256.argtypes = [p, p, i32, p, p]
@@ -258,6 +259,24 @@ def test_wgmma_ss64_f16_tile_is_a_matmul(gpu, a_row0):
     bm = torch.randn(64, 128, generator=gen, device=gpu).to(torch.float16)
     out = torch.empty(64, 64, device=gpu)
     assert _hopper_lib().hopper_wgmma_ss64_f16(a.data_ptr(), bm.data_ptr(), a_row0,
+                                               out.data_ptr(), _stream()) == 0
+    torch.cuda.synchronize()
+    want = a[a_row0:a_row0 + 64].float() @ bm.float().T
+    torch.testing.assert_close(out, want, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("a_row0", [0, 64])
+def test_wgmma_ss96_f16_tile_is_a_matmul(gpu, a_row0):
+    """The fp16 m64n64k16 SS form over rows 96 wide: A [128, 96] and B [64,
+    96] each read through a 96-wide FLOAT16 map as two 64-column boxes, the
+    second zero-filled past column 96, and 6 k-steps, as the fp16 D = 96
+    backward kernels' S^T = K Q^T, dP^T = V dO^T, S = Q K^T and dP = dO V^T
+    (a K or Q tile of 128 rows against a streamed tile of 64)."""
+    gen = torch.Generator(gpu).manual_seed(31)
+    a = torch.randn(128, 96, generator=gen, device=gpu).to(torch.float16)
+    bm = torch.randn(64, 96, generator=gen, device=gpu).to(torch.float16)
+    out = torch.empty(64, 64, device=gpu)
+    assert _hopper_lib().hopper_wgmma_ss96_f16(a.data_ptr(), bm.data_ptr(), a_row0,
                                                out.data_ptr(), _stream()) == 0
     torch.cuda.synchronize()
     want = a[a_row0:a_row0 + 64].float() @ bm.float().T
@@ -591,12 +610,14 @@ def test_wgmma_route_matches_the_mma_route(gpu):
 
 def _bwd_inputs(gpu, case, layout, seed=0, d=128, dtype=torch.bfloat16):
     """q, k, v, dO of a WGMMA_SHAPES case (at head dim 128; WGMMA64_SHAPES
-    at 64 and 32, WGMMA64_F16_SHAPES in fp16 there, WGMMA96_SHAPES at 96,
-    NEW_WIDTH_SHAPES at 80 and 100, WGMMA256_SHAPES at 256 and
-    F16_96_256_SHAPES[256] in fp16 there) in `layout` and `dtype`, with the
-    forward's O and LSE, a random LSE cotangent and delta."""
-    shapes = {128: WGMMA_SHAPES, 96: WGMMA96_SHAPES, 80: NEW_WIDTH_SHAPES,
-              100: NEW_WIDTH_SHAPES,
+    at 64 and 32, WGMMA64_F16_SHAPES in fp16 there, WGMMA96_SHAPES at 96 and
+    F16_96_256_SHAPES[96] in fp16 there, NEW_WIDTH_SHAPES at 80 and 100,
+    WGMMA256_SHAPES at 256 and F16_96_256_SHAPES[256] in fp16 there) in
+    `layout` and `dtype`, with the forward's O and LSE, a random LSE
+    cotangent and delta."""
+    shapes = {128: WGMMA_SHAPES,
+              96: F16_96_256_SHAPES[96] if dtype == torch.float16 else WGMMA96_SHAPES,
+              80: NEW_WIDTH_SHAPES, 100: NEW_WIDTH_SHAPES,
               256: F16_96_256_SHAPES[256] if dtype == torch.float16 else WGMMA256_SHAPES}.get(
                   d, WGMMA64_F16_SHAPES if dtype == torch.float16 else WGMMA64_SHAPES)
     (b, h, kvh, sq, sk), causal, window = shapes[case]
@@ -956,16 +977,19 @@ def test_wgmma100_backward_is_bit_repeatable(gpu, case):
 
 
 def test_wgmma100_backward_refuses_fp16(gpu):
-    """The fp16 inputs the wgmma backward still refuses: head dims 80 and 96
-    (no fp16 kernel there), and at 100 rows that start 2 or 4 bytes off an
-    8-byte boundary or whose sequence stride is no multiple of 4 elements.
-    Named, the route of dQ and of dK/dV raises and launches nothing; csrc/'s
-    entry, called past `_routes`, returns cudaErrorInvalidValue (1) for each
-    (the launcher itself refusing fp16 at 80 and 96), and launches (0) the
-    aligned fp16 rows at 100."""
+    """The fp16 inputs the wgmma backward still refuses: head dim 80 (no
+    fp16 kernel there), at 96 rows that start 8 bytes off a 16-byte
+    boundary, and at 100 rows that start 2 or 4 bytes off an 8-byte boundary
+    or whose sequence stride is no multiple of 4 elements. Named, the route
+    of dQ and of dK/dV raises and launches nothing; csrc/'s entry, called
+    past `_routes`, returns cudaErrorInvalidValue (1) for each (the launcher
+    itself refusing fp16 at 80), and launches (0) the aligned fp16 rows at
+    100."""
     half = torch.float16
     flat = torch.randn(2 + 4 * 64 * 100, device=gpu).to(half)
-    refused = [_qkv(gpu, half, 1, 4, 4, 64, 64, d)[0] for d in (80, 96)]
+    flat96 = torch.randn(4 + 4 * 64 * 96, device=gpu).to(half)
+    refused = [_qkv(gpu, half, 1, 4, 4, 64, 64, 80)[0],
+               flat96[4:4 + 4 * 64 * 96].view(1, 4, 64, 96)]
     refused += [flat[o:o + 4 * 64 * 100].view(1, 4, 64, 100) for o in (1, 2)]
     refused.append(torch.randn(1, 4, 64, 102, device=gpu).to(half)[..., :100])
     aligned = _qkv(gpu, half, 1, 4, 4, 64, 64, 100)[0]
@@ -1197,7 +1221,7 @@ def test_the_fp16_wgmma_forwards_refuse_what_they_cannot_take(gpu):
     `_routes` refuses; csrc/'s entry, called past `_routes`, returns
     cudaErrorInvalidValue (1) for each; the same rows at a stride of 104
     launch (0), and so do aligned rows at 80 and 96. dQ and dK/dV refuse
-    fp16 at 80 and 96 and take it at 100."""
+    fp16 at 80 and take it at 96 and 100."""
     half = torch.float16
     d112 = _qkv(gpu, half, 1, 4, 4, 64, 64, 112)[0]
     wide = torch.randn(1, 4, 64, 104, device=gpu).to(half)
@@ -1219,8 +1243,8 @@ def test_the_fp16_wgmma_forwards_refuse_what_they_cannot_take(gpu):
         t = _qkv(gpu, half, 1, 4, 4, 64, 64, d)[0]
         assert _c_entry("flash_fwd", (t,) * 3, "wgmma") == 0
         for name in ("flash_bwd_dq", "flash_bwd_dkv"):
-            assert ("wgmma" in attn._routes(name, t, t, t, t)) == (d == 100)
-            assert _c_entry(name, (t,) * 4, "wgmma") == (d != 100), (name, d)
+            assert ("wgmma" in attn._routes(name, t, t, t, t)) == (d != 80)
+            assert _c_entry(name, (t,) * 4, "wgmma") == (d == 80), (name, d)
     torch.cuda.synchronize()
 
 
@@ -1258,12 +1282,11 @@ def _f16_inputs(gpu, d, case, layout, seed=0):
 def test_wgmma_f16_forward_at_96_and_256_matches_the_plain_version(gpu, d, case, layout):
     """One launch on wgmma, as `_route` picks it, within fp16's bounds
     (chip_smoke's) elementwise and by O's worst 64-row tile; dQ and dK/dV
-    stay on mma at these inputs at 96, and take their own fp16 wgmma
-    kernels at 256."""
+    take their own fp16 wgmma kernels at these inputs too."""
     q, k, v, causal, window = _f16_inputs(gpu, d, case, layout)
     assert attn._route("flash_fwd", q, k, v) == "wgmma"
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
-        assert attn._route(name, q, k, v, q) == ("mma" if d == 96 else "wgmma"), name
+        assert attn._route(name, q, k, v, q) == "wgmma", name
     before = attn.flash_fwd.launches_by_route["wgmma"]
     o, lse = attn.flash_fwd(q, k, v, causal, window)
     torch.cuda.synchronize()
@@ -1301,8 +1324,8 @@ def test_the_fp16_wgmma_forwards_at_96_and_256_refuse_rows_off_16_bytes(gpu, d):
     route raises with no launch (the empty kv is refused by csrc/ alone),
     and csrc/'s entry, called past `_routes`, returns cudaErrorInvalidValue
     (1) for each; the same rows at a stride of d + 8 launch (0). fp32 at
-    d is refused by csrc/ too, and so are fp16 dQ and dK/dV at 96, which
-    launch at 256 (GPT-J-6B's fp16 backward kernels)."""
+    d is refused by csrc/ too; fp16 dQ and dK/dV launch at both
+    (GPT-NeoX-20B's and GPT-J-6B's fp16 backward kernels)."""
     half = torch.float16
     n = 4 * 64 * d
     flat = torch.randn(4 + n, device=gpu).to(half)
@@ -1321,7 +1344,7 @@ def test_the_fp16_wgmma_forwards_at_96_and_256_refuse_rows_off_16_bytes(gpu, d):
     assert _c_entry("flash_fwd", (wide[..., :d],) * 3, "wgmma") == 0
     assert _c_entry("flash_fwd", (wide[..., :d].float().contiguous(),) * 3, "wgmma") == 1
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
-        assert _c_entry(name, (wide[..., :d],) * 4, "wgmma") == (d == 96), name
+        assert _c_entry(name, (wide[..., :d],) * 4, "wgmma") == 0, name
     torch.cuda.synchronize()
 
 
@@ -1976,6 +1999,134 @@ def test_fp16_d256_backward_keeps_a_large_lse_cotangent(gpu, lse_scale, sink):
     assert all(e["finite"] for e in row["errors"].values())
 
 
+# the fp16 wgmma backward at head dim 96 (flash_bwd_dq_wgmma96_f16_kernel,
+# flash_bwd_dkv_wgmma96_f16_kernel: GPT-NeoX-20B's attention in its published
+# dtype, the D = 96 bodies on fp16 operands) at F16_96_256_SHAPES[96] (the
+# model's shape and every path of the kernels' loops), in both layouts, held
+# to fp16's bounds
+@pytest.mark.parametrize("case", list(F16_96_256_SHAPES[96]))
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+def test_wgmma96_f16_backward_matches_the_plain_backward(gpu, case, layout):
+    """dQ and dK/dV on their fp16 head-dim-96 wgmma kernels, as `_route`
+    picks them, one launch each, elementwise and by each output's worst
+    64-row tile."""
+    args, (o, g_lse) = _bwd_inputs(gpu, case, layout, d=96, dtype=torch.float16)
+    q, k, v, do, lse, _, causal, window = args
+    fns = (attn.flash_bwd_dq, attn.flash_bwd_dkv)
+    assert [attn._route(fn.__name__, q, k, v, do) for fn in fns] == ["wgmma", "wgmma"]
+    before = [fn.launches_by_route["wgmma"] for fn in fns]
+    got = _bwd_kernels(args, None)
+    torch.cuda.synchronize()
+    assert [fn.launches_by_route["wgmma"] for fn in fns] == [n + 1 for n in before]
+    want = attn.flash_backward_reference(q, k, v, o, lse, do, causal, window, g_lse)
+    tol = TOL[torch.float16]
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == torch.float16 and g.shape == w.shape
+        assert g.shape[-1] == 96
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
+        assert tile_rel_l2(g, w) <= chip_smoke.TILE_REL_L2_FP16
+
+
+@pytest.mark.parametrize("case", ["neox20b_s2048", "gqa_32_8", "ragged_300"])
+def test_wgmma96_f16_backward_matches_the_mma_route(gpu, case):
+    """The new kernels against the mma kernels, the route they took before,
+    on the same inputs (the model's views): each against the plain backward,
+    and the two routes against each other by tile."""
+    args, (o, g_lse) = _bwd_inputs(gpu, case, "bshd", seed=2, d=96, dtype=torch.float16)
+    q, k, v, do, lse, _, causal, window = args
+    want = attn.flash_backward_reference(q, k, v, o, lse, do, causal, window, g_lse)
+    tol = TOL[torch.float16]
+    for g, m, w in zip(_bwd_kernels(args, "wgmma"), _bwd_kernels(args, "mma"), want):
+        for got in (g, m):
+            torch.testing.assert_close(got.float(), w.float(), atol=tol, rtol=tol)
+            assert tile_rel_l2(got, w) <= chip_smoke.TILE_REL_L2_FP16
+        assert tile_rel_l2(g, m) <= chip_smoke.TILE_REL_L2_FP16
+
+
+@pytest.mark.parametrize("case", ["ragged_300", "window_512", "neox20b_s2048", "gqa_32_8"])
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+def test_wgmma96_f16_backward_is_bit_repeatable(gpu, case, layout):
+    """No atomics: dQ's two warpgroups' sums join in one order in fp16 too."""
+    args, _ = _bwd_inputs(gpu, case, layout, d=96, dtype=torch.float16)
+    runs = [_bwd_kernels(args, "wgmma") for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.parametrize("route", ["mma", "wgmma"])
+def test_wgmma96_f16_out_scale_multiplies_before_the_rounding(gpu, route):
+    """At head dim 96 in fp16, on the new kernels and on mma: with out_scale
+    2^-3 each output (per q head, as the kernels write it) is the one
+    without it times 2^-3 (exact in fp16's normal range, at most 2^-24
+    apart where subnormal); and with the cotangents 2^6 times larger and
+    out_scale 2^-6, as `_FlashFwd.backward` passes them, the outputs equal
+    the plain backward's with the same out_scale, which multiplies before
+    its one rounding, within fp16's bounds."""
+    args, (o, g_lse) = _bwd_inputs(gpu, "gqa_32_8", "bshd", seed=3, d=96,
+                                   dtype=torch.float16)
+    q, k, v, do, lse, delta, causal, window = args
+    kvh = k.shape[1]
+    got = _bwd_kernels_scaled(args, route, torch.tensor(0.125, device=gpu))
+    want = _bwd_kernels_scaled(args, route, None)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float16 and bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g.float(), w.float() * 0.125, rtol=0, atol=2.0 ** -24)
+    big = (q, k, v, (do.float() * 64).half(), lse, delta * 64, causal, window)
+    scale = torch.tensor(2.0 ** -6, device=gpu)
+    dq, dk, dv = _bwd_kernels_scaled(big, route, scale)
+    ref = attn.flash_backward_reference(q, k, v, o, lse, big[3], causal, window,
+                                        g_lse * 64, scale)
+    tol = TOL[torch.float16]
+    for g, w in zip((dq, attn.group_sum(dk, kvh), attn.group_sum(dv, kvh)), ref):
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
+        assert tile_rel_l2(g, w) <= chip_smoke.TILE_REL_L2_FP16
+
+
+def test_wgmma96_f16_backward_refuses_rows_off_16_bytes(gpu):
+    """fp16 q, k, v and dO that start 1, 2 or 4 elements (2, 4 or 8 bytes)
+    into their storage, a sequence stride that is no multiple of 8 elements
+    and an empty kv: `_routes` offers dQ and dK/dV no wgmma, the named route
+    raises with no launch (the empty kv is refused by csrc/ alone), and
+    csrc/'s entries, called past `_routes`, return cudaErrorInvalidValue (1)
+    for each, with no fallback; the same rows at a stride of 104 launch (0),
+    and fp16 at 80, which has no wgmma backward kernel, is refused on rows
+    that are aligned."""
+    half, d = torch.float16, 96
+    n = 4 * 64 * d
+    flat = torch.randn(4 + n, device=gpu).to(half)
+    wide = torch.randn(1, 4, 64, d + 8, device=gpu).to(half)
+    odd = torch.randn(1, 4, 64, d + 4, device=gpu).to(half)[..., :d]
+    empty = torch.zeros(1, 4, 0, d, device=gpu, dtype=half)
+    lse = torch.zeros(1, 4, 64, device=gpu)
+    d80 = torch.randn(1, 4, 64, 88, device=gpu).to(half)[..., :80]
+    for fn in (attn.flash_bwd_dq, attn.flash_bwd_dkv):
+        name = fn.__name__
+        for t in [flat[o:o + n].view(1, 4, 64, d) for o in (1, 2, 4)] + [odd, d80]:
+            assert "wgmma" not in attn._routes(name, t, t, t, t)
+            before = (fn.launches, dict(fn.launches_by_route))
+            with pytest.raises(ValueError, match=f"{name} route 'wgmma' cannot take"):
+                fn(t, t, t, t, lse, lse, causal=False, route="wgmma")
+            assert (fn.launches, fn.launches_by_route) == before
+            assert _c_entry(name, (t,) * 4, "wgmma") == 1, name
+        ok = wide[..., :d]
+        assert _c_entry(name, (ok, empty, empty, ok), "wgmma") == 1, name
+        assert _c_entry(name, (ok,) * 4, "wgmma") == 0, name
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("lse_scale, sink", [(1e3, False), (1e3, True)],
+                         ids=["1000.0", "sink-1000.0"])
+def test_fp16_d96_backward_keeps_a_large_lse_cotangent(gpu, lse_scale, sink):
+    """F10 at head dim 96, through the kernels' autograd node on the new
+    fp16 kernels (chip_smoke's large-cotangent rows at GPT-NeoX-20B's width,
+    smaller): every output finite and within twice the fp32 backward's own
+    rounding to fp16 of it, one launch of each kernel on wgmma."""
+    row = chip_smoke.fp16_lse_cotangent_row(attn, 1, 2, 256, 96, 1e-5, lse_scale, sink)
+    assert row["ok"], row
+    assert all(e["finite"] for e in row["errors"].values())
+
+
 # a GQA case of each wgmma backward kernel pair: (head dim, dtype, case of
 # `_bwd_inputs`)
 ROUNDING_CASES = {
@@ -1989,6 +2140,7 @@ ROUNDING_CASES = {
     "fp16_d100": (100, torch.float16, "gqa_32_8"),
     "fp16_d128": (128, torch.float16, "gqa_32_8"),
     "fp16_d256": (256, torch.float16, "gqa_16_8"),
+    "fp16_d96": (96, torch.float16, "gqa_32_8"),
 }
 # the largest share of an output's entries that differ from the plain
 # backward's per q head, by dtype: fp16's ulp is 8x finer than bf16's, so 8x
@@ -2020,20 +2172,20 @@ def test_wgmma_backward_rounds_ds_where_the_plain_backward_does(gpu, case):
         assert unequal_share(g, w) < ROUNDING_SHARE[dtype], name
 
 
-@pytest.mark.parametrize("d", [64, 96])
+@pytest.mark.parametrize("d", [64, 96, 80])
 def test_wgmma_takes_fp16_at_head_dim_128_alone(gpu, d):
-    """In fp16 dQ and dK/dV have wgmma kernels at head dims 128 and 64
-    (OPT-1.3B's), not at 96, and the forward at all three: named at 96, dQ's
-    and dK/dV's wgmma route raises with no launch while the forward's
-    (GPT-NeoX-20B's kernel) launches, and at 64 each launches on it; at 128
-    each launches on it."""
+    """In fp16 dQ and dK/dV have wgmma kernels at head dims 128, 64
+    (OPT-1.3B's) and 96 (GPT-NeoX-20B's), not at 80, and the forward at all
+    four: named at 80, dQ's and dK/dV's wgmma route raises with no launch
+    while the forward's (OPT-2.7B's kernel) launches, and at 64 and 96 each
+    launches on it; at 128 each launches on it."""
     q = _qkv(gpu, torch.float16, 1, 4, 4, 128, 128, d)[0]
     q128 = _qkv(gpu, torch.float16, 1, 4, 4, 128, 128, 128)[0]
     lse = torch.zeros(q.shape[:3], device=gpu)
     for fn in (attn.flash_fwd, attn.flash_bwd_dq, attn.flash_bwd_dkv):
         args = (q,) * 3 if fn is attn.flash_fwd else (q,) * 4 + (lse, lse)
         before = (fn.launches, dict(fn.launches_by_route))
-        if d == 64 or fn is attn.flash_fwd:
+        if d != 80 or fn is attn.flash_fwd:
             fn(*args, route="wgmma")
             torch.cuda.synchronize()
             assert fn.launches_by_route["wgmma"] == before[1]["wgmma"] + 1
@@ -2077,8 +2229,8 @@ def test_kernel_refuses_what_it_does_not_take(gpu, dtype, d):
 
 
 # head dims other than 32, 64 and 128, and fp16: the simt and mma kernels at
-# their padded widths (at 80, 96, 100 and 256, and fp16 at 64 and 128, on
-# wgmma; fp16 at 80 and 100 the forward alone). (dtype, d, (b, h, kvh, sq, sk), causal, window, layout, the
+# their padded widths (at 80, 96, 100 and 256, and fp16 at 64, 96, 100, 128
+# and 256, on wgmma; fp16 at 80 the forward alone). (dtype, d, (b, h, kvh, sq, sk), causal, window, layout, the
 # route `_route` picks for every kernel, or for the forward and the
 # backward); "offset1" starts each tensor one element into its storage,
 # off 16-byte alignment

@@ -109,16 +109,16 @@ def test_route_follows_the_inputs(case):
 
 
 # the head dims each kernel has a wgmma kernel for (csrc/), by dtype: every
-# kernel at 64, 80, 96, 128 and 256 in bf16, and at 64, 128 and 256 in fp16,
-# and the forward at 80 and 96 in fp16 too (and every kernel at 100 in both
+# kernel at 64, 80, 96, 128 and 256 in bf16, and at 64, 96, 128 and 256 in
+# fp16, and the forward at 80 in fp16 too (and every kernel at 100 in both
 # dtypes, whose rows are not 16-byte aligned: not among these, which mma
 # takes too)
 WGMMA_TAKES = {torch.bfloat16: {"flash_fwd": (64, 80, 96, 128, 256),
                                 "flash_bwd_dq": (64, 80, 96, 128, 256),
                                 "flash_bwd_dkv": (64, 80, 96, 128, 256)},
                torch.float16: {"flash_fwd": (64, 80, 96, 128, 256),
-                               "flash_bwd_dq": (64, 128, 256),
-                               "flash_bwd_dkv": (64, 128, 256)}}
+                               "flash_bwd_dq": (64, 96, 128, 256),
+                               "flash_bwd_dkv": (64, 96, 128, 256)}}
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 HEAD_DIMS = (32, 64, 128, 40, 80, 96, 256)
 
@@ -143,9 +143,9 @@ def test_wgmma_admits_each_kernels_head_dims(kernel, d, wgmma):
     (kernel, d, d in WGMMA_TAKES[torch.float16][kernel])
     for kernel in KERNELS for d in HEAD_DIMS])
 def test_wgmma_admits_fp16_at_head_dim_128_alone(kernel, d, wgmma):
-    """In fp16 wgmma takes head dims 128, 64 and 256 alone for dQ and
-    dK/dV, and 80 and 96 too for the forward (`WGMMA_TAKES`); every other
-    aligned fp16 head dim keeps mma for all three kernels, up to 256."""
+    """In fp16 wgmma takes head dims 128, 64, 96 and 256 alone for dQ and
+    dK/dV, and 80 too for the forward (`WGMMA_TAKES`); every other aligned
+    fp16 head dim keeps mma for all three kernels, up to 256."""
     _assert_wgmma_admits(kernel, d, torch.float16, wgmma)
 
 
@@ -254,7 +254,27 @@ BWD_CASES = {
     "fp16_d128": (lambda: [_bhsd(1, 4, 64, 128, torch.float16)] * 4, "wgmma"),
     "fp16_d128_model_views": (lambda: [_model_view(1, 64, 4, 128, torch.float16)] * 4,
                               "wgmma"),
-    "fp16_d96": (lambda: [_bhsd(1, 4, 64, 96, torch.float16)] * 4, "mma"),
+    # head dim 96 in fp16 (GPT-NeoX-20B's published dtype): wgmma for rows
+    # aligned as mma's, contiguous, GQA and as the model's views; mma for an
+    # empty kv, simt for rows 2 or 8 bytes off 16
+    "fp16_d96": (lambda: [_bhsd(1, 4, 64, 96, torch.float16)] * 4, "wgmma"),
+    "fp16_d96_model_views": (lambda: [_model_view(1, 64, 64, 96, torch.float16)] * 4,
+                             "wgmma"),
+    "fp16_d96_gqa_contiguous": (lambda: [_bhsd(1, 8, 64, 96, torch.float16)]
+                                + [_bhsd(1, 2, 64, 96, torch.float16)] * 2
+                                + [_bhsd(1, 8, 64, 96, torch.float16)], "wgmma"),
+    "fp16_d96_offset_by_one": (lambda: [_bhsd(1, 4, 64, 96, torch.float16, offset=1)] * 4,
+                               "simt"),
+    "fp16_d96_offset_by_four": (lambda: [_bhsd(1, 4, 64, 96, torch.float16, offset=4)] * 4,
+                                "simt"),
+    "fp16_d96_do_offset_by_four": (lambda: [_bhsd(1, 4, 64, 96, torch.float16)] * 3
+                                   + [_bhsd(1, 4, 64, 96, torch.float16, offset=4)], "simt"),
+    "fp16_d96_odd_seq_stride": (lambda: [_bhsd(1, 4, 64, 100, torch.float16)[..., :96]] * 4,
+                                "simt"),
+    "fp16_d96_empty_kv": (lambda: [_bhsd(1, 8, 64, 96, torch.float16),
+                                   _bhsd(1, 8, 0, 96, torch.float16),
+                                   _bhsd(1, 8, 0, 96, torch.float16),
+                                   _bhsd(1, 8, 64, 96, torch.float16)], "mma"),
     "fp16_d64": (lambda: [_model_view(1, 64, 4, 64, torch.float16)] * 4, "wgmma"),
     "fp16_d64_do_offset_by_one": (lambda: [_model_view(1, 64, 4, 64, torch.float16)] * 3
                                   + [_bhsd(1, 4, 64, 64, torch.float16, offset=1)], "simt"),
@@ -339,14 +359,18 @@ def test_backward_route_follows_the_inputs(case):
 
 
 # (case, route) both backward kernels must refuse (fp16 has wgmma backward
-# kernels at head dims 64, 100, 128 and 256 alone, for aligned rows; bf16 and
-# fp16 at 256, and bf16 at 80, none for rows off 16 bytes or an empty kv, and
+# kernels at head dims 64, 96, 100, 128 and 256 alone, for aligned rows; bf16
+# and fp16 at 96 and 256, and bf16 at 80, none for rows off 16 bytes or an
+# empty kv, and
 # at 100, in bf16 and fp16, none for rows off 8 bytes, strides off 4
 # elements or an empty kv; no mma kernel takes 200-byte rows)
 BWD_REFUSALS = [("fp32_d128", "wgmma"), ("fp32_d128", "mma"), ("bf16_d32", "wgmma"),
                 ("do_offset_by_one", "mma"), ("do_odd_seq_stride", "wgmma"),
                 ("empty_kv", "wgmma"), ("bf16_d128", "tma"), ("fp16_d80", "wgmma"),
-                ("fp16_d64_do_offset_by_one", "wgmma"), ("fp16_d96", "wgmma"),
+                ("fp16_d64_do_offset_by_one", "wgmma"), ("fp16_d96_offset_by_one", "wgmma"),
+                ("fp16_d96_offset_by_one", "mma"), ("fp16_d96_offset_by_four", "wgmma"),
+                ("fp16_d96_offset_by_four", "mma"), ("fp16_d96_do_offset_by_four", "wgmma"),
+                ("fp16_d96_odd_seq_stride", "wgmma"), ("fp16_d96_empty_kv", "wgmma"),
                 ("bf16_d100", "mma"), ("fp16_d64_do_offset_by_one", "mma"),
                 ("fp16_do_offset_by_one", "mma"), ("fp16_do_offset_by_one", "wgmma"),
                 ("bf16_d100_model_views", "mma"), ("bf16_d80_offset_by_four", "wgmma"),
@@ -623,9 +647,9 @@ def _wide_rows():
 def test_the_smokes_wide_rows_take_their_routes(row):
     """Each row chip_smoke adds at the new head dims and in fp16 names the
     route `_route` picks for each kernel there: wgmma at head dims 80, 96,
-    100 and 256 in bf16 and in fp16 at 64, 100, 128 and 256 aligned (not one
-    element into its storage), for every kernel, and for the forward alone
-    in fp16 at 80 and 96."""
+    100 and 256 in bf16 and in fp16 at 64, 96, 100, 128 and 256 aligned (not
+    one element into its storage), for every kernel, and for the forward
+    alone in fp16 at 80."""
     import chip_smoke
 
     q, k, v, do = _smoke_row_tensors(row)
@@ -636,8 +660,8 @@ def test_the_smokes_wide_rows_take_their_routes(row):
     aligned_bf16 = row[9] == torch.bfloat16 and row[10] != "offset1"
     aligned_fp16 = row[9] == torch.float16 and row[10] != "offset1"
     every = ((row[6] in (80, 96, 100, 256) and aligned_bf16)
-             or (row[6] in (64, 100, 128, 256) and aligned_fp16))
-    forward = every or (row[6] in (80, 96) and aligned_fp16)
+             or (row[6] in (64, 96, 100, 128, 256) and aligned_fp16))
+    forward = every or (row[6] == 80 and aligned_fp16)
     assert ("wgmma" in attn._routes("flash_fwd", q, k, v)) == forward
     assert ("wgmma" in attn._routes("flash_bwd_dkv", q, k, v, do)) == every
     assert ("wgmma" in attn._routes("flash_bwd_dq", q, k, v, do)) == every
@@ -805,9 +829,10 @@ def test_shape_routes_takes_a_forward_and_backward_pair():
     (all on wgmma); the smoke's forward turn rows are among its wide rows,
     each with a route before wgmma to be timed against (simt at 100, mma
     elsewhere), the fp16 rows at 80, 96, 100 and 256 among them; its
-    backward turn rows are the ten at 80, 100, 256 and in fp16 at 64, 100
-    and 256, where dQ and dK/dV took mma or simt before their wgmma kernels,
-    timed beside SDPA's default backend (cuDNN) at 80, 256 and 64 and its
+    backward turn rows are the eleven at 80, 100, 256 and in fp16 at 64, 96,
+    100 and 256, where dQ and dK/dV took mma or simt before their wgmma
+    kernels, and OPT-2.7B's fp16 row at 80, where they take mma still, timed
+    beside SDPA's default backend (cuDNN) at 80, 96, 256 and 64 and its
     flash backend at 100."""
     import chip_smoke
 
@@ -828,14 +853,15 @@ def test_shape_routes_takes_a_forward_and_backward_pair():
         assert attn._routes("flash_fwd", q, k, v)[-2:] == (old, "wgmma")
     turns = chip_smoke.BWD_TURN_SHAPES
     assert set(turns) == (set(chip_smoke.FWD_TURN_SHAPES)
-                          - {"opt27b_d80_bshd", "neox20b_fp16_d96_bshd"}
                           | {"opt13b_d64_bshd", "fp16_unaligned_d100"})
     assert set(turns) <= set(chip_smoke.WIDE_SHAPES)
     for name, backend in turns.items():
         d = rows[name][6]
         assert backend == ("flash" if d == 100 else "default"), name
         q, k, v, do = _smoke_row_tensors(rows[name])
-        want = ("simt", "wgmma") if d == 100 else ("simt", "mma", "wgmma")
+        want = (("simt", "wgmma") if d == 100
+                else ("simt", "mma") if name == "opt27b_d80_bshd"
+                else ("simt", "mma", "wgmma"))
         for kernel in BWD_KERNELS:
             assert attn._routes(kernel, q, k, v, do) == want, name
 
@@ -987,7 +1013,7 @@ def test_the_gemma_and_opt_forwards_expect_every_launch_on_wgmma():
         assert f'("{phase}", ' in main and f'("forward_on_mma", {manager})' in main
     assert {"flash_fwd_wgmma256_kernel", "flash_fwd_wgmma64_f16_kernel"} <= set(
         chip_smoke.WGMMA_KERNELS)
-    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 32
+    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 34
 
 
 def test_the_smokes_new_rows_at_256_and_fp16_64():
@@ -1273,7 +1299,7 @@ def test_the_opt27b_and_fp16_openllama_forwards_expect_every_launch_on_wgmma():
     one flash_fwd launch a layer on wgmma (`phase_forward`'s route), 32 and
     26: `_route` picks it on each config's fp16 model views; both run in
     main's loop of forward phases, timed in turns against the forward on
-    its old route, and the build expects both new kernels among 32."""
+    its old route, and the build expects both new kernels among 34."""
     import inspect
 
     import chip_smoke
@@ -1291,7 +1317,7 @@ def test_the_opt27b_and_fp16_openllama_forwards_expect_every_launch_on_wgmma():
         assert f'("{phase}", ' in main and old in main
     assert {"flash_fwd_wgmma80_f16_kernel", "flash_fwd_wgmma100_f16_kernel"} <= set(
         chip_smoke.WGMMA_KERNELS)
-    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 32
+    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 34
 
 
 def test_the_smokes_fp16_rows_at_80_and_100():
@@ -1302,7 +1328,8 @@ def test_the_smokes_fp16_rows_at_80_and_100():
     and on wgmma at 100; all are wide rows, held on every route; the models'
     rows are forward turn rows and in the kernels line; at 100 the model's
     row and the contiguous one are backward turn rows (against simt, SDPA's
-    flash backend after each turn), and no row at 80; the unaligned fp16
+    flash backend after each turn), and at 80 the model's row alone (on mma
+    in four turns, SDPA's default backend after each); the unaligned fp16
     row at 80 stays on simt."""
     import chip_smoke
 
@@ -1336,8 +1363,10 @@ def test_the_smokes_fp16_rows_at_80_and_100():
     assert models <= set(chip_smoke.FWD_TURN_SHAPES) and models <= set(
         chip_smoke.HEAD_DIM_ROWS)
     turns = {"openllama3b_fp16_d100_bshd", "fp16_unaligned_d100"}
-    assert (new[80] | new[100]) & set(chip_smoke.BWD_TURN_SHAPES) == turns
+    assert (new[80] | new[100]) & set(chip_smoke.BWD_TURN_SHAPES) == turns | {
+        "opt27b_d80_bshd"}
     assert all(chip_smoke.BWD_TURN_SHAPES[name] == "flash" for name in turns)
+    assert chip_smoke.BWD_TURN_SHAPES["opt27b_d80_bshd"] == "default"
     assert rows["fp16_unaligned_d80"][-1] == "simt"
 
 
@@ -1384,7 +1413,7 @@ def test_openllama3b_fp16_gradient_and_backward_expect_every_launch_on_wgmma():
     views at head dim 100; both phases run timed in turns against
     `fp16_d100_backward_on_simt`, as the loss's backward where a call is
     one, and appear in the kernels line's launches by path; the build
-    expects both new kernels among 32; the smoke's third sink row is at
+    expects both new kernels among 34; the smoke's third sink row is at
     head dim 100."""
     import inspect
 
@@ -1411,37 +1440,44 @@ def test_openllama3b_fp16_gradient_and_backward_expect_every_launch_on_wgmma():
     assert "turns=fp16_d100_turns, llama=llama)" in main
     assert {"flash_bwd_dq_wgmma100_f16_kernel", "flash_bwd_dkv_wgmma100_f16_kernel"} <= set(
         chip_smoke.WGMMA_KERNELS)
-    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 32
+    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 34
     assert chip_smoke.FP16_SINK_COTANGENT_D100 == dict(chip_smoke.FP16_SINK_COTANGENT, d=100)
     assert "FP16_SINK_COTANGENT_D100" in inspect.getsource(chip_smoke.phase_backward)
 
 
-# fp16 at head dims 96 (GPT-NeoX-20B's) and 256 (GPT-J-6B's): the forward has
-# an fp16 wgmma kernel at each; dQ and dK/dV keep mma at 96 and have fp16
-# wgmma kernels of their own at 256
+# fp16 at head dims 96 (GPT-NeoX-20B's) and 256 (GPT-J-6B's): the forward,
+# dQ and dK/dV have fp16 wgmma kernels at each (the forward since it alone
+# had them); fp16 at 80 keeps dQ and dK/dV on mma
 @pytest.mark.parametrize("layout", ["bhsd", "bshd"])
 @pytest.mark.parametrize("d", [96, 256])
 def test_the_fp16_forward_alone_takes_wgmma_at_96_and_256(d, layout):
-    """fp16, contiguous and as the model's views: the forward's routes end
-    in wgmma after mma, dQ's and dK/dV's in mma at 96 and in wgmma after
-    mma at 256; rows one element into their storage take simt alone."""
+    """fp16, contiguous and as the model's views: the forward's, dQ's and
+    dK/dV's routes end in wgmma after mma at 96 and 256, while at 80 dQ's
+    and dK/dV's end in mma; rows one element into their storage take simt
+    alone."""
     half = torch.float16
-    q, k, v, do = ([_bhsd(1, 4, 64, d, half)] if layout == "bhsd"
-                   else [_model_view(1, 64, 4, d, half)]) * 4
+
+    def views(dd):
+        return ([_bhsd(1, 4, 64, dd, half)] if layout == "bhsd"
+                else [_model_view(1, 64, 4, dd, half)]) * 4
+
+    q, k, v, do = views(d)
     assert attn._routes("flash_fwd", q, k, v) == ("simt", "mma", "wgmma")
-    bwd = ("simt", "mma", "wgmma") if d == 256 else ("simt", "mma")
     for kernel in BWD_KERNELS:
-        assert attn._routes(kernel, q, k, v, do) == bwd
+        assert attn._routes(kernel, q, k, v, do) == ("simt", "mma", "wgmma")
+        assert attn._routes(kernel, *views(80)) == ("simt", "mma")
     off = _bhsd(1, 4, 64, d, half, offset=1)
     assert attn._routes("flash_fwd", off, off, off) == ("simt",)
+    for kernel in BWD_KERNELS:
+        assert attn._routes(kernel, off, off, off, off) == ("simt",)
 
 
-@pytest.mark.parametrize("dim,bwd", [(192, "mma"), (512, "wgmma")])
+@pytest.mark.parametrize("dim,bwd", [(160, "mma"), (192, "wgmma"), (512, "wgmma")])
 def test_the_models_fp16_forward_at_96_and_256(monkeypatch, dim, bwd):
     """An fp16 layer at head_dim 96 and 256 (`_a_models_launch_routes`):
-    both forward launches take their fp16 wgmma kernel, and the backward
-    launchers mma at 96 and their fp16 wgmma kernels at 256, with the
-    cotangent that `_FlashFwd.backward` scales in fp16."""
+    both forward launches take their fp16 wgmma kernel, and so do the
+    backward launchers, with the cotangent that `_FlashFwd.backward` scales
+    in fp16; at head_dim 80 the backward launchers take mma."""
     cfg = dataclasses.replace(_one_layer(dim, "float16"), n_kv_heads=2)
     assert cfg.head_dim == dim // 2
     assert _a_models_launch_routes(monkeypatch, cfg) == [
@@ -1483,7 +1519,7 @@ def test_fp16_d96_and_d256_forward_on_mma_move_the_fp16_forward_alone():
     """`profile_path.fp16_d96_forward_on_mma` and `fp16_d256_forward_on_mma`,
     the route sets the GPT-NeoX-20B and GPT-J-6B forwards are timed against:
     within each the fp16 forward at its width takes mma, while fp16 dQ and
-    dK/dV keep their routes there (mma at 96, wgmma at 256), bf16 at that
+    dK/dV keep their wgmma kernels there, bf16 at that
     width keeps wgmma for every kernel, and fp16 at the other width and at
     64, 80 and 128 keeps its wgmma forward; after it `_WGMMA_HEAD_DIMS` is
     exactly what it was."""
@@ -1492,7 +1528,7 @@ def test_fp16_d96_and_d256_forward_on_mma_move_the_fp16_forward_alone():
 
     half = torch.float16
     saved = {key: dims for key, dims in attn._WGMMA_HEAD_DIMS.items()}
-    for routes, d, other, bwd in ((fp16_d96_forward_on_mma, 96, 256, "mma"),
+    for routes, d, other, bwd in ((fp16_d96_forward_on_mma, 96, 256, "wgmma"),
                                   (fp16_d256_forward_on_mma, 256, 96, "wgmma")):
         t = [_model_view(1, 64, 4, d, half)] * 4
         bf16 = [_model_view(1, 64, 4, d)] * 4
@@ -1515,8 +1551,8 @@ def test_the_neox20b_and_gptj6b_forwards_expect_every_launch_on_wgmma():
     `_route` picks it on each config's fp16 model views; both run in main's
     loop of forward phases (whose launches go into the kernels line's
     launches by path), timed in turns against the forward on mma, and the
-    build expects both new kernels among 32; profile_path's main traces
-    both forwards on each route last."""
+    build expects both new kernels among 34; profile_path's main traces
+    both forwards on each route."""
     import inspect
 
     import chip_smoke
@@ -1535,7 +1571,7 @@ def test_the_neox20b_and_gptj6b_forwards_expect_every_launch_on_wgmma():
     assert "**new_width_routes" in main
     assert {"flash_fwd_wgmma96_f16_kernel", "flash_fwd_wgmma256_f16_kernel"} <= set(
         chip_smoke.WGMMA_KERNELS)
-    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 32
+    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 34
     windows = inspect.getsource(profile_path.neox_gptj_forward_windows)
     assert "fp16_d96_forward_on_mma" in windows and "fp16_d256_forward_on_mma" in windows
     assert "neox_gptj_forward_windows()" in inspect.getsource(profile_path.main)
@@ -1545,11 +1581,10 @@ def test_the_smokes_fp16_rows_at_96_and_256():
     """chip_smoke's fp16 rows at head dims 96 (GPT-NeoX-20B's attention as
     its model gives it, 64 heads of 96, then GQA 32/8, window 512, ragged,
     cross-length, non-causal) and 256 (GPT-J-6B's, 16 heads of 256, and the
-    same five) name the forward on wgmma, and dQ and dK/dV on mma at 96 and
-    on wgmma at 256; all are wide rows, held on every route; the models'
-    rows are forward turn rows (against mma) and in the kernels line, and
-    GPT-J-6B's row alone is a backward turn row too (against mma, cuDNN's
-    whole backward after each turn)."""
+    same five) name the forward, dQ and dK/dV on wgmma; all are wide rows,
+    held on every route; the models' rows are forward turn rows (against
+    mma) and in the kernels line, and they alone are backward turn rows too
+    (against mma, cuDNN's whole backward after each turn)."""
     import chip_smoke
 
     rows = {row[0]: row for row in chip_smoke.SHAPES}
@@ -1557,7 +1592,7 @@ def test_the_smokes_fp16_rows_at_96_and_256():
                 "fp16_ragged_d96", "fp16_cross_length_d96", "fp16_non_causal_d96"},
            256: {"gptj6b_fp16_d256_bshd", "fp16_gqa_d256", "fp16_window_d256",
                  "fp16_ragged_d256", "fp16_cross_length_d256", "fp16_non_causal_d256"}}
-    for d, bwd in ((96, "mma"), (256, "wgmma")):
+    for d, bwd in ((96, "wgmma"), (256, "wgmma")):
         assert new[d] == {n for n, row in rows.items() if row[6] == d and row[9] == torch.float16}
         assert new[d] <= set(chip_smoke.WIDE_SHAPES)
         for name in new[d]:
@@ -1575,8 +1610,9 @@ def test_the_smokes_fp16_rows_at_96_and_256():
     models = {"neox20b_fp16_d96_bshd", "gptj6b_fp16_d256_bshd"}
     assert models <= set(chip_smoke.FWD_TURN_SHAPES) and models <= set(
         chip_smoke.HEAD_DIM_ROWS)
-    assert (new[96] | new[256]) & set(chip_smoke.BWD_TURN_SHAPES) == {"gptj6b_fp16_d256_bshd"}
-    assert chip_smoke.BWD_TURN_SHAPES["gptj6b_fp16_d256_bshd"] == "default"
+    assert (new[96] | new[256]) & set(chip_smoke.BWD_TURN_SHAPES) == models
+    for name in models:
+        assert chip_smoke.BWD_TURN_SHAPES[name] == "default"
 
 
 def test_fp16_d256_backward_on_mma_moves_the_fp16_backward_alone_and_restores():
@@ -1620,8 +1656,8 @@ def test_gptj6b_fp16_gradient_and_backward_expect_every_launch_on_wgmma():
     both phases run after openllama3b_fp16_backward and before the card is
     freed, timed in turns against `fp16_d256_backward_on_mma`, as the loss's
     backward where a call is one, and appear in the kernels line's launches
-    by path; the build expects both new kernels among 32; profile_path's
-    main traces GPT-J-6B's backward on each route last."""
+    by path; the build expects both new kernels among 34; profile_path's
+    main traces GPT-J-6B's backward on each route after the forwards."""
     import inspect
 
     import chip_smoke
@@ -1648,9 +1684,105 @@ def test_gptj6b_fp16_gradient_and_backward_expect_every_launch_on_wgmma():
         'phase="gptj6b_fp16_backward"') < main.index("free_memory()", before)
     assert {"flash_bwd_dq_wgmma256_f16_kernel", "flash_bwd_dkv_wgmma256_f16_kernel"} <= set(
         chip_smoke.WGMMA_KERNELS)
-    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 32
+    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 34
     windows = inspect.getsource(profile_path.gptj6b_fp16_backward_windows)
     assert "fp16_d256_backward_on_mma" in windows and "gptj_6b()" in windows
     body = inspect.getsource(profile_path.main)
     assert body.index("gptj6b_fp16_backward_windows()") > body.index(
         "neox_gptj_forward_windows()")
+
+
+def test_fp16_d96_backward_on_mma_moves_the_fp16_backward_alone_and_restores():
+    """`profile_path.fp16_d96_backward_on_mma`, the route set the GPT-NeoX-20B
+    gradient and backward are timed against: within it fp16 dQ and dK/dV at
+    head dim 96 take mma while the fp16 forward there keeps wgmma, bf16 at
+    96 keeps wgmma for every kernel, fp16 dQ and dK/dV at 64, 100, 128 and
+    256 keep theirs, and at 80 mma; `fp16_backward_on_mma` and
+    `fp16_d256_backward_on_mma` leave 96 on wgmma; after each
+    `_WGMMA_HEAD_DIMS` is exactly what it was, and the fp16 backward at 96
+    takes wgmma again."""
+    from yoda_scheduler_tpu_torch.profile_path import (fp16_backward_on_mma,
+                                                       fp16_d96_backward_on_mma,
+                                                       fp16_d256_backward_on_mma)
+
+    half = torch.float16
+    saved = {key: dims for key, dims in attn._WGMMA_HEAD_DIMS.items()}
+    t = [_model_view(1, 64, 64, 96, half)] * 4
+    bf16 = [_model_view(1, 64, 32, 96)] * 4
+    rest = [[_model_view(1, 64, 4, d, half)] * 4 for d in (64, 100, 128, 256)]
+    d80 = [_model_view(1, 64, 32, 80, half)] * 4
+    with fp16_d96_backward_on_mma():
+        assert attn._route("flash_fwd", *t[:3]) == "wgmma"
+        assert attn._route("flash_fwd", *bf16[:3]) == "wgmma"
+        for name in BWD_KERNELS:
+            assert attn._route(name, *t) == "mma"
+            assert attn._route(name, *bf16) == "wgmma"
+            assert attn._route(name, *d80) == "mma"
+            for r in rest:
+                assert attn._route(name, *r) == "wgmma"
+    assert attn._WGMMA_HEAD_DIMS == saved
+    for other in (fp16_backward_on_mma, fp16_d256_backward_on_mma):
+        with other():
+            for name in BWD_KERNELS:
+                assert attn._route(name, *t) == "wgmma"
+        assert attn._WGMMA_HEAD_DIMS == saved
+    for name in BWD_KERNELS:
+        assert attn._route(name, *t) == "wgmma"
+
+
+def test_neox20b_fp16_gradient_and_backward_expect_every_launch_on_wgmma():
+    """chip_smoke's expected launches of neox20b_fp16_gradient (4 layers:
+    8/4/4) and of one neox20b_fp16_backward call (the loss's forward and
+    backward under remat, no optimizer, at 22 of GPT-NeoX-20B's 44 layers:
+    44/22/22), all on wgmma, as `_route` picks them on the model's fp16
+    views at head dim 96; the cut is `profile_path.NEOX20B_BACKWARD_LAYERS`,
+    whose fp16 weights and gradients fit the 80 GB card where 44 layers'
+    do not, and the phase's config names it; both phases run after
+    gptj6b_fp16_backward and before the card is freed, timed in turns
+    against `fp16_d96_backward_on_mma`, as the loss's backward where a call
+    is one, and appear in the kernels line's launches by path; the build
+    expects both new kernels among 34, and the smoke's sink rows take head
+    dim 96 too; profile_path's main traces the cut backward on each route
+    last."""
+    import inspect
+
+    import chip_smoke
+    from yoda_scheduler_tpu_torch import profile_path
+    from yoda_scheduler_tpu_torch.profile_path import NEOX20B_BACKWARD_LAYERS, gpt_neox_20b
+
+    assert NEOX20B_BACKWARD_LAYERS == 22
+    full, cut = gpt_neox_20b(), gpt_neox_20b(NEOX20B_BACKWARD_LAYERS)
+    assert dataclasses.replace(cut, n_layers=44) == full
+    assert (cut.n_layers, cut.head_dim, cut.dtype) == (22, 96, "float16")
+    # fp16 weights and gradients, 4 bytes a parameter: 44 layers past the
+    # card's 80 GB, 22 within it beside the activations
+    assert _llama_params(full) * 4 / 1e9 > 100 and _llama_params(cut) * 4 / 1e9 < 56
+    assert chip_smoke.step_routes("wgmma", cut.n_layers) == {
+        "flash_fwd": {"wgmma": 44}, "flash_bwd_dq": {"wgmma": 22},
+        "flash_bwd_dkv": {"wgmma": 22}}
+    q, k, v, do = [_model_view(1, 64, cut.n_heads, cut.head_dim, cut.torch_dtype)] * 4
+    assert attn._route("flash_fwd", q, k, v) == "wgmma"
+    for name in BWD_KERNELS:
+        assert attn._route(name, q, k, v, do) == "wgmma"
+    main = inspect.getsource(chip_smoke.main)
+    for path in ("neox20b_fp16_gradient", "neox20b_fp16_backward"):
+        assert main.count(f'"{path}":') == 2, path
+        assert f'phase="{path}"' in main, path
+    assert '"backward_on_mma": fp16_d96_backward_on_mma' in main
+    assert "gpt_neox_20b(NEOX20B_BACKWARD_LAYERS)" in main
+    assert "turns=fp16_d96_turns, llama=llama)" in main
+    assert "{NEOX20B_BACKWARD_LAYERS} of 44 layers" in main
+    before = main.index('phase="gptj6b_fp16_backward"')
+    assert before < main.index('phase="neox20b_fp16_gradient"') < main.index(
+        'phase="neox20b_fp16_backward"') < main.index("free_memory()", before)
+    assert {"flash_bwd_dq_wgmma96_f16_kernel", "flash_bwd_dkv_wgmma96_f16_kernel"} <= set(
+        chip_smoke.WGMMA_KERNELS)
+    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 34
+    assert chip_smoke.FP16_SINK_COTANGENT_D96 == dict(chip_smoke.FP16_SINK_COTANGENT, d=96)
+    assert "FP16_SINK_COTANGENT_D96" in inspect.getsource(chip_smoke.phase_backward)
+    windows = inspect.getsource(profile_path.neox20b_fp16_backward_windows)
+    assert "fp16_d96_backward_on_mma" in windows
+    assert "gpt_neox_20b(NEOX20B_BACKWARD_LAYERS)" in windows
+    body = inspect.getsource(profile_path.main)
+    assert body.index("neox20b_fp16_backward_windows()") > body.index(
+        "gptj6b_fp16_backward_windows()")

@@ -140,8 +140,8 @@ def test_fp16_head_dims_96_and_256_shapes_are_the_smokes_rows(d):
     SHAPES_F16_256: GPT-NeoX-20B's attention (64 heads of 96) and GPT-J-6B's
     (16 heads of 256) first, S=2048, as their models give them, then GQA, a
     window and a ragged sequence, each the smoke's fp16 row of the same name
-    with the forward on wgmma, and dQ and dK/dV on mma at 96 and on wgmma at
-    256, three of them probed."""
+    with the forward, dQ and dK/dV on wgmma at each, three of them
+    probed."""
     import chip_smoke
     from yoda_scheduler_tpu_torch.ops import variants
 
@@ -155,7 +155,6 @@ def test_fp16_head_dims_96_and_256_shapes_are_the_smokes_rows(d):
     for name, b, h, kvh, sq, sk, causal, window in shapes:
         assert rows[name][1:9] == (b, h, kvh, sq, sk, d, causal, window), name
         assert rows[name][9] == torch.float16, name
-        bwd = "mma" if d == 96 else "wgmma"
         assert chip_smoke.shape_routes(rows[name][-1]) == {
-            "flash_fwd": "wgmma", "flash_bwd_dq": bwd, "flash_bwd_dkv": bwd}, name
+            "flash_fwd": "wgmma", "flash_bwd_dq": "wgmma", "flash_bwd_dkv": "wgmma"}, name
     assert {first, f"fp16_window_d{d}", f"fp16_ragged_d{d}"} <= set(variants.PROBE)

@@ -39,6 +39,10 @@
 //   maps), as flash_fwd.cu's fp16 Q K^T and P V;
 // - hopper_wgmma_ss64_f16: hopper_wgmma_ss64 on fp16 operands, as
 //   flash_bwd.cu's fp16 S^T = K Q^T, dP^T = V dO^T, S = Q K^T and dP = dO V^T;
+// - hopper_wgmma_ss96_f16: the same over rows 96 wide (A [128, 96], B [64,
+//   96]), each read as two 64-column boxes, the second zero-filled by TMA
+//   past column 96, with 6 k-steps, as the fp16 D = 96 backward kernels'
+//   S^T = K Q^T, dP^T = V dO^T, S = Q K^T and dP = dO V^T;
 // - hopper_wgmma_rs64_f16: P [64, 128] from registers times V [128, 64], V
 //   one MN-major box, with the fp16 m64n64k16 RS form, as
 //   flash_fwd_wgmma64_f16_kernel's P V;
@@ -184,7 +188,9 @@ __global__ void __launch_bounds__(128) wgmma_rs_kernel(
   store_acc<128>(d, out);
 }
 
-template <typename T>
+// rows of D (128, or 96 over the same boxes, zero past column 96): D / 16
+// k-steps
+template <typename T, int D = 128>
 __global__ void __launch_bounds__(128) wgmma_ss64_kernel(
     const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
     int a_row0, float* out) {
@@ -209,7 +215,7 @@ __global__ void __launch_bounds__(128) wgmma_ss64_kernel(
   const uint64_t da = desc_kmajor(sA + 128 * a_row0), db = desc_kmajor(sB);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
+  for (int kk = 0; kk < D / 16; ++kk)
     wgmma_m64n64k16_ss<0, 0, T>(d, da + (((kk / 4) * HALF + (kk % 4) * 32) >> 4),
                                 db + (((kk / 4) * HALF64 + (kk % 4) * 32) >> 4), kk > 0);
   wgmma_commit();
@@ -680,6 +686,26 @@ int wgmma_ss64(const void* a, const void* b, int a_row0, void* out, void* stream
   return (int)cudaGetLastError();
 }
 
+// A [128, 96] and B [64, 96] (T, contiguous) through maps 96 wide, two
+// 64-column boxes a row, into wgmma_ss64_kernel<T, 96>
+template <typename T>
+int wgmma_ss64_96(const void* a, const void* b, int a_row0, void* out, void* stream) {
+  const int64_t dims_a[4] = {96, 128, 1, 1}, dims_b[4] = {96, 64, 1, 1};
+  const int64_t strides_a[3] = {96, 96 * 128, 96 * 128}, strides_b[3] = {96, 96 * 64, 96 * 64};
+  CUtensorMap map_a, map_b;
+  if ((a_row0 != 0 && a_row0 != 64) ||
+      !make_map_4d(&map_a, map_type<T>(), a, dims_a, strides_a, 128) ||
+      !make_map_4d(&map_b, map_type<T>(), b, dims_b, strides_b, 64))
+    return (int)cudaErrorInvalidValue;
+  constexpr int smem = 2 * HALF + 2 * HALF64 + 1024;
+  cudaError_t err = cudaFuncSetAttribute(
+      wgmma_ss64_kernel<T, 96>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  wgmma_ss64_kernel<T, 96><<<1, 128, smem, (cudaStream_t)stream>>>(map_a, map_b, a_row0,
+                                                                  (float*)out);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int wgmma_rs(const void* p, const void* v, void* out, void* stream) {
   CUtensorMap map_v;
@@ -778,6 +804,14 @@ extern "C" int hopper_wgmma_ss64(const void* a, const void* b, int a_row0, void*
 extern "C" int hopper_wgmma_ss64_f16(const void* a, const void* b, int a_row0, void* out,
                                      void* stream) {
   return wgmma_ss64<__half>(a, b, a_row0, out, stream);
+}
+
+// a: [128, 96], b: [64, 96] fp16 contiguous; out: [64, 64] fp32 =
+// a[a_row0 : a_row0 + 64] @ b^T: the f16 m64n64k16 SS form over 96-wide
+// FLOAT16 maps, as the fp16 D = 96 backward kernels' score products
+extern "C" int hopper_wgmma_ss96_f16(const void* a, const void* b, int a_row0, void* out,
+                                     void* stream) {
+  return wgmma_ss64_96<__half>(a, b, a_row0, out, stream);
 }
 
 // p: [64, 64], v: [64, 128] bf16 contiguous; out: [64, 128] fp32 = p @ v

@@ -10,8 +10,8 @@ it, too), or "cur" for the package's own, built with the package's nvcc
 flags into `build/variants/`; each build's nvcc seconds are printed. fwd
 launches `attention.flash_fwd` on its automatic route; bwd launches
 `attention.flash_bwd_dq` and `attention.flash_bwd_dkv` on theirs (wgmma at
-head dims 64, 80, 96, 100, 128 and 256 in bf16, and 64, 100, 128 and 256 in
-fp16); both first print
+head dims 64, 80, 96, 100, 128 and 256 in bf16, and 64, 96, 100, 128 and
+256 in fp16); both first print
 ptxas's registers and spills of each variant's wgmma kernels with its
 performance notes. `--route mma` launches both kinds on the mma route
 instead. Every launch is checked against the
@@ -51,8 +51,10 @@ forward runs `flash_fwd_wgmma80_f16_kernel` and dQ and dK/dV mma, and with
 fp16 first), where the three kernels run `flash_fwd_wgmma100_f16_kernel`,
 `flash_bwd_dq_wgmma100_f16_kernel` and `flash_bwd_dkv_wgmma100_f16_kernel`;
 with `--head-dim 96` those of `SHAPES_F16_96` (GPT-NeoX-20B's attention, 64
-heads of 96, first), where the forward runs `flash_fwd_wgmma96_f16_kernel`
-and dQ and dK/dV mma, and with `--head-dim 256` those of `SHAPES_F16_256`
+heads of 96, first), where the three kernels run
+`flash_fwd_wgmma96_f16_kernel`, `flash_bwd_dq_wgmma96_f16_kernel` and
+`flash_bwd_dkv_wgmma96_f16_kernel`, and with `--head-dim 256` those of
+`SHAPES_F16_256`
 (GPT-J-6B's attention, 16 heads of 256, first), where the three kernels run
 `flash_fwd_wgmma256_f16_kernel`, `flash_bwd_dq_wgmma256_f16_kernel` and
 `flash_bwd_dkv_wgmma256_f16_kernel`; each launch is held to fp16's bounds,

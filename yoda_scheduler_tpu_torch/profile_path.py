@@ -53,10 +53,13 @@ those alone), each route traced twice in turns; then one `llama_forward` at
 GPT-NeoX-20B's widths (head dim 96, fp16, all 44 layers) and one at
 GPT-J-6B's (256, fp16, 28 layers), B=1, S=2048, each with flash_fwd on its
 fp16 wgmma kernel and on mma, as before it (`neox_gptj_forward_windows()`
-traces those four alone); last GPT-J-6B's loss (all 28 layers, fp16) as
+traces those four alone); then GPT-J-6B's loss (all 28 layers, fp16) as
 OPT-1.3B's, with dQ and dK/dV on their fp16 head-dim-256 wgmma kernels and
 on mma (`fp16_d256_backward_on_mma`; `gptj6b_fp16_backward_windows()`
-traces those alone), each route traced twice in turns. For each traced
+traces those alone), each route traced twice in turns; last GPT-NeoX-20B's
+loss (fp16, 22 of its 44 layers: `NEOX20B_BACKWARD_LAYERS`) so, with dQ and
+dK/dV on their fp16 head-dim-96 wgmma kernels and on mma
+(`fp16_d96_backward_on_mma`; `neox20b_fp16_backward_windows()`). For each traced
 window it prints one JSON line: the host wall time, the device's busy time
 (the union of kernel intervals) and idle share, the kernel launches, the
 device time grouped into conv / matmul / flash_fwd / flash_bwd_dq /
@@ -185,17 +188,27 @@ def opt_2_7b() -> LlamaConfig:
                        norm_eps=1e-5, max_seq_len=2048, dtype="float16")
 
 
-def gpt_neox_20b() -> LlamaConfig:
+def gpt_neox_20b(n_layers: int = 44) -> LlamaConfig:
     """GPT-NeoX-20B's widths, from the published EleutherAI/gpt-neox-20b
     config.json: hidden 6144, 44 layers, 64 heads of 96 (query and KV
     alike), FFN 24576, vocab 50432, 2048 positions, in its published
     torch_dtype, fp16; the weights random from a seed: about 27.2 B
     parameters on this Llama block, 54.4 GB. Its LayerNorm, rotary on 25% of
     each head (all of it here), parallel residual, two-matrix GELU FFN
-    (three matrices and SiLU here) and biases are not modelled."""
-    return LlamaConfig(vocab_size=50432, dim=6144, n_layers=44, n_heads=64,
+    (three matrices and SiLU here) and biases are not modelled. Depth cut
+    to `n_layers` where the whole model does not fit
+    (`NEOX20B_BACKWARD_LAYERS`)."""
+    return LlamaConfig(vocab_size=50432, dim=6144, n_layers=n_layers, n_heads=64,
                        n_kv_heads=64, ffn_dim=24576, rope_theta=10000.0,
                        norm_eps=1e-5, max_seq_len=2048, dtype="float16")
+
+
+# GPT-NeoX-20B's depth for its fp16 backward on one 80 GB card: a layer is
+# 4 x 6144^2 + 3 x 6144 x 24576 = 604.0 M parameters beside 619.8 M of
+# embedding and head, so 44 layers' fp16 weights and gradients take 108.8 GB
+# and 22 layers' 55.6 GB (13.91 B parameters), with room for the remat
+# activations and the 50432-wide logits
+NEOX20B_BACKWARD_LAYERS = 22
 
 
 def gptj_6b() -> LlamaConfig:
@@ -349,9 +362,10 @@ def d96_on_mma():
 
 def fp16_backward_on_mma():
     """Within it, fp16 takes the mma route for dQ and dK/dV at head dims 64
-    and 128, as before their fp16 wgmma kernels there; at 100 and 256 they
-    keep theirs (`fp16_d100_backward_on_simt` and `fp16_d256_backward_on_mma`
-    move them), the forward keeps its wgmma kernels, and bf16 all of its."""
+    and 128, as before their fp16 wgmma kernels there; at 96, 100 and 256
+    they keep theirs (`fp16_d96_backward_on_mma`, `fp16_d100_backward_on_simt`
+    and `fp16_d256_backward_on_mma` move them), the forward keeps its wgmma
+    kernels, and bf16 all of its."""
     return _off_wgmma(lambda key, d: (key[1] == torch.float16 and key[0] != "flash_fwd"
                                       and d in (64, 128)))
 
@@ -396,8 +410,8 @@ def fp16_d80_forward_on_mma():
 
 def fp16_d96_forward_on_mma():
     """Within it, the fp16 forward at head dim 96 takes the mma route, as
-    before its wgmma kernel; fp16 dQ and dK/dV stay on mma there, and bf16
-    at 96 keeps its wgmma kernels."""
+    before its wgmma kernel; fp16 dQ and dK/dV keep their wgmma kernels
+    there, and bf16 at 96 keeps its."""
     return _off_wgmma(lambda key, d: key == ("flash_fwd", torch.float16) and d == 96)
 
 
@@ -406,6 +420,14 @@ def fp16_d256_forward_on_mma():
     before its wgmma kernel; fp16 dQ and dK/dV keep their wgmma kernels
     there, and bf16 at 256 keeps its."""
     return _off_wgmma(lambda key, d: key == ("flash_fwd", torch.float16) and d == 256)
+
+
+def fp16_d96_backward_on_mma():
+    """Within it, fp16 dQ and dK/dV at head dim 96 take the mma route, as
+    before their wgmma kernels; the fp16 forward keeps its wgmma kernel
+    there, and bf16 at 96 keeps all of its."""
+    return _off_wgmma(lambda key, d: (key[1] == torch.float16 and key[0] != "flash_fwd"
+                                      and d == 96))
 
 
 def fp16_d256_backward_on_mma():
@@ -690,6 +712,15 @@ def gptj6b_fp16_backward_windows() -> list[dict]:
                                   fp16_d256_backward_on_mma)
 
 
+def neox20b_fp16_backward_windows() -> list[dict]:
+    """GPT-NeoX-20B's loss (fp16, cut to `NEOX20B_BACKWARD_LAYERS` of its 44
+    layers) traced as `_fp16_backward_windows`, dQ and dK/dV on their fp16
+    head-dim-96 wgmma kernels and on mma (`fp16_d96_backward_on_mma`)."""
+    return _fp16_backward_windows(gpt_neox_20b(NEOX20B_BACKWARD_LAYERS),
+                                  f"neox20b_{NEOX20B_BACKWARD_LAYERS}_layers",
+                                  "backward_on_mma", fp16_d96_backward_on_mma)
+
+
 def moe_forward_window(cfg) -> dict:
     params = init_llama(cfg, seed=0, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -771,6 +802,8 @@ def main() -> int:
     reports += neox_gptj_forward_windows()
     _free()
     reports += gptj6b_fp16_backward_windows()
+    _free()
+    reports += neox20b_fp16_backward_windows()
     out = Path(__file__).resolve().parents[1] / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "profile_path.json").write_text(json.dumps(
