@@ -7,7 +7,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 1. build: the card's name and power limit, and the CUDA kernels compiled
    from the sources in this checkout (nvcc, sm_90a, one process per source);
-   each of the thirty-four wgmma kernels (`WGMMA_KERNELS`) without a spill
+   each of the thirty-six wgmma kernels (`WGMMA_KERNELS`) without a spill
    or a serialised wgmma.
 2. kernel: the flash forward kernel against its plain version on the card,
    elementwise and by O's worst 64-row tile, at the main path's shape (also
@@ -43,9 +43,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    wgmma kernel at 64), fp16 at 80, 96, 100 and 256 (OPT-2.7B's,
    GPT-NeoX-20B's, OpenLLaMA-3B's and GPT-J-6B's attention as their models
    give them, with GQA, window, ragged, cross-length and non-causal rows:
-   the forward on its fp16 wgmma kernel, and at 96, 100 and 256 dQ and
-   dK/dV on theirs, each model's row timed in turns against the forward's
-   old route), simt in
+   the forward, dQ and dK/dV on their fp16 wgmma kernels, each model's row
+   timed in turns against the forward's old route), simt in
    fp32 and fp16, and 320 on simt in fp32 and bf16 (SDPA's memory-efficient
    backend timed beside the fp32 row, its K and V repeated to q's heads);
    each on every route `_routes` admits, with SDPA's default backend timed
@@ -70,16 +69,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
    backend at 100; and so in fp16 at 64 (fp16_d1024_bshd, opt13b_d64_bshd)
    against mma, with SDPA's default backward after each turn, and in fp16
    at 100 (openllama3b_fp16_d100_bshd, fp16_unaligned_d100) against simt,
-   with its flash backward after each turn, and in fp16 at 96 and 256
-   (neox20b_fp16_d96_bshd, gptj6b_fp16_d256_bshd) against mma, with SDPA's
-   default backward after each turn; in fp16 at 80 (opt27b_d80_bshd), which
-   has no wgmma backward, dQ and dK/dV on mma in four turns with SDPA's
-   default backward after each. Last six fp16 rows with a
-   large LSE cotangent (dO x1e-5, S=2048, head dim 128) through the
+   with its flash backward after each turn, and in fp16 at 80, 96 and 256
+   (opt27b_d80_bshd, neox20b_fp16_d96_bshd, gptj6b_fp16_d256_bshd) against
+   mma, with SDPA's default backward after each turn. Last seven fp16 rows
+   with a large LSE cotangent (dO x1e-5, S=2048, head dim 128) through the
    kernels' autograd node, g_lse x1e3 of random sign and, with an attention
    sink at key 0, x100 of one sign, at head dim 128 and again at 64, 96,
-   100 and 256: finite, and within twice the fp32 backward's own rounding to
-   fp16 of the fp32 backward.
+   100, 256 and 80: finite, and within twice the fp32 backward's own
+   rounding to fp16 of the fp32 backward.
 4. forward: Llama-2-7B width, all 32 layers, bf16, random weights from a
    seed, B=1, S=2048: one `llama_forward` must launch the kernel once per
    layer, and its logits must agree with the forward through the plain
@@ -110,7 +107,7 @@ After moe_train, head dims 96, 100 and 80, and fp16:
   published weights: as forward and gradient, every launch on the wgmma
   route; fp16_gradient also times the 4-layer loss's forward and backward
   on the host's clock in turns, all on wgmma against the backward on mma
-  (`profile_path.fp16_backward_on_mma`).
+  (`profile_path.fp16_backward_on_mma(128)`).
 - openllama3b_forward, stablelm3b_forward: OpenLLaMA-3B's widths (26
   layers, 32 heads of 100) and StableLM-3B-4E1T's (32 layers, 32 heads of
   80) on the Llama block (`profile_path.openllama_3b`,
@@ -151,7 +148,7 @@ After moe_train, head dims 96, 100 and 80, and fp16:
   on wgmma, dQ and dK/dV on their fp16 head-dim-64 kernels, a finite loss
   and finite gradients on the card, ms a call, tokens/s, MFU by the train
   phases' convention and peak memory; both also timed on the host's clock
-  in turns against dQ and dK/dV on mma (`profile_path.fp16_backward_on_mma`),
+  in turns against dQ and dK/dV on mma (`profile_path.fp16_backward_on_mma(64)`),
   the backward's turns after its 4 calls.
 - openllama3b_fp16_gradient, openllama3b_fp16_backward: OpenLLaMA-3B's
   widths in its published dtype, fp16 (`profile_path.openllama_3b_fp16`),
@@ -167,7 +164,7 @@ After moe_train, head dims 96, 100 and 80, and fp16:
   with no optimizer (56/28/28 a call), every launch on wgmma, dQ and dK/dV
   on their fp16 head-dim-256 kernels; both also timed on the host's clock
   in turns against dQ and dK/dV on mma
-  (`profile_path.fp16_d256_backward_on_mma`).
+  (`profile_path.fp16_backward_on_mma(256)`).
 - neox20b_fp16_gradient, neox20b_fp16_backward: GPT-NeoX-20B's widths in
   its published dtype, fp16 (`profile_path.gpt_neox_20b`: 6144 wide, 64
   heads of 96, FFN 24576, vocab 50432), as OPT-1.3B's pair: gradient (4
@@ -176,7 +173,15 @@ After moe_train, head dims 96, 100 and 80, and fp16:
   44 layers' fp16 weights and gradients, 108.8 GB, do not fit the card;
   44/22/22 a call), every launch on wgmma, dQ and dK/dV on their fp16
   head-dim-96 kernels; both also timed on the host's clock in turns against
-  dQ and dK/dV on mma (`profile_path.fp16_d96_backward_on_mma`).
+  dQ and dK/dV on mma (`profile_path.fp16_backward_on_mma(96)`).
+- opt27b_fp16_gradient, opt27b_fp16_backward: OPT-2.7B's widths in its
+  published dtype, fp16 (`profile_path.opt_2_7b`: 2560 wide, 32 heads of
+  80, FFN 10240, vocab 50272), as OPT-1.3B's pair: gradient (4 layers:
+  8/4/4 launches) and the loss's forward and backward at all 32 layers
+  with no optimizer (64/32/32 a call), every launch on wgmma, dQ and dK/dV
+  on their fp16 head-dim-80 kernels; both also timed on the host's clock
+  in turns against dQ and dK/dV on mma
+  (`profile_path.fp16_backward_on_mma(80)`).
 - opt27b_fp16_forward, openllama3b_fp16_forward, neox20b_fp16_forward,
   gptj6b_fp16_forward (run with the forwards above): OPT-2.7B's,
   OpenLLaMA-3B's, GPT-NeoX-20B's (44 layers, 64 heads of 96, 54 GB of
@@ -445,12 +450,13 @@ TILE_REL_L2_FP16 = 1.25e-3  # bf16's 1e-2 over 8, as TOL's fp16 bounds
 FP16_LSE_COTANGENT = dict(b=1, h=32, s=2048, d=128, do_scale=1e-5, g_lse_scale=1e3)
 FP16_SINK_COTANGENT = dict(FP16_LSE_COTANGENT, g_lse_scale=100.0, sink=True)
 # the sink row again at OPT-1.3B's head dim, 64, at OpenLLaMA-3B's, 100, at
-# GPT-J-6B's, 256, and at GPT-NeoX-20B's, 96, on the fp16 wgmma kernels at
-# each
+# GPT-J-6B's, 256, at GPT-NeoX-20B's, 96, and at OPT-2.7B's, 80, on the fp16
+# wgmma kernels at each
 FP16_SINK_COTANGENT_D64 = dict(FP16_SINK_COTANGENT, d=64)
 FP16_SINK_COTANGENT_D100 = dict(FP16_SINK_COTANGENT, d=100)
 FP16_SINK_COTANGENT_D256 = dict(FP16_SINK_COTANGENT, d=256)
 FP16_SINK_COTANGENT_D96 = dict(FP16_SINK_COTANGENT, d=96)
+FP16_SINK_COTANGENT_D80 = dict(FP16_SINK_COTANGENT, d=80)
 FP16_ROUNDING_FACTOR = 2.0
 BWD_G_LSE = {"gqa", "gqa_bshd", "cross_length", "ragged_300",  # shapes with a non-zero
              "gqa_d64", "ragged_d64", "gqa_d96", "gemma_d256",   # LSE cotangent
@@ -743,7 +749,8 @@ WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_wgmma96_kernel",
                  "flash_bwd_dq_wgmma100_f16_kernel", "flash_bwd_dkv_wgmma100_f16_kernel",
                  "flash_fwd_wgmma96_f16_kernel", "flash_fwd_wgmma256_f16_kernel",
                  "flash_bwd_dq_wgmma256_f16_kernel", "flash_bwd_dkv_wgmma256_f16_kernel",
-                 "flash_bwd_dq_wgmma96_f16_kernel", "flash_bwd_dkv_wgmma96_f16_kernel")
+                 "flash_bwd_dq_wgmma96_f16_kernel", "flash_bwd_dkv_wgmma96_f16_kernel",
+                 "flash_bwd_dq_wgmma80_f16_kernel", "flash_bwd_dkv_wgmma80_f16_kernel")
 
 
 def phase_build(build):
@@ -785,8 +792,7 @@ def phase_build(build):
 # layout "bhsd" is contiguous [B, H, S, D]; "bshd" the model's transposed
 # views of a contiguous [B, S, H, D]; "offset1" starts every tensor one
 # element into its storage, off 16-byte alignment. route is the one
-# `_route` must pick for these inputs, for every kernel, or a pair (the
-# forward's, the backward kernels') (`shape_routes`).
+# `_route` must pick for these inputs, for every kernel (`shape_routes`).
 SHAPES = [
     ("main", 1, 32, 32, 2048, 2048, 128, True, None, torch.bfloat16, "bhsd", "wgmma"),
     ("main_bshd", 1, 32, 32, 2048, 2048, 128, True, None, torch.bfloat16, "bshd",
@@ -838,8 +844,7 @@ SHAPES = [
      "offset1", "simt"),
     # head dims other than 32, 64 and 128, and fp16, on the simt and mma
     # kernels at their padded widths (at 80, 96, 100 and 256, and fp16 at
-    # 64, 96, 100, 128 and 256, on wgmma; fp16 at 80 the forward alone,
-    # below):
+    # 64, 80, 96, 100, 128 and 256, on wgmma):
     # Phi-3-mini's attention (32 heads of 96, S=2048) as the model
     # gives it and contiguous, with GQA 32/8 and a window; 80 (2560 / 32,
     # StableLM-3B's and Phi-2's width), contiguous and as the model's views,
@@ -900,24 +905,24 @@ SHAPES = [
      "wgmma"),
     ("fp16_ragged_d64", 2, 8, 4, 300, 300, 64, True, None, torch.float16, "bhsd",
      "wgmma"),
-    # fp16 at head dims 80 and 100, the forward on its fp16 wgmma kernels,
-    # and at 100 dQ and dK/dV too (on mma at 80): OPT-2.7B's attention and
+    # fp16 at head dims 80 and 100, the forward, dQ and dK/dV on their fp16
+    # wgmma kernels: OPT-2.7B's attention and
     # OpenLLaMA-3B's in fp16 as their models give them (at 100 half of the
     # heads start 8 bytes off a 16-byte boundary), 200-byte rows contiguous,
     # and at each width GQA 32/8, a window, a ragged sequence, cross-length
     # and non-causal
     ("opt27b_d80_bshd", 1, 32, 32, 2048, 2048, 80, True, None, torch.float16, "bshd",
-     ("wgmma", "mma")),
+     "wgmma"),
     ("fp16_gqa_d80", 1, 32, 8, 2048, 2048, 80, True, None, torch.float16, "bshd",
-     ("wgmma", "mma")),
+     "wgmma"),
     ("fp16_window_d80", 1, 32, 32, 2048, 2048, 80, True, 512, torch.float16, "bhsd",
-     ("wgmma", "mma")),
+     "wgmma"),
     ("fp16_ragged_d80", 2, 8, 4, 300, 300, 80, True, None, torch.float16, "bshd",
-     ("wgmma", "mma")),
+     "wgmma"),
     ("fp16_cross_length_d80", 1, 32, 32, 256, 1024, 80, True, None, torch.float16, "bhsd",
-     ("wgmma", "mma")),
+     "wgmma"),
     ("fp16_non_causal_d80", 1, 32, 32, 1000, 1000, 80, False, None, torch.float16, "bhsd",
-     ("wgmma", "mma")),
+     "wgmma"),
     ("openllama3b_fp16_d100_bshd", 1, 32, 32, 2048, 2048, 100, True, None, torch.float16,
      "bshd", "wgmma"),
     ("fp16_unaligned_d100", 1, 32, 32, 1024, 1024, 100, True, None, torch.float16, "bhsd",
@@ -981,9 +986,9 @@ FWD_TURN_SHAPES = ("d80", "d80_bshd", "unaligned_d100", "d100_bshd", "gemma_d256
                    "fp16_d1024_bshd", "opt27b_d80_bshd", "openllama3b_fp16_d100_bshd",
                    "neox20b_fp16_d96_bshd", "gptj6b_fp16_d256_bshd")
 # dQ and dK/dV timed in turns against the route they took before their
-# wgmma kernels (mma at 80, 256 and in fp16 at 64, 96 and 256, simt at 100
-# in bf16 and fp16), or, at fp16 80, which has none, on mma in four turns,
-# with SDPA's whole backward after each turn under the backend named here:
+# wgmma kernels (mma at 80, 256 and in fp16 at 64, 80, 96 and 256, simt at
+# 100 in bf16 and fp16), with SDPA's whole backward after each turn under
+# the backend named here:
 # its default (cuDNN), which the padded-width queue's factors are read
 # against, or at 100 its flash backend
 BWD_TURN_SHAPES = {"d80": "default", "d80_bshd": "default", "unaligned_d100": "flash",
@@ -1023,14 +1028,11 @@ HEAD_DIM_ROWS = ("d80", "d80_bshd", "phi3_d96_bshd", "gemma_d256", "gemma7b_d256
 REFUSED_HEAD_DIM = 520
 
 
-def shape_routes(route) -> dict:
-    """Each kernel's route at a SHAPES row: `route` names one for all three
-    kernels (the wgmma route of each takes head dims 64, 80, 96, 100, 128
-    and 256 in bf16, and 64, 96, 100, 128 and 256 in fp16; the forward's
-    also 80 in fp16), or is a pair (the forward's, the backward kernels'),
-    for a row where they differ."""
-    fwd, bwd = (route, route) if isinstance(route, str) else route
-    return {"flash_fwd": fwd, "flash_bwd_dq": bwd, "flash_bwd_dkv": bwd}
+def shape_routes(route: str) -> dict:
+    """Each kernel's route at a SHAPES row: `route`, for all three kernels
+    (the wgmma route of each takes head dims 64, 80, 96, 100, 128 and 256 in
+    bf16 and in fp16)."""
+    return dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), route)
 
 
 def step_routes(route, layers: int) -> dict:
@@ -1334,11 +1336,11 @@ def phase_backward(attn, variants, tune):
                         turns[key][r].append(cuda_time_ms(lambda: fn(*args, route=r), 20))
                 library_turns.append(sdpa_backward_ms(tune, q, k, v, do, mask=mask))
         if name in BWD_TURN_SHAPES:
-            # both kernels against the route before their wgmma kernels (or,
-            # with none, their own route four times), in turns, and SDPA's
-            # whole backward after each under the row's backend
+            # both kernels against the route before their wgmma kernels, in
+            # turns, and SDPA's whole backward after each under the row's
+            # backend
             own = want["flash_bwd_dq"]
-            old = taken["dq"][-2] if own == "wgmma" else own
+            old = taken["dq"][-2]
             order = (old, own, own, old)
             backend = BWD_TURN_SHAPES[name]
             turns = {key: {r: [] for r in order} for key in kernels}
@@ -1399,7 +1401,7 @@ def phase_backward(attn, variants, tune):
                              f"or are not repeatable at {name}")
     for case in (FP16_LSE_COTANGENT, FP16_SINK_COTANGENT, FP16_SINK_COTANGENT_D64,
                  FP16_SINK_COTANGENT_D100, FP16_SINK_COTANGENT_D256,
-                 FP16_SINK_COTANGENT_D96):
+                 FP16_SINK_COTANGENT_D96, FP16_SINK_COTANGENT_D80):
         row = fp16_lse_cotangent_row(attn, **case)
         print(json.dumps({"phase": "backward", **row}), flush=True)
         rows.append(row)
@@ -3408,9 +3410,9 @@ def main() -> int:
         d80_backward_on_mma, d80_forward_on_mma, d100_backward_on_simt,
         d100_forward_on_simt, d256_backward_on_mma, d256_forward_on_mma,
         fp16_backward_on_mma, fp16_d64_forward_on_mma, fp16_d80_forward_on_mma,
-        fp16_d96_backward_on_mma, fp16_d96_forward_on_mma, fp16_d100_backward_on_simt,
-        fp16_d100_forward_on_simt, fp16_d256_backward_on_mma, fp16_d256_forward_on_mma,
-        gemma_2b, gpt_neox_20b, gptj_6b, mixtral_8x7b, NEOX20B_BACKWARD_LAYERS,
+        fp16_d96_forward_on_mma, fp16_d100_backward_on_simt, fp16_d100_forward_on_simt,
+        fp16_d256_forward_on_mma, gemma_2b, gpt_neox_20b, gptj_6b, mixtral_8x7b,
+        NEOX20B_BACKWARD_LAYERS,
         openllama_3b, openllama_3b_fp16, opt_1_3b, opt_2_7b, phi3_mini, stablelm_3b_4e1t)
 
     gen_mod = importlib.import_module("yoda_scheduler_tpu_torch.models.generate")
@@ -3461,7 +3463,8 @@ def main() -> int:
     fp16_grad_routes = phase_gradient(
         attn, llama, train, fp16, phase="fp16_gradient",
         config="llama2_7b fp16 width, 4 layers",
-        turns={"wgmma": contextlib.nullcontext, "backward_on_mma": fp16_backward_on_mma})
+        turns={"wgmma": contextlib.nullcontext,
+               "backward_on_mma": functools.partial(fp16_backward_on_mma, 128)})
     # head dims 100 and 80 (OpenLLaMA-3B's and StableLM-3B's widths), 256
     # (Gemma-2B's), 64 in fp16 (OPT-1.3B's), 80 in fp16 (OPT-2.7B's), 100
     # in fp16 (OpenLLaMA-3B's in its published dtype), 96 in fp16
@@ -3518,7 +3521,8 @@ def main() -> int:
     # OPT-1.3B's gradient and its loss's backward at all 24 layers (fp16; no
     # optimizer step, whose eps is 0 in fp16): dQ and dK/dV on their fp16
     # head-dim-64 wgmma kernels, timed in turns against both on mma
-    fp16_turns = {"wgmma": contextlib.nullcontext, "backward_on_mma": fp16_backward_on_mma}
+    fp16_turns = {"wgmma": contextlib.nullcontext,
+                  "backward_on_mma": functools.partial(fp16_backward_on_mma, 64)}
     opt_grad_routes = phase_gradient(
         attn, llama, train, opt_1_3b(), phase="opt13b_fp16_gradient",
         config="opt_1_3b widths, fp16, 4 layers", turns=fp16_turns)
@@ -3540,7 +3544,7 @@ def main() -> int:
     # published dtype, fp16 (no optimizer step): dQ and dK/dV on their fp16
     # head-dim-256 wgmma kernels, timed in turns against both on mma
     fp16_d256_turns = {"wgmma": contextlib.nullcontext,
-                       "backward_on_mma": fp16_d256_backward_on_mma}
+                       "backward_on_mma": functools.partial(fp16_backward_on_mma, 256)}
     gptj_grad_routes = phase_gradient(
         attn, llama, train, gptj_6b(), phase="gptj6b_fp16_gradient",
         config="gpt_j_6b widths, fp16, 4 layers", turns=fp16_d256_turns)
@@ -3553,7 +3557,7 @@ def main() -> int:
     # and dK/dV on their fp16 head-dim-96 wgmma kernels, timed in turns
     # against both on mma
     fp16_d96_turns = {"wgmma": contextlib.nullcontext,
-                      "backward_on_mma": fp16_d96_backward_on_mma}
+                      "backward_on_mma": functools.partial(fp16_backward_on_mma, 96)}
     neox_grad_routes = phase_gradient(
         attn, llama, train, gpt_neox_20b(), phase="neox20b_fp16_gradient",
         config="gpt_neox_20b widths, fp16, 4 layers", turns=fp16_d96_turns)
@@ -3563,6 +3567,17 @@ def main() -> int:
         config=f"gpt_neox_20b widths, fp16, {NEOX20B_BACKWARD_LAYERS} of 44 layers "
                f"(44 layers' fp16 weights and gradients, 108.8 GB, do not fit)",
         turns=fp16_d96_turns, llama=llama)[1]
+    # OPT-2.7B's gradient and its loss's backward at all 32 layers in its
+    # published dtype, fp16 (no optimizer step): dQ and dK/dV on their fp16
+    # head-dim-80 wgmma kernels, timed in turns against both on mma
+    fp16_d80_turns = {"wgmma": contextlib.nullcontext,
+                      "backward_on_mma": functools.partial(fp16_backward_on_mma, 80)}
+    opt27b_grad_routes = phase_gradient(
+        attn, llama, train, opt_2_7b(), phase="opt27b_fp16_gradient",
+        config="opt_2_7b widths, fp16, 4 layers", turns=fp16_d80_turns)
+    opt27b_bwd_routes = phase_train(
+        attn, train, moe, opt_2_7b(), phase="opt27b_fp16_backward",
+        config="opt_2_7b widths, fp16", turns=fp16_d80_turns, llama=llama)[1]
     free_memory()
     ring_launches = phase_ring(attn, ring, variants)
     ulysses_launches = phase_ulysses(attn, ulysses, variants)
@@ -3658,6 +3673,8 @@ def main() -> int:
                              "gptj6b_fp16_backward": gptj_bwd_routes["flash_fwd"],
                              "neox20b_fp16_gradient": neox_grad_routes["flash_fwd"],
                              "neox20b_fp16_backward": neox_bwd_routes["flash_fwd"],
+                             "opt27b_fp16_gradient": opt27b_grad_routes["flash_fwd"],
+                             "opt27b_fp16_backward": opt27b_bwd_routes["flash_fwd"],
                              "tune_attention": tune_routes["flash_fwd"].get("wgmma", 0),
                              **{path: routes["flash_fwd"].get("wgmma", 0)
                                 for path, routes in bench_routes.items()}},
@@ -3698,6 +3715,8 @@ def main() -> int:
                              "gptj6b_fp16_backward": gptj_bwd_routes[name],
                              "neox20b_fp16_gradient": neox_grad_routes[name],
                              "neox20b_fp16_backward": neox_bwd_routes[name],
+                             "opt27b_fp16_gradient": opt27b_grad_routes[name],
+                             "opt27b_fp16_backward": opt27b_bwd_routes[name],
                              "tune_attention": tune_routes[name].get("wgmma", 0),
                              **{path: routes[name].get("wgmma", 0)
                                 for path, routes in bench_routes.items()

@@ -83,9 +83,9 @@ def test_every_wgmma_kernel_is_read_from_ptxas():
     """The smoke's phase 1 and `ops.variants` both find each wgmma kernel
     of chip_smoke.WGMMA_KERNELS in ptxas's output, the head-dim-64,
     head-dim-96, head-dim-80, head-dim-100 and head-dim-256 ones (the
-    forward, dQ and dK/dV at each) and the sixteen fp16 kernels (every
-    kernel at head dims 128, 100, 64, 256 and 96, the forward at 80) among
-    them; variants leaves out the other kernels."""
+    forward, dQ and dK/dV at each) and the eighteen fp16 kernels (every
+    kernel at head dims 128, 100, 64, 256, 96 and 80) among them; variants
+    leaves out the other kernels."""
     import chip_smoke
 
     log = _ptxas_log(chip_smoke.WGMMA_KERNELS + ("flash_bwd_dq_mma_kernel",))
@@ -105,8 +105,9 @@ def test_every_wgmma_kernel_is_read_from_ptxas():
             "flash_bwd_dkv_wgmma100_f16_kernel", "flash_fwd_wgmma96_f16_kernel",
             "flash_fwd_wgmma256_f16_kernel", "flash_bwd_dq_wgmma256_f16_kernel",
             "flash_bwd_dkv_wgmma256_f16_kernel", "flash_bwd_dq_wgmma96_f16_kernel",
-            "flash_bwd_dkv_wgmma96_f16_kernel"} <= set(chip_smoke.WGMMA_KERNELS)
-    assert len(chip_smoke.WGMMA_KERNELS) == 34
+            "flash_bwd_dkv_wgmma96_f16_kernel", "flash_bwd_dq_wgmma80_f16_kernel",
+            "flash_bwd_dkv_wgmma80_f16_kernel"} <= set(chip_smoke.WGMMA_KERNELS)
+    assert len(chip_smoke.WGMMA_KERNELS) == 36
     kept = variants.wgmma_ptxas(log)
     for name in chip_smoke.WGMMA_KERNELS:
         assert any(name in ln for ln in kept), name

@@ -133,6 +133,7 @@ def _hopper_lib():
     lib.hopper_wgmma_rs_f16.argtypes = [p, p, p, p]
     lib.hopper_wgmma_ss64_f16.argtypes = [p, p, i32, p, p]
     lib.hopper_wgmma_ss96_f16.argtypes = [p, p, i32, p, p]
+    lib.hopper_wgmma_ss80_f16.argtypes = [p, p, i32, p, p]
     lib.hopper_wgmma_rs64_f16.argtypes = [p, p, p, p]
     lib.hopper_wgmma_chain64_f16.argtypes = [p, p, p, p, p]
     lib.hopper_wgmma_ss256.argtypes = [p, p, i32, p, p]
@@ -277,6 +278,25 @@ def test_wgmma_ss96_f16_tile_is_a_matmul(gpu, a_row0):
     bm = torch.randn(64, 96, generator=gen, device=gpu).to(torch.float16)
     out = torch.empty(64, 64, device=gpu)
     assert _hopper_lib().hopper_wgmma_ss96_f16(a.data_ptr(), bm.data_ptr(), a_row0,
+                                               out.data_ptr(), _stream()) == 0
+    torch.cuda.synchronize()
+    want = a[a_row0:a_row0 + 64].float() @ bm.float().T
+    torch.testing.assert_close(out, want, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("a_row0", [0, 64])
+def test_wgmma_ss80_f16_tile_is_a_matmul(gpu, a_row0):
+    """The fp16 m64n64k16 SS form over rows 80 wide: A [128, 80] and B [64,
+    80] each read through an 80-wide FLOAT16 map as two 64-column boxes, the
+    second zero-filled past column 80, and 5 k-steps (the 5th over the
+    second box's columns 64-79), as the fp16 D = 80 backward kernels' S^T =
+    K Q^T, dP^T = V dO^T, S = Q K^T and dP = dO V^T (a K or Q tile of 128
+    rows against a streamed tile of 64)."""
+    gen = torch.Generator(gpu).manual_seed(32)
+    a = torch.randn(128, 80, generator=gen, device=gpu).to(torch.float16)
+    bm = torch.randn(64, 80, generator=gen, device=gpu).to(torch.float16)
+    out = torch.empty(64, 64, device=gpu)
+    assert _hopper_lib().hopper_wgmma_ss80_f16(a.data_ptr(), bm.data_ptr(), a_row0,
                                                out.data_ptr(), _stream()) == 0
     torch.cuda.synchronize()
     want = a[a_row0:a_row0 + 64].float() @ bm.float().T
@@ -441,7 +461,8 @@ def test_wgmma_rs80_and_rs104_f16_tiles_are_matmuls(gpu, n, rows):
     """The f16 forms of m64n80k16 and m64n104k16 (A from registers, B a
     [rows, n] MN-major fp16 tile read through FLOAT16 maps as two 64-column
     boxes, the second zero-filled past column n): the fp16 D = 80 and D =
-    100 forwards' P V."""
+    100 forwards' P V, and the fp16 D = 80 backward's sums dV += P^T dO, dK
+    += dS^T Q and dQ += dS K."""
     gen = torch.Generator(gpu).manual_seed(6)
     p = torch.rand(64, rows, generator=gen, device=gpu).to(torch.float16)
     v = torch.randn(rows, n, generator=gen, device=gpu).to(torch.float16)
@@ -977,18 +998,18 @@ def test_wgmma100_backward_is_bit_repeatable(gpu, case):
 
 
 def test_wgmma100_backward_refuses_fp16(gpu):
-    """The fp16 inputs the wgmma backward still refuses: head dim 80 (no
-    fp16 kernel there), at 96 rows that start 8 bytes off a 16-byte
-    boundary, and at 100 rows that start 2 or 4 bytes off an 8-byte boundary
-    or whose sequence stride is no multiple of 4 elements. Named, the route
-    of dQ and of dK/dV raises and launches nothing; csrc/'s entry, called
-    past `_routes`, returns cudaErrorInvalidValue (1) for each (the launcher
-    itself refusing fp16 at 80), and launches (0) the aligned fp16 rows at
-    100."""
+    """The fp16 inputs the wgmma backward still refuses: at 80 and 96 rows
+    that start 8 bytes off a 16-byte boundary, and at 100 rows that start 2
+    or 4 bytes off an 8-byte boundary or whose sequence stride is no
+    multiple of 4 elements. Named, the route of dQ and of dK/dV raises and
+    launches nothing; csrc/'s entry, called past `_routes`, returns
+    cudaErrorInvalidValue (1) for each, and launches (0) the aligned fp16
+    rows at 100."""
     half = torch.float16
     flat = torch.randn(2 + 4 * 64 * 100, device=gpu).to(half)
+    flat80 = torch.randn(4 + 4 * 64 * 80, device=gpu).to(half)
     flat96 = torch.randn(4 + 4 * 64 * 96, device=gpu).to(half)
-    refused = [_qkv(gpu, half, 1, 4, 4, 64, 64, 80)[0],
+    refused = [flat80[4:4 + 4 * 64 * 80].view(1, 4, 64, 80),
                flat96[4:4 + 4 * 64 * 96].view(1, 4, 64, 96)]
     refused += [flat[o:o + 4 * 64 * 100].view(1, 4, 64, 100) for o in (1, 2)]
     refused.append(torch.randn(1, 4, 64, 102, device=gpu).to(half)[..., :100])
@@ -1064,27 +1085,6 @@ def test_wgmma80_backward_is_bit_repeatable(gpu, case, layout):
     assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
-def test_wgmma80_backward_refuses_fp16_and_its_out_scale(gpu):
-    """No wgmma kernel takes fp16 at head dim 80: named, the route of dQ
-    and of dK/dV raises and launches nothing, and csrc/'s entries refuse it
-    (cudaErrorInvalidValue) with the fp16 cotangent's out_scale and without,
-    while the mma route takes the same call with the out_scale."""
-    args, _ = _bwd_inputs(gpu, "ragged_300", "bshd", seed=4, d=80, dtype=torch.float16)
-    out_scale = torch.tensor(0.125, device=gpu)
-    for fn in (attn.flash_bwd_dq, attn.flash_bwd_dkv):
-        assert "wgmma" not in attn._routes(fn.__name__, *args[:4])
-        before = (fn.launches, dict(fn.launches_by_route))
-        for scale in (None, out_scale):
-            with pytest.raises(ValueError, match=f"{fn.__name__} route 'wgmma' cannot take"):
-                fn(*args, route="wgmma", out_scale=scale)
-        assert (fn.launches, fn.launches_by_route) == before
-    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
-        for scale in (None, out_scale):
-            assert _c_entry(name, args[:4], "wgmma", scale) == 1, (name, scale)
-        assert _c_entry(name, args[:4], "mma", out_scale) == 0, name
-    torch.cuda.synchronize()
-
-
 def _c_entry(name, tensors, route, out_scale=None):
     """csrc/'s entry `name` called straight on `route` with the wrapper's
     arguments (q, k, v for the forward, q, k, v, dO and the backward's
@@ -1111,8 +1111,8 @@ def test_the_c_entries_admit_what_routes_admits_at_80_and_100(gpu, d, dtype):
     """For each kernel, every base offset (0, 1, 2 and 4 elements) and both
     layouts: csrc/'s entry takes the wgmma route (returns 0, and launches)
     exactly where `_routes` offers it, and refuses it (cudaErrorInvalidValue,
-    1) elsewhere: the forward, dQ and dK/dV in bf16 at 80 and 100 and in fp16
-    at 100, and the forward alone in fp16 at 80."""
+    1) elsewhere: the forward, dQ and dK/dV in bf16 and in fp16 at 80 and
+    100."""
     seen = set()
     for offset in (0, 1, 2, 4):
         for layout in ("bhsd", "bshd"):
@@ -1127,10 +1127,8 @@ def test_the_c_entries_admit_what_routes_admits_at_80_and_100(gpu, d, dtype):
                 torch.cuda.synchronize()
                 assert err == (0 if admitted else 1), (name, offset, layout)
                 seen.add((name, admitted))
-    # fp16 at 80 has the forward's wgmma kernel alone
-    takes = {name: dtype == torch.bfloat16 or d == 100 or name == "flash_fwd"
-             for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
-    assert seen == {(name, admitted) for name in takes for admitted in {takes[name], False}}
+    assert seen == {(name, admitted) for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+                    for admitted in (True, False)}
 
 
 def test_the_wgmma100_backward_c_entries_refuse_what_they_cannot_take(gpu):
@@ -1220,8 +1218,8 @@ def test_the_fp16_wgmma_forwards_refuse_what_they_cannot_take(gpu):
     elements and an empty kv. The wrapper raises with no launch where
     `_routes` refuses; csrc/'s entry, called past `_routes`, returns
     cudaErrorInvalidValue (1) for each; the same rows at a stride of 104
-    launch (0), and so do aligned rows at 80 and 96. dQ and dK/dV refuse
-    fp16 at 80 and take it at 96 and 100."""
+    launch (0), and so do aligned rows at 80 and 96. dQ and dK/dV take fp16
+    at 80, 96 and 100 too."""
     half = torch.float16
     d112 = _qkv(gpu, half, 1, 4, 4, 64, 64, 112)[0]
     wide = torch.randn(1, 4, 64, 104, device=gpu).to(half)
@@ -1243,8 +1241,8 @@ def test_the_fp16_wgmma_forwards_refuse_what_they_cannot_take(gpu):
         t = _qkv(gpu, half, 1, 4, 4, 64, 64, d)[0]
         assert _c_entry("flash_fwd", (t,) * 3, "wgmma") == 0
         for name in ("flash_bwd_dq", "flash_bwd_dkv"):
-            assert ("wgmma" in attn._routes(name, t, t, t, t)) == (d != 80)
-            assert _c_entry(name, (t,) * 4, "wgmma") == (d == 80), (name, d)
+            assert "wgmma" in attn._routes(name, t, t, t, t)
+            assert _c_entry(name, (t,) * 4, "wgmma") == 0, (name, d)
     torch.cuda.synchronize()
 
 
@@ -1874,17 +1872,26 @@ def test_fp16_d100_backward_keeps_a_large_lse_cotangent(gpu, lse_scale, sink):
     assert all(e["finite"] for e in row["errors"].values())
 
 
-# the fp16 wgmma backward at head dim 256 (flash_bwd_dq_wgmma256_f16_kernel,
-# flash_bwd_dkv_wgmma256_f16_kernel: GPT-J-6B's attention in its published
-# dtype) at F16_96_256_SHAPES[256] (the model's shape and every path of the
-# kernels' loops), in both layouts, held to fp16's bounds
-@pytest.mark.parametrize("case", list(F16_96_256_SHAPES[256]))
+# the fp16 wgmma backward at head dims 80, 96 and 256 (OPT-2.7B's,
+# GPT-NeoX-20B's and GPT-J-6B's attention in their published dtype:
+# flash_bwd_dq_wgmma{80,96,256}_f16_kernel, flash_bwd_dkv_wgmma{80,96,256}_f16_kernel,
+# the bodies of the bf16 kernels at those widths on fp16 operands) at
+# F16_WIDE_BWD_SHAPES[d] (the model's shape and every path of the kernels'
+# loops), in both layouts, held to fp16's bounds; each width's model case
+# and GQA case
+F16_WIDE_BWD_SHAPES = {80: NEW_WIDTH_SHAPES, **F16_96_256_SHAPES}
+F16_WIDE_MODEL = {80: "s2048_32_heads", 96: "neox20b_s2048", 256: "gptj6b_s2048"}
+F16_WIDE_GQA = {80: "gqa_32_8", 96: "gqa_32_8", 256: "gqa_16_8"}
+
+
+@pytest.mark.parametrize("d,case", [(d, case) for d, cases in F16_WIDE_BWD_SHAPES.items()
+                                    for case in cases])
 @pytest.mark.parametrize("layout", ["bhsd", "bshd"])
-def test_wgmma256_f16_backward_matches_the_plain_backward(gpu, case, layout):
-    """dQ and dK/dV on their fp16 head-dim-256 wgmma kernels, as `_route`
+def test_wgmma_f16_wide_backward_matches_the_plain_backward(gpu, d, case, layout):
+    """dQ and dK/dV on their fp16 wgmma kernels at head dim d, as `_route`
     picks them, one launch each, elementwise and by each output's worst
     64-row tile."""
-    args, (o, g_lse) = _bwd_inputs(gpu, case, layout, d=256, dtype=torch.float16)
+    args, (o, g_lse) = _bwd_inputs(gpu, case, layout, d=d, dtype=torch.float16)
     q, k, v, do, lse, _, causal, window = args
     fns = (attn.flash_bwd_dq, attn.flash_bwd_dkv)
     assert [attn._route(fn.__name__, q, k, v, do) for fn in fns] == ["wgmma", "wgmma"]
@@ -1896,17 +1903,20 @@ def test_wgmma256_f16_backward_matches_the_plain_backward(gpu, case, layout):
     tol = TOL[torch.float16]
     for g, w in zip(got, want):
         assert g.dtype == w.dtype == torch.float16 and g.shape == w.shape
-        assert g.shape[-1] == 256
+        assert g.shape[-1] == d
         torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
         assert tile_rel_l2(g, w) <= chip_smoke.TILE_REL_L2_FP16
 
 
-@pytest.mark.parametrize("case", ["gptj6b_s2048", "gqa_16_8", "ragged_300"])
-def test_wgmma256_f16_backward_matches_the_mma_route(gpu, case):
-    """The new kernels against the mma kernels, the route they took before,
-    on the same inputs (the model's views): each against the plain backward,
-    and the two routes against each other by tile."""
-    args, (o, g_lse) = _bwd_inputs(gpu, case, "bshd", seed=2, d=256, dtype=torch.float16)
+@pytest.mark.parametrize("d,case", [(d, case) for d in F16_WIDE_BWD_SHAPES
+                                    for case in (F16_WIDE_MODEL[d], F16_WIDE_GQA[d],
+                                                 "ragged_300")])
+def test_wgmma_f16_wide_backward_matches_the_mma_route(gpu, d, case):
+    """The fp16 wgmma kernels at head dim d against the mma kernels, the
+    route they took before, on the same inputs (the model's views): each
+    against the plain backward, and the two routes against each other by
+    tile."""
+    args, (o, g_lse) = _bwd_inputs(gpu, case, "bshd", seed=2, d=d, dtype=torch.float16)
     q, k, v, do, lse, _, causal, window = args
     want = attn.flash_backward_reference(q, k, v, o, lse, do, causal, window, g_lse)
     tol = TOL[torch.float16]
@@ -1917,26 +1927,29 @@ def test_wgmma256_f16_backward_matches_the_mma_route(gpu, case):
         assert tile_rel_l2(g, m) <= chip_smoke.TILE_REL_L2_FP16
 
 
-@pytest.mark.parametrize("case", ["ragged_300", "window_512", "gptj6b_s2048", "gqa_16_8"])
+@pytest.mark.parametrize("d,case", [(d, case) for d in F16_WIDE_BWD_SHAPES
+                                    for case in ("ragged_300", "window_512",
+                                                 F16_WIDE_MODEL[d], F16_WIDE_GQA[d])])
 @pytest.mark.parametrize("layout", ["bhsd", "bshd"])
-def test_wgmma256_f16_backward_is_bit_repeatable(gpu, case, layout):
+def test_wgmma_f16_wide_backward_is_bit_repeatable(gpu, d, case, layout):
     """No atomics: dQ's two warpgroups' sums join in one order in fp16 too."""
-    args, _ = _bwd_inputs(gpu, case, layout, d=256, dtype=torch.float16)
+    args, _ = _bwd_inputs(gpu, case, layout, d=d, dtype=torch.float16)
     runs = [_bwd_kernels(args, "wgmma") for _ in range(2)]
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 @pytest.mark.parametrize("route", ["mma", "wgmma"])
-def test_wgmma256_f16_out_scale_multiplies_before_the_rounding(gpu, route):
-    """At head dim 256 in fp16, on the new kernels and on mma: with
+@pytest.mark.parametrize("d", list(F16_WIDE_BWD_SHAPES))
+def test_wgmma_f16_wide_out_scale_multiplies_before_the_rounding(gpu, d, route):
+    """At head dim d in fp16, on the wgmma kernels and on mma: with
     out_scale 2^-3 each output (per q head, as the kernels write it) is the
     one without it times 2^-3 (exact in fp16's normal range, at most 2^-24
     apart where subnormal); and with the cotangents 2^6 times larger and
     out_scale 2^-6, as `_FlashFwd.backward` passes them, the outputs equal
     the plain backward's with the same out_scale, which multiplies before
     its one rounding, within fp16's bounds."""
-    args, (o, g_lse) = _bwd_inputs(gpu, "gqa_16_8", "bshd", seed=3, d=256,
+    args, (o, g_lse) = _bwd_inputs(gpu, F16_WIDE_GQA[d], "bshd", seed=3, d=d,
                                    dtype=torch.float16)
     q, k, v, do, lse, delta, causal, window = args
     kvh = k.shape[1]
@@ -1957,174 +1970,73 @@ def test_wgmma256_f16_out_scale_multiplies_before_the_rounding(gpu, route):
         assert tile_rel_l2(g, w) <= chip_smoke.TILE_REL_L2_FP16
 
 
-def test_wgmma256_f16_backward_refuses_rows_off_16_bytes(gpu):
-    """fp16 q, k, v and dO that start 1, 2 or 4 elements (2, 4 or 8 bytes)
-    into their storage, a sequence stride that is no multiple of 8 elements
-    and an empty kv: `_routes` offers dQ and dK/dV no wgmma, the named route
-    raises with no launch (the empty kv is refused by csrc/ alone), and
-    csrc/'s entries, called past `_routes`, return cudaErrorInvalidValue (1)
-    for each, with no fallback; the same rows at a stride of 264 launch
-    (0)."""
-    half, d = torch.float16, 256
+@pytest.mark.parametrize("d", list(F16_WIDE_BWD_SHAPES))
+def test_wgmma_f16_wide_backward_refuses_rows_off_16_bytes(gpu, d):
+    """fp16 q, k, v and dO at head dim d that start 1, 2 or 4 elements (2, 4
+    or 8 bytes) into their storage, a sequence stride that is no multiple of
+    8 elements and an empty kv: `_routes` offers dQ and dK/dV no wgmma, the
+    named route raises with no launch (the empty kv is refused by csrc/
+    alone), and csrc/'s entries, called past `_routes`, return
+    cudaErrorInvalidValue (1) for each, with no fallback, with the fp16
+    cotangent's out_scale and without; the same rows at a stride of d + 8
+    launch (0), and fp16 at 112, which has no wgmma backward kernel, is
+    refused on rows that are aligned."""
+    half = torch.float16
     n = 4 * 64 * d
     flat = torch.randn(4 + n, device=gpu).to(half)
     wide = torch.randn(1, 4, 64, d + 8, device=gpu).to(half)
     odd = torch.randn(1, 4, 64, d + 4, device=gpu).to(half)[..., :d]
     empty = torch.zeros(1, 4, 0, d, device=gpu, dtype=half)
     lse = torch.zeros(1, 4, 64, device=gpu)
+    d112 = torch.randn(1, 4, 64, 120, device=gpu).to(half)[..., :112]
+    out_scale = torch.tensor(0.125, device=gpu)
     for fn in (attn.flash_bwd_dq, attn.flash_bwd_dkv):
         name = fn.__name__
-        for t in [flat[o:o + n].view(1, 4, 64, d) for o in (1, 2, 4)] + [odd]:
+        for t in [flat[o:o + n].view(1, 4, 64, d) for o in (1, 2, 4)] + [odd, d112]:
             assert "wgmma" not in attn._routes(name, t, t, t, t)
             before = (fn.launches, dict(fn.launches_by_route))
-            with pytest.raises(ValueError, match=f"{name} route 'wgmma' cannot take"):
-                fn(t, t, t, t, lse, lse, causal=False, route="wgmma")
+            for scale in (None, out_scale):
+                with pytest.raises(ValueError, match=f"{name} route 'wgmma' cannot take"):
+                    fn(t, t, t, t, lse, lse, causal=False, route="wgmma", out_scale=scale)
+                assert _c_entry(name, (t,) * 4, "wgmma", scale) == 1, name
             assert (fn.launches, fn.launches_by_route) == before
-            assert _c_entry(name, (t,) * 4, "wgmma") == 1, name
         ok = wide[..., :d]
         assert _c_entry(name, (ok, empty, empty, ok), "wgmma") == 1, name
-        assert _c_entry(name, (ok,) * 4, "wgmma") == 0, name
+        for scale in (None, out_scale):
+            assert _c_entry(name, (ok,) * 4, "wgmma", scale) == 0, name
     torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("lse_scale, sink", [(1e3, False), (1e3, True)],
                          ids=["1000.0", "sink-1000.0"])
-def test_fp16_d256_backward_keeps_a_large_lse_cotangent(gpu, lse_scale, sink):
-    """F10 at head dim 256, through the kernels' autograd node on the new
-    fp16 kernels (chip_smoke's large-cotangent rows at GPT-J-6B's width,
+@pytest.mark.parametrize("d", list(F16_WIDE_BWD_SHAPES))
+def test_fp16_wide_backward_keeps_a_large_lse_cotangent(gpu, d, lse_scale, sink):
+    """F10 at head dim d, through the kernels' autograd node on the fp16
+    wgmma kernels (chip_smoke's large-cotangent rows at the model's width,
     smaller): every output finite and within twice the fp32 backward's own
     rounding to fp16 of it, one launch of each kernel on wgmma."""
-    row = chip_smoke.fp16_lse_cotangent_row(attn, 1, 2, 256, 256, 1e-5, lse_scale, sink)
+    row = chip_smoke.fp16_lse_cotangent_row(attn, 1, 2, 256, d, 1e-5, lse_scale, sink)
     assert row["ok"], row
     assert all(e["finite"] for e in row["errors"].values())
 
 
-# the fp16 wgmma backward at head dim 96 (flash_bwd_dq_wgmma96_f16_kernel,
-# flash_bwd_dkv_wgmma96_f16_kernel: GPT-NeoX-20B's attention in its published
-# dtype, the D = 96 bodies on fp16 operands) at F16_96_256_SHAPES[96] (the
-# model's shape and every path of the kernels' loops), in both layouts, held
-# to fp16's bounds
-@pytest.mark.parametrize("case", list(F16_96_256_SHAPES[96]))
-@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
-def test_wgmma96_f16_backward_matches_the_plain_backward(gpu, case, layout):
-    """dQ and dK/dV on their fp16 head-dim-96 wgmma kernels, as `_route`
-    picks them, one launch each, elementwise and by each output's worst
-    64-row tile."""
-    args, (o, g_lse) = _bwd_inputs(gpu, case, layout, d=96, dtype=torch.float16)
-    q, k, v, do, lse, _, causal, window = args
-    fns = (attn.flash_bwd_dq, attn.flash_bwd_dkv)
-    assert [attn._route(fn.__name__, q, k, v, do) for fn in fns] == ["wgmma", "wgmma"]
-    before = [fn.launches_by_route["wgmma"] for fn in fns]
-    got = _bwd_kernels(args, None)
+def test_wgmma80_f16_backward_launches_its_own_kernels(gpu):
+    """fp16 at head dim 80 on the wgmma route launches
+    flash_bwd_dq_wgmma80_f16_kernel and flash_bwd_dkv_wgmma80_f16_kernel,
+    once each, by the names torch.profiler reads on the device, and neither
+    of D = 128's fp16 kernels, which the launchers reach for any other fp16
+    head dim that `has_wgmma` takes."""
+    args, _ = _bwd_inputs(gpu, "gqa_32_8", "bshd", d=80, dtype=torch.float16)
+    _bwd_kernels(args, "wgmma")
     torch.cuda.synchronize()
-    assert [fn.launches_by_route["wgmma"] for fn in fns] == [n + 1 for n in before]
-    want = attn.flash_backward_reference(q, k, v, o, lse, do, causal, window, g_lse)
-    tol = TOL[torch.float16]
-    for g, w in zip(got, want):
-        assert g.dtype == w.dtype == torch.float16 and g.shape == w.shape
-        assert g.shape[-1] == 96
-        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
-        assert tile_rel_l2(g, w) <= chip_smoke.TILE_REL_L2_FP16
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _bwd_kernels(args, "wgmma")
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    for kernel in ("flash_bwd_dq_wgmma80_f16_kernel", "flash_bwd_dkv_wgmma80_f16_kernel"):
+        assert sum(kernel in n for n in names) == 1, names
+    assert not any("wgmma_f16_kernel" in n for n in names), names
 
-
-@pytest.mark.parametrize("case", ["neox20b_s2048", "gqa_32_8", "ragged_300"])
-def test_wgmma96_f16_backward_matches_the_mma_route(gpu, case):
-    """The new kernels against the mma kernels, the route they took before,
-    on the same inputs (the model's views): each against the plain backward,
-    and the two routes against each other by tile."""
-    args, (o, g_lse) = _bwd_inputs(gpu, case, "bshd", seed=2, d=96, dtype=torch.float16)
-    q, k, v, do, lse, _, causal, window = args
-    want = attn.flash_backward_reference(q, k, v, o, lse, do, causal, window, g_lse)
-    tol = TOL[torch.float16]
-    for g, m, w in zip(_bwd_kernels(args, "wgmma"), _bwd_kernels(args, "mma"), want):
-        for got in (g, m):
-            torch.testing.assert_close(got.float(), w.float(), atol=tol, rtol=tol)
-            assert tile_rel_l2(got, w) <= chip_smoke.TILE_REL_L2_FP16
-        assert tile_rel_l2(g, m) <= chip_smoke.TILE_REL_L2_FP16
-
-
-@pytest.mark.parametrize("case", ["ragged_300", "window_512", "neox20b_s2048", "gqa_32_8"])
-@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
-def test_wgmma96_f16_backward_is_bit_repeatable(gpu, case, layout):
-    """No atomics: dQ's two warpgroups' sums join in one order in fp16 too."""
-    args, _ = _bwd_inputs(gpu, case, layout, d=96, dtype=torch.float16)
-    runs = [_bwd_kernels(args, "wgmma") for _ in range(2)]
-    torch.cuda.synchronize()
-    assert all(torch.equal(a, b) for a, b in zip(*runs))
-
-
-@pytest.mark.parametrize("route", ["mma", "wgmma"])
-def test_wgmma96_f16_out_scale_multiplies_before_the_rounding(gpu, route):
-    """At head dim 96 in fp16, on the new kernels and on mma: with out_scale
-    2^-3 each output (per q head, as the kernels write it) is the one
-    without it times 2^-3 (exact in fp16's normal range, at most 2^-24
-    apart where subnormal); and with the cotangents 2^6 times larger and
-    out_scale 2^-6, as `_FlashFwd.backward` passes them, the outputs equal
-    the plain backward's with the same out_scale, which multiplies before
-    its one rounding, within fp16's bounds."""
-    args, (o, g_lse) = _bwd_inputs(gpu, "gqa_32_8", "bshd", seed=3, d=96,
-                                   dtype=torch.float16)
-    q, k, v, do, lse, delta, causal, window = args
-    kvh = k.shape[1]
-    got = _bwd_kernels_scaled(args, route, torch.tensor(0.125, device=gpu))
-    want = _bwd_kernels_scaled(args, route, None)
-    torch.cuda.synchronize()
-    for g, w in zip(got, want):
-        assert g.dtype == torch.float16 and bool(torch.isfinite(g).all())
-        torch.testing.assert_close(g.float(), w.float() * 0.125, rtol=0, atol=2.0 ** -24)
-    big = (q, k, v, (do.float() * 64).half(), lse, delta * 64, causal, window)
-    scale = torch.tensor(2.0 ** -6, device=gpu)
-    dq, dk, dv = _bwd_kernels_scaled(big, route, scale)
-    ref = attn.flash_backward_reference(q, k, v, o, lse, big[3], causal, window,
-                                        g_lse * 64, scale)
-    tol = TOL[torch.float16]
-    for g, w in zip((dq, attn.group_sum(dk, kvh), attn.group_sum(dv, kvh)), ref):
-        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
-        assert tile_rel_l2(g, w) <= chip_smoke.TILE_REL_L2_FP16
-
-
-def test_wgmma96_f16_backward_refuses_rows_off_16_bytes(gpu):
-    """fp16 q, k, v and dO that start 1, 2 or 4 elements (2, 4 or 8 bytes)
-    into their storage, a sequence stride that is no multiple of 8 elements
-    and an empty kv: `_routes` offers dQ and dK/dV no wgmma, the named route
-    raises with no launch (the empty kv is refused by csrc/ alone), and
-    csrc/'s entries, called past `_routes`, return cudaErrorInvalidValue (1)
-    for each, with no fallback; the same rows at a stride of 104 launch (0),
-    and fp16 at 80, which has no wgmma backward kernel, is refused on rows
-    that are aligned."""
-    half, d = torch.float16, 96
-    n = 4 * 64 * d
-    flat = torch.randn(4 + n, device=gpu).to(half)
-    wide = torch.randn(1, 4, 64, d + 8, device=gpu).to(half)
-    odd = torch.randn(1, 4, 64, d + 4, device=gpu).to(half)[..., :d]
-    empty = torch.zeros(1, 4, 0, d, device=gpu, dtype=half)
-    lse = torch.zeros(1, 4, 64, device=gpu)
-    d80 = torch.randn(1, 4, 64, 88, device=gpu).to(half)[..., :80]
-    for fn in (attn.flash_bwd_dq, attn.flash_bwd_dkv):
-        name = fn.__name__
-        for t in [flat[o:o + n].view(1, 4, 64, d) for o in (1, 2, 4)] + [odd, d80]:
-            assert "wgmma" not in attn._routes(name, t, t, t, t)
-            before = (fn.launches, dict(fn.launches_by_route))
-            with pytest.raises(ValueError, match=f"{name} route 'wgmma' cannot take"):
-                fn(t, t, t, t, lse, lse, causal=False, route="wgmma")
-            assert (fn.launches, fn.launches_by_route) == before
-            assert _c_entry(name, (t,) * 4, "wgmma") == 1, name
-        ok = wide[..., :d]
-        assert _c_entry(name, (ok, empty, empty, ok), "wgmma") == 1, name
-        assert _c_entry(name, (ok,) * 4, "wgmma") == 0, name
-    torch.cuda.synchronize()
-
-
-@pytest.mark.parametrize("lse_scale, sink", [(1e3, False), (1e3, True)],
-                         ids=["1000.0", "sink-1000.0"])
-def test_fp16_d96_backward_keeps_a_large_lse_cotangent(gpu, lse_scale, sink):
-    """F10 at head dim 96, through the kernels' autograd node on the new
-    fp16 kernels (chip_smoke's large-cotangent rows at GPT-NeoX-20B's width,
-    smaller): every output finite and within twice the fp32 backward's own
-    rounding to fp16 of it, one launch of each kernel on wgmma."""
-    row = chip_smoke.fp16_lse_cotangent_row(attn, 1, 2, 256, 96, 1e-5, lse_scale, sink)
-    assert row["ok"], row
-    assert all(e["finite"] for e in row["errors"].values())
 
 
 # a GQA case of each wgmma backward kernel pair: (head dim, dtype, case of
@@ -2141,6 +2053,7 @@ ROUNDING_CASES = {
     "fp16_d128": (128, torch.float16, "gqa_32_8"),
     "fp16_d256": (256, torch.float16, "gqa_16_8"),
     "fp16_d96": (96, torch.float16, "gqa_32_8"),
+    "fp16_d80": (80, torch.float16, "gqa_32_8"),
 }
 # the largest share of an output's entries that differ from the plain
 # backward's per q head, by dtype: fp16's ulp is 8x finer than bf16's, so 8x
@@ -2174,26 +2087,19 @@ def test_wgmma_backward_rounds_ds_where_the_plain_backward_does(gpu, case):
 
 @pytest.mark.parametrize("d", [64, 96, 80])
 def test_wgmma_takes_fp16_at_head_dim_128_alone(gpu, d):
-    """In fp16 dQ and dK/dV have wgmma kernels at head dims 128, 64
-    (OPT-1.3B's) and 96 (GPT-NeoX-20B's), not at 80, and the forward at all
-    four: named at 80, dQ's and dK/dV's wgmma route raises with no launch
-    while the forward's (OPT-2.7B's kernel) launches, and at 64 and 96 each
-    launches on it; at 128 each launches on it."""
+    """In fp16 every kernel has a wgmma kernel at head dims 128, 64
+    (OPT-1.3B's), 96 (GPT-NeoX-20B's) and 80 (OPT-2.7B's): named, each
+    launches on it at d and at 128."""
     q = _qkv(gpu, torch.float16, 1, 4, 4, 128, 128, d)[0]
     q128 = _qkv(gpu, torch.float16, 1, 4, 4, 128, 128, 128)[0]
     lse = torch.zeros(q.shape[:3], device=gpu)
     for fn in (attn.flash_fwd, attn.flash_bwd_dq, attn.flash_bwd_dkv):
         args = (q,) * 3 if fn is attn.flash_fwd else (q,) * 4 + (lse, lse)
         before = (fn.launches, dict(fn.launches_by_route))
-        if d != 80 or fn is attn.flash_fwd:
-            fn(*args, route="wgmma")
-            torch.cuda.synchronize()
-            assert fn.launches_by_route["wgmma"] == before[1]["wgmma"] + 1
-            before = (fn.launches, dict(fn.launches_by_route))
-        else:
-            with pytest.raises(ValueError, match=f"{fn.__name__} route 'wgmma' cannot take"):
-                fn(*args, route="wgmma")
-            assert (fn.launches, fn.launches_by_route) == before
+        fn(*args, route="wgmma")
+        torch.cuda.synchronize()
+        assert fn.launches_by_route["wgmma"] == before[1]["wgmma"] + 1
+        before = (fn.launches, dict(fn.launches_by_route))
         args = (q128,) * 3 if fn is attn.flash_fwd else (q128,) * 4 + (lse, lse)
         fn(*args, route="wgmma")
         torch.cuda.synchronize()
@@ -2229,8 +2135,8 @@ def test_kernel_refuses_what_it_does_not_take(gpu, dtype, d):
 
 
 # head dims other than 32, 64 and 128, and fp16: the simt and mma kernels at
-# their padded widths (at 80, 96, 100 and 256, and fp16 at 64, 96, 100, 128
-# and 256, on wgmma; fp16 at 80 the forward alone). (dtype, d, (b, h, kvh, sq, sk), causal, window, layout, the
+# their padded widths (at 80, 96, 100 and 256, and fp16 at 64, 80, 96, 100,
+# 128 and 256, on wgmma). (dtype, d, (b, h, kvh, sq, sk), causal, window, layout, the
 # route `_route` picks for every kernel, or for the forward and the
 # backward); "offset1" starts each tensor one element into its storage,
 # off 16-byte alignment

@@ -109,16 +109,15 @@ def test_route_follows_the_inputs(case):
 
 
 # the head dims each kernel has a wgmma kernel for (csrc/), by dtype: every
-# kernel at 64, 80, 96, 128 and 256 in bf16, and at 64, 96, 128 and 256 in
-# fp16, and the forward at 80 in fp16 too (and every kernel at 100 in both
-# dtypes, whose rows are not 16-byte aligned: not among these, which mma
-# takes too)
+# kernel at 64, 80, 96, 128 and 256 in bf16 and in fp16 (and every kernel at
+# 100 in both dtypes, whose rows are not 16-byte aligned: not among these,
+# which mma takes too)
 WGMMA_TAKES = {torch.bfloat16: {"flash_fwd": (64, 80, 96, 128, 256),
                                 "flash_bwd_dq": (64, 80, 96, 128, 256),
                                 "flash_bwd_dkv": (64, 80, 96, 128, 256)},
                torch.float16: {"flash_fwd": (64, 80, 96, 128, 256),
-                               "flash_bwd_dq": (64, 96, 128, 256),
-                               "flash_bwd_dkv": (64, 96, 128, 256)}}
+                               "flash_bwd_dq": (64, 80, 96, 128, 256),
+                               "flash_bwd_dkv": (64, 80, 96, 128, 256)}}
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 HEAD_DIMS = (32, 64, 128, 40, 80, 96, 256)
 
@@ -143,9 +142,9 @@ def test_wgmma_admits_each_kernels_head_dims(kernel, d, wgmma):
     (kernel, d, d in WGMMA_TAKES[torch.float16][kernel])
     for kernel in KERNELS for d in HEAD_DIMS])
 def test_wgmma_admits_fp16_at_head_dim_128_alone(kernel, d, wgmma):
-    """In fp16 wgmma takes head dims 128, 64, 96 and 256 alone for dQ and
-    dK/dV, and 80 too for the forward (`WGMMA_TAKES`); every other aligned
-    fp16 head dim keeps mma for all three kernels, up to 256."""
+    """In fp16 wgmma takes head dims 128, 64, 80, 96 and 256 alone for each
+    kernel (`WGMMA_TAKES`); every other aligned fp16 head dim keeps mma for
+    all three kernels, up to 256."""
     _assert_wgmma_admits(kernel, d, torch.float16, wgmma)
 
 
@@ -240,8 +239,8 @@ BWD_CASES = {
     "bf16_d96": (lambda: [_bhsd(1, 4, 64, 96)] * 4, "wgmma"),
     "bf16_d96_model_views": (lambda: [_model_view(1, 64, 4, 96)] * 4, "wgmma"),
     # head dim 80 (StableLM-3B's): wgmma for rows aligned as mma's, contiguous
-    # and as the model's views; mma in fp16 and for an empty kv, simt for
-    # rows 8 bytes off 16
+    # and as the model's views; mma for an empty kv, simt for rows 8 bytes
+    # off 16
     "bf16_d80": (lambda: [_bhsd(1, 4, 64, 80)] * 4, "wgmma"),
     "bf16_d80_model_views": (lambda: [_model_view(1, 64, 4, 80)] * 4, "wgmma"),
     "bf16_d80_gqa_model_views": (lambda: [_model_view(1, 64, 8, 80)]
@@ -250,7 +249,24 @@ BWD_CASES = {
     "bf16_d80_offset_by_four": (lambda: [_bhsd(1, 4, 64, 80, offset=4)] * 4, "simt"),
     "bf16_d80_empty_kv": (lambda: [_bhsd(1, 4, 64, 80), _bhsd(1, 4, 0, 80),
                                    _bhsd(1, 4, 0, 80), _bhsd(1, 4, 64, 80)], "mma"),
-    "fp16_d80": (lambda: [_model_view(1, 64, 4, 80, torch.float16)] * 4, "mma"),
+    # head dim 80 in fp16 (OPT-2.7B's published dtype): wgmma for rows
+    # aligned as mma's, as the model's views, contiguous and GQA; mma for an
+    # empty kv, simt for rows 2 or 8 bytes off 16
+    "fp16_d80": (lambda: [_model_view(1, 64, 4, 80, torch.float16)] * 4, "wgmma"),
+    "fp16_d80_contiguous": (lambda: [_bhsd(1, 4, 64, 80, torch.float16)] * 4, "wgmma"),
+    "fp16_d80_gqa_model_views": (lambda: [_model_view(1, 64, 8, 80, torch.float16)]
+                                 + [_model_view(1, 64, 2, 80, torch.float16)] * 2
+                                 + [_model_view(1, 64, 8, 80, torch.float16)], "wgmma"),
+    "fp16_d80_offset_by_one": (lambda: [_bhsd(1, 4, 64, 80, torch.float16, offset=1)] * 4,
+                               "simt"),
+    "fp16_d80_offset_by_four": (lambda: [_bhsd(1, 4, 64, 80, torch.float16, offset=4)] * 4,
+                                "simt"),
+    "fp16_d80_do_offset_by_four": (lambda: [_bhsd(1, 4, 64, 80, torch.float16)] * 3
+                                   + [_bhsd(1, 4, 64, 80, torch.float16, offset=4)], "simt"),
+    "fp16_d80_empty_kv": (lambda: [_bhsd(1, 8, 64, 80, torch.float16),
+                                   _bhsd(1, 8, 0, 80, torch.float16),
+                                   _bhsd(1, 8, 0, 80, torch.float16),
+                                   _bhsd(1, 8, 64, 80, torch.float16)], "mma"),
     "fp16_d128": (lambda: [_bhsd(1, 4, 64, 128, torch.float16)] * 4, "wgmma"),
     "fp16_d128_model_views": (lambda: [_model_view(1, 64, 4, 128, torch.float16)] * 4,
                               "wgmma"),
@@ -359,14 +375,15 @@ def test_backward_route_follows_the_inputs(case):
 
 
 # (case, route) both backward kernels must refuse (fp16 has wgmma backward
-# kernels at head dims 64, 96, 100, 128 and 256 alone, for aligned rows; bf16
-# and fp16 at 96 and 256, and bf16 at 80, none for rows off 16 bytes or an
-# empty kv, and
-# at 100, in bf16 and fp16, none for rows off 8 bytes, strides off 4
+# kernels at head dims 64, 80, 96, 100, 128 and 256 alone, for aligned rows;
+# bf16 and fp16 at 80, 96 and 256 none for rows off 16 bytes or an empty kv,
+# and at 100, in bf16 and fp16, none for rows off 8 bytes, strides off 4
 # elements or an empty kv; no mma kernel takes 200-byte rows)
 BWD_REFUSALS = [("fp32_d128", "wgmma"), ("fp32_d128", "mma"), ("bf16_d32", "wgmma"),
                 ("do_offset_by_one", "mma"), ("do_odd_seq_stride", "wgmma"),
-                ("empty_kv", "wgmma"), ("bf16_d128", "tma"), ("fp16_d80", "wgmma"),
+                ("empty_kv", "wgmma"), ("bf16_d128", "tma"), ("fp16_d80_offset_by_one", "wgmma"),
+                ("fp16_d80_offset_by_one", "mma"), ("fp16_d80_offset_by_four", "wgmma"),
+                ("fp16_d80_do_offset_by_four", "wgmma"), ("fp16_d80_empty_kv", "wgmma"),
                 ("fp16_d64_do_offset_by_one", "wgmma"), ("fp16_d96_offset_by_one", "wgmma"),
                 ("fp16_d96_offset_by_one", "mma"), ("fp16_d96_offset_by_four", "wgmma"),
                 ("fp16_d96_offset_by_four", "mma"), ("fp16_d96_do_offset_by_four", "wgmma"),
@@ -647,9 +664,8 @@ def _wide_rows():
 def test_the_smokes_wide_rows_take_their_routes(row):
     """Each row chip_smoke adds at the new head dims and in fp16 names the
     route `_route` picks for each kernel there: wgmma at head dims 80, 96,
-    100 and 256 in bf16 and in fp16 at 64, 96, 100, 128 and 256 aligned (not
-    one element into its storage), for every kernel, and for the forward
-    alone in fp16 at 80."""
+    100 and 256 in bf16 and in fp16 at 64, 80, 96, 100, 128 and 256 aligned
+    (not one element into its storage), for every kernel."""
     import chip_smoke
 
     q, k, v, do = _smoke_row_tensors(row)
@@ -660,9 +676,8 @@ def test_the_smokes_wide_rows_take_their_routes(row):
     aligned_bf16 = row[9] == torch.bfloat16 and row[10] != "offset1"
     aligned_fp16 = row[9] == torch.float16 and row[10] != "offset1"
     every = ((row[6] in (80, 96, 100, 256) and aligned_bf16)
-             or (row[6] in (64, 96, 100, 128, 256) and aligned_fp16))
-    forward = every or (row[6] == 80 and aligned_fp16)
-    assert ("wgmma" in attn._routes("flash_fwd", q, k, v)) == forward
+             or (row[6] in (64, 80, 96, 100, 128, 256) and aligned_fp16))
+    assert ("wgmma" in attn._routes("flash_fwd", q, k, v)) == every
     assert ("wgmma" in attn._routes("flash_bwd_dkv", q, k, v, do)) == every
     assert ("wgmma" in attn._routes("flash_bwd_dq", q, k, v, do)) == every
     assert row[6] <= attn.KERNEL_MAX_HEAD_DIM
@@ -713,9 +728,10 @@ def test_d96_on_mma_puts_every_kernel_on_mma_and_restores():
 
 
 def test_fp16_backward_on_mma_moves_the_backward_alone_and_restores():
-    """`profile_path.fp16_backward_on_mma`, the route set the fp16 gradients
-    (Llama-2-7B's at head dim 128, OPT-1.3B's at 64) are timed against:
-    within it fp16 takes mma for dQ and dK/dV at both while the forward
+    """`profile_path.fp16_backward_on_mma(128)` and `(64)`, the route sets the
+    fp16 gradients (Llama-2-7B's at head dim 128, OPT-1.3B's at 64) are
+    timed against: within each fp16 takes mma for dQ and dK/dV at its head
+    dim while the forward
     keeps wgmma, and bf16 keeps wgmma for every kernel; after it
     `_WGMMA_HEAD_DIMS` is exactly what it was, and the fp16 backward takes
     wgmma again."""
@@ -725,7 +741,7 @@ def test_fp16_backward_on_mma_moves_the_backward_alone_and_restores():
     for d in (128, 64):
         h = [_model_view(1, 64, 4, d, torch.float16)] * 4
         b = [_model_view(1, 64, 4, d)] * 4
-        with fp16_backward_on_mma():
+        with fp16_backward_on_mma(d):
             assert attn._route("flash_fwd", *h[:3]) == "wgmma"
             for name in ("flash_bwd_dq", "flash_bwd_dkv"):
                 assert attn._route(name, *h) == "mma"
@@ -824,20 +840,20 @@ def test_the_new_width_forwards_expect_every_launch_on_wgmma():
 
 
 def test_shape_routes_takes_a_forward_and_backward_pair():
-    """`shape_routes` takes a (forward, backward kernels) pair as well as one
-    route for all three, which every row at 64 in fp16, 80, 100 or 256 names
-    (all on wgmma); the smoke's forward turn rows are among its wide rows,
+    """`shape_routes` takes one route for all three kernels, and every SHAPES
+    row names one (no row takes a (forward, backward kernels) pair any
+    more: every row at 64 in fp16, 80, 100 or 256 is on wgmma); the smoke's forward turn rows are among its wide rows,
     each with a route before wgmma to be timed against (simt at 100, mma
     elsewhere), the fp16 rows at 80, 96, 100 and 256 among them; its
-    backward turn rows are the eleven at 80, 100, 256 and in fp16 at 64, 96,
-    100 and 256, where dQ and dK/dV took mma or simt before their wgmma
-    kernels, and OPT-2.7B's fp16 row at 80, where they take mma still, timed
-    beside SDPA's default backend (cuDNN) at 80, 96, 256 and 64 and its
-    flash backend at 100."""
+    backward turn rows are the twelve at 80, 100, 256 and in fp16 at 64, 80,
+    96, 100 and 256, where dQ and dK/dV took mma or simt before their wgmma
+    kernels, timed beside SDPA's default backend (cuDNN) at 80, 96, 256 and
+    64 and its flash backend at 100."""
     import chip_smoke
 
-    assert chip_smoke.shape_routes(("wgmma", "simt")) == {
-        "flash_fwd": "wgmma", "flash_bwd_dq": "simt", "flash_bwd_dkv": "simt"}
+    assert chip_smoke.shape_routes("simt") == {
+        "flash_fwd": "simt", "flash_bwd_dq": "simt", "flash_bwd_dkv": "simt"}
+    assert all(isinstance(row[-1], str) for row in chip_smoke.SHAPES)
     rows = {row[0]: row for row in chip_smoke.SHAPES}
     assert set(chip_smoke.FWD_TURN_SHAPES) <= set(chip_smoke.WIDE_SHAPES)
     assert {(rows[n][6], rows[n][9], rows[n][10]) for n in chip_smoke.FWD_TURN_SHAPES} == {
@@ -859,9 +875,7 @@ def test_shape_routes_takes_a_forward_and_backward_pair():
         d = rows[name][6]
         assert backend == ("flash" if d == 100 else "default"), name
         q, k, v, do = _smoke_row_tensors(rows[name])
-        want = (("simt", "wgmma") if d == 100
-                else ("simt", "mma") if name == "opt27b_d80_bshd"
-                else ("simt", "mma", "wgmma"))
+        want = ("simt", "wgmma") if d == 100 else ("simt", "mma", "wgmma")
         for kernel in BWD_KERNELS:
             assert attn._routes(kernel, q, k, v, do) == want, name
 
@@ -1013,7 +1027,7 @@ def test_the_gemma_and_opt_forwards_expect_every_launch_on_wgmma():
         assert f'("{phase}", ' in main and f'("forward_on_mma", {manager})' in main
     assert {"flash_fwd_wgmma256_kernel", "flash_fwd_wgmma64_f16_kernel"} <= set(
         chip_smoke.WGMMA_KERNELS)
-    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 34
+    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 36
 
 
 def test_the_smokes_new_rows_at_256_and_fp16_64():
@@ -1186,7 +1200,7 @@ def test_opt13b_gradient_and_backward_expect_every_launch_on_wgmma():
     8/4/4) and of one opt13b_fp16_backward call (the loss's forward and
     backward at all 24 layers under remat, no optimizer: 48/24/24), all on
     wgmma, as `_route` picks them on the model's fp16 views at head dim 64;
-    both phases run timed in turns against `fp16_backward_on_mma` and appear
+    both phases run timed in turns against `fp16_backward_on_mma(64)` and appear
     in the kernels line's launches by path; the build expects both new
     kernels."""
     import inspect
@@ -1207,7 +1221,7 @@ def test_opt13b_gradient_and_backward_expect_every_launch_on_wgmma():
     for path in ("opt13b_fp16_gradient", "opt13b_fp16_backward"):
         assert main.count(f'"{path}": opt_') == 2, path
         assert f'phase="{path}"' in main, path
-    assert '"backward_on_mma": fp16_backward_on_mma' in main
+    assert '"backward_on_mma": functools.partial(fp16_backward_on_mma, 64)' in main
     assert "llama=llama)" in main and "llama.llama_loss(" in inspect.getsource(
         chip_smoke.phase_train)
     assert {"flash_bwd_dq_wgmma64_f16_kernel", "flash_bwd_dkv_wgmma64_f16_kernel"} <= set(
@@ -1215,14 +1229,15 @@ def test_opt13b_gradient_and_backward_expect_every_launch_on_wgmma():
 
 
 # fp16 at head dims 80 (OPT-2.7B's) and 100 (OpenLLaMA-3B's published dtype):
-# the forward has an fp16 wgmma kernel at each; dQ and dK/dV keep mma at 80,
-# and have fp16 wgmma kernels of their own at 100 (straight after simt)
+# the forward, dQ and dK/dV have fp16 wgmma kernels at each (after mma at
+# 80, straight after simt at 100)
 @pytest.mark.parametrize("layout", ["bhsd", "bshd"])
-@pytest.mark.parametrize("d,bwd", [(80, ("simt", "mma")), (100, ("simt", "wgmma"))])
+@pytest.mark.parametrize("d,bwd", [(80, ("simt", "mma", "wgmma")),
+                                   (100, ("simt", "wgmma"))])
 def test_the_fp16_forward_alone_takes_wgmma_at_80_and_100(d, bwd, layout):
     """fp16, contiguous and as the model's views: the forward's routes end
-    in wgmma (after mma at 80, straight after simt at 100); dQ's and
-    dK/dV's end in mma at 80 and in wgmma at 100."""
+    in wgmma (after mma at 80, straight after simt at 100), and so do dQ's
+    and dK/dV's."""
     half = torch.float16
     q, k, v, do = ([_bhsd(1, 4, 64, d, half)] if layout == "bhsd"
                    else [_model_view(1, 64, 4, d, half)]) * 4
@@ -1232,12 +1247,12 @@ def test_the_fp16_forward_alone_takes_wgmma_at_80_and_100(d, bwd, layout):
         assert attn._routes(kernel, q, k, v, do) == bwd
 
 
-@pytest.mark.parametrize("dim,bwd", [(160, "mma"), (200, "wgmma")])
+@pytest.mark.parametrize("dim,bwd", [(160, "wgmma"), (200, "wgmma")])
 def test_the_models_fp16_forward_at_80_and_100(monkeypatch, dim, bwd):
     """An fp16 layer at head_dim 80 and 100 (`_a_models_launch_routes`):
-    both forward launches take their fp16 wgmma kernel, and the backward
-    launchers mma at 80 and their fp16 wgmma kernels at 100, with the
-    cotangent that `_FlashFwd.backward` scales in fp16."""
+    both forward launches take their fp16 wgmma kernel, and so do the
+    backward launchers, with the cotangent that `_FlashFwd.backward` scales
+    in fp16."""
     cfg = dataclasses.replace(_one_layer(dim, "float16"), n_kv_heads=2)
     assert cfg.head_dim == dim // 2
     assert _a_models_launch_routes(monkeypatch, cfg) == [
@@ -1268,8 +1283,8 @@ def test_fp16_d80_and_d100_forward_old_routes_move_the_fp16_forward_alone():
     """`profile_path.fp16_d80_forward_on_mma` and `fp16_d100_forward_on_simt`,
     the route sets the OPT-2.7B and fp16 OpenLLaMA-3B forwards are timed
     against: within each the fp16 forward at its width takes its old route
-    (mma at 80, simt at 100), while fp16 dQ and dK/dV keep theirs (mma at 80,
-    wgmma at 100), bf16 at that width keeps wgmma for every kernel, and fp16
+    (mma at 80, simt at 100), while fp16 dQ and dK/dV keep their wgmma
+    kernels, bf16 at that width keeps wgmma for every kernel, and fp16
     at the other width and at 64 and 128 keeps its wgmma forward; after it
     `_WGMMA_HEAD_DIMS` is exactly what it was."""
     from yoda_scheduler_tpu_torch.profile_path import (fp16_d80_forward_on_mma,
@@ -1277,7 +1292,7 @@ def test_fp16_d80_and_d100_forward_old_routes_move_the_fp16_forward_alone():
 
     half = torch.float16
     saved = {key: dims for key, dims in attn._WGMMA_HEAD_DIMS.items()}
-    for routes, d, old, other, bwd in ((fp16_d80_forward_on_mma, 80, "mma", 100, "mma"),
+    for routes, d, old, other, bwd in ((fp16_d80_forward_on_mma, 80, "mma", 100, "wgmma"),
                                        (fp16_d100_forward_on_simt, 100, "simt", 80, "wgmma")):
         t = [_model_view(1, 64, 4, d, half)] * 4
         bf16 = [_model_view(1, 64, 4, d)] * 4
@@ -1299,7 +1314,7 @@ def test_the_opt27b_and_fp16_openllama_forwards_expect_every_launch_on_wgmma():
     one flash_fwd launch a layer on wgmma (`phase_forward`'s route), 32 and
     26: `_route` picks it on each config's fp16 model views; both run in
     main's loop of forward phases, timed in turns against the forward on
-    its old route, and the build expects both new kernels among 34."""
+    its old route, and the build expects both new kernels among 36."""
     import inspect
 
     import chip_smoke
@@ -1317,20 +1332,19 @@ def test_the_opt27b_and_fp16_openllama_forwards_expect_every_launch_on_wgmma():
         assert f'("{phase}", ' in main and old in main
     assert {"flash_fwd_wgmma80_f16_kernel", "flash_fwd_wgmma100_f16_kernel"} <= set(
         chip_smoke.WGMMA_KERNELS)
-    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 34
+    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 36
 
 
 def test_the_smokes_fp16_rows_at_80_and_100():
     """chip_smoke's fp16 rows at head dims 80 (OPT-2.7B's attention as its
     model gives it, GQA 32/8, window 512, ragged, cross-length, non-causal)
     and 100 (OpenLLaMA-3B's in fp16 as its model gives it, contiguous, and
-    the same five) name the forward on wgmma, and dQ and dK/dV on mma at 80
-    and on wgmma at 100; all are wide rows, held on every route; the models'
-    rows are forward turn rows and in the kernels line; at 100 the model's
-    row and the contiguous one are backward turn rows (against simt, SDPA's
-    flash backend after each turn), and at 80 the model's row alone (on mma
-    in four turns, SDPA's default backend after each); the unaligned fp16
-    row at 80 stays on simt."""
+    the same five) name the forward, dQ and dK/dV on wgmma; all are wide
+    rows, held on every route; the models' rows are forward turn rows and in
+    the kernels line; at 100 the model's row and the contiguous one are
+    backward turn rows (against simt, SDPA's flash backend after each turn),
+    and at 80 the model's row alone (against mma, SDPA's default backend
+    after each turn); the unaligned fp16 row at 80 stays on simt."""
     import chip_smoke
 
     rows = {row[0]: row for row in chip_smoke.SHAPES}
@@ -1339,13 +1353,13 @@ def test_the_smokes_fp16_rows_at_80_and_100():
            100: {"openllama3b_fp16_d100_bshd", "fp16_unaligned_d100", "fp16_gqa_d100",
                  "fp16_window_d100", "fp16_ragged_d100", "fp16_cross_length_d100",
                  "fp16_non_causal_d100"}}
-    for d, bwd in ((80, "mma"), (100, "wgmma")):
+    for d in (80, 100):
         assert new[d] | ({"fp16_unaligned_d80"} if d == 80 else set()) == {
             n for n, row in rows.items() if row[6] == d and row[9] == torch.float16}
         assert new[d] <= set(chip_smoke.WIDE_SHAPES)
         for name in new[d]:
             assert chip_smoke.shape_routes(rows[name][-1]) == {
-                "flash_fwd": "wgmma", "flash_bwd_dq": bwd, "flash_bwd_dkv": bwd}, name
+                "flash_fwd": "wgmma", "flash_bwd_dq": "wgmma", "flash_bwd_dkv": "wgmma"}, name
     assert rows["opt27b_d80_bshd"][1:11] == (1, 32, 32, 2048, 2048, 80, True, None,
                                              torch.float16, "bshd")
     assert rows["openllama3b_fp16_d100_bshd"][1:11] == (1, 32, 32, 2048, 2048, 100, True,
@@ -1375,8 +1389,8 @@ def test_fp16_d100_backward_on_simt_moves_the_fp16_backward_alone_and_restores()
     OpenLLaMA-3B gradient and backward are timed against: within it fp16 dQ
     and dK/dV at head dim 100 take simt while the fp16 forward there keeps
     wgmma, bf16 at 100 keeps wgmma for every kernel, and fp16 dQ and dK/dV
-    at 64 and 128 keep theirs; `fp16_backward_on_mma` moves fp16 at 64 and
-    128 alone and leaves 100 on wgmma; after each `_WGMMA_HEAD_DIMS` is
+    at 64 and 128 keep theirs; `fp16_backward_on_mma(64, 128)` moves fp16
+    at 64 and 128 alone and leaves 100 on wgmma; after each `_WGMMA_HEAD_DIMS` is
     exactly what it was, and the fp16 backward at 100 takes wgmma again."""
     from yoda_scheduler_tpu_torch.profile_path import (fp16_backward_on_mma,
                                                        fp16_d100_backward_on_simt)
@@ -1395,7 +1409,7 @@ def test_fp16_d100_backward_on_simt_moves_the_fp16_backward_alone_and_restores()
             for r in rest:
                 assert attn._route(name, *r) == "wgmma"
     assert attn._WGMMA_HEAD_DIMS == saved
-    with fp16_backward_on_mma():
+    with fp16_backward_on_mma(64, 128):
         for name in BWD_KERNELS:
             assert attn._route(name, *t) == "wgmma"
             for r in rest:
@@ -1413,7 +1427,7 @@ def test_openllama3b_fp16_gradient_and_backward_expect_every_launch_on_wgmma():
     views at head dim 100; both phases run timed in turns against
     `fp16_d100_backward_on_simt`, as the loss's backward where a call is
     one, and appear in the kernels line's launches by path; the build
-    expects both new kernels among 34; the smoke's third sink row is at
+    expects both new kernels among 36; the smoke's third sink row is at
     head dim 100."""
     import inspect
 
@@ -1440,19 +1454,20 @@ def test_openllama3b_fp16_gradient_and_backward_expect_every_launch_on_wgmma():
     assert "turns=fp16_d100_turns, llama=llama)" in main
     assert {"flash_bwd_dq_wgmma100_f16_kernel", "flash_bwd_dkv_wgmma100_f16_kernel"} <= set(
         chip_smoke.WGMMA_KERNELS)
-    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 34
+    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 36
     assert chip_smoke.FP16_SINK_COTANGENT_D100 == dict(chip_smoke.FP16_SINK_COTANGENT, d=100)
     assert "FP16_SINK_COTANGENT_D100" in inspect.getsource(chip_smoke.phase_backward)
 
 
 # fp16 at head dims 96 (GPT-NeoX-20B's) and 256 (GPT-J-6B's): the forward,
 # dQ and dK/dV have fp16 wgmma kernels at each (the forward since it alone
-# had them); fp16 at 80 keeps dQ and dK/dV on mma
+# had them); fp16 at 112, which has no wgmma kernel, keeps dQ and dK/dV on
+# mma
 @pytest.mark.parametrize("layout", ["bhsd", "bshd"])
 @pytest.mark.parametrize("d", [96, 256])
 def test_the_fp16_forward_alone_takes_wgmma_at_96_and_256(d, layout):
     """fp16, contiguous and as the model's views: the forward's, dQ's and
-    dK/dV's routes end in wgmma after mma at 96 and 256, while at 80 dQ's
+    dK/dV's routes end in wgmma after mma at 96 and 256, while at 112 dQ's
     and dK/dV's end in mma; rows one element into their storage take simt
     alone."""
     half = torch.float16
@@ -1465,23 +1480,24 @@ def test_the_fp16_forward_alone_takes_wgmma_at_96_and_256(d, layout):
     assert attn._routes("flash_fwd", q, k, v) == ("simt", "mma", "wgmma")
     for kernel in BWD_KERNELS:
         assert attn._routes(kernel, q, k, v, do) == ("simt", "mma", "wgmma")
-        assert attn._routes(kernel, *views(80)) == ("simt", "mma")
+        assert attn._routes(kernel, *views(112)) == ("simt", "mma")
     off = _bhsd(1, 4, 64, d, half, offset=1)
     assert attn._routes("flash_fwd", off, off, off) == ("simt",)
     for kernel in BWD_KERNELS:
         assert attn._routes(kernel, off, off, off, off) == ("simt",)
 
 
-@pytest.mark.parametrize("dim,bwd", [(160, "mma"), (192, "wgmma"), (512, "wgmma")])
+@pytest.mark.parametrize("dim,bwd", [(224, "mma"), (192, "wgmma"), (512, "wgmma")])
 def test_the_models_fp16_forward_at_96_and_256(monkeypatch, dim, bwd):
     """An fp16 layer at head_dim 96 and 256 (`_a_models_launch_routes`):
     both forward launches take their fp16 wgmma kernel, and so do the
     backward launchers, with the cotangent that `_FlashFwd.backward` scales
-    in fp16; at head_dim 80 the backward launchers take mma."""
+    in fp16; at head_dim 112, which has no wgmma kernel, all four take
+    mma."""
     cfg = dataclasses.replace(_one_layer(dim, "float16"), n_kv_heads=2)
     assert cfg.head_dim == dim // 2
     assert _a_models_launch_routes(monkeypatch, cfg) == [
-        ("flash_fwd", "wgmma"), ("flash_fwd", "wgmma"), ("flash_bwd_dq", bwd),
+        ("flash_fwd", bwd), ("flash_fwd", bwd), ("flash_bwd_dq", bwd),
         ("flash_bwd_dkv", bwd)]
 
 
@@ -1551,7 +1567,7 @@ def test_the_neox20b_and_gptj6b_forwards_expect_every_launch_on_wgmma():
     `_route` picks it on each config's fp16 model views; both run in main's
     loop of forward phases (whose launches go into the kernels line's
     launches by path), timed in turns against the forward on mma, and the
-    build expects both new kernels among 34; profile_path's main traces
+    build expects both new kernels among 36; profile_path's main traces
     both forwards on each route."""
     import inspect
 
@@ -1571,7 +1587,7 @@ def test_the_neox20b_and_gptj6b_forwards_expect_every_launch_on_wgmma():
     assert "**new_width_routes" in main
     assert {"flash_fwd_wgmma96_f16_kernel", "flash_fwd_wgmma256_f16_kernel"} <= set(
         chip_smoke.WGMMA_KERNELS)
-    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 34
+    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 36
     windows = inspect.getsource(profile_path.neox_gptj_forward_windows)
     assert "fp16_d96_forward_on_mma" in windows and "fp16_d256_forward_on_mma" in windows
     assert "neox_gptj_forward_windows()" in inspect.getsource(profile_path.main)
@@ -1616,22 +1632,21 @@ def test_the_smokes_fp16_rows_at_96_and_256():
 
 
 def test_fp16_d256_backward_on_mma_moves_the_fp16_backward_alone_and_restores():
-    """`profile_path.fp16_d256_backward_on_mma`, the route set the GPT-J-6B
+    """`profile_path.fp16_backward_on_mma(256)`, the route set the GPT-J-6B
     gradient and backward are timed against: within it fp16 dQ and dK/dV at
     head dim 256 take mma while the fp16 forward there keeps wgmma, bf16 at
     256 keeps wgmma for every kernel, and fp16 dQ and dK/dV at 64, 100 and
-    128 keep theirs; `fp16_backward_on_mma` moves fp16 at 64 and 128 alone
-    and leaves 256 on wgmma; after each `_WGMMA_HEAD_DIMS` is exactly what
+    128 keep theirs; `fp16_backward_on_mma(64, 128)` moves fp16 at 64 and
+    128 alone and leaves 256 on wgmma; after each `_WGMMA_HEAD_DIMS` is exactly what
     it was, and the fp16 backward at 256 takes wgmma again."""
-    from yoda_scheduler_tpu_torch.profile_path import (fp16_backward_on_mma,
-                                                       fp16_d256_backward_on_mma)
+    from yoda_scheduler_tpu_torch.profile_path import fp16_backward_on_mma
 
     half = torch.float16
     saved = {key: dims for key, dims in attn._WGMMA_HEAD_DIMS.items()}
     t = [_model_view(1, 64, 16, 256, half)] * 4
     bf16 = [_model_view(1, 64, 16, 256)] * 4
     rest = [[_model_view(1, 64, 4, d, half)] * 4 for d in (64, 100, 128)]
-    with fp16_d256_backward_on_mma():
+    with fp16_backward_on_mma(256):
         assert attn._route("flash_fwd", *t[:3]) == "wgmma"
         assert attn._route("flash_fwd", *bf16[:3]) == "wgmma"
         for name in BWD_KERNELS:
@@ -1640,7 +1655,7 @@ def test_fp16_d256_backward_on_mma_moves_the_fp16_backward_alone_and_restores():
             for r in rest:
                 assert attn._route(name, *r) == "wgmma"
     assert attn._WGMMA_HEAD_DIMS == saved
-    with fp16_backward_on_mma():
+    with fp16_backward_on_mma(64, 128):
         for name in BWD_KERNELS:
             assert attn._route(name, *t) == "wgmma"
     assert attn._WGMMA_HEAD_DIMS == saved
@@ -1654,9 +1669,9 @@ def test_gptj6b_fp16_gradient_and_backward_expect_every_launch_on_wgmma():
     backward at all 28 layers under remat, no optimizer: 56/28/28), all on
     wgmma, as `_route` picks them on the model's fp16 views at head dim 256;
     both phases run after openllama3b_fp16_backward and before the card is
-    freed, timed in turns against `fp16_d256_backward_on_mma`, as the loss's
+    freed, timed in turns against `fp16_backward_on_mma(256)`, as the loss's
     backward where a call is one, and appear in the kernels line's launches
-    by path; the build expects both new kernels among 34; profile_path's
+    by path; the build expects both new kernels among 36; profile_path's
     main traces GPT-J-6B's backward on each route after the forwards."""
     import inspect
 
@@ -1677,52 +1692,49 @@ def test_gptj6b_fp16_gradient_and_backward_expect_every_launch_on_wgmma():
     for path in ("gptj6b_fp16_gradient", "gptj6b_fp16_backward"):
         assert main.count(f'"{path}":') == 2, path
         assert f'phase="{path}"' in main, path
-    assert '"backward_on_mma": fp16_d256_backward_on_mma' in main
+    assert '"backward_on_mma": functools.partial(fp16_backward_on_mma, 256)' in main
     assert "turns=fp16_d256_turns, llama=llama)" in main
     before = main.index('phase="openllama3b_fp16_backward"')
     assert before < main.index('phase="gptj6b_fp16_gradient"') < main.index(
         'phase="gptj6b_fp16_backward"') < main.index("free_memory()", before)
     assert {"flash_bwd_dq_wgmma256_f16_kernel", "flash_bwd_dkv_wgmma256_f16_kernel"} <= set(
         chip_smoke.WGMMA_KERNELS)
-    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 34
+    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 36
     windows = inspect.getsource(profile_path.gptj6b_fp16_backward_windows)
-    assert "fp16_d256_backward_on_mma" in windows and "gptj_6b()" in windows
+    assert "functools.partial(fp16_backward_on_mma, 256)" in windows and "gptj_6b()" in windows
     body = inspect.getsource(profile_path.main)
     assert body.index("gptj6b_fp16_backward_windows()") > body.index(
         "neox_gptj_forward_windows()")
 
 
 def test_fp16_d96_backward_on_mma_moves_the_fp16_backward_alone_and_restores():
-    """`profile_path.fp16_d96_backward_on_mma`, the route set the GPT-NeoX-20B
+    """`profile_path.fp16_backward_on_mma(96)`, the route set the GPT-NeoX-20B
     gradient and backward are timed against: within it fp16 dQ and dK/dV at
     head dim 96 take mma while the fp16 forward there keeps wgmma, bf16 at
-    96 keeps wgmma for every kernel, fp16 dQ and dK/dV at 64, 100, 128 and
-    256 keep theirs, and at 80 mma; `fp16_backward_on_mma` and
-    `fp16_d256_backward_on_mma` leave 96 on wgmma; after each
+    96 keeps wgmma for every kernel, fp16 dQ and dK/dV at 64, 80, 100, 128
+    and 256 keep theirs; `fp16_backward_on_mma` at 64 and 128, and at 256,
+    leaves 96 on wgmma; after each
     `_WGMMA_HEAD_DIMS` is exactly what it was, and the fp16 backward at 96
     takes wgmma again."""
-    from yoda_scheduler_tpu_torch.profile_path import (fp16_backward_on_mma,
-                                                       fp16_d96_backward_on_mma,
-                                                       fp16_d256_backward_on_mma)
+    from yoda_scheduler_tpu_torch.profile_path import fp16_backward_on_mma
 
     half = torch.float16
     saved = {key: dims for key, dims in attn._WGMMA_HEAD_DIMS.items()}
     t = [_model_view(1, 64, 64, 96, half)] * 4
     bf16 = [_model_view(1, 64, 32, 96)] * 4
     rest = [[_model_view(1, 64, 4, d, half)] * 4 for d in (64, 100, 128, 256)]
-    d80 = [_model_view(1, 64, 32, 80, half)] * 4
-    with fp16_d96_backward_on_mma():
+    rest.append([_model_view(1, 64, 32, 80, half)] * 4)
+    with fp16_backward_on_mma(96):
         assert attn._route("flash_fwd", *t[:3]) == "wgmma"
         assert attn._route("flash_fwd", *bf16[:3]) == "wgmma"
         for name in BWD_KERNELS:
             assert attn._route(name, *t) == "mma"
             assert attn._route(name, *bf16) == "wgmma"
-            assert attn._route(name, *d80) == "mma"
             for r in rest:
                 assert attn._route(name, *r) == "wgmma"
     assert attn._WGMMA_HEAD_DIMS == saved
-    for other in (fp16_backward_on_mma, fp16_d256_backward_on_mma):
-        with other():
+    for other in ((64, 128), (256,)):
+        with fp16_backward_on_mma(*other):
             for name in BWD_KERNELS:
                 assert attn._route(name, *t) == "wgmma"
         assert attn._WGMMA_HEAD_DIMS == saved
@@ -1739,11 +1751,11 @@ def test_neox20b_fp16_gradient_and_backward_expect_every_launch_on_wgmma():
     whose fp16 weights and gradients fit the 80 GB card where 44 layers'
     do not, and the phase's config names it; both phases run after
     gptj6b_fp16_backward and before the card is freed, timed in turns
-    against `fp16_d96_backward_on_mma`, as the loss's backward where a call
+    against `fp16_backward_on_mma(96)`, as the loss's backward where a call
     is one, and appear in the kernels line's launches by path; the build
-    expects both new kernels among 34, and the smoke's sink rows take head
+    expects both new kernels among 36, and the smoke's sink rows take head
     dim 96 too; profile_path's main traces the cut backward on each route
-    last."""
+    after GPT-J-6B's."""
     import inspect
 
     import chip_smoke
@@ -1768,7 +1780,7 @@ def test_neox20b_fp16_gradient_and_backward_expect_every_launch_on_wgmma():
     for path in ("neox20b_fp16_gradient", "neox20b_fp16_backward"):
         assert main.count(f'"{path}":') == 2, path
         assert f'phase="{path}"' in main, path
-    assert '"backward_on_mma": fp16_d96_backward_on_mma' in main
+    assert '"backward_on_mma": functools.partial(fp16_backward_on_mma, 96)' in main
     assert "gpt_neox_20b(NEOX20B_BACKWARD_LAYERS)" in main
     assert "turns=fp16_d96_turns, llama=llama)" in main
     assert "{NEOX20B_BACKWARD_LAYERS} of 44 layers" in main
@@ -1777,12 +1789,100 @@ def test_neox20b_fp16_gradient_and_backward_expect_every_launch_on_wgmma():
         'phase="neox20b_fp16_backward"') < main.index("free_memory()", before)
     assert {"flash_bwd_dq_wgmma96_f16_kernel", "flash_bwd_dkv_wgmma96_f16_kernel"} <= set(
         chip_smoke.WGMMA_KERNELS)
-    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 34
+    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 36
     assert chip_smoke.FP16_SINK_COTANGENT_D96 == dict(chip_smoke.FP16_SINK_COTANGENT, d=96)
     assert "FP16_SINK_COTANGENT_D96" in inspect.getsource(chip_smoke.phase_backward)
     windows = inspect.getsource(profile_path.neox20b_fp16_backward_windows)
-    assert "fp16_d96_backward_on_mma" in windows
+    assert "functools.partial(fp16_backward_on_mma, 96)" in windows
     assert "gpt_neox_20b(NEOX20B_BACKWARD_LAYERS)" in windows
     body = inspect.getsource(profile_path.main)
     assert body.index("neox20b_fp16_backward_windows()") > body.index(
         "gptj6b_fp16_backward_windows()")
+
+
+def test_fp16_d80_backward_on_mma_moves_the_fp16_backward_alone_and_restores():
+    """`profile_path.fp16_backward_on_mma(80)`, the route set the OPT-2.7B
+    gradient and backward are timed against: within it fp16 dQ and dK/dV at
+    head dim 80 take mma while the fp16 forward there keeps wgmma, bf16 at
+    80 keeps wgmma for every kernel, and fp16 dQ and dK/dV at 64, 96, 100,
+    128 and 256 keep theirs; `fp16_backward_on_mma` at 64 and 128, at 96
+    and at 256 leaves 80 on wgmma; after each `_WGMMA_HEAD_DIMS` is exactly what it was, and the
+    fp16 backward at 80 takes wgmma again."""
+    from yoda_scheduler_tpu_torch.profile_path import fp16_backward_on_mma
+
+    half = torch.float16
+    saved = {key: dims for key, dims in attn._WGMMA_HEAD_DIMS.items()}
+    t = [_model_view(1, 64, 32, 80, half)] * 4
+    bf16 = [_model_view(1, 64, 32, 80)] * 4
+    rest = [[_model_view(1, 64, 4, d, half)] * 4 for d in (64, 96, 100, 128, 256)]
+    with fp16_backward_on_mma(80):
+        assert attn._route("flash_fwd", *t[:3]) == "wgmma"
+        assert attn._route("flash_fwd", *bf16[:3]) == "wgmma"
+        for name in BWD_KERNELS:
+            assert attn._route(name, *t) == "mma"
+            assert attn._route(name, *bf16) == "wgmma"
+            for r in rest:
+                assert attn._route(name, *r) == "wgmma"
+    assert attn._WGMMA_HEAD_DIMS == saved
+    for other in ((64, 128), (96,), (256,)):
+        with fp16_backward_on_mma(*other):
+            for name in BWD_KERNELS:
+                assert attn._route(name, *t) == "wgmma"
+        assert attn._WGMMA_HEAD_DIMS == saved
+    for name in BWD_KERNELS:
+        assert attn._route(name, *t) == "wgmma"
+
+
+def test_opt27b_fp16_gradient_and_backward_expect_every_launch_on_wgmma():
+    """chip_smoke's expected launches of opt27b_fp16_gradient (4 layers:
+    8/4/4) and of one opt27b_fp16_backward call (the loss's forward and
+    backward under remat, no optimizer, at all 32 of OPT-2.7B's layers,
+    whose fp16 weights and gradients take under 15 GB: 64/32/32), all on
+    wgmma, as `_route` picks them on the model's fp16 views at head dim 80;
+    both phases run after neox20b_fp16_backward and before the card is
+    freed, timed in turns against `fp16_backward_on_mma(80)`, as the loss's
+    backward where a call is one, and appear in the kernels line's launches
+    by path; the build expects both new kernels among 36, and the smoke's
+    sink rows take head dim 80 too; profile_path's main traces the backward
+    on each route last, after GPT-NeoX-20B's."""
+    import inspect
+
+    import chip_smoke
+    from yoda_scheduler_tpu_torch import profile_path
+    from yoda_scheduler_tpu_torch.profile_path import opt_2_7b
+
+    cfg = opt_2_7b()
+    assert (cfg.n_layers, cfg.head_dim, cfg.dtype) == (32, 80, "float16")
+    # fp16 weights and gradients, 4 bytes a parameter
+    assert 14 < _llama_params(cfg) * 4 / 1e9 < 15
+    assert chip_smoke.step_routes("wgmma", cfg.n_layers) == {
+        "flash_fwd": {"wgmma": 64}, "flash_bwd_dq": {"wgmma": 32},
+        "flash_bwd_dkv": {"wgmma": 32}}
+    assert chip_smoke.step_routes("wgmma", 4) == {
+        "flash_fwd": {"wgmma": 8}, "flash_bwd_dq": {"wgmma": 4},
+        "flash_bwd_dkv": {"wgmma": 4}}
+    q, k, v, do = [_model_view(1, 64, cfg.n_heads, cfg.head_dim, cfg.torch_dtype)] * 4
+    assert attn._route("flash_fwd", q, k, v) == "wgmma"
+    for name in BWD_KERNELS:
+        assert attn._route(name, q, k, v, do) == "wgmma"
+    main = inspect.getsource(chip_smoke.main)
+    for path in ("opt27b_fp16_gradient", "opt27b_fp16_backward"):
+        assert main.count(f'"{path}":') == 2, path
+        assert f'phase="{path}"' in main, path
+    assert '"backward_on_mma": functools.partial(fp16_backward_on_mma, 80)' in main
+    assert "turns=fp16_d80_turns)" in main
+    assert "turns=fp16_d80_turns, llama=llama)" in main
+    before = main.index('phase="neox20b_fp16_backward"')
+    assert before < main.index('phase="opt27b_fp16_gradient"') < main.index(
+        'phase="opt27b_fp16_backward"') < main.index("free_memory()", before)
+    assert {"flash_bwd_dq_wgmma80_f16_kernel", "flash_bwd_dkv_wgmma80_f16_kernel"} <= set(
+        chip_smoke.WGMMA_KERNELS)
+    assert len(chip_smoke.WGMMA_KERNELS) == len(set(chip_smoke.WGMMA_KERNELS)) == 36
+    assert chip_smoke.FP16_SINK_COTANGENT_D80 == dict(chip_smoke.FP16_SINK_COTANGENT, d=80)
+    assert "FP16_SINK_COTANGENT_D80" in inspect.getsource(chip_smoke.phase_backward)
+    windows = inspect.getsource(profile_path.opt27b_fp16_backward_windows)
+    assert "functools.partial(fp16_backward_on_mma, 80)" in windows and "opt_2_7b()" in windows
+    body = inspect.getsource(profile_path.main)
+    assert body.index("opt27b_fp16_backward_windows()") > body.index(
+        "neox20b_fp16_backward_windows()")
+    assert body.rstrip().split("reports += ")[-1].startswith("opt27b_fp16_backward_windows()")

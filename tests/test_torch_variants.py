@@ -117,7 +117,7 @@ def test_fp16_head_dims_80_and_100_shapes_are_the_smokes_rows(d):
     SHAPES_F16_100: OPT-2.7B's attention and OpenLLaMA-3B's in fp16 first
     (32 heads, S=2048, as their models give them), then GQA 32/8, a window
     and a ragged sequence, each the smoke's fp16 row of the same name with
-    the forward on wgmma, three of them probed."""
+    the forward, dQ and dK/dV on wgmma, three of them probed."""
     import chip_smoke
     from yoda_scheduler_tpu_torch.ops import variants
 
@@ -130,7 +130,8 @@ def test_fp16_head_dims_80_and_100_shapes_are_the_smokes_rows(d):
     for name, b, h, kvh, sq, sk, causal, window in shapes:
         assert rows[name][1:9] == (b, h, kvh, sq, sk, d, causal, window), name
         assert rows[name][9] == torch.float16, name
-        assert chip_smoke.shape_routes(rows[name][-1])["flash_fwd"] == "wgmma", name
+        assert chip_smoke.shape_routes(rows[name][-1]) == {
+            "flash_fwd": "wgmma", "flash_bwd_dq": "wgmma", "flash_bwd_dkv": "wgmma"}, name
     assert {first, f"fp16_window_d{d}", f"fp16_ragged_d{d}"} <= set(variants.PROBE)
 
 

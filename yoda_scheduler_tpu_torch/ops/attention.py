@@ -12,10 +12,9 @@ fp16 and any head_dim from 1 to 512 (`KERNEL_MAX_HEAD_DIM`), as the JAX
 kernels do, and raise otherwise.
 Each kernel has three routes, which `_route` picks per kernel from the
 inputs alone: "wgmma" (TMA and wgmma, 16-byte aligned rows: the model's
-path; bf16 at head_dim 64, 80, 96, 128 or 256 and fp16 at 64, 96, 128
-or 256, and at 100 in either, whose 8-byte aligned rows the kernels'
-producers copy with cp.async, for every kernel; fp16 at 80 for the forward
-alone; `_WGMMA_HEAD_DIMS`), "mma" (mma.sync, other
+path; bf16 or fp16 at head_dim 64, 80, 96, 128 or 256, and at 100, whose
+8-byte aligned rows the kernels' producers copy with cp.async, for every
+kernel; `_WGMMA_HEAD_DIMS`), "mma" (mma.sync, other
 aligned bf16 and aligned fp16: rows 16-byte aligned and head_dim a
 multiple of 8, up to 256) and "simt"
 (fp32, and every input the others do not take, head_dim past 256 among
@@ -200,16 +199,14 @@ def _check_qkv(name: str, q, k, v, causal: bool):
 
 
 # the head dims each kernel's wgmma route takes, by (kernel, dtype)
-# (csrc/flash_fwd.cu, csrc/flash_bwd.cu): bf16 at 64, 80, 96, 100, 128 and
-# 256 for every kernel; fp16 at 64, 96, 100, 128 and 256 for every kernel,
-# and at 80 for the forward alone (fp16 dQ and dK/dV run on mma at 80, and
-# fp16 at other head dims on mma or simt)
+# (csrc/flash_fwd.cu, csrc/flash_bwd.cu): bf16 and fp16 alike at 64, 80, 96,
+# 100, 128 and 256 for every kernel (other head dims run on mma or simt)
 _WGMMA_HEAD_DIMS = {("flash_fwd", torch.bfloat16): (64, 80, 96, 100, 128, 256),
                     ("flash_bwd_dq", torch.bfloat16): (64, 80, 96, 100, 128, 256),
                     ("flash_bwd_dkv", torch.bfloat16): (64, 80, 96, 100, 128, 256),
                     ("flash_fwd", torch.float16): (64, 80, 96, 100, 128, 256),
-                    ("flash_bwd_dq", torch.float16): (64, 96, 100, 128, 256),
-                    ("flash_bwd_dkv", torch.float16): (64, 96, 100, 128, 256)}
+                    ("flash_bwd_dq", torch.float16): (64, 80, 96, 100, 128, 256),
+                    ("flash_bwd_dkv", torch.float16): (64, 80, 96, 100, 128, 256)}
 
 
 def _rows_aligned(tensors, elems: int) -> bool:

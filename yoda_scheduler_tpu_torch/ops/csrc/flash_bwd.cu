@@ -53,8 +53,9 @@
 //   the same bodies in fp16 (GPT-J-6B's attention in its published dtype);
 //   flash_bwd_dq_wgmma96_f16_kernel and flash_bwd_dkv_wgmma96_f16_kernel
 //   are the D = 96 bodies in fp16 (GPT-NeoX-20B's attention in its published
-//   dtype). Route 2 refuses every other D, and fp16 at any D but 64, 96, 100,
-//   128 and 256 (it runs on mma).
+//   dtype), and flash_bwd_dq_wgmma80_f16_kernel and
+//   flash_bwd_dkv_wgmma80_f16_kernel the D = 80 bodies in fp16 (OPT-2.7B's).
+//   Route 2 refuses every other D (it runs on mma or simt).
 // - *_mma kernels (route 1; aligned bf16 and fp16, D a multiple of 8 up to
 //   256; they take bf16 at D = 64 and 128 too, to be held against the wgmma
 //   kernels): 4 warps each own 16 rows of a 64-row tile and run all products
@@ -830,7 +831,8 @@ struct BwdRows {
 // flash_bwd_dkv_wgmma80_kernel (bf16, D = 80),
 // flash_bwd_dkv_wgmma100_kernel (bf16, D = 100),
 // flash_bwd_dkv_wgmma_f16_kernel (fp16, D = 128),
-// flash_bwd_dkv_wgmma96_f16_kernel (fp16, D = 96) and
+// flash_bwd_dkv_wgmma96_f16_kernel (fp16, D = 96),
+// flash_bwd_dkv_wgmma80_f16_kernel (fp16, D = 80) and
 // flash_bwd_dkv_wgmma100_f16_kernel (fp16, D = 100). fp16 differs from bf16
 // only in names, as in flash_fwd.cu's fwd_wgmma_body: the wgmma instructions (.f16
 // for .bf16), the tensor maps' data type, and the roundings of P^T and dS^T
@@ -866,7 +868,8 @@ struct BwdRows {
 // OpenLLaMA-3B's (D=100) ~53.7 GFLOP, ~54 us; at StableLM-3B-4E1T's (D=80)
 // ~43.0 GFLOP against ~63 MB, ~43.4 us. At GPT-NeoX-20B's (fp16, 64 q heads
 // over 64 KV heads, S=2048, D=96) ~103 GFLOP against ~152 MB, ~104 us
-// (ops/bounds.py), 1024 blocks.
+// (ops/bounds.py), 1024 blocks; at OPT-2.7B's (fp16, 32 heads of 80) as at
+// StableLM-3B-4E1T's, ~43.4 us, 512 blocks.
 template <typename T, int D>
 __device__ __forceinline__ void dkv_wgmma_body(
     const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
@@ -1108,42 +1111,26 @@ __device__ __forceinline__ void dkv_wgmma_body(
   }
 }
 
-__global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma_kernel(
-    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-    const float* __restrict__ out_scale, int H, int KvH, int Sq, int Sk, int causal,
-    int window, float scale) {
-  dkv_wgmma_body<__nv_bfloat16, 128>(&tm_q, &tm_k, &tm_v, &tm_do, BwdRows<__nv_bfloat16>{},
-                                     lse, delta, dk, dv, out_scale, H, KvH, Sq, Sk, causal,
-                                     window, scale);
-}
+// the TMA-fed dK/dV kernels: dkv_wgmma_body over maps of (T, D)
+#define BWD_DKV_WGMMA_KERNEL(NAME, T, D)                                                   \
+  __global__ void __launch_bounds__(3 * WG_THREADS, 1) NAME(                               \
+      const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,   \
+      const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,  \
+      const float* __restrict__ lse, const float* __restrict__ delta, T* __restrict__ dk,  \
+      T* __restrict__ dv, const float* __restrict__ out_scale, int H, int KvH, int Sq,     \
+      int Sk, int causal, int window, float scale) {                                       \
+    dkv_wgmma_body<T, D>(&tm_q, &tm_k, &tm_v, &tm_do, BwdRows<T>{}, lse, delta, dk, dv,     \
+                         out_scale, H, KvH, Sq, Sk, causal, window, scale);                \
+  }
+BWD_DKV_WGMMA_KERNEL(flash_bwd_dkv_wgmma_kernel, __nv_bfloat16, 128)
+BWD_DKV_WGMMA_KERNEL(flash_bwd_dkv_wgmma96_kernel, __nv_bfloat16, 96)
+BWD_DKV_WGMMA_KERNEL(flash_bwd_dkv_wgmma80_kernel, __nv_bfloat16, 80)
+BWD_DKV_WGMMA_KERNEL(flash_bwd_dkv_wgmma_f16_kernel, __half, 128)
+BWD_DKV_WGMMA_KERNEL(flash_bwd_dkv_wgmma96_f16_kernel, __half, 96)
+BWD_DKV_WGMMA_KERNEL(flash_bwd_dkv_wgmma80_f16_kernel, __half, 80)
+#undef BWD_DKV_WGMMA_KERNEL
 
-__global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma96_kernel(
-    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-    const float* __restrict__ out_scale, int H, int KvH, int Sq, int Sk, int causal,
-    int window, float scale) {
-  dkv_wgmma_body<__nv_bfloat16, 96>(&tm_q, &tm_k, &tm_v, &tm_do, BwdRows<__nv_bfloat16>{},
-                                    lse, delta, dk, dv, out_scale, H, KvH, Sq, Sk, causal,
-                                    window, scale);
-}
-
-__global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma80_kernel(
-    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-    const float* __restrict__ out_scale, int H, int KvH, int Sq, int Sk, int causal,
-    int window, float scale) {
-  dkv_wgmma_body<__nv_bfloat16, 80>(&tm_q, &tm_k, &tm_v, &tm_do, BwdRows<__nv_bfloat16>{},
-                                    lse, delta, dk, dv, out_scale, H, KvH, Sq, Sk, causal,
-                                    window, scale);
-}
-
+// the D = 100 dK/dV kernels, whose producers copy the rows themselves
 __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma100_kernel(
     const __grid_constant__ BwdRows<__nv_bfloat16> src, const float* __restrict__ lse,
     const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
@@ -1160,28 +1147,6 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma100_f16_
     int window, float scale) {
   dkv_wgmma_body<__half, 100>(nullptr, nullptr, nullptr, nullptr, src, lse, delta, dk, dv,
                               out_scale, H, KvH, Sq, Sk, causal, window, scale);
-}
-
-__global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma_f16_kernel(
-    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    __half* __restrict__ dk, __half* __restrict__ dv,
-    const float* __restrict__ out_scale, int H, int KvH, int Sq, int Sk, int causal,
-    int window, float scale) {
-  dkv_wgmma_body<__half, 128>(&tm_q, &tm_k, &tm_v, &tm_do, BwdRows<__half>{}, lse, delta, dk,
-                              dv, out_scale, H, KvH, Sq, Sk, causal, window, scale);
-}
-
-__global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dkv_wgmma96_f16_kernel(
-    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    __half* __restrict__ dk, __half* __restrict__ dv,
-    const float* __restrict__ out_scale, int H, int KvH, int Sq, int Sk, int causal,
-    int window, float scale) {
-  dkv_wgmma_body<__half, 96>(&tm_q, &tm_k, &tm_v, &tm_do, BwdRows<__half>{}, lse, delta, dk,
-                             dv, out_scale, H, KvH, Sq, Sk, causal, window, scale);
 }
 
 // ---- the dK/dV wgmma kernels at head dim 64 (bf16 and fp16)
@@ -1435,7 +1400,8 @@ BWD_DKV64_KERNEL(flash_bwd_dkv_wgmma64_f16_kernel, __half)
 // flash_bwd_dq_wgmma96_kernel (bf16, D = 96), flash_bwd_dq_wgmma80_kernel
 // (bf16, D = 80), flash_bwd_dq_wgmma100_kernel (bf16, D = 100),
 // flash_bwd_dq_wgmma_f16_kernel (fp16, D = 128),
-// flash_bwd_dq_wgmma96_f16_kernel (fp16, D = 96) and
+// flash_bwd_dq_wgmma96_f16_kernel (fp16, D = 96),
+// flash_bwd_dq_wgmma80_f16_kernel (fp16, D = 80) and
 // flash_bwd_dq_wgmma100_f16_kernel (fp16, D = 100), as dkv_wgmma_body (in fp16
 // dS and dQ round to fp16): at D = 96 the tiles keep D = 128's shared-memory
 // layout and grid, the second box of each row zero-filled by TMA past column
@@ -1453,7 +1419,8 @@ BWD_DKV64_KERNEL(flash_bwd_dkv_wgmma64_f16_kernel, __half)
 // operations (~39 us at 989 TF/s); at OpenLLaMA-3B's (D=100) ~40.3 GFLOP,
 // ~41 us; at StableLM-3B-4E1T's (D=80) ~32.2 GFLOP against ~53 MB, ~32.6 us;
 // at GPT-NeoX-20B's (fp16, 64 heads of 96) ~77.3 GFLOP against ~126 MB,
-// ~78 us (ops/bounds.py), 1024 blocks.
+// ~78 us (ops/bounds.py), 1024 blocks; at OPT-2.7B's (fp16, 32 heads of 80)
+// as at StableLM-3B-4E1T's, ~32.6 us, 512 blocks.
 template <typename T, int D>
 __device__ __forceinline__ void dq_wgmma_body(
     const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
@@ -1647,39 +1614,26 @@ __device__ __forceinline__ void dq_wgmma_body(
   }
 }
 
-__global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dq_wgmma_kernel(
-    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    __nv_bfloat16* __restrict__ dq, const float* __restrict__ out_scale, int H, int KvH,
-    int Sq, int Sk, int causal, int window, float scale) {
-  dq_wgmma_body<__nv_bfloat16, 128>(&tm_q, &tm_k, &tm_v, &tm_do, BwdRows<__nv_bfloat16>{}, lse,
-                                    delta, dq, out_scale, H, KvH, Sq, Sk, causal, window,
-                                    scale);
-}
+// the TMA-fed dQ kernels: dq_wgmma_body over maps of (T, D)
+#define BWD_DQ_WGMMA_KERNEL(NAME, T, D)                                                    \
+  __global__ void __launch_bounds__(3 * WG_THREADS, 1) NAME(                               \
+      const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,   \
+      const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,  \
+      const float* __restrict__ lse, const float* __restrict__ delta, T* __restrict__ dq,  \
+      const float* __restrict__ out_scale, int H, int KvH, int Sq, int Sk, int causal,     \
+      int window, float scale) {                                                           \
+    dq_wgmma_body<T, D>(&tm_q, &tm_k, &tm_v, &tm_do, BwdRows<T>{}, lse, delta, dq,          \
+                        out_scale, H, KvH, Sq, Sk, causal, window, scale);                 \
+  }
+BWD_DQ_WGMMA_KERNEL(flash_bwd_dq_wgmma_kernel, __nv_bfloat16, 128)
+BWD_DQ_WGMMA_KERNEL(flash_bwd_dq_wgmma96_kernel, __nv_bfloat16, 96)
+BWD_DQ_WGMMA_KERNEL(flash_bwd_dq_wgmma80_kernel, __nv_bfloat16, 80)
+BWD_DQ_WGMMA_KERNEL(flash_bwd_dq_wgmma_f16_kernel, __half, 128)
+BWD_DQ_WGMMA_KERNEL(flash_bwd_dq_wgmma96_f16_kernel, __half, 96)
+BWD_DQ_WGMMA_KERNEL(flash_bwd_dq_wgmma80_f16_kernel, __half, 80)
+#undef BWD_DQ_WGMMA_KERNEL
 
-__global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dq_wgmma96_kernel(
-    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    __nv_bfloat16* __restrict__ dq, const float* __restrict__ out_scale, int H, int KvH,
-    int Sq, int Sk, int causal, int window, float scale) {
-  dq_wgmma_body<__nv_bfloat16, 96>(&tm_q, &tm_k, &tm_v, &tm_do, BwdRows<__nv_bfloat16>{}, lse,
-                                   delta, dq, out_scale, H, KvH, Sq, Sk, causal, window,
-                                   scale);
-}
-
-__global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dq_wgmma80_kernel(
-    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    __nv_bfloat16* __restrict__ dq, const float* __restrict__ out_scale, int H, int KvH,
-    int Sq, int Sk, int causal, int window, float scale) {
-  dq_wgmma_body<__nv_bfloat16, 80>(&tm_q, &tm_k, &tm_v, &tm_do, BwdRows<__nv_bfloat16>{}, lse,
-                                   delta, dq, out_scale, H, KvH, Sq, Sk, causal, window,
-                                   scale);
-}
-
+// the D = 100 dQ kernels, whose producers copy the rows themselves
 __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dq_wgmma100_kernel(
     const __grid_constant__ BwdRows<__nv_bfloat16> src, const float* __restrict__ lse,
     const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
@@ -1696,26 +1650,6 @@ __global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dq_wgmma100_f16_k
     int window, float scale) {
   dq_wgmma_body<__half, 100>(nullptr, nullptr, nullptr, nullptr, src, lse, delta, dq,
                              out_scale, H, KvH, Sq, Sk, causal, window, scale);
-}
-
-__global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dq_wgmma_f16_kernel(
-    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    __half* __restrict__ dq, const float* __restrict__ out_scale, int H, int KvH,
-    int Sq, int Sk, int causal, int window, float scale) {
-  dq_wgmma_body<__half, 128>(&tm_q, &tm_k, &tm_v, &tm_do, BwdRows<__half>{}, lse, delta, dq,
-                             out_scale, H, KvH, Sq, Sk, causal, window, scale);
-}
-
-__global__ void __launch_bounds__(3 * WG_THREADS, 1) flash_bwd_dq_wgmma96_f16_kernel(
-    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    __half* __restrict__ dq, const float* __restrict__ out_scale, int H, int KvH,
-    int Sq, int Sk, int causal, int window, float scale) {
-  dq_wgmma_body<__half, 96>(&tm_q, &tm_k, &tm_v, &tm_do, BwdRows<__half>{}, lse, delta, dq,
-                            out_scale, H, KvH, Sq, Sk, causal, window, scale);
 }
 
 // ---- the dQ wgmma kernels at head dim 64 (bf16 and fp16)
@@ -2537,8 +2471,8 @@ constexpr CUtensorMapDataType map_type() {
                                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 }
 
-// a dK/dV kernel over T on D = 128's grid (bf16 at D = 128, 96 and 80, fp16
-// at 128 and 96): 128 keys a block, boxes of 64 rows of q and dO
+// a dK/dV kernel over T on D = 128's grid (D = 128, 96 or 80, bf16 or
+// fp16): 128 keys a block, boxes of 64 rows of q and dO
 template <typename T, typename K>
 cudaError_t dkv_wgmma128(K kernel, const Args& a, int D) {
   CUtensorMap m[4];
@@ -2560,11 +2494,11 @@ BwdRows<T> bwd_rows(const Args& a) {
   return src;
 }
 
-// whether a wgmma kernel of dQ and dK/dV takes (dtype, D): bf16 (dtype 1) at
-// 64, 80, 96, 100, 128 and 256, fp16 (dtype 2) at 64, 96, 100, 128 and 256
+// whether a wgmma kernel of dQ and dK/dV takes (dtype, D): bf16 (dtype 1)
+// and fp16 (dtype 2) alike at 64, 80, 96, 100, 128 and 256
 bool has_wgmma(int dtype, int D) {
-  if (dtype == 1) return D == 64 || D == 80 || D == 96 || D == 100 || D == 128 || D == 256;
-  return dtype == 2 && (D == 64 || D == 96 || D == 100 || D == 128 || D == 256);
+  return (dtype == 1 || dtype == 2) &&
+         (D == 64 || D == 80 || D == 96 || D == 100 || D == 128 || D == 256);
 }
 
 // a dK/dV kernel over T at D = 256 (bf16 or fp16): 64 keys a block, boxes
@@ -2599,12 +2533,12 @@ cudaError_t dkv_wgmma64(K kernel, const Args& a) {
 // flash_bwd_dkv_wgmma100_kernel (which takes the rows themselves, not maps),
 // on the same grid; at D = 64: flash_bwd_dkv_wgmma64_kernel; at D = 256:
 // flash_bwd_dkv_wgmma256_kernel, 64 keys a block. fp16 (dtype 2) at D = 128,
-// 96 and 100: flash_bwd_dkv_wgmma_f16_kernel,
-// flash_bwd_dkv_wgmma96_f16_kernel and flash_bwd_dkv_wgmma100_f16_kernel (its
-// rows too), on the D = 128 grid; at D = 64: flash_bwd_dkv_wgmma64_f16_kernel,
-// on the D = 64 grid; at D = 256: flash_bwd_dkv_wgmma256_f16_kernel, on the D
-// = 256 one. Any other pair (fp16 at 80 among them) returns
-// cudaErrorInvalidValue and launches nothing.
+// 96, 80 and 100: flash_bwd_dkv_wgmma_f16_kernel,
+// flash_bwd_dkv_wgmma96_f16_kernel, flash_bwd_dkv_wgmma80_f16_kernel and
+// flash_bwd_dkv_wgmma100_f16_kernel (its rows too), on the D = 128 grid; at
+// D = 64: flash_bwd_dkv_wgmma64_f16_kernel, on the D = 64 grid; at D = 256:
+// flash_bwd_dkv_wgmma256_f16_kernel, on the D = 256 one. Any other pair
+// returns cudaErrorInvalidValue and launches nothing.
 cudaError_t launch_dkv_wgmma(const Args& a, int D, int dtype) {
   if (!has_wgmma(dtype, D)) return cudaErrorInvalidValue;
   static const cudaError_t attr128 = set_smem(flash_bwd_dkv_wgmma_kernel, DKV_SMEM);
@@ -2621,14 +2555,15 @@ cudaError_t launch_dkv_wgmma(const Args& a, int D, int dtype) {
   static const cudaError_t attr256_f16 =
       set_smem(flash_bwd_dkv_wgmma256_f16_kernel, DKV256_SMEM);
   static const cudaError_t attr96_f16 = set_smem(flash_bwd_dkv_wgmma96_f16_kernel, DKV_SMEM);
+  static const cudaError_t attr80_f16 = set_smem(flash_bwd_dkv_wgmma80_f16_kernel, DKV_SMEM);
   const bool f16 = dtype == 2;
-  // fp16 has no kernel at 80 (has_wgmma)
+  // D is one of has_wgmma's six here
   const cudaError_t attr = D == 64    ? (f16 ? attr64_f16 : attr64)
                            : D == 100 ? (f16 ? attr100_f16 : attr100)
                            : D == 128 ? (f16 ? attr_f16 : attr128)
                            : D == 256 ? (f16 ? attr256_f16 : attr256)
                            : D == 96  ? (f16 ? attr96_f16 : attr96)
-                                      : attr80;
+                                      : (f16 ? attr80_f16 : attr80);
   if (attr != cudaSuccess) return attr;
   if (D == 100) {
     const dim3 grid(a.B * a.H, (a.Sk + 127) / 128);
@@ -2646,11 +2581,11 @@ cudaError_t launch_dkv_wgmma(const Args& a, int D, int dtype) {
   if (D == 256)
     return f16 ? dkv_wgmma256<__half>(flash_bwd_dkv_wgmma256_f16_kernel, a)
                : dkv_wgmma256<__nv_bfloat16>(flash_bwd_dkv_wgmma256_kernel, a);
-  // fp16 at 96 before the fp16 fallthrough, which is D = 128's kernel
-  if (f16 && D == 96) return dkv_wgmma128<__half>(flash_bwd_dkv_wgmma96_f16_kernel, a, D);
   if (f16)
-    return D == 64 ? dkv_wgmma64<__half>(flash_bwd_dkv_wgmma64_f16_kernel, a)
-                   : dkv_wgmma128<__half>(flash_bwd_dkv_wgmma_f16_kernel, a, D);
+    return D == 64   ? dkv_wgmma64<__half>(flash_bwd_dkv_wgmma64_f16_kernel, a)
+           : D == 96 ? dkv_wgmma128<__half>(flash_bwd_dkv_wgmma96_f16_kernel, a, D)
+           : D == 80 ? dkv_wgmma128<__half>(flash_bwd_dkv_wgmma80_f16_kernel, a, D)
+                     : dkv_wgmma128<__half>(flash_bwd_dkv_wgmma_f16_kernel, a, D);
   if (D == 64) return dkv_wgmma64<__nv_bfloat16>(flash_bwd_dkv_wgmma64_kernel, a);
   return dkv_wgmma128<__nv_bfloat16>(D == 96   ? flash_bwd_dkv_wgmma96_kernel
                                      : D == 80 ? flash_bwd_dkv_wgmma80_kernel
@@ -2658,8 +2593,8 @@ cudaError_t launch_dkv_wgmma(const Args& a, int D, int dtype) {
                                      a, D);
 }
 
-// a dQ kernel over T on D = 128's grid (bf16 at D = 128, 96 and 80, fp16 at
-// 128 and 96): 128 queries a block, boxes of 64 rows of k and v
+// a dQ kernel over T on D = 128's grid (D = 128, 96 or 80, bf16 or fp16):
+// 128 queries a block, boxes of 64 rows of k and v
 template <typename T, typename K>
 cudaError_t dq_wgmma128(K kernel, const Args& a, int D) {
   CUtensorMap m[4];
@@ -2703,11 +2638,12 @@ cudaError_t dq_wgmma64(K kernel, const Args& a) {
 // flash_bwd_dq_wgmma100_kernel (which takes the rows themselves, not maps),
 // on the same grid; at D = 64: flash_bwd_dq_wgmma64_kernel; at D = 256:
 // flash_bwd_dq_wgmma256_kernel, 64 q rows a block. fp16 (dtype 2) at D = 128,
-// 96 and 100: flash_bwd_dq_wgmma_f16_kernel, flash_bwd_dq_wgmma96_f16_kernel
-// and flash_bwd_dq_wgmma100_f16_kernel (its rows too), on the D = 128 grid;
-// at D = 64: flash_bwd_dq_wgmma64_f16_kernel, on the D = 64 grid; at D = 256:
-// flash_bwd_dq_wgmma256_f16_kernel, on the D = 256 one. Any other pair (fp16
-// at 80 among them) returns cudaErrorInvalidValue and launches nothing.
+// 96, 80 and 100: flash_bwd_dq_wgmma_f16_kernel,
+// flash_bwd_dq_wgmma96_f16_kernel, flash_bwd_dq_wgmma80_f16_kernel and
+// flash_bwd_dq_wgmma100_f16_kernel (its rows too), on the D = 128 grid; at
+// D = 64: flash_bwd_dq_wgmma64_f16_kernel, on the D = 64 grid; at D = 256:
+// flash_bwd_dq_wgmma256_f16_kernel, on the D = 256 one. Any other pair
+// returns cudaErrorInvalidValue and launches nothing.
 cudaError_t launch_dq_wgmma(const Args& a, int D, int dtype) {
   if (!has_wgmma(dtype, D)) return cudaErrorInvalidValue;
   static const cudaError_t attr128 = set_smem(flash_bwd_dq_wgmma_kernel, DQ_SMEM);
@@ -2722,14 +2658,15 @@ cudaError_t launch_dq_wgmma(const Args& a, int D, int dtype) {
   static const cudaError_t attr256_f16 =
       set_smem(flash_bwd_dq_wgmma256_f16_kernel, DQ256_SMEM);
   static const cudaError_t attr96_f16 = set_smem(flash_bwd_dq_wgmma96_f16_kernel, DQ_SMEM);
+  static const cudaError_t attr80_f16 = set_smem(flash_bwd_dq_wgmma80_f16_kernel, DQ_SMEM);
   const bool f16 = dtype == 2;
-  // fp16 has no kernel at 80 (has_wgmma)
+  // D is one of has_wgmma's six here
   const cudaError_t attr = D == 64    ? (f16 ? attr64_f16 : attr64)
                            : D == 100 ? (f16 ? attr100_f16 : attr100)
                            : D == 128 ? (f16 ? attr_f16 : attr128)
                            : D == 256 ? (f16 ? attr256_f16 : attr256)
                            : D == 96  ? (f16 ? attr96_f16 : attr96)
-                                      : attr80;
+                                      : (f16 ? attr80_f16 : attr80);
   if (attr != cudaSuccess) return attr;
   if (D == 100) {
     const dim3 grid(a.B * a.H, (a.Sq + 127) / 128);
@@ -2747,11 +2684,11 @@ cudaError_t launch_dq_wgmma(const Args& a, int D, int dtype) {
   if (D == 256)
     return f16 ? dq_wgmma256<__half>(flash_bwd_dq_wgmma256_f16_kernel, a)
                : dq_wgmma256<__nv_bfloat16>(flash_bwd_dq_wgmma256_kernel, a);
-  // fp16 at 96 before the fp16 fallthrough, which is D = 128's kernel
-  if (f16 && D == 96) return dq_wgmma128<__half>(flash_bwd_dq_wgmma96_f16_kernel, a, D);
   if (f16)
-    return D == 64 ? dq_wgmma64<__half>(flash_bwd_dq_wgmma64_f16_kernel, a)
-                   : dq_wgmma128<__half>(flash_bwd_dq_wgmma_f16_kernel, a, D);
+    return D == 64   ? dq_wgmma64<__half>(flash_bwd_dq_wgmma64_f16_kernel, a)
+           : D == 96 ? dq_wgmma128<__half>(flash_bwd_dq_wgmma96_f16_kernel, a, D)
+           : D == 80 ? dq_wgmma128<__half>(flash_bwd_dq_wgmma80_f16_kernel, a, D)
+                     : dq_wgmma128<__half>(flash_bwd_dq_wgmma_f16_kernel, a, D);
   if (D == 64) return dq_wgmma64<__nv_bfloat16>(flash_bwd_dq_wgmma64_kernel, a);
   return dq_wgmma128<__nv_bfloat16>(D == 96   ? flash_bwd_dq_wgmma96_kernel
                                     : D == 80 ? flash_bwd_dq_wgmma80_kernel
@@ -2791,9 +2728,9 @@ cudaError_t at_padded_dim(int which, int mma, const Args& a) {
 // dtype 0 = fp32, 1 = bf16, 2 = fp16. route 0 = simt (any dtype, D from 1
 // to 512), 1 = mma (bf16 or fp16, D a multiple of 8 up to 256, 16-byte
 // aligned bases, strides that are multiples of 8), 2 = wgmma (Sk > 0 and a
-// kernel for (dtype, D), `has_wgmma`: rows as mma's at bf16 D = 64, 80, 96,
-// 128 or 256 and fp16 D = 64, 96, 128 or 256; at D = 100, bf16 or fp16, 8-byte aligned
-// bases and strides that are multiples of 4); a route that cannot take the
+// kernel for (dtype, D), `has_wgmma`: rows as mma's at D = 64, 80, 96, 128
+// or 256, bf16 or fp16; at D = 100, 8-byte aligned bases and strides that
+// are multiples of 4); a route that cannot take the
 // inputs launches nothing, and so does an out_scale in fp32 or bf16
 cudaError_t dispatch(int which, int dtype, int route, int D, const Args& a) {
   const void* ptrs[4] = {a.q, a.k, a.v, a.dout};

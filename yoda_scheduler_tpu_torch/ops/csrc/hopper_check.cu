@@ -39,10 +39,11 @@
 //   maps), as flash_fwd.cu's fp16 Q K^T and P V;
 // - hopper_wgmma_ss64_f16: hopper_wgmma_ss64 on fp16 operands, as
 //   flash_bwd.cu's fp16 S^T = K Q^T, dP^T = V dO^T, S = Q K^T and dP = dO V^T;
-// - hopper_wgmma_ss96_f16: the same over rows 96 wide (A [128, 96], B [64,
-//   96]), each read as two 64-column boxes, the second zero-filled by TMA
-//   past column 96, with 6 k-steps, as the fp16 D = 96 backward kernels'
-//   S^T = K Q^T, dP^T = V dO^T, S = Q K^T and dP = dO V^T;
+// - hopper_wgmma_ss96_f16, hopper_wgmma_ss80_f16: the same over rows 96 or
+//   80 wide (A [128, W], B [64, W]), each read as two 64-column boxes, the
+//   second zero-filled by TMA past column W, with 6 or 5 k-steps (the 5th
+//   over the second box's columns 64-79), as the fp16 D = 96 and D = 80
+//   backward kernels' S^T = K Q^T, dP^T = V dO^T, S = Q K^T and dP = dO V^T;
 // - hopper_wgmma_rs64_f16: P [64, 128] from registers times V [128, 64], V
 //   one MN-major box, with the fp16 m64n64k16 RS form, as
 //   flash_fwd_wgmma64_f16_kernel's P V;
@@ -188,8 +189,8 @@ __global__ void __launch_bounds__(128) wgmma_rs_kernel(
   store_acc<128>(d, out);
 }
 
-// rows of D (128, or 96 over the same boxes, zero past column 96): D / 16
-// k-steps
+// rows of D (128, or 96 or 80 over the same boxes, zero past column D): D /
+// 16 k-steps
 template <typename T, int D = 128>
 __global__ void __launch_bounds__(128) wgmma_ss64_kernel(
     const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
@@ -686,12 +687,12 @@ int wgmma_ss64(const void* a, const void* b, int a_row0, void* out, void* stream
   return (int)cudaGetLastError();
 }
 
-// A [128, 96] and B [64, 96] (T, contiguous) through maps 96 wide, two
-// 64-column boxes a row, into wgmma_ss64_kernel<T, 96>
-template <typename T>
-int wgmma_ss64_96(const void* a, const void* b, int a_row0, void* out, void* stream) {
-  const int64_t dims_a[4] = {96, 128, 1, 1}, dims_b[4] = {96, 64, 1, 1};
-  const int64_t strides_a[3] = {96, 96 * 128, 96 * 128}, strides_b[3] = {96, 96 * 64, 96 * 64};
+// A [128, W] and B [64, W] (T, contiguous, W 96 or 80) through maps W wide,
+// two 64-column boxes a row, into wgmma_ss64_kernel<T, W>
+template <typename T, int W>
+int wgmma_ss64_wide(const void* a, const void* b, int a_row0, void* out, void* stream) {
+  const int64_t dims_a[4] = {W, 128, 1, 1}, dims_b[4] = {W, 64, 1, 1};
+  const int64_t strides_a[3] = {W, W * 128, W * 128}, strides_b[3] = {W, W * 64, W * 64};
   CUtensorMap map_a, map_b;
   if ((a_row0 != 0 && a_row0 != 64) ||
       !make_map_4d(&map_a, map_type<T>(), a, dims_a, strides_a, 128) ||
@@ -699,10 +700,10 @@ int wgmma_ss64_96(const void* a, const void* b, int a_row0, void* out, void* str
     return (int)cudaErrorInvalidValue;
   constexpr int smem = 2 * HALF + 2 * HALF64 + 1024;
   cudaError_t err = cudaFuncSetAttribute(
-      wgmma_ss64_kernel<T, 96>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      wgmma_ss64_kernel<T, W>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  wgmma_ss64_kernel<T, 96><<<1, 128, smem, (cudaStream_t)stream>>>(map_a, map_b, a_row0,
-                                                                  (float*)out);
+  wgmma_ss64_kernel<T, W><<<1, 128, smem, (cudaStream_t)stream>>>(map_a, map_b, a_row0,
+                                                                 (float*)out);
   return (int)cudaGetLastError();
 }
 
@@ -811,7 +812,16 @@ extern "C" int hopper_wgmma_ss64_f16(const void* a, const void* b, int a_row0, v
 // FLOAT16 maps, as the fp16 D = 96 backward kernels' score products
 extern "C" int hopper_wgmma_ss96_f16(const void* a, const void* b, int a_row0, void* out,
                                      void* stream) {
-  return wgmma_ss64_96<__half>(a, b, a_row0, out, stream);
+  return wgmma_ss64_wide<__half, 96>(a, b, a_row0, out, stream);
+}
+
+// a: [128, 80], b: [64, 80] fp16 contiguous; out: [64, 64] fp32 =
+// a[a_row0 : a_row0 + 64] @ b^T: the f16 m64n64k16 SS form over 80-wide
+// FLOAT16 maps (5 k-steps), as the fp16 D = 80 backward kernels' score
+// products
+extern "C" int hopper_wgmma_ss80_f16(const void* a, const void* b, int a_row0, void* out,
+                                     void* stream) {
+  return wgmma_ss64_wide<__half, 80>(a, b, a_row0, out, stream);
 }
 
 // p: [64, 64], v: [64, 128] bf16 contiguous; out: [64, 128] fp32 = p @ v

@@ -10,9 +10,8 @@ it, too), or "cur" for the package's own, built with the package's nvcc
 flags into `build/variants/`; each build's nvcc seconds are printed. fwd
 launches `attention.flash_fwd` on its automatic route; bwd launches
 `attention.flash_bwd_dq` and `attention.flash_bwd_dkv` on theirs (wgmma at
-head dims 64, 80, 96, 100, 128 and 256 in bf16, and 64, 96, 100, 128 and
-256 in fp16); both first print
-ptxas's registers and spills of each variant's wgmma kernels with its
+head dims 64, 80, 96, 100, 128 and 256, in bf16 and in fp16); both first
+print ptxas's registers and spills of each variant's wgmma kernels with its
 performance notes. `--route mma` launches both kinds on the mma route
 instead. Every launch is checked against the
 plain version, elementwise and by `tile_rel_l2`; bwd also reads, for each
@@ -46,7 +45,9 @@ heads of 64, first), where the three kernels run
 `flash_fwd_wgmma64_f16_kernel`, `flash_bwd_dq_wgmma64_f16_kernel` and
 `flash_bwd_dkv_wgmma64_f16_kernel`; with `--head-dim 80` those of
 `SHAPES_F16_80` (OPT-2.7B's attention, 32 heads of 80, first), where the
-forward runs `flash_fwd_wgmma80_f16_kernel` and dQ and dK/dV mma, and with
+three kernels run `flash_fwd_wgmma80_f16_kernel`,
+`flash_bwd_dq_wgmma80_f16_kernel` and `flash_bwd_dkv_wgmma80_f16_kernel`, and
+with
 `--head-dim 100` those of `SHAPES_F16_100` (OpenLLaMA-3B's attention in
 fp16 first), where the three kernels run `flash_fwd_wgmma100_f16_kernel`,
 `flash_bwd_dq_wgmma100_f16_kernel` and `flash_bwd_dkv_wgmma100_f16_kernel`;

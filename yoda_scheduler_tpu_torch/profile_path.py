@@ -41,7 +41,7 @@ on their head-dim-256 wgmma kernels and one on mma (`d256_backward_on_mma`;
 `gemma2b_train_windows()` traces those two alone); then OPT-1.3B's loss
 (all 24 layers, fp16, B=1, S=2048, remat) through its forward and backward,
 no optimizer step, with dQ and dK/dV on their fp16 head-dim-64 wgmma kernels
-and on mma (`fp16_backward_on_mma`; `opt13b_backward_windows()` traces those
+and on mma (`fp16_backward_on_mma(64)`; `opt13b_backward_windows()` traces those
 two alone); then one `llama_forward` at OPT-2.7B's widths (head dim 80,
 fp16) and one at OpenLLaMA-3B's in fp16 (100), B=1, S=2048, each with
 flash_fwd on its fp16 wgmma kernel and on the route it took before (mma at
@@ -55,11 +55,14 @@ GPT-J-6B's (256, fp16, 28 layers), B=1, S=2048, each with flash_fwd on its
 fp16 wgmma kernel and on mma, as before it (`neox_gptj_forward_windows()`
 traces those four alone); then GPT-J-6B's loss (all 28 layers, fp16) as
 OPT-1.3B's, with dQ and dK/dV on their fp16 head-dim-256 wgmma kernels and
-on mma (`fp16_d256_backward_on_mma`; `gptj6b_fp16_backward_windows()`
-traces those alone), each route traced twice in turns; last GPT-NeoX-20B's
+on mma (`fp16_backward_on_mma(256)`; `gptj6b_fp16_backward_windows()`
+traces those alone), each route traced twice in turns; then GPT-NeoX-20B's
 loss (fp16, 22 of its 44 layers: `NEOX20B_BACKWARD_LAYERS`) so, with dQ and
 dK/dV on their fp16 head-dim-96 wgmma kernels and on mma
-(`fp16_d96_backward_on_mma`; `neox20b_fp16_backward_windows()`). For each traced
+(`fp16_backward_on_mma(96)`; `neox20b_fp16_backward_windows()`); last
+OPT-2.7B's loss (fp16, all 32 layers) so, with dQ and dK/dV on their fp16
+head-dim-80 wgmma kernels and on mma (`fp16_backward_on_mma(80)`;
+`opt27b_fp16_backward_windows()`). For each traced
 window it prints one JSON line: the host wall time, the device's busy time
 (the union of kernel intervals) and idle share, the kernel launches, the
 device time grouped into conv / matmul / flash_fwd / flash_bwd_dq /
@@ -79,6 +82,7 @@ from __future__ import annotations
 import bisect
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import statistics
@@ -360,14 +364,14 @@ def d96_on_mma():
     return _off_wgmma(lambda key, d: d == 96)
 
 
-def fp16_backward_on_mma():
-    """Within it, fp16 takes the mma route for dQ and dK/dV at head dims 64
-    and 128, as before their fp16 wgmma kernels there; at 96, 100 and 256
-    they keep theirs (`fp16_d96_backward_on_mma`, `fp16_d100_backward_on_simt`
-    and `fp16_d256_backward_on_mma` move them), the forward keeps its wgmma
+def fp16_backward_on_mma(*dims):
+    """Within it, fp16 dQ and dK/dV at the head dims `dims` take the mma
+    route, as before their fp16 wgmma kernels there; fp16 dQ and dK/dV at
+    every other head dim keep theirs (`fp16_d100_backward_on_simt` moves
+    100, which no mma kernel takes), the fp16 forward keeps its wgmma
     kernels, and bf16 all of its."""
     return _off_wgmma(lambda key, d: (key[1] == torch.float16 and key[0] != "flash_fwd"
-                                      and d in (64, 128)))
+                                      and d in dims))
 
 
 def d80_forward_on_mma():
@@ -403,8 +407,8 @@ def fp16_d64_forward_on_mma():
 
 def fp16_d80_forward_on_mma():
     """Within it, the fp16 forward at head dim 80 takes the mma route, as
-    before its wgmma kernel; fp16 dQ and dK/dV stay on mma there, and bf16
-    at 80 keeps its wgmma kernels."""
+    before its wgmma kernel; fp16 dQ and dK/dV keep their wgmma kernels
+    there, and bf16 at 80 keeps its."""
     return _off_wgmma(lambda key, d: key == ("flash_fwd", torch.float16) and d == 80)
 
 
@@ -420,22 +424,6 @@ def fp16_d256_forward_on_mma():
     before its wgmma kernel; fp16 dQ and dK/dV keep their wgmma kernels
     there, and bf16 at 256 keeps its."""
     return _off_wgmma(lambda key, d: key == ("flash_fwd", torch.float16) and d == 256)
-
-
-def fp16_d96_backward_on_mma():
-    """Within it, fp16 dQ and dK/dV at head dim 96 take the mma route, as
-    before their wgmma kernels; the fp16 forward keeps its wgmma kernel
-    there, and bf16 at 96 keeps all of its."""
-    return _off_wgmma(lambda key, d: (key[1] == torch.float16 and key[0] != "flash_fwd"
-                                      and d == 96))
-
-
-def fp16_d256_backward_on_mma():
-    """Within it, fp16 dQ and dK/dV at head dim 256 take the mma route, as
-    before their wgmma kernels; the fp16 forward keeps its wgmma kernel
-    there, and bf16 at 256 keeps all of its."""
-    return _off_wgmma(lambda key, d: (key[1] == torch.float16 and key[0] != "flash_fwd"
-                                      and d == 256))
 
 
 def fp16_d100_forward_on_simt():
@@ -691,9 +679,9 @@ def _fp16_backward_windows(cfg, label: str, old_name: str, old) -> list[dict]:
 def opt13b_backward_windows() -> list[dict]:
     """OPT-1.3B's loss (24 layers) traced as `_fp16_backward_windows`, dQ
     and dK/dV on their fp16 head-dim-64 wgmma kernels and on mma
-    (`fp16_backward_on_mma`)."""
+    (`fp16_backward_on_mma(64)`)."""
     return _fp16_backward_windows(opt_1_3b(), "opt13b", "backward_on_mma",
-                                  fp16_backward_on_mma)
+                                  functools.partial(fp16_backward_on_mma, 64))
 
 
 def openllama3b_fp16_backward_windows() -> list[dict]:
@@ -707,18 +695,26 @@ def openllama3b_fp16_backward_windows() -> list[dict]:
 def gptj6b_fp16_backward_windows() -> list[dict]:
     """GPT-J-6B's loss (28 layers, fp16) traced as `_fp16_backward_windows`,
     dQ and dK/dV on their fp16 head-dim-256 wgmma kernels and on mma
-    (`fp16_d256_backward_on_mma`)."""
+    (`fp16_backward_on_mma(256)`)."""
     return _fp16_backward_windows(gptj_6b(), "gptj6b", "backward_on_mma",
-                                  fp16_d256_backward_on_mma)
+                                  functools.partial(fp16_backward_on_mma, 256))
 
 
 def neox20b_fp16_backward_windows() -> list[dict]:
     """GPT-NeoX-20B's loss (fp16, cut to `NEOX20B_BACKWARD_LAYERS` of its 44
     layers) traced as `_fp16_backward_windows`, dQ and dK/dV on their fp16
-    head-dim-96 wgmma kernels and on mma (`fp16_d96_backward_on_mma`)."""
+    head-dim-96 wgmma kernels and on mma (`fp16_backward_on_mma(96)`)."""
     return _fp16_backward_windows(gpt_neox_20b(NEOX20B_BACKWARD_LAYERS),
                                   f"neox20b_{NEOX20B_BACKWARD_LAYERS}_layers",
-                                  "backward_on_mma", fp16_d96_backward_on_mma)
+                                  "backward_on_mma", functools.partial(fp16_backward_on_mma, 96))
+
+
+def opt27b_fp16_backward_windows() -> list[dict]:
+    """OPT-2.7B's loss (all 32 layers, fp16) traced as
+    `_fp16_backward_windows`, dQ and dK/dV on their fp16 head-dim-80 wgmma
+    kernels and on mma (`fp16_backward_on_mma(80)`)."""
+    return _fp16_backward_windows(opt_2_7b(), "opt27b", "backward_on_mma",
+                                  functools.partial(fp16_backward_on_mma, 80))
 
 
 def moe_forward_window(cfg) -> dict:
@@ -804,6 +800,8 @@ def main() -> int:
     reports += gptj6b_fp16_backward_windows()
     _free()
     reports += neox20b_fp16_backward_windows()
+    _free()
+    reports += opt27b_fp16_backward_windows()
     out = Path(__file__).resolve().parents[1] / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "profile_path.json").write_text(json.dumps(
